@@ -1,0 +1,19 @@
+// K2: decoder attention on Hopper.  Replaces _fwd_bound_kernel
+// (mjvideo_tpu/ops/flash_attention.py:318, reached through _fwd_impl with
+// norm_bound): causal attention with a (B, K) key mask, GQA (q head h reads
+// kv head h // G), a per-row q_offset (null = 0), the bound shift with kmax
+// the largest masked key norm, and rows whose sum is 0 giving 0.  kv tiles
+// above the diagonal are skipped.  Design and bounds: see
+// bound_attention.cuh.
+#include "bound_attention.cuh"
+
+extern "C" int mjv_decoder_attention(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* kmax, const void* q_offset, void* out, int B, int Q, int K,
+    int Hq, int Hkv, int D, long long qsb, long long qss, long long ksb,
+    long long kss, long long vsb, long long vss, float scale, void* stream) {
+  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
+  return mjv::launch_bound_attention<128, true, false>(
+      q, k, v, mask, kmax, q_offset, out, B, Q, K, Hq, Hkv, qsb, qss, ksb, kss,
+      vsb, vss, scale, stream);
+}

@@ -1,0 +1,186 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, at first use, into
+``<checkout>/build/kernels/<hash of the sources>/`` (listed in
+``.gitignore``), and loaded with ``ctypes``.  Nothing is compiled or loaded
+at import time, so the CPU-only tests import this module freely.
+
+Each wrapper checks device, dtype, shape and layout, allocates its output
+with ``torch.empty``, launches on ``torch.cuda.current_stream()``, raises if
+the C entry point reports a CUDA error, and adds one to its entry in
+``launch_counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("vit_attention.cu", "decoder_attention.cu")
+HEADERS = ("bound_attention.cuh",)
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launches per kernel since the last reset_launch_counts().
+launch_counts: Dict[str, int] = {"vit_attention": 0, "decoder_attention": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(cuda_home) / "bin" / "nvcc")
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet; return
+    the library's path.  The compiler's ``-Xptxas -v`` report (registers,
+    shared memory, spills) is kept beside it as ``ptxas.txt``."""
+    digest = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        digest.update(name.encode())
+        digest.update((CSRC / name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    lib = out_dir / "libmjv_kernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libmjv_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "ptxas.txt").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.mjv_vit_attention.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P]
+        lib.mjv_vit_attention.restype = _I
+        lib.mjv_decoder_attention.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _L, _L, _L, _L, _L, _L, _F, _P]
+        lib.mjv_decoder_attention.restype = _I
+        _lib = lib
+    return _lib
+
+
+def _check_qkv(name: str, head_dim: int, *ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on {dev}, a CUDA "
+                             f"device; got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: q/k/v must be bfloat16, got {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name}: expected (B, S, H, D), got {tuple(t.shape)}")
+        D = t.shape[-1]
+        if t.stride(-1) != 1 or t.stride(-2) != D:
+            raise ValueError(f"{name}: heads must be dense (strides (.., D, 1)), "
+                             f"got {t.stride()}")
+        if t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: rows must be 16-byte aligned")
+        if t.shape[-1] != head_dim:
+            raise ValueError(f"{name}: built for head dim {head_dim}, got "
+                             f"{t.shape[-1]}")
+
+
+def _check_aux(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
+    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kmax: torch.Tensor, scale: float) -> torch.Tensor:
+    """K1.  q/k/v: (B, S, H, 64) bf16 with dense heads (row strides free);
+    kmax: (B, H) fp32.  Returns a dense (B, S, H, D) bf16 tensor."""
+    _check_qkv("vit_attention", 64, q, k, v)
+    B, S, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("vit_attention: q, k and v must share (B, S, H, D)")
+    _check_aux("vit_attention kmax", kmax, torch.float32, (B, H), q.device)
+    lib = _load()
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_vit_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(),
+            out.data_ptr(), B, S, H, D, q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1), float(scale), stream)
+    _raise_on("vit_attention", err)
+    launch_counts["vit_attention"] += 1
+    return out
+
+
+def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      attention_mask: Optional[torch.Tensor],
+                      kmax: torch.Tensor, q_offset: Optional[torch.Tensor],
+                      scale: float) -> torch.Tensor:
+    """K2.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense heads;
+    attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32; q_offset:
+    (B,) int32 or None (= 0).  Returns a dense (B, Q, Hq, D) bf16 tensor."""
+    _check_qkv("decoder_attention", 128, q, k, v)
+    B, Q, Hq, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (B, D) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError("decoder_attention: k/v must be (B, K, Hkv, D) with "
+                         "Hkv dividing Hq")
+    _check_aux("decoder_attention kmax", kmax, torch.float32, (B, Hkv),
+               q.device)
+    mask_ptr = off_ptr = None
+    if attention_mask is not None:
+        _check_aux("decoder_attention mask", attention_mask, torch.int32,
+                   (B, K), q.device)
+        mask_ptr = attention_mask.data_ptr()
+    if q_offset is not None:
+        _check_aux("decoder_attention q_offset", q_offset, torch.int32, (B,),
+                   q.device)
+        off_ptr = q_offset.data_ptr()
+    lib = _load()
+    out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_decoder_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+            kmax.data_ptr(), off_ptr, out.data_ptr(), B, Q, K, Hq, Hkv, D,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), float(scale), stream)
+    _raise_on("decoder_attention", err)
+    launch_counts["decoder_attention"] += 1
+    return out
