@@ -27,6 +27,10 @@
 // bf16 before the p @ v product, as the TPU kernel does.  Causal CTAs stop at
 // the last kv tile that touches the diagonal.  Tails (S = 1025, ragged T) are
 // masked in the kernel: keys past K give p = 0 and are staged as zeros.
+// WITH_LSE (K2 on the training path) also writes the true log-sum-exp of
+// each row, m_i + log(l_i), or kDeadLse where l_i == 0: shift invariance
+// makes it the exact lse whatever the bound, so the backward kernels
+// (decoder_attention_bwd.cu) need no bound of their own.
 // Later work: wgmma, TMA or cp.async double buffering, a producer warp.
 #pragma once
 
@@ -45,6 +49,7 @@ constexpr int kBlockK = 64;   // keys per kv tile
 constexpr int kWarps = 4;     // 16 q rows per warp
 constexpr int kThreads = kWarps * 32;
 constexpr int kLdP = kBlockK + 8;  // bf16 p rows, padded
+constexpr float kDeadLse = 1e30f;  // DEAD_LSE of flash_attention.py
 
 template <int D>
 struct Smem {
@@ -87,7 +92,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 // strides (ksb, kss, D, 1) and (vsb, vss, D, 1); out: dense (B, Q, Hq, D).
 // mask: (B, K) int32 or null; kmax: (B, Hkv) fp32; q_offset: (B,) or null.
 // FLOOR: K1's rule, l floored at 1e-30.  Otherwise K2's: l == 0 gives 0.
-template <int D, bool CAUSAL, bool FLOOR>
+// lse: (B, Hq, Q) fp32, written only when WITH_LSE.
+template <int D, bool CAUSAL, bool FLOOR, bool WITH_LSE>
 __global__ void __launch_bounds__(kThreads)
 bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const int* __restrict__ mask,
@@ -95,7 +101,8 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const int* __restrict__ q_offset, bf16* __restrict__ out,
                        int Q, int K, int Hq, int Hkv, long long qsb,
                        long long qss, long long ksb, long long kss,
-                       long long vsb, long long vss, float scale) {
+                       long long vsb, long long vss, float scale,
+                       float* __restrict__ lse) {
   using S = Smem<D>;
   constexpr int LT = S::kLdT;
   constexpr int LS = S::kLdS;
@@ -222,6 +229,10 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lr = warp_sum(l[r]);
     const int qi = q0 + warp * 16 + r;
     if (qi >= Q) continue;
+    if (WITH_LSE && lane == 0) {
+      lse[((long long)b * Hq + h) * Q + qi] =
+          lr > 0.f ? Mw[r] + logf(fmaxf(lr, 1e-30f)) : kDeadLse;
+    }
     bf16* orow = out + (((long long)b * Q + qi) * Hq + h) * D;
     for (int c = lane; c < D; c += 32) {
       const float acc = Sw[r * LS + c];
@@ -236,15 +247,15 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool CAUSAL, bool FLOOR>
+template <int D, bool CAUSAL, bool FLOOR, bool WITH_LSE = false>
 int launch_bound_attention(const void* q, const void* k, const void* v,
                            const void* mask, const void* kmax,
                            const void* q_offset, void* out, int B, int Q,
                            int K, int Hq, int Hkv, long long qsb,
                            long long qss, long long ksb, long long kss,
                            long long vsb, long long vss, float scale,
-                           void* stream) {
-  auto kernel = bound_attention_kernel<D, CAUSAL, FLOOR>;
+                           void* stream, void* lse = nullptr) {
+  auto kernel = bound_attention_kernel<D, CAUSAL, FLOOR, WITH_LSE>;
   const size_t smem = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -255,7 +266,7 @@ int launch_bound_attention(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const int*>(mask),
       static_cast<const float*>(kmax), static_cast<const int*>(q_offset),
       static_cast<bf16*>(out), Q, K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss,
-      scale);
+      scale, static_cast<float*>(lse));
   return int(cudaGetLastError());
 }
 

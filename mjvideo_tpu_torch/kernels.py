@@ -24,14 +24,18 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("vit_attention.cu", "decoder_attention.cu")
+SOURCES = ("vit_attention.cu", "decoder_attention.cu",
+           "decoder_attention_bwd.cu")
 HEADERS = ("bound_attention.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Launches per kernel since the last reset_launch_counts().
-launch_counts: Dict[str, int] = {"vit_attention": 0, "decoder_attention": 0}
+# Launches per kernel since the last reset_launch_counts();
+# "decoder_attention" counts K2 with and without the lse.
+launch_counts: Dict[str, int] = {
+    "vit_attention": 0, "decoder_attention": 0,
+    "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -85,9 +89,16 @@ def _load() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P]
         lib.mjv_vit_attention.restype = _I
         lib.mjv_decoder_attention.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _L, _L, _L, _L, _L, _L, _F, _P]
         lib.mjv_decoder_attention.restype = _I
+        bwd_args = [_P] * 8 + [_I] * 6 + [_L] * 8 + [_F, _P]
+        lib.mjv_decoder_attention_bwd_dkdv.argtypes = (
+            bwd_args[:8] + [_P, _P] + bwd_args[8:])
+        lib.mjv_decoder_attention_bwd_dkdv.restype = _I
+        lib.mjv_decoder_attention_bwd_dq.argtypes = (
+            bwd_args[:8] + [_P] + bwd_args[8:])
+        lib.mjv_decoder_attention_bwd_dq.restype = _I
         _lib = lib
     return _lib
 
@@ -148,39 +159,115 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      attention_mask: Optional[torch.Tensor],
-                      kmax: torch.Tensor, q_offset: Optional[torch.Tensor],
-                      scale: float) -> torch.Tensor:
-    """K2.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense heads;
-    attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32; q_offset:
-    (B,) int32 or None (= 0).  Returns a dense (B, Q, Hq, D) bf16 tensor."""
-    _check_qkv("decoder_attention", 128, q, k, v)
+def _check_decoder(name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, attention_mask: Optional[torch.Tensor],
+                   q_offset: Optional[torch.Tensor], *more: torch.Tensor):
+    """Checks shared by K2 and K4 (``more``: K4's dout, checked like q);
+    returns (mask pointer, offset pointer)."""
+    _check_qkv(name, 128, q, k, v, *more)
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     if (k.shape[0], k.shape[3]) != (B, D) or v.shape != k.shape or Hq % Hkv:
-        raise ValueError("decoder_attention: k/v must be (B, K, Hkv, D) with "
-                         "Hkv dividing Hq")
-    _check_aux("decoder_attention kmax", kmax, torch.float32, (B, Hkv),
-               q.device)
+        raise ValueError(f"{name}: k/v must be (B, K, Hkv, D) with Hkv "
+                         "dividing Hq")
     mask_ptr = off_ptr = None
     if attention_mask is not None:
-        _check_aux("decoder_attention mask", attention_mask, torch.int32,
-                   (B, K), q.device)
+        _check_aux(f"{name} mask", attention_mask, torch.int32, (B, K),
+                   q.device)
         mask_ptr = attention_mask.data_ptr()
     if q_offset is not None:
-        _check_aux("decoder_attention q_offset", q_offset, torch.int32, (B,),
-                   q.device)
+        _check_aux(f"{name} q_offset", q_offset, torch.int32, (B,), q.device)
         off_ptr = q_offset.data_ptr()
+    return mask_ptr, off_ptr
+
+
+def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      attention_mask: Optional[torch.Tensor],
+                      kmax: torch.Tensor, q_offset: Optional[torch.Tensor],
+                      scale: float, with_lse: bool = False):
+    """K2.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense heads;
+    attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32; q_offset:
+    (B,) int32 or None (= 0).  Returns a dense (B, Q, Hq, D) bf16 tensor,
+    and with ``with_lse`` also the (B, Hq, Q) fp32 lse (1e30 on dead rows).
+    """
+    name = "decoder_attention"
+    mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
+                                       q_offset)
+    B, Q, Hq, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    _check_aux(f"{name} kmax", kmax, torch.float32, (B, Hkv), q.device)
     lib = _load()
     out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Q), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_decoder_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-            kmax.data_ptr(), off_ptr, out.data_ptr(), B, Q, K, Hq, Hkv, D,
+            kmax.data_ptr(), off_ptr, out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Q, K, Hq, Hkv, D,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), float(scale), stream)
-    _raise_on("decoder_attention", err)
-    launch_counts["decoder_attention"] += 1
-    return out
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return (out, lse) if with_lse else out
+
+
+def _bwd_operands(name, q, k, v, dout, lse, delta, attention_mask,
+                  q_offset):
+    mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
+                                       q_offset, dout)
+    if dout.shape != q.shape:
+        raise ValueError(f"{name}: dout must have q's shape {tuple(q.shape)}")
+    B, Q, Hq, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    _check_aux(f"{name} lse", lse, torch.float32, (B, Hq, Q), q.device)
+    _check_aux(f"{name} delta", delta, torch.float32, (B, Hq, Q), q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), mask_ptr, off_ptr)
+    tail = (B, Q, K, Hq, Hkv, D, q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1), dout.stride(0),
+            dout.stride(1))
+    return ptrs, tail
+
+
+def decoder_attention_bwd_dkdv(q, k, v, dout, lse, delta,
+                               attention_mask: Optional[torch.Tensor],
+                               q_offset: Optional[torch.Tensor],
+                               scale: float):
+    """K4a.  q/dout: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense
+    heads; lse, delta: (B, Hq, Q) fp32; mask and q_offset as for K2.
+    Returns dense (B, K, Hkv, D) bf16 dk and dv, summed over each GQA
+    group."""
+    name = "decoder_attention_bwd_dkdv"
+    ptrs, tail = _bwd_operands(name, q, k, v, dout, lse, delta,
+                               attention_mask, q_offset)
+    lib = _load()
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_decoder_attention_bwd_dkdv(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *tail, float(scale), stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return dk, dv
+
+
+def decoder_attention_bwd_dq(q, k, v, dout, lse, delta,
+                             attention_mask: Optional[torch.Tensor],
+                             q_offset: Optional[torch.Tensor],
+                             scale: float) -> torch.Tensor:
+    """K4b.  Operands as for K4a; returns a dense (B, Q, Hq, D) bf16 dq."""
+    name = "decoder_attention_bwd_dq"
+    ptrs, tail = _bwd_operands(name, q, k, v, dout, lse, delta,
+                               attention_mask, q_offset)
+    lib = _load()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_decoder_attention_bwd_dq(
+            *ptrs, dq.data_ptr(), *tail, float(scale), stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return dq

@@ -1,9 +1,10 @@
 """Decoder LLM, InternLM2 / Llama path.
 
 Counterpart of ``mjvideo_tpu/models/decoder.py`` (reference
-``modeling_internlm2.py``) for reward scoring: separate q/k/v kernels (the
-packed ``wqkv`` is unpacked at import), GQA without repeated kv heads, fp32
-RMSNorm statistics, RoPE tables built per call, no KV cache and no LM head.
+``modeling_internlm2.py``) for reward scoring and training: separate q/k/v
+kernels (the packed ``wqkv`` is unpacked at import), GQA without repeated kv
+heads, fp32 RMSNorm statistics, RoPE tables built per call, each layer
+rematerialised per ``remat`` (``ops/remat.py``), no KV cache and no LM head.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from mjvideo_tpu.configs import LLMConfig
 from ..ops.attention import multi_head_attention
 from ..ops.matmul import dot
 from ..ops.norms import rms_norm
+from ..ops.remat import remat_wrap
 from ..ops.rope import apply_rope, rope_tables
 from ..utils.bridge import map_state
 
@@ -94,8 +96,12 @@ def decoder_forward(
     inputs_embeds: torch.Tensor,  # (B, S, C)
     attention_mask: Optional[torch.Tensor] = None,  # (B, S) 1 = real
     impl: str = "auto",
+    remat=True,
 ) -> torch.Tensor:
-    """All layers + the final norm: hidden states (B, S, C)."""
+    """All layers + the final norm: hidden states (B, S, C).
+
+    The stacked ``[L, ...]`` layer tensors are unbound once, so their
+    gradient is one stack of the per-layer gradients."""
     S = inputs_embeds.shape[1]
     cos, sin = rope_tables(
         S, cfg.head_dim, base=cfg.rope_theta,
@@ -104,10 +110,13 @@ def decoder_forward(
         max_position_embeddings=cfg.max_position_embeddings,
         device=inputs_embeds.device,
     )
+    block = remat_wrap(
+        lambda layer, x: _decoder_layer(cfg, layer, x, attention_mask, cos,
+                                        sin, impl), remat)
+    layers = map_state(lambda a: a.unbind(0), params["layers"])
     x = inputs_embeds
     for i in range(cfg.num_hidden_layers):
-        layer = map_state(lambda a: a[i], params["layers"])
-        x = _decoder_layer(cfg, layer, x, attention_mask, cos, sin, impl)
+        x = block(map_state(lambda a: a[i], layers), x)
     return rms_norm(x, params["norm"]["weight"], eps=cfg.rms_norm_eps)
 
 

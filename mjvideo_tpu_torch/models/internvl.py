@@ -103,9 +103,12 @@ def chat_forward(
     attention_mask: Optional[torch.Tensor] = None,
     impl: str = "auto",
     img_context_token_id: Optional[int] = None,
+    remat=True,
 ) -> torch.Tensor:
     """Final decoder hidden states (B, T, C); the LM head is skipped, since
-    the reward path reads hidden states only."""
+    the reward path reads hidden states only.  ``remat`` applies to the
+    decoder layers; the ViT and projector are frozen in every training stage
+    and build no autograd graph, so they have nothing to rematerialise."""
     input_embeds = dec.embed_tokens(params["language_model"], input_ids)
     vit_embeds = extract_feature(params, cfg, pixel_values, impl=impl)
     if img_context_token_id is None:
@@ -114,4 +117,4 @@ def chat_forward(
                                         img_context_token_id)
     return dec.decoder_forward(params["language_model"], cfg.llm,
                                input_embeds, attention_mask=attention_mask,
-                               impl=impl)
+                               impl=impl, remat=remat)

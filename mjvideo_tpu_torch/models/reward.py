@@ -174,9 +174,11 @@ def reward_forward(
     gating_pos: torch.Tensor,  # (B,)
     impl: str = "auto",
     img_context_token_id: Optional[int] = None,
+    remat=True,
 ) -> RewardOutput:
-    """Backbone forward + reward head: the scoring path."""
+    """Backbone forward + reward head: the scoring and training path."""
     hidden = chat_forward(params["model"], cfg.chat, pixel_values, input_ids,
                           attention_mask=attention_mask, impl=impl,
-                          img_context_token_id=img_context_token_id)
+                          img_context_token_id=img_context_token_id,
+                          remat=remat)
     return reward_head(params, cfg, hidden, input_ids, gating_pos)

@@ -1,12 +1,15 @@
-"""Plain twins of K1 and K2 against the JAX Pallas kernels in interpret mode.
+"""Plain twins of K1, K2 (with and without the lse), K4a and K4b against the
+JAX Pallas kernels in interpret mode, and the autograd Function against
+autograd through the exact-softmax oracle.
 
-The JAX side runs ``flash_attention`` as the JAX package's own tests do on
-the CPU (Pallas interpret mode).  Inputs come from one numpy generator and
-run in fp32.  Tolerance atol 2e-5: both sides compute the same bound-shifted
-sums in fp32 in different orders, the JAX package's own kernel-vs-XLA bar
-(``tests/test_flash_attention.py``).  The CUDA kernels themselves run only on
-the card: ``chip_smoke.py`` and ``tests/test_torch_kernels.py`` compare them
-with these twins there.
+The JAX side runs ``flash_attention``, ``_fwd_impl`` and ``_bwd_impl`` as the
+JAX package's own tests do on the CPU (Pallas interpret mode).  Inputs come
+from one numpy generator and run in fp32.  Tolerance atol 2e-5: both sides
+compute the same sums in fp32 in different orders, the JAX package's own
+kernel-vs-XLA bar (``tests/test_flash_attention.py``); the backward gradients
+reach about 6 in size and are held to atol 2e-5 with rtol 1e-5.  The CUDA
+kernels themselves run only on the card: ``chip_smoke.py`` and
+``tests/test_torch_kernels.py`` compare them with these twins there.
 """
 
 import jax.numpy as jnp
@@ -14,9 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from mjvideo_tpu.ops.flash_attention import flash_attention
+from mjvideo_tpu.ops.flash_attention import _bwd_impl, _fwd_impl, flash_attention
 from mjvideo_tpu_torch.ops import flash_attention as tfa
-from mjvideo_tpu_torch.ops.attention import multi_head_attention
+from mjvideo_tpu_torch.ops.attention import (
+    attention_plain,
+    make_attention_bias,
+    multi_head_attention,
+)
 
 torch.set_num_threads(1)
 
@@ -100,3 +107,128 @@ def test_wrappers_raise_for_kernel_less_shapes_and_bad_inputs():
         multi_head_attention(q, k, k, causal=False)  # non-causal GQA: K3
     with pytest.raises(ValueError):
         multi_head_attention(q, q, q, impl="flash")
+
+
+# (B, Q, K, Hq, Hkv, D, q_offset): causal self-attention with Q = K = 70 (not
+# a multiple of 64), and a per-row q_offset (each row's 45 queries start at
+# its own position of the 70 keys).
+BWD_CASES = {
+    "self": (2, 70, 70, 4, 2, 32, None),
+    "q_offset": (2, 45, 70, 4, 2, 32, (25, 10)),
+}
+
+
+def _bwd_inputs(case):
+    B, Q, K, Hq, Hkv, D, off = BWD_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q = _rand(rng, (B, Q, Hq, D))
+    k = _rand(rng, (B, K, Hkv, D))
+    v = _rand(rng, (B, K, Hkv, D))
+    do = _rand(rng, (B, Q, Hq, D))
+    mask = np.ones((B, K), np.int32)
+    mask[0, K - 9:] = 0            # ragged right padding
+    mask[1, :12] = 0               # left padding: early rows see no key
+    mask[1, 60:] = 0
+    off = None if off is None else np.asarray(off, np.int32)
+    return q, k, v, do, mask, off
+
+
+def _jax_forward_with_lse(q, k, v, mask, off):
+    return _fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(mask), None if off is None
+                     else jnp.asarray(off), True, None, None, None, True,
+                     True, norm_bound=True)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_k2_lse_twin_matches_pallas_bound_kernel(case):
+    """Causal, ragged mask, dead rows, GQA, per-row q_offset: the output and
+    the true lse (``DEAD_LSE`` on dead rows) of ``_fwd_bound_kernel`` with
+    ``with_lse``, whose (B, Hq, 8, Qp) layout is read as lse[:, :, 0, :Q]."""
+    q, k, v, _, mask, off = _bwd_inputs(case)
+    Q = q.shape[1]
+    out, lse = _jax_forward_with_lse(q, k, v, mask, off)
+    lse = np.asarray(lse)[:, :, 0, :Q]
+    got, got_lse = tfa.decoder_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(mask), None if off is None else torch.from_numpy(off),
+        return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=2e-5)
+    dead = lse >= tfa.DEAD_LSE * 0.5
+    assert dead.sum() > 0
+    np.testing.assert_array_equal(got_lse.numpy()[dead], lse[dead])
+    np.testing.assert_allclose(got_lse.numpy()[~dead], lse[~dead], atol=2e-5)
+    # Without the lse the twin returns the same output alone.
+    alone = tfa.decoder_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(mask), None if off is None else torch.from_numpy(off))
+    np.testing.assert_array_equal(alone.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_k4_twins_match_pallas_backward_kernels(case):
+    """``decoder_attention_backward_plain`` against ``_bwd_impl`` (K4a and
+    K4b in interpret mode) from the same out, lse and dO; dq is exactly 0 on
+    dead rows, dk and dv exactly 0 on masked keys."""
+    q, k, v, do, mask, off = _bwd_inputs(case)
+    Q = q.shape[1]
+    out, lse = _jax_forward_with_lse(q, k, v, mask, off)
+    want = _bwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(mask), None if off is None
+                     else jnp.asarray(off), out, lse, jnp.asarray(do), True,
+                     None, None, None, True)
+    T = torch.from_numpy
+    toff = None if off is None else T(off)
+    lse_n = np.ascontiguousarray(np.asarray(lse)[:, :, 0, :Q])
+    got = tfa.decoder_attention_backward_plain(
+        T(q), T(k), T(v), T(mask), toff, T(np.array(out)), T(lse_n), T(do))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=1e-5, err_msg=name)
+    dq, dk, dv = (g.numpy() for g in got)
+    dead = lse_n >= tfa.DEAD_LSE * 0.5  # (B, Hq, Q)
+    assert np.all(dq.transpose(0, 2, 1, 3)[dead] == 0.0)
+    assert np.all(dk[mask == 0] == 0.0) and np.all(dv[mask == 0] == 0.0)
+    # The kernels' twin, asked for each kernel's part alone, gives the same
+    # numbers as the driver's twin.
+    delta = tfa.attention_delta(T(np.array(out)), T(do))
+    args = (T(q), T(k), T(v), T(do), T(lse_n), delta, T(mask), toff)
+    _, dk2, dv2 = tfa.decoder_attention_bwd_plain(*args, want_dq=False)
+    dq2, none_k, none_v = tfa.decoder_attention_bwd_plain(*args,
+                                                          want_dkdv=False)
+    assert none_k is None and none_v is None
+    for a, b in ((dq2, got[0]), (dk2, got[1]), (dv2, got[2])):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_autograd_function_gradients_match_exact_softmax_autograd():
+    """Through ``decoder_attention`` with q, k, v requiring grad (the
+    Function: K2-with-lse twin forward, K4 twin backward) against autograd
+    through ``attention_plain`` with the causal and padding bias.  Ragged
+    right padding only: a row with no visible key is 0 here but uniform in
+    the oracle."""
+    rng = np.random.default_rng(3)
+    B, S, Hq, Hkv, D = 2, 67, 4, 2, 16
+    q0, k0, v0 = (_rand(rng, s) for s in
+                  ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    do = torch.from_numpy(_rand(rng, (B, S, Hq, D)))
+    mask = np.ones((B, S), np.int32)
+    mask[1, S - 20:] = 0
+    mask_t = torch.from_numpy(mask)
+    grads = []
+    for path in ("function", "oracle"):
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in (q0, k0, v0))
+        if path == "function":
+            out = tfa.decoder_attention(q, k, v, mask_t)
+        else:
+            bias = make_attention_bias(mask_t, S, S, True, device=q.device)
+            out = attention_plain(q, k, v, bias=bias)
+        grads.append((out,) + torch.autograd.grad(out, (q, k, v), do))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), *grads):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=2e-5, rtol=1e-5, err_msg=name)
+    # Without grad the same call takes K2's path and builds no graph.
+    with torch.no_grad():
+        plain = tfa.decoder_attention(*(torch.from_numpy(a)
+                                        for a in (q0, k0, v0)), mask_t)
+    np.testing.assert_array_equal(plain.numpy(), grads[0][0].detach().numpy())

@@ -5,9 +5,10 @@ This file imports no JAX, so it runs on a machine with a card and no JAX:
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda -q
 
 (``--noconftest`` skips the JAX device setup of ``tests/conftest.py``.)
-Without a card every test here skips.  Tolerance: max|kernel - plain| /
-max|plain| <= 2**-7, one bf16 ulp of the largest output at worst, the bound
-``chip_smoke.py`` states.
+Without a card every test here skips.  Tolerances, the bounds
+``chip_smoke.py`` states: each bf16 output (K1, K2, K4a's dk and dv, K4b's
+dq) to max|kernel - plain| / max|plain| <= 2**-7, one bf16 ulp of the
+largest output at worst; K2's fp32 lse to max|kernel - plain| <= LSE_TOL.
 """
 
 import pytest
@@ -29,9 +30,22 @@ def _randn(gen, dev, *shape):
     return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
 
+LSE_TOL = 1e-5
+
+
 def _assert_close(got, want):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2 ** -7 * want.float().abs().max().item(), err
+
+
+def _decoder_inputs(g, dev, B=2, T=130, Q=None):
+    q = _randn(g, dev, B, Q or T, 4, 128)
+    k = _randn(g, dev, B, T, 2, 128)
+    v = _randn(g, dev, B, T, 2, 128)
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[1, :3] = 0
+    mask[1, 100:] = 0
+    return q, k, v, mask
 
 
 @pytest.mark.cuda
@@ -75,3 +89,65 @@ def test_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
     q = torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         fa.vit_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_k2_lse_and_k4_match_twins(cuda_device):
+    """K2 with the lse, K4a and K4b against their twins: GQA, a ragged mask
+    with dead rows, T not a multiple of 64, and a per-row q_offset."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for Q, off in ((None, None), (75, (40, 55))):
+        q, k, v, mask = _decoder_inputs(g, cuda_device, Q=Q)
+        off = (None if off is None else
+               torch.tensor(off, dtype=torch.int32, device=cuda_device))
+        scale = 128 ** -0.5
+        kmax = fa.key_norm_max(k, mask)
+        before = dict(kernels.launch_counts)
+        out, lse = kernels.decoder_attention(q, k, v, mask, kmax, off, scale,
+                                             with_lse=True)
+        ref, ref_lse = fa.decoder_attention_plain(q, k, v, mask, off,
+                                                  return_lse=True)
+        _assert_close(out, ref)
+        dead = ref_lse >= fa.DEAD_LSE * 0.5
+        assert dead.any() or off is not None  # offsets pass row 1's pad
+        assert torch.equal(lse[dead], ref_lse[dead])
+        assert (lse - ref_lse)[~dead].abs().max().item() <= LSE_TOL
+        dout = _randn(g, cuda_device, *q.shape)
+        delta = fa.attention_delta(ref, dout)
+        dk, dv = kernels.decoder_attention_bwd_dkdv(q, k, v, dout, ref_lse,
+                                                    delta, mask, off, scale)
+        dq = kernels.decoder_attention_bwd_dq(q, k, v, dout, ref_lse, delta,
+                                              mask, off, scale)
+        for name in ("decoder_attention", "decoder_attention_bwd_dkdv",
+                     "decoder_attention_bwd_dq"):
+            assert kernels.launch_counts[name] == before[name] + 1
+        rdq, rdk, rdv = fa.decoder_attention_bwd_plain(q, k, v, dout, ref_lse,
+                                                       delta, mask, off)
+        _assert_close(dk, rdk)
+        _assert_close(dv, rdv)
+        _assert_close(dq, rdq)
+        assert dk[mask == 0].abs().max().item() == 0.0
+        assert dv[mask == 0].abs().max().item() == 0.0
+        assert not dq.transpose(1, 2)[dead].any()
+
+
+@pytest.mark.cuda
+def test_autograd_function_launches_k2_lse_and_k4(cuda_device):
+    """With q, k, v requiring grad, ``decoder_attention`` runs K2 with the
+    lse forward and K4a/K4b backward, and its gradients match the twins'."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, mask = _decoder_inputs(g, cuda_device)
+    dout = _randn(g, cuda_device, *q.shape)
+    before = dict(kernels.launch_counts)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.decoder_attention(*leaves, mask)
+    grads = torch.autograd.grad(out, leaves, dout)
+    for name in ("decoder_attention", "decoder_attention_bwd_dkdv",
+                 "decoder_attention_bwd_dq"):
+        assert kernels.launch_counts[name] == before[name] + 1
+    ref, ref_lse = fa.decoder_attention_plain(q, k, v, mask, return_lse=True)
+    want = fa.decoder_attention_backward_plain(q, k, v, mask, None, ref,
+                                               ref_lse, dout)
+    _assert_close(out, ref)
+    for got, w in zip(grads, want):
+        _assert_close(got, w)

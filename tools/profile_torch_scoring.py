@@ -17,6 +17,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -27,6 +28,8 @@ def _group(name: str) -> str:
     n = name.lower()
     if "bound_attention" in n:
         return "attention kernels (K1/K2)"
+    if "bwd_dkdv" in n or "bwd_dq" in n:
+        return "attention backward kernels (K4a/K4b)"
     if "gemm" in n or "nvjet" in n or "xmma" in n or "cutlass" in n:
         return "matmul (cuBLAS)"
     if "reduce" in n or "norm" in n:
@@ -69,6 +72,18 @@ def main() -> int:
             scorer.score_batch(pix, ids, gpos)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    report(prof, wall, STEPS, f"requests of {len(ids)} clips", "request",
+           smi, args.out)
+    return 0
+
+
+def report(prof, wall: float, steps: int, what: str, unit: str, smi: str,
+           out, unprofiled: Optional[float] = None) -> None:
+    """Print wall time, busy share and device time by group and by kernel
+    per ``unit``; write the per-kernel list and the table to ``out``.
+    ``unprofiled``: seconds per ``unit`` of the same work without the
+    profiler, against which the busy share is also taken."""
+    import torch
 
     kernels = {}
     for ev in prof.key_averages():
@@ -77,27 +92,28 @@ def main() -> int:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + t
     dev_us = sum(kernels.values())
     wall_us = wall * 1e6
-    print(f"{STEPS} requests of {len(ids)} clips: wall "
-          f"{wall * 1e3 / STEPS:.2f} ms/request, device kernel time "
-          f"{dev_us / 1e3 / STEPS:.2f} ms/request, busy share "
+    print(f"{steps} {what}: wall {wall * 1e3 / steps:.2f} ms/{unit}, device "
+          f"kernel time {dev_us / 1e3 / steps:.2f} ms/{unit}, busy share "
           f"{dev_us / wall_us:.3f}")
+    if unprofiled is not None:
+        print(f"without the profiler: wall {unprofiled * 1e3:.2f} ms/{unit}, "
+              f"busy share {dev_us / steps / (unprofiled * 1e6):.3f}")
     groups = {}
     for name, t in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + t
     for name, t in sorted(groups.items(), key=lambda x: -x[1]):
-        print(f"  {t / 1e3 / STEPS:9.2f} ms/request {t / dev_us:6.1%}  {name}")
-    lines = [f"{t / 1e3 / STEPS:9.3f} ms/request {t / dev_us:6.1%}  {n}"
+        print(f"  {t / 1e3 / steps:9.2f} ms/{unit} {t / dev_us:6.1%}  {name}")
+    lines = [f"{t / 1e3 / steps:9.3f} ms/{unit} {t / dev_us:6.1%}  {n}"
              for n, t in sorted(kernels.items(), key=lambda x: -x[1])]
     print("top kernels:")
     for line in lines[:15]:
         print("  " + line[:160])
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(
             f"card: {smi}\n" + "\n".join(lines) + "\n\n" +
             prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=60))
-    return 0
 
 
 if __name__ == "__main__":
