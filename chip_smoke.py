@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths once on
-one CUDA card.
+"""Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths and its
+InternVL2-2B judge once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -43,7 +43,31 @@ Phases (any failure raises and exits non-zero):
    of the flattened gradient, held to FIDELITY_REL_L2 and FIDELITY_COS.
 7. Training time: TRAIN_TIMED_STEPS more micro-steps; the median of those
    that only accumulate and of those that also step the optimizer.
-8. Prints the kernel summary line and, last, the contract line
+8. (Run with phases 2 and 3, before the paths.)  K3 (the exact softmax)
+   and K2r (the per-row bound) against their twins at the InternVL2-2B
+   judge's shapes (JUDGE_SHAPES: the pair's left-padded
+   full-prompt prefill with dead rows exactly 0, one video's prefix
+   prefill, and the suffix continuation over the cache at q_offset 2,308),
+   the kernels K2, K3 and K2r alone timed in turns at (2, 3072, 16/8, 128)
+   (the wrappers' times include each bound's reduction), and K2r's prefix
+   rows held bit-identical between a prefix-only and a full-prompt prefill
+   of the same bf16 q/k/v.
+9. The judge: an ``InternVLJudge`` on a 2B chat state with the LM head
+   (random bf16 weights from a fresh generator at SEED, 64 new tokens,
+   seeded 8-frame 448 px pixels in place of decoded videos) answers a pair
+   through ``judge_pair`` with the overall prompt (the full-prompt path: its
+   suffix exceeds the 128-token bucket) and a pair with a short question
+   (the prefix path: two prefix prefills and one continuation), then the
+   short question again under ``_CACHE_BOUND = "rows"``.  The launch
+   counters must show 24 K1 per video encoded and 24 K3 (K2r under "rows")
+   per prefill or continuation, none in decode steps and no K2.  Each
+   path's teacher-forced per-step logits are held against the same weights
+   in fp32 through ``impl="plain"`` on the kernel path's tokens, to
+   LOGITS_REL_TOL of max|logit|.  Reports the prefix path's first-step
+   logits against the full prompt's and the share of greedy tokens they
+   agree on; prints prefill ms, ms per decode step at B = 2, answers/s for
+   a pair and the peak memory.
+10. Prints the kernel summary line and, last, the contract line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,6 +116,27 @@ TRAIN_TIMED_STEPS = 8                 # 4 that accumulate, 4 that also step
 # alike (PERF.md section 6, PR 2).
 FIDELITY_REL_L2 = 5e-2
 FIDELITY_COS = 0.998
+# K3 and K2r at the judge's shapes, (B, Q, K, Hq, Hkv, D, q_offset): the
+# pair's full prompt in the 3,072 bucket (the overall prompt is 3,016
+# ByteTokenizer tokens with 8 frames), one video's shared prefix (2,308
+# tokens in the 2,368 bucket), and a suffix bucket of 128 over the prefix's
+# cache of 2,368 + 128 + 64 slots.
+JUDGE_SHAPES = {
+    "prefill": (2, 3072, 3072, 16, 8, 128, None),
+    "prefix": (1, 2368, 2368, 16, 8, 128, None),
+    "continuation": (2, 128, 2560, 16, 8, 128, 2308),
+}
+JUDGE_PREFIX = 2308   # real tokens of the shared prefix (system + frames)
+JUDGE_SUFFIX = 25     # real tokens of JUDGE_QUESTION's suffix
+JUDGE_FRAMES = 8
+JUDGE_NEW_TOKENS = 64
+JUDGE_CAPTION = "A red fox runs through fresh snow at dawn."
+JUDGE_QUESTION = "Which video is better?"
+JUDGE_DECODE_STEPS = 16  # decode steps timed at B = 2
+# Teacher-forced per-step logits of each judge path, bf16 kernels against
+# fp32 plain on the same tokens: max|delta| / max|plain logit|.  Set from
+# the seed survey (PERF.md section 6).
+LOGITS_REL_TOL = 1.5e-1
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -244,6 +289,419 @@ def check_decoder_kernels(randn, shape, ragged):
     return readings
 
 
+def _judge_inputs(randn, shape):
+    """q, k, v, the (B, K) int32 mask, q_offset and the (B, Q) dead rows of
+    one JUDGE_SHAPES entry.  The prefill left-pads both rows (56 and 160
+    pad keys, so their first queries see no key); the prefix masks its
+    bucket's tail; the continuation marks each row's prefix and suffix
+    slots valid."""
+    import torch
+
+    B, Q, K, Hq, Hkv, D, off = shape
+    q, k, v = randn(B, Q, Hq, D), randn(B, K, Hkv, D), randn(B, K, Hkv, D)
+    mask = torch.ones((B, K), dtype=torch.int32, device=q.device)
+    if off is None and B == 2:
+        mask[0, :56] = 0
+        mask[1, :160] = 0
+    elif off is None:
+        mask[:, JUDGE_PREFIX:] = 0
+    else:
+        mask[:, off + JUDGE_SUFFIX:] = 0
+        off = torch.full((B,), off, dtype=torch.int32, device=q.device)
+    pos = torch.arange(Q, device=q.device)[None] + (0 if off is None
+                                                     else off[:, None])
+    pos = pos.expand(B, Q).clamp(max=K - 1).long()
+    seen = torch.cumsum(mask, 1).gather(1, pos)
+    return q, k, v, mask, off, seen == 0
+
+
+def check_judge_kernels(randn, name, shape):
+    """K3 and K2r against their twins on one set of inputs."""
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask, off, dead = _judge_inputs(randn, shape)
+    zero = (f"{int(dead.sum())} dead rows",
+            lambda got: not got[0][dead].any())
+    label = f"{shape[:6]} {name}"
+    return {
+        "K3": _check_kernel(
+            f"K3 exact_attention {label}",
+            lambda: fa.exact_attention(q, k, v, mask, off),
+            lambda: fa.exact_attention_plain(q, k, v, mask, off), zero=zero),
+        "K2r": _check_kernel(
+            f"K2r decoder_attention_rows {label}",
+            lambda: fa.decoder_attention_rows(q, k, v, mask, off),
+            lambda: fa.decoder_attention_rows_plain(q, k, v, mask, off),
+            zero=zero),
+    }
+
+
+def time_shifts_in_turns(randn, rounds=10):
+    """The three causal forward kernels on the judge's prefill inputs, K2
+    (global bound), K3 (exact) and K2r (per-row bound), launched directly
+    with their bounds reduced beforehand, timed in turns (K2, K3, K2r, K2r,
+    K3, K2) by CUDA events; returns the medians in ms."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask, _, _ = _judge_inputs(randn, JUDGE_SHAPES["prefill"])
+    scale = q.shape[-1] ** -0.5
+    kmax = fa.key_norm_max(k, mask)
+    rows = fa.row_key_bound(k, mask, None, q.shape[1], q.shape[2])
+    runs = {
+        "K2": lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                                scale),
+        "K3": lambda: kernels.exact_attention(q, k, v, mask, None, scale),
+        "K2r": lambda: kernels.decoder_attention_rows(q, k, v, mask, rows,
+                                                      None, scale),
+    }
+    times = {name: [] for name in runs}
+    for fn in runs.values():
+        for _ in range(3):
+            fn()
+    for _ in range(rounds):
+        for name in ("K2", "K3", "K2r", "K2r", "K3", "K2"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            runs[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    med = {name: statistics.median(t) for name, t in times.items()}
+    print(f"kernels alone at {JUDGE_SHAPES['prefill'][:6]}, in turns: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in med.items())
+          + f" (median of {2 * rounds} each; K3/K2 {med['K3'] / med['K2']:.3f}"
+          f", K2r/K2 {med['K2r'] / med['K2']:.3f})")
+    return med
+
+
+def check_k2r_prefix_rows(randn):
+    """K2r on a full prompt (the short question's 2,333 tokens in the
+    2,368 bucket) and on its prefix alone (2,308 tokens, the rest of the
+    bucket pad) from the same bf16 q/k/v: the prefix rows must be
+    bit-identical."""
+    import torch
+
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    B, T, _, Hq, Hkv, D, _ = JUDGE_SHAPES["prefix"]
+    P = JUDGE_PREFIX
+    q, k, v = randn(B, T, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+    mask = torch.ones((B, T), dtype=torch.int32, device=q.device)
+    mask[:, P + JUDGE_SUFFIX:] = 0
+    pmask = mask.clone()
+    pmask[:, P:] = 0
+    pad = randn(B, T - P, Hq, D)
+    qp = torch.cat([q[:, :P], pad], 1)
+    kp = torch.cat([k[:, :P], pad[:, :, :Hkv]], 1)
+    vp = torch.cat([v[:, :P], pad[:, :, Hkv:2 * Hkv]], 1)
+    full = fa.decoder_attention_rows(q, k, v, mask)
+    part = fa.decoder_attention_rows(qp, kp, vp, pmask)
+    same = bool(torch.equal(full[:, :P], part[:, :P]))
+    print(f"K2r prefix rows: {P} rows bit-identical between a prefix-only "
+          f"and a full-prompt prefill: {same}")
+    if not same:
+        raise RuntimeError("K2r prefix rows differ between the prefix-only "
+                           "and the full-prompt prefill")
+    return same
+
+
+def make_judge(state=None, generator=None, device=None):
+    """An ``InternVLJudge`` on the 2B chat config rebased on the
+    ``ByteTokenizer``, with random bf16 weights drawn on the card from
+    ``generator`` (or ``state``, e.g. an fp32 copy, which then runs the
+    plain path).  Its videos are seeded pixels: a video's name seeds its
+    frames, so two judges see the same ones."""
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu.data.prompts import rebase_img_context_id
+    from mjvideo_tpu_torch import (
+        ByteTokenizer,
+        InternVLJudge,
+        extract_feature,
+        init_chat_params,
+        internvl2_2b_chat_config,
+    )
+    from mjvideo_tpu_torch.utils.bridge import first_tensor
+
+    base = internvl2_2b_chat_config()
+    tok = ByteTokenizer(pad_token_id=base.llm.pad_token_id)
+    cfg = rebase_img_context_id(base, tok)
+    impl = "auto"
+    if state is None:
+        state = init_chat_params(cfg, generator=generator, device=device,
+                                 dtype=torch.bfloat16, with_lm_head=True)
+    elif first_tensor(state).dtype == torch.float32:
+        impl = "plain"
+
+    class SeededVideoJudge(InternVLJudge):
+        """Seeded pixels in place of a decoded video: the card's machine
+        has no video decoder."""
+
+        def _encode_video(self, video_path):
+            rng = np.random.default_rng([SEED, sum(map(ord, video_path))])
+            size = self.cfg.image_size
+            pix = rng.normal(size=(JUDGE_FRAMES, size, size, 3))
+            # bf16 pixels, as the judge feeds, in the weights' dtype.
+            pix = torch.from_numpy(pix).to(self.device, torch.bfloat16)
+            dtype = first_tensor(self.params["vision_model"]).dtype
+            with torch.no_grad():
+                vis = extract_feature(self.params, self.cfg, pix.to(dtype),
+                                      impl=self.attn_impl)
+            return vis, [1] * JUDGE_FRAMES
+
+    return SeededVideoJudge(cfg, state, tok, num_segments=JUDGE_FRAMES,
+                            max_new_tokens=JUDGE_NEW_TOKENS, attn_impl=impl)
+
+
+def _full_inputs(judge, prompt, videos):
+    """The full-prompt path's inputs: left-padded ids and mask, the
+    generation config, and the videos' embeds."""
+    import torch
+
+    from mjvideo_tpu.data.prompts import build_video_question
+    from mjvideo_tpu_torch.models.generate import batch_chat_inputs
+
+    preps = [judge._prep(p) for p in videos]
+    ids, mask, gc = batch_chat_inputs(
+        judge.cfg, judge.tokenizer,
+        [build_video_question(prompt, len(n)) for _, n in preps],
+        [n for _, n in preps], generation_config=judge._gc())
+    return (ids.to(judge.device), mask.to(judge.device), gc,
+            torch.cat([v for v, _ in preps]))
+
+
+def path_runner(judge, prompt, videos, prefix):
+    """``run(**kw)``: the judge's generation for ``prompt`` by one path
+    (tokens, or with ``teacher_tokens`` the per-step logits)."""
+    from mjvideo_tpu_torch.models.generate import (
+        generate,
+        generate_from_prefix,
+    )
+
+    if prefix:
+        state, sids, smask, gc = judge._prefix_inputs(prompt, videos)
+        return lambda **kw: generate_from_prefix(
+            judge.params, judge.cfg, state, sids, smask,
+            generation_config=gc, impl=judge.attn_impl, **kw)
+    ids, mask, gc, vis = _full_inputs(judge, prompt, videos)
+    return lambda **kw: generate(judge.params, judge.cfg, ids, mask,
+                                 generation_config=gc, vision_embeds=vis,
+                                 impl=judge.attn_impl, **kw)
+
+
+def logits_fidelity(judge, plain_judge, prompt, videos, prefix, label):
+    """Teacher-forced per-step logits of one path, the kernel judge's
+    against the fp32 plain judge's on the kernel path's greedy tokens:
+    (max|delta|, max|delta| / max|plain|, tokens, kernel logits)."""
+    toks = path_runner(judge, prompt, videos, prefix)()
+    got = path_runner(judge, prompt, videos, prefix)(teacher_tokens=toks)
+    ref = path_runner(plain_judge, prompt, videos, prefix)(
+        teacher_tokens=toks)
+    if not bool(got.isfinite().all()):
+        raise RuntimeError(f"{label}: non-finite logits")
+    err, rel = _rel_err(got, ref)
+    print(f"judge {label}: greedy tokens of row 0 begin {toks[0, :8].tolist()}"
+          f"; teacher-forced logits over {toks.shape[1]} steps, max|delta| "
+          f"{err:.4e}, relative to max|plain logit| {rel:.4e} (bound "
+          f"{LOGITS_REL_TOL:.1e})")
+    return err, rel, toks, got
+
+
+def _judge_launches(label, want):
+    """Hold the launch counters to ``want`` (names not given: 0)."""
+    from mjvideo_tpu_torch import kernels
+
+    got = dict(kernels.launch_counts)
+    print(f"judge {label} launches: {got}")
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise RuntimeError(f"judge {label}: launches {got}, want {full}")
+    return got
+
+
+def judge_phase(device, seed=SEED, timing=True):
+    """Phase 9.  Returns the readings and the launch counts by path."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import (
+        judge_pair,
+        kernels,
+        map_state,
+        overall_prompt,
+    )
+    from mjvideo_tpu_torch.models import generate as gen
+
+    videos = ("video_0", "video_1")
+    gc.collect()  # earlier phases' states (the judge's caches hold cycles)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    judge = make_judge(generator=torch.Generator(device=device)
+                       .manual_seed(seed), device=device)
+    L_vit = judge.cfg.vision.num_hidden_layers  # select_layer -1: all run
+    L_llm = judge.cfg.llm.num_hidden_layers
+    out = {}
+    launches = {}
+
+    # The full-prompt path (the overall prompt overflows the suffix bucket).
+    kernels.reset_launch_counts()
+    s0, s1, r0, r1 = judge_pair(judge, *videos, JUDGE_CAPTION)
+    torch.cuda.synchronize()
+    launches["judge_full"] = _judge_launches(
+        "full prompt", {"vit_attention": 2 * L_vit, "exact_attention": L_llm})
+    # At random weights the greedy ids lie above the ByteTokenizer's 261
+    # (bytes and specials), which decode to nothing: answers are text,
+    # often empty, and ratings 0.
+    print(f"judge full prompt: ratings {s0}, {s1}; answers {r0!r:.60}, "
+          f"{r1!r:.60}")
+    # The prefix path: two prefix prefills and one continuation.
+    kernels.reset_launch_counts()
+    answers = judge.ask_batch(JUDGE_QUESTION, list(videos))
+    torch.cuda.synchronize()
+    launches["judge_prefix"] = _judge_launches(
+        "prefix", {"exact_attention": 3 * L_llm})
+    print(f"judge prefix: answers {[a[:60] for a in answers]!r}")
+    if not all(isinstance(a, str) for a in (r0, r1, *answers)):
+        raise RuntimeError("an answer did not decode to text")
+    # The prefix path again under the per-row bound (fresh prefix states).
+    judge._pstate.cache_clear()
+    gen._CACHE_BOUND = "rows"
+    try:
+        kernels.reset_launch_counts()
+        judge.ask_batch(JUDGE_QUESTION, list(videos))
+        torch.cuda.synchronize()
+        launches["judge_prefix_rows"] = _judge_launches(
+            "prefix rows", {"decoder_attention_rows": 3 * L_llm})
+    finally:
+        gen._CACHE_BOUND = False
+        judge._pstate.cache_clear()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+
+    # Teacher-forced logits against fp32 plain, both paths.
+    plain = make_judge(state=map_state(lambda t: t.float(), judge.params))
+    prompt = overall_prompt(JUDGE_CAPTION)
+    _, out["full_rel"], otoks, _ = logits_fidelity(judge, plain, prompt,
+                                                   videos, False, "full prompt")
+    _, out["prefix_rel"], ptoks, plogits = logits_fidelity(
+        judge, plain, JUDGE_QUESTION, videos, True, "prefix")
+    del plain
+    torch.cuda.empty_cache()
+    # Reported, not required: the prefix path against the full prompt of
+    # the same question.
+    run_full = path_runner(judge, JUDGE_QUESTION, videos, False)
+    ftoks = run_full()
+    flogits = run_full(teacher_tokens=ftoks[:, :1])
+    d0 = (plogits[:, 0] - flogits[:, 0]).abs().max().item()
+    agree = (ptoks == ftoks).float().mean().item()
+    print(f"judge prefix against full prompt (reported): first-step logits "
+          f"max|delta| {d0:.4e}; greedy tokens agree on {agree:.4f} of "
+          f"{ptoks.numel()}")
+    out.update(prefix_vs_full_step0=d0, prefix_vs_full_agree=agree)
+    for key in ("full_rel", "prefix_rel"):
+        if not out[key] <= LOGITS_REL_TOL:
+            raise RuntimeError(f"judge {key} {out[key]} > {LOGITS_REL_TOL}")
+    if timing:
+        out.update(time_judge(judge, videos, _drawn(judge, otoks),
+                              _drawn(judge, ptoks)))
+    print(f"judge: peak memory {out['peak_gib']:.2f} GiB (bf16, kernels)")
+    return out, launches
+
+
+def _host_ms(fn, reps=3):
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _drawn(judge, toks):
+    """Tokens a pair's decode loop drew: it stops when every row has drawn
+    EOS, or at the budget."""
+    from mjvideo_tpu_torch.models import generate as gen
+
+    hit = toks == gen._eos_pad(judge.cfg, judge.tokenizer)[0]
+    n = hit.int().argmax(1) + 1
+    return int(n.where(hit.any(1), toks.shape[1]).max())
+
+
+def time_judge(judge, videos, drawn_full, drawn_prefix):
+    """Prefill ms of the pair's full prompt and of one video's prefix, ms
+    per decode step at B = 2 over each path's cache (warm, median of 3
+    loops), and warm pair times of both paths (videos encoded, prefix
+    states cached after the first call), whose loops draw ``drawn_full``
+    and ``drawn_prefix`` tokens."""
+    import torch
+
+    from mjvideo_tpu_torch import judge_pair, overall_prompt
+    from mjvideo_tpu_torch.models import generate as gen
+
+    ids, mask, _, vis = _full_inputs(judge, overall_prompt(JUDGE_CAPTION),
+                                     videos)
+    lm, cfg = judge.params["language_model"], judge.cfg
+
+    def prefill():
+        return gen._prefill(judge.params, cfg, ids, mask, JUDGE_NEW_TOKENS,
+                            None, vis, "auto", False)
+
+    def continuation():
+        state, sids, smask, gc = judge._prefix_inputs(JUDGE_QUESTION,
+                                                      list(videos))
+        _, cache, cmask = gen.generate_from_prefix(
+            judge.params, cfg, state, sids, smask,
+            generation_config=gc._replace(max_new_tokens=1),
+            return_state=True)
+        start = state.n_prefix.long() + smask.long().sum(-1)
+        return None, cache, cmask, start
+
+    def step_ms(made):
+        _, cache, cmask, start = made
+        tok = torch.zeros_like(start)
+
+        def steps():
+            for i in range(JUDGE_DECODE_STEPS):
+                gen._step(lm, cfg.llm, tok, cache, cmask, start + i, "auto")
+
+        steps()
+        return _host_ms(steps) / JUDGE_DECODE_STEPS
+
+    t = {"prefill_ms": _host_ms(prefill),
+         # The judge's own prefix prefill, bypassing its cache of states.
+         "prefix_prefill_ms": _host_ms(
+             lambda: judge._prefix_state(videos[0])),
+         "decode_step_ms": step_ms(prefill()),
+         "prefix_decode_step_ms": step_ms(continuation()),
+         "drawn_full": drawn_full, "drawn_prefix": drawn_prefix}
+    t["pair_full_s"] = _host_ms(
+        lambda: judge_pair(judge, *videos, JUDGE_CAPTION)) / 1e3
+    judge.ask_batch(JUDGE_QUESTION, list(videos))
+    t["pair_prefix_s"] = _host_ms(
+        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+    print(f"judge time: full-prompt prefill {tuple(ids.shape)} "
+          f"{t['prefill_ms']:.1f} ms, one video's prefix prefill "
+          f"{t['prefix_prefill_ms']:.1f} ms, decode step at B = 2 "
+          f"{t['decode_step_ms']:.2f} ms over the full prompt's cache, "
+          f"{t['prefix_decode_step_ms']:.2f} ms over the prefix path's; a "
+          f"pair: full prompt {t['pair_full_s']:.3f} s "
+          f"({2 / t['pair_full_s']:.2f} answers/s, {drawn_full} tokens "
+          f"drawn), prefix path with cached prefixes {t['pair_prefix_s']:.3f}"
+          f" s ({2 / t['pair_prefix_s']:.2f} answers/s, {drawn_prefix} "
+          f"tokens drawn), at most {JUDGE_NEW_TOKENS} new tokens")
+    return t
+
+
 def make_train_batches(cfg, tok, rng, n):
     """``n`` micro-batches in ``PairCollator``'s layout, each one pair of
     TRAIN_FRAMES-frame clips (batch 1), with random labels."""
@@ -382,9 +840,10 @@ def run_training(generator, device, checkpoint_dir, data):
     # backward once.
     per_video = {"vit_attention": cfg.chat.vision.num_hidden_layers,
                  "decoder_attention": 2 * cfg.chat.llm.num_hidden_layers,
+                 "decoder_attention_lse": 2 * cfg.chat.llm.num_hidden_layers,
                  "decoder_attention_bwd_dkdv": cfg.chat.llm.num_hidden_layers,
                  "decoder_attention_bwd_dq": cfg.chat.llm.num_hidden_layers}
-    want = {k: 2 * len(batches) * n for k, n in per_video.items()}
+    want = {k: 2 * len(batches) * per_video.get(k, 0) for k in launches}
     if launches != want:
         raise RuntimeError(f"training launches {launches}, want {want}")
     return trainer, batches, launches, peak
@@ -584,6 +1043,10 @@ def main() -> int:
     dec = {s: check_decoder_kernels(randn, s, ragged=True) for s in K2_SHAPES}
     dec.update({s: check_decoder_kernels(randn, s, ragged=False)
                 for s in train_shapes})
+    judge_k = {name: check_judge_kernels(randn, name, shape)
+               for name, shape in JUDGE_SHAPES.items()}
+    turns = time_shifts_in_turns(randn)
+    check_k2r_prefix_rows(randn)
 
     # Phase 4: serving at the 2B widths and depths.
     t0 = time.perf_counter()
@@ -640,16 +1103,24 @@ def main() -> int:
             generator(), dev, ckpt_dir, train)
         gradient_fidelity(trainer, batches[0])
         train_ms = time_training(trainer, batches)
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    # Phase 9: the judge at the 2B widths and depths.
+    judged_out, judge_launches = judge_phase(dev)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported jax")
 
+    by_path = {"serving": launches, "training": train_launches,
+               **judge_launches}
+
     def counts(name):
-        return {"launches": launches[name] + train_launches[name],
-                "launches_by_path": {"serving": launches[name],
-                                     "training": train_launches[name]}}
+        paths = {path: n[name] for path, n in by_path.items()}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     served, trained = K2_SHAPES[-1], train_shapes[-1]
     lse = dec[trained]["K2 lse"]
+    judged = JUDGE_SHAPES["prefill"][:6]
     summary = {"kernels": [
         {"name": "vit_attention", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/vit_attention.cu",
@@ -659,10 +1130,11 @@ def main() -> int:
         {"name": "decoder_attention", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
-         **counts("decoder_attention"), "shape": served, **dec[served]["K2"],
-         "with_lse": {"shape": trained, "max_abs_err": lse["max_abs_err"],
-                      "lse_max_abs_err": lse["lse_max_abs_err"],
-                      "ms": lse["ms"], "plain_ms": lse["plain_ms"]}},
+         **counts("decoder_attention"), "shape": served, **dec[served]["K2"]},
+        {"name": "decoder_attention_lse", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:407",
+         **counts("decoder_attention_lse"), "shape": trained, **lse},
         {"name": "decoder_attention_bwd_dkdv", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_bwd.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:603",
@@ -673,7 +1145,19 @@ def main() -> int:
          "replaces": "mjvideo_tpu/ops/flash_attention.py:656",
          **counts("decoder_attention_bwd_dq"), "shape": trained,
          **dec[trained]["K4b"]},
-    ], "training": {**train_ms, "peak_gib": train_peak / 2**30}}
+        {"name": "exact_attention", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/exact_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:260",
+         **counts("exact_attention"), "shape": judged,
+         **judge_k["prefill"]["K3"], "kernel_ms_in_turns": turns["K3"],
+         "k2_kernel_ms_in_turns": turns["K2"]},
+        {"name": "decoder_attention_rows", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
+         **counts("decoder_attention_rows"), "shape": judged,
+         **judge_k["prefill"]["K2r"], "kernel_ms_in_turns": turns["K2r"]},
+    ], "training": {**train_ms, "peak_gib": train_peak / 2**30},
+        "judge": judged_out}
     print(smi)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,13 @@
 // fp32 true lse (the training forward, _fwd_bound_kernel with with_lse,
 // flash_attention.py:407-412) that the backward kernels read; serving
 // passes null and runs the instantiation without it.
+//
+// K2r (mjv_decoder_attention_rows) is the same body under the per-row bound
+// of _fwd_bound_kernel(row_bound=True) (flash_attention.py:347-358, host
+// side :492-508), the opt-in shift of the cached generation paths:
+// row_kmax is the (B, Hq, Q) fp32 column of the running max of masked key
+// norms over slots <= each row's global position q_offset + i (clipped to
+// K - 1), gathered before the launch.
 #include "bound_attention.cuh"
 
 extern "C" int mjv_decoder_attention(
@@ -27,4 +34,16 @@ extern "C" int mjv_decoder_attention(
   return mjv::launch_bound_attention<128, true, false, true>(
       q, k, v, mask, kmax, q_offset, out, B, Q, K, Hq, Hkv, qsb, qss, ksb, kss,
       vsb, vss, scale, stream, lse);
+}
+
+extern "C" int mjv_decoder_attention_rows(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* row_kmax, const void* q_offset, void* out, int B, int Q,
+    int K, int Hq, int Hkv, int D, long long qsb, long long qss, long long ksb,
+    long long kss, long long vsb, long long vss, float scale, void* stream) {
+  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
+  return mjv::launch_bound_attention<128, true, false, false,
+                                     mjv::Shift::kRowBound>(
+      q, k, v, mask, row_kmax, q_offset, out, B, Q, K, Hq, Hkv, qsb, qss, ksb,
+      kss, vsb, vss, scale, stream);
 }

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, into
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, at first use, into
 ``<checkout>/build/kernels/<hash of the sources>/`` (listed in
 ``.gitignore``), and loaded with ``ctypes``.  Nothing is compiled or loaded
 at import time, so the CPU-only tests import this module freely.
@@ -25,17 +26,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vit_attention.cu", "decoder_attention.cu",
-           "decoder_attention_bwd.cu")
+           "decoder_attention_bwd.cu", "exact_attention.cu")
 HEADERS = ("bound_attention.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset_launch_counts();
-# "decoder_attention" counts K2 with and without the lse.
+# "decoder_attention" counts K2 with and without the lse,
+# "decoder_attention_lse" the launches of K2 with it.
 launch_counts: Dict[str, int] = {
-    "vit_attention": 0, "decoder_attention": 0,
-    "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0}
+    "vit_attention": 0, "decoder_attention": 0, "decoder_attention_lse": 0,
+    "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
+    "exact_attention": 0, "decoder_attention_rows": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -57,8 +60,10 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
-    the library's path.  The compiler's ``-Xptxas -v`` report (registers,
-    shared memory, spills) is kept beside it as ``ptxas.txt``."""
+    the library's path.  Each source compiles in its own ``nvcc`` process,
+    all at once; the objects are then linked.  The compilers' ``-Xptxas
+    -v`` reports (registers, shared memory, spills) are kept beside the
+    library as ``ptxas.txt``."""
     digest = hashlib.sha256()
     for name in SOURCES + HEADERS:
         digest.update(name.encode())
@@ -69,14 +74,31 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libmjv_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "ptxas.txt").write_text(res.stdout + res.stderr)
+    pid = os.getpid()
+    jobs = []
+    for name in SOURCES:
+        obj = out_dir / f"{Path(name).stem}.{pid}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+        jobs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    reports, failed = [], []
+    for name, _, proc in jobs:
+        report = proc.communicate()[0]
+        reports.append(f"== {name}\n{report}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{report}")
+    (out_dir / "ptxas.txt").write_text("".join(reports))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out_dir / f"libmjv_kernels.{pid}.so"
+    res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                          *(str(obj) for _, obj, _ in jobs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, lib)
     return lib
 
@@ -92,6 +114,14 @@ def _load() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _L, _L, _L, _L, _L, _L, _F, _P]
         lib.mjv_decoder_attention.restype = _I
+        lib.mjv_decoder_attention_rows.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _L, _L, _L, _L, _L, _L, _F, _P]
+        lib.mjv_decoder_attention_rows.restype = _I
+        lib.mjv_exact_attention.argtypes = [
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _L, _L, _L, _L, _L, _L, _F, _I, _P]
+        lib.mjv_exact_attention.restype = _I
         bwd_args = [_P] * 8 + [_I] * 6 + [_L] * 8 + [_F, _P]
         lib.mjv_decoder_attention_bwd_dkdv.argtypes = (
             bwd_args[:8] + [_P, _P] + bwd_args[8:])
@@ -162,8 +192,8 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_decoder(name: str, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, attention_mask: Optional[torch.Tensor],
                    q_offset: Optional[torch.Tensor], *more: torch.Tensor):
-    """Checks shared by K2 and K4 (``more``: K4's dout, checked like q);
-    returns (mask pointer, offset pointer)."""
+    """Checks shared by K2, K2r, K3 and K4 (``more``: K4's dout, checked
+    like q); returns (mask pointer, offset pointer)."""
     _check_qkv(name, 128, q, k, v, *more)
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
@@ -210,7 +240,65 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(1), float(scale), stream)
     _raise_on(name, err)
     launch_counts[name] += 1
+    if with_lse:
+        launch_counts["decoder_attention_lse"] += 1
     return (out, lse) if with_lse else out
+
+
+def decoder_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           attention_mask: Optional[torch.Tensor],
+                           row_kmax: torch.Tensor,
+                           q_offset: Optional[torch.Tensor],
+                           scale: float) -> torch.Tensor:
+    """K2r.  Operands as for K2, with ``row_kmax`` the (B, Hq, Q) fp32
+    per-row bound column in place of kmax.  Returns a dense (B, Q, Hq, D)
+    bf16 tensor."""
+    name = "decoder_attention_rows"
+    mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
+                                       q_offset)
+    B, Q, Hq, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    _check_aux(f"{name} row_kmax", row_kmax, torch.float32, (B, Hq, Q),
+               q.device)
+    lib = _load()
+    out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_decoder_attention_rows(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+            row_kmax.data_ptr(), off_ptr, out.data_ptr(), B, Q, K, Hq, Hkv, D,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), float(scale), stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor],
+                    q_offset: Optional[torch.Tensor], scale: float,
+                    causal: bool = True) -> torch.Tensor:
+    """K3.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense heads;
+    attention_mask: (B, K) int32 or None; q_offset: (B,) int32 or None (=
+    0; read only when causal).  Returns a dense (B, Q, Hq, D) bf16
+    tensor."""
+    name = "exact_attention"
+    mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
+                                       q_offset)
+    B, Q, Hq, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    lib = _load()
+    out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_exact_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, off_ptr,
+            out.data_ptr(), B, Q, K, Hq, Hkv, D, q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
+            int(causal), stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
 
 
 def _bwd_operands(name, q, k, v, dout, lse, delta, attention_mask,

@@ -4,7 +4,9 @@ Counterpart of ``mjvideo_tpu/models/decoder.py`` (reference
 ``modeling_internlm2.py``) for reward scoring and training: separate q/k/v
 kernels (the packed ``wqkv`` is unpacked at import), GQA without repeated kv
 heads, fp32 RMSNorm statistics, RoPE tables built per call, each layer
-rematerialised per ``remat`` (``ops/remat.py``), no KV cache and no LM head.
+rematerialised per ``remat`` (``ops/remat.py``).  The LM head (``output``)
+and ``lm_logits`` serve generation; the cached layers live in
+``models/generate.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 from mjvideo_tpu.configs import LLMConfig
 
 from ..ops.attention import multi_head_attention
-from ..ops.matmul import dot
+from ..ops.matmul import dot, dot_f32
 from ..ops.norms import rms_norm
 from ..ops.remat import remat_wrap
 from ..ops.rope import apply_rope, rope_tables
@@ -25,8 +27,11 @@ from ..utils.bridge import map_state
 
 
 def init_decoder_params(cfg: LLMConfig, *, generator: torch.Generator,
-                        device: torch.device, dtype: torch.dtype):
-    """Random decoder state (stacked layers), without the LM head."""
+                        device: torch.device, dtype: torch.dtype,
+                        with_lm_head: bool = False):
+    """Random decoder state (stacked layers); ``with_lm_head`` adds the
+    ``output`` kernel (C, V), drawn last, which generation needs and the
+    reward path does not."""
     C, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -47,7 +52,7 @@ def init_decoder_params(cfg: LLMConfig, *, generator: torch.Generator,
         for name, n in (("wq", Hq * D), ("wk", Hkv * D), ("wv", Hkv * D),
                         ("wo", C)):
             attn[name]["bias"] = torch.zeros((L, n), dtype=dtype, device=device)
-    return {
+    params = {
         "tok_embeddings": dense(cfg.vocab_size, C),
         "layers": {
             "attention_norm": {"weight": ones(L, C)},
@@ -61,6 +66,9 @@ def init_decoder_params(cfg: LLMConfig, *, generator: torch.Generator,
         },
         "norm": {"weight": ones(C)},
     }
+    if with_lm_head:
+        params["output"] = {"kernel": dense(C, cfg.vocab_size)}
+    return params
 
 
 def _dense(p, x):
@@ -80,8 +88,10 @@ def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl):
     k = _dense(p["attention"]["wk"], h).reshape(B, S, Hkv, D)
     v = _dense(p["attention"]["wv"], h).reshape(B, S, Hkv, D)
     q, k = apply_rope(q, k, cos, sin)
+    # The global bound kernel K2, as the JAX decoder takes it by default
+    # (decoder.py _LLM_BOUND); the cached paths keep the exact K3.
     attn = multi_head_attention(q, k, v, attention_mask=attention_mask,
-                                causal=True, impl=impl)
+                                causal=True, impl=impl, norm_bound=True)
     x = x + _dense(p["attention"]["wo"], attn.reshape(B, S, Hq * D))
 
     h = rms_norm(x, p["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
@@ -123,3 +133,8 @@ def decoder_forward(
 def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
     """Token embedding lookup (``tok_embeddings``)."""
     return F.embedding(input_ids, params["tok_embeddings"])
+
+
+def lm_logits(params, hidden: torch.Tensor) -> torch.Tensor:
+    """LM head projection with fp32 logits (``decoder.py:208-210``)."""
+    return dot_f32(hidden, params["output"]["kernel"])

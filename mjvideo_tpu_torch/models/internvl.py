@@ -43,12 +43,15 @@ def init_projector_params(cfg: ChatConfig, *, generator: torch.Generator,
 
 
 def init_chat_params(cfg: ChatConfig, *, generator: torch.Generator,
-                     device: torch.device, dtype: torch.dtype):
+                     device: torch.device, dtype: torch.dtype,
+                     with_lm_head: bool = False):
+    """Random chat state; ``with_lm_head`` for generation (the judge)."""
     kw = dict(generator=generator, device=device, dtype=dtype)
     return {
         "vision_model": init_vit_params(cfg.vision, **kw),
         "mlp1": init_projector_params(cfg, **kw),
-        "language_model": dec.init_decoder_params(cfg.llm, **kw),
+        "language_model": dec.init_decoder_params(
+            cfg.llm, with_lm_head=with_lm_head, **kw),
     }
 
 

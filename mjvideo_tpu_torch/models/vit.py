@@ -121,7 +121,9 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str) -> torch.Tensor:
         qkv = qkv + p["attn"]["qkv"]["bias"]
     # Views into qkv: the kernel takes the token stride as it is.
     q, k, v = (t.view(B, S, H, D) for t in qkv.split(C, dim=-1))
-    attn = multi_head_attention(q, k, v, causal=False, impl=impl)
+    # The bound kernel K1, as the JAX ViT takes it (vit.py _NC_BOUND).
+    attn = multi_head_attention(q, k, v, causal=False, impl=impl,
+                                norm_bound=True)
     attn = dot(attn.reshape(B, S, C), p["attn"]["proj"]["kernel"])
     x = x + (attn + p["attn"]["proj"]["bias"]) * p["ls1"]
 

@@ -3,9 +3,11 @@
 Counterpart of ``mjvideo_tpu/ops/attention.py``.  ``attention_plain`` is
 the ``attention_xla`` oracle: grouped-query attention without materialising
 repeated kv heads, fp32 softmax over an additive bias.  ``multi_head_attention``
-routes ``impl="auto"`` to the bound kernels of ``flash_attention.py`` (K1 for
-non-causal maskless MHA, K2 for causal attention), which compute their plain
-twins on the CPU; ``impl="plain"`` is the explicit oracle.
+routes ``impl="auto"`` to the kernels of ``flash_attention.py`` by
+``norm_bound``, as the JAX entry does: the exact softmax (K3) without it, the
+bound kernels with it (K1 for non-causal maskless MHA, K2 for causal
+attention), the per-row bound (K2r) with ``"rows"``; each computes its plain
+twin on the CPU.  ``impl="plain"`` is the explicit oracle.
 """
 
 from __future__ import annotations
@@ -78,12 +80,14 @@ def multi_head_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     impl: str = "auto",
+    norm_bound=False,
 ) -> torch.Tensor:
     """Unified attention entry.  q/k/v: (B, S, H, D) with Hkv <= Hq.
 
     ``attention_mask``: (B, K), 1 = real token.  ``impl="auto"`` takes the
-    bound kernels (their plain twins on the CPU); ``impl="plain"`` the
-    exact-softmax oracle.
+    kernels (their plain twins on the CPU), chosen by ``norm_bound`` (see
+    ``flash_attention.flash_attention``); ``impl="plain"`` the exact-softmax
+    oracle, which ignores ``norm_bound``.
     """
     if impl == "plain":
         bias = make_attention_bias(attention_mask, q.shape[1], k.shape[1],
@@ -91,12 +95,7 @@ def multi_head_attention(
         return attention_plain(q, k, v, bias=bias, scale=scale)
     if impl != "auto":
         raise ValueError(f"unknown attention impl {impl!r}")
-    from .flash_attention import decoder_attention, vit_attention
+    from .flash_attention import flash_attention
 
-    if causal:
-        return decoder_attention(q, k, v, attention_mask, scale=scale)
-    if attention_mask is None and q.shape[2] == k.shape[2]:
-        return vit_attention(q, k, v, scale)
-    raise NotImplementedError(
-        "no kernel yet for non-causal masked or grouped attention "
-        "(the exact-softmax kernel K3 in ROADMAP); use impl='plain'")
+    return flash_attention(q, k, v, attention_mask, causal=causal,
+                           scale=scale, norm_bound=norm_bound)

@@ -27,6 +27,17 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   and K4b.  ``decoder_attention`` takes it only when autograd will need it,
   so the serving path launches K2 without the lse, as before.  ``kmax`` is
   reduced without a gradient: the bound cancels from the output.
+* ``exact_attention`` replaces ``_fwd_kernel`` (K3): the exact online
+  softmax, causal with a per-row ``q_offset`` or non-causal, under a (B, K)
+  key mask, with GQA; a row that sees no key gives 0.  Its twin takes the
+  exact row max over the allowed keys.
+* ``decoder_attention_rows`` replaces ``_fwd_bound_kernel(row_bound=True)``
+  (K2r): K2 with a per-row bound, ``|scale| |q_i| kcum[b, h, pos_i]``,
+  where ``kcum`` is the running max of masked key norms over slots <= j and
+  ``pos_i = clip(q_offset + i, 0, K - 1)`` (``row_key_bound``).  A row's
+  bound depends on the tokens at or before it only.
+* ``flash_attention`` is the JAX entry of the same name: it picks K1, K2,
+  K2r or K3 from ``causal``, the mask and ``norm_bound``.
 
 For a CPU tensor each wrapper computes its plain twin; for a CUDA tensor it
 launches the hand-written kernel (``mjvideo_tpu_torch/kernels.py``) or
@@ -45,6 +56,7 @@ import torch
 
 DEAD_FLOOR = 1e-30
 DEAD_LSE = 1e30  # lse of a row that sees no key (flash_attention.DEAD_LSE)
+NEG_INF = -1e30  # masked score (flash_attention.NEG_INF)
 
 
 def key_norm_max(k: torch.Tensor,
@@ -60,17 +72,43 @@ def key_norm_max(k: torch.Tensor,
     return kn2.amax(dim=1).sqrt().contiguous()
 
 
+def row_key_bound(k: torch.Tensor, attention_mask: Optional[torch.Tensor],
+                  q_offset: Optional[torch.Tensor], q_len: int,
+                  q_heads: int) -> torch.Tensor:
+    """(B, Hq, Q) fp32: K2r's per-row key-norm bound.  The running max of
+    masked key norms over slots <= j, gathered at each row's global position
+    ``clip(q_offset + i, 0, K - 1)`` and repeated over each GQA group, as
+    ``_fwd_impl`` computes it outside the kernel (``flash_attention.py:
+    489-508``)."""
+    B, K, Hkv = k.shape[:3]
+    kn2 = k.float().square().sum(-1)  # (B, K, Hkv)
+    if attention_mask is not None:
+        kn2 = kn2 * (attention_mask != 0)[:, :, None].float()
+    kcum = torch.cummax(kn2.sqrt(), dim=1).values.transpose(1, 2)
+    # kcum: (B, Hkv, K)
+    off = (torch.zeros(B, dtype=torch.long, device=k.device)
+           if q_offset is None else q_offset.long().reshape(-1).expand(B))
+    pos = (off[:, None] + torch.arange(q_len, device=k.device)).clamp(0, K - 1)
+    rows = kcum.gather(2, pos[:, None, :].expand(B, Hkv, q_len))
+    return rows.repeat_interleave(q_heads // Hkv, dim=1).contiguous()
+
+
 def _bound_attention_plain(q, k, v, allowed, kmax, scale, floor,
                            return_lse=False):
-    """Shared twin arithmetic.  allowed: bool, broadcastable to (B, Q, K).
-    With ``return_lse`` also the (B, Hq, Q) fp32 lse."""
+    """Shared twin arithmetic.  allowed: bool, broadcastable to (B, Q, K);
+    kmax: (B, Hkv), or K2r's per-row (B, Hq, Q).  With ``return_lse`` also
+    the (B, Hq, Q) fp32 lse."""
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qf = q.float().reshape(B, Q, Hkv, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
     qn = qf.square().sum(-1).sqrt().permute(0, 2, 3, 1)  # (B, Hkv, G, Q)
-    m = (qn * (kmax * abs(scale))[:, :, None, None])[..., None]
+    if kmax.dim() == 2:
+        m = qn * (kmax * abs(scale))[:, :, None, None]
+    else:
+        m = qn * kmax.reshape(B, Hkv, G, Q) * abs(scale)
+    m = m[..., None]
     p = torch.where(allowed[:, None, None], torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
@@ -125,6 +163,57 @@ def decoder_attention_plain(
     return _bound_attention_plain(q, k, v, allowed,
                                   key_norm_max(k, attention_mask), scale,
                                   floor=False, return_lse=return_lse)
+
+
+def decoder_attention_rows_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain twin of K2r: K2's arithmetic under the per-row bound."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    allowed = _decoder_allowed(q, k, attention_mask, q_offset)
+    bound = row_key_bound(k, attention_mask, q_offset, q.shape[1], q.shape[2])
+    return _bound_attention_plain(q, k, v, allowed, bound, scale, floor=False)
+
+
+def _allowed(q, k, attention_mask, q_offset, causal) -> torch.Tensor:
+    """(B|1, Q|1, K) bool: the keys each q row may see."""
+    if causal:
+        return _decoder_allowed(q, k, attention_mask, q_offset)
+    if attention_mask is None:
+        return torch.ones((1, 1, k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+    return (attention_mask != 0)[:, None, :]
+
+
+def exact_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Plain twin of K3: fp32 scores, the exact softmax over the allowed
+    keys with p rounded to the value dtype before p @ v, and 0 on a row
+    that sees no key.  Shapes as ``decoder_attention_plain``; ``q_offset``
+    is read only when causal."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    B, Q, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    allowed = _allowed(q, k, attention_mask, q_offset, causal)[:, None, None]
+    qf = q.float().reshape(B, Q, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    s = torch.where(allowed, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(allowed, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+    live = l > 0.0
+    out = torch.where(live, acc / torch.where(live, l, 1.0), 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Q, Hq, D).to(q.dtype)
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -264,3 +353,88 @@ def decoder_attention(
                                        scale)
     return _decoder_attention_fwd(q, k, v, attention_mask, q_offset, scale,
                                   with_lse=False)
+
+
+def _forward_only(name: str, *ts: torch.Tensor) -> None:
+    """K3 and K2r have no backward kernel: refuse a CUDA call that autograd
+    would need to differentiate, instead of returning a detached result."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{name} has no backward kernel; call it under torch.no_grad()")
+
+
+def exact_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """K3 on a CUDA tensor, its plain twin on a CPU tensor."""
+    if q.device.type == "cpu":
+        return exact_attention_plain(q, k, v, attention_mask, q_offset, scale,
+                                     causal)
+    from .. import kernels
+
+    _forward_only("exact_attention", q, k, v)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    attention_mask, q_offset = _int32_operands(
+        attention_mask, q_offset if causal else None)
+    return kernels.exact_attention(q, k, v, attention_mask, q_offset, scale,
+                                   causal=causal)
+
+
+def decoder_attention_rows(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K2r on a CUDA tensor, its plain twin on a CPU tensor."""
+    if q.device.type == "cpu":
+        return decoder_attention_rows_plain(q, k, v, attention_mask, q_offset,
+                                            scale)
+    from .. import kernels
+
+    _forward_only("decoder_attention_rows", q, k, v)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    bound = row_key_bound(k, attention_mask, q_offset, q.shape[1], q.shape[2])
+    attention_mask, q_offset = _int32_operands(attention_mask, q_offset)
+    return kernels.decoder_attention_rows(q, k, v, attention_mask, bound,
+                                          q_offset, scale)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    norm_bound=False,
+) -> torch.Tensor:
+    """The kernel entry (``flash_attention.py:904-942``).  q: (B, Q, Hq, D);
+    k/v: (B, K, Hkv, D); attention_mask: (B, K), 1 = real; q_offset: (B,)
+    or a scalar, the global position of q row 0 (causal only).
+
+    ``norm_bound``: ``False`` takes the exact softmax (K3); ``True`` the
+    Cauchy-Schwarz bound, K2 when causal and K1 for non-causal maskless
+    multi-head attention without an offset; ``"rows"`` the causal per-row
+    bound (K2r)."""
+    if q_offset is not None:
+        q_offset = torch.as_tensor(q_offset, device=q.device).reshape(-1)
+        q_offset = q_offset.expand(q.shape[0])
+    if norm_bound == "rows":
+        if not causal:
+            raise ValueError("norm_bound='rows' requires causal attention")
+        return decoder_attention_rows(q, k, v, attention_mask, q_offset, scale)
+    if not norm_bound:
+        return exact_attention(q, k, v, attention_mask, q_offset, scale,
+                               causal)
+    if causal:
+        return decoder_attention(q, k, v, attention_mask, q_offset, scale)
+    mha = q.shape[2] == k.shape[2]
+    if attention_mask is None and q_offset is None and mha:
+        return vit_attention(q, k, v, scale)
+    raise NotImplementedError(
+        "no bound kernel for non-causal masked or grouped attention; pass "
+        "norm_bound=False for the exact kernel (K3)")

@@ -19,7 +19,15 @@ def dot(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def dot_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """``x @ kernel`` with an fp32 result (no rounding to a narrower type)."""
+    """``x @ kernel`` with an fp32 result (no rounding to a narrower type).
+
+    bf16 operands on the card multiply in bf16 with an fp32 output, as
+    ``preferred_element_type=float32`` does, without an fp32 copy of the
+    kernel (the LM head is 2048 x 92,553); elsewhere both go to fp32."""
+    if x.is_cuda and x.dtype == kernel.dtype == torch.bfloat16:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), kernel,
+                     out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], kernel.shape[-1])
     return torch.matmul(x.float(), kernel.float())
 
 

@@ -46,9 +46,20 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rotate q, k of shape (B, S, H, D) at positions 0..S-1."""
-    seq = q.shape[-3]
-    c = cos[:seq][None, :, None, :].to(q.dtype)
-    s = sin[:seq][None, :, None, :].to(q.dtype)
+               sin: torch.Tensor, position_ids: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotate q, k of shape (B, S, H, D) (``rope.py:62-90``).
+
+    ``cos``/``sin``: (max_seq, D) tables, read at positions 0..S-1, or
+    gathered at ``position_ids`` (B, S) (the cached layer rotates each new
+    token by its cache slot); or pre-gathered per-token values (B, S, D)."""
+    if cos.dim() == 3:
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
+    elif position_ids is None:
+        seq = q.shape[-3]
+        c, s = cos[:seq][None, :, None, :], sin[:seq][None, :, None, :]
+    else:
+        c = cos[position_ids][:, :, None, :]
+        s = sin[position_ids][:, :, None, :]
+    c, s = c.to(q.dtype), s.to(q.dtype)
     return q * c + rotate_half(q) * s, k * c + rotate_half(k) * s

@@ -1,6 +1,6 @@
-"""Plain twins of K1, K2 (with and without the lse), K4a and K4b against the
-JAX Pallas kernels in interpret mode, and the autograd Function against
-autograd through the exact-softmax oracle.
+"""Plain twins of K1, K2 (with and without the lse), K2r, K3, K4a and K4b
+against the JAX Pallas kernels in interpret mode, and the autograd Function
+against autograd through the exact-softmax oracle.
 
 The JAX side runs ``flash_attention``, ``_fwd_impl`` and ``_bwd_impl`` as the
 JAX package's own tests do on the CPU (Pallas interpret mode).  Inputs come
@@ -50,10 +50,12 @@ def test_k1_twin_matches_pallas_nc_kernel_with_kv_valid_tail(S):
                             torch.from_numpy(k[:, :S]),
                             torch.from_numpy(v[:, :S]))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:, :S], atol=2e-5)
-    # The same call through the dispatch point.
+    # The same call through the dispatch point, with the bound as the ViT
+    # passes it.
     via = multi_head_attention(torch.from_numpy(q[:, :S]),
                                torch.from_numpy(k[:, :S]),
-                               torch.from_numpy(v[:, :S]), causal=False)
+                               torch.from_numpy(v[:, :S]), causal=False,
+                               norm_bound=True)
     np.testing.assert_array_equal(via.numpy(), got.numpy())
 
 
@@ -78,7 +80,7 @@ def test_k2_twin_matches_pallas_bound_kernel_with_gqa_and_dead_rows():
     via = multi_head_attention(torch.from_numpy(q), torch.from_numpy(k),
                                torch.from_numpy(v),
                                attention_mask=torch.from_numpy(mask),
-                               causal=True)
+                               causal=True, norm_bound=True)
     np.testing.assert_array_equal(via.numpy(), got.numpy())
 
 
@@ -103,10 +105,14 @@ def test_k2_twin_honours_q_offset():
 def test_wrappers_raise_for_kernel_less_shapes_and_bad_inputs():
     q = torch.zeros(1, 8, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
+    # Non-causal GQA has no bound kernel; without the bound it takes K3.
     with pytest.raises(NotImplementedError):
-        multi_head_attention(q, k, k, causal=False)  # non-causal GQA: K3
+        multi_head_attention(q, k, k, causal=False, norm_bound=True)
+    assert multi_head_attention(q, k, k, causal=False).shape == q.shape
     with pytest.raises(ValueError):
         multi_head_attention(q, q, q, impl="flash")
+    with pytest.raises(ValueError, match="causal"):
+        multi_head_attention(q, k, k, causal=False, norm_bound="rows")
 
 
 # (B, Q, K, Hq, Hkv, D, q_offset): causal self-attention with Q = K = 70 (not
@@ -232,3 +238,92 @@ def test_autograd_function_gradients_match_exact_softmax_autograd():
         plain = tfa.decoder_attention(*(torch.from_numpy(a)
                                         for a in (q0, k0, v0)), mask_t)
     np.testing.assert_array_equal(plain.numpy(), grads[0][0].detach().numpy())
+
+
+# K3 and K2r cases, (B, Q, K, Hq, Hkv, D, q_offset, mask kind, causal):
+# causal GQA self-attention; odd Q = K; left padding (the first keys of row
+# 1 masked, so its first rows see no key); the continuation shape (Q < K,
+# per-row q_offset, the cache masked past each row's suffix); non-causal
+# masked (K3 only: K2r needs causality).
+EXACT_CASES = {
+    "causal_gqa": (2, 64, 64, 4, 2, 16, None, None, True),
+    "odd": (2, 37, 37, 4, 2, 16, None, "right", True),
+    "left_padded": (3, 45, 45, 4, 2, 16, None, "left", True),
+    "continuation": (2, 19, 70, 4, 2, 16, (40, 23), "cache", True),
+    "non_causal_masked": (2, 33, 41, 4, 2, 16, None, "right", False),
+}
+
+
+def _exact_inputs(case):
+    B, Q, K, Hq, Hkv, D, off, kind, causal = EXACT_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q = _rand(rng, (B, Q, Hq, D))
+    k = _rand(rng, (B, K, Hkv, D))
+    v = _rand(rng, (B, K, Hkv, D))
+    mask = None if kind is None else np.ones((B, K), np.int32)
+    if kind == "right":
+        mask[1, K - 9:] = 0
+    elif kind == "left":
+        mask[1, :7] = 0
+        mask[2, :3] = 0
+        mask[2, K - 5:] = 0
+    elif kind == "cache":  # valid: each row's prefix and its Q-row suffix
+        for b, o in enumerate(off):
+            mask[b, o + Q:] = 0
+        mask[1, :2] = 0
+    off = None if off is None else np.asarray(off, np.int32)
+    return q, k, v, mask, off, causal
+
+
+def _both(case, norm_bound):
+    q, k, v, mask, off, causal = _exact_inputs(case)
+    J = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    T = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    ref = np.asarray(flash_attention(J(q), J(k), J(v), attention_mask=J(mask),
+                                     causal=causal, q_offset=J(off),
+                                     norm_bound=norm_bound))
+    fn = tfa.exact_attention if not norm_bound else tfa.decoder_attention_rows
+    kw = {"causal": causal} if not norm_bound else {}
+    got = fn(T(q), T(k), T(v), T(mask), T(off), **kw)
+    return got.numpy(), ref, mask
+
+
+@pytest.mark.parametrize("case", sorted(EXACT_CASES))
+def test_k3_twin_matches_pallas_exact_kernel(case):
+    """``exact_attention`` (the K3 twin on the CPU) against ``_fwd_kernel``
+    through ``flash_attention(..., norm_bound=False)``; dead rows 0 in
+    both."""
+    got, ref, mask = _both(case, False)
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    if case == "left_padded":
+        assert np.all(got[1, :7] == 0.0) and np.all(ref[1, :7] == 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in EXACT_CASES
+                                        if EXACT_CASES[c][-1]))
+def test_k2r_twin_matches_pallas_row_bound_kernel(case):
+    """``decoder_attention_rows`` (the K2r twin) against
+    ``_fwd_bound_kernel(row_bound=True)`` through
+    ``flash_attention(..., norm_bound="rows")``."""
+    got, ref, _ = _both(case, "rows")
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    if case == "left_padded":
+        assert np.all(got[1, :7] == 0.0) and np.all(ref[1, :7] == 0.0)
+
+
+def test_k2r_prefix_rows_are_bit_identical():
+    """Mirror of the JAX package's row-bound determinism test: the per-row
+    bound of a prefix row depends on the keys at or before it, so a
+    prefix-only call and a full-sequence call give bit-identical bounds and
+    rows for the prefix."""
+    rng = np.random.default_rng(13)
+    S, P, Hq, Hkv, D = 96, 64, 8, 2, 32
+    qf, kf, vf = (torch.from_numpy(_rand(rng, s)) for s in
+                  ((1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D)))
+    assert torch.equal(tfa.row_key_bound(kf, None, None, S, Hq)[..., :P],
+                       tfa.row_key_bound(kf[:, :P], None, None, P, Hq))
+    full = tfa.decoder_attention_rows(qf, kf, vf)
+    prefix = tfa.decoder_attention_rows(qf[:, :P], kf[:, :P], vf[:, :P])
+    assert torch.equal(full[:, :P], prefix)
+    with pytest.raises(ValueError, match="causal"):
+        tfa.flash_attention(qf, kf, vf, causal=False, norm_bound="rows")

@@ -14,11 +14,13 @@ from mjvideo_tpu.ops import attention as jattn
 from mjvideo_tpu.ops import matmul as jmm
 from mjvideo_tpu.ops import norms as jnorms
 from mjvideo_tpu.ops.pixel_shuffle import pixel_shuffle as jax_pixel_shuffle
+from mjvideo_tpu.ops import quant as jquant
 from mjvideo_tpu.ops import rope as jrope
 from mjvideo_tpu_torch.ops import attention as tattn
 from mjvideo_tpu_torch.ops import matmul as tmm
 from mjvideo_tpu_torch.ops import norms as tnorms
 from mjvideo_tpu_torch.ops import pixel_shuffle as tps
+from mjvideo_tpu_torch.ops import quant as tquant
 from mjvideo_tpu_torch.ops import rope as trope
 
 torch.set_num_threads(1)
@@ -65,6 +67,51 @@ def test_rope_matches_jax(scaling):
     tq, tk = trope.apply_rope(_t(q), _t(k), tc, ts)
     np.testing.assert_allclose(tq.numpy(), _np(jq), atol=5e-5)
     np.testing.assert_allclose(tk.numpy(), _np(jk), atol=5e-5)
+
+
+def test_rope_position_ids_and_pregathered_tables_match_jax():
+    """The cached layer rotates each new token by its cache slot: the
+    tables gathered at ``position_ids`` (B, S), and the (B, S, D)
+    pre-gathered branch."""
+    rng = np.random.default_rng(8)
+    B, S, H, D, L = 2, 5, 3, 16, 40
+    jc, js = jrope.rope_tables(L, D)
+    tc, ts = trope.rope_tables(L, D, device=CPU)
+    q = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    pos = np.array([[0, 3, 9, 17, 39], [30, 31, 32, 33, 34]])
+    jq, jk = jrope.apply_rope(jnp.asarray(q), jnp.asarray(k), jc, js,
+                              jnp.asarray(pos))
+    tq, tk = trope.apply_rope(_t(q), _t(k), tc, ts, torch.from_numpy(pos))
+    np.testing.assert_allclose(tq.numpy(), _np(jq), atol=5e-5)
+    np.testing.assert_allclose(tk.numpy(), _np(jk), atol=5e-5)
+    # Pre-gathered (B, S, D) values give the same rotation as the gather.
+    pq, pk = trope.apply_rope(_t(q), _t(k), tc[pos], ts[pos])
+    np.testing.assert_array_equal(pq.numpy(), tq.numpy())
+    np.testing.assert_array_equal(pk.numpy(), tk.numpy())
+    jq3, _ = jrope.apply_rope(jnp.asarray(q), jnp.asarray(k), jc[pos], js[pos])
+    np.testing.assert_allclose(pq.numpy(), _np(jq3), atol=5e-5)
+
+
+def test_quantize_kv_matches_jax_exactly():
+    """Per-(slot, head) int8 with round-half-even: equal int8 values and
+    scales, including a zero vector, exact .5 ties and bf16 input."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 7, 3, 16)).astype(np.float32) * 3
+    x[0, 0, 0] = 0.0
+    x[0, 1, 0, :2] = (127.0, 0.5)  # scale 1: 0.5 rounds to even 0
+    x[0, 1, 0, 2] = 2.5
+    for xin in (x, x.astype(jnp.bfloat16)):
+        jq, js = jquant.quantize_kv(jnp.asarray(xin))
+        tq, ts = tquant.quantize_kv(torch.from_numpy(np.asarray(xin,
+                                                                np.float32)))
+        np.testing.assert_array_equal(tq.numpy(), _np(jq))
+        np.testing.assert_array_equal(ts.numpy(), _np(js))
+        assert tq.dtype == torch.int8
+        np.testing.assert_array_equal(
+            tquant.dequantize_kv(tq, ts, torch.float32).numpy(),
+            _np(jquant.dequantize_kv(jq, js, jnp.float32)))
+    assert tq[0, 1, 0, 1] == 0 and tq[0, 1, 0, 2] == 2
 
 
 @pytest.mark.parametrize("version", ["v1", "v2"])

@@ -100,6 +100,15 @@ chat = mt.prepare_chat_input(sc.cfg.chat, tok, mt.build_video_question("x", 1),
 pix = np.zeros((1, cfg.chat.image_size, cfg.chat.image_size, 3), np.float32)
 out = sc.score_batch(pix, [chat.input_ids[0]], [chat.gating_pos])
 assert torch.isfinite(out.score).all()
+# Generation and the judge module import no jax either.
+ch = cfg.chat
+chat_state = mt.init_chat_params(ch, generator=torch.Generator().manual_seed(0),
+                                 device=torch.device("cpu"),
+                                 dtype=torch.float32, with_lm_head=True)
+answer, _ = mt.chat(chat_state, ch, tok, "Hello?",
+                    generation_config=mt.GenerationConfig(max_new_tokens=3))
+assert isinstance(answer, str)
+assert mt.parse_rating("RATING: Good") == 7
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("ok")
 """

@@ -27,7 +27,7 @@ STEPS = 3
 def _group(name: str) -> str:
     n = name.lower()
     if "bound_attention" in n:
-        return "attention kernels (K1/K2)"
+        return "attention kernels (K1/K2/K2r/K3)"
     if "bwd_dkdv" in n or "bwd_dq" in n:
         return "attention backward kernels (K4a/K4b)"
     if "gemm" in n or "nvjet" in n or "xmma" in n or "cutlass" in n:
