@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths and its
-InternVL2-2B judge once on one CUDA card.
+"""Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths, its
+InternVL2-2B judge, and quantized scoring and judging once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -67,8 +68,36 @@ Phases (any failure raises and exits non-zero):
    logits against the full prompt's and the share of greedy tokens they
    agree on; prints prefill ms, ms per decode step at B = 2, answers/s for
    a pair and the peak memory.
-10. Prints the kernel summary line and, last, the contract line
-   ``{"ok": true, "device": {...}}``.
+10. (Run with phases 2, 3 and 8.)  K6 (grouped w8a8, quantizing x inside)
+   and K7 (from a pre-quantized x) against their twins at the 2B's grouped
+   products (Q8G_SHAPES: ViT fc1, decoder w1 and w2, an M tail, the LM
+   head's odd N), K7 also against K6 on the same x, bit for bit; K5 (int4
+   weight-only GEMV) against its twin at a decode step's shapes
+   (W4_SHAPES x W4_ROWS); bf16 ``torch.matmul`` at each shape as a labelled
+   reference point.  Every kernel check (phases 2, 3, 8 and 10) also prints
+   its bound, the least time of its work on the card (bytes at 3.35 TB/s or
+   operations at the bf16 or int8 peak, from this run's shapes and masks),
+   and for the attention kernels the time of
+   ``F.scaled_dot_product_attention`` at the same shape.
+11. Quantized scoring (after phase 4, on its bf16 state): ``RewardScorer(
+   quant=m)`` for each of SCORE_QUANT_MODES quantizes the state on the card
+   and answers both requests; the launch counters must show 170 K6
+   launches per request under ``int8-noattn-g128`` (4 per ViT layer, 2 in
+   the projector, 3 per decoder MLP) and none under ``int8``; the scores
+   are held within QUANT_SCORE_TOL of the same quantized tree through the
+   plain path in fp32, and their delta against the unquantized fp32 plain scores
+   is reported.  Prints the quantization time and peak memory, clips/s and
+   the serving peak.
+12. The quantized judge (after phase 9): phase 9's judge in ``int4-wo``
+   answers the pair through ``judge_pair``; the counters must show one K5
+   launch for the prefill's LM head and 7 per decoder layer plus one per
+   decode step, and K1 and K3 as in phase 9; the teacher-forced logits are
+   held to LOGITS_REL_TOL against the same int4 tree through the plain path
+   in fp32; then phase 9's timing, and the decode step against bf16's.
+13. Fails if ``jax`` or any ``mjvideo_tpu`` module was imported, or a
+   kernel of the main path never launched; prints the card, the kernel
+   summary line and, last, the contract line ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -137,6 +166,37 @@ JUDGE_DECODE_STEPS = 16  # decode steps timed at B = 2
 # fp32 plain on the same tokens: max|delta| / max|plain logit|.  Set from
 # the seed survey (PERF.md section 6).
 LOGITS_REL_TOL = 1.5e-1
+# The card's published peaks at 700 W (NVIDIA's H100 SXM data sheet): the
+# least time of a kernel's work is the larger of its bytes over the memory
+# rate and its operations over the rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+# K6 and K7 at the 2B's grouped w8a8 products, (M, K, N) with g = 128: the
+# ViT's fc1 over a pair's 16 tiles of 1,025 tokens, the decoder's w1 and w2
+# over a pair in the 3,072 bucket, a decoder wq over one 2,333-token prompt
+# (an M tail), and the LM head's odd N at a pair's decode rows.
+Q8G_SHAPES = ((16400, 1024, 4096), (6144, 2048, 8192), (6144, 8192, 2048),
+              (2333, 2048, 2048), (2, 2048, 92553))
+Q8G_GROUP = 128
+# K5 at a decode step's (K, N): the decoder's wq, w1 and w2 and the LM
+# head, each at M = 1, 2 and 32 rows.
+W4_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 92553))
+W4_ROWS = (1, 2, 32)
+W4_GROUP = 128
+# Quantized serving: the scorer in the grouped mode whose score delta the
+# JAX package states (0.0068 at full 2B dims, mjvideo_tpu/eval/scorer.py)
+# and in per-column int8, and the judge in int4 weight-only.
+SCORE_QUANT_MODES = ("int8-noattn-g128", "int8")
+# Quantized scores, bf16 kernels against the same quantized tree through
+# the plain path in fp32.  Each run-time activation quantization rounds a
+# bf16 and an fp32 activation apart wherever they straddle a half step, so
+# the two paths differ by the quantization noise itself, not by bf16
+# noise: int8-noattn-g128 read 1.94e-2 on an H100 (and 7.65e-3 against the
+# unquantized fp32 scores).  K6's check, bit-equal to its twin, is the
+# guard of the kernel; this bar catches a wrong route or tree.
+QUANT_SCORE_TOL = 5e-2
+JUDGE_QUANT_MODE = "int4-wo"
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -161,14 +221,31 @@ def _rel_err(got, ref):
     return err, err / ref.float().abs().max().item()
 
 
+def _bound(nbytes, ops, ops_per_s):
+    """The least time of the work: bytes over the memory rate or operations
+    over their peak, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def _check_kernel(label, kernel_fn, plain_fn, names=("out",), zero=None,
-                  extra=None):
+                  extra=None, work=None, library=None):
     """Run a kernel and its twin on the same inputs (each returns a tensor
     or a tuple) and hold the first ``len(names)`` outputs each to
     KERNEL_REL_TOL of max|plain|.  ``zero``: (where, predicate(got)), the
     outputs that must be exactly 0 and whether they are; ``extra(got, ref)``
-    -> (text, ok, readings) holds a further output.  Prints the reading with
-    the median time of each, raises on any breach, returns the reading."""
+    -> (text, ok, readings) holds a further output.  ``work``: (bytes, ops,
+    peak ops/s) of the function, for its bound; ``library``: one PyTorch
+    call computing the same function, timed as a yardstick.  Prints the
+    reading with the median time of each, raises on any breach, returns the
+    reading."""
     import torch
 
     def run(fn):
@@ -197,12 +274,69 @@ def _check_kernel(label, kernel_fn, plain_fn, names=("out",), zero=None,
     del got, ref
     reading["ms"] = _median_ms(kernel_fn)
     reading["plain_ms"] = _median_ms(plain_fn)
-    print(f"{label}: {text} (bound {KERNEL_REL_TOL:.2e}), kernel "
-          f"{reading['ms']:.4f} ms, plain {reading['plain_ms']:.4f} ms "
-          f"(median of 10)")
+    reading["library_ms"] = None if library is None else _median_ms(library)
+    if work is not None:
+        reading.update(_bound(*work))
+    times = (f"kernel {reading['ms']:.4f} ms, plain {reading['plain_ms']:.4f}"
+             " ms")
+    if reading["library_ms"] is not None:
+        times += f", library {reading['library_ms']:.4f} ms"
+    if work is not None:
+        times += (f", bound {reading['bound_ms']:.4f} ms by "
+                  f"{reading['bound_by']}")
+    print(f"{label}: {text} (bound {KERNEL_REL_TOL:.2e}), {times} (median "
+          "of 10)")
     if not ok:
         raise RuntimeError(f"{label}: beyond its bound: {text}")
     return reading
+
+
+def _attention_work(q, k, v, mask, q_offset=None, causal=True, matmuls=2,
+                    inputs=(), outputs=None):
+    """(bytes, ops, peak) of an attention function: ``matmuls`` products of
+    2 * D operations per live (query, key) pair and head, counted from this
+    run's mask and offsets (keys masked out, or past a query's position,
+    need none); each input read and each output written once (``outputs``
+    defaults to one tensor shaped as q)."""
+    import torch
+
+    B, Q, Hq, D = q.shape
+    K = k.shape[1]
+    if mask is None:
+        mask = torch.ones((B, K), dtype=torch.int32, device=q.device)
+    if causal:
+        off = (torch.zeros(B, dtype=torch.long, device=q.device)
+               if q_offset is None else q_offset.long())
+        first_q = (torch.arange(K, device=q.device)[None] - off[:, None])
+        n_q = (Q - first_q.clamp(min=0)).clamp(0, Q)
+    else:
+        n_q = torch.full((B, K), Q, device=q.device)
+    pairs = int((mask.long() * n_q).sum()) * Hq
+    outs = (q,) if outputs is None else outputs
+    nbytes = _nbytes(q, k, v, mask, *inputs, *outs)
+    return nbytes, 2 * matmuls * D * pairs, BF16_OPS_PER_S
+
+
+def _sdpa(q, k, v, causal, backward=False):
+    """``F.scaled_dot_product_attention`` on (B, H, S, D) copies of q, k and
+    v made here, k and v repeated to q's heads (GQA), as a library
+    yardstick: the forward, or with ``backward`` dQ, dK and dV together.  It
+    takes no key mask (its flash path has none), so it does a little more
+    work than a masked kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.repeat_interleave(rep, dim=2) if t is not q else t
+                  for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qt, kt, vt))
+    if not backward:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+    leaves = [t.requires_grad_() for t in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    dout = torch.randn_like(out)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
 def check_vit_attention(randn, shape):
@@ -214,7 +348,9 @@ def check_vit_attention(randn, shape):
                for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
     return _check_kernel(f"K1 vit_attention {shape}",
                          lambda: fa.vit_attention(q, k, v),
-                         lambda: fa.vit_attention_plain(q, k, v))
+                         lambda: fa.vit_attention_plain(q, k, v),
+                         work=_attention_work(q, k, v, None, causal=False),
+                         library=_sdpa(q, k, v, causal=False))
 
 
 def _decoder_inputs(randn, B, T, Hq, Hkv, D, ragged):
@@ -256,36 +392,47 @@ def check_decoder_kernels(randn, shape, ragged):
                 f"{LSE_TOL:.0e}, |lse| up to {top:.2f}), {n_dead} dead rows "
                 "at 1e30", held, {"lse_max_abs_err": live_err})
 
+    lse_out = q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                          dtype=kmax.dtype)
     readings = {
         "K2": _check_kernel(
             f"K2 decoder_attention {shape}",
             lambda: fa.decoder_attention(q, k, v, mask),
             lambda: fa.decoder_attention_plain(q, k, v, mask),
-            zero=dead_rows),
+            zero=dead_rows, work=_attention_work(q, k, v, mask),
+            library=_sdpa(q, k, v, causal=True)),
         "K2 lse": _check_kernel(
             f"K2 lse decoder_attention {shape}",
             lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
                                               scale, with_lse=True),
             lambda: fa.decoder_attention_plain(q, k, v, mask,
                                                return_lse=True),
-            zero=dead_rows, extra=lse_rule),
+            zero=dead_rows, extra=lse_rule,
+            work=_attention_work(q, k, v, mask, outputs=(q, lse_out)),
+            library=_sdpa(q, k, v, causal=True)),
     }
     dout = randn(*q.shape)
     ref, lse = fa.decoder_attention_plain(q, k, v, mask, return_lse=True)
     args = (q, k, v, dout, lse, fa.attention_delta(ref, dout), mask)
     del ref
+    backward = _sdpa(q, k, v, causal=True, backward=True)
     readings["K4a"] = _check_kernel(
         f"K4a decoder_attention_bwd_dkdv {shape}",
         lambda: kernels.decoder_attention_bwd_dkdv(*args, None, scale),
         lambda: fa.decoder_attention_bwd_plain(*args, want_dq=False)[1:],
         names=("dk", "dv"),
         zero=(f"{n_masked} masked keys",
-              lambda got: not any(g[masked].any() for g in got)))
+              lambda got: not any(g[masked].any() for g in got)),
+        work=_attention_work(q, k, v, mask, matmuls=4, inputs=args[3:6],
+                             outputs=(k, v)),
+        library=backward)
     readings["K4b"] = _check_kernel(
         f"K4b decoder_attention_bwd_dq {shape}",
         lambda: kernels.decoder_attention_bwd_dq(*args, None, scale),
         lambda: fa.decoder_attention_bwd_plain(*args, want_dkdv=False)[0],
-        names=("dq",), zero=dead_rows)
+        names=("dq",), zero=dead_rows,
+        work=_attention_work(q, k, v, mask, matmuls=3, inputs=args[3:6]),
+        library=backward)
     return readings
 
 
@@ -323,16 +470,21 @@ def check_judge_kernels(randn, name, shape):
     zero = (f"{int(dead.sum())} dead rows",
             lambda got: not got[0][dead].any())
     label = f"{shape[:6]} {name}"
+    work = _attention_work(q, k, v, mask, off)
+    # SDPA's causal mask is aligned at the first query: no yardstick for a
+    # continuation at an offset.
+    library = _sdpa(q, k, v, causal=True) if off is None else None
     return {
         "K3": _check_kernel(
             f"K3 exact_attention {label}",
             lambda: fa.exact_attention(q, k, v, mask, off),
-            lambda: fa.exact_attention_plain(q, k, v, mask, off), zero=zero),
+            lambda: fa.exact_attention_plain(q, k, v, mask, off), zero=zero,
+            work=work, library=library),
         "K2r": _check_kernel(
             f"K2r decoder_attention_rows {label}",
             lambda: fa.decoder_attention_rows(q, k, v, mask, off),
             lambda: fa.decoder_attention_rows_plain(q, k, v, mask, off),
-            zero=zero),
+            zero=zero, work=work, library=library),
     }
 
 
@@ -409,16 +561,273 @@ def check_k2r_prefix_rows(randn):
     return same
 
 
-def make_judge(state=None, generator=None, device=None):
+def _bf16_matmul_ms(x, K, N):
+    """bf16 ``torch.matmul`` of x's rows by a (K, N) bf16 weight: a
+    labelled reference point, not the same function (no quantization)."""
+    import torch
+
+    w = torch.randn((K, N), device=x.device, dtype=torch.bfloat16)
+    return _median_ms(lambda: torch.matmul(x, w))
+
+
+def check_quant_kernels(randn):
+    """K6 and K7 at Q8G_SHAPES and K5 at W4_SHAPES x W4_ROWS against their
+    twins, random weights quantized by the port's own quantizers; K7 also
+    against K6 on the same x (the same arithmetic: bit-equal).  Returns the
+    readings by (kernel, shape)."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import quant as q8
+    from mjvideo_tpu_torch.ops import quant4 as q4
+
+    out = {}
+    for M, K, N in Q8G_SHAPES:
+        x = randn(M, K)
+        qk = q8.quantize_kernel(randn(K, N).float() * 0.02,
+                                group_size=Q8G_GROUP)
+        ws, G = qk.scale, K // Q8G_GROUP
+        # The model's products write x's dtype; the LM head's, fp32 logits.
+        odt = torch.float32 if N > 50000 else torch.bfloat16
+        o = torch.empty((M, N), dtype=odt, device=x.device)
+        ref = _bf16_matmul_ms(x, K, N)
+        r6 = _check_kernel(
+            f"K6 q8g_matmul_fused {(M, K, N)} g {Q8G_GROUP} -> {odt}",
+            lambda: kernels.q8g_matmul_fused(x, qk.q, ws, odt),
+            lambda: q8.q8g_matmul_fused_plain(x, qk.q, ws, odt),
+            work=(_nbytes(x, qk.q, ws, o), 2 * M * K * N, INT8_OPS_PER_S))
+        xq, a_s = q8._quantize_rows_grouped(x.float(), G, Q8G_GROUP)
+        o32 = torch.empty((M, N), dtype=torch.float32, device=x.device)
+        r7 = _check_kernel(
+            f"K7 q8g_matmul {(M, K, N)} g {Q8G_GROUP}",
+            lambda: kernels.q8g_matmul(xq, a_s, qk.q, ws),
+            lambda: q8.q8g_matmul_plain(xq, a_s, qk.q, ws),
+            work=(_nbytes(xq, a_s, qk.q, ws, o32), 2 * M * K * N,
+                  INT8_OPS_PER_S))
+        same = torch.equal(kernels.q8g_matmul(xq, a_s, qk.q, ws),
+                           kernels.q8g_matmul_fused(x, qk.q, ws,
+                                                    torch.float32))
+        print(f"K7 against K6 on the same x {(M, K, N)}: bit-equal {same}; "
+              f"bf16 torch.matmul at this shape (reference) {ref:.4f} ms")
+        if not same:
+            raise RuntimeError(f"K7 and K6 differ at {(M, K, N)}")
+        for r in (r6, r7):
+            r["bf16_matmul_ms"] = ref
+        out["K6", (M, K, N)], out["K7", (M, K, N)] = r6, r7
+        del x, qk, ws, xq, a_s, o, o32
+    for K, N in W4_SHAPES:
+        k4 = q4.quantize_kernel_q4(randn(K, N).float() * 0.02,
+                                   group_size=W4_GROUP)
+        for M in W4_ROWS:
+            x = randn(M, K)
+            o = torch.empty((M, N), dtype=torch.float32, device=x.device)
+            r5 = _check_kernel(
+                f"K5 w4_matmul {(M, K, N)} g {W4_GROUP}",
+                lambda: kernels.w4_matmul(x, k4.packed, k4.scale),
+                lambda: q4.w4_matmul_plain(x, k4.packed, k4.scale),
+                work=(_nbytes(x, k4.packed, k4.scale, o), 2 * M * K * N,
+                      BF16_OPS_PER_S))
+            r5["bf16_matmul_ms"] = _bf16_matmul_ms(x, K, N)
+            print(f"K5 {(M, K, N)}: bf16 torch.matmul at this shape "
+                  f"(reference) {r5['bf16_matmul_ms']:.4f} ms")
+            out["K5", (M, K, N)] = r5
+    return out
+
+
+def _node_counts(state):
+    """Quantized nodes of a state by class name."""
+    from mjvideo_tpu_torch.ops.quant import quant_nodes
+
+    counts = {}
+    for n in quant_nodes(state):
+        counts[type(n).__name__] = counts.get(type(n).__name__, 0) + 1
+    return counts
+
+
+def quant_scoring_phase(scorer, requests, fp32_scores, dev):
+    """Phase 11: the 2B scorer's bf16 state quantized on the card in each
+    SCORE_QUANT_MODES mode through ``RewardScorer(quant=...)``; the single
+    clip and the pair scored, exact launch counts (K6 per request: 4 per
+    ViT layer, 2 in the projector, 3 per decoder MLP under -noattn; none
+    per-column), the scores against the same quantized tree through the
+    plain path in fp32 (its int8 weights and scales as they are, every
+    other tensor in fp32) within QUANT_SCORE_TOL, the delta against the
+    unquantized fp32 plain scores reported; clips/s, peak memory, and the
+    peak while quantizing.  Returns the readings and the launch counts by mode."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels
+
+    cfg = scorer.cfg
+    L_vit = cfg.chat.vision.num_hidden_layers
+    L_llm = cfg.chat.llm.num_hidden_layers
+    readings, launches = {}, {}
+    for mode in SCORE_QUANT_MODES:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        qs = RewardScorer(cfg, scorer.params, scorer.tokenizer,
+                          dtype=torch.bfloat16,
+                          gating_pattern=scorer.gating_pattern, quant=mode)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        quant_peak = torch.cuda.max_memory_allocated(dev)
+        tree = torch.cuda.memory_allocated(dev) - base
+        nodes = _node_counts(qs.params)
+        print(f"quantized scoring {mode}: {nodes} nodes, quantized on the "
+              f"card in {quant_s:.2f} s; the quantized tree {tree / 2**30:.2f}"
+              f" GiB beside the bf16 state's {base / 2**30:.2f} GiB, peak while"
+              f" quantizing {quant_peak / 2**30:.2f} GiB")
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        scores = [qs.score_batch(*r).score for r in requests]
+        torch.cuda.synchronize()
+        got = dict(kernels.launch_counts)
+        per_request = {"vit_attention": L_vit, "decoder_attention": L_llm}
+        if "-g" in mode:
+            per_request["q8g_matmul_fused"] = 4 * L_vit + 2 + 3 * L_llm
+        want = {n: len(requests) * per_request.get(n, 0) for n in got}
+        print(f"quantized scoring {mode}: launches over {len(requests)} "
+              f"requests {got}")
+        if got != want:
+            raise RuntimeError(f"{mode}: launches {got}, want {want}")
+        scores = torch.cat(scores).float().cpu()
+        if not torch.isfinite(scores).all():
+            raise RuntimeError(f"{mode}: non-finite scores {scores.tolist()}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        pair = requests[1]
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qs.score_batch(*pair)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+        pair_s = statistics.median(times)
+
+        plain = RewardScorer(cfg, _float_plain(qs.params), scorer.tokenizer,
+                             dtype=torch.float32,
+                             gating_pattern=scorer.gating_pattern,
+                             attn_impl="plain")
+        ref = torch.cat([plain.score_batch(*r).score for r in requests])
+        ref = ref.float().cpu()
+        delta = (scores - ref).abs().max().item()
+        vs_fp32 = (scores - fp32_scores).abs().max().item()
+        plain_vs_fp32 = (ref - fp32_scores).abs().max().item()
+        print(f"quantized scoring {mode}: scores {scores.tolist()}; against "
+              f"the same tree through the plain path in fp32 max|delta| "
+              f"{delta:.3e} (bound {QUANT_SCORE_TOL:.0e}); against "
+              f"unquantized fp32 plain max|delta| {vs_fp32:.3e}, relative to "
+              f"max|fp32 score| {vs_fp32 / fp32_scores.abs().max().item():.3e}"
+              f" (the plain path's {plain_vs_fp32:.3e}); pair request "
+              f"median {pair_s * 1e3:.1f} ms over {len(times)} runs -> "
+              f"{len(pair[1]) / pair_s:.2f} clips/s; peak memory "
+              f"{peak / 2**30:.2f} GiB")
+        if not delta < QUANT_SCORE_TOL:
+            raise RuntimeError(f"{mode}: score delta {delta} >= "
+                               f"{QUANT_SCORE_TOL}")
+        readings[mode] = {
+            "nodes": nodes, "quantize_s": quant_s,
+            "quantize_peak_gib": quant_peak / 2**30,
+            "tree_gib": tree / 2**30, "bf16_state_gib": base / 2**30,
+            "delta_vs_plain": delta, "delta_vs_fp32": vs_fp32,
+            "plain_delta_vs_fp32": plain_vs_fp32,
+            "pair_ms": pair_s * 1e3, "clips_per_s": len(pair[1]) / pair_s,
+            "peak_gib": peak / 2**30}
+        launches[f"serving {mode}"] = got
+        del qs, plain
+        torch.cuda.empty_cache()
+    return readings, launches
+
+
+def _float_plain(state):
+    """The plain tensors of a state in fp32; quantized nodes as they are."""
+    from mjvideo_tpu_torch.ops.quant import is_qnode
+
+    if isinstance(state, dict):
+        return {k: _float_plain(v) for k, v in state.items()}
+    return state if is_qnode(state) else state.float()
+
+
+def quant_judge_phase(dev, bf16_step_ms):
+    """Phase 12: an ``InternVLJudge(quant=JUDGE_QUANT_MODE)`` made like
+    phase 9's (the same seed: the same bf16 weights, quantized on the card)
+    answers the pair through ``judge_pair`` (the full-prompt path); K5
+    launches exact (one for the LM head at the end of the prefill, then per
+    decode step 7 per decoder layer and the LM head: every product of B = 2
+    rows), none of the others but K1 and K3; teacher-forced logits held to
+    LOGITS_REL_TOL of max|logit| against the same int4 tree through the
+    plain path in fp32; then phase 9's timing.  Returns the readings and
+    the launch counts."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import judge_pair, kernels, overall_prompt
+
+    videos = ("video_0", "video_1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    judge = make_judge(generator=torch.Generator(device=dev)
+                       .manual_seed(SEED), device=dev, quant=JUDGE_QUANT_MODE)
+    L_vit = judge.cfg.vision.num_hidden_layers
+    L_llm = judge.cfg.llm.num_hidden_layers
+    nodes = _node_counts(judge.params)
+    print(f"quantized judge {JUDGE_QUANT_MODE}: {nodes} nodes; made and "
+          f"quantized on the card, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    kernels.reset_launch_counts()
+    s0, s1, r0, r1 = judge_pair(judge, *videos, JUDGE_CAPTION)
+    torch.cuda.synchronize()
+    got = dict(kernels.launch_counts)
+    prompt = overall_prompt(JUDGE_CAPTION)
+    toks = path_runner(judge, prompt, videos, False)()
+    drawn = _drawn(judge, toks)
+    per_step = 7 * L_llm + 1
+    want = {n: 0 for n in got}
+    want.update(vit_attention=2 * L_vit, exact_attention=L_llm,
+                w4_matmul=1 + per_step * (drawn - 1))
+    print(f"quantized judge launches ({drawn} tokens drawn, {drawn - 1} "
+          f"decode steps): {got}")
+    if got != want:
+        raise RuntimeError(f"quantized judge: launches {got}, want {want}")
+    print(f"quantized judge: ratings {s0}, {s1}; answers {r0!r:.60}, "
+          f"{r1!r:.60}")
+    out = {"nodes": nodes}
+    plain = make_judge(state=_float_plain(judge.params))
+    _, out["full_rel"], _, _ = logits_fidelity(
+        judge, plain, prompt, videos, False, f"{JUDGE_QUANT_MODE} full prompt")
+    del plain
+    torch.cuda.empty_cache()
+    if not out["full_rel"] <= LOGITS_REL_TOL:
+        raise RuntimeError(f"quantized judge logits {out['full_rel']} > "
+                           f"{LOGITS_REL_TOL}")
+    ptoks = path_runner(judge, JUDGE_QUESTION, videos, True)()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out.update(time_judge(judge, videos, drawn, _drawn(judge, ptoks)))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"quantized judge: decode step at B = 2 {out['decode_step_ms']:.2f}"
+          f" ms against {bf16_step_ms:.2f} ms in bf16 (phase 9); peak memory "
+          f"{out['peak_gib']:.2f} GiB while timing")
+    return out, {"judge int4": got}
+
+
+def make_judge(state=None, generator=None, device=None, quant=None):
     """An ``InternVLJudge`` on the 2B chat config rebased on the
     ``ByteTokenizer``, with random bf16 weights drawn on the card from
     ``generator`` (or ``state``, e.g. an fp32 copy, which then runs the
-    plain path).  Its videos are seeded pixels: a video's name seeds its
-    frames, so two judges see the same ones."""
+    plain path), in the serving mode ``quant`` if one is given.  Its videos
+    are seeded pixels: a video's name seeds its frames, so two judges see
+    the same ones."""
     import numpy as np
     import torch
 
-    from mjvideo_tpu.data.prompts import rebase_img_context_id
+    from mjvideo_tpu_torch.data.prompts import rebase_img_context_id
     from mjvideo_tpu_torch import (
         ByteTokenizer,
         InternVLJudge,
@@ -455,7 +864,8 @@ def make_judge(state=None, generator=None, device=None):
             return vis, [1] * JUDGE_FRAMES
 
     return SeededVideoJudge(cfg, state, tok, num_segments=JUDGE_FRAMES,
-                            max_new_tokens=JUDGE_NEW_TOKENS, attn_impl=impl)
+                            max_new_tokens=JUDGE_NEW_TOKENS, attn_impl=impl,
+                            quant=quant)
 
 
 def _full_inputs(judge, prompt, videos):
@@ -463,7 +873,7 @@ def _full_inputs(judge, prompt, videos):
     generation config, and the videos' embeds."""
     import torch
 
-    from mjvideo_tpu.data.prompts import build_video_question
+    from mjvideo_tpu_torch.data.prompts import build_video_question
     from mjvideo_tpu_torch.models.generate import batch_chat_inputs
 
     preps = [judge._prep(p) for p in videos]
@@ -753,7 +1163,7 @@ def train_data():
     TRAIN_MICRO_BATCHES seeded micro-batches for it."""
     import numpy as np
 
-    from mjvideo_tpu.data.prompts import rebase_img_context_id
+    from mjvideo_tpu_torch.data.prompts import rebase_img_context_id
     from mjvideo_tpu_torch import ByteTokenizer, mjvideo_2b_config
 
     tok = ByteTokenizer(pad_token_id=mjvideo_2b_config().chat.llm.pad_token_id)
@@ -975,7 +1385,8 @@ def make_requests(scorer, rng):
 
 def plain_score_delta(scorer, requests, scores):
     """Re-score with the same weights in fp32 through the plain attention
-    path; returns (max |delta|, max |delta| / max |plain score|)."""
+    path; returns (max |delta|, max |delta| / max |plain score|, the plain
+    scores)."""
     import torch
 
     from mjvideo_tpu_torch import RewardScorer, map_state
@@ -993,7 +1404,7 @@ def plain_score_delta(scorer, requests, scores):
     print(f"scores fp32 plain   {ref.tolist()}")
     print(f"max |score delta| {delta:.3e} (bound {SCORE_TOL:.0e}), "
           f"relative to max|plain score| {rel:.3e}")
-    return delta, rel
+    return delta, rel, ref
 
 
 def main() -> int:
@@ -1047,6 +1458,7 @@ def main() -> int:
                for name, shape in JUDGE_SHAPES.items()}
     turns = time_shifts_in_turns(randn)
     check_k2r_prefix_rows(randn)
+    quant_k = check_quant_kernels(randn)
 
     # Phase 4: serving at the 2B widths and depths.
     t0 = time.perf_counter()
@@ -1091,9 +1503,12 @@ def main() -> int:
           f"{len(times)} runs -> {clips_per_s:.2f} clips/s; peak memory "
           f"{peak / 2**30:.2f} GiB (bf16, kernels)")
 
-    delta, _ = plain_score_delta(scorer, requests, scores)
+    delta, _, fp32_scores = plain_score_delta(scorer, requests, scores)
     if not delta < SCORE_TOL:
         raise RuntimeError(f"score delta {delta} >= {SCORE_TOL}")
+    # Phase 11: quantized serving on the same bf16 state.
+    quant_scored, quant_launches = quant_scoring_phase(scorer, requests,
+                                                       fp32_scores, dev)
     del scorer, requests
     torch.cuda.empty_cache()
 
@@ -1108,11 +1523,16 @@ def main() -> int:
 
     # Phase 9: the judge at the 2B widths and depths.
     judged_out, judge_launches = judge_phase(dev)
-    if "jax" in sys.modules:
-        raise RuntimeError("the port imported jax")
+    # Phase 12: the judge in int4 weight-only.
+    quant_judged, quant_judge_launches = quant_judge_phase(
+        dev, judged_out["decode_step_ms"])
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "mjvideo_tpu"))
+    if loaded:
+        raise RuntimeError(f"the port imported {loaded}")
 
     by_path = {"serving": launches, "training": train_launches,
-               **judge_launches}
+               **judge_launches, **quant_launches, **quant_judge_launches}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -1156,8 +1576,29 @@ def main() -> int:
          "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
          **counts("decoder_attention_rows"), "shape": judged,
          **judge_k["prefill"]["K2r"], "kernel_ms_in_turns": turns["K2r"]},
+        {"name": "q8g_matmul_fused", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
+         "replaces": "mjvideo_tpu/ops/quant.py:316",
+         **counts("q8g_matmul_fused"), "shape": Q8G_SHAPES[1],
+         **quant_k["K6", Q8G_SHAPES[1]]},
+        # K6's oracle, as in the JAX package: not on the main path.
+        {"name": "q8g_matmul", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
+         "replaces": "mjvideo_tpu/ops/quant.py:423",
+         **counts("q8g_matmul"), "on_main_path": False,
+         "shape": Q8G_SHAPES[1], **quant_k["K7", Q8G_SHAPES[1]]},
+        {"name": "w4_matmul", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/w4_matmul.cu",
+         "replaces": "mjvideo_tpu/ops/quant4.py:177",
+         **counts("w4_matmul"), "shape": (2,) + W4_SHAPES[1],
+         **quant_k["K5", (2,) + W4_SHAPES[1]]},
     ], "training": {**train_ms, "peak_gib": train_peak / 2**30},
-        "judge": judged_out}
+        "judge": judged_out, "quantized_scoring": quant_scored,
+        "quantized_judge": quant_judged}
+    idle = [k["name"] for k in summary["kernels"]
+            if k.get("on_main_path", True) and k["launches"] == 0]
+    if idle:
+        raise RuntimeError(f"kernels of the main path never launched: {idle}")
     print(smi)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

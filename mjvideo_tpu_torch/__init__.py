@@ -5,20 +5,22 @@ The MJ-VIDEO-2B scoring path (``RewardScorer.score_batch`` ->
 scatter -> InternLM2 decoder -> reward head), its training step
 (``train/``), and cached generation with the InternVL2 judge
 (``models/generate.py``, ``eval/judges.py``) in PyTorch, with hand-written
-CUDA kernels for the attention forwards and backward (``kernels.py``,
-``csrc/``).  The JAX package stays the reference; its jax-free
-configuration, prompt and video modules are imported from it rather than
-copied.
+CUDA kernels for the attention forwards and backward and the quantized
+products (``kernels.py``, ``csrc/``); quantized serving
+(``RewardScorer(quant=...)``, ``InternVLJudge(quant=...)``) through
+``ops/quant.py`` and ``ops/quant4.py``.  The JAX package stays the
+reference; the port imports nothing of it and keeps its own copies of the
+configuration, prompt and video modules (``configs.py``, ``data/``).
 """
 
-from mjvideo_tpu.configs import (  # noqa: F401
+from .configs import (  # noqa: F401
     ChatConfig,
     RewardConfig,
     internvl2_2b_chat_config,
     mjvideo_2b_config,
     tiny_test_config,
 )
-from mjvideo_tpu.data.prompts import (  # noqa: F401
+from .data.prompts import (  # noqa: F401
     ByteTokenizer,
     build_video_question,
     prepare_chat_input,

@@ -3,9 +3,9 @@
 Counterpart of the InternVL part of ``mjvideo_tpu/eval/judges.py``:
 ``RATING_SCALE`` and ``parse_rating``, the two prompt templates and the
 fine-grained rubric, ``InternVLJudge`` with its prefix cache, and
-``judge_pair``.  ``mjvideo_tpu.eval`` imports JAX, so the prompt constants
-are copied here; ``tests/test_torch_judges.py`` holds them byte-equal to
-the JAX package's, which transcribe the reference benchmark's
+``judge_pair``.  The prompt constants are copied here;
+``tests/test_torch_judges.py`` holds them byte-equal to the JAX package's,
+which transcribe the reference benchmark's
 (``eval_overall_internvl2_2b.py:17-80``,
 ``eval_fine_grained_internvl2_2b.py:67-138``).  The other judge families
 and the benchmark's ``run_*`` entry points wait for ROADMAP items 8 and 10.
@@ -32,6 +32,7 @@ from ..models.generate import (
     round_up_bucket,
     stack_prefix_states,
 )
+from ..ops.quant import quantize_params_mode
 from ..utils.bridge import first_tensor
 
 RATING_SCALE: Dict[str, int] = {
@@ -185,6 +186,16 @@ def fine_grained_prompt(caption: str, category: str,
         caption=caption, category=name, description=description)
 
 
+def _maybe_quantize(params, quant: Optional[str]):
+    """A judge's state in a serving mode: the quantized nodes flow through
+    vision, prefill, the prefix path and cached decode, since every dense
+    product goes through ``ops.matmul.dot``.  Decode reads every kernel
+    once per step, so smaller weights cut its bytes."""
+    if quant is None:
+        return params
+    return quantize_params_mode(params, quant)
+
+
 class InternVLJudge:
     """A local judge on the port's InternVL2 stack (the reference runs it
     through ms-swift, ``eval_overall_internvl2_2b.py:119-129``).
@@ -202,14 +213,13 @@ class InternVLJudge:
                  prefix_cache: bool = True, suffix_bucket: int = 128):
         """``cfg``: a ChatConfig; ``params``: chat state with the LM head,
         on the device the judge runs on; ``attn_impl``: "auto" (the
-        kernels on the card) or "plain"."""
-        if quant is not None:
-            raise NotImplementedError(
-                "InternVLJudge(quant=...) waits for the quantized kernels "
-                "K5-K7 (ROADMAP item 11)")
+        kernels on the card) or "plain"; ``quant``: a serving mode of
+        ``ops.quant.quantize_params_mode``, applied to the state where it
+        lies (``_maybe_quantize``)."""
         self.cfg = cfg
         self.kv_quant = kv_quant
-        self.params = params
+        self.quant = quant
+        self.params = _maybe_quantize(params, quant)
         self.device = first_tensor(params).device
         self.tokenizer = tokenizer
         self.num_segments = num_segments
@@ -225,7 +235,7 @@ class InternVLJudge:
 
     def _encode_video(self, video_path: str):
         """(vision embeds (P, n_tok, C), num_patches_list) of a video file."""
-        from mjvideo_tpu.data.video import load_video
+        from ..data.video import load_video
 
         from ..models.internvl import extract_feature
 
@@ -250,7 +260,7 @@ class InternVLJudge:
         """Token ids of the prompt text shared by every question about a
         video with this tile layout: the common string prefix of two
         prompts with maximally different sentinel captions."""
-        from mjvideo_tpu.data.prompts import (
+        from ..data.prompts import (
             build_video_question,
             prepare_chat_input,
         )
@@ -273,7 +283,7 @@ class InternVLJudge:
         """The suffix token ids, or None where prefix reuse would be
         inexact: the tokenizer merged across the boundary, or the suffix
         exceeds the bucket the cached state was sized for."""
-        from mjvideo_tpu.data.prompts import (
+        from ..data.prompts import (
             build_video_question,
             prepare_chat_input,
         )
@@ -344,7 +354,7 @@ class InternVLJudge:
     # ------------------------------------------------------- public API
 
     def ask(self, prompt: str, video_path: str) -> str:
-        from mjvideo_tpu.data.prompts import build_video_question
+        from ..data.prompts import build_video_question
 
         if self.prefix_cache:
             resp = self._ask_prefix(prompt, [video_path])
@@ -360,7 +370,7 @@ class InternVLJudge:
         return response
 
     def ask_batch(self, prompt: str, video_paths) -> List[str]:
-        from mjvideo_tpu.data.prompts import build_video_question
+        from ..data.prompts import build_video_question
 
         if self.prefix_cache:
             resp = self._ask_prefix(prompt, list(video_paths))

@@ -8,15 +8,16 @@ runs ``reward_forward`` once on the device that holds the parameters.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from mjvideo_tpu.configs import RewardConfig
-from mjvideo_tpu.data.prompts import GATING_TOKEN_PATTERN, rebase_img_context_id
+from ..configs import RewardConfig
+from ..data.prompts import GATING_TOKEN_PATTERN, rebase_img_context_id
 
 from ..models.reward import RewardOutput, reward_forward
+from ..ops.quant import quantize_params_mode
 from ..utils.bridge import first_tensor
 
 
@@ -41,11 +42,19 @@ class RewardScorer:
         length_buckets: Sequence[int] = (1024, 2304, 3072),
         gating_pattern: Sequence[int] = GATING_TOKEN_PATTERN,
         attn_impl: str = "auto",
+        quant: Optional[str] = None,
     ):
         """``params``: the state of ``init_reward_params`` or
         ``utils.bridge.from_jax_params``; scoring runs on its device.
         ``dtype``: the pixel dtype (the parameters keep theirs).
-        ``attn_impl``: "auto" (the kernels on the card) or "plain"."""
+        ``attn_impl``: "auto" (the kernels on the card) or "plain".
+        ``quant``: a serving mode of ``ops.quant.quantize_params_mode``
+        ("int8", "int8-noattn-g128", "int8-wo", "int4-wo", ...), applied
+        to the state where it lies; a state that is already quantized is
+        taken as it is."""
+        if quant is not None:
+            params = quantize_params_mode(params, quant)
+        self.quant = quant
         self.params = params
         self.device = first_tensor(params).device
         self.tokenizer = tokenizer

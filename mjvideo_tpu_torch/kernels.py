@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vit_attention.cu", "decoder_attention.cu",
-           "decoder_attention_bwd.cu", "exact_attention.cu")
+           "decoder_attention_bwd.cu", "exact_attention.cu", "q8g_matmul.cu",
+           "w4_matmul.cu")
 HEADERS = ("bound_attention.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "decoder_attention": 0, "decoder_attention_lse": 0,
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
-    "exact_attention": 0, "decoder_attention_rows": 0}
+    "exact_attention": 0, "decoder_attention_rows": 0,
+    "q8g_matmul_fused": 0, "q8g_matmul": 0, "w4_matmul": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -129,6 +131,12 @@ def _load() -> ctypes.CDLL:
         lib.mjv_decoder_attention_bwd_dq.argtypes = (
             bwd_args[:8] + [_P] + bwd_args[8:])
         lib.mjv_decoder_attention_bwd_dq.restype = _I
+        lib.mjv_q8g_matmul_fused.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        lib.mjv_q8g_matmul_fused.restype = _I
+        lib.mjv_q8g_matmul.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+        lib.mjv_q8g_matmul.restype = _I
+        lib.mjv_w4_matmul.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.mjv_w4_matmul.restype = _I
         _lib = lib
     return _lib
 
@@ -359,3 +367,114 @@ def decoder_attention_bwd_dq(q, k, v, dout, lse, delta,
     _raise_on(name, err)
     launch_counts[name] += 1
     return dq
+
+
+def _check_dense(name: str, t: torch.Tensor, dtype, shape, dev,
+                 align: int = 1) -> None:
+    """A contiguous ``dtype`` tensor of ``shape`` on the CUDA device
+    ``dev`` whose data starts at a multiple of ``align`` bytes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    _check_aux(name, t, dtype, shape, dev)
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: must be {align}-byte aligned")
+
+
+def _group_operands(name: str, wq: torch.Tensor, w_scale: torch.Tensor,
+                    M: int, K: int, dev):
+    """Checks shared by K6 and K7; returns (N, G)."""
+    if wq.dim() != 2 or w_scale.dim() != 2 or wq.shape[0] != K:
+        raise ValueError(f"{name}: wq must be (K, N) = ({K}, N) and w_scale "
+                         f"(G, N); got {tuple(wq.shape)}, "
+                         f"{tuple(w_scale.shape)}")
+    N, G = wq.shape[1], w_scale.shape[0]
+    if M < 1 or G < 1 or K % G or (K // G) % 32:
+        raise ValueError(f"{name}: the group size K / G = {K} / {G} must be "
+                         "a whole multiple of 32, and M >= 1")
+    _check_dense(f"{name} wq", wq, torch.int8, (K, N), dev)
+    _check_dense(f"{name} w_scale", w_scale, torch.float32, (G, N), dev)
+    return N, G
+
+
+def q8g_matmul_fused(x: torch.Tensor, wq: torch.Tensor,
+                     w_scale: torch.Tensor,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """K6.  x: (M, K) bf16, wq: (K, N) int8, w_scale: (G, N) fp32 with
+    K / G a multiple of 32, all contiguous.  Returns a (M, N) tensor of
+    ``out_dtype`` (bf16 or fp32)."""
+    name = "q8g_matmul_fused"
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be (M, K), got {tuple(x.shape)}")
+    M, K = x.shape
+    _check_dense(f"{name} x", x, torch.bfloat16, (M, K), x.device, 16)
+    N, G = _group_operands(name, wq, w_scale, M, K, x.device)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: out_dtype must be bf16 or fp32")
+    lib = _load()
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_q8g_matmul_fused(
+            x.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), M, N, K, G, stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def q8g_matmul(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
+               w_scale: torch.Tensor) -> torch.Tensor:
+    """K7.  xq: (M, K) int8, a_scale: (M, G) fp32, wq: (K, N) int8,
+    w_scale: (G, N) fp32 with K / G a multiple of 32, all contiguous.
+    Returns a (M, N) fp32 tensor."""
+    name = "q8g_matmul"
+    if xq.dim() != 2:
+        raise ValueError(f"{name}: xq must be (M, K), got {tuple(xq.shape)}")
+    M, K = xq.shape
+    _check_dense(f"{name} xq", xq, torch.int8, (M, K), xq.device, 16)
+    N, G = _group_operands(name, wq, w_scale, M, K, xq.device)
+    _check_dense(f"{name} a_scale", a_scale, torch.float32, (M, G),
+                 xq.device)
+    lib = _load()
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_q8g_matmul(
+            xq.data_ptr(), a_scale.data_ptr(), wq.data_ptr(),
+            w_scale.data_ptr(), out.data_ptr(), M, N, K, G, stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def w4_matmul(x: torch.Tensor, packed: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """K5.  x: (M, K) bf16 with M <= 32, packed: (K/2, N) int8 half-split
+    nibbles, scale: (G, N) bf16 with K/2 a multiple of g = K / G and g
+    below 64 or a multiple of 64, all contiguous.  Returns a (M, N) fp32
+    tensor."""
+    name = "w4_matmul"
+    if x.dim() != 2 or packed.dim() != 2 or scale.dim() != 2:
+        raise ValueError(f"{name}: x, packed and scale must be 2-D")
+    M, K = x.shape
+    N, G = packed.shape[1], scale.shape[0]
+    if (not 1 <= M <= 32 or packed.shape[0] * 2 != K or G < 1 or K % G
+            or (K // 2) % (K // G) or (K // G >= 64 and (K // G) % 64)):
+        raise ValueError(f"{name}: need 1 <= M <= 32, packed (K/2, N), "
+                         "whole groups in each half and a group size below "
+                         f"64 or a multiple of it; got x {tuple(x.shape)}"
+                         f", packed {tuple(packed.shape)}, scale "
+                         f"{tuple(scale.shape)}")
+    _check_dense(f"{name} x", x, torch.bfloat16, (M, K), x.device)
+    _check_dense(f"{name} packed", packed, torch.int8, (K // 2, N), x.device)
+    _check_dense(f"{name} scale", scale, torch.bfloat16, (G, N), x.device)
+    lib = _load()
+    out = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_w4_matmul(x.data_ptr(), packed.data_ptr(),
+                                scale.data_ptr(), out.data_ptr(), M, N, K, G,
+                                stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out

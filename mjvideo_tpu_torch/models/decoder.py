@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from mjvideo_tpu.configs import LLMConfig
+from ..configs import LLMConfig
 
 from ..ops.attention import multi_head_attention
 from ..ops.matmul import dot, dot_f32
@@ -71,8 +71,8 @@ def init_decoder_params(cfg: LLMConfig, *, generator: torch.Generator,
     return params
 
 
-def _dense(p, x):
-    y = dot(x, p["kernel"])
+def _dense(p, x, impl: str = "auto"):
+    y = dot(x, p["kernel"], impl)
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -84,20 +84,20 @@ def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl):
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
     h = rms_norm(x, p["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
-    q = _dense(p["attention"]["wq"], h).reshape(B, S, Hq, D)
-    k = _dense(p["attention"]["wk"], h).reshape(B, S, Hkv, D)
-    v = _dense(p["attention"]["wv"], h).reshape(B, S, Hkv, D)
+    q = _dense(p["attention"]["wq"], h, impl).reshape(B, S, Hq, D)
+    k = _dense(p["attention"]["wk"], h, impl).reshape(B, S, Hkv, D)
+    v = _dense(p["attention"]["wv"], h, impl).reshape(B, S, Hkv, D)
     q, k = apply_rope(q, k, cos, sin)
     # The global bound kernel K2, as the JAX decoder takes it by default
     # (decoder.py _LLM_BOUND); the cached paths keep the exact K3.
     attn = multi_head_attention(q, k, v, attention_mask=attention_mask,
                                 causal=True, impl=impl, norm_bound=True)
-    x = x + _dense(p["attention"]["wo"], attn.reshape(B, S, Hq * D))
+    x = x + _dense(p["attention"]["wo"], attn.reshape(B, S, Hq * D), impl)
 
     h = rms_norm(x, p["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
-    gate = _dense(p["feed_forward"]["w1"], h)
-    up = _dense(p["feed_forward"]["w3"], h)
-    return x + _dense(p["feed_forward"]["w2"], F.silu(gate) * up)
+    gate = _dense(p["feed_forward"]["w1"], h, impl)
+    up = _dense(p["feed_forward"]["w3"], h, impl)
+    return x + _dense(p["feed_forward"]["w2"], F.silu(gate) * up, impl)
 
 
 def decoder_forward(
@@ -135,6 +135,7 @@ def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(input_ids, params["tok_embeddings"])
 
 
-def lm_logits(params, hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(params, hidden: torch.Tensor,
+              impl: str = "auto") -> torch.Tensor:
     """LM head projection with fp32 logits (``decoder.py:208-210``)."""
-    return dot_f32(hidden, params["output"]["kernel"])
+    return dot_f32(hidden, params["output"]["kernel"], impl)

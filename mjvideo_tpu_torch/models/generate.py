@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mjvideo_tpu.configs import ChatConfig, LLMConfig
+from ..configs import ChatConfig, LLMConfig
 
 from ..ops.attention import NEG_INF, attention_plain, multi_head_attention
 from ..ops.flash_attention import flash_attention
@@ -147,9 +147,9 @@ def _layer_with_cache(cfg: LLMConfig, lp, x, k_cache, v_cache, k_scale,
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
     h = rms_norm(x, lp["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
-    q = dec._dense(lp["attention"]["wq"], h).reshape(B, S, Hq, D)
-    k = dec._dense(lp["attention"]["wk"], h).reshape(B, S, Hkv, D)
-    v = dec._dense(lp["attention"]["wv"], h).reshape(B, S, Hkv, D)
+    q = dec._dense(lp["attention"]["wq"], h, impl).reshape(B, S, Hq, D)
+    k = dec._dense(lp["attention"]["wk"], h, impl).reshape(B, S, Hkv, D)
+    v = dec._dense(lp["attention"]["wv"], h, impl).reshape(B, S, Hkv, D)
     q, k = apply_rope(q, k, cos, sin, position_ids)
 
     write_ok = scatter_kv(k_cache, v_cache, k_scale, v_scale, k, v,
@@ -170,12 +170,13 @@ def _layer_with_cache(cfg: LLMConfig, lp, x, k_cache, v_cache, k_scale,
         bias = torch.where(valid, 0.0, NEG_INF)[:, None]  # (B, 1, S, max_len)
         k_op, v_op = read_kv(k_cache, v_cache, k_scale, v_scale, q.dtype)
         attn = attention_plain(q, k_op, v_op, bias=bias)
-    x = x + dec._dense(lp["attention"]["wo"], attn.reshape(B, S, Hq * D))
+    x = x + dec._dense(lp["attention"]["wo"], attn.reshape(B, S, Hq * D),
+                       impl)
 
     h = rms_norm(x, lp["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
-    gate = dec._dense(lp["feed_forward"]["w1"], h)
-    up = dec._dense(lp["feed_forward"]["w3"], h)
-    return x + dec._dense(lp["feed_forward"]["w2"], F.silu(gate) * up)
+    gate = dec._dense(lp["feed_forward"]["w1"], h, impl)
+    up = dec._dense(lp["feed_forward"]["w3"], h, impl)
+    return x + dec._dense(lp["feed_forward"]["w2"], F.silu(gate) * up, impl)
 
 
 def decoder_forward_cached(
@@ -282,7 +283,8 @@ def _prefill(params, cfg: ChatConfig, input_ids, attention_mask,
     # padding alike).
     last_idx = torch.where(attention_mask != 0,
                            torch.arange(T, device=dev)[None], -1).amax(-1)
-    logits = dec.lm_logits(lm, hidden[torch.arange(B, device=dev), last_idx])
+    logits = dec.lm_logits(lm, hidden[torch.arange(B, device=dev), last_idx],
+                           impl)
     return logits, cache, cache_mask, last_idx + 1
 
 
@@ -294,7 +296,7 @@ def _step(lm, llm_cfg: LLMConfig, tok, cache, cache_mask, slot, impl):
     emb = dec.embed_tokens(lm, tok.long()[:, None])
     hidden, _ = decoder_forward_cached(lm, llm_cfg, emb, cache,
                                        slot[:, None], cache_mask, impl=impl)
-    return dec.lm_logits(lm, hidden[:, 0])
+    return dec.lm_logits(lm, hidden[:, 0], impl)
 
 
 def _decode_from_logits(lm, llm_cfg: LLMConfig, gc: GenerationConfig,
@@ -438,7 +440,8 @@ def generate_from_prefix(
                                            cache_mask, impl=impl,
                                            q_offset=state.n_prefix)
     s_real = suffix_mask.long().sum(-1)
-    logits = dec.lm_logits(lm, hidden[torch.arange(B, device=dev), s_real - 1])
+    logits = dec.lm_logits(lm, hidden[torch.arange(B, device=dev), s_real - 1],
+                           impl)
     return _decode_from_logits(lm, cfg.llm, gc, logits, cache, cache_mask,
                                state.n_prefix.long() + s_real, generator, impl,
                                return_state=return_state,
@@ -461,7 +464,7 @@ def round_up_bucket(n: int, bucket: int = 64) -> int:
 
 
 def _eos_pad(cfg: ChatConfig, tokenizer) -> Tuple[int, int]:
-    from mjvideo_tpu.data.conversation import get_template
+    from ..data.conversation import get_template
 
     template = get_template(cfg.template)
     eos = tokenizer.convert_tokens_to_ids(template.sep.strip())
@@ -483,7 +486,7 @@ def batch_chat_inputs(
     """``batch_chat``'s prompts, left-padded to one bucket: (ids (B, T)
     int64, mask (B, T) int32, the generation config with the template's
     EOS and the tokenizer's pad)."""
-    from mjvideo_tpu.data.prompts import prepare_chat_input
+    from ..data.prompts import prepare_chat_input
 
     chats = [prepare_chat_input(
         cfg, tokenizer, q,
@@ -532,7 +535,7 @@ def chat(
 ) -> Tuple[str, list]:
     """Single-turn chat (``modeling_internvl_chat.py:264-334``): the prompt
     right-padded to its bucket; returns (response, new history)."""
-    from mjvideo_tpu.data.prompts import prepare_chat_input
+    from ..data.prompts import prepare_chat_input
 
     if num_patches_list is None and pixel_values is not None:
         num_patches_list = [pixel_values.shape[0]]
@@ -604,7 +607,7 @@ def stream_chat(
 ):
     """Streaming single-turn chat: yields the growing response string; the
     last value is the whole response."""
-    from mjvideo_tpu.data.prompts import prepare_chat_input
+    from ..data.prompts import prepare_chat_input
 
     if num_patches_list is None and pixel_values is not None:
         num_patches_list = [pixel_values.shape[0]]
@@ -654,7 +657,7 @@ class ChatSession:
         self._pending: list = []  # generated tail whose K/V is not yet
 
     def _render(self, question, num_patches_list):
-        from mjvideo_tpu.data.prompts import prepare_chat_input
+        from ..data.prompts import prepare_chat_input
 
         chat_in = prepare_chat_input(
             self.cfg, self.tokenizer, question,

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from mjvideo_tpu.configs import ChatConfig
+from ..configs import ChatConfig
 
 from ..ops.matmul import dot, gelu
 from ..ops.norms import layer_norm
@@ -55,11 +55,11 @@ def init_chat_params(cfg: ChatConfig, *, generator: torch.Generator,
     }
 
 
-def apply_projector(p, x: torch.Tensor) -> torch.Tensor:
+def apply_projector(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     h = layer_norm(x, p["norm"]["weight"], p["norm"]["bias"], eps=1e-5)
-    h = dot(h, p["fc1"]["kernel"]) + p["fc1"]["bias"]
+    h = dot(h, p["fc1"]["kernel"], impl) + p["fc1"]["bias"]
     h = gelu(h)
-    return dot(h, p["fc2"]["kernel"]) + p["fc2"]["bias"]
+    return dot(h, p["fc2"]["kernel"], impl) + p["fc2"]["bias"]
 
 
 def extract_feature(params, cfg: ChatConfig, pixel_values: torch.Tensor,
@@ -75,7 +75,7 @@ def extract_feature(params, cfg: ChatConfig, pixel_values: torch.Tensor,
                                scale_factor=cfg.downsample_ratio,
                                ps_version=cfg.ps_version)
     vit_embeds = vit_embeds.reshape(n, -1, vit_embeds.shape[-1])
-    return apply_projector(params["mlp1"], vit_embeds)
+    return apply_projector(params["mlp1"], vit_embeds, impl)
 
 
 def scatter_image_embeds(

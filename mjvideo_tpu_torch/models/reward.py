@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from mjvideo_tpu.configs import RewardConfig
+from ..configs import RewardConfig
 
 from ..ops.matmul import dot, dot_f32
 from ..utils.bridge import map_state

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mjvideo_tpu.configs import VisionConfig
+from ..configs import VisionConfig
 
 from ..ops.attention import multi_head_attention
 from ..ops.matmul import dot, gelu
@@ -116,7 +116,7 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str) -> torch.Tensor:
 
     eps = cfg.layer_norm_eps
     h = layer_norm(x, p["norm1"]["weight"], p["norm1"]["bias"], eps=eps)
-    qkv = dot(h, p["attn"]["qkv"]["kernel"])
+    qkv = dot(h, p["attn"]["qkv"]["kernel"], impl)
     if "bias" in p["attn"]["qkv"]:
         qkv = qkv + p["attn"]["qkv"]["bias"]
     # Views into qkv: the kernel takes the token stride as it is.
@@ -124,13 +124,13 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str) -> torch.Tensor:
     # The bound kernel K1, as the JAX ViT takes it (vit.py _NC_BOUND).
     attn = multi_head_attention(q, k, v, causal=False, impl=impl,
                                 norm_bound=True)
-    attn = dot(attn.reshape(B, S, C), p["attn"]["proj"]["kernel"])
+    attn = dot(attn.reshape(B, S, C), p["attn"]["proj"]["kernel"], impl)
     x = x + (attn + p["attn"]["proj"]["bias"]) * p["ls1"]
 
     h = layer_norm(x, p["norm2"]["weight"], p["norm2"]["bias"], eps=eps)
-    h = dot(h, p["mlp"]["fc1"]["kernel"]) + p["mlp"]["fc1"]["bias"]
+    h = dot(h, p["mlp"]["fc1"]["kernel"], impl) + p["mlp"]["fc1"]["bias"]
     h = gelu(h)
-    h = dot(h, p["mlp"]["fc2"]["kernel"]) + p["mlp"]["fc2"]["bias"]
+    h = dot(h, p["mlp"]["fc2"]["kernel"], impl) + p["mlp"]["fc2"]["bias"]
     return x + h * p["ls2"]
 
 

@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Set
 import numpy as np
 import torch
 
-from mjvideo_tpu.configs import RewardConfig
+from ..configs import RewardConfig
 
 from ..models.reward import reward_forward
 from ..utils.bridge import first_tensor, map_state

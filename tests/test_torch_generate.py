@@ -39,7 +39,7 @@ NEW = 6
 def setup():
     ch = tiny_test_config().chat
     params = init_chat_params(jax.random.PRNGKey(1), ch, with_lm_head=True)
-    return ch, params, from_jax_params(params)
+    return ch, params, from_jax_params(params, device="cpu")
 
 
 def _prompts(seed, lengths, T, left):

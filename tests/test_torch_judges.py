@@ -72,7 +72,8 @@ def setup(tmp_path_factory):
     videos = [str(root / "a.mp4"), str(root / "b.mp4")]
     for seed, path in enumerate(videos):
         _write_video(path, seed)
-    return ch, params, from_jax_params(params), ByteTokenizer(), videos
+    return (ch, params, from_jax_params(params, device="cpu"),
+            ByteTokenizer(), videos)
 
 
 def _judges(setup, **kw):
@@ -155,6 +156,9 @@ def test_judge_pair_and_suffix_bucket_fallback(setup):
 
 
 def test_judge_quant_raises_with_its_roadmap_item(setup):
+    """``quant=`` is served since ROADMAP item 11 (``test_torch_quant.py``
+    holds every mode against JAX); a name outside
+    ``quantize_params_mode``'s modes still raises, naming them."""
     ch, _, tp, tok, _ = setup
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="unknown quant mode 'w8a8'"):
         tj.InternVLJudge(ch, tp, tok, quant="w8a8")

@@ -223,3 +223,138 @@ def test_k3_and_k2r_wrappers_raise_instead_of_falling_back(cuda_device):
             kern(q, k, v, mask.cpu())
         with pytest.raises(NotImplementedError, match="backward"):
             kern(q.clone().requires_grad_(), k, v, mask)
+
+
+def _grouped_operands(g, dev, M, K, N, group):
+    """bf16 x (M, K) and a (K, N) kernel quantized with ``group`` rows per
+    scale by the port's own quantizer."""
+    from mjvideo_tpu_torch.ops import quant as q8
+
+    x = _randn(g, dev, M, K)
+    w = torch.randn((K, N), generator=g, device=dev) * 0.05
+    return x, q8.quantize_kernel(w, group_size=group)
+
+
+@pytest.mark.cuda
+def test_k6_and_k7_match_twins_at_odd_shapes(cuda_device):
+    """K6 (fused) and K7 (pre-quantized) against their twins: M tails, odd
+    N, g of 32, 64 and 128, bf16 and fp32 outputs; K7 against K6 on the
+    same x.  Both twins' int32 partials are exact, so only the fp32 sum
+    order may differ: 2**-7 of max|plain| as elsewhere."""
+    from mjvideo_tpu_torch.ops import quant as q8
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    for M, K, N, group in ((1, 256, 33, 32), (70, 512, 201, 64),
+                           (130, 1024, 384, 128), (2, 2048, 1003, 128)):
+        x, qk = _grouped_operands(g, cuda_device, M, K, N, group)
+        ws = qk.scale.float()
+        for out_dtype in (torch.bfloat16, torch.float32):
+            before = kernels.launch_counts["q8g_matmul_fused"]
+            got = q8.q8g_matmul_fused(x, qk.q, ws, out_dtype)
+            assert kernels.launch_counts["q8g_matmul_fused"] == before + 1
+            assert got.dtype == out_dtype and got.shape == (M, N)
+            _assert_close(got, q8.q8g_matmul_fused_plain(x, qk.q, ws,
+                                                         out_dtype))
+        xq, a_s = q8._quantize_rows_grouped(x.float(), K // group, group)
+        before = kernels.launch_counts["q8g_matmul"]
+        got7 = q8.q8g_matmul(xq, a_s, qk.q, ws)
+        assert kernels.launch_counts["q8g_matmul"] == before + 1
+        _assert_close(got7, q8.q8g_matmul_plain(xq, a_s, qk.q, ws))
+        _assert_close(got7, q8.q8g_matmul_fused(x, qk.q, ws, torch.float32))
+
+
+@pytest.mark.cuda
+def test_k5_matches_twin_at_odd_shapes(cuda_device):
+    """K5 against its twin at M of 1, 2, 7 and 32, odd N, groups of 16 to
+    128, and ``dot_q4``'s routes: K5 at 32 rows or fewer, the dequantized
+    halves above."""
+    from mjvideo_tpu_torch.ops import matmul as mm
+    from mjvideo_tpu_torch.ops import quant4 as q4
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    for M, K, N, group in ((1, 256, 77, 64), (2, 512, 1001, 128),
+                           (7, 160, 96, 16), (32, 1024, 300, 128)):
+        w = torch.randn((K, N), generator=g, device=cuda_device) * 0.05
+        k4 = q4.quantize_kernel_q4(w, group_size=group)
+        x = _randn(g, cuda_device, M, K)
+        before = kernels.launch_counts["w4_matmul"]
+        got = q4.w4_matmul(x, k4.packed, k4.scale)
+        assert kernels.launch_counts["w4_matmul"] == before + 1
+        _assert_close(got, q4.w4_matmul_plain(x, k4.packed, k4.scale))
+        _assert_close(mm.dot(x, k4), q4.w4_matmul_plain(x, k4.packed,
+                                                        k4.scale))
+    before = kernels.launch_counts["w4_matmul"]
+    big = _randn(g, cuda_device, 33, K)
+    _assert_close(mm.dot_f32(big, k4),
+                  q4.w4_matmul_plain(big, k4.packed, k4.scale))
+    assert kernels.launch_counts["w4_matmul"] == before
+
+
+@pytest.mark.cuda
+def test_int8_matmul_is_exact_at_decode_rows_and_odd_n(cuda_device):
+    """The per-column w8a8 product (``torch._int_mm``, padded where it asks)
+    against an exact int64 product on the CPU."""
+    from mjvideo_tpu_torch.ops import quant as q8
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    for M, K, N in ((2, 2048, 1003), (17, 64, 40), (300, 200, 96)):
+        a = torch.randint(-127, 128, (M, K), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (K, N), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        want = a.cpu().long() @ b.cpu().long()
+        assert torch.equal(q8.int8_matmul(a, b).cpu().long(), want)
+
+
+@pytest.mark.cuda
+def test_quant_wrappers_raise_instead_of_falling_back(cuda_device):
+    from mjvideo_tpu_torch.ops import quant as q8
+    from mjvideo_tpu_torch.ops import quant4 as q4
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x, qk = _grouped_operands(g, cuda_device, 4, 256, 64, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        q8.q8g_matmul_fused(x.float(), qk.q, qk.scale.float(), torch.float32)
+    with pytest.raises(ValueError):
+        q8.q8g_matmul_fused(x, qk.q.cpu(), qk.scale.float(), torch.float32)
+    bad = q8.quantize_kernel(torch.randn(240, 64, device=cuda_device),
+                             group_size=48)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        q8.q8g_matmul_fused(_randn(g, cuda_device, 4, 240), bad.q,
+                            bad.scale.float(), torch.float32)
+    k4 = q4.quantize_kernel_q4(torch.randn(256, 64, device=cuda_device), 64)
+    with pytest.raises(ValueError, match="M <= 32"):
+        q4.w4_matmul(_randn(g, cuda_device, 33, 256), k4.packed, k4.scale)
+
+
+@pytest.mark.cuda
+def test_quantizers_on_the_card_equal_the_cpu(cuda_device):
+    """A state quantized where it lies (``RewardScorer(quant=...)`` on the
+    card) is bit-equal to the same state quantized on the CPU."""
+    from mjvideo_tpu_torch.ops import quant as q8
+    from mjvideo_tpu_torch.ops import quant4 as q4
+
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    w = torch.randn((3, 512, 96), generator=g, device=cuda_device)
+    w = w.to(torch.bfloat16)
+    for group in (None, 64, 128):
+        got, want = (q8.quantize_kernel(t, group_size=group)
+                     for t in (w, w.cpu()))
+        assert torch.equal(got.q.cpu(), want.q)
+        assert torch.equal(got.scale.cpu(), want.scale)
+    got, want = (q4.quantize_kernel_q4(t, group_size=64) for t in (w, w.cpu()))
+    assert torch.equal(got.packed.cpu(), want.packed)
+    assert torch.equal(got.scale.cpu(), want.scale)
+    # A CPU state quantized leaf by leaf onto the card (``device=``).
+    state = {"mlp": {"fc1": {"kernel": w.cpu(), "bias": w[0, 0].cpu()}}}
+    for mode in ("int8-g64", "int4-wo"):
+        moved = q8.quantize_params_mode(state, mode, min_elements=1024,
+                                        device=cuda_device)
+        here = q8.quantize_params_mode(state, mode, min_elements=1024)
+        assert moved["mlp"]["fc1"]["bias"].device == cuda_device
+        assert len(q8.quant_nodes(moved)) == len(q8.quant_nodes(here)) == 1
+        for a, b in zip(q8.quant_nodes(moved), q8.quant_nodes(here)):
+            for f in ("q", "packed", "scale"):
+                if hasattr(a, f):
+                    assert getattr(a, f).device == cuda_device
+                    assert torch.equal(getattr(a, f).cpu(), getattr(b, f))

@@ -50,7 +50,8 @@ def setup():
     mask = (ids != ch.llm.pad_token_id).astype(np.int32)
     pix = rng.normal(size=(2, ch.image_size, ch.image_size, 3)).astype(np.float32)
     gpos = np.array([T - 6, T - 9], np.int32)
-    return cfg, params, from_jax_params(params), pix, ids, mask, gpos
+    return (cfg, params, from_jax_params(params, device="cpu"), pix, ids,
+            mask, gpos)
 
 
 def test_bridge_round_trip_keeps_layouts(setup):
@@ -146,7 +147,7 @@ def test_position_embedding_f1_on_grid_exact_off_grid_follows_reference(setup):
     vc = cfg.chat.vision
     emb = jax.tree.map(np.copy, params["model"]["vision_model"]["embeddings"])
     emb["patch_embedding"]["kernel"][:] = 0.0
-    temb = from_jax_params(emb)
+    temb = from_jax_params(emb, device="cpu")
     rng = np.random.default_rng(2)
     for px, exact in ((56, True), (70, False)):
         x = rng.normal(size=(2, px, px, 3)).astype(np.float32)

@@ -54,7 +54,7 @@ def scorers():
     common = dict(length_buckets=(BUCKET,), gating_pattern=tok.gating_pattern())
     jax_scorer = JaxRewardScorer(cfg, params, tok, attn_impl="xla",
                                  dtype=jnp.float32, **common)
-    port = RewardScorer(cfg, from_jax_params(params), tok,
+    port = RewardScorer(cfg, from_jax_params(params, device="cpu"), tok,
                         dtype=torch.float32, **common)
     return jax_scorer, port, tok
 

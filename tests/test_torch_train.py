@@ -98,7 +98,7 @@ def setup():
 
 
 def fresh(params_np):
-    return from_jax_params(params_np)
+    return from_jax_params(params_np, device="cpu")
 
 
 # ------------------------------------------------------------------ losses
@@ -220,7 +220,7 @@ def test_optimizer_matches_optax_on_fixed_gradients(kw):
     jopt = jtrainer.make_optimizer(tc_j, params)
     jp = jax.tree.map(jnp.asarray, params)
     jstate = jopt.init(jp)
-    tp = from_jax_params(params)
+    tp = from_jax_params(params, device="cpu")
     topt = ttrainer.make_optimizer(tc_t, tp)
     tstate = topt.init(tp)
     flat = ttrainer.flatten_state(tp)
@@ -231,10 +231,10 @@ def test_optimizer_matches_optax_on_fixed_gradients(kw):
         upd, jstate = jopt.update(jax.tree.map(jnp.asarray, grads), jstate,
                                   jp)
         jp = optax.apply_updates(jp, upd)
-        tgrads = ttrainer.flatten_state(from_jax_params(grads))
+        tgrads = ttrainer.flatten_state(from_jax_params(grads, device="cpu"))
         tstate = topt.update({p: tgrads[p] for p in topt.paths}, tstate, tp)
         want = ttrainer.flatten_state(from_jax_params(
-            jax.tree.map(np.asarray, jp)))
+            jax.tree.map(np.asarray, jp), device="cpu"))
         for path, t in flat.items():
             np.testing.assert_allclose(t.numpy(), want[path].numpy(),
                                        atol=1e-7, rtol=1e-6, err_msg=path)
@@ -295,7 +295,7 @@ def test_train_step_matches_jax(setup, stage):
     tgrads = dict(zip(topt.paths, torch.autograd.grad(
         loss, [flat[p] for p in topt.paths])))
     want_g = ttrainer.flatten_state(from_jax_params(
-        jax.tree.map(np.asarray, jgrads)))
+        jax.tree.map(np.asarray, jgrads), device="cpu"))
     for path, g in tgrads.items():
         np.testing.assert_allclose(g.numpy(), want_g[path].numpy(),
                                    atol=1e-6, rtol=1e-4, err_msg=path)
@@ -307,7 +307,7 @@ def test_train_step_matches_jax(setup, stage):
     np.testing.assert_allclose(tm["grad_norm"].item(), float(jm["grad_norm"]),
                                rtol=1e-4)
     want_p = ttrainer.flatten_state(from_jax_params(
-        jax.tree.map(np.asarray, jp1)))
+        jax.tree.map(np.asarray, jp1), device="cpu"))
     before = ttrainer.flatten_state(fresh(params))
     moved = False
     for path, t in ttrainer.flatten_state(tp1).items():

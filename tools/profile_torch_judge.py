@@ -1,10 +1,11 @@
 """Where the time of the InternVL2-2B judge goes on a CUDA card: prefill
 against decode.
 
-    python3 tools/profile_torch_judge.py [--out FILE]
+    python3 tools/profile_torch_judge.py [--quant MODE] [--out FILE]
 
 Builds ``chip_smoke.py``'s judge (random bf16 weights from its seed, the
-pair's seeded 8-frame videos) and the full-prompt path's inputs (the
+pair's seeded 8-frame videos; quantized on the card in the serving mode
+``--quant``, e.g. ``"int4-wo"``, if one is given) and the full-prompt path's inputs (the
 overall prompt, B = 2 left-padded in the 3,072 bucket).  Times the prefill
 and a decode loop of STEPS steps without the profiler, then traces each with
 device activity only and prints wall time, device kernel time, the busy
@@ -29,6 +30,7 @@ STEPS = 16
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--quant", default=None)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
 
@@ -48,9 +50,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {smi}; serving mode {args.quant or 'bf16'}")
     judge = make_judge(generator=torch.Generator(device=dev).manual_seed(SEED),
-                       device=dev)
+                       device=dev, quant=args.quant)
     ids, mask, gc, vis = _full_inputs(judge, overall_prompt(JUDGE_CAPTION),
                                       ("video_0", "video_1"))
     gc = gc._replace(max_new_tokens=STEPS + 1, eos_token_id=-1)

@@ -1,10 +1,12 @@
 """Where the time of one 2B scoring request goes on a CUDA card.
 
-    python3 tools/profile_torch_scoring.py [--out FILE]
+    python3 tools/profile_torch_scoring.py [--quant MODE] [--out FILE]
 
 Builds the MJ-VIDEO-2B ``RewardScorer`` and the pair request of
 ``chip_smoke.py`` (random bf16 weights made on the card, two 8-frame clips),
-warms up, then traces three requests with ``torch.profiler``.  Prints the
+in the serving mode ``--quant`` if one is given (``"int8-noattn-g128"``,
+``"int8"``, ...: ``RewardScorer(quant=...)``), warms up, then traces three
+requests with ``torch.profiler``.  Prints the
 card, the wall time per request, the device busy share (kernel time over
 wall time) and the device time by kernel group and by kernel; ``--out`` also
 writes the per-kernel list and the profiler's table to FILE.
@@ -28,6 +30,8 @@ def _group(name: str) -> str:
     n = name.lower()
     if "bound_attention" in n:
         return "attention kernels (K1/K2/K2r/K3)"
+    if "q8g_kernel" in n or "w4_kernel" in n:
+        return "quantized product kernels (K5/K6/K7)"
     if "bwd_dkdv" in n or "bwd_dq" in n:
         return "attention backward kernels (K4a/K4b)"
     if "gemm" in n or "nvjet" in n or "xmma" in n or "cutlass" in n:
@@ -43,6 +47,7 @@ def _group(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--quant", default=None)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
 
@@ -54,13 +59,19 @@ def main() -> int:
         print("profile_torch_scoring: CUDA is not available", file=sys.stderr)
         return 1
     from chip_smoke import SEED, make_requests, make_scorer
+    from mjvideo_tpu_torch import RewardScorer
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {smi}; serving mode {args.quant or 'bf16'}")
     scorer = make_scorer(torch.Generator(device=dev).manual_seed(SEED), dev)
+    if args.quant is not None:
+        scorer = RewardScorer(scorer.cfg, scorer.params, scorer.tokenizer,
+                              dtype=torch.bfloat16,
+                              gating_pattern=scorer.gating_pattern,
+                              quant=args.quant)
     pix, ids, gpos = make_requests(scorer, np.random.default_rng(SEED))[1]
 
     for _ in range(2):
