@@ -1,6 +1,6 @@
 """Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths, its
-InternVL2-2B judge, and quantized scoring and judging once on one CUDA
-card.
+InternVL2-2B judge, quantized scoring and judging, and the reward gradient
+with its VADER loop once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -94,7 +94,28 @@ Phases (any failure raises and exits non-zero):
    decode step, and K1 and K3 as in phase 9; the teacher-forced logits are
    held to LOGITS_REL_TOL against the same int4 tree through the plain path
    in fp32; then phase 9's timing, and the decode step against bf16's.
-13. Fails if ``jax`` or any ``mjvideo_tpu`` module was imported, or a
+13. (Run with phases 2, 3, 8 and 10.)  K1 with the lse, K4 nc dK/dV and
+   K4 nc dQ (the ViT attention backward) against their twins at K1_SHAPES
+   on qkv views with a random dO: outputs and gradients to the relative
+   bound, the lse to LSE_TOL; each with its bound and
+   ``F.scaled_dot_product_attention`` (forward for K1, the whole backward
+   for K4 nc) at the same shape.
+14. The reward gradient (after phase 11, on phase 4's bf16 scorer):
+   ``score_fn`` of the single 8-frame clip and ``torch.autograd.grad`` to
+   its pixels.  The score must equal ``score_batch``'s within SCORE_TOL,
+   the gradient be finite and nonzero on every tile, and the launch
+   counters show what remat gives: per ViT layer K1 with the lse twice
+   (the forward, then the recompute) and K4 nc once; per decoder layer K2
+   with the lse twice and K4a and K4b once.  The pixel gradient is held
+   against fp32 plain autograd (the same weights through ``impl="plain"``)
+   by relative L2 and cosine, to REWARD_GRAD_REL_L2 and REWARD_GRAD_COS.
+   Prints ms per value-and-gradient and the peak memory.
+15. The VADER loop (``mjvideo_tpu_torch/examples/vader_loop.py``) on the
+   same weights: VADER_STEPS Adam steps of a 2-frame coarse field; the
+   rewards must be finite and the launch counters as in phase 14 per step.
+   Prints the reward per step, ms per step, the peak memory and the rise
+   (reported, not held).
+16. Fails if ``jax`` or any ``mjvideo_tpu`` module was imported, or a
    kernel of the main path never launched; prints the card, the kernel
    summary line and, last, the contract line ``{"ok": true, "device":
    {...}}``.
@@ -197,6 +218,21 @@ SCORE_QUANT_MODES = ("int8-noattn-g128", "int8")
 # guard of the kernel; this bar catches a wrong route or tree.
 QUANT_SCORE_TOL = 5e-2
 JUDGE_QUANT_MODE = "int4-wo"
+# The reward gradient to the pixels of the single 8-frame clip (phase 14),
+# bf16 kernels against fp32 plain autograd: relative L2 error and cosine.
+# About 2.4x the largest H100 reading over weight seeds 0-3 (4.90e-2 to
+# 5.36e-2, cosine at least 0.99857; tools/reward_grad_survey.py).  bf16
+# through the plain path, with no kernel, reads 4.77e-2 to 5.26e-2: the
+# error is bf16's own.  A K4 nc dQ planted to drop delta moves the reading
+# by 1e-4 only; its per-kernel check (phase 13) fails at 0.37 of
+# max|plain| (PERF.md section 6).
+REWARD_GRAD_REL_L2 = 0.13
+REWARD_GRAD_COS = 0.995
+VADER_STEPS = 4
+VADER_FRAMES = 2           # the example's defaults: 2 frames, a 16 x 16
+VADER_COARSE = 16          # field, lr 0.05, one 4,096 bucket
+VADER_LR = 0.05
+VADER_CAPTION = "a bright colorful scene"
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -351,6 +387,59 @@ def check_vit_attention(randn, shape):
                          lambda: fa.vit_attention_plain(q, k, v),
                          work=_attention_work(q, k, v, None, causal=False),
                          library=_sdpa(q, k, v, causal=False))
+
+
+def check_vit_backward(randn, shape):
+    """Phase 13: K1 with the lse, K4 nc dK/dV and K4 nc dQ against their
+    twins on qkv views and a random dO; returns each one's reading."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = shape
+    q, k, v = (t.view(B, S, H, D)
+               for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
+    scale = D ** -0.5
+    kmax = fa.key_norm_max(k)
+
+    def lse_rule(got, ref):
+        err = (got[1] - ref[1]).abs().max().item()
+        top = ref[1].abs().max().item()
+        return (f"lse max_abs_err {err:.3e} (bound {LSE_TOL:.0e}, |lse| up "
+                f"to {top:.2f})", err <= LSE_TOL, {"lse_max_abs_err": err})
+
+    lse_out = q.new_empty((B, H, S), dtype=torch.float32)
+    readings = {"K1 lse": _check_kernel(
+        f"K1 lse vit_attention {shape}",
+        lambda: kernels.vit_attention(q, k, v, kmax, scale, with_lse=True),
+        lambda: fa.vit_attention_plain(q, k, v, return_lse=True),
+        extra=lse_rule,
+        work=_attention_work(q, k, v, None, causal=False,
+                             outputs=(q, lse_out)),
+        library=_sdpa(q, k, v, causal=False))}
+    dout = randn(*q.shape)
+    ref, lse = fa.vit_attention_plain(q, k, v, return_lse=True)
+    args = (q, k, v, dout, lse, fa.attention_delta(ref, dout))
+    del ref
+    backward = _sdpa(q, k, v, causal=False, backward=True)
+    readings["K4 nc dkdv"] = _check_kernel(
+        f"K4 nc vit_attention_bwd_dkdv {shape}",
+        lambda: kernels.vit_attention_bwd_dkdv(*args, scale),
+        lambda: fa.vit_attention_bwd_plain(*args, want_dq=False)[1:],
+        names=("dk", "dv"),
+        work=_attention_work(q, k, v, None, causal=False, matmuls=4,
+                             inputs=args[3:6], outputs=(k, v)),
+        library=backward)
+    readings["K4 nc dq"] = _check_kernel(
+        f"K4 nc vit_attention_bwd_dq {shape}",
+        lambda: kernels.vit_attention_bwd_dq(*args, scale),
+        lambda: fa.vit_attention_bwd_plain(*args, want_dkdv=False)[0],
+        names=("dq",),
+        work=_attention_work(q, k, v, None, causal=False, matmuls=3,
+                             inputs=args[3:6]),
+        library=backward)
+    return readings
 
 
 def _decoder_inputs(randn, B, T, Hq, Hkv, D, ragged):
@@ -922,18 +1011,6 @@ def logits_fidelity(judge, plain_judge, prompt, videos, prefix, label):
     return err, rel, toks, got
 
 
-def _judge_launches(label, want):
-    """Hold the launch counters to ``want`` (names not given: 0)."""
-    from mjvideo_tpu_torch import kernels
-
-    got = dict(kernels.launch_counts)
-    print(f"judge {label} launches: {got}")
-    full = {name: want.get(name, 0) for name in got}
-    if got != full:
-        raise RuntimeError(f"judge {label}: launches {got}, want {full}")
-    return got
-
-
 def judge_phase(device, seed=SEED, timing=True):
     """Phase 9.  Returns the readings and the launch counts by path."""
     import gc
@@ -964,8 +1041,9 @@ def judge_phase(device, seed=SEED, timing=True):
     kernels.reset_launch_counts()
     s0, s1, r0, r1 = judge_pair(judge, *videos, JUDGE_CAPTION)
     torch.cuda.synchronize()
-    launches["judge_full"] = _judge_launches(
-        "full prompt", {"vit_attention": 2 * L_vit, "exact_attention": L_llm})
+    launches["judge_full"] = _held_launches(
+        "judge full prompt",
+        {"vit_attention": 2 * L_vit, "exact_attention": L_llm})
     # At random weights the greedy ids lie above the ByteTokenizer's 261
     # (bytes and specials), which decode to nothing: answers are text,
     # often empty, and ratings 0.
@@ -975,8 +1053,8 @@ def judge_phase(device, seed=SEED, timing=True):
     kernels.reset_launch_counts()
     answers = judge.ask_batch(JUDGE_QUESTION, list(videos))
     torch.cuda.synchronize()
-    launches["judge_prefix"] = _judge_launches(
-        "prefix", {"exact_attention": 3 * L_llm})
+    launches["judge_prefix"] = _held_launches(
+        "judge prefix", {"exact_attention": 3 * L_llm})
     print(f"judge prefix: answers {[a[:60] for a in answers]!r}")
     if not all(isinstance(a, str) for a in (r0, r1, *answers)):
         raise RuntimeError("an answer did not decode to text")
@@ -987,8 +1065,8 @@ def judge_phase(device, seed=SEED, timing=True):
         kernels.reset_launch_counts()
         judge.ask_batch(JUDGE_QUESTION, list(videos))
         torch.cuda.synchronize()
-        launches["judge_prefix_rows"] = _judge_launches(
-            "prefix rows", {"decoder_attention_rows": 3 * L_llm})
+        launches["judge_prefix_rows"] = _held_launches(
+            "judge prefix rows", {"decoder_attention_rows": 3 * L_llm})
     finally:
         gen._CACHE_BOUND = False
         judge._pstate.cache_clear()
@@ -1407,6 +1485,168 @@ def plain_score_delta(scorer, requests, scores):
     return delta, rel, ref
 
 
+def _grad_launches(cfg, steps=1):
+    """The launch counts of ``steps`` value-and-gradients of the reward
+    under remat: per ViT layer K1 with the lse twice (the forward, then the
+    recompute) and K4 nc once; per decoder layer K2 with the lse twice and
+    K4a and K4b once; nothing else."""
+    L_vit = cfg.chat.vision.num_hidden_layers
+    L_llm = cfg.chat.llm.num_hidden_layers
+    per = {"vit_attention": 2 * L_vit, "vit_attention_lse": 2 * L_vit,
+           "vit_attention_bwd_dkdv": L_vit, "vit_attention_bwd_dq": L_vit,
+           "decoder_attention": 2 * L_llm, "decoder_attention_lse": 2 * L_llm,
+           "decoder_attention_bwd_dkdv": L_llm,
+           "decoder_attention_bwd_dq": L_llm}
+    return {name: steps * n for name, n in per.items()}
+
+
+def _held_launches(label, want):
+    """Hold the launch counters to ``want`` (names not given: 0)."""
+    from mjvideo_tpu_torch import kernels
+
+    got = dict(kernels.launch_counts)
+    print(f"{label} launches: {got}")
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise RuntimeError(f"{label}: launches {got}, want {full}")
+    return got
+
+
+def _compare_grads(got, ref):
+    """(relative L2 error, cosine) of one gradient against a reference, in
+    fp64."""
+    a, b = got.double().flatten(), ref.double().flatten()
+    rel = ((a - b).norm() / b.norm()).item()
+    cos = (a @ b / (a.norm() * b.norm())).item()
+    return rel, cos
+
+
+def plain_pixel_grad(scorer, request, dev, dtype):
+    """The score of a one-clip request and its gradient to the pixels with
+    the scorer's weights in ``dtype`` through the plain attention path
+    (pure autograd)."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, map_state
+
+    pixels, ids, gpos = request
+    plain = RewardScorer(scorer.cfg, map_state(lambda t: t.to(dtype),
+                                               scorer.params),
+                         scorer.tokenizer, dtype=dtype,
+                         length_buckets=scorer.buckets,
+                         gating_pattern=scorer.gating_pattern,
+                         attn_impl="plain")
+    pix = torch.from_numpy(pixels).to(dev).requires_grad_()
+    score = plain.score_fn(ids[0], gpos[0])(pix)
+    (grad,) = torch.autograd.grad(score, pix)
+    del plain
+    torch.cuda.empty_cache()
+    return score.float().item(), grad
+
+
+def reward_gradient_phase(scorer, request, dev, timing=True):
+    """Phase 14: ``score_fn`` of one clip and its gradient to the pixels on
+    the bf16 kernel path, against ``score_batch`` and against fp32 plain
+    autograd.  Returns the readings and the launch counts."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    pixels, ids, gpos = request
+    n_tiles = pixels.shape[0]
+    batch_score = scorer.score_batch(*request).score[0].float().item()
+    f = scorer.score_fn(ids[0], gpos[0])
+    pix = torch.from_numpy(pixels).to(dev).requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    score = f(pix)
+    (grad,) = torch.autograd.grad(score, pix)
+    torch.cuda.synchronize()
+    launches = _held_launches("reward gradient", _grad_launches(scorer.cfg))
+    peak = torch.cuda.max_memory_allocated(dev)
+    score = score.float().item()
+    per_tile = grad.reshape(n_tiles, -1).abs().amax(1)
+    finite = bool(torch.isfinite(grad).all()) and math.isfinite(score)
+    print(f"reward gradient: score {score:.6f}, score_batch {batch_score:.6f} "
+          f"(delta {abs(score - batch_score):.3e}, bound {SCORE_TOL:.0e}); "
+          f"pixel gradient {tuple(grad.shape)} finite {finite}, max|g| per "
+          f"tile {[f'{x:.3e}' for x in per_tile.tolist()]}; peak memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+          "state)")
+    if not finite or not bool((per_tile > 0).all()):
+        raise RuntimeError("reward gradient: non-finite, or zero on a tile")
+    if not abs(score - batch_score) < SCORE_TOL:
+        raise RuntimeError(f"reward gradient: score {score} against "
+                           f"score_batch's {batch_score}")
+
+    score32, grad32 = plain_pixel_grad(scorer, request, dev, torch.float32)
+    rel, cos = _compare_grads(grad, grad32)
+    print(f"reward gradient against fp32 plain autograd: score {score:.6f} "
+          f"against {score32:.6f}; pixel gradient relative L2 error "
+          f"{rel:.4e} (bound {REWARD_GRAD_REL_L2}), cosine {cos:.6f} (bound "
+          f"{REWARD_GRAD_COS}), |g| fp32 plain {grad32.norm().item():.4e}")
+    out = {"score": score, "batch_score": batch_score,
+           "score32": score32, "rel_l2": rel, "cos": cos,
+           "peak_gib": peak / 2**30, "tiles": n_tiles}
+    if not (rel <= REWARD_GRAD_REL_L2 and cos >= REWARD_GRAD_COS):
+        raise RuntimeError(f"reward gradient: relative L2 {rel}, cosine "
+                           f"{cos}")
+    if timing:
+        def value_and_grad():
+            torch.autograd.grad(f(pix), pix)
+
+        value_and_grad()
+        out["ms"] = _host_ms(value_and_grad)
+        print(f"reward gradient: {out['ms']:.1f} ms per value-and-gradient of "
+              f"one {n_tiles}-frame clip (median of 3)")
+    return out, launches
+
+
+def vader_phase(scorer, dev):
+    """Phase 15: VADER_STEPS steps of the example's reward-feedback loop on
+    the scorer's weights.  Returns the readings and the launch counts."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels
+    from mjvideo_tpu_torch.examples import vader_loop
+
+    # The example's scorer: the same weights, one 4,096 bucket.
+    loop_scorer = RewardScorer(scorer.cfg, scorer.params, scorer.tokenizer,
+                               dtype=scorer.dtype, length_buckets=(4096,),
+                               gating_pattern=scorer.gating_pattern)
+    field = vader_loop.make_field(
+        VADER_FRAMES, VADER_COARSE, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    step = vader_loop.make_step(
+        vader_loop.reward_fn(loop_scorer, VADER_FRAMES, VADER_CAPTION), field,
+        scorer.cfg.chat.image_size, VADER_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    rewards, times = [], []
+    for _ in range(VADER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rewards.append(step().float().item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _held_launches("VADER", _grad_launches(scorer.cfg,
+                                                      VADER_STEPS))
+    peak = torch.cuda.max_memory_allocated(dev)
+    rise = rewards[-1] - rewards[0]
+    print(f"VADER: rewards {[f'{r:+.6f}' for r in rewards]} over "
+          f"{VADER_STEPS} steps (rise {rise:+.3e}, reported); ms per step "
+          f"{[round(t, 1) for t in times]} (median of the last "
+          f"{VADER_STEPS - 1}: {statistics.median(times[1:]):.1f}); peak "
+          f"memory {peak / 2**30:.2f} GiB")
+    if not all(math.isfinite(r) for r in rewards):
+        raise RuntimeError(f"VADER: non-finite rewards {rewards}")
+    return {"rewards": rewards, "rise": rise,
+            "step_ms": statistics.median(times[1:]), "first_step_ms": times[0],
+            "peak_gib": peak / 2**30}, launches
+
+
 def main() -> int:
     import torch
 
@@ -1459,6 +1699,7 @@ def main() -> int:
     turns = time_shifts_in_turns(randn)
     check_k2r_prefix_rows(randn)
     quant_k = check_quant_kernels(randn)
+    vit_bwd = {s: check_vit_backward(randn, s) for s in K1_SHAPES}
 
     # Phase 4: serving at the 2B widths and depths.
     t0 = time.perf_counter()
@@ -1509,6 +1750,9 @@ def main() -> int:
     # Phase 11: quantized serving on the same bf16 state.
     quant_scored, quant_launches = quant_scoring_phase(scorer, requests,
                                                        fp32_scores, dev)
+    # Phases 14 and 15: the reward gradient and the VADER loop.
+    grad_out, grad_launches = reward_gradient_phase(scorer, requests[0], dev)
+    vader_out, vader_launches = vader_phase(scorer, dev)
     del scorer, requests
     torch.cuda.empty_cache()
 
@@ -1532,7 +1776,8 @@ def main() -> int:
         raise RuntimeError(f"the port imported {loaded}")
 
     by_path = {"serving": launches, "training": train_launches,
-               **judge_launches, **quant_launches, **quant_judge_launches}
+               **judge_launches, **quant_launches, **quant_judge_launches,
+               "reward_gradient": grad_launches, "vader": vader_launches}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -1547,6 +1792,21 @@ def main() -> int:
          "replaces": "mjvideo_tpu/ops/flash_attention.py:99",
          **counts("vit_attention"), "shape": K1_SHAPES[0],
          **k1[K1_SHAPES[0]]},
+        {"name": "vit_attention_lse", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/vit_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:153",
+         **counts("vit_attention_lse"), "shape": K1_SHAPES[0],
+         **vit_bwd[K1_SHAPES[0]]["K1 lse"]},
+        {"name": "vit_attention_bwd_dkdv", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/vit_attention_bwd.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:603",
+         **counts("vit_attention_bwd_dkdv"), "shape": K1_SHAPES[0],
+         **vit_bwd[K1_SHAPES[0]]["K4 nc dkdv"]},
+        {"name": "vit_attention_bwd_dq", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/vit_attention_bwd.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:656",
+         **counts("vit_attention_bwd_dq"), "shape": K1_SHAPES[0],
+         **vit_bwd[K1_SHAPES[0]]["K4 nc dq"]},
         {"name": "decoder_attention", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
@@ -1594,7 +1854,8 @@ def main() -> int:
          **quant_k["K5", (2,) + W4_SHAPES[1]]},
     ], "training": {**train_ms, "peak_gib": train_peak / 2**30},
         "judge": judged_out, "quantized_scoring": quant_scored,
-        "quantized_judge": quant_judged}
+        "quantized_judge": quant_judged, "reward_gradient": grad_out,
+        "vader": vader_out}
     idle = [k["name"] for k in summary["kernels"]
             if k.get("on_main_path", True) and k["launches"] == 0]
     if idle:

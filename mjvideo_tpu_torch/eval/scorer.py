@@ -1,9 +1,16 @@
-"""RewardScorer: batched, bucketed reward scoring.
+"""RewardScorer: batched, bucketed reward scoring, and the differentiable
+reward of reward-feedback finetuning.
 
 Counterpart of ``mjvideo_tpu/eval/scorer.py`` for clips that are already
 decoded and tiled: ``score_batch`` pads every prompt of a batch to one
 length bucket, guards the ``<IMG_CONTEXT>`` count against the tiles, and
 runs ``reward_forward`` once on the device that holds the parameters.
+``score_fn`` and ``score_fn_with_params`` return the score as a
+differentiable function of the pixels (and the weights): the VADER-style
+reward-feedback hook (SURVEY.md section 7.1 step 9), whose gradient runs
+back through the reward head, the decoder (K2 with the lse, K4a, K4b), the
+``<IMG_CONTEXT>`` scatter, the projector and the ViT (K1 with the lse, K4
+nc), each layer rematerialised.
 """
 
 from __future__ import annotations
@@ -17,7 +24,12 @@ from ..configs import RewardConfig
 from ..data.prompts import GATING_TOKEN_PATTERN, rebase_img_context_id
 
 from ..models.reward import RewardOutput, reward_forward
-from ..ops.quant import quantize_params_mode
+from ..ops.quant import (
+    OutlierQuantKernel,
+    QuantKernel,
+    quant_nodes,
+    quantize_params_mode,
+)
 from ..utils.bridge import first_tensor
 
 
@@ -110,3 +122,52 @@ class RewardScorer:
             impl=self.attn_impl,
             img_context_token_id=self.img_context_token_id,
         )
+
+    def _differentiable_inputs(self, input_ids: np.ndarray):
+        """The padded ids and mask of one clip, on the scorer's device, for
+        ``score_fn``; refuses a w8a8 state."""
+        if self.quant in ("int8", "int8-vit") or any(
+                isinstance(n, (QuantKernel, OutlierQuantKernel))
+                for n in quant_nodes(self.params)):
+            # round() in w8a8's dynamic activation quantization has zero
+            # gradient: backprop to the pixels would silently return
+            # zeros.  The weight-only modes ("int8-wo", "int4-wo") are
+            # fine: their weights are constants and the activations stay
+            # differentiable end to end.
+            raise ValueError(
+                "score_fn requires params without w8a8 kernels; use "
+                "full-precision or a weight-only mode ('int8-wo', "
+                "'int4-wo') for reward-feedback training")
+        ids = np.asarray(input_ids, np.int32)
+        T = round_to_bucket(len(ids), self.buckets)
+        dev = self.device
+        return (torch.as_tensor(self._pad(ids, T, self.pad_token_id))[None]
+                .to(dev),
+                torch.as_tensor(self._pad(np.ones(len(ids), np.int32), T, 0))
+                [None].to(dev))
+
+    def score_fn_with_params(self, input_ids: np.ndarray, gating_pos: int):
+        """Differentiable ``(params, pixel_values) -> scalar score`` of one
+        clip: ``score_fn`` with the state as an argument, so that gradients
+        reach the weights the caller marks ``requires_grad``.  Layers are
+        rematerialised (``remat=True``)."""
+        ids, mask = self._differentiable_inputs(input_ids)
+        gpos = torch.tensor([gating_pos], dtype=torch.int32, device=self.device)
+
+        def f(params, pixel_values: torch.Tensor) -> torch.Tensor:
+            out = reward_forward(
+                params, self.cfg, pixel_values.to(self.dtype), ids, mask,
+                gpos, impl=self.attn_impl,
+                img_context_token_id=self.img_context_token_id, remat=True)
+            return out.score[0]
+
+        return f
+
+    def score_fn(self, input_ids: np.ndarray, gating_pos: int):
+        """Differentiable ``(pixel_values fp32 NHWC, on the scorer's device)
+        -> scalar score`` of one clip: the reward-feedback API.  A video
+        generator backprops through the whole reward stack with
+        ``torch.autograd.grad(scorer.score_fn(ids, pos)(frames), frames)``.
+        The prompt is padded to its bucket with the tokenizer's pad id."""
+        f = self.score_fn_with_params(input_ids, gating_pos)
+        return lambda pixel_values: f(self.params, pixel_values)

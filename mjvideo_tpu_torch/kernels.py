@@ -10,7 +10,10 @@ at import time, so the CPU-only tests import this module freely.
 Each wrapper checks device, dtype, shape and layout, allocates its output
 with ``torch.empty``, launches on ``torch.cuda.current_stream()``, raises if
 the C entry point reports a CUDA error, and adds one to its entry in
-``launch_counts``.
+``launch_counts``.  The outputs carry no autograd graph: the
+differentiable entries (``ops.flash_attention``) wrap a forward kernel and
+its backward kernels in a ``torch.autograd.Function``, and the callers of a
+kernel with no backward guard with ``forward_only``.
 """
 
 from __future__ import annotations
@@ -25,19 +28,22 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("vit_attention.cu", "decoder_attention.cu",
+SOURCES = ("vit_attention.cu", "vit_attention_bwd.cu", "decoder_attention.cu",
            "decoder_attention_bwd.cu", "exact_attention.cu", "q8g_matmul.cu",
            "w4_matmul.cu")
-HEADERS = ("bound_attention.cuh",)
+HEADERS = ("bound_attention.cuh", "attention_bwd.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset_launch_counts();
-# "decoder_attention" counts K2 with and without the lse,
-# "decoder_attention_lse" the launches of K2 with it.
+# "vit_attention" and "decoder_attention" count K1 and K2 with and without
+# the lse, "vit_attention_lse" and "decoder_attention_lse" the launches with
+# it.
 launch_counts: Dict[str, int] = {
-    "vit_attention": 0, "decoder_attention": 0, "decoder_attention_lse": 0,
+    "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
+    "vit_attention_bwd_dq": 0, "decoder_attention": 0,
+    "decoder_attention_lse": 0,
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
     "exact_attention": 0, "decoder_attention_rows": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "w4_matmul": 0}
@@ -110,8 +116,16 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         lib.mjv_vit_attention.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P]
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+            _F, _P]
         lib.mjv_vit_attention.restype = _I
+        vit_bwd = [_P] * 6 + [_I] * 4 + [_L] * 8 + [_F, _P]
+        lib.mjv_vit_attention_bwd_dkdv.argtypes = (
+            vit_bwd[:6] + [_P, _P] + vit_bwd[6:])
+        lib.mjv_vit_attention_bwd_dkdv.restype = _I
+        lib.mjv_vit_attention_bwd_dq.argtypes = (
+            vit_bwd[:6] + [_P] + vit_bwd[6:])
+        lib.mjv_vit_attention_bwd_dq.restype = _I
         lib.mjv_decoder_attention.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _L, _L, _L, _L, _L, _L, _F, _P]
@@ -175,26 +189,97 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def forward_only(name: str, *ts: torch.Tensor) -> None:
+    """A kernel whose result autograd cannot differentiate (it writes into
+    ``torch.empty`` and has no backward kernel) refuses a call that
+    autograd would need to differentiate, instead of returning a detached
+    result whose gradient would silently be missing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{name} has no backward kernel; call it under torch.no_grad()")
+
+
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  kmax: torch.Tensor, scale: float) -> torch.Tensor:
+                  kmax: torch.Tensor, scale: float, with_lse: bool = False):
     """K1.  q/k/v: (B, S, H, 64) bf16 with dense heads (row strides free);
-    kmax: (B, H) fp32.  Returns a dense (B, S, H, D) bf16 tensor."""
-    _check_qkv("vit_attention", 64, q, k, v)
+    kmax: (B, H) fp32.  Returns a dense (B, S, H, D) bf16 tensor, and with
+    ``with_lse`` also the (B, H, S) fp32 lse (1e30 on a row whose sum
+    underflowed)."""
+    name = "vit_attention"
+    _check_qkv(name, 64, q, k, v)
     B, S, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("vit_attention: q, k and v must share (B, S, H, D)")
-    _check_aux("vit_attention kmax", kmax, torch.float32, (B, H), q.device)
+        raise ValueError(f"{name}: q, k and v must share (B, S, H, D)")
+    _check_aux(f"{name} kmax", kmax, torch.float32, (B, H), q.device)
     lib = _load()
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_vit_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(),
-            out.data_ptr(), B, S, H, D, q.stride(0), q.stride(1), k.stride(0),
-            k.stride(1), v.stride(0), v.stride(1), float(scale), stream)
-    _raise_on("vit_attention", err)
-    launch_counts["vit_attention"] += 1
-    return out
+            out.data_ptr(), None if lse is None else lse.data_ptr(), B, S, H,
+            D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(scale), stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    if with_lse:
+        launch_counts["vit_attention_lse"] += 1
+    return (out, lse) if with_lse else out
+
+
+def _vit_bwd_operands(name, q, k, v, dout, lse, delta):
+    """Checks shared by the two K4 nc wrappers; returns (pointers, sizes and
+    strides)."""
+    _check_qkv(name, 64, q, k, v, dout)
+    B, S, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v and dout must share (B, S, H, D)")
+    if not dout.is_contiguous():
+        raise ValueError(f"{name}: dout must be dense")
+    _check_aux(f"{name} lse", lse, torch.float32, (B, H, S), q.device)
+    _check_aux(f"{name} delta", delta, torch.float32, (B, H, S), q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    tail = (B, S, H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), dout.stride(0), dout.stride(1))
+    return ptrs, tail
+
+
+def vit_attention_bwd_dkdv(q, k, v, dout, lse, delta, scale: float):
+    """K4 nc dK/dV.  q/k/v: (B, S, H, 64) bf16 with dense heads (row
+    strides free, as K1 takes them); dout: dense (B, S, H, 64) bf16; lse,
+    delta: (B, H, S) fp32.  Returns dense (B, S, H, D) bf16 dk and dv."""
+    name = "vit_attention_bwd_dkdv"
+    ptrs, tail = _vit_bwd_operands(name, q, k, v, dout, lse, delta)
+    lib = _load()
+    dk = torch.empty(q.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(q.shape, dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_vit_attention_bwd_dkdv(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *tail, float(scale), stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return dk, dv
+
+
+def vit_attention_bwd_dq(q, k, v, dout, lse, delta,
+                         scale: float) -> torch.Tensor:
+    """K4 nc dQ.  Operands as for ``vit_attention_bwd_dkdv``; returns a
+    dense (B, S, H, D) bf16 dq."""
+    name = "vit_attention_bwd_dq"
+    ptrs, tail = _vit_bwd_operands(name, q, k, v, dout, lse, delta)
+    lib = _load()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_vit_attention_bwd_dq(
+            *ptrs, dq.data_ptr(), *tail, float(scale), stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return dq
 
 
 def _check_decoder(name: str, q: torch.Tensor, k: torch.Tensor,

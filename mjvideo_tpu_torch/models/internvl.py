@@ -63,11 +63,13 @@ def apply_projector(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
 
 
 def extract_feature(params, cfg: ChatConfig, pixel_values: torch.Tensor,
-                    impl: str = "auto") -> torch.Tensor:
+                    impl: str = "auto", remat=True) -> torch.Tensor:
     """ViT -> drop cls -> grid -> pixel_shuffle -> projector
-    (``modeling_internvl_chat.py:244-262``); (tiles, num_image_token, C)."""
+    (``modeling_internvl_chat.py:244-262``); (tiles, num_image_token, C).
+    ``remat`` applies to the ViT blocks."""
     vit_out = vit_forward(params["vision_model"], cfg.vision, pixel_values,
-                          select_layer=cfg.select_layer, impl=impl)
+                          select_layer=cfg.select_layer, impl=impl,
+                          remat=remat)
     vit_embeds = vit_out[:, 1:, :]  # drop cls
     n, s, c = vit_embeds.shape
     hw = int(s**0.5)
@@ -109,11 +111,14 @@ def chat_forward(
     remat=True,
 ) -> torch.Tensor:
     """Final decoder hidden states (B, T, C); the LM head is skipped, since
-    the reward path reads hidden states only.  ``remat`` applies to the
-    decoder layers; the ViT and projector are frozen in every training stage
-    and build no autograd graph, so they have nothing to rematerialise."""
+    the reward path reads hidden states only.  ``remat`` applies to the ViT
+    blocks and the decoder layers.  The ViT and projector are frozen in every
+    training stage, so there they build no autograd graph and nothing is
+    rematerialised; with pixels that need a gradient (``score_fn``) the
+    whole stack records one, back to the pixels."""
     input_embeds = dec.embed_tokens(params["language_model"], input_ids)
-    vit_embeds = extract_feature(params, cfg, pixel_values, impl=impl)
+    vit_embeds = extract_feature(params, cfg, pixel_values, impl=impl,
+                                 remat=remat)
     if img_context_token_id is None:
         img_context_token_id = cfg.img_context_token_id
     input_embeds = scatter_image_embeds(input_embeds, input_ids, vit_embeds,

@@ -1,12 +1,16 @@
 """InternViT encoder.
 
 Counterpart of ``mjvideo_tpu/models/vit.py`` (reference
-``modeling_intern_vit.py``), inference only.  Parameters keep the JAX
-layout: dense kernels ``(in, out)``, layers stacked on a leading ``L`` axis,
-the patch kernel ``(P*P*3, C)`` in ``(ph, pw, channel)`` order.  The patch
-embed is a reshape plus matmul over NHWC pixels, not a convolution (a float32
-convolution on the card would run in TF32).  The token axis is not pre-padded:
-the attention kernel takes S = 1025 and masks its own tail.
+``modeling_intern_vit.py``) in eval mode (no dropout or DropPath).
+Parameters keep the JAX layout: dense kernels ``(in, out)``, layers stacked
+on a leading ``L`` axis, the patch kernel ``(P*P*3, C)`` in ``(ph, pw,
+channel)`` order.  The patch embed is a reshape plus matmul over NHWC
+pixels, not a convolution (a float32 convolution on the card would run in
+TF32).  The token axis is not pre-padded: the attention kernel takes S =
+1025 and masks its own tail.  The encoder is differentiable (the reward
+gradient to the pixels, ``RewardScorer.score_fn``): each block is
+rematerialised per ``remat`` (``ops/remat.py``), and its attention takes K1
+with the lse and K4 nc when autograd needs them.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from ..configs import VisionConfig
 from ..ops.attention import multi_head_attention
 from ..ops.matmul import dot, gelu
 from ..ops.norms import layer_norm
+from ..ops.remat import remat_wrap
 from ..utils.bridge import map_state
 
 
@@ -135,14 +140,19 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str) -> torch.Tensor:
 
 
 def vit_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor,
-                select_layer: int = -1, impl: str = "auto") -> torch.Tensor:
+                select_layer: int = -1, impl: str = "auto",
+                remat=True) -> torch.Tensor:
     """Hidden states (N, S, C) after ``select_layer``; layers past it are
-    never computed (``vit.py:257-261``)."""
+    never computed (``vit.py:257-261``).  ``remat`` as in the JAX
+    ``vit_forward`` (``vit.py:288-291``): each block is checkpointed when
+    autograd records it.  The stacked ``[L, ...]`` layer tensors are unbound
+    once, so their gradient is one stack of the per-layer gradients."""
     _check_supported(cfg)
     x = embeddings(params["embeddings"], cfg, pixel_values)
     L = cfg.num_hidden_layers
     n_run = L if select_layer == -1 else L + select_layer + 1
+    block = remat_wrap(lambda layer, x: _block(cfg, layer, x, impl), remat)
+    layers = map_state(lambda a: a.unbind(0), params["layers"])
     for i in range(n_run):
-        layer = map_state(lambda a: a[i], params["layers"])
-        x = _block(cfg, layer, x, impl)
+        x = block(map_state(lambda a: a[i], layers), x)
     return x

@@ -8,6 +8,10 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   ``m_i = |scale| * |q_i| * max_j |k_j|`` and the denominator floored at
   1e-30.  The JAX caller pre-pads 1025 -> 1032 and subtracts the pad mass
   analytically; here the kernel takes S as it is and masks its own tail.
+  When autograd needs it, it goes through ``_VitAttention``, the ViT's
+  ``custom_vjp``: forward K1 with the lse (``_fwd_nc_kernel(with_lse=
+  True)``), backward ``vit_attention_backward``, the non-causal, maskless
+  D = 64 instantiation of ``_bwd_impl``'s two kernels (K4 nc).
 * ``decoder_attention`` replaces ``_fwd_bound_kernel`` (K2): causal
   attention with a (B, K) key mask and GQA (q head h reads kv head h // G),
   under the same bound with ``kmax`` the largest *masked* key norm per
@@ -126,12 +130,16 @@ def _bound_attention_plain(q, k, v, allowed, kmax, scale, floor,
 
 
 def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """Plain twin of K1.  q/k/v: (B, S, H, D) -> (B, S, H, D)."""
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
+    """Plain twin of K1.  q/k/v: (B, S, H, D) -> (B, S, H, D); with
+    ``return_lse`` ``(out, lse)``, lse (B, H, S) fp32, ``DEAD_LSE`` where a
+    row's sum underflowed to 0 (the kernel's rule; the TPU kernel writes
+    ``m + log(1e-30)`` there, and either gives p = 0 in the backward)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     allowed = torch.ones((1, 1, 1), dtype=torch.bool, device=q.device)
     return _bound_attention_plain(q, k, v, allowed, key_norm_max(k), scale,
-                                  floor=True)
+                                  floor=True, return_lse=return_lse)
 
 
 def _decoder_allowed(q, k, attention_mask, q_offset) -> torch.Tensor:
@@ -224,10 +232,12 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 def decoder_attention_bwd_plain(q, k, v, dout, lse, delta,
                                 attention_mask=None, q_offset=None,
-                                scale=None, want_dq=True, want_dkdv=True):
+                                scale=None, want_dq=True, want_dkdv=True,
+                                causal=True):
     """Plain twin of K4b (dq, (B, Q, Hq, D)) and K4a (dk and dv, each
     (B, K, Hkv, D), group-summed) from the kernels' operands: (dq, dk, dv),
-    with None for a part not asked for."""
+    with None for a part not asked for.  ``causal=False`` (no mask, G = 1)
+    is the twin of K4 nc (``vit_attention_bwd_plain``)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
@@ -235,7 +245,7 @@ def decoder_attention_bwd_plain(q, k, v, dout, lse, delta,
     qf = q.float().reshape(B, Q, Hkv, G, D)
     dof = dout.float().reshape(B, Q, Hkv, G, D)
     kf, vf = k.float(), v.float()
-    allowed = _decoder_allowed(q, k, attention_mask, q_offset)
+    allowed = _allowed(q, k, attention_mask, q_offset, causal)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
     lse_ = lse.reshape(B, Hkv, G, Q)[..., None]
     p = torch.where(allowed[:, None, None], torch.exp(s - lse_), 0.0)
@@ -284,15 +294,81 @@ def decoder_attention_backward(q, k, v, attention_mask, q_offset, out, lse,
     return dq, dk, dv
 
 
-def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """K1 on a CUDA tensor, its plain twin on a CPU tensor."""
+def vit_attention_bwd_plain(q, k, v, dout, lse, delta, scale=None,
+                            want_dq=True, want_dkdv=True):
+    """Plain twin of K4 nc: K4a/K4b's arithmetic without the causal mask,
+    key mask or groups.  q/k/v/dout: (B, S, H, D); lse, delta: (B, H, S).
+    Returns (dq, dk, dv), None for a part not asked for."""
+    return decoder_attention_bwd_plain(q, k, v, dout, lse, delta, scale=scale,
+                                       want_dq=want_dq, want_dkdv=want_dkdv,
+                                       causal=False)
+
+
+def vit_attention_backward_plain(q, k, v, out, lse, dout, scale=None):
+    """Plain twin of ``vit_attention_backward``: (dq, dk, dv)."""
+    dout = dout.to(q.dtype)
+    return vit_attention_bwd_plain(q, k, v, dout, lse,
+                                   attention_delta(out, dout), scale)
+
+
+def vit_attention_backward(q, k, v, out, lse, dout, scale=None):
+    """Gradient of ``vit_attention`` from its output and lse: (dq, dk, dv),
+    each dense (B, S, H, D).  K4 nc on a CUDA tensor, the twin on a CPU
+    tensor."""
     if q.device.type == "cpu":
-        return vit_attention_plain(q, k, v, scale)
+        return vit_attention_backward_plain(q, k, v, out, lse, dout, scale)
     from .. import kernels
 
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return kernels.vit_attention(q, k, v, key_norm_max(k), scale)
+    dout = dout.to(q.dtype).contiguous()
+    delta = attention_delta(out, dout)
+    dk, dv = kernels.vit_attention_bwd_dkdv(q, k, v, dout, lse, delta, scale)
+    dq = kernels.vit_attention_bwd_dq(q, k, v, dout, lse, delta, scale)
+    return dq, dk, dv
+
+
+def _vit_attention_fwd(q, k, v, scale, with_lse):
+    """K1 (with or without the lse) on a CUDA tensor, its twin on a CPU
+    tensor."""
+    if q.device.type == "cpu":
+        return vit_attention_plain(q, k, v, scale, return_lse=with_lse)
+    from .. import kernels
+
+    return kernels.vit_attention(q, k, v, key_norm_max(k), scale,
+                                 with_lse=with_lse)
+
+
+class _VitAttention(torch.autograd.Function):
+    """K1 with the lse forward, K4 nc dK/dV and dQ backward: the ViT's
+    ``_flash_attention`` custom VJP (``flash_attention.py:857-898``).  The
+    forward runs without autograd, so ``kmax`` is reduced without a
+    gradient: the bound cancels from the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _vit_attention_fwd(q, k, v, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = vit_attention_backward(q, k, v, out, lse, dout,
+                                            ctx.scale)
+        return dq, dk, dv, None
+
+
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """K1 on a CUDA tensor, its plain twin on a CPU tensor; differentiable
+    in q, k and v through K1 with the lse and K4 nc (their twins on the
+    CPU), which it takes only when autograd will need them."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _VitAttention.apply(q, k, v, scale)
+    return _vit_attention_fwd(q, k, v, scale, with_lse=False)
 
 
 def _int32_operands(attention_mask, q_offset):
@@ -355,14 +431,6 @@ def decoder_attention(
                                   with_lse=False)
 
 
-def _forward_only(name: str, *ts: torch.Tensor) -> None:
-    """K3 and K2r have no backward kernel: refuse a CUDA call that autograd
-    would need to differentiate, instead of returning a detached result."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{name} has no backward kernel; call it under torch.no_grad()")
-
-
 def exact_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None,
@@ -376,7 +444,7 @@ def exact_attention(
                                      causal)
     from .. import kernels
 
-    _forward_only("exact_attention", q, k, v)
+    kernels.forward_only("exact_attention", q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     attention_mask, q_offset = _int32_operands(
         attention_mask, q_offset if causal else None)
@@ -396,7 +464,7 @@ def decoder_attention_rows(
                                             scale)
     from .. import kernels
 
-    _forward_only("decoder_attention_rows", q, k, v)
+    kernels.forward_only("decoder_attention_rows", q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     bound = row_key_bound(k, attention_mask, q_offset, q.shape[1], q.shape[2])
     attention_mask, q_offset = _int32_operands(attention_mask, q_offset)

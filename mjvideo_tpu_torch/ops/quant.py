@@ -202,6 +202,7 @@ def q8g_matmul(xq, a_scale, wq, w_scale) -> torch.Tensor:
     """K7: the twin for a CPU tensor, the kernel for a CUDA tensor."""
     if xq.device.type == "cpu":
         return q8g_matmul_plain(xq, a_scale, wq, w_scale)
+    kernels.forward_only("q8g_matmul", a_scale, w_scale)
     return kernels.q8g_matmul(xq, a_scale, wq, w_scale)
 
 
@@ -209,6 +210,7 @@ def q8g_matmul_fused(x, wq, w_scale, out_dtype) -> torch.Tensor:
     """K6: the twin for a CPU tensor, the kernel for a CUDA tensor."""
     if x.device.type == "cpu":
         return q8g_matmul_fused_plain(x, wq, w_scale, out_dtype)
+    kernels.forward_only("q8g_matmul_fused", x, w_scale)
     if x.data_ptr() % 16:
         x = x.clone()
     return kernels.q8g_matmul_fused(x, wq, w_scale, out_dtype)

@@ -121,6 +121,7 @@ def w4_matmul(x: torch.Tensor, packed: torch.Tensor,
     """K5: the twin for a CPU tensor, the kernel for a CUDA tensor."""
     if x.device.type == "cpu":
         return w4_matmul_plain(x, packed, scale)
+    kernels.forward_only("w4_matmul", x, scale)
     return kernels.w4_matmul(x, packed, scale)
 
 

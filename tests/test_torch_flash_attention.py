@@ -327,3 +327,102 @@ def test_k2r_prefix_rows_are_bit_identical():
     assert torch.equal(full[:, :P], prefix)
     with pytest.raises(ValueError, match="causal"):
         tfa.flash_attention(qf, kf, vf, causal=False, norm_bound="rows")
+
+
+def _vit_padded_inputs(S, seed):
+    """q, k, v and dO padded to a multiple of 8 rows as the JAX ViT pads
+    them (``vit.py:250-256``): k and v zero on the tail (the ``kv_valid``
+    contract, ``vit.py:184-190``), dO zero there too; q's tail random."""
+    rng = np.random.default_rng(seed)
+    B, H, D = 2, 2, 32
+    Sp = -(-S // 8) * 8
+    q, k, v, do = (_rand(rng, (B, Sp, H, D)) for _ in range(4))
+    k[:, S:] = 0.0
+    v[:, S:] = 0.0
+    do[:, S:] = 0.0
+    return q, k, v, do
+
+
+def _jax_nc_forward_with_lse(q, k, v, S):
+    return _fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+                     None, False, None, None, None, True, True, kv_valid=S,
+                     norm_bound=True)
+
+
+@pytest.mark.parametrize("S", [37, 65])
+def test_k1_lse_twin_matches_pallas_nc_kernel(S):
+    """The K1-lse twin on S rows against ``_fwd_nc_kernel(with_lse=True)``
+    on the 8-padded rows with ``kv_valid = S``: the output and the true lse
+    of the real rows (its (B, H, 8, Sp) layout read as lse[:, :, 0, :S]).
+    No row underflows here, so the two lse rules (the kernel's DEAD_LSE,
+    the TPU's m + log(1e-30)) do not differ."""
+    q, k, v, _ = _vit_padded_inputs(S, S)
+    out, lse = _jax_nc_forward_with_lse(q, k, v, S)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a[:, :S]))  # noqa: E731
+    got, got_lse = tfa.vit_attention_plain(T(q), T(k), T(v), return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(out)[:, :S], atol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse)[:, :, 0, :S],
+                               atol=2e-5)
+    assert got_lse.max().item() < tfa.DEAD_LSE * 0.5
+    # Without the lse the twin returns the same output alone.
+    alone = tfa.vit_attention_plain(T(q), T(k), T(v))
+    np.testing.assert_array_equal(alone.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("S", [37, 65])
+def test_k4_nc_twin_matches_pallas_backward_kernels(S):
+    """``vit_attention_bwd_plain`` (the K4 nc twin) on S rows against
+    ``_bwd_impl(causal=False)`` (K4a/K4b non-causal, in interpret mode) on
+    the padded rows, from the JAX forward's out and lse; rows [:S] of dq,
+    dk and dv.  The JAX backward lets the zero pad keys into p; they add
+    nothing to the real rows' gradients, since k = v = 0 and dO = 0 there."""
+    q, k, v, do = _vit_padded_inputs(S, S + 1)
+    out, lse = _jax_nc_forward_with_lse(q, k, v, S)
+    want = _bwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+                     None, out, lse, jnp.asarray(do), False, None, None, None,
+                     True)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a[:, :S]))  # noqa: E731
+    lse_n = torch.from_numpy(np.ascontiguousarray(np.asarray(lse)[:, :, 0, :S]))
+    out_t = T(np.asarray(out))
+    got = tfa.vit_attention_backward_plain(T(q), T(k), T(v), out_t, lse_n,
+                                           T(do))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:, :S], atol=2e-5,
+                                   rtol=1e-5, err_msg=name)
+    # Each kernel's part alone gives the same numbers.
+    delta = tfa.attention_delta(out_t, T(do))
+    args = (T(q), T(k), T(v), T(do), lse_n, delta)
+    dq, none_k, none_v = tfa.vit_attention_bwd_plain(*args, want_dkdv=False)
+    none_q, dk, dv = tfa.vit_attention_bwd_plain(*args, want_dq=False)
+    assert none_k is None and none_v is None and none_q is None
+    for a, b in ((dq, got[0]), (dk, got[1]), (dv, got[2])):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_vit_autograd_function_matches_exact_softmax_autograd():
+    """Through ``vit_attention`` with q, k, v requiring grad (the Function:
+    K1-lse twin forward, K4 nc twin backward) against autograd through
+    ``attention_plain`` with no bias, at S = 37; q, k and v are views into
+    one qkv tensor, as the ViT makes them."""
+    rng = np.random.default_rng(9)
+    B, S, H, D = 2, 37, 2, 32
+    qkv0 = _rand(rng, (B, S, 3 * H * D))
+    do = torch.from_numpy(_rand(rng, (B, S, H, D)))
+    results = []
+    for path in ("function", "oracle"):
+        qkv = torch.from_numpy(qkv0).requires_grad_()
+        q, k, v = (t.view(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+        fn = tfa.vit_attention if path == "function" else attention_plain
+        out = fn(q, k, v)
+        results.append((out,) + torch.autograd.grad(out, qkv, do))
+    for name, a, b in zip(("out", "dqkv"), *results):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=2e-5, rtol=1e-5, err_msg=name)
+    # Without grad the same call takes K1's path and builds no graph.
+    qkv = torch.from_numpy(qkv0).requires_grad_()
+    q, k, v = (t.view(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    with torch.no_grad():
+        plain = tfa.vit_attention(q, k, v)
+    assert plain.grad_fn is None
+    np.testing.assert_array_equal(plain.numpy(),
+                                  results[0][0].detach().numpy())

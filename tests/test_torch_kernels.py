@@ -7,8 +7,9 @@ This file imports no JAX, so it runs on a machine with a card and no JAX:
 (``--noconftest`` skips the JAX device setup of ``tests/conftest.py``.)
 Without a card every test here skips.  Tolerances, the bounds
 ``chip_smoke.py`` states: each bf16 output (K1, K2, K2r, K3, K4a's dk and dv,
-K4b's dq) to max|kernel - plain| / max|plain| <= 2**-7, one bf16 ulp of the
-largest output at worst; K2's fp32 lse to max|kernel - plain| <= LSE_TOL.
+K4b's dq, K4 nc's dq, dk and dv) to max|kernel - plain| / max|plain| <=
+2**-7, one bf16 ulp of the largest output at worst; K1's and K2's fp32 lse
+to max|kernel - plain| <= LSE_TOL.
 """
 
 import pytest
@@ -81,6 +82,73 @@ def test_kernels_match_twins_at_odd_shapes(cuda_device):
         _assert_close(part, got[b:b + 1, o:o + 33])
 
 
+def _qkv_views(g, dev, B, S, H=4, D=64):
+    """q, k, v as strided views into one (B, S, 3 H D) tensor, as the ViT
+    makes them."""
+    return tuple(t.view(B, S, H, D) for t in
+                 _randn(g, dev, B, S, 3 * H * D).split(H * D, dim=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [65, 1025])
+def test_k1_lse_and_k4_nc_match_twins(cuda_device, S):
+    """K1 with the lse, K4 nc dK/dV and K4 nc dQ against their twins on qkv
+    views, at S = 65 and the 448 px tile's 1025 (one real row in the last
+    q tile and in the last kv tile)."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = _qkv_views(g, cuda_device, 2, S)
+    scale = 64 ** -0.5
+    before = dict(kernels.launch_counts)
+    out, lse = kernels.vit_attention(q, k, v, fa.key_norm_max(k), scale,
+                                     with_lse=True)
+    ref, ref_lse = fa.vit_attention_plain(q, k, v, return_lse=True)
+    _assert_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    dout = _randn(g, cuda_device, *q.shape)
+    delta = fa.attention_delta(ref, dout)
+    dk, dv = kernels.vit_attention_bwd_dkdv(q, k, v, dout, ref_lse, delta,
+                                            scale)
+    dq = kernels.vit_attention_bwd_dq(q, k, v, dout, ref_lse, delta, scale)
+    for name in ("vit_attention", "vit_attention_lse",
+                 "vit_attention_bwd_dkdv", "vit_attention_bwd_dq"):
+        assert kernels.launch_counts[name] == before[name] + 1, name
+    rdq, rdk, rdv = fa.vit_attention_bwd_plain(q, k, v, dout, ref_lse, delta)
+    _assert_close(dk, rdk)
+    _assert_close(dv, rdv)
+    _assert_close(dq, rdq)
+
+
+@pytest.mark.cuda
+def test_vit_autograd_function_launches_k1_lse_and_k4_nc(cuda_device):
+    """With the qkv tensor requiring grad, ``vit_attention`` runs K1 with the
+    lse forward and K4 nc backward, and its gradient matches the twins';
+    without grad it launches K1 alone and builds no graph."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    B, S, H, D = 2, 77, 4, 64
+    qkv = _randn(g, cuda_device, B, S, 3 * H * D).requires_grad_()
+    q, k, v = (t.view(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    dout = _randn(g, cuda_device, B, S, H, D)
+    before = dict(kernels.launch_counts)
+    out = fa.vit_attention(q, k, v)
+    (grad,) = torch.autograd.grad(out, qkv, dout)
+    for name in ("vit_attention", "vit_attention_lse",
+                 "vit_attention_bwd_dkdv", "vit_attention_bwd_dq"):
+        assert kernels.launch_counts[name] == before[name] + 1, name
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    ref, ref_lse = fa.vit_attention_plain(qd, kd, vd, return_lse=True)
+    want = fa.vit_attention_backward_plain(qd, kd, vd, ref, ref_lse, dout)
+    _assert_close(out, ref)
+    for got, w in zip(grad.view(B, S, 3, H, D).unbind(2), want):
+        _assert_close(got, w)
+    before = dict(kernels.launch_counts)
+    with torch.no_grad():
+        plain = fa.vit_attention(q, k, v)
+    assert plain.grad_fn is None
+    assert kernels.launch_counts["vit_attention"] == before["vit_attention"] + 1
+    assert (kernels.launch_counts["vit_attention_lse"]
+            == before["vit_attention_lse"])
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
     q = torch.zeros(1, 8, 4, 64, device=cuda_device)  # fp32: no kernel
@@ -89,6 +157,13 @@ def test_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
     q = torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         fa.vit_attention(q, q, q)
+    # K4 nc takes a dense dout only.
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v = _qkv_views(g, cuda_device, 1, 70)
+    lse = torch.zeros(1, 4, 70, device=cuda_device)
+    dout = _randn(g, cuda_device, 1, 70, 8, 64)[:, :, :4]
+    with pytest.raises(ValueError, match="dense"):
+        kernels.vit_attention_bwd_dq(q, k, v, dout, lse, lse, 0.125)
 
 
 @pytest.mark.cuda
@@ -325,6 +400,13 @@ def test_quant_wrappers_raise_instead_of_falling_back(cuda_device):
     k4 = q4.quantize_kernel_q4(torch.randn(256, 64, device=cuda_device), 64)
     with pytest.raises(ValueError, match="M <= 32"):
         q4.w4_matmul(_randn(g, cuda_device, 33, 256), k4.packed, k4.scale)
+    # A CUDA input that needs a gradient is refused, not detached.
+    xg = x.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        q8.q8g_matmul_fused(xg, qk.q, qk.scale.float(), torch.float32)
+    with pytest.raises(NotImplementedError, match="backward"):
+        q4.w4_matmul(_randn(g, cuda_device, 2, 256).requires_grad_(),
+                     k4.packed, k4.scale)
 
 
 @pytest.mark.cuda

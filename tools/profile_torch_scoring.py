@@ -33,7 +33,7 @@ def _group(name: str) -> str:
     if "q8g_kernel" in n or "w4_kernel" in n:
         return "quantized product kernels (K5/K6/K7)"
     if "bwd_dkdv" in n or "bwd_dq" in n:
-        return "attention backward kernels (K4a/K4b)"
+        return "attention backward kernels (K4a/K4b/K4 nc)"
     if "gemm" in n or "nvjet" in n or "xmma" in n or "cutlass" in n:
         return "matmul (cuBLAS)"
     if "reduce" in n or "norm" in n:
