@@ -1,6 +1,7 @@
 """Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths, its
-InternVL2-2B judge, quantized scoring and judging, and the reward gradient
-with its VADER loop once on one CUDA card.
+InternVL2-2B judge, quantized scoring and judging, the reward gradient
+with its VADER loop, and sequence-parallel scoring and training once on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -119,6 +120,45 @@ Phases (any failure raises and exits non-zero):
    kernel of the main path never launched; prints the card, the kernel
    summary line and, last, the contract line ``{"ok": true, "device":
    {...}}``.
+17. (Run with phases 2, 3, 8, 10 and 13.)  The kernels of sequence
+   parallelism at T = SP_T over SP_SHARDS shards (chunks of 768), B = 1,
+   16/8 heads of 128, a ragged mask (the first 5 and the last 600 keys
+   masked): K3 with the lse on one shard's queries and one chunk's keys
+   at each relative offset of SP_CHUNKS (-768: a later shard's chunk,
+   every row dead; 0: the diagonal, its first 5 rows dead; 768 and 2,304:
+   earlier shards' chunks), the output to the relative bound, the lse to
+   LSE_TOL, dead rows exactly 0 and 1e30; K4a and K4b at the same offsets
+   from the twin's merged (global) lse, masked keys' dk and dv and dead
+   rows' dq exactly 0; K3 at the all-gather shape (768 queries over the
+   3,072 keys at q_offset 768 r, r in SP_GATHER_RANKS).  Each with its
+   bound and ``F.scaled_dot_product_attention`` with an explicit boolean
+   mask for the offset.
+18. Sequence-parallel scoring (after phase 4, on its bf16 state):
+   ``RewardScorer(sp="ring")`` and ``sp="allgather"`` with
+   ``SequenceGroup.local(SP_SHARDS)`` answer phase 4's single clip and
+   pair; the scores are held within SCORE_TOL of phase 4's and of its fp32
+   plain scores, and the launches exactly: per request, per decoder layer
+   SP_SHARDS**2 K3 with the lse under the ring and SP_SHARDS K3 under
+   all-gather, no K2, and per ViT layer SP_SHARDS K1 (each shard's tiles).
+   Prints ms per pair request and the peak memory beside phase 4's.
+19. Sequence-parallel training (after phase 6, before phase 7): phase 6's
+   micro-batch, its prompts padded to whole 64-row tiles of every shard,
+   through a ``Trainer`` with ``sp="ring"`` and then ``"allgather"`` over
+   ``SequenceGroup.local(SP_SHARDS)`` on phase 5's weights (accumulation
+   2: the step only accumulates, and its buffer holds the gradient); the
+   gradient is held against phase 6's fp32 plain gradient by
+   FIDELITY_REL_L2 and FIDELITY_COS, the launches at what remat and the
+   schedule give (per decoder layer and video the K3-lse forward twice,
+   K4a and K4b once, for each of SP_SHARDS**2 ring steps or SP_SHARDS
+   all-gather shards).
+20. A long-context reading at full width (after phase 15): BASELINE
+   config #4, LONG_FRAMES frames of LONG_TILES tiles (``max_num=12`` plus
+   the thumbnail), seeded pixels made on the card, the ``ByteTokenizer``
+   prompt (about 53.5k tokens) in a bucket of whole 64-row tiles per
+   shard, scored once with ``sp="ring"`` over ``local(SP_SHARDS)`` and
+   once without sequence parallelism; both scores finite and within
+   SCORE_TOL of each other, launches exact; prints the ms and peak memory
+   of each and the phase's command time on a line of its own.
 """
 
 from __future__ import annotations
@@ -233,6 +273,20 @@ VADER_FRAMES = 2           # the example's defaults: 2 frames, a 16 x 16
 VADER_COARSE = 16          # field, lr 0.05, one 4,096 bucket
 VADER_LR = 0.05
 VADER_CAPTION = "a bright colorful scene"
+# Sequence parallelism: the shards of the local group, the ring kernels'
+# sequence (the 3,072 bucket), the (my shard, the chunk's shard) pairs of
+# phase 17 (relative offsets -768, 0, 768 and 2,304) and the all-gather
+# shards it checks.
+SP_SHARDS = 4
+SP_T = 3072
+SP_CHUNKS = ((0, 1), (0, 0), (1, 0), (3, 0))
+SP_GATHER_RANKS = (1, 3)
+# BASELINE.json config #4, high-res long context: 16 frames of
+# max_num = 12 tiles plus the thumbnail.
+LONG_FRAMES = 16
+LONG_TILES = 13
+LONG_CAPTION = ("A hot-air balloon rises over a patchwork of green fields "
+                "at sunrise while its shadow slides across a river.")
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -253,8 +307,11 @@ def _median_ms(fn, reps=10, warmup=3):
 
 
 def _rel_err(got, ref):
+    """(max|got - ref|, that over max|ref|); an all-zero reference (a ring
+    chunk that every row is dead to) reads 0 when matched exactly."""
     err = (got.float() - ref.float()).abs().max().item()
-    return err, err / ref.float().abs().max().item()
+    top = ref.float().abs().max().item()
+    return err, (err / top if top else (0.0 if err == 0.0 else math.inf))
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -353,12 +410,15 @@ def _attention_work(q, k, v, mask, q_offset=None, causal=True, matmuls=2,
     return nbytes, 2 * matmuls * D * pairs, BF16_OPS_PER_S
 
 
-def _sdpa(q, k, v, causal, backward=False):
+def _sdpa(q, k, v, causal, backward=False, allowed=None):
     """``F.scaled_dot_product_attention`` on (B, H, S, D) copies of q, k and
     v made here, k and v repeated to q's heads (GQA), as a library
     yardstick: the forward, or with ``backward`` dQ, dK and dV together.  It
     takes no key mask (its flash path has none), so it does a little more
-    work than a masked kernel."""
+    work than a masked kernel.  ``allowed``: an explicit (B, Q, K) boolean
+    mask in place of ``causal`` (a causal offset and the key mask, at a
+    ring chunk or the all-gather shape); a row it leaves no key gives NaN
+    there, and only the time is read."""
     import torch
     import torch.nn.functional as F
 
@@ -366,11 +426,12 @@ def _sdpa(q, k, v, causal, backward=False):
     qt, kt, vt = (t.repeat_interleave(rep, dim=2) if t is not q else t
                   for t in (q, k, v))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qt, kt, vt))
+    kw = ({"is_causal": causal} if allowed is None
+          else {"attn_mask": allowed[:, None]})
     if not backward:
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=causal)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
     leaves = [t.requires_grad_() for t in (qt, kt, vt)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    out = F.scaled_dot_product_attention(*leaves, **kw)
     dout = torch.randn_like(out)
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
@@ -648,6 +709,110 @@ def check_k2r_prefix_rows(randn):
         raise RuntimeError("K2r prefix rows differ between the prefix-only "
                            "and the full-prompt prefill")
     return same
+
+
+def check_ring_kernels(randn):
+    """Phase 17: K3 with the lse, K4a and K4b at ring-chunk offsets and K3
+    at the all-gather shape against their twins; returns each one's reading
+    by (label, offset)."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+    from mjvideo_tpu_torch.parallel.sequence import NO_MASS_LSE
+
+    B, Hq, Hkv, D = 1, 16, 8, 128
+    L, scale = SP_T // SP_SHARDS, D ** -0.5
+    q, k, v = randn(B, SP_T, Hq, D), randn(B, SP_T, Hkv, D), randn(B, SP_T,
+                                                                  Hkv, D)
+    mask = torch.ones((B, SP_T), dtype=torch.int32, device=q.device)
+    mask[:, :5] = 0
+    mask[:, SP_T - 600:] = 0
+
+    def chunk(t, r):
+        return t[:, r * L:(r + 1) * L]
+
+    def offset(o):
+        return torch.full((B,), o, dtype=torch.int32, device=q.device)
+
+    readings = {}
+    for my, src in SP_CHUNKS:
+        rel = (my - src) * L
+        qc, kc, vc = chunk(q, my), chunk(k, src), chunk(v, src)
+        mc, off = chunk(mask, src).contiguous(), offset(rel)
+        ref_lse = fa.exact_attention_plain(qc, kc, vc, mc, off,
+                                           return_lse=True)[1]
+        dead = ref_lse >= fa.DEAD_LSE * 0.5  # (B, Hq, L): no key here
+        n_dead = int(dead.sum())
+        dead_rows = (f"{n_dead} dead (row, head) pairs",
+                     lambda got: not got[0].transpose(1, 2)[dead].any())
+
+        def lse_rule(got, ref):
+            lse, ref_l = got[1], ref[1]
+            held = (torch.equal(lse >= fa.DEAD_LSE * 0.5, dead)
+                    and bool((lse[dead] == fa.DEAD_LSE).all()))
+            live_err = ((lse - ref_l)[~dead].abs().max().item()
+                        if (~dead).any() else 0.0)
+            return (f"lse max_abs_err {live_err:.3e} on live rows (bound "
+                    f"{LSE_TOL:.0e}), {n_dead} dead at 1e30",
+                    held and live_err <= LSE_TOL,
+                    {"lse_max_abs_err": live_err})
+
+        allowed = fa._decoder_allowed(qc, kc, mc, off)
+        label = f"(1, {L}, {L}, 16/8, 128) ring rel_off {rel}"
+        lse_out = q.new_empty((B, Hq, L), dtype=torch.float32)
+        readings["K3 lse", rel] = _check_kernel(
+            f"K3 lse exact_attention {label}",
+            lambda: fa.exact_attention_with_lse(qc, kc, vc, mc, off),
+            lambda: fa.exact_attention_plain(qc, kc, vc, mc, off,
+                                             return_lse=True),
+            zero=dead_rows, extra=lse_rule,
+            work=_attention_work(qc, kc, vc, mc, off, outputs=(qc, lse_out)),
+            library=_sdpa(qc, kc, vc, False, allowed=allowed))
+        # The backward from the merged lse over every chunk (NO_MASS_LSE on
+        # a row no chunk gives a key) and the merged output's delta.
+        g_out, g_lse = fa.exact_attention_plain(qc, k, v, mask,
+                                                offset(my * L),
+                                                return_lse=True)
+        g_lse = torch.where(g_lse >= fa.DEAD_LSE * 0.5, NO_MASS_LSE,
+                            g_lse).contiguous()
+        dout = randn(*qc.shape)
+        args = (qc, kc, vc, dout, g_lse, fa.attention_delta(g_out, dout), mc,
+                off)
+        del g_out
+        masked = mc == 0
+        backward = _sdpa(qc, kc, vc, False, backward=True, allowed=allowed)
+        readings["K4a", rel] = _check_kernel(
+            f"K4a decoder_attention_bwd_dkdv {label}",
+            lambda: kernels.decoder_attention_bwd_dkdv(*args, scale),
+            lambda: fa.decoder_attention_bwd_plain(*args, want_dq=False)[1:],
+            names=("dk", "dv"),
+            zero=(f"{int(masked.sum())} masked keys",
+                  lambda got: not any(g[masked].any() for g in got)),
+            work=_attention_work(qc, kc, vc, mc, off, matmuls=4,
+                                 inputs=args[3:6], outputs=(kc, vc)),
+            library=backward)
+        readings["K4b", rel] = _check_kernel(
+            f"K4b decoder_attention_bwd_dq {label}",
+            lambda: kernels.decoder_attention_bwd_dq(*args, scale),
+            lambda: fa.decoder_attention_bwd_plain(*args,
+                                                   want_dkdv=False)[0],
+            names=("dq",), zero=dead_rows,
+            work=_attention_work(qc, kc, vc, mc, off, matmuls=3,
+                                 inputs=args[3:6]),
+            library=backward)
+        del backward
+    for r in SP_GATHER_RANKS:
+        qc, off = chunk(q, r), offset(r * L)
+        readings["K3 all-gather", r * L] = _check_kernel(
+            f"K3 exact_attention (1, {L}, {SP_T}, 16/8, 128) all-gather "
+            f"q_offset {r * L}",
+            lambda: fa.exact_attention(qc, k, v, mask, off),
+            lambda: fa.exact_attention_plain(qc, k, v, mask, off),
+            work=_attention_work(qc, k, v, mask, off),
+            library=_sdpa(qc, k, v, False,
+                          allowed=fa._decoder_allowed(qc, k, mask, off)))
+    return readings
 
 
 def _bf16_matmul_ms(x, K, N):
@@ -1364,8 +1529,9 @@ def time_training(trainer, batches):
 
 
 def gradient_fidelity(trainer, batch):
-    """Phase 6: (loss delta, relative L2 error, cosine) of the trainable
-    gradient, bf16 kernels against fp32 plain, same weights and batch."""
+    """Phase 6: (loss delta, relative L2 error, cosine, the fp32 plain
+    gradient) of the trainable gradient, bf16 kernels against fp32 plain,
+    same weights and batch."""
     from dataclasses import replace
 
     import torch
@@ -1391,24 +1557,17 @@ def gradient_fidelity(trainer, batch):
     p32 = map_state(lambda t: t.detach().float(), trainer.params)
     loss_p, g_p = grads(p32, "plain", torch.float32)
     del p32
-    dot = na = nb = nd = 0.0
-    for a, b in zip(g_k, g_p):
-        a = a.float()
-        dot += (a.double() * b.double()).sum().item()
-        na += a.double().square().sum().item()
-        nb += b.double().square().sum().item()
-        nd += (a - b).double().square().sum().item()
-    rel_l2 = math.sqrt(nd / nb)
-    cos = dot / math.sqrt(na * nb)
+    rel_l2, cos, norm = _agreement(g_k, g_p)
+    del g_k
     print(f"gradient fidelity: loss bf16+kernels {loss_k:.6f}, fp32 plain "
           f"{loss_p:.6f} (delta {abs(loss_k - loss_p):.3e}); gradient "
           f"relative L2 error {rel_l2:.4e} (bound {FIDELITY_REL_L2}), cosine "
           f"{cos:.6f} (bound {FIDELITY_COS}), |g| fp32 plain "
-          f"{math.sqrt(nb):.4e}")
+          f"{norm:.4e}")
     if not (rel_l2 <= FIDELITY_REL_L2 and cos >= FIDELITY_COS):
         raise RuntimeError(f"gradient fidelity: relative L2 {rel_l2}, "
                            f"cosine {cos}")
-    return abs(loss_k - loss_p), rel_l2, cos
+    return abs(loss_k - loss_p), rel_l2, cos, g_p
 
 
 def make_scorer(generator, device):
@@ -1647,6 +1806,251 @@ def vader_phase(scorer, dev):
             "peak_gib": peak / 2**30}, launches
 
 
+def _sp_launches(cfg, kind, training=False):
+    """Launches of one reward forward (one video) under sequence
+    parallelism over SP_SHARDS shards of the local group: per ViT layer K1
+    once per shard; per decoder layer K3 with the lse once per ring step
+    and shard (SP_SHARDS**2) under the ring, K3 once per shard under
+    all-gather.  ``training``: under autograd, remat runs each decoder
+    layer's forward twice (K3 with the lse each time), and the backward
+    launches K4a and K4b once per ring step and shard, or per shard."""
+    n = SP_SHARDS
+    L_llm = cfg.chat.llm.num_hidden_layers
+    calls = (n * n if kind == "ring" else n) * L_llm
+    out = {"vit_attention": n * cfg.chat.vision.num_hidden_layers}
+    if not training:
+        out["exact_attention"] = calls
+        if kind == "ring":
+            out["exact_attention_lse"] = calls
+        return out
+    out.update(exact_attention=2 * calls, exact_attention_lse=2 * calls,
+               decoder_attention_bwd_dkdv=calls,
+               decoder_attention_bwd_dq=calls)
+    return out
+
+
+def sp_scoring_phase(scorer, requests, scores, fp32_scores, pair_ms,
+                     serving_peak, dev):
+    """Phase 18: ring and all-gather scoring over ``local(SP_SHARDS)`` on
+    phase 4's state and requests.  Returns the readings and the launch
+    counts by path."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels
+    from mjvideo_tpu_torch.parallel.sequence import SequenceGroup
+
+    out, launches = {}, {}
+    for kind in ("ring", "allgather"):
+        sp_scorer = RewardScorer(
+            scorer.cfg, scorer.params, scorer.tokenizer, dtype=scorer.dtype,
+            length_buckets=scorer.buckets,
+            gating_pattern=scorer.gating_pattern, sp=kind,
+            sp_group=SequenceGroup.local(SP_SHARDS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        got = torch.cat([sp_scorer.score_batch(*r).score for r in requests])
+        torch.cuda.synchronize()
+        want = {name: len(requests) * n for name, n in
+                _sp_launches(scorer.cfg, kind).items()}
+        launches[f"sp_scoring_{kind}"] = _held_launches(
+            f"SP scoring ({kind})", want)
+        peak = torch.cuda.max_memory_allocated(dev)
+        got = got.float().cpu()
+        d_bf16 = (got - scores).abs().max().item()
+        d_fp32 = (got - fp32_scores).abs().max().item()
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp_scorer.score_batch(*requests[1])
+            torch.cuda.synchronize()
+            if i:  # the first is warm-up
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        print(f"SP scoring ({kind}, {SP_SHARDS} shards): scores "
+              f"{got.tolist()}; max |delta| {d_bf16:.3e} against phase 4, "
+              f"{d_fp32:.3e} against fp32 plain (bound {SCORE_TOL:.0e}); "
+              f"pair {ms:.1f} ms (median of {len(times)}; phase 4 "
+              f"{pair_ms:.1f} ms); peak memory {peak / 2**30:.2f} GiB "
+              f"(phase 4 {serving_peak / 2**30:.2f} GiB)")
+        if not (torch.isfinite(got).all() and d_bf16 < SCORE_TOL
+                and d_fp32 < SCORE_TOL):
+            raise RuntimeError(f"SP scoring ({kind}): scores {got.tolist()}")
+        out[kind] = {"scores": got.tolist(), "delta": d_bf16,
+                     "delta_fp32_plain": d_fp32, "pair_ms": ms,
+                     "peak_gib": peak / 2**30}
+        del sp_scorer
+    return out, launches
+
+
+def _pad_batch(batch, unit, pad_id):
+    """The batch with each video's prompt padded to a multiple of ``unit``
+    tokens (pad ids, mask 0): the pooled row, the gating row and every real
+    row's attention stay what they were."""
+    import numpy as np
+
+    out = dict(batch)
+    for v in (0, 1):
+        ids = batch[f"video_{v}_input_ids"]
+        pad = (-ids.shape[1]) % unit
+        out[f"video_{v}_input_ids"] = np.pad(ids, ((0, 0), (0, pad)),
+                                             constant_values=pad_id)
+        out[f"video_{v}_attention_mask"] = np.pad(
+            batch[f"video_{v}_attention_mask"], ((0, 0), (0, pad)))
+    return out
+
+
+def _agreement(got, ref):
+    """(relative L2 error, cosine, the reference's L2 norm) of a list of
+    gradients against a reference list, over all their elements, in
+    fp64."""
+    dot = na = nb = nd = 0.0
+    for a, b in zip(got, ref):
+        a, b = a.double(), b.double()
+        dot += (a * b).sum().item()
+        na += a.square().sum().item()
+        nb += b.square().sum().item()
+        nd += (a - b).square().sum().item()
+    return math.sqrt(nd / nb), dot / math.sqrt(na * nb), math.sqrt(nb)
+
+
+def sp_training_phase(trainer, batch, plain_grads, dev):
+    """Phase 19: one micro-batch through a ``Trainer`` with ``sp="ring"``
+    and with ``"allgather"`` on ``trainer``'s weights; the gradient its
+    accumulation buffer holds against ``plain_grads`` (phase 6).  Returns
+    the readings and the launch counts by path."""
+    from dataclasses import replace
+
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.parallel.sequence import SequenceGroup
+    from mjvideo_tpu_torch.train.trainer import Trainer
+
+    cfg = trainer.cfg
+    padded = _pad_batch(batch, SP_SHARDS * 64, cfg.chat.llm.pad_token_id)
+    lengths = [padded[f"video_{v}_input_ids"].shape[1] for v in (0, 1)]
+    out, launches = {}, {}
+    for kind in ("ring", "allgather"):
+        sp_trainer = Trainer(cfg, trainer.params,
+                             replace(trainer.tc, sp=kind),
+                             sp_group=SequenceGroup.local(SP_SHARDS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        record = sp_trainer.train([padded])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = {name: 2 * n for name, n in
+                _sp_launches(cfg, kind, training=True).items()}
+        launches[f"sp_training_{kind}"] = _held_launches(
+            f"SP training ({kind})", want)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if sp_trainer.opt_state["gradient_step"] != 0:
+            raise RuntimeError("SP training: the optimizer stepped")
+        acc = sp_trainer.opt_state["acc"]
+        rel, cos, _ = _agreement([acc[p] for p in sp_trainer.optimizer.paths],
+                                 plain_grads)
+        print(f"SP training ({kind}, {SP_SHARDS} shards, prompts padded to "
+              f"{lengths}): loss {record['loss']:.6f}, grad_norm "
+              f"{record['grad_norm']:.6f}; gradient against fp32 plain "
+              f"(phase 6) relative L2 {rel:.4e} (bound {FIDELITY_REL_L2}), "
+              f"cosine {cos:.6f} (bound {FIDELITY_COS}); micro-step "
+              f"{ms:.1f} ms (the first); peak memory {peak / 2**30:.2f} GiB")
+        if not (math.isfinite(record["loss"]) and rel <= FIDELITY_REL_L2
+                and cos >= FIDELITY_COS):
+            raise RuntimeError(f"SP training ({kind}): relative L2 {rel}, "
+                               f"cosine {cos}, loss {record['loss']}")
+        out[kind] = {"loss": record["loss"], "rel_l2": rel, "cos": cos,
+                     "step_ms": ms, "peak_gib": peak / 2**30,
+                     "lengths": lengths}
+        del sp_trainer, acc
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def long_request(scorer, dev):
+    """BASELINE config #4's clip for ``scorer``: (pixels made on the card
+    from a seed, [ids], [gating position]) and the bucket of whole 64-row
+    tiles per shard that holds its prompt."""
+    import torch
+
+    from mjvideo_tpu_torch import build_video_question, prepare_chat_input
+
+    cfg = scorer.cfg
+    chat = prepare_chat_input(
+        cfg.chat, scorer.tokenizer,
+        build_video_question(LONG_CAPTION, LONG_FRAMES),
+        num_patches_list=[LONG_TILES] * LONG_FRAMES,
+        gating_pattern=scorer.gating_pattern)
+    ids = chat.input_ids[0]
+    unit = SP_SHARDS * 64
+    size = cfg.chat.image_size
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    pixels = torch.randn((LONG_FRAMES * LONG_TILES, size, size, 3),
+                         generator=g, device=dev)
+    return (pixels, [ids], [chat.gating_pos]), -(-len(ids) // unit) * unit
+
+
+def long_context_phase(scorer, dev):
+    """Phase 20: BASELINE config #4's long clip scored with the ring over
+    ``local(SP_SHARDS)`` and without sequence parallelism.  Returns the
+    readings and the launch counts by path."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels
+    from mjvideo_tpu_torch.parallel.sequence import SequenceGroup
+
+    t_phase = time.perf_counter()
+    cfg = scorer.cfg
+    request, bucket = long_request(scorer, dev)
+    pixels, (ids,) = request[0], request[1]
+    tiles = pixels.shape[0]
+    print(f"long context: {tiles} tiles ({LONG_FRAMES} frames x "
+          f"{LONG_TILES}), prompt {len(ids)} tokens, bucket {bucket}")
+    L_vit = cfg.chat.vision.num_hidden_layers
+    L_llm = cfg.chat.llm.num_hidden_layers
+    out, launches = {"tokens": len(ids), "bucket": bucket, "tiles": tiles}, {}
+    for label, kw, want in (
+            ("ring", dict(sp="ring", sp_group=SequenceGroup.local(SP_SHARDS)),
+             _sp_launches(cfg, "ring")),
+            ("no_sp", {}, {"vit_attention": L_vit,
+                           "decoder_attention": L_llm})):
+        sc = RewardScorer(cfg, scorer.params, scorer.tokenizer,
+                          dtype=scorer.dtype, length_buckets=(bucket,),
+                          gating_pattern=scorer.gating_pattern, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        score = sc.score_batch(*request).score.float().item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[f"long_context_{label}"] = _held_launches(
+            f"long context ({label})", want)
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"long context ({label}): score {score:.6f}, {ms:.1f} ms (one "
+              f"call), peak memory {peak / 2**30:.2f} GiB "
+              f"({(peak - base) / 2**30:.2f} GiB above the state and pixels)")
+        out[label] = {"score": score, "ms": ms, "peak_gib": peak / 2**30}
+        del sc
+    delta = abs(out["ring"]["score"] - out["no_sp"]["score"])
+    out["delta"] = delta
+    print(f"long context: |ring - no SP| {delta:.3e} (bound {SCORE_TOL:.0e})")
+    if not (math.isfinite(out["ring"]["score"])
+            and math.isfinite(out["no_sp"]["score"]) and delta < SCORE_TOL):
+        raise RuntimeError(f"long context: scores {out}")
+    del pixels, request
+    torch.cuda.empty_cache()
+    out["command_s"] = time.perf_counter() - t_phase
+    print(f"phase 20 command time {out['command_s']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1700,6 +2104,7 @@ def main() -> int:
     check_k2r_prefix_rows(randn)
     quant_k = check_quant_kernels(randn)
     vit_bwd = {s: check_vit_backward(randn, s) for s in K1_SHAPES}
+    ring_k = check_ring_kernels(randn)
 
     # Phase 4: serving at the 2B widths and depths.
     t0 = time.perf_counter()
@@ -1747,20 +2152,30 @@ def main() -> int:
     delta, _, fp32_scores = plain_score_delta(scorer, requests, scores)
     if not delta < SCORE_TOL:
         raise RuntimeError(f"score delta {delta} >= {SCORE_TOL}")
+    # Phase 18: sequence-parallel scoring on the same bf16 state.
+    sp_scored, sp_score_launches = sp_scoring_phase(
+        scorer, requests, scores, fp32_scores, pair_s * 1e3, peak, dev)
     # Phase 11: quantized serving on the same bf16 state.
     quant_scored, quant_launches = quant_scoring_phase(scorer, requests,
                                                        fp32_scores, dev)
     # Phases 14 and 15: the reward gradient and the VADER loop.
     grad_out, grad_launches = reward_gradient_phase(scorer, requests[0], dev)
     vader_out, vader_launches = vader_phase(scorer, dev)
+    # Phase 20: the long-context reading, with and without the ring.
+    long_out, long_launches = long_context_phase(scorer, dev)
     del scorer, requests
     torch.cuda.empty_cache()
 
-    # Phases 5-7: training, the gradient against fp32 plain, then timing.
+    # Phases 5-7: training, the gradient against fp32 plain, then timing;
+    # phase 19 (sequence-parallel training) on phase 6's weights and batch.
     with tempfile.TemporaryDirectory() as ckpt_dir:
         trainer, batches, train_launches, train_peak = run_training(
             generator(), dev, ckpt_dir, train)
-        gradient_fidelity(trainer, batches[0])
+        plain_grads = gradient_fidelity(trainer, batches[0])[-1]
+        sp_trained, sp_train_launches = sp_training_phase(
+            trainer, batches[0], plain_grads, dev)
+        del plain_grads
+        torch.cuda.empty_cache()
         train_ms = time_training(trainer, batches)
     del trainer, batches
     torch.cuda.empty_cache()
@@ -1777,13 +2192,15 @@ def main() -> int:
 
     by_path = {"serving": launches, "training": train_launches,
                **judge_launches, **quant_launches, **quant_judge_launches,
-               "reward_gradient": grad_launches, "vader": vader_launches}
+               "reward_gradient": grad_launches, "vader": vader_launches,
+               **sp_score_launches, **sp_train_launches, **long_launches}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     served, trained = K2_SHAPES[-1], train_shapes[-1]
+    ring_l = SP_T // SP_SHARDS
     lse = dec[trained]["K2 lse"]
     judged = JUDGE_SHAPES["prefill"][:6]
     summary = {"kernels": [
@@ -1831,6 +2248,12 @@ def main() -> int:
          **counts("exact_attention"), "shape": judged,
          **judge_k["prefill"]["K3"], "kernel_ms_in_turns": turns["K3"],
          "k2_kernel_ms_in_turns": turns["K2"]},
+        {"name": "exact_attention_lse", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/exact_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:526",
+         **counts("exact_attention_lse"),
+         "shape": (1, ring_l, ring_l, 16, 8, 128), "rel_off": ring_l,
+         **ring_k["K3 lse", ring_l]},
         {"name": "decoder_attention_rows", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
@@ -1855,7 +2278,11 @@ def main() -> int:
     ], "training": {**train_ms, "peak_gib": train_peak / 2**30},
         "judge": judged_out, "quantized_scoring": quant_scored,
         "quantized_judge": quant_judged, "reward_gradient": grad_out,
-        "vader": vader_out}
+        "vader": vader_out, "sp_scoring": sp_scored,
+        "sp_training": sp_trained, "long_context": long_out,
+        "sp_kernels": {f"{name} {off}": {key: r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
+            for (name, off), r in ring_k.items()}}
     idle = [k["name"] for k in summary["kernels"]
             if k.get("on_main_path", True) and k["launches"] == 0]
     if idle:

@@ -1,11 +1,16 @@
 // K4a and K4b: the decoder attention backward on Hopper.  Replaces the two
 // Pallas kernels of _bwd_impl (mjvideo_tpu/ops/flash_attention.py:708) in
-// their causal GQA form at D = 128:
+// their GQA form at D = 128:
 //   K4a _bwd_dkdv_kernel (:603, call :769): dK, dV for one kv block
 //   K4b _bwd_dq_kernel   (:656, call :812): dQ for one q block
-// from the true lse that K2 wrote (decoder_attention.cu, WITH_LSE), under
-// the causal mask, the (B, K) key mask and the per-row q_offset.  Design
-// and bounds: see attention_bwd.cuh.
+// from the true lse that K2 or K3 wrote (decoder_attention.cu and
+// exact_attention.cu, WITH_LSE), or that the ring's merge computed, under
+// the (B, K) key mask and, when causal, the causal mask at the per-row
+// q_offset (negative for a later shard's ring chunk: K4a then starts each
+// key tile at the first q tile that can see it, or at none, and K4b walks
+// no kv tile, or one whose keys are all masked, for a q tile that sees no
+// key).  The ring's non-causal form passes causal = 0.  Design and bounds:
+// see attention_bwd.cuh.
 #include "attention_bwd.cuh"
 
 extern "C" int mjv_decoder_attention_bwd_dkdv(
@@ -14,9 +19,14 @@ extern "C" int mjv_decoder_attention_bwd_dkdv(
     const void* q_offset, void* dk, void* dv, int B, int Q, int K, int Hq,
     int Hkv, int D, long long qsb, long long qss, long long ksb,
     long long kss, long long vsb, long long vss, long long dsb,
-    long long dss, float scale, void* stream) {
+    long long dss, float scale, int causal, void* stream) {
   if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
-  return mjv::launch_bwd_dkdv<128, true>(
+  if (causal) {
+    return mjv::launch_bwd_dkdv<128, true>(
+        q, k, v, dout, lse, delta, mask, q_offset, dk, dv, B, Q, K, Hq, Hkv,
+        qsb, qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
+  }
+  return mjv::launch_bwd_dkdv<128, false>(
       q, k, v, dout, lse, delta, mask, q_offset, dk, dv, B, Q, K, Hq, Hkv,
       qsb, qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
 }
@@ -27,9 +37,14 @@ extern "C" int mjv_decoder_attention_bwd_dq(
     const void* q_offset, void* dq, int B, int Q, int K, int Hq, int Hkv,
     int D, long long qsb, long long qss, long long ksb, long long kss,
     long long vsb, long long vss, long long dsb, long long dss, float scale,
-    void* stream) {
+    int causal, void* stream) {
   if (D != 128) return int(cudaErrorInvalidValue);
-  return mjv::launch_bwd_dq<128, true>(
+  if (causal) {
+    return mjv::launch_bwd_dq<128, true>(
+        q, k, v, dout, lse, delta, mask, q_offset, dq, B, Q, K, Hq, Hkv, qsb,
+        qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
+  }
+  return mjv::launch_bwd_dq<128, false>(
       q, k, v, dout, lse, delta, mask, q_offset, dq, B, Q, K, Hq, Hkv, qsb,
       qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
 }

@@ -4,27 +4,65 @@
 // accumulator, rescaled by alpha = exp(m_old - m_new) whenever a kv tile
 // raises a row's max; a (B, K) key mask; GQA (q head h reads kv head
 // h // G); causal with a per-row q_offset (the global position of q row 0,
-// null = 0) or non-causal; masked scores at the finite -1e30, so a row that
-// sees no live key gives 0.  The judge's cached generation runs it for every
-// prompt prefill into an empty cache and, with q_offset = the prefix
-// length, for every suffix continuation over the whole cache.  Design,
-// bounds and the rescale: see bound_attention.cuh (Shift::kExact).
+// null = 0; negative when the keys are a later shard's ring chunk) or
+// non-causal; masked scores at the finite -1e30, so a row that sees no live
+// key gives 0.  The judge's cached generation runs it for every prompt
+// prefill into an empty cache and, with q_offset = the prefix length, for
+// every suffix continuation over the whole cache; all-gather sequence
+// parallelism runs it with Q = T / n queries over the T gathered keys at
+// q_offset = rank * T / n.  Design, bounds and the rescale: see
+// bound_attention.cuh (Shift::kExact).
+//
+// A non-null lse selects the instantiation that also writes the (B, Hq, Q)
+// fp32 true lse, m + log(l), or kDeadLse on a row that saw no live key
+// (K3 lse: _fwd_kernel with with_lse, flash_attention.py:526-530).  Ring
+// sequence parallelism merges the chunks of every ring step by it, and the
+// backward kernels (decoder_attention_bwd.cu) read it; the other callers
+// pass null and run the instantiation without it.
+//
+// With a negative q_offset a q tile whose last row still sees no key walks
+// no kv tile (n_kv <= 0) or, when its last row's position lies in (-64, 0),
+// one tile in which every key is masked; either way every row keeps m =
+// kNegInf and the dead-row rule gives 0 and kDeadLse.
 #include "bound_attention.cuh"
+
+namespace {
+
+template <bool CAUSAL, bool WITH_LSE>
+int launch_exact(const void* q, const void* k, const void* v,
+                 const void* mask, const void* q_offset, void* out, void* lse,
+                 int B, int Q, int K, int Hq, int Hkv, long long qsb,
+                 long long qss, long long ksb, long long kss, long long vsb,
+                 long long vss, float scale, void* stream) {
+  return mjv::launch_bound_attention<128, CAUSAL, false, WITH_LSE,
+                                     mjv::Shift::kExact>(
+      q, k, v, mask, nullptr, CAUSAL ? q_offset : nullptr, out, B, Q, K, Hq,
+      Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream, lse);
+}
+
+}  // namespace
 
 extern "C" int mjv_exact_attention(
     const void* q, const void* k, const void* v, const void* mask,
-    const void* q_offset, void* out, int B, int Q, int K, int Hq, int Hkv,
-    int D, long long qsb, long long qss, long long ksb, long long kss,
-    long long vsb, long long vss, float scale, int causal, void* stream) {
+    const void* q_offset, void* out, void* lse, int B, int Q, int K, int Hq,
+    int Hkv, int D, long long qsb, long long qss, long long ksb,
+    long long kss, long long vsb, long long vss, float scale, int causal,
+    void* stream) {
   if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
   if (causal) {
-    return mjv::launch_bound_attention<128, true, false, false,
-                                       mjv::Shift::kExact>(
-        q, k, v, mask, nullptr, q_offset, out, B, Q, K, Hq, Hkv, qsb, qss,
-        ksb, kss, vsb, vss, scale, stream);
+    return lse == nullptr
+               ? launch_exact<true, false>(q, k, v, mask, q_offset, out, lse,
+                                           B, Q, K, Hq, Hkv, qsb, qss, ksb,
+                                           kss, vsb, vss, scale, stream)
+               : launch_exact<true, true>(q, k, v, mask, q_offset, out, lse,
+                                          B, Q, K, Hq, Hkv, qsb, qss, ksb,
+                                          kss, vsb, vss, scale, stream);
   }
-  return mjv::launch_bound_attention<128, false, false, false,
-                                     mjv::Shift::kExact>(
-      q, k, v, mask, nullptr, nullptr, out, B, Q, K, Hq, Hkv, qsb, qss, ksb,
-      kss, vsb, vss, scale, stream);
+  return lse == nullptr
+             ? launch_exact<false, false>(q, k, v, mask, q_offset, out, lse,
+                                          B, Q, K, Hq, Hkv, qsb, qss, ksb,
+                                          kss, vsb, vss, scale, stream)
+             : launch_exact<false, true>(q, k, v, mask, q_offset, out, lse, B,
+                                         Q, K, Hq, Hkv, qsb, qss, ksb, kss,
+                                         vsb, vss, scale, stream);
 }

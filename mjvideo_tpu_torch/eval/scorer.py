@@ -10,7 +10,8 @@ differentiable function of the pixels (and the weights): the VADER-style
 reward-feedback hook (SURVEY.md section 7.1 step 9), whose gradient runs
 back through the reward head, the decoder (K2 with the lse, K4a, K4b), the
 ``<IMG_CONTEXT>`` scatter, the projector and the ViT (K1 with the lse, K4
-nc), each layer rematerialised.
+nc), each layer rematerialised.  ``sp=`` scores long prompts
+sequence-parallel (``parallel/sequence.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ class RewardScorer:
         gating_pattern: Sequence[int] = GATING_TOKEN_PATTERN,
         attn_impl: str = "auto",
         quant: Optional[str] = None,
+        sp: Optional[str] = None,
+        sp_group=None,
     ):
         """``params``: the state of ``init_reward_params`` or
         ``utils.bridge.from_jax_params``; scoring runs on its device.
@@ -63,7 +66,20 @@ class RewardScorer:
         ``quant``: a serving mode of ``ops.quant.quantize_params_mode``
         ("int8", "int8-noattn-g128", "int8-wo", "int4-wo", ...), applied
         to the state where it lies; a state that is already quantized is
-        taken as it is."""
+        taken as it is.
+        ``sp="ring" | "allgather"``: the decoder's attention runs
+        sequence-parallel over ``sp_group`` (a
+        ``parallel.sequence.SequenceGroup``), the ViT's tiles shard over it
+        (JAX ``scorer.py:108-128``).  Every bucket must divide into whole
+        shards; on the card each shard must also be a whole number of the
+        attention kernels' 64-row tiles, so that every ring chunk and every
+        offset starts on a tile boundary."""
+        if sp is not None:
+            if sp not in ("ring", "allgather"):
+                raise ValueError(f"unknown sp kind {sp!r}")
+            if sp_group is None:
+                raise ValueError("sp requires sp_group")
+        self.sp = None if sp is None else {"group": sp_group, "kind": sp}
         if quant is not None:
             params = quantize_params_mode(params, quant)
         self.quant = quant
@@ -81,6 +97,17 @@ class RewardScorer:
         # load time; the config is rebased on it so every consumer agrees.
         self.cfg = rebase_img_context_id(cfg, tokenizer)
         self.img_context_token_id = self.cfg.chat.img_context_token_id
+        if sp is not None:
+            n = sp_group.size
+            unit = n * 64 if self.device.type == "cuda" else n
+            bad = [b for b in self.buckets if b % unit]
+            if bad:
+                raise ValueError(
+                    f"sp shards the sequence over {n} shards; length buckets "
+                    f"{bad} are not divisible by {unit}"
+                    + (" (on the card each shard must be a whole number of "
+                       "the kernels' 64-row tiles)"
+                       if self.device.type == "cuda" else ""))
 
     def _pad(self, ids: np.ndarray, T: int, value: int) -> np.ndarray:
         out = np.full((T,), value, ids.dtype)
@@ -121,6 +148,7 @@ class RewardScorer:
             torch.as_tensor(np.asarray(gating_pos, np.int32)).to(dev),
             impl=self.attn_impl,
             img_context_token_id=self.img_context_token_id,
+            sp=self.sp,
         )
 
     def _differentiable_inputs(self, input_ids: np.ndarray):

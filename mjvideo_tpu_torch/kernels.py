@@ -37,15 +37,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset_launch_counts();
-# "vit_attention" and "decoder_attention" count K1 and K2 with and without
-# the lse, "vit_attention_lse" and "decoder_attention_lse" the launches with
-# it.
+# "vit_attention", "decoder_attention" and "exact_attention" count K1, K2
+# and K3 with and without the lse, "vit_attention_lse",
+# "decoder_attention_lse" and "exact_attention_lse" the launches with it.
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
     "decoder_attention_lse": 0,
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
-    "exact_attention": 0, "decoder_attention_rows": 0,
+    "exact_attention": 0, "exact_attention_lse": 0,
+    "decoder_attention_rows": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "w4_matmul": 0}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -135,10 +136,10 @@ def _load() -> ctypes.CDLL:
             _L, _L, _L, _L, _L, _L, _F, _P]
         lib.mjv_decoder_attention_rows.restype = _I
         lib.mjv_exact_attention.argtypes = [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _L, _L, _L, _L, _L, _L, _F, _I, _P]
         lib.mjv_exact_attention.restype = _I
-        bwd_args = [_P] * 8 + [_I] * 6 + [_L] * 8 + [_F, _P]
+        bwd_args = [_P] * 8 + [_I] * 6 + [_L] * 8 + [_F, _I, _P]
         lib.mjv_decoder_attention_bwd_dkdv.argtypes = (
             bwd_args[:8] + [_P, _P] + bwd_args[8:])
         lib.mjv_decoder_attention_bwd_dkdv.restype = _I
@@ -370,11 +371,12 @@ def decoder_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attention_mask: Optional[torch.Tensor],
                     q_offset: Optional[torch.Tensor], scale: float,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, with_lse: bool = False):
     """K3.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense heads;
     attention_mask: (B, K) int32 or None; q_offset: (B,) int32 or None (=
-    0; read only when causal).  Returns a dense (B, Q, Hq, D) bf16
-    tensor."""
+    0; read only when causal; may be negative).  Returns a dense (B, Q, Hq,
+    D) bf16 tensor, and with ``with_lse`` also the (B, Hq, Q) fp32 lse
+    (1e30 on a row that sees no key)."""
     name = "exact_attention"
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset)
@@ -382,16 +384,20 @@ def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K, Hkv = k.shape[1], k.shape[2]
     lib = _load()
     out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Q), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_exact_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, off_ptr,
-            out.data_ptr(), B, Q, K, Hq, Hkv, D, q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
-            int(causal), stream)
+            out.data_ptr(), None if lse is None else lse.data_ptr(), B, Q, K,
+            Hq, Hkv, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(scale), int(causal), stream)
     _raise_on(name, err)
     launch_counts[name] += 1
-    return out
+    if with_lse:
+        launch_counts["exact_attention_lse"] += 1
+    return (out, lse) if with_lse else out
 
 
 def _bwd_operands(name, q, k, v, dout, lse, delta, attention_mask,
@@ -415,11 +421,11 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, attention_mask,
 def decoder_attention_bwd_dkdv(q, k, v, dout, lse, delta,
                                attention_mask: Optional[torch.Tensor],
                                q_offset: Optional[torch.Tensor],
-                               scale: float):
+                               scale: float, causal: bool = True):
     """K4a.  q/dout: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense
-    heads; lse, delta: (B, Hq, Q) fp32; mask and q_offset as for K2.
-    Returns dense (B, K, Hkv, D) bf16 dk and dv, summed over each GQA
-    group."""
+    heads; lse, delta: (B, Hq, Q) fp32; mask and q_offset as for K3 (the
+    offset read only when causal).  Returns dense (B, K, Hkv, D) bf16 dk
+    and dv, summed over each GQA group."""
     name = "decoder_attention_bwd_dkdv"
     ptrs, tail = _bwd_operands(name, q, k, v, dout, lse, delta,
                                attention_mask, q_offset)
@@ -429,7 +435,8 @@ def decoder_attention_bwd_dkdv(q, k, v, dout, lse, delta,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_decoder_attention_bwd_dkdv(
-            *ptrs, dk.data_ptr(), dv.data_ptr(), *tail, float(scale), stream)
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *tail, float(scale),
+            int(causal), stream)
     _raise_on(name, err)
     launch_counts[name] += 1
     return dk, dv
@@ -438,7 +445,8 @@ def decoder_attention_bwd_dkdv(q, k, v, dout, lse, delta,
 def decoder_attention_bwd_dq(q, k, v, dout, lse, delta,
                              attention_mask: Optional[torch.Tensor],
                              q_offset: Optional[torch.Tensor],
-                             scale: float) -> torch.Tensor:
+                             scale: float, causal: bool = True
+                             ) -> torch.Tensor:
     """K4b.  Operands as for K4a; returns a dense (B, Q, Hq, D) bf16 dq."""
     name = "decoder_attention_bwd_dq"
     ptrs, tail = _bwd_operands(name, q, k, v, dout, lse, delta,
@@ -448,7 +456,7 @@ def decoder_attention_bwd_dq(q, k, v, dout, lse, delta,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_decoder_attention_bwd_dq(
-            *ptrs, dq.data_ptr(), *tail, float(scale), stream)
+            *ptrs, dq.data_ptr(), *tail, float(scale), int(causal), stream)
     _raise_on(name, err)
     launch_counts[name] += 1
     return dq

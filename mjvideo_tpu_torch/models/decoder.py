@@ -6,7 +6,9 @@ kernels (the packed ``wqkv`` is unpacked at import), GQA without repeated kv
 heads, fp32 RMSNorm statistics, RoPE tables built per call, each layer
 rematerialised per ``remat`` (``ops/remat.py``).  The LM head (``output``)
 and ``lm_logits`` serve generation; the cached layers live in
-``models/generate.py``.
+``models/generate.py``.  Under ``sp`` (sequence parallelism,
+``parallel/sequence.py``) the attention runs as ring or all-gather
+attention over the group, exact (K3), as the JAX decoder runs it.
 """
 
 from __future__ import annotations
@@ -78,7 +80,8 @@ def _dense(p, x, impl: str = "auto"):
     return y
 
 
-def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl):
+def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl,
+                   sp=None):
     """One layer (``modeling_internlm2.py:610-681``)."""
     B, S, _ = x.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -88,10 +91,24 @@ def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl):
     k = _dense(p["attention"]["wk"], h, impl).reshape(B, S, Hkv, D)
     v = _dense(p["attention"]["wv"], h, impl).reshape(B, S, Hkv, D)
     q, k = apply_rope(q, k, cos, sin)
-    # The global bound kernel K2, as the JAX decoder takes it by default
-    # (decoder.py _LLM_BOUND); the cached paths keep the exact K3.
-    attn = multi_head_attention(q, k, v, attention_mask=attention_mask,
-                                causal=True, impl=impl, norm_bound=True)
+    if sp is not None:
+        # Exact (K3) whatever ``impl`` says, as the JAX decoder's
+        # shard_map runs the flash kernel without the bound.
+        from ..parallel.sequence import (
+            ring_flash_attention,
+            sp_flash_attention,
+        )
+
+        sp_fn = (ring_flash_attention if sp.get("kind", "ring") == "ring"
+                 else sp_flash_attention)
+        attn = sp_fn(q, k, v, sp["group"], attention_mask=attention_mask,
+                     causal=True)
+    else:
+        # The global bound kernel K2, as the JAX decoder takes it by
+        # default (decoder.py _LLM_BOUND); the cached paths keep the exact
+        # K3.
+        attn = multi_head_attention(q, k, v, attention_mask=attention_mask,
+                                    causal=True, impl=impl, norm_bound=True)
     x = x + _dense(p["attention"]["wo"], attn.reshape(B, S, Hq * D), impl)
 
     h = rms_norm(x, p["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
@@ -107,22 +124,31 @@ def decoder_forward(
     attention_mask: Optional[torch.Tensor] = None,  # (B, S) 1 = real
     impl: str = "auto",
     remat=True,
+    sp=None,
 ) -> torch.Tensor:
     """All layers + the final norm: hidden states (B, S, C).
 
     The stacked ``[L, ...]`` layer tensors are unbound once, so their
-    gradient is one stack of the per-layer gradients."""
+    gradient is one stack of the per-layer gradients.
+
+    ``sp={"group": SequenceGroup, "kind": "ring" | "allgather"}`` runs the
+    attention sequence-parallel.  ``inputs_embeds`` and ``attention_mask``
+    hold the rows this process holds (all of them in a local group, one
+    shard's S/n in a distributed one); RoPE rotates each row by its global
+    position."""
     S = inputs_embeds.shape[1]
+    first, total = (0, S) if sp is None else sp["group"].held_rows(S)
     cos, sin = rope_tables(
-        S, cfg.head_dim, base=cfg.rope_theta,
+        total, cfg.head_dim, base=cfg.rope_theta,
         scaling_type=cfg.rope_scaling_type,
         scaling_factor=cfg.rope_scaling_factor,
         max_position_embeddings=cfg.max_position_embeddings,
         device=inputs_embeds.device,
     )
+    cos, sin = cos[first:first + S], sin[first:first + S]
     block = remat_wrap(
         lambda layer, x: _decoder_layer(cfg, layer, x, attention_mask, cos,
-                                        sin, impl), remat)
+                                        sin, impl, sp), remat)
     layers = map_state(lambda a: a.unbind(0), params["layers"])
     x = inputs_embeds
     for i in range(cfg.num_hidden_layers):

@@ -3,7 +3,10 @@
 Counterpart of ``mjvideo_tpu/models/internvl.py`` (reference
 ``modeling_internvl_chat.py``) on the scoring path.  The ``<IMG_CONTEXT>``
 scatter is a cumsum-indexed gather plus ``where``: static shapes and no
-host-device synchronisation, unlike a boolean-indexed assignment.
+host-device synchronisation, unlike a boolean-indexed assignment.  Under
+``sp`` (sequence parallelism) the ViT encodes each shard's slice of the
+tiles and the embeds are gathered before the scatter; in a distributed
+group each process then scatters and decodes its own rows only.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from ..configs import ChatConfig
 from ..ops.matmul import dot, gelu
 from ..ops.norms import layer_norm
 from ..ops.pixel_shuffle import pixel_shuffle
+from ..parallel.sequence import shard_sequence
 from . import decoder as dec
 from .vit import init_vit_params, vit_forward
 
@@ -63,10 +67,37 @@ def apply_projector(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
 
 
 def extract_feature(params, cfg: ChatConfig, pixel_values: torch.Tensor,
-                    impl: str = "auto", remat=True) -> torch.Tensor:
+                    impl: str = "auto", remat=True, sp=None) -> torch.Tensor:
     """ViT -> drop cls -> grid -> pixel_shuffle -> projector
     (``modeling_internvl_chat.py:244-262``); (tiles, num_image_token, C).
-    ``remat`` applies to the ViT blocks."""
+    ``remat`` applies to the ViT blocks.  ``sp``: the tiles shard over the
+    sequence group (``_sp_extract_feature``)."""
+    if sp is not None and sp["group"].size > 1:
+        return _sp_extract_feature(params, cfg, pixel_values, impl, remat,
+                                   sp["group"])
+    return _tile_features(params, cfg, pixel_values, impl, remat)
+
+
+def _sp_extract_feature(params, cfg: ChatConfig, pixel_values, impl, remat,
+                        group):
+    """The tile-sharded vision tower (JAX ``internvl.py:102-136``): the
+    tile axis padded with zero tiles to a multiple of n, each shard's slice
+    encoded (K1 on its own tiles), the embeds gathered and the pad
+    dropped.  Tiles attend only within themselves, so this splits the
+    tower's work n ways."""
+    n, n_tiles = group.size, pixel_values.shape[0]
+    pad = (-n_tiles) % n
+    if pad:
+        pixel_values = torch.cat([pixel_values, pixel_values.new_zeros(
+            (pad,) + tuple(pixel_values.shape[1:]))])
+    held = shard_sequence(pixel_values, group, dim=0)
+    emb = group.join([_tile_features(params, cfg, pix, impl, remat)
+                      for pix in group.split(held, dim=0)], dim=0)
+    return group.gather(emb, dim=0)[:n_tiles]
+
+
+def _tile_features(params, cfg: ChatConfig, pixel_values, impl, remat):
+    """The per-tile pipeline shared by the plain and the sharded tower."""
     vit_out = vit_forward(params["vision_model"], cfg.vision, pixel_values,
                           select_layer=cfg.select_layer, impl=impl,
                           remat=remat)
@@ -85,19 +116,27 @@ def scatter_image_embeds(
     input_ids: torch.Tensor,  # (B, T)
     vit_embeds: torch.Tensor,  # (P, n_tok, C)
     img_context_token_id: int,
+    first_row: int = 0,
 ) -> torch.Tensor:
     """The k-th ``<IMG_CONTEXT>`` position (row-major over B*T) receives the
     k-th ViT token, as ``input_embeds[selected] = vit_embeds`` does at
-    ``modeling_internvl_chat.py:176-186``."""
-    B, T, C = input_embeds.shape
+    ``modeling_internvl_chat.py:176-186``.  ``input_embeds`` may hold only
+    the rows [first_row, first_row + S) of the whole prompt ``input_ids``
+    (B, T) (one shard's rows): the count runs over the whole prompt, and
+    only those rows are written."""
+    B, S, C = input_embeds.shape
+    T = input_ids.shape[1]
     selected = input_ids.reshape(B * T) == img_context_token_id
     vit_flat = vit_embeds.reshape(-1, C).to(input_embeds.dtype)
     idx = torch.cumsum(selected.to(torch.int32), dim=0) - 1
     idx = idx.clamp(0, vit_flat.shape[0] - 1)
+    rows = slice(first_row, first_row + S)
+    idx = idx.reshape(B, T)[:, rows].reshape(B * S)
+    selected = selected.reshape(B, T)[:, rows].reshape(B * S)
     gathered = vit_flat[idx]
     out = torch.where(selected[:, None], gathered,
-                      input_embeds.reshape(B * T, C))
-    return out.reshape(B, T, C)
+                      input_embeds.reshape(B * S, C))
+    return out.reshape(B, S, C)
 
 
 def chat_forward(
@@ -109,20 +148,33 @@ def chat_forward(
     impl: str = "auto",
     img_context_token_id: Optional[int] = None,
     remat=True,
+    sp=None,
 ) -> torch.Tensor:
     """Final decoder hidden states (B, T, C); the LM head is skipped, since
     the reward path reads hidden states only.  ``remat`` applies to the ViT
     blocks and the decoder layers.  The ViT and projector are frozen in every
     training stage, so there they build no autograd graph and nothing is
     rematerialised; with pixels that need a gradient (``score_fn``) the
-    whole stack records one, back to the pixels."""
-    input_embeds = dec.embed_tokens(params["language_model"], input_ids)
+    whole stack records one, back to the pixels.
+
+    ``sp={"group": SequenceGroup, "kind": "ring" | "allgather"}`` (JAX
+    ``internvl.py:215-222``): the tiles shard over the group and the
+    decoder runs sequence-parallel.  ``input_ids`` and ``attention_mask``
+    are the whole prompt's (B, T) in either form of the group; in a
+    distributed group the result holds this rank's T/n rows."""
+    held_ids, first = input_ids, 0
+    if sp is not None:
+        held_ids = shard_sequence(input_ids, sp["group"])
+        first = sp["group"].held_rows(held_ids.shape[1])[0]
+        if attention_mask is not None:
+            attention_mask = shard_sequence(attention_mask, sp["group"])
+    input_embeds = dec.embed_tokens(params["language_model"], held_ids)
     vit_embeds = extract_feature(params, cfg, pixel_values, impl=impl,
-                                 remat=remat)
+                                 remat=remat, sp=sp)
     if img_context_token_id is None:
         img_context_token_id = cfg.img_context_token_id
     input_embeds = scatter_image_embeds(input_embeds, input_ids, vit_embeds,
-                                        img_context_token_id)
+                                        img_context_token_id, first)
     return dec.decoder_forward(params["language_model"], cfg.llm,
                                input_embeds, attention_mask=attention_mask,
-                               impl=impl, remat=remat)
+                               impl=impl, remat=remat, sp=sp)

@@ -95,15 +95,20 @@ def gating_forward(p, x: torch.Tensor, temperature: float,
     return torch.softmax(logits / temperature, dim=-1) * p["logit_scale"][0]
 
 
-def pool_last_non_pad(hidden: torch.Tensor, input_ids: torch.Tensor,
-                      pad_token_id: int) -> torch.Tensor:
-    """Hidden state of the last non-pad token: ``argmax(ids == pad) - 1
+def _last_non_pad(input_ids: torch.Tensor, pad_token_id: int) -> torch.Tensor:
+    """(B,) index of the last non-pad token: ``argmax(ids == pad) - 1
     (mod T)``.  argmax returns the first maximal index, so a row with no pad
     wraps to T - 1, as in the reference (``moe_reward.py:224-237``)."""
-    B, T = input_ids.shape
+    T = input_ids.shape[1]
     first_pad = torch.argmax((input_ids == pad_token_id).to(torch.int32), -1)
-    idx = ((first_pad - 1) % T).clamp(0, T - 1)
-    return hidden[torch.arange(B, device=hidden.device), idx]
+    return ((first_pad - 1) % T).clamp(0, T - 1)
+
+
+def _gating_index(gating_pos: torch.Tensor, T: int) -> torch.Tensor:
+    """(B,) gating index brought into range as JAX's gather does."""
+    gpos = gating_pos.long()
+    return torch.where(gpos < 0, gpos + T, gpos).clamp(0, T - 1)
+
 
 
 def _columns(x: torch.Tensor, cols: Sequence[int]) -> torch.Tensor:
@@ -122,16 +127,29 @@ def reward_head(
     gating_pos: torch.Tensor,  # (B,) host-computed gating-token index
 ) -> RewardOutput:
     """The reward head (``moe_reward.py:211-297``), in fp32."""
-    B, T = input_ids.shape
-    pooled = pool_last_non_pad(hidden, input_ids,
-                               cfg.chat.llm.pad_token_id).float()
+    rows = torch.arange(input_ids.shape[0], device=hidden.device)
+    pooled = hidden[rows, _last_non_pad(input_ids, cfg.chat.llm.pad_token_id)]
+    prompt = hidden[rows, _gating_index(gating_pos, input_ids.shape[1])]
+    return _head(params, cfg, pooled.float(), prompt.float())
+
+
+def _held_rows(hidden: torch.Tensor, idx: torch.Tensor, first: int,
+               group) -> torch.Tensor:
+    """(B, C): row ``idx[b]`` of the whole sequence, of which ``hidden``
+    holds rows [first, first + S) (one shard's), summed over the group's
+    shards, each of which passes zeros for a row it does not hold."""
+    S = hidden.shape[1]
+    inside = (idx >= first) & (idx < first + S)
+    local = (idx - first).clamp(0, S - 1)
+    rows = hidden[torch.arange(hidden.shape[0], device=hidden.device), local]
+    return group.sum_replicated(torch.where(inside[:, None], rows, 0.0))
+
+
+def _head(params, cfg: RewardConfig, pooled: torch.Tensor,
+          prompt_embedding: torch.Tensor) -> RewardOutput:
+    """The head from the pooled and the gating-token hidden states (fp32)."""
     rewards = dot_f32(pooled, params["regression_layer"]["kernel"])
     rewards = dot_f32(rewards, params["reward_transform_matrix"])
-
-    gpos = gating_pos.long()
-    gpos = torch.where(gpos < 0, gpos + T, gpos).clamp(0, T - 1)
-    prompt_embedding = hidden[torch.arange(B, device=hidden.device),
-                              gpos].float()
 
     ag = map_state(lambda a: a.float(), params["aspect_gating"])
     cg = map_state(lambda a: a.float(), params["criteria_gating"])
@@ -175,10 +193,27 @@ def reward_forward(
     impl: str = "auto",
     img_context_token_id: Optional[int] = None,
     remat=True,
+    sp=None,
 ) -> RewardOutput:
-    """Backbone forward + reward head: the scoring and training path."""
+    """Backbone forward + reward head: the scoring and training path.
+
+    ``sp={"group": SequenceGroup, "kind": "ring" | "allgather"}`` runs the
+    backbone sequence-parallel (JAX ``reward.py:200-224``) on the whole
+    prompt's ids and mask.  In a distributed group each rank decodes its
+    own rows, and the two rows the head reads (the last non-pad token and
+    the gating token) are gathered from the ranks that hold them; the head
+    then runs alike on every rank."""
     hidden = chat_forward(params["model"], cfg.chat, pixel_values, input_ids,
                           attention_mask=attention_mask, impl=impl,
                           img_context_token_id=img_context_token_id,
-                          remat=remat)
-    return reward_head(params, cfg, hidden, input_ids, gating_pos)
+                          remat=remat, sp=sp)
+    if sp is None or sp["group"].is_local:
+        return reward_head(params, cfg, hidden, input_ids, gating_pos)
+    group = sp["group"]
+    first = group.held_rows(hidden.shape[1])[0]
+    pooled = _held_rows(hidden, _last_non_pad(input_ids,
+                                              cfg.chat.llm.pad_token_id),
+                        first, group)
+    prompt = _held_rows(hidden, _gating_index(gating_pos, input_ids.shape[1]),
+                        first, group)
+    return _head(params, cfg, pooled.float(), prompt.float())

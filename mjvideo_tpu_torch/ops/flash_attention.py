@@ -32,9 +32,17 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   so the serving path launches K2 without the lse, as before.  ``kmax`` is
   reduced without a gradient: the bound cancels from the output.
 * ``exact_attention`` replaces ``_fwd_kernel`` (K3): the exact online
-  softmax, causal with a per-row ``q_offset`` or non-causal, under a (B, K)
-  key mask, with GQA; a row that sees no key gives 0.  Its twin takes the
-  exact row max over the allowed keys.
+  softmax, causal with a per-row ``q_offset`` (negative for a later
+  shard's ring chunk) or non-causal, under a (B, K) key mask, with GQA; a
+  row that sees no key gives 0.  Its twin takes the exact row max over the
+  allowed keys.  When autograd needs it, it goes through
+  ``_ExactAttention``, the ``custom_vjp`` of ``_flash_attention`` with a
+  ``q_offset`` (``flash_attention.py:857-898``): forward K3 with the lse
+  (``_fwd_kernel(with_lse=True)``, K3 lse), backward K4a and K4b.
+  ``exact_attention_with_lse`` is ``flash_attention_with_lse``: K3 lse
+  alone, the per-step call of ring sequence parallelism
+  (``parallel/sequence.py``), with the lse in the natural (B, Hq, Q)
+  layout.
 * ``decoder_attention_rows`` replaces ``_fwd_bound_kernel(row_bound=True)``
   (K2r): K2 with a per-row bound, ``|scale| |q_i| kcum[b, h, pos_i]``,
   where ``kcum`` is the running max of masked key norms over slots <= j and
@@ -202,11 +210,14 @@ def exact_attention_plain(
     q_offset: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     causal: bool = True,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain twin of K3: fp32 scores, the exact softmax over the allowed
     keys with p rounded to the value dtype before p @ v, and 0 on a row
     that sees no key.  Shapes as ``decoder_attention_plain``; ``q_offset``
-    is read only when causal."""
+    is read only when causal.  With ``return_lse`` (the twin of K3 lse):
+    ``(out, lse)``, lse (B, Hq, Q) fp32, the exact ``m + log(l)`` and
+    ``DEAD_LSE`` on a row that sees no key."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     B, Q, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -221,7 +232,11 @@ def exact_attention_plain(
     acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
     live = l > 0.0
     out = torch.where(live, acc / torch.where(live, l, 1.0), 0.0)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Q, Hq, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Q, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(live, m + torch.log(l.clamp_min(DEAD_FLOOR)), DEAD_LSE)
+    return out, lse.reshape(B, Hq, Q)
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -264,34 +279,54 @@ def decoder_attention_bwd_plain(q, k, v, dout, lse, delta,
 
 
 def decoder_attention_backward_plain(q, k, v, attention_mask, q_offset, out,
-                                     lse, dout, scale=None):
+                                     lse, dout, scale=None, causal=True):
     """Plain twin of ``decoder_attention_backward``: (dq, dk, dv)."""
     dout = dout.to(q.dtype)
     return decoder_attention_bwd_plain(q, k, v, dout, lse,
                                        attention_delta(out, dout),
-                                       attention_mask, q_offset, scale)
+                                       attention_mask, q_offset, scale,
+                                       causal=causal)
 
 
-def decoder_attention_backward(q, k, v, attention_mask, q_offset, out, lse,
-                               dout, scale=None):
-    """Gradient of ``decoder_attention`` from its output and lse: (dq, dk,
-    dv).  K4a and K4b on a CUDA tensor, the twin on a CPU tensor."""
+def attention_backward_from_delta(q, k, v, dout, lse, delta, attention_mask,
+                                  q_offset, scale=None, causal=True):
+    """(dq, dk, dv) of exact attention from dO (in q's dtype), the lse and
+    delta: K4a and K4b on a CUDA tensor, their twin on a CPU tensor.  The
+    ring's backward calls it once per chunk with one delta per shard, as
+    ``_bwd_impl`` runs per ring step (``sequence.py:224``)."""
     if q.device.type == "cpu":
-        return decoder_attention_backward_plain(q, k, v, attention_mask,
-                                                q_offset, out, lse, dout,
-                                                scale)
+        return decoder_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                           attention_mask, q_offset, scale,
+                                           causal=causal)
     from .. import kernels
 
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    dout = dout.to(q.dtype).contiguous()
-    delta = attention_delta(out, dout)
-    attention_mask, q_offset = _int32_operands(attention_mask, q_offset)
+    dout = dout.contiguous()
+    attention_mask, q_offset = _int32_operands(
+        attention_mask, q_offset if causal else None)
     dk, dv = kernels.decoder_attention_bwd_dkdv(q, k, v, dout, lse, delta,
                                                 attention_mask, q_offset,
-                                                scale)
+                                                scale, causal)
     dq = kernels.decoder_attention_bwd_dq(q, k, v, dout, lse, delta,
-                                          attention_mask, q_offset, scale)
+                                          attention_mask, q_offset, scale,
+                                          causal)
     return dq, dk, dv
+
+
+def decoder_attention_backward(q, k, v, attention_mask, q_offset, out, lse,
+                               dout, scale=None, causal=True):
+    """Gradient of ``decoder_attention`` (and of ``exact_attention``) from
+    its output and lse: (dq, dk, dv).  K4a and K4b on a CUDA tensor, the
+    twin on a CPU tensor."""
+    if q.device.type == "cpu":
+        return decoder_attention_backward_plain(q, k, v, attention_mask,
+                                                q_offset, out, lse, dout,
+                                                scale, causal)
+    dout = dout.to(q.dtype).contiguous()
+    return attention_backward_from_delta(q, k, v, dout, lse,
+                                         attention_delta(out, dout),
+                                         attention_mask, q_offset, scale,
+                                         causal)
 
 
 def vit_attention_bwd_plain(q, k, v, dout, lse, delta, scale=None,
@@ -431,6 +466,43 @@ def decoder_attention(
                                   with_lse=False)
 
 
+def _exact_attention_fwd(q, k, v, attention_mask, q_offset, scale, causal,
+                         with_lse):
+    """K3 (with or without the lse) on a CUDA tensor, its twin on a CPU
+    tensor."""
+    if q.device.type == "cpu":
+        return exact_attention_plain(q, k, v, attention_mask, q_offset, scale,
+                                     causal, return_lse=with_lse)
+    from .. import kernels
+
+    attention_mask, q_offset = _int32_operands(
+        attention_mask, q_offset if causal else None)
+    return kernels.exact_attention(q, k, v, attention_mask, q_offset, scale,
+                                   causal=causal, with_lse=with_lse)
+
+
+class _ExactAttention(torch.autograd.Function):
+    """K3 with the lse forward, K4a and K4b backward: ``_vjp_fwd`` /
+    ``_vjp_bwd`` with a ``q_offset`` (``flash_attention.py:857-898``), the
+    path of all-gather sequence parallelism under autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attention_mask, q_offset, scale, causal):
+        out, lse = _exact_attention_fwd(q, k, v, attention_mask, q_offset,
+                                        scale, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, attention_mask, q_offset, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, attention_mask, q_offset, out, lse = ctx.saved_tensors
+        dq, dk, dv = decoder_attention_backward(q, k, v, attention_mask,
+                                                q_offset, out, lse, dout,
+                                                ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None, None
+
+
 def exact_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None,
@@ -438,18 +510,36 @@ def exact_attention(
     scale: Optional[float] = None,
     causal: bool = True,
 ) -> torch.Tensor:
-    """K3 on a CUDA tensor, its plain twin on a CPU tensor."""
-    if q.device.type == "cpu":
-        return exact_attention_plain(q, k, v, attention_mask, q_offset, scale,
-                                     causal)
-    from .. import kernels
-
-    kernels.forward_only("exact_attention", q, k, v)
+    """K3 on a CUDA tensor, its plain twin on a CPU tensor; differentiable
+    in q, k and v through K3 with the lse and K4a/K4b (their twins on the
+    CPU), which it takes only when autograd will need them."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    attention_mask, q_offset = _int32_operands(
-        attention_mask, q_offset if causal else None)
-    return kernels.exact_attention(q, k, v, attention_mask, q_offset, scale,
-                                   causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _ExactAttention.apply(q, k, v, attention_mask, q_offset, scale,
+                                     causal)
+    return _exact_attention_fwd(q, k, v, attention_mask, q_offset, scale,
+                                causal, with_lse=False)
+
+
+def exact_attention_with_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    causal: bool = True,
+):
+    """``flash_attention_with_lse`` (``flash_attention.py:945``): (out, lse
+    (B, Hq, Q) fp32, ``DEAD_LSE`` on a row that sees no key).  K3 lse on a
+    CUDA tensor, its twin on a CPU tensor.  Not differentiable: the ring
+    has its own backward (``parallel/sequence.py``)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type != "cpu":
+        from .. import kernels
+
+        kernels.forward_only("exact_attention_with_lse", q, k, v)
+    return _exact_attention_fwd(q, k, v, attention_mask, q_offset, scale,
+                                causal, with_lse=True)
 
 
 def decoder_attention_rows(

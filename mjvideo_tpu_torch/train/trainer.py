@@ -18,6 +18,12 @@ Counterpart of ``mjvideo_tpu/train/trainer.py`` on one device:
 * ``make_train_step`` and ``Trainer`` keep the JAX signatures; a checkpoint
   is one ``torch.save`` of the params, the optimizer state (moments, counts,
   accumulation buffer) and the step, so resume is bit-exact.
+* ``TrainConfig.sp`` ("ring" or "allgather") runs both reward forwards
+  sequence-parallel over the ``sp_group`` the caller gives (JAX passes the
+  mesh): ``reward_forward(sp=)``, remat as without it.  In a distributed
+  group each rank's backbone gradients cover its own rows, so they are
+  summed over the group; the head runs alike on every rank and its
+  gradients are whole already.
 
 Options of ``TrainConfig`` that this port does not honour yet raise
 ``NotImplementedError`` naming their ROADMAP item when set away from their
@@ -91,7 +97,6 @@ _NOT_PORTED = {
     "adam_mu_dtype": (None, "bf16 Adam mu, ROADMAP Queue 1 item 9"),
     "lora_rank": (0, "LoRA training, ROADMAP Queue 1 items 9 and 11"),
     "zero1": (False, "ZeRO-1, ROADMAP Queue 1 items 9 and 12"),
-    "sp": (None, "sequence-parallel training, ROADMAP Queue 1 items 9 and 12"),
     "async_checkpoint": (False, "async checkpoints, ROADMAP Queue 1 item 9"),
     "tensorboard": (False, "tensorboard logging, ROADMAP Queue 1 item 9"),
 }
@@ -104,6 +109,8 @@ def check_supported(tc: TrainConfig) -> None:
             raise NotImplementedError(
                 f"TrainConfig.{name}={getattr(tc, name)!r} is not ported "
                 f"yet: {item}")
+    if tc.sp not in (None, "ring", "allgather"):
+        raise ValueError(f"unknown sp kind {tc.sp!r}")
     if tc.mesh_model_axis != 1 or tc.mesh_data_axis not in (-1, 1):
         raise NotImplementedError(
             "training on a mesh of more than one device is not ported yet: "
@@ -245,11 +252,23 @@ def make_optimizer(tc: TrainConfig, params) -> Optimizer:
     return Optimizer(tc, trainable_mask(params, tc.stage))
 
 
-def make_loss_fn(cfg: RewardConfig, tc: TrainConfig) -> Callable:
+def _sp_spec(tc: TrainConfig, sp_group):
+    if tc.sp is None:
+        return None
+    if sp_group is None:
+        raise ValueError("tc.sp requires the sp_group argument")
+    return {"group": sp_group, "kind": tc.sp}
+
+
+def make_loss_fn(cfg: RewardConfig, tc: TrainConfig,
+                 sp_group=None) -> Callable:
     """(params, batch) -> scalar fp32 loss: two reward forwards, one per
-    video, then the stage loss."""
+    video, then the stage loss.  ``sp_group`` (a
+    ``parallel.sequence.SequenceGroup``) is required when ``tc.sp`` is
+    set."""
     mse = tc.mse if tc.mse is not None else tc.stage_mse_default()
     stage_loss = STAGES[tc.stage].loss_fn
+    sp = _sp_spec(tc, sp_group)
 
     def loss_fn(params, batch):
         outs = []
@@ -261,7 +280,7 @@ def make_loss_fn(cfg: RewardConfig, tc: TrainConfig) -> Callable:
                 params, cfg, pix, batch[f"video_{v}_input_ids"],
                 batch[f"video_{v}_attention_mask"],
                 batch[f"video_{v}_gating_pos"], impl=tc.attn_impl,
-                remat=tc.remat))
+                remat=tc.remat, sp=sp))
         if tc.stage > 1:
             return stage_loss(outs[0], outs[1], batch, mse=mse, beta=tc.beta)
         return stage_loss(outs[0], outs[1], batch, mse=mse)
@@ -270,13 +289,16 @@ def make_loss_fn(cfg: RewardConfig, tc: TrainConfig) -> Callable:
 
 
 def make_train_step(cfg: RewardConfig, tc: TrainConfig,
-                    optimizer: Optimizer) -> Callable:
+                    optimizer: Optimizer, sp_group=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm"}).  The params are updated in place (the JAX step donates
     them); ``grad_norm`` is the global norm of the micro-batch's trainable
     gradients before clipping."""
-    loss_fn = make_loss_fn(cfg, tc)
+    loss_fn = make_loss_fn(cfg, tc, sp_group)
     trainable = set(optimizer.paths)
+    # Backbone gradients cover one rank's rows in a distributed group.
+    summed = ([] if sp_group is None or sp_group.is_local else
+              [p for p in optimizer.paths if p.startswith("model/")])
 
     def train_step(params, opt_state, batch):
         set_trainable(params, trainable)
@@ -286,6 +308,11 @@ def make_train_step(cfg: RewardConfig, tc: TrainConfig,
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {p: torch.zeros_like(t) if g is None else g
                  for p, t, g in zip(optimizer.paths, leaves, grads)}
+        if summed:
+            import torch.distributed as dist
+
+            for p in summed:
+                dist.all_reduce(grads[p], group=sp_group.process_group)
         gnorm = global_norm(grads.values())
         opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
@@ -315,9 +342,12 @@ def _detached(state):
 
 class Trainer:
     """Deterministic training loop with ``torch.save`` checkpoints and JSONL
-    metrics (``checkpoint_dir/metrics.jsonl``)."""
+    metrics (``checkpoint_dir/metrics.jsonl``).  ``sp_group``: the
+    sequence group of ``tc.sp`` (where JAX's ``Trainer`` takes the mesh);
+    every process of a distributed group feeds the same batches."""
 
-    def __init__(self, cfg: RewardConfig, params, tc: TrainConfig):
+    def __init__(self, cfg: RewardConfig, params, tc: TrainConfig,
+                 sp_group=None):
         vis = cfg.chat.vision
         if vis.drop_path_rate > 0.0 or vis.dropout > 0.0:
             raise NotImplementedError(
@@ -329,7 +359,7 @@ class Trainer:
         self.device = first_tensor(params).device
         self.optimizer = make_optimizer(tc, params)
         self.opt_state = self.optimizer.init(params)
-        self.step_fn = make_train_step(cfg, tc, self.optimizer)
+        self.step_fn = make_train_step(cfg, tc, self.optimizer, sp_group)
         self.step = 0
         os.makedirs(tc.checkpoint_dir, exist_ok=True)
         self._metrics_path = os.path.join(tc.checkpoint_dir, "metrics.jsonl")

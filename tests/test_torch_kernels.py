@@ -8,8 +8,8 @@ This file imports no JAX, so it runs on a machine with a card and no JAX:
 Without a card every test here skips.  Tolerances, the bounds
 ``chip_smoke.py`` states: each bf16 output (K1, K2, K2r, K3, K4a's dk and dv,
 K4b's dq, K4 nc's dq, dk and dv) to max|kernel - plain| / max|plain| <=
-2**-7, one bf16 ulp of the largest output at worst; K1's and K2's fp32 lse
-to max|kernel - plain| <= LSE_TOL.
+2**-7, one bf16 ulp of the largest output at worst; K1's, K2's and K3's
+fp32 lse to max|kernel - plain| <= LSE_TOL.
 """
 
 import pytest
@@ -287,7 +287,8 @@ def test_k2r_prefix_rows_are_bit_identical(cuda_device):
 def test_k3_and_k2r_wrappers_raise_instead_of_falling_back(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(5)
     q, k, v, mask = _left_padded(g, cuda_device)
-    for kern in (fa.exact_attention, fa.decoder_attention_rows):
+    for kern in (fa.exact_attention, fa.decoder_attention_rows,
+                 fa.exact_attention_with_lse):
         with pytest.raises(ValueError, match="bfloat16"):
             kern(q.float(), k.float(), v.float(), mask)
         # A CPU/CUDA mix raises in the checks, or in K2r's bound before
@@ -296,8 +297,96 @@ def test_k3_and_k2r_wrappers_raise_instead_of_falling_back(cuda_device):
             kern(q, k.cpu(), v, mask)
         with pytest.raises((ValueError, RuntimeError)):
             kern(q, k, v, mask.cpu())
+    # K2r and the ring's K3 lse have no backward of their own; K3 takes
+    # _ExactAttention (K3 lse, K4a, K4b).
+    for kern in (fa.decoder_attention_rows, fa.exact_attention_with_lse):
         with pytest.raises(NotImplementedError, match="backward"):
             kern(q.clone().requires_grad_(), k, v, mask)
+
+
+def _ring_chunk(g, dev, L=128):
+    """One shard's L queries and a chunk's L keys.  Row 1 masks the
+    chunk's first 70 keys: at offset 0 its rows 0-69 see no key, and rows
+    70-127 see none in the first kv tile and some in the second (K3's
+    rescale from kNegInf)."""
+    q = _randn(g, dev, 2, L, 4, 128)
+    k = _randn(g, dev, 2, L, 2, 128)
+    v = _randn(g, dev, 2, L, 2, 128)
+    mask = torch.ones(2, L, dtype=torch.int32, device=dev)
+    mask[0, L - 9:] = 0
+    mask[1, :70] = 0
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_k3_lse_and_k4_match_twins_at_ring_offsets(cuda_device, causal):
+    """K3 lse, K4a and K4b against their twins at the ring's relative
+    offsets -L, -L/2 (a later shard's chunk: every row dead, or the tile's
+    last rows' positions in (-64, 0)), 0, L/2 and L; dead rows exactly 0
+    and DEAD_LSE, masked keys exactly 0 in dk and dv."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, mask = _ring_chunk(g, cuda_device)
+    L, scale = q.shape[1], 128 ** -0.5
+    dout = _randn(g, cuda_device, *q.shape)
+    for rel in (-L, -L // 2, 0, L // 2, L):
+        off = torch.full((2,), rel, dtype=torch.int32, device=cuda_device)
+        before = dict(kernels.launch_counts)
+        out, lse = fa.exact_attention_with_lse(q, k, v, mask, off,
+                                               causal=causal)
+        assert (kernels.launch_counts["exact_attention_lse"]
+                == before["exact_attention_lse"] + 1)
+        ref, ref_lse = fa.exact_attention_plain(q, k, v, mask, off,
+                                                causal=causal,
+                                                return_lse=True)
+        dead = ref_lse >= fa.DEAD_LSE * 0.5
+        assert torch.equal(lse >= fa.DEAD_LSE * 0.5, dead), rel
+        assert torch.equal(lse[dead], ref_lse[dead])
+        if (~dead).any():
+            assert (lse - ref_lse)[~dead].abs().max().item() <= LSE_TOL
+            _assert_close(out, ref)
+        assert not out.transpose(1, 2)[dead].any()
+        # The backward from a finite lse on every row, as the ring's merge
+        # gives it: this chunk's lse + 0.5 where live, 3.0 where dead.
+        glse = torch.where(dead, 3.0, ref_lse + 0.5).contiguous()
+        delta = fa.attention_delta(ref, dout)
+        got = fa.attention_backward_from_delta(q, k, v, dout, glse, delta,
+                                               mask, off, scale, causal)
+        want = fa.decoder_attention_bwd_plain(q, k, v, dout, glse, delta,
+                                              mask, off, scale,
+                                              causal=causal)
+        for gt, w in zip(got, want):
+            if w.abs().max().item() == 0.0:
+                assert not gt.any(), rel
+            else:
+                _assert_close(gt, w)
+        for gt in got[1:]:
+            assert not gt[mask == 0].any()
+
+
+@pytest.mark.cuda
+def test_exact_autograd_function_launches_k3_lse_and_k4(cuda_device):
+    """With q, k, v requiring grad, ``exact_attention`` at the all-gather
+    shape (Q = K/4 at q_offset K/2) runs K3 with the lse forward and
+    K4a/K4b backward, and its gradients match the twins'."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, mask = _decoder_inputs(g, cuda_device, T=256, Q=64)
+    off = torch.full((2,), 128, dtype=torch.int32, device=cuda_device)
+    dout = _randn(g, cuda_device, *q.shape)
+    before = dict(kernels.launch_counts)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.exact_attention(*leaves, mask, off)
+    grads = torch.autograd.grad(out, leaves, dout)
+    for name in ("exact_attention", "exact_attention_lse",
+                 "decoder_attention_bwd_dkdv", "decoder_attention_bwd_dq"):
+        assert kernels.launch_counts[name] == before[name] + 1, name
+    ref, ref_lse = fa.exact_attention_plain(q, k, v, mask, off,
+                                            return_lse=True)
+    want = fa.decoder_attention_backward_plain(q, k, v, mask, off, ref,
+                                               ref_lse, dout)
+    _assert_close(out, ref)
+    for got, w in zip(grads, want):
+        _assert_close(got, w)
 
 
 def _grouped_operands(g, dev, M, K, N, group):

@@ -243,11 +243,17 @@ def test_optimizer_matches_optax_on_fixed_gradients(kw):
 def test_unported_options_raise_with_their_roadmap_item(setup):
     cfg, params = setup
     for kw in (dict(optimizer="adafactor"), dict(lora_rank=4),
-               dict(zero1=True), dict(sp="ring"),
+               dict(zero1=True),
                dict(adam_mu_dtype="bfloat16"), dict(async_checkpoint=True),
                dict(tensorboard=True), dict(mesh_model_axis=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrainer.make_optimizer(ttrainer.TrainConfig(**kw), params)
+    # Sequence-parallel training is ported (tests/test_torch_sequence.py):
+    # it needs the group its shards live in, as JAX needs the mesh.
+    with pytest.raises(ValueError, match="unknown sp kind"):
+        ttrainer.make_optimizer(ttrainer.TrainConfig(sp="tree"), params)
+    with pytest.raises(ValueError, match="sp_group"):
+        ttrainer.make_loss_fn(cfg, ttrainer.TrainConfig(sp="ring"))
     from mjvideo_tpu_torch.ops.remat import remat_wrap
 
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -1,12 +1,16 @@
 """Where the time of one 2B scoring request goes on a CUDA card.
 
-    python3 tools/profile_torch_scoring.py [--quant MODE] [--out FILE]
+    python3 tools/profile_torch_scoring.py [--quant MODE] [--sp KIND]
+        [--long] [--out FILE]
 
 Builds the MJ-VIDEO-2B ``RewardScorer`` and the pair request of
 ``chip_smoke.py`` (random bf16 weights made on the card, two 8-frame clips),
 in the serving mode ``--quant`` if one is given (``"int8-noattn-g128"``,
-``"int8"``, ...: ``RewardScorer(quant=...)``), warms up, then traces three
-requests with ``torch.profiler``.  Prints the
+``"int8"``, ...: ``RewardScorer(quant=...)``), sequence-parallel with
+``--sp ring|allgather`` over ``SequenceGroup.local(chip_smoke.SP_SHARDS)``,
+or with ``--long`` on ``chip_smoke.py``'s long-context clip (16 frames x
+13 tiles, about 53.5k tokens) instead of the pair, warms up, then traces
+three requests with ``torch.profiler``.  Prints the
 card, the wall time per request, the device busy share (kernel time over
 wall time) and the device time by kernel group and by kernel; ``--out`` also
 writes the per-kernel list and the profiler's table to FILE.
@@ -48,6 +52,8 @@ def _group(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quant", default=None)
+    ap.add_argument("--sp", choices=("ring", "allgather"), default=None)
+    ap.add_argument("--long", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
 
@@ -58,21 +64,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_scoring: CUDA is not available", file=sys.stderr)
         return 1
-    from chip_smoke import SEED, make_requests, make_scorer
+    from chip_smoke import (SEED, SP_SHARDS, long_request, make_requests,
+                            make_scorer)
     from mjvideo_tpu_torch import RewardScorer
+    from mjvideo_tpu_torch.parallel.sequence import SequenceGroup
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(f"card: {smi}; serving mode {args.quant or 'bf16'}")
+    print(f"card: {smi}; serving mode {args.quant or 'bf16'}, sequence "
+          f"parallelism {args.sp or 'none'}, "
+          f"{'long-context clip' if args.long else 'pair'}")
     scorer = make_scorer(torch.Generator(device=dev).manual_seed(SEED), dev)
-    if args.quant is not None:
+    if args.long:
+        (pix, ids, gpos), bucket = long_request(scorer, dev)
+    else:
+        pix, ids, gpos = make_requests(scorer, np.random.default_rng(SEED))[1]
+    if args.quant or args.sp or args.long:
+        sp = ({} if args.sp is None else
+              {"sp": args.sp, "sp_group": SequenceGroup.local(SP_SHARDS)})
         scorer = RewardScorer(scorer.cfg, scorer.params, scorer.tokenizer,
                               dtype=torch.bfloat16,
+                              length_buckets=(bucket,) if args.long
+                              else scorer.buckets,
                               gating_pattern=scorer.gating_pattern,
-                              quant=args.quant)
-    pix, ids, gpos = make_requests(scorer, np.random.default_rng(SEED))[1]
+                              quant=args.quant, **sp)
 
     for _ in range(2):
         scorer.score_batch(pix, ids, gpos)
