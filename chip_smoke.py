@@ -159,6 +159,23 @@ Phases (any failure raises and exits non-zero):
    once without sequence parallelism; both scores finite and within
    SCORE_TOL of each other, launches exact; prints the ms and peak memory
    of each and the phase's command time on a line of its own.
+21. (Run with phases 2, 3, 8, 10, 13 and 17, before the paths.)  The ViT
+   attention variants of the JAX package's A/B harnesses at VARIANT_SHAPE
+   bf16, q/k/v as strided views into one qkv tensor as in phase 2: B1 in
+   each softmax mode, B2 at each hp it is built for and B3 (at 1025, and
+   at VARIANT_PADDED with kv_valid 1025 and the k/v rows past it zero),
+   each against its twin to KERNEL_REL_TOL of max|plain| with its bound
+   and ``F.scaled_dot_product_attention`` at the same shape, and printed
+   against K1's output.  Then the phase's path, the two harnesses, the
+   counts set to 0 before each and held exactly after:
+   ``tools/vit_attn_variants_torch.py`` (every kernel in turns,
+   VARIANT_WINDOWS windows of VARIANT_LAUNCHES launches) and
+   ``tools/vit_layout_ab_torch.py`` (one 2B ViT block, layer 0 of seeded
+   bf16 weights, with K1, B3 at 1032 and at 1025, and B2 at the hp that
+   checked fastest: one block held against K1's to BLOCK_REL_TOL, then
+   BLOCK_CHAIN chained blocks BLOCK_REPS times and a profiler pass of 4).
+   The summary line lists the three kernels with ``"on_main_path":
+   false`` and their launches in this phase.
 """
 
 from __future__ import annotations
@@ -287,6 +304,21 @@ LONG_FRAMES = 16
 LONG_TILES = 13
 LONG_CAPTION = ("A hot-air balloon rises over a patchwork of green fields "
                 "at sunrise while its shadow slides across a river.")
+# Phase 21: the ViT attention variants at serving's ViT shape, B3 also
+# pre-padded to a multiple of 8 as the JAX ViT pads; the attention A/B's
+# windows and the block A/B's chain.
+VARIANT_SHAPE = K1_SHAPES[0]
+VARIANT_PADDED = 1032
+VARIANT_LAUNCHES = 5
+VARIANT_WINDOWS = 3
+BLOCK_CHAIN = 24
+BLOCK_REPS = 3
+# One ViT block with a variant's attention against the block with K1, on
+# the same x: max|delta| / max|block(x) - x|, about 4x the H100 reading
+# (7.2e-3 for each variant).  The attention outputs differ in bf16 rounding
+# only (each held to KERNEL_REL_TOL above); this bar catches a block that
+# took a wrong route or lost rows.
+BLOCK_REL_TOL = 2 ** -5
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -813,6 +845,129 @@ def check_ring_kernels(randn):
             library=_sdpa(qc, k, v, False,
                           allowed=fa._decoder_allowed(qc, k, mask, off)))
     return readings
+
+
+def _tool(name):
+    """A script of ``tools/`` loaded by its path (``tools`` is no package)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_tools_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_variant_kernels(randn):
+    """Phase 21's checks: B1 in each mode, B2 at each hp and B3 (at S, and
+    pre-padded to VARIANT_PADDED with kv_valid S) against their twins on
+    views into one qkv tensor; each also printed against K1's output on
+    the same q/k/v.  Returns each one's reading by ("B1", mode), ("B2", hp)
+    and ("B3", S)."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+    from mjvideo_tpu_torch.ops import vit_attention_variants as va
+
+    B, S, H, D = VARIANT_SHAPE
+
+    def views(n):
+        return tuple(t.view(B, n, H, D)
+                     for t in randn(B, n, 3 * H * D).split(H * D, dim=-1))
+
+    q, k, v = views(S)
+    work = _attention_work(q, k, v, None, causal=False)
+    library = _sdpa(q, k, v, causal=False)
+
+    def against_k1(label, got):
+        # K1 on the same q and the first S keys, at the first S rows.
+        k1 = fa.vit_attention(q[:, :S], k[:, :S], v[:, :S]).float()
+        err = (got.float().view(B, -1, H, D)[:, :S] - k1).abs().max().item()
+        print(f"  {label}: max|kernel - K1| {err:.3e} (K1's largest output "
+              f"{k1.abs().max().item():.3f})")
+
+    readings = {}
+    for mode in kernels.VARIANT_MODES:
+        label = f"B1 vit_attention_variant {mode} {VARIANT_SHAPE}"
+        readings["B1", mode] = _check_kernel(
+            label, lambda: va.variant_attention(q, k, v, mode),
+            lambda: va.variant_attention_plain(q, k, v, mode), work=work,
+            library=library)
+        against_k1(label, va.variant_attention(q, k, v, mode))
+    for hp in kernels.TMAJOR_HP:
+        label = f"B2 vit_attention_tmajor hp={hp} {VARIANT_SHAPE}"
+        readings["B2", hp] = _check_kernel(
+            label, lambda: va.tmajor_attention(q, k, v, hp=hp),
+            lambda: va.tmajor_attention_plain(q, k, v), work=work,
+            library=library)
+        against_k1(label, va.tmajor_attention(q, k, v, hp=hp))
+    label = f"B3 vit_attention_bshd {VARIANT_SHAPE}"
+    readings["B3", S] = _check_kernel(
+        label, lambda: va.bshd_attention(q, k, v),
+        lambda: va.bshd_attention_plain(q, k, v), work=work, library=library)
+    against_k1(label, va.bshd_attention(q, k, v))
+    del q, k, v, library
+    # The JAX harness's form: the token axis pre-padded to a multiple of 8,
+    # k and v rows zero past S.
+    q, k, v = views(VARIANT_PADDED)
+    k[:, S:] = 0
+    v[:, S:] = 0
+    kl, vl = k[:, :S], v[:, :S]
+    label = (f"B3 vit_attention_bshd {(B, VARIANT_PADDED, H, D)} kv_valid "
+             f"{S}")
+    readings["B3", VARIANT_PADDED] = _check_kernel(
+        label, lambda: va.bshd_attention(q, k, v, S),
+        lambda: va.bshd_attention_plain(q, k, v, S),
+        work=_attention_work(q, kl, vl, None, causal=False),
+        library=_sdpa(q, kl, vl, causal=False))
+    against_k1(label, va.bshd_attention(q, k, v, S))
+    return readings
+
+
+def variant_ab_phase(readings, dev):
+    """Phase 21's path: the two A/B harnesses of the ViT attention
+    (``tools/vit_attn_variants_torch.py`` and
+    ``tools/vit_layout_ab_torch.py``) at the 2B ViT's width, the counts
+    set to 0 before each and read after; the launches held exactly.  The
+    block A/B takes the B2 hp whose kernel checked fastest.  Returns the
+    readings and the launch counts by harness."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    attn_ab, block_ab = _tool("vit_attn_variants_torch"), _tool(
+        "vit_layout_ab_torch")
+    hp = min(kernels.TMAJOR_HP, key=lambda n: readings["B2", n]["ms"])
+    counts = {}
+    kernels.reset_launch_counts()
+    q, k, v = attn_ab.make_inputs(VARIANT_SHAPE[0], dev)
+    runs = attn_ab.kernel_runs(q, k, v)
+    times = attn_ab.time_in_turns(runs, VARIANT_LAUNCHES, VARIANT_WINDOWS)
+    torch.cuda.synchronize()
+    counts["vit_attention_ab"] = dict(kernels.launch_counts)
+    del q, k, v, runs
+    per = 1 + VARIANT_LAUNCHES * VARIANT_WINDOWS
+    want = {"vit_attention": 2 * per,
+            "vit_attention_variant": len(kernels.VARIANT_MODES) * per,
+            "vit_attention_tmajor": len(kernels.TMAJOR_HP) * per,
+            "vit_attention_bshd": per}
+    _held_launches("vit attention A/B", want)
+    ms = {name: statistics.median(t) for name, t in times.items()}
+    print("vit attention A/B, ms per launch (median of "
+          f"{VARIANT_WINDOWS} windows of {VARIANT_LAUNCHES}): "
+          + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()))
+
+    kernels.reset_launch_counts()
+    rows = block_ab.run(tiles=VARIANT_SHAPE[0], chain=BLOCK_CHAIN,
+                        reps=BLOCK_REPS, hp=hp)
+    torch.cuda.synchronize()
+    counts["vit_block_ab"] = dict(kernels.launch_counts)
+    per = 1 + BLOCK_REPS * BLOCK_CHAIN + 4  # warm-up, timed, profiled
+    _held_launches("vit block A/B", {
+        "vit_attention": per, "vit_attention_bshd": 2 * per,
+        "vit_attention_tmajor": per})
+    block_ab.report(rows, VARIANT_SHAPE[0], BLOCK_CHAIN)
+    return {"attention_ab_ms": ms, "block_ab": rows, "block_hp": hp}, counts
 
 
 def _bf16_matmul_ms(x, K, N):
@@ -2105,6 +2260,17 @@ def main() -> int:
     quant_k = check_quant_kernels(randn)
     vit_bwd = {s: check_vit_backward(randn, s) for s in K1_SHAPES}
     ring_k = check_ring_kernels(randn)
+    # Phase 21: the ViT attention variants, then their A/B harnesses.
+    t0 = time.perf_counter()
+    variant_k = check_variant_kernels(randn)
+    variant_out, variant_launches = variant_ab_phase(variant_k, dev)
+    for name, row in variant_out["block_ab"].items():
+        rel = row["max_abs_vs_first"] / row["first_update_max"]
+        if not row["finite"] or not rel <= BLOCK_REL_TOL:
+            raise RuntimeError(f"vit block A/B {name}: finite {row['finite']}"
+                               f", {rel:.3e} of max|block(x) - x| against "
+                               f"K1's block (bound {BLOCK_REL_TOL})")
+    print(f"phase 21 command time {time.perf_counter() - t0:.1f} s")
 
     # Phase 4: serving at the 2B widths and depths.
     t0 = time.perf_counter()
@@ -2199,6 +2365,19 @@ def main() -> int:
         paths = {path: n[name] for path, n in by_path.items()}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
+    def ab_counts(name):
+        # Phase 21's harnesses, the path of the three ViT attention variants.
+        paths = {path: n[name] for path, n in variant_launches.items()}
+        return {"launches": sum(paths.values()), "launches_by_path": paths,
+                "on_main_path": False}
+
+    def by_key(prefix, keys):
+        return {str(key): {f: variant_k[prefix, key][f] for f in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
+            for key in keys}
+
+    hp = variant_out["block_hp"]
+
     served, trained = K2_SHAPES[-1], train_shapes[-1]
     ring_l = SP_T // SP_SHARDS
     lse = dec[trained]["K2 lse"]
@@ -2275,7 +2454,31 @@ def main() -> int:
          "replaces": "mjvideo_tpu/ops/quant4.py:177",
          **counts("w4_matmul"), "shape": (2,) + W4_SHAPES[1],
          **quant_k["K5", (2,) + W4_SHAPES[1]]},
-    ], "training": {**train_ms, "peak_gib": train_peak / 2**30},
+        # The A/B harnesses' kernels (phase 21): not on the main path.
+        {"name": "vit_attention_variant", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "replaces": "benchmarks/vit_attn_variants.py:63",
+         **ab_counts("vit_attention_variant"), "shape": VARIANT_SHAPE,
+         "mode": "exp2", **variant_k["B1", "exp2"],
+         "modes": by_key("B1", kernels.VARIANT_MODES)},
+        {"name": "vit_attention_tmajor", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "replaces": "benchmarks/vit_attn_variants.py:150",
+         **ab_counts("vit_attention_tmajor"), "shape": VARIANT_SHAPE,
+         "hp": hp, **variant_k["B2", hp],
+         "hps": by_key("B2", kernels.TMAJOR_HP)},
+        {"name": "vit_attention_bshd", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "replaces": "benchmarks/vit_layout_ab.py:72",
+         **ab_counts("vit_attention_bshd"),
+         "shape": VARIANT_SHAPE[:1] + (VARIANT_PADDED,) + VARIANT_SHAPE[2:],
+         "kv_valid": VARIANT_SHAPE[1], **variant_k["B3", VARIANT_PADDED],
+         "at_s": by_key("B3", (VARIANT_SHAPE[1], VARIANT_PADDED))},
+    ], "vit_attention_ab": {
+        "attention_ab_ms": variant_out["attention_ab_ms"],
+        "block_ab": {n: {f: r[f] for f in r if f != "ms_all"}
+                     for n, r in variant_out["block_ab"].items()}},
+        "training": {**train_ms, "peak_gib": train_peak / 2**30},
         "judge": judged_out, "quantized_scoring": quant_scored,
         "quantized_judge": quant_judged, "reward_gradient": grad_out,
         "vader": vader_out, "sp_scoring": sp_scored,

@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vit_attention.cu", "vit_attention_bwd.cu", "decoder_attention.cu",
            "decoder_attention_bwd.cu", "exact_attention.cu", "q8g_matmul.cu",
-           "w4_matmul.cu")
+           "w4_matmul.cu", "vit_attention_variants.cu")
 HEADERS = ("bound_attention.cuh", "attention_bwd.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,7 +47,15 @@ launch_counts: Dict[str, int] = {
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
     "exact_attention": 0, "exact_attention_lse": 0,
     "decoder_attention_rows": 0,
-    "q8g_matmul_fused": 0, "q8g_matmul": 0, "w4_matmul": 0}
+    "q8g_matmul_fused": 0, "q8g_matmul": 0, "w4_matmul": 0,
+    "vit_attention_variant": 0, "vit_attention_tmajor": 0,
+    "vit_attention_bshd": 0}
+
+# B1's softmax modes, in the order of the C entry's ``mode`` argument, and
+# the heads per CTA that B2 is built for.
+VARIANT_MODES = ("exp2", "bf16s", "nomax", "exp2_nomax")
+TMAJOR_HP = (1, 2, 4)
+LOG2E = 1.4426950408889634  # log2(e)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -152,6 +160,13 @@ def _load() -> ctypes.CDLL:
         lib.mjv_q8g_matmul.restype = _I
         lib.mjv_w4_matmul.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib.mjv_w4_matmul.restype = _I
+        variant = [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F]
+        lib.mjv_vit_attention_variant.argtypes = variant + [_I, _P]
+        lib.mjv_vit_attention_variant.restype = _I
+        lib.mjv_vit_attention_tmajor.argtypes = variant + [_I, _P]
+        lib.mjv_vit_attention_tmajor.restype = _I
+        lib.mjv_vit_attention_bshd.argtypes = variant + [_I, _P]
+        lib.mjv_vit_attention_bshd.restype = _I
         _lib = lib
     return _lib
 
@@ -571,3 +586,72 @@ def w4_matmul(x: torch.Tensor, packed: torch.Tensor,
     _raise_on(name, err)
     launch_counts[name] += 1
     return out
+
+
+def _variant_launch(name: str, entry: str, q, k, v, scale: float,
+                    last: int) -> torch.Tensor:
+    """Checks and launch shared by B1, B2 and B3: q/k/v (B, S, H, 64) bf16
+    of one shape with dense heads (row strides free); ``last`` is the
+    entry's mode, hp or kv_valid.  Returns a dense (B, S, H, D) bf16
+    tensor."""
+    _check_qkv(name, 64, q, k, v)
+    B, S, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k and v must share (B, S, H, D)")
+    lib = _load()
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(scale), int(last), stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def vit_attention_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mode: str, scale: float) -> torch.Tensor:
+    """B1.  q/k/v: (B, S, H, 64) bf16 with dense heads (row strides free);
+    ``mode`` one of VARIANT_MODES.  Returns a dense (B, S, H, D) bf16
+    tensor.  The unshifted modes (``nomax``, ``exp2_nomax``) overflow once
+    |s * scale| passes 88 (exp) or 128 / log2(e) (exp2): they are for the
+    harness only, on inputs whose logits stay far below that."""
+    name = "vit_attention_variant"
+    if mode not in VARIANT_MODES:
+        raise ValueError(f"{name}: mode must be one of {VARIANT_MODES}, got "
+                         f"{mode!r}")
+    # The exp2 modes fold scale * log2(e) into q (rounded to fp32 once, as
+    # the TPU harness's constant is); the others scale the scores.
+    fold = scale * LOG2E if mode in ("exp2", "exp2_nomax") else scale
+    return _variant_launch(name, "mjv_vit_attention_variant", q, k, v, fold,
+                           VARIANT_MODES.index(mode))
+
+
+def vit_attention_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         hp: int, scale: float) -> torch.Tensor:
+    """B2: the exact row max with ``hp`` adjacent heads per CTA (one of
+    TMAJOR_HP, dividing H).  Operands and result as for
+    ``vit_attention_variant``."""
+    name = "vit_attention_tmajor"
+    if hp not in TMAJOR_HP or q.shape[2] % hp:
+        raise ValueError(f"{name}: hp={hp} must be one of {TMAJOR_HP} and "
+                         f"divide the {q.shape[2]} heads")
+    return _variant_launch(name, "mjv_vit_attention_tmajor", q, k, v, scale,
+                           hp)
+
+
+def vit_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_valid: Optional[int], scale: float) -> torch.Tensor:
+    """B3: the exact row max over the keys below ``kv_valid`` (None: all
+    S).  Operands as for ``vit_attention_variant``; returns the dense
+    output viewed as (B, S, H * D)."""
+    name = "vit_attention_bshd"
+    S = q.shape[1]
+    kv_valid = S if kv_valid is None else int(kv_valid)
+    if not 1 <= kv_valid <= S:
+        raise ValueError(f"{name}: kv_valid={kv_valid} must lie in [1, {S}]")
+    out = _variant_launch(name, "mjv_vit_attention_bshd", q, k, v, scale,
+                          kv_valid)
+    return out.view(out.shape[0], S, -1)

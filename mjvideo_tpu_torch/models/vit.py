@@ -15,6 +15,8 @@ with the lse and K4 nc when autograd needs them.
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -114,8 +116,16 @@ def embeddings(p, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tensor
     return x + pos.to(x.dtype)
 
 
-def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str) -> torch.Tensor:
-    """One pre-norm block with LayerScale (``modeling_intern_vit.py:266-295``)."""
+def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
+           attention: Optional[Callable] = None) -> torch.Tensor:
+    """One pre-norm block with LayerScale (``modeling_intern_vit.py:266-295``).
+
+    ``attention(q, k, v)``, given the (B, S, H, D) views of the qkv product,
+    returns (B, S, H, D) or (B, S, H * D); None takes the production
+    attention, K1 through ``multi_head_attention(norm_bound=True)``.  The
+    A/B harness (``tools/vit_layout_ab_torch.py``) swaps it to time this
+    block with another kernel, as the JAX package's ``make_block_fn``
+    (``benchmarks/vit_layout_ab.py:121``) does with a copy of the block."""
     B, S, C = x.shape
     H, D = cfg.num_attention_heads, cfg.head_dim
 
@@ -126,9 +136,12 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str) -> torch.Tensor:
         qkv = qkv + p["attn"]["qkv"]["bias"]
     # Views into qkv: the kernel takes the token stride as it is.
     q, k, v = (t.view(B, S, H, D) for t in qkv.split(C, dim=-1))
-    # The bound kernel K1, as the JAX ViT takes it (vit.py _NC_BOUND).
-    attn = multi_head_attention(q, k, v, causal=False, impl=impl,
-                                norm_bound=True)
+    if attention is None:
+        # The bound kernel K1, as the JAX ViT takes it (vit.py _NC_BOUND).
+        attn = multi_head_attention(q, k, v, causal=False, impl=impl,
+                                    norm_bound=True)
+    else:
+        attn = attention(q, k, v)
     attn = dot(attn.reshape(B, S, C), p["attn"]["proj"]["kernel"], impl)
     x = x + (attn + p["attn"]["proj"]["bias"]) * p["ls1"]
 

@@ -7,9 +7,9 @@ This file imports no JAX, so it runs on a machine with a card and no JAX:
 (``--noconftest`` skips the JAX device setup of ``tests/conftest.py``.)
 Without a card every test here skips.  Tolerances, the bounds
 ``chip_smoke.py`` states: each bf16 output (K1, K2, K2r, K3, K4a's dk and dv,
-K4b's dq, K4 nc's dq, dk and dv) to max|kernel - plain| / max|plain| <=
-2**-7, one bf16 ulp of the largest output at worst; K1's, K2's and K3's
-fp32 lse to max|kernel - plain| <= LSE_TOL.
+K4b's dq, K4 nc's dq, dk and dv, B1, B2, B3) to max|kernel - plain| /
+max|plain| <= 2**-7, one bf16 ulp of the largest output at worst; K1's,
+K2's and K3's fp32 lse to max|kernel - plain| <= LSE_TOL.
 """
 
 import pytest
@@ -387,6 +387,77 @@ def test_exact_autograd_function_launches_k3_lse_and_k4(cuda_device):
     _assert_close(out, ref)
     for got, w in zip(grads, want):
         _assert_close(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [37, 1025])
+def test_vit_attention_variants_match_twins(cuda_device, S):
+    """B1 in each mode, B2 at each hp and B3 against their twins on qkv
+    views, at S = 37 (one partial tile) and the 448 px tile's 1025; each
+    call moves its launch counter by one."""
+    from mjvideo_tpu_torch.ops import vit_attention_variants as va
+
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    q, k, v = _qkv_views(g, cuda_device, 2, S)
+    calls = [("vit_attention_variant", lambda m=m: va.variant_attention(
+                 q, k, v, m), lambda m=m: va.variant_attention_plain(
+                 q, k, v, m)) for m in va.VARIANT_MODES]
+    calls += [("vit_attention_tmajor", lambda n=n: va.tmajor_attention(
+                  q, k, v, hp=n), lambda: va.tmajor_attention_plain(q, k, v))
+              for n in va.TMAJOR_HP]
+    calls.append(("vit_attention_bshd", lambda: va.bshd_attention(q, k, v),
+                  lambda: va.bshd_attention_plain(q, k, v)))
+    for name, kern, plain in calls:
+        before = kernels.launch_counts[name]
+        got = kern()
+        assert kernels.launch_counts[name] == before + 1, name
+        _assert_close(got, plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,kv_valid", [(1032, 1025), (40, 33)])
+def test_bshd_kernel_excludes_keys_past_kv_valid(cuda_device, S, kv_valid):
+    """B3 at the JAX ViT's pre-padded length: the keys at or past
+    ``kv_valid`` are never read (NaN there changes nothing)."""
+    from mjvideo_tpu_torch.ops import vit_attention_variants as va
+
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    q, k, v = _qkv_views(g, cuda_device, 2, S)
+    k[:, kv_valid:] = 0
+    v[:, kv_valid:] = 0
+    got = va.bshd_attention(q, k, v, kv_valid)
+    assert got.shape == (2, S, 4 * 64)
+    _assert_close(got, va.bshd_attention_plain(q, k, v, kv_valid))
+    k[:, kv_valid:] = float("nan")
+    v[:, kv_valid:] = float("nan")
+    assert torch.equal(va.bshd_attention(q, k, v, kv_valid), got)
+
+
+@pytest.mark.cuda
+def test_variant_wrappers_raise_instead_of_falling_back(cuda_device):
+    from mjvideo_tpu_torch.ops import vit_attention_variants as va
+
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    q, k, v = _qkv_views(g, cuda_device, 1, 70)
+    calls = (lambda *t: va.variant_attention(*t, "exp2"),
+             lambda *t: va.tmajor_attention(*t, hp=2),
+             lambda *t: va.bshd_attention(*t, 60))
+    for call in calls:
+        with pytest.raises(ValueError, match="bfloat16"):
+            call(q.float(), k.float(), v.float())
+        with pytest.raises(ValueError):
+            call(q, k.cpu(), v)
+        with pytest.raises(NotImplementedError, match="backward"):
+            call(q.clone().requires_grad_(), k, v)
+    q32 = torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16, device=cuda_device)
+    for call in calls[:2]:
+        with pytest.raises(ValueError, match="head dim"):
+            call(q32, q32, q32)
+    q6 = torch.zeros(1, 8, 6, 64, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="hp"):
+        kernels.vit_attention_tmajor(q6, q6, q6, 4, 0.125)
+    with pytest.raises(ValueError, match="mode"):
+        kernels.vit_attention_variant(q, k, v, "exp", 0.125)
 
 
 def _grouped_operands(g, dev, M, K, N, group):

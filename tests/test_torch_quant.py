@@ -392,12 +392,20 @@ def test_judge_quant_logits_match_jax(chat_params, mode):
 
 def test_port_imports_no_jax_and_no_mjvideo_tpu():
     """In a fresh interpreter: import ``mjvideo_tpu_torch`` and every
-    submodule, then find no ``jax`` and no ``mjvideo_tpu`` module loaded."""
+    submodule (the ViT attention variants' ``ops.vit_attention_variants``
+    among them), ``chip_smoke.py`` and the two A/B harnesses of the ViT
+    attention under ``tools/``, then find no ``jax`` and no
+    ``mjvideo_tpu`` module loaded."""
     code = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import mjvideo_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, "mjvideo_tpu_torch."):
     importlib.import_module(m.name)
+assert "mjvideo_tpu_torch.ops.vit_attention_variants" in sys.modules
+import chip_smoke
+for name in ("vit_attn_variants_torch", "vit_layout_ab_torch"):
+    spec = importlib.util.spec_from_file_location(name, f"tools/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mjvideo_tpu" or m.startswith("mjvideo_tpu."))
 assert not bad, bad

@@ -375,20 +375,22 @@ def test_sequence_parallel_stage3_gradient_matches_jax(model, tmp_path):
 # ------------------------------------------------ two gloo processes
 
 WORKER = """
+import os
 import sys
 import numpy as np
 import torch
 import torch.distributed as dist
 from mjvideo_tpu_torch import init_reward_params, tiny_test_config
 from mjvideo_tpu_torch.models.reward import reward_forward
+from mjvideo_tpu_torch.parallel import maybe_initialize
 from mjvideo_tpu_torch.parallel.sequence import (
     SequenceGroup, ring_flash_attention, shard_sequence, sp_flash_attention)
 from mjvideo_tpu_torch.train import trainer as tt
 
-rank, port, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+out_dir = sys.argv[1]
+rank = int(os.environ["RANK"])
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=2)
+assert maybe_initialize(device="cpu") and dist.get_backend() == "gloo"
 group = SequenceGroup.distributed()
 data = dict(np.load(f"{out_dir}/inputs.npz"))
 res = {}
@@ -450,12 +452,13 @@ def test_gloo_processes_equal_the_local_form(model, tmp_path, monkeypatch):
     np.savez(tmp_path / "inputs.npz", q=q, k=k, v=v, g=g, mask=mask, pix=pix,
              ids=ids, ids_mask=ids_mask, gpos=gpos,
              **{f"batch/{k_}": v_ for k_, v_ in batch.items()})
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
-        env.pop(name, None)
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), port,
-                               str(tmp_path)], cwd=REPO, env=env,
+    # The launcher's variables, as torchrun sets them: each process joins
+    # through ``maybe_initialize(device="cpu")``.
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(tmp_path)],
+                              cwd=REPO, env=dict(env, RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in (0, 1)]
     logs = [p.communicate(timeout=120) for p in procs]
@@ -504,6 +507,23 @@ def test_gloo_processes_equal_the_local_form(model, tmp_path, monkeypatch):
     assert tdist.maybe_initialize() is False
     assert not torch.distributed.is_initialized()
     assert tdist.process_info() == (0, 1)
+
+
+def test_maybe_initialize_follows_the_device_asked_for(monkeypatch):
+    """Under a launcher's variables a CUDA device without CUDA raises
+    instead of joining over gloo; an unknown device raises too."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdist.maybe_initialize()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdist.maybe_initialize(device="cuda:1")
+    with pytest.raises(ValueError, match="no backend"):
+        tdist.maybe_initialize(device="meta")
+    assert not torch.distributed.is_initialized()
 
 
 def test_shard_sequence_keeps_rows_of_the_rank():
