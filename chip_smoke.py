@@ -46,14 +46,18 @@ Phases (any failure raises and exits non-zero):
 7. Training time: TRAIN_TIMED_STEPS more micro-steps; the median of those
    that only accumulate and of those that also step the optimizer.
 8. (Run with phases 2 and 3, before the paths.)  K3 (the exact softmax)
-   and K2r (the per-row bound) against their twins at the InternVL2-2B
-   judge's shapes (JUDGE_SHAPES: the pair's left-padded
-   full-prompt prefill with dead rows exactly 0, one video's prefix
-   prefill, and the suffix continuation over the cache at q_offset 2,308),
-   the kernels K2, K3 and K2r alone timed in turns at (2, 3072, 16/8, 128)
-   (the wrappers' times include each bound's reduction), and K2r's prefix
-   rows held bit-identical between a prefix-only and a full-prompt prefill
-   of the same bf16 q/k/v.
+   and K2r (the per-row bound; the op, its pre-pass and kernel) against
+   their twins at the InternVL2-2B judge's shapes (JUDGE_SHAPES: the
+   pair's left-padded full-prompt prefill with dead rows exactly 0, one
+   video's prefix prefill, and the suffix continuation over the cache at
+   q_offset 2,308), then K2r's pre-pass against its twin (to
+   PREPASS_REL_TOL) and K2r's kernel alone on the pre-pass's column; each
+   with the share of its bound reached.  The kernels K2 (the WMMA
+   template, a same-run yardstick), K3 and K2r alone and the K2r op, timed
+   in turns at (2, 3072, 16/8, 128), and K2r's prefix rows held
+   bit-identical between a prefix-only and a full-prompt prefill of the
+   same bf16 q/k/v.  Phase 1 also prints the registers and spills that
+   ptxas reports for the Hopper template's kernels and the pre-pass.
 9. The judge: an ``InternVLJudge`` on a 2B chat state with the LM head
    (random bf16 weights from a fresh generator at SEED, 64 new tokens,
    seeded 8-frame 448 px pixels in place of decoded videos) answers a pair
@@ -61,11 +65,13 @@ Phases (any failure raises and exits non-zero):
    suffix exceeds the 128-token bucket) and a pair with a short question
    (the prefix path: two prefix prefills and one continuation), then the
    short question again under ``_CACHE_BOUND = "rows"``.  The launch
-   counters must show 24 K1 per video encoded and 24 K3 (K2r under "rows")
-   per prefill or continuation, none in decode steps and no K2.  Each
-   path's teacher-forced per-step logits are held against the same weights
-   in fp32 through ``impl="plain"`` on the kernel path's tokens, to
-   LOGITS_REL_TOL of max|logit|.  Reports the prefix path's first-step
+   counters must show 24 K1 per video encoded and 24 K3 (K2r and its
+   pre-pass under "rows") per prefill or continuation, none in decode
+   steps and no K2.  Each
+   path's teacher-forced per-step logits (the prefix path also under
+   "rows") are held against the same weights in fp32 through
+   ``impl="plain"`` on the kernel path's tokens, to LOGITS_REL_TOL of
+   max|logit|.  Reports the prefix path's first-step
    logits against the full prompt's and the share of greedy tokens they
    agree on; prints prefill ms, ms per decode step at B = 2, answers/s for
    a pair and the peak memory.
@@ -250,6 +256,14 @@ LOGITS_REL_TOL = 1.5e-1
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12     # outside the tensor cores
+# K2r's pre-pass (the running max of masked key norms) against its twin:
+# fp32 sums of squares in another order than torch's, max|delta| over
+# max|plain|; about 10x an H100's reading.
+PREPASS_REL_TOL = 1e-6
+# The kernels of the Hopper template (decoder_attention_sm90.cuh) and K2r's
+# pre-pass, as ptxas names them: their registers and spills are printed.
+SM90_KERNELS = ("decoder_attention_sm90_kernel", "key_norm_cummax_kernel")
 # K6 and K7 at the 2B's grouped w8a8 products, (M, K, N) with g = 128: the
 # ViT's fc1 over a pair's 16 tiles of 1,025 tokens, the decoder's w1 and w2
 # over a pair in the 3,072 bucket, a decoder wq over one 2,333-token prompt
@@ -402,13 +416,15 @@ def _check_kernel(label, kernel_fn, plain_fn, names=("out",), zero=None,
     reading["library_ms"] = None if library is None else _median_ms(library)
     if work is not None:
         reading.update(_bound(*work))
+        reading["bound_share"] = reading["bound_ms"] / reading["ms"]
     times = (f"kernel {reading['ms']:.4f} ms, plain {reading['plain_ms']:.4f}"
              " ms")
     if reading["library_ms"] is not None:
         times += f", library {reading['library_ms']:.4f} ms"
     if work is not None:
         times += (f", bound {reading['bound_ms']:.4f} ms by "
-                  f"{reading['bound_by']}")
+                  f"{reading['bound_by']} ({100 * reading['bound_share']:.1f}%"
+                  " of it reached)")
     print(f"{label}: {text} (bound {KERNEL_REL_TOL:.2e}), {times} (median "
           "of 10)")
     if not ok:
@@ -645,10 +661,14 @@ def _judge_inputs(randn, shape):
 
 
 def check_judge_kernels(randn, name, shape):
-    """K3 and K2r against their twins on one set of inputs."""
+    """K3 and K2r (the op: its pre-pass and its kernel) against their twins
+    on one set of inputs, then K2r's two parts apart: the pre-pass against
+    its twin and the kernel alone on the pre-pass's column."""
+    from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
     q, k, v, mask, off, dead = _judge_inputs(randn, shape)
+    scale = shape[5] ** -0.5
     zero = (f"{int(dead.sum())} dead rows",
             lambda got: not got[0][dead].any())
     label = f"{shape[:6]} {name}"
@@ -656,25 +676,46 @@ def check_judge_kernels(randn, name, shape):
     # SDPA's causal mask is aligned at the first query: no yardstick for a
     # continuation at an offset.
     library = _sdpa(q, k, v, causal=True) if off is None else None
-    return {
+    readings = {
         "K3": _check_kernel(
             f"K3 exact_attention {label}",
             lambda: fa.exact_attention(q, k, v, mask, off),
             lambda: fa.exact_attention_plain(q, k, v, mask, off), zero=zero,
             work=work, library=library),
         "K2r": _check_kernel(
-            f"K2r decoder_attention_rows {label}",
+            f"K2r decoder_attention_rows (op: pre-pass and kernel) {label}",
             lambda: fa.decoder_attention_rows(q, k, v, mask, off),
             lambda: fa.decoder_attention_rows_plain(q, k, v, mask, off),
             zero=zero, work=work, library=library),
     }
 
+    def prepass_rule(got, ref):
+        rel = _rel_err(got[0], ref[0])[1]
+        return (f"{rel:.3e} of max|plain| (bound {PREPASS_REL_TOL:.0e})",
+                rel <= PREPASS_REL_TOL, {})
+
+    kcum = fa.key_norm_cummax(k, mask)
+    readings["K2r pre-pass"] = _check_kernel(
+        f"K2r pre-pass key_norm_cummax {label}",
+        lambda: kernels.key_norm_cummax(k, mask),
+        lambda: fa.key_norm_cummax(k, mask), names=("kcum",),
+        extra=prepass_rule,
+        work=(_nbytes(k, mask, kcum), 2 * k.numel(), FP32_OPS_PER_S))
+    readings["K2r kernel"] = _check_kernel(
+        f"K2r decoder_attention_rows (kernel alone) {label}",
+        lambda: kernels.decoder_attention_rows(q, k, v, mask, kcum, off,
+                                               scale),
+        lambda: fa.decoder_attention_rows_plain(q, k, v, mask, off),
+        zero=zero, work=work, library=library)
+    return readings
+
 
 def time_shifts_in_turns(randn, rounds=10):
     """The three causal forward kernels on the judge's prefill inputs, K2
-    (global bound), K3 (exact) and K2r (per-row bound), launched directly
-    with their bounds reduced beforehand, timed in turns (K2, K3, K2r, K2r,
-    K3, K2) by CUDA events; returns the medians in ms."""
+    (global bound, the WMMA template), K3 (exact) and K2r (per-row bound),
+    launched directly with their bounds reduced beforehand, and the K2r op
+    (its pre-pass and its kernel), timed in turns (K2, K3, K2r, K2r op, K2r
+    op, K2r, K3, K2) by CUDA events; returns the medians in ms."""
     import torch
 
     from mjvideo_tpu_torch import kernels
@@ -683,20 +724,22 @@ def time_shifts_in_turns(randn, rounds=10):
     q, k, v, mask, _, _ = _judge_inputs(randn, JUDGE_SHAPES["prefill"])
     scale = q.shape[-1] ** -0.5
     kmax = fa.key_norm_max(k, mask)
-    rows = fa.row_key_bound(k, mask, None, q.shape[1], q.shape[2])
+    kcum = kernels.key_norm_cummax(k, mask)
     runs = {
         "K2": lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
                                                 scale),
         "K3": lambda: kernels.exact_attention(q, k, v, mask, None, scale),
-        "K2r": lambda: kernels.decoder_attention_rows(q, k, v, mask, rows,
+        "K2r": lambda: kernels.decoder_attention_rows(q, k, v, mask, kcum,
                                                       None, scale),
+        "K2r op": lambda: fa.decoder_attention_rows(q, k, v, mask),
     }
     times = {name: [] for name in runs}
     for fn in runs.values():
         for _ in range(3):
             fn()
     for _ in range(rounds):
-        for name in ("K2", "K3", "K2r", "K2r", "K3", "K2"):
+        for name in ("K2", "K3", "K2r", "K2r op", "K2r op", "K2r", "K3",
+                     "K2"):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -708,8 +751,47 @@ def time_shifts_in_turns(randn, rounds=10):
     print(f"kernels alone at {JUDGE_SHAPES['prefill'][:6]}, in turns: "
           + ", ".join(f"{n} {t:.4f} ms" for n, t in med.items())
           + f" (median of {2 * rounds} each; K3/K2 {med['K3'] / med['K2']:.3f}"
-          f", K2r/K2 {med['K2r'] / med['K2']:.3f})")
+          f", K2r/K2 {med['K2r'] / med['K2']:.3f}, K2r op/K2 "
+          f"{med['K2r op'] / med['K2']:.3f})")
     return med
+
+
+def sm90_ptxas(lib):
+    """Registers, spill bytes and ptxas's wgmma warnings of the Hopper
+    template's three kernels and K2r's pre-pass, from the build's ptxas
+    report; printed and returned by kernel.  Raises if one spills."""
+    import re
+
+    report = (lib.parent / "ptxas.txt").read_text().splitlines()
+    out, name = {}, None
+    for line in report:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) if any(k in m.group(1)
+                                     for k in SM90_KERNELS) else None
+            continue
+        if name is None:
+            continue
+        row = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row["spill_stores"], row["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+    warned = [line.strip() for line in report
+              if "C7512" in line or "C7508" in line]
+    for name, row in out.items():
+        print(f"ptxas {name}: {row}")
+    for line in warned:
+        print(f"ptxas warning: {line}")
+    spilled = [n for n, row in out.items() if row.get("spill_stores", 0)
+               or row.get("spill_loads", 0)]
+    if spilled or len(out) != 4:
+        raise RuntimeError(f"ptxas: spills in {spilled}, or not the 4 "
+                           f"kernels expected: {sorted(out)}")
+    return {"kernels": out, "warnings": warned}
 
 
 def check_k2r_prefix_rows(randn):
@@ -1386,7 +1468,8 @@ def judge_phase(device, seed=SEED, timing=True):
         judge.ask_batch(JUDGE_QUESTION, list(videos))
         torch.cuda.synchronize()
         launches["judge_prefix_rows"] = _held_launches(
-            "judge prefix rows", {"decoder_attention_rows": 3 * L_llm})
+            "judge prefix rows", {"decoder_attention_rows": 3 * L_llm,
+                                  "key_norm_cummax": 3 * L_llm})
     finally:
         gen._CACHE_BOUND = False
         judge._pstate.cache_clear()
@@ -1399,6 +1482,16 @@ def judge_phase(device, seed=SEED, timing=True):
                                                    videos, False, "full prompt")
     _, out["prefix_rel"], ptoks, plogits = logits_fidelity(
         judge, plain, JUDGE_QUESTION, videos, True, "prefix")
+    # The prefix path under the per-row bound (K2r): the plain judge takes
+    # the exact softmax, which the bound does not change.
+    judge._pstate.cache_clear()
+    gen._CACHE_BOUND = "rows"
+    try:
+        _, out["prefix_rows_rel"], _, _ = logits_fidelity(
+            judge, plain, JUDGE_QUESTION, videos, True, "prefix (rows)")
+    finally:
+        gen._CACHE_BOUND = False
+        judge._pstate.cache_clear()
     del plain
     torch.cuda.empty_cache()
     # Reported, not required: the prefix path against the full prompt of
@@ -1412,7 +1505,7 @@ def judge_phase(device, seed=SEED, timing=True):
           f"max|delta| {d0:.4e}; greedy tokens agree on {agree:.4f} of "
           f"{ptoks.numel()}")
     out.update(prefix_vs_full_step0=d0, prefix_vs_full_agree=agree)
-    for key in ("full_rel", "prefix_rel"):
+    for key in ("full_rel", "prefix_rel", "prefix_rows_rel"):
         if not out[key] <= LOGITS_REL_TOL:
             raise RuntimeError(f"judge {key} {out[key]} > {LOGITS_REL_TOL}")
     if timing:
@@ -2234,6 +2327,7 @@ def main() -> int:
     for line in (lib.parent / "ptxas.txt").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
+    ptxas = sm90_ptxas(lib)
 
     def generator():
         # Each phase draws from its own generator, so the weights do not
@@ -2378,6 +2472,11 @@ def main() -> int:
 
     hp = variant_out["block_hp"]
 
+    def brief(r):
+        return {f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_share")}
+
+    gathered = [r * (SP_T // SP_SHARDS) for r in SP_GATHER_RANKS]
     served, trained = K2_SHAPES[-1], train_shapes[-1]
     ring_l = SP_T // SP_SHARDS
     lse = dec[trained]["K2 lse"]
@@ -2422,11 +2521,14 @@ def main() -> int:
          **counts("decoder_attention_bwd_dq"), "shape": trained,
          **dec[trained]["K4b"]},
         {"name": "exact_attention", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/exact_attention.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:260",
          **counts("exact_attention"), "shape": judged,
          **judge_k["prefill"]["K3"], "kernel_ms_in_turns": turns["K3"],
-         "k2_kernel_ms_in_turns": turns["K2"]},
+         "k2_kernel_ms_in_turns": turns["K2"],
+         "at_shapes": {n: brief(r["K3"]) for n, r in judge_k.items()},
+         "all_gather": {str(o): brief(ring_k["K3 all-gather", o])
+                        for o in gathered}},
         {"name": "exact_attention_lse", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/exact_attention.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:526",
@@ -2434,10 +2536,19 @@ def main() -> int:
          "shape": (1, ring_l, ring_l, 16, 8, 128), "rel_off": ring_l,
          **ring_k["K3 lse", ring_l]},
         {"name": "decoder_attention_rows", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
          **counts("decoder_attention_rows"), "shape": judged,
-         **judge_k["prefill"]["K2r"], "kernel_ms_in_turns": turns["K2r"]},
+         **judge_k["prefill"]["K2r"], "kernel_ms_in_turns": turns["K2r"],
+         "op_ms_in_turns": turns["K2r op"],
+         "kernel_alone": brief(judge_k["prefill"]["K2r kernel"]),
+         "at_shapes": {n: brief(r["K2r"]) for n, r in judge_k.items()}},
+        # K2r's pre-pass, its bound column (the XLA reduce of the TPU path).
+        {"name": "key_norm_cummax", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:489",
+         **counts("key_norm_cummax"), "shape": judged,
+         **judge_k["prefill"]["K2r pre-pass"]},
         {"name": "q8g_matmul_fused", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
@@ -2481,7 +2592,7 @@ def main() -> int:
         "training": {**train_ms, "peak_gib": train_peak / 2**30},
         "judge": judged_out, "quantized_scoring": quant_scored,
         "quantized_judge": quant_judged, "reward_gradient": grad_out,
-        "vader": vader_out, "sp_scoring": sp_scored,
+        "vader": vader_out, "sp_scoring": sp_scored, "ptxas": ptxas,
         "sp_training": sp_trained, "long_context": long_out,
         "sp_kernels": {f"{name} {off}": {key: r[key] for key in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}

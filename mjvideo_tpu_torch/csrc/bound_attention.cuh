@@ -1,27 +1,28 @@
-// Attention forward for Hopper (sm_90a): one template for K1, K2, K2r and K3.
+// Attention forward for Hopper (sm_90a), the first (WMMA) template: K1,
+// K1 lse, K2, K2 lse and K3 lse.
 //
-// Replaces four Pallas TPU kernels of mjvideo_tpu/ops/flash_attention.py:
-//   K1  _fwd_nc_kernel    (ViT: non-causal, maskless, whole kv row per program)
-//   K2  _fwd_bound_kernel (decoder: causal, (B, K) key mask, GQA h -> h // G)
-//   K2r _fwd_bound_kernel(row_bound=True) (the cached paths' per-row bound)
-//   K3  _fwd_kernel       (the exact online softmax, causal or not)
-// K1, K2 and K2r shift the softmax by the Cauchy-Schwarz bound
+// Replaces these Pallas TPU kernels of mjvideo_tpu/ops/flash_attention.py:
+//   K1  _fwd_nc_kernel    (ViT: non-causal, maskless, whole kv row per
+//       program), with or without the lse
+//   K2  _fwd_bound_kernel (decoder: causal, (B, K) key mask, GQA h -> h // G),
+//       with or without the lse
+//   K3 lse _fwd_kernel(with_lse=True) (the exact online softmax with its
+//       lse, causal or not: ring sequence parallelism and the training
+//       forward of the exact path)
+// K3 without the lse and K2r run on decoder_attention_sm90.cuh.
+// K1 and K2 shift the softmax by the Cauchy-Schwarz bound
 //   m_i = |scale| * |q_i| * kmax >= s_ij   for every visible j,
-// with kmax the largest masked key norm of the (b, kv head) (K1, K2) or, for
-// K2r, the running max of masked key norms over slots <= the row's global
-// position (a (B, Hq, Q) column gathered before the launch, as _fwd_impl
-// does).  The bound is constant along a row, so there is no running max and
-// no rescale: each CTA keeps l_i = sum_j exp(s_ij - m_i) and acc_i = sum_j
-// p_ij v_j over its kv tiles and divides once at the end.  K2r's bound is a
-// function of the tokens at or before row i only, so a prefix-only prefill
-// and a full-prompt prefill compute bit-identical rows for the prefix.
-// K3 keeps the exact running row max m_i instead: per kv tile it takes the
-// tile's row max, rescales l_i and acc_i by alpha = exp(m_old - m_new) and
-// sums exp(s_ij - m_new).  Masked scores are the finite kNegInf (-1e30) as
-// in _fwd_kernel, never -inf: a row that has seen no live key yet keeps m =
-// kNegInf and its masked keys briefly give p = 1, which the first live key's
-// alpha = exp(kNegInf - m) = 0 wipes; a row that never sees one ends with m
-// <= kNegInf / 2 and gives 0 (and kDeadLse).
+// with kmax the largest masked key norm of the (b, kv head).  The bound is
+// constant along a row, so there is no running max and no rescale: each
+// CTA keeps l_i = sum_j exp(s_ij - m_i) and acc_i = sum_j p_ij v_j over its
+// kv tiles and divides once at the end.
+// K3 lse keeps the exact running row max m_i instead: per kv tile it takes
+// the tile's row max, rescales l_i and acc_i by alpha = exp(m_old - m_new)
+// and sums exp(s_ij - m_new).  Masked scores are the finite kNegInf (-1e30)
+// as in _fwd_kernel, never -inf: a row that has seen no live key yet keeps
+// m = kNegInf and its masked keys briefly give p = 1, which the first live
+// key's alpha = exp(kNegInf - m) = 0 wipes; a row that never sees one ends
+// with m <= kNegInf / 2 and gives 0 and kDeadLse.
 //
 // What bounds it on this card: at the scoring and judge shapes (ViT S =
 // 1025, D = 64; decoder T = 2304-3072, D = 128) attention is compute-bound
@@ -29,8 +30,8 @@
 // TPU kernel held a whole kv row in VMEM; an SM has at most 227 KB of shared
 // memory, so this design walks the kv row in 64-key tiles and keeps only the
 // 64-row q tile, one k tile, one v tile and per-warp score scratch resident
-// (54 KB at D = 64 for K1, 95 KB at D = 128 for K2/K2r/K3: 4 or 2 CTAs per
-// SM).
+// (54 KB at D = 64 for K1, 95 KB at D = 128 for K2 and K3 lse: 4 or 2 CTAs
+// per SM).
 //
 // Design (first, simple version): one CTA of 4 warps per (b, q head,
 // 64-row q tile); each warp owns 16 q rows.  Tiles are staged through shared
@@ -41,18 +42,18 @@
 // bf16 before the p @ v product, as the TPU kernels do.  Causal CTAs stop at
 // the last kv tile that touches the diagonal.  Tails (S = 1025, ragged T) are
 // masked in the kernel: keys past K are staged as zeros and never visible.
-// K3's rescale never depends on the WMMA accumulator's register layout,
+// K3 lse's rescale never depends on the WMMA accumulator's register layout,
 // which is not documented: when some row of the warp has alpha != 1, the
 // warp stores its accumulator fragments to its fp32 score scratch (free once
 // the exp pass has written p), scales each row there by its alpha and loads
 // the fragments back.  Every lane holds every row's m and alpha (the row max
 // is a warp reduction), so the test is warp-uniform.
-// WITH_LSE (K2 on the training path) also writes the true log-sum-exp of
-// each row, m_i + log(l_i), or kDeadLse where the row is dead: shift
-// invariance makes it the exact lse whatever the shift, so the backward
-// kernels (decoder_attention_bwd.cu) need no bound of their own.
-// Later work: wgmma, TMA or cp.async double buffering, a producer warp,
-// and K3's accumulator in registers through mma.sync.
+// WITH_LSE also writes the true log-sum-exp of each row, m_i + log(l_i), or
+// kDeadLse where the row is dead: shift invariance makes it the exact lse
+// whatever the shift, so the backward kernels (decoder_attention_bwd.cu)
+// need no bound of their own.
+// Later work: move these kernels onto decoder_attention_sm90.cuh's wgmma,
+// TMA and register-resident softmax, each as its own measured change.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,8 +77,7 @@ constexpr float kNegInf = -1e30f;  // NEG_INF of flash_attention.py
 // How each row's softmax is shifted.
 enum class Shift {
   kGlobalBound,  // K1, K2: |scale| |q_i| kmax[b, kv head]
-  kRowBound,     // K2r:    |scale| |q_i| kmax[b, h, i], a per-row column
-  kExact,        // K3:     the running row max, with the rescale
+  kExact,        // K3 lse: the running row max, with the rescale
 };
 
 template <int D>
@@ -128,8 +128,7 @@ __device__ __forceinline__ float warp_max(float x) {
 // q: (B, Q, Hq, D) with strides (qsb, qss, D, 1); k, v: (B, K, Hkv, D) with
 // strides (ksb, kss, D, 1) and (vsb, vss, D, 1); out: dense (B, Q, Hq, D).
 // mask: (B, K) int32 or null; q_offset: (B,) or null.  kmax: (B, Hkv) fp32
-// for kGlobalBound, the (B, Hq, Q) fp32 per-row column for kRowBound,
-// unused for kExact.
+// for kGlobalBound, unused for kExact.
 // FLOOR: K1's rule, l floored at 1e-30.  Otherwise K2's: l == 0 gives 0
 // (K3: a row whose m never left kNegInf gives 0).
 // lse: (B, Hq, Q) fp32, written only when WITH_LSE.
@@ -181,23 +180,14 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 16; ++r) m[r] = kNegInf;
   } else {
-    const float kscale =
-        SHIFT == Shift::kGlobalBound ? kmax[b * Hkv + hk] * fabsf(scale) : 0.f;
+    const float kscale = kmax[b * Hkv + hk] * fabsf(scale);
     for (int r = 0; r < 16; ++r) {
       float qn2 = 0.f;
       for (int c = lane; c < D; c += 32) {
         const float x = __bfloat162float(Qw[r * LT + c]);
         qn2 += x * x;
       }
-      qn2 = warp_sum(qn2);
-      if (SHIFT == Shift::kGlobalBound) {
-        m[r] = sqrtf(qn2) * kscale;
-      } else {
-        const int qi = q0 + warp * 16 + r;
-        const float kr =
-            qi < Q ? kmax[((long long)b * Hq + h) * Q + qi] : 0.f;
-        m[r] = sqrtf(qn2) * kr * fabsf(scale);
-      }
+      m[r] = sqrtf(warp_sum(qn2)) * kscale;
     }
   }
 

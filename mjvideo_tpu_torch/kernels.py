@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vit_attention.cu", "vit_attention_bwd.cu", "decoder_attention.cu",
            "decoder_attention_bwd.cu", "exact_attention.cu", "q8g_matmul.cu",
            "w4_matmul.cu", "vit_attention_variants.cu")
-HEADERS = ("bound_attention.cuh", "attention_bwd.cuh")
+HEADERS = ("bound_attention.cuh", "attention_bwd.cuh",
+           "decoder_attention_sm90.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,14 +40,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches per kernel since the last reset_launch_counts();
 # "vit_attention", "decoder_attention" and "exact_attention" count K1, K2
 # and K3 with and without the lse, "vit_attention_lse",
-# "decoder_attention_lse" and "exact_attention_lse" the launches with it.
+# "decoder_attention_lse" and "exact_attention_lse" the launches with it;
+# "key_norm_cummax" counts K2r's pre-pass (its bound column).
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
     "decoder_attention_lse": 0,
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
     "exact_attention": 0, "exact_attention_lse": 0,
-    "decoder_attention_rows": 0,
+    "decoder_attention_rows": 0, "key_norm_cummax": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "w4_matmul": 0,
     "vit_attention_variant": 0, "vit_attention_tmajor": 0,
     "vit_attention_bshd": 0}
@@ -143,6 +145,9 @@ def _load() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _L, _L, _L, _L, _L, _L, _F, _P]
         lib.mjv_decoder_attention_rows.restype = _I
+        lib.mjv_key_norm_cummax.argtypes = [_P, _P, _P, _I, _I, _I, _I, _L,
+                                            _L, _P]
+        lib.mjv_key_norm_cummax.restype = _I
         lib.mjv_exact_attention.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _L, _L, _L, _L, _L, _L, _F, _I, _P]
@@ -354,28 +359,53 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
+def key_norm_cummax(k: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """K2r's pre-pass.  k: (B, K, Hkv, 128) bf16 with dense heads;
+    attention_mask: (B, K) int32 or None.  Returns the (B, Hkv, K) fp32
+    running max along K of the masked key norms."""
+    name = "key_norm_cummax"
+    _check_qkv(name, 128, k)
+    B, K, Hkv, D = k.shape
+    mask_ptr = None
+    if attention_mask is not None:
+        _check_aux(f"{name} mask", attention_mask, torch.int32, (B, K),
+                   k.device)
+        mask_ptr = attention_mask.data_ptr()
+    lib = _load()
+    out = torch.empty((B, Hkv, K), dtype=torch.float32, device=k.device)
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_key_norm_cummax(k.data_ptr(), mask_ptr, out.data_ptr(),
+                                      B, K, Hkv, D, k.stride(0), k.stride(1),
+                                      stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
+
+
 def decoder_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            attention_mask: Optional[torch.Tensor],
-                           row_kmax: torch.Tensor,
+                           kcum: torch.Tensor,
                            q_offset: Optional[torch.Tensor],
                            scale: float) -> torch.Tensor:
-    """K2r.  Operands as for K2, with ``row_kmax`` the (B, Hq, Q) fp32
-    per-row bound column in place of kmax.  Returns a dense (B, Q, Hq, D)
-    bf16 tensor."""
+    """K2r.  Operands as for K2, with ``kcum`` the (B, Hkv, K) fp32 running
+    max of masked key norms (``key_norm_cummax``) in place of kmax; the
+    kernel reads it at each row's position ``clip(q_offset + i, 0, K - 1)``.
+    Returns a dense (B, Q, Hq, D) bf16 tensor."""
     name = "decoder_attention_rows"
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset)
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
-    _check_aux(f"{name} row_kmax", row_kmax, torch.float32, (B, Hq, Q),
-               q.device)
+    _check_aux(f"{name} kcum", kcum, torch.float32, (B, Hkv, K), q.device)
     lib = _load()
     out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_decoder_attention_rows(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-            row_kmax.data_ptr(), off_ptr, out.data_ptr(), B, Q, K, Hq, Hkv, D,
+            kcum.data_ptr(), off_ptr, out.data_ptr(), B, Q, K, Hq, Hkv, D,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), float(scale), stream)
     _raise_on(name, err)

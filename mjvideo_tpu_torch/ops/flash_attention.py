@@ -45,8 +45,9 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   layout.
 * ``decoder_attention_rows`` replaces ``_fwd_bound_kernel(row_bound=True)``
   (K2r): K2 with a per-row bound, ``|scale| |q_i| kcum[b, h, pos_i]``,
-  where ``kcum`` is the running max of masked key norms over slots <= j and
-  ``pos_i = clip(q_offset + i, 0, K - 1)`` (``row_key_bound``).  A row's
+  where ``kcum`` is the running max of masked key norms over slots <= j
+  (``key_norm_cummax``, K2r's pre-pass kernel on the card) and ``pos_i =
+  clip(q_offset + i, 0, K - 1)`` (``row_key_bound`` on the CPU).  A row's
   bound depends on the tokens at or before it only.
 * ``flash_attention`` is the JAX entry of the same name: it picks K1, K2,
   K2r or K3 from ``causal``, the mask and ``norm_bound``.
@@ -84,20 +85,27 @@ def key_norm_max(k: torch.Tensor,
     return kn2.amax(dim=1).sqrt().contiguous()
 
 
-def row_key_bound(k: torch.Tensor, attention_mask: Optional[torch.Tensor],
-                  q_offset: Optional[torch.Tensor], q_len: int,
-                  q_heads: int) -> torch.Tensor:
-    """(B, Hq, Q) fp32: K2r's per-row key-norm bound.  The running max of
-    masked key norms over slots <= j, gathered at each row's global position
-    ``clip(q_offset + i, 0, K - 1)`` and repeated over each GQA group, as
-    ``_fwd_impl`` computes it outside the kernel (``flash_attention.py:
-    489-508``)."""
-    B, K, Hkv = k.shape[:3]
+def key_norm_cummax(k: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """(B, Hkv, K) fp32: the running max along K of the masked key norms,
+    ``kcum`` of ``_fwd_impl`` (``flash_attention.py:489-497``).  Plain twin
+    of K2r's pre-pass (``kernels.key_norm_cummax``)."""
     kn2 = k.float().square().sum(-1)  # (B, K, Hkv)
     if attention_mask is not None:
         kn2 = kn2 * (attention_mask != 0)[:, :, None].float()
-    kcum = torch.cummax(kn2.sqrt(), dim=1).values.transpose(1, 2)
-    # kcum: (B, Hkv, K)
+    return torch.cummax(kn2.sqrt(), dim=1).values.transpose(1, 2).contiguous()
+
+
+def row_key_bound(k: torch.Tensor, attention_mask: Optional[torch.Tensor],
+                  q_offset: Optional[torch.Tensor], q_len: int,
+                  q_heads: int) -> torch.Tensor:
+    """(B, Hq, Q) fp32: K2r's per-row key-norm bound.  ``key_norm_cummax``
+    gathered at each row's global position ``clip(q_offset + i, 0, K - 1)``
+    and repeated over each GQA group, as ``_fwd_impl`` computes it outside
+    the kernel (``flash_attention.py:489-508``)."""
+    B, K, Hkv = k.shape[:3]
+    kcum = key_norm_cummax(k, attention_mask)
     off = (torch.zeros(B, dtype=torch.long, device=k.device)
            if q_offset is None else q_offset.long().reshape(-1).expand(B))
     pos = (off[:, None] + torch.arange(q_len, device=k.device)).clamp(0, K - 1)
@@ -556,9 +564,9 @@ def decoder_attention_rows(
 
     kernels.forward_only("decoder_attention_rows", q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    bound = row_key_bound(k, attention_mask, q_offset, q.shape[1], q.shape[2])
     attention_mask, q_offset = _int32_operands(attention_mask, q_offset)
-    return kernels.decoder_attention_rows(q, k, v, attention_mask, bound,
+    kcum = kernels.key_norm_cummax(k, attention_mask)
+    return kernels.decoder_attention_rows(q, k, v, attention_mask, kcum,
                                           q_offset, scale)
 
 

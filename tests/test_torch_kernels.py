@@ -265,6 +265,63 @@ def test_k3_and_k2r_match_twins_at_odd_shapes(cuda_device):
         _assert_close(got, plain(qs, k, v, cmask, off))
     got = fa.exact_attention(q, k, v, mask, causal=False)
     _assert_close(got, fa.exact_attention_plain(q, k, v, mask, causal=False))
+    # The Hopper template's tile edges: q tiles of 128 rows (two warpgroups
+    # of 64), kv tiles of 128 keys with K ragged by one key past the second;
+    # GQA and MHA; negative, zero and positive offsets; a left-padded row and
+    # a fully masked batch row, whose dead rows must be exactly 0.
+    K = 2 * 128 + 1
+    for Hq, Hkv in ((16, 8), (16, 16)):
+        k = _randn(g, cuda_device, 2, K, Hkv, 128)
+        v = _randn(g, cuda_device, 2, K, Hkv, 128)
+        for dead_row in (False, True):
+            mask = torch.ones(2, K, dtype=torch.int32, device=cuda_device)
+            mask[0, 200:] = 0
+            mask[1, :37] = 0
+            if dead_row:
+                mask[1] = 0
+            for Q in (1, 63, 64, 127, 129, 200):
+                q = _randn(g, cuda_device, 2, Q, Hq, 128)
+                for o in (None, -70, 0, max(K - Q, 9)):
+                    off = (None if o is None else torch.full(
+                        (2,), o, dtype=torch.int32, device=cuda_device))
+                    dead = ~fa._decoder_allowed(q, k, mask, off).any(-1)
+                    for kern, plain in (
+                            (fa.exact_attention, fa.exact_attention_plain),
+                            (fa.decoder_attention_rows,
+                             fa.decoder_attention_rows_plain)):
+                        got = kern(q, k, v, mask, off)
+                        _assert_close(got, plain(q, k, v, mask, off))
+                        assert not got[dead].any(), (Hq, Hkv, Q, o)
+                got = fa.exact_attention(q, k, v, mask, causal=False)
+                _assert_close(got, fa.exact_attention_plain(q, k, v, mask,
+                                                            causal=False))
+                if dead_row:
+                    assert not got[1].any()
+
+
+@pytest.mark.cuda
+def test_key_norm_cummax_matches_twin(cuda_device):
+    """K2r's pre-pass against its twin: K below, at and past a 1024-thread
+    scan's chunking, k as a strided view (a cache's (B, K, Hkv, D) slots),
+    a mask with holes and none; fp32 norms summed in another order than
+    torch's, so relative 2e-6, and the running max exact in structure (never
+    decreasing along K)."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    for K, with_mask in ((1, True), (129, False), (1024, True), (3001, True)):
+        kv = _randn(g, cuda_device, 2, K, 2, 8, 128)
+        k = kv[:, :, 0]  # row stride 2 * Hkv * D
+        mask = None
+        if with_mask:
+            mask = (torch.rand(2, K, generator=g, device=cuda_device) > 0.3
+                    ).to(torch.int32)
+            mask[1, : K // 2] = 0
+        before = kernels.launch_counts["key_norm_cummax"]
+        got = kernels.key_norm_cummax(k, mask)
+        assert kernels.launch_counts["key_norm_cummax"] == before + 1
+        want = fa.key_norm_cummax(k, mask)
+        assert got.shape == want.shape == (2, 8, K)
+        assert torch.allclose(got, want, rtol=2e-6, atol=0.0)
+        assert bool((got[..., 1:] >= got[..., :-1]).all())
 
 
 @pytest.mark.cuda

@@ -32,8 +32,9 @@ STEPS = 3
 
 def _group(name: str) -> str:
     n = name.lower()
-    if "bound_attention" in n:
-        return "attention kernels (K1/K2/K2r/K3)"
+    if ("bound_attention" in n or "attention_sm90" in n
+            or "key_norm_cummax" in n):
+        return "attention kernels (K1/K2/K2r/K3, K2r's pre-pass)"
     if "q8g_kernel" in n or "w4_kernel" in n:
         return "quantized product kernels (K5/K6/K7)"
     if "bwd_dkdv" in n or "bwd_dq" in n:
