@@ -11,20 +11,28 @@ Phases (any failure raises and exits non-zero):
    versions; build the CUDA kernels from ``mjvideo_tpu_torch/csrc``.
 2. K1 (ViT attention) against its plain PyTorch twin at serving's (8, 1025,
    16, 64) and training's (2, 1025, 16, 64) bf16, q/k/v as strided views
-   into one qkv tensor as the ViT makes them: the max-abs error relative to
-   the largest output against the stated bound, and the median time of each.
+   into one qkv tensor as the ViT makes them: the op (its pre-pass
+   ``key_norm_max`` and its kernel on the Hopper template), the kernel
+   alone on the pre-pass's kmax, and the pre-pass against its twin (to
+   PREPASS_REL_TOL); the max-abs error relative to the largest output against the
+   stated bound, and the median time of each.  Then K1 alone, K1 with the
+   lse (the WMMA template), the K1 op and
+   ``F.scaled_dot_product_attention`` in turns at serving's shape.
 3. The decoder kernels against their twins on the same inputs, at serving's
    (2, 2304, 16/8, 128) and (2, 3072, 16/8, 128) bf16 with a ragged mask and
    dead rows, and at training's (1, T, 16/8, 128) with every key live, T
    each prompt length of the training batches (so the last tile is partial):
-   K2 without and with the lse (the output to the relative bound, the lse to
-   LSE_TOL, dead rows' output exactly 0 and lse exactly 1e30), then K4a (dK,
+   K2 without the lse (the op: its pre-pass and its kernel on the Hopper
+   template; the kernel alone; the pre-pass to PREPASS_REL_TOL) and with
+   it (the WMMA template; the output to the relative bound, the lse to LSE_TOL,
+   dead rows' output exactly 0 and lse exactly 1e30), then K4a (dK,
    dV) and K4b (dQ) from the twin's output and lse (each gradient to the
    relative bound, dq exactly 0 on dead rows, dk and dv exactly 0 on masked
    keys); the median time of each kernel and twin.
 4. Serving: a 2B ``RewardScorer`` with random bf16 weights made on the card
    from a seed answers a single clip and a pair of 8 frames of 448 px each.
-   The launch counters must show 24 K1 and 24 K2 launches per request, every
+   The launch counters must show 24 K1, 24 K2 and 48 ``key_norm_max``
+   (their pre-pass) launches per request, every
    score must be finite, and the scores must agree within 1e-2 with the same
    weights in fp32 through the plain attention path (the delta is also
    printed relative to the largest score).  Prints clips/s and the peak
@@ -52,12 +60,14 @@ Phases (any failure raises and exits non-zero):
    video's prefix prefill, and the suffix continuation over the cache at
    q_offset 2,308), then K2r's pre-pass against its twin (to
    PREPASS_REL_TOL) and K2r's kernel alone on the pre-pass's column; each
-   with the share of its bound reached.  The kernels K2 (the WMMA
-   template, a same-run yardstick), K3 and K2r alone and the K2r op, timed
-   in turns at (2, 3072, 16/8, 128), and K2r's prefix rows held
+   with the share of its bound reached.  The kernels K2, K3 and K2r alone,
+   the K2 and K2r ops and ``F.scaled_dot_product_attention`` (the same-run
+   yardstick), timed in turns at (2, 3072, 16/8, 128), and K2r's prefix
+   rows held
    bit-identical between a prefix-only and a full-prompt prefill of the
    same bf16 q/k/v.  Phase 1 also prints the registers and spills that
-   ptxas reports for the Hopper template's kernels and the pre-pass.
+   ptxas reports for the Hopper template's 5 instantiations and the 3
+   pre-passes, and fails if one spills or is missing.
 9. The judge: an ``InternVLJudge`` on a 2B chat state with the LM head
    (random bf16 weights from a fresh generator at SEED, 64 new tokens,
    seeded 8-frame 448 px pixels in place of decoded videos) answers a pair
@@ -65,9 +75,9 @@ Phases (any failure raises and exits non-zero):
    suffix exceeds the 128-token bucket) and a pair with a short question
    (the prefix path: two prefix prefills and one continuation), then the
    short question again under ``_CACHE_BOUND = "rows"``.  The launch
-   counters must show 24 K1 per video encoded and 24 K3 (K2r and its
-   pre-pass under "rows") per prefill or continuation, none in decode
-   steps and no K2.  Each
+   counters must show 24 K1 (each after its pre-pass) per video encoded
+   and 24 K3 (K2r and its pre-pass under "rows") per prefill or
+   continuation, none in decode steps and no K2.  Each
    path's teacher-forced per-step logits (the prefix path also under
    "rows") are held against the same weights in fp32 through
    ``impl="plain"`` on the kernel path's tokens, to LOGITS_REL_TOL of
@@ -125,7 +135,8 @@ Phases (any failure raises and exits non-zero):
 16. Fails if ``jax`` or any ``mjvideo_tpu`` module was imported, or a
    kernel of the main path never launched; prints the card, the kernel
    summary line and, last, the contract line ``{"ok": true, "device":
-   {...}}``.
+   {...}}``.  Every phase that holds launch counts also holds one
+   ``key_norm_max`` before each K1 and K2 (with the lse or without).
 17. (Run with phases 2, 3, 8, 10 and 13.)  The kernels of sequence
    parallelism at T = SP_T over SP_SHARDS shards (chunks of 768), B = 1,
    16/8 heads of 128, a ragged mask (the first 5 and the last 600 keys
@@ -172,7 +183,8 @@ Phases (any failure raises and exits non-zero):
    at VARIANT_PADDED with kv_valid 1025 and the k/v rows past it zero),
    each against its twin to KERNEL_REL_TOL of max|plain| with its bound
    and ``F.scaled_dot_product_attention`` at the same shape, and printed
-   against K1's output.  Then the phase's path, the two harnesses, the
+   against K1's output (the Hopper template's).  Then the phase's path,
+   the two harnesses, the
    counts set to 0 before each and held exactly after:
    ``tools/vit_attn_variants_torch.py`` (every kernel in turns,
    VARIANT_WINDOWS windows of VARIANT_LAUNCHES launches) and
@@ -257,13 +269,20 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12     # outside the tensor cores
-# K2r's pre-pass (the running max of masked key norms) against its twin:
-# fp32 sums of squares in another order than torch's, max|delta| over
-# max|plain|; about 10x an H100's reading.
+# The bound pre-passes against their twins, max|delta| over max|plain|:
+# K2r's (the running max of masked key norms) sums the squares in fp32 in
+# another order than torch's, about 10x an H100's reading; K1's and K2's
+# (key_norm_max) sums them exactly in double, which the twin's fp32 sum
+# lies within about an ulp of.
 PREPASS_REL_TOL = 1e-6
-# The kernels of the Hopper template (decoder_attention_sm90.cuh) and K2r's
-# pre-pass, as ptxas names them: their registers and spills are printed.
-SM90_KERNELS = ("decoder_attention_sm90_kernel", "key_norm_cummax_kernel")
+# The kernels of the Hopper template (decoder_attention_sm90.cuh, namespace
+# mjv::attention_sm90) and the bound pre-passes, as ptxas names them: their
+# registers and spills are printed.  The template has 5 instantiations (K3
+# causal and not, K2r, K2 and K1), key_norm_max 2 (D = 64 and 128),
+# key_norm_cummax 1.
+SM90_KERNELS = ("attention_sm90", "key_norm_cummax_kernel",
+                "key_norm_max_kernel")
+SM90_INSTANTIATIONS = 8
 # K6 and K7 at the 2B's grouped w8a8 products, (M, K, N) with g = 128: the
 # ViT's fc1 over a pair's 16 tiles of 1,025 tokens, the decoder's w1 and w2
 # over a pair in the 3,072 bucket, a decoder wq over one 2,333-token prompt
@@ -372,6 +391,37 @@ def _bound(nbytes, ops, ops_per_s):
 
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _with_prepass(want):
+    """``want`` (launches by kernel) plus the pre-pass of K1 and K2,
+    ``key_norm_max``: one launch before every K1 and K2 op, with the lse or
+    without."""
+    want = dict(want)
+    want["key_norm_max"] = (want.get("vit_attention", 0)
+                            + want.get("decoder_attention", 0))
+    return want
+
+
+def _check_prepass(label, k, mask):
+    """The pre-pass of K1 and K2 against its twin (to
+    PREPASS_REL_TOL of max|plain|), its bound by bytes: the k read,
+    the mask and the (B, Hkv) output."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    def rule(got, ref):
+        rel = _rel_err(got[0], ref[0])[1]
+        return (f"{rel:.3e} of max|plain| (bound {PREPASS_REL_TOL})",
+                rel <= PREPASS_REL_TOL, {})
+
+    kmax = fa.key_norm_max(k, mask)
+    extra = () if mask is None else (mask,)
+    return _check_kernel(
+        f"pre-pass key_norm_max {label}",
+        lambda: kernels.key_norm_max(k, mask),
+        lambda: fa.key_norm_max(k, mask), names=("kmax",), extra=rule,
+        work=(_nbytes(k, *extra, kmax), 2 * k.numel(), FP32_OPS_PER_S))
 
 
 def _check_kernel(label, kernel_fn, plain_fn, names=("out",), zero=None,
@@ -485,17 +535,30 @@ def _sdpa(q, k, v, causal, backward=False, allowed=None):
 
 
 def check_vit_attention(randn, shape):
-    """K1 on views into one (B, S, 3*H*D) tensor, as the ViT makes them."""
+    """K1 on views into one (B, S, 3*H*D) tensor, as the ViT makes them:
+    the op (the pre-pass and the kernel), the kernel alone on the
+    pre-pass's kmax, and the pre-pass; returns each one's reading."""
+    from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
     B, S, H, D = shape
     q, k, v = (t.view(B, S, H, D)
                for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
-    return _check_kernel(f"K1 vit_attention {shape}",
-                         lambda: fa.vit_attention(q, k, v),
-                         lambda: fa.vit_attention_plain(q, k, v),
-                         work=_attention_work(q, k, v, None, causal=False),
-                         library=_sdpa(q, k, v, causal=False))
+    work = _attention_work(q, k, v, None, causal=False)
+    library = _sdpa(q, k, v, causal=False)
+    kmax = kernels.key_norm_max(k)
+    return {
+        "K1": _check_kernel(
+            f"K1 vit_attention (op: pre-pass and kernel) {shape}",
+            lambda: fa.vit_attention(q, k, v),
+            lambda: fa.vit_attention_plain(q, k, v), work=work,
+            library=library),
+        "K1 kernel": _check_kernel(
+            f"K1 vit_attention (kernel alone) {shape}",
+            lambda: kernels.vit_attention(q, k, v, kmax, D ** -0.5),
+            lambda: fa.vit_attention_plain(q, k, v), work=work,
+            library=library),
+        "K1 pre-pass": _check_prepass(str(shape), k, None)}
 
 
 def check_vit_backward(randn, shape):
@@ -510,7 +573,7 @@ def check_vit_backward(randn, shape):
     q, k, v = (t.view(B, S, H, D)
                for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
     scale = D ** -0.5
-    kmax = fa.key_norm_max(k)
+    kmax = kernels.key_norm_max(k)
 
     def lse_rule(got, ref):
         err = (got[1] - ref[1]).abs().max().item()
@@ -567,14 +630,15 @@ def _decoder_inputs(randn, B, T, Hq, Hkv, D, ragged):
 
 
 def check_decoder_kernels(randn, shape, ragged):
-    """K2 without and with the lse, K4a and K4b against their twins on one
-    set of inputs; returns each one's reading by label."""
+    """K2 without the lse (the op: the pre-pass and the kernel; the kernel
+    alone; the pre-pass) and with it, K4a and K4b against their twins on
+    one set of inputs; returns each one's reading by label."""
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
     q, k, v, mask, dead = _decoder_inputs(randn, *shape, ragged)
     scale = shape[-1] ** -0.5
-    kmax = fa.key_norm_max(k, mask)
+    kmax = kernels.key_norm_max(k, mask)
     masked = mask == 0
     n_dead, n_masked = int(dead.sum()), int(masked.sum())
     dead_rows = (f"{n_dead} dead rows", lambda got: not got[0][dead].any())
@@ -592,13 +656,21 @@ def check_decoder_kernels(randn, shape, ragged):
 
     lse_out = q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
                           dtype=kmax.dtype)
+    work = _attention_work(q, k, v, mask)
+    library = _sdpa(q, k, v, causal=True)
     readings = {
         "K2": _check_kernel(
-            f"K2 decoder_attention {shape}",
+            f"K2 decoder_attention (op: pre-pass and kernel) {shape}",
             lambda: fa.decoder_attention(q, k, v, mask),
             lambda: fa.decoder_attention_plain(q, k, v, mask),
-            zero=dead_rows, work=_attention_work(q, k, v, mask),
-            library=_sdpa(q, k, v, causal=True)),
+            zero=dead_rows, work=work, library=library),
+        "K2 kernel": _check_kernel(
+            f"K2 decoder_attention (kernel alone) {shape}",
+            lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                              scale),
+            lambda: fa.decoder_attention_plain(q, k, v, mask),
+            zero=dead_rows, work=work, library=library),
+        "K2 pre-pass": _check_prepass(str(shape), k, mask),
         "K2 lse": _check_kernel(
             f"K2 lse decoder_attention {shape}",
             lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
@@ -607,8 +679,9 @@ def check_decoder_kernels(randn, shape, ragged):
                                                return_lse=True),
             zero=dead_rows, extra=lse_rule,
             work=_attention_work(q, k, v, mask, outputs=(q, lse_out)),
-            library=_sdpa(q, k, v, causal=True)),
+            library=library),
     }
+    del library
     dout = randn(*q.shape)
     ref, lse = fa.decoder_attention_plain(q, k, v, mask, return_lse=True)
     args = (q, k, v, dout, lse, fa.attention_delta(ref, dout), mask)
@@ -710,36 +783,18 @@ def check_judge_kernels(randn, name, shape):
     return readings
 
 
-def time_shifts_in_turns(randn, rounds=10):
-    """The three causal forward kernels on the judge's prefill inputs, K2
-    (global bound, the WMMA template), K3 (exact) and K2r (per-row bound),
-    launched directly with their bounds reduced beforehand, and the K2r op
-    (its pre-pass and its kernel), timed in turns (K2, K3, K2r, K2r op, K2r
-    op, K2r, K3, K2) by CUDA events; returns the medians in ms."""
+def _in_turns(runs, order, rounds):
+    """Each of ``runs`` (name -> a call) timed by CUDA events around one
+    call, ``rounds`` times in ``order`` (each name twice, mirrored) after a
+    warm-up; returns the medians in ms."""
     import torch
 
-    from mjvideo_tpu_torch import kernels
-    from mjvideo_tpu_torch.ops import flash_attention as fa
-
-    q, k, v, mask, _, _ = _judge_inputs(randn, JUDGE_SHAPES["prefill"])
-    scale = q.shape[-1] ** -0.5
-    kmax = fa.key_norm_max(k, mask)
-    kcum = kernels.key_norm_cummax(k, mask)
-    runs = {
-        "K2": lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
-                                                scale),
-        "K3": lambda: kernels.exact_attention(q, k, v, mask, None, scale),
-        "K2r": lambda: kernels.decoder_attention_rows(q, k, v, mask, kcum,
-                                                      None, scale),
-        "K2r op": lambda: fa.decoder_attention_rows(q, k, v, mask),
-    }
     times = {name: [] for name in runs}
     for fn in runs.values():
         for _ in range(3):
             fn()
     for _ in range(rounds):
-        for name in ("K2", "K3", "K2r", "K2r op", "K2r op", "K2r", "K3",
-                     "K2"):
+        for name in order:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -747,19 +802,81 @@ def time_shifts_in_turns(randn, rounds=10):
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end))
-    med = {name: statistics.median(t) for name, t in times.items()}
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def time_shifts_in_turns(randn, rounds=10):
+    """The three causal forward kernels of the Hopper template on the
+    judge's prefill inputs, K2 (global bound), K3 (exact) and K2r (per-row
+    bound), launched directly with their bounds reduced beforehand, the K2
+    and K2r ops (each pre-pass and kernel) and
+    ``F.scaled_dot_product_attention`` (the same-run yardstick), timed in
+    turns (K2, K3, K2r, K2 op, K2r op, SDPA, then back) by CUDA events;
+    returns the medians in ms."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask, _, _ = _judge_inputs(randn, JUDGE_SHAPES["prefill"])
+    scale = q.shape[-1] ** -0.5
+    kmax = kernels.key_norm_max(k, mask)
+    kcum = kernels.key_norm_cummax(k, mask)
+    runs = {
+        "K2": lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                                scale),
+        "K3": lambda: kernels.exact_attention(q, k, v, mask, None, scale),
+        "K2r": lambda: kernels.decoder_attention_rows(q, k, v, mask, kcum,
+                                                      None, scale),
+        "K2 op": lambda: fa.decoder_attention(q, k, v, mask),
+        "K2r op": lambda: fa.decoder_attention_rows(q, k, v, mask),
+        "SDPA": _sdpa(q, k, v, causal=True),
+    }
+    order = list(runs) + list(runs)[::-1]
+    med = _in_turns(runs, order, rounds)
     print(f"kernels alone at {JUDGE_SHAPES['prefill'][:6]}, in turns: "
           + ", ".join(f"{n} {t:.4f} ms" for n, t in med.items())
-          + f" (median of {2 * rounds} each; K3/K2 {med['K3'] / med['K2']:.3f}"
-          f", K2r/K2 {med['K2r'] / med['K2']:.3f}, K2r op/K2 "
-          f"{med['K2r op'] / med['K2']:.3f})")
+          + f" (median of {2 * rounds} each; against SDPA: "
+          + ", ".join(f"{n} {t / med['SDPA']:.3f}" for n, t in med.items()
+                      if n != "SDPA") + ")")
+    return med
+
+
+def time_k1_in_turns(randn, rounds=10):
+    """K1 on the Hopper template, K1 with the lse (the WMMA template, the
+    form K1 had before the Hopper template), both launched directly on the
+    pre-pass's kmax, the K1 op (pre-pass and kernel) and
+    ``F.scaled_dot_product_attention`` at serving's ViT shape on qkv views,
+    timed in turns by CUDA events; returns the medians in ms."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = K1_SHAPES[0]
+    q, k, v = (t.view(B, S, H, D)
+               for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
+    scale = D ** -0.5
+    kmax = kernels.key_norm_max(k)
+    runs = {
+        "K1": lambda: kernels.vit_attention(q, k, v, kmax, scale),
+        "K1 lse": lambda: kernels.vit_attention(q, k, v, kmax, scale,
+                                                with_lse=True),
+        "K1 op": lambda: fa.vit_attention(q, k, v),
+        "SDPA": _sdpa(q, k, v, causal=False),
+    }
+    order = list(runs) + list(runs)[::-1]
+    med = _in_turns(runs, order, rounds)
+    print(f"K1 at {K1_SHAPES[0]}, in turns: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in med.items())
+          + f" (median of {2 * rounds} each; K1/SDPA "
+          f"{med['K1'] / med['SDPA']:.3f}, K1/K1 lse "
+          f"{med['K1'] / med['K1 lse']:.3f}, K1 op/SDPA "
+          f"{med['K1 op'] / med['SDPA']:.3f})")
     return med
 
 
 def sm90_ptxas(lib):
     """Registers, spill bytes and ptxas's wgmma warnings of the Hopper
-    template's three kernels and K2r's pre-pass, from the build's ptxas
-    report; printed and returned by kernel.  Raises if one spills."""
+    template's instantiations and the bound pre-passes, from the build's
+    ptxas report; printed and returned by kernel.  Raises if one spills or
+    one is missing."""
     import re
 
     report = (lib.parent / "ptxas.txt").read_text().splitlines()
@@ -788,9 +905,10 @@ def sm90_ptxas(lib):
         print(f"ptxas warning: {line}")
     spilled = [n for n, row in out.items() if row.get("spill_stores", 0)
                or row.get("spill_loads", 0)]
-    if spilled or len(out) != 4:
-        raise RuntimeError(f"ptxas: spills in {spilled}, or not the 4 "
-                           f"kernels expected: {sorted(out)}")
+    if spilled or len(out) != SM90_INSTANTIATIONS:
+        raise RuntimeError(f"ptxas: spills in {spilled}, or not the "
+                           f"{SM90_INSTANTIATIONS} kernels expected: "
+                           f"{sorted(out)}")
     return {"kernels": out, "warnings": warned}
 
 
@@ -1029,7 +1147,8 @@ def variant_ab_phase(readings, dev):
     counts["vit_attention_ab"] = dict(kernels.launch_counts)
     del q, k, v, runs
     per = 1 + VARIANT_LAUNCHES * VARIANT_WINDOWS
-    want = {"vit_attention": 2 * per,
+    # K1 twice per round: alone and as the op (with its pre-pass).
+    want = {"vit_attention": 2 * per, "key_norm_max": per,
             "vit_attention_variant": len(kernels.VARIANT_MODES) * per,
             "vit_attention_tmajor": len(kernels.TMAJOR_HP) * per,
             "vit_attention_bshd": per}
@@ -1045,9 +1164,9 @@ def variant_ab_phase(readings, dev):
     torch.cuda.synchronize()
     counts["vit_block_ab"] = dict(kernels.launch_counts)
     per = 1 + BLOCK_REPS * BLOCK_CHAIN + 4  # warm-up, timed, profiled
-    _held_launches("vit block A/B", {
+    _held_launches("vit block A/B", _with_prepass({
         "vit_attention": per, "vit_attention_bshd": 2 * per,
-        "vit_attention_tmajor": per})
+        "vit_attention_tmajor": per}))
     block_ab.report(rows, VARIANT_SHAPE[0], BLOCK_CHAIN)
     return {"attention_ab_ms": ms, "block_ab": rows, "block_hp": hp}, counts
 
@@ -1179,6 +1298,7 @@ def quant_scoring_phase(scorer, requests, fp32_scores, dev):
         per_request = {"vit_attention": L_vit, "decoder_attention": L_llm}
         if "-g" in mode:
             per_request["q8g_matmul_fused"] = 4 * L_vit + 2 + 3 * L_llm
+        per_request = _with_prepass(per_request)
         want = {n: len(requests) * per_request.get(n, 0) for n in got}
         print(f"quantized scoring {mode}: launches over {len(requests)} "
               f"requests {got}")
@@ -1283,6 +1403,7 @@ def quant_judge_phase(dev, bf16_step_ms):
     want = {n: 0 for n in got}
     want.update(vit_attention=2 * L_vit, exact_attention=L_llm,
                 w4_matmul=1 + per_step * (drawn - 1))
+    want = _with_prepass(want)
     print(f"quantized judge launches ({drawn} tokens drawn, {drawn - 1} "
           f"decode steps): {got}")
     if got != want:
@@ -1445,7 +1566,7 @@ def judge_phase(device, seed=SEED, timing=True):
     torch.cuda.synchronize()
     launches["judge_full"] = _held_launches(
         "judge full prompt",
-        {"vit_attention": 2 * L_vit, "exact_attention": L_llm})
+        _with_prepass({"vit_attention": 2 * L_vit, "exact_attention": L_llm}))
     # At random weights the greedy ids lie above the ByteTokenizer's 261
     # (bytes and specials), which decode to nothing: answers are text,
     # often empty, and ratings 0.
@@ -1744,6 +1865,7 @@ def run_training(generator, device, checkpoint_dir, data):
                  "decoder_attention_lse": 2 * cfg.chat.llm.num_hidden_layers,
                  "decoder_attention_bwd_dkdv": cfg.chat.llm.num_hidden_layers,
                  "decoder_attention_bwd_dq": cfg.chat.llm.num_hidden_layers}
+    per_video = _with_prepass(per_video)
     want = {k: 2 * len(batches) * per_video.get(k, 0) for k in launches}
     if launches != want:
         raise RuntimeError(f"training launches {launches}, want {want}")
@@ -1896,7 +2018,7 @@ def _grad_launches(cfg, steps=1):
     """The launch counts of ``steps`` value-and-gradients of the reward
     under remat: per ViT layer K1 with the lse twice (the forward, then the
     recompute) and K4 nc once; per decoder layer K2 with the lse twice and
-    K4a and K4b once; nothing else."""
+    K4a and K4b once; the pre-pass before each K1 and K2; nothing else."""
     L_vit = cfg.chat.vision.num_hidden_layers
     L_llm = cfg.chat.llm.num_hidden_layers
     per = {"vit_attention": 2 * L_vit, "vit_attention_lse": 2 * L_vit,
@@ -1904,7 +2026,7 @@ def _grad_launches(cfg, steps=1):
            "decoder_attention": 2 * L_llm, "decoder_attention_lse": 2 * L_llm,
            "decoder_attention_bwd_dkdv": L_llm,
            "decoder_attention_bwd_dq": L_llm}
-    return {name: steps * n for name, n in per.items()}
+    return {name: steps * n for name, n in _with_prepass(per).items()}
 
 
 def _held_launches(label, want):
@@ -2061,7 +2183,8 @@ def _sp_launches(cfg, kind, training=False):
     and shard (SP_SHARDS**2) under the ring, K3 once per shard under
     all-gather.  ``training``: under autograd, remat runs each decoder
     layer's forward twice (K3 with the lse each time), and the backward
-    launches K4a and K4b once per ring step and shard, or per shard."""
+    launches K4a and K4b once per ring step and shard, or per shard.  The
+    pre-pass of K1 runs before each K1."""
     n = SP_SHARDS
     L_llm = cfg.chat.llm.num_hidden_layers
     calls = (n * n if kind == "ring" else n) * L_llm
@@ -2070,11 +2193,11 @@ def _sp_launches(cfg, kind, training=False):
         out["exact_attention"] = calls
         if kind == "ring":
             out["exact_attention_lse"] = calls
-        return out
+        return _with_prepass(out)
     out.update(exact_attention=2 * calls, exact_attention_lse=2 * calls,
                decoder_attention_bwd_dkdv=calls,
                decoder_attention_bwd_dq=calls)
-    return out
+    return _with_prepass(out)
 
 
 def sp_scoring_phase(scorer, requests, scores, fp32_scores, pair_ms,
@@ -2264,8 +2387,8 @@ def long_context_phase(scorer, dev):
     for label, kw, want in (
             ("ring", dict(sp="ring", sp_group=SequenceGroup.local(SP_SHARDS)),
              _sp_launches(cfg, "ring")),
-            ("no_sp", {}, {"vit_attention": L_vit,
-                           "decoder_attention": L_llm})):
+            ("no_sp", {}, _with_prepass({"vit_attention": L_vit,
+                                         "decoder_attention": L_llm}))):
         sc = RewardScorer(cfg, scorer.params, scorer.tokenizer,
                           dtype=scorer.dtype, length_buckets=(bucket,),
                           gating_pattern=scorer.gating_pattern, **kw)
@@ -2350,6 +2473,7 @@ def main() -> int:
     judge_k = {name: check_judge_kernels(randn, name, shape)
                for name, shape in JUDGE_SHAPES.items()}
     turns = time_shifts_in_turns(randn)
+    k1_turns = time_k1_in_turns(randn)
     check_k2r_prefix_rows(randn)
     quant_k = check_quant_kernels(randn)
     vit_bwd = {s: check_vit_backward(randn, s) for s in K1_SHAPES}
@@ -2383,12 +2507,14 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
     print(f"launches over {len(requests)} requests: {launches}")
+    # Serving runs K1 and K2 (without the lse), each after its pre-pass,
+    # and no backward kernel.
+    want = _with_prepass({"vit_attention": 24 * len(requests),
+                          "decoder_attention": 24 * len(requests)})
     for name, n in launches.items():
-        # Serving runs K2 (without the lse) and no backward kernel.
-        want = (24 * len(requests)
-                if name in ("vit_attention", "decoder_attention") else 0)
-        if n != want:
-            raise RuntimeError(f"{name}: {n} launches, want {want}")
+        if n != want.get(name, 0):
+            raise RuntimeError(f"{name}: {n} launches, want "
+                               f"{want.get(name, 0)}")
     scores = torch.cat(scores).float().cpu()
     if not torch.isfinite(scores).all():
         raise RuntimeError(f"non-finite scores {scores.tolist()}")
@@ -2481,12 +2607,19 @@ def main() -> int:
     ring_l = SP_T // SP_SHARDS
     lse = dec[trained]["K2 lse"]
     judged = JUDGE_SHAPES["prefill"][:6]
+    served_k1 = k1[K1_SHAPES[0]]
     summary = {"kernels": [
         {"name": "vit_attention", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/vit_attention.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:99",
          **counts("vit_attention"), "shape": K1_SHAPES[0],
-         **k1[K1_SHAPES[0]]},
+         **served_k1["K1"], "kernel_alone": brief(served_k1["K1 kernel"]),
+         "kernel_ms_in_turns": k1_turns["K1"],
+         "op_ms_in_turns": k1_turns["K1 op"],
+         "lse_kernel_ms_in_turns": k1_turns["K1 lse"],
+         "sdpa_ms_in_turns": k1_turns["SDPA"],
+         "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K1", "K1 kernel")}
+                       for sh, r in k1.items()}},
         {"name": "vit_attention_lse", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/vit_attention.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:153",
@@ -2503,9 +2636,22 @@ def main() -> int:
          **counts("vit_attention_bwd_dq"), "shape": K1_SHAPES[0],
          **vit_bwd[K1_SHAPES[0]]["K4 nc dq"]},
         {"name": "decoder_attention", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
-         **counts("decoder_attention"), "shape": served, **dec[served]["K2"]},
+         **counts("decoder_attention"), "shape": served, **dec[served]["K2"],
+         "kernel_alone": brief(dec[served]["K2 kernel"]),
+         "kernel_ms_in_turns": turns["K2"], "op_ms_in_turns": turns["K2 op"],
+         "sdpa_ms_in_turns": turns["SDPA"], "turns_shape": judged,
+         "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K2", "K2 kernel")}
+                       for sh, r in dec.items()}},
+        # The pre-pass of K1 and K2 (and their lse forms): kmax on the card,
+        # the XLA reduce of the TPU path and _fwd_nc_kernel's in-kernel max.
+        {"name": "key_norm_max", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:484",
+         **counts("key_norm_max"), "shape": served,
+         **dec[served]["K2 pre-pass"],
+         "vit": {"shape": K1_SHAPES[0], **brief(served_k1["K1 pre-pass"])}},
         {"name": "decoder_attention_lse", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:407",
@@ -2526,6 +2672,7 @@ def main() -> int:
          **counts("exact_attention"), "shape": judged,
          **judge_k["prefill"]["K3"], "kernel_ms_in_turns": turns["K3"],
          "k2_kernel_ms_in_turns": turns["K2"],
+         "sdpa_ms_in_turns": turns["SDPA"],
          "at_shapes": {n: brief(r["K3"]) for n, r in judge_k.items()},
          "all_gather": {str(o): brief(ring_k["K3 all-gather", o])
                         for o in gathered}},

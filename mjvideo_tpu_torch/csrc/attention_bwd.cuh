@@ -7,7 +7,7 @@
 //                      block
 //   bwd_dq_kernel   <- _bwd_dq_kernel   (:656, call :812): dQ for one q block
 // Both recompute p = exp(scale * q k^T - lse) from the true lse that the
-// forward wrote (K2 or K1 with WITH_LSE, bound_attention.cuh), under the
+// forward wrote (K2 lse or K1 lse, bound_attention.cuh), under the
 // causal mask and per-row q_offset when CAUSAL, and under the (B, K) key
 // mask when one is given, with delta = rowsum(dO * O) reduced before the
 // launch, as _bwd_impl does.  Rounding as in the TPU kernels: p is rounded

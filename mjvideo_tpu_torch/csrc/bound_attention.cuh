@@ -1,18 +1,19 @@
-// Attention forward for Hopper (sm_90a), the first (WMMA) template: K1,
-// K1 lse, K2, K2 lse and K3 lse.
+// Attention forwards with the lse for Hopper (sm_90a), the first (WMMA)
+// template: K1 lse, K2 lse and K3 lse.
 //
 // Replaces these Pallas TPU kernels of mjvideo_tpu/ops/flash_attention.py:
-//   K1  _fwd_nc_kernel    (ViT: non-causal, maskless, whole kv row per
-//       program), with or without the lse
-//   K2  _fwd_bound_kernel (decoder: causal, (B, K) key mask, GQA h -> h // G),
-//       with or without the lse
+//   K1 lse _fwd_nc_kernel(with_lse=True) (:99, :153-156; ViT: non-causal,
+//       maskless, whole kv row per program): the differentiable ViT path
+//   K2 lse _fwd_bound_kernel(with_lse=True) (:318, :407-412; decoder:
+//       causal, (B, K) key mask, GQA h -> h // G): the training forward
 //   K3 lse _fwd_kernel(with_lse=True) (the exact online softmax with its
 //       lse, causal or not: ring sequence parallelism and the training
 //       forward of the exact path)
-// K3 without the lse and K2r run on decoder_attention_sm90.cuh.
-// K1 and K2 shift the softmax by the Cauchy-Schwarz bound
+// K1, K2, K3 and K2r without the lse run on decoder_attention_sm90.cuh.
+// K1 lse and K2 lse shift the softmax by the Cauchy-Schwarz bound
 //   m_i = |scale| * |q_i| * kmax >= s_ij   for every visible j,
-// with kmax the largest masked key norm of the (b, kv head).  The bound is
+// with kmax the largest masked key norm of the (b, kv head), reduced by
+// the pre-pass key_norm_max (decoder_attention.cu).  The bound is
 // constant along a row, so there is no running max and no rescale: each
 // CTA keeps l_i = sum_j exp(s_ij - m_i) and acc_i = sum_j p_ij v_j over its
 // kv tiles and divides once at the end.
@@ -30,8 +31,8 @@
 // TPU kernel held a whole kv row in VMEM; an SM has at most 227 KB of shared
 // memory, so this design walks the kv row in 64-key tiles and keeps only the
 // 64-row q tile, one k tile, one v tile and per-warp score scratch resident
-// (54 KB at D = 64 for K1, 95 KB at D = 128 for K2 and K3 lse: 4 or 2 CTAs
-// per SM).
+// (54 KB at D = 64 for K1 lse, 95 KB at D = 128 for K2 lse and K3 lse: 4 or
+// 2 CTAs per SM).
 //
 // Design (first, simple version): one CTA of 4 warps per (b, q head,
 // 64-row q tile); each warp owns 16 q rows.  Tiles are staged through shared
@@ -48,12 +49,13 @@
 // the exp pass has written p), scales each row there by its alpha and loads
 // the fragments back.  Every lane holds every row's m and alpha (the row max
 // is a warp reduction), so the test is warp-uniform.
-// WITH_LSE also writes the true log-sum-exp of each row, m_i + log(l_i), or
-// kDeadLse where the row is dead: shift invariance makes it the exact lse
-// whatever the shift, so the backward kernels (decoder_attention_bwd.cu)
-// need no bound of their own.
+// Each row's true log-sum-exp, m_i + log(l_i), or kDeadLse where the row is
+// dead, is written beside the output: shift invariance makes it the exact
+// lse whatever the shift, so the backward kernels (decoder_attention_bwd.cu,
+// vit_attention_bwd.cu) need no bound of their own.
 // Later work: move these kernels onto decoder_attention_sm90.cuh's wgmma,
-// TMA and register-resident softmax, each as its own measured change.
+// TMA and register-resident softmax with an lse epilogue, each as its own
+// measured change.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,7 +78,7 @@ constexpr float kNegInf = -1e30f;  // NEG_INF of flash_attention.py
 
 // How each row's softmax is shifted.
 enum class Shift {
-  kGlobalBound,  // K1, K2: |scale| |q_i| kmax[b, kv head]
+  kGlobalBound,  // K1 lse, K2 lse: |scale| |q_i| kmax[b, kv head]
   kExact,        // K3 lse: the running row max, with the rescale
 };
 
@@ -131,9 +133,8 @@ __device__ __forceinline__ float warp_max(float x) {
 // for kGlobalBound, unused for kExact.
 // FLOOR: K1's rule, l floored at 1e-30.  Otherwise K2's: l == 0 gives 0
 // (K3: a row whose m never left kNegInf gives 0).
-// lse: (B, Hq, Q) fp32, written only when WITH_LSE.
-template <int D, bool CAUSAL, bool FLOOR, bool WITH_LSE,
-          Shift SHIFT = Shift::kGlobalBound>
+// lse: (B, Hq, Q) fp32.
+template <int D, bool CAUSAL, bool FLOOR, Shift SHIFT = Shift::kGlobalBound>
 __global__ void __launch_bounds__(kThreads)
 bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const int* __restrict__ mask,
@@ -318,7 +319,7 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qi >= Q) continue;
     // K3's dead row: m never left kNegInf.  The bound shifts': l == 0.
     const bool dead = kExactMax ? m[r] <= 0.5f * kNegInf : !(lr > 0.f);
-    if (WITH_LSE && lane == 0) {
+    if (lane == 0) {
       lse[((long long)b * Hq + h) * Q + qi] =
           dead ? kDeadLse : m[r] + logf(fmaxf(lr, 1e-30f));
     }
@@ -338,16 +339,15 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool CAUSAL, bool FLOOR, bool WITH_LSE = false,
-          Shift SHIFT = Shift::kGlobalBound>
+template <int D, bool CAUSAL, bool FLOOR, Shift SHIFT = Shift::kGlobalBound>
 int launch_bound_attention(const void* q, const void* k, const void* v,
                            const void* mask, const void* kmax,
-                           const void* q_offset, void* out, int B, int Q,
-                           int K, int Hq, int Hkv, long long qsb,
+                           const void* q_offset, void* out, void* lse, int B,
+                           int Q, int K, int Hq, int Hkv, long long qsb,
                            long long qss, long long ksb, long long kss,
                            long long vsb, long long vss, float scale,
-                           void* stream, void* lse = nullptr) {
-  auto kernel = bound_attention_kernel<D, CAUSAL, FLOOR, WITH_LSE, SHIFT>;
+                           void* stream) {
+  auto kernel = bound_attention_kernel<D, CAUSAL, FLOOR, SHIFT>;
   const size_t smem = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));

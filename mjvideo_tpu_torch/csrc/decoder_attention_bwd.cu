@@ -3,8 +3,8 @@
 // their GQA form at D = 128:
 //   K4a _bwd_dkdv_kernel (:603, call :769): dK, dV for one kv block
 //   K4b _bwd_dq_kernel   (:656, call :812): dQ for one q block
-// from the true lse that K2 or K3 wrote (decoder_attention.cu and
-// exact_attention.cu, WITH_LSE), or that the ring's merge computed, under
+// from the true lse that K2 lse or K3 lse wrote (decoder_attention.cu and
+// exact_attention.cu), or that the ring's merge computed, under
 // the (B, K) key mask and, when causal, the causal mask at the per-row
 // q_offset (negative for a later shard's ring chunk: K4a then starts each
 // key tile at the first q tile that can see it, or at none, and K4b walks

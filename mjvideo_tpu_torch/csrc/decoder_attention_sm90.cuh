@@ -1,66 +1,92 @@
-// The decoder's causal attention forward for Hopper (sm_90a): wgmma, TMA
-// and a producer warp.  One template for two kernels:
-//   K3  (ROW_BOUND = false) replaces _fwd_kernel
+// Attention forwards for Hopper (sm_90a): wgmma, TMA and a producer warp.
+// One template for four kernels, chosen by the softmax's shift, the head
+// dim and the floor:
+//   K3  (ShiftMode::kExact) replaces _fwd_kernel
 //       (mjvideo_tpu/ops/flash_attention.py:260, call :579), the exact
 //       online softmax, causal with a per-row q_offset or non-causal;
-//   K2r (ROW_BOUND = true) replaces _fwd_bound_kernel(row_bound=True)
+//   K2r (kRows) replaces _fwd_bound_kernel(row_bound=True)
 //       (flash_attention.py:318, :347-358; host side :484-508), causal
 //       under the per-row Cauchy-Schwarz bound
 //         m_i = |scale| |q_i| kcum[b, h // G, clip(q_offset + i, 0, K - 1)]
 //       with kcum the running max of masked key norms along K (a
-//       (B, Hkv, K) fp32 array written by the pre-pass of
-//       decoder_attention.cu, the XLA reduce of the TPU path).
-// Operands: q (B, Q, Hq, 128), k and v (B, K, Hkv, 128) bf16 with dense
-// heads and 16-byte row strides; GQA (q head h reads kv head h // G); a
-// (B, K) int32 key mask or none; a (B,) int32 q_offset or none (the
-// global position of q row 0, possibly negative).  p is rounded to bf16
-// before p @ v, as the TPU kernels do.  A row that sees no live key gives
-// exactly 0: under K3 its max never leaves -inf (the shift is then taken
-// as 0, so no inf - inf), under K2r its sum l is 0.
+//       (B, Hkv, K) fp32 array written by the pre-pass key_norm_cummax of
+//       decoder_attention.cu, the XLA reduce of the TPU path);
+//   K2  (kKeyMax, D = 128) replaces _fwd_bound_kernel (flash_attention.py
+//       :318, host side :484-511): causal, the same constant shift with one
+//       bound per (b, kv head), m_i = |scale| |q_i| kmax[b, h // G], kmax
+//       the largest masked key norm (the pre-pass key_norm_max);
+//   K1  (kKeyMax, D = 64, FLOOR) replaces _fwd_nc_kernel with norm_bound
+//       (flash_attention.py:99, :131-153): non-causal and maskless over one
+//       tile's S tokens, the same bound with kmax over all S keys, and the
+//       denominator floored at 1e-30 as jnp.maximum(l, 1e-30) does.
+// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128 or 64,
+// with dense heads and 16-byte row strides (the ViT's q/k/v are strided
+// views into one (B, S, 3 H D) qkv tensor); GQA (q head h reads kv head
+// h // G); a (B, K) int32 key mask or none; a (B,) int32 q_offset or none
+// (the global position of q row 0, possibly negative).  p is rounded to
+// bf16 before p @ v, as the TPU kernels do.  Without the floor a row that
+// sees no live key gives exactly 0: under K3 its max never leaves -inf (the
+// shift is then taken as 0, so no inf - inf), under K2 and K2r its sum l is
+// 0.  With it (K1) a row whose sum underflowed gives acc / 1e-30, about 0,
+// never NaN.
 //
 // What bounds it on this card: at the judge's (2, 3072, 3072, 16/8, 128)
 // the two products are about 72 GFLOP over the live causal pairs (0.073
-// ms at 989 TFLOP/s) on 13 MB of operands: compute-bound, and only wgmma
-// reaches the tensor cores' full rate.  The WMMA template this replaces
-// (bound_attention.cuh) reached about 4% of it: scores and p went through
-// shared memory, K3's rescale too, loads were synchronous and the key mask
-// was read from global memory per key and tile.  Here, measured on an
-// H100, the products alone (no softmax) run at about 60% of the peak and
-// the loads are not the limit; the softmax's exp2 on the special-function
-// unit (one per score) is the largest remaining cost.
+// ms at 989 TFLOP/s) on 13 MB of operands; at the ViT's (8, 1025, 16, 64)
+// 34 GFLOP (0.035 ms) on 67 MB.  Both are compute-bound, and only wgmma
+// reaches the tensor cores' full rate.  The WMMA template these replace
+// (bound_attention.cuh) reached about 2-5% of it: scores and p went
+// through shared memory, K3's rescale too, loads were synchronous and the
+// key mask was read from global memory per key and tile.  Here, measured
+// on an H100, the products alone (no softmax) run at about 60% of the peak
+// and the loads are not the limit; the softmax's exp2 on the
+// special-function unit (one per score) is the largest remaining cost, and
+// at D = 64 it weighs twice as much against the products as at 128.
 //
-// Design.  One CTA per (b, q head, 128-row q tile), heaviest tiles first
-// (the q tile index runs backwards along the grid's slow axis), with three
-// warpgroups: two consumers of 64 q rows each and a producer, which gives
-// its registers to them (setmaxnreg: 40 against 232 a thread; at 168 each
-// ptxas serializes the wgmmas and spills).
+// Design.  One CTA per (b, q head, q tile of 64 rows per consumer
+// warpgroup), heaviest tiles first (the q tile index runs backwards along
+// the grid's slow axis), with consumer warpgroups and one producer, which
+// gives its registers to them (setmaxnreg; at D = 128, 40 against 232 a
+// thread: at 168 each ptxas serializes the wgmmas and spills).
 // - The producer's first warp loads the q tile once, then each 128-key k
-//   and v tile by TMA (cp.async.bulk.tensor, 128-byte swizzle, two
-//   64-column boxes per tile) into a ring of kStages stages with
+//   and v tile by TMA (cp.async.bulk.tensor, 128-byte swizzle, one
+//   64-column box per 64 head columns) into a ring of stages with
 //   full/empty mbarriers; TMA's zero fill covers the ragged tail.  Beside
 //   each stage it writes the tile's key-liveness bits (mask and j < K,
 //   four ballots).
-// - Each consumer warpgroup computes s = q k^T with 8 wgmma.m64n128k16
-//   from shared memory (both operands K-major), takes the softmax on the
-//   accumulator registers (the row max over a quad by two shuffles, exp2
-//   on the special-function unit with scale * log2(e) folded into one
-//   multiply; K3 rescales its output accumulator in registers, K2r's
-//   shift is constant along the row and needs no max and no rescale),
-//   rounds p to bf16 in registers and feeds it as the register A operand
-//   of 8 wgmma.m64n128k16 against v (the B operand MN-major through the
-//   transposed descriptor).  Nothing of s, p or the accumulator goes
-//   through shared memory.  Tile t + 1's q k^T is issued together with
-//   tile t's p v, so the softmax of t + 1 runs while the tensor cores
-//   work; o is rescaled and p repacked after p v is done.
+// - Each consumer warpgroup computes s = q k^T with D / 16
+//   wgmma.m64n128k16 from shared memory (both operands K-major), takes the
+//   softmax on the accumulator registers (the row max over a quad by two
+//   shuffles, exp2 on the special-function unit with scale * log2(e)
+//   folded into one multiply; K3 rescales its output accumulator in
+//   registers, the bound shifts are constant along the row and need no max
+//   and no rescale), rounds p to bf16 in registers and feeds it as the
+//   register A operand of 8 wgmma.m64nDk16 against v (the B operand
+//   MN-major through the transposed descriptor).  Nothing of s, p or the
+//   accumulator goes through shared memory.  Tile t + 1's q k^T is issued
+//   together with tile t's p v, so the softmax of t + 1 runs while the
+//   tensor cores work; o is rescaled and p repacked after p v is done.
+// - The bound shifts take |q_i| from the q tile in shared memory and their
+//   key-norm bound from a pre-pass kernel (decoder_attention.cu); only its
+//   one (K2, K1) or K (K2r) floats per (b, kv head) are read here.
 // - The mask arithmetic runs only on a tile with a masked key (or one
 //   past K) or one that reaches past the warp's first row, chosen once
 //   per tile for the warp; a CTA stops at the last tile touching its
 //   diagonal and writes zeros at once when a negative offset leaves it no
-//   key.
+//   key.  q rows past Q (S = 1025 leaves one real row in the last tile)
+//   are TMA's zeros and are not written.
 // - No split over the keys: each row walks its tiles in a fixed order
 //   from key 0, and keys past its position contribute exact zeros, so a
 //   row's result does not depend on K (K2r's prefix rows are bit-identical
 //   between a prefix-only and a full-prompt prefill).
+// - The head dim, the consumer warpgroups, the stages and the register
+//   split are a Config: D128 (K3, K2r, K2: 2 warpgroups, 128 q rows, 3
+//   stages of 64 KB) and D64 (K1: 3 warpgroups, 192 q rows, 3 stages of 32
+//   KB), the latter chosen by A/B on the card
+//   (tools/d64_config_ab_torch.py): at D = 64 the accumulator is half as
+//   large, so a third warpgroup fits in the registers (160 a consumer
+//   thread) and keeps more softmax work in flight per SM, which measured
+//   faster than two (PERF.md).
 // The tensor maps are encoded on the host per call with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 // -lcuda at link time).
@@ -72,23 +98,60 @@
 #include <stdint.h>
 
 namespace mjv {
-namespace sm90 {
+namespace attention_sm90 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;            // head dim (InternLM2-1.8B)
-constexpr int kBlockQ = 128;       // q rows per CTA: two warpgroups of 64
-constexpr int kBlockK = 128;       // keys per kv tile
-constexpr int kStages = 3;         // kv tiles in flight
-constexpr int kConsumerWarps = 8;
-constexpr int kThreads = (kConsumerWarps + 4) * 32;  // + the producer's
-constexpr uint32_t kHalfBytes = 128 * 128;       // 128 rows x 64 bf16
-constexpr uint32_t kTileBytes = 2 * kHalfBytes;  // 128 rows x 128 bf16
-constexpr uint32_t kStageBytes = 2 * kTileBytes;  // k and v
-constexpr uint32_t kBarOff = kTileBytes + kStages * kStageBytes;
-constexpr uint32_t kBitsOff = kBarOff + (2 * kStages + 1) * 8;
-constexpr uint32_t kSmemBytes = kBitsOff + kStages * 16 + 1024;  // + align
+constexpr int kBlockK = 128;  // keys per kv tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLog2eLo = 1.925963e-8f;  // log2(e) - kLog2e
+constexpr float kLn2 = 0.6931471805599453f;
+
+// How each row's softmax is shifted.
+enum class ShiftMode {
+  kExact,   // K3: the running row max, with the rescale
+  kRows,    // K2r: |scale| |q_i| kcum[b, kv head, pos_i]
+  kKeyMax,  // K2, K1: |scale| |q_i| kmax[b, kv head]
+};
+
+// The registers a thread may hold after setmaxnreg, given the warpgroups:
+// the consumers take what the producer gives up (65,536 per SM, one CTA).
+template <int WG>
+struct Regs;
+template <>
+struct Regs<2> {  // 2 x 128 x 232 + 128 x 40 = 64,512
+  static constexpr int kConsumer = 232, kProducer = 40;
+};
+template <>
+struct Regs<3> {  // 3 x 128 x 160 + 128 x 32 = 65,536
+  static constexpr int kConsumer = 160, kProducer = 32;
+};
+
+template <int D, int WG, int STAGES>
+struct Config {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int kD = D;
+  static constexpr int kBoxes = D / 64;  // 64-column (128-byte) boxes
+  static constexpr int kConsumerWarps = 4 * WG;
+  static constexpr int kBlockQ = 64 * WG;  // q rows per CTA
+  static constexpr int kThreads = (kConsumerWarps + 4) * 32;
+  static constexpr int kStages = STAGES;
+  static constexpr int kAcc = D / 2;  // o floats a thread (m64nD)
+  static constexpr int kConsumerRegs = Regs<WG>::kConsumer;
+  static constexpr int kProducerRegs = Regs<WG>::kProducer;
+  static constexpr uint32_t kQBox = kBlockQ * 128;  // bytes of one q box
+  static constexpr uint32_t kKvBox = kBlockK * 128;
+  static constexpr uint32_t kQBytes = kBoxes * kQBox;
+  static constexpr uint32_t kKvBytes = kBoxes * kKvBox;
+  static constexpr uint32_t kStageBytes = 2 * kKvBytes;  // k and v
+  static constexpr uint32_t kBarOff = kQBytes + kStages * kStageBytes;
+  static constexpr uint32_t kBitsOff = kBarOff + (2 * kStages + 1) * 8;
+  static constexpr uint32_t kSmemBytes = kBitsOff + kStages * 16 + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
+};
+
+using D128 = Config<128, 2, 3>;  // K3, K2r, K2
+using D64 = Config<64, 3, 3>;    // K1
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -195,6 +258,20 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
 
+#define MJV_ACC32(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+#define MJV_REGS32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
 // d (+)= A B for a 64 x 128 x 16 step, A and B from shared memory, both
 // K-major; scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
@@ -207,8 +284,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d += A B for a 64 x 128 x 16 step, A (bf16 pairs) from registers, B from
-// shared memory MN-major (transposed).
+// d += A B for a 64 x N x 16 step (N = 128 or 64: the head dim), A (bf16
+// pairs) from registers, B from shared memory MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t db) {
@@ -219,9 +296,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : MJV_ACC64(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MJV_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : MJV_ACC32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
 
 #undef MJV_ACC64
 #undef MJV_REGS64
+#undef MJV_ACC32
+#undef MJV_REGS32
 
 // 2^x by the special-function unit, denormal results flushed to 0.
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -239,21 +328,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // in place: sc becomes p.  K3: the running max m (log2 units) and sum l
 // are updated, alpha = exp2(m_old - m_new) is returned for the caller to
 // rescale o with; a row that has seen no live key keeps m = -inf and its
-// shift is taken as 0.  K2r: m is the row's fixed shift, alpha = 1.
+// shift is taken as 0.  The bound shifts: m is the row's fixed shift,
+// alpha = 1; K2r's is in log2 units (one FMA per score), K2's and K1's in
+// nats with the twin's arithmetic (below).  Under a bound p is e^-13 or so
+// at the decoder's gaps, and a p that differs from the twin's by 1e-6
+// (x log2(e) rounded once) rounds to the other bf16 often enough that the
+// 2B scores' bf16 noise moved past the SP bar of chip_smoke.py; at 2^-22
+// the kernel rounds p as the twin and the WMMA template did (PERF.md).
 // MASKED: key 8 j + 2 c + e of the tile (this lane's bit 2 j + e of
 // `live`) is visible to row r when its bit is set and 8 j + e <= lim[r].
 // The two forms are separate code, chosen once per tile: a test per
 // element would put a branch around every exp.
-template <bool CAUSAL, bool ROW_BOUND, bool MASKED>
+template <bool CAUSAL, ShiftMode SHIFT, bool MASKED>
 __device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
                                              const int (&lim)[2],
                                              float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], float sl2) {
+                                             float (&alpha)[2], float scale,
+                                             float sl2) {
   auto visible = [&](int j, int r, int e) {
     const bool bit = (live >> (2 * j + e)) & 1u;
     return CAUSAL ? bit & (8 * j + e <= lim[r]) : bit;
   };
-  if (ROW_BOUND) {
+  if (SHIFT != ShiftMode::kExact) {
     alpha[0] = alpha[1] = 1.f;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -261,7 +357,21 @@ __device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
       for (int r = 0; r < 2; ++r) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float p = fast_exp2(fmaf(sc[4 * j + 2 * r + e], sl2, -m[r]));
+          const float s = sc[4 * j + 2 * r + e];
+          float p;
+          if (SHIFT == ShiftMode::kKeyMax) {
+            // The twin's exp(s * scale - m), its argument x rounded as the
+            // twin rounds it, to ex2.approx's 2^-22: x log2(e) is the
+            // rounded product t plus its error tl (an FMA, and the
+            // constant's own rounding), and 2^(t + tl) = 2^t (1 + tl ln 2).
+            const float x = __fsub_rn(__fmul_rn(s, scale), m[r]);
+            const float t = __fmul_rn(x, kLog2e);
+            const float tl = fmaf(x, kLog2e, -t) + x * kLog2eLo;
+            p = fast_exp2(t);
+            p = fmaf(p, tl * kLn2, p);
+          } else {
+            p = fast_exp2(fmaf(s, sl2, -m[r]));
+          }
           if (MASKED) p = visible(j, r, e) ? p : 0.f;
           sc[4 * j + 2 * r + e] = p;
           l[r] += p;
@@ -311,16 +421,17 @@ __device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
 
 // The tile's softmax from its 128 liveness bits w (key kk of the tile is
 // bit kk % 32 of w[kk / 32]): the mask arithmetic only when `need`.
-template <bool CAUSAL, bool ROW_BOUND>
+template <bool CAUSAL, ShiftMode SHIFT>
 __device__ __forceinline__ void softmax_tile(float (&sc)[64],
                                              const uint32_t (&w)[4],
                                              bool need, int k0, int c,
                                              const int (&pos)[2],
                                              float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], float sl2) {
+                                             float (&alpha)[2], float scale,
+                                             float sl2) {
   if (!need) {
     const int lim[2] = {0, 0};
-    softmax_body<CAUSAL, ROW_BOUND, false>(sc, 0u, lim, m, l, alpha, sl2);
+    softmax_body<CAUSAL, SHIFT, false>(sc, 0u, lim, m, l, alpha, scale, sl2);
     return;
   }
   // This lane's 32 keys: 8 j + 2 c + e for j < 16, e < 2.
@@ -330,7 +441,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
     live |= ((w[j / 4] >> (8 * (j % 4) + 2 * c)) & 3u) << (2 * j);
   }
   const int lim[2] = {pos[0] - k0 - 2 * c, pos[1] - k0 - 2 * c};
-  softmax_body<CAUSAL, ROW_BOUND, true>(sc, live, lim, m, l, alpha, sl2);
+  softmax_body<CAUSAL, SHIFT, true>(sc, live, lim, m, l, alpha, scale, sl2);
 }
 
 // Accumulator layout of wgmma m64nN (per warpgroup): warp w holds rows
@@ -338,33 +449,37 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
 // 8-column block j, d[4 j + e] at row g, column 8 j + 2 c + e and
 // d[4 j + 2 + e] at row g + 8 (e = 0, 1).  The same pairs, packed, are the
 // register A fragments of the next product: fragment i = (d[2 i], d[2 i+1]).
-template <bool CAUSAL, bool ROW_BOUND>
-__global__ void __launch_bounds__(kThreads, 1)
-decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                              const __grid_constant__ CUtensorMap tk,
-                              const __grid_constant__ CUtensorMap tv,
-                              const int* __restrict__ mask,
-                              const float* __restrict__ kcum,
-                              const int* __restrict__ q_offset,
-                              bf16* __restrict__ out, int Q, int K, int Hq,
-                              int Hkv, float scale) {
+// bound: kcum (B, Hkv, K) under kRows, kmax (B, Hkv) under kKeyMax.
+template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR>
+__global__ void __launch_bounds__(C::kThreads, 1)
+attention_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const int* __restrict__ mask,
+                      const float* __restrict__ bound,
+                      const int* __restrict__ q_offset,
+                      bf16* __restrict__ out, int Q, int K, int Hq, int Hkv,
+                      float scale) {
+  constexpr bool kFixed = SHIFT != ShiftMode::kExact;
+  constexpr int kStages = C::kStages;
+  constexpr int kConsumerWarps = C::kConsumerWarps;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
   uint32_t* bits =
-      reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + kBitsOff);
+      reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + C::kBitsOff);
   const uint32_t sq = base;
-  const uint32_t bar = base + kBarOff;  // full[s], empty[s], then q's
+  const uint32_t bar = base + C::kBarOff;  // full[s], empty[s], then q's
   const uint32_t q_bar = bar + 16 * kStages;
 
   const int h = blockIdx.x % Hq;
   const int b = blockIdx.x / Hq;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // heaviest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBlockQ;  // heaviest first
   const int hk = h / (Hq / Hkv);
   const int off = (CAUSAL && q_offset != nullptr) ? q_offset[b] : 0;
   int n_kv = (K + kBlockK - 1) / kBlockK;
   if (CAUSAL) {
-    const int last = off + min(q0 + kBlockQ, Q) - 1;  // last key seen
+    const int last = off + min(q0 + C::kBlockQ, Q) - 1;  // last key seen
     n_kv = last < 0 ? 0 : min(n_kv, last / kBlockK + 1);
   }
   const int warp = threadIdx.x / 32;
@@ -383,12 +498,15 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   if (warp >= kConsumerWarps) {
     // The producer warpgroup gives its registers to the consumers; its
     // first warp loads the q tile, then the kv ring.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        C::kProducerRegs));
     if (warp != kConsumerWarps || n_kv == 0) return;
     if (lane == 0) {
-      mbar_expect_tx(q_bar, kTileBytes);
-      tma_load(&tq, sq, q_bar, 0, q0, h, b);
-      tma_load(&tq, sq + kHalfBytes, q_bar, 64, q0, h, b);
+      mbar_expect_tx(q_bar, C::kQBytes);
+#pragma unroll
+      for (int box = 0; box < C::kBoxes; ++box) {
+        tma_load(&tq, sq + box * C::kQBox, q_bar, 64 * box, q0, h, b);
+      }
     }
     for (int t = 0; t < n_kv; ++t) {
       const int s = t % kStages;
@@ -408,20 +526,21 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int r = 0; r < 4; ++r) bits[4 * s + r] = words[r];
         const uint32_t full = bar + 8 * s;
-        const uint32_t sk = base + kTileBytes + s * kStageBytes;
-        const uint32_t sv = sk + kTileBytes;
-        mbar_expect_tx(full, kStageBytes);
-        tma_load(&tk, sk, full, 0, k0, hk, b);
-        tma_load(&tk, sk + kHalfBytes, full, 64, k0, hk, b);
-        tma_load(&tv, sv, full, 0, k0, hk, b);
-        tma_load(&tv, sv + kHalfBytes, full, 64, k0, hk, b);
+        const uint32_t sk = base + C::kQBytes + s * C::kStageBytes;
+        const uint32_t sv = sk + C::kKvBytes;
+        mbar_expect_tx(full, C::kStageBytes);
+#pragma unroll
+        for (int box = 0; box < C::kBoxes; ++box) {
+          tma_load(&tk, sk + box * C::kKvBox, full, 64 * box, k0, hk, b);
+          tma_load(&tv, sv + box * C::kKvBox, full, 64 * box, k0, hk, b);
+        }
       }
     }
     return;
   }
 
   // The consumers: warpgroup wg owns q rows 64 wg .. 64 wg + 63.
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::kConsumerRegs));
   const int wg = warp / 4;
   const int g = lane / 4;
   const int c = lane % 4;
@@ -431,29 +550,41 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) pos[r] = off + q0 + row0 + 8 * r;
   const int warp_first = off + q0 + 64 * wg + 16 * (warp % 4);
 
-  float o[64];
+  float o[C::kAcc];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < C::kAcc; ++i) o[i] = 0.f;
   float l[2] = {0.f, 0.f};
-  // K3: the running row max in log2 units; K2r: the fixed shift.
+  // K3: the running row max in log2 units; the bound shifts: the fixed one
+  // (K2r's in log2 units, K2's and K1's in nats).
   float m[2] = {-INFINITY, -INFINITY};
   const float sl2 = scale * kLog2e;
 
   if (n_kv > 0) {
     mbar_wait(q_bar, 0);
-    if (ROW_BOUND) {
+    if (kFixed) {
       // |q_row| from the swizzled q tile: lane c reads 16-byte chunks c
-      // and c + 4 of each half; the quad's four sums make the row's.
+      // and c + 4 of each box; the quad's four sums make the row's.  K2r
+      // sums in fp32 and takes its shift in log2 units.  K2 and K1 sum the
+      // squares in double, where the sum of 64 or 128 squares of bf16 values
+      // is exact and so independent of its order, and take the twin's
+      // m = |q| * (kmax * |scale|) in nats: kmax (the pre-pass's, exact in
+      // the same way) and |q| are rounded once, and the twin's fp32 sums
+      // lie within about an ulp of them (see softmax_body).
+      const float kms = SHIFT == ShiftMode::kKeyMax
+                            ? __fmul_rn(bound[(long long)b * Hkv + hk],
+                                        fabsf(scale))
+                            : 0.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int R = row0 + 8 * r;
         float qn2 = 0.f;
+        double qd2 = 0.0;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
+        for (int box = 0; box < C::kBoxes; ++box) {
 #pragma unroll
           for (int ch = c; ch < 8; ch += 4) {
-            const uint32_t addr = sq + half * kHalfBytes + R * 128 +
-                                  ((ch ^ (R & 7)) * 16);
+            const uint32_t addr =
+                sq + box * C::kQBox + R * 128 + ((ch ^ (R & 7)) * 16);
             uint32_t w4[4];
             asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
                          : "=r"(w4[0]), "=r"(w4[1]), "=r"(w4[2]), "=r"(w4[3])
@@ -463,22 +594,32 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
               const __nv_bfloat162 v2 =
                   *reinterpret_cast<const __nv_bfloat162*>(&w4[e]);
               const float2 f = __bfloat1622float2(v2);
-              qn2 += f.x * f.x + f.y * f.y;
+              if (SHIFT == ShiftMode::kKeyMax) {
+                qd2 += double(f.x) * f.x + double(f.y) * f.y;
+              } else {
+                qn2 += f.x * f.x + f.y * f.y;
+              }
             }
           }
         }
-        qn2 += __shfl_xor_sync(0xffffffffu, qn2, 1);
-        qn2 += __shfl_xor_sync(0xffffffffu, qn2, 2);
-        const int p = min(max(pos[r], 0), K - 1);
-        const float kc = kcum[((long long)b * Hkv + hk) * K + p];
-        m[r] = sqrtf(qn2) * kc * fabsf(scale) * kLog2e;
+        if (SHIFT == ShiftMode::kKeyMax) {
+          qd2 += __shfl_xor_sync(0xffffffffu, qd2, 1);
+          qd2 += __shfl_xor_sync(0xffffffffu, qd2, 2);
+          m[r] = __fmul_rn(__double2float_rn(sqrt(qd2)), kms);
+        } else {
+          qn2 += __shfl_xor_sync(0xffffffffu, qn2, 1);
+          qn2 += __shfl_xor_sync(0xffffffffu, qn2, 2);
+          const int p = min(max(pos[r], 0), K - 1);
+          const float kc = bound[((long long)b * Hkv + hk) * K + p];
+          m[r] = sqrtf(qn2) * kc * fabsf(scale) * kLog2e;
+        }
       }
     }
 
     const uint64_t dq =
         make_desc(sq + wg * 64 * 128, 16, 1024);  // this warpgroup's rows
     auto stage_k = [&](int t) {
-      return base + kTileBytes + (t % kStages) * kStageBytes;
+      return base + C::kQBytes + (t % kStages) * C::kStageBytes;
     };
     auto full_bar = [&](int t) { return bar + 8 * (t % kStages); };
     auto empty_bar = [&](int t) { return bar + 8 * (kStages + t % kStages); };
@@ -500,8 +641,8 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       // tile reaches past this warp's first row.
       const bool need = (w[0] & w[1] & w[2] & w[3]) != 0xffffffffu ||
                         (CAUSAL && k0 + kBlockK - 1 > warp_first);
-      softmax_tile<CAUSAL, ROW_BOUND>(sc, w, need, k0, c, pos, m, l, alpha,
-                                      sl2);
+      softmax_tile<CAUSAL, SHIFT>(sc, w, need, k0, c, pos, m, l, alpha,
+                                  scale, sl2);
     };
     auto pack = [&]() {
 #pragma unroll
@@ -510,16 +651,21 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     auto issue_qk = [&](int t) {
       const uint64_t dk = make_desc(stage_k(t), 16, 1024);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        // 16-column steps: 32 bytes inside a 128-byte row, then the
-        // second 64-column half.
-        const uint32_t step = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-        wgmma_ss(sc, dq + (step >> 4), dk + (step >> 4), kk > 0);
+      for (int kk = 0; kk < C::kD / 16; ++kk) {
+        // 16-column steps: 32 bytes inside a 128-byte row, then the next
+        // 64-column box.
+        const uint32_t col = (kk % 4) * 32;
+        const uint32_t qs = (kk / 4) * C::kQBox + col;
+        const uint32_t ks = (kk / 4) * C::kKvBox + col;
+        wgmma_ss(sc, dq + (qs >> 4), dk + (ks >> 4), kk > 0);
       }
       wgmma_commit();
     };
     auto issue_pv = [&](int t) {
-      const uint64_t dv = make_desc(stage_k(t) + kTileBytes, kHalfBytes, 1024);
+      // v as the MN-major B operand: 8-key groups 1024 bytes apart, the
+      // next 64 columns (D = 128) one box further.
+      const uint64_t dv =
+          make_desc(stage_k(t) + C::kKvBytes, C::kKvBox, 1024);
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         // 16 keys of v: 16 rows of 128 bytes.
@@ -531,8 +677,8 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
     // s = q k^T of tile t + 1 and o += p v of tile t run together on the
     // tensor cores while this warpgroup takes tile t + 1's softmax; o is
-    // rescaled and p repacked once the p v product has read them.  Both
-    // warpgroups walk all n_kv tiles; a tile past a warpgroup's rows is all
+    // rescaled and p repacked once the p v product has read them.  Every
+    // warpgroup walks all n_kv tiles; a tile past a warpgroup's rows is all
     // masked and adds exact zeros (K3: alpha = 1).
     mbar_wait(full_bar(0), 0);
     wgmma_fence();
@@ -553,9 +699,9 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(o);
       fence_regs(pa);
       release(t - 1);
-      if (!ROW_BOUND) {
+      if (!kFixed) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < C::kD / 8; ++j) {
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             o[4 * j + 2 * r] *= alpha[r];
@@ -578,12 +724,16 @@ decoder_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int R = q0 + row0 + 8 * r;
-    if (R >= Q) continue;
-    const bool live = l[r] > 0.f;
-    const float inv = live ? 1.f / l[r] : 0.f;
-    bf16* orow = out + (((long long)b * Q + R) * Hq + h) * kD + 2 * c;
+    if (R >= Q) continue;  // the q tail: TMA's zero rows
+    float inv;
+    if (FLOOR) {
+      inv = 1.f / fmaxf(l[r], 1e-30f);
+    } else {
+      inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    }
+    bf16* orow = out + (((long long)b * Q + R) * Hq + h) * C::kD + 2 * c;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < C::kD / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
                                 o[4 * j + 2 * r + 1] * inv);
@@ -619,18 +769,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, rows, heads, 128) bf16 tensor with dense heads, row stride
-// `rs` and batch stride `bs` elements, in 64 x 128 boxes (one half of a
-// 128-row tile), 128-byte swizzle, zero fill past `rows`.
+// A (B, rows, heads, D) bf16 tensor with dense heads, row stride `rs` and
+// batch stride `bs` elements, in boxes of 64 columns x `box_rows` rows,
+// 128-byte swizzle, zero fill past `rows`.  TMA wants a 16-byte aligned
+// base and strides that are multiples of 16 bytes: a q, k or v view into
+// the ViT's (B, S, 3 H D) qkv tensor has them (row stride 6 KB, k's base
+// 2 KB into each row).
 inline bool encode_map(CUtensorMap* map, const void* ptr, int rows,
-                       int heads, int batch, long long rs, long long bs) {
+                       int heads, int batch, long long rs, long long bs,
+                       int D, int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(kD), cuuint64_t(rows),
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(rows),
                               cuuint64_t(heads), cuuint64_t(batch)};
-  const cuuint64_t strides[3] = {cuuint64_t(rs) * 2, cuuint64_t(kD) * 2,
+  const cuuint64_t strides[3] = {cuuint64_t(rs) * 2, cuuint64_t(D) * 2,
                                  cuuint64_t(bs) * 2};
-  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -638,33 +792,35 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// kcum: (B, Hkv, K) fp32, read only when ROW_BOUND; q_offset read only
-// when CAUSAL.  Returns a cudaError_t.
-template <bool CAUSAL, bool ROW_BOUND>
-int launch_decoder_attention(const void* q, const void* k, const void* v,
-                             const void* mask, const void* kcum,
-                             const void* q_offset, void* out, int B, int Q,
-                             int K, int Hq, int Hkv, long long qsb,
-                             long long qss, long long ksb, long long kss,
-                             long long vsb, long long vss, float scale,
-                             void* stream) {
+// bound: kcum (B, Hkv, K) fp32 under kRows, kmax (B, Hkv) fp32 under
+// kKeyMax, unread under kExact; q_offset read only when CAUSAL.  Returns a
+// cudaError_t.
+template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR = false>
+int launch_attention(const void* q, const void* k, const void* v,
+                     const void* mask, const void* bound,
+                     const void* q_offset, void* out, int B, int Q, int K,
+                     int Hq, int Hkv, long long qsb, long long qss,
+                     long long ksb, long long kss, long long vsb,
+                     long long vss, float scale, void* stream) {
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, Q, Hq, B, qss, qsb) ||
-      !encode_map(&tk, k, K, Hkv, B, kss, ksb) ||
-      !encode_map(&tv, v, K, Hkv, B, vss, vsb)) {
+  if (!encode_map(&tq, q, Q, Hq, B, qss, qsb, C::kD, C::kBlockQ) ||
+      !encode_map(&tk, k, K, Hkv, B, kss, ksb, C::kD, kBlockK) ||
+      !encode_map(&tv, v, K, Hkv, B, vss, vsb, C::kD, kBlockK)) {
     return int(cudaErrorInvalidValue);
   }
-  auto kernel = decoder_attention_sm90_kernel<CAUSAL, ROW_BOUND>;
+  auto kernel = attention_kernel<C, CAUSAL, SHIFT, FLOOR>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(C::kSmemBytes));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(Hq * B, (Q + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(Hq * B, (Q + C::kBlockQ - 1) / C::kBlockQ);
+  kernel<<<grid, C::kThreads, C::kSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<const int*>(mask),
-      static_cast<const float*>(kcum), static_cast<const int*>(q_offset),
+      static_cast<const float*>(bound), static_cast<const int*>(q_offset),
       static_cast<bf16*>(out), Q, K, Hq, Hkv, scale);
   return int(cudaGetLastError());
 }
 
-}  // namespace sm90
+}  // namespace attention_sm90
 }  // namespace mjv

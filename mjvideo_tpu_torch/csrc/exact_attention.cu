@@ -15,7 +15,7 @@
 //
 // A non-null lse (K3 lse: _fwd_kernel with with_lse,
 // flash_attention.py:526-530) runs the WMMA template of bound_attention.cuh
-// (Shift::kExact, WITH_LSE), which also writes the (B, Hq, Q) fp32 true
+// (Shift::kExact), which also writes the (B, Hq, Q) fp32 true
 // lse, m + log(l), or kDeadLse on a row that saw no live key.  Ring
 // sequence parallelism merges the chunks of every ring step by it, and the
 // backward kernels (decoder_attention_bwd.cu) read it.  Masked scores there
@@ -36,10 +36,9 @@ int launch_exact_lse(const void* q, const void* k, const void* v,
                      long long qsb, long long qss, long long ksb,
                      long long kss, long long vsb, long long vss, float scale,
                      void* stream) {
-  return mjv::launch_bound_attention<128, CAUSAL, false, true,
-                                     mjv::Shift::kExact>(
-      q, k, v, mask, nullptr, CAUSAL ? q_offset : nullptr, out, B, Q, K, Hq,
-      Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream, lse);
+  return mjv::launch_bound_attention<128, CAUSAL, false, mjv::Shift::kExact>(
+      q, k, v, mask, nullptr, CAUSAL ? q_offset : nullptr, out, lse, B, Q, K,
+      Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream);
 }
 
 }  // namespace
@@ -59,10 +58,13 @@ extern "C" int mjv_exact_attention(
                                             B, Q, K, Hq, Hkv, qsb, qss, ksb,
                                             kss, vsb, vss, scale, stream);
   }
-  return causal ? mjv::sm90::launch_decoder_attention<true, false>(
+  namespace sm90 = mjv::attention_sm90;
+  using sm90::D128;
+  using sm90::ShiftMode;
+  return causal ? sm90::launch_attention<D128, true, ShiftMode::kExact>(
                       q, k, v, mask, nullptr, q_offset, out, B, Q, K, Hq, Hkv,
                       qsb, qss, ksb, kss, vsb, vss, scale, stream)
-                : mjv::sm90::launch_decoder_attention<false, false>(
+                : sm90::launch_attention<D128, false, ShiftMode::kExact>(
                       q, k, v, mask, nullptr, nullptr, out, B, Q, K, Hq, Hkv,
                       qsb, qss, ksb, kss, vsb, vss, scale, stream);
 }

@@ -41,14 +41,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "vit_attention", "decoder_attention" and "exact_attention" count K1, K2
 # and K3 with and without the lse, "vit_attention_lse",
 # "decoder_attention_lse" and "exact_attention_lse" the launches with it;
-# "key_norm_cummax" counts K2r's pre-pass (its bound column).
+# "key_norm_max" counts the pre-pass of K1 and K2 (their kmax, with the lse
+# or without), "key_norm_cummax" K2r's (its bound column).
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
     "decoder_attention_lse": 0,
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
     "exact_attention": 0, "exact_attention_lse": 0,
-    "decoder_attention_rows": 0, "key_norm_cummax": 0,
+    "decoder_attention_rows": 0, "key_norm_cummax": 0, "key_norm_max": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "w4_matmul": 0,
     "vit_attention_variant": 0, "vit_attention_tmajor": 0,
     "vit_attention_bshd": 0}
@@ -122,56 +123,38 @@ def build() -> Path:
     return lib
 
 
+_VIT_BWD = [_P] * 6 + [_I] * 4 + [_L] * 8 + [_F, _P]
+_BWD = [_P] * 8 + [_I] * 6 + [_L] * 8 + [_F, _I, _P]
+_VARIANT = [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _I, _P]
+# Each C entry's argument types (every one returns a cudaError_t as int).
+ARGTYPES = {
+    "mjv_vit_attention": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_F, _P],
+    "mjv_vit_attention_bwd_dkdv": _VIT_BWD[:6] + [_P, _P] + _VIT_BWD[6:],
+    "mjv_vit_attention_bwd_dq": _VIT_BWD[:6] + [_P] + _VIT_BWD[6:],
+    "mjv_decoder_attention": [_P] * 8 + [_I] * 6 + [_L] * 6 + [_F, _P],
+    "mjv_decoder_attention_rows": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _P],
+    "mjv_key_norm_cummax": [_P] * 3 + [_I] * 4 + [_L] * 2 + [_P],
+    "mjv_key_norm_max": [_P] * 3 + [_I] * 4 + [_L] * 2 + [_P],
+    "mjv_exact_attention": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _I, _P],
+    "mjv_decoder_attention_bwd_dkdv": _BWD[:8] + [_P, _P] + _BWD[8:],
+    "mjv_decoder_attention_bwd_dq": _BWD[:8] + [_P] + _BWD[8:],
+    "mjv_q8g_matmul_fused": [_P] * 4 + [_I] * 5 + [_P],
+    "mjv_q8g_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "mjv_w4_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "mjv_vit_attention_variant": _VARIANT,
+    "mjv_vit_attention_tmajor": _VARIANT,
+    "mjv_vit_attention_bshd": _VARIANT,
+}
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.mjv_vit_attention.argtypes = [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-            _F, _P]
-        lib.mjv_vit_attention.restype = _I
-        vit_bwd = [_P] * 6 + [_I] * 4 + [_L] * 8 + [_F, _P]
-        lib.mjv_vit_attention_bwd_dkdv.argtypes = (
-            vit_bwd[:6] + [_P, _P] + vit_bwd[6:])
-        lib.mjv_vit_attention_bwd_dkdv.restype = _I
-        lib.mjv_vit_attention_bwd_dq.argtypes = (
-            vit_bwd[:6] + [_P] + vit_bwd[6:])
-        lib.mjv_vit_attention_bwd_dq.restype = _I
-        lib.mjv_decoder_attention.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            _L, _L, _L, _L, _L, _L, _F, _P]
-        lib.mjv_decoder_attention.restype = _I
-        lib.mjv_decoder_attention_rows.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            _L, _L, _L, _L, _L, _L, _F, _P]
-        lib.mjv_decoder_attention_rows.restype = _I
-        lib.mjv_key_norm_cummax.argtypes = [_P, _P, _P, _I, _I, _I, _I, _L,
-                                            _L, _P]
-        lib.mjv_key_norm_cummax.restype = _I
-        lib.mjv_exact_attention.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            _L, _L, _L, _L, _L, _L, _F, _I, _P]
-        lib.mjv_exact_attention.restype = _I
-        bwd_args = [_P] * 8 + [_I] * 6 + [_L] * 8 + [_F, _I, _P]
-        lib.mjv_decoder_attention_bwd_dkdv.argtypes = (
-            bwd_args[:8] + [_P, _P] + bwd_args[8:])
-        lib.mjv_decoder_attention_bwd_dkdv.restype = _I
-        lib.mjv_decoder_attention_bwd_dq.argtypes = (
-            bwd_args[:8] + [_P] + bwd_args[8:])
-        lib.mjv_decoder_attention_bwd_dq.restype = _I
-        lib.mjv_q8g_matmul_fused.argtypes = [_P] * 4 + [_I] * 5 + [_P]
-        lib.mjv_q8g_matmul_fused.restype = _I
-        lib.mjv_q8g_matmul.argtypes = [_P] * 5 + [_I] * 4 + [_P]
-        lib.mjv_q8g_matmul.restype = _I
-        lib.mjv_w4_matmul.argtypes = [_P] * 4 + [_I] * 4 + [_P]
-        lib.mjv_w4_matmul.restype = _I
-        variant = [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F]
-        lib.mjv_vit_attention_variant.argtypes = variant + [_I, _P]
-        lib.mjv_vit_attention_variant.restype = _I
-        lib.mjv_vit_attention_tmajor.argtypes = variant + [_I, _P]
-        lib.mjv_vit_attention_tmajor.restype = _I
-        lib.mjv_vit_attention_bshd.argtypes = variant + [_I, _P]
-        lib.mjv_vit_attention_bshd.restype = _I
+        for name, argtypes in ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
         _lib = lib
     return _lib
 
@@ -223,9 +206,10 @@ def forward_only(name: str, *ts: torch.Tensor) -> None:
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kmax: torch.Tensor, scale: float, with_lse: bool = False):
     """K1.  q/k/v: (B, S, H, 64) bf16 with dense heads (row strides free);
-    kmax: (B, H) fp32.  Returns a dense (B, S, H, D) bf16 tensor, and with
-    ``with_lse`` also the (B, H, S) fp32 lse (1e30 on a row whose sum
-    underflowed)."""
+    kmax: (B, H) fp32 (``key_norm_max``).  Returns a dense (B, S, H, D)
+    bf16 tensor, and with ``with_lse`` also the (B, H, S) fp32 lse (1e30 on
+    a row whose sum underflowed).  Without the lse it runs on the wgmma/TMA
+    template (``decoder_attention_sm90.cuh``), with it on the WMMA one."""
     name = "vit_attention"
     _check_qkv(name, 64, q, k, v)
     B, S, H, D = q.shape
@@ -330,10 +314,11 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       kmax: torch.Tensor, q_offset: Optional[torch.Tensor],
                       scale: float, with_lse: bool = False):
     """K2.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense heads;
-    attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32; q_offset:
-    (B,) int32 or None (= 0).  Returns a dense (B, Q, Hq, D) bf16 tensor,
-    and with ``with_lse`` also the (B, Hq, Q) fp32 lse (1e30 on dead rows).
-    """
+    attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32
+    (``key_norm_max``); q_offset: (B,) int32 or None (= 0).  Returns a
+    dense (B, Q, Hq, D) bf16 tensor, and with ``with_lse`` also the (B, Hq,
+    Q) fp32 lse (1e30 on dead rows).  Without the lse it runs on the
+    wgmma/TMA template, with it on the WMMA one."""
     name = "decoder_attention"
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset)
@@ -379,6 +364,35 @@ def key_norm_cummax(k: torch.Tensor,
         err = lib.mjv_key_norm_cummax(k.data_ptr(), mask_ptr, out.data_ptr(),
                                       B, K, Hkv, D, k.stride(0), k.stride(1),
                                       stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def key_norm_max(k: torch.Tensor,
+                 attention_mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The pre-pass of K1 and K2 (and of their lse forms).  k: (B, K, Hkv,
+    D) bf16 with D 64 or 128, dense heads and free row strides (a view
+    into the ViT's qkv tensor, or a cache's slots); attention_mask: (B, K)
+    int32 or None.  Returns the (B, Hkv) fp32 largest norm of a live key
+    of each (b, kv head), 0 where none is live."""
+    name = "key_norm_max"
+    # Built for the ViT's 64 and the decoder's 128.
+    _check_qkv(name, k.shape[-1] if k.shape[-1] in (64, 128) else 128, k)
+    B, K, Hkv, D = k.shape
+    mask_ptr = None
+    if attention_mask is not None:
+        _check_aux(f"{name} mask", attention_mask, torch.int32, (B, K),
+                   k.device)
+        mask_ptr = attention_mask.data_ptr()
+    lib = _load()
+    out = torch.empty((B, Hkv), dtype=torch.float32, device=k.device)
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_key_norm_max(k.data_ptr(), mask_ptr, out.data_ptr(), B,
+                                   K, Hkv, D, k.stride(0), k.stride(1),
+                                   stream)
     _raise_on(name, err)
     launch_counts[name] += 1
     return out

@@ -17,7 +17,9 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   under the same bound with ``kmax`` the largest *masked* key norm per
   (b, kv head).  Because the shift is constant along a row, the kernel keeps
   plain sums of ``exp(s - m) v`` and ``exp(s - m)`` with no running max.
-  A row whose sum is 0 (every key masked) gives 0.  On the training path
+  A row whose sum is 0 (every key masked) gives 0.  On the card both
+  take ``kmax`` from the pre-pass kernel ``kernels.key_norm_max`` (its
+  twin ``key_norm_max``).  On the training path
   its instantiation with the lse (``_fwd_bound_kernel(with_lse=True)``)
   also returns the true log-sum-exp ``m + log(l)``, or ``DEAD_LSE`` where
   ``l == 0``, in the natural ``(B, Hq, Q)`` layout.
@@ -76,8 +78,10 @@ def key_norm_max(k: torch.Tensor,
                  attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, Hkv) fp32: the largest norm of a key the mask lets through.
 
-    k: (B, K, Hkv, D); attention_mask: (B, K), 1 = real.  Reduced outside
-    the kernels, as ``_fwd_impl`` does (``flash_attention.py:489-511``).
+    k: (B, K, Hkv, D); attention_mask: (B, K), 1 = real.  ``_fwd_impl``'s
+    reduce (``flash_attention.py:484-511``; ``_fwd_nc_kernel`` takes the
+    same max inside the kernel, :131-135).  Plain twin of the pre-pass of
+    K1 and K2 (``kernels.key_norm_max``).
     """
     kn2 = k.float().square().sum(-1)  # (B, K, Hkv)
     if attention_mask is not None:
@@ -372,12 +376,13 @@ def vit_attention_backward(q, k, v, out, lse, dout, scale=None):
 
 def _vit_attention_fwd(q, k, v, scale, with_lse):
     """K1 (with or without the lse) on a CUDA tensor, its twin on a CPU
-    tensor."""
+    tensor.  On the card kmax comes from the pre-pass kernel
+    ``key_norm_max``, one launch before K1's."""
     if q.device.type == "cpu":
         return vit_attention_plain(q, k, v, scale, return_lse=with_lse)
     from .. import kernels
 
-    return kernels.vit_attention(q, k, v, key_norm_max(k), scale,
+    return kernels.vit_attention(q, k, v, kernels.key_norm_max(k), scale,
                                  with_lse=with_lse)
 
 
@@ -425,14 +430,15 @@ def _int32_operands(attention_mask, q_offset):
 def _decoder_attention_fwd(q, k, v, attention_mask, q_offset, scale,
                            with_lse):
     """K2 (with or without the lse) on a CUDA tensor, its twin on a CPU
-    tensor."""
+    tensor.  On the card kmax comes from the pre-pass kernel
+    ``key_norm_max`` over the masked keys, one launch before K2's."""
     if q.device.type == "cpu":
         return decoder_attention_plain(q, k, v, attention_mask, q_offset,
                                        scale, return_lse=with_lse)
     from .. import kernels
 
-    kmax = key_norm_max(k, attention_mask)
     attention_mask, q_offset = _int32_operands(attention_mask, q_offset)
+    kmax = kernels.key_norm_max(k, attention_mask)
     return kernels.decoder_attention(q, k, v, attention_mask, kmax, q_offset,
                                      scale, with_lse=with_lse)
 

@@ -9,7 +9,8 @@ Without a card every test here skips.  Tolerances, the bounds
 ``chip_smoke.py`` states: each bf16 output (K1, K2, K2r, K3, K4a's dk and dv,
 K4b's dq, K4 nc's dq, dk and dv, B1, B2, B3) to max|kernel - plain| /
 max|plain| <= 2**-7, one bf16 ulp of the largest output at worst; K1's,
-K2's and K3's fp32 lse to max|kernel - plain| <= LSE_TOL.
+K2's and K3's fp32 lse to max|kernel - plain| <= LSE_TOL; the pre-passes
+(K2r's, and K1's and K2's) to relative 2e-6.
 """
 
 import pytest
@@ -359,6 +360,145 @@ def test_k3_and_k2r_wrappers_raise_instead_of_falling_back(cuda_device):
     for kern in (fa.decoder_attention_rows, fa.exact_attention_with_lse):
         with pytest.raises(NotImplementedError, match="backward"):
             kern(q.clone().requires_grad_(), k, v, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [37, 65, 129, 1025])
+def test_k2_and_k1_on_the_sm90_template_match_twins(cuda_device, S):
+    """K2 and K1 without the lse (the wgmma/TMA template, their kmax from
+    the pre-pass) against their twins at odd lengths: K2 with GQA, a
+    ragged mask (row 1 left-padded by 7 keys and right-padded from 4/5 of
+    S) whose dead rows must be exactly 0, and a per-row q_offset over the
+    whole cache; K1 on qkv views, S one row past a q tile at 65, 129 and
+    1025.  Each op launches its kernel and one pre-pass."""
+    g = torch.Generator(device=cuda_device).manual_seed(20 + S)
+    q = _randn(g, cuda_device, 2, S, 16, 128)
+    k = _randn(g, cuda_device, 2, S, 8, 128)
+    v = _randn(g, cuda_device, 2, S, 8, 128)
+    mask = torch.ones(2, S, dtype=torch.int32, device=cuda_device)
+    mask[1, :7] = 0
+    mask[1, 4 * S // 5:] = 0
+    before = dict(kernels.launch_counts)
+    got = fa.decoder_attention(q, k, v, mask)
+    for name in ("decoder_attention", "key_norm_max"):
+        assert kernels.launch_counts[name] == before[name] + 1, name
+    assert kernels.launch_counts["decoder_attention_lse"] == before[
+        "decoder_attention_lse"]
+    _assert_close(got, fa.decoder_attention_plain(q, k, v, mask))
+    dead = ~fa._decoder_allowed(q, k, mask, None).any(-1)
+    assert dead.sum().item() == 7 and not got[dead].any()
+    # A suffix of 33 queries at each row's own offset over the S slots.
+    n = min(33, S - 1)
+    off = torch.tensor([S - n, S // 3], dtype=torch.int32,
+                       device=cuda_device)
+    qs = _randn(g, cuda_device, 2, n, 16, 128)
+    got = fa.decoder_attention(qs, k, v, mask, off)
+    _assert_close(got, fa.decoder_attention_plain(qs, k, v, mask, off))
+    dead = ~fa._decoder_allowed(qs, k, mask, off).any(-1)
+    assert not got[dead].any()
+    # K1 on views into one qkv tensor, 16 heads of 64.
+    q, k, v = _qkv_views(g, cuda_device, 2, S, H=16)
+    before = dict(kernels.launch_counts)
+    with torch.no_grad():
+        got = fa.vit_attention(q, k, v)
+    for name in ("vit_attention", "key_norm_max"):
+        assert kernels.launch_counts[name] == before[name] + 1, name
+    _assert_close(got, fa.vit_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+def test_k1_floor_gives_zero_not_nan_where_the_bound_underflows(cuda_device):
+    """One key 400 times longer than the rest puts the bound thousands of
+    nats above every score: every sum underflows to 0, which the floor
+    (the twin's jnp.maximum(l, 1e-30) rule) turns into an output of
+    exactly 0 in both, never NaN."""
+    g = torch.Generator(device=cuda_device).manual_seed(30)
+    q, k, v = _qkv_views(g, cuda_device, 1, 130)
+    k[0, 5] = 400.0
+    got = fa.vit_attention(q, k, v)
+    want = fa.vit_attention_plain(q, k, v)
+    assert torch.isfinite(got).all()
+    _assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_key_norm_max_matches_twin(cuda_device):
+    """The pre-pass against its twin at D = 64 (qkv views, row stride 3 H D)
+    and 128 (a cache's strided slots), K below, at and past one 32-key
+    chunk, the ViT's 1025 and the long clip's 53,722, with a mask with
+    holes, a fully masked row (bound 0) and none.  The kernel sums the
+    squares exactly in double, the twin in fp32 in torch's order: relative
+    2e-6."""
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    for D, K, with_mask in ((64, 1025, False), (64, 31, False),
+                            (128, 1, True), (128, 32, True),
+                            (128, 3001, True), (128, 53722, True)):
+        if D == 64:
+            k = _qkv_views(g, cuda_device, 2, K, H=16)[1]
+        else:
+            k = _randn(g, cuda_device, 2, K, 2, 8, 128)[:, :, 1]
+        # Varied norms, so the max is one key's; in place, keeping the view.
+        k.mul_((1.0 + 3.0 * torch.rand(2, K, k.shape[2], 1, generator=g,
+                                       device=cuda_device)).to(k.dtype))
+        mask = None
+        if with_mask:
+            mask = (torch.rand(2, K, generator=g, device=cuda_device) > 0.3
+                    ).to(torch.int32)
+            mask[1] = 0
+        before = kernels.launch_counts["key_norm_max"]
+        got = kernels.key_norm_max(k, mask)
+        assert kernels.launch_counts["key_norm_max"] == before + 1
+        want = fa.key_norm_max(k, mask)
+        assert got.shape == want.shape == (2, k.shape[2])
+        assert torch.allclose(got, want, rtol=2e-6, atol=0.0), (D, K)
+        if with_mask:
+            assert not got[1].any()
+
+
+@pytest.mark.cuda
+def test_k1_k2_and_pre_pass_wrappers_raise_instead_of_falling_back(
+        cuda_device):
+    """The sm90 K1 and K2 and the pre-pass refuse a wrong head dim, a
+    non-dense head, a misaligned view and a CPU/CUDA mix; none takes its
+    twin."""
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    q, k, v = _qkv_views(g, cuda_device, 1, 70)
+    kmax = kernels.key_norm_max(k)
+    qd, kd, vd, mask = _decoder_inputs(g, cuda_device)
+    dmax = kernels.key_norm_max(kd, mask)
+    wide = _randn(g, cuda_device, 1, 70, 4, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.vit_attention(wide, wide, wide, kmax, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.decoder_attention(q, k, v, None, kmax, None, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.key_norm_max(_randn(g, cuda_device, 1, 70, 4, 96))
+    # Non-dense heads: every other head of a wider tensor.
+    sparse = _randn(g, cuda_device, 1, 70, 8, 64)[:, :, ::2]
+    with pytest.raises(ValueError, match="dense"):
+        kernels.vit_attention(sparse, sparse, sparse, kmax, 0.125)
+    with pytest.raises(ValueError, match="dense"):
+        kernels.key_norm_max(sparse)
+    # A view whose rows start 8 bytes off a 16-byte boundary.
+    flat = _randn(g, cuda_device, 1, 70 * 4 * 64 + 4)
+    bad = flat[:, 4:].view(1, 70, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.vit_attention(bad, bad, bad, kmax, 0.125)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.key_norm_max(bad)
+    # CPU/CUDA mixes.
+    with pytest.raises(ValueError):
+        kernels.vit_attention(q, k.cpu(), v, kmax, 0.125)
+    with pytest.raises(ValueError):
+        kernels.vit_attention(q, k, v, kmax.cpu(), 0.125)
+    with pytest.raises(ValueError):
+        kernels.decoder_attention(qd, kd, vd, mask.cpu(), dmax, None, 0.125)
+    with pytest.raises(ValueError):
+        kernels.key_norm_max(kd, mask.cpu())
+    with pytest.raises((ValueError, RuntimeError)):
+        fa.decoder_attention(qd, kd.cpu(), vd, mask)
+    with pytest.raises((ValueError, RuntimeError)):
+        fa.vit_attention(q, k.cpu(), v)
 
 
 def _ring_chunk(g, dev, L=128):
