@@ -16,16 +16,19 @@ Phases (any failure raises and exits non-zero):
    alone on the pre-pass's kmax, and the pre-pass against its twin (to
    PREPASS_REL_TOL); the max-abs error relative to the largest output against the
    stated bound, and the median time of each.  Then K1 alone, K1 with the
-   lse (the WMMA template), the K1 op and
+   lse, the K1 op, the K1-lse op (the pre-pass and K1 with the lse) and
    ``F.scaled_dot_product_attention`` in turns at serving's shape.
 3. The decoder kernels against their twins on the same inputs, at serving's
    (2, 2304, 16/8, 128) and (2, 3072, 16/8, 128) bf16 with a ragged mask and
-   dead rows, and at training's (1, T, 16/8, 128) with every key live, T
-   each prompt length of the training batches (so the last tile is partial):
+   dead rows, at training's (1, T, 16/8, 128) with every key live, T
+   each prompt length of the training batches (so the last tile is partial),
+   and at the reward gradient's (1, 3072, 16/8, 128) with phase 14's
+   single-clip mask (the prompt's keys live, the bucket's tail masked):
    K2 without the lse (the op: its pre-pass and its kernel on the Hopper
    template; the kernel alone; the pre-pass to PREPASS_REL_TOL) and with
-   it (the WMMA template; the output to the relative bound, the lse to LSE_TOL,
-   dead rows' output exactly 0 and lse exactly 1e30), then K4a (dK,
+   it (the same template's lse epilogue; the output to the relative bound
+   and bit-equal to K2's without the lse, the lse to LSE_TOL, dead rows'
+   output exactly 0 and lse exactly 1e30), then K4a (dK,
    dV) and K4b (dQ) from the twin's output and lse (each gradient to the
    relative bound, dq exactly 0 on dead rows, dk and dv exactly 0 on masked
    keys); the median time of each kernel and twin.
@@ -62,7 +65,8 @@ Phases (any failure raises and exits non-zero):
    PREPASS_REL_TOL) and K2r's kernel alone on the pre-pass's column; each
    with the share of its bound reached.  The kernels K2, K3 and K2r alone,
    the K2 and K2r ops and ``F.scaled_dot_product_attention`` (the same-run
-   yardstick), timed in turns at (2, 3072, 16/8, 128), and K2r's prefix
+   yardstick), K2 with the lse alone and its op (the pre-pass and K2 with
+   the lse), timed in turns at (2, 3072, 16/8, 128), and K2r's prefix
    rows held
    bit-identical between a prefix-only and a full-prompt prefill of the
    same bf16 q/k/v.  Phase 1 also prints the registers and spills that
@@ -114,7 +118,8 @@ Phases (any failure raises and exits non-zero):
 13. (Run with phases 2, 3, 8 and 10.)  K1 with the lse, K4 nc dK/dV and
    K4 nc dQ (the ViT attention backward) against their twins at K1_SHAPES
    on qkv views with a random dO: outputs and gradients to the relative
-   bound, the lse to LSE_TOL; each with its bound and
+   bound, K1's output with the lse bit-equal to K1's without it, the lse
+   to LSE_TOL; each with its bound and
    ``F.scaled_dot_product_attention`` (forward for K1, the whole backward
    for K4 nc) at the same shape.
 14. The reward gradient (after phase 11, on phase 4's bf16 scorer):
@@ -230,6 +235,9 @@ FRAMES = 8
 # K2's fp32 lse against its twin's, max |kernel - plain| in nats on live
 # rows: about 10x the H100 reading (9.5e-7 at |lse| up to 8.8, one fp32 ulp).
 LSE_TOL = 1e-5
+# Phase 14's single clip, whose prompt sets the reward gradient's K2-lse
+# mask in phase 3.
+SINGLE_CAPTION = "A red fox runs through fresh snow at dawn."
 TRAIN_FRAMES = 2                      # train CLI --num-segments default
 TRAIN_MICRO_BATCHES = 4               # 2 optimizer steps at accumulation 2
 TRAIN_TIMED_STEPS = 8                 # 4 that accumulate, 4 that also step
@@ -575,11 +583,15 @@ def check_vit_backward(randn, shape):
     scale = D ** -0.5
     kmax = kernels.key_norm_max(k)
 
+    alone = kernels.vit_attention(q, k, v, kmax, scale)
+
     def lse_rule(got, ref):
         err = (got[1] - ref[1]).abs().max().item()
         top = ref[1].abs().max().item()
+        same = bool(torch.equal(got[0], alone))
         return (f"lse max_abs_err {err:.3e} (bound {LSE_TOL:.0e}, |lse| up "
-                f"to {top:.2f})", err <= LSE_TOL, {"lse_max_abs_err": err})
+                f"to {top:.2f}), out bit-equal to K1's: {same}",
+                err <= LSE_TOL and same, {"lse_max_abs_err": err})
 
     lse_out = q.new_empty((B, H, S), dtype=torch.float32)
     readings = {"K1 lse": _check_kernel(
@@ -614,10 +626,12 @@ def check_vit_backward(randn, shape):
     return readings
 
 
-def _decoder_inputs(randn, B, T, Hq, Hkv, D, ragged):
+def _decoder_inputs(randn, B, T, Hq, Hkv, D, ragged, live=None):
     """q, k, v, a (B, T) int32 mask and the (B, T) dead rows.  Ragged: row 1
     masks its last 600 keys and its first 5, so its first 5 queries see no
-    key at all (dead rows); otherwise every key is live, as in training."""
+    key at all (dead rows); ``live``: the first ``live`` keys of each row
+    live and the rest masked, as a prompt right-padded to its bucket;
+    otherwise every key is live, as in training."""
     import torch
 
     q, k, v = randn(B, T, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
@@ -625,34 +639,43 @@ def _decoder_inputs(randn, B, T, Hq, Hkv, D, ragged):
     if ragged:
         mask[1, T - 600:] = 0
         mask[1, :5] = 0
+    if live is not None:
+        mask[:, live:] = 0
     dead = mask.cumsum(1) == 0  # causal from 0: row i sees keys 0..i
     return q, k, v, mask, dead
 
 
-def check_decoder_kernels(randn, shape, ragged):
+def check_decoder_kernels(randn, shape, ragged, live=None):
     """K2 without the lse (the op: the pre-pass and the kernel; the kernel
     alone; the pre-pass) and with it, K4a and K4b against their twins on
-    one set of inputs; returns each one's reading by label."""
+    one set of inputs (``_decoder_inputs``); returns each one's reading by
+    label."""
+    import torch
+
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, mask, dead = _decoder_inputs(randn, *shape, ragged)
+    q, k, v, mask, dead = _decoder_inputs(randn, *shape, ragged, live)
     scale = shape[-1] ** -0.5
     kmax = kernels.key_norm_max(k, mask)
     masked = mask == 0
     n_dead, n_masked = int(dead.sum()), int(masked.sum())
     dead_rows = (f"{n_dead} dead rows", lambda got: not got[0][dead].any())
 
+    alone = kernels.decoder_attention(q, k, v, mask, kmax, None, scale)
+
     def lse_rule(got, ref):
         lse, ref_lse = got[1], ref[1]
         dead_l = dead[:, None, :].expand_as(lse)
         live_err = (lse - ref_lse)[~dead_l].abs().max().item()
+        same = bool(torch.equal(got[0], alone))
         held = (live_err <= LSE_TOL and bool((lse[dead_l] == fa.DEAD_LSE).all())
-                and bool((ref_lse[dead_l] == fa.DEAD_LSE).all()))
+                and bool((ref_lse[dead_l] == fa.DEAD_LSE).all()) and same)
         top = ref_lse[~dead_l].abs().max().item()
         return (f"lse max_abs_err {live_err:.3e} on live rows (bound "
                 f"{LSE_TOL:.0e}, |lse| up to {top:.2f}), {n_dead} dead rows "
-                "at 1e30", held, {"lse_max_abs_err": live_err})
+                f"at 1e30, out bit-equal to K2's: {same}", held,
+                {"lse_max_abs_err": live_err})
 
     lse_out = q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
                           dtype=kmax.dtype)
@@ -809,10 +832,10 @@ def time_shifts_in_turns(randn, rounds=10):
     """The three causal forward kernels of the Hopper template on the
     judge's prefill inputs, K2 (global bound), K3 (exact) and K2r (per-row
     bound), launched directly with their bounds reduced beforehand, the K2
-    and K2r ops (each pre-pass and kernel) and
-    ``F.scaled_dot_product_attention`` (the same-run yardstick), timed in
-    turns (K2, K3, K2r, K2 op, K2r op, SDPA, then back) by CUDA events;
-    returns the medians in ms."""
+    and K2r ops (each pre-pass and kernel), K2 with the lse alone and its
+    op, and ``F.scaled_dot_product_attention`` (the same-run yardstick),
+    timed in turns (K2, K3, K2r, K2 op, K2r op, K2 lse, K2 lse op, SDPA,
+    then back) by CUDA events; returns the medians in ms."""
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
@@ -828,6 +851,10 @@ def time_shifts_in_turns(randn, rounds=10):
                                                       None, scale),
         "K2 op": lambda: fa.decoder_attention(q, k, v, mask),
         "K2r op": lambda: fa.decoder_attention_rows(q, k, v, mask),
+        "K2 lse": lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                                    scale, with_lse=True),
+        "K2 lse op": lambda: fa._decoder_attention_fwd(q, k, v, mask, None,
+                                                       scale, with_lse=True),
         "SDPA": _sdpa(q, k, v, causal=True),
     }
     order = list(runs) + list(runs)[::-1]
@@ -836,14 +863,15 @@ def time_shifts_in_turns(randn, rounds=10):
           + ", ".join(f"{n} {t:.4f} ms" for n, t in med.items())
           + f" (median of {2 * rounds} each; against SDPA: "
           + ", ".join(f"{n} {t / med['SDPA']:.3f}" for n, t in med.items()
-                      if n != "SDPA") + ")")
+                      if n != "SDPA")
+          + f"; K2 lse/K2 {med['K2 lse'] / med['K2']:.3f}, K2 lse op/K2 op "
+          f"{med['K2 lse op'] / med['K2 op']:.3f})")
     return med
 
 
 def time_k1_in_turns(randn, rounds=10):
-    """K1 on the Hopper template, K1 with the lse (the WMMA template, the
-    form K1 had before the Hopper template), both launched directly on the
-    pre-pass's kmax, the K1 op (pre-pass and kernel) and
+    """K1 and K1 with the lse, both launched directly on the pre-pass's
+    kmax, the K1 op and the K1-lse op (each pre-pass and kernel) and
     ``F.scaled_dot_product_attention`` at serving's ViT shape on qkv views,
     timed in turns by CUDA events; returns the medians in ms."""
     from mjvideo_tpu_torch import kernels
@@ -859,16 +887,19 @@ def time_k1_in_turns(randn, rounds=10):
         "K1 lse": lambda: kernels.vit_attention(q, k, v, kmax, scale,
                                                 with_lse=True),
         "K1 op": lambda: fa.vit_attention(q, k, v),
+        "K1 lse op": lambda: fa._vit_attention_fwd(q, k, v, scale,
+                                                   with_lse=True),
         "SDPA": _sdpa(q, k, v, causal=False),
     }
     order = list(runs) + list(runs)[::-1]
     med = _in_turns(runs, order, rounds)
     print(f"K1 at {K1_SHAPES[0]}, in turns: "
           + ", ".join(f"{n} {t:.4f} ms" for n, t in med.items())
-          + f" (median of {2 * rounds} each; K1/SDPA "
-          f"{med['K1'] / med['SDPA']:.3f}, K1/K1 lse "
-          f"{med['K1'] / med['K1 lse']:.3f}, K1 op/SDPA "
-          f"{med['K1 op'] / med['SDPA']:.3f})")
+          + f" (median of {2 * rounds} each; against SDPA: "
+          + ", ".join(f"{n} {t / med['SDPA']:.3f}" for n, t in med.items()
+                      if n != "SDPA")
+          + f"; K1 lse/K1 {med['K1 lse'] / med['K1']:.3f}, K1 lse op/K1 op "
+          f"{med['K1 lse op'] / med['K1 op']:.3f})")
     return med
 
 
@@ -1962,24 +1993,43 @@ def make_scorer(generator, device):
     return scorer
 
 
+def clip_prompt(chat_cfg, tok, gating_pattern, caption):
+    """The scoring prompt of one FRAMES-frame clip (``prepare_chat_input``)."""
+    from mjvideo_tpu_torch import build_video_question, prepare_chat_input
+
+    return prepare_chat_input(chat_cfg, tok,
+                              build_video_question(caption, FRAMES),
+                              num_patches_list=[1] * FRAMES,
+                              gating_pattern=gating_pattern)
+
+
+def single_clip_length():
+    """The prompt length of phase 14's single clip, as ``make_scorer``'s
+    tokenizer and scorer (its config rebased on the tokenizer) and
+    ``make_requests`` make it."""
+    from mjvideo_tpu_torch import ByteTokenizer, mjvideo_2b_config
+    from mjvideo_tpu_torch.data.prompts import rebase_img_context_id
+
+    cfg = mjvideo_2b_config()
+    tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
+    chat = clip_prompt(rebase_img_context_id(cfg, tok).chat, tok,
+                       tok.gating_pattern(), SINGLE_CAPTION)
+    return chat.input_ids.shape[1]
+
+
 def make_requests(scorer, rng):
     """One single clip and one pair: (pixels, ids list, gating positions)."""
     import numpy as np
 
-    from mjvideo_tpu_torch import build_video_question, prepare_chat_input
-
-    tok = scorer.tokenizer
     size = scorer.cfg.chat.image_size
 
     def clip(caption):
-        chat = prepare_chat_input(
-            scorer.cfg.chat, tok, build_video_question(caption, FRAMES),
-            num_patches_list=[1] * FRAMES,
-            gating_pattern=scorer.gating_pattern)
+        chat = clip_prompt(scorer.cfg.chat, scorer.tokenizer,
+                           scorer.gating_pattern, caption)
         pix = rng.normal(size=(FRAMES, size, size, 3)).astype(np.float32)
         return pix, chat.input_ids[0], chat.gating_pos
 
-    single = [clip("A red fox runs through fresh snow at dawn.")]
+    single = [clip(SINGLE_CAPTION)]
     pair = [clip("Two kittens chase a ball of yarn across a wooden floor."),
             clip("A sailboat drifts past a lighthouse while gulls circle "
                  "overhead and waves break on the rocks below.")]
@@ -2457,10 +2507,11 @@ def main() -> int:
         # depend on how many inputs the kernel checks drew before them.
         return torch.Generator(device=dev).manual_seed(SEED)
 
-    g = generator()
+    def drawer(g):
+        return lambda *shape: torch.randn(shape, generator=g,
+                                          device=dev).to(torch.bfloat16)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    randn = drawer(generator())
 
     # Phases 2 and 3: each kernel against its plain twin, at serving's
     # shapes and at training's.
@@ -2470,6 +2521,12 @@ def main() -> int:
     dec = {s: check_decoder_kernels(randn, s, ragged=True) for s in K2_SHAPES}
     dec.update({s: check_decoder_kernels(randn, s, ragged=False)
                 for s in train_shapes})
+    # The reward gradient's decoder: the single clip's prompt in its
+    # bucket, drawn from a generator of its own, so that the checks after
+    # it draw what they drew before it was added.
+    grad_shape, grad_live = (1,) + K2_SHAPES[-1][1:], single_clip_length()
+    dec[grad_shape] = check_decoder_kernels(drawer(generator()), grad_shape,
+                                            ragged=False, live=grad_live)
     judge_k = {name: check_judge_kernels(randn, name, shape)
                for name, shape in JUDGE_SHAPES.items()}
     turns = time_shifts_in_turns(randn)
@@ -2500,6 +2557,9 @@ def main() -> int:
     for pix, ids, _ in requests:
         print(f"request: {len(ids)} clip(s), {pix.shape[0]} tiles, prompt "
               f"lengths {[len(i) for i in ids]}")
+    if len(requests[0][1][0]) != grad_live:
+        raise RuntimeError(f"phase 3 checked the single clip at {grad_live} "
+                           f"live keys, its prompt has {len(requests[0][1][0])}")
 
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
@@ -2616,15 +2676,20 @@ def main() -> int:
          **served_k1["K1"], "kernel_alone": brief(served_k1["K1 kernel"]),
          "kernel_ms_in_turns": k1_turns["K1"],
          "op_ms_in_turns": k1_turns["K1 op"],
-         "lse_kernel_ms_in_turns": k1_turns["K1 lse"],
          "sdpa_ms_in_turns": k1_turns["SDPA"],
          "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K1", "K1 kernel")}
                        for sh, r in k1.items()}},
         {"name": "vit_attention_lse", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/vit_attention.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:153",
          **counts("vit_attention_lse"), "shape": K1_SHAPES[0],
-         **vit_bwd[K1_SHAPES[0]]["K1 lse"]},
+         **vit_bwd[K1_SHAPES[0]]["K1 lse"],
+         "kernel_ms_in_turns": k1_turns["K1 lse"],
+         "op_ms_in_turns": k1_turns["K1 lse op"],
+         "k1_kernel_ms_in_turns": k1_turns["K1"],
+         "sdpa_ms_in_turns": k1_turns["SDPA"],
+         "at_shapes": {str(sh): brief(r["K1 lse"])
+                       for sh, r in vit_bwd.items()}},
         {"name": "vit_attention_bwd_dkdv", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/vit_attention_bwd.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:603",
@@ -2653,9 +2718,14 @@ def main() -> int:
          **dec[served]["K2 pre-pass"],
          "vit": {"shape": K1_SHAPES[0], **brief(served_k1["K1 pre-pass"])}},
         {"name": "decoder_attention_lse", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:407",
-         **counts("decoder_attention_lse"), "shape": trained, **lse},
+         **counts("decoder_attention_lse"), "shape": trained, **lse,
+         "kernel_ms_in_turns": turns["K2 lse"],
+         "op_ms_in_turns": turns["K2 lse op"],
+         "k2_kernel_ms_in_turns": turns["K2"],
+         "sdpa_ms_in_turns": turns["SDPA"], "turns_shape": judged,
+         "at_shapes": {str(sh): brief(r["K2 lse"]) for sh, r in dec.items()}},
         {"name": "decoder_attention_bwd_dkdv", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_bwd.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:603",

@@ -1,38 +1,26 @@
-// Attention forwards with the lse for Hopper (sm_90a), the first (WMMA)
-// template: K1 lse, K2 lse and K3 lse.
+// K3 lse, the exact attention forward with the lse, for Hopper (sm_90a) on
+// the first (WMMA) template.
 //
-// Replaces these Pallas TPU kernels of mjvideo_tpu/ops/flash_attention.py:
-//   K1 lse _fwd_nc_kernel(with_lse=True) (:99, :153-156; ViT: non-causal,
-//       maskless, whole kv row per program): the differentiable ViT path
-//   K2 lse _fwd_bound_kernel(with_lse=True) (:318, :407-412; decoder:
-//       causal, (B, K) key mask, GQA h -> h // G): the training forward
-//   K3 lse _fwd_kernel(with_lse=True) (the exact online softmax with its
-//       lse, causal or not: ring sequence parallelism and the training
-//       forward of the exact path)
-// K1, K2, K3 and K2r without the lse run on decoder_attention_sm90.cuh.
-// K1 lse and K2 lse shift the softmax by the Cauchy-Schwarz bound
-//   m_i = |scale| * |q_i| * kmax >= s_ij   for every visible j,
-// with kmax the largest masked key norm of the (b, kv head), reduced by
-// the pre-pass key_norm_max (decoder_attention.cu).  The bound is
-// constant along a row, so there is no running max and no rescale: each
-// CTA keeps l_i = sum_j exp(s_ij - m_i) and acc_i = sum_j p_ij v_j over its
-// kv tiles and divides once at the end.
-// K3 lse keeps the exact running row max m_i instead: per kv tile it takes
-// the tile's row max, rescales l_i and acc_i by alpha = exp(m_old - m_new)
-// and sums exp(s_ij - m_new).  Masked scores are the finite kNegInf (-1e30)
-// as in _fwd_kernel, never -inf: a row that has seen no live key yet keeps
+// Replaces _fwd_kernel(with_lse=True) of mjvideo_tpu/ops/flash_attention.py
+// (:260, :526-530): the exact online softmax with its lse, causal or not
+// (ring sequence parallelism and the training forward of the exact path).
+// K1, K2, K3 and K2r, and K1 lse and K2 lse, run on
+// decoder_attention_sm90.cuh.  The ViT attention variants
+// (vit_attention_variants.cu) use this header's helpers.
+// The kernel keeps the exact running row max m_i: per kv tile it takes the
+// tile's row max, rescales l_i and acc_i by alpha = exp(m_old - m_new) and
+// sums exp(s_ij - m_new).  Masked scores are the finite kNegInf (-1e30) as
+// in _fwd_kernel, never -inf: a row that has seen no live key yet keeps
 // m = kNegInf and its masked keys briefly give p = 1, which the first live
 // key's alpha = exp(kNegInf - m) = 0 wipes; a row that never sees one ends
 // with m <= kNegInf / 2 and gives 0 and kDeadLse.
 //
-// What bounds it on this card: at the scoring and judge shapes (ViT S =
-// 1025, D = 64; decoder T = 2304-3072, D = 128) attention is compute-bound
-// on the two products; q/k/v are read once per q tile, mostly from L2.  The
-// TPU kernel held a whole kv row in VMEM; an SM has at most 227 KB of shared
-// memory, so this design walks the kv row in 64-key tiles and keeps only the
-// 64-row q tile, one k tile, one v tile and per-warp score scratch resident
-// (54 KB at D = 64 for K1 lse, 95 KB at D = 128 for K2 lse and K3 lse: 4 or
-// 2 CTAs per SM).
+// What bounds it on this card: at the ring's chunks (768 queries and keys,
+// D = 128) attention is compute-bound on the two products; q/k/v are read
+// once per q tile, mostly from L2.  The TPU kernel held a whole kv row in
+// VMEM; an SM has at most 227 KB of shared memory, so this design walks the
+// kv row in 64-key tiles and keeps only the 64-row q tile, one k tile, one
+// v tile and per-warp score scratch resident (95 KB: 2 CTAs per SM).
 //
 // Design (first, simple version): one CTA of 4 warps per (b, q head,
 // 64-row q tile); each warp owns 16 q rows.  Tiles are staged through shared
@@ -41,21 +29,19 @@
 // cores through WMMA 16x16x16 bf16 fragments with fp32 accumulation; the exp
 // pass reads the fp32 scores row by row, lane j on key j, and p is rounded to
 // bf16 before the p @ v product, as the TPU kernels do.  Causal CTAs stop at
-// the last kv tile that touches the diagonal.  Tails (S = 1025, ragged T) are
-// masked in the kernel: keys past K are staged as zeros and never visible.
-// K3 lse's rescale never depends on the WMMA accumulator's register layout,
+// the last kv tile that touches the diagonal.  Tails (ragged T) are masked
+// in the kernel: keys past K are staged as zeros and never visible.
+// The rescale never depends on the WMMA accumulator's register layout,
 // which is not documented: when some row of the warp has alpha != 1, the
 // warp stores its accumulator fragments to its fp32 score scratch (free once
 // the exp pass has written p), scales each row there by its alpha and loads
 // the fragments back.  Every lane holds every row's m and alpha (the row max
 // is a warp reduction), so the test is warp-uniform.
 // Each row's true log-sum-exp, m_i + log(l_i), or kDeadLse where the row is
-// dead, is written beside the output: shift invariance makes it the exact
-// lse whatever the shift, so the backward kernels (decoder_attention_bwd.cu,
-// vit_attention_bwd.cu) need no bound of their own.
-// Later work: move these kernels onto decoder_attention_sm90.cuh's wgmma,
-// TMA and register-resident softmax with an lse epilogue, each as its own
-// measured change.
+// dead, is written beside the output for the backward kernels
+// (decoder_attention_bwd.cu) and the ring's merge.
+// Later work: move K3 lse onto decoder_attention_sm90.cuh's lse epilogue
+// (its kExact shift keeps m in log2 units).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,12 +61,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kLdP = kBlockK + 8;  // bf16 p rows, padded
 constexpr float kDeadLse = 1e30f;  // DEAD_LSE of flash_attention.py
 constexpr float kNegInf = -1e30f;  // NEG_INF of flash_attention.py
-
-// How each row's softmax is shifted.
-enum class Shift {
-  kGlobalBound,  // K1 lse, K2 lse: |scale| |q_i| kmax[b, kv head]
-  kExact,        // K3 lse: the running row max, with the rescale
-};
 
 template <int D>
 struct Smem {
@@ -129,16 +109,12 @@ __device__ __forceinline__ float warp_max(float x) {
 
 // q: (B, Q, Hq, D) with strides (qsb, qss, D, 1); k, v: (B, K, Hkv, D) with
 // strides (ksb, kss, D, 1) and (vsb, vss, D, 1); out: dense (B, Q, Hq, D).
-// mask: (B, K) int32 or null; q_offset: (B,) or null.  kmax: (B, Hkv) fp32
-// for kGlobalBound, unused for kExact.
-// FLOOR: K1's rule, l floored at 1e-30.  Otherwise K2's: l == 0 gives 0
-// (K3: a row whose m never left kNegInf gives 0).
-// lse: (B, Hq, Q) fp32.
-template <int D, bool CAUSAL, bool FLOOR, Shift SHIFT = Shift::kGlobalBound>
+// mask: (B, K) int32 or null; q_offset: (B,) or null.  A row whose m never
+// left kNegInf gives 0.  lse: (B, Hq, Q) fp32.
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const int* __restrict__ mask,
-                       const float* __restrict__ kmax,
                        const int* __restrict__ q_offset, bf16* __restrict__ out,
                        int Q, int K, int Hq, int Hkv, long long qsb,
                        long long qss, long long ksb, long long kss,
@@ -147,7 +123,6 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using S = Smem<D>;
   constexpr int LT = S::kLdT;
   constexpr int LS = S::kLdS;
-  constexpr bool kExactMax = SHIFT == Shift::kExact;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = reinterpret_cast<bf16*>(smem + S::kQ);
@@ -174,23 +149,10 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage_tile<D, kBlockQ, LT>(Qs, qb, qss, q0, Q);
   __syncthreads();
 
-  // Each row's shift, held by every lane: the bound m_r = |q_r| * kmax *
-  // |scale|, fixed for the whole walk, or K3's running max from kNegInf.
+  // Each row's running max, held by every lane, from kNegInf.
   float m[16];
-  if (kExactMax) {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) m[r] = kNegInf;
-  } else {
-    const float kscale = kmax[b * Hkv + hk] * fabsf(scale);
-    for (int r = 0; r < 16; ++r) {
-      float qn2 = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        const float x = __bfloat162float(Qw[r * LT + c]);
-        qn2 += x * x;
-      }
-      m[r] = sqrtf(warp_sum(qn2)) * kscale;
-    }
-  }
+  for (int r = 0; r < 16; ++r) m[r] = kNegInf;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_frag[D / 16];
 #pragma unroll
@@ -228,9 +190,9 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
 
-    // p = exp(s * scale - m) where the key is visible.  Lane j serves keys
-    // k0 + j and k0 + j + 32 of every row.  The bound shifts give masked
-    // keys p = 0; K3 gives them the score kNegInf, as _fwd_kernel does.
+    // p = exp(s * scale - m), masked keys at the score kNegInf, as
+    // _fwd_kernel does.  Lane j serves keys k0 + j and k0 + j + 32 of every
+    // row.
     bool key_ok[2];
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
@@ -240,7 +202,7 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         key_ok[h2] = key_ok[h2] && mask[(long long)b * K + j] != 0;
       }
     }
-    float alpha[16];  // K3: exp(m_old - m_new) per row
+    float alpha[16];  // exp(m_old - m_new) per row
     bool rescale = false;
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
@@ -252,27 +214,24 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ok[h2] = key_ok[h2];
         if (CAUSAL) ok[h2] = ok[h2] && k0 + c <= row0 + r;
         s[h2] = Sw[r * LS + c] * scale;
-        if (kExactMax && !ok[h2]) s[h2] = kNegInf;
+        if (!ok[h2]) s[h2] = kNegInf;
       }
-      if (kExactMax) {
-        const float m_new = fmaxf(m[r], warp_max(fmaxf(s[0], s[1])));
-        alpha[r] = expf(m[r] - m_new);
-        rescale = rescale || alpha[r] != 1.f;
-        m[r] = m_new;
-        l[r] *= alpha[r];
-      }
+      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[0], s[1])));
+      alpha[r] = expf(m[r] - m_new);
+      rescale = rescale || alpha[r] != 1.f;
+      m[r] = m_new;
+      l[r] *= alpha[r];
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
-        const float p =
-            (kExactMax || ok[h2]) ? expf(s[h2] - m[r]) : 0.f;
+        const float p = expf(s[h2] - m[r]);
         l[r] += p;
         Pw[r * kLdP + lane + 32 * h2] = __float2bfloat16(p);
       }
     }
     __syncwarp();
 
-    // K3: acc *= alpha row by row, through the (now free) score scratch.
-    if (kExactMax && rescale) {
+    // acc *= alpha row by row, through the (now free) score scratch.
+    if (rescale) {
 #pragma unroll
       for (int n = 0; n < D / 16; ++n) {
         wmma::store_matrix_sync(Sw + n * 16, o_frag[n], LS,
@@ -317,8 +276,8 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lr = warp_sum(l[r]);
     const int qi = q0 + warp * 16 + r;
     if (qi >= Q) continue;
-    // K3's dead row: m never left kNegInf.  The bound shifts': l == 0.
-    const bool dead = kExactMax ? m[r] <= 0.5f * kNegInf : !(lr > 0.f);
+    // A dead row: m never left kNegInf.
+    const bool dead = m[r] <= 0.5f * kNegInf;
     if (lane == 0) {
       lse[((long long)b * Hq + h) * Q + qi] =
           dead ? kDeadLse : m[r] + logf(fmaxf(lr, 1e-30f));
@@ -326,28 +285,19 @@ bound_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* orow = out + (((long long)b * Q + qi) * Hq + h) * D;
     for (int c = lane; c < D; c += 32) {
       const float acc = Sw[r * LS + c];
-      float o;
-      if (FLOOR) {
-        o = acc / fmaxf(lr, 1e-30f);
-      } else if (kExactMax) {
-        o = dead ? 0.f : acc / (lr == 0.f ? 1.f : lr);
-      } else {
-        o = lr > 0.f ? acc / lr : 0.f;
-      }
-      orow[c] = __float2bfloat16(o);
+      orow[c] = __float2bfloat16(dead ? 0.f : acc / (lr == 0.f ? 1.f : lr));
     }
   }
 }
 
-template <int D, bool CAUSAL, bool FLOOR, Shift SHIFT = Shift::kGlobalBound>
+template <int D, bool CAUSAL>
 int launch_bound_attention(const void* q, const void* k, const void* v,
-                           const void* mask, const void* kmax,
-                           const void* q_offset, void* out, void* lse, int B,
-                           int Q, int K, int Hq, int Hkv, long long qsb,
-                           long long qss, long long ksb, long long kss,
-                           long long vsb, long long vss, float scale,
-                           void* stream) {
-  auto kernel = bound_attention_kernel<D, CAUSAL, FLOOR, SHIFT>;
+                           const void* mask, const void* q_offset, void* out,
+                           void* lse, int B, int Q, int K, int Hq, int Hkv,
+                           long long qsb, long long qss, long long ksb,
+                           long long kss, long long vsb, long long vss,
+                           float scale, void* stream) {
+  auto kernel = bound_attention_kernel<D, CAUSAL>;
   const size_t smem = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -356,9 +306,8 @@ int launch_bound_attention(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(mask),
-      static_cast<const float*>(kmax), static_cast<const int*>(q_offset),
-      static_cast<bf16*>(out), Q, K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss,
-      scale, static_cast<float*>(lse));
+      static_cast<const int*>(q_offset), static_cast<bf16*>(out), Q, K, Hq,
+      Hkv, qsb, qss, ksb, kss, vsb, vss, scale, static_cast<float*>(lse));
   return int(cudaGetLastError());
 }
 

@@ -1,18 +1,17 @@
-// K2: decoder attention on Hopper.  Replaces _fwd_bound_kernel
+// K2 and K2 lse: decoder attention on Hopper.  Replaces _fwd_bound_kernel
 // (mjvideo_tpu/ops/flash_attention.py:318, reached through _fwd_impl with
 // norm_bound, host side :484-511): causal attention with a (B, K) key mask,
 // GQA (q head h reads kv head h // G), a per-row q_offset (null = 0), the
 // bound shift with kmax the largest masked key norm of each (b, kv head),
-// and rows whose sum is 0 giving 0.  A null lse (serving, the judge's
-// scorer-side decoder) runs the wgmma/TMA template of
+// and rows whose sum is 0 giving 0.  Both run the wgmma/TMA template of
 // decoder_attention_sm90.cuh (Config D128, ShiftMode::kKeyMax): K2r's
 // constant-shift body with one bound per (b, kv head).  What bounds it and
 // the design: see that header.
 //
-// A non-null lse selects the WMMA template of bound_attention.cuh, which
-// also writes the (B, Hq, Q) fp32 true lse (the training forward,
-// _fwd_bound_kernel with with_lse, flash_attention.py:407-412) that the
-// backward kernels read.
+// A null lse: serving, the judge's scorer-side decoder.  A non-null lse
+// (K2 lse, the training forward and the reward gradient: _fwd_bound_kernel
+// with with_lse, flash_attention.py:407-412) also gets the (B, Hq, Q) fp32
+// true lse, kDeadLse on dead rows, that the backward kernels read.
 //
 // kmax comes from the pre-pass key_norm_max below, on the card; the TPU
 // path reduced it with one XLA reduce outside the kernel
@@ -27,8 +26,10 @@
 // main kernel reads at each row's global position clip(q_offset + i, 0,
 // K - 1) for its kv head.  On the TPU this was one XLA reduce outside the
 // kernel (flash_attention.py:489-508).
-#include "bound_attention.cuh"
 #include "decoder_attention_sm90.cuh"
+
+namespace sm90 = mjv::attention_sm90;
+using sm90::bf16;
 
 extern "C" int mjv_decoder_attention(
     const void* q, const void* k, const void* v, const void* mask,
@@ -37,13 +38,7 @@ extern "C" int mjv_decoder_attention(
     long long ksb, long long kss, long long vsb, long long vss, float scale,
     void* stream) {
   if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
-  if (lse == nullptr) {
-    namespace sm90 = mjv::attention_sm90;
-    return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kKeyMax>(
-        q, k, v, mask, kmax, q_offset, out, B, Q, K, Hq, Hkv, qsb, qss, ksb,
-        kss, vsb, vss, scale, stream);
-  }
-  return mjv::launch_bound_attention<128, true, false>(
+  return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kKeyMax>(
       q, k, v, mask, kmax, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb, qss,
       ksb, kss, vsb, vss, scale, stream);
 }
@@ -74,7 +69,7 @@ constexpr int kMaxLoads = 4;  // loads in flight per thread
 
 template <int D>
 __global__ void __launch_bounds__(kMaxThreads)
-key_norm_max_kernel(const mjv::bf16* __restrict__ k,
+key_norm_max_kernel(const bf16* __restrict__ k,
                     const int* __restrict__ mask, float* __restrict__ out,
                     int K, int Hkv, long long ksb, long long kss) {
   constexpr int kLanes = D / 8;  // 16-byte pieces of one key vector
@@ -85,7 +80,7 @@ key_norm_max_kernel(const mjv::bf16* __restrict__ k,
   const int total = min(kMaxKeys, K - j0) * Hkv * kLanes;
   for (int h = threadIdx.x; h < Hkv; h += kMaxThreads) head_max[h] = 0.f;
   __syncthreads();
-  const mjv::bf16* kb = k + b * ksb + j0 * kss;
+  const bf16* kb = k + b * ksb + j0 * kss;
   // The loop bound is uniform over the block, so every lane reaches the
   // shuffles; pieces past the chunk load zeros and are not counted.  A
   // piece's kLanes lanes lie in one warp: i % 32 is the lane.
@@ -144,7 +139,7 @@ extern "C" int mjv_key_norm_max(const void* k, const void* mask, void* out,
   const size_t smem = sizeof(float) * Hkv;
   auto kernel = D == 64 ? key_norm_max_kernel<64> : key_norm_max_kernel<128>;
   kernel<<<grid, kMaxThreads, smem, s>>>(
-      static_cast<const mjv::bf16*>(k), static_cast<const int*>(mask),
+      static_cast<const bf16*>(k), static_cast<const int*>(mask),
       static_cast<float*>(out), K, Hkv, ksb, kss);
   return int(cudaGetLastError());
 }
@@ -163,12 +158,12 @@ constexpr int kScanThreads = 1024;
 constexpr int kNormLoads = 8;  // loads in flight per lane
 
 __global__ void __launch_bounds__(kScanThreads)
-key_norm_cummax_kernel(const mjv::bf16* __restrict__ k,
+key_norm_cummax_kernel(const bf16* __restrict__ k,
                        const int* __restrict__ mask, float* __restrict__ out,
                        int K, int Hkv, long long ksb, long long kss) {
   const int b = blockIdx.x / Hkv;
   const int hk = blockIdx.x % Hkv;
-  const mjv::bf16* kb = k + b * ksb + hk * 128;
+  const bf16* kb = k + b * ksb + hk * 128;
   float* ob = out + (long long)blockIdx.x * K;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -248,7 +243,7 @@ extern "C" int mjv_key_norm_cummax(const void* k, const void* mask,
   if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
   key_norm_cummax_kernel<<<B * Hkv, kScanThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const mjv::bf16*>(k), static_cast<const int*>(mask),
+      static_cast<const bf16*>(k), static_cast<const int*>(mask),
       static_cast<float*>(out), K, Hkv, ksb, kss);
   return int(cudaGetLastError());
 }
@@ -260,8 +255,7 @@ extern "C" int mjv_decoder_attention_rows(
     int Hq, int Hkv, int D, long long qsb, long long qss, long long ksb,
     long long kss, long long vsb, long long vss, float scale, void* stream) {
   if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
-  namespace sm90 = mjv::attention_sm90;
   return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kRows>(
-      q, k, v, mask, kcum, q_offset, out, B, Q, K, Hq, Hkv, qsb, qss, ksb,
-      kss, vsb, vss, scale, stream);
+      q, k, v, mask, kcum, q_offset, out, nullptr, B, Q, K, Hq, Hkv, qsb, qss,
+      ksb, kss, vsb, vss, scale, stream);
 }

@@ -1,6 +1,6 @@
 // Attention forwards for Hopper (sm_90a): wgmma, TMA and a producer warp.
-// One template for four kernels, chosen by the softmax's shift, the head
-// dim and the floor:
+// One template for six kernels, chosen by the softmax's shift, the head
+// dim, the floor and whether an lse pointer is given:
 //   K3  (ShiftMode::kExact) replaces _fwd_kernel
 //       (mjvideo_tpu/ops/flash_attention.py:260, call :579), the exact
 //       online softmax, causal with a per-row q_offset or non-causal;
@@ -18,7 +18,17 @@
 //   K1  (kKeyMax, D = 64, FLOOR) replaces _fwd_nc_kernel with norm_bound
 //       (flash_attention.py:99, :131-153): non-causal and maskless over one
 //       tile's S tokens, the same bound with kmax over all S keys, and the
-//       denominator floored at 1e-30 as jnp.maximum(l, 1e-30) does.
+//       denominator floored at 1e-30 as jnp.maximum(l, 1e-30) does;
+//   K2 lse and K1 lse (kKeyMax with a non-null lse) replace
+//       _fwd_bound_kernel(with_lse=True) (:407-412) and
+//       _fwd_nc_kernel(with_lse=True) (:153-156), the differentiable
+//       forwards: the same body, and the epilogue also writes each row's
+//       true log-sum-exp m + log(l) (B, Hq, Q) fp32 beside the output, or
+//       kDeadLse where l is not positive (the row saw no live key, or every
+//       p underflowed; the TPU's K1 writes m + log(1e-30) there, and either
+//       gives p = 0 in the backward).  m is the bound in nats and l the sum
+//       of the unrounded p (not of bf16(p)), so the backward kernels'
+//       exp(s - lse) is the normalised p that the twin forms.
 // Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128 or 64,
 // with dense heads and 16-byte row strides (the ViT's q/k/v are strided
 // views into one (B, S, 3 H D) qkv tensor); GQA (q head h reads kv head
@@ -80,13 +90,16 @@
 //   row's result does not depend on K (K2r's prefix rows are bit-identical
 //   between a prefix-only and a full-prompt prefill).
 // - The head dim, the consumer warpgroups, the stages and the register
-//   split are a Config: D128 (K3, K2r, K2: 2 warpgroups, 128 q rows, 3
-//   stages of 64 KB) and D64 (K1: 3 warpgroups, 192 q rows, 3 stages of 32
-//   KB), the latter chosen by A/B on the card
+//   split are a Config: D128 (K3, K2r, K2 and K2 lse: 2 warpgroups, 128 q
+//   rows, 3 stages of 64 KB) and D64 (K1 and K1 lse: 3 warpgroups, 192 q
+//   rows, 3 stages of 32 KB), the latter chosen by A/B on the card
 //   (tools/d64_config_ab_torch.py): at D = 64 the accumulator is half as
 //   large, so a third warpgroup fits in the registers (160 a consumer
 //   thread) and keeps more softmax work in flight per SM, which measured
 //   faster than two (PERF.md).
+// - The lse costs one fp32 store per row (one lane of each quad) after the
+//   main loop, behind a branch uniform over the CTA: no instantiation of
+//   its own and nothing in the main loop.
 // The tensor maps are encoded on the host per call with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 // -lcuda at link time).
@@ -106,12 +119,13 @@ constexpr int kBlockK = 128;  // keys per kv tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLog2eLo = 1.925963e-8f;  // log2(e) - kLog2e
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kDeadLse = 1e30f;  // DEAD_LSE of flash_attention.py
 
 // How each row's softmax is shifted.
 enum class ShiftMode {
   kExact,   // K3: the running row max, with the rescale
   kRows,    // K2r: |scale| |q_i| kcum[b, kv head, pos_i]
-  kKeyMax,  // K2, K1: |scale| |q_i| kmax[b, kv head]
+  kKeyMax,  // K2, K1 and their lse forms: |scale| |q_i| kmax[b, kv head]
 };
 
 // The registers a thread may hold after setmaxnreg, given the warpgroups:
@@ -150,8 +164,8 @@ struct Config {
   static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
 };
 
-using D128 = Config<128, 2, 3>;  // K3, K2r, K2
-using D64 = Config<64, 3, 3>;    // K1
+using D128 = Config<128, 2, 3>;  // K3, K2r, K2, K2 lse
+using D64 = Config<64, 3, 3>;    // K1, K1 lse
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -450,6 +464,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
 // d[4 j + 2 + e] at row g + 8 (e = 0, 1).  The same pairs, packed, are the
 // register A fragments of the next product: fragment i = (d[2 i], d[2 i+1]).
 // bound: kcum (B, Hkv, K) under kRows, kmax (B, Hkv) under kKeyMax.
+// lse: (B, Hq, Q) fp32 or null, written only under kKeyMax.
 template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR>
 __global__ void __launch_bounds__(C::kThreads, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tq,
@@ -458,8 +473,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
                       const int* __restrict__ mask,
                       const float* __restrict__ bound,
                       const int* __restrict__ q_offset,
-                      bf16* __restrict__ out, int Q, int K, int Hq, int Hkv,
-                      float scale) {
+                      bf16* __restrict__ out, float* __restrict__ lse,
+                      int Q, int K, int Hq, int Hkv, float scale) {
   constexpr bool kFixed = SHIFT != ShiftMode::kExact;
   constexpr int kStages = C::kStages;
   constexpr int kConsumerWarps = C::kConsumerWarps;
@@ -725,6 +740,11 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int R = q0 + row0 + 8 * r;
     if (R >= Q) continue;  // the q tail: TMA's zero rows
+    if (SHIFT == ShiftMode::kKeyMax && lse != nullptr && c == 0) {
+      // Dead first: a CTA that walked no tile keeps m = -inf and l = 0.
+      lse[((long long)b * Hq + h) * Q + R] =
+          l[r] > 0.f ? m[r] + logf(fmaxf(l[r], 1e-30f)) : kDeadLse;
+    }
     float inv;
     if (FLOOR) {
       inv = 1.f / fmaxf(l[r], 1e-30f);
@@ -793,15 +813,19 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int rows,
 }
 
 // bound: kcum (B, Hkv, K) fp32 under kRows, kmax (B, Hkv) fp32 under
-// kKeyMax, unread under kExact; q_offset read only when CAUSAL.  Returns a
+// kKeyMax, unread under kExact; q_offset read only when CAUSAL; lse: a
+// (B, Hq, Q) fp32 output or null, taken only under kKeyMax.  Returns a
 // cudaError_t.
 template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR = false>
 int launch_attention(const void* q, const void* k, const void* v,
                      const void* mask, const void* bound,
-                     const void* q_offset, void* out, int B, int Q, int K,
-                     int Hq, int Hkv, long long qsb, long long qss,
+                     const void* q_offset, void* out, void* lse, int B, int Q,
+                     int K, int Hq, int Hkv, long long qsb, long long qss,
                      long long ksb, long long kss, long long vsb,
                      long long vss, float scale, void* stream) {
+  if (lse != nullptr && SHIFT != ShiftMode::kKeyMax) {
+    return int(cudaErrorInvalidValue);
+  }
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, q, Q, Hq, B, qss, qsb, C::kD, C::kBlockQ) ||
       !encode_map(&tk, k, K, Hkv, B, kss, ksb, C::kD, kBlockK) ||
@@ -818,7 +842,8 @@ int launch_attention(const void* q, const void* k, const void* v,
            static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<const int*>(mask),
       static_cast<const float*>(bound), static_cast<const int*>(q_offset),
-      static_cast<bf16*>(out), Q, K, Hq, Hkv, scale);
+      static_cast<bf16*>(out), static_cast<float*>(lse), Q, K, Hq, Hkv,
+      scale);
   return int(cudaGetLastError());
 }
 

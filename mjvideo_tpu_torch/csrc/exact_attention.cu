@@ -14,9 +14,9 @@
 // decoder_attention_sm90.cuh: design and bounds there.
 //
 // A non-null lse (K3 lse: _fwd_kernel with with_lse,
-// flash_attention.py:526-530) runs the WMMA template of bound_attention.cuh
-// (Shift::kExact), which also writes the (B, Hq, Q) fp32 true
-// lse, m + log(l), or kDeadLse on a row that saw no live key.  Ring
+// flash_attention.py:526-530) runs the WMMA template of bound_attention.cuh,
+// which also writes the (B, Hq, Q) fp32 true lse, m + log(l), or kDeadLse
+// on a row that saw no live key.  Ring
 // sequence parallelism merges the chunks of every ring step by it, and the
 // backward kernels (decoder_attention_bwd.cu) read it.  Masked scores there
 // are the finite -1e30, as in _fwd_kernel: with a negative q_offset a q
@@ -36,9 +36,9 @@ int launch_exact_lse(const void* q, const void* k, const void* v,
                      long long qsb, long long qss, long long ksb,
                      long long kss, long long vsb, long long vss, float scale,
                      void* stream) {
-  return mjv::launch_bound_attention<128, CAUSAL, false, mjv::Shift::kExact>(
-      q, k, v, mask, nullptr, CAUSAL ? q_offset : nullptr, out, lse, B, Q, K,
-      Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream);
+  return mjv::launch_bound_attention<128, CAUSAL>(
+      q, k, v, mask, CAUSAL ? q_offset : nullptr, out, lse, B, Q, K, Hq, Hkv,
+      qsb, qss, ksb, kss, vsb, vss, scale, stream);
 }
 
 }  // namespace
@@ -62,9 +62,9 @@ extern "C" int mjv_exact_attention(
   using sm90::D128;
   using sm90::ShiftMode;
   return causal ? sm90::launch_attention<D128, true, ShiftMode::kExact>(
-                      q, k, v, mask, nullptr, q_offset, out, B, Q, K, Hq, Hkv,
-                      qsb, qss, ksb, kss, vsb, vss, scale, stream)
+                      q, k, v, mask, nullptr, q_offset, out, nullptr, B, Q, K,
+                      Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream)
                 : sm90::launch_attention<D128, false, ShiftMode::kExact>(
-                      q, k, v, mask, nullptr, nullptr, out, B, Q, K, Hq, Hkv,
-                      qsb, qss, ksb, kss, vsb, vss, scale, stream);
+                      q, k, v, mask, nullptr, nullptr, out, nullptr, B, Q, K,
+                      Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream);
 }

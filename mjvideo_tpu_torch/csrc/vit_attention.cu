@@ -1,4 +1,4 @@
-// K1: ViT attention on Hopper.  Replaces _fwd_nc_kernel
+// K1 and K1 lse: ViT attention on Hopper.  Replaces _fwd_nc_kernel
 // (mjvideo_tpu/ops/flash_attention.py:99) with norm_bound=True: non-causal,
 // maskless MHA over one tile's S tokens (S = 1025 on the 448 px path, taken
 // as it is; the kernel masks its own tail instead of the TPU's 1032 pre-pad
@@ -7,23 +7,21 @@
 // pre-pass key_norm_max (decoder_attention.cu), where the TPU kernel
 // reduced it inside each program (flash_attention.py:131-135).
 //
-// A null lse (serving, the frozen ViT of training, the judge's video
-// encode) runs the wgmma/TMA template of decoder_attention_sm90.cuh at
-// D = 64 (Config D64, ShiftMode::kKeyMax, FLOOR): q/k/v are strided views
-// into one (B, S, 3 H D) qkv tensor, which the tensor maps take as they
-// are.  What bounds it and the design: see that header.  At (8, 1025, 16,
-// 64) the two products are 34 GFLOP (0.035 ms at 989 TFLOP/s); the
-// softmax's one exp2 per score on the special-function unit weighs twice
-// as much against the products as at D = 128, so the D = 64 Config (q rows
-// per CTA, stages, the register split) was chosen by A/B on the card.
+// Both run the wgmma/TMA template of decoder_attention_sm90.cuh at D = 64
+// (Config D64, ShiftMode::kKeyMax, FLOOR): q/k/v are strided views into one
+// (B, S, 3 H D) qkv tensor, which the tensor maps take as they are.  What
+// bounds it and the design: see that header.  At (8, 1025, 16, 64) the two
+// products are 34 GFLOP (0.035 ms at 989 TFLOP/s); the softmax's one exp2
+// per score on the special-function unit weighs twice as much against the
+// products as at D = 128, so the D = 64 Config (q rows per CTA, stages, the
+// register split) was chosen by A/B on the card.
 //
-// A non-null lse selects the WMMA template of bound_attention.cuh, which
-// also writes the (B, H, S) fp32 true lse (the differentiable path,
-// _fwd_nc_kernel with with_lse, flash_attention.py:153-156) that K4 nc
-// (vit_attention_bwd.cu) reads.  On a row whose sum underflowed to 0 it
-// writes kDeadLse (1e30), where the TPU kernel writes m + log(1e-30); both
-// give p = 0 in the backward.
-#include "bound_attention.cuh"
+// A null lse: serving, the frozen ViT of training, the judge's video
+// encode.  A non-null lse (K1 lse, the differentiable path: _fwd_nc_kernel
+// with with_lse, flash_attention.py:153-156) also gets the (B, H, S) fp32
+// true lse that K4 nc (vit_attention_bwd.cu) reads.  On a row whose sum
+// underflowed to 0 it holds kDeadLse (1e30), where the TPU kernel writes
+// m + log(1e-30); both give p = 0 in the backward.
 #include "decoder_attention_sm90.cuh"
 
 extern "C" int mjv_vit_attention(const void* q, const void* k, const void* v,
@@ -33,14 +31,9 @@ extern "C" int mjv_vit_attention(const void* q, const void* k, const void* v,
                                  long long vsb, long long vss, float scale,
                                  void* stream) {
   if (D != 64) return int(cudaErrorInvalidValue);  // InternViT-300M heads
-  if (lse == nullptr) {
-    namespace sm90 = mjv::attention_sm90;
-    return sm90::launch_attention<sm90::D64, false, sm90::ShiftMode::kKeyMax,
-                                  true>(q, k, v, nullptr, kmax, nullptr, out,
-                                        B, S, S, H, H, qsb, qss, ksb, kss, vsb,
-                                        vss, scale, stream);
-  }
-  return mjv::launch_bound_attention<64, false, true>(
-      q, k, v, nullptr, kmax, nullptr, out, lse, B, S, S, H, H, qsb, qss, ksb,
-      kss, vsb, vss, scale, stream);
+  namespace sm90 = mjv::attention_sm90;
+  return sm90::launch_attention<sm90::D64, false, sm90::ShiftMode::kKeyMax,
+                                true>(q, k, v, nullptr, kmax, nullptr, out,
+                                      lse, B, S, S, H, H, qsb, qss, ksb, kss,
+                                      vsb, vss, scale, stream);
 }

@@ -208,8 +208,8 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1.  q/k/v: (B, S, H, 64) bf16 with dense heads (row strides free);
     kmax: (B, H) fp32 (``key_norm_max``).  Returns a dense (B, S, H, D)
     bf16 tensor, and with ``with_lse`` also the (B, H, S) fp32 lse (1e30 on
-    a row whose sum underflowed).  Without the lse it runs on the wgmma/TMA
-    template (``decoder_attention_sm90.cuh``), with it on the WMMA one."""
+    a row whose sum underflowed).  With the lse or without, it runs on the
+    wgmma/TMA template (``decoder_attention_sm90.cuh``)."""
     name = "vit_attention"
     _check_qkv(name, 64, q, k, v)
     B, S, H, D = q.shape
@@ -317,8 +317,8 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32
     (``key_norm_max``); q_offset: (B,) int32 or None (= 0).  Returns a
     dense (B, Q, Hq, D) bf16 tensor, and with ``with_lse`` also the (B, Hq,
-    Q) fp32 lse (1e30 on dead rows).  Without the lse it runs on the
-    wgmma/TMA template, with it on the WMMA one."""
+    Q) fp32 lse (1e30 on dead rows).  With the lse or without, it runs on
+    the wgmma/TMA template."""
     name = "decoder_attention"
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset)

@@ -13,7 +13,12 @@ against the non-causal ``norm_bound`` path, both in Pallas interpret mode
 in {127, 128, 129, 1025} and q rows 63, 64, 65, 127, 128, 129 and, for K1,
 191-193; GQA with a per-row q_offset; a left-padded row whose first queries
 see no key.  The same twins are held on bf16 inputs, the kernels' dtype,
-against the same JAX paths on the same bf16 values.  Tolerances: the fp32
+against the same JAX paths on the same bf16 values.  The K1-lse and K2-lse
+twins (``return_lse=True``) are held at the same edges against
+``_fwd_impl(..., with_lse=True, norm_bound=True, interpret=True)``, whose
+(B, Hq, 8, Qp) lse is read at ``[:, :, 0, :Q]``: live rows to LSE_TOL nats
+(fp32 sums in another order, an ulp or two of an lse near 10), K2's dead
+rows ``DEAD_LSE`` in both.  Tolerances: the fp32
 norms are sums of squares taken in another order than XLA's, so relative
 1e-6, on bf16 keys too (the twin, like ``_fwd_impl``, widens them to fp32
 first); the attention twins atol 2e-5 on fp32 inputs, as
@@ -30,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from mjvideo_tpu.ops.flash_attention import flash_attention
+from mjvideo_tpu.ops.flash_attention import _fwd_impl, flash_attention
 from mjvideo_tpu_torch import kernels
 from mjvideo_tpu_torch.ops import flash_attention as tfa
 
@@ -140,6 +145,17 @@ def _k2_inputs(case):
     return q, k, v, mask, off
 
 
+LSE_TOL = 1e-5
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
 @pytest.mark.parametrize("case", sorted(K2_CASES))
 def test_k2_twin_matches_pallas_bound_kernel_at_tile_edges(case):
     """The K2 twin (``decoder_attention`` on the CPU) against
@@ -162,8 +178,34 @@ def test_k2_twin_matches_pallas_bound_kernel_at_tile_edges(case):
     assert np.all(ref[dead.numpy()] == 0.0)
 
 
-@pytest.mark.parametrize("S", [63, 64, 65, 127, 128, 129, 191, 192, 193,
-                               1025])
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_lse_twin_matches_pallas_bound_kernel_at_tile_edges(case):
+    """The K2-lse twin (``decoder_attention_plain(return_lse=True)``)
+    against ``_fwd_bound_kernel(with_lse=True)`` at the K2 cases' edges:
+    the output to 2e-5, live rows' lse to LSE_TOL nats, the left-padded
+    dead rows exactly 0 and ``DEAD_LSE`` in both."""
+    q, k, v, mask, off = _k2_inputs(case)
+    Q = q.shape[1]
+    out, lse = _fwd_impl(_j(q), _j(k), _j(v), _j(mask), _j(off), True, None,
+                         None, None, True, True, norm_bound=True)
+    lse = np.asarray(lse)[:, :, 0, :Q]
+    got, got_lse = tfa.decoder_attention_plain(_t(q), _t(k), _t(v), _t(mask),
+                                               _t(off), return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=2e-5)
+    dead = ~tfa._decoder_allowed(_t(q), _t(k), _t(mask), _t(off)).any(-1)
+    dead = dead[:, None, :].expand(got_lse.shape).numpy()  # (B, Hq, Q)
+    if K2_CASES[case][-1] and off is None:
+        assert dead.any()
+    assert np.all(got_lse.numpy()[dead] == tfa.DEAD_LSE)
+    assert np.all(lse[dead] == tfa.DEAD_LSE)
+    np.testing.assert_allclose(got_lse.numpy()[~dead], lse[~dead],
+                               atol=LSE_TOL, rtol=0)
+
+
+K1_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193, 1025)
+
+
+@pytest.mark.parametrize("S", K1_EDGES)
 def test_k1_twin_matches_pallas_nc_kernel_at_tile_edges(S):
     """The K1 twin (``vit_attention`` on the CPU) against ``_fwd_nc_kernel``
     with ``norm_bound`` through ``flash_attention(causal=False,
@@ -180,6 +222,27 @@ def test_k1_twin_matches_pallas_nc_kernel_at_tile_edges(S):
                               torch.from_numpy(v), causal=False,
                               norm_bound=True).numpy()
     np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("S", K1_EDGES)
+def test_k1_lse_twin_matches_pallas_nc_kernel_at_tile_edges(S):
+    """The K1-lse twin (``vit_attention_plain(return_lse=True)``) against
+    ``_fwd_nc_kernel(with_lse=True)`` at the K1 edges, on S rows as they
+    are (JAX pads them to a multiple of 8 and subtracts the pad's mass):
+    the output to 2e-5 and every row's lse to LSE_TOL nats; no row
+    underflows here, so the two dead-row rules do not differ."""
+    rng = np.random.default_rng(S + 1)
+    q, k, v = (rng.normal(size=(1, S, 2, 64)).astype(np.float32)
+               for _ in range(3))
+    out, lse = _fwd_impl(_j(q), _j(k), _j(v), None, None, False, None, None,
+                         None, True, True, norm_bound=True)
+    got, got_lse = tfa.vit_attention_plain(_t(q), _t(k), _t(v),
+                                           return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=2e-5)
+    assert got_lse.max().item() < tfa.DEAD_LSE * 0.5
+    np.testing.assert_allclose(got_lse.numpy(),
+                               np.asarray(lse)[:, :, 0, :S], atol=LSE_TOL,
+                               rtol=0)
 
 
 BF16_REL_TOL = 2.0 ** -7
@@ -227,6 +290,45 @@ def test_k1_and_k2_twins_match_pallas_kernels_on_bf16_inputs(case):
         assert np.all(got[dead] == 0.0) and np.all(ref[dead] == 0.0)
 
 
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_k1_and_k2_lse_twins_match_pallas_kernels_on_bf16_inputs(case):
+    """The K2-lse and K1-lse twins on bf16 q/k/v against ``_fwd_impl(...,
+    with_lse=True, norm_bound=True)`` on the same bf16 values: the output
+    to 2^-7 of max|JAX|, live rows' lse to LSE_TOL nats (both take the
+    norms, scores and sums in fp32), K2's dead rows DEAD_LSE in both."""
+    kind, B, S, Hq, Hkv, D = BF16_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 1)
+    q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+            for _ in range(2))
+    causal = kind == "k2"
+    mask = None
+    if causal:
+        mask = np.ones((B, S), np.int32)
+        mask[1, :5] = 0
+    J = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    T = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    ref, ref_lse = _fwd_impl(J(q), J(k), J(v), _j(mask), None, causal, None,
+                             None, None, True, True, norm_bound=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    ref_lse = np.asarray(ref_lse)[:, :, 0, :S]
+    if causal:
+        got, lse = tfa.decoder_attention_plain(T(q), T(k), T(v), _t(mask),
+                                               return_lse=True)
+    else:
+        got, lse = tfa.vit_attention_plain(T(q), T(k), T(v), return_lse=True)
+    assert got.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got, lse = got.float().numpy(), lse.numpy()
+    assert np.abs(got - ref).max() <= BF16_REL_TOL * np.abs(ref).max()
+    dead = np.zeros((B, Hq, S), bool)
+    if causal:
+        dead[1, :, :5] = True
+    assert np.all(lse[dead] == tfa.DEAD_LSE)
+    assert np.all(ref_lse[dead] == tfa.DEAD_LSE)
+    np.testing.assert_allclose(lse[~dead], ref_lse[~dead], atol=LSE_TOL,
+                               rtol=0)
+
+
 def test_k1_and_k2_pre_pass_is_counted_under_its_own_name():
     """The pre-pass of K1 and K2 has its own counter, reset with the rest;
     a CPU call takes the twins and launches nothing."""
@@ -244,12 +346,17 @@ def test_k1_and_k2_pre_pass_is_counted_under_its_own_name():
 
 
 def test_k1_and_k2_share_the_hopper_template():
-    """K1 and K2 (without the lse) are launched from the wgmma/TMA template,
-    which every build hashes; the WMMA template keeps only the lse forms."""
+    """K1 and K2, with the lse and without, are launched from the wgmma/TMA
+    template, which every build hashes; the WMMA template keeps only K3
+    lse, the exact shift."""
     assert "decoder_attention_sm90.cuh" in kernels.HEADERS
     vit = (kernels.CSRC / "vit_attention.cu").read_text()
     dec = (kernels.CSRC / "decoder_attention.cu").read_text()
     assert "launch_attention<sm90::D64" in vit
     assert "ShiftMode::kKeyMax" in vit and "ShiftMode::kKeyMax" in dec
+    assert "launch_bound_attention" not in vit
+    assert "launch_bound_attention" not in dec
     wmma = (kernels.CSRC / "bound_attention.cuh").read_text()
-    assert "WITH_LSE" not in wmma
+    assert "WITH_LSE" not in wmma and "kGlobalBound" not in wmma
+    exact = (kernels.CSRC / "exact_attention.cu").read_text()
+    assert "launch_bound_attention" in exact

@@ -407,6 +407,69 @@ def test_k2_and_k1_on_the_sm90_template_match_twins(cuda_device, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [63, 64, 65, 127, 128, 129, 191, 192, 193,
+                               1025])
+def test_k2_lse_and_k1_lse_on_the_sm90_template_match_twins(cuda_device, S):
+    """K2 lse and K1 lse (the Hopper template's lse epilogue) against their
+    twins at the template's tile edges: K2 with GQA and row 1 left-padded
+    by 7 keys (its first 7 rows dead: output exactly 0, lse exactly
+    DEAD_LSE), K1 on qkv views; live rows' lse to LSE_TOL.  On the same
+    inputs and kmax the output with the lse is bit-equal to the output
+    without it."""
+    g = torch.Generator(device=cuda_device).manual_seed(40 + S)
+    q = _randn(g, cuda_device, 2, S, 16, 128)
+    k = _randn(g, cuda_device, 2, S, 8, 128)
+    v = _randn(g, cuda_device, 2, S, 8, 128)
+    mask = torch.ones(2, S, dtype=torch.int32, device=cuda_device)
+    mask[1, :7] = 0
+    scale = 128 ** -0.5
+    kmax = kernels.key_norm_max(k, mask)
+    before = dict(kernels.launch_counts)
+    out, lse = kernels.decoder_attention(q, k, v, mask, kmax, None, scale,
+                                         with_lse=True)
+    for name in ("decoder_attention", "decoder_attention_lse"):
+        assert kernels.launch_counts[name] == before[name] + 1, name
+    ref, ref_lse = fa.decoder_attention_plain(q, k, v, mask, return_lse=True)
+    _assert_close(out, ref)
+    dead = ~fa._decoder_allowed(q, k, mask, None).any(-1)  # (B, Q)
+    assert dead.sum().item() == 7 and not out[dead].any()
+    dead = dead[:, None, :].expand_as(lse)
+    assert bool((lse[dead] == fa.DEAD_LSE).all())
+    assert bool((ref_lse[dead] == fa.DEAD_LSE).all())
+    assert (lse - ref_lse)[~dead].abs().max().item() <= LSE_TOL
+    alone = kernels.decoder_attention(q, k, v, mask, kmax, None, scale)
+    assert torch.equal(out, alone)
+    q, k, v = _qkv_views(g, cuda_device, 2, S, H=16)
+    kmax = kernels.key_norm_max(k)
+    before = dict(kernels.launch_counts)
+    out, lse = kernels.vit_attention(q, k, v, kmax, 64 ** -0.5,
+                                     with_lse=True)
+    for name in ("vit_attention", "vit_attention_lse"):
+        assert kernels.launch_counts[name] == before[name] + 1, name
+    ref, ref_lse = fa.vit_attention_plain(q, k, v, return_lse=True)
+    _assert_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    assert torch.equal(out, kernels.vit_attention(q, k, v, kmax, 64 ** -0.5))
+
+
+@pytest.mark.cuda
+def test_k1_lse_marks_rows_whose_sum_underflows_dead(cuda_device):
+    """Where one key 400 times longer than the rest puts the bound
+    thousands of nats above every score, every sum underflows: K1 lse gives
+    an output of exactly 0 and the lse DEAD_LSE on every row, as its twin
+    does."""
+    g = torch.Generator(device=cuda_device).manual_seed(30)
+    q, k, v = _qkv_views(g, cuda_device, 1, 130)
+    k[0, 5] = 400.0
+    out, lse = kernels.vit_attention(q, k, v, kernels.key_norm_max(k),
+                                     64 ** -0.5, with_lse=True)
+    ref, ref_lse = fa.vit_attention_plain(q, k, v, return_lse=True)
+    assert torch.isfinite(out).all() and not out.any() and not ref.any()
+    assert bool((lse == fa.DEAD_LSE).all())
+    assert bool((ref_lse == fa.DEAD_LSE).all())
+
+
+@pytest.mark.cuda
 def test_k1_floor_gives_zero_not_nan_where_the_bound_underflows(cuda_device):
     """One key 400 times longer than the rest puts the bound thousands of
     nats above every score: every sum underflows to 0, which the floor
