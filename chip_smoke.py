@@ -116,12 +116,17 @@ Phases (any failure raises and exits non-zero):
    held to LOGITS_REL_TOL against the same int4 tree through the plain path
    in fp32; then phase 9's timing, and the decode step against bf16's.
 13. (Run with phases 2, 3, 8 and 10.)  K1 with the lse, K4 nc dK/dV and
-   K4 nc dQ (the ViT attention backward) against their twins at K1_SHAPES
-   on qkv views with a random dO: outputs and gradients to the relative
-   bound, K1's output with the lse bit-equal to K1's without it, the lse
-   to LSE_TOL; each with its bound and
-   ``F.scaled_dot_product_attention`` (forward for K1, the whole backward
-   for K4 nc) at the same shape.
+   K4 nc dQ (the ViT attention backward, on the Hopper backward template
+   ``attention_bwd_sm90.cuh``) against their twins at K1_SHAPES on qkv
+   views with a random dO: outputs and gradients to the relative bound, a
+   second launch of each K4 nc kernel bit-identical to the first, K1's
+   output with the lse bit-equal to K1's without it, the lse to LSE_TOL;
+   each with its bound and ``F.scaled_dot_product_attention`` (forward
+   for K1, the whole backward for K4 nc) at the same shape.  Then K4 nc at
+   (2, S, 16, 64) for S on each side of the template's tile edges
+   (K4NC_EDGES), to the relative bound and bit-identical across two
+   launches, and the pair timed in turns with SDPA's backward at serving's
+   shape.
 14. The reward gradient (after phase 11, on phase 4's bf16 scorer):
    ``score_fn`` of the single 8-frame clip and ``torch.autograd.grad`` to
    its pixels.  The score must equal ``score_batch``'s within SCORE_TOL,
@@ -283,14 +288,18 @@ FP32_OPS_PER_S = 67e12     # outside the tensor cores
 # (key_norm_max) sums them exactly in double, which the twin's fp32 sum
 # lies within about an ulp of.
 PREPASS_REL_TOL = 1e-6
-# The kernels of the Hopper template (decoder_attention_sm90.cuh, namespace
-# mjv::attention_sm90) and the bound pre-passes, as ptxas names them: their
-# registers and spills are printed.  The template has 5 instantiations (K3
-# causal and not, K2r, K2 and K1), key_norm_max 2 (D = 64 and 128),
-# key_norm_cummax 1.
-SM90_KERNELS = ("attention_sm90", "key_norm_cummax_kernel",
-                "key_norm_max_kernel")
-SM90_INSTANTIATIONS = 8
+# The kernels of the Hopper templates (decoder_attention_sm90.cuh, namespace
+# mjv::attention_sm90; attention_bwd_sm90.cuh, mjv::attention_bwd_sm90)
+# and the bound pre-passes, as ptxas names them: their registers and spills
+# are printed.  The forward template has 5 instantiations (K3 causal and
+# not, K2r, K2 and K1), the backward 2 (K4 nc dK/dV and dQ), key_norm_max 2
+# (D = 64 and 128), key_norm_cummax 1.
+SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90",
+                "key_norm_cummax_kernel", "key_norm_max_kernel")
+SM90_INSTANTIATIONS = 10
+# Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
+# 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
+K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
 # K6 and K7 at the 2B's grouped w8a8 products, (M, K, N) with g = 128: the
 # ViT's fc1 over a pair's 16 tiles of 1,025 tokens, the decoder's w1 and w2
 # over a pair in the 3,072 bucket, a decoder wq over one 2,333-token prompt
@@ -607,23 +616,72 @@ def check_vit_backward(randn, shape):
     args = (q, k, v, dout, lse, fa.attention_delta(ref, dout))
     del ref
     backward = _sdpa(q, k, v, causal=False, backward=True)
+
+    def again(kernel_fn):
+        # A second launch, bit-identical to the first: no atomics.
+        def rule(got, ref):
+            second = kernel_fn()
+            second = second if isinstance(second, tuple) else (second,)
+            same = all(torch.equal(a, b) for a, b in zip(got, second))
+            return (f"a second launch bit-identical: {same}", same,
+                    {"bit_identical": same})
+        return rule
+
+    dkdv = lambda: kernels.vit_attention_bwd_dkdv(*args, scale)  # noqa: E731
+    dq = lambda: kernels.vit_attention_bwd_dq(*args, scale)  # noqa: E731
     readings["K4 nc dkdv"] = _check_kernel(
-        f"K4 nc vit_attention_bwd_dkdv {shape}",
-        lambda: kernels.vit_attention_bwd_dkdv(*args, scale),
+        f"K4 nc vit_attention_bwd_dkdv {shape}", dkdv,
         lambda: fa.vit_attention_bwd_plain(*args, want_dq=False)[1:],
-        names=("dk", "dv"),
+        names=("dk", "dv"), extra=again(dkdv),
         work=_attention_work(q, k, v, None, causal=False, matmuls=4,
                              inputs=args[3:6], outputs=(k, v)),
         library=backward)
     readings["K4 nc dq"] = _check_kernel(
-        f"K4 nc vit_attention_bwd_dq {shape}",
-        lambda: kernels.vit_attention_bwd_dq(*args, scale),
+        f"K4 nc vit_attention_bwd_dq {shape}", dq,
         lambda: fa.vit_attention_bwd_plain(*args, want_dkdv=False)[0],
-        names=("dq",),
+        names=("dq",), extra=again(dq),
         work=_attention_work(q, k, v, None, causal=False, matmuls=3,
                              inputs=args[3:6]),
         library=backward)
     return readings
+
+
+def check_k4nc_edges(randn):
+    """Phase 13 at the backward template's tile edges: K4 nc dK/dV and dQ
+    at (2, S, 16, 64) for S in K4NC_EDGES on qkv views, against their twin
+    to KERNEL_REL_TOL of max|plain|, a second launch bit-identical to the
+    first.  Returns the largest relative error by S."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    worst = {}
+    for S in K4NC_EDGES:
+        B, H, D = 2, 16, 64
+        q, k, v = (t.view(B, S, H, D)
+                   for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
+        dout = randn(B, S, H, D)
+        ref, lse = fa.vit_attention_plain(q, k, v, return_lse=True)
+        args = (q, k, v, dout, lse, fa.attention_delta(ref, dout))
+        runs = [(*kernels.vit_attention_bwd_dkdv(*args, D ** -0.5),
+                 kernels.vit_attention_bwd_dq(*args, D ** -0.5))
+                for _ in range(2)]
+        rdq, rdk, rdv = fa.vit_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = {n: _rel_err(g, r)[1] for n, g, r in
+                zip(("dk", "dv", "dq"), runs[0], (rdk, rdv, rdq))}
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        finite = all(torch.isfinite(g).all() for g in runs[0])
+        print(f"K4 nc at (2, {S}, 16, 64): " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items())
+              + f" of max|plain| (bound {KERNEL_REL_TOL:.2e}); a second "
+              f"launch bit-identical: {same}")
+        if not (finite and same and max(errs.values()) <= KERNEL_REL_TOL):
+            raise RuntimeError(f"K4 nc at S = {S}: errors {errs}, finite "
+                               f"{finite}, bit-identical {same}")
+        worst[S] = max(errs.values())
+    return worst
 
 
 def _decoder_inputs(randn, B, T, Hq, Hkv, D, ragged, live=None):
@@ -900,6 +958,37 @@ def time_k1_in_turns(randn, rounds=10):
                       if n != "SDPA")
           + f"; K1 lse/K1 {med['K1 lse'] / med['K1']:.3f}, K1 lse op/K1 op "
           f"{med['K1 lse op'] / med['K1 op']:.3f})")
+    return med
+
+
+def time_k4nc_in_turns(randn, rounds=10):
+    """K4 nc dK/dV and dQ, launched directly at serving's ViT shape on qkv
+    views, and ``F.scaled_dot_product_attention``'s backward (dQ, dK and dV
+    in one call), timed in turns by CUDA events; returns the medians in ms
+    and the pair's sum against SDPA's."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = K1_SHAPES[0]
+    q, k, v = (t.view(B, S, H, D)
+               for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
+    dout = randn(B, S, H, D)
+    ref, lse = fa.vit_attention_plain(q, k, v, return_lse=True)
+    args = (q, k, v, dout, lse, fa.attention_delta(ref, dout), D ** -0.5)
+    del ref
+    runs = {
+        "K4 nc dkdv": lambda: kernels.vit_attention_bwd_dkdv(*args),
+        "K4 nc dq": lambda: kernels.vit_attention_bwd_dq(*args),
+        "SDPA backward": _sdpa(q, k, v, causal=False, backward=True),
+    }
+    order = list(runs) + list(runs)[::-1]
+    med = _in_turns(runs, order, rounds)
+    med["pair / SDPA backward"] = ((med["K4 nc dkdv"] + med["K4 nc dq"])
+                                   / med["SDPA backward"])
+    print(f"K4 nc at {K1_SHAPES[0]}, in turns: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in list(med.items())[:3])
+          + f" (median of {2 * rounds} each); the pair against SDPA's "
+          f"backward {med['pair / SDPA backward']:.3f}")
     return med
 
 
@@ -2534,6 +2623,10 @@ def main() -> int:
     check_k2r_prefix_rows(randn)
     quant_k = check_quant_kernels(randn)
     vit_bwd = {s: check_vit_backward(randn, s) for s in K1_SHAPES}
+    # The tile edges and the timing in turns draw from generators of their
+    # own, so that the checks after them draw what they drew before.
+    k4nc_edges = check_k4nc_edges(drawer(generator()))
+    k4nc_turns = time_k4nc_in_turns(drawer(generator()))
     ring_k = check_ring_kernels(randn)
     # Phase 21: the ViT attention variants, then their A/B harnesses.
     t0 = time.perf_counter()
@@ -2691,15 +2784,25 @@ def main() -> int:
          "at_shapes": {str(sh): brief(r["K1 lse"])
                        for sh, r in vit_bwd.items()}},
         {"name": "vit_attention_bwd_dkdv", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/vit_attention_bwd.cu",
+         "source": "mjvideo_tpu_torch/csrc/attention_bwd_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:603",
          **counts("vit_attention_bwd_dkdv"), "shape": K1_SHAPES[0],
-         **vit_bwd[K1_SHAPES[0]]["K4 nc dkdv"]},
+         **vit_bwd[K1_SHAPES[0]]["K4 nc dkdv"],
+         "kernel_ms_in_turns": k4nc_turns["K4 nc dkdv"],
+         "sdpa_backward_ms_in_turns": k4nc_turns["SDPA backward"],
+         "pair_over_sdpa_backward": k4nc_turns["pair / SDPA backward"],
+         "at_shapes": {str(sh): brief(r["K4 nc dkdv"])
+                       for sh, r in vit_bwd.items()},
+         "tile_edges_rel_err": k4nc_edges},
         {"name": "vit_attention_bwd_dq", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/vit_attention_bwd.cu",
+         "source": "mjvideo_tpu_torch/csrc/attention_bwd_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:656",
          **counts("vit_attention_bwd_dq"), "shape": K1_SHAPES[0],
-         **vit_bwd[K1_SHAPES[0]]["K4 nc dq"]},
+         **vit_bwd[K1_SHAPES[0]]["K4 nc dq"],
+         "kernel_ms_in_turns": k4nc_turns["K4 nc dq"],
+         "sdpa_backward_ms_in_turns": k4nc_turns["SDPA backward"],
+         "at_shapes": {str(sh): brief(r["K4 nc dq"])
+                       for sh, r in vit_bwd.items()}},
         {"name": "decoder_attention", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:318",

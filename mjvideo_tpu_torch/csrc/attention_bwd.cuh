@@ -1,13 +1,12 @@
-// The flash-attention backward on Hopper (sm_90a): the two templates behind
-// K4a/K4b (decoder_attention_bwd.cu: causal GQA, D = 128) and K4 nc
-// (vit_attention_bwd.cu: non-causal, maskless MHA, D = 64).  They replace
-// the two Pallas kernels of _bwd_impl (mjvideo_tpu/ops/flash_attention.py:
-// 708):
+// The decoder attention backward on Hopper (sm_90a): the two templates
+// behind K4a/K4b (decoder_attention_bwd.cu: causal GQA, D = 128, and the
+// ring's non-causal form).  They replace the two Pallas kernels of
+// _bwd_impl (mjvideo_tpu/ops/flash_attention.py:708):
 //   bwd_dkdv_kernel <- _bwd_dkdv_kernel (:603, call :769): dK, dV for one kv
 //                      block
 //   bwd_dq_kernel   <- _bwd_dq_kernel   (:656, call :812): dQ for one q block
 // Both recompute p = exp(scale * q k^T - lse) from the true lse that the
-// forward wrote (K2 lse or K1 lse, bound_attention.cuh), under the
+// forward wrote (K2 lse or K3 lse), under the
 // causal mask and per-row q_offset when CAUSAL, and under the (B, K) key
 // mask when one is given, with delta = rowsum(dO * O) reduced before the
 // launch, as _bwd_impl does.  Rounding as in the TPU kernels: p is rounded
@@ -16,8 +15,8 @@
 //
 // What bounds it on this card: four products of 64 x 64 x D per tile pair
 // (two to recompute s and dO V^T, two to accumulate), compute-bound at the
-// training shapes (T = 800-3,072, D = 128) and at the ViT's (S = 1,025, D =
-// 64); the tiles come from L2.
+// training shapes (T = 800-3,072, D = 128); the tiles come from L2.  (The
+// ViT's backward, K4 nc, runs on attention_bwd_sm90.cuh.)
 //
 // Design (first, simple version, on the K1/K2 template of
 // bound_attention.cuh: WMMA 16x16x16 bf16 fragments with fp32 accumulation,
@@ -36,9 +35,6 @@
 //   dead row (lse = kDeadLse) gives p = 0 and so dq = 0 exactly.
 // Keys past K get p = 0 by the j < K test in both, causal or not: a key
 // staged as zeros has s = 0 and would otherwise enter with p = exp(-lse).
-// (The TPU's ViT pre-pads S = 1025 to 1032 with k = v = 0 and lets those
-// keys into p: harmless there because their dQ term is p * 0 and their dK
-// and dV rows are sliced off.)
 // Each warp computes its 16 x 64 block of s and of dO V^T into one fp32
 // scratch row (s in columns 0-63, dO V^T in 64-127); the elementwise pass
 // reads it lane j on column j and writes p and dS as bf16 A operands.  The

@@ -8,9 +8,10 @@
 // q, k and v are strided views into the ViT's one (B, S, 3 H D) qkv tensor
 // (token strides qss = kss = vss = 3 H D); dout, lse and delta are dense;
 // dq, dk and dv are written dense (B, S, H, D).  S = 1025 is taken as it
-// is: keys past S get p = 0 in the kernel.  Design and bounds: see
-// attention_bwd.cuh.
-#include "attention_bwd.cuh"
+// is.  Design and bounds: see attention_bwd_sm90.cuh.
+#include "attention_bwd_sm90.cuh"
+
+namespace bwd = mjv::attention_bwd_sm90;
 
 extern "C" int mjv_vit_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
@@ -19,9 +20,9 @@ extern "C" int mjv_vit_attention_bwd_dkdv(
     long long vsb, long long vss, long long dsb, long long dss, float scale,
     void* stream) {
   if (D != 64) return int(cudaErrorInvalidValue);  // InternViT-300M heads
-  return mjv::launch_bwd_dkdv<64, false>(
-      q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, B, S, S, H, H,
-      qsb, qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
+  return bwd::launch_dkdv<bwd::DkdvD64>(q, k, v, dout, lse, delta, dk, dv, B,
+                                        S, H, qsb, qss, ksb, kss, vsb, vss,
+                                        dsb, dss, scale, stream);
 }
 
 extern "C" int mjv_vit_attention_bwd_dq(
@@ -31,7 +32,7 @@ extern "C" int mjv_vit_attention_bwd_dq(
     long long vsb, long long vss, long long dsb, long long dss, float scale,
     void* stream) {
   if (D != 64) return int(cudaErrorInvalidValue);
-  return mjv::launch_bwd_dq<64, false>(
-      q, k, v, dout, lse, delta, nullptr, nullptr, dq, B, S, S, H, H, qsb,
-      qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
+  return bwd::launch_dq<bwd::DqD64>(q, k, v, dout, lse, delta, dq, B, S, H,
+                                    qsb, qss, ksb, kss, vsb, vss, dsb, dss,
+                                    scale, stream);
 }

@@ -32,7 +32,7 @@ SOURCES = ("vit_attention.cu", "vit_attention_bwd.cu", "decoder_attention.cu",
            "decoder_attention_bwd.cu", "exact_attention.cu", "q8g_matmul.cu",
            "w4_matmul.cu", "vit_attention_variants.cu")
 HEADERS = ("bound_attention.cuh", "attention_bwd.cuh",
-           "decoder_attention_sm90.cuh")
+           "decoder_attention_sm90.cuh", "attention_bwd_sm90.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
