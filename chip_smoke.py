@@ -54,6 +54,11 @@ Phases (any failure raises and exits non-zero):
    bf16 kernel path against the same weights in fp32 through the plain
    attention path (pure autograd): loss delta, relative L2 error and cosine
    of the flattened gradient, held to FIDELITY_REL_L2 and FIDELITY_COS.
+   Then F4's reading at these stepped weights
+   (``tools/k2lse_budget_torch.py``): for every decoder attention call of
+   the micro-batch's forward, the (row, head) pairs whose largest score
+   lies more than 87.3 nats below the K2 bound, the live keys whose p falls
+   below 2^-126, and K2 lse's dead pairs, held equal to the fp32 twin's.
 7. Training time: TRAIN_TIMED_STEPS more micro-steps; the median of those
    that only accumulate and of those that also step the optimizer.
 8. (Run with phases 2 and 3, before the paths.)  K3 (the exact softmax)
@@ -66,11 +71,13 @@ Phases (any failure raises and exits non-zero):
    with the share of its bound reached.  The kernels K2, K3 and K2r alone,
    the K2 and K2r ops and ``F.scaled_dot_product_attention`` (the same-run
    yardstick), K2 with the lse alone and its op (the pre-pass and K2 with
-   the lse), timed in turns at (2, 3072, 16/8, 128), and K2r's prefix
+   the lse) and K3 with the lse, timed in turns at (2, 3072, 16/8, 128),
+   and K2r's prefix
    rows held
    bit-identical between a prefix-only and a full-prompt prefill of the
    same bf16 q/k/v.  Phase 1 also prints the registers and spills that
-   ptxas reports for the Hopper template's 5 instantiations and the 3
+   ptxas reports for the Hopper templates' instantiations (attention
+   forward and backward, the int8 GEMM and K6's pre-pass) and the 3 bound
    pre-passes, and fails if one spills or is missing.
 9. The judge: an ``InternVLJudge`` on a 2B chat state with the LM head
    (random bf16 weights from a fresh generator at SEED, 64 new tokens,
@@ -89,10 +96,15 @@ Phases (any failure raises and exits non-zero):
    logits against the full prompt's and the share of greedy tokens they
    agree on; prints prefill ms, ms per decode step at B = 2, answers/s for
    a pair and the peak memory.
-10. (Run with phases 2, 3 and 8.)  K6 (grouped w8a8, quantizing x inside)
-   and K7 (from a pre-quantized x) against their twins at the 2B's grouped
-   products (Q8G_SHAPES: ViT fc1, decoder w1 and w2, an M tail, the LM
-   head's odd N), K7 also against K6 on the same x, bit for bit; K5 (int4
+10. (Run with phases 2, 3 and 8.)  K6 (grouped w8a8: its pre-pass
+   quantizes x once per (row, group), then the int8 wgmma GEMM on the
+   k-major weight), the pre-pass alone and K7 (the GEMM from a
+   pre-quantized x) against their twins at the 2B's grouped products
+   (Q8G_SHAPES: ViT fc1, decoder w1 and w2, an M tail, the LM head's odd
+   N), each bit for bit, K7 also against K6 on the same x, bit for bit; K6
+   and K7 timed in turns with bf16 ``torch.matmul`` at the same (M, K, N)
+   and ``torch._int_mm`` on the same int8 operands (labelled references,
+   not the same function); K5 (int4
    weight-only GEMV) against its twin at a decode step's shapes
    (W4_SHAPES x W4_ROWS); bf16 ``torch.matmul`` at each shape as a labelled
    reference point.  Every kernel check (phases 2, 3, 8 and 10) also prints
@@ -150,11 +162,14 @@ Phases (any failure raises and exits non-zero):
 17. (Run with phases 2, 3, 8, 10 and 13.)  The kernels of sequence
    parallelism at T = SP_T over SP_SHARDS shards (chunks of 768), B = 1,
    16/8 heads of 128, a ragged mask (the first 5 and the last 600 keys
-   masked): K3 with the lse on one shard's queries and one chunk's keys
-   at each relative offset of SP_CHUNKS (-768: a later shard's chunk,
-   every row dead; 0: the diagonal, its first 5 rows dead; 768 and 2,304:
-   earlier shards' chunks), the output to the relative bound, the lse to
-   LSE_TOL, dead rows exactly 0 and 1e30; K4a and K4b at the same offsets
+   masked): K3 with the lse (the Hopper template's lse epilogue) on one
+   shard's queries and one chunk's keys at each relative offset of
+   SP_CHUNKS (-768: a later shard's chunk, every row dead; 0: the
+   diagonal, its first 5 rows dead; 768 and 2,304: earlier shards'
+   chunks), the output to the relative bound and bit-equal to K3's on the
+   same inputs, the lse to LSE_TOL, dead rows exactly 0 and 1e30, and K3
+   lse timed at the 768 chunk and at the long clip's 13,440-row chunk
+   (LONG_CHUNK) with SDPA at each; K4a and K4b at the same offsets
    from the twin's merged (global) lse, masked keys' dk and dv and dead
    rows' dq exactly 0; K3 at the all-gather shape (768 queries over the
    3,072 keys at q_offset 768 r, r in SP_GATHER_RANKS).  Each with its
@@ -289,14 +304,16 @@ FP32_OPS_PER_S = 67e12     # outside the tensor cores
 # lies within about an ulp of.
 PREPASS_REL_TOL = 1e-6
 # The kernels of the Hopper templates (decoder_attention_sm90.cuh, namespace
-# mjv::attention_sm90; attention_bwd_sm90.cuh, mjv::attention_bwd_sm90)
-# and the bound pre-passes, as ptxas names them: their registers and spills
-# are printed.  The forward template has 5 instantiations (K3 causal and
-# not, K2r, K2 and K1), the backward 2 (K4 nc dK/dV and dQ), key_norm_max 2
-# (D = 64 and 128), key_norm_cummax 1.
-SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90",
+# mjv::attention_sm90; attention_bwd_sm90.cuh, mjv::attention_bwd_sm90;
+# q8g_matmul.cu, mjv::q8g_sm90) and the bound pre-passes, as ptxas names
+# them: their registers and spills are printed.  The forward template has 5
+# instantiations (K3 causal and not, with the lse or without; K2r; K2 with
+# the lse or without; K1 likewise), the backward 2 (K4 nc dK/dV and dQ),
+# key_norm_max 2 (D = 64 and 128), key_norm_cummax 1, the int8 GEMM 2 (bf16
+# or fp32 out) and K6's pre-pass 1.
+SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_cummax_kernel", "key_norm_max_kernel")
-SM90_INSTANTIATIONS = 10
+SM90_INSTANTIATIONS = 13
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -348,6 +365,9 @@ SP_SHARDS = 4
 SP_T = 3072
 SP_CHUNKS = ((0, 1), (0, 0), (1, 0), (3, 0))
 SP_GATHER_RANKS = (1, 3)
+# K3 lse at the ring chunk of phase 20's long clip: 53,760 tokens (its
+# bucket) over SP_SHARDS shards, an earlier shard's chunk (every key seen).
+LONG_CHUNK = 53760 // SP_SHARDS
 # BASELINE.json config #4, high-res long context: 16 frames of
 # max_num = 12 tiles plus the thumbnail.
 LONG_FRAMES = 16
@@ -891,9 +911,10 @@ def time_shifts_in_turns(randn, rounds=10):
     judge's prefill inputs, K2 (global bound), K3 (exact) and K2r (per-row
     bound), launched directly with their bounds reduced beforehand, the K2
     and K2r ops (each pre-pass and kernel), K2 with the lse alone and its
-    op, and ``F.scaled_dot_product_attention`` (the same-run yardstick),
-    timed in turns (K2, K3, K2r, K2 op, K2r op, K2 lse, K2 lse op, SDPA,
-    then back) by CUDA events; returns the medians in ms."""
+    op, K3 with the lse, and ``F.scaled_dot_product_attention`` (the
+    same-run yardstick), timed in turns (K2, K3, K2r, K2 op, K2r op, K2
+    lse, K2 lse op, K3 lse, SDPA, then back) by CUDA events; returns the
+    medians in ms."""
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
@@ -913,6 +934,8 @@ def time_shifts_in_turns(randn, rounds=10):
                                                     scale, with_lse=True),
         "K2 lse op": lambda: fa._decoder_attention_fwd(q, k, v, mask, None,
                                                        scale, with_lse=True),
+        "K3 lse": lambda: kernels.exact_attention(q, k, v, mask, None, scale,
+                                                  with_lse=True),
         "SDPA": _sdpa(q, k, v, causal=True),
     }
     order = list(runs) + list(runs)[::-1]
@@ -1099,16 +1122,19 @@ def check_ring_kernels(randn):
         dead_rows = (f"{n_dead} dead (row, head) pairs",
                      lambda got: not got[0].transpose(1, 2)[dead].any())
 
+        k3 = kernels.exact_attention(qc, kc, vc, mc, off, scale)
+
         def lse_rule(got, ref):
             lse, ref_l = got[1], ref[1]
+            same = bool(torch.equal(got[0], k3))
             held = (torch.equal(lse >= fa.DEAD_LSE * 0.5, dead)
-                    and bool((lse[dead] == fa.DEAD_LSE).all()))
+                    and bool((lse[dead] == fa.DEAD_LSE).all()) and same)
             live_err = ((lse - ref_l)[~dead].abs().max().item()
                         if (~dead).any() else 0.0)
             return (f"lse max_abs_err {live_err:.3e} on live rows (bound "
-                    f"{LSE_TOL:.0e}), {n_dead} dead at 1e30",
-                    held and live_err <= LSE_TOL,
-                    {"lse_max_abs_err": live_err})
+                    f"{LSE_TOL:.0e}), {n_dead} dead at 1e30, out bit-equal "
+                    f"to K3's: {same}", held and live_err <= LSE_TOL,
+                    {"lse_max_abs_err": live_err, "bit_equal_to_k3": same})
 
         allowed = fa._decoder_allowed(qc, kc, mc, off)
         label = f"(1, {L}, {L}, 16/8, 128) ring rel_off {rel}"
@@ -1121,6 +1147,7 @@ def check_ring_kernels(randn):
             zero=dead_rows, extra=lse_rule,
             work=_attention_work(qc, kc, vc, mc, off, outputs=(qc, lse_out)),
             library=_sdpa(qc, kc, vc, False, allowed=allowed))
+        del k3
         # The backward from the merged lse over every chunk (NO_MASS_LSE on
         # a row no chunk gives a key) and the merged output's delta.
         g_out, g_lse = fa.exact_attention_plain(qc, k, v, mask,
@@ -1165,6 +1192,79 @@ def check_ring_kernels(randn):
             library=_sdpa(qc, k, v, False,
                           allowed=fa._decoder_allowed(qc, k, mask, off)))
     return readings
+
+
+def time_k3_lse_chunks(randn):
+    """K3 lse at an earlier shard's ring chunk (every key seen) of the 768
+    tokens of phase 17 and of the long clip's LONG_CHUNK, with
+    ``F.scaled_dot_product_attention`` (non-causal, every key live) at
+    each, timed in turns by CUDA events: whether the 768 chunk's 96 CTAs
+    (one wave under the card's 132 SMs) cost more per unit of work.
+    Returns the readings by chunk length."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    out = {}
+    for L in (SP_T // SP_SHARDS, LONG_CHUNK):
+        q, k, v = randn(1, L, 16, 128), randn(1, L, 8, 128), randn(1, L, 8,
+                                                                    128)
+        mask = torch.ones((1, L), dtype=torch.int32, device=q.device)
+        off = torch.full((1,), L, dtype=torch.int32, device=q.device)
+        runs = {"K3 lse": lambda: kernels.exact_attention(
+                    q, k, v, mask, off, 128 ** -0.5, with_lse=True),
+                "SDPA": _sdpa(q, k, v, causal=False)}
+        med = _in_turns(runs, list(runs) + list(runs)[::-1], 10)
+        work = _attention_work(q, k, v, mask, causal=False)
+        bound = _bound(*work)
+        out[L] = {**med, "bound_ms": bound["bound_ms"],
+                  "gflop": work[1] / 1e9,
+                  "tflops": work[1] / med["K3 lse"] / 1e9}
+        print(f"K3 lse at the ring chunk (1, {L}, {L}, 16/8, 128) rel_off {L}"
+              f", in turns (median of 20): K3 lse {med['K3 lse']:.4f} ms, "
+              f"SDPA {med['SDPA']:.4f} ms; {out[L]['tflops']:.1f} TFLOP/s, "
+              f"{100 * bound['bound_ms'] / med['K3 lse']:.1f}% of the bound")
+        del q, k, v, runs
+    return out
+
+
+def f4_budget_phase(trainer, batch):
+    """F4's reading (phase 6, at phase 5's stepped weights): every decoder
+    attention call of ``batch``'s forward (``tools/k2lse_budget_torch.py``'s
+    capture and counts), K2 lse on its inputs against the fp32 twin and the
+    exact softmax; K2 lse's dead (row, head) pairs held equal to the
+    twin's.  Returns the totals."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    tool = _tool("k2lse_budget_torch")
+    totals = {}
+    for q, k, v, mask, scale in tool.capture_calls(trainer, batch):
+        counts = tool.budget_counts(q, k, v, mask, scale)
+        got = kernels.decoder_attention(q, k, v, mask,
+                                        kernels.key_norm_max(k, mask), None,
+                                        scale, with_lse=True)
+        ref = fa.decoder_attention_plain(q, k, v, mask, return_lse=True)
+        r = tool.compare(*got, *ref, fa.exact_attention_plain(q, k, v, mask))
+        for key in ("pairs", "gap_over_87", "flushed_keys", "l_below_1e-30"):
+            totals[key] = totals.get(key, 0) + counts[key]
+        totals["max_gap"] = max(totals.get("max_gap", 0.0), counts["max_gap"])
+        for key in ("dead", "dead_twin"):
+            totals[key] = totals.get(key, 0) + r[key]
+        for key in ("out_err_exact", "lse_err"):
+            totals[key] = max(totals.get(key, 0.0), r[key])
+    print(f"F4 reading at the stepped weights ({totals['pairs']} (row, head) "
+          f"pairs): {totals['gap_over_87']} whose largest score lies over "
+          f"87.3 nats below the bound (largest gap {totals['max_gap']:.2f}), "
+          f"{totals['flushed_keys']} live keys with p below 2^-126, "
+          f"{totals['l_below_1e-30']} with l below 1e-30; K2 lse dead "
+          f"{totals['dead']} (twin {totals['dead_twin']}), max|out - exact| "
+          f"{totals['out_err_exact']:.3e}, max|lse - twin| "
+          f"{totals['lse_err']:.3e}")
+    if totals["dead"] != totals["dead_twin"]:
+        raise RuntimeError(f"F4: K2 lse marks {totals['dead']} pairs dead, "
+                           f"the twin {totals['dead_twin']}")
+    return totals
 
 
 def _tool(name):
@@ -1300,11 +1400,48 @@ def _bf16_matmul_ms(x, K, N):
     return _median_ms(lambda: torch.matmul(x, w))
 
 
+def _bit_equal(names):
+    """An ``extra`` rule of ``_check_kernel``: every output equal to the
+    twin's to the bit."""
+    import torch
+
+    def rule(got, ref):
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        return (f"bit-equal to the twin ({', '.join(names)}): {same}", same,
+                {"bit_equal": same})
+    return rule
+
+
+def time_q8g_in_turns(x, qk, xq, a_s, odt, rounds=10):
+    """K6 and K7 launched directly, bf16 ``torch.matmul`` of the same (M, K)
+    by (K, N) and ``torch._int_mm`` on the same int8 operands (where it
+    takes the shape: M > 16, K and N multiples of 8), timed in turns by
+    CUDA events; the last two are labelled references, not the same
+    function.  Returns the medians in ms."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    K, N = qk.q.shape
+    w16 = torch.randn((K, N), device=x.device).to(torch.bfloat16)
+    runs = {
+        "K6": lambda: kernels.q8g_matmul_fused(x, qk.q, qk.scale, odt),
+        "K7": lambda: kernels.q8g_matmul(xq, a_s, qk.q, qk.scale),
+        "bf16 matmul": lambda: torch.matmul(x, w16),
+    }
+    if x.shape[0] > 16 and K % 8 == 0 and N % 8 == 0:
+        # The k-major weight is the column-major operand _int_mm takes.
+        runs["_int_mm"] = lambda: torch._int_mm(xq, qk.q)
+    return _in_turns(runs, list(runs) + list(runs)[::-1], rounds)
+
+
 def check_quant_kernels(randn):
-    """K6 and K7 at Q8G_SHAPES and K5 at W4_SHAPES x W4_ROWS against their
-    twins, random weights quantized by the port's own quantizers; K7 also
-    against K6 on the same x (the same arithmetic: bit-equal).  Returns the
-    readings by (kernel, shape)."""
+    """K6, its pre-pass and K7 at Q8G_SHAPES and K5 at W4_SHAPES x W4_ROWS
+    against their twins, random weights quantized by the port's own
+    quantizers (K6's and K7's k-major); K6, the pre-pass and K7 bit for
+    bit, and K7 against K6 on the same x; K6 and K7 in turns with bf16
+    ``torch.matmul`` and ``torch._int_mm``.  Returns the readings by
+    (kernel, shape)."""
     import torch
 
     from mjvideo_tpu_torch import kernels
@@ -1316,34 +1453,50 @@ def check_quant_kernels(randn):
         x = randn(M, K)
         qk = q8.quantize_kernel(randn(K, N).float() * 0.02,
                                 group_size=Q8G_GROUP)
+        if not q8.is_k_major(qk.q):
+            raise RuntimeError(f"quantize_kernel gave strides {qk.q.stride()}"
+                               ", not k-major")
         ws, G = qk.scale, K // Q8G_GROUP
         # The model's products write x's dtype; the LM head's, fp32 logits.
         odt = torch.float32 if N > 50000 else torch.bfloat16
         o = torch.empty((M, N), dtype=odt, device=x.device)
-        ref = _bf16_matmul_ms(x, K, N)
         r6 = _check_kernel(
             f"K6 q8g_matmul_fused {(M, K, N)} g {Q8G_GROUP} -> {odt}",
             lambda: kernels.q8g_matmul_fused(x, qk.q, ws, odt),
             lambda: q8.q8g_matmul_fused_plain(x, qk.q, ws, odt),
+            extra=_bit_equal(("out",)),
             work=(_nbytes(x, qk.q, ws, o), 2 * M * K * N, INT8_OPS_PER_S))
         xq, a_s = q8._quantize_rows_grouped(x.float(), G, Q8G_GROUP)
+        rq = _check_kernel(
+            f"K6 pre-pass q8g_quantize {(M, K)} g {Q8G_GROUP}",
+            lambda: kernels.q8g_quantize(x, G),
+            lambda: q8._quantize_rows_grouped(x.float(), G, Q8G_GROUP),
+            names=("xq", "a_s"), extra=_bit_equal(("xq", "a_s")),
+            work=(_nbytes(x, xq, a_s), 4 * M * K, FP32_OPS_PER_S))
         o32 = torch.empty((M, N), dtype=torch.float32, device=x.device)
         r7 = _check_kernel(
             f"K7 q8g_matmul {(M, K, N)} g {Q8G_GROUP}",
             lambda: kernels.q8g_matmul(xq, a_s, qk.q, ws),
             lambda: q8.q8g_matmul_plain(xq, a_s, qk.q, ws),
+            extra=_bit_equal(("out",)),
             work=(_nbytes(xq, a_s, qk.q, ws, o32), 2 * M * K * N,
                   INT8_OPS_PER_S))
         same = torch.equal(kernels.q8g_matmul(xq, a_s, qk.q, ws),
                            kernels.q8g_matmul_fused(x, qk.q, ws,
                                                     torch.float32))
-        print(f"K7 against K6 on the same x {(M, K, N)}: bit-equal {same}; "
-              f"bf16 torch.matmul at this shape (reference) {ref:.4f} ms")
+        med = time_q8g_in_turns(x, qk, xq, a_s, odt)
+        print(f"K7 against K6 on the same x {(M, K, N)}: bit-equal {same}; in "
+              "turns (median of 20): " + ", ".join(
+                  f"{n} {t:.4f} ms" for n, t in med.items())
+              + " (bf16 torch.matmul and torch._int_mm: references)")
         if not same:
             raise RuntimeError(f"K7 and K6 differ at {(M, K, N)}")
         for r in (r6, r7):
-            r["bf16_matmul_ms"] = ref
+            r["bf16_matmul_ms_in_turns"] = med["bf16 matmul"]
+            r["int_mm_ms_in_turns"] = med.get("_int_mm")
+        r6["ms_in_turns"], r7["ms_in_turns"] = med["K6"], med["K7"]
         out["K6", (M, K, N)], out["K7", (M, K, N)] = r6, r7
+        out["K6 pre-pass", (M, K, N)] = rq
         del x, qk, ws, xq, a_s, o, o32
     for K, N in W4_SHAPES:
         k4 = q4.quantize_kernel_q4(randn(K, N).float() * 0.02,
@@ -1418,6 +1571,8 @@ def quant_scoring_phase(scorer, requests, fp32_scores, dev):
         per_request = {"vit_attention": L_vit, "decoder_attention": L_llm}
         if "-g" in mode:
             per_request["q8g_matmul_fused"] = 4 * L_vit + 2 + 3 * L_llm
+            # One pre-pass per K6 launch.
+            per_request["q8g_quantize"] = per_request["q8g_matmul_fused"]
         per_request = _with_prepass(per_request)
         want = {n: len(requests) * per_request.get(n, 0) for n in got}
         print(f"quantized scoring {mode}: launches over {len(requests)} "
@@ -2628,6 +2783,7 @@ def main() -> int:
     k4nc_edges = check_k4nc_edges(drawer(generator()))
     k4nc_turns = time_k4nc_in_turns(drawer(generator()))
     ring_k = check_ring_kernels(randn)
+    chunks = time_k3_lse_chunks(drawer(generator()))
     # Phase 21: the ViT attention variants, then their A/B harnesses.
     t0 = time.perf_counter()
     variant_k = check_variant_kernels(randn)
@@ -2711,6 +2867,7 @@ def main() -> int:
         trainer, batches, train_launches, train_peak = run_training(
             generator(), dev, ckpt_dir, train)
         plain_grads = gradient_fidelity(trainer, batches[0])[-1]
+        f4 = f4_budget_phase(trainer, batches[0])
         sp_trained, sp_train_launches = sp_training_phase(
             trainer, batches[0], plain_grads, dev)
         del plain_grads
@@ -2850,11 +3007,16 @@ def main() -> int:
          "all_gather": {str(o): brief(ring_k["K3 all-gather", o])
                         for o in gathered}},
         {"name": "exact_attention_lse", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/exact_attention.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:526",
          **counts("exact_attention_lse"),
          "shape": (1, ring_l, ring_l, 16, 8, 128), "rel_off": ring_l,
-         **ring_k["K3 lse", ring_l]},
+         **ring_k["K3 lse", ring_l],
+         "kernel_ms_in_turns": turns["K3 lse"], "turns_shape": judged,
+         "k3_kernel_ms_in_turns": turns["K3"],
+         "chunks_in_turns": {str(n): r for n, r in chunks.items()},
+         "at_offsets": {str(o): brief(ring_k["K3 lse", o]) for o in (
+             (my - src) * ring_l for my, src in SP_CHUNKS)}},
         {"name": "decoder_attention_rows", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
@@ -2873,13 +3035,26 @@ def main() -> int:
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
          **counts("q8g_matmul_fused"), "shape": Q8G_SHAPES[1],
-         **quant_k["K6", Q8G_SHAPES[1]]},
+         **quant_k["K6", Q8G_SHAPES[1]],
+         "at_shapes": {str(sh): brief(quant_k["K6", sh]) | {
+             f: quant_k["K6", sh][f] for f in (
+                 "ms_in_turns", "bf16_matmul_ms_in_turns",
+                 "int_mm_ms_in_turns")} for sh in Q8G_SHAPES}},
+        # K6's pre-pass: x quantized once per (row, group); the TPU kernel
+        # did it inside _q8g_matmul_pallas_fused.
+        {"name": "q8g_quantize", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
+         "replaces": "mjvideo_tpu/ops/quant.py:316",
+         **counts("q8g_quantize"), "shape": Q8G_SHAPES[1][:2],
+         **quant_k["K6 pre-pass", Q8G_SHAPES[1]]},
         # K6's oracle, as in the JAX package: not on the main path.
         {"name": "q8g_matmul", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:423",
          **counts("q8g_matmul"), "on_main_path": False,
-         "shape": Q8G_SHAPES[1], **quant_k["K7", Q8G_SHAPES[1]]},
+         "shape": Q8G_SHAPES[1], **quant_k["K7", Q8G_SHAPES[1]],
+         "at_shapes": {str(sh): brief(quant_k["K7", sh]) for sh in
+                       Q8G_SHAPES}},
         {"name": "w4_matmul", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/w4_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant4.py:177",
@@ -2910,6 +3085,7 @@ def main() -> int:
         "block_ab": {n: {f: r[f] for f in r if f != "ms_all"}
                      for n, r in variant_out["block_ab"].items()}},
         "training": {**train_ms, "peak_gib": train_peak / 2**30},
+        "f4_reading": f4,
         "judge": judged_out, "quantized_scoring": quant_scored,
         "quantized_judge": quant_judged, "reward_gradient": grad_out,
         "vader": vader_out, "sp_scoring": sp_scored, "ptxas": ptxas,

@@ -1,9 +1,13 @@
 // Attention forwards for Hopper (sm_90a): wgmma, TMA and a producer warp.
-// One template for six kernels, chosen by the softmax's shift, the head
+// One template for seven kernels, chosen by the softmax's shift, the head
 // dim, the floor and whether an lse pointer is given:
 //   K3  (ShiftMode::kExact) replaces _fwd_kernel
 //       (mjvideo_tpu/ops/flash_attention.py:260, call :579), the exact
 //       online softmax, causal with a per-row q_offset or non-causal;
+//       K3 lse (kExact with a non-null lse) replaces _fwd_kernel(with_lse=
+//       True) (:526-530), the ring's chunk forward: its epilogue writes
+//       m ln 2 + log(l), m the row max in log2 units, or kDeadLse where
+//       the row saw no live key (m stays -inf and l 0);
 //   K2r (kRows) replaces _fwd_bound_kernel(row_bound=True)
 //       (flash_attention.py:318, :347-358; host side :484-508), causal
 //       under the per-row Cauchy-Schwarz bound
@@ -100,6 +104,14 @@
 // - The lse costs one fp32 store per row (one lane of each quad) after the
 //   main loop, behind a branch uniform over the CTA: no instantiation of
 //   its own and nothing in the main loop.
+// - The exponent budget.  ex2.approx.ftz flushes results below 2^-126, so
+//   under a bound shift a key more than 87.3 nats below its row's bound
+//   gives p = 0, and a row whose bound overshoots its largest score by
+//   that much dies (l = 0: output 0, lse kDeadLse), as the TPU kernels'
+//   flush does at about 85 nats; the fp32 twin (torch.exp keeps
+//   subnormals) keeps such rows down to about 103 nats.  At training's
+//   stepped weights the largest overshoot is 48 nats
+//   (tools/k2lse_budget_torch.py, PERF.md).
 // The tensor maps are encoded on the host per call with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
 // -lcuda at link time).
@@ -119,6 +131,7 @@ constexpr int kBlockK = 128;  // keys per kv tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLog2eLo = 1.925963e-8f;  // log2(e) - kLog2e
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLn2Lo = -1.9046543e-9f;  // ln(2) - kLn2
 constexpr float kDeadLse = 1e30f;  // DEAD_LSE of flash_attention.py
 
 // How each row's softmax is shifted.
@@ -464,7 +477,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
 // d[4 j + 2 + e] at row g + 8 (e = 0, 1).  The same pairs, packed, are the
 // register A fragments of the next product: fragment i = (d[2 i], d[2 i+1]).
 // bound: kcum (B, Hkv, K) under kRows, kmax (B, Hkv) under kKeyMax.
-// lse: (B, Hq, Q) fp32 or null, written only under kKeyMax.
+// lse: (B, Hq, Q) fp32 or null, written under kKeyMax and kExact.
 template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR>
 __global__ void __launch_bounds__(C::kThreads, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tq,
@@ -740,10 +753,20 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int R = q0 + row0 + 8 * r;
     if (R >= Q) continue;  // the q tail: TMA's zero rows
-    if (SHIFT == ShiftMode::kKeyMax && lse != nullptr && c == 0) {
+    if (SHIFT != ShiftMode::kRows && lse != nullptr && c == 0) {
       // Dead first: a CTA that walked no tile keeps m = -inf and l = 0.
-      lse[((long long)b * Hq + h) * Q + R] =
-          l[r] > 0.f ? m[r] + logf(fmaxf(l[r], 1e-30f)) : kDeadLse;
+      // kKeyMax: m is the bound in nats.  kExact: m is the row max in log2
+      // units, taken to nats with a split ln 2 (one product misses by up to
+      // 2e-6 nats at m near 60).
+      float v = kDeadLse;
+      if (l[r] > 0.f) {
+        if (SHIFT == ShiftMode::kKeyMax) {
+          v = m[r] + logf(fmaxf(l[r], 1e-30f));
+        } else {
+          v = fmaf(m[r], kLn2, m[r] * kLn2Lo) + logf(l[r]);
+        }
+      }
+      lse[((long long)b * Hq + h) * Q + R] = v;
     }
     float inv;
     if (FLOOR) {
@@ -814,8 +837,8 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int rows,
 
 // bound: kcum (B, Hkv, K) fp32 under kRows, kmax (B, Hkv) fp32 under
 // kKeyMax, unread under kExact; q_offset read only when CAUSAL; lse: a
-// (B, Hq, Q) fp32 output or null, taken only under kKeyMax.  Returns a
-// cudaError_t.
+// (B, Hq, Q) fp32 output or null, taken under kKeyMax and kExact.  Returns
+// a cudaError_t.
 template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR = false>
 int launch_attention(const void* q, const void* k, const void* v,
                      const void* mask, const void* bound,
@@ -823,7 +846,7 @@ int launch_attention(const void* q, const void* k, const void* v,
                      int K, int Hq, int Hkv, long long qsb, long long qss,
                      long long ksb, long long kss, long long vsb,
                      long long vss, float scale, void* stream) {
-  if (lse != nullptr && SHIFT != ShiftMode::kKeyMax) {
+  if (lse != nullptr && SHIFT == ShiftMode::kRows) {
     return int(cudaErrorInvalidValue);
   }
   CUtensorMap tq, tk, tv;

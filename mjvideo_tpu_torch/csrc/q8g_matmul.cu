@@ -1,86 +1,420 @@
-// K6 and K7: the grouped w8a8 matmul on Hopper (sm_90a).
+// K6 and K7: the grouped w8a8 matmul on Hopper (sm_90a): int8 wgmma, TMA
+// and a producer warp.
 //
 // Replaces two Pallas TPU kernels of mjvideo_tpu/ops/quant.py:
 //   K6  _q8g_matmul_pallas_fused (:316, call :376): x (M, K) bf16 is
-//       quantized inside the kernel, per (row, group): amax over the g
-//       columns of the group, a_s = max(amax / 127, 1e-12), xq = clip(
-//       round(x / a_s), -127, 127); out = sum over groups of
-//       (float(xq_g . wq_g) * a_s) * w_s[g], written once at bf16 or fp32.
+//       quantized per (row, group): amax over the g columns of the group,
+//       a_s = max(amax / 127, 1e-12), xq = clip(round(x / a_s), -127, 127);
+//       out = sum over groups of (float(xq_g . wq_g) * a_s) * w_s[g],
+//       written once at bf16 or fp32.
 //   K7  _q8g_matmul_pallas (:423, call :472): the same product from a
 //       pre-quantized xq (M, K) int8 and a_scale (M, G) fp32, fp32 out.
-// wq is (K, N) int8 row-major and w_scale (G, N) fp32, with g = K / G a
-// multiple of 32.  Any M and any N: the M and N tails are masked here (the
-// LM head's N = 92,553 is odd).
+// Here K6 is the pre-pass quantize_rows_kernel (x -> xq, a_s, once per
+// (row, group)) followed by K7's GEMM, q8g_gemm_kernel, so K7 is K6 without
+// its pre-pass and the two agree to the bit by construction.  wq is the
+// (K, N) int8 weight stored k-major, an (N, K) row-major array (the port
+// quantizes every int8 weight into that layout once: wgmma reads 8-bit
+// operands only K-major), and w_scale (G, N) fp32, with g = K / G a
+// multiple of 32.  Any M and any N: TMA's zero fill covers the M and N
+// tails, the stores are masked (the LM head's N = 92,553 is odd).
 //
-// Numerics: IEEE division and round-half-to-even conversion for the
-// activation quantization, an exact int32 partial per group, then
-// __fmul_rn / __fadd_rn so that nvcc contracts nothing into an FMA: every
-// rounding step is the one the plain twin (ops/quant.py) takes, in the same
-// order (groups in order, from 0), so kernel and twin agree to the bit
-// whenever their int32 partials do, which they do exactly.
+// Numerics: IEEE division and round-half-to-even conversion in the
+// pre-pass; an exact int32 partial per group from the tensor cores; then
+// float(partial) (exact while g <= 1024) and __fmul_rn, __fmul_rn,
+// __fadd_rn, groups in order from 0: every rounding step the plain twin
+// (ops/quant.py) takes, in its order, so kernel and twin agree to the bit.
 //
 // What bounds it on this card: at the 2B's shapes (decoder w1: 6,144 x
-// 2,048 -> 8,192) the int8 products, 1,979 TOP/s at 700 W; at decode (M = 2
-// on the LM head) the weight bytes.  The TPU kernel held (512, g) x tiles
-// and (g, 2048) weight tiles in VMEM across a sequential group axis; here a
-// CTA of 8 warps owns a 64 x 128 output tile and walks the groups itself,
-// keeping the fp32 sum in registers.  Per depth chunk of KC = 128, 64 or 32
-// columns (KC = g where g is one of those, the `-g128` modes' case) it
-// issues all its loads of the x chunk and the weight chunk before it uses
-// any, then:
-//   - K6 with KC = g: the KC / 8 lanes that loaded a row's chunk reduce its
-//     amax by shuffles and quantize their own registers, so x is read once;
-//     with g > KC a pass over the group first puts each row's scale in
-//     shared memory.
-//   - the quantized x chunk (64 x KC int8) and the weight chunk, transposed
-//     to (128 x KC) by 4 x 4 byte permutes (one 32-bit store per column and
-//     4 depths), go to shared memory; mma.sync m16n8k32.s8 (each warp 32 x
-//     32: 2 x 4 fragments, int32 accumulators; two CTAs per SM).
-// mma.sync's fragment layout is documented (PTX ISA, "Matrix Fragments for
-// mma.m16n8k32"), so the per-group epilogue scales each int32 element at
-// known (row, column) coordinates; WMMA's is not.  B must be k-contiguous
-// per column, which is why the (K, N) weight is transposed while it is
-// staged.  Rows are padded by 16 bytes, which makes the fragment loads
-// conflict-free for KC = 32, 64 and 128.
-// Later work: wgmma with TMA and a producer warp, cp.async double
-// buffering, and a weight layout stored k-major for the card.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// 2,048 -> 8,192, g 128) the int8 products, 206 GOP, 0.104 ms at 1,979
+// TOP/s; at decode (M = 2 on the LM head) the weight's 190 MB, about
+// 57 us.  The first version (mma.sync m16n8k32 in 64 x 128 tiles) staged
+// synchronously, transposed each (K, N) weight tile in shared memory and
+// quantized x again in every CTA for every 128-column tile.
+//
+// Design.  One CTA per (128-column, BM-row) output tile, N fastest, with
+// Config::kWG consumer warpgroups of 64 rows and one producer warpgroup
+// that gives its registers away (setmaxnreg).
+// - The producer's first warp loads, per stage, one 128-byte-swizzled box
+//   of 128 K-bytes for the CTA's BM xq rows and its 128 weight rows by TMA
+//   into a ring of stages with full/empty mbarriers; beside the stage its
+//   32 lanes copy, by cp.async with zero fill, the scales of every group
+//   the stage's K range touches (up to 4 at g = 32): w_s for the 128
+//   columns and a_s for the BM rows.  The full barrier takes 33 arrivals:
+//   lane 0's with the byte count, then each lane's cp.async completion.
+// - Each consumer warpgroup runs g / 32 wgmma.m64n128k32.s32.s8.s8 per
+//   group from shared memory (both operands K-major, 32 bytes a step
+//   inside the 128-byte rows) into an int32 accumulator, then promotes it
+//   into its fp32 sum in the twin's order (a conversion and three fp32
+//   operations per element; cvt runs beside the fp32 pipe, and measured
+//   6% faster than a magic-number add and subtract).  m64n128 holds 64
+//   int32 and 64 fp32 a thread.  At g = 128 (a group is a stage, its four
+//   steps unrolled) a warpgroup holds two int32 accumulators: group t +
+//   1's products run on the tensor cores while it promotes group t (20%
+//   faster than one), and the other warpgroup's work fills the gaps.
+//   Other g take one accumulator and a loop over the steps.
+// - A stage is released once the last group that reads it (its products
+//   and its scales) is promoted; a group wider than 128 bytes frees its
+//   earlier stages when it crosses into the next.
+// The pre-pass: one CTA per row, its threads on neighbouring 16-byte
+// pieces; the pieces' amax go through shared memory to one thread per
+// group, the pieces are quantized from L1 with their group's scale; x is
+// read once from device memory, about 11 us at (6,144, 2,048).
+#include "decoder_attention_sm90.cuh"
 
-namespace {
+namespace mjv {
+namespace q8g_sm90 {
 
-constexpr int kBM = 64;        // rows per CTA
-constexpr int kBN = 128;       // columns per CTA
-constexpr int kThreads = 256;  // 8 warps, 2 x 4, each 32 x 32
-constexpr int kNF = 4;         // m16n8 fragments per warp along N
-constexpr int kPad = 16;       // bytes of padding per staged row
+using attention_sm90::bf16;
+using attention_sm90::encode_tiled;
+using attention_sm90::EncodeTiled;
+using attention_sm90::make_desc;
+using attention_sm90::mbar_arrive;
+using attention_sm90::mbar_expect_tx;
+using attention_sm90::mbar_init;
+using attention_sm90::mbar_wait;
+using attention_sm90::Regs;
+using attention_sm90::smem_u32;
+using attention_sm90::wgmma_commit;
+using attention_sm90::wgmma_fence;
+using attention_sm90::wgmma_wait;
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
+constexpr int kBoxK = 128;  // K bytes per stage: one 128-byte swizzle row
+constexpr int kSlots = 4;   // groups one stage can touch (g >= 32)
+
+template <int WG, int STAGES>
+struct Config {
+  static constexpr int kWG = WG;
+  static constexpr int kBlockM = 64 * WG;  // xq rows per CTA
+  static constexpr int kBlockN = 128;      // output columns per CTA
+  static constexpr int kConsumerWarps = 4 * WG;
+  static constexpr int kThreads = (kConsumerWarps + 4) * 32;
+  static constexpr int kStages = STAGES;
+  static constexpr int kConsumerRegs = Regs<WG>::kConsumer;
+  static constexpr int kProducerRegs = Regs<WG>::kProducer;
+  static constexpr uint32_t kABytes = kBlockM * kBoxK;
+  static constexpr uint32_t kBBytes = kBlockN * kBoxK;
+  static constexpr uint32_t kStageBytes = kABytes + kBBytes;
+  // Per stage and group slot: w_s of the 128 columns, then a_s of the rows.
+  static constexpr int kSlotFloats = kBlockN + kBlockM;
+  static constexpr uint32_t kScaleOff = kStages * kStageBytes;
+  static constexpr uint32_t kBarOff =
+      kScaleOff + kStages * kSlots * kSlotFloats * 4;
+  static constexpr uint32_t kSmemBytes = kBarOff + 2 * kStages * 8 + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
+};
+
+using Q8G = Config<2, 4>;  // K6's GEMM and K7
+
+__device__ __forceinline__ void tma_load_2d(const CUtensorMap* map,
+                                            uint32_t dst, uint32_t bar,
+                                            int c0, int c1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
-// The max over each aligned group of LANES lanes of a warp.
-template <int LANES>
-__device__ __forceinline__ float group_max(float v) {
+// 4 bytes from global to shared memory, zeros when !valid (src unread).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+#define MJV_ACC64(d)                                                        \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),   \
+      "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),          \
+      "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),      \
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),      \
+      "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),      \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),      \
+      "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),      \
+      "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),      \
+      "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]),      \
+      "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]),      \
+      "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),      \
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),      \
+      "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+
+// d (+)= A B for a 64 x 128 x 32 int8 step, both operands K-major in
+// shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}"
+      : MJV_ACC64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef MJV_ACC64
+
+template <int N>
+__device__ __forceinline__ void fence_ints(int (&d)[N]) {
 #pragma unroll
-  for (int o = LANES / 2; o > 0; o >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
   return v;
 }
 
-__device__ __forceinline__ float bf16_amax8(const uint4& v) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-  float m = 0.f;
+__device__ __forceinline__ float ld_shared_f(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// Accumulator layout of wgmma m64n128 (per warpgroup, as in
+// decoder_attention_sm90.cuh): warp w holds rows 16 w .. 16 w + 15; lane
+// (r = lane / 4, c = lane % 4) holds, for each 8-column block j, d[4 j + e]
+// at row r, column 8 j + 2 c + e and d[4 j + 2 + e] at row r + 8.
+template <class C, bool OUT_BF16>
+__global__ void __launch_bounds__(C::kThreads, 1)
+q8g_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                const __grid_constant__ CUtensorMap tb,
+                const float* __restrict__ a_scale,
+                const float* __restrict__ w_scale, void* __restrict__ out,
+                int M, int N, int K, int G) {
+  constexpr int kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  const uint32_t scales = base + C::kScaleOff;
+  const uint32_t bar = base + C::kBarOff;
+  auto stage_a = [&](int t) {
+    return base + (t % kStages) * C::kStageBytes;
+  };
+  auto stage_scales = [&](int t) {
+    return scales + (t % kStages) * kSlots * C::kSlotFloats * 4;
+  };
+  auto full_bar = [&](int t) { return bar + 8 * (t % kStages); };
+  auto empty_bar = [&](int t) { return bar + 8 * (kStages + t % kStages); };
+
+  const int n0 = blockIdx.x * C::kBlockN;
+  const int m0 = blockIdx.y * C::kBlockM;
+  const int g = K / G;
+  const int n_steps = K / 32;  // k32 steps
+  const int n_tiles = (n_steps + 3) / 4;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar(s), 33);
+      mbar_init(empty_bar(s), C::kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= C::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        C::kProducerRegs));
+    if (warp != C::kConsumerWarps) return;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (t >= kStages) mbar_wait(empty_bar(t), (t / kStages - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(full_bar(t), C::kStageBytes);
+        tma_load_2d(&ta, stage_a(t), full_bar(t), kBoxK * t, m0);
+        tma_load_2d(&tb, stage_a(t) + C::kABytes, full_bar(t), kBoxK * t,
+                    n0);
+      }
+      // The groups this stage's K bytes touch, slot j = group g0 + j.
+      const int g0 = (kBoxK * t) / g;
+      const int g1 = min(G - 1, (kBoxK * t + kBoxK - 1) / g);
+      for (int j = 0; j <= g1 - g0; ++j) {
+        const uint32_t slot = stage_scales(t) + j * C::kSlotFloats * 4;
+        const float* ws = w_scale + (long long)(g0 + j) * N;
 #pragma unroll
-  for (int t = 0; t < 8; ++t) m = fmaxf(m, fabsf(__bfloat162float(e[t])));
-  return m;
+        for (int u = 0; u < C::kBlockN / 32; ++u) {
+          const int col = n0 + 32 * u + lane;
+          cp_async_4(slot + (32 * u + lane) * 4, col < N ? ws + col : ws,
+                     col < N);
+        }
+#pragma unroll
+        for (int u = 0; u < C::kBlockM / 32; ++u) {
+          const int row = m0 + 32 * u + lane;
+          const float* as = a_scale + (row < M ? (long long)row * G : 0) +
+                            g0 + j;
+          cp_async_4(slot + (C::kBlockN + 32 * u + lane) * 4, as, row < M);
+        }
+      }
+      cp_async_arrive(full_bar(t));
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg owns the CTA's rows 64 wg .. 64 wg + 63.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::kConsumerRegs));
+  const int wg = warp / 4;
+  const int c = lane % 4;
+  const int row0 = 64 * wg + 16 * (warp % 4) + lane / 4;  // and row0 + 8
+  const int steps = g / 32;  // k32 steps per group
+
+  float sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+
+  // Promote: sum += (float(acc) * a_s) * w_s, the twin's order, from the
+  // scales in `slot` (the stage that holds the group's last step).
+  auto promote = [&](const int (&acc)[64], uint32_t slot) {
+    const float as0 = ld_shared_f(slot + (C::kBlockN + row0) * 4);
+    const float as8 = ld_shared_f(slot + (C::kBlockN + row0 + 8) * 4);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 w = ld_shared_f2(slot + (8 * j + 2 * c) * 4);
+      const float ws[2] = {w.x, w.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sum[4 * j + e] = __fadd_rn(
+            sum[4 * j + e],
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]), as0),
+                      ws[e]));
+        sum[4 * j + 2 + e] = __fadd_rn(
+            sum[4 * j + 2 + e],
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 + e]), as8),
+                      ws[e]));
+      }
+    }
+  };
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar(t));
+  };
+
+  if (g == kBoxK) {
+    // g = 128 (the -g128 modes): group t is stage t, four k32 steps
+    // unrolled.  Group t + 1's products run on the tensor cores while this
+    // warpgroup promotes group t.
+    int acc0[64], acc1[64];
+    auto issue = [&](int (&acc)[64], int t) {
+      mbar_wait(full_bar(t), (t / kStages) & 1);
+      const uint64_t da = make_desc(stage_a(t) + wg * 64 * kBoxK, 16, 1024);
+      const uint64_t db = make_desc(stage_a(t) + C::kABytes, 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_s8(acc, da + 2 * kk, db + 2 * kk, kk > 0);  // 32 bytes a step
+      }
+      wgmma_commit();
+    };
+    issue(acc0, 0);
+    for (int t = 0; t < G; t += 2) {
+      if (t + 1 < G) {
+        issue(acc1, t + 1);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_ints(acc0);
+      promote(acc0, stage_scales(t));
+      release(t);
+      if (t + 1 < G) {
+        if (t + 2 < G) {
+          issue(acc0, t + 2);
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_ints(acc1);
+        promote(acc1, stage_scales(t + 1));
+        release(t + 1);
+      }
+    }
+  } else {
+    // Any g, one accumulator: a group's k32 steps may span stages.
+    int acc[64];
+    int waited = -1;   // the last stage waited for
+    int released = 0;  // stages released so far
+    int step = 0;
+    for (int grp = 0; grp < G; ++grp) {
+      wgmma_fence();
+      for (int s = 0; s < steps; ++s, ++step) {
+        const int t = step / 4;
+        if (t > waited) {
+          if (s > 0) {
+            // A group wider than the stage: the stages before t hold no
+            // scale still to be read, so free them once their products
+            // are done (else a group of more than kStages stages never
+            // starts).
+            wgmma_commit();
+            wgmma_wait<0>();
+            for (; released < t; ++released) release(released);
+          }
+          mbar_wait(full_bar(t), (t / kStages) & 1);
+          waited = t;
+        }
+        const uint32_t koff = (step % 4) * 32;
+        wgmma_s8(acc,
+                 make_desc(stage_a(t) + wg * 64 * kBoxK + koff, 16, 1024),
+                 make_desc(stage_a(t) + C::kABytes + koff, 16, 1024), s > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_ints(acc);
+      const int tl = (step - 1) / 4;
+      promote(acc, stage_scales(tl) +
+                       (grp - (kBoxK * tl) / g) * C::kSlotFloats * 4);
+      // Every stage whose last step is done (all of them after the last
+      // group) is free once its scales are read.
+      for (; released < n_tiles &&
+             (4 * (released + 1) <= step || step == n_steps);
+           ++released) {
+        release(released);
+      }
+    }
+  }
+
+  // Masked stores; pairs where N is even (aligned), single values else.
+  const bool pairs = (N % 2) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + row0 + 8 * r;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * c;
+      const float v0 = sum[4 * j + 2 * r], v1 = sum[4 * j + 2 * r + 1];
+      const long long o = (long long)row * N + col;
+      if (OUT_BF16) {
+        bf16* dst = static_cast<bf16*>(out) + o;
+        if (pairs && col + 1 < N) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (col < N) dst[0] = __float2bfloat16_rn(v0);
+          if (col + 1 < N) dst[1] = __float2bfloat16_rn(v1);
+        }
+      } else {
+        float* dst = static_cast<float*>(out) + o;
+        if (pairs && col + 1 < N) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          if (col < N) dst[0] = v0;
+          if (col + 1 < N) dst[1] = v1;
+        }
+      }
+    }
+  }
 }
 
 // The row scale of an amax: max(amax / 127, 1e-12), IEEE division.
@@ -88,327 +422,169 @@ __device__ __forceinline__ float row_scale(float amax) {
   return fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
 }
 
-// clip(round_half_even(v / s), -127, 127) with v / s the IEEE quotient,
-// from the product by r = 1 / s: |v * r - v / s| is a few ulps of a value
-// below 128 in magnitude (under 2e-5), so the two round to the same integer
-// unless v * r lies within 1e-4 of a half; there the division is taken.
-__device__ __forceinline__ unsigned quantize(float v, float s, float r) {
-  float t = v * r;
-  if (fabsf(fabsf(t - rintf(t)) - 0.5f) < 1e-4f) t = __fdiv_rn(v, s);
-  return unsigned(max(-127, min(127, __float2int_rn(t)))) & 0xffu;
+// clip(round_half_even(v / s), -127, 127), v / s the IEEE quotient.
+__device__ __forceinline__ uint32_t quantize(float v, float s) {
+  const int q = __float2int_rn(__fdiv_rn(v, s));
+  return uint32_t(max(-127, min(127, q))) & 0xffu;
 }
 
 // 8 bf16 quantized with scale s into 8 int8 bytes.
 __device__ __forceinline__ uint2 quantize8(const uint4& v, float s) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-  const float r = 1.f / s;
-  unsigned lo = 0u, hi = 0u;
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
+  uint32_t lo = 0u, hi = 0u;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    lo |= quantize(__bfloat162float(e[t]), s, r) << (8 * t);
-    hi |= quantize(__bfloat162float(e[t + 4]), s, r) << (8 * t);
+    lo |= quantize(__bfloat162float(e[t]), s) << (8 * t);
+    hi |= quantize(__bfloat162float(e[t + 4]), s) << (8 * t);
   }
   return make_uint2(lo, hi);
 }
 
-// Word w of a uint4 (w a constant once unrolled).
-__device__ __forceinline__ unsigned word(const uint4& v, int w) {
-  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
-}
+constexpr int kQuantThreads = 128;
 
-// 16 bytes of wq's row k from column n, zeros past N.
-__device__ __forceinline__ uint4 load_w16(const int8_t* __restrict__ wq,
-                                          int k, int n, int N, bool w_vec) {
-  const int8_t* src = wq + size_t(k) * N + n;
-  if (w_vec && n + 16 <= N) return *reinterpret_cast<const uint4*>(src);
-  unsigned v[4] = {0u, 0u, 0u, 0u};
+// The pre-pass: xq (M, K) int8 and a_s (M, G) fp32 from x (M, K) bf16, one
+// CTA per row: its threads read the row in neighbouring 16-byte pieces
+// (coalesced) and keep each piece's amax in shared memory; a thread per
+// group reduces the group's g / 8 pieces into its scale; the threads then
+// quantize their pieces (read again, from L1) with their group's scale.
+// x's rows are 16-byte aligned and g a multiple of 32.
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
+                     float* __restrict__ a_s, int K, int G) {
+  extern __shared__ float piece_max[];  // K / 8 pieces, then G scales
+  float* scale = piece_max + K / 8;
+  const long long row = blockIdx.x;
+  const uint4* src = reinterpret_cast<const uint4*>(x + row * K);
+  const int pieces = K / 8, per = K / G / 8;
+  for (int i = threadIdx.x; i < pieces; i += kQuantThreads) {
+    const uint4 v = src[i];
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    float m = 0.f;
 #pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    if (n + t < N) v[t / 4] |= unsigned(uint8_t(src[t])) << (8 * (t % 4));
+    for (int t = 0; t < 8; ++t) m = fmaxf(m, fabsf(__bfloat162float(e[t])));
+    piece_max[i] = m;
   }
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-template <bool FUSED, int KC>
-__global__ void __launch_bounds__(kThreads, 2)
-    q8g_kernel(const void* __restrict__ x, const float* __restrict__ a_scale,
-               const int8_t* __restrict__ wq,
-               const float* __restrict__ w_scale, void* __restrict__ out,
-               int out_bf16, int M, int N, int K, int G) {
-  constexpr int kLd = KC + kPad;
-  // x chunk: each of kXLanes lanes loads 16 bytes of a row.
-  constexpr int kXLanes = FUSED ? KC / 8 : KC / 16;
-  constexpr int kXItems = kBM * kXLanes;
-  constexpr int kXIt = (kXItems + kThreads - 1) / kThreads;
-  // Weight chunk: an item is 4 depths x 16 columns.
-  constexpr int kWItems = (KC / 4) * (kBN / 16);
-  constexpr int kWIt = (kWItems + kThreads - 1) / kThreads;
-  // K6's amax shuffles: a row's lanes are an aligned group of one warp.
-  static_assert(!FUSED || kXItems % kThreads == 0, "x chunk split");
-
-  __shared__ __align__(16) int8_t xs[kBM * kLd];
-  __shared__ __align__(16) int8_t ws[kBN * kLd];  // k-contiguous per column
-  __shared__ float as[kBM];                       // the group's row scales
-
-  const int g = K / G;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = (warp / 4) * 32, wn = (warp % 4) * 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const bool w_vec = (N % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(wq) % 16 == 0);
-
-  float facc[2][kNF][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < kNF; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) facc[i][j][c] = 0.f;
-
-  for (int grp = 0; grp < G; ++grp) {
-    const int kg = grp * g;
-    // The group's scales of this thread's accumulator columns, early.
-    float wsc[kNF][2];
-#pragma unroll
-    for (int j = 0; j < kNF; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + wn + j * 8 + tig * 2 + e;
-        wsc[j][e] = col < N ? w_scale[size_t(grp) * N + col] : 0.f;
-      }
-    }
-    // The group's row scales where they are not taken from the chunk
-    // itself: K7 reads them; K6 with g > KC reduces each row's amax over
-    // the group first (a half-warp per row).
-    if (!FUSED) {
-      for (int r = tid; r < kBM; r += kThreads) {
-        as[r] = m0 + r < M ? a_scale[size_t(m0 + r) * G + grp] : 0.f;
-      }
-    } else if (g > KC) {
-      const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-      const int hl = lane & 15;
-#pragma unroll
-      for (int i = 0; i < kBM / (kThreads / 16); ++i) {
-        const int r = i * (kThreads / 16) + warp * 2 + (lane >> 4);
-        float amax = 0.f;
-        if (m0 + r < M) {
-          const __nv_bfloat16* row = xb + size_t(m0 + r) * K + kg;
-          for (int c = hl * 8; c < g; c += 16 * 8) {
-            amax = fmaxf(amax,
-                         bf16_amax8(*reinterpret_cast<const uint4*>(row + c)));
-          }
-        }
-        amax = group_max<16>(amax);
-        if (hl == 0) as[r] = row_scale(amax);
-      }
-      __syncthreads();
-    }
-
-    int acc[2][kNF][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < kNF; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
-
-    for (int k0 = kg; k0 < kg + g; k0 += KC) {
-      // Every load of the chunk first: x rows past M and weight columns
-      // past N as zeros.
-      uint4 xv[kXIt];
-#pragma unroll
-      for (int j = 0; j < kXIt; ++j) {
-        const int it = tid + j * kThreads;
-        const int r = it / kXLanes, c = it % kXLanes;
-        xv[j] = make_uint4(0u, 0u, 0u, 0u);
-        if (it < kXItems && m0 + r < M) {
-          const size_t o = size_t(m0 + r) * K + k0;
-          xv[j] = FUSED ? reinterpret_cast<const uint4*>(
-                              static_cast<const __nv_bfloat16*>(x) + o)[c]
-                        : reinterpret_cast<const uint4*>(
-                              static_cast<const int8_t*>(x) + o)[c];
-        }
-      }
-      uint4 wv[kWIt][4];
-#pragma unroll
-      for (int j = 0; j < kWIt; ++j) {
-        const int it = tid + j * kThreads;
-        if (it < kWItems) {
-          const int kq = it % (KC / 4), nb = it / (KC / 4);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            wv[j][t] = load_w16(wq, k0 + 4 * kq + t, n0 + nb * 16, N, w_vec);
-          }
-        }
-      }
-
-      // x chunk -> xs as int8.
-#pragma unroll
-      for (int j = 0; j < kXIt; ++j) {
-        const int it = tid + j * kThreads;
-        const int r = it / kXLanes, c = it % kXLanes;
-        if (FUSED) {
-          float s;
-          if (g == KC) {
-            // The row's kXLanes lanes are an aligned group of this warp.
-            s = row_scale(group_max<kXLanes>(bf16_amax8(xv[j])));
-            if (c == 0) as[r] = s;
-          } else {
-            s = as[r];
-          }
-          *reinterpret_cast<uint2*>(xs + r * kLd + c * 8) = quantize8(xv[j], s);
-        } else if (it < kXItems) {
-          *reinterpret_cast<uint4*>(xs + r * kLd + c * 16) = xv[j];
-        }
-      }
-      // Weight chunk -> ws[n][k]: per 4 depths, a 4 x 4 byte transpose of
-      // each 4-column word; column n then gets one 32-bit store.
-#pragma unroll
-      for (int j = 0; j < kWIt; ++j) {
-        const int it = tid + j * kThreads;
-        if (it < kWItems) {
-          const int kq = it % (KC / 4), nb = it / (KC / 4);
-#pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            const unsigned t0 = __byte_perm(word(wv[j][0], w),
-                                            word(wv[j][1], w), 0x5140);
-            const unsigned t1 = __byte_perm(word(wv[j][0], w),
-                                            word(wv[j][1], w), 0x7362);
-            const unsigned t2 = __byte_perm(word(wv[j][2], w),
-                                            word(wv[j][3], w), 0x5140);
-            const unsigned t3 = __byte_perm(word(wv[j][2], w),
-                                            word(wv[j][3], w), 0x7362);
-            const unsigned col[4] = {__byte_perm(t0, t2, 0x5410),
-                                     __byte_perm(t0, t2, 0x7632),
-                                     __byte_perm(t1, t3, 0x5410),
-                                     __byte_perm(t1, t3, 0x7632)};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              *reinterpret_cast<unsigned*>(
-                  ws + (nb * 16 + w * 4 + e) * kLd + 4 * kq) = col[e];
-            }
-          }
-        }
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 32) {
-        unsigned a[2][4], b[kNF][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int8_t* r0 = xs + (wm + i * 16 + gid) * kLd + kk + tig * 4;
-          const int8_t* r8 = r0 + 8 * kLd;
-          a[i][0] = *reinterpret_cast<const unsigned*>(r0);
-          a[i][1] = *reinterpret_cast<const unsigned*>(r8);
-          a[i][2] = *reinterpret_cast<const unsigned*>(r0 + 16);
-          a[i][3] = *reinterpret_cast<const unsigned*>(r8 + 16);
-        }
-#pragma unroll
-        for (int j = 0; j < kNF; ++j) {
-          const int8_t* c0 = ws + (wn + j * 8 + gid) * kLd + kk + tig * 4;
-          b[j][0] = *reinterpret_cast<const unsigned*>(c0);
-          b[j][1] = *reinterpret_cast<const unsigned*>(c0 + 16);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < kNF; ++j) mma_s8(acc[i][j], a[i], b[j]);
-      }
-      __syncthreads();
-    }
-
-    // Dequantize the group's partial into the fp32 sum:
-    // c0, c1 at (gid, 2 tig + {0, 1}), c2, c3 eight rows below.
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < kNF; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int r = wm + i * 16 + gid + (c >= 2 ? 8 : 0);
-          const float part = __fmul_rn(__fmul_rn(float(acc[i][j][c]), as[r]),
-                                       wsc[j][c & 1]);
-          facc[i][j][c] = __fadd_rn(facc[i][j][c], part);
-        }
-      }
-    }
-    __syncthreads();  // as[] is rewritten by the next group
+  __syncthreads();
+  for (int grp = threadIdx.x; grp < G; grp += kQuantThreads) {
+    float m = 0.f;
+    for (int i = 0; i < per; ++i) m = fmaxf(m, piece_max[grp * per + i]);
+    scale[grp] = row_scale(m);
+    a_s[row * G + grp] = scale[grp];
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < kNF; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = m0 + wm + i * 16 + gid + (c >= 2 ? 8 : 0);
-        const int col = n0 + wn + j * 8 + tig * 2 + (c & 1);
-        if (row < M && col < N) {
-          const size_t o = size_t(row) * N + col;
-          if (out_bf16) {
-            static_cast<__nv_bfloat16*>(out)[o] =
-                __float2bfloat16_rn(facc[i][j][c]);
-          } else {
-            static_cast<float*>(out)[o] = facc[i][j][c];
-          }
-        }
-      }
-    }
+  __syncthreads();
+  uint2* dst = reinterpret_cast<uint2*>(xq + row * K);
+  for (int i = threadIdx.x; i < pieces; i += kQuantThreads) {
+    dst[i] = quantize8(src[i], scale[i / per]);
   }
 }
 
-template <bool FUSED, int KC>
-int launch_kc(const void* x, const float* a_scale, const void* wq,
-              const void* w_scale, void* out, int out_bf16, int M, int N,
-              int K, int G, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  q8g_kernel<FUSED, KC><<<grid, kThreads, 0, stream>>>(
-      x, a_scale, static_cast<const int8_t*>(wq),
-      static_cast<const float*>(w_scale), out, out_bf16, M, N, K, G);
+// A (rows, inner) int8 array with row stride `row_bytes` in boxes of 128
+// bytes x `box_rows` rows, 128-byte swizzle, zero fill past either edge.
+inline bool encode_u8(CUtensorMap* map, const void* ptr, int inner, int rows,
+                      long long row_bytes, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(inner), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(row_bytes)};
+  const cuuint32_t box[2] = {cuuint32_t(kBoxK), cuuint32_t(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool valid_shape(int M, int N, int K, int G) {
+  return M > 0 && N > 0 && G > 0 && K % G == 0 && (K / G) % 32 == 0;
+}
+
+template <bool OUT_BF16>
+int launch_gemm_as(const CUtensorMap& ta, const CUtensorMap& tb,
+                   const float* a_scale, const float* w_scale, void* out,
+                   int M, int N, int K, int G, cudaStream_t stream) {
+  using C = Q8G;
+  auto kernel = q8g_gemm_kernel<C, OUT_BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(C::kSmemBytes));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((N + C::kBlockN - 1) / C::kBlockN,
+                  (M + C::kBlockM - 1) / C::kBlockM);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      ta, tb, a_scale, w_scale, out, M, N, K, G);
   return int(cudaGetLastError());
 }
 
-template <bool FUSED>
-int launch(const void* x, const float* a_scale, const void* wq,
-           const void* w_scale, void* out, int out_bf16, int M, int N, int K,
-           int G, void* stream) {
-  if (M <= 0 || N <= 0 || G <= 0 || K % G) return int(cudaErrorInvalidValue);
-  const int g = K / G;
-  if (g % 32) return int(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g % 128 == 0) {
-    return launch_kc<FUSED, 128>(x, a_scale, wq, w_scale, out, out_bf16, M, N,
-                                 K, G, s);
+// K7's GEMM: xq (M, K) int8 row-major, a_scale (M, G), wq the k-major
+// weight ((N, K) row-major, row stride ldk bytes), w_scale (G, N) -> out
+// (M, N) bf16 (out_bf16) or fp32.
+int launch_gemm(const void* xq, const void* a_scale, const void* wq,
+                const void* w_scale, void* out, int out_bf16, int M, int N,
+                int K, int G, long long ldk, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  if (!encode_u8(&ta, xq, K, M, K, Q8G::kBlockM) ||
+      !encode_u8(&tb, wq, K, N, ldk, Q8G::kBlockN)) {
+    return int(cudaErrorInvalidValue);
   }
-  if (g % 64 == 0) {
-    return launch_kc<FUSED, 64>(x, a_scale, wq, w_scale, out, out_bf16, M, N,
-                                K, G, s);
-  }
-  return launch_kc<FUSED, 32>(x, a_scale, wq, w_scale, out, out_bf16, M, N,
-                              K, G, s);
+  const float* as = static_cast<const float*>(a_scale);
+  const float* ws = static_cast<const float*>(w_scale);
+  return out_bf16 ? launch_gemm_as<true>(ta, tb, as, ws, out, M, N, K, G,
+                                         stream)
+                  : launch_gemm_as<false>(ta, tb, as, ws, out, M, N, K, G,
+                                          stream);
 }
 
-}  // namespace
+int launch_quantize(const void* x, void* xq, void* a_s, int M, int K, int G,
+                    cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (K / 8 + G);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        quantize_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  quantize_rows_kernel<<<unsigned(M), kQuantThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
+      static_cast<float*>(a_s), K, G);
+  return int(cudaGetLastError());
+}
 
-// K6: x (M, K) bf16, wq (K, N) int8, w_scale (G, N) fp32 -> out (M, N)
-// bf16 (out_bf16 = 1) or fp32.
+}  // namespace q8g_sm90
+}  // namespace mjv
+
+namespace q8g = mjv::q8g_sm90;
+
+// The pre-pass alone: x (M, K) bf16 -> xq (M, K) int8, a_s (M, G) fp32.
+extern "C" int mjv_q8g_quantize(const void* x, void* xq, void* a_s, int M,
+                                int K, int G, void* stream) {
+  if (!q8g::valid_shape(M, 1, K, G)) return int(cudaErrorInvalidValue);
+  return q8g::launch_quantize(x, xq, a_s, M, K, G,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// K6: x (M, K) bf16, wq the k-major (K, N) int8 weight (an (N, K) array
+// of row stride ldk bytes), w_scale (G, N) fp32; xq (M, K) int8 and a_s
+// (M, G) fp32 scratch -> out (M, N) bf16 (out_bf16 = 1) or fp32.
 extern "C" int mjv_q8g_matmul_fused(const void* x, const void* wq,
-                                    const void* w_scale, void* out,
-                                    int out_bf16, int M, int N, int K, int G,
+                                    const void* w_scale, void* xq, void* a_s,
+                                    void* out, int out_bf16, int M, int N,
+                                    int K, int G, long long ldk,
                                     void* stream) {
-  return launch<true>(x, nullptr, wq, w_scale, out, out_bf16, M, N, K, G,
-                      stream);
+  if (!q8g::valid_shape(M, N, K, G)) return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = q8g::launch_quantize(x, xq, a_s, M, K, G, s);
+  if (err != 0) return err;
+  return q8g::launch_gemm(xq, a_s, wq, w_scale, out, out_bf16, M, N, K, G,
+                          ldk, s);
 }
 
-// K7: xq (M, K) int8, a_scale (M, G) fp32, wq (K, N) int8, w_scale (G, N)
-// fp32 -> out (M, N) fp32.
+// K7: xq (M, K) int8, a_scale (M, G) fp32, wq and w_scale as for K6 ->
+// out (M, N) fp32.
 extern "C" int mjv_q8g_matmul(const void* xq, const void* a_scale,
                               const void* wq, const void* w_scale, void* out,
-                              int M, int N, int K, int G, void* stream) {
-  return launch<false>(xq, static_cast<const float*>(a_scale), wq, w_scale,
-                       out, 0, M, N, K, G, stream);
+                              int M, int N, int K, int G, long long ldk,
+                              void* stream) {
+  if (!q8g::valid_shape(M, N, K, G)) return int(cudaErrorInvalidValue);
+  return q8g::launch_gemm(xq, a_scale, wq, w_scale, out, 0, M, N, K, G, ldk,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -42,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # and K3 with and without the lse, "vit_attention_lse",
 # "decoder_attention_lse" and "exact_attention_lse" the launches with it;
 # "key_norm_max" counts the pre-pass of K1 and K2 (their kmax, with the lse
-# or without), "key_norm_cummax" K2r's (its bound column).
+# or without), "key_norm_cummax" K2r's (its bound column); "q8g_quantize"
+# the activation pre-pass of K6 (one per K6 launch, or alone).
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
@@ -50,7 +51,8 @@ launch_counts: Dict[str, int] = {
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
     "exact_attention": 0, "exact_attention_lse": 0,
     "decoder_attention_rows": 0, "key_norm_cummax": 0, "key_norm_max": 0,
-    "q8g_matmul_fused": 0, "q8g_matmul": 0, "w4_matmul": 0,
+    "q8g_matmul_fused": 0, "q8g_matmul": 0, "q8g_quantize": 0,
+    "w4_matmul": 0,
     "vit_attention_variant": 0, "vit_attention_tmajor": 0,
     "vit_attention_bshd": 0}
 
@@ -138,8 +140,9 @@ ARGTYPES = {
     "mjv_exact_attention": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _I, _P],
     "mjv_decoder_attention_bwd_dkdv": _BWD[:8] + [_P, _P] + _BWD[8:],
     "mjv_decoder_attention_bwd_dq": _BWD[:8] + [_P] + _BWD[8:],
-    "mjv_q8g_matmul_fused": [_P] * 4 + [_I] * 5 + [_P],
-    "mjv_q8g_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "mjv_q8g_matmul_fused": [_P] * 6 + [_I] * 5 + [_L, _P],
+    "mjv_q8g_matmul": [_P] * 5 + [_I] * 4 + [_L, _P],
+    "mjv_q8g_quantize": [_P] * 3 + [_I] * 3 + [_P],
     "mjv_w4_matmul": [_P] * 4 + [_I] * 4 + [_P],
     "mjv_vit_attention_variant": _VARIANT,
     "mjv_vit_attention_tmajor": _VARIANT,
@@ -534,7 +537,10 @@ def _check_dense(name: str, t: torch.Tensor, dtype, shape, dev,
 
 def _group_operands(name: str, wq: torch.Tensor, w_scale: torch.Tensor,
                     M: int, K: int, dev):
-    """Checks shared by K6 and K7; returns (N, G)."""
+    """Checks shared by K6 and K7; returns (N, G).  wq must be stored
+    k-major (``ops.quant.k_major``, as the port's quantizer stores every
+    int8 weight): the kernels read it by TMA as an (N, K) array and would
+    otherwise need a transposed copy of the weight at every call."""
     if wq.dim() != 2 or w_scale.dim() != 2 or wq.shape[0] != K:
         raise ValueError(f"{name}: wq must be (K, N) = ({K}, N) and w_scale "
                          f"(G, N); got {tuple(wq.shape)}, "
@@ -543,17 +549,49 @@ def _group_operands(name: str, wq: torch.Tensor, w_scale: torch.Tensor,
     if M < 1 or G < 1 or K % G or (K // G) % 32:
         raise ValueError(f"{name}: the group size K / G = {K} / {G} must be "
                          "a whole multiple of 32, and M >= 1")
-    _check_dense(f"{name} wq", wq, torch.int8, (K, N), dev)
+    if wq.device != dev or wq.dtype != torch.int8:
+        raise ValueError(f"{name}: wq must be int8 on {dev}, got {wq.dtype} "
+                         f"on {wq.device}")
+    if wq.stride(0) != 1 or (N > 1 and wq.stride(1) != K):
+        raise ValueError(f"{name}: wq must be k-major, a (K, N) view of an "
+                         f"(N, K) contiguous tensor (strides (1, {K})), got "
+                         f"strides {wq.stride()}; store it so once "
+                         "(ops.quant.k_major)")
+    if wq.data_ptr() % 16:
+        raise ValueError(f"{name}: wq must be 16-byte aligned")
     _check_dense(f"{name} w_scale", w_scale, torch.float32, (G, N), dev)
     return N, G
+
+
+def q8g_quantize(x: torch.Tensor, G: int):
+    """K6's pre-pass alone.  x: (M, K) bf16, contiguous and 16-byte
+    aligned, K / G a multiple of 32.  Returns (xq (M, K) int8, a_s (M, G)
+    fp32), bit-equal to ``ops.quant._quantize_rows_grouped``."""
+    name = "q8g_quantize"
+    M, K = x.shape
+    _check_dense(f"{name} x", x, torch.bfloat16, (M, K), x.device, 16)
+    if M < 1 or G < 1 or K % G or (K // G) % 32:
+        raise ValueError(f"{name}: the group size K / G = {K} / {G} must be "
+                         "a whole multiple of 32, and M >= 1")
+    lib = _load()
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    a_s = torch.empty((M, G), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mjv_q8g_quantize(x.data_ptr(), xq.data_ptr(),
+                                   a_s.data_ptr(), M, K, G, stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return xq, a_s
 
 
 def q8g_matmul_fused(x: torch.Tensor, wq: torch.Tensor,
                      w_scale: torch.Tensor,
                      out_dtype: torch.dtype) -> torch.Tensor:
-    """K6.  x: (M, K) bf16, wq: (K, N) int8, w_scale: (G, N) fp32 with
-    K / G a multiple of 32, all contiguous.  Returns a (M, N) tensor of
-    ``out_dtype`` (bf16 or fp32)."""
+    """K6: its pre-pass (x quantized once per (row, group) into scratch)
+    and K7's GEMM, from one C call.  x: (M, K) bf16, contiguous; wq: (K, N)
+    int8 stored k-major; w_scale: (G, N) fp32 with K / G a multiple of 32.
+    Returns a (M, N) tensor of ``out_dtype`` (bf16 or fp32)."""
     name = "q8g_matmul_fused"
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be (M, K), got {tuple(x.shape)}")
@@ -563,22 +601,26 @@ def q8g_matmul_fused(x: torch.Tensor, wq: torch.Tensor,
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: out_dtype must be bf16 or fp32")
     lib = _load()
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    a_s = torch.empty((M, G), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_q8g_matmul_fused(
-            x.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), M, N, K, G, stream)
+            x.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), xq.data_ptr(),
+            a_s.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+            M, N, K, G, K, stream)
     _raise_on(name, err)
     launch_counts[name] += 1
+    launch_counts["q8g_quantize"] += 1
     return out
 
 
 def q8g_matmul(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
                w_scale: torch.Tensor) -> torch.Tensor:
-    """K7.  xq: (M, K) int8, a_scale: (M, G) fp32, wq: (K, N) int8,
-    w_scale: (G, N) fp32 with K / G a multiple of 32, all contiguous.
-    Returns a (M, N) fp32 tensor."""
+    """K7, K6's GEMM alone.  xq: (M, K) int8 and a_scale: (M, G) fp32,
+    contiguous; wq: (K, N) int8 stored k-major; w_scale: (G, N) fp32 with
+    K / G a multiple of 32.  Returns a (M, N) fp32 tensor."""
     name = "q8g_matmul"
     if xq.dim() != 2:
         raise ValueError(f"{name}: xq must be (M, K), got {tuple(xq.shape)}")
@@ -593,7 +635,7 @@ def q8g_matmul(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_q8g_matmul(
             xq.data_ptr(), a_scale.data_ptr(), wq.data_ptr(),
-            w_scale.data_ptr(), out.data_ptr(), M, N, K, G, stream)
+            w_scale.data_ptr(), out.data_ptr(), M, N, K, G, K, stream)
     _raise_on(name, err)
     launch_counts[name] += 1
     return out

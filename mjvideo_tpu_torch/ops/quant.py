@@ -19,9 +19,15 @@ Counterpart of ``mjvideo_tpu/ops/quant.py``.  Modes (``quantize_params_mode``):
 
 The nodes are plain dataclasses of tensors in the JAX layout, ``(..., K,
 N)`` with leading layer axes, so ``utils.bridge.map_state`` slices stacked
-layers through them.  ``impl`` follows the attention's: "auto" launches the
-kernels for CUDA tensors (their plain twins for CPU tensors), "plain" runs
-the twins everywhere.  The twins sum int8 products exactly in int32
+layers through them.  Every int8 weight (``q`` of ``QuantKernel`` and
+``OutlierQuantKernel``, ``qw`` of ``WOQuantKernel``) is stored k-major: the
+``(..., K, N)`` tensor is a view of an ``(..., N, K)`` contiguous one
+(``k_major``), the operand layout of the card's int8 products (K6 and K7
+read 8-bit operands only K-major; ``torch._int_mm`` wants the second
+operand column-major).  Values and shapes are the JAX package's.
+``impl`` follows the attention's: "auto" launches the kernels for CUDA
+tensors (their plain twins for CPU tensors), "plain" runs the twins
+everywhere.  The twins sum int8 products exactly in int32
 (``int8_matmul``); fp32 is exact only to 2^24, and K reaches 8,192 * 127^2.
 
 ``revive_quant_kernels`` waits for the checkpoint loader (ROADMAP 6b).
@@ -77,21 +83,48 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """``q`` (..., K, N) as a view of an (..., N, K) contiguous tensor: the
+    same values, transposed strides; no copy if it is one already."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def is_k_major(q: torch.Tensor) -> bool:
+    """Whether the (K, N) ``q`` is a view of an (N, K) contiguous tensor."""
+    return (q.dim() == 2 and q.stride(0) == 1
+            and (q.shape[1] == 1 or q.stride(1) == q.shape[0]))
+
+
+def _stack_like(t: torch.Tensor, n: int) -> torch.Tensor:
+    """An empty (n, *t.shape) tensor whose slices have t's layout (k-major
+    for a k-major t)."""
+    if is_k_major(t) and t.shape[1] > 1:
+        return t.new_empty((n, t.shape[1], t.shape[0])).transpose(1, 2)
+    return t.new_empty((n, *t.shape))
+
+
 def _quantize_stacked(w: torch.Tensor, one):
     """Apply ``one`` (a 2-D quantizer returning a tuple of tensors) to each
-    (K, N) slice of a stacked kernel, into preallocated outputs: the fp32
-    transients stay one layer's worth."""
+    (K, N) slice of a stacked kernel, into preallocated outputs of each
+    slice's layout: the fp32 transients stay one layer's worth."""
     if w.dim() == 2:
         return one(w)
     lead = w.shape[:-2]
     flat = w.reshape(-1, *w.shape[-2:])
     first = one(flat[0])
-    outs = [torch.empty((flat.shape[0], *t.shape), dtype=t.dtype,
-                        device=t.device) for t in first]
+    outs = [_stack_like(t, flat.shape[0]) for t in first]
     for i in range(flat.shape[0]):
         for o, t in zip(outs, first if i == 0 else one(flat[i])):
             o[i] = t
     return tuple(o.reshape(*lead, *o.shape[1:]) for o in outs)
+
+
+def _int8_k_major(q: torch.Tensor) -> torch.Tensor:
+    """Integral fp32 (K, N) values as a k-major int8 tensor: one cast and
+    transpose, no other transient."""
+    K, N = q.shape
+    out = torch.empty((N, K), dtype=torch.int8, device=q.device).t()
+    return out.copy_(q)
 
 
 def _quantize_2d(w: torch.Tensor, dtype, group_size: Optional[int]):
@@ -103,11 +136,11 @@ def _quantize_2d(w: torch.Tensor, dtype, group_size: Optional[int]):
         scale = div(grouped.abs().amax(-2, keepdim=True), 127.0)
         scale = scale.clamp_min(1e-12)
         q = torch.round(grouped / scale).clamp(-127, 127)
-        return (q.reshape(K, N).to(torch.int8),
+        return (_int8_k_major(q.reshape(K, N)),
                 scale.reshape(K // group_size, N).to(dtype))
     scale = div(w32.abs().amax(-2, keepdim=True), 127.0).clamp_min(1e-12)
-    q = torch.round(w32 / scale).clamp(-127, 127).to(torch.int8)
-    return q, scale.to(dtype)
+    q = torch.round(w32 / scale).clamp(-127, 127)
+    return _int8_k_major(q), scale.to(dtype)
 
 
 def quantize_kernel(w: torch.Tensor, dtype: torch.dtype = torch.float32,
@@ -115,7 +148,8 @@ def quantize_kernel(w: torch.Tensor, dtype: torch.dtype = torch.float32,
     """Symmetric int8 quantization of a dense kernel (..., K, N), per
     output column or per ``group_size`` rows of each column: scale =
     max(amax / 127, 1e-12), q = clip(round(w / scale), -127, 127), round
-    half to even, all in fp32 (bit-equal to the JAX package's)."""
+    half to even, all in fp32 (bit-equal to the JAX package's); q k-major
+    (``k_major``)."""
     q, scale = _quantize_stacked(
         w, lambda s: _quantize_2d(s, dtype, group_size))
     return QuantKernel(q=q, scale=scale)
@@ -164,11 +198,13 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     pm, pk, pn = max(17 - M, 0), -K % 8, -N % 8
     if pm or pk:
         a = F.pad(a, (0, pk, 0, pm))
+    # cuBLASLt's int8 product takes the second operand column-major: b^T
+    # row-major, which a k-major weight is already (no copy); the padding,
+    # where asked, is taken on b^T so that it stays so.
+    bt = b.t()
     if pk or pn:
-        b = F.pad(b, (0, pn, 0, pk))
-    # cuBLASLt's int8 product takes the second operand column-major; a
-    # row-major (K, N) kernel is copied so for each call.
-    out = torch._int_mm(a.contiguous(), b.t().contiguous().t())
+        bt = F.pad(bt, (0, pk, 0, pn))
+    out = torch._int_mm(a.contiguous(), bt.contiguous().t())
     return out[:M, :N] if pm or pn else out
 
 

@@ -22,6 +22,7 @@ from ..ops.quant import (
     QuantKernel,
     WOQuantKernel,
     is_qnode,
+    k_major,
 )
 from ..ops.quant4 import Q4Kernel
 
@@ -75,7 +76,13 @@ def from_jax_params(tree, *, device: Union[str, torch.device] = "cuda",
     package's quantized kernels) -> torch state on ``device`` (the card
     unless the caller asks for another), plain leaves optionally cast to
     ``dtype``.  Quantized kernels become the port's nodes with their
-    integer and scale fields as they are."""
+    integer and scale fields as they are, the int8 weights (``q``, ``qw``)
+    k-major, as the port's quantizer stores them (``ops.quant.k_major``:
+    transposed on the host, moved with their strides)."""
+    def field(name, v):
+        t = _tensor(v)
+        return (k_major(t) if name in ("q", "qw") else t).to(device=device)
+
     def leaf(a):
         node = _jax_node(a)
         if node is None:
@@ -83,8 +90,7 @@ def from_jax_params(tree, *, device: Union[str, torch.device] = "cuda",
             return t.to(device=device, dtype=dtype or t.dtype)
         fields = {f.name: getattr(a, f.name)
                   for f in dataclasses.fields(node)}
-        return node(**{k: v if k == "n_outliers"
-                       else _tensor(v).to(device=device)
+        return node(**{k: v if k == "n_outliers" else field(k, v)
                        for k, v in fields.items()})
 
     return map_state(leaf, tree)

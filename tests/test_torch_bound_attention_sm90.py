@@ -347,8 +347,8 @@ def test_k1_and_k2_pre_pass_is_counted_under_its_own_name():
 
 def test_k1_and_k2_share_the_hopper_template():
     """K1 and K2, with the lse and without, are launched from the wgmma/TMA
-    template, which every build hashes; the WMMA template keeps only K3
-    lse, the exact shift."""
+    template, which every build hashes; the WMMA header keeps no forward
+    (K3 lse moved onto the wgmma/TMA template too)."""
     assert "decoder_attention_sm90.cuh" in kernels.HEADERS
     vit = (kernels.CSRC / "vit_attention.cu").read_text()
     dec = (kernels.CSRC / "decoder_attention.cu").read_text()
@@ -359,4 +359,5 @@ def test_k1_and_k2_share_the_hopper_template():
     wmma = (kernels.CSRC / "bound_attention.cuh").read_text()
     assert "WITH_LSE" not in wmma and "kGlobalBound" not in wmma
     exact = (kernels.CSRC / "exact_attention.cu").read_text()
-    assert "launch_bound_attention" in exact
+    assert "launch_bound_attention" not in exact
+    assert "launch_bound_attention" not in wmma
