@@ -29,9 +29,13 @@ Phases (any failure raises and exits non-zero):
    it (the same template's lse epilogue; the output to the relative bound
    and bit-equal to K2's without the lse, the lse to LSE_TOL, dead rows'
    output exactly 0 and lse exactly 1e30), then K4a (dK,
-   dV) and K4b (dQ) from the twin's output and lse (each gradient to the
-   relative bound, dq exactly 0 on dead rows, dk and dv exactly 0 on masked
-   keys); the median time of each kernel and twin.
+   dV) and K4b (dQ), on the Hopper backward template
+   (``attention_bwd_sm90.cuh`` at D = 128), from the twin's output and lse
+   (each gradient to the relative bound, dq exactly 0 on dead rows, dk and
+   dv exactly 0 on masked keys, a second launch bit-identical to the
+   first); the median time of each kernel and twin.  Then K4a, K4b and
+   SDPA's backward timed in turns at training's last shape and at the
+   reward gradient's, with each one's share of its bound.
 4. Serving: a 2B ``RewardScorer`` with random bf16 weights made on the card
    from a seed answers a single clip and a pair of 8 frames of 448 px each.
    The launch counters must show 24 K1, 24 K2 and 48 ``key_norm_max``
@@ -171,8 +175,9 @@ Phases (any failure raises and exits non-zero):
    lse timed at the 768 chunk and at the long clip's 13,440-row chunk
    (LONG_CHUNK) with SDPA at each; K4a and K4b at the same offsets
    from the twin's merged (global) lse, masked keys' dk and dv and dead
-   rows' dq exactly 0; K3 at the all-gather shape (768 queries over the
-   3,072 keys at q_offset 768 r, r in SP_GATHER_RANKS).  Each with its
+   rows' dq exactly 0, a second launch bit-identical; K3 at the
+   all-gather shape (768 queries over the 3,072 keys at q_offset 768 r, r
+   in SP_GATHER_RANKS).  Each with its
    bound and ``F.scaled_dot_product_attention`` with an explicit boolean
    mask for the offset.
 18. Sequence-parallel scoring (after phase 4, on its bf16 state):
@@ -308,12 +313,13 @@ PREPASS_REL_TOL = 1e-6
 # q8g_matmul.cu, mjv::q8g_sm90) and the bound pre-passes, as ptxas names
 # them: their registers and spills are printed.  The forward template has 5
 # instantiations (K3 causal and not, with the lse or without; K2r; K2 with
-# the lse or without; K1 likewise), the backward 2 (K4 nc dK/dV and dQ),
+# the lse or without; K1 likewise), the backward 6 (K4 nc dK/dV and dQ at
+# D = 64; K4a dK/dV and K4b dQ at D = 128, each causal and non-causal),
 # key_norm_max 2 (D = 64 and 128), key_norm_cummax 1, the int8 GEMM 2 (bf16
 # or fp32 out) and K6's pre-pass 1.
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_cummax_kernel", "key_norm_max_kernel")
-SM90_INSTANTIATIONS = 13
+SM90_INSTANTIATIONS = 17
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -519,6 +525,20 @@ def _check_kernel(label, kernel_fn, plain_fn, names=("out",), zero=None,
     return reading
 
 
+def _again(kernel_fn):
+    """An ``extra`` rule of ``_check_kernel``: a second launch of the kernel
+    is bit-identical to the first (no atomics)."""
+    import torch
+
+    def rule(got, ref):
+        second = kernel_fn()
+        second = second if isinstance(second, tuple) else (second,)
+        same = all(torch.equal(a, b) for a, b in zip(got, second))
+        return (f"a second launch bit-identical: {same}", same,
+                {"bit_identical": same})
+    return rule
+
+
 def _attention_work(q, k, v, mask, q_offset=None, causal=True, matmuls=2,
                     inputs=(), outputs=None):
     """(bytes, ops, peak) of an attention function: ``matmuls`` products of
@@ -637,29 +657,19 @@ def check_vit_backward(randn, shape):
     del ref
     backward = _sdpa(q, k, v, causal=False, backward=True)
 
-    def again(kernel_fn):
-        # A second launch, bit-identical to the first: no atomics.
-        def rule(got, ref):
-            second = kernel_fn()
-            second = second if isinstance(second, tuple) else (second,)
-            same = all(torch.equal(a, b) for a, b in zip(got, second))
-            return (f"a second launch bit-identical: {same}", same,
-                    {"bit_identical": same})
-        return rule
-
     dkdv = lambda: kernels.vit_attention_bwd_dkdv(*args, scale)  # noqa: E731
     dq = lambda: kernels.vit_attention_bwd_dq(*args, scale)  # noqa: E731
     readings["K4 nc dkdv"] = _check_kernel(
         f"K4 nc vit_attention_bwd_dkdv {shape}", dkdv,
         lambda: fa.vit_attention_bwd_plain(*args, want_dq=False)[1:],
-        names=("dk", "dv"), extra=again(dkdv),
+        names=("dk", "dv"), extra=_again(dkdv),
         work=_attention_work(q, k, v, None, causal=False, matmuls=4,
                              inputs=args[3:6], outputs=(k, v)),
         library=backward)
     readings["K4 nc dq"] = _check_kernel(
         f"K4 nc vit_attention_bwd_dq {shape}", dq,
         lambda: fa.vit_attention_bwd_plain(*args, want_dkdv=False)[0],
-        names=("dq",), extra=again(dq),
+        names=("dq",), extra=_again(dq),
         work=_attention_work(q, k, v, None, causal=False, matmuls=3,
                              inputs=args[3:6]),
         library=backward)
@@ -788,21 +798,24 @@ def check_decoder_kernels(randn, shape, ragged, live=None):
     args = (q, k, v, dout, lse, fa.attention_delta(ref, dout), mask)
     del ref
     backward = _sdpa(q, k, v, causal=True, backward=True)
+    dkdv = lambda: kernels.decoder_attention_bwd_dkdv(  # noqa: E731
+        *args, None, scale)
+    dq = lambda: kernels.decoder_attention_bwd_dq(  # noqa: E731
+        *args, None, scale)
     readings["K4a"] = _check_kernel(
-        f"K4a decoder_attention_bwd_dkdv {shape}",
-        lambda: kernels.decoder_attention_bwd_dkdv(*args, None, scale),
+        f"K4a decoder_attention_bwd_dkdv {shape}", dkdv,
         lambda: fa.decoder_attention_bwd_plain(*args, want_dq=False)[1:],
         names=("dk", "dv"),
         zero=(f"{n_masked} masked keys",
               lambda got: not any(g[masked].any() for g in got)),
+        extra=_again(dkdv),
         work=_attention_work(q, k, v, mask, matmuls=4, inputs=args[3:6],
                              outputs=(k, v)),
         library=backward)
     readings["K4b"] = _check_kernel(
-        f"K4b decoder_attention_bwd_dq {shape}",
-        lambda: kernels.decoder_attention_bwd_dq(*args, None, scale),
+        f"K4b decoder_attention_bwd_dq {shape}", dq,
         lambda: fa.decoder_attention_bwd_plain(*args, want_dkdv=False)[0],
-        names=("dq",), zero=dead_rows,
+        names=("dq",), zero=dead_rows, extra=_again(dq),
         work=_attention_work(q, k, v, mask, matmuls=3, inputs=args[3:6]),
         library=backward)
     return readings
@@ -1015,6 +1028,55 @@ def time_k4nc_in_turns(randn, rounds=10):
     return med
 
 
+def time_k4_in_turns(randn, shapes, rounds=10):
+    """K4a dK/dV and K4b dQ, launched directly, and
+    ``F.scaled_dot_product_attention``'s backward (dQ, dK and dV in one
+    call, k and v repeated to the q heads), timed in turns by CUDA events
+    at each of ``shapes`` ((B, T, Hq, Hkv, D), live keys or None: training's
+    with every key live, the reward gradient's with the single clip's
+    prompt live), causal from the twin's lse; prints each one's share of
+    its bound (``_attention_work`` on this run's mask) and the pair's sum
+    against SDPA's.  Returns the readings by shape."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for shape, live in shapes:
+        q, k, v, mask, _ = _decoder_inputs(randn, *shape, False, live)
+        dout = randn(*q.shape)
+        ref, lse = fa.decoder_attention_plain(q, k, v, mask, return_lse=True)
+        args = (q, k, v, dout, lse, fa.attention_delta(ref, dout), mask,
+                None, shape[-1] ** -0.5)
+        del ref
+        runs = {
+            "K4a": lambda: kernels.decoder_attention_bwd_dkdv(*args),
+            "K4b": lambda: kernels.decoder_attention_bwd_dq(*args),
+            "SDPA backward": _sdpa(q, k, v, causal=True, backward=True),
+        }
+        order = list(runs) + list(runs)[::-1]
+        med = _in_turns(runs, order, rounds)
+        bounds = {
+            "K4a": _bound(*_attention_work(q, k, v, mask, matmuls=4,
+                                           inputs=args[3:6],
+                                           outputs=(k, v)))["bound_ms"],
+            "K4b": _bound(*_attention_work(q, k, v, mask, matmuls=3,
+                                           inputs=args[3:6]))["bound_ms"]}
+        bounds["pair"] = bounds["K4a"] + bounds["K4b"]
+        med["pair"] = med["K4a"] + med["K4b"]
+        reading = {"ms": med, "bound_ms": bounds,
+                   "pair_over_sdpa_backward": med["pair"]
+                   / med["SDPA backward"]}
+        print(f"K4a/K4b at {shape[:5]}, {int(mask.sum())} live keys, in "
+              f"turns (median of {2 * rounds} each): " + ", ".join(
+                  f"{n} {med[n]:.4f} ms ({100 * bounds[n] / med[n]:.1f}% of "
+                  f"its {bounds[n]:.4f} ms bound)" for n in bounds)
+              + f", SDPA backward {med['SDPA backward']:.4f} ms; the pair "
+              "against SDPA's backward "
+              f"{reading['pair_over_sdpa_backward']:.3f}")
+        out[str(shape[:5])] = reading
+    return out
+
+
 def sm90_ptxas(lib):
     """Registers, spill bytes and ptxas's wgmma warnings of the Hopper
     template's instantiations and the bound pre-passes, from the build's
@@ -1161,22 +1223,25 @@ def check_ring_kernels(randn):
         del g_out
         masked = mc == 0
         backward = _sdpa(qc, kc, vc, False, backward=True, allowed=allowed)
+        dkdv = lambda: kernels.decoder_attention_bwd_dkdv(  # noqa: E731
+            *args, scale)
+        dq = lambda: kernels.decoder_attention_bwd_dq(  # noqa: E731
+            *args, scale)
         readings["K4a", rel] = _check_kernel(
-            f"K4a decoder_attention_bwd_dkdv {label}",
-            lambda: kernels.decoder_attention_bwd_dkdv(*args, scale),
+            f"K4a decoder_attention_bwd_dkdv {label}", dkdv,
             lambda: fa.decoder_attention_bwd_plain(*args, want_dq=False)[1:],
             names=("dk", "dv"),
             zero=(f"{int(masked.sum())} masked keys",
                   lambda got: not any(g[masked].any() for g in got)),
+            extra=_again(dkdv),
             work=_attention_work(qc, kc, vc, mc, off, matmuls=4,
                                  inputs=args[3:6], outputs=(kc, vc)),
             library=backward)
         readings["K4b", rel] = _check_kernel(
-            f"K4b decoder_attention_bwd_dq {label}",
-            lambda: kernels.decoder_attention_bwd_dq(*args, scale),
+            f"K4b decoder_attention_bwd_dq {label}", dq,
             lambda: fa.decoder_attention_bwd_plain(*args,
                                                    want_dkdv=False)[0],
-            names=("dq",), zero=dead_rows,
+            names=("dq",), zero=dead_rows, extra=_again(dq),
             work=_attention_work(qc, kc, vc, mc, off, matmuls=3,
                                  inputs=args[3:6]),
             library=backward)
@@ -2782,6 +2847,9 @@ def main() -> int:
     # own, so that the checks after them draw what they drew before.
     k4nc_edges = check_k4nc_edges(drawer(generator()))
     k4nc_turns = time_k4nc_in_turns(drawer(generator()))
+    k4_turns = time_k4_in_turns(drawer(generator()),
+                                ((train_shapes[-1], None),
+                                 (grad_shape, grad_live)))
     ring_k = check_ring_kernels(randn)
     chunks = time_k3_lse_chunks(drawer(generator()))
     # Phase 21: the ViT attention variants, then their A/B harnesses.
@@ -2987,15 +3055,29 @@ def main() -> int:
          "sdpa_ms_in_turns": turns["SDPA"], "turns_shape": judged,
          "at_shapes": {str(sh): brief(r["K2 lse"]) for sh, r in dec.items()}},
         {"name": "decoder_attention_bwd_dkdv", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/decoder_attention_bwd.cu",
+         "source": "mjvideo_tpu_torch/csrc/attention_bwd_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/decoder_attention_bwd.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:603",
          **counts("decoder_attention_bwd_dkdv"), "shape": trained,
-         **dec[trained]["K4a"]},
+         **dec[trained]["K4a"],
+         "at_shapes": {str(sh): brief(r["K4a"]) for sh, r in dec.items()},
+         "in_turns": {sh: {"ms": r["ms"]["K4a"],
+                           "bound_ms": r["bound_ms"]["K4a"],
+                           "sdpa_backward_ms": r["ms"]["SDPA backward"]}
+                      for sh, r in k4_turns.items()}},
         {"name": "decoder_attention_bwd_dq", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/decoder_attention_bwd.cu",
+         "source": "mjvideo_tpu_torch/csrc/attention_bwd_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/decoder_attention_bwd.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:656",
          **counts("decoder_attention_bwd_dq"), "shape": trained,
-         **dec[trained]["K4b"]},
+         **dec[trained]["K4b"],
+         "at_shapes": {str(sh): brief(r["K4b"]) for sh, r in dec.items()},
+         "in_turns": {sh: {"ms": r["ms"]["K4b"],
+                           "bound_ms": r["bound_ms"]["K4b"],
+                           "sdpa_backward_ms": r["ms"]["SDPA backward"],
+                           "pair_over_sdpa_backward":
+                           r["pair_over_sdpa_backward"]}
+                      for sh, r in k4_turns.items()}},
         {"name": "exact_attention", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:260",

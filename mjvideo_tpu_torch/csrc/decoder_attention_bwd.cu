@@ -1,17 +1,23 @@
 // K4a and K4b: the decoder attention backward on Hopper.  Replaces the two
 // Pallas kernels of _bwd_impl (mjvideo_tpu/ops/flash_attention.py:708) in
-// their GQA form at D = 128:
+// their GQA form at D = 128 (InternLM2-1.8B):
 //   K4a _bwd_dkdv_kernel (:603, call :769): dK, dV for one kv block
 //   K4b _bwd_dq_kernel   (:656, call :812): dQ for one q block
 // from the true lse that K2 lse or K3 lse wrote (decoder_attention.cu and
-// exact_attention.cu), or that the ring's merge computed, under
-// the (B, K) key mask and, when causal, the causal mask at the per-row
-// q_offset (negative for a later shard's ring chunk: K4a then starts each
-// key tile at the first q tile that can see it, or at none, and K4b walks
-// no kv tile, or one whose keys are all masked, for a q tile that sees no
-// key).  The ring's non-causal form passes causal = 0.  Design and bounds:
-// see attention_bwd.cuh.
-#include "attention_bwd.cuh"
+// exact_attention.cu), or that the ring's merge computed, under the (B, K)
+// key mask and, when causal, the causal mask at the per-batch q_offset
+// (negative for a later shard's ring chunk: K4a then starts each key block
+// at the first q tile that can see it, or at none, and K4b walks no kv
+// tile for a q block that sees no key; positive for an earlier chunk and
+// for the all-gather shard's Q rows against all K keys).  The ring's
+// non-causal form passes causal = 0.  q, k and v may be strided views
+// (16-byte aligned bases and row and batch strides: TMA's rule; the
+// sequence shards of SequenceGroup.split are); dout, lse and delta are
+// dense.  Both run on the wgmma/TMA backward template; design and bounds:
+// see attention_bwd_sm90.cuh.
+#include "attention_bwd_sm90.cuh"
+
+namespace bwd = mjv::attention_bwd_sm90;
 
 extern "C" int mjv_decoder_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
@@ -22,12 +28,12 @@ extern "C" int mjv_decoder_attention_bwd_dkdv(
     long long dss, float scale, int causal, void* stream) {
   if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
   if (causal) {
-    return mjv::launch_bwd_dkdv<128, true>(
+    return bwd::launch_dkdv<bwd::DkdvD128, true>(
         q, k, v, dout, lse, delta, mask, q_offset, dk, dv, B, Q, K, Hq, Hkv,
         qsb, qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
   }
-  return mjv::launch_bwd_dkdv<128, false>(
-      q, k, v, dout, lse, delta, mask, q_offset, dk, dv, B, Q, K, Hq, Hkv,
+  return bwd::launch_dkdv<bwd::DkdvD128, false>(
+      q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B, Q, K, Hq, Hkv,
       qsb, qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
 }
 
@@ -40,11 +46,11 @@ extern "C" int mjv_decoder_attention_bwd_dq(
     int causal, void* stream) {
   if (D != 128) return int(cudaErrorInvalidValue);
   if (causal) {
-    return mjv::launch_bwd_dq<128, true>(
+    return bwd::launch_dq<bwd::DqD128, true>(
         q, k, v, dout, lse, delta, mask, q_offset, dq, B, Q, K, Hq, Hkv, qsb,
         qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
   }
-  return mjv::launch_bwd_dq<128, false>(
-      q, k, v, dout, lse, delta, mask, q_offset, dq, B, Q, K, Hq, Hkv, qsb,
+  return bwd::launch_dq<bwd::DqD128, false>(
+      q, k, v, dout, lse, delta, mask, nullptr, dq, B, Q, K, Hq, Hkv, qsb,
       qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
 }

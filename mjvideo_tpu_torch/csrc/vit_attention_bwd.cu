@@ -20,9 +20,9 @@ extern "C" int mjv_vit_attention_bwd_dkdv(
     long long vsb, long long vss, long long dsb, long long dss, float scale,
     void* stream) {
   if (D != 64) return int(cudaErrorInvalidValue);  // InternViT-300M heads
-  return bwd::launch_dkdv<bwd::DkdvD64>(q, k, v, dout, lse, delta, dk, dv, B,
-                                        S, H, qsb, qss, ksb, kss, vsb, vss,
-                                        dsb, dss, scale, stream);
+  return bwd::launch_dkdv<bwd::DkdvD64, false>(
+      q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, B, S, S, H, H, qsb,
+      qss, ksb, kss, vsb, vss, dsb, dss, scale, stream);
 }
 
 extern "C" int mjv_vit_attention_bwd_dq(
@@ -32,7 +32,7 @@ extern "C" int mjv_vit_attention_bwd_dq(
     long long vsb, long long vss, long long dsb, long long dss, float scale,
     void* stream) {
   if (D != 64) return int(cudaErrorInvalidValue);
-  return bwd::launch_dq<bwd::DqD64>(q, k, v, dout, lse, delta, dq, B, S, H,
-                                    qsb, qss, ksb, kss, vsb, vss, dsb, dss,
-                                    scale, stream);
+  return bwd::launch_dq<bwd::DqD64, false>(
+      q, k, v, dout, lse, delta, nullptr, nullptr, dq, B, S, S, H, H, qsb, qss,
+      ksb, kss, vsb, vss, dsb, dss, scale, stream);
 }

@@ -31,8 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vit_attention.cu", "vit_attention_bwd.cu", "decoder_attention.cu",
            "decoder_attention_bwd.cu", "exact_attention.cu", "q8g_matmul.cu",
            "w4_matmul.cu", "vit_attention_variants.cu")
-HEADERS = ("bound_attention.cuh", "attention_bwd.cuh",
-           "decoder_attention_sm90.cuh", "attention_bwd_sm90.cuh")
+HEADERS = ("bound_attention.cuh", "decoder_attention_sm90.cuh",
+           "attention_bwd_sm90.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -486,8 +486,12 @@ def decoder_attention_bwd_dkdv(q, k, v, dout, lse, delta,
                                scale: float, causal: bool = True):
     """K4a.  q/dout: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense
     heads; lse, delta: (B, Hq, Q) fp32; mask and q_offset as for K3 (the
-    offset read only when causal).  Returns dense (B, K, Hkv, D) bf16 dk
-    and dv, summed over each GQA group."""
+    offset read only when causal; Q may differ from K).  Runs on the
+    wgmma/TMA backward template (``attention_bwd_sm90.cuh``), whose tensor
+    maps want 16-byte aligned bases and row and batch strides: another
+    view raises here, as does a head dim other than 128.  Returns dense
+    (B, K, Hkv, D) bf16 dk and dv, summed over each GQA group, exactly 0 on
+    masked keys."""
     name = "decoder_attention_bwd_dkdv"
     ptrs, tail = _bwd_operands(name, q, k, v, dout, lse, delta,
                                attention_mask, q_offset)
@@ -509,7 +513,8 @@ def decoder_attention_bwd_dq(q, k, v, dout, lse, delta,
                              q_offset: Optional[torch.Tensor],
                              scale: float, causal: bool = True
                              ) -> torch.Tensor:
-    """K4b.  Operands as for K4a; returns a dense (B, Q, Hq, D) bf16 dq."""
+    """K4b.  Operands and their checks as for K4a; returns a dense (B, Q,
+    Hq, D) bf16 dq, exactly 0 on a dead row (lse 1e30)."""
     name = "decoder_attention_bwd_dq"
     ptrs, tail = _bwd_operands(name, q, k, v, dout, lse, delta,
                                attention_mask, q_offset)

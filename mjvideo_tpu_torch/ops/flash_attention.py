@@ -27,7 +27,8 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   kernels, ``_bwd_dkdv_kernel`` (K4a) and ``_bwd_dq_kernel`` (K4b): the
   exact softmax-attention gradient recomputed from the saved lse, with
   ``delta = rowsum(dO * O)`` reduced here in fp32.  K4a sums each GQA group
-  inside the kernel.
+  inside the kernel.  On the card both run on the Hopper backward template
+  (``csrc/attention_bwd_sm90.cuh``, D = 128), as K4 nc does at D = 64.
 * ``_DecoderAttention`` is the ``custom_vjp`` of ``_flash_attention``
   (``flash_attention.py:848-901``): forward K2 with the lse, backward K4a
   and K4b.  ``decoder_attention`` takes it only when autograd will need it,

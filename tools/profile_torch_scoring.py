@@ -32,13 +32,13 @@ STEPS = 3
 
 def _group(name: str) -> str:
     n = name.lower()
-    if ("bound_attention" in n or "attention_sm90" in n
-            or "key_norm_cummax" in n):
-        return "attention kernels (K1/K2/K2r/K3, K2r's pre-pass)"
-    if "q8g_kernel" in n or "w4_kernel" in n:
-        return "quantized product kernels (K5/K6/K7)"
-    if "bwd_dkdv" in n or "bwd_dq" in n:
+    if "attention_bwd_sm90" in n or "bwd_dkdv" in n or "bwd_dq" in n:
         return "attention backward kernels (K4a/K4b/K4 nc)"
+    if ("bound_attention" in n or "attention_sm90" in n
+            or "key_norm_" in n):
+        return "attention kernels (K1/K2/K2r/K3 and their pre-passes)"
+    if "q8g_sm90" in n or "q8g_kernel" in n or "w4_kernel" in n:
+        return "quantized product kernels (K5/K6/K7)"
     if "gemm" in n or "nvjet" in n or "xmma" in n or "cutlass" in n:
         return "matmul (cuBLAS)"
     if "reduce" in n or "norm" in n:
