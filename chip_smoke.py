@@ -109,10 +109,15 @@ Phases (any failure raises and exits non-zero):
    and K7 timed in turns with bf16 ``torch.matmul`` at the same (M, K, N)
    and ``torch._int_mm`` on the same int8 operands (labelled references,
    not the same function); K5 (int4
-   weight-only GEMV) against its twin at a decode step's shapes
-   (W4_SHAPES x W4_ROWS); bf16 ``torch.matmul`` at each shape as a labelled
-   reference point.  Every kernel check (phases 2, 3, 8 and 10) also prints
-   its bound, the least time of its work on the card (bytes at 3.35 TB/s or
+   weight-only GEMV: tensor-core products on the k-major nibble layout, K
+   split over a cluster where the columns are few) against its twin at a
+   decode step's shapes (W4_SHAPES x W4_ROWS), a second launch
+   bit-identical, its device time a launch with the L2 cold (a CUDA graph
+   over weight copies past COLD_L2_BYTES) beside the op's time;
+   ``torch._weight_int4pack_mm`` on the same nibbles and scales as its
+   library yardstick (held to the same bar, timed hot and cold, where it
+   takes the shape), bf16 ``torch.matmul`` as a labelled reference point.  Every
+   kernel check (phases 2, 3, 8 and 10) also prints its bound, the least time of its work on the card (bytes at 3.35 TB/s or
    operations at the bf16 or int8 peak, from this run's shapes and masks),
    and for the attention kernels the time of
    ``F.scaled_dot_product_attention`` at the same shape.
@@ -330,11 +335,20 @@ K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
 Q8G_SHAPES = ((16400, 1024, 4096), (6144, 2048, 8192), (6144, 8192, 2048),
               (2333, 2048, 2048), (2, 2048, 92553))
 Q8G_GROUP = 128
-# K5 at a decode step's (K, N): the decoder's wq, w1 and w2 and the LM
-# head, each at M = 1, 2 and 32 rows.
-W4_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 92553))
-W4_ROWS = (1, 2, 32)
+# K5 at a decode step's (K, N): the decoder's wk/wv, wq/wo, w1/w3 and w2
+# and the LM head, each at M = 1, 2 (the judge's pair), 8 and 32 rows.
+# W4_OWN_SHAPES and W4_OWN_ROWS draw from a generator of their own, so that
+# the other entries and the checks after them draw what they drew before.
+W4_SHAPES = ((2048, 1024), (2048, 2048), (2048, 8192), (8192, 2048),
+             (2048, 92553))
+W4_ROWS = (1, 2, 8, 32)
+W4_OWN_SHAPES = ((2048, 1024),)
+W4_OWN_ROWS = (8,)
 W4_GROUP = 128
+# A GEMV's device time is timed over copies of its weight totalling more
+# than this, so that every launch finds its weight out of the 50 MB L2, as
+# in a decode step.
+COLD_L2_BYTES = 100 * 2 ** 20
 # Quantized serving: the scorer in the grouped mode whose score delta the
 # JAX package states (0.0068 at full 2B dims, mjvideo_tpu/eval/scorer.py)
 # and in per-column int8, and the judge in int4 weight-only.
@@ -1465,6 +1479,66 @@ def _bf16_matmul_ms(x, K, N):
     return _median_ms(lambda: torch.matmul(x, w))
 
 
+def cold_l2_ms(run, copies, min_launches=16, replays=5):
+    """Device time per launch with the L2 cold: ``run(*copy)`` for each of
+    ``copies`` (operand copies totalling more than COLD_L2_BYTES), in order
+    and round again until ``min_launches``, captured into one CUDA graph
+    (no host time between launches) and replayed; CUDA events around each
+    replay.  Returns the median replay over its launches, in ms."""
+    import torch
+
+    rounds = max(1, -(-min_launches // len(copies)))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for c in copies:
+                run(*c)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return statistics.median(times) / (rounds * len(copies))
+
+
+def weight_copies(tensors, nbytes=COLD_L2_BYTES):
+    """Copies of ``tensors`` (each with its strides), as many as it takes to
+    pass ``nbytes`` together, and at least two."""
+    size = _nbytes(*tensors)
+    return [tuple(t.clone() for t in tensors)
+            for _ in range(max(2, nbytes // size + 1))]
+
+
+def int4pack_library(packed, scale, group):
+    """PyTorch's int4 weight-only product on K5's operands, a yardstick the
+    port never calls: the biased nibbles of the half-split ``packed``
+    (k-major, (K/2, N)) repacked two consecutive k a byte, the even one
+    high, and converted once to ``torch._weight_int4pack_mm``'s tiled
+    layout; each scale beside a zero of 0, so it dequantizes (nibble - 8) *
+    scale, sums in fp32 and returns x's dtype.  Returns the operands after
+    x, or None where it does not take the shape (N not a multiple of 8, a
+    group not in 32-256, K not a multiple of 128)."""
+    import torch
+
+    K2, N = packed.shape
+    if N % 8 or group not in (32, 64, 128, 256) or (2 * K2) % 128:
+        return None
+    b = packed.t().view(torch.uint8)
+    q = torch.cat([b & 15, b >> 4], dim=1)
+    w = torch._convert_weight_to_int4pack(
+        ((q[:, 0::2] << 4) | q[:, 1::2]).contiguous(), 8)
+    sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).contiguous()
+    return w, group, sz
+
+
 def _bit_equal(names):
     """An ``extra`` rule of ``_check_kernel``: every output equal to the
     twin's to the bit."""
@@ -1500,13 +1574,15 @@ def time_q8g_in_turns(x, qk, xq, a_s, odt, rounds=10):
     return _in_turns(runs, list(runs) + list(runs)[::-1], rounds)
 
 
-def check_quant_kernels(randn):
+def check_quant_kernels(randn, own):
     """K6, its pre-pass and K7 at Q8G_SHAPES and K5 at W4_SHAPES x W4_ROWS
     against their twins, random weights quantized by the port's own
-    quantizers (K6's and K7's k-major); K6, the pre-pass and K7 bit for
+    quantizers (every weight k-major); K6, the pre-pass and K7 bit for
     bit, and K7 against K6 on the same x; K6 and K7 in turns with bf16
-    ``torch.matmul`` and ``torch._int_mm``.  Returns the readings by
-    (kernel, shape)."""
+    ``torch.matmul`` and ``torch._int_mm``; K5 to KERNEL_REL_TOL, a second
+    launch bit-identical, and its device time a launch with the L2 cold
+    (``cold_l2_ms``).  ``own`` draws W4_OWN_SHAPES and W4_OWN_ROWS.
+    Returns the readings by (kernel, shape)."""
     import torch
 
     from mjvideo_tpu_torch import kernels
@@ -1564,21 +1640,61 @@ def check_quant_kernels(randn):
         out["K6 pre-pass", (M, K, N)] = rq
         del x, qk, ws, xq, a_s, o, o32
     for K, N in W4_SHAPES:
-        k4 = q4.quantize_kernel_q4(randn(K, N).float() * 0.02,
+        draw = own if (K, N) in W4_OWN_SHAPES else randn
+        k4 = q4.quantize_kernel_q4(draw(K, N).float() * 0.02,
                                    group_size=W4_GROUP)
+        if not q8.is_k_major(k4.packed):
+            raise RuntimeError("quantize_kernel_q4 gave strides "
+                               f"{k4.packed.stride()}, not k-major")
+        copies = weight_copies((k4.packed, k4.scale))
+        lib = int4pack_library(k4.packed, k4.scale, W4_GROUP)
+        lib_copies = None if lib is None else weight_copies(lib[::2])
         for M in W4_ROWS:
-            x = randn(M, K)
+            x = (own if draw is own or M in W4_OWN_ROWS else randn)(M, K)
             o = torch.empty((M, N), dtype=torch.float32, device=x.device)
+            library = None if lib is None else (
+                lambda: torch._weight_int4pack_mm(x, *lib))
             r5 = _check_kernel(
                 f"K5 w4_matmul {(M, K, N)} g {W4_GROUP}",
                 lambda: kernels.w4_matmul(x, k4.packed, k4.scale),
                 lambda: q4.w4_matmul_plain(x, k4.packed, k4.scale),
+                extra=_again(lambda: kernels.w4_matmul(x, k4.packed,
+                                                       k4.scale)),
                 work=(_nbytes(x, k4.packed, k4.scale, o), 2 * M * K * N,
-                      BF16_OPS_PER_S))
+                      BF16_OPS_PER_S), library=library)
             r5["bf16_matmul_ms"] = _bf16_matmul_ms(x, K, N)
-            print(f"K5 {(M, K, N)}: bf16 torch.matmul at this shape "
-                  f"(reference) {r5['bf16_matmul_ms']:.4f} ms")
+            r5["device_ms_cold"] = cold_l2_ms(
+                lambda p, sc: kernels.w4_matmul(x, p, sc), copies)
+            r5["bound_share_cold"] = r5["bound_ms"] / r5["device_ms_cold"]
+            r5["library_ms_cold"] = r5["library_rel_err"] = None
+            if lib is not None:
+                # The yardstick must compute K5's function: held to the
+                # same bar (its bf16 output rounds once more).
+                rel = _rel_err(library().float(), q4.w4_matmul_plain(
+                    x, k4.packed, k4.scale))[1]
+                if not rel <= KERNEL_REL_TOL:
+                    raise RuntimeError(
+                        f"_weight_int4pack_mm {(M, K, N)}: {rel:.3e} of "
+                        "max|plain|: the repacked weight is not K5's")
+                r5["library_rel_err"] = rel
+                r5["library_ms_cold"] = cold_l2_ms(
+                    lambda w, sz: torch._weight_int4pack_mm(
+                        x, w, W4_GROUP, sz), lib_copies)
+            r5["plan"] = kernels.w4_plan(M, N, K, K // W4_GROUP)
+            lib_text = "" if lib is None else (
+                "; torch._weight_int4pack_mm (library, "
+                f"{r5['library_rel_err']:.3e} of max|plain|) cold "
+                f"{r5['library_ms_cold']:.4f} ms, op "
+                f"{r5['library_ms']:.4f} ms")
+            print(f"K5 {(M, K, N)}: device time a launch with the L2 cold "
+                  f"{r5['device_ms_cold']:.4f} ms ({len(copies)} weight "
+                  f"copies; {100 * r5['bound_share_cold']:.1f}% of the bound"
+                  f" {r5['bound_ms']:.4f} ms), the op {r5['ms']:.4f} ms "
+                  f"(host included){lib_text}; plan {r5['plan']}; bf16 "
+                  "torch.matmul at this shape (reference) "
+                  f"{r5['bf16_matmul_ms']:.4f} ms")
             out["K5", (M, K, N)] = r5
+        del copies, lib, lib_copies
     return out
 
 
@@ -2841,7 +2957,7 @@ def main() -> int:
     turns = time_shifts_in_turns(randn)
     k1_turns = time_k1_in_turns(randn)
     check_k2r_prefix_rows(randn)
-    quant_k = check_quant_kernels(randn)
+    quant_k = check_quant_kernels(randn, drawer(generator()))
     vit_bwd = {s: check_vit_backward(randn, s) for s in K1_SHAPES}
     # The tile edges and the timing in turns draw from generators of their
     # own, so that the checks after them draw what they drew before.
@@ -3137,11 +3253,19 @@ def main() -> int:
          "shape": Q8G_SHAPES[1], **quant_k["K7", Q8G_SHAPES[1]],
          "at_shapes": {str(sh): brief(quant_k["K7", sh]) for sh in
                        Q8G_SHAPES}},
+        # K5: mma.m16n8k16 on a k-major nibble layout, K split over a
+        # cluster where the columns are few; "ms" is the op (host
+        # included), "device_ms_cold" a launch with the L2 cold.
         {"name": "w4_matmul", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/w4_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant4.py:177",
-         **counts("w4_matmul"), "shape": (2,) + W4_SHAPES[1],
-         **quant_k["K5", (2,) + W4_SHAPES[1]]},
+         **counts("w4_matmul"), "shape": (2, 2048, 8192),
+         **quant_k["K5", (2, 2048, 8192)],
+         "at_shapes": {str((M,) + sh): brief(quant_k["K5", (M,) + sh]) | {
+             f: quant_k["K5", (M,) + sh][f] for f in (
+                 "device_ms_cold", "bound_share_cold", "library_ms_cold",
+                 "bf16_matmul_ms", "bit_identical")}
+             for sh in W4_SHAPES for M in W4_ROWS}},
         # The A/B harnesses' kernels (phase 21): not on the main path.
         {"name": "vit_attention_variant", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",

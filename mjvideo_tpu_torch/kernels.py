@@ -144,6 +144,7 @@ ARGTYPES = {
     "mjv_q8g_matmul": [_P] * 5 + [_I] * 4 + [_L, _P],
     "mjv_q8g_quantize": [_P] * 3 + [_I] * 3 + [_P],
     "mjv_w4_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "mjv_w4_plan": [_I] * 4 + [_P],
     "mjv_vit_attention_variant": _VARIANT,
     "mjv_vit_attention_tmajor": _VARIANT,
     "mjv_vit_attention_bshd": _VARIANT,
@@ -646,29 +647,56 @@ def q8g_matmul(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
     return out
 
 
-def w4_matmul(x: torch.Tensor, packed: torch.Tensor,
-              scale: torch.Tensor) -> torch.Tensor:
-    """K5.  x: (M, K) bf16 with M <= 32, packed: (K/2, N) int8 half-split
-    nibbles, scale: (G, N) bf16 with K/2 a multiple of g = K / G and g
-    below 64 or a multiple of 64, all contiguous.  Returns a (M, N) fp32
-    tensor."""
-    name = "w4_matmul"
+def _w4_operands(name: str, x: torch.Tensor, packed: torch.Tensor,
+                 scale: torch.Tensor):
+    """K5's checks; returns (M, N, K, G).  packed must be stored k-major
+    (``ops.quant.k_major``, as the port's quantizer and bridge store every
+    packed int4 weight): the kernel reads each column's packed bytes as one
+    contiguous run and would otherwise need a transposed copy per call."""
     if x.dim() != 2 or packed.dim() != 2 or scale.dim() != 2:
         raise ValueError(f"{name}: x, packed and scale must be 2-D")
     M, K = x.shape
     N, G = packed.shape[1], scale.shape[0]
     if (not 1 <= M <= 32 or packed.shape[0] * 2 != K or G < 1 or K % G
-            or (K // 2) % (K // G) or (K // G >= 64 and (K // G) % 64)):
-        raise ValueError(f"{name}: need 1 <= M <= 32, packed (K/2, N), "
-                         "whole groups in each half and a group size below "
-                         f"64 or a multiple of it; got x {tuple(x.shape)}"
-                         f", packed {tuple(packed.shape)}, scale "
-                         f"{tuple(scale.shape)}")
+            or (K // 2) % (K // G)):
+        raise ValueError(f"{name}: need 1 <= M <= 32, packed (K/2, N) and "
+                         "whole groups in each half; got x "
+                         f"{tuple(x.shape)}, packed {tuple(packed.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+    if packed.device != x.device or packed.dtype != torch.int8:
+        raise ValueError(f"{name}: packed must be int8 on {x.device}, got "
+                         f"{packed.dtype} on {packed.device}")
+    if packed.stride(0) != 1 or (N > 1 and packed.stride(1) != K // 2):
+        raise ValueError(f"{name}: packed must be k-major, a (K/2, N) view "
+                         "of an (N, K/2) contiguous tensor (strides (1, "
+                         f"{K // 2})), got strides {packed.stride()}; store "
+                         "it so once (ops.quant.k_major)")
     _check_dense(f"{name} x", x, torch.bfloat16, (M, K), x.device)
-    _check_dense(f"{name} packed", packed, torch.int8, (K // 2, N), x.device)
     _check_dense(f"{name} scale", scale, torch.bfloat16, (G, N), x.device)
+    return M, N, K, G
+
+
+def w4_plan(M: int, N: int, K: int, G: int) -> Dict[str, int]:
+    """K5's plan of a call, read from the C side for operands aligned to 16
+    bytes: its path (the tensor-core one, or the generic one for a g or K
+    that does not fit it), columns per CTA, warps along K, the cluster's K
+    split, packed rows per CTA and dynamic shared memory."""
+    info = (ctypes.c_int * 6)()
+    err = _load().mjv_w4_plan(M, N, K, G, info)
+    _raise_on("w4_plan", err)
+    return dict(zip(("fast", "bn", "kw", "cluster", "slice", "smem"), info))
+
+
+def w4_matmul(x: torch.Tensor, packed: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """K5.  x: (M, K) bf16, contiguous, M <= 32; packed: (K/2, N) int8
+    half-split nibbles stored k-major; scale: (G, N) bf16, contiguous, with
+    K/2 a multiple of g = K / G.  Returns a (M, N) fp32 tensor, every
+    element written by the one launch (no memset)."""
+    name = "w4_matmul"
+    M, N, K, G = _w4_operands(name, x, packed, scale)
     lib = _load()
-    out = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mjv_w4_matmul(x.data_ptr(), packed.data_ptr(),

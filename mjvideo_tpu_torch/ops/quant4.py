@@ -8,12 +8,16 @@ nibble pack of a kernel w (..., K, N):
     scale  (..., K/g, N) bf16: one per g rows of each column
 
 so ``x @ w == x[:, :K/2] @ deq(lo) + x[:, K/2:] @ deq(hi)`` with no
-interleave.  A product of 32 rows or fewer (decode steps, the LM head on
-the last rows) is the hand-written K5 on the card (``w4_matmul``,
-``csrc/w4_matmul.cu``); a larger one dequantizes the halves at x's dtype
-and runs two products, as the JAX package's XLA path does.  Either way
-each weight is dequantized in fp32 and rounded to x's dtype before an
-fp32-accumulated product.
+interleave.  ``packed`` is stored k-major, as the int8 weights are
+(``ops.quant.k_major``): the (..., K/2, N) tensor is a view of an (...,
+N, K/2) contiguous one, so one column's packed bytes are contiguous (K5
+reads 16 consecutive packed rows of a column in one load); the values and
+the logical shape are the JAX package's.  A product of 32 rows or fewer
+(decode steps, the LM head on the last rows) is the hand-written K5 on the
+card (``w4_matmul``, ``csrc/w4_matmul.cu``); a larger one dequantizes the
+halves at x's dtype and runs two products, as the JAX package's XLA path
+does.  Either way each weight is dequantized in fp32 and rounded to x's
+dtype before an fp32-accumulated product.
 """
 
 from __future__ import annotations
@@ -58,7 +62,9 @@ def _quantize_q4_2d(w: torch.Tensor, g: int, scale_dtype):
     # Biased nibbles in uint8: every value in [0, 15], the shifted OR too.
     q = (torch.round(grouped / scale) + 8.0).clamp(0, 15).to(torch.uint8)
     q = q.reshape(K, N)
-    packed = (q[: K // 2] | (q[K // 2:] << 4)).view(torch.int8)
+    # Stored k-major: an (N, K/2) array seen as (K/2, N).
+    packed = torch.empty((N, K // 2), dtype=torch.int8, device=w.device).t()
+    packed.copy_((q[: K // 2] | (q[K // 2:] << 4)).view(torch.int8))
     return packed, scale.reshape(K // g, N).to(scale_dtype)
 
 
@@ -66,7 +72,8 @@ def quantize_kernel_q4(w: torch.Tensor, group_size: int = 128,
                        scale_dtype: torch.dtype = torch.bfloat16) -> Q4Kernel:
     """Symmetric group-wise int4 of (..., K, N) with K % (2 * group_size)
     == 0: scale = max(group amax / 7, 1e-10) in fp32, nibble = clip(
-    round(w / scale) + 8, 0, 15), scales stored at ``scale_dtype``."""
+    round(w / scale) + 8, 0, 15), scales stored at ``scale_dtype``; each
+    (K/2, N) slice of ``packed`` k-major."""
     assert w.shape[-2] % (2 * group_size) == 0, (w.shape, group_size)
     packed, scale = _quantize_stacked(
         w, lambda s: _quantize_q4_2d(s, group_size, scale_dtype))
@@ -81,18 +88,21 @@ def _unpack_nibbles(packed: torch.Tensor):
 
 def _deq_halves(k4: Q4Kernel, dtype: torch.dtype):
     """Both nibble planes dequantized to (..., K/2, N) tensors of
-    ``dtype``: (nibble * scale) in fp32, then rounded."""
+    ``dtype``: (nibble * scale) in fp32, then rounded.  Dequantized in the
+    k-major (..., N, K/2) order in which ``packed`` is stored, the halves
+    returned as k-major views: the same values, no transposed copy."""
     g = _group_size(k4)
-    lo, hi = _unpack_nibbles(k4.packed)
     K2, n = k4.packed.shape[-2:]
     lead = k4.packed.shape[:-2]
-    s = k4.scale.float()
+    lo, hi = _unpack_nibbles(k4.packed.transpose(-1, -2))
+    s = k4.scale.float().transpose(-1, -2)
 
     def deq(vals, sc):
-        v = vals.reshape(*lead, K2 // g, g, n).float()
-        return (v * sc[..., :, None, :]).reshape(*lead, K2, n).to(dtype)
+        v = vals.reshape(*lead, n, K2 // g, g).float()
+        w = (v * sc[..., :, :, None]).reshape(*lead, n, K2).to(dtype)
+        return w.transpose(-1, -2)
 
-    return deq(lo, s[..., : K2 // g, :]), deq(hi, s[..., K2 // g:, :])
+    return deq(lo, s[..., : K2 // g]), deq(hi, s[..., K2 // g:])
 
 
 def dequantize_kernel_q4(k4: Q4Kernel,
@@ -101,19 +111,22 @@ def dequantize_kernel_q4(k4: Q4Kernel,
     return torch.cat([w_lo, w_hi], dim=-2)
 
 
-def _halves_product(x: torch.Tensor, k4: Q4Kernel) -> torch.Tensor:
-    """x @ dequant(k4) through the two dequantized halves, fp32 result."""
+def _halves_product(x: torch.Tensor, w_lo: torch.Tensor,
+                    w_hi: torch.Tensor) -> torch.Tensor:
+    """x @ [w_lo; w_hi], the two dequantized halves, fp32 result."""
     from .matmul import dot_f32
 
-    K2 = k4.packed.shape[-2]
-    w_lo, w_hi = _deq_halves(k4, x.dtype)
+    K2 = w_lo.shape[-2]
     return dot_f32(x[..., :K2], w_lo) + dot_f32(x[..., K2:], w_hi)
 
 
 def w4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                     scale: torch.Tensor) -> torch.Tensor:
-    """K5's twin: x (M, K) times the packed kernel, (M, N) fp32."""
-    return _halves_product(x, Q4Kernel(packed=packed, scale=scale))
+    """K5's twin: x (M, K) times the packed kernel, (M, N) fp32.  The
+    halves are made row-major (the CPU's matmul sums a transposed operand
+    in another order), so the bits do not depend on ``packed``'s layout."""
+    halves = _deq_halves(Q4Kernel(packed=packed, scale=scale), x.dtype)
+    return _halves_product(x, *(h.contiguous() for h in halves))
 
 
 def w4_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -133,7 +146,7 @@ def dot_q4_f32(x: torch.Tensor, kernel: Q4Kernel,
         f"dot_q4 expects a per-layer kernel, got {kernel.packed.shape}")
     rows = x.numel() // x.shape[-1]
     if rows > W4_KERNEL_ROWS:
-        return _halves_product(x, kernel)
+        return _halves_product(x, *_deq_halves(kernel, x.dtype))
     x2 = x.reshape(rows, x.shape[-1]).contiguous()
     fn = w4_matmul_plain if impl == "plain" else w4_matmul
     out = fn(x2, kernel.packed, kernel.scale)

@@ -77,11 +77,13 @@ def from_jax_params(tree, *, device: Union[str, torch.device] = "cuda",
     unless the caller asks for another), plain leaves optionally cast to
     ``dtype``.  Quantized kernels become the port's nodes with their
     integer and scale fields as they are, the int8 weights (``q``, ``qw``)
-    k-major, as the port's quantizer stores them (``ops.quant.k_major``:
-    transposed on the host, moved with their strides)."""
+    and the packed int4 ones (``packed``) k-major, as the port's quantizers
+    store them (``ops.quant.k_major``: transposed on the host, moved with
+    their strides)."""
     def field(name, v):
         t = _tensor(v)
-        return (k_major(t) if name in ("q", "qw") else t).to(device=device)
+        return (k_major(t) if name in ("q", "qw", "packed")
+                else t).to(device=device)
 
     def leaf(a):
         node = _jax_node(a)

@@ -37,7 +37,7 @@ def _group(name: str) -> str:
     if ("bound_attention" in n or "attention_sm90" in n
             or "key_norm_" in n):
         return "attention kernels (K1/K2/K2r/K3 and their pre-passes)"
-    if "q8g_sm90" in n or "q8g_kernel" in n or "w4_kernel" in n:
+    if "q8g_sm90" in n or "q8g_kernel" in n or "w4_" in n:
         return "quantized product kernels (K5/K6/K7)"
     if "gemm" in n or "nvjet" in n or "xmma" in n or "cutlass" in n:
         return "matmul (cuBLAS)"
