@@ -11,29 +11,39 @@ Phases (any failure raises and exits non-zero):
    versions; build the CUDA kernels from ``mjvideo_tpu_torch/csrc``.
 2. K1 (ViT attention) against its plain PyTorch twin at serving's (8, 1025,
    16, 64) and training's (2, 1025, 16, 64) bf16, q/k/v as strided views
-   into one qkv tensor as the ViT makes them: the op (its pre-pass
-   ``key_norm_max`` and its kernel on the Hopper template), the kernel
-   alone on the pre-pass's kmax, and the pre-pass against its twin (to
-   PREPASS_REL_TOL); the max-abs error relative to the largest output against the
-   stated bound, and the median time of each.  Then K1 alone, K1 with the
-   lse, the K1 op, the K1-lse op (the pre-pass and K1 with the lse) and
-   ``F.scaled_dot_product_attention`` in turns at serving's shape.
+   into one qkv tensor as the ViT makes them: the op (one C call: its
+   pre-pass's partial maxima of the key norms, then its kernel on the
+   Hopper template, launched as a programmatic dependent that folds them),
+   the kernel alone on the standalone pre-pass's kmax, and the pre-pass
+   (``kernels.key_norm_max``: the partials and their fold) against its
+   twin (to PREPASS_REL_TOL), with its device time a launch by
+   ``torch.profiler``; the max-abs error relative to the largest output
+   against the stated bound, and the median time of each; the op, with
+   the lse and without, bit-equal to the kernel alone and a second launch
+   of it bit-identical.  Then K1 alone, K1 with the lse, the K1 op, the
+   K1-lse op, the pre-pass and ``F.scaled_dot_product_attention`` in turns
+   at serving's shape, and the ops' device time by kernel and back to
+   back.
 3. The decoder kernels against their twins on the same inputs, at serving's
    (2, 2304, 16/8, 128) and (2, 3072, 16/8, 128) bf16 with a ragged mask and
    dead rows, at training's (1, T, 16/8, 128) with every key live, T
    each prompt length of the training batches (so the last tile is partial),
    and at the reward gradient's (1, 3072, 16/8, 128) with phase 14's
    single-clip mask (the prompt's keys live, the bucket's tail masked):
-   K2 without the lse (the op: its pre-pass and its kernel on the Hopper
-   template; the kernel alone; the pre-pass to PREPASS_REL_TOL) and with
-   it (the same template's lse epilogue; the output to the relative bound
-   and bit-equal to K2's without the lse, the lse to LSE_TOL, dead rows'
-   output exactly 0 and lse exactly 1e30), then K4a (dK,
+   K2 without the lse (the op, as K1's; the kernel alone; the pre-pass to
+   PREPASS_REL_TOL, with its device time) and with it (the same template's
+   lse epilogue; the output to the relative bound and bit-equal to K2's
+   without the lse, the lse to LSE_TOL, dead rows' output exactly 0 and
+   lse exactly 1e30), the op with the lse and without bit-equal to the
+   kernel alone and a second launch bit-identical, then K4a (dK,
    dV) and K4b (dQ), on the Hopper backward template
    (``attention_bwd_sm90.cuh`` at D = 128), from the twin's output and lse
    (each gradient to the relative bound, dq exactly 0 on dead rows, dk and
    dv exactly 0 on masked keys, a second launch bit-identical to the
-   first); the median time of each kernel and twin.  Then K4a, K4b and
+   first); the median time of each kernel and twin.  Then the K2 op at
+   phase 20's no-SP decoder, (1, 53,760, 16/8, 128) with 53,722 live keys
+   (LONG_KEYS): the pre-pass against its twin and the op, with the lse and
+   without, bit-equal to the kernel alone.  Then K4a, K4b and
    SDPA's backward timed in turns at training's last shape and at the
    reward gradient's, with each one's share of its bound.
 4. Serving: a 2B ``RewardScorer`` with random bf16 weights made on the card
@@ -105,10 +115,12 @@ Phases (any failure raises and exits non-zero):
    k-major weight), the pre-pass alone and K7 (the GEMM from a
    pre-quantized x) against their twins at the 2B's grouped products
    (Q8G_SHAPES: ViT fc1, decoder w1 and w2, an M tail, the LM head's odd
-   N), each bit for bit, K7 also against K6 on the same x, bit for bit; K6
-   and K7 timed in turns with bf16 ``torch.matmul`` at the same (M, K, N)
-   and ``torch._int_mm`` on the same int8 operands (labelled references,
-   not the same function); K5 (int4
+   N), each bit for bit, K7 also against K6 on the same x, bit for bit
+   (K6's GEMM is launched behind its pre-pass as a programmatic
+   dependent, K7's is not); K6, K7 and the pre-pass timed in turns with
+   bf16 ``torch.matmul`` at the same (M, K, N) and ``torch._int_mm`` on
+   the same int8 operands (labelled references, not the same function),
+   and each one's device time a launch by ``torch.profiler``; K5 (int4
    weight-only GEMV: tensor-core products on the k-major nibble layout, K
    split over a cluster where the columns are few) against its twin at a
    decode step's shapes (W4_SHAPES x W4_ROWS), a second launch
@@ -320,11 +332,13 @@ PREPASS_REL_TOL = 1e-6
 # instantiations (K3 causal and not, with the lse or without; K2r; K2 with
 # the lse or without; K1 likewise), the backward 6 (K4 nc dK/dV and dQ at
 # D = 64; K4a dK/dV and K4b dQ at D = 128, each causal and non-causal),
-# key_norm_max 2 (D = 64 and 128), key_norm_cummax 1, the int8 GEMM 2 (bf16
-# or fp32 out) and K6's pre-pass 1.
+# key_norm_max's partial pass 2 (D = 64 and 128) and its fold 1,
+# key_norm_cummax 1, the int8 GEMM 2 (bf16 or fp32 out) and K6's pre-pass
+# 1.
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
-                "key_norm_cummax_kernel", "key_norm_max_kernel")
-SM90_INSTANTIATIONS = 17
+                "key_norm_cummax_kernel", "key_norm_partial_kernel",
+                "key_norm_fold_kernel")
+SM90_INSTANTIATIONS = 18
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -392,6 +406,10 @@ LONG_CHUNK = 53760 // SP_SHARDS
 # max_num = 12 tiles plus the thumbnail.
 LONG_FRAMES = 16
 LONG_TILES = 13
+# Phase 20's decoder without sequence parallelism: the clip's bucket and
+# its prompt's live keys (phase 20 holds its prompt to this length), where
+# phase 3 holds the K2 op to the kernel alone.
+LONG_KEYS = (53760, 53722)
 LONG_CAPTION = ("A hot-air balloon rises over a patchwork of green fields "
                 "at sunrise while its shadow slides across a river.")
 # Phase 21: the ViT attention variants at serving's ViT shape, B3 also
@@ -450,6 +468,74 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _kernel_group(name):
+    """A short name for a kernel as the profiler names it."""
+    for part, short in (("key_norm_partial", "partial pass"),
+                        ("key_norm_fold", "fold"),
+                        ("quantize_rows", "pre-pass"), ("q8g_gemm", "gemm"),
+                        ("attention_kernel", "attention")):
+        if part in name:
+            return short
+    return name[:60]
+
+
+def device_ms(fn, reps=20, warmup=3, tries=3):
+    """Device time of one call of ``fn`` by kernel (``_kernel_group``), in
+    ms: ``torch.profiler`` over ``reps`` calls after a warm-up, the device
+    activity only.  A trace that records no kernel (the profiler missed
+    the window) is taken again, up to ``tries`` times; then the result is
+    empty, and the readings built from it say "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            t = ev.self_device_time_total
+            if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+                name = _kernel_group(ev.key)
+                out[name] = out.get(name, 0.0) + t / reps / 1e3
+        if out:
+            break
+    return out
+
+
+def _ms(t):
+    """A reading in ms for a line of output, or "not measured"."""
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def _hold_op(label, op_fn, alone_fn):
+    """A K1 or K2 op (one C call: the pre-pass's partial pass, then the
+    attention kernel folding the partials behind a programmatic dependent
+    launch) against the kernel alone on the standalone pre-pass's kmax:
+    every output bit-equal, and a second launch of the op bit-identical.
+    Prints the reading, raises on a difference, returns it."""
+    import torch
+
+    def run(fn):
+        out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    got, again, alone = run(op_fn), run(op_fn), run(alone_fn)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, alone))
+    twice = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"{label}: the op bit-equal to the kernel alone on the standalone "
+          f"kmax: {same}; a second launch of the op bit-identical: {twice}")
+    if not (same and twice):
+        raise RuntimeError(f"{label}: op against the kernel alone {same}, "
+                           f"a second launch {twice}")
+    return {"bit_equal_to_kernel_alone": same, "bit_identical": twice}
+
+
 def _with_prepass(want):
     """``want`` (launches by kernel) plus the pre-pass of K1 and K2,
     ``key_norm_max``: one launch before every K1 and K2 op, with the lse or
@@ -474,11 +560,22 @@ def _check_prepass(label, k, mask):
 
     kmax = fa.key_norm_max(k, mask)
     extra = () if mask is None else (mask,)
-    return _check_kernel(
+    reading = _check_kernel(
         f"pre-pass key_norm_max {label}",
         lambda: kernels.key_norm_max(k, mask),
         lambda: fa.key_norm_max(k, mask), names=("kmax",), extra=rule,
         work=(_nbytes(k, *extra, kmax), 2 * k.numel(), FP32_OPS_PER_S))
+    # The partial pass is the op's pre-pass; the fold runs only here.
+    dev = device_ms(lambda: kernels.key_norm_max(k, mask))
+    B, K, Hkv, D = k.shape
+    reading.update(device_ms=dev.get("partial pass"),
+                   fold_device_ms=dev.get("fold"),
+                   parts=kernels.key_norm_parts(B, K, Hkv, D))
+    print(f"pre-pass key_norm_max {label}: device time a launch, partial "
+          f"pass {_ms(reading['device_ms'])} ({reading['parts']} partials "
+          f"per (b, kv head); bound {reading['bound_ms']:.4f} ms), fold "
+          f"{_ms(reading['fold_device_ms'])} (standalone only)")
+    return reading
 
 
 def _check_kernel(label, kernel_fn, plain_fn, names=("out",), zero=None,
@@ -607,8 +704,10 @@ def _sdpa(q, k, v, causal, backward=False, allowed=None):
 
 def check_vit_attention(randn, shape):
     """K1 on views into one (B, S, 3*H*D) tensor, as the ViT makes them:
-    the op (the pre-pass and the kernel), the kernel alone on the
-    pre-pass's kmax, and the pre-pass; returns each one's reading."""
+    the op (the pre-pass and the kernel, one C call), the kernel alone on
+    the pre-pass's kmax, and the pre-pass; the op, with the lse and
+    without, bit-equal to the kernel alone (``_hold_op``); returns each
+    one's reading."""
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
@@ -618,6 +717,11 @@ def check_vit_attention(randn, shape):
     work = _attention_work(q, k, v, None, causal=False)
     library = _sdpa(q, k, v, causal=False)
     kmax = kernels.key_norm_max(k)
+    for lse in (False, True):
+        _hold_op(f"K1{' lse' if lse else ''} op {shape}",
+                 lambda: fa._vit_attention_fwd(q, k, v, D ** -0.5, lse),
+                 lambda: kernels.vit_attention(q, k, v, kmax, D ** -0.5,
+                                               with_lse=lse))
     return {
         "K1": _check_kernel(
             f"K1 vit_attention (op: pre-pass and kernel) {shape}",
@@ -748,10 +852,11 @@ def _decoder_inputs(randn, B, T, Hq, Hkv, D, ragged, live=None):
 
 
 def check_decoder_kernels(randn, shape, ragged, live=None):
-    """K2 without the lse (the op: the pre-pass and the kernel; the kernel
-    alone; the pre-pass) and with it, K4a and K4b against their twins on
-    one set of inputs (``_decoder_inputs``); returns each one's reading by
-    label."""
+    """K2 without the lse (the op: the pre-pass and the kernel, one C call;
+    the kernel alone; the pre-pass) and with it, K4a and K4b against their
+    twins on one set of inputs (``_decoder_inputs``), the op with the lse
+    and without bit-equal to the kernel alone (``_hold_op``); returns each
+    one's reading by label."""
     import torch
 
     from mjvideo_tpu_torch import kernels
@@ -765,6 +870,12 @@ def check_decoder_kernels(randn, shape, ragged, live=None):
     dead_rows = (f"{n_dead} dead rows", lambda got: not got[0][dead].any())
 
     alone = kernels.decoder_attention(q, k, v, mask, kmax, None, scale)
+    for with_lse in (False, True):
+        _hold_op(f"K2{' lse' if with_lse else ''} op {shape}",
+                 lambda: fa._decoder_attention_fwd(q, k, v, mask, None, scale,
+                                                   with_lse),
+                 lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                                   scale, with_lse=with_lse))
 
     def lse_rule(got, ref):
         lse, ref_lse = got[1], ref[1]
@@ -833,6 +944,49 @@ def check_decoder_kernels(randn, shape, ragged, live=None):
         work=_attention_work(q, k, v, mask, matmuls=3, inputs=args[3:6]),
         library=backward)
     return readings
+
+
+def check_long_k2_op(randn):
+    """The K2 op at phase 20's no-SP decoder shape, (1, LONG_KEYS[0], 16/8,
+    128) with the prompt's keys live: the pre-pass (256 partials per kv
+    head) against its twin, and the op, with the lse and without,
+    bit-equal to the kernel alone on the standalone kmax (``_hold_op``; the
+    plain twin's (Q, K) scores would not fit).  Returns the readings."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    T, live = LONG_KEYS
+    shape = (1, T, 16, 8, 128)
+    q, k, v, mask, _ = _decoder_inputs(randn, *shape, False, live)
+    scale = shape[-1] ** -0.5
+    out = {"pre-pass": _check_prepass(str(shape), k, mask)}
+    kmax = kernels.key_norm_max(k, mask)
+    for with_lse in (False, True):
+        out[f"op{' lse' if with_lse else ''}"] = _hold_op(
+            f"K2{' lse' if with_lse else ''} op {shape}, {live} live keys",
+            lambda: fa._decoder_attention_fwd(q, k, v, mask, None, scale,
+                                              with_lse),
+            lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                              scale, with_lse=with_lse))
+    return out
+
+
+def stream_ms(fn, calls=20, warmup=3):
+    """Time of one call of ``fn`` among ``calls`` issued back to back, by
+    CUDA events around them all: the device's time per call where the host
+    keeps ahead (a kernel behind its pre-pass starts as soon as it may)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def _judge_inputs(randn, shape):
@@ -963,6 +1117,7 @@ def time_shifts_in_turns(randn, rounds=10):
                                                        scale, with_lse=True),
         "K3 lse": lambda: kernels.exact_attention(q, k, v, mask, None, scale,
                                                   with_lse=True),
+        "pre-pass": lambda: kernels.key_norm_max(k, mask),
         "SDPA": _sdpa(q, k, v, causal=True),
     }
     order = list(runs) + list(runs)[::-1]
@@ -974,7 +1129,23 @@ def time_shifts_in_turns(randn, rounds=10):
                       if n != "SDPA")
           + f"; K2 lse/K2 {med['K2 lse'] / med['K2']:.3f}, K2 lse op/K2 op "
           f"{med['K2 lse op'] / med['K2 op']:.3f})")
+    _op_device_times(med, runs, ("K2 op", "K2 lse op", "K2", "pre-pass"),
+                     JUDGE_SHAPES["prefill"][:6])
     return med
+
+
+def _op_device_times(med, runs, names, shape):
+    """Adds to ``med`` the device time by kernel of each of ``names``
+    (``device_ms``) and its time back to back (``stream_ms``), and prints
+    them."""
+    for name in names:
+        med[f"{name} device_ms"] = device_ms(runs[name])
+        med[f"{name} back_to_back_ms"] = stream_ms(runs[name])
+        print(f"{name} at {shape}: device time a call by kernel "
+              + ", ".join(f"{n} {t:.4f} ms"
+                          for n, t in med[f"{name} device_ms"].items())
+              + f"; back to back {med[f'{name} back_to_back_ms']:.4f} ms a "
+              "call")
 
 
 def time_k1_in_turns(randn, rounds=10):
@@ -997,6 +1168,7 @@ def time_k1_in_turns(randn, rounds=10):
         "K1 op": lambda: fa.vit_attention(q, k, v),
         "K1 lse op": lambda: fa._vit_attention_fwd(q, k, v, scale,
                                                    with_lse=True),
+        "pre-pass": lambda: kernels.key_norm_max(k),
         "SDPA": _sdpa(q, k, v, causal=False),
     }
     order = list(runs) + list(runs)[::-1]
@@ -1008,6 +1180,8 @@ def time_k1_in_turns(randn, rounds=10):
                       if n != "SDPA")
           + f"; K1 lse/K1 {med['K1 lse'] / med['K1']:.3f}, K1 lse op/K1 op "
           f"{med['K1 lse op'] / med['K1 op']:.3f})")
+    _op_device_times(med, runs, ("K1 op", "K1 lse op", "K1", "pre-pass"),
+                     K1_SHAPES[0])
     return med
 
 
@@ -1552,20 +1726,22 @@ def _bit_equal(names):
 
 
 def time_q8g_in_turns(x, qk, xq, a_s, odt, rounds=10):
-    """K6 and K7 launched directly, bf16 ``torch.matmul`` of the same (M, K)
-    by (K, N) and ``torch._int_mm`` on the same int8 operands (where it
-    takes the shape: M > 16, K and N multiples of 8), timed in turns by
-    CUDA events; the last two are labelled references, not the same
-    function.  Returns the medians in ms."""
+    """K6, K7 and K6's pre-pass launched directly, bf16 ``torch.matmul`` of
+    the same (M, K) by (K, N) and ``torch._int_mm`` on the same int8
+    operands (where it takes the shape: M > 16, K and N multiples of 8),
+    timed in turns by CUDA events; the last two are labelled references,
+    not the same function.  Returns the medians in ms."""
     import torch
 
     from mjvideo_tpu_torch import kernels
 
     K, N = qk.q.shape
+    G = qk.scale.shape[0]
     w16 = torch.randn((K, N), device=x.device).to(torch.bfloat16)
     runs = {
         "K6": lambda: kernels.q8g_matmul_fused(x, qk.q, qk.scale, odt),
         "K7": lambda: kernels.q8g_matmul(xq, a_s, qk.q, qk.scale),
+        "K6 pre-pass": lambda: kernels.q8g_quantize(x, G),
         "bf16 matmul": lambda: torch.matmul(x, w16),
     }
     if x.shape[0] > 16 and K % 8 == 0 and N % 8 == 0:
@@ -1636,6 +1812,23 @@ def check_quant_kernels(randn, own):
             r["bf16_matmul_ms_in_turns"] = med["bf16 matmul"]
             r["int_mm_ms_in_turns"] = med.get("_int_mm")
         r6["ms_in_turns"], r7["ms_in_turns"] = med["K6"], med["K7"]
+        rq["ms_in_turns"] = med["K6 pre-pass"]
+        # Device time a launch (the profiler): the pre-pass alone, K6's two
+        # kernels (the GEMM starts behind the pre-pass) and K7; K6 back to
+        # back, where the overlap shows.
+        dev6 = device_ms(lambda: kernels.q8g_matmul_fused(x, qk.q, ws, odt))
+        rq["device_ms"] = device_ms(
+            lambda: kernels.q8g_quantize(x, G)).get("pre-pass")
+        r7["device_ms"] = device_ms(lambda: kernels.q8g_matmul(
+            xq, a_s, qk.q, ws)).get("gemm")
+        r6["device_ms_by_kernel"] = dev6
+        r6["back_to_back_ms"] = stream_ms(
+            lambda: kernels.q8g_matmul_fused(x, qk.q, ws, odt))
+        print(f"K6 {(M, K, N)}: device time a launch, the pre-pass alone "
+              f"{_ms(rq['device_ms'])} (bound {rq['bound_ms']:.4f}), in K6 "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in dev6.items())
+              + f"; K7 {_ms(r7['device_ms'])}; K6 back to back "
+              f"{r6['back_to_back_ms']:.4f} ms a call")
         out["K6", (M, K, N)], out["K7", (M, K, N)] = r6, r7
         out["K6 pre-pass", (M, K, N)] = rq
         del x, qk, ws, xq, a_s, o, o32
@@ -2853,6 +3046,10 @@ def long_context_phase(scorer, dev):
     cfg = scorer.cfg
     request, bucket = long_request(scorer, dev)
     pixels, (ids,) = request[0], request[1]
+    if (bucket, len(ids)) != LONG_KEYS:
+        raise RuntimeError(f"phase 3 checked the long clip's K2 op at "
+                           f"{LONG_KEYS}, its (bucket, prompt) is "
+                           f"{(bucket, len(ids))}")
     tiles = pixels.shape[0]
     print(f"long context: {tiles} tiles ({LONG_FRAMES} frames x "
           f"{LONG_TILES}), prompt {len(ids)} tokens, bucket {bucket}")
@@ -2952,6 +3149,7 @@ def main() -> int:
     grad_shape, grad_live = (1,) + K2_SHAPES[-1][1:], single_clip_length()
     dec[grad_shape] = check_decoder_kernels(drawer(generator()), grad_shape,
                                             ragged=False, live=grad_live)
+    long_k2 = check_long_k2_op(drawer(generator()))
     judge_k = {name: check_judge_kernels(randn, name, shape)
                for name, shape in JUDGE_SHAPES.items()}
     turns = time_shifts_in_turns(randn)
@@ -3110,6 +3308,8 @@ def main() -> int:
          **served_k1["K1"], "kernel_alone": brief(served_k1["K1 kernel"]),
          "kernel_ms_in_turns": k1_turns["K1"],
          "op_ms_in_turns": k1_turns["K1 op"],
+         "op_device_ms": k1_turns["K1 op device_ms"],
+         "op_back_to_back_ms": k1_turns["K1 op back_to_back_ms"],
          "sdpa_ms_in_turns": k1_turns["SDPA"],
          "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K1", "K1 kernel")}
                        for sh, r in k1.items()}},
@@ -3150,17 +3350,37 @@ def main() -> int:
          **counts("decoder_attention"), "shape": served, **dec[served]["K2"],
          "kernel_alone": brief(dec[served]["K2 kernel"]),
          "kernel_ms_in_turns": turns["K2"], "op_ms_in_turns": turns["K2 op"],
+         "op_device_ms": turns["K2 op device_ms"],
+         "op_back_to_back_ms": turns["K2 op back_to_back_ms"],
+         "long_clip_op": long_k2["op"],
          "sdpa_ms_in_turns": turns["SDPA"], "turns_shape": judged,
          "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K2", "K2 kernel")}
                        for sh, r in dec.items()}},
         # The pre-pass of K1 and K2 (and their lse forms): kmax on the card,
         # the XLA reduce of the TPU path and _fwd_nc_kernel's in-kernel max.
+        # "ms" is the standalone call (partial pass and fold, host
+        # included), "device_ms" the partial pass a launch (the ops' part).
         {"name": "key_norm_max", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:484",
+         "design": "partial maxima per chunk of keys, plain stores (no "
+                   "memset, no atomics), folded by the attention kernel "
+                   "after griddepcontrol.wait (programmatic dependent "
+                   "launch)",
          **counts("key_norm_max"), "shape": served,
          **dec[served]["K2 pre-pass"],
-         "vit": {"shape": K1_SHAPES[0], **brief(served_k1["K1 pre-pass"])}},
+         "ms_in_turns": turns["pre-pass"], "turns_shape": judged,
+         "vit": {"shape": K1_SHAPES[0], **brief(served_k1["K1 pre-pass"]),
+                 **{f: served_k1["K1 pre-pass"][f] for f in (
+                     "device_ms", "fold_device_ms", "parts")},
+                 "ms_in_turns": k1_turns["pre-pass"]},
+         "long_clip": {"shape": (1,) + LONG_KEYS[:1] + (16, 8, 128),
+                       **brief(long_k2["pre-pass"]),
+                       **{f: long_k2["pre-pass"][f] for f in (
+                           "device_ms", "parts")}},
+         "at_shapes": {str(sh): brief(r["K2 pre-pass"]) | {
+             "device_ms": r["K2 pre-pass"]["device_ms"]}
+             for sh, r in dec.items()}},
         {"name": "decoder_attention_lse", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:407",
@@ -3237,22 +3457,31 @@ def main() -> int:
          "at_shapes": {str(sh): brief(quant_k["K6", sh]) | {
              f: quant_k["K6", sh][f] for f in (
                  "ms_in_turns", "bf16_matmul_ms_in_turns",
-                 "int_mm_ms_in_turns")} for sh in Q8G_SHAPES}},
+                 "int_mm_ms_in_turns", "device_ms_by_kernel",
+                 "back_to_back_ms")} for sh in Q8G_SHAPES}},
         # K6's pre-pass: x quantized once per (row, group); the TPU kernel
         # did it inside _q8g_matmul_pallas_fused.
         {"name": "q8g_quantize", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
+         "design": "each group's pieces in registers of a few lanes, the "
+                   "amax by shuffles, 8-byte stores, several rows a CTA; "
+                   "K6's GEMM launched behind it as a programmatic "
+                   "dependent",
          **counts("q8g_quantize"), "shape": Q8G_SHAPES[1][:2],
-         **quant_k["K6 pre-pass", Q8G_SHAPES[1]]},
+         **quant_k["K6 pre-pass", Q8G_SHAPES[1]],
+         "at_shapes": {str(sh[:2]): brief(quant_k["K6 pre-pass", sh]) | {
+             f: quant_k["K6 pre-pass", sh][f] for f in (
+                 "device_ms", "ms_in_turns")} for sh in Q8G_SHAPES}},
         # K6's oracle, as in the JAX package: not on the main path.
         {"name": "q8g_matmul", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:423",
          **counts("q8g_matmul"), "on_main_path": False,
          "shape": Q8G_SHAPES[1], **quant_k["K7", Q8G_SHAPES[1]],
-         "at_shapes": {str(sh): brief(quant_k["K7", sh]) for sh in
-                       Q8G_SHAPES}},
+         "at_shapes": {str(sh): brief(quant_k["K7", sh]) | {
+             "device_ms": quant_k["K7", sh]["device_ms"]}
+             for sh in Q8G_SHAPES}},
         # K5: mma.m16n8k16 on a k-major nibble layout, K split over a
         # cluster where the columns are few; "ms" is the op (host
         # included), "device_ms_cold" a launch with the L2 cold.

@@ -13,10 +13,14 @@
 // with with_lse, flash_attention.py:407-412) also gets the (B, Hq, Q) fp32
 // true lse, kDeadLse on dead rows, that the backward kernels read.
 //
-// kmax comes from the pre-pass key_norm_max below, on the card; the TPU
-// path reduced it with one XLA reduce outside the kernel
-// (flash_attention.py:484-511).  The same pre-pass serves K1 and K1 lse
-// (vit_attention.cu) at D = 64.
+// kmax comes from the pre-pass below, on the card; the TPU path reduced it
+// with one XLA reduce outside the kernel (flash_attention.py:484-511).  The
+// same pre-pass serves K1 and K1 lse (vit_attention.cu) at D = 64.  The
+// op's entries (mjv_decoder_attention_op here, mjv_vit_attention_op in
+// vit_attention.cu) make one C call of the pre-pass's partial pass and the
+// attention kernel, launched behind it as a programmatic dependent that
+// folds the partials itself; mjv_decoder_attention takes a folded kmax
+// (the kernel alone, for the checks).
 //
 // K2r (mjv_decoder_attention_rows) is _fwd_bound_kernel(row_bound=True)
 // (flash_attention.py:347-358, host side :484-508), the opt-in shift of the
@@ -31,73 +35,75 @@
 namespace sm90 = mjv::attention_sm90;
 using sm90::bf16;
 
-extern "C" int mjv_decoder_attention(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* kmax, const void* q_offset, void* out, void* lse, int B,
-    int Q, int K, int Hq, int Hkv, int D, long long qsb, long long qss,
-    long long ksb, long long kss, long long vsb, long long vss, float scale,
-    void* stream) {
-  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
-  return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kKeyMax>(
-      q, k, v, mask, kmax, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb, qss,
-      ksb, kss, vsb, vss, scale, stream);
-}
-
-// The pre-pass of K1, K1 lse, K2 and K2 lse: kmax (B, Hkv) fp32, the
-// largest norm of a live key of each (b, kv head).  The keys are split into
-// chunks of kMaxKeys, one CTA of kMaxThreads per (chunk, b) over all kv
-// heads, so a long prompt (the 53,722-token clip: 1,679 CTAs) does not
-// serialize on B * Hkv CTAs.  D / 8 lanes share one key vector (one
-// 16-byte load each), each thread keeps kMaxLoads loads in flight.  The
-// squares of bf16 values sum exactly in double, so the norm does not
-// depend on the order of the sum and is rounded once, after a double sqrt,
-// to float; the twin (ops/flash_attention.py key_norm_max) sums in fp32 in
-// torch's order and lies within about an ulp of it.  The vector's leader
-// folds it (a masked key gives nothing) into a shared max per kv head by
-// atomicMax on the float's bits, and each CTA then folds its maxima into
-// out the same way.  The norms are non-negative, so the integer order of
-// their bits is their order: the max is exact and the same on every run,
-// and since sqrt and the rounding are monotone it is the sqrt of the max
-// of the squares, as in the twin.  out is zeroed on the stream first (a
-// masked row's bound is 0, as in the twin).  What bounds it: the k read,
-// 12.6 MB at the decoder's (2, 3072) and 16.8 MB at the ViT's (8, 1025),
-// about 4-5 us over the card at 3.35 TB/s; the eager chain it replaces was
-// about five launches and 0.11 ms at the ViT's shape.
-constexpr int kMaxThreads = 256;
-constexpr int kMaxKeys = 32;  // keys per CTA
-constexpr int kMaxLoads = 4;  // loads in flight per thread
+// The pre-pass of K1, K1 lse, K2 and K2 lse: kmax (B, Hkv) fp32, the largest
+// norm of a live key of each (b, kv head), as nparts partial maxima (B,
+// nparts, Hkv), one per chunk of ceil(K / nparts) keys.  One CTA per (chunk,
+// b) writes its Hkv slots with plain stores: no memset and no atomics, so
+// two launches write the same bits.  D / 8 lanes share one key vector (one
+// 16-byte load each); a pass of the CTA loads kPartLoads pieces a thread,
+// all issued before any is reduced, covering kVecs vectors (kVecs / Hkv
+// whole keys), so a chunk the size of one pass costs one DRAM round trip;
+// the plan (kernels.key_norm_parts) sizes the chunks to about four CTAs per
+// SM over the grid, at most 256 partials per (b, kv head) (serving's (2,
+// 3072): 256 chunks of 12 keys; the 53,722-token clip: 256 chunks of 210
+// keys, 27 passes).  By A/B on the card, 4 loads a thread and 256 threads
+// read faster than 8 loads or 128 threads, and the plan's chunk counts than
+// half or twice as many.  The squares of bf16 values sum exactly in double,
+// so a key's norm does not depend on the order of the sum and is rounded
+// once, after a double sqrt, to float; the twin (ops/flash_attention.py
+// key_norm_max) sums in fp32 in torch's order and lies within about an ulp
+// of it.  Each vector's slot keeps the largest sum over the passes in
+// registers (a slot's head is the same in every pass), a masked key giving
+// nothing, and takes its sqrt once at the end; the slots then fold per head
+// through shared memory.  Max is exact, so every order of the folds gives
+// the same bits, and since sqrt and the rounding are monotone the result is
+// the sqrt of the max of the squares, as in the twin; a chunk with no live
+// key writes 0, the twin's bound of a fully masked row.  What bounds it: the
+// k read, 12.6 MB at the decoder's (2, 3072) and 16.8 MB at the ViT's (8,
+// 1025), 3.8 and 5.0 us over the card at 3.35 TB/s.
+constexpr int kPartThreads = 256;
+constexpr int kPartLoads = 4;  // 16-byte loads in flight per thread
 
 template <int D>
-__global__ void __launch_bounds__(kMaxThreads)
-key_norm_max_kernel(const bf16* __restrict__ k,
-                    const int* __restrict__ mask, float* __restrict__ out,
-                    int K, int Hkv, long long ksb, long long kss) {
+__global__ void __launch_bounds__(kPartThreads)
+key_norm_partial_kernel(const bf16* __restrict__ k,
+                        const int* __restrict__ mask,
+                        float* __restrict__ part, int K, int Hkv, int chunk,
+                        long long ksb, long long kss) {
   constexpr int kLanes = D / 8;  // 16-byte pieces of one key vector
-  constexpr int kStep = kMaxThreads * kMaxLoads;
-  extern __shared__ float head_max[];  // Hkv
+  constexpr int kSlotStep = kPartThreads / kLanes;  // vectors per load step
+  constexpr int kVecs = kSlotStep * kPartLoads;     // vector slots a pass
+  __shared__ float slot_max[kVecs];
   const int b = blockIdx.y;
-  const int j0 = blockIdx.x * kMaxKeys;
-  const int total = min(kMaxKeys, K - j0) * Hkv * kLanes;
-  for (int h = threadIdx.x; h < Hkv; h += kMaxThreads) head_max[h] = 0.f;
-  __syncthreads();
-  const bf16* kb = k + b * ksb + j0 * kss;
-  // The loop bound is uniform over the block, so every lane reaches the
-  // shuffles; pieces past the chunk load zeros and are not counted.  A
-  // piece's kLanes lanes lie in one warp: i % 32 is the lane.
-  for (int i0 = 0; i0 < total; i0 += kStep) {
-    uint4 raw[kMaxLoads];
+  const int j0 = blockIdx.x * chunk;
+  const int keys = max(0, min(chunk, K - j0));
+  const int per = kVecs / Hkv;  // whole keys a pass
+  const int used = per * Hkv;   // slots a pass
+  const int piece = threadIdx.x % kLanes;
+  const bf16* kb = k + b * ksb + (long long)j0 * kss + piece * 8;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * K + j0;
+  // The largest live sum of squares of slot u * kSlotStep + threadIdx.x /
+  // kLanes; its sqrt is taken once, after the passes.
+  double run[kPartLoads];
 #pragma unroll
-    for (int u = 0; u < kMaxLoads; ++u) {
-      const int i = i0 + u * kMaxThreads + threadIdx.x;
-      const int p = i / kLanes;  // (key, head) pair
-      raw[u] = i < total
-                   ? *reinterpret_cast<const uint4*>(
-                         kb + (p / Hkv) * kss + (p % Hkv) * D +
-                         (i % kLanes) * 8)
+  for (int u = 0; u < kPartLoads; ++u) run[u] = 0.0;
+  // The loop bound is uniform over the block, so every lane reaches the
+  // shuffles; slots past the chunk load zeros and are not counted.  A
+  // vector's kLanes lanes lie in one warp.
+  for (int key0 = 0; key0 < keys; key0 += per) {
+    uint4 raw[kPartLoads];
+#pragma unroll
+    for (int u = 0; u < kPartLoads; ++u) {
+      const int slot = u * kSlotStep + threadIdx.x / kLanes;
+      const int key = key0 + slot / Hkv;
+      raw[u] = slot < used && key < keys
+                   ? __ldg(reinterpret_cast<const uint4*>(
+                         kb + key * kss + (slot % Hkv) * D))
                    : make_uint4(0u, 0u, 0u, 0u);
     }
+    if (key0 == 0) sm90::grid_launch_dependents();
 #pragma unroll
-    for (int u = 0; u < kMaxLoads; ++u) {
+    for (int u = 0; u < kPartLoads; ++u) {
       const __nv_bfloat162* v2 =
           reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
       double s = 0.0;
@@ -110,38 +116,120 @@ key_norm_max_kernel(const bf16* __restrict__ k,
       for (int o = kLanes / 2; o > 0; o >>= 1) {
         s += __shfl_xor_sync(0xffffffffu, s, o);
       }
-      const int i = i0 + u * kMaxThreads + threadIdx.x;
-      const int p = i / kLanes;
-      if (i < total && i % kLanes == 0 &&
-          (mask == nullptr || mask[(long long)b * K + j0 + p / Hkv] != 0)) {
-        atomicMax(reinterpret_cast<int*>(&head_max[p % Hkv]),
-                  __float_as_int(__double2float_rn(sqrt(s))));
+      const int slot = u * kSlotStep + threadIdx.x / kLanes;
+      const int key = key0 + slot / Hkv;
+      if (slot < used && key < keys && (mb == nullptr || mb[key] != 0)) {
+        run[u] = fmax(run[u], s);
       }
     }
   }
+  if (keys == 0) sm90::grid_launch_dependents();
+  if (piece == 0) {
+#pragma unroll
+    for (int u = 0; u < kPartLoads; ++u) {
+      slot_max[u * kSlotStep + threadIdx.x / kLanes] =
+          __double2float_rn(sqrt(run[u]));
+    }
+  }
   __syncthreads();
-  for (int h = threadIdx.x; h < Hkv; h += kMaxThreads) {
-    atomicMax(reinterpret_cast<int*>(&out[(long long)b * Hkv + h]),
-              __float_as_int(head_max[h]));
+  float* out = part + ((long long)b * gridDim.x + blockIdx.x) * Hkv;
+  for (int h = threadIdx.x; h < Hkv; h += kPartThreads) {
+    float m = 0.f;
+    for (int slot = h; slot < used; slot += Hkv) m = fmaxf(m, slot_max[slot]);
+    out[h] = m;
   }
 }
 
-extern "C" int mjv_key_norm_max(const void* k, const void* mask, void* out,
-                                int B, int K, int Hkv, int D, long long ksb,
-                                long long kss, void* stream) {
-  if ((D != 64 && D != 128) || B < 1 || K < 1 || Hkv < 1 || Hkv > 4096) {
+// kmax (B, Hkv) from the partials (B, nparts, Hkv): one warp per (b, kv
+// head), max over its nparts floats.  Only the standalone pre-pass
+// (mjv_key_norm_max) launches it; the attention kernels fold for themselves.
+constexpr int kFoldThreads = 256;
+
+__global__ void __launch_bounds__(kFoldThreads)
+key_norm_fold_kernel(const float* __restrict__ part, float* __restrict__ out,
+                     int nparts, int Hkv, int BH) {
+  const int w = blockIdx.x * (kFoldThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= BH) return;  // whole warps
+  const float* p = part + (long long)(w / Hkv) * nparts * Hkv + w % Hkv;
+  float m = 0.f;
+  for (int c = lane; c < nparts; c += 32) m = fmaxf(m, p[(long long)c * Hkv]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  if (lane == 0) out[w] = m;
+}
+
+// The partial pass on `stream`: part (B, nparts, Hkv) fp32, 1 <= nparts <=
+// K.  Also launched by mjv_vit_attention_op (vit_attention.cu).
+int launch_key_norm_partials(const void* k, const void* mask, void* part,
+                             int B, int K, int Hkv, int D, long long ksb,
+                             long long kss, int nparts, cudaStream_t s) {
+  // One pass must hold a whole key: Hkv vectors of kLanes lanes.
+  const int vecs = kPartThreads / (D / 8) * kPartLoads;
+  if ((D != 64 && D != 128) || B < 1 || B > 65535 || K < 1 || Hkv < 1 ||
+      Hkv > vecs || nparts < 1 || nparts > K) {
     return int(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * B * Hkv, s);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((K + kMaxKeys - 1) / kMaxKeys, B);
-  const size_t smem = sizeof(float) * Hkv;
-  auto kernel = D == 64 ? key_norm_max_kernel<64> : key_norm_max_kernel<128>;
-  kernel<<<grid, kMaxThreads, smem, s>>>(
+  const int chunk = (K + nparts - 1) / nparts;
+  const dim3 grid(nparts, B);
+  auto kernel =
+      D == 64 ? key_norm_partial_kernel<64> : key_norm_partial_kernel<128>;
+  kernel<<<grid, kPartThreads, 0, s>>>(
       static_cast<const bf16*>(k), static_cast<const int*>(mask),
-      static_cast<float*>(out), K, Hkv, ksb, kss);
+      static_cast<float*>(part), K, Hkv, chunk, ksb, kss);
   return int(cudaGetLastError());
+}
+
+// The pre-pass alone: the partials into part (B, nparts, Hkv) scratch, then
+// their fold into out (B, Hkv) fp32.
+extern "C" int mjv_key_norm_max(const void* k, const void* mask, void* part,
+                                void* out, int B, int K, int Hkv, int D,
+                                long long ksb, long long kss, int nparts,
+                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_key_norm_partials(k, mask, part, B, K, Hkv, D, ksb,
+                                           kss, nparts, s);
+  if (err != 0) return err;
+  const int BH = B * Hkv;
+  const int warps = kFoldThreads / 32;
+  key_norm_fold_kernel<<<(BH + warps - 1) / warps, kFoldThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), nparts, Hkv,
+      BH);
+  return int(cudaGetLastError());
+}
+
+// K2 alone on a folded kmax (B, Hkv): the kernel-alone form of the op.
+extern "C" int mjv_decoder_attention(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* kmax, const void* q_offset, void* out, void* lse, int B,
+    int Q, int K, int Hq, int Hkv, int D, long long qsb, long long qss,
+    long long ksb, long long kss, long long vsb, long long vss, float scale,
+    void* stream) {
+  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
+  return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kKeyMax>(
+      q, k, v, mask, kmax, 1, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb, qss,
+      ksb, kss, vsb, vss, scale, stream);
+}
+
+// The K2 op (with the lse when lse is not null): the partial pass into part
+// (B, nparts, Hkv) scratch, then K2 launched as its programmatic dependent,
+// folding the partials after griddepcontrol.wait.
+extern "C" int mjv_decoder_attention_op(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* q_offset, void* part, void* out, void* lse, int B, int Q,
+    int K, int Hq, int Hkv, int D, long long qsb, long long qss,
+    long long ksb, long long kss, long long vsb, long long vss, int nparts,
+    float scale, void* stream) {
+  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_key_norm_partials(k, mask, part, B, K, Hkv, D, ksb,
+                                           kss, nparts, s);
+  if (err != 0) return err;
+  return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kKeyMax>(
+      q, k, v, mask, part, nparts, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb,
+      qss, ksb, kss, vsb, vss, scale, stream, true);
 }
 
 // The pre-pass of K2r: one CTA of 1024 threads per (b, kv head).  First
@@ -256,6 +344,6 @@ extern "C" int mjv_decoder_attention_rows(
     long long kss, long long vsb, long long vss, float scale, void* stream) {
   if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
   return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kRows>(
-      q, k, v, mask, kcum, q_offset, out, nullptr, B, Q, K, Hq, Hkv, qsb, qss,
-      ksb, kss, vsb, vss, scale, stream);
+      q, k, v, mask, kcum, 1, q_offset, out, nullptr, B, Q, K, Hq, Hkv, qsb,
+      qss, ksb, kss, vsb, vss, scale, stream);
 }

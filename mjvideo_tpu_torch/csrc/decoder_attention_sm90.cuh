@@ -81,8 +81,19 @@
 //   together with tile t's p v, so the softmax of t + 1 runs while the
 //   tensor cores work; o is rescaled and p repacked after p v is done.
 // - The bound shifts take |q_i| from the q tile in shared memory and their
-//   key-norm bound from a pre-pass kernel (decoder_attention.cu); only its
-//   one (K2, K1) or K (K2r) floats per (b, kv head) are read here.
+//   key-norm bound from a pre-pass kernel (decoder_attention.cu).  K2r's
+//   consumers read its K floats per (b, kv head) at their rows.  K2's and
+//   K1's kmax comes as the pre-pass's partial maxima, (B, nparts, Hkv): the
+//   producer warpgroup's second warp, idle otherwise, executes
+//   griddepcontrol.wait (the programmatic dependent launch of the fused
+//   entries: this grid may start while the pre-pass runs), folds the
+//   nparts floats of its (b, kv head) by shuffles (max is exact, so any
+//   order gives the same bits) and hands the result to the consumers
+//   through shared memory and an mbarrier.  Nothing else waits: the q tile,
+//   the first kv stages and the consumers' first q k^T do not depend on the
+//   pre-pass, and the consumers wait for the bound only before their first
+//   softmax.  The kernel-alone entries pass a folded kmax as nparts = 1 and
+//   launch without the attribute, where the wait returns at once.
 // - The mask arithmetic runs only on a tile with a masked key (or one
 //   past K) or one that reaches past the warp's first row, chosen once
 //   per tile for the warp; a CTA stops at the last tile touching its
@@ -172,8 +183,10 @@ struct Config {
   static constexpr uint32_t kKvBytes = kBoxes * kKvBox;
   static constexpr uint32_t kStageBytes = 2 * kKvBytes;  // k and v
   static constexpr uint32_t kBarOff = kQBytes + kStages * kStageBytes;
-  static constexpr uint32_t kBitsOff = kBarOff + (2 * kStages + 1) * 8;
-  static constexpr uint32_t kSmemBytes = kBitsOff + kStages * 16 + 1024;
+  // full[s], empty[s], q's and the folded bound's.
+  static constexpr uint32_t kBitsOff = kBarOff + (2 * kStages + 2) * 8;
+  static constexpr uint32_t kBoundOff = kBitsOff + kStages * 16;
+  static constexpr uint32_t kSmemBytes = kBoundOff + 16 + 1024;
   static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
 };
 
@@ -214,6 +227,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Programmatic dependent launch.  wait: block until the grids this one
+// depends on have completed and their writes are visible (at once when the
+// grid was launched without the attribute).  launch_dependents: let the
+// next grid, if launched with it, start once every CTA of this one has
+// executed it or exited.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
@@ -476,7 +501,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
 // 8-column block j, d[4 j + e] at row g, column 8 j + 2 c + e and
 // d[4 j + 2 + e] at row g + 8 (e = 0, 1).  The same pairs, packed, are the
 // register A fragments of the next product: fragment i = (d[2 i], d[2 i+1]).
-// bound: kcum (B, Hkv, K) under kRows, kmax (B, Hkv) under kKeyMax.
+// bound: kcum (B, Hkv, K) under kRows, the partial maxima (B, nparts, Hkv)
+// of kmax under kKeyMax (nparts = 1: kmax itself).
 // lse: (B, Hq, Q) fp32 or null, written under kKeyMax and kExact.
 template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR>
 __global__ void __launch_bounds__(C::kThreads, 1)
@@ -484,7 +510,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const int* __restrict__ mask,
-                      const float* __restrict__ bound,
+                      const float* __restrict__ bound, int nparts,
                       const int* __restrict__ q_offset,
                       bf16* __restrict__ out, float* __restrict__ lse,
                       int Q, int K, int Hq, int Hkv, float scale) {
@@ -499,6 +525,9 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t sq = base;
   const uint32_t bar = base + C::kBarOff;  // full[s], empty[s], then q's
   const uint32_t q_bar = bar + 16 * kStages;
+  const uint32_t bound_bar = q_bar + 8;
+  float* kmax_smem =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + C::kBoundOff);
 
   const int h = blockIdx.x % Hq;
   const int b = blockIdx.x / Hq;
@@ -519,6 +548,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar + 8 * (kStages + s), kConsumerWarps);
     }
     mbar_init(q_bar, 1);
+    mbar_init(bound_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -528,6 +558,24 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     // first warp loads the q tile, then the kv ring.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
         C::kProducerRegs));
+    if (SHIFT == ShiftMode::kKeyMax && warp == kConsumerWarps + 1) {
+      // kmax: the fold of the pre-pass's partial maxima, once they exist.
+      grid_dependency_wait();
+      const float* part = bound + (long long)b * nparts * Hkv + hk;
+      float mx = 0.f;  // norms are >= 0
+      for (int c = lane; c < nparts; c += 32) {
+        mx = fmaxf(mx, part[(long long)c * Hkv]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      }
+      if (lane == 0) {
+        *kmax_smem = mx;
+        mbar_arrive(bound_bar);
+      }
+      return;
+    }
     if (warp != kConsumerWarps || n_kv == 0) return;
     if (lane == 0) {
       mbar_expect_tx(q_bar, C::kQBytes);
@@ -587,6 +635,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
   float m[2] = {-INFINITY, -INFINITY};
   const float sl2 = scale * kLog2e;
 
+  // K2 and K1: |q_row|, rounded once; the shift waits for kmax.
+  float qn[2] = {0.f, 0.f};
   if (n_kv > 0) {
     mbar_wait(q_bar, 0);
     if (kFixed) {
@@ -598,10 +648,6 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
       // m = |q| * (kmax * |scale|) in nats: kmax (the pre-pass's, exact in
       // the same way) and |q| are rounded once, and the twin's fp32 sums
       // lie within about an ulp of them (see softmax_body).
-      const float kms = SHIFT == ShiftMode::kKeyMax
-                            ? __fmul_rn(bound[(long long)b * Hkv + hk],
-                                        fabsf(scale))
-                            : 0.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int R = row0 + 8 * r;
@@ -633,7 +679,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
         if (SHIFT == ShiftMode::kKeyMax) {
           qd2 += __shfl_xor_sync(0xffffffffu, qd2, 1);
           qd2 += __shfl_xor_sync(0xffffffffu, qd2, 2);
-          m[r] = __fmul_rn(__double2float_rn(sqrt(qd2)), kms);
+          qn[r] = __double2float_rn(sqrt(qd2));
         } else {
           qn2 += __shfl_xor_sync(0xffffffffu, qn2, 1);
           qn2 += __shfl_xor_sync(0xffffffffu, qn2, 2);
@@ -711,6 +757,13 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(full_bar(0), 0);
     wgmma_fence();
     issue_qk(0);
+    if (SHIFT == ShiftMode::kKeyMax) {
+      // The pre-pass's kmax, folded by the producer's second warp.
+      mbar_wait(bound_bar, 0);
+      const float kms = __fmul_rn(*kmax_smem, fabsf(scale));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m[r] = __fmul_rn(qn[r], kms);
+    }
     wgmma_wait<0>();
     fence_regs(sc);
     softmax(0);  // o is 0: no rescale
@@ -835,18 +888,66 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bound: kcum (B, Hkv, K) fp32 under kRows, kmax (B, Hkv) fp32 under
-// kKeyMax, unread under kExact; q_offset read only when CAUSAL; lse: a
-// (B, Hq, Q) fp32 output or null, taken under kKeyMax and kExact.  Returns
-// a cudaError_t.
+namespace {
+// Raise Kernel's dynamic shared memory cap to `bytes` once per device.  The
+// flags have internal linkage, so each library loaded into a process (the
+// A/B tools load several builds) keeps its own: a static of an inline or
+// template function of external linkage is one object shared by all of
+// them, and a second library would skip raising the cap of its own kernel.
+template <auto Kernel>
+cudaError_t open_smem(int bytes) {
+  static bool opened[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 0 && dev < 64 && opened[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev >= 0 && dev < 64) opened[dev] = true;
+  return err;
+}
+}  // namespace
+
+// Launch with programmatic stream serialization: the grid may start once
+// the previous kernel on the stream has executed launch_dependents in every
+// CTA (or exited), and waits for it with griddepcontrol.wait.  Only the
+// fused entries use it, on a kernel that follows its own pre-pass; args are
+// pointers to the kernel's parameters.
+inline cudaError_t launch_dependent(const void* kernel, dim3 grid, dim3 block,
+                                    size_t smem, cudaStream_t stream,
+                                    void** args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, kernel, args);
+}
+
+// bound: kcum (B, Hkv, K) fp32 under kRows, kmax's partial maxima (B,
+// nparts, Hkv) fp32 under kKeyMax (nparts = 1: kmax (B, Hkv)), unread under
+// kExact; q_offset read only when CAUSAL; lse: a (B, Hq, Q) fp32 output or
+// null, taken under kKeyMax and kExact.  dependent: launch with
+// programmatic stream serialization, behind the pre-pass that writes
+// bound (the fused entries only).  Returns a cudaError_t.
 template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR = false>
 int launch_attention(const void* q, const void* k, const void* v,
-                     const void* mask, const void* bound,
+                     const void* mask, const void* bound, int nparts,
                      const void* q_offset, void* out, void* lse, int B, int Q,
                      int K, int Hq, int Hkv, long long qsb, long long qss,
                      long long ksb, long long kss, long long vsb,
-                     long long vss, float scale, void* stream) {
+                     long long vss, float scale, void* stream,
+                     bool dependent = false) {
   if (lse != nullptr && SHIFT == ShiftMode::kRows) {
+    return int(cudaErrorInvalidValue);
+  }
+  // Only the bound's partials come from a pre-pass to wait for.
+  if (nparts < 1 || (dependent && SHIFT != ShiftMode::kKeyMax)) {
     return int(cudaErrorInvalidValue);
   }
   CUtensorMap tq, tk, tv;
@@ -856,17 +957,28 @@ int launch_attention(const void* q, const void* k, const void* v,
     return int(cudaErrorInvalidValue);
   }
   auto kernel = attention_kernel<C, CAUSAL, SHIFT, FLOOR>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(C::kSmemBytes));
+  cudaError_t err =
+      open_smem<attention_kernel<C, CAUSAL, SHIFT, FLOOR>>(int(C::kSmemBytes));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(Hq * B, (Q + C::kBlockQ - 1) / C::kBlockQ);
-  kernel<<<grid, C::kThreads, C::kSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<const int*>(mask),
-      static_cast<const float*>(bound), static_cast<const int*>(q_offset),
-      static_cast<bf16*>(out), static_cast<float*>(lse), Q, K, Hq, Hkv,
-      scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* mask_i = static_cast<const int*>(mask);
+  const float* bound_f = static_cast<const float*>(bound);
+  const int* off_i = static_cast<const int*>(q_offset);
+  bf16* out_b = static_cast<bf16*>(out);
+  float* lse_f = static_cast<float*>(lse);
+  if (dependent) {
+    void* args[] = {&tq,    &tk,    &tv,    &mask_i, &bound_f, &nparts,
+                    &off_i, &out_b, &lse_f, &Q,      &K,       &Hq,
+                    &Hkv,   &scale};
+    err = launch_dependent(reinterpret_cast<const void*>(kernel), grid,
+                           dim3(C::kThreads), C::kSmemBytes, s, args);
+    if (err != cudaSuccess) return int(err);
+  } else {
+    kernel<<<grid, C::kThreads, C::kSmemBytes, s>>>(
+        tq, tk, tv, mask_i, bound_f, nparts, off_i, out_b, lse_f, Q, K, Hq,
+        Hkv, scale);
+  }
   return int(cudaGetLastError());
 }
 

@@ -35,9 +35,9 @@ extern "C" int mjv_exact_attention(
   using sm90::D128;
   using sm90::ShiftMode;
   return causal ? sm90::launch_attention<D128, true, ShiftMode::kExact>(
-                      q, k, v, mask, nullptr, q_offset, out, lse, B, Q, K,
+                      q, k, v, mask, nullptr, 1, q_offset, out, lse, B, Q, K,
                       Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream)
                 : sm90::launch_attention<D128, false, ShiftMode::kExact>(
-                      q, k, v, mask, nullptr, nullptr, out, lse, B, Q, K,
+                      q, k, v, mask, nullptr, 1, nullptr, out, lse, B, Q, K,
                       Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream);
 }

@@ -55,10 +55,26 @@
 // - A stage is released once the last group that reads it (its products
 //   and its scales) is promoted; a group wider than 128 bytes frees its
 //   earlier stages when it crosses into the next.
-// The pre-pass: one CTA per row, its threads on neighbouring 16-byte
-// pieces; the pieces' amax go through shared memory to one thread per
-// group, the pieces are quantized from L1 with their group's scale; x is
-// read once from device memory, about 11 us at (6,144, 2,048).
+// - K6 launches the GEMM as a programmatic dependent of its pre-pass: its
+//   CTAs start as the pre-pass's last CTAs run, and their barrier set-up
+//   overlaps that tail; the producer executes griddepcontrol.wait before
+//   its first load.  (Issuing the first stages' weight boxes before the
+//   wait, which do not depend on the pre-pass, measured slower by A/B:
+//   PERF.md.)  K7 launches without the attribute (the wait returns at
+//   once).
+// The pre-pass: x (M, K) is a flat run of M G groups of g values.  L lanes
+// (4 at g <= 128) own a group and hold its g / 8 16-byte pieces in
+// registers, R = g / (8 L) each (lane j pieces j, j + L, ...), all loaded
+// before any is reduced; the group's amax goes over the L lanes by
+// shuffles, each lane takes the scale and quantizes its own pieces into
+// 8-byte stores.  No shared memory, no second read of x (but for a g whose
+// pieces do not fit kQuantSlots a lane, g = 288 for one, which reads its
+// group twice).  A CTA of 256 threads holds 64 groups at g = 128 (4 rows
+// of K = 2,048; 512 threads measured 8-10% slower).  What bounds it: x read
+// once and xq and a_s written once, 38 MB at (6,144, 2,048), 11.4 us at
+// 3.35 TB/s; the IEEE divisions of the twin's rounding, about ten
+// instructions a value, run beside the loads (with a product in place of
+// the division, a probe, it read 29% faster).
 #include "decoder_attention_sm90.cuh"
 
 namespace mjv {
@@ -230,6 +246,14 @@ q8g_gemm_kernel(const __grid_constant__ CUtensorMap ta,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
         C::kProducerRegs));
     if (warp != C::kConsumerWarps) return;
+    // K6 launches this grid behind its pre-pass: wait for xq and a_s
+    // before the first load.  Issuing the first stages' weight boxes
+    // before the wait measured 1.5-2.5% slower, K7 too, by A/B on the card.
+    // The fence orders the pre-pass's generic-proxy writes of xq before
+    // this thread's TMA (async-proxy) reads; it measured free, and runs
+    // without it gave the same bits.
+    attention_sm90::grid_dependency_wait();
+    asm volatile("fence.proxy.async.global;" ::: "memory");
     for (int t = 0; t < n_tiles; ++t) {
       if (t >= kStages) mbar_wait(empty_bar(t), (t / kStages - 1) & 1);
       if (lane == 0) {
@@ -440,41 +464,70 @@ __device__ __forceinline__ uint2 quantize8(const uint4& v, float s) {
   return make_uint2(lo, hi);
 }
 
-constexpr int kQuantThreads = 128;
+constexpr int kQuantThreads = 256;
+constexpr int kQuantSlots = 4;  // 16-byte pieces a lane holds at once
 
-// The pre-pass: xq (M, K) int8 and a_s (M, G) fp32 from x (M, K) bf16, one
-// CTA per row: its threads read the row in neighbouring 16-byte pieces
-// (coalesced) and keep each piece's amax in shared memory; a thread per
-// group reduces the group's g / 8 pieces into its scale; the threads then
-// quantize their pieces (read again, from L1) with their group's scale.
-// x's rows are 16-byte aligned and g a multiple of 32.
+// Lanes per group: 4, doubled (up to a warp) while a lane would hold more
+// than kQuantSlots pieces and the pieces still split evenly.
+inline int quant_lanes(int g) {
+  const int P = g / 8;
+  int L = 4;
+  while (P / L > kQuantSlots && P % (2 * L) == 0 && 2 * L <= 32) L *= 2;
+  return L;
+}
+
+// The pre-pass: xq (M, K) int8 and a_s (M, G) fp32 from x (M, K) bf16, as
+// NG = M G groups of g values, each owned by L lanes (a power of two that
+// divides 32, so a group's lanes are an aligned run of one warp).  Lane j
+// of a group holds its pieces j + L r, r < R = g / (8 L): at g = 128 the 4
+// lanes of a group read 64 neighbouring bytes per load and 8 groups share a
+// warp.  x's rows are 16-byte aligned and g a multiple of 32.
 __global__ void __launch_bounds__(kQuantThreads)
 quantize_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ a_s, int K, int G) {
-  extern __shared__ float piece_max[];  // K / 8 pieces, then G scales
-  float* scale = piece_max + K / 8;
-  const long long row = blockIdx.x;
-  const uint4* src = reinterpret_cast<const uint4*>(x + row * K);
-  const int pieces = K / 8, per = K / G / 8;
-  for (int i = threadIdx.x; i < pieces; i += kQuantThreads) {
-    const uint4 v = src[i];
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-    float m = 0.f;
+                     float* __restrict__ a_s, long long NG, int g, int L) {
+  const int R = g / 8 / L;
+  const int j = threadIdx.x % L;
+  const long long grp =
+      (long long)blockIdx.x * (kQuantThreads / L) + threadIdx.x / L;
+  const bool live = grp < NG;
+  const uint4* src = reinterpret_cast<const uint4*>(x) + grp * (g / 8) + j;
+  uint2* dst = reinterpret_cast<uint2*>(xq) + grp * (g / 8) + j;
+  // R > kQuantSlots: the group in slices of kQuantSlots pieces a lane, read
+  // once for the amax and again to quantize.
+  const bool twice = R > kQuantSlots;
+  uint4 piece[kQuantSlots];
+  auto load = [&](int r0) {
 #pragma unroll
-    for (int t = 0; t < 8; ++t) m = fmaxf(m, fabsf(__bfloat162float(e[t])));
-    piece_max[i] = m;
+    for (int s = 0; s < kQuantSlots; ++s) {
+      piece[s] = live && r0 + s < R ? __ldg(src + L * (r0 + s))
+                                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  float amax = 0.f;
+  for (int r0 = 0; r0 < R; r0 += kQuantSlots) {
+    load(r0);
+    if (r0 == 0) attention_sm90::grid_launch_dependents();
+#pragma unroll
+    for (int s = 0; s < kQuantSlots; ++s) {
+      const bf16* e = reinterpret_cast<const bf16*>(&piece[s]);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        amax = fmaxf(amax, fabsf(__bfloat162float(e[t])));
+      }
+    }
   }
-  __syncthreads();
-  for (int grp = threadIdx.x; grp < G; grp += kQuantThreads) {
-    float m = 0.f;
-    for (int i = 0; i < per; ++i) m = fmaxf(m, piece_max[grp * per + i]);
-    scale[grp] = row_scale(m);
-    a_s[row * G + grp] = scale[grp];
+  // L is uniform, so every lane reaches the shuffles.
+  for (int o = L / 2; o > 0; o >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   }
-  __syncthreads();
-  uint2* dst = reinterpret_cast<uint2*>(xq + row * K);
-  for (int i = threadIdx.x; i < pieces; i += kQuantThreads) {
-    dst[i] = quantize8(src[i], scale[i / per]);
+  const float scale = row_scale(amax);
+  if (live && j == 0) a_s[grp] = scale;
+  for (int r0 = 0; r0 < R; r0 += kQuantSlots) {
+    if (twice) load(r0);
+#pragma unroll
+    for (int s = 0; s < kQuantSlots; ++s) {
+      if (live && r0 + s < R) dst[L * (r0 + s)] = quantize8(piece[s], scale);
+    }
   }
 }
 
@@ -498,20 +551,28 @@ bool valid_shape(int M, int N, int K, int G) {
   return M > 0 && N > 0 && G > 0 && K % G == 0 && (K / G) % 32 == 0;
 }
 
+// dependent: launch as the programmatic dependent of the pre-pass (K6).
 template <bool OUT_BF16>
-int launch_gemm_as(const CUtensorMap& ta, const CUtensorMap& tb,
-                   const float* a_scale, const float* w_scale, void* out,
-                   int M, int N, int K, int G, cudaStream_t stream) {
+int launch_gemm_as(CUtensorMap ta, CUtensorMap tb, const float* a_scale,
+                   const float* w_scale, void* out, int M, int N, int K,
+                   int G, cudaStream_t stream, bool dependent) {
   using C = Q8G;
   auto kernel = q8g_gemm_kernel<C, OUT_BF16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = attention_sm90::open_smem<q8g_gemm_kernel<C, OUT_BF16>>(
       int(C::kSmemBytes));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((N + C::kBlockN - 1) / C::kBlockN,
                   (M + C::kBlockM - 1) / C::kBlockM);
-  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      ta, tb, a_scale, w_scale, out, M, N, K, G);
+  if (dependent) {
+    void* args[] = {&ta, &tb, &a_scale, &w_scale, &out, &M, &N, &K, &G};
+    err = attention_sm90::launch_dependent(
+        reinterpret_cast<const void*>(kernel), grid, dim3(C::kThreads),
+        C::kSmemBytes, stream, args);
+    if (err != cudaSuccess) return int(err);
+  } else {
+    kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+        ta, tb, a_scale, w_scale, out, M, N, K, G);
+  }
   return int(cudaGetLastError());
 }
 
@@ -520,7 +581,8 @@ int launch_gemm_as(const CUtensorMap& ta, const CUtensorMap& tb,
 // (M, N) bf16 (out_bf16) or fp32.
 int launch_gemm(const void* xq, const void* a_scale, const void* wq,
                 const void* w_scale, void* out, int out_bf16, int M, int N,
-                int K, int G, long long ldk, cudaStream_t stream) {
+                int K, int G, long long ldk, cudaStream_t stream,
+                bool dependent) {
   CUtensorMap ta, tb;
   if (!encode_u8(&ta, xq, K, M, K, Q8G::kBlockM) ||
       !encode_u8(&tb, wq, K, N, ldk, Q8G::kBlockN)) {
@@ -529,23 +591,21 @@ int launch_gemm(const void* xq, const void* a_scale, const void* wq,
   const float* as = static_cast<const float*>(a_scale);
   const float* ws = static_cast<const float*>(w_scale);
   return out_bf16 ? launch_gemm_as<true>(ta, tb, as, ws, out, M, N, K, G,
-                                         stream)
+                                         stream, dependent)
                   : launch_gemm_as<false>(ta, tb, as, ws, out, M, N, K, G,
-                                          stream);
+                                          stream, dependent);
 }
 
 int launch_quantize(const void* x, void* xq, void* a_s, int M, int K, int G,
                     cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (K / 8 + G);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        quantize_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (err != cudaSuccess) return int(err);
-  }
-  quantize_rows_kernel<<<unsigned(M), kQuantThreads, smem, stream>>>(
+  const int g = K / G;
+  const int L = quant_lanes(g);
+  const long long NG = (long long)M * G;
+  const int per_cta = kQuantThreads / L;
+  quantize_rows_kernel<<<unsigned((NG + per_cta - 1) / per_cta),
+                         kQuantThreads, 0, stream>>>(
       static_cast<const bf16*>(x), static_cast<int8_t*>(xq),
-      static_cast<float*>(a_s), K, G);
+      static_cast<float*>(a_s), NG, g, L);
   return int(cudaGetLastError());
 }
 
@@ -564,7 +624,8 @@ extern "C" int mjv_q8g_quantize(const void* x, void* xq, void* a_s, int M,
 
 // K6: x (M, K) bf16, wq the k-major (K, N) int8 weight (an (N, K) array
 // of row stride ldk bytes), w_scale (G, N) fp32; xq (M, K) int8 and a_s
-// (M, G) fp32 scratch -> out (M, N) bf16 (out_bf16 = 1) or fp32.
+// (M, G) fp32 scratch -> out (M, N) bf16 (out_bf16 = 1) or fp32.  The
+// pre-pass, then the GEMM as its programmatic dependent.
 extern "C" int mjv_q8g_matmul_fused(const void* x, const void* wq,
                                     const void* w_scale, void* xq, void* a_s,
                                     void* out, int out_bf16, int M, int N,
@@ -575,7 +636,7 @@ extern "C" int mjv_q8g_matmul_fused(const void* x, const void* wq,
   const int err = q8g::launch_quantize(x, xq, a_s, M, K, G, s);
   if (err != 0) return err;
   return q8g::launch_gemm(xq, a_s, wq, w_scale, out, out_bf16, M, N, K, G,
-                          ldk, s);
+                          ldk, s, true);
 }
 
 // K7: xq (M, K) int8, a_scale (M, G) fp32, wq and w_scale as for K6 ->
@@ -586,5 +647,5 @@ extern "C" int mjv_q8g_matmul(const void* xq, const void* a_scale,
                               void* stream) {
   if (!q8g::valid_shape(M, N, K, G)) return int(cudaErrorInvalidValue);
   return q8g::launch_gemm(xq, a_scale, wq, w_scale, out, 0, M, N, K, G, ldk,
-                          static_cast<cudaStream_t>(stream));
+                          static_cast<cudaStream_t>(stream), false);
 }

@@ -4,8 +4,8 @@
 // as it is; the kernel masks its own tail instead of the TPU's 1032 pre-pad
 // and analytic pad-mass subtraction), denominator floored at 1e-30.  Its
 // kmax (B, H), the largest key norm of each (b, head), comes from the
-// pre-pass key_norm_max (decoder_attention.cu), where the TPU kernel
-// reduced it inside each program (flash_attention.py:131-135).
+// pre-pass of decoder_attention.cu, where the TPU kernel reduced it inside
+// each program (flash_attention.py:131-135).
 //
 // Both run the wgmma/TMA template of decoder_attention_sm90.cuh at D = 64
 // (Config D64, ShiftMode::kKeyMax, FLOOR): q/k/v are strided views into one
@@ -22,7 +22,18 @@
 // true lse that K4 nc (vit_attention_bwd.cu) reads.  On a row whose sum
 // underflowed to 0 it holds kDeadLse (1e30), where the TPU kernel writes
 // m + log(1e-30); both give p = 0 in the backward.
+//
+// mjv_vit_attention_op is the op: the pre-pass's partial pass, then K1
+// launched behind it as a programmatic dependent that folds the partials;
+// mjv_vit_attention is K1 alone on a folded kmax (the checks).
 #include "decoder_attention_sm90.cuh"
+
+namespace sm90 = mjv::attention_sm90;
+
+// decoder_attention.cu: the pre-pass's partial maxima (B, nparts, Hkv).
+int launch_key_norm_partials(const void* k, const void* mask, void* part,
+                             int B, int K, int Hkv, int D, long long ksb,
+                             long long kss, int nparts, cudaStream_t s);
 
 extern "C" int mjv_vit_attention(const void* q, const void* k, const void* v,
                                  const void* kmax, void* out, void* lse,
@@ -31,9 +42,28 @@ extern "C" int mjv_vit_attention(const void* q, const void* k, const void* v,
                                  long long vsb, long long vss, float scale,
                                  void* stream) {
   if (D != 64) return int(cudaErrorInvalidValue);  // InternViT-300M heads
-  namespace sm90 = mjv::attention_sm90;
   return sm90::launch_attention<sm90::D64, false, sm90::ShiftMode::kKeyMax,
-                                true>(q, k, v, nullptr, kmax, nullptr, out,
+                                true>(q, k, v, nullptr, kmax, 1, nullptr, out,
                                       lse, B, S, S, H, H, qsb, qss, ksb, kss,
                                       vsb, vss, scale, stream);
+}
+
+// The K1 op (with the lse when lse is not null): part (B, nparts, H) fp32
+// scratch for the pre-pass's partials.
+extern "C" int mjv_vit_attention_op(const void* q, const void* k,
+                                    const void* v, void* part, void* out,
+                                    void* lse, int B, int S, int H, int D,
+                                    long long qsb, long long qss,
+                                    long long ksb, long long kss,
+                                    long long vsb, long long vss, int nparts,
+                                    float scale, void* stream) {
+  if (D != 64) return int(cudaErrorInvalidValue);  // InternViT-300M heads
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_key_norm_partials(k, nullptr, part, B, S, H, D, ksb,
+                                           kss, nparts, s);
+  if (err != 0) return err;
+  return sm90::launch_attention<sm90::D64, false, sm90::ShiftMode::kKeyMax,
+                                true>(q, k, v, nullptr, part, nparts, nullptr,
+                                      out, lse, B, S, S, H, H, qsb, qss, ksb,
+                                      kss, vsb, vss, scale, stream, true);
 }

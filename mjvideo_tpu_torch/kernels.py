@@ -42,8 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # and K3 with and without the lse, "vit_attention_lse",
 # "decoder_attention_lse" and "exact_attention_lse" the launches with it;
 # "key_norm_max" counts the pre-pass of K1 and K2 (their kmax, with the lse
-# or without), "key_norm_cummax" K2r's (its bound column); "q8g_quantize"
-# the activation pre-pass of K6 (one per K6 launch, or alone).
+# or without: one per K1 or K2 op, or alone), "key_norm_cummax" K2r's (its
+# bound column); "q8g_quantize" the activation pre-pass of K6 (one per K6
+# launch, or alone).
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
@@ -61,6 +62,15 @@ launch_counts: Dict[str, int] = {
 VARIANT_MODES = ("exp2", "bf16s", "nomax", "exp2_nomax")
 TMAJOR_HP = (1, 2, 4)
 LOG2E = 1.4426950408889634  # log2(e)
+
+# The plan of the K1/K2 pre-pass (``key_norm_partial_kernel`` of
+# ``csrc/decoder_attention.cu``): its threads per CTA and 16-byte loads a
+# thread per pass, the CTAs aimed at over the grid (about four per SM of
+# the H100's 132) and the most partial maxima per (b, kv head).
+KEY_NORM_THREADS = 256
+KEY_NORM_LOADS = 4
+KEY_NORM_CTAS = 528
+KEY_NORM_PARTS_MAX = 256
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -131,12 +141,15 @@ _VARIANT = [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _I, _P]
 # Each C entry's argument types (every one returns a cudaError_t as int).
 ARGTYPES = {
     "mjv_vit_attention": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_F, _P],
+    "mjv_vit_attention_op": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _F, _P],
     "mjv_vit_attention_bwd_dkdv": _VIT_BWD[:6] + [_P, _P] + _VIT_BWD[6:],
     "mjv_vit_attention_bwd_dq": _VIT_BWD[:6] + [_P] + _VIT_BWD[6:],
     "mjv_decoder_attention": [_P] * 8 + [_I] * 6 + [_L] * 6 + [_F, _P],
+    "mjv_decoder_attention_op": [_P] * 8 + [_I] * 6 + [_L] * 6
+    + [_I, _F, _P],
     "mjv_decoder_attention_rows": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _P],
     "mjv_key_norm_cummax": [_P] * 3 + [_I] * 4 + [_L] * 2 + [_P],
-    "mjv_key_norm_max": [_P] * 3 + [_I] * 4 + [_L] * 2 + [_P],
+    "mjv_key_norm_max": [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I, _P],
     "mjv_exact_attention": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _I, _P],
     "mjv_decoder_attention_bwd_dkdv": _BWD[:8] + [_P, _P] + _BWD[8:],
     "mjv_decoder_attention_bwd_dq": _BWD[:8] + [_P] + _BWD[8:],
@@ -207,18 +220,24 @@ def forward_only(name: str, *ts: torch.Tensor) -> None:
             f"{name} has no backward kernel; call it under torch.no_grad()")
 
 
-def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  kmax: torch.Tensor, scale: float, with_lse: bool = False):
-    """K1.  q/k/v: (B, S, H, 64) bf16 with dense heads (row strides free);
-    kmax: (B, H) fp32 (``key_norm_max``).  Returns a dense (B, S, H, D)
-    bf16 tensor, and with ``with_lse`` also the (B, H, S) fp32 lse (1e30 on
-    a row whose sum underflowed).  With the lse or without, it runs on the
-    wgmma/TMA template (``decoder_attention_sm90.cuh``)."""
-    name = "vit_attention"
+def _check_vit(name: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> None:
     _check_qkv(name, 64, q, k, v)
-    B, S, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k and v must share (B, S, H, D)")
+
+
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kmax: torch.Tensor, scale: float, with_lse: bool = False):
+    """K1 alone on a given kmax.  q/k/v: (B, S, H, 64) bf16 with dense
+    heads (row strides free); kmax: (B, H) fp32 (``key_norm_max``).
+    Returns a dense (B, S, H, D) bf16 tensor, and with ``with_lse`` also the
+    (B, H, S) fp32 lse (1e30 on a row whose sum underflowed).  With the lse
+    or without, it runs on the wgmma/TMA template
+    (``decoder_attention_sm90.cuh``); ``vit_attention_op`` is the op."""
+    name = "vit_attention"
+    _check_vit(name, q, k, v)
+    B, S, H, D = q.shape
     _check_aux(f"{name} kmax", kmax, torch.float32, (B, H), q.device)
     lib = _load()
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -232,6 +251,39 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), float(scale), stream)
     _raise_on(name, err)
+    launch_counts[name] += 1
+    if with_lse:
+        launch_counts["vit_attention_lse"] += 1
+    return (out, lse) if with_lse else out
+
+
+def vit_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, with_lse: bool = False):
+    """The K1 op: its pre-pass's partial maxima of the key norms, then K1
+    launched behind it as a programmatic dependent that folds them, from
+    one C call.  Operands and results as for ``vit_attention`` without
+    kmax; the output is bit-equal to ``vit_attention`` on
+    ``key_norm_max(k)``.  Counts one ``key_norm_max`` and one
+    ``vit_attention``."""
+    name = "vit_attention"
+    _check_vit(name, q, k, v)
+    B, S, H, D = q.shape
+    parts = key_norm_parts(B, S, H, D)
+    lib = _load()
+    dev = q.device
+    part = torch.empty((B, parts, H), dtype=torch.float32, device=dev)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    with torch.cuda.device(dev):
+        err = lib.mjv_vit_attention_op(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), part.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), B, S, H,
+            D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), parts, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(name, err)
+    launch_counts["key_norm_max"] += 1
     launch_counts[name] += 1
     if with_lse:
         launch_counts["vit_attention_lse"] += 1
@@ -317,12 +369,12 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       attention_mask: Optional[torch.Tensor],
                       kmax: torch.Tensor, q_offset: Optional[torch.Tensor],
                       scale: float, with_lse: bool = False):
-    """K2.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense heads;
-    attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32
-    (``key_norm_max``); q_offset: (B,) int32 or None (= 0).  Returns a
+    """K2 alone on a given kmax.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128)
+    bf16, dense heads; attention_mask: (B, K) int32 or None; kmax: (B, Hkv)
+    fp32 (``key_norm_max``); q_offset: (B,) int32 or None (= 0).  Returns a
     dense (B, Q, Hq, D) bf16 tensor, and with ``with_lse`` also the (B, Hq,
     Q) fp32 lse (1e30 on dead rows).  With the lse or without, it runs on
-    the wgmma/TMA template."""
+    the wgmma/TMA template; ``decoder_attention_op`` is the op."""
     name = "decoder_attention"
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset)
@@ -342,6 +394,44 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), float(scale), stream)
     _raise_on(name, err)
+    launch_counts[name] += 1
+    if with_lse:
+        launch_counts["decoder_attention_lse"] += 1
+    return (out, lse) if with_lse else out
+
+
+def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         attention_mask: Optional[torch.Tensor],
+                         q_offset: Optional[torch.Tensor], scale: float,
+                         with_lse: bool = False):
+    """The K2 op: its pre-pass's partial maxima of the masked key norms,
+    then K2 launched behind it as a programmatic dependent that folds them,
+    from one C call.  Operands and results as for ``decoder_attention``
+    without kmax; the output is bit-equal to ``decoder_attention`` on
+    ``key_norm_max(k, attention_mask)``.  Counts one ``key_norm_max`` and
+    one ``decoder_attention``."""
+    name = "decoder_attention"
+    mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
+                                       q_offset)
+    B, Q, Hq, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    parts = key_norm_parts(B, K, Hkv, D)
+    lib = _load()
+    dev = q.device
+    part = torch.empty((B, parts, Hkv), dtype=torch.float32, device=dev)
+    out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, Hq, Q), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    with torch.cuda.device(dev):
+        err = lib.mjv_decoder_attention_op(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, off_ptr,
+            part.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Q, K, Hq, Hkv, D,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), parts, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(name, err)
+    launch_counts["key_norm_max"] += 1
     launch_counts[name] += 1
     if with_lse:
         launch_counts["decoder_attention_lse"] += 1
@@ -373,14 +463,32 @@ def key_norm_cummax(k: torch.Tensor,
     return out
 
 
+def key_norm_parts(B: int, K: int, Hkv: int, D: int) -> int:
+    """How many partial maxima per (b, kv head) the K1/K2 pre-pass writes
+    for k of shape (B, K, Hkv, D): about KEY_NORM_CTAS CTAs over the
+    grid, each at least one pass of KEY_NORM_LOADS loads a thread (whole
+    keys), at most KEY_NORM_PARTS_MAX.  Raises where one pass cannot hold a
+    whole key (more than 64 heads of 128, or 128 of 64)."""
+    heads = KEY_NORM_THREADS * KEY_NORM_LOADS * 8 // D  # key vectors a pass
+    if Hkv > heads:
+        raise ValueError(f"key_norm_max: {Hkv} heads of {D} exceed one pass "
+                         f"of the pre-pass ({heads} heads)")
+    per = heads // Hkv  # whole keys a pass
+    return max(1, min(-(-KEY_NORM_CTAS // B), KEY_NORM_PARTS_MAX,
+                      -(-K // per)))
+
+
 def key_norm_max(k: torch.Tensor,
-                 attention_mask: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
-    """The pre-pass of K1 and K2 (and of their lse forms).  k: (B, K, Hkv,
-    D) bf16 with D 64 or 128, dense heads and free row strides (a view
-    into the ViT's qkv tensor, or a cache's slots); attention_mask: (B, K)
-    int32 or None.  Returns the (B, Hkv) fp32 largest norm of a live key
-    of each (b, kv head), 0 where none is live."""
+                 attention_mask: Optional[torch.Tensor] = None,
+                 parts: Optional[int] = None) -> torch.Tensor:
+    """The pre-pass of K1 and K2 (and of their lse forms) alone, as the ops
+    run it: its partial maxima over ``parts`` chunks of keys (the plan,
+    ``key_norm_parts``, by default; 1 <= parts <= K), then their fold, from
+    one C call.  k: (B, K, Hkv, D) bf16 with D 64 or 128, dense heads and
+    free row strides (a view into the ViT's qkv tensor, or a cache's
+    slots); attention_mask: (B, K) int32 or None.  Returns the (B, Hkv)
+    fp32 largest norm of a live key of each (b, kv head), 0 where none is
+    live."""
     name = "key_norm_max"
     # Built for the ViT's 64 and the decoder's 128.
     _check_qkv(name, k.shape[-1] if k.shape[-1] in (64, 128) else 128, k)
@@ -390,13 +498,18 @@ def key_norm_max(k: torch.Tensor,
         _check_aux(f"{name} mask", attention_mask, torch.int32, (B, K),
                    k.device)
         mask_ptr = attention_mask.data_ptr()
+    plan = key_norm_parts(B, K, Hkv, D)
+    parts = plan if parts is None else int(parts)
+    if not 1 <= parts <= K:
+        raise ValueError(f"{name}: parts={parts} must lie in [1, {K}]")
     lib = _load()
+    part = torch.empty((B, parts, Hkv), dtype=torch.float32, device=k.device)
     out = torch.empty((B, Hkv), dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mjv_key_norm_max(k.data_ptr(), mask_ptr, out.data_ptr(), B,
-                                   K, Hkv, D, k.stride(0), k.stride(1),
-                                   stream)
+        err = lib.mjv_key_norm_max(k.data_ptr(), mask_ptr, part.data_ptr(),
+                                   out.data_ptr(), B, K, Hkv, D, k.stride(0),
+                                   k.stride(1), parts, stream)
     _raise_on(name, err)
     launch_counts[name] += 1
     return out

@@ -19,7 +19,8 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   plain sums of ``exp(s - m) v`` and ``exp(s - m)`` with no running max.
   A row whose sum is 0 (every key masked) gives 0.  On the card both
   take ``kmax`` from the pre-pass kernel ``kernels.key_norm_max`` (its
-  twin ``key_norm_max``).  On the training path
+  twin ``key_norm_max``; one C call launches its partial pass and the
+  attention kernel, which folds the partials).  On the training path
   its instantiation with the lse (``_fwd_bound_kernel(with_lse=True)``)
   also returns the true log-sum-exp ``m + log(l)``, or ``DEAD_LSE`` where
   ``l == 0``, in the natural ``(B, Hq, Q)`` layout.
@@ -88,6 +89,28 @@ def key_norm_max(k: torch.Tensor,
     if attention_mask is not None:
         kn2 = kn2 * (attention_mask != 0)[:, :, None].float()
     return kn2.amax(dim=1).sqrt().contiguous()
+
+
+def key_norm_partials(k: torch.Tensor,
+                      attention_mask: Optional[torch.Tensor] = None,
+                      parts: int = 1) -> torch.Tensor:
+    """(B, parts, Hkv) fp32: the largest masked key norm of each chunk of
+    ceil(K / parts) keys, 0 for a chunk with no live key (or none at all).
+    Plain twin of the pre-pass kernel's partial pass; ``key_norm_fold`` of
+    it is ``key_norm_max`` to the bit (max is exact and sqrt monotone)."""
+    kn2 = k.float().square().sum(-1)  # (B, K, Hkv)
+    if attention_mask is not None:
+        kn2 = kn2 * (attention_mask != 0)[:, :, None].float()
+    B, K, Hkv = kn2.shape
+    chunk = -(-K // parts)
+    kn2 = torch.nn.functional.pad(kn2, (0, 0, 0, chunk * parts - K))
+    return kn2.reshape(B, parts, chunk, Hkv).amax(2).sqrt().contiguous()
+
+
+def key_norm_fold(partials: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv) fp32 kmax from ``key_norm_partials``: the fold that the
+    attention kernels (and the standalone pre-pass) take."""
+    return partials.amax(1).contiguous()
 
 
 def key_norm_cummax(k: torch.Tensor,
@@ -377,14 +400,13 @@ def vit_attention_backward(q, k, v, out, lse, dout, scale=None):
 
 def _vit_attention_fwd(q, k, v, scale, with_lse):
     """K1 (with or without the lse) on a CUDA tensor, its twin on a CPU
-    tensor.  On the card kmax comes from the pre-pass kernel
-    ``key_norm_max``, one launch before K1's."""
+    tensor.  On the card the op is one C call: the pre-pass's partial
+    maxima of the key norms, then K1, which folds them into kmax."""
     if q.device.type == "cpu":
         return vit_attention_plain(q, k, v, scale, return_lse=with_lse)
     from .. import kernels
 
-    return kernels.vit_attention(q, k, v, kernels.key_norm_max(k), scale,
-                                 with_lse=with_lse)
+    return kernels.vit_attention_op(q, k, v, scale, with_lse=with_lse)
 
 
 class _VitAttention(torch.autograd.Function):
@@ -431,17 +453,16 @@ def _int32_operands(attention_mask, q_offset):
 def _decoder_attention_fwd(q, k, v, attention_mask, q_offset, scale,
                            with_lse):
     """K2 (with or without the lse) on a CUDA tensor, its twin on a CPU
-    tensor.  On the card kmax comes from the pre-pass kernel
-    ``key_norm_max`` over the masked keys, one launch before K2's."""
+    tensor.  On the card the op is one C call: the pre-pass's partial
+    maxima of the masked key norms, then K2, which folds them into kmax."""
     if q.device.type == "cpu":
         return decoder_attention_plain(q, k, v, attention_mask, q_offset,
                                        scale, return_lse=with_lse)
     from .. import kernels
 
     attention_mask, q_offset = _int32_operands(attention_mask, q_offset)
-    kmax = kernels.key_norm_max(k, attention_mask)
-    return kernels.decoder_attention(q, k, v, attention_mask, kmax, q_offset,
-                                     scale, with_lse=with_lse)
+    return kernels.decoder_attention_op(q, k, v, attention_mask, q_offset,
+                                        scale, with_lse=with_lse)
 
 
 class _DecoderAttention(torch.autograd.Function):
