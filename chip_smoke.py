@@ -230,7 +230,9 @@ Phases (any failure raises and exits non-zero):
    at VARIANT_PADDED with kv_valid 1025 and the k/v rows past it zero),
    each against its twin to KERNEL_REL_TOL of max|plain| with its bound
    and ``F.scaled_dot_product_attention`` at the same shape, and printed
-   against K1's output (the Hopper template's).  Then the phase's path,
+   against K1's output (the Hopper template's); B1 and B2, which run that
+   template too (B3 the first WMMA one), with the device time of a launch
+   (``torch.profiler``).  Then the phase's path,
    the two harnesses, the
    counts set to 0 before each and held exactly after:
    ``tools/vit_attn_variants_torch.py`` (every kernel in turns,
@@ -338,7 +340,9 @@ PREPASS_REL_TOL = 1e-6
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_cummax_kernel", "key_norm_partial_kernel",
                 "key_norm_fold_kernel")
-SM90_INSTANTIATIONS = 18
+# The forward template's 5 main-path instantiations and B1's 4 and B2's 3,
+# the backward template's 6, the pre-passes' 4 and the int8 GEMM's 2.
+SM90_INSTANTIATIONS = 25
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -1559,6 +1563,12 @@ def check_variant_kernels(randn):
         print(f"  {label}: max|kernel - K1| {err:.3e} (K1's largest output "
               f"{k1.abs().max().item():.3f})")
 
+    def launch_time(label, reading, fn):
+        # B1 and B2 on the Hopper template: the device time of a launch.
+        reading["device_ms"] = device_ms(fn).get("attention")
+        print(f"  {label}: device time a launch "
+              f"{_ms(reading['device_ms'])} (the sm90 template)")
+
     readings = {}
     for mode in kernels.VARIANT_MODES:
         label = f"B1 vit_attention_variant {mode} {VARIANT_SHAPE}"
@@ -1567,6 +1577,8 @@ def check_variant_kernels(randn):
             lambda: va.variant_attention_plain(q, k, v, mode), work=work,
             library=library)
         against_k1(label, va.variant_attention(q, k, v, mode))
+        launch_time(label, readings["B1", mode],
+                    lambda: va.variant_attention(q, k, v, mode))
     for hp in kernels.TMAJOR_HP:
         label = f"B2 vit_attention_tmajor hp={hp} {VARIANT_SHAPE}"
         readings["B2", hp] = _check_kernel(
@@ -1574,6 +1586,8 @@ def check_variant_kernels(randn):
             lambda: va.tmajor_attention_plain(q, k, v), work=work,
             library=library)
         against_k1(label, va.tmajor_attention(q, k, v, hp=hp))
+        launch_time(label, readings["B2", hp],
+                    lambda: va.tmajor_attention(q, k, v, hp=hp))
     label = f"B3 vit_attention_bshd {VARIANT_SHAPE}"
     readings["B3", S] = _check_kernel(
         label, lambda: va.bshd_attention(q, k, v),
@@ -3285,8 +3299,8 @@ def main() -> int:
 
     def by_key(prefix, keys):
         return {str(key): {f: variant_k[prefix, key][f] for f in (
-            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
-            for key in keys}
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "device_ms") if f in variant_k[prefix, key]} for key in keys}
 
     hp = variant_out["block_hp"]
 
@@ -3495,21 +3509,28 @@ def main() -> int:
                  "device_ms_cold", "bound_share_cold", "library_ms_cold",
                  "bf16_matmul_ms", "bit_identical")}
              for sh in W4_SHAPES for M in W4_ROWS}},
-        # The A/B harnesses' kernels (phase 21): not on the main path.
+        # The A/B harnesses' kernels (phase 21): not on the main path.  B1
+        # and B2 run the sm90 forward template through
+        # vit_attention_variants.cu's entries, B3 that file's WMMA kernel.
         {"name": "vit_attention_variant", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "template": "sm90 (wgmma, TMA, online softmax)",
          "replaces": "benchmarks/vit_attn_variants.py:63",
          **ab_counts("vit_attention_variant"), "shape": VARIANT_SHAPE,
          "mode": "exp2", **variant_k["B1", "exp2"],
          "modes": by_key("B1", kernels.VARIANT_MODES)},
         {"name": "vit_attention_tmajor", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "template": "sm90 (wgmma, TMA, online softmax)",
          "replaces": "benchmarks/vit_attn_variants.py:150",
          **ab_counts("vit_attention_tmajor"), "shape": VARIANT_SHAPE,
          "hp": hp, **variant_k["B2", hp],
          "hps": by_key("B2", kernels.TMAJOR_HP)},
         {"name": "vit_attention_bshd", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "template": "WMMA, two walks",
          "replaces": "benchmarks/vit_layout_ab.py:72",
          **ab_counts("vit_attention_bshd"),
          "shape": VARIANT_SHAPE[:1] + (VARIANT_PADDED,) + VARIANT_SHAPE[2:],

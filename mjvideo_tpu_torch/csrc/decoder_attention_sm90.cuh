@@ -1,6 +1,7 @@
 // Attention forwards for Hopper (sm_90a): wgmma, TMA and a producer warp.
-// One template for seven kernels, chosen by the softmax's shift, the head
-// dim, the floor and whether an lse pointer is given:
+// One template for nine kernels, chosen by the softmax's shift, the head
+// dim, the floor, whether an lse pointer is given and, for the ViT A/B
+// harnesses' B1 and B2, the heads a CTA and the softmax's Variant:
 //   K3  (ShiftMode::kExact) replaces _fwd_kernel
 //       (mjvideo_tpu/ops/flash_attention.py:260, call :579), the exact
 //       online softmax, causal with a per-row q_offset or non-causal;
@@ -32,7 +33,18 @@
 //       p underflowed; the TPU's K1 writes m + log(1e-30) there, and either
 //       gives p = 0 in the backward).  m is the bound in nats and l the sum
 //       of the unrounded p (not of bf16(p)), so the backward kernels'
-//       exp(s - lse) is the normalised p that the twin forms.
+//       exp(s - lse) is the normalised p that the twin forms;
+//   B2  (kExact, D = 64, HP heads a CTA) replaces tmajor_impl
+//       (benchmarks/vit_attn_variants.py:150): K3's walk, non-causal and
+//       maskless, over HP adjacent heads of one q tile;
+//   B1  replaces variant_impl (benchmarks/vit_attn_variants.py:63), one
+//       Variant or ShiftMode per softmax mode: exp2 (kExact, kFoldQ: q
+//       times scale log2(e) in fp32, rounded to bf16, before the first
+//       product, so the scores are in log2 units), exp2_nomax (kZero,
+//       kFoldQ: p = 2^s, no max), nomax (kZero: p = e^(s scale)) and
+//       bf16s (kExact, kBf16s: t = bf16(s scale), m the running max of t,
+//       p = bf16(e^bf16(t - m)), the rescale in fp32).  B1 and B2 are the
+//       A/B harnesses' tools for K1's design, not a main path.
 // Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128 or 64,
 // with dense heads and 16-byte row strides (the ViT's q/k/v are strided
 // views into one (B, S, 3 H D) qkv tensor); GQA (q head h reads kv head
@@ -62,12 +74,12 @@
 // the grid's slow axis), with consumer warpgroups and one producer, which
 // gives its registers to them (setmaxnreg; at D = 128, 40 against 232 a
 // thread: at 168 each ptxas serializes the wgmmas and spills).
-// - The producer's first warp loads the q tile once, then each 128-key k
-//   and v tile by TMA (cp.async.bulk.tensor, 128-byte swizzle, one
-//   64-column box per 64 head columns) into a ring of stages with
-//   full/empty mbarriers; TMA's zero fill covers the ragged tail.  Beside
-//   each stage it writes the tile's key-liveness bits (mask and j < K,
-//   four ballots).
+// - The producer's first warp loads the q tile once, then each k and v
+//   tile (128 keys; 64 in B2's Configs) by TMA (cp.async.bulk.tensor,
+//   128-byte swizzle, one 64-column box per 64 head columns) into a ring
+//   of stages with full/empty mbarriers; TMA's zero fill covers the ragged
+//   tail.  Beside each stage it writes the tile's key-liveness bits (mask
+//   and j < K, one ballot per 32 keys).
 // - Each consumer warpgroup computes s = q k^T with D / 16
 //   wgmma.m64n128k16 from shared memory (both operands K-major), takes the
 //   softmax on the accumulator registers (the row max over a quad by two
@@ -112,6 +124,18 @@
 //   large, so a third warpgroup fits in the registers (160 a consumer
 //   thread) and keeps more softmax work in flight per SM, which measured
 //   faster than two (PERF.md).
+// - Heads a CTA (HP, B2 only, D = 64): the WG / HP warpgroups of each head
+//   take 64 of its q rows each; q is one box per head and each stage holds
+//   one 64-column k box and one v box per head under its one full/empty
+//   pair, so one producer and one ring serve HP heads.  The key tile is
+//   128 keys, or 64 where four consumer warpgroups leave 112 registers a
+//   thread (Regs<4>): the score tile and p halve.  Every main-path Config
+//   is one head a CTA and 128 keys a tile, and a kernel with the defaults
+//   (HP 1, 128 keys, Variant::kPlain) is the code it was before them.
+// - B1's q fold runs after the q box lands: each consumer warpgroup scales
+//   its own 64 rows in shared memory (elementwise, so the 128-byte swizzle
+//   does not matter), then fence.proxy.async and the warpgroup's named
+//   barrier order the stores before its first wgmma reads them.
 // - The lse costs one fp32 store per row (one lane of each quad) after the
 //   main loop, behind a branch uniform over the CTA: no instantiation of
 //   its own and nothing in the main loop.
@@ -138,7 +162,6 @@ namespace attention_sm90 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlockK = 128;  // keys per kv tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLog2eLo = 1.925963e-8f;  // log2(e) - kLog2e
 constexpr float kLn2 = 0.6931471805599453f;
@@ -150,10 +173,22 @@ enum class ShiftMode {
   kExact,   // K3: the running row max, with the rescale
   kRows,    // K2r: |scale| |q_i| kcum[b, kv head, pos_i]
   kKeyMax,  // K2, K1 and their lse forms: |scale| |q_i| kmax[b, kv head]
+  kZero,    // B1 nomax and exp2_nomax: no shift, no max, no rescale
+};
+
+// How the softmax departs from its ShiftMode's plain arithmetic (B1's
+// modes); every main-path kernel and B2 take kPlain.
+enum class Variant {
+  kPlain,
+  kFoldQ,  // q x scale (scale log2(e) from B1's entry) rounded to bf16 in
+           // shared memory; the scores are then in log2 units as they are
+  kBf16s,  // kExact at bf16s's rounding points (softmax_body)
 };
 
 // The registers a thread may hold after setmaxnreg, given the warpgroups:
-// the consumers take what the producer gives up (65,536 per SM, one CTA).
+// the consumers take what the producer gives up, and no more than the CTA
+// was given at launch (65,536 per SM, one CTA, in steps of 8 a thread), or
+// setmaxnreg.inc waits for ever.
 template <int WG>
 struct Regs;
 template <>
@@ -164,14 +199,26 @@ template <>
 struct Regs<3> {  // 3 x 128 x 160 + 128 x 32 = 65,536
   static constexpr int kConsumer = 160, kProducer = 32;
 };
+template <>
+struct Regs<4> {  // 4 x 128 x 112 + 128 x 32 = 61,440: 640 threads hold
+  static constexpr int kConsumer = 112, kProducer = 32;  // 96 at launch
+};
 
-template <int D, int WG, int STAGES>
+// HP heads a CTA (D = 64 only), each served by WG / HP consumer
+// warpgroups; BLOCK_K keys a kv tile.
+template <int D, int WG, int STAGES, int HP = 1, int BLOCK_K = 128>
 struct Config {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(HP == 1 || D == 64, "several heads a CTA at D = 64 only");
+  static_assert(WG % HP == 0, "whole warpgroups a head");
+  static_assert(BLOCK_K == 64 || BLOCK_K == 128, "64 or 128 keys a tile");
   static constexpr int kD = D;
+  static constexpr int kHeads = HP;
+  static constexpr int kBlockK = BLOCK_K;  // keys per kv tile
   static constexpr int kBoxes = D / 64;  // 64-column (128-byte) boxes
   static constexpr int kConsumerWarps = 4 * WG;
-  static constexpr int kBlockQ = 64 * WG;  // q rows per CTA
+  static constexpr int kHeadWG = WG / HP;  // consumer warpgroups a head
+  static constexpr int kBlockQ = 64 * WG / HP;  // q rows per head and CTA
   static constexpr int kThreads = (kConsumerWarps + 4) * 32;
   static constexpr int kStages = STAGES;
   static constexpr int kAcc = D / 2;  // o floats a thread (m64nD)
@@ -179,8 +226,9 @@ struct Config {
   static constexpr int kProducerRegs = Regs<WG>::kProducer;
   static constexpr uint32_t kQBox = kBlockQ * 128;  // bytes of one q box
   static constexpr uint32_t kKvBox = kBlockK * 128;
-  static constexpr uint32_t kQBytes = kBoxes * kQBox;
-  static constexpr uint32_t kKvBytes = kBoxes * kKvBox;
+  // Head j's boxes follow head j - 1's, in q and in each of k and v.
+  static constexpr uint32_t kQBytes = HP * kBoxes * kQBox;
+  static constexpr uint32_t kKvBytes = HP * kBoxes * kKvBox;
   static constexpr uint32_t kStageBytes = 2 * kKvBytes;  // k and v
   static constexpr uint32_t kBarOff = kQBytes + kStages * kStageBytes;
   // full[s], empty[s], q's and the folded bound's.
@@ -358,6 +406,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       : MJV_ACC32(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
+// The 64 x 64 x 16 step of q k^T for a 64-key tile.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MJV_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}"
+      : MJV_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 #undef MJV_ACC64
 #undef MJV_REGS64
@@ -376,27 +434,41 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// One tile's softmax on the score accumulator sc (m64n128 layout, below),
-// in place: sc becomes p.  K3: the running max m (log2 units) and sum l
-// are updated, alpha = exp2(m_old - m_new) is returned for the caller to
-// rescale o with; a row that has seen no live key keeps m = -inf and its
-// shift is taken as 0.  The bound shifts: m is the row's fixed shift,
-// alpha = 1; K2r's is in log2 units (one FMA per score), K2's and K1's in
-// nats with the twin's arithmetic (below).  Under a bound p is e^-13 or so
-// at the decoder's gaps, and a p that differs from the twin's by 1e-6
+// kBf16s: a pair of fp32 values rounded to bf16 and back, one conversion.
+__device__ __forceinline__ void round_bf16x2(float& a, float& b) {
+  const float2 f = __bfloat1622float2(__floats2bfloat162_rn(a, b));
+  a = f.x;
+  b = f.y;
+}
+
+// One tile's softmax on the score accumulator sc (m64nN layout, below; N
+// the tile's keys, 2 N / 4 floats a thread), in place: sc becomes p.  K3:
+// the running max m (log2 units) and sum l are updated, alpha = exp2(m_old
+// - m_new) is returned for the caller to rescale o with; a row that has
+// seen no live key keeps m = -inf and its shift is taken as 0.  The bound
+// shifts: m is the row's fixed shift, alpha = 1; K2r's is in log2 units
+// (one FMA per score), K2's and K1's in nats with the twin's arithmetic
+// (below); kZero has none (B1's unshifted modes).  Under a bound p is e^-13
+// or so at the decoder's gaps, and a p that differs from the twin's by 1e-6
 // (x log2(e) rounded once) rounds to the other bf16 often enough that the
 // 2B scores' bf16 noise moved past the SP bar of chip_smoke.py; at 2^-22
 // the kernel rounds p as the twin and the WMMA template did (PERF.md).
+// kFoldQ: the scores are already in log2 units (q carries scale log2(e)).
+// kBf16s: m is the running max of t = bf16(s scale) in nats, p = bf16(e^d)
+// with d = bf16(t - m), alpha = e^(m_old - m_new) in fp32; l sums the bf16
+// p.  Its twin takes every p against the row's final max: the two differ
+// only where an earlier max rounded d or p to another bf16.
 // MASKED: key 8 j + 2 c + e of the tile (this lane's bit 2 j + e of
 // `live`) is visible to row r when its bit is set and 8 j + e <= lim[r].
 // The two forms are separate code, chosen once per tile: a test per
 // element would put a branch around every exp.
-template <bool CAUSAL, ShiftMode SHIFT, bool MASKED>
-__device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
+template <bool CAUSAL, ShiftMode SHIFT, Variant VAR, bool MASKED, int N>
+__device__ __forceinline__ void softmax_body(float (&sc)[N], uint32_t live,
                                              const int (&lim)[2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float scale,
                                              float sl2) {
+  constexpr int kJ = N / 4;  // 8-key column blocks
   auto visible = [&](int j, int r, int e) {
     const bool bit = (live >> (2 * j + e)) & 1u;
     return CAUSAL ? bit & (8 * j + e <= lim[r]) : bit;
@@ -404,7 +476,7 @@ __device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
   if (SHIFT != ShiftMode::kExact) {
     alpha[0] = alpha[1] = 1.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kJ; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -421,6 +493,8 @@ __device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
             const float tl = fmaf(x, kLog2e, -t) + x * kLog2eLo;
             p = fast_exp2(t);
             p = fmaf(p, tl * kLn2, p);
+          } else if (SHIFT == ShiftMode::kZero) {
+            p = fast_exp2(VAR == Variant::kFoldQ ? s : s * sl2);
           } else {
             p = fast_exp2(fmaf(s, sl2, -m[r]));
           }
@@ -434,12 +508,19 @@ __device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kJ; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      if (VAR == Variant::kBf16s) {  // t = bf16(s scale), a pair at once
+        float* x = sc + 4 * j + 2 * r;
+        x[0] *= scale;
+        x[1] *= scale;
+        round_bf16x2(x[0], x[1]);
+      }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float x = sc[4 * j + 2 * r + e] * sl2;
+        float x = sc[4 * j + 2 * r + e];
+        if (VAR == Variant::kPlain) x *= sl2;  // kFoldQ: log2 units already
         if (MASKED) x = visible(j, r, e) ? x : -INFINITY;
         sc[4 * j + 2 * r + e] = x;
         mx[r] = fmaxf(mx[r], x);
@@ -452,15 +533,28 @@ __device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     const float m_new = fmaxf(m[r], mx[r]);
     const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    alpha[r] = fast_exp2(m[r] - m_use);
+    alpha[r] = VAR == Variant::kBf16s ? fast_exp2((m[r] - m_use) * kLog2e)
+                                      : fast_exp2(m[r] - m_use);
     m[r] = m_new;
     mx[r] = m_use;
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kJ; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      if (VAR == Variant::kBf16s) {  // d = bf16(t - m), p = bf16(e^d)
+        float* x = sc + 4 * j + 2 * r;
+        x[0] -= mx[r];
+        x[1] -= mx[r];
+        round_bf16x2(x[0], x[1]);
+        x[0] = fast_exp2(x[0] * kLog2e);
+        x[1] = fast_exp2(x[1] * kLog2e);
+        round_bf16x2(x[0], x[1]);
+        l[r] += x[0];
+        l[r] += x[1];
+        continue;
+      }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float p = fast_exp2(sc[4 * j + 2 * r + e] - mx[r]);
@@ -471,11 +565,11 @@ __device__ __forceinline__ void softmax_body(float (&sc)[64], uint32_t live,
   }
 }
 
-// The tile's softmax from its 128 liveness bits w (key kk of the tile is
-// bit kk % 32 of w[kk / 32]): the mask arithmetic only when `need`.
-template <bool CAUSAL, ShiftMode SHIFT>
-__device__ __forceinline__ void softmax_tile(float (&sc)[64],
-                                             const uint32_t (&w)[4],
+// The tile's softmax from its liveness bits w (key kk of the tile is bit
+// kk % 32 of w[kk / 32]): the mask arithmetic only when `need`.
+template <bool CAUSAL, ShiftMode SHIFT, Variant VAR, int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N],
+                                             const uint32_t (&w)[N / 16],
                                              bool need, int k0, int c,
                                              const int (&pos)[2],
                                              float (&m)[2], float (&l)[2],
@@ -483,17 +577,19 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
                                              float sl2) {
   if (!need) {
     const int lim[2] = {0, 0};
-    softmax_body<CAUSAL, SHIFT, false>(sc, 0u, lim, m, l, alpha, scale, sl2);
+    softmax_body<CAUSAL, SHIFT, VAR, false>(sc, 0u, lim, m, l, alpha, scale,
+                                            sl2);
     return;
   }
-  // This lane's 32 keys: 8 j + 2 c + e for j < 16, e < 2.
+  // This lane's 2 N / 4 keys: 8 j + 2 c + e for j < N / 4, e < 2.
   uint32_t live = 0;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     live |= ((w[j / 4] >> (8 * (j % 4) + 2 * c)) & 3u) << (2 * j);
   }
   const int lim[2] = {pos[0] - k0 - 2 * c, pos[1] - k0 - 2 * c};
-  softmax_body<CAUSAL, SHIFT, true>(sc, live, lim, m, l, alpha, scale, sl2);
+  softmax_body<CAUSAL, SHIFT, VAR, true>(sc, live, lim, m, l, alpha, scale,
+                                         sl2);
 }
 
 // Accumulator layout of wgmma m64nN (per warpgroup): warp w holds rows
@@ -504,7 +600,10 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
 // bound: kcum (B, Hkv, K) under kRows, the partial maxima (B, nparts, Hkv)
 // of kmax under kKeyMax (nparts = 1: kmax itself).
 // lse: (B, Hq, Q) fp32 or null, written under kKeyMax and kExact.
-template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR>
+// Heads h .. h + HP - 1 of a CTA read kv heads hk .. hk + HP - 1 (HP > 1
+// only where Hq = Hkv).  scale: kFoldQ's fold factor, else the scores'.
+template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR,
+          Variant VAR = Variant::kPlain>
 __global__ void __launch_bounds__(C::kThreads, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -514,7 +613,16 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
                       const int* __restrict__ q_offset,
                       bf16* __restrict__ out, float* __restrict__ lse,
                       int Q, int K, int Hq, int Hkv, float scale) {
+  static_assert(VAR != Variant::kBf16s || SHIFT == ShiftMode::kExact,
+                "bf16s rounds kExact's softmax");
+  static_assert(VAR != Variant::kFoldQ || SHIFT == ShiftMode::kExact ||
+                    SHIFT == ShiftMode::kZero,
+                "a bound shift reads the unfolded |q|");
   constexpr bool kFixed = SHIFT != ShiftMode::kExact;
+  constexpr bool kBound =
+      SHIFT == ShiftMode::kKeyMax || SHIFT == ShiftMode::kRows;
+  constexpr int kBlockK = C::kBlockK;
+  constexpr int kWords = kBlockK / 32;  // liveness words a tile
   constexpr int kStages = C::kStages;
   constexpr int kConsumerWarps = C::kConsumerWarps;
   extern __shared__ uint8_t smem_raw[];
@@ -529,8 +637,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
   float* kmax_smem =
       reinterpret_cast<float*>(smem_raw + (base - raw) + C::kBoundOff);
 
-  const int h = blockIdx.x % Hq;
-  const int b = blockIdx.x / Hq;
+  const int h = (blockIdx.x % (Hq / C::kHeads)) * C::kHeads;  // the first
+  const int b = blockIdx.x / (Hq / C::kHeads);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBlockQ;  // heaviest first
   const int hk = h / (Hq / Hkv);
   const int off = (CAUSAL && q_offset != nullptr) ? q_offset[b] : 0;
@@ -580,8 +688,9 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       mbar_expect_tx(q_bar, C::kQBytes);
 #pragma unroll
-      for (int box = 0; box < C::kBoxes; ++box) {
-        tma_load(&tq, sq + box * C::kQBox, q_bar, 64 * box, q0, h, b);
+      for (int box = 0; box < C::kHeads * C::kBoxes; ++box) {
+        tma_load(&tq, sq + box * C::kQBox, q_bar, 64 * (box % C::kBoxes), q0,
+                 h + box / C::kBoxes, b);
       }
     }
     for (int t = 0; t < n_kv; ++t) {
@@ -590,9 +699,9 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(bar + 8 * (kStages + s), (t / kStages - 1) & 1);
       }
       const int k0 = t * kBlockK;
-      uint32_t words[4];
+      uint32_t words[kWords];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < kWords; ++r) {
         const int j = k0 + 32 * r + lane;
         const bool live =
             j < K && (mask == nullptr || mask[(long long)b * K + j] != 0);
@@ -600,31 +709,36 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
       }
       if (lane == 0) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) bits[4 * s + r] = words[r];
+        for (int r = 0; r < kWords; ++r) bits[4 * s + r] = words[r];
         const uint32_t full = bar + 8 * s;
         const uint32_t sk = base + C::kQBytes + s * C::kStageBytes;
         const uint32_t sv = sk + C::kKvBytes;
         mbar_expect_tx(full, C::kStageBytes);
 #pragma unroll
-        for (int box = 0; box < C::kBoxes; ++box) {
-          tma_load(&tk, sk + box * C::kKvBox, full, 64 * box, k0, hk, b);
-          tma_load(&tv, sv + box * C::kKvBox, full, 64 * box, k0, hk, b);
+        for (int box = 0; box < C::kHeads * C::kBoxes; ++box) {
+          const int col = 64 * (box % C::kBoxes), hb = hk + box / C::kBoxes;
+          tma_load(&tk, sk + box * C::kKvBox, full, col, k0, hb, b);
+          tma_load(&tv, sv + box * C::kKvBox, full, col, k0, hb, b);
         }
       }
     }
     return;
   }
 
-  // The consumers: warpgroup wg owns q rows 64 wg .. 64 wg + 63.
+  // The consumers: warpgroup wg owns q rows 64 wq .. 64 wq + 63 of head
+  // h + head (HP = 1: wq = wg, head 0).
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::kConsumerRegs));
   const int wg = warp / 4;
+  const int head = C::kHeads == 1 ? 0 : wg / C::kHeadWG;
+  const int wq = C::kHeads == 1 ? wg : wg % C::kHeadWG;
   const int g = lane / 4;
   const int c = lane % 4;
-  const int row0 = 64 * wg + 16 * (warp % 4) + g;  // and row0 + 8
+  const int row0 = 64 * wq + 16 * (warp % 4) + g;  // and row0 + 8
   int pos[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) pos[r] = off + q0 + row0 + 8 * r;
-  const int warp_first = off + q0 + 64 * wg + 16 * (warp % 4);
+  const int warp_first = off + q0 + 64 * wq + 16 * (warp % 4);
+  const uint32_t sq_head = sq + head * C::kBoxes * C::kQBox;
 
   float o[C::kAcc];
 #pragma unroll
@@ -639,7 +753,35 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
   float qn[2] = {0.f, 0.f};
   if (n_kv > 0) {
     mbar_wait(q_bar, 0);
-    if (kFixed) {
+    if (VAR == Variant::kFoldQ) {
+      // B1's exp2 modes: this warpgroup's 64 rows of q times scale log2(e)
+      // in fp32, rounded to bf16 in place (elementwise: the swizzle only
+      // moves 16-byte chunks within a row), then made visible to the async
+      // proxy that wgmma reads shared memory through, before this
+      // warpgroup's first product.
+      const uint32_t rows = sq_head + wq * 64 * 128;
+#pragma unroll
+      for (int i = 0; i < 4 * C::kBoxes; ++i) {
+        const uint32_t addr = rows + (i / 4) * C::kQBox +
+                              (threadIdx.x % 128 + 128 * (i % 4)) * 16;
+        uint32_t w4[4];
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(w4[0]), "=r"(w4[1]), "=r"(w4[2]), "=r"(w4[3])
+                     : "r"(addr));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w4[e]));
+          w4[e] = pack_bf16(f.x * scale, f.y * scale);
+        }
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+                     "r"(w4[0]), "r"(w4[1]), "r"(w4[2]), "r"(w4[3])
+                     : "memory");
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    }
+    if (kBound) {
       // |q_row| from the swizzled q tile: lane c reads 16-byte chunks c
       // and c + 4 of each box; the quad's four sums make the row's.  K2r
       // sums in fp32 and takes its shift in log2 units.  K2 and K1 sum the
@@ -658,7 +800,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int ch = c; ch < 8; ch += 4) {
             const uint32_t addr =
-                sq + box * C::kQBox + R * 128 + ((ch ^ (R & 7)) * 16);
+                sq_head + box * C::kQBox + R * 128 + ((ch ^ (R & 7)) * 16);
             uint32_t w4[4];
             asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
                          : "=r"(w4[0]), "=r"(w4[1]), "=r"(w4[2]), "=r"(w4[3])
@@ -691,9 +833,12 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     const uint64_t dq =
-        make_desc(sq + wg * 64 * 128, 16, 1024);  // this warpgroup's rows
+        make_desc(sq_head + wq * 64 * 128, 16, 1024);  // this warpgroup's rows
+    // This warpgroup's head's k box in tile t's stage (its v box is
+    // kKvBytes further).
     auto stage_k = [&](int t) {
-      return base + C::kQBytes + (t % kStages) * C::kStageBytes;
+      return base + C::kQBytes + (t % kStages) * C::kStageBytes +
+             head * C::kBoxes * C::kKvBox;
     };
     auto full_bar = [&](int t) { return bar + 8 * (t % kStages); };
     auto empty_bar = [&](int t) { return bar + 8 * (kStages + t % kStages); };
@@ -701,26 +846,31 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_bar(t));
     };
-    float sc[64];
-    uint32_t pa[32];
+    float sc[kBlockK / 2];
+    uint32_t pa[kBlockK / 4];
     float alpha[2];
     // Tile t's softmax on sc, in place, from the stage's liveness bits.
     auto softmax = [&](int t) {
       const uint32_t* wb = bits + 4 * (t % kStages);
-      uint32_t w[4];
+      uint32_t w[kWords];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) w[r] = wb[r];
+      for (int r = 0; r < kWords; ++r) w[r] = wb[r];
       const int k0 = t * kBlockK;
+      uint32_t all = w[0];
+#pragma unroll
+      for (int r = 1; r < kWords; ++r) all &= w[r];
       // Mask arithmetic only where some key is masked or past K, or the
       // tile reaches past this warp's first row.
-      const bool need = (w[0] & w[1] & w[2] & w[3]) != 0xffffffffu ||
+      const bool need = all != 0xffffffffu ||
                         (CAUSAL && k0 + kBlockK - 1 > warp_first);
-      softmax_tile<CAUSAL, SHIFT>(sc, w, need, k0, c, pos, m, l, alpha,
-                                  scale, sl2);
+      softmax_tile<CAUSAL, SHIFT, VAR>(sc, w, need, k0, c, pos, m, l, alpha,
+                                       scale, sl2);
     };
     auto pack = [&]() {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      for (int i = 0; i < kBlockK / 4; ++i) {
+        pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      }
     };
     auto issue_qk = [&](int t) {
       const uint64_t dk = make_desc(stage_k(t), 16, 1024);
@@ -741,7 +891,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
       const uint64_t dv =
           make_desc(stage_k(t) + C::kKvBytes, C::kKvBox, 1024);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
         // 16 keys of v: 16 rows of 128 bytes.
         wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                  pa[4 * kk + 3], dv + ((kk * 16 * 128) >> 4));
@@ -806,7 +956,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int R = q0 + row0 + 8 * r;
     if (R >= Q) continue;  // the q tail: TMA's zero rows
-    if (SHIFT != ShiftMode::kRows && lse != nullptr && c == 0) {
+    if (SHIFT != ShiftMode::kRows && SHIFT != ShiftMode::kZero &&
+        lse != nullptr && c == 0) {
       // Dead first: a CTA that walked no tile keeps m = -inf and l = 0.
       // kKeyMax: m is the bound in nats.  kExact: m is the row max in log2
       // units, taken to nats with a split ln 2 (one product misses by up to
@@ -819,7 +970,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
           v = fmaf(m[r], kLn2, m[r] * kLn2Lo) + logf(l[r]);
         }
       }
-      lse[((long long)b * Hq + h) * Q + R] = v;
+      lse[((long long)b * Hq + h + head) * Q + R] = v;
     }
     float inv;
     if (FLOOR) {
@@ -827,7 +978,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     } else {
       inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
     }
-    bf16* orow = out + (((long long)b * Q + R) * Hq + h) * C::kD + 2 * c;
+    bf16* orow =
+        out + (((long long)b * Q + R) * Hq + h + head) * C::kD + 2 * c;
 #pragma unroll
     for (int j = 0; j < C::kD / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
@@ -934,8 +1086,11 @@ inline cudaError_t launch_dependent(const void* kernel, dim3 grid, dim3 block,
 // kExact; q_offset read only when CAUSAL; lse: a (B, Hq, Q) fp32 output or
 // null, taken under kKeyMax and kExact.  dependent: launch with
 // programmatic stream serialization, behind the pre-pass that writes
-// bound (the fused entries only).  Returns a cudaError_t.
-template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR = false>
+// bound (the fused entries only).  A Config of HP heads a CTA takes Hq =
+// Hkv, a multiple of HP; kZero and the Variants write no lse.  Returns a
+// cudaError_t.
+template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR = false,
+          Variant VAR = Variant::kPlain>
 int launch_attention(const void* q, const void* k, const void* v,
                      const void* mask, const void* bound, int nparts,
                      const void* q_offset, void* out, void* lse, int B, int Q,
@@ -946,21 +1101,26 @@ int launch_attention(const void* q, const void* k, const void* v,
   if (lse != nullptr && SHIFT == ShiftMode::kRows) {
     return int(cudaErrorInvalidValue);
   }
+  if ((lse != nullptr &&
+       (SHIFT == ShiftMode::kZero || VAR != Variant::kPlain)) ||
+      Hq % C::kHeads != 0 || (C::kHeads > 1 && Hq != Hkv)) {
+    return int(cudaErrorInvalidValue);
+  }
   // Only the bound's partials come from a pre-pass to wait for.
   if (nparts < 1 || (dependent && SHIFT != ShiftMode::kKeyMax)) {
     return int(cudaErrorInvalidValue);
   }
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, q, Q, Hq, B, qss, qsb, C::kD, C::kBlockQ) ||
-      !encode_map(&tk, k, K, Hkv, B, kss, ksb, C::kD, kBlockK) ||
-      !encode_map(&tv, v, K, Hkv, B, vss, vsb, C::kD, kBlockK)) {
+      !encode_map(&tk, k, K, Hkv, B, kss, ksb, C::kD, C::kBlockK) ||
+      !encode_map(&tv, v, K, Hkv, B, vss, vsb, C::kD, C::kBlockK)) {
     return int(cudaErrorInvalidValue);
   }
-  auto kernel = attention_kernel<C, CAUSAL, SHIFT, FLOOR>;
-  cudaError_t err =
-      open_smem<attention_kernel<C, CAUSAL, SHIFT, FLOOR>>(int(C::kSmemBytes));
+  auto kernel = attention_kernel<C, CAUSAL, SHIFT, FLOOR, VAR>;
+  cudaError_t err = open_smem<attention_kernel<C, CAUSAL, SHIFT, FLOOR, VAR>>(
+      int(C::kSmemBytes));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(Hq * B, (Q + C::kBlockQ - 1) / C::kBlockQ);
+  const dim3 grid(Hq / C::kHeads * B, (Q + C::kBlockQ - 1) / C::kBlockQ);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mask_i = static_cast<const int*>(mask);
   const float* bound_f = static_cast<const float*>(bound);

@@ -15,101 +15,99 @@
 // ViT makes of its qkv product), the output dense (B, S, H, 64), which is
 // B3's (B, S, H * D).  The TPU kernels pad the keys to a multiple of 8 with
 // zeros and subtract the pad's mass from l; here the keys at or past
-// kv_valid (S for B1 and B2) are staged as zeros and given p = 0, the same
-// function.
+// kv_valid (S for B1 and B2) are zeros or never read and get p = 0, the
+// same function.
 //
 // What bounds it on this card: at (8, 1025, 16, 64) bf16 the two products
 // are 34.4 GFLOP against 50.4 MB of q/k/v in and 16.8 MB out, so the work
 // is compute-bound (0.0348 ms at 989 TFLOP/s, 0.0201 ms at 3.35 TB/s).
-// The TPU kernels take the row max in one step over a whole kv row held in
-// VMEM; an SM cannot hold 1025
-// keys' fp32 scores for 64 rows cheaply, so the modes with a max (exp2,
-// bf16s, B2, B3) walk the keys twice: a first pass of q k^T takes each
-// row's exact max, a second recomputes the scores and accumulates p and
-// p v.  Every p is then computed against the final max, at the twin's
-// rounding points, with no rescale of the accumulator: the kernel differs
-// from its twin only in the fp32 order of the sums.  The price is a third
-// product (1.5x K1's tensor-core work); the unshifted modes walk once.
 //
-// Design (first, simple version), K1's (bound_attention.cuh): WMMA 16x16x16
-// bf16 fragments with fp32 accumulation, 64-key tiles staged through shared
-// memory with 16-byte loads, 16 q rows per warp, the exp pass lane j on
-// keys j and j + 32 of each row.  A CTA serves HP adjacent heads of one
-// (b, BQ-row q tile): it stages each k/v row of its head group as one
-// HP * 128-byte burst, and its HP * BQ / 16 warps each take 16 rows of one
-// head.  Shared memory: 53 KB at (HP, BQ) = (1, 64), 106 KB at (2, 64), and
-// 142 KB at (4, 32), where the q tile is halved (as the TPU version shrank
-// block_q) to keep 8 warps; that gives 4, 2 and 1 CTAs per SM.
-// Later work: the online max (one walk), wgmma, TMA and a producer warp.
+// B1 and B2 run the wgmma/TMA forward template of
+// decoder_attention_sm90.cuh, K1's (design there), each walking the keys
+// once: B2 is K3's online softmax (ShiftMode::kExact) at D = 64 with hp
+// heads a CTA (a Config per hp below); B1's modes are the template's
+// policies: exp2 = kExact with q folded in shared memory (Variant::kFoldQ),
+// exp2_nomax = kZero with the fold, nomax = kZero, bf16s = kExact at the
+// twin's bf16 rounding points (Variant::kBf16s).  Under a max each p is
+// taken against the running max and rescaled, where the twin takes it
+// against the final max: they differ in fp32 rounding, and in bf16s where
+// an earlier max rounds d or p to another bf16.  A launch that fails
+// returns its error; nothing falls back.
+//
+// B3 still runs the first template (K1's old one, bound_attention.cuh):
+// WMMA 16x16x16 bf16 fragments with fp32 accumulation, 64-key tiles staged
+// through shared memory with 16-byte loads, 16 q rows per warp and 64 a
+// CTA, the exp pass lane j on keys j and j + 32 of each row, and two walks
+// over the keys: a first pass of q k^T takes each row's exact max, a second
+// recomputes the scores and accumulates p against it (53 KB of shared
+// memory and at most 128 registers a thread: 4 CTAs per SM).
 #include <math_constants.h>
 
 #include "bound_attention.cuh"
+#include "decoder_attention_sm90.cuh"
 
 namespace {
 
+namespace sm90 = mjv::attention_sm90;
 using mjv::bf16;
+using sm90::ShiftMode;
+using sm90::Variant;
 namespace wmma = nvcuda::wmma;
 
-enum class Mode : int {
-  kExp2 = 0,       // B1 "exp2"
-  kBf16s = 1,      // B1 "bf16s"
-  kNoMax = 2,      // B1 "nomax"
-  kExp2NoMax = 3,  // B1 "exp2_nomax"
-  kExact = 4,      // B2, B3: exp(s * scale - max), l floored at 1e-30
-};
+// The Configs (consumer warpgroups, stages, heads a CTA, keys a tile),
+// chosen by A/B on the card (tools/vit_attn_variants_torch.py --configs,
+// PERF.md).  B1: K1's, the fastest for every mode.  B2: one key tile for
+// every hp, so that each row walks the same tiles and every hp gives the
+// same bits; hp 4's four warpgroups have registers for 64-key tiles only
+// (Regs<4>), so 64 for all, the fastest warpgroups and stages of each hp
+// at that tile (hp 1 at 128 keys, K1's grid, measured 5% faster).
+using VariantConfig = sm90::D64;
+using Hp1 = sm90::Config<64, 3, 3, 1, 64>;
+using Hp2 = sm90::Config<64, 4, 4, 2, 64>;
+using Hp4 = sm90::Config<64, 4, 3, 4, 64>;
 
-__host__ __device__ constexpr bool folds_q(Mode m) {
-  return m == Mode::kExp2 || m == Mode::kExp2NoMax;
-}
-__host__ __device__ constexpr bool takes_max(Mode m) {
-  return m == Mode::kExp2 || m == Mode::kBf16s || m == Mode::kExact;
+// B1 or B2 over all S keys; scale as the template's (kFoldQ: the fold).
+template <class C, ShiftMode SHIFT, Variant VAR = Variant::kPlain>
+int launch_sm90(const void* q, const void* k, const void* v, void* out,
+                int B, int S, int H, long long qsb, long long qss,
+                long long ksb, long long kss, long long vsb, long long vss,
+                float scale, void* stream) {
+  return sm90::launch_attention<C, false, SHIFT, false, VAR>(
+      q, k, v, nullptr, nullptr, 1, nullptr, out, nullptr, B, S, S, H, H, qsb,
+      qss, ksb, kss, vsb, vss, scale, stream);
 }
 
+// B3's first template.
 constexpr int kD = 64;
 constexpr int kBlockK = 64;
+constexpr int kBlockQ = 64;
+constexpr int kWarps = kBlockQ / 16;
+constexpr int kThreads = kWarps * 32;
 constexpr int kLdT = kD + 8;       // bf16 q/k/v tile rows, padded
 constexpr int kLdS = kBlockK + 4;  // fp32 score rows, padded
 constexpr int kLdP = kBlockK + 8;  // bf16 p rows, padded
+constexpr size_t kSmemQ = size_t(kBlockQ) * kLdT * sizeof(bf16);
+constexpr size_t kSmemK = size_t(kBlockK) * kLdT * sizeof(bf16);
+constexpr size_t kSmemS = size_t(kWarps) * 16 * kLdS * sizeof(float);
+constexpr size_t kSmemP = size_t(kWarps) * 16 * kLdP * sizeof(bf16);
+constexpr size_t kSmemBytes = kSmemQ + 2 * kSmemK + kSmemS + kSmemP;
 
-template <int HP, int BQ>
-struct VSmem {
-  static constexpr int kWarps = HP * BQ / 16;
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr size_t kQ = size_t(HP) * BQ * kLdT * sizeof(bf16);
-  static constexpr size_t kK = size_t(HP) * kBlockK * kLdT * sizeof(bf16);
-  static constexpr size_t kS = size_t(kWarps) * 16 * kLdS * sizeof(float);
-  static constexpr size_t kP = size_t(kWarps) * 16 * kLdP * sizeof(bf16);
-  static constexpr size_t kBytes = kQ + 2 * kK + kS + kP;
-};
-
-// Copy rows [r0, r0 + ROWS) of HP adjacent heads (src points at head 0 of
-// the group; row stride `stride` elements) into HP (ROWS, kD) shared tiles,
-// head j at dst + j * ROWS * kLdT.  Neighbouring threads read neighbouring
-// 16 bytes of one row's HP * kD contiguous elements.  Rows at or past
-// `rows_total` are zero-filled.  FOLD multiplies each element by `fold` in
-// fp32 and rounds it back to bf16 (B1's exp2 modes, on the q tile).
-template <int ROWS, int HP, int NT, bool FOLD>
-__device__ __forceinline__ void stage_heads(bf16* dst, const bf16* src,
-                                            long long stride, int r0,
-                                            int rows_total, float fold) {
+// Copy rows [r0, r0 + ROWS) of one head (row stride `stride` elements)
+// into a (ROWS, kD) shared tile.  Neighbouring threads read neighbouring
+// 16 bytes of a row.  Rows at or past `rows_total` are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long long stride, int r0,
+                                           int rows_total) {
   constexpr int kVec = kD / 8;  // 16-byte vectors per head row
-  for (int idx = threadIdx.x; idx < ROWS * HP * kVec; idx += NT) {
-    const int r = idx / (HP * kVec);
-    const int j = (idx / kVec) % HP;
+  for (int idx = threadIdx.x; idx < ROWS * kVec; idx += kThreads) {
+    const int r = idx / kVec;
     const int c = (idx % kVec) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < rows_total) {
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride +
-                                            j * kD + c);
-      if (FOLD) {
-        bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          e[i] = __float2bfloat16(__bfloat162float(e[i]) * fold);
-        }
-      }
+      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
     }
-    *reinterpret_cast<uint4*>(dst + (j * ROWS + r) * kLdT + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * kLdT + c) = val;
   }
 }
 
@@ -132,104 +130,60 @@ __device__ __forceinline__ void warp_scores(const bf16* Qw, const bf16* Kt,
   }
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// The logit a mode takes its max of and exponentiates: the raw score for
-// the exp2 modes (q carries the scale), bf16(s * scale) for bf16s, s *
-// scale otherwise.
-template <Mode MODE>
-__device__ __forceinline__ float logit(float s, float scale) {
-  if (folds_q(MODE)) return s;
-  if (MODE == Mode::kBf16s) return round_bf16(s * scale);
-  return s * scale;
-}
-
-// p of a live key from its logit x and the row's max m.
-template <Mode MODE>
-__device__ __forceinline__ float prob(float x, float m) {
-  switch (MODE) {
-    case Mode::kExp2:
-      return exp2f(x - m);
-    case Mode::kExp2NoMax:
-      return exp2f(x);
-    case Mode::kBf16s:  // s - m and exp(s - m) each rounded to bf16
-      return round_bf16(expf(round_bf16(x - m)));
-    case Mode::kNoMax:
-      return expf(x);
-    default:
-      return expf(x - m);
-  }
-}
-
-// One CTA per (BQ-row q tile, group of HP heads, b).  `scale` is the fold
-// factor scale * log2(e) for the exp2 modes and the score scale otherwise.
-template <Mode MODE, int HP, int BQ>
-__global__ void __launch_bounds__(VSmem<HP, BQ>::kThreads)
+// B3: one CTA per (64-row q tile, head, b); p = exp(s * scale - max), l
+// floored at 1e-30.  Four CTAs an SM (53 KB of shared memory each): at most
+// 128 registers a thread.
+__global__ void __launch_bounds__(kThreads, 4)
 variant_attention_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ out,
                          int S, int H, int kv_valid, long long qsb,
                          long long qss, long long ksb, long long kss,
                          long long vsb, long long vss, float scale) {
-  using SM = VSmem<HP, BQ>;
-  constexpr int NT = SM::kThreads;
-  constexpr int W = BQ / 16;  // warps per head
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::kQ);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::kQ + SM::kK);
-  float* Ss = reinterpret_cast<float*>(smem + SM::kQ + 2 * SM::kK);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + SM::kQ + 2 * SM::kK + SM::kS);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + kSmemQ);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + kSmemQ + kSmemK);
+  float* Ss = reinterpret_cast<float*>(smem + kSmemQ + 2 * kSmemK);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + kSmemQ + 2 * kSmemK + kSmemS);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int j = warp / W;  // this warp's head within the group
-  const int q0 = blockIdx.x * BQ;
-  const int h0 = blockIdx.y * HP;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int rw = (warp % W) * 16;  // this warp's first row in the q tile
+  const int rw = warp * 16;  // this warp's first row in the q tile
 
-  const bf16* Qw = Qs + (j * BQ + rw) * kLdT;
-  const bf16* Kj = Ks + j * kBlockK * kLdT;
-  const bf16* Vj = Vs + j * kBlockK * kLdT;
+  const bf16* Qw = Qs + rw * kLdT;
   float* Sw = Ss + warp * 16 * kLdS;
   bf16* Pw = Ps + warp * 16 * kLdP;
-  const bf16* kb = k + b * ksb + h0 * kD;
-  const bf16* vb = v + b * vsb + h0 * kD;
+  const bf16* kb = k + b * ksb + h * kD;
+  const bf16* vb = v + b * vsb + h * kD;
 
-  stage_heads<BQ, HP, NT, folds_q(MODE)>(Qs, q + b * qsb + h0 * kD, qss, q0,
-                                         S, scale);
+  stage_rows<kBlockQ>(Qs, q + b * qsb + h * kD, qss, q0, S);
   const int n_kv = (kv_valid + kBlockK - 1) / kBlockK;
 
-  // Pass 1 (the modes with a max): each row's exact max over its live
-  // keys, held by every lane.  kv_valid >= 1, so every m ends finite.
+  // Pass 1: each row's exact max over its live keys, held by every lane.
+  // kv_valid >= 1, so every m ends finite.
   float m[16];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m[r] = takes_max(MODE) ? -CUDART_INF_F : 0.f;
-  }
-  if (takes_max(MODE)) {
-    for (int t = 0; t < n_kv; ++t) {
-      const int k0 = t * kBlockK;
-      __syncthreads();  // every warp is done with the previous k tile
-      stage_heads<kBlockK, HP, NT, false>(Ks, kb, kss, k0, kv_valid, 0.f);
-      __syncthreads();
-      warp_scores(Qw, Kj, Sw);
-      __syncwarp();
+  for (int r = 0; r < 16; ++r) m[r] = -CUDART_INF_F;
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * kBlockK;
+    __syncthreads();  // every warp is done with the previous k tile
+    stage_rows<kBlockK>(Ks, kb, kss, k0, kv_valid);
+    __syncthreads();
+    warp_scores(Qw, Ks, Sw);
+    __syncwarp();
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        float x = -CUDART_INF_F;
+    for (int r = 0; r < 16; ++r) {
+      float x = -CUDART_INF_F;
 #pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {
-          const int c = lane + 32 * h2;
-          if (k0 + c < kv_valid) {
-            x = fmaxf(x, logit<MODE>(Sw[r * kLdS + c], scale));
-          }
-        }
-        m[r] = fmaxf(m[r], mjv::warp_max(x));
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int c = lane + 32 * h2;
+        if (k0 + c < kv_valid) x = fmaxf(x, Sw[r * kLdS + c] * scale);
       }
+      m[r] = fmaxf(m[r], mjv::warp_max(x));
     }
   }
 
@@ -243,20 +197,19 @@ variant_attention_kernel(const bf16* __restrict__ q,
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * kBlockK;
     __syncthreads();  // every warp is done with the previous k/v tile
-    stage_heads<kBlockK, HP, NT, false>(Ks, kb, kss, k0, kv_valid, 0.f);
-    stage_heads<kBlockK, HP, NT, false>(Vs, vb, vss, k0, kv_valid, 0.f);
+    stage_rows<kBlockK>(Ks, kb, kss, k0, kv_valid);
+    stage_rows<kBlockK>(Vs, vb, vss, k0, kv_valid);
     __syncthreads();
-    warp_scores(Qw, Kj, Sw);
+    warp_scores(Qw, Ks, Sw);
     __syncwarp();
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         const int c = lane + 32 * h2;
-        const float p =
-            k0 + c < kv_valid
-                ? prob<MODE>(logit<MODE>(Sw[r * kLdS + c], scale), m[r])
-                : 0.f;
+        const float p = k0 + c < kv_valid
+                            ? expf(Sw[r * kLdS + c] * scale - m[r])
+                            : 0.f;
         l[r] += p;
         Pw[r * kLdP + c] = __float2bfloat16(p);
       }
@@ -270,7 +223,7 @@ variant_attention_kernel(const bf16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < kD / 16; ++n) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, Vj + kk * 16 * kLdT + n * 16, kLdT);
+        wmma::load_matrix_sync(bm, Vs + kk * 16 * kLdT + n * 16, kLdT);
         wmma::mma_sync(o_frag[n], a, bm, o_frag[n]);
       }
     }
@@ -283,14 +236,11 @@ variant_attention_kernel(const bf16* __restrict__ q,
                             wmma::mem_row_major);
   }
   __syncwarp();
-  const int h = h0 + j;
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    float lr = mjv::warp_sum(l[r]);
+    const float lr = fmaxf(mjv::warp_sum(l[r]), 1e-30f);
     const int qi = q0 + rw + r;
     if (qi >= S) continue;
-    // B1 divides by l as it is (the TPU kernels do); B2 and B3 floor it.
-    if (MODE == Mode::kExact) lr = fmaxf(lr, 1e-30f);
     bf16* orow = out + (((long long)b * S + qi) * H + h) * kD;
     for (int c = lane; c < kD; c += 32) {
       orow[c] = __float2bfloat16(Sw[r * kLdS + c] / lr);
@@ -298,29 +248,11 @@ variant_attention_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <Mode MODE, int HP, int BQ>
-int launch_variant(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int kv_valid, long long qsb,
-                   long long qss, long long ksb, long long kss, long long vsb,
-                   long long vss, float scale, void* stream) {
-  using SM = VSmem<HP, BQ>;
-  auto kernel = variant_attention_kernel<MODE, HP, BQ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SM::kBytes));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((S + BQ - 1) / BQ, H / HP, B);
-  kernel<<<grid, SM::kThreads, SM::kBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, kv_valid,
-      qsb, qss, ksb, kss, vsb, vss, scale);
-  return int(cudaGetLastError());
-}
-
 }  // namespace
 
 // B1.  mode: 0 exp2, 1 bf16s, 2 nomax, 3 exp2_nomax (kernels.VARIANT_MODES);
-// scale: scale * log2(e) for the exp2 modes, the score scale otherwise.
+// scale: scale * log2(e) for the exp2 modes (the fold), the score scale
+// otherwise.
 extern "C" int mjv_vit_attention_variant(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int H, int D, long long qsb, long long qss, long long ksb, long long kss,
@@ -328,21 +260,17 @@ extern "C" int mjv_vit_attention_variant(
   if (D != kD) return int(cudaErrorInvalidValue);
   switch (mode) {
     case 0:
-      return launch_variant<Mode::kExp2, 1, 64>(q, k, v, out, B, S, H, S, qsb,
-                                                qss, ksb, kss, vsb, vss,
-                                                scale, stream);
+      return launch_sm90<VariantConfig, ShiftMode::kExact, Variant::kFoldQ>(
+          q, k, v, out, B, S, H, qsb, qss, ksb, kss, vsb, vss, scale, stream);
     case 1:
-      return launch_variant<Mode::kBf16s, 1, 64>(q, k, v, out, B, S, H, S,
-                                                 qsb, qss, ksb, kss, vsb, vss,
-                                                 scale, stream);
+      return launch_sm90<VariantConfig, ShiftMode::kExact, Variant::kBf16s>(
+          q, k, v, out, B, S, H, qsb, qss, ksb, kss, vsb, vss, scale, stream);
     case 2:
-      return launch_variant<Mode::kNoMax, 1, 64>(q, k, v, out, B, S, H, S,
-                                                 qsb, qss, ksb, kss, vsb, vss,
-                                                 scale, stream);
+      return launch_sm90<VariantConfig, ShiftMode::kZero>(
+          q, k, v, out, B, S, H, qsb, qss, ksb, kss, vsb, vss, scale, stream);
     case 3:
-      return launch_variant<Mode::kExp2NoMax, 1, 64>(q, k, v, out, B, S, H, S,
-                                                     qsb, qss, ksb, kss, vsb,
-                                                     vss, scale, stream);
+      return launch_sm90<VariantConfig, ShiftMode::kZero, Variant::kFoldQ>(
+          q, k, v, out, B, S, H, qsb, qss, ksb, kss, vsb, vss, scale, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -356,24 +284,20 @@ extern "C" int mjv_vit_attention_tmajor(
   if (D != kD || hp < 1 || H % hp) return int(cudaErrorInvalidValue);
   switch (hp) {
     case 1:
-      return launch_variant<Mode::kExact, 1, 64>(q, k, v, out, B, S, H, S,
-                                                 qsb, qss, ksb, kss, vsb, vss,
-                                                 scale, stream);
+      return launch_sm90<Hp1, ShiftMode::kExact>(
+          q, k, v, out, B, S, H, qsb, qss, ksb, kss, vsb, vss, scale, stream);
     case 2:
-      return launch_variant<Mode::kExact, 2, 64>(q, k, v, out, B, S, H, S,
-                                                 qsb, qss, ksb, kss, vsb, vss,
-                                                 scale, stream);
+      return launch_sm90<Hp2, ShiftMode::kExact>(
+          q, k, v, out, B, S, H, qsb, qss, ksb, kss, vsb, vss, scale, stream);
     case 4:
-      return launch_variant<Mode::kExact, 4, 32>(q, k, v, out, B, S, H, S,
-                                                 qsb, qss, ksb, kss, vsb, vss,
-                                                 scale, stream);
+      return launch_sm90<Hp4, ShiftMode::kExact>(
+          q, k, v, out, B, S, H, qsb, qss, ksb, kss, vsb, vss, scale, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
 }
 
-// B3 over the keys below kv_valid (1 <= kv_valid <= S).  It shares B2's
-// hp = 1 instantiation: what it adds to K1 is the exact max and kv_valid.
+// B3 over the keys below kv_valid (1 <= kv_valid <= S).
 extern "C" int mjv_vit_attention_bshd(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int H, int D, long long qsb, long long qss, long long ksb, long long kss,
@@ -381,7 +305,15 @@ extern "C" int mjv_vit_attention_bshd(
   if (D != kD || kv_valid < 1 || kv_valid > S) {
     return int(cudaErrorInvalidValue);
   }
-  return launch_variant<Mode::kExact, 1, 64>(q, k, v, out, B, S, H, kv_valid,
-                                             qsb, qss, ksb, kss, vsb, vss,
-                                             scale, stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      variant_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(kSmemBytes));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  variant_attention_kernel<<<grid, kThreads, kSmemBytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, kv_valid,
+      qsb, qss, ksb, kss, vsb, vss, scale);
+  return int(cudaGetLastError());
 }

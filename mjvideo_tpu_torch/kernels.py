@@ -825,7 +825,7 @@ def _variant_launch(name: str, entry: str, q, k, v, scale: float,
     """Checks and launch shared by B1, B2 and B3: q/k/v (B, S, H, 64) bf16
     of one shape with dense heads (row strides free); ``last`` is the
     entry's mode, hp or kv_valid.  Returns a dense (B, S, H, D) bf16
-    tensor."""
+    tensor.  A launch the C entry refuses or that fails raises."""
     _check_qkv(name, 64, q, k, v)
     B, S, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -845,11 +845,13 @@ def _variant_launch(name: str, entry: str, q, k, v, scale: float,
 
 def vit_attention_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mode: str, scale: float) -> torch.Tensor:
-    """B1.  q/k/v: (B, S, H, 64) bf16 with dense heads (row strides free);
-    ``mode`` one of VARIANT_MODES.  Returns a dense (B, S, H, D) bf16
-    tensor.  The unshifted modes (``nomax``, ``exp2_nomax``) overflow once
-    |s * scale| passes 88 (exp) or 128 / log2(e) (exp2): they are for the
-    harness only, on inputs whose logits stay far below that."""
+    """B1 on the wgmma/TMA forward template (one walk over the keys, each
+    mode a policy of it).  q/k/v: (B, S, H, 64) bf16 with dense heads (row
+    strides free); ``mode`` one of VARIANT_MODES.  Returns a dense (B, S,
+    H, D) bf16 tensor.  The unshifted modes (``nomax``, ``exp2_nomax``)
+    overflow once |s * scale| passes 88 (exp) or 128 / log2(e) (exp2):
+    they are for the harness only, on inputs whose logits stay far below
+    that."""
     name = "vit_attention_variant"
     if mode not in VARIANT_MODES:
         raise ValueError(f"{name}: mode must be one of {VARIANT_MODES}, got "
@@ -863,8 +865,9 @@ def vit_attention_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def vit_attention_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          hp: int, scale: float) -> torch.Tensor:
-    """B2: the exact row max with ``hp`` adjacent heads per CTA (one of
-    TMAJOR_HP, dividing H).  Operands and result as for
+    """B2: the exact online softmax of the wgmma/TMA forward template with
+    ``hp`` adjacent heads per CTA (one of TMAJOR_HP, dividing H; one kv
+    ring serves them).  Operands and result as for
     ``vit_attention_variant``."""
     name = "vit_attention_tmajor"
     if hp not in TMAJOR_HP or q.shape[2] % hp:
@@ -877,8 +880,9 @@ def vit_attention_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def vit_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_valid: Optional[int], scale: float) -> torch.Tensor:
     """B3: the exact row max over the keys below ``kv_valid`` (None: all
-    S).  Operands as for ``vit_attention_variant``; returns the dense
-    output viewed as (B, S, H * D)."""
+    S), on the first (WMMA, two-walk) template.  Operands as for
+    ``vit_attention_variant``; returns the dense output viewed as (B, S,
+    H * D)."""
     name = "vit_attention_bshd"
     S = q.shape[1]
     kv_valid = S if kv_valid is None else int(kv_valid)

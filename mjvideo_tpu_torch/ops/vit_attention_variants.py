@@ -8,8 +8,8 @@ Counterpart of the three Pallas kernels under ``benchmarks/``:
   softmax attention in one of four softmax modes (``VARIANT_MODES``):
 
   - ``"exp2"``: q is scaled by ``scale * log2(e)`` in fp32 and rounded to
-    q's dtype before the product (the kernel does it while it stages the q
-    tile), ``p = exp2(s - max s)``;
+    q's dtype before the product (the kernel does it in shared memory
+    once the q tile lands), ``p = exp2(s - max s)``;
   - ``"bf16s"``: ``s * scale`` is rounded to bf16, m is the bf16 row max,
     ``s - m`` and ``p = exp(s - m)`` are each rounded to bf16, and l is
     summed in fp32 from the bf16 p;
@@ -40,8 +40,12 @@ B3's twin is ``exact_attention_plain`` (non-causal, over the keys below
 at 1e-30 never acts.
 
 For a CPU tensor each dispatcher computes the twin; for a CUDA tensor it
-launches the hand-written kernel (``csrc/vit_attention_variants.cu``) or
-raises.  None has a backward: on a CUDA tensor that needs a gradient each
+launches the hand-written kernel or raises: B1 and B2 run the wgmma/TMA
+forward template (``csrc/decoder_attention_sm90.cuh``, through
+``csrc/vit_attention_variants.cu``), which walks the keys once with a
+running max and a rescale where the twins take every p against the final
+max (they differ in fp32 rounding, and in ``"bf16s"`` where an earlier max
+rounds d or p to another bf16); B3 runs that file's first (WMMA) kernel.  None has a backward: on a CUDA tensor that needs a gradient each
 refuses the call (``kernels.forward_only``).
 """
 

@@ -179,10 +179,12 @@ def test_k4_sources_run_on_the_hopper_backward_template():
     bwd = sum(_instantiations((csrc / f).read_text())
               for f in ("vit_attention_bwd.cu", "decoder_attention_bwd.cu"))
     assert bwd == 6
-    # The forward template's 5, key_norm_max's partial pass 2 and fold 1,
+    # The forward template's 5 of the main paths and the A/B variants'
+    # (B1's modes and B2's hp), key_norm_max's partial pass 2 and fold 1,
     # key_norm_cummax's 1, the int8 GEMM's 2 and K6's pre-pass 1
     # (chip_smoke.py's SM90_KERNELS).
+    variants = len(kernels.VARIANT_MODES) + len(kernels.TMAJOR_HP)
     smoke = (REPO / "chip_smoke.py").read_text()
     want = re.search(r"^SM90_INSTANTIATIONS = (\d+)$", smoke, re.M)
     assert want is not None and int(want.group(1)) == (
-        5 + 2 + 1 + 1 + 2 + 1 + bwd)
+        5 + variants + 2 + 1 + 1 + 2 + 1 + bwd)
