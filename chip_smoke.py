@@ -76,13 +76,19 @@ Phases (any failure raises and exits non-zero):
 7. Training time: TRAIN_TIMED_STEPS more micro-steps; the median of those
    that only accumulate and of those that also step the optimizer.
 8. (Run with phases 2 and 3, before the paths.)  K3 (the exact softmax)
-   and K2r (the per-row bound; the op, its pre-pass and kernel) against
-   their twins at the InternVL2-2B judge's shapes (JUDGE_SHAPES: the
-   pair's left-padded full-prompt prefill with dead rows exactly 0, one
+   and K2r (the per-row bound; the op: one C call of its pre-pass, chunk
+   partials and a scan, and K2r behind them as programmatic dependents)
+   against their twins at the InternVL2-2B judge's shapes (JUDGE_SHAPES:
+   the pair's left-padded full-prompt prefill with dead rows exactly 0, one
    video's prefix prefill, and the suffix continuation over the cache at
    q_offset 2,308), then K2r's pre-pass against its twin (to
-   PREPASS_REL_TOL) and K2r's kernel alone on the pre-pass's column; each
-   with the share of its bound reached.  The kernels K2, K3 and K2r alone,
+   PREPASS_REL_TOL, with its device time a launch by kernel), its last
+   column bit-equal to ``key_norm_max`` and its first P columns to the
+   pre-pass of the keys cut at P (JUDGE_PREFIX and K // 2 + 1, so other
+   chunk plans than the whole one's), and K2r's kernel alone on the
+   pre-pass's column, the op bit-equal to it and a second launch of the op
+   bit-identical; each with the share of its bound reached.  The kernels
+   K2, K3 and K2r alone,
    the K2 and K2r ops and ``F.scaled_dot_product_attention`` (the same-run
    yardstick), K2 with the lse alone and its op (the pre-pass and K2 with
    the lse) and K3 with the lse, timed in turns at (2, 3072, 16/8, 128),
@@ -91,8 +97,9 @@ Phases (any failure raises and exits non-zero):
    bit-identical between a prefix-only and a full-prompt prefill of the
    same bf16 q/k/v.  Phase 1 also prints the registers and spills that
    ptxas reports for the Hopper templates' instantiations (attention
-   forward and backward, the int8 GEMM and K6's pre-pass) and the 3 bound
-   pre-passes, and fails if one spills or is missing.
+   forward and backward, the int8 GEMM and K6's pre-pass) and the 5
+   kernels of the bound pre-passes, and fails if one spills or is
+   missing.
 9. The judge: an ``InternVLJudge`` on a 2B chat state with the LM head
    (random bf16 weights from a fresh generator at SEED, 64 new tokens,
    seeded 8-frame 448 px pixels in place of decoded videos) answers a pair
@@ -230,9 +237,10 @@ Phases (any failure raises and exits non-zero):
    at VARIANT_PADDED with kv_valid 1025 and the k/v rows past it zero),
    each against its twin to KERNEL_REL_TOL of max|plain| with its bound
    and ``F.scaled_dot_product_attention`` at the same shape, and printed
-   against K1's output (the Hopper template's); B1 and B2, which run that
-   template too (B3 the first WMMA one), with the device time of a launch
-   (``torch.profiler``).  Then the phase's path,
+   against K1's output (the Hopper template's); each, on that template
+   too, with the device time of a launch (``torch.profiler``), and B3
+   bit-equal to B2 at hp 1 on q, k and v cut at kv_valid.  Then the
+   phase's path,
    the two harnesses, the
    counts set to 0 before each and held exactly after:
    ``tools/vit_attn_variants_torch.py`` (every kernel in turns,
@@ -322,10 +330,9 @@ BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12     # outside the tensor cores
 # The bound pre-passes against their twins, max|delta| over max|plain|:
-# K2r's (the running max of masked key norms) sums the squares in fp32 in
-# another order than torch's, about 10x an H100's reading; K1's and K2's
-# (key_norm_max) sums them exactly in double, which the twin's fp32 sum
-# lies within about an ulp of.
+# K1's and K2's (key_norm_max) and K2r's (key_norm_cummax, the running max
+# of masked key norms) sum the squares exactly in double, which the twins'
+# fp32 sums in torch's order lie within about an ulp of.
 PREPASS_REL_TOL = 1e-6
 # The kernels of the Hopper templates (decoder_attention_sm90.cuh, namespace
 # mjv::attention_sm90; attention_bwd_sm90.cuh, mjv::attention_bwd_sm90;
@@ -334,15 +341,17 @@ PREPASS_REL_TOL = 1e-6
 # instantiations (K3 causal and not, with the lse or without; K2r; K2 with
 # the lse or without; K1 likewise), the backward 6 (K4 nc dK/dV and dQ at
 # D = 64; K4a dK/dV and K4b dQ at D = 128, each causal and non-causal),
-# key_norm_max's partial pass 2 (D = 64 and 128) and its fold 1,
-# key_norm_cummax 1, the int8 GEMM 2 (bf16 or fp32 out) and K6's pre-pass
-# 1.
+# the key-norm partial pass 3 (key_norm_max's at D = 64 and 128, and
+# key_norm_cummax's, which also stores each key's norm), key_norm_max's
+# fold 1, key_norm_cummax's scan 1, the int8 GEMM 2 (bf16 or fp32 out) and
+# K6's pre-pass 1.
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
-                "key_norm_cummax_kernel", "key_norm_partial_kernel",
+                "key_norm_scan_kernel", "key_norm_partial_kernel",
                 "key_norm_fold_kernel")
-# The forward template's 5 main-path instantiations and B1's 4 and B2's 3,
-# the backward template's 6, the pre-passes' 4 and the int8 GEMM's 2.
-SM90_INSTANTIATIONS = 25
+# The forward template's 5 main-path instantiations and B1's 4 and B2's 3
+# (B3 is B2's hp 1), the backward template's 6, the pre-passes' 5 and the
+# int8 GEMM's 2.
+SM90_INSTANTIATIONS = 26
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -475,7 +484,7 @@ def _nbytes(*ts):
 def _kernel_group(name):
     """A short name for a kernel as the profiler names it."""
     for part, short in (("key_norm_partial", "partial pass"),
-                        ("key_norm_fold", "fold"),
+                        ("key_norm_fold", "fold"), ("key_norm_scan", "scan"),
                         ("quantize_rows", "pre-pass"), ("q8g_gemm", "gemm"),
                         ("attention_kernel", "attention")):
         if part in name:
@@ -516,12 +525,13 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
-def _hold_op(label, op_fn, alone_fn):
-    """A K1 or K2 op (one C call: the pre-pass's partial pass, then the
-    attention kernel folding the partials behind a programmatic dependent
-    launch) against the kernel alone on the standalone pre-pass's kmax:
-    every output bit-equal, and a second launch of the op bit-identical.
-    Prints the reading, raises on a difference, returns it."""
+def _hold_op(label, op_fn, alone_fn, bound="kmax"):
+    """A K1, K2 or K2r op (one C call: the pre-pass, then the attention
+    kernel behind it as a programmatic dependent) against the kernel alone
+    on the standalone pre-pass's ``bound`` (K1's and K2's kmax, K2r's
+    kcum): every output bit-equal, and a second launch of the op
+    bit-identical.  Prints the reading, raises on a difference, returns
+    it."""
     import torch
 
     def run(fn):
@@ -533,7 +543,8 @@ def _hold_op(label, op_fn, alone_fn):
     same = all(torch.equal(a, b) for a, b in zip(got, alone))
     twice = all(torch.equal(a, b) for a, b in zip(got, again))
     print(f"{label}: the op bit-equal to the kernel alone on the standalone "
-          f"kmax: {same}; a second launch of the op bit-identical: {twice}")
+          f"{bound}: {same}; a second launch of the op bit-identical: "
+          f"{twice}")
     if not (same and twice):
         raise RuntimeError(f"{label}: op against the kernel alone {same}, "
                            f"a second launch {twice}")
@@ -1020,9 +1031,15 @@ def _judge_inputs(randn, shape):
 
 
 def check_judge_kernels(randn, name, shape):
-    """K3 and K2r (the op: its pre-pass and its kernel) against their twins
-    on one set of inputs, then K2r's two parts apart: the pre-pass against
-    its twin and the kernel alone on the pre-pass's column."""
+    """K3 and K2r (the op: its pre-pass and its kernel, one C call) against
+    their twins on one set of inputs, then K2r's parts apart: the pre-pass
+    against its twin, with its device time a launch by kernel, its last
+    column bit-equal to ``key_norm_max`` and its first P columns to the
+    pre-pass of the keys cut at P (JUDGE_PREFIX, and K // 2 + 1: other
+    chunk plans), and the kernel alone on the pre-pass's column, which the
+    op must equal bit for bit."""
+    import torch
+
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
@@ -1053,19 +1070,50 @@ def check_judge_kernels(randn, name, shape):
         return (f"{rel:.3e} of max|plain| (bound {PREPASS_REL_TOL:.0e})",
                 rel <= PREPASS_REL_TOL, {})
 
-    kcum = fa.key_norm_cummax(k, mask)
-    readings["K2r pre-pass"] = _check_kernel(
+    kcum = kernels.key_norm_cummax(k, mask)
+    B, K, Hkv, D = k.shape
+    reading = _check_kernel(
         f"K2r pre-pass key_norm_cummax {label}",
         lambda: kernels.key_norm_cummax(k, mask),
         lambda: fa.key_norm_cummax(k, mask), names=("kcum",),
         extra=prepass_rule,
         work=(_nbytes(k, mask, kcum), 2 * k.numel(), FP32_OPS_PER_S))
+    dev = device_ms(lambda: kernels.key_norm_cummax(k, mask))
+    reading.update(device_ms=sum(dev.values()) or None,
+                   partial_device_ms=dev.get("partial pass"),
+                   scan_device_ms=dev.get("scan"),
+                   parts=kernels.key_norm_parts(B, K, Hkv, D))
+    last = bool(torch.equal(kcum[..., -1], kernels.key_norm_max(k, mask)))
+    prefixes = {}
+    for P in (JUDGE_PREFIX, K // 2 + 1):
+        cut = kernels.key_norm_cummax(k[:, :P], mask[:, :P].contiguous())
+        prefixes[P] = bool(torch.equal(cut, kcum[..., :P]))
+    reading.update(last_column_is_key_norm_max=last, prefix_bit_equal={
+        str(P): same for P, same in prefixes.items()})
+    print(f"K2r pre-pass key_norm_cummax {label}: device time a launch "
+          f"{_ms(reading['device_ms'])} (partial pass "
+          f"{_ms(reading['partial_device_ms'])}, scan "
+          f"{_ms(reading['scan_device_ms'])}; {reading['parts']} chunks per "
+          f"(b, kv head)); the last column bit-equal to key_norm_max: "
+          f"{last}; the first P columns bit-equal to the pre-pass of k cut "
+          "at P: " + ", ".join(
+              f"P {P} ({kernels.key_norm_parts(B, P, Hkv, D)} chunks) {same}"
+              for P, same in prefixes.items()))
+    if not (last and all(prefixes.values())):
+        raise RuntimeError(f"K2r pre-pass {label}: last column {last}, "
+                           f"prefixes {prefixes}")
+    readings["K2r pre-pass"] = reading
     readings["K2r kernel"] = _check_kernel(
         f"K2r decoder_attention_rows (kernel alone) {label}",
         lambda: kernels.decoder_attention_rows(q, k, v, mask, kcum, off,
                                                scale),
         lambda: fa.decoder_attention_rows_plain(q, k, v, mask, off),
         zero=zero, work=work, library=library)
+    readings["K2r op"] = _hold_op(
+        f"K2r op {label}",
+        lambda: fa.decoder_attention_rows(q, k, v, mask, off),
+        lambda: kernels.decoder_attention_rows(q, k, v, mask, kcum, off,
+                                               scale), bound="kcum")
     return readings
 
 
@@ -1096,10 +1144,12 @@ def time_shifts_in_turns(randn, rounds=10):
     judge's prefill inputs, K2 (global bound), K3 (exact) and K2r (per-row
     bound), launched directly with their bounds reduced beforehand, the K2
     and K2r ops (each pre-pass and kernel), K2 with the lse alone and its
-    op, K3 with the lse, and ``F.scaled_dot_product_attention`` (the
-    same-run yardstick), timed in turns (K2, K3, K2r, K2 op, K2r op, K2
-    lse, K2 lse op, K3 lse, SDPA, then back) by CUDA events; returns the
-    medians in ms."""
+    op, K3 with the lse, the two pre-passes alone and
+    ``F.scaled_dot_product_attention`` (the same-run yardstick), timed in
+    turns (K2, K3, K2r, K2 op, K2r op, K2 lse, K2 lse op, K3 lse, the
+    pre-passes, SDPA, then back) by CUDA events; returns the medians in
+    ms, with the device times by kernel of the K2 and K2r ops, kernels and
+    pre-passes."""
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
@@ -1122,6 +1172,7 @@ def time_shifts_in_turns(randn, rounds=10):
         "K3 lse": lambda: kernels.exact_attention(q, k, v, mask, None, scale,
                                                   with_lse=True),
         "pre-pass": lambda: kernels.key_norm_max(k, mask),
+        "K2r pre-pass": lambda: kernels.key_norm_cummax(k, mask),
         "SDPA": _sdpa(q, k, v, causal=True),
     }
     order = list(runs) + list(runs)[::-1]
@@ -1133,7 +1184,8 @@ def time_shifts_in_turns(randn, rounds=10):
                       if n != "SDPA")
           + f"; K2 lse/K2 {med['K2 lse'] / med['K2']:.3f}, K2 lse op/K2 op "
           f"{med['K2 lse op'] / med['K2 op']:.3f})")
-    _op_device_times(med, runs, ("K2 op", "K2 lse op", "K2", "pre-pass"),
+    _op_device_times(med, runs, ("K2 op", "K2 lse op", "K2", "pre-pass",
+                                 "K2r op", "K2r", "K2r pre-pass"),
                      JUDGE_SHAPES["prefill"][:6])
     return med
 
@@ -1540,8 +1592,11 @@ def check_variant_kernels(randn):
     """Phase 21's checks: B1 in each mode, B2 at each hp and B3 (at S, and
     pre-padded to VARIANT_PADDED with kv_valid S) against their twins on
     views into one qkv tensor; each also printed against K1's output on
-    the same q/k/v.  Returns each one's reading by ("B1", mode), ("B2", hp)
-    and ("B3", S)."""
+    the same q/k/v, and B3 held bit-equal to B2 at hp 1 on its live keys.
+    Returns each one's reading by ("B1", mode), ("B2", hp) and ("B3",
+    S)."""
+    import torch
+
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
     from mjvideo_tpu_torch.ops import vit_attention_variants as va
@@ -1564,10 +1619,22 @@ def check_variant_kernels(randn):
               f"{k1.abs().max().item():.3f})")
 
     def launch_time(label, reading, fn):
-        # B1 and B2 on the Hopper template: the device time of a launch.
+        # B1-B3 on the Hopper template: the device time of a launch.
         reading["device_ms"] = device_ms(fn).get("attention")
         print(f"  {label}: device time a launch "
               f"{_ms(reading['device_ms'])} (the sm90 template)")
+
+    def against_b2(label, reading, q, k, v, kv):
+        # B3 is B2's hp 1 walk over the first kv keys: its rows below kv
+        # equal B2 hp 1's on q, k and v cut there, bit for bit.
+        got = va.bshd_attention(q, k, v, kv).view(q.shape)[:, :kv]
+        want = va.tmajor_attention(q[:, :kv], k[:, :kv], v[:, :kv], hp=1)
+        same = bool(torch.equal(got, want))
+        reading["bit_equal_to_b2_hp1"] = same
+        print(f"  {label}: rows below kv_valid bit-equal to B2 hp=1 on q, "
+              f"k, v cut at {kv}: {same}")
+        if not same:
+            raise RuntimeError(f"{label}: not B2 hp=1's bits")
 
     readings = {}
     for mode in kernels.VARIANT_MODES:
@@ -1593,6 +1660,8 @@ def check_variant_kernels(randn):
         label, lambda: va.bshd_attention(q, k, v),
         lambda: va.bshd_attention_plain(q, k, v), work=work, library=library)
     against_k1(label, va.bshd_attention(q, k, v))
+    against_b2(label, readings["B3", S], q, k, v, S)
+    launch_time(label, readings["B3", S], lambda: va.bshd_attention(q, k, v))
     del q, k, v, library
     # The JAX harness's form: the token axis pre-padded to a multiple of 8,
     # k and v rows zero past S.
@@ -1608,6 +1677,9 @@ def check_variant_kernels(randn):
         work=_attention_work(q, kl, vl, None, causal=False),
         library=_sdpa(q, kl, vl, causal=False))
     against_k1(label, va.bshd_attention(q, k, v, S))
+    against_b2(label, readings["B3", VARIANT_PADDED], q, k, v, S)
+    launch_time(label, readings["B3", VARIANT_PADDED],
+                lambda: va.bshd_attention(q, k, v, S))
     return readings
 
 
@@ -3455,14 +3527,24 @@ def main() -> int:
          **counts("decoder_attention_rows"), "shape": judged,
          **judge_k["prefill"]["K2r"], "kernel_ms_in_turns": turns["K2r"],
          "op_ms_in_turns": turns["K2r op"],
+         "op_device_ms": turns["K2r op device_ms"],
+         "kernel_device_ms": turns["K2r device_ms"],
          "kernel_alone": brief(judge_k["prefill"]["K2r kernel"]),
+         "op_against_kernel_alone": judge_k["prefill"]["K2r op"],
          "at_shapes": {n: brief(r["K2r"]) for n, r in judge_k.items()}},
         # K2r's pre-pass, its bound column (the XLA reduce of the TPU path).
         {"name": "key_norm_cummax", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
          "replaces": "mjvideo_tpu/ops/flash_attention.py:489",
+         "design": "the partial pass storing each key's norm and its "
+                   "chunk's max, plain stores; a scan per (chunk, b) as its "
+                   "programmatic dependent; K2r launched behind the scan",
          **counts("key_norm_cummax"), "shape": judged,
-         **judge_k["prefill"]["K2r pre-pass"]},
+         **judge_k["prefill"]["K2r pre-pass"],
+         "ms_in_turns": turns["K2r pre-pass"],
+         "at_shapes": {n: brief(r["K2r pre-pass"]) | {f: r["K2r pre-pass"][
+             f] for f in ("device_ms", "partial_device_ms", "scan_device_ms",
+                          "parts")} for n, r in judge_k.items()}},
         {"name": "q8g_matmul_fused", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
@@ -3509,9 +3591,9 @@ def main() -> int:
                  "device_ms_cold", "bound_share_cold", "library_ms_cold",
                  "bf16_matmul_ms", "bit_identical")}
              for sh in W4_SHAPES for M in W4_ROWS}},
-        # The A/B harnesses' kernels (phase 21): not on the main path.  B1
-        # and B2 run the sm90 forward template through
-        # vit_attention_variants.cu's entries, B3 that file's WMMA kernel.
+        # The A/B harnesses' kernels (phase 21): not on the main path.  B1,
+        # B2 and B3 run the sm90 forward template through
+        # vit_attention_variants.cu's entries.
         {"name": "vit_attention_variant", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
          "entry": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
@@ -3529,8 +3611,10 @@ def main() -> int:
          "hp": hp, **variant_k["B2", hp],
          "hps": by_key("B2", kernels.TMAJOR_HP)},
         {"name": "vit_attention_bshd", "route": "cuda",
-         "source": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
-         "template": "WMMA, two walks",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/vit_attention_variants.cu",
+         "template": "sm90 (wgmma, TMA, online softmax): B2's hp 1 over "
+                     "kv_valid keys",
          "replaces": "benchmarks/vit_layout_ab.py:72",
          **ab_counts("vit_attention_bshd"),
          "shape": VARIANT_SHAPE[:1] + (VARIANT_PADDED,) + VARIANT_SHAPE[2:],

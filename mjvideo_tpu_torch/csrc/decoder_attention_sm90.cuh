@@ -15,7 +15,8 @@
 //         m_i = |scale| |q_i| kcum[b, h // G, clip(q_offset + i, 0, K - 1)]
 //       with kcum the running max of masked key norms along K (a
 //       (B, Hkv, K) fp32 array written by the pre-pass key_norm_cummax of
-//       decoder_attention.cu, the XLA reduce of the TPU path);
+//       decoder_attention.cu, the XLA reduce of the TPU path: partials and
+//       a scan, which K2r's op launches K2r behind);
 //   K2  (kKeyMax, D = 128) replaces _fwd_bound_kernel (flash_attention.py
 //       :318, host side :484-511): causal, the same constant shift with one
 //       bound per (b, kv head), m_i = |scale| |q_i| kmax[b, h // G], kmax
@@ -60,8 +61,8 @@
 // the two products are about 72 GFLOP over the live causal pairs (0.073
 // ms at 989 TFLOP/s) on 13 MB of operands; at the ViT's (8, 1025, 16, 64)
 // 34 GFLOP (0.035 ms) on 67 MB.  Both are compute-bound, and only wgmma
-// reaches the tensor cores' full rate.  The WMMA template these replace
-// (bound_attention.cuh) reached about 2-5% of it: scores and p went
+// reaches the tensor cores' full rate.  The first (WMMA) template these
+// replaced, now deleted, reached about 2-5% of it: scores and p went
 // through shared memory, K3's rescale too, loads were synchronous and the
 // key mask was read from global memory per key and tile.  Here, measured
 // on an H100, the products alone (no softmax) run at about 60% of the peak
@@ -94,7 +95,10 @@
 //   tensor cores work; o is rescaled and p repacked after p v is done.
 // - The bound shifts take |q_i| from the q tile in shared memory and their
 //   key-norm bound from a pre-pass kernel (decoder_attention.cu).  K2r's
-//   consumers read its K floats per (b, kv head) at their rows.  K2's and
+//   consumers read its K floats per (b, kv head) at their rows, after
+//   griddepcontrol.wait (K2r's op launches it behind the pre-pass's scan as
+//   a programmatic dependent: the q tile, the kv stages and |q| need no
+//   wait; the kernel alone waits for nothing).  K2's and
 //   K1's kmax comes as the pre-pass's partial maxima, (B, nparts, Hkv): the
 //   producer warpgroup's second warp, idle otherwise, executes
 //   griddepcontrol.wait (the programmatic dependent launch of the fused
@@ -825,6 +829,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
         } else {
           qn2 += __shfl_xor_sync(0xffffffffu, qn2, 1);
           qn2 += __shfl_xor_sync(0xffffffffu, qn2, 2);
+          if (r == 0) grid_dependency_wait();  // kcum, from the pre-pass
           const int p = min(max(pos[r], 0), K - 1);
           const float kc = bound[((long long)b * Hkv + hk) * K + p];
           m[r] = sqrtf(qn2) * kc * fabsf(scale) * kLog2e;
@@ -1063,7 +1068,8 @@ cudaError_t open_smem(int bytes) {
 // Launch with programmatic stream serialization: the grid may start once
 // the previous kernel on the stream has executed launch_dependents in every
 // CTA (or exited), and waits for it with griddepcontrol.wait.  Only the
-// fused entries use it, on a kernel that follows its own pre-pass; args are
+// fused entries use it, on a kernel that follows its own pre-pass (or, in
+// K2r's pre-pass, on the scan that follows the partial pass); args are
 // pointers to the kernel's parameters.
 inline cudaError_t launch_dependent(const void* kernel, dim3 grid, dim3 block,
                                     size_t smem, cudaStream_t stream,
@@ -1086,9 +1092,9 @@ inline cudaError_t launch_dependent(const void* kernel, dim3 grid, dim3 block,
 // kExact; q_offset read only when CAUSAL; lse: a (B, Hq, Q) fp32 output or
 // null, taken under kKeyMax and kExact.  dependent: launch with
 // programmatic stream serialization, behind the pre-pass that writes
-// bound (the fused entries only).  A Config of HP heads a CTA takes Hq =
-// Hkv, a multiple of HP; kZero and the Variants write no lse.  Returns a
-// cudaError_t.
+// bound (the ops only, under kKeyMax or kRows).  A Config of HP heads a
+// CTA takes Hq = Hkv, a multiple of HP; kZero and the Variants write no
+// lse.  Returns a cudaError_t.
 template <class C, bool CAUSAL, ShiftMode SHIFT, bool FLOOR = false,
           Variant VAR = Variant::kPlain>
 int launch_attention(const void* q, const void* k, const void* v,
@@ -1106,8 +1112,10 @@ int launch_attention(const void* q, const void* k, const void* v,
       Hq % C::kHeads != 0 || (C::kHeads > 1 && Hq != Hkv)) {
     return int(cudaErrorInvalidValue);
   }
-  // Only the bound's partials come from a pre-pass to wait for.
-  if (nparts < 1 || (dependent && SHIFT != ShiftMode::kKeyMax)) {
+  // Only a bound (kmax's partials, or kcum) comes from a pre-pass to wait
+  // for.
+  if (nparts < 1 || (dependent && SHIFT != ShiftMode::kKeyMax &&
+                     SHIFT != ShiftMode::kRows)) {
     return int(cudaErrorInvalidValue);
   }
   CUtensorMap tq, tk, tv;

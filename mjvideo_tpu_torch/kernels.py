@@ -31,8 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vit_attention.cu", "vit_attention_bwd.cu", "decoder_attention.cu",
            "decoder_attention_bwd.cu", "exact_attention.cu", "q8g_matmul.cu",
            "w4_matmul.cu", "vit_attention_variants.cu")
-HEADERS = ("bound_attention.cuh", "decoder_attention_sm90.cuh",
-           "attention_bwd_sm90.cuh")
+HEADERS = ("decoder_attention_sm90.cuh", "attention_bwd_sm90.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,8 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "decoder_attention_lse" and "exact_attention_lse" the launches with it;
 # "key_norm_max" counts the pre-pass of K1 and K2 (their kmax, with the lse
 # or without: one per K1 or K2 op, or alone), "key_norm_cummax" K2r's (its
-# bound column); "q8g_quantize" the activation pre-pass of K6 (one per K6
-# launch, or alone).
+# bound column: one per K2r op, or alone); "q8g_quantize" the activation
+# pre-pass of K6 (one per K6 launch, or alone).
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
@@ -63,7 +62,7 @@ VARIANT_MODES = ("exp2", "bf16s", "nomax", "exp2_nomax")
 TMAJOR_HP = (1, 2, 4)
 LOG2E = 1.4426950408889634  # log2(e)
 
-# The plan of the K1/K2 pre-pass (``key_norm_partial_kernel`` of
+# The plan of the K1/K2 pre-pass and of K2r's (``key_norm_partial_kernel`` of
 # ``csrc/decoder_attention.cu``): its threads per CTA and 16-byte loads a
 # thread per pass, the CTAs aimed at over the grid (about four per SM of
 # the H100's 132) and the most partial maxima per (b, kv head).
@@ -148,7 +147,9 @@ ARGTYPES = {
     "mjv_decoder_attention_op": [_P] * 8 + [_I] * 6 + [_L] * 6
     + [_I, _F, _P],
     "mjv_decoder_attention_rows": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _P],
-    "mjv_key_norm_cummax": [_P] * 3 + [_I] * 4 + [_L] * 2 + [_P],
+    "mjv_decoder_attention_rows_op": [_P] * 8 + [_I] * 6 + [_L] * 6
+    + [_I, _F, _P],
+    "mjv_key_norm_cummax": [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I, _P],
     "mjv_key_norm_max": [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I, _P],
     "mjv_exact_attention": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _I, _P],
     "mjv_decoder_attention_bwd_dkdv": _BWD[:8] + [_P, _P] + _BWD[8:],
@@ -438,26 +439,50 @@ def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
-def key_norm_cummax(k: torch.Tensor,
-                    attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """K2r's pre-pass.  k: (B, K, Hkv, 128) bf16 with dense heads;
-    attention_mask: (B, K) int32 or None.  Returns the (B, Hkv, K) fp32
-    running max along K of the masked key norms."""
-    name = "key_norm_cummax"
-    _check_qkv(name, 128, k)
+def _key_norm_operands(name: str, k: torch.Tensor,
+                       attention_mask: Optional[torch.Tensor],
+                       parts: Optional[int], dims=(64, 128)):
+    """Checks shared by the key-norm pre-passes (k: (B, K, Hkv, D) bf16 with
+    D one of ``dims``, dense heads, free row strides; attention_mask: (B,
+    K) int32 or None); returns (mask pointer, the chunk count: ``parts``,
+    or the plan ``key_norm_parts`` when None)."""
+    _check_qkv(name, k.shape[-1] if k.shape[-1] in dims else dims[-1], k)
     B, K, Hkv, D = k.shape
     mask_ptr = None
     if attention_mask is not None:
         _check_aux(f"{name} mask", attention_mask, torch.int32, (B, K),
                    k.device)
         mask_ptr = attention_mask.data_ptr()
+    plan = key_norm_parts(B, K, Hkv, D)
+    parts = plan if parts is None else int(parts)
+    if not 1 <= parts <= K:
+        raise ValueError(f"{name}: parts={parts} must lie in [1, {K}]")
+    return mask_ptr, parts
+
+
+def key_norm_cummax(k: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor] = None,
+                    parts: Optional[int] = None) -> torch.Tensor:
+    """K2r's pre-pass alone, as the K2r op runs it: the partial pass over
+    ``parts`` chunks of keys (the plan, ``key_norm_parts``, by default; 1 <=
+    parts <= K), which also stores every key's norm, then the scan that
+    runs the earlier chunks' max through each chunk, from one C call.  k:
+    (B, K, Hkv, 128) bf16 with dense heads (row strides free);
+    attention_mask: (B, K) int32 or None.  Returns the (B, Hkv, K) fp32
+    running max along K of the masked key norms, the same bits for every
+    ``parts``; its last column is ``key_norm_max``'s."""
+    name = "key_norm_cummax"
+    mask_ptr, parts = _key_norm_operands(name, k, attention_mask, parts,
+                                         dims=(128,))
+    B, K, Hkv, D = k.shape
     lib = _load()
+    part = torch.empty((B, parts, Hkv), dtype=torch.float32, device=k.device)
     out = torch.empty((B, Hkv, K), dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mjv_key_norm_cummax(k.data_ptr(), mask_ptr, out.data_ptr(),
-                                      B, K, Hkv, D, k.stride(0), k.stride(1),
-                                      stream)
+        err = lib.mjv_key_norm_cummax(k.data_ptr(), mask_ptr, part.data_ptr(),
+                                      out.data_ptr(), B, K, Hkv, D,
+                                      k.stride(0), k.stride(1), parts, stream)
     _raise_on(name, err)
     launch_counts[name] += 1
     return out
@@ -491,17 +516,8 @@ def key_norm_max(k: torch.Tensor,
     live."""
     name = "key_norm_max"
     # Built for the ViT's 64 and the decoder's 128.
-    _check_qkv(name, k.shape[-1] if k.shape[-1] in (64, 128) else 128, k)
+    mask_ptr, parts = _key_norm_operands(name, k, attention_mask, parts)
     B, K, Hkv, D = k.shape
-    mask_ptr = None
-    if attention_mask is not None:
-        _check_aux(f"{name} mask", attention_mask, torch.int32, (B, K),
-                   k.device)
-        mask_ptr = attention_mask.data_ptr()
-    plan = key_norm_parts(B, K, Hkv, D)
-    parts = plan if parts is None else int(parts)
-    if not 1 <= parts <= K:
-        raise ValueError(f"{name}: parts={parts} must lie in [1, {K}]")
     lib = _load()
     part = torch.empty((B, parts, Hkv), dtype=torch.float32, device=k.device)
     out = torch.empty((B, Hkv), dtype=torch.float32, device=k.device)
@@ -520,10 +536,11 @@ def decoder_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kcum: torch.Tensor,
                            q_offset: Optional[torch.Tensor],
                            scale: float) -> torch.Tensor:
-    """K2r.  Operands as for K2, with ``kcum`` the (B, Hkv, K) fp32 running
-    max of masked key norms (``key_norm_cummax``) in place of kmax; the
-    kernel reads it at each row's position ``clip(q_offset + i, 0, K - 1)``.
-    Returns a dense (B, Q, Hq, D) bf16 tensor."""
+    """K2r alone on a given kcum.  Operands as for K2, with ``kcum`` the
+    (B, Hkv, K) fp32 running max of masked key norms (``key_norm_cummax``)
+    in place of kmax; the kernel reads it at each row's position
+    ``clip(q_offset + i, 0, K - 1)``.  Returns a dense (B, Q, Hq, D) bf16
+    tensor; ``decoder_attention_rows_op`` is the op."""
     name = "decoder_attention_rows"
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset)
@@ -540,6 +557,42 @@ def decoder_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), float(scale), stream)
     _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def decoder_attention_rows_op(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              attention_mask: Optional[torch.Tensor],
+                              q_offset: Optional[torch.Tensor],
+                              scale: float) -> torch.Tensor:
+    """The K2r op: its pre-pass (the partial pass with every key's norm,
+    then the scan as its programmatic dependent) and K2r launched behind
+    the scan as its programmatic dependent, from one C call.  Operands and
+    result as for ``decoder_attention_rows`` without kcum; the output is
+    bit-equal to ``decoder_attention_rows`` on ``key_norm_cummax(k,
+    attention_mask)``.  Counts one ``key_norm_cummax`` and one
+    ``decoder_attention_rows``."""
+    name = "decoder_attention_rows"
+    mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
+                                       q_offset)
+    B, Q, Hq, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    parts = key_norm_parts(B, K, Hkv, D)
+    lib = _load()
+    dev = q.device
+    part = torch.empty((B, parts, Hkv), dtype=torch.float32, device=dev)
+    kcum = torch.empty((B, Hkv, K), dtype=torch.float32, device=dev)
+    out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.mjv_decoder_attention_rows_op(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, off_ptr,
+            part.data_ptr(), kcum.data_ptr(), out.data_ptr(), B, Q, K, Hq,
+            Hkv, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), parts, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(name, err)
+    launch_counts["key_norm_cummax"] += 1
     launch_counts[name] += 1
     return out
 
@@ -880,7 +933,8 @@ def vit_attention_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def vit_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_valid: Optional[int], scale: float) -> torch.Tensor:
     """B3: the exact row max over the keys below ``kv_valid`` (None: all
-    S), on the first (WMMA, two-walk) template.  Operands as for
+    S), B2's hp 1 walk on the wgmma/TMA forward template with its k/v
+    ending at ``kv_valid`` (never read past it).  Operands as for
     ``vit_attention_variant``; returns the dense output viewed as (B, S,
     H * D)."""
     name = "vit_attention_bshd"

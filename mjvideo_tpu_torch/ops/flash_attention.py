@@ -50,9 +50,11 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
 * ``decoder_attention_rows`` replaces ``_fwd_bound_kernel(row_bound=True)``
   (K2r): K2 with a per-row bound, ``|scale| |q_i| kcum[b, h, pos_i]``,
   where ``kcum`` is the running max of masked key norms over slots <= j
-  (``key_norm_cummax``, K2r's pre-pass kernel on the card) and ``pos_i =
-  clip(q_offset + i, 0, K - 1)`` (``row_key_bound`` on the CPU).  A row's
-  bound depends on the tokens at or before it only.
+  (``key_norm_cummax``; on the card K2r's pre-pass, chunk partials and a
+  scan, whose twin is ``key_norm_cummax_chunked``, and K2r behind it, one
+  C call) and ``pos_i = clip(q_offset + i, 0, K - 1)`` (``row_key_bound``
+  on the CPU).  A row's bound depends on the tokens at or before it
+  only.
 * ``flash_attention`` is the JAX entry of the same name: it picks K1, K2,
   K2r or K3 from ``causal``, the mask and ``norm_bound``.
 
@@ -123,6 +125,29 @@ def key_norm_cummax(k: torch.Tensor,
     if attention_mask is not None:
         kn2 = kn2 * (attention_mask != 0)[:, :, None].float()
     return torch.cummax(kn2.sqrt(), dim=1).values.transpose(1, 2).contiguous()
+
+
+def key_norm_cummax_chunked(k: torch.Tensor,
+                            attention_mask: Optional[torch.Tensor] = None,
+                            parts: int = 1) -> torch.Tensor:
+    """``key_norm_cummax`` by the pre-pass kernel's decomposition: the
+    masked key norms and the largest of each chunk of ceil(K / parts) keys
+    (``key_norm_partials``'s), then the scan: each chunk's running max
+    starts from the largest norm of the chunks before it.  Max is exact, so
+    it equals ``key_norm_cummax`` to the bit at every ``parts``."""
+    kn2 = k.float().square().sum(-1)  # (B, K, Hkv)
+    if attention_mask is not None:
+        kn2 = kn2 * (attention_mask != 0)[:, :, None].float()
+    B, K, Hkv = kn2.shape
+    chunk = -(-K // parts)
+    norms = torch.nn.functional.pad(kn2.sqrt(), (0, 0, 0, chunk * parts - K))
+    norms = norms.reshape(B, parts, chunk, Hkv)
+    part = norms.amax(2)  # (B, parts, Hkv)
+    before = torch.cat([torch.zeros_like(part[:, :1]),
+                        torch.cummax(part, dim=1).values[:, :-1]], dim=1)
+    run = torch.maximum(torch.cummax(norms, dim=2).values, before[:, :, None])
+    run = run.reshape(B, parts * chunk, Hkv)[:, :K]
+    return run.transpose(1, 2).contiguous()
 
 
 def row_key_bound(k: torch.Tensor, attention_mask: Optional[torch.Tensor],
@@ -593,9 +618,8 @@ def decoder_attention_rows(
     kernels.forward_only("decoder_attention_rows", q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     attention_mask, q_offset = _int32_operands(attention_mask, q_offset)
-    kcum = kernels.key_norm_cummax(k, attention_mask)
-    return kernels.decoder_attention_rows(q, k, v, attention_mask, kcum,
-                                          q_offset, scale)
+    return kernels.decoder_attention_rows_op(q, k, v, attention_mask,
+                                             q_offset, scale)
 
 
 def flash_attention(

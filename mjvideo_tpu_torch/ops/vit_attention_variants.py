@@ -40,13 +40,15 @@ B3's twin is ``exact_attention_plain`` (non-causal, over the keys below
 at 1e-30 never acts.
 
 For a CPU tensor each dispatcher computes the twin; for a CUDA tensor it
-launches the hand-written kernel or raises: B1 and B2 run the wgmma/TMA
+launches the hand-written kernel or raises: all three run the wgmma/TMA
 forward template (``csrc/decoder_attention_sm90.cuh``, through
 ``csrc/vit_attention_variants.cu``), which walks the keys once with a
 running max and a rescale where the twins take every p against the final
 max (they differ in fp32 rounding, and in ``"bf16s"`` where an earlier max
-rounds d or p to another bf16); B3 runs that file's first (WMMA) kernel.  None has a backward: on a CUDA tensor that needs a gradient each
-refuses the call (``kernels.forward_only``).
+rounds d or p to another bf16).  B3 is B2's hp 1 walk over the first
+``kv_valid`` keys, so its rows below ``kv_valid`` are B2's on q, k and v
+cut there, bit for bit.  None has a backward: on a CUDA tensor that needs
+a gradient each refuses the call (``kernels.forward_only``).
 """
 
 from __future__ import annotations

@@ -347,17 +347,18 @@ def test_k1_and_k2_pre_pass_is_counted_under_its_own_name():
 
 def test_k1_and_k2_share_the_hopper_template():
     """K1 and K2, with the lse and without, are launched from the wgmma/TMA
-    template, which every build hashes; the WMMA header keeps no forward
-    (K3 lse moved onto the wgmma/TMA template too)."""
+    template, which every build hashes; the WMMA header is gone (its last
+    user, B3, moved onto the template too), from the sources and from
+    ``kernels.HEADERS``, and no source uses WMMA."""
     assert "decoder_attention_sm90.cuh" in kernels.HEADERS
     vit = (kernels.CSRC / "vit_attention.cu").read_text()
     dec = (kernels.CSRC / "decoder_attention.cu").read_text()
     assert "launch_attention<sm90::D64" in vit
     assert "ShiftMode::kKeyMax" in vit and "ShiftMode::kKeyMax" in dec
-    assert "launch_bound_attention" not in vit
-    assert "launch_bound_attention" not in dec
-    wmma = (kernels.CSRC / "bound_attention.cuh").read_text()
-    assert "WITH_LSE" not in wmma and "kGlobalBound" not in wmma
-    exact = (kernels.CSRC / "exact_attention.cu").read_text()
-    assert "launch_bound_attention" not in exact
-    assert "launch_bound_attention" not in wmma
+    assert not (kernels.CSRC / "bound_attention.cuh").exists()
+    assert "bound_attention.cuh" not in kernels.HEADERS
+    for path in kernels.CSRC.iterdir():
+        text = path.read_text()
+        assert "launch_bound_attention" not in text, path.name
+        assert '#include "bound_attention.cuh"' not in text, path.name
+        assert "wmma" not in text and "<mma.h>" not in text, path.name

@@ -302,10 +302,11 @@ def test_k3_and_k2r_match_twins_at_odd_shapes(cuda_device):
 
 @pytest.mark.cuda
 def test_key_norm_cummax_matches_twin(cuda_device):
-    """K2r's pre-pass against its twin: K below, at and past a 1024-thread
-    scan's chunking, k as a strided view (a cache's (B, K, Hkv, D) slots),
-    a mask with holes and none; fp32 norms summed in another order than
-    torch's, so relative 2e-6, and the running max exact in structure (never
+    """K2r's pre-pass (the key-norm partial pass and its scan) against its
+    twin: one key, K past a 128-key chunk, at 1024 and an odd 3001, k as a
+    strided view (a cache's (B, K, Hkv, D) slots), a mask with holes and
+    none; norms summed exactly in double against the twin's fp32 sums, so
+    relative 2e-6, and the running max exact in structure (never
     decreasing along K)."""
     g = torch.Generator(device=cuda_device).manual_seed(9)
     for K, with_mask in ((1, True), (129, False), (1024, True), (3001, True)):

@@ -14,9 +14,10 @@ JAX package, their plans, and what their sources may and may not do.
   (``mjvideo_tpu/ops/quant.py:276``) at the new kernel's edges: one row, a
   tail past a CTA's rows, a zero row (the scale's 1e-12 floor), values at
   +-amax and quotients that tie at .5.
-* The sources: the partial pass writes with plain stores (no atomics) and
-  its entry zeroes nothing; only the fused entries (the K1 and K2 ops and
-  K6) launch with programmatic stream serialization.
+* The sources: the partial pass and K2r's scan write with plain stores (no
+  atomics) and their entries zero nothing; only the fused entries (the K1,
+  K2 and K2r ops, K6, and K2r's pre-pass, whose scan follows its partial
+  pass) launch with programmatic stream serialization.
 
 The kernels themselves run only on the card
 (``tests/test_torch_kernels_prepass_sm90.py``, ``chip_smoke.py``).
@@ -203,57 +204,84 @@ def test_the_partial_pass_has_no_atomics_and_its_entry_no_memset():
     start = src.index("key_norm_partial_kernel(")
     kernel = src[start:src.index("key_norm_fold_kernel(")]
     assert "atomic" not in kernel
+    # K2r's pre-pass, and the whole source: no atomic call, no memset.
+    start = src.index("key_norm_scan_kernel(")
+    assert "atomic" not in src[start:src.index("// K2r's pre-pass on")]
+    assert not re.search(r"atomic\w*\(", src) and "cudaMemset" not in src
     entries = _entries(src)
-    for name in ("mjv_key_norm_max", "mjv_decoder_attention_op"):
+    for name in ("mjv_key_norm_max", "mjv_decoder_attention_op",
+                 "mjv_key_norm_cummax", "mjv_decoder_attention_rows_op"):
         assert "Memset" not in entries[name] and "memset" not in entries[name]
     assert "Memset" not in _entries(_source("vit_attention.cu"))[
         "mjv_vit_attention_op"]
-    for name in ("key_norm_max", "vit_attention_op", "decoder_attention_op"):
+    for name in ("key_norm_max", "vit_attention_op", "decoder_attention_op",
+                 "key_norm_cummax", "decoder_attention_rows_op"):
         wrapper = inspect.getsource(getattr(kernels, name))
         assert "torch.zeros" not in wrapper and "zero_" not in wrapper
         assert "fill_" not in wrapper
 
 
 def test_only_the_fused_entries_launch_as_programmatic_dependents():
-    """The attribute is set in one helper, ``launch_dependent``; the K1 and
-    K2 ops and K6 reach it (``launch_attention(..., true)`` or
-    ``launch_gemm(..., true)``), the kernel-alone entries, K2r, K3, K4 and
-    K7 do not, so none of them can start before its predecessor ends."""
+    """The attribute is set in one helper, ``launch_dependent``; the K1, K2
+    and K2r ops and K6 reach it (``launch_attention(..., true)`` or
+    ``launch_gemm(..., true)``), and so does K2r's pre-pass
+    (``launch_key_norm_cummax``: the scan behind the partial pass), alone
+    or in K2r's op; the kernel-alone entries, K3, K4 and K7 do not, so none
+    of them can start before its predecessor ends."""
     header = _source("decoder_attention_sm90.cuh")
     assert header.count("cudaLaunchAttributeProgrammaticStreamSerialization") == 1
     fused = {"mjv_decoder_attention_op", "mjv_vit_attention_op",
-             "mjv_q8g_matmul_fused"}
+             "mjv_q8g_matmul_fused", "mjv_decoder_attention_rows_op",
+             "mjv_key_norm_cummax"}
     seen = set()
     for name in sorted(p.name for p in kernels.CSRC.glob("*.cu")):
         src = _source(name)
         assert "ProgrammaticStreamSerialization" not in src, name
         for entry, body in _entries(src).items():
             seen.add(entry)
-            dependent = bool(re.search(r"stream, true\)|s, true\)", body))
+            dependent = bool(re.search(
+                r"stream, true\)|s, true\)|launch_key_norm_cummax\(", body))
             assert dependent == (entry in fused), entry
     assert fused <= seen
     assert {"mjv_decoder_attention", "mjv_vit_attention",
             "mjv_decoder_attention_rows", "mjv_exact_attention",
             "mjv_q8g_matmul", "mjv_decoder_attention_bwd_dkdv",
             "mjv_vit_attention_bwd_dq"} <= seen
+    # K2r's op: the partial pass launched plainly, the scan as its
+    # dependent, then K2r as the scan's.
+    dec = _source("decoder_attention.cu")
+    helper = dec[dec.index("int launch_key_norm_cummax("):]
+    helper = helper[:helper.index("\n}\n")]
+    assert helper.index("launch_partials(") < helper.index(
+        "sm90::launch_dependent(")
+    assert "key_norm_scan_kernel" in helper
+    rows_op = _entries(dec)["mjv_decoder_attention_rows_op"]
+    assert rows_op.index("launch_key_norm_cummax(") < rows_op.index(
+        "ShiftMode::kRows>")
     # The dependents wait: the attention kernel before it folds the
+    # partials (K1, K2) or reads kcum (K2r), the scan before it reads the
     # partials, the GEMM's producer before its xq and a_s; the pre-passes
-    # release them once their loads are issued.
-    assert header.count("grid_dependency_wait();") == 1
+    # release them once their loads are issued (the scan at once).
+    assert header.count("grid_dependency_wait();") == 2
     q8g = _source("q8g_matmul.cu")
     assert q8g.count("grid_dependency_wait();") == 1
     assert q8g.count("grid_launch_dependents();") == 1
-    assert _source("decoder_attention.cu").count(
-        "grid_launch_dependents();") == 2  # after the loads, or no keys
+    assert dec.count("grid_dependency_wait();") == 1  # the scan's
+    # The partial pass after its loads or with no keys, the scan at once.
+    assert dec.count("grid_launch_dependents();") == 3
 
 
 def test_the_ops_and_the_pre_pass_entries_are_bound():
     for name in ("mjv_vit_attention_op", "mjv_decoder_attention_op",
                  "mjv_key_norm_max", "mjv_vit_attention",
-                 "mjv_decoder_attention"):
+                 "mjv_decoder_attention", "mjv_decoder_attention_rows_op",
+                 "mjv_key_norm_cummax"):
         assert name in kernels.ARGTYPES
     # q, k, v, partials, out, lse; B, S, H, D; six strides; parts, scale,
     # stream.
     assert len(kernels.ARGTYPES["mjv_vit_attention_op"]) == 19
     assert len(kernels.ARGTYPES["mjv_decoder_attention_op"]) == 23
     assert len(kernels.ARGTYPES["mjv_key_norm_max"]) == 12
+    # K2r's op: kcum in place of the lse; its pre-pass as key_norm_max's.
+    assert len(kernels.ARGTYPES["mjv_decoder_attention_rows_op"]) == 23
+    assert len(kernels.ARGTYPES["mjv_key_norm_cummax"]) == 12

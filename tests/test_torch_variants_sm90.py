@@ -12,8 +12,11 @@ and p) and l summed in fp32.  Each mode and B2 is held against its twin
 to 2**-7 of max|plain|, the card's bar, at S = 37, 1025 (one key in the
 last tile) and 1032, and on rows whose max arrives in the last tile about
 20 nats above the rest.  The sources are
-checked for the routes: B1 and B2 launch the template, the WMMA kernel is
-left to B3, and the main-path instantiations are the ones they were.
+checked for the routes: B1 and B2 launch the template, no WMMA kernel is
+left, and the main-path instantiations are the ones they were (K2r's now
+also launched by its op).  The walk takes its keys from k, so it also
+walks B3 (B2's hp 1 on the keys below ``kv_valid``:
+``tests/test_torch_rows_bshd_sm90.py``).
 """
 
 import re
@@ -37,7 +40,8 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def online_walk(q, k, v, mode, block_k=128, scale=None):
     """The kernels' walk of one B1 ``mode`` (or ``"exact"``, B2) over
-    (B, S, H, D) q/k/v, in fp32 with their rounding points, tile by tile."""
+    (B, S, H, D) q and (B, K, H, D) k/v (K = S but for B3, whose keys end
+    at ``kv_valid``), in fp32 with their rounding points, tile by tile."""
     scale = np.float32(q.shape[-1] ** -0.5 if scale is None else scale)
     sl2 = float(scale * LOG2E)  # the kernel's scale * log2(e), in fp32
     qf = q.float()
@@ -49,7 +53,7 @@ def online_walk(q, k, v, mode, block_k=128, scale=None):
     m = torch.full((B, H, S, 1), -torch.inf)
     l = torch.zeros((B, H, S, 1))
     o = torch.zeros((B, H, S, D))
-    for k0 in range(0, S, block_k):
+    for k0 in range(0, k.shape[1], block_k):
         s = torch.einsum("bqhd,bkhd->bhqk", qf, k[:, k0:k0 + block_k].float())
         if mode == "nomax":
             p = torch.exp2(s * sl2)
@@ -168,17 +172,17 @@ def test_b1_and_b2_entries_launch_the_hopper_template():
 
 
 def test_the_wmma_kernel_is_left_to_b3():
-    """``variant_attention_kernel`` (the first template) is launched by
-    B3's entry alone, in its one form: no softmax modes, no heads per CTA,
-    no q fold."""
+    """No WMMA kernel is left: ``variant_attention_kernel`` (the first
+    template) and its helpers are gone, the file defines no kernel and
+    launches none itself, and B3's entry reaches the forward template
+    through ``launch_sm90`` as B1 and B2 do."""
     text = _source("vit_attention_variants.cu")
     b3 = _entry(text, "mjv_vit_attention_bshd")
-    launches = re.findall(r"variant_attention_kernel\s*<<<", text)
-    assert len(launches) == 1 and re.search(
-        r"variant_attention_kernel\s*<<<", b3)
+    for gone in ("variant_attention_kernel", "stage_rows", "warp_scores",
+                 "wmma", "<mma.h>", "<<<", "__global__"):
+        assert gone not in text, gone
+    assert "return launch_sm90<Hp1, ShiftMode::kExact>(" in b3
     assert "template <Mode" not in text and "enum class Mode" not in text
-    assert "FOLD" not in text and "HP, BQ" not in text
-    assert text.count("__global__") == 1
 
 
 def _launches(text: str):
@@ -188,13 +192,14 @@ def _launches(text: str):
 
 def test_main_path_instantiations_are_unchanged():
     """K1, K1 lse, K2, K2 lse, K2r, K3 and K3 lse launch the template as
-    they did, and its new parameters (heads a CTA, keys a tile, the
-    softmax's Variant) default to what those kernels were."""
+    they did (K2r twice: alone and, as K2 does, from its op), and its new
+    parameters (heads a CTA, keys a tile, the softmax's Variant) default
+    to what those kernels were."""
     assert _launches(_source("vit_attention.cu")) == [
         "sm90::D64, false, sm90::ShiftMode::kKeyMax, true"] * 2
     assert _launches(_source("decoder_attention.cu")) == [
         "sm90::D128, true, sm90::ShiftMode::kKeyMax"] * 2 + [
-        "sm90::D128, true, sm90::ShiftMode::kRows"]
+        "sm90::D128, true, sm90::ShiftMode::kRows"] * 2
     assert _launches(_source("exact_attention.cu")) == [
         "D128, true, ShiftMode::kExact", "D128, false, ShiftMode::kExact"]
     header = _source("decoder_attention_sm90.cuh")

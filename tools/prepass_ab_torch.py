@@ -5,7 +5,8 @@ on one CUDA card.
     python3 tools/prepass_ab_torch.py --parent ROOT [--turns PCCP]
         [--variants] [--out FILE]
 
-The pre-passes: K1/K2's key-norm max (``kernels.key_norm_max``) and K6's
+The pre-passes: K1/K2's key-norm max (``kernels.key_norm_max``), K2r's
+running max of the key norms (``kernels.key_norm_cummax``) and K6's
 activation quantization (``kernels.q8g_quantize``).  Each turn runs one
 tree (P: ROOT, C: this tree), in the order of ``--turns``, in processes of
 its own with that tree's package first on ``sys.path`` and its kernels
@@ -14,7 +15,11 @@ built from its own sources into its own ``build/kernels``:
 - ``--worker ROOT`` (this file, run by the turn): on inputs drawn from
   ``chip_smoke.SEED``, identical in both trees,
   - each pre-pass alone, device time a launch by kernel (``torch.profiler``):
-    K1/K2's at the shapes below, K6's at chip_smoke's Q8G_SHAPES;
+    K1/K2's at the shapes below, K2r's at chip_smoke's JUDGE_SHAPES (their
+    masks), K6's at chip_smoke's Q8G_SHAPES;
+  - the K2r op (``ops.flash_attention.decoder_attention_rows``: in this
+    tree one C call, pre-pass and kernel) and K2r alone on the twin's kcum
+    (the same in both trees) at the judge's prefill, as the ops below;
   - the K1 and K2 ops, with the lse and without, and the kernels alone
     on the standalone kmax, at (8, 1025, 16, 64) on
     qkv views, (2, 3072, 16/8, 128) with serving's ragged mask, (1, 799,
@@ -35,13 +40,17 @@ built from its own sources into its own ``build/kernels``:
 With ``--variants``, first, in this process: copies this tree's
 ``csrc/`` under ``build/prepass_ab/<name>/`` for each of VARIANTS,
 applies its edits, builds the copies of the three sources of the pre-passes
-and ROOT's (the parent's ops: its pre-pass, memset and kernel as two C
-calls), all at once with the port's nvcc flags, and times through the C
+and ROOT's (a parent without the K2r op's entry: its pre-pass and kernel as
+two C calls), all at once with the port's nvcc flags, and times through the C
 entries, in turns: K6 (and K7) back to back with the host's time to issue
 each call, and K6 one call at a time (CUDA events around it, median of 10),
-at chip_smoke's Q8G_SHAPES, K6's pre-pass alone (device time), and the
-K1/K2 ops both ways at the shapes above; every variant but the PROBES is
-held bit-equal to production first.
+at chip_smoke's Q8G_SHAPES, K6's pre-pass alone (device time), the K1/K2
+ops both ways at the shapes above, K2r's pre-pass alone at chip_smoke's
+JUDGE_SHAPES (device time by kernel), and at the judge's prefill the K2r
+op (the parent's: its pre-pass and K2r as two C calls), K2r alone on a
+kcum, the K2 op and K2 alone on a kmax, one call at a time and back to
+back; every variant but the PROBES is held bit-equal to production
+first.
 
 Prints the card, each turn's readings, whether the two trees' outputs and
 scores agree bit for bit (and the delta where they do not), and one JSON
@@ -75,9 +84,16 @@ _STAGE = """      if (lane == 0) {
                     n0);
       }
 """
+_SCAN = """  return int(sm90::launch_dependent(
+      reinterpret_cast<const void*>(key_norm_scan_kernel), dim3(nparts, B),
+      dim3(kScanThreads), 0, s, args));
+"""
 VARIANTS = (
     ("no PDL", [(f, "stream, true);", "stream, false);") for f in SOURCES[:2]]
-     + [(_Q8G, "ldk, s, true);", "ldk, s, false);")]),
+     + [(_Q8G, "ldk, s, true);", "ldk, s, false);"),
+        (SOURCES[0], _SCAN, _SCAN.replace("sm90::launch_dependent(",
+                                          "cudaLaunchKernel(").replace(
+            "0, s, args));", "args, 0, s));"))]),
     # K6's producer issues the first stages' weight boxes before its wait.
     ("weight boxes before the wait", [(_Q8G, _WAIT, """\
     const int first = min(kStages, n_tiles);
@@ -112,7 +128,8 @@ PROBES = ("probe: no division",)
 
 
 def _group(name: str) -> str:
-    for part, short in (("key_norm", "pre-pass"), ("fold", "fold"),
+    for part, short in (("key_norm_scan", "scan"), ("key_norm", "pre-pass"),
+                        ("fold", "fold"),
                         ("emset", "memset"), ("quantize_rows", "pre-pass"),
                         ("q8g_gemm", "gemm"), ("attention_kernel",
                                                "attention")):
@@ -239,6 +256,21 @@ def worker(root: Path, scores: bool) -> dict:
         op_reading(f"K2 alone {shape}", lambda: kernels.decoder_attention(
             q, k, v, mask, kmax, None, 128 ** -0.5))
         del q, k, v, mask
+    # K2r: its pre-pass alone at the judge's shapes; at the prefill its op
+    # and the kernel alone on the twin's kcum.
+    out["K2r pre-pass"] = {}
+    for name, shape in cs.JUDGE_SHAPES.items():
+        q, k, v, mask, off, _ = cs._judge_inputs(randn, shape)
+        out["K2r pre-pass"][str(shape[:6])] = _device(
+            lambda: kernels.key_norm_cummax(k, mask))
+        if name == "prefill":
+            op_reading(f"K2r {shape[:6]}", lambda: fa.decoder_attention_rows(
+                q, k, v, mask, off))
+            kcum = fa.key_norm_cummax(k, mask)
+            op_reading(f"K2r alone {shape[:6]}",
+                       lambda: kernels.decoder_attention_rows(
+                           q, k, v, mask, kcum, off, 128 ** -0.5))
+        del q, k, v, mask
     for M, K, N in cs.Q8G_SHAPES:
         x = randn(M, K)
         qk = q8.quantize_kernel(randn(K, N).float() * 0.02,
@@ -319,19 +351,21 @@ def _build_variant(name, csrc, edits):
     _run([kernels._nvcc(), "-shared", "-o", str(root / "lib.so"), *objs],
          root)
     lib = ctypes.CDLL(str(root / "lib.so"))
-    parent = name == "parent"
     for entry in ("mjv_q8g_matmul_fused", "mjv_q8g_matmul",
                   "mjv_q8g_quantize", "mjv_vit_attention",
                   "mjv_decoder_attention", "mjv_key_norm_max",
-                  "mjv_vit_attention_op", "mjv_decoder_attention_op"):
-        if parent and entry.endswith("_op"):
+                  "mjv_vit_attention_op", "mjv_decoder_attention_op",
+                  "mjv_key_norm_cummax", "mjv_decoder_attention_rows",
+                  "mjv_decoder_attention_rows_op"):
+        if not hasattr(lib, entry):
             continue
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = kernels.ARGTYPES[entry]
-    if parent:  # its pre-pass zeroed kmax and took no scratch
+    if not hasattr(lib, "mjv_decoder_attention_rows_op"):
+        # K2r's one-CTA pre-pass took no scratch.
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mjv_key_norm_max.argtypes = [P] * 3 + [I] * 4 + [L] * 2 + [P]
+        lib.mjv_key_norm_cummax.argtypes = [P] * 3 + [I] * 4 + [L] * 2 + [P]
     return lib
 
 
@@ -451,7 +485,6 @@ def variants(parent: Path, rounds: int) -> dict:
         kernels.KEY_NORM_LOADS = loads
         part = torch.empty((B, max(n, n8), H), dtype=torch.float32,
                            device=dev)
-        kmax = torch.empty((B, H), dtype=torch.float32, device=dev)
         o = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
         qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
         strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -459,19 +492,6 @@ def variants(parent: Path, rounds: int) -> dict:
         scale = D ** -0.5
 
         def op(name, lib):
-            if name == "parent":
-                def two_calls():
-                    err = lib.mjv_key_norm_max(
-                        k.data_ptr(), m, kmax.data_ptr(), B, T, H, D,
-                        k.stride(0), k.stride(1), stream())
-                    if err or vit:
-                        return err or lib.mjv_vit_attention(
-                            *qkv, kmax.data_ptr(), o.data_ptr(), None, B, T,
-                            H, D, *strides, scale, stream())
-                    return lib.mjv_decoder_attention(
-                        *qkv, m, kmax.data_ptr(), None, o.data_ptr(), None,
-                        B, T, T, Hq, H, D, *strides, scale, stream())
-                return checked(two_calls)
             parts = n8 if name == "pre-pass 8 loads" else n
             if vit:
                 return checked(lambda: lib.mjv_vit_attention_op(
@@ -488,6 +508,98 @@ def variants(parent: Path, rounds: int) -> dict:
             {name: (lambda f=op(name, lib): cs._median_ms(f))
              for name, lib in libs.items() if name not in PROBES})
         del q, k, v, mask, part, o
+    out.update(k2r_variants(libs, cs, randn, checked, stream, in_turns))
+    return out
+
+
+def k2r_variants(libs, cs, randn, checked, stream, in_turns) -> dict:
+    """K2r's part of ``--variants``: its pre-pass alone at the judge's
+    shapes (device time by kernel, each library once), and at the prefill
+    the K2r op of each library (the parent's as two C calls) with
+    production's K2r alone on its kcum, K2 op and K2 alone on its kmax,
+    in turns; production's op held bit-equal to its kernel alone and each
+    variant's op to production's first."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    out = {"K2r pre-pass": {}, "K2r": {}, "K2r one call": {}}
+    dev = torch.device("cuda:0")
+    prod = libs["production"]
+    for jname, shape in cs.JUDGE_SHAPES.items():
+        B, Q, T, Hq, H, D, _ = shape
+        q, k, v, mask, off, _ = cs._judge_inputs(randn, shape)
+        n = kernels.key_norm_parts(B, T, H, D)
+        f32 = dict(dtype=torch.float32, device=dev)
+        part, kcum = torch.empty((B, n, H), **f32), torch.empty((B, H, T),
+                                                                **f32)
+        m, offp = mask.data_ptr(), None if off is None else off.data_ptr()
+        qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                   v.stride(0), v.stride(1))
+        kd = (B, T, H, D, k.stride(0), k.stride(1))
+
+        def prepass(name, lib, kc=kcum):
+            if not hasattr(lib, "mjv_decoder_attention_rows_op"):
+                return checked(lambda: lib.mjv_key_norm_cummax(
+                    k.data_ptr(), m, kc.data_ptr(), *kd, stream()))
+            return checked(lambda: lib.mjv_key_norm_cummax(
+                k.data_ptr(), m, part.data_ptr(), kc.data_ptr(), *kd, n,
+                stream()))
+
+        out["K2r pre-pass"][str(shape[:6])] = {
+            name: _device(prepass(name, lib)) for name, lib in libs.items()
+            if name not in PROBES}
+        if jname != "prefill":
+            continue
+        o = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
+        dims = (B, Q, T, Hq, H, D, *strides)
+        scale = D ** -0.5
+
+        def op(name, lib, out_=o):
+            if not hasattr(lib, "mjv_decoder_attention_rows_op"):
+                def two_calls():
+                    prepass(name, lib)()
+                    return lib.mjv_decoder_attention_rows(
+                        *qkv, m, kcum.data_ptr(), offp, out_.data_ptr(),
+                        *dims, scale, stream())
+                return checked(two_calls)
+            return checked(lambda: lib.mjv_decoder_attention_rows_op(
+                *qkv, m, offp, part.data_ptr(), kcum.data_ptr(),
+                out_.data_ptr(), *dims, n, scale, stream()))
+
+        kc_alone, kmax = torch.empty_like(kcum), torch.empty((B, H), **f32)
+        o2 = torch.empty_like(o)
+        prepass("production", prod, kc_alone)()
+        checked(lambda: prod.mjv_key_norm_max(
+            k.data_ptr(), m, part.data_ptr(), kmax.data_ptr(), *kd, n,
+            stream()))()
+        runs = {f"{name} K2r op": op(name, lib) for name, lib in libs.items()
+                if name not in PROBES}
+        runs["K2r alone"] = checked(lambda: prod.mjv_decoder_attention_rows(
+            *qkv, m, kc_alone.data_ptr(), offp, o2.data_ptr(), *dims, scale,
+            stream()))
+        runs["K2 op"] = checked(lambda: prod.mjv_decoder_attention_op(
+            *qkv, m, offp, part.data_ptr(), o2.data_ptr(), None, *dims, n,
+            scale, stream()))
+        runs["K2 alone"] = checked(lambda: prod.mjv_decoder_attention(
+            *qkv, m, kmax.data_ptr(), offp, o2.data_ptr(), None, *dims,
+            scale, stream()))
+        runs["production K2r op"]()
+        want = o.clone()
+        runs["K2r alone"]()
+        if not torch.equal(o2, want):
+            raise RuntimeError("K2r op: not the kernel alone's bits")
+        for name in libs:
+            if name not in PROBES + ("parent", "production"):
+                runs[f"{name} K2r op"]()
+                if not torch.equal(o, want):
+                    raise RuntimeError(f"{name}: K2r op not bit-equal")
+        out["K2r"][str(shape[:6])] = in_turns(
+            {name: (lambda f=f: _back_to_back(f)) for name, f in runs.items()})
+        out["K2r one call"][str(shape[:6])] = in_turns(
+            {name: (lambda f=f: cs._median_ms(f)) for name, f in runs.items()})
+        del q, k, v, mask, part, kcum, o, o2, kc_alone
     return out
 
 
@@ -567,15 +679,18 @@ def main() -> int:
     if args.variants:
         var = variants(args.parent.resolve(), args.rounds)
         for part, rows in var.items():
-            what = ("device ms a launch" if part == "pre-pass" else
+            what = ("device ms a launch" if "pre-pass" in part else
                     "ms of one call by CUDA events around it, host included"
                     if "one call" in part else
                     "ms a call back to back / the host's ms to issue it")
             for shape, by_name in rows.items():
                 print(f"variants, {part} {shape}, {what} (median of "
                       f"{2 * args.rounds}): " + "; ".join(
-                          f"{n} " + ("not measured" if t is None else
-                                     f"{t:.4f}" if not isinstance(t, list)
+                          f"{n} " + ("not measured" if not t and t != 0
+                                     else ", ".join(f"{g} {x:.4f}" for g, x
+                                                    in t.items())
+                                     if isinstance(t, dict)
+                                     else f"{t:.4f}" if not isinstance(t, list)
                                      else f"{t[0]:.4f} / {t[1]:.4f}")
                           for n, t in by_name.items()))
     roots = {"P": args.parent.resolve(), "C": REPO}
@@ -603,6 +718,10 @@ def main() -> int:
         for shape, r in reading["pre-pass"].items():
             print(f"  K1/K2 pre-pass alone {shape}: device " + ", ".join(
                 f"{n} {t:.4f}" for n, t in r.items()) + " ms")
+        for shape, r in reading["K2r pre-pass"].items():
+            print(f"  K2r pre-pass alone {shape}: device " + ", ".join(
+                f"{n} {t:.4f}" for n, t in r.items())
+                + f" ms (total {sum(r.values()):.4f})")
         for shape, r in reading["k6"].items():
             print(f"  K6 {shape}: one call {r['ms']:.4f} ms, back to back "
                   f"{r['back_to_back_ms']:.4f} ms (host {r['host_ms']:.4f} "
@@ -621,11 +740,15 @@ def main() -> int:
     verdict = {}
     if {"P", "C"} <= set(first):
         diffs = _compare(first["P"], first["C"])
+        # K2r's op moves with its pre-pass's bits (kcum's sums in double).
+        unexpected = [d for d in diffs if not d.startswith("/ops/K2r (")]
         verdict = {"bit_equal": not diffs, "differ": diffs,
+                   "unexpected_differ": unexpected,
                    "score_delta": _score_delta(first["C"]["scores"],
                                                first["P"]["scores"])}
         print(f"parent against this tree: outputs and scores bit-equal "
-              f"{not diffs}; differ at {diffs}; max |score delta| by mode "
+              f"{not diffs}; differ at {diffs} (beyond the K2r op: "
+              f"{unexpected}); max |score delta| by mode "
               f"{verdict['score_delta']}")
     print(smi)
     line = json.dumps({"card": smi, "variants": var, "turns": turns,

@@ -1,15 +1,15 @@
-"""Fault controls for B1 and B2 on a CUDA card: each fault planted in a
-copy of the tree, and the card tests of the variants run there.
+"""Fault controls for B1-B3 and K2r's pre-pass on a CUDA card: each fault
+planted in a copy of the tree, and the card tests of its kernel run there.
 
-    python3 tools/variant_faults_torch.py [--out FILE]
+    python3 tools/variant_faults_torch.py [--out FILE] [--only NAME ...]
 
-For each of FAULTS, copies ``mjvideo_tpu_torch/``, ``tests/`` and
-``pytest.ini`` under ``build/variant_faults/<name>/`` (git-ignored),
-applies its one edit (as ``sed`` would: the text must occur exactly once),
-and runs ``tests/test_torch_kernels_variants_sm90.py`` there with its own
-kernel build (``--noconftest -m cuda``).  Prints the card, and for each
-fault the tests that failed; exits non-zero if a fault leaves every test
-passing.
+For each of FAULTS (or those named by ``--only``), copies
+``mjvideo_tpu_torch/``, ``tests/`` and ``pytest.ini`` under
+``build/variant_faults/<name>/`` (git-ignored), applies its one edit (as
+``sed`` would: the text must occur exactly once), and runs the fault's card
+tests there with its own kernel build (``--noconftest -m cuda``).  Prints
+the card, and for each fault the tests that failed; exits non-zero if a
+fault leaves every test passing.
 """
 
 from __future__ import annotations
@@ -23,23 +23,34 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-HEADER = "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh"
-TESTS = "tests/test_torch_kernels_variants_sm90.py"
+CSRC = "mjvideo_tpu_torch/csrc/"
+HEADER = CSRC + "decoder_attention_sm90.cuh"
+VARIANTS = "tests/test_torch_kernels_variants_sm90.py"
+ROWS_BSHD = "tests/test_torch_kernels_rows_bshd_sm90.py"
 
-# (name, file, text, replacement).
+# (name, file, text, replacement, the card tests that must catch it).
 FAULTS = (
     # B1's exp2 modes: the second warpgroup of each CTA leaves its q rows
     # unfolded (and skips its barrier: no other warpgroup waits on it).
     ("fold skips a warpgroup", HEADER,
      "if (VAR == Variant::kFoldQ) {",
-     "if (VAR == Variant::kFoldQ && wq != 1) {"),
+     "if (VAR == Variant::kFoldQ && wq != 1) {", VARIANTS),
     # kExact's rescale of o by alpha is skipped (B1 exp2 and bf16s, B2).
     ("rescale skipped", HEADER, "      if (!kFixed) {",
-     "      if (false) {"),
+     "      if (false) {", VARIANTS),
+    # K2r's scan starts each chunk from 0, not from the earlier chunks'
+    # largest partial.
+    ("scan skips the earlier chunks", CSRC + "decoder_attention.cu",
+     "for (int i = lane; i < c; i += 32)",
+     "for (int i = lane; i < 0; i += 32)", ROWS_BSHD),
+    # B3 walks all S keys, the ones past kv_valid included.
+    ("B3 launches with K = S", CSRC + "vit_attention_variants.cu",
+     "out, B, S, kv_valid, H,", "out, B, S, S, H,", ROWS_BSHD),
 )
 
 
-def run_fault(name: str, source: str, old: str, new: str) -> dict:
+def run_fault(name: str, source: str, old: str, new: str,
+              tests: str) -> dict:
     root = REPO / "build" / "variant_faults" / re.sub(r"\W+", "_", name)
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -54,7 +65,7 @@ def run_fault(name: str, source: str, old: str, new: str) -> dict:
         raise RuntimeError(f"{name}: {old!r} not found once in {source}")
     path.write_text(text.replace(old, new))
     res = subprocess.run(
-        [sys.executable, "-m", "pytest", TESTS, "--noconftest", "-m", "cuda",
+        [sys.executable, "-m", "pytest", tests, "--noconftest", "-m", "cuda",
          "-q", "-rf", "-p", "no:cacheprovider"], cwd=root,
         capture_output=True, text=True)
     failed = re.findall(r"^FAILED (\S+)", res.stdout, re.M)
@@ -65,14 +76,18 @@ def run_fault(name: str, source: str, old: str, new: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="the names of the faults to plant (default: all)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     out = {}
-    for name, source, old, new in FAULTS:
-        out[name] = run_fault(name, source, old, new)
+    for name, source, old, new, tests in FAULTS:
+        if args.only is not None and name not in args.only:
+            continue
+        out[name] = run_fault(name, source, old, new, tests)
         print(f"fault {name!r}: {len(out[name]['failed'])} tests failed "
               f"{out[name]['failed']}; {out[name]['summary']}")
     line = json.dumps({"card": smi, "faults": out})

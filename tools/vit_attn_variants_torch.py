@@ -24,20 +24,26 @@ A/B against another checkout (the parent, a ``git archive`` of it unpacked
 under the git-ignored ``build/``), in one process: each tree's kernels are
 built from its own sources into its own ``build/kernels`` and loaded side
 by side.  On (tiles, 1025, 16, 64) qkv views, B1's modes, B2's hp and B3
-are timed through the C entries (CUDA events around one call, median of
-2 x ``--rounds``) in turns P C C P, each with its device time a launch
-(``torch.profiler``) and ``F.scaled_dot_product_attention`` beside them;
-each tree's B1/B2/B3 outputs are held against their twins, and the K1, K1
-lse, K2, K2 lse, K2r, K3 and K3 lse outputs (at (8, 1025, 16, 64) and the
-judge's (2, 3072, 16/8, 128) with a ragged mask) and B3's are digested in
-both trees and compared bit for bit, as are the registers, spills and
-wgmma warnings of every Hopper instantiation the parent's ptxas reports.
+(and B3 on (tiles, 1032) with kv_valid 1025, the k/v rows past it zero, as
+the JAX harness pads) are timed through the C entries (CUDA events around
+one call, median of 2 x ``--rounds``) in turns P C C P, each with its
+device time a launch (``torch.profiler``) and
+``F.scaled_dot_product_attention`` beside them; each tree's B1/B2/B3
+outputs are held against their twins, and the K1, K1 lse, K2, K2 lse, K2r
+(alone, on the twin's kcum), K3 and K3 lse outputs (at (8, 1025, 16, 64)
+and the judge's (2, 3072, 16/8, 128) with a ragged mask) and B1's and
+B2's are digested in both trees and compared bit for bit, as are the
+registers, spills and wgmma warnings of every Hopper instantiation the
+parent's ptxas reports.  The outputs a change of B3's or K2r's pre-pass
+may move (EXPECTED_TO_DIFFER: B3, kcum and the K2r op on it) are reported
+by their largest difference between the trees instead.
 
     python3 tools/vit_attn_variants_torch.py --configs [--rounds 10]
 
 The A/B that chose B1's Config and B2's for each hp (``using
 VariantConfig = ...`` and ``using HpN = ...`` in
-``csrc/vit_attention_variants.cu``): each of CONFIGS rewritten into a copy
+``csrc/vit_attention_variants.cu``; B3 takes Hp1's and is timed with it):
+each of CONFIGS rewritten into a copy
 of ``csrc/`` under ``build/variant_configs/`` and built alone, all at once;
 each held against its twin, then timed through the C entries in turns with
 ``F.scaled_dot_product_attention``.
@@ -175,10 +181,16 @@ CONFIGS = (("VariantConfig", "sm90::D64"),
            ("Hp4", "sm90::Config<64, 4, 3, 4, 64>"),
            ("Hp4", "sm90::Config<64, 4, 2, 4, 64>"))
 # The Hopper kernels whose ptxas lines --parent compares (chip_smoke's
-# SM90_KERNELS).
+# SM90_KERNELS, and the kernels that earlier trees had in their place).
 PTXAS_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
-                 "key_norm_cummax_kernel", "key_norm_partial_kernel",
-                 "key_norm_fold_kernel", "variant_attention_kernel")
+                 "key_norm_scan_kernel", "key_norm_partial_kernel",
+                 "key_norm_fold_kernel", "key_norm_cummax_kernel",
+                 "variant_attention_kernel")
+# Kernels that a tree may have replaced (B3's WMMA kernel, K2r's one-CTA
+# pre-pass): listed by tree, not compared.
+REPLACED = ("variant_attention_kernel", "key_norm_cummax_kernel")
+# --parent's outputs that B3's and K2r's pre-pass redesign may move.
+EXPECTED_TO_DIFFER = ("B3", "B3 kv_valid 1025", "kcum", "K2r op")
 
 
 def load_kernels(root: Path, tag: str):
@@ -224,6 +236,24 @@ def entry_runs(lib, q, k, v, out) -> dict:
     return runs
 
 
+def padded_b3_run(lib, q, k, v, out, kv_valid):
+    """One call of ``lib``'s B3 C entry on the (B, S, H, D) q, k, v with
+    ``kv_valid`` keys, into ``out``."""
+    import torch
+
+    B, S_, H_, D_ = q.shape
+
+    def run():
+        err = lib.mjv_vit_attention_bshd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S_,
+            H_, D_, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), D_ ** -0.5, kv_valid,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+    return run
+
+
 def digest(t) -> str:
     import torch
 
@@ -232,12 +262,15 @@ def digest(t) -> str:
                           .tobytes()).hexdigest()[:16]
 
 
-def main_path_digests(kern, dev, seed=0) -> dict:
-    """Digests of K1, K1 lse, K2, K2 lse, K2r, K3 and K3 lse through the
-    wrappers of ``kern`` (a tree's kernels module) on seeded inputs: the
-    ViT's (8, 1025, 16, 64) qkv views and the judge's (2, 3072, 16/8, 128)
-    with a ragged key mask."""
+def main_path_digests(kern, dev, seed=0, keep=None) -> dict:
+    """Digests of K1, K1 lse, K2, K2 lse, K2r, kcum, the K2r op, K3 and K3
+    lse through the wrappers of ``kern`` (a tree's kernels module) on
+    seeded inputs: the ViT's (8, 1025, 16, 64) qkv views and the judge's
+    (2, 3072, 16/8, 128) with a ragged key mask.  ``keep`` (a dict), if
+    given, receives the outputs named in EXPECTED_TO_DIFFER."""
     import torch
+
+    from mjvideo_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -265,9 +298,15 @@ def main_path_digests(kern, dev, seed=0) -> dict:
     o, lse = kern.decoder_attention(q, k, v, mask, kmax, None, scale,
                                     with_lse=True)
     out["K2 lse"] = digest(o) + digest(lse)
+    # K2r alone on the twin's kcum (the same in both trees), then the op's
+    # form on each tree's own pre-pass.
+    out["K2r"] = digest(kern.decoder_attention_rows(
+        q, k, v, mask, fa.key_norm_cummax(k, mask), None, scale))
     kcum = kern.key_norm_cummax(k, mask)
-    out["K2r"] = digest(kern.decoder_attention_rows(q, k, v, mask, kcum,
-                                                    None, scale))
+    op = kern.decoder_attention_rows(q, k, v, mask, kcum, None, scale)
+    out["kcum"], out["K2r op"] = digest(kcum), digest(op)
+    if keep is not None:
+        keep.update({"kcum": kcum, "K2r op": op})
     out["K3"] = digest(kern.exact_attention(q, k, v, mask, None, scale))
     o, lse = kern.exact_attention(q, k, v, mask, None, scale, with_lse=True)
     out["K3 lse"] = digest(o) + digest(lse)
@@ -286,6 +325,8 @@ def ptxas_lines(lib_path: Path) -> dict:
         # back-references shift with the new Variant argument.
         mangled = mangled.replace("ELi1ELi128EE", "EE")
         mangled = mangled.replace("ELNS0_7VariantE0E", "E")
+        if "key_norm_partial_kernel" in mangled:  # the NORMS flag's default
+            mangled = mangled.replace("ELb0EE", "EE")
         end = mangled.find("Ev")
         return mangled if end < 0 else mangled[:end + 2]
 
@@ -319,6 +360,7 @@ def parent_ab(parent: Path, tiles: int, rounds: int) -> dict:
 
     from chip_smoke import (KERNEL_REL_TOL, _attention_work, _bound,
                             _in_turns, _rel_err, _sdpa, device_ms)
+    from mjvideo_tpu_torch.ops import vit_attention_variants as va
 
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         trees = dict(zip("PC", pool.map(
@@ -327,31 +369,56 @@ def parent_ab(parent: Path, tiles: int, rounds: int) -> dict:
     out = {"ptxas": {}, "digests": {}, "errors": {}}
     ptx = {t: ptxas_lines(kern.build()) for t, kern in trees.items()}
     for name, row in ptx["P"].items():
-        out["ptxas"][name] = {"P": row, "C": ptx["C"].get(name)}
+        if not any(r in name for r in REPLACED):
+            out["ptxas"][name] = {"P": row, "C": ptx["C"].get(name)}
     out["ptxas_changed"] = [n for n, r in out["ptxas"].items()
-                            if r["C"] != r["P"] and
-                            "variant_attention_kernel" not in n]
-    # The WMMA kernel of each tree (B1-B3's templates in the parent, B3's
-    # one form here), by tree.
-    out["ptxas_wmma"] = {f"{t} {n}": r for t in ptx for n, r in
-                         ptx[t].items() if "variant_attention_kernel" in n}
+                            if r["C"] != r["P"]]
+    # The kernels a tree replaced, and the new ones, by tree.
+    out["ptxas_replaced"] = {f"{t} {n}": r for t in ptx for n, r in
+                             ptx[t].items() if any(x in n for x in REPLACED)}
+    out["ptxas_new"] = [n for n in ptx["C"] if n not in ptx["P"]]
+    kept = {t: {} for t in trees}
     for t, kern in trees.items():
-        out["digests"][t] = main_path_digests(kern, dev)
+        out["digests"][t] = main_path_digests(kern, dev, keep=kept[t])
     q, k, v = make_inputs(tiles, dev)
+    # The JAX harness's B3: the token axis pre-padded to 1032, k and v rows
+    # zero past 1025 (kv_valid).
+    qp, kp, vp = (torch.cat([t, torch.zeros_like(t[:, :7])], 1)
+                  for t in (q, k, v))
     bufs = {t: torch.empty(q.shape, dtype=q.dtype, device=dev)
+            for t in trees}
+    pads = {t: torch.empty(qp.shape, dtype=q.dtype, device=dev)
             for t in trees}
     entries = {t: entry_runs(kern._lib, q, k, v, bufs[t])
                for t, kern in trees.items()}
+    for t, kern in trees.items():
+        entries[t]["B3 kv_valid 1025"] = padded_b3_run(kern._lib, qp, kp, vp,
+                                                       pads[t], S)
+    got = {t: {} for t in trees}
     for name in entries["C"]:
+        padded = name == "B3 kv_valid 1025"
         for t in trees:
             entries[t][name]()
-            got = bufs[t].clone()
-            out["errors"][f"{t} {name}"] = _rel_err(got, twin(name, q, k,
-                                                              v))[1]
-            out["digests"][t][name] = digest(got)
+            got[t][name] = (pads if padded else bufs)[t].clone()
+            want = (va.bshd_attention_plain(qp, kp, vp, S).view(qp.shape)
+                    if padded else twin(name, q, k, v))
+            out["errors"][f"{t} {name}"] = _rel_err(got[t][name], want)[1]
+            out["digests"][t][name] = digest(got[t][name])
         if out["errors"][f"C {name}"] > KERNEL_REL_TOL:
             raise RuntimeError(f"{name}: beyond its bound "
                                f"{out['errors'][f'C {name}']:.3e}")
+    # B3 is B2's hp 1 over its live keys, to the bit.
+    c = got["C"]
+    out["b3_is_b2_hp1"] = {
+        "B3": bool(torch.equal(c["B3"], c["B2 hp=1"])),
+        "B3 kv_valid 1025": bool(torch.equal(
+            c["B3 kv_valid 1025"][:, :S], c["B2 hp=1"]))}
+    for t in trees:
+        kept[t].update({n: got[t][n] for n in EXPECTED_TO_DIFFER
+                        if n in got[t]})
+    out["max_abs_delta"] = {
+        n: (kept["C"][n].float() - kept["P"][n].float()).abs().max().item()
+        for n in EXPECTED_TO_DIFFER}
     runs = {"SDPA": _sdpa(q, k, v, causal=False)}
     order = ["SDPA"]
     for name in entries["C"]:
@@ -362,8 +429,12 @@ def parent_ab(parent: Path, tiles: int, rounds: int) -> dict:
     out["device_ms"] = {n: sum(device_ms(fn).values()) or None
                         for n, fn in runs.items()}
     out["bound"] = _bound(*_attention_work(q, k, v, None, causal=False))
+    out["bound_kv_valid_1025"] = _bound(*_attention_work(
+        qp, k, v, None, causal=False))
     out["differ"] = [n for n, d in out["digests"]["C"].items()
                      if out["digests"]["P"].get(n) != d]
+    out["unexpected_differ"] = [n for n in out["differ"]
+                                if n not in EXPECTED_TO_DIFFER]
     return out
 
 
@@ -410,6 +481,8 @@ def config_ab(tiles: int, rounds: int) -> dict:
         runs = {"SDPA": _sdpa(q, k, v, causal=False)}
         names = ([f"B1 {m}" for m in kernels.VARIANT_MODES]
                  if alias == "VariantConfig" else [f"B2 hp={alias[2:]}"])
+        if alias == "Hp1":  # B3 walks B2's hp 1 Config
+            names.append("B3")
         for (cal, config), path in zip(CONFIGS, paths):
             if cal != alias:
                 continue
@@ -444,16 +517,22 @@ def report_parent(got: dict, rounds: int) -> None:
     """Print the ``--parent`` readings."""
     for name, row in got["ptxas"].items():
         print(f"ptxas {name[:90]}: parent {row['P']}, this tree {row['C']}")
-    for name, row in got["ptxas_wmma"].items():
-        print(f"ptxas {name[:110]}: {row}")
-    print(f"ptxas lines changed: {got['ptxas_changed']}")
+    for name, row in got["ptxas_replaced"].items():
+        print(f"ptxas (replaced) {name[:110]}: {row}")
+    print(f"ptxas lines changed: {got['ptxas_changed']}; kernels new in "
+          f"this tree: {got['ptxas_new']}")
     for tree in "PC":
         print(f"digests {tree}: {got['digests'][tree]}")
-    print(f"outputs that differ between the trees: {got['differ']}")
+    print(f"outputs that differ between the trees: {got['differ']}; "
+          f"beyond EXPECTED_TO_DIFFER: {got['unexpected_differ']}")
+    print("max|this tree - parent| of the outputs expected to differ: "
+          + ", ".join(f"{n} {d:.3e}" for n, d in got["max_abs_delta"].items()))
+    print(f"B3 bit-equal to B2 hp=1 on its live keys: {got['b3_is_b2_hp1']}")
     b = got["bound"]
     print(f"ms of one C call in turns P C C P (median of {2 * rounds}); "
           f"device ms a launch; bound {b['bound_ms']:.4f} ms by "
-          f"{b['bound_by']}:")
+          f"{b['bound_by']} (B3 kv_valid 1025: "
+          f"{got['bound_kv_valid_1025']['bound_ms']:.4f} ms):")
     for name, ms in got["ms"].items():
         dev = got["device_ms"][name]
         err = got["errors"].get(name)
