@@ -251,6 +251,34 @@ Phases (any failure raises and exits non-zero):
    BLOCK_CHAIN chained blocks BLOCK_REPS times and a profiler pass of 4).
    The summary line lists the three kernels with ``"on_main_path":
    false`` and their launches in this phase.
+22. Serving from a checkpoint directory and from decoded frames (after
+   phase 4, on its bf16 state; nothing in it is caught).  The checkpoint
+   round trip: ``save_reward_checkpoint_dir`` writes the state (F32, as
+   the JAX exporter writes it) into a temporary directory, printing the
+   free disk space first and then the bytes and seconds written;
+   ``load_reward_model`` reads it back to the card in bf16; every leaf is
+   held bit-equal to phase 4's and phase 4's requests must score
+   bit-equal to phase 4's scores; prints the load's seconds, its peak
+   device memory above the state already held, and the process's host
+   RSS before and after with its peak.  The frames path: FRAMES seeded
+   uint8 frames of FRAME_HW per clip, ``RewardScorer(device_preprocess=
+   True)`` at each ``device_max_num`` of FRAME_MAX_NUMS (8 and 72 tiles a
+   clip: 1280x720 tiles as (4, 2) plus the thumbnail at 12), scoring one
+   clip and a pair of ByteTokenizer prompts (at 12 in a bucket of whole
+   1,024-token blocks, ~19.5k); per dispatch exactly 24 K1, 24 K2 and 48
+   ``key_norm_max``; the scores held within SCORE_TOL of the same frames
+   through the same preprocessing in fp32 with ``attn_impl="plain"``; the
+   card's preprocessing (the resize, before the normalisation) within 1
+   level of the CPU's on one clip, with the share of values that differ.
+   Then the micro-batch sweep: SWEEP_CLIPS clips on the frames path at
+   ``max_num`` 1 for each ``device_batch`` in SWEEP_BATCHES, clips/s (the
+   median of SWEEP_REPS calls after the counted one), the launches per call
+   and each setting's largest score difference from one forward.  Last,
+   the bytes handed to the scorer and the ms per clip of the single clip
+   on the frames path against phase 4's normalised pixels.  Phase 3 holds
+   the K2 op at the frames path's largest decoder shape (the pre-pass
+   against its twin, the op bit-equal to the kernel alone) and phase 2
+   K1 at its largest ViT batch (FRAME_TILES_MAX tiles).
 """
 
 from __future__ import annotations
@@ -440,6 +468,23 @@ BLOCK_REPS = 3
 # only (each held to KERNEL_REL_TOL above); this bar catches a block that
 # took a wrong route or lost rows.
 BLOCK_REL_TOL = 2 ** -5
+# Phase 22: decoded frames of 1280x720 (height, width), scored with the
+# device's preprocessing at one tile a frame and at max_num 12 (a (4, 2)
+# grid plus the thumbnail: 72 tiles a clip of FRAMES frames, 144 a pair);
+# prompts past 3,072 tokens take a bucket of whole 1,024-token blocks.
+FRAME_HW = (720, 1280)
+FRAME_MAX_NUMS = (1, 12)
+FRAME_TILES_MAX = 2 * FRAMES * 9
+FRAME_BUCKET_UNIT = 1024
+FRAME_CAPTIONS = ("A red fox runs through fresh snow at dawn.",
+                  "Two kittens chase a ball of yarn across a wooden floor.",
+                  "A sailboat drifts past a lighthouse while gulls circle "
+                  "overhead and waves break on the rocks below.")
+# The micro-batch sweep: clips a call, the device_batch settings, and the
+# timed calls of each after the call whose launches are counted.
+SWEEP_CLIPS = 8
+SWEEP_BATCHES = (1, 2, 4, 8)
+SWEEP_REPS = 5
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -961,17 +1006,17 @@ def check_decoder_kernels(randn, shape, ragged, live=None):
     return readings
 
 
-def check_long_k2_op(randn):
-    """The K2 op at phase 20's no-SP decoder shape, (1, LONG_KEYS[0], 16/8,
-    128) with the prompt's keys live: the pre-pass (256 partials per kv
-    head) against its twin, and the op, with the lse and without,
-    bit-equal to the kernel alone on the standalone kmax (``_hold_op``; the
-    plain twin's (Q, K) scores would not fit).  Returns the readings."""
+def check_long_k2_op(randn, shape=(1, LONG_KEYS[0], 16, 8, 128),
+                     live=LONG_KEYS[1]):
+    """The K2 op at a long decoder shape with each row's first ``live``
+    keys live: phase 20's no-SP (1, LONG_KEYS[0], 16/8, 128), or phase
+    22's pair at max_num 12: the pre-pass (up to 256 partials per kv head)
+    against its twin, and the op, with the lse and without, bit-equal to
+    the kernel alone on the standalone kmax (``_hold_op``; the plain
+    twin's (Q, K) scores would not fit).  Returns the readings."""
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
-    T, live = LONG_KEYS
-    shape = (1, T, 16, 8, 128)
     q, k, v, mask, _ = _decoder_inputs(randn, *shape, False, live)
     scale = shape[-1] ** -0.5
     out = {"pre-pass": _check_prepass(str(shape), k, mask)}
@@ -3180,6 +3225,312 @@ def long_context_phase(scorer, dev):
     return out, launches
 
 
+def frame_prompts(cfg, tok, gating_pattern, max_num, captions):
+    """The prompts of FRAMES-frame clips of FRAME_HW on the frames path at
+    ``max_num``: (ids list, gating positions, tiles a frame)."""
+    from mjvideo_tpu_torch import build_video_question, prepare_chat_input
+    from mjvideo_tpu_torch.eval.scorer import device_grid, tiles_per_frame
+
+    per_frame = tiles_per_frame(cfg, device_grid(cfg, max_num, *FRAME_HW[::-1]))
+    ids, gpos = [], []
+    for caption in captions:
+        chat = prepare_chat_input(cfg.chat, tok,
+                                  build_video_question(caption, FRAMES),
+                                  num_patches_list=[per_frame] * FRAMES,
+                                  gating_pattern=gating_pattern)
+        ids.append(chat.input_ids[0])
+        gpos.append(chat.gating_pos)
+    return ids, gpos, per_frame
+
+
+def frame_buckets(ids):
+    """The scorer's buckets, with one of whole FRAME_BUCKET_UNIT blocks for
+    prompts past the largest."""
+    buckets = (1024, 2304, 3072)
+    n = max(len(i) for i in ids)
+    if n > buckets[-1]:
+        buckets += (-(-n // FRAME_BUCKET_UNIT) * FRAME_BUCKET_UNIT,)
+    return buckets
+
+
+def frames_decoder_shape():
+    """Phase 22's largest decoder shape, the pair at the largest max_num:
+    ((2, bucket, 16, 8, 128), the shorter prompt's length)."""
+    from mjvideo_tpu_torch import ByteTokenizer, mjvideo_2b_config
+    from mjvideo_tpu_torch.data.prompts import rebase_img_context_id
+
+    cfg = mjvideo_2b_config()
+    tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
+    ids, _, _ = frame_prompts(rebase_img_context_id(cfg, tok), tok,
+                              tok.gating_pattern(), max(FRAME_MAX_NUMS),
+                              FRAME_CAPTIONS[1:])
+    return (2, frame_buckets(ids)[-1], 16, 8, 128), min(len(i) for i in ids)
+
+
+def _flat_state(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _rss_bytes():
+    """The process's resident set now (VmRSS) and its peak (ru_maxrss)."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        now = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    return now * 1024, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def checkpoint_phase(scorer, requests, scores, dev):
+    """Phase 22's checkpoint round trip on phase 4's state.  Returns the
+    readings and the launch counts of the reloaded scorer's requests."""
+    import os
+    import shutil
+
+    import torch
+
+    from mjvideo_tpu_torch import (
+        RewardScorer,
+        kernels,
+        load_reward_model,
+        save_reward_checkpoint_dir,
+    )
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        out["free_disk_bytes"] = shutil.disk_usage(d).free
+        print(f"checkpoint: {out['free_disk_bytes'] / 2**30:.2f} GiB free "
+              "where it is written")
+        t0 = time.perf_counter()
+        save_reward_checkpoint_dir(d, scorer.params, scorer.cfg)
+        out["write_s"] = time.perf_counter() - t0
+        out["bytes"] = os.path.getsize(os.path.join(d, "model.safetensors"))
+        print(f"checkpoint: wrote {out['bytes']} bytes (F32) in "
+              f"{out['write_s']:.2f} s")
+        rss0, rss_peak0 = _rss_bytes()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cfg, state = load_reward_model(d)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_peak_above_gib"] = (torch.cuda.max_memory_allocated(dev)
+                                      - base) / 2**30
+        out["state_gib"] = (torch.cuda.memory_allocated(dev) - base) / 2**30
+        rss1, rss_peak1 = _rss_bytes()
+    out.update(rss_before_gib=rss0 / 2**30, rss_after_gib=rss1 / 2**30,
+               rss_peak_before_gib=rss_peak0 / 2**30,
+               rss_peak_after_gib=rss_peak1 / 2**30)
+    print(f"checkpoint: loaded to the card (bf16) in {out['load_s']:.2f} s; "
+          f"state {out['state_gib']:.2f} GiB, device peak "
+          f"{out['load_peak_above_gib']:.2f} GiB above what was held before; "
+          f"host RSS {out['rss_before_gib']:.2f} -> "
+          f"{out['rss_after_gib']:.2f} GiB, process peak "
+          f"{out['rss_peak_before_gib']:.2f} -> "
+          f"{out['rss_peak_after_gib']:.2f} GiB")
+    made, back = _flat_state(scorer.params), _flat_state(state)
+    if set(made) != set(back):
+        raise RuntimeError(f"checkpoint leaves {sorted(set(made) ^ set(back))}")
+    bad = [n for n, t in made.items() if not (
+        back[n].dtype == t.dtype and back[n].device == t.device
+        and torch.equal(back[n], t))]
+    if bad:
+        raise RuntimeError(f"checkpoint leaves not bit-equal: {bad}")
+    out["leaves"] = len(made)
+    sc = RewardScorer(cfg, state, scorer.tokenizer, dtype=scorer.dtype,
+                      gating_pattern=scorer.gating_pattern)
+    kernels.reset_launch_counts()
+    got = torch.cat([sc.score_batch(*r).score for r in requests])
+    torch.cuda.synchronize()
+    launches = _held_launches("checkpoint round trip", _with_prepass({
+        "vit_attention": 24 * len(requests),
+        "decoder_attention": 24 * len(requests)}))
+    got = got.float().cpu()
+    out["scores_bit_equal"] = bool(torch.equal(got, scores))
+    print(f"checkpoint: {len(made)} leaves bit-equal; scores {got.tolist()}"
+          f" bit-equal to phase 4's: {out['scores_bit_equal']}")
+    if not out["scores_bit_equal"]:
+        raise RuntimeError(f"reloaded scores {got.tolist()} against "
+                           f"{scores.tolist()}")
+    del sc, state
+    torch.cuda.empty_cache()
+    return out, {"checkpoint": launches}
+
+
+def _levels(card, cpu):
+    """(max |card - cpu| in levels, the share of values that differ)."""
+    diff = (card.cpu() - cpu).abs()
+    return diff.max().item(), (diff > 0).double().mean().item()
+
+
+def frames_phase(scorer, requests, dev):
+    """Phase 22's frames path at each of FRAME_MAX_NUMS on phase 4's state,
+    the card's preprocessing against the CPU's, and the bytes and ms per
+    clip beside phase 4's normalised pixels.  Returns the readings and the
+    launch counts by path."""
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels, map_state
+    from mjvideo_tpu_torch.ops import preprocess as pre
+
+    cfg, tok, gp = scorer.cfg, scorer.tokenizer, scorer.gating_pattern
+    h, w = FRAME_HW
+    size = cfg.chat.image_size
+    per_dispatch = _with_prepass({
+        "vit_attention": cfg.chat.vision.num_hidden_layers,
+        "decoder_attention": cfg.chat.llm.num_hidden_layers})
+    frames = np.random.default_rng(SEED + 22).integers(
+        0, 256, (len(FRAME_CAPTIONS) * FRAMES, h, w, 3), dtype=np.uint8)
+    clip = torch.from_numpy(frames[:FRAMES])
+    plain = map_state(lambda t: t.float(), scorer.params)
+    out, launches = {}, {}
+    for m in FRAME_MAX_NUMS:
+        ids, gpos, per_frame = frame_prompts(cfg, tok, gp, m, FRAME_CAPTIONS)
+        kw = dict(gating_pattern=gp, length_buckets=frame_buckets(ids),
+                  device_preprocess=True, device_max_num=m)
+        sc = RewardScorer(cfg, scorer.params, tok, dtype=scorer.dtype, **kw)
+        reqs = [(frames[:FRAMES], ids[:1], gpos[:1]),
+                (frames[FRAMES:], ids[1:], gpos[1:])]
+        print(f"frames path (max_num {m}): {per_frame} tiles a frame, "
+              f"{FRAMES * per_frame} a clip, prompts "
+              f"{[len(i) for i in ids]}, buckets {sc.buckets}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        got = [sc.score_batch(*r).score for r in reqs]
+        torch.cuda.synchronize()
+        launches[f"frames_max_num_{m}"] = _held_launches(
+            f"frames path (max_num {m}), {len(reqs)} dispatches",
+            {k: n * len(reqs) for k, n in per_dispatch.items()})
+        peak = torch.cuda.max_memory_allocated(dev)
+        got = torch.cat(got).float().cpu()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"max_num {m}: non-finite scores {got}")
+        ref_sc = RewardScorer(cfg, plain, tok, dtype=torch.float32,
+                              attn_impl="plain", **kw)
+        ref = torch.cat([ref_sc.score_batch(*r).score for r in reqs])
+        ref = ref.float().cpu()
+        delta = (got - ref).abs().max().item()
+        # The card's preprocessing of one clip against the CPU's, in levels
+        # before the normalisation: each resize the tiles are cut from (the
+        # grid's, and the thumbnail's where there is one).
+        cols, rows = sc._device_grid(w, h)
+        outs = [(rows * size, cols * size)] + (
+            [(size, size)] if per_frame > cols * rows else [])
+        lv = [_levels(pre.resize_bicubic_device(clip.to(dev), *o),
+                      pre.resize_bicubic_device(clip, *o)) for o in outs]
+        levels, share = max(x[0] for x in lv), max(x[1] for x in lv)
+        ms = _host_ms(lambda: sc.score_batch(*reqs[0]), reps=5)
+        out[m] = {"tiles_per_clip": FRAMES * per_frame,
+                  "prompts": [len(i) for i in ids], "bucket": sc.buckets[-1],
+                  "scores": got.tolist(), "fp32_plain": ref.tolist(),
+                  "max_abs_delta": delta, "preprocess_levels": levels,
+                  "preprocess_share_differing": share,
+                  "ms_per_clip": ms, "peak_gib": peak / 2**30,
+                  "bytes_per_clip": frames[:FRAMES].nbytes,
+                  "host_tiled_fp32_bytes_per_clip":
+                      FRAMES * per_frame * size * size * 3 * 4}
+        print(f"frames path (max_num {m}): scores {got.tolist()}, fp32 "
+              f"plain {ref.tolist()}, max |delta| {delta:.3e} (bound "
+              f"{SCORE_TOL:.0e}); preprocessing on the card against the CPU:"
+              f" max {levels:.0f} level(s), {share:.3e} of values differ; "
+              f"single clip {ms:.1f} ms (median of 5, the uint8 frames' copy "
+              f"and the preprocessing included); peak memory "
+              f"{peak / 2**30:.2f} GiB")
+        if not (delta < SCORE_TOL and levels <= 1.0):
+            raise RuntimeError(f"frames path (max_num {m}): {out[m]}")
+        del sc, ref_sc
+        torch.cuda.empty_cache()
+    del plain
+    torch.cuda.empty_cache()
+    pix = requests[0][0]
+    base_ms = _host_ms(lambda: scorer.score_batch(*requests[0]), reps=5)
+    out["normalized_path"] = {"ms_per_clip": base_ms,
+                              "bytes_per_clip": pix.nbytes}
+    for m in FRAME_MAX_NUMS:
+        print(f"bytes to the scorer per clip: frames (uint8 {h}x{w}) "
+              f"{out[m]['bytes_per_clip']}, host-tiled normalised fp32 at "
+              f"max_num {m} {out[m]['host_tiled_fp32_bytes_per_clip']} "
+              f"(computed from the shapes); ms per clip {out[m]['ms_per_clip']:.1f}"
+              f" on the frames path at max_num {m}")
+    print(f"phase 4's path (normalised fp32 tiles, {pix.nbytes} bytes a "
+          f"clip): {base_ms:.1f} ms per clip (median of 5)")
+    return out, launches
+
+
+def microbatch_sweep(scorer, dev):
+    """Phase 22's sweep of ``device_batch`` on the frames path at max_num 1:
+    SWEEP_CLIPS clips a call.  Returns the readings and the launch counts
+    (summed over the settings)."""
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels
+
+    cfg, tok, gp = scorer.cfg, scorer.tokenizer, scorer.gating_pattern
+    h, w = FRAME_HW
+    captions = [f"{FRAME_CAPTIONS[i % len(FRAME_CAPTIONS)]} Take {i}."
+                for i in range(SWEEP_CLIPS)]
+    ids, gpos, _ = frame_prompts(cfg, tok, gp, 1, captions)
+    frames = np.random.default_rng(SEED + 23).integers(
+        0, 256, (SWEEP_CLIPS * FRAMES, h, w, 3), dtype=np.uint8)
+    per_dispatch = _with_prepass({
+        "vit_attention": cfg.chat.vision.num_hidden_layers,
+        "decoder_attention": cfg.chat.llm.num_hidden_layers})
+    out, total, scores = {}, {}, {}
+    for b in SWEEP_BATCHES:
+        sc = RewardScorer(cfg, scorer.params, tok, dtype=scorer.dtype,
+                          gating_pattern=gp, device_preprocess=True,
+                          device_batch=b)
+        calls = -(-SWEEP_CLIPS // b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        scores[b] = sc.score_batch(frames, ids, gpos).score.float().cpu()
+        torch.cuda.synchronize()
+        got = _held_launches(f"device_batch {b}", {
+            k: n * calls for k, n in per_dispatch.items()})
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        peak = torch.cuda.max_memory_allocated(dev)
+        times = []  # after the counted call, which warms up
+        for _ in range(SWEEP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc.score_batch(frames, ids, gpos)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        s = statistics.median(times)
+        out[b] = {"clips_per_s": SWEEP_CLIPS / s, "ms": s * 1e3,
+                  "ms_all": [x * 1e3 for x in times], "dispatches": calls,
+                  "launches_per_dispatch": {k: n // calls for k, n in
+                                            got.items() if n},
+                  "peak_gib": peak / 2**30}
+        del sc
+        torch.cuda.empty_cache()
+    one = scores[max(SWEEP_BATCHES)]
+    for b in SWEEP_BATCHES:
+        out[b]["max_abs_delta_vs_one_forward"] = (
+            scores[b] - one).abs().max().item()
+        print(f"device_batch {b}: {out[b]['clips_per_s']:.2f} clips/s "
+              f"({SWEEP_CLIPS} clips, median of {SWEEP_REPS} calls: "
+              f"{out[b]['ms']:.1f} ms; {out[b]['dispatches']} dispatches of "
+              f"{out[b]['launches_per_dispatch']}), peak memory "
+              f"{out[b]['peak_gib']:.2f} GiB, max |score - one forward's| "
+              f"{out[b]['max_abs_delta_vs_one_forward']:.3e}")
+        if not out[b]["max_abs_delta_vs_one_forward"] < SCORE_TOL:
+            raise RuntimeError(f"device_batch {b}: scores {scores[b]} "
+                               f"against one forward's {one}")
+    return out, {"microbatch_sweep": total}
+
+
 def main() -> int:
     import torch
 
@@ -3236,6 +3587,12 @@ def main() -> int:
     dec[grad_shape] = check_decoder_kernels(drawer(generator()), grad_shape,
                                             ragged=False, live=grad_live)
     long_k2 = check_long_k2_op(drawer(generator()))
+    # Phase 22's largest shapes: the pair's decoder at max_num 12, and its
+    # 144 tiles through the ViT.
+    frames_k2 = check_long_k2_op(drawer(generator()), *frames_decoder_shape())
+    frames_k1_shape = (FRAME_TILES_MAX,) + K1_SHAPES[0][1:]
+    k1[frames_k1_shape] = check_vit_attention(drawer(generator()),
+                                              frames_k1_shape)
     judge_k = {name: check_judge_kernels(randn, name, shape)
                for name, shape in JUDGE_SHAPES.items()}
     turns = time_shifts_in_turns(randn)
@@ -3315,6 +3672,12 @@ def main() -> int:
     delta, _, fp32_scores = plain_score_delta(scorer, requests, scores)
     if not delta < SCORE_TOL:
         raise RuntimeError(f"score delta {delta} >= {SCORE_TOL}")
+    # Phase 22: serving from a checkpoint directory and from decoded frames.
+    t0 = time.perf_counter()
+    ckpt_out, ckpt_launches = checkpoint_phase(scorer, requests, scores, dev)
+    frames_out, frames_launches = frames_phase(scorer, requests, dev)
+    sweep_out, sweep_launches = microbatch_sweep(scorer, dev)
+    print(f"phase 22 command time {time.perf_counter() - t0:.1f} s")
     # Phase 18: sequence-parallel scoring on the same bf16 state.
     sp_scored, sp_score_launches = sp_scoring_phase(
         scorer, requests, scores, fp32_scores, pair_s * 1e3, peak, dev)
@@ -3357,7 +3720,8 @@ def main() -> int:
     by_path = {"serving": launches, "training": train_launches,
                **judge_launches, **quant_launches, **quant_judge_launches,
                "reward_gradient": grad_launches, "vader": vader_launches,
-               **sp_score_launches, **sp_train_launches, **long_launches}
+               **sp_score_launches, **sp_train_launches, **long_launches,
+               **ckpt_launches, **frames_launches, **sweep_launches}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -3439,6 +3803,7 @@ def main() -> int:
          "op_device_ms": turns["K2 op device_ms"],
          "op_back_to_back_ms": turns["K2 op back_to_back_ms"],
          "long_clip_op": long_k2["op"],
+         "frames_pair_op": frames_k2["op"],
          "sdpa_ms_in_turns": turns["SDPA"], "turns_shape": judged,
          "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K2", "K2 kernel")}
                        for sh, r in dec.items()}},
@@ -3464,6 +3829,10 @@ def main() -> int:
                        **brief(long_k2["pre-pass"]),
                        **{f: long_k2["pre-pass"][f] for f in (
                            "device_ms", "parts")}},
+         "frames_pair": {"shape": frames_decoder_shape()[0],
+                         **brief(frames_k2["pre-pass"]),
+                         **{f: frames_k2["pre-pass"][f] for f in (
+                             "device_ms", "parts")}},
          "at_shapes": {str(sh): brief(r["K2 pre-pass"]) | {
              "device_ms": r["K2 pre-pass"]["device_ms"]}
              for sh, r in dec.items()}},
@@ -3630,6 +3999,9 @@ def main() -> int:
         "quantized_judge": quant_judged, "reward_gradient": grad_out,
         "vader": vader_out, "sp_scoring": sp_scored, "ptxas": ptxas,
         "sp_training": sp_trained, "long_context": long_out,
+        "serving_from_files": {"checkpoint": ckpt_out, "frames": {
+            str(k): v for k, v in frames_out.items()},
+            "device_batch_sweep": {str(k): v for k, v in sweep_out.items()}},
         "sp_kernels": {f"{name} {off}": {key: r[key] for key in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
             for (name, off), r in ring_k.items()}}

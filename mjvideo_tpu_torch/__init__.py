@@ -8,15 +8,21 @@ scatter -> InternLM2 decoder -> reward head), its training step
 CUDA kernels for the attention forwards and backward and the quantized
 products (``kernels.py``, ``csrc/``); quantized serving
 (``RewardScorer(quant=...)``, ``InternVLJudge(quant=...)``) through
-``ops/quant.py`` and ``ops/quant4.py``.  The JAX package stays the
-reference; the port imports nothing of it and keeps its own copies of the
-configuration, prompt and video modules (``configs.py``, ``data/``).
+``ops/quant.py`` and ``ops/quant4.py``.  Serving from a checkpoint
+directory and a video: ``load_reward_model`` (the HF safetensors importer,
+``utils/checkpoint.py``; ``save_reward_checkpoint_dir`` is its exporter)
+-> ``RewardScorer`` -> ``score_video`` / ``score_pair``, with the clip's
+frames resized and tiled on the device under ``device_preprocess=True``
+(``ops/preprocess.py``).  The JAX package stays the reference; the port
+imports nothing of it and keeps its own copies of the configuration,
+prompt and video modules (``configs.py``, ``data/``).
 """
 
 from .configs import (  # noqa: F401
     ChatConfig,
     RewardConfig,
     internvl2_2b_chat_config,
+    load_config,
     mjvideo_2b_config,
     tiny_test_config,
 )
@@ -55,3 +61,5 @@ from .models.reward import (  # noqa: F401
     reward_forward,
 )
 from .utils.bridge import from_jax_params, map_state  # noqa: F401
+from .utils.checkpoint import load_reward_model  # noqa: F401
+from .utils.export import save_reward_checkpoint_dir  # noqa: F401

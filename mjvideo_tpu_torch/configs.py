@@ -2,15 +2,19 @@
 
 Frozen dataclasses for the InternViT encoder, the decoder LLM, the InternVL
 chat model and the MoE reward model, with the presets the port drives
-(MJ-VIDEO-2B, the InternVL2-2B judge backbone, the tiny test config).  The
-port imports nothing of the JAX package; ``tests/test_torch_quant.py``
-holds each preset equal to the JAX package's field for field.
+(MJ-VIDEO-2B, the InternVL2-2B judge backbone, the tiny test config), and
+the readers and writer of an HF checkpoint's ``config.json`` (InternLM2,
+Llama and Phi-3 decoders).  The port imports nothing of the JAX package;
+``tests/test_torch_quant.py`` holds each preset equal to the JAX package's
+field for field, ``tests/test_torch_checkpoint.py`` the HF dicts.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 @dataclass(frozen=True)
 class VisionConfig:
@@ -185,6 +189,114 @@ class RewardConfig:
         return self.chat.llm.hidden_size
 
 
+def vision_config_from_hf(d: Dict[str, Any]) -> VisionConfig:
+    """Build a VisionConfig from an HF checkpoint's vision_config dict."""
+    return VisionConfig(
+        hidden_size=d.get("hidden_size", 1024),
+        intermediate_size=d.get("intermediate_size", 4096),
+        num_hidden_layers=d.get("num_hidden_layers", 24),
+        num_attention_heads=d.get("num_attention_heads", 16),
+        image_size=d.get("image_size", 448),
+        patch_size=d.get("patch_size", 14),
+        qkv_bias=d.get("qkv_bias", True),
+        qk_normalization=d.get("qk_normalization", False),
+        norm_type=d.get("norm_type", "layer_norm"),
+        layer_norm_eps=d.get("layer_norm_eps", 1e-6),
+        hidden_act=d.get("hidden_act", "gelu"),
+        initializer_factor=d.get("initializer_factor", 0.1),
+        drop_path_rate=d.get("drop_path_rate", 0.0),
+        attention_dropout=d.get("attention_dropout", 0.0),
+        dropout=d.get("dropout", 0.0),
+    )
+
+
+def llm_config_from_hf(d: Dict[str, Any]) -> LLMConfig:
+    """Build an LLMConfig from an HF llm_config dict (InternLM2 or Llama)."""
+    archs = d.get("architectures") or ["InternLM2ForCausalLM"]
+    if archs[0] == "InternLM2ForCausalLM":
+        architecture = "internlm2"
+    elif archs[0] == "LlamaForCausalLM":
+        architecture = "llama"
+    elif archs[0] == "Phi3ForCausalLM":
+        # InternVL2-4B's LLM (phi3-chat template, conversation.py:368-379).
+        # Within the reward path's <=3,072-token sequences Phi-3's longrope
+        # scaling never activates, so standard RoPE is exact.
+        architecture = "phi3"
+    else:
+        raise ValueError(f"Unsupported LLM architecture: {archs[0]}")
+    scaling = d.get("rope_scaling") or None
+    return LLMConfig(
+        architecture=architecture,
+        vocab_size=d.get("vocab_size", 92553),
+        hidden_size=d.get("hidden_size", 2048),
+        intermediate_size=d.get("intermediate_size", 8192),
+        num_hidden_layers=d.get("num_hidden_layers", 24),
+        num_attention_heads=d.get("num_attention_heads", 16),
+        num_key_value_heads=d.get(
+            "num_key_value_heads", d.get("num_attention_heads", 16)
+        ),
+        hidden_act=d.get("hidden_act", "silu"),
+        max_position_embeddings=d.get("max_position_embeddings", 32768),
+        rms_norm_eps=d.get("rms_norm_eps", 1e-5),
+        rope_theta=d.get("rope_theta", 1e6),
+        rope_scaling_type=(scaling or {}).get("type"),
+        rope_scaling_factor=float((scaling or {}).get("factor", 1.0)),
+        bias=d.get("bias", d.get("attention_bias", False)),
+        pad_token_id=d.get("pad_token_id", 2),
+        bos_token_id=d.get("bos_token_id", 1),
+        eos_token_id=d.get("eos_token_id", 2),
+        tie_word_embeddings=d.get("tie_word_embeddings", False),
+    )
+
+
+def chat_config_from_hf(d: Dict[str, Any]) -> ChatConfig:
+    """Build a ChatConfig from an InternVLChat HF config dict."""
+    return ChatConfig(
+        vision=vision_config_from_hf(d.get("vision_config", {})),
+        llm=llm_config_from_hf(d.get("llm_config", {})),
+        select_layer=d.get("select_layer", -1),
+        downsample_ratio=d.get("downsample_ratio", 0.5),
+        template=d.get("template", "Hermes-2"),
+        ps_version=d.get("ps_version", "v2"),
+        min_dynamic_patch=d.get("min_dynamic_patch", 1),
+        max_dynamic_patch=d.get("max_dynamic_patch", 12),
+        use_thumbnail=d.get("use_thumbnail", True),
+        force_image_size=d.get("force_image_size"),
+    )
+
+
+def reward_config_from_hf(d: Dict[str, Any]) -> RewardConfig:
+    """Build a RewardConfig from the reward-model HF config dict.
+
+    Round-trips the custom fields the reference adds in
+    ``moe_reward.py:109-133`` (num_objectives/num_aspects/aspect2criteria).
+    """
+    a2c = d.get("aspect2criteria") or ASPECT2CRITERIA
+    # JSON round-trips dict keys as strings.
+    a2c = {int(k): tuple(v) for k, v in a2c.items()}
+    num_aspects = d.get("num_aspects", 5) or 5
+    return RewardConfig(
+        chat=chat_config_from_hf(d),
+        num_objectives=d.get("num_objectives", 28) or 28,
+        num_aspects=num_aspects,
+        aspect2criteria=tuple(a2c[a] for a in sorted(a2c)),
+        gating_temperature=d.get("gating_temperature", 1.0),
+        gating_hidden_dim=d.get("gating_hidden_dim", 1024),
+        gating_n_hidden=d.get("gating_n_hidden", 3),
+    )
+
+
+def load_config(path: str) -> RewardConfig:
+    """Load a RewardConfig from a config.json file (HF-format)."""
+    with open(path) as f:
+        return reward_config_from_hf(json.load(f))
+
+
+def to_json(cfg) -> str:
+    """Serialize any config dataclass to JSON."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=list)
+
+
 def mjvideo_2b_config() -> RewardConfig:
     """MJ-VIDEO-2B: InternViT-300M + InternLM2-chat-1.8B + 28/5 reward head."""
     return RewardConfig()
@@ -243,3 +355,77 @@ def tiny_test_config(
         gating_hidden_dim=32,
         gating_token_pattern=(7, 8, 9),
     )
+
+
+_HF_ARCH_NAMES = {
+    "internlm2": "InternLM2ForCausalLM",
+    "llama": "LlamaForCausalLM",
+    "phi3": "Phi3ForCausalLM",
+}
+
+
+def reward_config_to_hf(cfg: RewardConfig) -> Dict[str, Any]:
+    """RewardConfig -> the HF-format config dict ``reward_config_from_hf``
+    (and the reference's ``InternVLChatRewardModelingConfig.from_pretrained``,
+    ``moe_reward.py:109-133``) reads back — so checkpoints trained here
+    export to a directory the reference can load."""
+    c, v, l = cfg.chat, cfg.chat.vision, cfg.chat.llm
+    rope_scaling = None
+    if l.rope_scaling_type is not None:
+        rope_scaling = {"type": l.rope_scaling_type,
+                        "factor": l.rope_scaling_factor}
+    return {
+        "model_type": "internvl_chat_reward",
+        "vision_config": {
+            "hidden_size": v.hidden_size,
+            "intermediate_size": v.intermediate_size,
+            "num_hidden_layers": v.num_hidden_layers,
+            "num_attention_heads": v.num_attention_heads,
+            "image_size": v.image_size,
+            "patch_size": v.patch_size,
+            "qkv_bias": v.qkv_bias,
+            "qk_normalization": v.qk_normalization,
+            "norm_type": v.norm_type,
+            "layer_norm_eps": v.layer_norm_eps,
+            "hidden_act": v.hidden_act,
+            "initializer_factor": v.initializer_factor,
+            "drop_path_rate": v.drop_path_rate,
+            "attention_dropout": v.attention_dropout,
+            "dropout": v.dropout,
+        },
+        "llm_config": {
+            "architectures": [_HF_ARCH_NAMES[l.architecture]],
+            "vocab_size": l.vocab_size,
+            "hidden_size": l.hidden_size,
+            "intermediate_size": l.intermediate_size,
+            "num_hidden_layers": l.num_hidden_layers,
+            "num_attention_heads": l.num_attention_heads,
+            "num_key_value_heads": l.num_key_value_heads,
+            "hidden_act": l.hidden_act,
+            "max_position_embeddings": l.max_position_embeddings,
+            "rms_norm_eps": l.rms_norm_eps,
+            "rope_theta": l.rope_theta,
+            "rope_scaling": rope_scaling,
+            "bias": l.bias,
+            "pad_token_id": l.pad_token_id,
+            "bos_token_id": l.bos_token_id,
+            "eos_token_id": l.eos_token_id,
+            "tie_word_embeddings": l.tie_word_embeddings,
+        },
+        "select_layer": c.select_layer,
+        "downsample_ratio": c.downsample_ratio,
+        "template": c.template,
+        "ps_version": c.ps_version,
+        "min_dynamic_patch": c.min_dynamic_patch,
+        "max_dynamic_patch": c.max_dynamic_patch,
+        "use_thumbnail": c.use_thumbnail,
+        "force_image_size": c.force_image_size,
+        "num_objectives": cfg.num_objectives,
+        "num_aspects": cfg.num_aspects,
+        "aspect2criteria": {
+            str(i): list(v) for i, v in enumerate(cfg.aspect2criteria)
+        },
+        "gating_temperature": cfg.gating_temperature,
+        "gating_hidden_dim": cfg.gating_hidden_dim,
+        "gating_n_hidden": cfg.gating_n_hidden,
+    }

@@ -7,13 +7,18 @@ Replaces the reference's decord/PIL/torchvision pipeline
 (``find_closest_aspect_ratio`` ``data.py:66-79``, ``dynamic_preprocess``
 ``data.py:81-117``), PIL bicubic resize and ImageNet normalization
 (``build_transform`` ``data.py:56-64``) and video decode (``load_video``
-``data.py:158-179``), with cv2 in place of decord.  The JAX package's native
-C++ resize branch is not ported (ROADMAP item 6a); it is bit-exact with the
-PIL path kept here.  Output is NHWC fp32.
+``data.py:158-179``), with cv2 in place of decord; ``load_image`` and the
+remote fetches with their local cache (``fetch_remote_video``,
+``fetch_s3_video``, ``prefetch_videos``).  The JAX package's optional
+native C++ resize branch is not ported: it is bit-exact with the PIL path
+kept here, and the serving fast path resizes on the device instead
+(``ops/preprocess.py``).  Output is NHWC fp32.  PIL, cv2, requests and
+huggingface_hub are imported inside the functions that use them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -225,3 +230,110 @@ def load_video(
         tiles_list.append(tiles)
     pixel_values = normalize(np.concatenate(tiles_list, axis=0))
     return pixel_values, num_patches_list
+
+
+def load_image(
+    image_file: str, input_size: int = 448, max_num: int = 12
+) -> np.ndarray:
+    """Tile + normalize one image (``data.py:119-125``); fp32 NHWC."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(image_file).convert("RGB"))
+    tiles = tile_frame(
+        img, max_num=max_num, image_size=input_size, use_thumbnail=True
+    )
+    return normalize(tiles)
+
+
+def fetch_remote_video(url: str, cache_dir: str = "./video_cache") -> str:
+    """HTTP / HuggingFace-datasets video download with a local cache
+    (``download_video``, ``data.py:33-54``).
+
+    The cache name carries a hash of the full URL: GenAI-Bench-style
+    datasets store every model's output as `.../<model>/0001.mp4`, so a
+    basename-only key would silently serve model A's video for model B.
+    Downloads land in a temp file and rename into place atomically — a
+    dropped connection must not leave a truncated file that every later
+    run treats as a complete cached video (the rename also makes
+    concurrent prefetch workers of one URL last-writer-wins instead of
+    interleaving into one open file)."""
+    import hashlib
+
+    os.makedirs(cache_dir, exist_ok=True)
+    clean = url.split("?")[0]
+    digest = hashlib.sha256(clean.encode()).hexdigest()[:16]
+    local = os.path.join(cache_dir,
+                         f"{digest}_{os.path.basename(clean)}")
+    if os.path.exists(local):
+        return local
+    tmp = f"{local}.part{os.getpid()}"
+    try:
+        if "huggingface.co/datasets" in url:
+            from huggingface_hub import hf_hub_download
+
+            part = url.split("datasets/")[1]
+            # both the web ('/blob/') and direct-download ('/resolve/')
+            # URL forms point at the same repo path
+            sep = "/blob/" if "/blob/" in part else "/resolve/"
+            repo_id = part.split(sep)[0]
+            rev_file = part.split(sep)[1]
+            revision = rev_file[: rev_file.find("/")]
+            filename = rev_file[rev_file.find("/") + 1:]
+            import shutil
+
+            got = hf_hub_download(
+                repo_id=repo_id, filename=filename, repo_type="dataset",
+                revision=revision,
+            )
+            shutil.copy(got, tmp)
+        else:
+            import requests
+
+            r = requests.get(url, stream=True, timeout=60)
+            r.raise_for_status()
+            with open(tmp, "wb") as f:
+                for chunk in r.iter_content(chunk_size=1 << 20):
+                    f.write(chunk)
+        os.replace(tmp, local)  # atomic: cache holds complete files only
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return local
+
+
+def fetch_s3_video(
+    s3_client, bucket: str, key: str, root: str = "./datas/videos"
+) -> str:
+    """S3 download with local cache (``dataset.py:22-42`` ``download_file``).
+
+    Gated on a caller-provided boto3 client (boto3 is optional here, exactly
+    as AWS creds were optional in the reference's constructor defaults).
+    """
+    local = os.path.join(root, key)
+    if os.path.exists(local):
+        return local
+    os.makedirs(os.path.dirname(local) or ".", exist_ok=True)
+    s3_client.download_file(bucket, key, local)
+    return local
+
+
+def prefetch_videos(
+    paths: Sequence[str],
+    fetch_fn,
+    num_workers: int = 12,
+) -> None:
+    """Threaded bulk prefetch of remote videos into the local cache.
+
+    Replaces ``VideoDataset.__check_video__``'s ThreadPoolExecutor warm-up
+    (``dataset.py:299-309``); ``fetch_fn`` is e.g. ``fetch_remote_video`` or
+    a bound ``fetch_s3_video``.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        futures = [pool.submit(fetch_fn, p) for p in paths]
+        for f in futures:
+            try:
+                f.result()
+            except Exception as e:  # best-effort, like the reference
+                print(f"prefetch error: {e}")

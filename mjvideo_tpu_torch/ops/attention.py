@@ -17,6 +17,10 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30  # large finite negative: keeps the softmax NaN-free
+# ``attention_plain`` forms its fp32 scores in blocks of query rows of at
+# most this many elements (4 GiB), so that the oracle holds a 72-tile clip's
+# ViT and its ~19.5k-token prompt on one card; below it, in one block.
+PLAIN_BLOCK_ELEMENTS = 1 << 30
 
 
 def kv_valid_mask(batch: int, kv_len: int, kv_valid: int, *,
@@ -53,8 +57,17 @@ def attention_plain(
     bias: Optional[torch.Tensor] = None,  # (B|1, 1|Hq, Q, K) fp32
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Grouped-query attention with an fp32 softmax; returns (B, Q, Hq, D)."""
+    """Grouped-query attention with an fp32 softmax; returns (B, Q, Hq, D).
+    Each query row's softmax is its own, so scores past
+    ``PLAIN_BLOCK_ELEMENTS`` are formed a block of rows at a time."""
     B, Q, Hq, D = q.shape
+    rows = max(1, PLAIN_BLOCK_ELEMENTS // (B * Hq * k.shape[1]))
+    if rows < Q:
+        return torch.cat([attention_plain(
+            q[:, s:s + rows], k, v,
+            bias if bias is None or bias.shape[2] == 1
+            else bias[:, :, s:s + rows], scale)
+            for s in range(0, Q, rows)], dim=1)
     Hkv = k.shape[2]
     G = Hq // Hkv
     scale = D**-0.5 if scale is None else scale

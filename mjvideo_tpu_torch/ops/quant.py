@@ -30,7 +30,10 @@ tensors (their plain twins for CPU tensors), "plain" runs the twins
 everywhere.  The twins sum int8 products exactly in int32
 (``int8_matmul``); fp32 is exact only to 2^24, and K reaches 8,192 * 127^2.
 
-``revive_quant_kernels`` waits for the checkpoint loader (ROADMAP 6b).
+The HF checkpoint loader (``utils/checkpoint.py``) reads unquantized
+states, which ``quantize_params_mode`` quantizes where they lie.
+``revive_quant_kernels``, which restores a saved quantized tree, is not
+ported yet (ROADMAP 6b).
 """
 
 from __future__ import annotations
