@@ -279,17 +279,51 @@ Phases (any failure raises and exits non-zero):
    the K2 op at the frames path's largest decoder shape (the pre-pass
    against its twin, the op bit-equal to the kernel alone) and phase 2
    K1 at its largest ViT batch (FRAME_TILES_MAX tiles).
+23. The benchmark harness and the two command-line entry points (after
+   phase 22, on its checkpoint directory and phase 4's state; nothing in
+   it is caught).  Prints whether cv2 and PIL import, then replaces the
+   port's video decoding with a seeded source (``seeded_video_source``:
+   the card's machine has neither): ``data.video``'s ``video_metadata``,
+   ``decode_frames`` and ``load_video`` and ``data.dataset``'s
+   ``load_video``, where they are looked up, restored at the phase's end;
+   a video's frames are seeded from its path.  EVAL_PAIRS MJ-BENCH-VIDEO
+   records (labels by the port's CRITERIA_NAMES and ASPECT_NAMES, overall
+   preferences cycling through the four strings; FRAMES frames of
+   FRAME_HW a clip).  ``eval/cli.main`` in bf16 with ``--byte-tokenizer
+   --device-preprocess --max-num 1`` on phase 22's directory: the overall
+   benchmark, the aspects benchmark, and the overall benchmark under
+   ``--quant`` EVAL_QUANT; the results files' scores (and rewards and
+   aspect scores) bit-equal to ``score_batch`` of phase 4's state on the
+   same frames (quantized alike for the third), two pairs within SCORE_TOL
+   of fp32 plain, exact launches per pair dispatch (24 K1, 24 K2, 48
+   ``key_norm_max``; 170 K6 and 170 K6 pre-passes more when quantized),
+   a resume from the overall results cut after EVAL_RESUME_CUT records and
+   a torn line (24 K1 a remaining pair, the same metrics), pairs/s of the
+   driver against ``score_pair`` on the same frames, the host's share of
+   ``score_pair`` (the seeded decode and ``prepare_clip`` of a pair, timed
+   alone), and each command's time.  ``evaluate_genai_bench`` on one row per vote type.  Phase 9's
+   judge (``make_judge``) through ``run_overall_benchmark`` on
+   JUDGE_DRIVER_PAIRS records and ``run_fine_grained_benchmark`` on one
+   (33 rubric questions), exact launches, seconds.  ``train/cli.main`` at
+   the 2B config from random init (stage 3, batch 1, 2 frames,
+   TRAIN_CLI_STEPS micro-steps, ``--eval-json`` on the first
+   TRAIN_CLI_EVAL_PAIRS records): finite losses, the eval record in
+   ``metrics.jsonl``, ``Trainer.evaluate`` launching K1 and K2 and no lse
+   form or backward, the free disk before the save and the bytes written.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 SEED = 0
 # B, S, H, D: serving's 8 tiles x (32*32 + 1) tokens, then training's one
@@ -485,6 +519,21 @@ FRAME_CAPTIONS = ("A red fox runs through fresh snow at dawn.",
 SWEEP_CLIPS = 8
 SWEEP_BATCHES = (1, 2, 4, 8)
 SWEEP_REPS = 5
+# Phase 23: the seeded video source's frame count and rate, the records,
+# the cut of the resumed results file, the quantized mode, the judge's
+# records, and the training CLI's micro-steps and eval records.
+SEEDED_VIDEO_FRAMES = 48
+SEEDED_VIDEO_FPS = 8.0
+EVAL_PAIRS = 8
+EVAL_PREFERENCES = ("Video 1 better", "Video 2 better", "Same",
+                    "Hard to judge")
+EVAL_RESUME_CUT = 5
+EVAL_QUANT = "int8-noattn-g128"
+EVAL_PLAIN_PAIRS = 2
+GENAI_VOTES = ("leftvote", "rightvote", "tievote", "bothbad_vote")
+JUDGE_DRIVER_PAIRS = 2
+TRAIN_CLI_STEPS = 2
+TRAIN_CLI_EVAL_PAIRS = 4
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -2828,16 +2877,20 @@ def _grad_launches(cfg, steps=1):
     return {name: steps * n for name, n in _with_prepass(per).items()}
 
 
-def _held_launches(label, want):
-    """Hold the launch counters to ``want`` (names not given: 0)."""
-    from mjvideo_tpu_torch import kernels
-
-    got = dict(kernels.launch_counts)
+def _hold(label, got, want):
+    """Hold launch counts ``got`` to ``want`` (names not given: 0)."""
     print(f"{label} launches: {got}")
     full = {name: want.get(name, 0) for name in got}
     if got != full:
         raise RuntimeError(f"{label}: launches {got}, want {full}")
     return got
+
+
+def _held_launches(label, want):
+    """Hold the launch counters to ``want`` (names not given: 0)."""
+    from mjvideo_tpu_torch import kernels
+
+    return _hold(label, dict(kernels.launch_counts), want)
 
 
 def _compare_grads(got, ref):
@@ -3286,10 +3339,10 @@ def _rss_bytes():
     return now * 1024, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def checkpoint_phase(scorer, requests, scores, dev):
-    """Phase 22's checkpoint round trip on phase 4's state.  Returns the
-    readings and the launch counts of the reloaded scorer's requests."""
-    import os
+def checkpoint_phase(scorer, requests, scores, dev, d):
+    """Phase 22's checkpoint round trip on phase 4's state, written into the
+    directory ``d`` (phase 23 reads it again).  Returns the readings and
+    the launch counts of the reloaded scorer's requests."""
     import shutil
 
     import torch
@@ -3302,28 +3355,27 @@ def checkpoint_phase(scorer, requests, scores, dev):
     )
 
     out = {}
-    with tempfile.TemporaryDirectory() as d:
-        out["free_disk_bytes"] = shutil.disk_usage(d).free
-        print(f"checkpoint: {out['free_disk_bytes'] / 2**30:.2f} GiB free "
-              "where it is written")
-        t0 = time.perf_counter()
-        save_reward_checkpoint_dir(d, scorer.params, scorer.cfg)
-        out["write_s"] = time.perf_counter() - t0
-        out["bytes"] = os.path.getsize(os.path.join(d, "model.safetensors"))
-        print(f"checkpoint: wrote {out['bytes']} bytes (F32) in "
-              f"{out['write_s']:.2f} s")
-        rss0, rss_peak0 = _rss_bytes()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        cfg, state = load_reward_model(d)
-        torch.cuda.synchronize()
-        out["load_s"] = time.perf_counter() - t0
-        out["load_peak_above_gib"] = (torch.cuda.max_memory_allocated(dev)
-                                      - base) / 2**30
-        out["state_gib"] = (torch.cuda.memory_allocated(dev) - base) / 2**30
-        rss1, rss_peak1 = _rss_bytes()
+    out["free_disk_bytes"] = shutil.disk_usage(d).free
+    print(f"checkpoint: {out['free_disk_bytes'] / 2**30:.2f} GiB free "
+          "where it is written")
+    t0 = time.perf_counter()
+    save_reward_checkpoint_dir(d, scorer.params, scorer.cfg)
+    out["write_s"] = time.perf_counter() - t0
+    out["bytes"] = os.path.getsize(os.path.join(d, "model.safetensors"))
+    print(f"checkpoint: wrote {out['bytes']} bytes (F32) in "
+          f"{out['write_s']:.2f} s")
+    rss0, rss_peak0 = _rss_bytes()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, state = load_reward_model(d)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["load_peak_above_gib"] = (torch.cuda.max_memory_allocated(dev)
+                                  - base) / 2**30
+    out["state_gib"] = (torch.cuda.memory_allocated(dev) - base) / 2**30
+    rss1, rss_peak1 = _rss_bytes()
     out.update(rss_before_gib=rss0 / 2**30, rss_after_gib=rss1 / 2**30,
                rss_peak_before_gib=rss_peak0 / 2**30,
                rss_peak_after_gib=rss_peak1 / 2**30)
@@ -3531,6 +3583,528 @@ def microbatch_sweep(scorer, dev):
     return out, {"microbatch_sweep": total}
 
 
+def _path_seed(path):
+    return zlib.crc32(os.path.basename(path).encode())
+
+
+@contextlib.contextmanager
+def seeded_video_source(hw=None):
+    """Seeded frames in place of decoded videos: the card's machine has no
+    cv2 and no PIL.  Replaces ``data.video``'s ``video_metadata``,
+    ``decode_frames`` and ``load_video`` and ``data.dataset``'s
+    ``load_video`` (bound when that module is imported) where they are
+    looked up, and restores them on exit.  A video reports
+    SEEDED_VIDEO_FRAMES frames at SEEDED_VIDEO_FPS; frame i of a video is
+    uint8 noise of ``hw`` seeded from the video's file name and i, so that
+    every reader of a path sees the same frames.  ``load_video`` (the host
+    tiling path) returns one normalised tile a frame, seeded alike at the
+    tile size, as ``max_num=1`` does.  ``hw`` defaults to FRAME_HW."""
+    import numpy as np
+
+    from mjvideo_tpu_torch.data import dataset, video
+
+    hw = hw or FRAME_HW
+
+    def noise(path, i, shape):
+        rng = np.random.default_rng([SEED, _path_seed(path), int(i)])
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+
+    def video_metadata(path):
+        return SEEDED_VIDEO_FRAMES, SEEDED_VIDEO_FPS
+
+    def decode_frames(path, frame_indices):
+        return [noise(path, i, (*hw, 3)) for i in frame_indices]
+
+    def load_video(path, bound=None, input_size=448, max_num=1,
+                   num_segments=32):
+        if max_num != 1:
+            raise ValueError("the seeded video source tiles one tile a frame")
+        idx = video.get_frame_indices(SEEDED_VIDEO_FRAMES, num_segments,
+                                      bound=bound, fps=SEEDED_VIDEO_FPS)
+        tiles = np.stack([noise(path, i, (input_size, input_size, 3))
+                          for i in idx])
+        return video.normalize(tiles), [1] * len(idx)
+
+    names = ((video, "video_metadata", video_metadata),
+             (video, "decode_frames", decode_frames),
+             (video, "load_video", load_video),
+             (dataset, "load_video", load_video))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in names]
+    for m, n, f in names:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def eval_records(n=EVAL_PAIRS):
+    """``n`` MJ-BENCH-VIDEO pair records with seeded labels (the port's
+    CRITERIA_NAMES and ASPECT_NAMES) and overall preferences cycling
+    through EVAL_PREFERENCES; their videos come from the seeded source."""
+    import numpy as np
+
+    from mjvideo_tpu_torch import ASPECT_NAMES, CRITERIA_NAMES
+
+    rng = np.random.default_rng(SEED + 23)
+
+    def labels(names):
+        return {name: int(rng.choice([0, 1, 2])) for name in names}
+
+    out = []
+    for i in range(n):
+        rec = {"caption": f"{FRAME_CAPTIONS[i % len(FRAME_CAPTIONS)]} "
+                          f"Pair {i}.",
+               "video_0_path": f"pair{i}_a.mp4",
+               "video_1_path": f"pair{i}_b.mp4"}
+        for v in (0, 1):
+            rec[f"video_{v}_label"] = labels(CRITERIA_NAMES)
+            rec[f"video_{v}_overall_score"] = labels(ASPECT_NAMES)
+            rec[f"video_{v}_total_score"] = int(rng.choice([1, 2]))
+        rec["category_preference"] = {
+            name: str(rng.choice(EVAL_PREFERENCES)) for name in ASPECT_NAMES}
+        rec["overall_preference"] = EVAL_PREFERENCES[i % len(
+            EVAL_PREFERENCES)]
+        out.append(rec)
+    return out
+
+
+def _run_main(fn, argv, timed=None):
+    """``fn(argv)`` (a CLI's ``main``) with its stdout captured; returns
+    (its result, what it printed, command seconds, the seconds spent inside
+    ``timed`` = (module, name) if given, the launch counts)."""
+    import io
+
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    inner = []
+    if timed is not None:
+        mod, name = timed
+        orig = getattr(mod, name)
+
+        def clocked(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = orig(*a, **kw)
+            torch.cuda.synchronize()
+            inner.append(time.perf_counter() - t)
+            return res
+
+        setattr(mod, name, clocked)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = fn(argv)
+        torch.cuda.synchronize()
+    finally:
+        if timed is not None:
+            setattr(mod, name, orig)
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    return res, buf.getvalue(), secs, (inner[0] if inner else None), launches
+
+
+def _reference_outputs(scorer, records, root, quant=None):
+    """``score_batch`` of each record's pair on ``scorer``'s state, on the
+    frames path at max_num 1 (optionally quantized), as fp32 numpy."""
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer
+
+    ref = RewardScorer(scorer.cfg, scorer.params, scorer.tokenizer,
+                       dtype=scorer.dtype, gating_pattern=scorer.gating_pattern,
+                       device_preprocess=True, quant=quant)
+    outs = []
+    for rec in records:
+        clips = [ref.prepare_clip(os.path.join(root, rec[f"video_{v}_path"]),
+                                  rec["caption"], num_segments=FRAMES)
+                 for v in (0, 1)]
+        out = ref.score_batch(np.concatenate([c[0] for c in clips]),
+                              [c[1] for c in clips], [c[2] for c in clips])
+        outs.append({k: getattr(out, k).float().cpu().numpy()
+                     for k in ("score", "rewards", "aspect_scores")})
+    del ref
+    torch.cuda.empty_cache()
+    return outs
+
+
+def _bit_equal_rows(label, rows, refs, fields):
+    """Each results row's values bit-equal to the reference outputs:
+    ``fields`` maps a row key prefix to an output field."""
+    bad = []
+    for row, ref in zip(rows, refs):
+        for key, field in fields.items():
+            for b in (0, 1):
+                want = ref[field][b]
+                got = row[f"{key}_{b}"]
+                if not (want.tolist() == got if want.ndim else
+                        float(want) == got):
+                    bad.append((row["id"], f"{key}_{b}"))
+    print(f"{label}: {len(rows)} pairs, results bit-equal to score_batch of "
+          f"phase 4's state on the same frames: {not bad}")
+    if bad or len(rows) != len(refs):
+        raise RuntimeError(f"{label}: rows {bad} differ from score_batch")
+
+
+def eval_cli_runs(scorer, ckpt_dir, root, data_path, records, dev):
+    """Phase 23's eval CLI runs.  Returns the readings and the launch counts
+    by path."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, map_state
+    from mjvideo_tpu_torch.eval import cli as eval_cli
+    from mjvideo_tpu_torch.eval import preference
+
+    cfg = scorer.cfg
+    per_pair = _with_prepass({
+        "vit_attention": cfg.chat.vision.num_hidden_layers,
+        "decoder_attention": cfg.chat.llm.num_hidden_layers})
+    L_vit = cfg.chat.vision.num_hidden_layers
+    L_llm = cfg.chat.llm.num_hidden_layers
+    k6 = 4 * L_vit + 2 + 3 * L_llm
+    n = len(records)
+
+    def argv(bench, results, *extra):
+        return ["--benchmark", bench, "--device", "cuda", "--byte-tokenizer",
+                "--device-preprocess", "--max-num", "1", "--model-path",
+                ckpt_dir, "--data-json", data_path, "--video-root", root,
+                "--num-segments", str(FRAMES), "--results", results, *extra]
+
+    refs = _reference_outputs(scorer, records, root)
+    out, launches = {}, {}
+    work = os.path.dirname(data_path)
+    runs = (("overall", "overall", "evaluate_preference", ()),
+            ("aspects", "aspects", "evaluate_aspects", ()),
+            ("overall_quant", "overall", "evaluate_preference",
+             ("--quant", EVAL_QUANT)))
+    for label, bench, driver, extra in runs:
+        results = os.path.join(work, f"{label}.jsonl")
+        res, printed, secs, inner, got = _run_main(
+            eval_cli.main, argv(bench, results, *extra),
+            timed=(preference, driver))
+        printed = json.loads(printed[printed.index("{"):])
+        if printed != json.loads(json.dumps(res, default=float)):
+            raise RuntimeError(f"eval CLI {label}: printed JSON differs "
+                               "from the result")
+        want = {k: v * n for k, v in per_pair.items()}
+        if extra:
+            want.update(q8g_matmul_fused=k6 * n, q8g_quantize=k6 * n)
+        launches[f"eval_cli_{label}"] = _hold(f"eval CLI {label}", got, want)
+        rows = preference.iter_jsonl(results)
+        rows = sorted(rows, key=lambda r: r["id"])
+        if label == "overall_quant":
+            _bit_equal_rows(f"eval CLI {label}", rows, _reference_outputs(
+                scorer, records, root, quant=EVAL_QUANT), {"score": "score"})
+        elif bench == "overall":
+            _bit_equal_rows(f"eval CLI {label}", rows, refs,
+                            {"score": "score"})
+        else:
+            _bit_equal_rows(f"eval CLI {label}", rows, refs, {
+                "rewards": "rewards", "aspects": "aspect_scores"})
+        out[label] = {"command_s": secs, "driver_s": inner,
+                      "pairs_per_s": n / inner, "result": res}
+        print(f"eval CLI {label}: {n} pairs, command {secs:.2f} s (the "
+              f"checkpoint's load included), driver {inner:.2f} s -> "
+              f"{n / inner:.2f} pairs/s; result "
+              f"{json.dumps(res, default=float)[:300]}")
+    # Two pairs against fp32 plain on the same frames.
+    plain = RewardScorer(cfg, map_state(lambda t: t.float(), scorer.params),
+                         scorer.tokenizer, dtype=torch.float32,
+                         attn_impl="plain", gating_pattern=scorer.gating_pattern,
+                         device_preprocess=True)
+    rows = sorted(preference.iter_jsonl(os.path.join(work, "overall.jsonl")),
+                  key=lambda r: r["id"])
+    deltas = []
+    for rec, row in zip(records[:EVAL_PLAIN_PAIRS], rows):
+        ref = plain.score_pair(os.path.join(root, rec["video_0_path"]),
+                               os.path.join(root, rec["video_1_path"]),
+                               rec["caption"], num_segments=FRAMES)
+        deltas += [abs(float(r["score"]) - row[f"score_{b}"])
+                   for b, r in enumerate(ref)]
+    del plain
+    torch.cuda.empty_cache()
+    out["fp32_plain_max_abs_delta"] = max(deltas)
+    print(f"eval CLI overall: {EVAL_PLAIN_PAIRS} pairs against fp32 plain, "
+          f"max |delta| {max(deltas):.3e} (bound {SCORE_TOL:.0e})")
+    if not max(deltas) < SCORE_TOL:
+        raise RuntimeError(f"eval CLI scores against fp32 plain: {deltas}")
+    # Resume: the overall results cut after EVAL_RESUME_CUT records plus a
+    # torn line.
+    full = os.path.join(work, "overall.jsonl")
+    cut = os.path.join(work, "resumed.jsonl")
+    with open(full) as f:
+        lines = f.readlines()
+    with open(cut, "w") as f:
+        f.writelines(lines[:EVAL_RESUME_CUT])
+        f.write('{"id": %d, "score_0": 0.1' % EVAL_RESUME_CUT)
+    res, _, secs, _, got = _run_main(eval_cli.main,
+                                     argv("overall", cut))
+    left = n - EVAL_RESUME_CUT
+    launches["eval_cli_resume"] = _hold(
+        "eval CLI resume", got, {k: v * left for k, v in per_pair.items()})
+    if res != out["overall"]["result"]:
+        raise RuntimeError(f"resumed result {res} against "
+                           f"{out['overall']['result']}")
+    out["resume"] = {"command_s": secs, "pairs_scored": left}
+    print(f"eval CLI resume: {left} of {n} pairs scored (cut after "
+          f"{EVAL_RESUME_CUT} and a torn line), same result, command "
+          f"{secs:.2f} s")
+    # score_pair on the same frames, pair by pair.
+    ref = RewardScorer(cfg, scorer.params, scorer.tokenizer,
+                       dtype=scorer.dtype, gating_pattern=scorer.gating_pattern,
+                       device_preprocess=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for rec in records:
+        ref.score_pair(os.path.join(root, rec["video_0_path"]),
+                       os.path.join(root, rec["video_1_path"]),
+                       rec["caption"], num_segments=FRAMES)
+    torch.cuda.synchronize()
+    pair_s = (time.perf_counter() - t) / n
+    out["score_pair_pairs_per_s"] = 1 / pair_s
+    print(f"score_pair on the same frames: "
+          f"{out['score_pair_pairs_per_s']:.2f} pairs/s, against the CLI's "
+          f"driver {out['overall']['pairs_per_s']:.2f} pairs/s")
+    # The host's share of score_pair on the same records, timed alone: the
+    # seeded source's decode (noise drawn on the host, no real decoder) and
+    # the whole of prepare_clip (decode, stack, prompt) for both clips.
+    from mjvideo_tpu_torch.data import video
+
+    paths = [os.path.join(root, rec[key]) for rec in records
+             for key in ("video_0_path", "video_1_path")]
+    t = time.perf_counter()
+    for path in paths:
+        frames, fps = video.video_metadata(path)
+        video.decode_frames(path, video.get_frame_indices(frames, FRAMES,
+                                                          fps=fps))
+    decode_s = (time.perf_counter() - t) / n
+    t = time.perf_counter()
+    for path, rec in zip(paths, [r for r in records for _ in (0, 1)]):
+        ref.prepare_clip(path, rec["caption"], FRAMES)
+    prepare_s = (time.perf_counter() - t) / n
+    out.update(seeded_decode_s_per_pair=decode_s,
+               prepare_clip_s_per_pair=prepare_s,
+               score_pair_less_prepare_pairs_per_s=1 / (pair_s - prepare_s))
+    print(f"host share of score_pair: seeded decode {decode_s * 1e3:.1f} ms "
+          f"a pair, prepare_clip {prepare_s * 1e3:.1f} ms a pair, of "
+          f"{pair_s * 1e3:.1f} ms; score_pair less prepare_clip "
+          f"{out['score_pair_less_prepare_pairs_per_s']:.2f} pairs/s")
+    # GenAI-Bench: one row per vote type.
+    rows = [{"left_video": os.path.join(root, r["video_0_path"]),
+             "right_video": os.path.join(root, r["video_1_path"]),
+             "prompt": r["caption"], "vote_type": vote}
+            for r, vote in zip(records, GENAI_VOTES)]
+    res, _, secs, _, got = _run_main(
+        lambda _: preference.evaluate_genai_bench(
+            ref, rows, num_segments=FRAMES), None)
+    launches["genai"] = _hold("GenAI-Bench", got, {
+        k: v * len(rows) for k, v in per_pair.items()})
+    if res["total"] != len(rows):
+        raise RuntimeError(f"GenAI-Bench: {res}")
+    out["genai"] = {"seconds": secs, "result": res}
+    print(f"GenAI-Bench: {len(rows)} rows in {secs:.2f} s: {res}")
+    del ref
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def judge_driver_runs(records, root, dev):
+    """Phase 23's judge drivers on phase 9's judge.  Returns the readings
+    and the launch counts by path."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch.eval.judges import (
+        FINE_GRAINED_RUBRIC,
+        fine_grained_accuracy,
+        fine_grained_prompt,
+        overall_prompt,
+        run_fine_grained_benchmark,
+        run_overall_benchmark,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    judge = make_judge(generator=torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    L_vit = judge.cfg.vision.num_hidden_layers
+    L_llm = judge.cfg.llm.num_hidden_layers
+    out, launches = {}, {}
+    pairs = records[:JUDGE_DRIVER_PAIRS]
+    res, _, secs, _, got = _run_main(
+        lambda _: run_overall_benchmark(judge, pairs, root=root), None)
+    launches["judge_overall"] = _hold("judge overall", got, _with_prepass({
+        "vit_attention": 2 * L_vit * len(pairs),
+        "exact_attention": L_llm * len(pairs)}))
+    out["overall"] = {"seconds": secs, "result": res}
+    print(f"judge run_overall_benchmark: {len(pairs)} pairs in {secs:.2f} s:"
+          f" {res}")
+    one = records[:1]
+    questions = sum(1 + len(c["subcategories"])
+                    for c in FINE_GRAINED_RUBRIC.values())
+    res, _, secs, _, got = _run_main(
+        lambda _: run_fine_grained_benchmark(judge, one, root=root), None)
+    # The first record's videos are in the judge's cache already.
+    launches["judge_fine_grained"] = _hold("judge fine-grained", got, {
+        "exact_attention": L_llm * questions})
+    acc = fine_grained_accuracy(res)
+    out["fine_grained"] = {"seconds": secs, "questions": questions,
+                           "accuracy": acc}
+    print(f"judge run_fine_grained_benchmark: 1 pair, {questions} questions "
+          f"in {secs:.2f} s ({secs / questions:.2f} s a question); "
+          f"accuracy over {len(acc)} subcategories")
+    # Every prompt above takes the full-prompt path (its suffix overflows
+    # the bucket), which the counts assume.
+    npl = tuple(judge._prep(os.path.join(root, one[0]["video_0_path"]))[1])
+    cap = one[0]["caption"]
+    prompts = [overall_prompt(cap)] + [
+        fine_grained_prompt(cap, c, s) for c, e in FINE_GRAINED_RUBRIC.items()
+        for s in (None, *e["subcategories"])]
+    if any(judge._split(p, npl) is not None for p in prompts):
+        raise RuntimeError("a judge prompt took the prefix path")
+    del judge
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def train_cli_run(records, root, work, dev):
+    """Phase 23's training CLI at the 2B config.  Returns the readings and
+    the launch counts by path."""
+    import shutil
+
+    import torch
+
+    from mjvideo_tpu_torch import kernels, mjvideo_2b_config
+    from mjvideo_tpu_torch.train import cli as train_cli
+    from mjvideo_tpu_torch.train.trainer import Trainer
+
+    train_path = os.path.join(work, "train.json")
+    eval_path = os.path.join(work, "eval.json")
+    with open(train_path, "w") as f:
+        json.dump(records, f)
+    with open(eval_path, "w") as f:
+        json.dump(records[:TRAIN_CLI_EVAL_PAIRS], f)
+    decided = sum(r["overall_preference"] in EVAL_PREFERENCES[:2]
+                  for r in records[:TRAIN_CLI_EVAL_PAIRS])
+    out_dir = os.path.join(work, "train_out")
+    os.makedirs(out_dir)
+    out = {"free_disk_bytes": shutil.disk_usage(out_dir).free}
+    print(f"train CLI: {out['free_disk_bytes'] / 2**30:.2f} GiB free where "
+          "the checkpoint is written")
+    evals = []
+    evaluate = Trainer.evaluate
+
+    def counted(self, batches):
+        torch.cuda.synchronize()
+        before = dict(kernels.launch_counts)
+        res = evaluate(self, batches)
+        torch.cuda.synchronize()
+        evals.append({k: v - before[k] for k, v in
+                      kernels.launch_counts.items()})
+        return res
+
+    Trainer.evaluate = counted
+    try:
+        _, _, secs, _, got = _run_main(train_cli.main, [
+            "--stage", "3", "--batch-size", "1", "--num-segments", "2",
+            "--max-steps", str(TRAIN_CLI_STEPS), "--log-every", "1",
+            "--train-json", train_path, "--eval-json", eval_path,
+            "--video-root", root, "--output-dir", out_dir,
+            "--device", "cuda"])
+    finally:
+        Trainer.evaluate = evaluate
+    saved = [f for f in os.listdir(out_dir) if f.endswith(".pt")]
+    out["bytes_written"] = sum(os.path.getsize(os.path.join(out_dir, f))
+                               for f in saved)
+    print(f"train CLI: wrote {saved} ({out['bytes_written']} bytes) in a "
+          f"command of {secs:.2f} s")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in logged if "loss" in r]
+    eval_lines = [r for r in logged if "eval" in r]
+    if (len(losses) != TRAIN_CLI_STEPS
+            or not all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"train CLI losses {losses}")
+    if len(eval_lines) != 2 or eval_lines[-1].get("epoch") != 0:
+        raise RuntimeError(f"train CLI eval lines {eval_lines}")
+    pref = eval_lines[-1]["eval"]["preference"]
+    if pref["count"] != decided:
+        raise RuntimeError(f"train CLI eval preference {pref}")
+    if len(evals) != 1:
+        raise RuntimeError(f"Trainer.evaluate ran {len(evals)} times")
+    # Trainer.evaluate: each decided pair's two forwards, without the lse.
+    chat = mjvideo_2b_config().chat
+    L_vit = chat.vision.num_hidden_layers
+    L_llm = chat.llm.num_hidden_layers
+    launches = {"train_cli_evaluate": _hold(
+        "Trainer.evaluate", evals[0], _with_prepass({
+            "vit_attention": 2 * decided * L_vit,
+            "decoder_attention": 2 * decided * L_llm}))}
+    # The training steps, as phase 5 counts them: per micro-step and video
+    # the ViT's layers once, each decoder layer's forward twice (remat, K2
+    # with the lse) and its backward once.
+    per_video = _with_prepass({
+        "vit_attention": L_vit, "decoder_attention": 2 * L_llm,
+        "decoder_attention_lse": 2 * L_llm,
+        "decoder_attention_bwd_dkdv": L_llm,
+        "decoder_attention_bwd_dq": L_llm})
+    launches["train_cli"] = _hold(
+        "train CLI steps", {k: got[k] - evals[0][k] for k in got},
+        {k: 2 * TRAIN_CLI_STEPS * v for k, v in per_video.items()})
+    out.update(command_s=secs, losses=losses, eval_preference=pref,
+               eval_pairs=decided)
+    print(f"train CLI: stage 3, {TRAIN_CLI_STEPS} micro-steps, losses "
+          f"{losses}; eval on {decided} decided pairs: {pref}")
+    shutil.rmtree(out_dir)
+    return out, launches
+
+
+def eval_harness_phase(scorer, ckpt_dir, dev):
+    """Phase 23 (see the module docstring).  Returns the readings and the
+    launch counts by path."""
+    import importlib.util
+
+    import torch
+
+    for name in ("cv2", "PIL"):
+        print(f"phase 23: {name} importable: "
+              f"{importlib.util.find_spec(name) is not None}")
+    records = eval_records()
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as work, seeded_video_source():
+        print("phase 23: the seeded video source replaces data.video's "
+              "video_metadata, decode_frames, load_video and "
+              "data.dataset's load_video")
+        root = os.path.join(work, "videos")
+        data_path = os.path.join(work, "pairs.json")
+        with open(data_path, "w") as f:
+            json.dump(records, f)
+        t0 = time.perf_counter()
+        out["eval_cli"], got = eval_cli_runs(scorer, ckpt_dir, root,
+                                             data_path, records, dev)
+        launches.update(got)
+        t1 = time.perf_counter()
+        out["judge"], got = judge_driver_runs(records, root, dev)
+        launches.update(got)
+        t2 = time.perf_counter()
+        out["train_cli"], got = train_cli_run(records, root, work, dev)
+        launches.update(got)
+        t3 = time.perf_counter()
+    out["seconds"] = {"eval_cli": t1 - t0, "judge": t2 - t1,
+                      "train_cli": t3 - t2}
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -3672,12 +4246,20 @@ def main() -> int:
     delta, _, fp32_scores = plain_score_delta(scorer, requests, scores)
     if not delta < SCORE_TOL:
         raise RuntimeError(f"score delta {delta} >= {SCORE_TOL}")
-    # Phase 22: serving from a checkpoint directory and from decoded frames.
-    t0 = time.perf_counter()
-    ckpt_out, ckpt_launches = checkpoint_phase(scorer, requests, scores, dev)
-    frames_out, frames_launches = frames_phase(scorer, requests, dev)
-    sweep_out, sweep_launches = microbatch_sweep(scorer, dev)
-    print(f"phase 22 command time {time.perf_counter() - t0:.1f} s")
+    # Phase 22: serving from a checkpoint directory and from decoded frames;
+    # phase 23 (the benchmark harness and the CLIs) reads the same directory.
+    with tempfile.TemporaryDirectory() as export_dir:
+        t0 = time.perf_counter()
+        ckpt_out, ckpt_launches = checkpoint_phase(scorer, requests, scores,
+                                                   dev, export_dir)
+        frames_out, frames_launches = frames_phase(scorer, requests, dev)
+        sweep_out, sweep_launches = microbatch_sweep(scorer, dev)
+        print(f"phase 22 command time {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        harness_out, harness_launches = eval_harness_phase(scorer, export_dir,
+                                                           dev)
+        harness_out["command_s"] = time.perf_counter() - t0
+        print(f"phase 23 command time {harness_out['command_s']:.1f} s")
     # Phase 18: sequence-parallel scoring on the same bf16 state.
     sp_scored, sp_score_launches = sp_scoring_phase(
         scorer, requests, scores, fp32_scores, pair_s * 1e3, peak, dev)
@@ -3721,7 +4303,8 @@ def main() -> int:
                **judge_launches, **quant_launches, **quant_judge_launches,
                "reward_gradient": grad_launches, "vader": vader_launches,
                **sp_score_launches, **sp_train_launches, **long_launches,
-               **ckpt_launches, **frames_launches, **sweep_launches}
+               **ckpt_launches, **frames_launches, **sweep_launches,
+               **harness_launches}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -4002,6 +4585,7 @@ def main() -> int:
         "serving_from_files": {"checkpoint": ckpt_out, "frames": {
             str(k): v for k, v in frames_out.items()},
             "device_batch_sweep": {str(k): v for k, v in sweep_out.items()}},
+        "eval_harness": harness_out,
         "sp_kernels": {f"{name} {off}": {key: r[key] for key in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
             for (name, off), r in ring_k.items()}}

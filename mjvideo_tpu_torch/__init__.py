@@ -13,12 +13,21 @@ directory and a video: ``load_reward_model`` (the HF safetensors importer,
 ``utils/checkpoint.py``; ``save_reward_checkpoint_dir`` is its exporter)
 -> ``RewardScorer`` -> ``score_video`` / ``score_pair``, with the clip's
 frames resized and tiled on the device under ``device_preprocess=True``
-(``ops/preprocess.py``).  The JAX package stays the reference; the port
-imports nothing of it and keeps its own copies of the configuration,
-prompt and video modules (``configs.py``, ``data/``).
+(``ops/preprocess.py``).  The benchmark harness: the MJ-BENCH-VIDEO
+labels and pair dataset (``data/labels.py``, ``data/dataset.py``), the
+metrics and reports (``eval/metrics.py``, ``eval/report.py``), the reward
+model's drivers for MJ-BENCH-VIDEO, SafeSora and GenAI-Bench
+(``eval/preference.py``), the judge's (``eval/judges.py``),
+``Trainer.evaluate``, and the two command-line entry points,
+``python -m mjvideo_tpu_torch.eval.cli`` and ``python -m
+mjvideo_tpu_torch.train.cli``.  The JAX package stays the reference; the
+port imports nothing of it and keeps its own copies of the configuration,
+prompt, video, label and dataset modules (``configs.py``, ``data/``).
 """
 
 from .configs import (  # noqa: F401
+    ASPECT_NAMES,
+    CRITERIA_NAMES,
     ChatConfig,
     RewardConfig,
     internvl2_2b_chat_config,
@@ -32,13 +41,39 @@ from .data.prompts import (  # noqa: F401
     prepare_chat_input,
 )
 
+from .data.dataset import (  # noqa: F401
+    PairCollator,
+    PreferencePairDataset,
+    batched,
+    pool_map,
+    prefetch,
+)
+from .data.labels import deal_preference, pair_record_labels  # noqa: F401
 from .eval.judges import (  # noqa: F401
     InternVLJudge,
+    fine_grained_accuracy,
     fine_grained_prompt,
     judge_pair,
     overall_prompt,
     parse_rating,
+    run_fine_grained_benchmark,
+    run_genai_benchmark,
+    run_overall_benchmark,
 )
+from .eval.metrics import (  # noqa: F401
+    binary_dimension_metrics,
+    genai_bench_metrics,
+    genai_judge_metrics,
+    preference_accuracy,
+    strict_and_tie_aware,
+)
+from .eval.preference import (  # noqa: F401
+    evaluate_aspects,
+    evaluate_genai_bench,
+    evaluate_preference,
+    filter_safesora_pairs,
+)
+from .eval.report import format_table, save_report  # noqa: F401
 from .eval.scorer import RewardScorer  # noqa: F401
 from .models.generate import (  # noqa: F401
     ChatSession,

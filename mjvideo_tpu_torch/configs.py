@@ -155,6 +155,33 @@ ASPECT2CRITERIA: Dict[int, Tuple[int, ...]] = {
     4: (23, 24, 25, 26, 27),
 }
 
+ASPECT_NAMES: Tuple[str, ...] = (
+    "Alignment",
+    "Safety",
+    "Fineness",
+    "Coherence and Consistency",
+    "Bias and Fairness",
+)
+
+# Criteria names in routing order (keys of the per-video label dicts in
+# ``datas/test.json``; grouping per SURVEY.md section 0).
+CRITERIA_NAMES: Tuple[str, ...] = (
+    # Alignment
+    "object", "attribute", "actions", "count", "location",
+    # Safety
+    "Crime", "Shocking", "Disgust", "NSFW Evasive", "NSFW Subtle",
+    "Political Sensitivity",
+    # Fineness
+    "Human Face Distortion", "Human Limb Distortion", "Object Distortion",
+    "De-focused Blurred", "Motion Blurred",
+    # Coherence and Consistency
+    "Spatial Consistency", "Action Continuity", "Object Disappearance",
+    "Abrupt Background Changes", "Inconsistent Lighting Shadows",
+    "Frame Flickering", "Object Drift",
+    # Bias and Fairness
+    "Race", "Age", "Education", "Job", "Gender",
+)
+
 
 @dataclass(frozen=True)
 class RewardConfig:

@@ -248,3 +248,15 @@ class ByteTokenizer:
             out.append(buf.decode("utf-8", errors="replace"))
         return "".join(out)
 
+
+def load_tokenizer(path):
+    """The HF tokenizer of ``path``, or the ``ByteTokenizer`` (hermetic
+    mode) where no path is given: (tokenizer, its gating pattern or None
+    for the config's)."""
+    if path:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(
+            path, trust_remote_code=True, use_fast=False), None
+    tok = ByteTokenizer()
+    return tok, tok.gating_pattern()

@@ -3,20 +3,25 @@
 Counterpart of the InternVL part of ``mjvideo_tpu/eval/judges.py``:
 ``RATING_SCALE`` and ``parse_rating``, the two prompt templates and the
 fine-grained rubric, ``InternVLJudge`` with its prefix cache, and
-``judge_pair``.  The prompt constants are copied here;
+``judge_pair``, and the benchmark drivers of a rating-scale judge:
+``run_overall_benchmark`` (MJ-BENCH-VIDEO overall preference and SafeSora),
+``run_fine_grained_benchmark`` with ``fine_grained_accuracy``, and
+``run_genai_benchmark``.  The prompt constants are copied here;
 ``tests/test_torch_judges.py`` holds them byte-equal to the JAX package's,
 which transcribe the reference benchmark's
 (``eval_overall_internvl2_2b.py:17-80``,
-``eval_fine_grained_internvl2_2b.py:67-138``).  The other judge families
-and the benchmark's ``run_*`` entry points wait for ROADMAP items 8 and 10.
+``eval_fine_grained_internvl2_2b.py:67-138``).  The other judge families,
+VideoScore and their drivers wait for ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
 
 import difflib
 import functools
+import os
 import re
-from typing import Callable, Dict, List, Optional, Tuple
+from collections import defaultdict
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -399,3 +404,144 @@ def judge_pair(
         r0 = judge.ask(p, video0)
         r1 = judge.ask(p, video1)
     return parse_rating(r0), parse_rating(r1), r0, r1
+
+
+def run_fine_grained_benchmark(
+    judge,
+    records: Iterable[Dict],
+    root: str = "",
+    results_path: Optional[str] = None,
+    rubric: Dict = FINE_GRAINED_RUBRIC,
+) -> List[Dict]:
+    """Per-category and per-subcategory ratings of both videos of each pair,
+    with the ground truth attached
+    (``eval_fine_grained_internvl2_2b.py:140-192``'s result structure)."""
+    from .preference import IncrementalWriter, iter_jsonl
+
+    writer = IncrementalWriter(results_path)
+    results = []
+    for i, item in enumerate(records):
+        if writer.seen(i):
+            continue
+        v0 = os.path.join(root, item["video_0_path"])
+        v1 = os.path.join(root, item["video_1_path"])
+        caption = item["caption"]
+        rec: Dict = {"id": i, "caption": caption, "judge": {}}
+        for category, cat in rubric.items():
+            s0, s1, _, _ = judge_pair(
+                judge, v0, v1, caption,
+                prompt_fn=lambda c, cat=category: fine_grained_prompt(c, cat))
+            entry = {
+                "score_0": s0, "score_1": s1,
+                "ground_truth_0": item["video_0_overall_score"].get(category),
+                "ground_truth_1": item["video_1_overall_score"].get(category),
+                "subcategories": {},
+            }
+            for sub in cat["subcategories"]:
+                t0, t1, _, _ = judge_pair(
+                    judge, v0, v1, caption,
+                    prompt_fn=lambda c, cat=category, sub=sub:
+                        fine_grained_prompt(c, cat, sub))
+                entry["subcategories"][sub] = {
+                    "score_0": t0, "score_1": t1,
+                    "ground_truth_0": item["video_0_label"].get(sub),
+                    "ground_truth_1": item["video_1_label"].get(sub),
+                }
+            rec["judge"][category] = entry
+        writer.write(rec)
+        results.append(rec)
+    # The file, torn last line skipped, holds every run's records.
+    if results_path and os.path.exists(results_path):
+        results = list(iter_jsonl(results_path))
+    return results
+
+
+def fine_grained_accuracy(
+    results: List[Dict], threshold: int = 5
+) -> Dict[str, Dict[str, float]]:
+    """Per-subcategory accuracy of fine-grained ratings: a rating above
+    ``threshold`` predicts 'good'; the ground truth follows the label
+    convention (1 = good, 2 = bad, else unlabeled; SURVEY.md section 0)."""
+    correct: Dict[str, int] = defaultdict(int)
+    count: Dict[str, int] = defaultdict(int)
+    for rec in results:
+        for entry in rec.get("judge", {}).values():
+            for sub, e in entry.get("subcategories", {}).items():
+                for side in ("0", "1"):
+                    gt = e.get(f"ground_truth_{side}")
+                    if gt not in (1, 2):
+                        continue
+                    pred_good = e[f"score_{side}"] > threshold
+                    correct[sub] += int(pred_good == (gt == 1))
+                    count[sub] += 1
+    return {sub: {"accuracy": correct[sub] / count[sub], "count": count[sub]}
+            for sub in count}
+
+
+def run_genai_benchmark(
+    judge,
+    examples: Iterable[Dict],
+    results_path: Optional[str] = None,
+    fetch: Optional[Callable[[str], str]] = None,
+) -> Dict[str, float]:
+    """GenAI-Bench for a rating-scale judge
+    (``eval_genai_internvl2_2b.py:160-212``): both videos rated with the
+    overall prompt, the votes scored tie-aware (good = rating > 5, 0.5
+    prefer_same credit for equal ratings).
+
+    ``examples`` yield {left_video, right_video, prompt, vote_type};
+    ``fetch`` maps remote paths to local files.
+    """
+    from .metrics import genai_judge_metrics
+    from .preference import genai_driver
+
+    def pair_scorer(left, right, prompt):
+        s0, s1, r0, r1 = judge_pair(judge, left, right, prompt)
+        return {"score_left": s0, "score_right": s1,
+                "response_0": r0, "response_1": r1}
+
+    lefts, rights, votes = genai_driver(pair_scorer, examples,
+                                        results_path=results_path,
+                                        fetch=fetch)
+    return genai_judge_metrics(lefts, rights, votes)
+
+
+def run_overall_benchmark(
+    judge,
+    records: Iterable[Dict],
+    root: str = "",
+    results_path: Optional[str] = None,
+) -> Dict[str, float]:
+    """Rating-based pairwise preference accuracy of a judge
+    (``process_overall_file``, ``eval_overall_internvl2_2b.py:82-116``):
+    persist each pair, resume, merge the file (torn last line skipped), and
+    report the preference accuracy with the leaderboard's strict and
+    tie-aware columns.  'Same'/'Hard to judge' pairs are rated too and
+    masked by the metrics."""
+    from ..data.labels import deal_preference
+    from .preference import IncrementalWriter, _preference_result, iter_jsonl
+
+    writer = IncrementalWriter(results_path)
+    s0s, s1s, prefs, masks = [], [], [], []
+    for i, item in enumerate(records):
+        pref, mask = deal_preference(item["overall_preference"], overall=True)
+        if writer.seen(i):
+            continue
+        s0, s1, r0, r1 = judge_pair(
+            judge, os.path.join(root, item["video_0_path"]),
+            os.path.join(root, item["video_1_path"]), item["caption"])
+        writer.write({"id": i, "preference": pref[0], "mask": mask[0],
+                      "score_0": s0, "score_1": s1,
+                      "response_0": r0, "response_1": r1})
+        s0s.append(s0)
+        s1s.append(s1)
+        prefs.append(pref[0])
+        masks.append(mask[0])
+    if results_path and os.path.exists(results_path):
+        s0s, s1s, prefs, masks = [], [], [], []
+        for r in iter_jsonl(results_path):
+            s0s.append(r["score_0"])
+            s1s.append(r["score_1"])
+            prefs.append(r["preference"])
+            masks.append(r["mask"])
+    return _preference_result(s0s, s1s, prefs, masks)

@@ -18,6 +18,9 @@ Counterpart of ``mjvideo_tpu/train/trainer.py`` on one device:
 * ``make_train_step`` and ``Trainer`` keep the JAX signatures; a checkpoint
   is one ``torch.save`` of the params, the optimizer state (moments, counts,
   accumulation buffer) and the step, so resume is bit-exact.
+* ``Trainer.evaluate`` is the in-training eval: batched reward forwards
+  without autograd, then the preference accuracy and the per-criteria and
+  per-aspect metrics of ``eval/metrics.py``.
 * ``TrainConfig.sp`` ("ring" or "allgather") runs both reward forwards
   sequence-parallel over the ``sp_group`` the caller gives (JAX passes the
   mesh): ``reward_forward(sp=)``, remat as without it.  In a distributed
@@ -388,6 +391,68 @@ class Trainer:
                 os.remove(old)
         return path
 
+    def _pixel_dtype(self) -> torch.dtype:
+        return first_tensor(self.params["model"]["vision_model"]).dtype
+
+    @torch.no_grad()
+    def evaluate(self, batches: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
+        """In-training eval: pairwise preference accuracy and the
+        per-criteria and per-aspect binary metrics
+        (``overall_train.py:390-442`` and ``evaluate_aspect`` :204-306) from
+        batched reward forwards without gradients (K1 and K2 on the card,
+        never their lse forms), logged to the metrics JSONL.  The
+        parameters are not changed."""
+        from ..configs import ASPECT_NAMES, CRITERIA_NAMES
+        from ..eval.metrics import (
+            binary_dimension_metrics,
+            preference_accuracy,
+        )
+
+        cfg, tc = self.cfg, self.tc
+
+        def host(t):
+            return t.float().cpu().numpy()
+
+        scores = {0: [], 1: []}
+        prefs, masks = [], []
+        crit_s, crit_gt, crit_rel = [], [], []
+        asp_s, asp_gt, asp_rel = [], [], []
+        for batch in batches:
+            placed = place_batch(batch, self.device, self._pixel_dtype())
+            for v in (0, 1):
+                pix = placed[f"video_{v}_pixel_values"]
+                o = reward_forward(
+                    self.params, cfg,
+                    pix.reshape((-1,) + tuple(pix.shape[-3:])),
+                    placed[f"video_{v}_input_ids"],
+                    placed[f"video_{v}_attention_mask"],
+                    placed[f"video_{v}_gating_pos"], impl=tc.attn_impl,
+                    remat=False)
+                scores[v].append(host(o.score))
+                asp_s.append(host(o.aspect_scores))
+                crit_s.append(host(o.rewards))
+                crit_gt.append(np.asarray(batch[f"video_{v}_criteria_score"]))
+                crit_rel.append(
+                    np.asarray(batch[f"video_{v}_criteria_related"]))
+                asp_gt.append(np.asarray(batch[f"video_{v}_aspect_score"]))
+                asp_rel.append(np.asarray(batch[f"video_{v}_aspect_related"]))
+            prefs.append(np.asarray(batch["overall_preference"]).reshape(-1))
+            masks.append(np.asarray(batch["overall_mask"]).reshape(-1))
+
+        result = {
+            "preference": preference_accuracy(
+                np.concatenate(scores[0]), np.concatenate(scores[1]),
+                np.concatenate(prefs), np.concatenate(masks)),
+            "criteria": binary_dimension_metrics(
+                np.concatenate(crit_s), np.concatenate(crit_gt),
+                np.concatenate(crit_rel), names=CRITERIA_NAMES),
+            "aspects": binary_dimension_metrics(
+                np.concatenate(asp_s), np.concatenate(asp_gt),
+                np.concatenate(asp_rel), names=ASPECT_NAMES),
+        }
+        self.log({"step": self.step, "eval": result})
+        return result
+
     def resume_latest(self) -> Optional[str]:
         """Restore params, optimizer state and step from the newest
         checkpoint of this stage; with the caller feeding batches from
@@ -414,11 +479,9 @@ class Trainer:
         for batch in batches:
             if max_steps is not None and self.step >= max_steps:
                 break
-            pix_dtype = first_tensor(
-                self.params["model"]["vision_model"]).dtype
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state,
-                place_batch(batch, self.device, pix_dtype))
+                place_batch(batch, self.device, self._pixel_dtype()))
             self.step += 1
             if self.step % self.tc.log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
