@@ -1,7 +1,7 @@
 """Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths, its
 InternVL2-2B judge, quantized scoring and judging, the reward gradient
-with its VADER loop, and sequence-parallel scoring and training once on
-one CUDA card.
+with its VADER loop, sequence-parallel scoring and training, and
+MJ-VIDEO-4B's serving with its InternVL2-4B judge once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -310,6 +310,28 @@ Phases (any failure raises and exits non-zero):
    TRAIN_CLI_EVAL_PAIRS records): finite losses, the eval record in
    ``metrics.jsonl``, ``Trainer.evaluate`` launching K1 and K2 and no lse
    form or backward, the free disk before the save and the bytes written.
+24. MJ-VIDEO-4B (after phase 12, the earlier states freed): (a) K2 (the
+   op, the kernel alone, its pre-pass to PREPASS_REL_TOL) at the 4B's
+   D96_K2_SHAPES (32/32 heads of 96, phase 3's ragged mask and dead rows)
+   and K3 at D96_K3_SHAPES (the pair's left-padded prefill, a decode step
+   at an offset) and non-causal, each within KERNEL_REL_TOL of its twin,
+   the op bit-equal to the kernel alone, two launches bit-identical, dead
+   rows exactly 0, each with its bound; K2, the K2 op, K3 and the
+   pre-pass in turns with SDPA.  (b) A 4B bf16 state drawn on the card
+   from its own seeded generator; ``RewardScorer`` (the ``phi3-chat``
+   gating pattern) on phase 4's requests with its own prompts: exact
+   launches (24 K1, 32 K2 and 56 ``key_norm_max`` a forward), finite
+   scores within SCORE_TOL of fp32 plain with S1's split (bf16 plain
+   against fp32 plain, bf16 kernels against bf16 plain), a pair's time
+   and the peak memory; the state written by the port's exporter as a
+   Phi-3-layout F32 directory (the free disk checked first) and loaded
+   back, leaves and scores bit-equal.  (c) ``eval/cli.main`` overall on
+   that directory, EVAL_4B_PAIRS pairs of phase 23's seeded frames, the
+   results bit-equal to ``score_batch`` of the same state; the directory
+   is deleted.  (d) Phase 9's judge on ``internvl2_4b_chat_config``
+   (random bf16 weights with the 3072 x 32064 LM head): ``judge_pair``'s
+   full prompt and the prefix path, exact launches (32 K3 a forward),
+   teacher-forced logits within LOGITS_REL_TOL of fp32 plain, its times.
 """
 
 from __future__ import annotations
@@ -410,10 +432,11 @@ PREPASS_REL_TOL = 1e-6
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_scan_kernel", "key_norm_partial_kernel",
                 "key_norm_fold_kernel")
-# The forward template's 5 main-path instantiations and B1's 4 and B2's 3
-# (B3 is B2's hp 1), the backward template's 6, the pre-passes' 5 and the
-# int8 GEMM's 2.
-SM90_INSTANTIATIONS = 26
+# The forward template's 8 main-path instantiations (the 5 above and, at
+# Phi-3's D = 96, K2 and K3 causal and not) and B1's 4 and B2's 3 (B3 is
+# B2's hp 1), the backward template's 6, the pre-passes' 6 (the partial
+# pass also at D = 96) and the int8 GEMM's 2.
+SM90_INSTANTIATIONS = 30
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -535,6 +558,16 @@ JUDGE_DRIVER_PAIRS = 2
 TRAIN_CLI_STEPS = 2
 TRAIN_CLI_EVAL_PAIRS = 4
 
+# Phase 24: MJ-VIDEO-4B (InternViT-300M and Phi-3-mini: 32 layers of 3072,
+# 32/32 heads of 96).  K2 and its pre-pass at the 2,304 and 3,072 buckets
+# with phase 3's ragged mask and dead rows; K3 at the judge's pair prefill
+# (left-padded), at a decode step (one query at the cache's slot 3,000)
+# and non-causal over the prefill's keys; the CLI's pairs.
+D96_K2_SHAPES = ((2, 2304, 32, 32, 96), (2, 3072, 32, 32, 96))
+D96_K3_SHAPES = {"prefill": (2, 3072, 3072, 32, 32, 96, None),
+                 "decode step": (2, 1, 3072, 32, 32, 96, 3000)}
+EVAL_4B_PAIRS = 2
+
 
 def _median_ms(fn, reps=10, warmup=3):
     import torch
@@ -652,6 +685,20 @@ def _with_prepass(want):
     want = dict(want)
     want["key_norm_max"] = (want.get("vit_attention", 0)
                             + want.get("decoder_attention", 0))
+    return want
+
+
+def _serving_launches(cfg, forwards):
+    """The launches of ``forwards`` scoring forwards of the reward model
+    ``cfg``: K1 per ViT layer and K2 per decoder layer, each after its
+    pre-pass; at Phi-3's head dim of 96 K2 and its pre-pass count under
+    their D = 96 names too."""
+    L_llm = cfg.chat.llm.num_hidden_layers * forwards
+    want = _with_prepass({
+        "vit_attention": cfg.chat.vision.num_hidden_layers * forwards,
+        "decoder_attention": L_llm})
+    if cfg.chat.llm.head_dim == 96:
+        want.update(decoder_attention_d96=L_llm, key_norm_max_d96=L_llm)
     return want
 
 
@@ -2258,13 +2305,14 @@ def quant_judge_phase(dev, bf16_step_ms):
     return out, {"judge int4": got}
 
 
-def make_judge(state=None, generator=None, device=None, quant=None):
-    """An ``InternVLJudge`` on the 2B chat config rebased on the
-    ``ByteTokenizer``, with random bf16 weights drawn on the card from
-    ``generator`` (or ``state``, e.g. an fp32 copy, which then runs the
-    plain path), in the serving mode ``quant`` if one is given.  Its videos
-    are seeded pixels: a video's name seeds its frames, so two judges see
-    the same ones."""
+def make_judge(state=None, generator=None, device=None, quant=None,
+               base=None):
+    """An ``InternVLJudge`` on the chat config ``base`` (the 2B's by
+    default) rebased on the ``ByteTokenizer``, with random bf16 weights
+    drawn on the card from ``generator`` (or ``state``, e.g. an fp32 copy,
+    which then runs the plain path), in the serving mode ``quant`` if one
+    is given.  Its videos are seeded pixels: a video's name seeds its
+    frames, so two judges see the same ones."""
     import numpy as np
     import torch
 
@@ -2278,7 +2326,7 @@ def make_judge(state=None, generator=None, device=None, quant=None):
     )
     from mjvideo_tpu_torch.utils.bridge import first_tensor
 
-    base = internvl2_2b_chat_config()
+    base = internvl2_2b_chat_config() if base is None else base
     tok = ByteTokenizer(pad_token_id=base.llm.pad_token_id)
     cfg = rebase_img_context_id(base, tok)
     impl = "auto"
@@ -2307,6 +2355,15 @@ def make_judge(state=None, generator=None, device=None, quant=None):
     return SeededVideoJudge(cfg, state, tok, num_segments=JUDGE_FRAMES,
                             max_new_tokens=JUDGE_NEW_TOKENS, attn_impl=impl,
                             quant=quant)
+
+
+def _judge_launches(cfg, want):
+    """``want`` with K3's launches also under its D = 96 name at Phi-3's
+    head dim."""
+    want = dict(want)
+    if cfg.llm.head_dim == 96 and "exact_attention" in want:
+        want["exact_attention_d96"] = want["exact_attention"]
+    return want
 
 
 def _full_inputs(judge, prompt, videos):
@@ -2363,8 +2420,10 @@ def logits_fidelity(judge, plain_judge, prompt, videos, prefix, label):
     return err, rel, toks, got
 
 
-def judge_phase(device, seed=SEED, timing=True):
-    """Phase 9.  Returns the readings and the launch counts by path."""
+def judge_phase(device, seed=SEED, timing=True, base=None, name="judge"):
+    """Phase 9 on the 2B chat config, or phase 24's judge on ``base`` (the
+    4B's: no K2r at D = 96, so no pass under the per-row bound).  Returns
+    the readings and the launch counts by path, named ``name``_...."""
     import gc
 
     import torch
@@ -2383,7 +2442,8 @@ def judge_phase(device, seed=SEED, timing=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     judge = make_judge(generator=torch.Generator(device=device)
-                       .manual_seed(seed), device=device)
+                       .manual_seed(seed), device=device, base=base)
+    rows = judge.cfg.llm.head_dim != 96
     L_vit = judge.cfg.vision.num_hidden_layers  # select_layer -1: all run
     L_llm = judge.cfg.llm.num_hidden_layers
     out = {}
@@ -2393,9 +2453,9 @@ def judge_phase(device, seed=SEED, timing=True):
     kernels.reset_launch_counts()
     s0, s1, r0, r1 = judge_pair(judge, *videos, JUDGE_CAPTION)
     torch.cuda.synchronize()
-    launches["judge_full"] = _held_launches(
-        "judge full prompt",
-        _with_prepass({"vit_attention": 2 * L_vit, "exact_attention": L_llm}))
+    launches[f"{name}_full"] = _held_launches(
+        f"{name} full prompt", _judge_launches(judge.cfg, _with_prepass(
+            {"vit_attention": 2 * L_vit, "exact_attention": L_llm})))
     # At random weights the greedy ids lie above the ByteTokenizer's 261
     # (bytes and specials), which decode to nothing: answers are text,
     # often empty, and ratings 0.
@@ -2405,8 +2465,9 @@ def judge_phase(device, seed=SEED, timing=True):
     kernels.reset_launch_counts()
     answers = judge.ask_batch(JUDGE_QUESTION, list(videos))
     torch.cuda.synchronize()
-    launches["judge_prefix"] = _held_launches(
-        "judge prefix", {"exact_attention": 3 * L_llm})
+    launches[f"{name}_prefix"] = _held_launches(
+        f"{name} prefix", _judge_launches(judge.cfg,
+                                          {"exact_attention": 3 * L_llm}))
     print(f"judge prefix: answers {[a[:60] for a in answers]!r}")
     if not all(isinstance(a, str) for a in (r0, r1, *answers)):
         raise RuntimeError("an answer did not decode to text")
@@ -2414,19 +2475,21 @@ def judge_phase(device, seed=SEED, timing=True):
     judge._pstate.cache_clear()
     gen._CACHE_BOUND = "rows"
     try:
-        kernels.reset_launch_counts()
-        judge.ask_batch(JUDGE_QUESTION, list(videos))
-        torch.cuda.synchronize()
-        launches["judge_prefix_rows"] = _held_launches(
-            "judge prefix rows", {"decoder_attention_rows": 3 * L_llm,
-                                  "key_norm_cummax": 3 * L_llm})
+        if rows:
+            kernels.reset_launch_counts()
+            judge.ask_batch(JUDGE_QUESTION, list(videos))
+            torch.cuda.synchronize()
+            launches[f"{name}_prefix_rows"] = _held_launches(
+                f"{name} prefix rows", {"decoder_attention_rows": 3 * L_llm,
+                                        "key_norm_cummax": 3 * L_llm})
     finally:
         gen._CACHE_BOUND = False
         judge._pstate.cache_clear()
     out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
 
     # Teacher-forced logits against fp32 plain, both paths.
-    plain = make_judge(state=map_state(lambda t: t.float(), judge.params))
+    plain = make_judge(state=map_state(lambda t: t.float(), judge.params),
+                       base=base)
     prompt = overall_prompt(JUDGE_CAPTION)
     _, out["full_rel"], otoks, _ = logits_fidelity(judge, plain, prompt,
                                                    videos, False, "full prompt")
@@ -2437,8 +2500,9 @@ def judge_phase(device, seed=SEED, timing=True):
     judge._pstate.cache_clear()
     gen._CACHE_BOUND = "rows"
     try:
-        _, out["prefix_rows_rel"], _, _ = logits_fidelity(
-            judge, plain, JUDGE_QUESTION, videos, True, "prefix (rows)")
+        if rows:
+            _, out["prefix_rows_rel"], _, _ = logits_fidelity(
+                judge, plain, JUDGE_QUESTION, videos, True, "prefix (rows)")
     finally:
         gen._CACHE_BOUND = False
         judge._pstate.cache_clear()
@@ -2455,7 +2519,8 @@ def judge_phase(device, seed=SEED, timing=True):
           f"max|delta| {d0:.4e}; greedy tokens agree on {agree:.4f} of "
           f"{ptoks.numel()}")
     out.update(prefix_vs_full_step0=d0, prefix_vs_full_agree=agree)
-    for key in ("full_rel", "prefix_rel", "prefix_rows_rel"):
+    for key in ("full_rel", "prefix_rel") + (("prefix_rows_rel",) if rows
+                                              else ()):
         if not out[key] <= LOGITS_REL_TOL:
             raise RuntimeError(f"judge {key} {out[key]} > {LOGITS_REL_TOL}")
     if timing:
@@ -3339,10 +3404,11 @@ def _rss_bytes():
     return now * 1024, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def checkpoint_phase(scorer, requests, scores, dev, d):
+def checkpoint_phase(scorer, requests, scores, dev, d, name="checkpoint"):
     """Phase 22's checkpoint round trip on phase 4's state, written into the
-    directory ``d`` (phase 23 reads it again).  Returns the readings and
-    the launch counts of the reloaded scorer's requests."""
+    directory ``d`` (phase 23 reads it again); phase 24's on the 4B's.
+    Returns the readings and the launch counts of the reloaded scorer's
+    requests under ``name``."""
     import shutil
 
     import torch
@@ -3400,19 +3466,18 @@ def checkpoint_phase(scorer, requests, scores, dev, d):
     kernels.reset_launch_counts()
     got = torch.cat([sc.score_batch(*r).score for r in requests])
     torch.cuda.synchronize()
-    launches = _held_launches("checkpoint round trip", _with_prepass({
-        "vit_attention": 24 * len(requests),
-        "decoder_attention": 24 * len(requests)}))
+    launches = _held_launches(f"{name} round trip",
+                              _serving_launches(cfg, len(requests)))
     got = got.float().cpu()
     out["scores_bit_equal"] = bool(torch.equal(got, scores))
-    print(f"checkpoint: {len(made)} leaves bit-equal; scores {got.tolist()}"
-          f" bit-equal to phase 4's: {out['scores_bit_equal']}")
+    print(f"{name}: {len(made)} leaves bit-equal; scores {got.tolist()}"
+          f" bit-equal to the written state's: {out['scores_bit_equal']}")
     if not out["scores_bit_equal"]:
         raise RuntimeError(f"reloaded scores {got.tolist()} against "
                            f"{scores.tolist()}")
     del sc, state
     torch.cuda.empty_cache()
-    return out, {"checkpoint": launches}
+    return out, {name: launches}
 
 
 def _levels(card, cpu):
@@ -3748,7 +3813,7 @@ def _bit_equal_rows(label, rows, refs, fields):
                         float(want) == got):
                     bad.append((row["id"], f"{key}_{b}"))
     print(f"{label}: {len(rows)} pairs, results bit-equal to score_batch of "
-          f"phase 4's state on the same frames: {not bad}")
+          f"the same state on the same frames: {not bad}")
     if bad or len(rows) != len(refs):
         raise RuntimeError(f"{label}: rows {bad} differ from score_batch")
 
@@ -4105,6 +4170,274 @@ def eval_harness_phase(scorer, ckpt_dir, dev):
     return out, launches
 
 
+def check_d96_decoder_kernels(randn, shape):
+    """Phase 24: K2 at Phi-3's head dim (the op, one C call of the pre-pass
+    and the kernel; the kernel alone on the standalone kmax, two launches
+    bit-identical; the pre-pass) against their twins on phase 3's ragged
+    inputs (``_decoder_inputs``), the op bit-equal to the kernel alone
+    (``_hold_op``).  No lse form: K2 lse at D = 96 is refused.  Returns
+    each one's reading by label."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask, dead = _decoder_inputs(randn, *shape, True)
+    scale = shape[-1] ** -0.5
+    kmax = kernels.key_norm_max(k, mask)
+    dead_rows = (f"{int(dead.sum())} dead rows",
+                 lambda got: not got[0][dead].any())
+
+    def alone():
+        return kernels.decoder_attention(q, k, v, mask, kmax, None, scale)
+
+    _hold_op(f"K2 op {shape}",
+             lambda: fa._decoder_attention_fwd(q, k, v, mask, None, scale,
+                                               False), alone)
+    work = _attention_work(q, k, v, mask)
+    library = _sdpa(q, k, v, causal=True)
+    return {
+        "K2": _check_kernel(
+            f"K2 decoder_attention (op: pre-pass and kernel) {shape}",
+            lambda: fa.decoder_attention(q, k, v, mask),
+            lambda: fa.decoder_attention_plain(q, k, v, mask),
+            zero=dead_rows, work=work, library=library),
+        "K2 kernel": _check_kernel(
+            f"K2 decoder_attention (kernel alone) {shape}", alone,
+            lambda: fa.decoder_attention_plain(q, k, v, mask),
+            zero=dead_rows, extra=_again(alone), work=work,
+            library=library),
+        "K2 pre-pass": _check_prepass(str(shape), k, mask)}
+
+
+def check_d96_k3(randn, label, shape, causal=True):
+    """Phase 24: K3 at Phi-3's head dim against its twin on a judge shape's
+    inputs (``_judge_inputs``; non-causal: without the offset, every row
+    sees its batch's live keys), two launches bit-identical, dead rows
+    exactly 0.  Returns the reading."""
+    import torch
+
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask, off, dead = _judge_inputs(randn, shape)
+    if not causal:
+        off, dead = None, torch.zeros_like(dead)
+
+    def kernel():
+        return fa.exact_attention(q, k, v, mask, off, causal=causal)
+
+    # SDPA's causal mask is aligned at the first query: no yardstick for a
+    # query at an offset.
+    return _check_kernel(
+        f"K3 exact_attention {label} {shape[:6]}"
+        f"{'' if causal else ' non-causal'}", kernel,
+        lambda: fa.exact_attention_plain(q, k, v, mask, off, causal=causal),
+        zero=(f"{int(dead.sum())} dead rows",
+              lambda got: not got[0][dead].any()),
+        extra=_again(kernel), work=_attention_work(q, k, v, mask, off,
+                                                   causal=causal),
+        library=_sdpa(q, k, v, causal=causal) if off is None else None)
+
+
+def time_d96_in_turns(randn, rounds=10):
+    """K2 alone on its kmax, the K2 op, K3, the pre-pass alone and
+    ``F.scaled_dot_product_attention`` at the 4B's (2, 3072, 32/32, 96) on
+    phase 3's ragged inputs, in turns by CUDA events; the ops' device time
+    by kernel and back to back.  Returns the medians in ms."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    shape = D96_K2_SHAPES[-1]
+    q, k, v, mask, _ = _decoder_inputs(randn, *shape, True)
+    scale = shape[-1] ** -0.5
+    kmax = kernels.key_norm_max(k, mask)
+    runs = {
+        "K2": lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                                scale),
+        "K2 op": lambda: fa.decoder_attention(q, k, v, mask),
+        "K3": lambda: kernels.exact_attention(q, k, v, mask, None, scale),
+        "pre-pass": lambda: kernels.key_norm_max(k, mask),
+        "SDPA": _sdpa(q, k, v, causal=True),
+    }
+    med = _in_turns(runs, list(runs) + list(runs)[::-1], rounds)
+    print(f"D = 96 kernels at {shape}, in turns: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in med.items())
+          + f" (median of {2 * rounds} each; against SDPA: "
+          + ", ".join(f"{n} {t / med['SDPA']:.3f}" for n, t in med.items()
+                      if n != "SDPA") + ")")
+    _op_device_times(med, runs, ("K2 op", "K2", "K3", "pre-pass"), shape)
+    return med
+
+
+def make_scorer_4b(generator, device):
+    """A 4B ``RewardScorer`` with random bf16 weights drawn on the card,
+    the ``ByteTokenizer`` padding with the config's id and its gating
+    pattern for ``phi3-chat`` ('<|end|><|assistant|>\\n')."""
+    import torch
+
+    from mjvideo_tpu_torch import (
+        ByteTokenizer,
+        RewardScorer,
+        init_reward_params,
+        mjvideo_4b_config,
+    )
+
+    cfg = mjvideo_4b_config()
+    state = init_reward_params(cfg, generator=generator, device=device,
+                               dtype=torch.bfloat16)
+    tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
+    return RewardScorer(cfg, state, tok, dtype=torch.bfloat16,
+                        gating_pattern=tok.gating_pattern(cfg.chat.template))
+
+
+def scoring_4b_phase(scorer, dev):
+    """Phase 24 (b): the 4B scorer on phase 4's requests (its own prompts):
+    exact launches, finite scores, a pair's time and the peak memory, the
+    scores against fp32 plain with S1's split (bf16 plain against fp32
+    plain, bf16 kernels against bf16 plain).  Returns the readings, the
+    launch counts, the requests and the scores."""
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels
+
+    requests = make_requests(scorer, np.random.default_rng(SEED))
+    for pix, ids, _ in requests:
+        print(f"4B request: {len(ids)} clip(s), {pix.shape[0]} tiles, prompt "
+              f"lengths {[len(i) for i in ids]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    scores = [scorer.score_batch(*r).score for r in requests]
+    torch.cuda.synchronize()
+    launches = _held_launches("4B scoring",
+                              _serving_launches(scorer.cfg, len(requests)))
+    scores = torch.cat(scores).float().cpu()
+    if not torch.isfinite(scores).all():
+        raise RuntimeError(f"4B: non-finite scores {scores.tolist()}")
+    out = {"peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    times = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer.score_batch(*requests[1])
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    out["pair_ms"] = statistics.median(times) * 1e3
+    out["clips_per_s"] = len(requests[1][1]) / statistics.median(times)
+    print(f"4B serving: pair request median {out['pair_ms']:.1f} ms over "
+          f"{len(times)} runs -> {out['clips_per_s']:.2f} clips/s; peak "
+          f"memory {out['peak_gib']:.2f} GiB (bf16, kernels)")
+    delta, rel, fp32 = plain_score_delta(scorer, requests, scores)
+    bf16_plain = RewardScorer(scorer.cfg, scorer.params, scorer.tokenizer,
+                              dtype=torch.bfloat16, attn_impl="plain",
+                              gating_pattern=scorer.gating_pattern)
+    bp = torch.cat([bf16_plain.score_batch(*r).score for r in requests])
+    bp = bp.float().cpu()
+    out.update(score_delta=delta, score_delta_rel=rel,
+               bf16_plain_vs_fp32_plain=(bp - fp32).abs().max().item(),
+               kernels_vs_bf16_plain=(scores - bp).abs().max().item(),
+               scores=scores.tolist(), fp32_plain_scores=fp32.tolist())
+    print(f"4B S1 split: bf16 plain against fp32 plain "
+          f"{out['bf16_plain_vs_fp32_plain']:.3e}, bf16 kernels against "
+          f"bf16 plain {out['kernels_vs_bf16_plain']:.3e} (the delta "
+          f"{delta:.3e}, bound {SCORE_TOL:.0e})")
+    if not delta < SCORE_TOL:
+        raise RuntimeError(f"4B score delta {delta} >= {SCORE_TOL}")
+    return out, {"scoring_4b": launches}, requests, scores
+
+
+def eval_cli_4b(scorer, ckpt_dir, dev):
+    """Phase 24 (c): ``eval/cli.main`` overall on the 4B's checkpoint
+    directory (``--byte-tokenizer``: the gating pattern of its
+    ``phi3-chat`` template), EVAL_4B_PAIRS pairs of phase 23's seeded
+    frames; the results bit-equal to ``score_batch`` of the same state,
+    exact launches.  Returns the readings and the launch counts."""
+    from mjvideo_tpu_torch.eval import cli as eval_cli
+    from mjvideo_tpu_torch.eval import preference
+
+    records = eval_records(EVAL_4B_PAIRS)
+    with tempfile.TemporaryDirectory() as work, seeded_video_source():
+        data_path = os.path.join(work, "pairs.json")
+        with open(data_path, "w") as f:
+            json.dump(records, f)
+        results = os.path.join(work, "overall.jsonl")
+        argv = ["--benchmark", "overall", "--device", "cuda",
+                "--byte-tokenizer", "--device-preprocess", "--max-num", "1",
+                "--model-path", ckpt_dir, "--data-json", data_path,
+                "--video-root", work, "--num-segments", str(FRAMES),
+                "--results", results]
+        res, printed, secs, inner, got = _run_main(
+            eval_cli.main, argv, timed=(preference, "evaluate_preference"))
+        want = {k: v * len(records) for k, v in
+                _serving_launches(scorer.cfg, 1).items()}
+        launches = {"eval_cli_4b": _hold("4B eval CLI", got, want)}
+        rows = sorted(preference.iter_jsonl(results), key=lambda r: r["id"])
+        _bit_equal_rows("4B eval CLI", rows,
+                        _reference_outputs(scorer, records, work),
+                        {"score": "score"})
+    out = {"command_s": secs, "driver_s": inner, "result": res,
+           "pairs_per_s": len(records) / inner}
+    print(f"4B eval CLI: {len(records)} pairs, command {secs:.2f} s (the "
+          f"checkpoint's load included), driver {inner:.2f} s; result "
+          f"{json.dumps(res, default=float)[:300]}")
+    return out, launches
+
+
+def mjvideo_4b_phase(dev, generator, drawer):
+    """Phase 24: MJ-VIDEO-4B on the card (see the module docstring).
+    Returns the readings, the D = 96 kernel readings and the launch counts
+    by path."""
+    import gc
+    import shutil
+
+    import torch
+
+    from mjvideo_tpu_torch import internvl2_4b_chat_config
+
+    t0 = time.perf_counter()
+    randn = drawer(generator())
+    k = {"K2": {shape: check_d96_decoder_kernels(randn, shape)
+                for shape in D96_K2_SHAPES}}
+    k["K3"] = {name: check_d96_k3(randn, name, shape)
+               for name, shape in D96_K3_SHAPES.items()}
+    k["K3"]["non-causal"] = check_d96_k3(randn, "prefill keys",
+                                         D96_K3_SHAPES["prefill"], False)
+    k["turns"] = time_d96_in_turns(randn)
+    out = {"kernels_s": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    scorer = make_scorer_4b(generator(), dev)
+    torch.cuda.synchronize()
+    out["state_s"] = time.perf_counter() - t1
+    print(f"4B state (bf16) made on the card in {out['state_s']:.1f} s")
+    out["scoring"], launches, requests, scores = scoring_4b_phase(scorer,
+                                                                  dev)
+    d = tempfile.mkdtemp()
+    try:
+        need = 4 * sum(t.numel() for t in _flat_state(scorer.params).values())
+        free = shutil.disk_usage(d).free
+        print(f"4B checkpoint: {need} bytes to write (F32), "
+              f"{free / 2**30:.2f} GiB free")
+        if free < need * 1.1:
+            raise RuntimeError(f"4B checkpoint: {free} bytes free for "
+                               f"{need}")
+        out["checkpoint"], more = checkpoint_phase(
+            scorer, requests, scores, dev, d, name="checkpoint_4b")
+        launches.update(more)
+        out["eval_cli"], more = eval_cli_4b(scorer, d, dev)
+        launches.update(more)
+    finally:
+        shutil.rmtree(d)
+    del scorer, requests
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["judge"], more = judge_phase(dev, base=internvl2_4b_chat_config(),
+                                     name="judge_4b")
+    launches.update(more)
+    out["command_s"] = time.perf_counter() - t0
+    print(f"phase 24 command time {out['command_s']:.1f} s")
+    return out, k, launches
+
+
 def main() -> int:
     import torch
 
@@ -4294,6 +4627,12 @@ def main() -> int:
     # Phase 12: the judge in int4 weight-only.
     quant_judged, quant_judge_launches = quant_judge_phase(
         dev, judged_out["decode_step_ms"])
+    # Phase 24: MJ-VIDEO-4B, once the earlier phases' states are freed.
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_4b, d96, launches_4b = mjvideo_4b_phase(dev, generator, drawer)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -4304,7 +4643,7 @@ def main() -> int:
                "reward_gradient": grad_launches, "vader": vader_launches,
                **sp_score_launches, **sp_train_launches, **long_launches,
                **ckpt_launches, **frames_launches, **sweep_launches,
-               **harness_launches}
+               **harness_launches, **launches_4b}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -4333,6 +4672,8 @@ def main() -> int:
     lse = dec[trained]["K2 lse"]
     judged = JUDGE_SHAPES["prefill"][:6]
     served_k1 = k1[K1_SHAPES[0]]
+    served_96 = D96_K2_SHAPES[-1]
+    k2_96, turns_96 = d96["K2"][served_96], d96["turns"]
     summary = {"kernels": [
         {"name": "vit_attention", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
@@ -4497,6 +4838,42 @@ def main() -> int:
          "at_shapes": {n: brief(r["K2r pre-pass"]) | {f: r["K2r pre-pass"][
              f] for f in ("device_ms", "partial_device_ms", "scan_device_ms",
                           "parts")} for n, r in judge_k.items()}},
+        # The D = 96 forms (MJ-VIDEO-4B's Phi-3 decoder, phase 24): the
+        # same template at Config D96, launched through the same entries.
+        {"name": "decoder_attention_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
+         **counts("decoder_attention_d96"), "shape": served_96,
+         **k2_96["K2"], "kernel_alone": brief(k2_96["K2 kernel"]),
+         "kernel_ms_in_turns": turns_96["K2"],
+         "op_ms_in_turns": turns_96["K2 op"],
+         "op_device_ms": turns_96["K2 op device_ms"],
+         "op_back_to_back_ms": turns_96["K2 op back_to_back_ms"],
+         "sdpa_ms_in_turns": turns_96["SDPA"],
+         "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K2", "K2 kernel")}
+                       for sh, r in d96["K2"].items()}},
+        {"name": "key_norm_max_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:484",
+         "design": "key_norm_partial_kernel<96>: 16 lanes a key vector, 4 "
+                   "of them loading nothing; the op's partials folded by "
+                   "K2 after griddepcontrol.wait",
+         **counts("key_norm_max_d96"), "shape": served_96,
+         **k2_96["K2 pre-pass"], "ms_in_turns": turns_96["pre-pass"],
+         "at_shapes": {str(sh): brief(r["K2 pre-pass"]) | {
+             "device_ms": r["K2 pre-pass"]["device_ms"]}
+             for sh, r in d96["K2"].items()}},
+        {"name": "exact_attention_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/exact_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:260",
+         **counts("exact_attention_d96"),
+         "shape": D96_K3_SHAPES["prefill"][:6], **d96["K3"]["prefill"],
+         "kernel_ms_in_turns": turns_96["K3"],
+         "kernel_device_ms": turns_96["K3 device_ms"],
+         "sdpa_ms_in_turns": turns_96["SDPA"], "turns_shape": served_96,
+         "at_shapes": {n: brief(r) for n, r in d96["K3"].items()}},
         {"name": "q8g_matmul_fused", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
@@ -4585,7 +4962,7 @@ def main() -> int:
         "serving_from_files": {"checkpoint": ckpt_out, "frames": {
             str(k): v for k, v in frames_out.items()},
             "device_batch_sweep": {str(k): v for k, v in sweep_out.items()}},
-        "eval_harness": harness_out,
+        "eval_harness": harness_out, "mjvideo_4b": out_4b,
         "sp_kernels": {f"{name} {off}": {key: r[key] for key in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
             for (name, off), r in ring_k.items()}}

@@ -2,8 +2,9 @@
 
 The MJ-VIDEO-2B scoring path (``RewardScorer.score_batch`` ->
 ``reward_forward`` -> ViT -> pixel-shuffle -> projector -> ``<IMG_CONTEXT>``
-scatter -> InternLM2 decoder -> reward head), its training step
-(``train/``), and cached generation with the InternVL2 judge
+scatter -> InternLM2 decoder -> reward head) and MJ-VIDEO-4B's (the
+Phi-3-mini decoder: the same layer, its own checkpoint layout), the 2B's
+training step (``train/``), and cached generation with the InternVL2 judge
 (``models/generate.py``, ``eval/judges.py``) in PyTorch, with hand-written
 CUDA kernels for the attention forwards and backward and the quantized
 products (``kernels.py``, ``csrc/``); quantized serving
@@ -31,8 +32,10 @@ from .configs import (  # noqa: F401
     ChatConfig,
     RewardConfig,
     internvl2_2b_chat_config,
+    internvl2_4b_chat_config,
     load_config,
     mjvideo_2b_config,
+    mjvideo_4b_config,
     tiny_test_config,
 )
 from .data.prompts import (  # noqa: F401

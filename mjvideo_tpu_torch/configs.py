@@ -2,7 +2,8 @@
 
 Frozen dataclasses for the InternViT encoder, the decoder LLM, the InternVL
 chat model and the MoE reward model, with the presets the port drives
-(MJ-VIDEO-2B, the InternVL2-2B judge backbone, the tiny test config), and
+(MJ-VIDEO-2B and -4B, the InternVL2-2B and -4B judge backbones, the tiny
+test config), and
 the readers and writer of an HF checkpoint's ``config.json`` (InternLM2,
 Llama and Phi-3 decoders).  The port imports nothing of the JAX package;
 ``tests/test_torch_quant.py`` holds each preset equal to the JAX package's
@@ -329,11 +330,47 @@ def mjvideo_2b_config() -> RewardConfig:
     return RewardConfig()
 
 
+def mjvideo_4b_config() -> RewardConfig:
+    """MJ-VIDEO-4B: InternViT-300M + Phi-3-mini backbone.
+
+    Reference supports non-InternLM2 LLMs (``modeling_internvl_chat.py:
+    125-130``); InternVL2-4B uses the phi3 template
+    (``conversation.py:368-379``).
+    """
+    return RewardConfig(
+        chat=ChatConfig(
+            llm=LLMConfig(
+                architecture="phi3",
+                vocab_size=32064,
+                hidden_size=3072,
+                intermediate_size=8192,
+                num_hidden_layers=32,
+                num_attention_heads=32,
+                num_key_value_heads=32,
+                rope_theta=10000.0,
+                max_position_embeddings=4096,
+                rms_norm_eps=1e-5,
+                pad_token_id=32009,
+            ),
+            template="phi3-chat",
+        ),
+    )
+
+
 def internvl2_2b_chat_config() -> ChatConfig:
     """InternVL2-2B judge backbone — the same InternViT-300M + InternLM2-1.8B
     stack the reward model builds on (``eval_overall_internvl2_2b.py:119-129``
     loads ``internvl2-2b`` via swift)."""
     return ChatConfig()
+
+
+def internvl2_4b_chat_config() -> ChatConfig:
+    """InternVL2-4B judge backbone: InternViT-300M + Phi-3-mini.
+
+    Same chat stack as :func:`mjvideo_4b_config` (the reference benchmarks
+    this size via swift, ``eval_overall_internvl2_4b.py``; phi3 template per
+    ``conversation.py:368-379``)."""
+    return mjvideo_4b_config().chat
 
 
 def tiny_test_config(

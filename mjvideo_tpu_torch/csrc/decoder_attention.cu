@@ -5,8 +5,10 @@
 // bound shift with kmax the largest masked key norm of each (b, kv head),
 // and rows whose sum is 0 giving 0.  Both run the wgmma/TMA template of
 // decoder_attention_sm90.cuh (Config D128, ShiftMode::kKeyMax): K2r's
-// constant-shift body with one bound per (b, kv head).  What bounds it and
-// the design: see that header.
+// constant-shift body with one bound per (b, kv head).  K2 without the lse
+// also takes Phi-3's head dim (Config D96, MJ-VIDEO-4B's decoder), its
+// pre-pass too; K2 lse and K2r stay at 128 until the D = 96 backward
+// exists.  What bounds it and the design: see that header.
 //
 // A null lse: serving, the judge's scorer-side decoder.  A non-null lse
 // (K2 lse, the training forward and the reward gradient: _fwd_bound_kernel
@@ -67,9 +69,18 @@ using sm90::bf16;
 // k read, 12.6 MB at the decoder's (2, 3072) and 16.8 MB at the ViT's (8,
 // 1025), 3.8 and 5.0 us over the card at 3.35 TB/s.  NORMS (K2r's pre-pass,
 // D = 128): each key's norm is also stored into norms (B, Hkv, K), 0 for a
-// masked key, so that kcum's last column is kmax to the bit.
+// masked key, so that kcum's last column is kmax to the bit.  At D = 96
+// (Phi-3) a vector takes 16 lanes, of which the last 4 add nothing: the
+// butterfly runs over a power of two of lanes, whole vectors a warp, and
+// the exact double sum does not see them.
 constexpr int kPartThreads = 256;
 constexpr int kPartLoads = 4;  // 16-byte loads in flight per thread
+
+// The lanes of one key vector: its 16-byte pieces, rounded up to a power
+// of two (D = 96's 12 pieces take 16 lanes).
+__host__ __device__ constexpr int key_norm_lanes(int D) {
+  return D / 8 <= 8 ? 8 : 16;
+}
 
 template <int D, bool NORMS = false>
 __global__ void __launch_bounds__(kPartThreads)
@@ -78,7 +89,9 @@ key_norm_partial_kernel(const bf16* __restrict__ k,
                         float* __restrict__ part, float* __restrict__ norms,
                         int K, int Hkv, int chunk, long long ksb,
                         long long kss) {
-  constexpr int kLanes = D / 8;  // 16-byte pieces of one key vector
+  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
+  constexpr int kPieces = D / 8;  // 16-byte pieces of one key vector
+  constexpr int kLanes = key_norm_lanes(D);  // lanes a vector
   constexpr int kSlotStep = kPartThreads / kLanes;  // vectors per load step
   constexpr int kVecs = kSlotStep * kPartLoads;     // vector slots a pass
   __shared__ float slot_max[kVecs];
@@ -88,7 +101,12 @@ key_norm_partial_kernel(const bf16* __restrict__ k,
   const int per = kVecs / Hkv;  // whole keys a pass
   const int used = per * Hkv;   // slots a pass
   const int piece = threadIdx.x % kLanes;
-  const bf16* kb = k + b * ksb + (long long)j0 * kss + piece * 8;
+  // D = 96: the lanes past the vector's 12 pieces load its last piece again
+  // (in bounds, the same line) and add nothing to its sum; an address
+  // predicated on the piece instead spilled.
+  constexpr bool kSpare = kPieces < kLanes;
+  const bf16* kb = k + b * ksb + (long long)j0 * kss +
+                   (kSpare ? min(piece, kPieces - 1) : piece) * 8;
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * K + j0;
   // The largest live sum of squares of slot u * kSlotStep + threadIdx.x /
   // kLanes; its sqrt is taken once, after the passes.
@@ -120,6 +138,7 @@ key_norm_partial_kernel(const bf16* __restrict__ k,
         const float2 f = __bfloat1622float2(v2[e]);
         s += double(f.x) * f.x + double(f.y) * f.y;
       }
+      if (kSpare && piece >= kPieces) s = 0.0;
 #pragma unroll
       for (int o = kLanes / 2; o > 0; o >>= 1) {
         s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -175,21 +194,25 @@ key_norm_fold_kernel(const float* __restrict__ part, float* __restrict__ out,
 }
 
 // The partial pass on `stream`: part (B, nparts, Hkv) fp32, 1 <= nparts <=
-// K; with norms (B, Hkv, K) fp32 not null (D = 128 only), K2r's form.
+// K, D = 64, 96 or 128; with norms (B, Hkv, K) fp32 not null (D = 128
+// only), K2r's form.
 int launch_partials(const void* k, const void* mask, void* part, void* norms,
                     int B, int K, int Hkv, int D, long long ksb,
                     long long kss, int nparts, cudaStream_t s) {
-  // One pass must hold a whole key: Hkv vectors of kLanes lanes.
-  const int vecs = kPartThreads / (D / 8) * kPartLoads;
-  if ((D != 64 && D != 128) || B < 1 || B > 65535 || K < 1 || Hkv < 1 ||
-      Hkv > vecs || nparts < 1 || nparts > K ||
-      (norms != nullptr && D != 128)) {
+  if ((D != 64 && D != 96 && D != 128) || (norms != nullptr && D != 128)) {
+    return int(cudaErrorInvalidValue);
+  }
+  // One pass must hold a whole key: Hkv vectors of key_norm_lanes(D) lanes.
+  const int vecs = kPartThreads / key_norm_lanes(D) * kPartLoads;
+  if (B < 1 || B > 65535 || K < 1 || Hkv < 1 || Hkv > vecs || nparts < 1 ||
+      nparts > K) {
     return int(cudaErrorInvalidValue);
   }
   const int chunk = (K + nparts - 1) / nparts;
   const dim3 grid(nparts, B);
   auto kernel = norms != nullptr ? key_norm_partial_kernel<128, true>
                 : D == 64        ? key_norm_partial_kernel<64>
+                : D == 96        ? key_norm_partial_kernel<96>
                                  : key_norm_partial_kernel<128>;
   kernel<<<grid, kPartThreads, 0, s>>>(
       static_cast<const bf16*>(k), static_cast<const int*>(mask),
@@ -225,6 +248,12 @@ extern "C" int mjv_key_norm_max(const void* k, const void* mask, void* part,
   return int(cudaGetLastError());
 }
 
+// The head dims K2 takes: InternLM2-1.8B's 128 (with the lse or without)
+// and Phi-3's 96 (without: K2 lse at 96 waits for the D = 96 backward).
+static bool k2_head_dim(int D, const void* lse) {
+  return D == 128 || (D == 96 && lse == nullptr);
+}
+
 // K2 alone on a folded kmax (B, Hkv): the kernel-alone form of the op.
 extern "C" int mjv_decoder_attention(
     const void* q, const void* k, const void* v, const void* mask,
@@ -232,7 +261,12 @@ extern "C" int mjv_decoder_attention(
     int Q, int K, int Hq, int Hkv, int D, long long qsb, long long qss,
     long long ksb, long long kss, long long vsb, long long vss, float scale,
     void* stream) {
-  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
+  if (!k2_head_dim(D, lse)) return int(cudaErrorInvalidValue);
+  if (D == 96) {
+    return sm90::launch_attention<sm90::D96, true, sm90::ShiftMode::kKeyMax>(
+        q, k, v, mask, kmax, 1, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb,
+        qss, ksb, kss, vsb, vss, scale, stream);
+  }
   return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kKeyMax>(
       q, k, v, mask, kmax, 1, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb, qss,
       ksb, kss, vsb, vss, scale, stream);
@@ -247,11 +281,16 @@ extern "C" int mjv_decoder_attention_op(
     int K, int Hq, int Hkv, int D, long long qsb, long long qss,
     long long ksb, long long kss, long long vsb, long long vss, int nparts,
     float scale, void* stream) {
-  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
+  if (!k2_head_dim(D, lse)) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_key_norm_partials(k, mask, part, B, K, Hkv, D, ksb,
                                            kss, nparts, s);
   if (err != 0) return err;
+  if (D == 96) {
+    return sm90::launch_attention<sm90::D96, true, sm90::ShiftMode::kKeyMax>(
+        q, k, v, mask, part, nparts, q_offset, out, lse, B, Q, K, Hq, Hkv,
+        qsb, qss, ksb, kss, vsb, vss, scale, stream, true);
+  }
   return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kKeyMax>(
       q, k, v, mask, part, nparts, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb,
       qss, ksb, kss, vsb, vss, scale, stream, true);

@@ -46,7 +46,7 @@
 //       bf16s (kExact, kBf16s: t = bf16(s scale), m the running max of t,
 //       p = bf16(e^bf16(t - m)), the rescale in fp32).  B1 and B2 are the
 //       A/B harnesses' tools for K1's design, not a main path.
-// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128 or 64,
+// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128, 96 or 64,
 // with dense heads and 16-byte row strides (the ViT's q/k/v are strided
 // views into one (B, S, 3 H D) qkv tensor); GQA (q head h reads kv head
 // h // G); a (B, K) int32 key mask or none; a (B,) int32 q_offset or none
@@ -127,7 +127,15 @@
 //   (tools/d64_config_ab_torch.py): at D = 64 the accumulator is half as
 //   large, so a third warpgroup fits in the registers (160 a consumer
 //   thread) and keeps more softmax work in flight per SM, which measured
-//   faster than two (PERF.md).
+//   faster than two (PERF.md).  D96 (K2 and K3 at Phi-3's head dim) is
+//   laid out as D128: two 64-column boxes a row, whose second box reads
+//   columns 96-127 past the tensor map's D = 96 columns as TMA's zero
+//   fill.  q k^T stops after the 6 k-steps of the real columns; p v runs
+//   at n128, and the zero columns of v give exact zeros in accumulator
+//   columns 96-127, which are not stored; |q| and kmax sum no more than
+//   the real columns' squares.  It costs a third more p v work and shared
+//   memory than a 64 + 32-column layout under a 64-byte swizzle with
+//   m64n96k16 would; D128's stages and register split fit as they are.
 // - Heads a CTA (HP, B2 only, D = 64): the WG / HP warpgroups of each head
 //   take 64 of its q rows each; q is one box per head and each stage holds
 //   one 64-column k box and one v box per head under its one full/empty
@@ -209,23 +217,25 @@ struct Regs<4> {  // 4 x 128 x 112 + 128 x 32 = 61,440: 640 threads hold
 };
 
 // HP heads a CTA (D = 64 only), each served by WG / HP consumer
-// warpgroups; BLOCK_K keys a kv tile.
+// warpgroups; BLOCK_K keys a kv tile.  D = 96 takes two boxes, the second
+// half zero fill (D96 above).
 template <int D, int WG, int STAGES, int HP = 1, int BLOCK_K = 128>
 struct Config {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
   static_assert(HP == 1 || D == 64, "several heads a CTA at D = 64 only");
   static_assert(WG % HP == 0, "whole warpgroups a head");
   static_assert(BLOCK_K == 64 || BLOCK_K == 128, "64 or 128 keys a tile");
   static constexpr int kD = D;
   static constexpr int kHeads = HP;
   static constexpr int kBlockK = BLOCK_K;  // keys per kv tile
-  static constexpr int kBoxes = D / 64;  // 64-column (128-byte) boxes
+  static constexpr int kBoxes = (D + 63) / 64;  // 64-column (128-byte) boxes
   static constexpr int kConsumerWarps = 4 * WG;
   static constexpr int kHeadWG = WG / HP;  // consumer warpgroups a head
   static constexpr int kBlockQ = 64 * WG / HP;  // q rows per head and CTA
   static constexpr int kThreads = (kConsumerWarps + 4) * 32;
   static constexpr int kStages = STAGES;
-  static constexpr int kAcc = D / 2;  // o floats a thread (m64nD)
+  // o floats a thread: m64nN with N the boxes' 64 columns each.
+  static constexpr int kAcc = 32 * kBoxes;
   static constexpr int kConsumerRegs = Regs<WG>::kConsumer;
   static constexpr int kProducerRegs = Regs<WG>::kProducer;
   static constexpr uint32_t kQBox = kBlockQ * 128;  // bytes of one q box
@@ -243,6 +253,7 @@ struct Config {
 };
 
 using D128 = Config<128, 2, 3>;  // K3, K2r, K2, K2 lse
+using D96 = Config<96, 2, 3>;    // K3, K2 (Phi-3)
 using D64 = Config<64, 3, 3>;    // K1, K1 lse
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -388,8 +399,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d += A B for a 64 x N x 16 step (N = 128 or 64: the head dim), A (bf16
-// pairs) from registers, B from shared memory MN-major (transposed).
+// d += A B for a 64 x N x 16 step (N = 128 or 64: the head dim's boxes), A
+// (bf16 pairs) from registers, B from shared memory MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t db) {
@@ -936,6 +947,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(pa);
       release(t - 1);
       if (!kFixed) {
+        // D96's zero columns 96-127 stay 0 and are not stored: no rescale.
 #pragma unroll
         for (int j = 0; j < C::kD / 8; ++j) {
 #pragma unroll
@@ -1024,7 +1036,8 @@ inline EncodeTiled encode_tiled() {
 
 // A (B, rows, heads, D) bf16 tensor with dense heads, row stride `rs` and
 // batch stride `bs` elements, in boxes of 64 columns x `box_rows` rows,
-// 128-byte swizzle, zero fill past `rows`.  TMA wants a 16-byte aligned
+// 128-byte swizzle, zero fill past `rows` and past D columns (the second
+// box of a row at D = 96).  TMA wants a 16-byte aligned
 // base and strides that are multiples of 16 bytes: a q, k or v view into
 // the ViT's (B, S, 3 H D) qkv tensor has them (row stride 6 KB, k's base
 // 2 KB into each row).

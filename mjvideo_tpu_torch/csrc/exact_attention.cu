@@ -21,7 +21,9 @@
 // (decoder_attention_bwd.cu) read it.  With the lse or without, both run
 // the wgmma/TMA template of decoder_attention_sm90.cuh (Config D128,
 // ShiftMode::kExact), the lse as its epilogue, so K3 lse's output is
-// bit-equal to K3's: design and bounds there.
+// bit-equal to K3's: design and bounds there.  K3 without the lse also
+// takes Phi-3's head dim (Config D96: the InternVL2-4B judge's prefill,
+// prefix and continuation); K3 lse at 96 waits for the D = 96 backward.
 #include "decoder_attention_sm90.cuh"
 
 extern "C" int mjv_exact_attention(
@@ -30,10 +32,21 @@ extern "C" int mjv_exact_attention(
     int Hkv, int D, long long qsb, long long qss, long long ksb,
     long long kss, long long vsb, long long vss, float scale, int causal,
     void* stream) {
-  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
   namespace sm90 = mjv::attention_sm90;
   using sm90::D128;
+  using sm90::D96;
   using sm90::ShiftMode;
+  if (D == 96 && lse == nullptr) {  // Phi-3's heads, without the lse
+    return causal ? sm90::launch_attention<D96, true, ShiftMode::kExact>(
+                        q, k, v, mask, nullptr, 1, q_offset, out, lse, B, Q,
+                        K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale,
+                        stream)
+                  : sm90::launch_attention<D96, false, ShiftMode::kExact>(
+                        q, k, v, mask, nullptr, 1, nullptr, out, lse, B, Q,
+                        K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale,
+                        stream);
+  }
+  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
   return causal ? sm90::launch_attention<D128, true, ShiftMode::kExact>(
                       q, k, v, mask, nullptr, 1, q_offset, out, lse, B, Q, K,
                       Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale, stream)

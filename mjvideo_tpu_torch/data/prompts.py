@@ -26,6 +26,12 @@ IMG_CONTEXT_TOKEN = "<IMG_CONTEXT>"
 # (``moe_reward.py:48``).
 GATING_TOKEN_PATTERN = (92542, 92543, 525, 11353, 364)
 
+# The turn boundary before the assistant's reply, whose last token is the
+# gating position, by chat template: InternLM2's ChatML
+# (``moe_reward.py:48``) and Phi-3's markers (MJ-VIDEO-4B, ``phi3-chat``).
+GATING_TEXT = {"internlm2-chat": "<|im_end|><|im_start|>assistant\n",
+               "phi3-chat": "<|end|><|assistant|>\n"}
+
 
 @dataclass
 class ChatInputs:
@@ -226,9 +232,14 @@ class ByteTokenizer:
                 i += 1
         return {"input_ids": ids, "attention_mask": [1] * len(ids)}
 
-    def gating_pattern(self) -> Tuple[int, ...]:
-        """The byte-level encoding of '<|im_end|><|im_start|>assistant\\n'."""
-        ids = self("<|im_end|><|im_start|>assistant\n")["input_ids"]
+    def gating_pattern(self, template: str = "internlm2-chat"
+                       ) -> Tuple[int, ...]:
+        """The byte-level encoding of the template's ``GATING_TEXT``:
+        '<|end|><|assistant|>\\n' for ``phi3-chat``, otherwise
+        '<|im_end|><|im_start|>assistant\\n', the pattern of JAX's
+        ``ByteTokenizer``."""
+        text = GATING_TEXT.get(template, GATING_TEXT["internlm2-chat"])
+        ids = self(text)["input_ids"]
         return tuple(ids)
 
     def decode(self, ids) -> str:

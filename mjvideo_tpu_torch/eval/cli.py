@@ -143,6 +143,10 @@ def _make_scorer(args):
     cfg, params = load_reward_model(args.model_path, dtype=dtype,
                                     device=resolve_device(args.device))
     tok, pattern = _tokenizer(args, args.model_path)
+    if args.byte_tokenizer:
+        # The gating text of the checkpoint's template (MJ-VIDEO-4B's
+        # phi3-chat has no InternLM2 ChatML boundary to find).
+        pattern = tok.gating_pattern(cfg.chat.template)
     kw = {} if args.device_batch is None else {
         "device_batch": args.device_batch}
     return RewardScorer(

@@ -43,13 +43,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "key_norm_max" counts the pre-pass of K1 and K2 (their kmax, with the lse
 # or without: one per K1 or K2 op, or alone), "key_norm_cummax" K2r's (its
 # bound column: one per K2r op, or alone); "q8g_quantize" the activation
-# pre-pass of K6 (one per K6 launch, or alone).
+# pre-pass of K6 (one per K6 launch, or alone); "decoder_attention_d96",
+# "exact_attention_d96" and "key_norm_max_d96" the launches of K2, K3 and
+# the pre-pass at Phi-3's head dim of 96 among them.
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
     "decoder_attention_lse": 0,
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
     "exact_attention": 0, "exact_attention_lse": 0,
+    "decoder_attention_d96": 0, "exact_attention_d96": 0,
+    "key_norm_max_d96": 0,
     "decoder_attention_rows": 0, "key_norm_cummax": 0, "key_norm_max": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "q8g_quantize": 0,
     "w4_matmul": 0,
@@ -70,6 +74,13 @@ KEY_NORM_THREADS = 256
 KEY_NORM_LOADS = 4
 KEY_NORM_CTAS = 528
 KEY_NORM_PARTS_MAX = 256
+
+# The forms that do not take Phi-3's head dim of 96 yet: K2 and K3 with the
+# lse, K2r and its pre-pass, K4a and K4b, which MJ-VIDEO-4B's training and
+# reward gradient need.  Their wrappers refuse D = 96 before any check or
+# launch.
+D96_NEXT = ("ROADMAP Queue 1 item 5b: MJ-VIDEO-4B training and the reward "
+            "gradient, with K2 lse, K3 lse, K2r, K4a and K4b at D = 96")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -177,7 +188,18 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
-def _check_qkv(name: str, head_dim: int, *ts: torch.Tensor) -> None:
+def _refuse_d96(name: str, t: torch.Tensor) -> None:
+    """A form not built at D = 96 refuses it at once, whatever the device
+    (``D96_NEXT``)."""
+    if t.shape[-1] == 96:
+        raise NotImplementedError(
+            f"{name} is not built at head dim 96 ({D96_NEXT})")
+
+
+def _check_qkv(name: str, head_dim, *ts: torch.Tensor) -> None:
+    """Checks shared by every attention wrapper; ``head_dim`` is the head
+    dim the kernel is built for, or a tuple of them."""
+    dims = (head_dim,) if isinstance(head_dim, int) else tuple(head_dim)
     dev = ts[0].device
     for t in ts:
         if t.device.type != "cuda" or t.device != dev:
@@ -193,8 +215,9 @@ def _check_qkv(name: str, head_dim: int, *ts: torch.Tensor) -> None:
                              f"got {t.stride()}")
         if t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
             raise ValueError(f"{name}: rows must be 16-byte aligned")
-        if t.shape[-1] != head_dim:
-            raise ValueError(f"{name}: built for head dim {head_dim}, got "
+        if t.shape[-1] not in dims:
+            raise ValueError(f"{name}: built for head dim "
+                             f"{' or '.join(map(str, dims))}, got "
                              f"{t.shape[-1]}")
 
 
@@ -209,6 +232,13 @@ def _check_aux(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _count(name: str, D: int) -> None:
+    """One launch of ``name``, and of its D = 96 form where D is 96."""
+    launch_counts[name] += 1
+    if D == 96:
+        launch_counts[f"{name}_d96"] += 1
 
 
 def forward_only(name: str, *ts: torch.Tensor) -> None:
@@ -346,10 +376,12 @@ def vit_attention_bwd_dq(q, k, v, dout, lse, delta,
 
 def _check_decoder(name: str, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, attention_mask: Optional[torch.Tensor],
-                   q_offset: Optional[torch.Tensor], *more: torch.Tensor):
+                   q_offset: Optional[torch.Tensor], *more: torch.Tensor,
+                   dims=(128,)):
     """Checks shared by K2, K2r, K3 and K4 (``more``: K4's dout, checked
-    like q); returns (mask pointer, offset pointer)."""
-    _check_qkv(name, 128, q, k, v, *more)
+    like q; ``dims``: the head dims the kernel is built for); returns (mask
+    pointer, offset pointer)."""
+    _check_qkv(name, dims, q, k, v, *more)
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     if (k.shape[0], k.shape[3]) != (B, D) or v.shape != k.shape or Hq % Hkv:
@@ -370,15 +402,18 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       attention_mask: Optional[torch.Tensor],
                       kmax: torch.Tensor, q_offset: Optional[torch.Tensor],
                       scale: float, with_lse: bool = False):
-    """K2 alone on a given kmax.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128)
-    bf16, dense heads; attention_mask: (B, K) int32 or None; kmax: (B, Hkv)
-    fp32 (``key_norm_max``); q_offset: (B,) int32 or None (= 0).  Returns a
+    """K2 alone on a given kmax.  q: (B, Q, Hq, D), k/v: (B, K, Hkv, D)
+    bf16 with D = 128 (InternLM2) or 96 (Phi-3; not with the lse), dense
+    heads; attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32
+    (``key_norm_max``); q_offset: (B,) int32 or None (= 0).  Returns a
     dense (B, Q, Hq, D) bf16 tensor, and with ``with_lse`` also the (B, Hq,
     Q) fp32 lse (1e30 on dead rows).  With the lse or without, it runs on
     the wgmma/TMA template; ``decoder_attention_op`` is the op."""
     name = "decoder_attention"
+    if with_lse:
+        _refuse_d96(f"{name} with the lse", q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
-                                       q_offset)
+                                       q_offset, dims=(96, 128))
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     _check_aux(f"{name} kmax", kmax, torch.float32, (B, Hkv), q.device)
@@ -395,7 +430,7 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), float(scale), stream)
     _raise_on(name, err)
-    launch_counts[name] += 1
+    _count(name, D)
     if with_lse:
         launch_counts["decoder_attention_lse"] += 1
     return (out, lse) if with_lse else out
@@ -412,8 +447,10 @@ def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``key_norm_max(k, attention_mask)``.  Counts one ``key_norm_max`` and
     one ``decoder_attention``."""
     name = "decoder_attention"
+    if with_lse:
+        _refuse_d96(f"{name} with the lse", q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
-                                       q_offset)
+                                       q_offset, dims=(96, 128))
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     parts = key_norm_parts(B, K, Hkv, D)
@@ -432,8 +469,8 @@ def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(1), parts, float(scale),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(name, err)
-    launch_counts["key_norm_max"] += 1
-    launch_counts[name] += 1
+    _count("key_norm_max", D)
+    _count(name, D)
     if with_lse:
         launch_counts["decoder_attention_lse"] += 1
     return (out, lse) if with_lse else out
@@ -441,12 +478,12 @@ def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _key_norm_operands(name: str, k: torch.Tensor,
                        attention_mask: Optional[torch.Tensor],
-                       parts: Optional[int], dims=(64, 128)):
+                       parts: Optional[int], dims=(64, 96, 128)):
     """Checks shared by the key-norm pre-passes (k: (B, K, Hkv, D) bf16 with
     D one of ``dims``, dense heads, free row strides; attention_mask: (B,
     K) int32 or None); returns (mask pointer, the chunk count: ``parts``,
     or the plan ``key_norm_parts`` when None)."""
-    _check_qkv(name, k.shape[-1] if k.shape[-1] in dims else dims[-1], k)
+    _check_qkv(name, dims, k)
     B, K, Hkv, D = k.shape
     mask_ptr = None
     if attention_mask is not None:
@@ -472,6 +509,7 @@ def key_norm_cummax(k: torch.Tensor,
     running max along K of the masked key norms, the same bits for every
     ``parts``; its last column is ``key_norm_max``'s."""
     name = "key_norm_cummax"
+    _refuse_d96(name, k)
     mask_ptr, parts = _key_norm_operands(name, k, attention_mask, parts,
                                          dims=(128,))
     B, K, Hkv, D = k.shape
@@ -488,13 +526,22 @@ def key_norm_cummax(k: torch.Tensor,
     return out
 
 
+def key_norm_lanes(D: int) -> int:
+    """The pre-pass's lanes a key vector: its D / 8 16-byte pieces rounded
+    up to a power of two (``key_norm_lanes`` of
+    ``csrc/decoder_attention.cu``; D = 96's 12 pieces take 16 lanes)."""
+    pieces = D // 8
+    return pieces if pieces & (pieces - 1) == 0 else 1 << pieces.bit_length()
+
+
 def key_norm_parts(B: int, K: int, Hkv: int, D: int) -> int:
     """How many partial maxima per (b, kv head) the K1/K2 pre-pass writes
     for k of shape (B, K, Hkv, D): about KEY_NORM_CTAS CTAs over the
     grid, each at least one pass of KEY_NORM_LOADS loads a thread (whole
     keys), at most KEY_NORM_PARTS_MAX.  Raises where one pass cannot hold a
-    whole key (more than 64 heads of 128, or 128 of 64)."""
-    heads = KEY_NORM_THREADS * KEY_NORM_LOADS * 8 // D  # key vectors a pass
+    whole key (more than 64 heads of 128 or 96, or 128 of 64)."""
+    # Key vectors a pass.
+    heads = KEY_NORM_THREADS // key_norm_lanes(D) * KEY_NORM_LOADS
     if Hkv > heads:
         raise ValueError(f"key_norm_max: {Hkv} heads of {D} exceed one pass "
                          f"of the pre-pass ({heads} heads)")
@@ -509,13 +556,13 @@ def key_norm_max(k: torch.Tensor,
     """The pre-pass of K1 and K2 (and of their lse forms) alone, as the ops
     run it: its partial maxima over ``parts`` chunks of keys (the plan,
     ``key_norm_parts``, by default; 1 <= parts <= K), then their fold, from
-    one C call.  k: (B, K, Hkv, D) bf16 with D 64 or 128, dense heads and
+    one C call.  k: (B, K, Hkv, D) bf16 with D 64, 96 or 128, dense heads and
     free row strides (a view into the ViT's qkv tensor, or a cache's
     slots); attention_mask: (B, K) int32 or None.  Returns the (B, Hkv)
     fp32 largest norm of a live key of each (b, kv head), 0 where none is
     live."""
     name = "key_norm_max"
-    # Built for the ViT's 64 and the decoder's 128.
+    # Built for the ViT's 64 and the decoders' 128 (InternLM2), 96 (Phi-3).
     mask_ptr, parts = _key_norm_operands(name, k, attention_mask, parts)
     B, K, Hkv, D = k.shape
     lib = _load()
@@ -527,7 +574,7 @@ def key_norm_max(k: torch.Tensor,
                                    out.data_ptr(), B, K, Hkv, D, k.stride(0),
                                    k.stride(1), parts, stream)
     _raise_on(name, err)
-    launch_counts[name] += 1
+    _count(name, D)
     return out
 
 
@@ -542,6 +589,7 @@ def decoder_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``clip(q_offset + i, 0, K - 1)``.  Returns a dense (B, Q, Hq, D) bf16
     tensor; ``decoder_attention_rows_op`` is the op."""
     name = "decoder_attention_rows"
+    _refuse_d96(name, q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset)
     B, Q, Hq, D = q.shape
@@ -574,6 +622,7 @@ def decoder_attention_rows_op(q: torch.Tensor, k: torch.Tensor,
     attention_mask)``.  Counts one ``key_norm_cummax`` and one
     ``decoder_attention_rows``."""
     name = "decoder_attention_rows"
+    _refuse_d96(name, q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset)
     B, Q, Hq, D = q.shape
@@ -601,14 +650,17 @@ def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attention_mask: Optional[torch.Tensor],
                     q_offset: Optional[torch.Tensor], scale: float,
                     causal: bool = True, with_lse: bool = False):
-    """K3.  q: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense heads;
+    """K3.  q: (B, Q, Hq, D), k/v: (B, K, Hkv, D) bf16 with D = 128
+    (InternLM2) or 96 (Phi-3; not with the lse), dense heads;
     attention_mask: (B, K) int32 or None; q_offset: (B,) int32 or None (=
     0; read only when causal; may be negative).  Returns a dense (B, Q, Hq,
     D) bf16 tensor, and with ``with_lse`` also the (B, Hq, Q) fp32 lse
     (1e30 on a row that sees no key)."""
     name = "exact_attention"
+    if with_lse:
+        _refuse_d96(f"{name} with the lse", q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
-                                       q_offset)
+                                       q_offset, dims=(96, 128))
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     lib = _load()
@@ -623,7 +675,7 @@ def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             Hq, Hkv, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), float(scale), int(causal), stream)
     _raise_on(name, err)
-    launch_counts[name] += 1
+    _count(name, D)
     if with_lse:
         launch_counts["exact_attention_lse"] += 1
     return (out, lse) if with_lse else out
@@ -631,6 +683,7 @@ def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _bwd_operands(name, q, k, v, dout, lse, delta, attention_mask,
                   q_offset):
+    _refuse_d96(name, q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset, dout)
     if dout.shape != q.shape:

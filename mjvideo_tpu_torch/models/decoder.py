@@ -1,4 +1,5 @@
-"""Decoder LLM, InternLM2 / Llama path.
+"""Decoder LLM, InternLM2 / Llama path; Phi-3 (MJ-VIDEO-4B) runs the same
+layer, only its checkpoint layout differs (``utils/checkpoint.py``).
 
 Counterpart of ``mjvideo_tpu/models/decoder.py`` (reference
 ``modeling_internlm2.py``) for reward scoring and training: separate q/k/v

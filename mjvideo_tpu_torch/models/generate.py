@@ -52,7 +52,7 @@ from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rope import apply_rope, rope_tables
 from ..utils.bridge import first_tensor, map_state
 from . import decoder as dec
-from .internvl import extract_feature, scatter_image_embeds
+from .internvl import embed_prompt, extract_feature, scatter_image_embeds
 
 # The softmax shift of the cached prefill paths: the exact online softmax
 # (K3) by default, as in the JAX package, where the row-causal bound (K2r)
@@ -252,8 +252,8 @@ def _sample(logits: torch.Tensor, gc: GenerationConfig,
 def _embed(params, cfg: ChatConfig, input_ids, pixel_values, vision_embeds,
            impl):
     """Token embeds with the vision embeds scattered at ``<IMG_CONTEXT>``."""
-    lm = params["language_model"]
-    embeds = dec.embed_tokens(lm, input_ids)
+    embeds = embed_prompt(params["language_model"], input_ids,
+                          cfg.img_context_token_id)
     if vision_embeds is None and pixel_values is not None:
         pix = torch.as_tensor(pixel_values).to(embeds.device, embeds.dtype)
         vision_embeds = extract_feature(params, cfg, pix, impl=impl)

@@ -139,6 +139,20 @@ def scatter_image_embeds(
     return out.reshape(B, S, C)
 
 
+def embed_prompt(lm, input_ids: torch.Tensor,
+                 img_context_token_id: int) -> torch.Tensor:
+    """Token embeds of a prompt whose ``<IMG_CONTEXT>`` slots the vision
+    embeds then overwrite.  A config's IMG_CONTEXT id may lie past the
+    decoder's vocabulary (the 4B preset keeps 92546 against Phi-3's 32,064
+    rows); JAX's gather clamps it to the last row, and so does this, for
+    those slots only: any other id out of range still raises."""
+    V = lm["tok_embeddings"].shape[0]
+    if img_context_token_id >= V:
+        input_ids = torch.where(input_ids == img_context_token_id, V - 1,
+                                input_ids)
+    return dec.embed_tokens(lm, input_ids)
+
+
 def chat_forward(
     params,
     cfg: ChatConfig,
@@ -168,11 +182,12 @@ def chat_forward(
         first = sp["group"].held_rows(held_ids.shape[1])[0]
         if attention_mask is not None:
             attention_mask = shard_sequence(attention_mask, sp["group"])
-    input_embeds = dec.embed_tokens(params["language_model"], held_ids)
-    vit_embeds = extract_feature(params, cfg, pixel_values, impl=impl,
-                                 remat=remat, sp=sp)
     if img_context_token_id is None:
         img_context_token_id = cfg.img_context_token_id
+    input_embeds = embed_prompt(params["language_model"], held_ids,
+                                img_context_token_id)
+    vit_embeds = extract_feature(params, cfg, pixel_values, impl=impl,
+                                 remat=remat, sp=sp)
     input_embeds = scatter_image_embeds(input_embeds, input_ids, vit_embeds,
                                         img_context_token_id, first)
     return dec.decoder_forward(params["language_model"], cfg.llm,

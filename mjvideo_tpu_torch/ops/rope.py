@@ -22,7 +22,16 @@ def rope_tables(
     *,
     device: torch.device,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin), each (seq_len, head_dim) fp32 on ``device``."""
+    """(cos, sin), each (seq_len, head_dim) fp32 on ``device``.
+
+    ``scaling_type`` None, ``"linear"`` or ``"dynamic"``; any other raises,
+    since silently taking it as None would give other tables than the
+    checkpoint was trained with (Phi-3's long-context ``su`` / ``longrope``
+    rescales the frequencies and the amplitude at every position)."""
+    if scaling_type not in (None, "linear", "dynamic"):
+        raise ValueError(
+            f"RoPE scaling {scaling_type!r} is not computed by the port "
+            "(None, 'linear' or 'dynamic')")
     if scaling_type == "dynamic" and seq_len > max_position_embeddings:
         base = base * (
             (scaling_factor * seq_len / max_position_embeddings)

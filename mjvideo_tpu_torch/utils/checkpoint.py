@@ -6,7 +6,8 @@ by leaf the layout of ``from_jax_params`` of the JAX importer's tree:
 * ``vision_model.*``           (``modeling_intern_vit.py``)
 * ``language_model.*``         (``modeling_internlm2.py``: the packed
   ``wqkv`` of grouped layout '(h gs d)', gs = 2 + groups,
-  ``:301-305,361-371``, unpacked once here into q/k/v kernels)
+  ``:301-305,361-371``, unpacked once here into q/k/v kernels; or Phi-3's
+  ``qkv_proj`` and ``gate_up_proj``, row blocks unpacked the same way)
 * ``mlp1.{0,1,3}.*``           (``modeling_internvl_chat.py:135-140``)
 * ``regression_layer`` / ``reward_transform_matrix`` / ``aspect_gating`` /
   ``criteria_gating``          (``moe_reward.py:137-181``)
@@ -16,9 +17,9 @@ per-layer tensors stack on a leading L axis.  The files are read with the
 port's own safetensors reader (``utils/safetensors_io.py``), and each leaf
 is moved to the device as it is converted: the stacked leaf is allocated
 there in its final dtype and filled one layer at a time, so no second copy
-of the whole state is built on the host or in fp32.  The Llama and Phi-3
-decoder layouts and the SigLIP vision tower are not ported (ROADMAP items
-10 and 5a); the port resumes its own ``torch.save`` checkpoints
+of the whole state is built on the host or in fp32.  The Llama decoder
+layout and the SigLIP vision tower are not ported (ROADMAP item 10); the
+port resumes its own ``torch.save`` checkpoints
 (``train/trainer.py``) in place of JAX's orbax ones.
 """
 
@@ -160,28 +161,12 @@ def unpack_wqkv(w: torch.Tensor, cfg: LLMConfig) -> Dict[str, torch.Tensor]:
     return {"q": q.T, "k": k.T, "v": v.T}
 
 
-def import_decoder_params(
-    state: Dict[str, torch.Tensor], cfg: LLMConfig,
-    dtype: torch.dtype = torch.float32, prefix: str = "language_model.",
-    with_lm_head: bool = True, device: Device = "cuda",
-) -> Dict[str, Any]:
-    """InternLM2 torch names -> the port's stacked-layer decoder state."""
-    if cfg.architecture == "llama":
-        raise NotImplementedError(
-            "the Llama decoder layout is not ported (ROADMAP item 10: the "
-            "other judges)")
-    if cfg.architecture == "phi3":
-        raise NotImplementedError(
-            "the Phi-3 decoder layout is not ported (ROADMAP item 5a: "
-            "MJ-VIDEO-4B and the Phi-3 decoder)")
-    if cfg.architecture != "internlm2":
-        raise ValueError(f"unknown architecture {cfg.architecture!r}")
-    im = _Importer(state, prefix, dtype, device)
+def _internlm2_layers(im: _Importer, cfg: LLMConfig) -> Dict[str, Any]:
+    """The stacked layers of InternLM2's names."""
     L = cfg.num_hidden_layers
-    layer = "model.layers.{}."
 
     def per_layer(name, transpose=False):
-        return im.per_layer(L, layer + name, transpose)
+        return im.per_layer(L, "model.layers.{}." + name, transpose)
 
     def wqkv(part, suffix="weight"):
         names = [f"model.layers.{i}.attention.wqkv.{suffix}" for i in range(L)]
@@ -198,21 +183,82 @@ def import_decoder_params(
         for name, part in (("wq", "q"), ("wk", "k"), ("wv", "v")):
             attn[name]["bias"] = wqkv(part, "bias")
         attn["wo"]["bias"] = per_layer("attention.wo.bias")
-    params: Dict[str, Any] = {
-        "tok_embeddings": im.leaf("model.tok_embeddings.weight"),
-        "layers": {
-            "attention_norm": {"weight": per_layer("attention_norm.weight")},
-            "attention": attn,
-            "ffn_norm": {"weight": per_layer("ffn_norm.weight")},
-            "feed_forward": {
-                name: {"kernel": per_layer(f"feed_forward.{name}.weight",
-                                           True)}
-                for name in ("w1", "w3", "w2")},
+    return {
+        "attention_norm": {"weight": per_layer("attention_norm.weight")},
+        "attention": attn,
+        "ffn_norm": {"weight": per_layer("ffn_norm.weight")},
+        "feed_forward": {
+            name: {"kernel": per_layer(f"feed_forward.{name}.weight", True)}
+            for name in ("w1", "w3", "w2")},
+    }
+
+
+def _phi3_layers(im: _Importer, cfg: LLMConfig) -> Dict[str, Any]:
+    """The stacked layers of Phi-3's names (``mjvideo_tpu/utils/
+    checkpoint.py:374-435``): ``self_attn.qkv_proj`` packs [q (Hq D); k
+    (Hkv D); v (Hkv D)] rows and ``mlp.gate_up_proj`` [gate (I); up (I)]
+    rows, each unpacked here into its kernels."""
+    L = cfg.num_hidden_layers
+    Hq, Hkv, D, I = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim, cfg.intermediate_size)
+
+    def per_layer(name, transpose=False):
+        return im.per_layer(L, "model.layers.{}." + name, transpose)
+
+    def rows(name, lo, hi):
+        names = [f"model.layers.{i}.{name}" for i in range(L)]
+        return {"kernel": im.stacked(names, lambda w: w[lo:hi].T)}
+
+    qkv = "self_attn.qkv_proj.weight"
+    return {
+        "attention_norm": {"weight": per_layer("input_layernorm.weight")},
+        "attention": {
+            "wq": rows(qkv, 0, Hq * D),
+            "wk": rows(qkv, Hq * D, (Hq + Hkv) * D),
+            "wv": rows(qkv, (Hq + Hkv) * D, (Hq + 2 * Hkv) * D),
+            "wo": {"kernel": per_layer("self_attn.o_proj.weight", True)},
         },
+        "ffn_norm": {
+            "weight": per_layer("post_attention_layernorm.weight")},
+        "feed_forward": {
+            "w1": rows("mlp.gate_up_proj.weight", 0, I),
+            "w3": rows("mlp.gate_up_proj.weight", I, 2 * I),
+            "w2": {"kernel": per_layer("mlp.down_proj.weight", True)},
+        },
+    }
+
+
+# Per decoder layout: its layers' reader, then the names of the token
+# embedding and of the LM head.
+_DECODER_LAYOUTS = {
+    "internlm2": (_internlm2_layers, "model.tok_embeddings.weight",
+                  "output.weight"),
+    "phi3": (_phi3_layers, "model.embed_tokens.weight", "lm_head.weight"),
+}
+
+
+def import_decoder_params(
+    state: Dict[str, torch.Tensor], cfg: LLMConfig,
+    dtype: torch.dtype = torch.float32, prefix: str = "language_model.",
+    with_lm_head: bool = True, device: Device = "cuda",
+) -> Dict[str, Any]:
+    """InternLM2 or Phi-3 torch names -> the port's stacked-layer decoder
+    state (the same leaves for both: the layer is shared)."""
+    if cfg.architecture == "llama":
+        raise NotImplementedError(
+            "the Llama decoder layout is not ported (ROADMAP item 10: the "
+            "other judges)")
+    if cfg.architecture not in _DECODER_LAYOUTS:
+        raise ValueError(f"unknown architecture {cfg.architecture!r}")
+    layers, embed, head = _DECODER_LAYOUTS[cfg.architecture]
+    im = _Importer(state, prefix, dtype, device)
+    params: Dict[str, Any] = {
+        "tok_embeddings": im.leaf(embed),
+        "layers": layers(im, cfg),
         "norm": {"weight": im.leaf("model.norm.weight")},
     }
     if with_lm_head:
-        key = prefix + "output.weight"
+        key = prefix + head
         if key not in state:
             # Fail here, not deep inside generation: a mis-prefixed or
             # truncated checkpoint must not load without its LM head.
@@ -221,7 +267,7 @@ def import_decoder_params(
                 f"({len(state)} tensors, prefix {prefix!r}); pass "
                 "with_lm_head=False for score-only trees, or check the "
                 "prefix")
-        params["output"] = {"kernel": im.kernel("output.weight")}
+        params["output"] = {"kernel": im.kernel(head)}
     return params
 
 

@@ -8,7 +8,7 @@ port are published in the format ``InternVLChatRewardModeling`` loads
 transposed kernel, a layer of a stacked leaf), in its dtype and on its
 device; ``save_safetensors`` writes them as F32, as the JAX exporter
 does, each made contiguous and brought to the host one at a time.  The
-Llama and Phi-3 decoder layouts are not ported (ROADMAP items 10 and 5a).
+Llama decoder layout is not ported (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -89,9 +89,7 @@ def export_decoder(params: Dict[str, Any], cfg: LLMConfig,
             "the Llama decoder layout is not ported (ROADMAP item 10: the "
             "other judges)")
     if cfg.architecture == "phi3":
-        raise NotImplementedError(
-            "the Phi-3 decoder layout is not ported (ROADMAP item 5a: "
-            "MJ-VIDEO-4B and the Phi-3 decoder)")
+        return _export_phi3(params, cfg, prefix)
     out: Dict[str, torch.Tensor] = {}
     lp = params["layers"]
     attn = lp["attention"]
@@ -115,6 +113,32 @@ def export_decoder(params: Dict[str, Any], cfg: LLMConfig,
     out[prefix + "model.norm.weight"] = params["norm"]["weight"]
     if "output" in params:
         out[prefix + "output.weight"] = _w(params["output"]["kernel"])
+    return out
+
+
+def _export_phi3(params: Dict[str, Any], cfg: LLMConfig,
+                 prefix: str) -> Dict[str, torch.Tensor]:
+    """Phi-3's names (``mjvideo_tpu/utils/export.py:120-149``): q, k and v
+    packed as the row blocks of ``qkv_proj``, the gate and up projections
+    as those of ``gate_up_proj`` (copies: the blocks are concatenated)."""
+    out: Dict[str, torch.Tensor] = {}
+    lp = params["layers"]
+    attn, ffn = lp["attention"], lp["feed_forward"]
+    out[prefix + "model.embed_tokens.weight"] = params["tok_embeddings"]
+    for i in range(cfg.num_hidden_layers):
+        pre = f"{prefix}model.layers.{i}."
+        out[pre + "self_attn.qkv_proj.weight"] = torch.cat(
+            [_w(attn[n]["kernel"][i]) for n in ("wq", "wk", "wv")])
+        out[pre + "self_attn.o_proj.weight"] = _w(attn["wo"]["kernel"][i])
+        out[pre + "mlp.gate_up_proj.weight"] = torch.cat(
+            [_w(ffn[n]["kernel"][i]) for n in ("w1", "w3")])
+        out[pre + "mlp.down_proj.weight"] = _w(ffn["w2"]["kernel"][i])
+        out[pre + "input_layernorm.weight"] = lp["attention_norm"]["weight"][i]
+        out[pre + "post_attention_layernorm.weight"] = (
+            lp["ffn_norm"]["weight"][i])
+    out[prefix + "model.norm.weight"] = params["norm"]["weight"]
+    if "output" in params:
+        out[prefix + "lm_head.weight"] = _w(params["output"]["kernel"])
     return out
 
 

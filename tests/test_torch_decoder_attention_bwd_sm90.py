@@ -179,13 +179,14 @@ def test_k4_sources_run_on_the_hopper_backward_template():
     bwd = sum(_instantiations((csrc / f).read_text())
               for f in ("vit_attention_bwd.cu", "decoder_attention_bwd.cu"))
     assert bwd == 6
-    # The forward template's 5 of the main paths and the A/B variants'
-    # (B1's modes and B2's hp; B3 is B2's hp 1), the key-norm partial pass 3
-    # (K1/K2's at D = 64 and 128, K2r's with its norms), kmax's fold 1,
+    # The forward template's 8 of the main paths (K3 causal and not, K2r,
+    # K2, K1; K2 and K3 causal and not at D = 96) and the A/B variants'
+    # (B1's modes and B2's hp; B3 is B2's hp 1), the key-norm partial pass 4
+    # (K1/K2's at D = 64, 96 and 128, K2r's with its norms), kmax's fold 1,
     # K2r's scan 1, the int8 GEMM's 2 and K6's pre-pass 1 (chip_smoke.py's
     # SM90_KERNELS).
     variants = len(kernels.VARIANT_MODES) + len(kernels.TMAJOR_HP)
     smoke = (REPO / "chip_smoke.py").read_text()
     want = re.search(r"^SM90_INSTANTIATIONS = (\d+)$", smoke, re.M)
     assert want is not None and int(want.group(1)) == (
-        5 + variants + 3 + 1 + 1 + 2 + 1 + bwd)
+        8 + variants + 4 + 1 + 1 + 2 + 1 + bwd)

@@ -536,7 +536,7 @@ def test_k1_k2_and_pre_pass_wrappers_raise_instead_of_falling_back(
     with pytest.raises(ValueError, match="head dim"):
         kernels.decoder_attention(q, k, v, None, kmax, None, 0.125)
     with pytest.raises(ValueError, match="head dim"):
-        kernels.key_norm_max(_randn(g, cuda_device, 1, 70, 4, 96))
+        kernels.key_norm_max(_randn(g, cuda_device, 1, 70, 4, 80))
     # Non-dense heads: every other head of a wider tensor.
     sparse = _randn(g, cuda_device, 1, 70, 8, 64)[:, :, ::2]
     with pytest.raises(ValueError, match="dense"):

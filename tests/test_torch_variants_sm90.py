@@ -192,15 +192,18 @@ def _launches(text: str):
 
 def test_main_path_instantiations_are_unchanged():
     """K1, K1 lse, K2, K2 lse, K2r, K3 and K3 lse launch the template as
-    they did (K2r twice: alone and, as K2 does, from its op), and its new
+    they did (K2r twice: alone and, as K2 does, from its op), K2 and K3
+    also at Phi-3's D96 beside their D128 launches, and its new
     parameters (heads a CTA, keys a tile, the softmax's Variant) default
     to what those kernels were."""
     assert _launches(_source("vit_attention.cu")) == [
         "sm90::D64, false, sm90::ShiftMode::kKeyMax, true"] * 2
     assert _launches(_source("decoder_attention.cu")) == [
+        "sm90::D96, true, sm90::ShiftMode::kKeyMax",
         "sm90::D128, true, sm90::ShiftMode::kKeyMax"] * 2 + [
         "sm90::D128, true, sm90::ShiftMode::kRows"] * 2
     assert _launches(_source("exact_attention.cu")) == [
+        "D96, true, ShiftMode::kExact", "D96, false, ShiftMode::kExact",
         "D128, true, ShiftMode::kExact", "D128, false, ShiftMode::kExact"]
     header = _source("decoder_attention_sm90.cuh")
     assert "using D128 = Config<128, 2, 3>;" in header
