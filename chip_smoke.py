@@ -1,7 +1,8 @@
 """Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths, its
 InternVL2-2B judge, quantized scoring and judging, the reward gradient
 with its VADER loop, sequence-parallel scoring and training, and
-MJ-VIDEO-4B's serving with its InternVL2-4B judge once on one CUDA card.
+MJ-VIDEO-4B's serving with its InternVL2-4B judge, its reward gradient,
+VADER loop and training once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -183,7 +184,8 @@ Phases (any failure raises and exits non-zero):
    Prints the reward per step, ms per step, the peak memory and the rise
    (reported, not held).
 16. Fails if ``jax`` or any ``mjvideo_tpu`` module was imported, or a
-   kernel of the main path never launched; prints the card, the kernel
+   kernel of the main path never launched (phase 25's four D = 96 forms
+   included); prints the card, the kernel
    summary line and, last, the contract line ``{"ok": true, "device":
    {...}}``.  Every phase that holds launch counts also holds one
    ``key_norm_max`` before each K1 and K2 (with the lse or without).
@@ -332,6 +334,47 @@ Phases (any failure raises and exits non-zero):
    (random bf16 weights with the 3072 x 32064 LM head): ``judge_pair``'s
    full prompt and the prefix path, exact launches (32 K3 a forward),
    teacher-forced logits within LOGITS_REL_TOL of fp32 plain, its times.
+25. MJ-VIDEO-4B's gradients and training (after phase 24, its states
+   freed; the same 4B bf16 state from seed 0, on a generator of its own).
+   (a) The D = 96 gradient forms at the 4B's shapes (32/32 heads of 96),
+   on their own generator: K2 with the lse (the op and the kernel alone),
+   K4a and K4b (from the twin's output and lse) at the training prompts'
+   (1, T, 32/32, 96), every key live, and at the reward gradient's (1,
+   3072) with the single clip's prompt live (``check_decoder_kernels``);
+   K3 with the lse, K4a and K4b at phase 17's ring chunks (1, 768, 768,
+   32/32, 96) at each relative offset of SP_CHUNKS, the first 5 keys
+   masked (``check_ring_kernels``): each within KERNEL_REL_TOL of its
+   twin, the lse within LSE_TOL, dead rows 0 and 1e30, dq 0 on dead rows,
+   dk and dv 0 on masked keys, each lse form's output bit-equal to its
+   form without the lse, two launches bit-identical; each with its bound
+   and ``F.scaled_dot_product_attention`` (forward, or the whole
+   backward); K4a/K4b with SDPA's backward, K2 lse (alone, the op) with K2
+   and SDPA, and K3 lse at the 768 chunk with SDPA, in turns.  (b)
+   ``score_fn`` of phase 24's single clip with ``torch.autograd.grad`` to
+   its pixels (phase 14 at 4B): exact launches (per ViT layer K1 lse twice
+   and K4 nc once; per decoder layer K2 lse twice, K4a and K4b once, at
+   their D = 96 names too), the pixel gradient against fp32 plain autograd
+   at REWARD_GRAD_REL_L2 and REWARD_GRAD_COS, ms per value-and-gradient
+   and the peak memory.  (c) VADER_STEPS steps of the VADER loop on the
+   4B scorer (phase 15): finite rewards, launches as in (b) per step, ms
+   per step and the peak memory.  (d) Training on the same weights, the
+   4B config rebased on the ``ByteTokenizer``, TRAIN_MICRO_BATCHES
+   micro-batches of ``phi3-chat`` prompts: one micro-batch's trainable
+   gradient, bf16 kernels against fp32 plain autograd at FIDELITY_REL_L2
+   and FIDELITY_COS, with S1's split (bf16 plain against fp32 plain, the
+   kernels against bf16 plain) printed first (a miss that bf16 plain
+   alone shares is printed and recorded as a standing failure, ROADMAP
+   Queue 3 F5, unless the kernels add more than the bars to bf16 plain's
+   reading, which raises); the ring micro-batch (phase 19's
+   ``sp="ring"`` over ``local(SP_SHARDS)``) against the same fp32
+   gradient at the same bars and rule, launches exact (per decoder layer,
+   video and ring step K3 lse at D = 96 twice, K4a and K4b once); the
+   fp32 copy freed, a stage-3 ``Trainer`` with phase 5's ``TrainConfig``
+   on the micro-batches (2 optimizer steps): finite losses and grad
+   norms, frozen tensors bit-identical, each trainable subtree changed,
+   per micro-batch and video 24 K1, 64 K2 lse, 32 K4a and 32 K4b; then as
+   many micro-steps timed (medians of those that accumulate and of those
+   that also step) and the peak memory.  Prints its command time.
 """
 
 from __future__ import annotations
@@ -385,6 +428,12 @@ TRAIN_TIMED_STEPS = 8                 # 4 that accumulate, 4 that also step
 # alike (PERF.md section 6, PR 2).
 FIDELITY_REL_L2 = 5e-2
 FIDELITY_COS = 0.998
+# At 4B (phase 25) the same bars hold; where bf16 arithmetic alone (bf16
+# plain against fp32 plain, no kernel) misses them, a miss by the kernels
+# is a standing failure (ROADMAP Queue 3 F5), printed and recorded, unless
+# the kernels add more than the bars to bf16's own reading (relative L2
+# over it by more than FIDELITY_REL_L2, or cosine under it by more than 1 -
+# FIDELITY_COS): that is a kernel fault and raises.
 # K3 and K2r at the judge's shapes, (B, Q, K, Hq, Hkv, D, q_offset): the
 # pair's full prompt in the 3,072 bucket (the overall prompt is 3,016
 # ByteTokenizer tokens with 8 frames), one video's shared prefix (2,308
@@ -423,8 +472,9 @@ PREPASS_REL_TOL = 1e-6
 # q8g_matmul.cu, mjv::q8g_sm90) and the bound pre-passes, as ptxas names
 # them: their registers and spills are printed.  The forward template has 5
 # instantiations (K3 causal and not, with the lse or without; K2r; K2 with
-# the lse or without; K1 likewise), the backward 6 (K4 nc dK/dV and dQ at
-# D = 64; K4a dK/dV and K4b dQ at D = 128, each causal and non-causal),
+# the lse or without; K1 likewise), the backward 10 (K4 nc dK/dV and dQ
+# at D = 64; K4a dK/dV and K4b dQ at D = 128 and at D = 96, each causal and
+# non-causal),
 # the key-norm partial pass 3 (key_norm_max's at D = 64 and 128, and
 # key_norm_cummax's, which also stores each key's norm), key_norm_max's
 # fold 1, key_norm_cummax's scan 1, the int8 GEMM 2 (bf16 or fp32 out) and
@@ -433,10 +483,10 @@ SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_scan_kernel", "key_norm_partial_kernel",
                 "key_norm_fold_kernel")
 # The forward template's 8 main-path instantiations (the 5 above and, at
-# Phi-3's D = 96, K2 and K3 causal and not) and B1's 4 and B2's 3 (B3 is
-# B2's hp 1), the backward template's 6, the pre-passes' 6 (the partial
-# pass also at D = 96) and the int8 GEMM's 2.
-SM90_INSTANTIATIONS = 30
+# Phi-3's D = 96, K2 and K3 causal and not, each with the lse or without)
+# and B1's 4 and B2's 3 (B3 is B2's hp 1), the backward template's 10, the
+# pre-passes' 6 (the partial pass also at D = 96) and the int8 GEMM's 2.
+SM90_INSTANTIATIONS = 34
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -688,18 +738,37 @@ def _with_prepass(want):
     return want
 
 
+# The decoder's kernels, each also counted under its D = 96 name at Phi-3's
+# head dim (``kernels._count``).
+D96_COUNTED = ("decoder_attention", "decoder_attention_lse", "exact_attention",
+               "exact_attention_lse", "decoder_attention_bwd_dkdv",
+               "decoder_attention_bwd_dq")
+
+
+def _at_d96(cfg, want):
+    """``want`` (launches by kernel) of the reward model ``cfg``, plus, where
+    its decoder has Phi-3's head dim of 96, each decoder kernel's launches
+    under its D = 96 name too, and the pre-pass of every K2 among them as
+    ``key_norm_max_d96`` (the ViT's K1, its pre-pass and K4 nc stay at
+    64)."""
+    want = dict(want)
+    if cfg.chat.llm.head_dim == 96:
+        for name in D96_COUNTED:
+            if want.get(name):
+                want[f"{name}_d96"] = want[name]
+        if want.get("decoder_attention"):
+            want["key_norm_max_d96"] = want["decoder_attention"]
+    return want
+
+
 def _serving_launches(cfg, forwards):
     """The launches of ``forwards`` scoring forwards of the reward model
     ``cfg``: K1 per ViT layer and K2 per decoder layer, each after its
-    pre-pass; at Phi-3's head dim of 96 K2 and its pre-pass count under
-    their D = 96 names too."""
+    pre-pass (``_at_d96``: their D = 96 names too at Phi-3's head dim)."""
     L_llm = cfg.chat.llm.num_hidden_layers * forwards
-    want = _with_prepass({
+    return _at_d96(cfg, _with_prepass({
         "vit_attention": cfg.chat.vision.num_hidden_layers * forwards,
-        "decoder_attention": L_llm})
-    if cfg.chat.llm.head_dim == 96:
-        want.update(decoder_attention_d96=L_llm, key_norm_max_d96=L_llm)
-    return want
+        "decoder_attention": L_llm}))
 
 
 def _check_prepass(label, k, mask):
@@ -1533,18 +1602,21 @@ def check_k2r_prefix_rows(randn):
     return same
 
 
-def check_ring_kernels(randn):
+def check_ring_kernels(randn, heads=(16, 8), D=128,
+                       gather_ranks=SP_GATHER_RANKS):
     """Phase 17: K3 with the lse, K4a and K4b at ring-chunk offsets and K3
-    at the all-gather shape against their twins; returns each one's reading
-    by (label, offset)."""
+    at the all-gather shape (at each of ``gather_ranks``) against their
+    twins, at ``heads`` (Hq, Hkv) of ``D`` (phase 25: the 4B's 32/32 of
+    96); returns each one's reading by (label, offset)."""
     import torch
 
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
     from mjvideo_tpu_torch.parallel.sequence import NO_MASS_LSE
 
-    B, Hq, Hkv, D = 1, 16, 8, 128
+    B, (Hq, Hkv) = 1, heads
     L, scale = SP_T // SP_SHARDS, D ** -0.5
+    dims = f"{Hq}/{Hkv}, {D}"
     q, k, v = randn(B, SP_T, Hq, D), randn(B, SP_T, Hkv, D), randn(B, SP_T,
                                                                   Hkv, D)
     mask = torch.ones((B, SP_T), dtype=torch.int32, device=q.device)
@@ -1574,17 +1646,22 @@ def check_ring_kernels(randn):
         def lse_rule(got, ref):
             lse, ref_l = got[1], ref[1]
             same = bool(torch.equal(got[0], k3))
+            second = fa.exact_attention_with_lse(qc, kc, vc, mc, off)
+            twice = all(torch.equal(a, b) for a, b in zip(got, second))
             held = (torch.equal(lse >= fa.DEAD_LSE * 0.5, dead)
-                    and bool((lse[dead] == fa.DEAD_LSE).all()) and same)
+                    and bool((lse[dead] == fa.DEAD_LSE).all()) and same
+                    and twice)
             live_err = ((lse - ref_l)[~dead].abs().max().item()
                         if (~dead).any() else 0.0)
             return (f"lse max_abs_err {live_err:.3e} on live rows (bound "
                     f"{LSE_TOL:.0e}), {n_dead} dead at 1e30, out bit-equal "
-                    f"to K3's: {same}", held and live_err <= LSE_TOL,
-                    {"lse_max_abs_err": live_err, "bit_equal_to_k3": same})
+                    f"to K3's: {same}, a second launch bit-identical: "
+                    f"{twice}", held and live_err <= LSE_TOL,
+                    {"lse_max_abs_err": live_err, "bit_equal_to_k3": same,
+                     "bit_identical": twice})
 
         allowed = fa._decoder_allowed(qc, kc, mc, off)
-        label = f"(1, {L}, {L}, 16/8, 128) ring rel_off {rel}"
+        label = f"(1, {L}, {L}, {dims}) ring rel_off {rel}"
         lse_out = q.new_empty((B, Hq, L), dtype=torch.float32)
         readings["K3 lse", rel] = _check_kernel(
             f"K3 lse exact_attention {label}",
@@ -1631,10 +1708,10 @@ def check_ring_kernels(randn):
                                  inputs=args[3:6]),
             library=backward)
         del backward
-    for r in SP_GATHER_RANKS:
+    for r in gather_ranks:
         qc, off = chunk(q, r), offset(r * L)
         readings["K3 all-gather", r * L] = _check_kernel(
-            f"K3 exact_attention (1, {L}, {SP_T}, 16/8, 128) all-gather "
+            f"K3 exact_attention (1, {L}, {SP_T}, {dims}) all-gather "
             f"q_offset {r * L}",
             lambda: fa.exact_attention(qc, k, v, mask, off),
             lambda: fa.exact_attention_plain(qc, k, v, mask, off),
@@ -1644,9 +1721,11 @@ def check_ring_kernels(randn):
     return readings
 
 
-def time_k3_lse_chunks(randn):
-    """K3 lse at an earlier shard's ring chunk (every key seen) of the 768
-    tokens of phase 17 and of the long clip's LONG_CHUNK, with
+def time_k3_lse_chunks(randn, lengths=(SP_T // SP_SHARDS, LONG_CHUNK),
+                       heads=(16, 8), D=128):
+    """K3 lse at an earlier shard's ring chunk (every key seen) of each of
+    ``lengths`` (the 768 tokens of phase 17 and the long clip's LONG_CHUNK;
+    phase 25: 768 at the 4B's 32/32 heads of 96), with
     ``F.scaled_dot_product_attention`` (non-causal, every key live) at
     each, timed in turns by CUDA events: whether the 768 chunk's 96 CTAs
     (one wave under the card's 132 SMs) cost more per unit of work.
@@ -1655,14 +1734,15 @@ def time_k3_lse_chunks(randn):
 
     from mjvideo_tpu_torch import kernels
 
+    Hq, Hkv = heads
+    dims = f"{Hq}/{Hkv}, {D}"
     out = {}
-    for L in (SP_T // SP_SHARDS, LONG_CHUNK):
-        q, k, v = randn(1, L, 16, 128), randn(1, L, 8, 128), randn(1, L, 8,
-                                                                    128)
+    for L in lengths:
+        q, k, v = randn(1, L, Hq, D), randn(1, L, Hkv, D), randn(1, L, Hkv, D)
         mask = torch.ones((1, L), dtype=torch.int32, device=q.device)
         off = torch.full((1,), L, dtype=torch.int32, device=q.device)
         runs = {"K3 lse": lambda: kernels.exact_attention(
-                    q, k, v, mask, off, 128 ** -0.5, with_lse=True),
+                    q, k, v, mask, off, D ** -0.5, with_lse=True),
                 "SDPA": _sdpa(q, k, v, causal=False)}
         med = _in_turns(runs, list(runs) + list(runs)[::-1], 10)
         work = _attention_work(q, k, v, mask, causal=False)
@@ -1670,7 +1750,7 @@ def time_k3_lse_chunks(randn):
         out[L] = {**med, "bound_ms": bound["bound_ms"],
                   "gflop": work[1] / 1e9,
                   "tflops": work[1] / med["K3 lse"] / 1e9}
-        print(f"K3 lse at the ring chunk (1, {L}, {L}, 16/8, 128) rel_off {L}"
+        print(f"K3 lse at the ring chunk (1, {L}, {L}, {dims}) rel_off {L}"
               f", in turns (median of 20): K3 lse {med['K3 lse']:.4f} ms, "
               f"SDPA {med['SDPA']:.4f} ms; {out[L]['tflops']:.1f} TFLOP/s, "
               f"{100 * bound['bound_ms'] / med['K3 lse']:.1f}% of the bound")
@@ -2620,7 +2700,9 @@ def time_judge(judge, videos, drawn_full, drawn_prefix):
 
 def make_train_batches(cfg, tok, rng, n):
     """``n`` micro-batches in ``PairCollator``'s layout, each one pair of
-    TRAIN_FRAMES-frame clips (batch 1), with random labels."""
+    TRAIN_FRAMES-frame clips (batch 1), with random labels; the prompts'
+    gating pattern is that of ``cfg``'s chat template (the 2B's Hermes-2
+    takes the InternLM2 pattern, the 4B's ``phi3-chat`` its own)."""
     import numpy as np
 
     from mjvideo_tpu_torch import build_video_question, prepare_chat_input
@@ -2637,7 +2719,7 @@ def make_train_batches(cfg, tok, rng, n):
                 cfg.chat, tok,
                 build_video_question(captions[(i + v) % 2], TRAIN_FRAMES),
                 num_patches_list=[1] * TRAIN_FRAMES,
-                gating_pattern=tok.gating_pattern())
+                gating_pattern=tok.gating_pattern(cfg.chat.template))
             T = chat.input_ids.shape[1]
             batch[f"video_{v}_pixel_values"] = rng.normal(
                 size=(1, TRAIN_FRAMES, size, size, 3)).astype(np.float32)
@@ -2664,16 +2746,17 @@ def make_train_batches(cfg, tok, rng, n):
     return batches
 
 
-def train_data():
-    """The 2B config rebased on the ``ByteTokenizer``, and
+def train_data(cfg=None):
+    """The 2B config (or ``cfg``) rebased on the ``ByteTokenizer``, and
     TRAIN_MICRO_BATCHES seeded micro-batches for it."""
     import numpy as np
 
     from mjvideo_tpu_torch.data.prompts import rebase_img_context_id
     from mjvideo_tpu_torch import ByteTokenizer, mjvideo_2b_config
 
-    tok = ByteTokenizer(pad_token_id=mjvideo_2b_config().chat.llm.pad_token_id)
-    cfg = rebase_img_context_id(mjvideo_2b_config(), tok)
+    cfg = mjvideo_2b_config() if cfg is None else cfg
+    tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
+    cfg = rebase_img_context_id(cfg, tok)
     return cfg, make_train_batches(cfg, tok, np.random.default_rng(SEED),
                                    TRAIN_MICRO_BATCHES)
 
@@ -2688,35 +2771,50 @@ def train_decoder_shapes(cfg, batches):
                   llm.head_dim) for T in lengths)
 
 
+def train_config(checkpoint_dir):
+    """Phase 5's ``TrainConfig``: stage 3, accumulation 2, remat."""
+    from mjvideo_tpu_torch.train.trainer import TrainConfig
+
+    return TrainConfig(stage=3, learning_rate=1e-3, warmup_steps=0,
+                       gradient_accumulation_steps=2, remat=True, log_every=1,
+                       checkpoint_every=10**9, checkpoint_dir=checkpoint_dir)
+
+
 def make_trainer(generator, device, checkpoint_dir, data=None):
     """A 2B stage-3 ``Trainer`` with random bf16 weights drawn on the card,
     and its micro-batches (``data``, or ``train_data()``)."""
     import torch
 
     from mjvideo_tpu_torch import init_reward_params
-    from mjvideo_tpu_torch.train.trainer import TrainConfig, Trainer
+    from mjvideo_tpu_torch.train.trainer import Trainer
 
     cfg, batches = train_data() if data is None else data
     params = init_reward_params(cfg, generator=generator, device=device,
                                 dtype=torch.bfloat16)
-    tc = TrainConfig(stage=3, learning_rate=1e-3, warmup_steps=0,
-                     gradient_accumulation_steps=2, remat=True, log_every=1,
-                     checkpoint_every=10**9, checkpoint_dir=checkpoint_dir)
-    return Trainer(cfg, params, tc), batches
+    return Trainer(cfg, params, train_config(checkpoint_dir)), batches
 
 
 def run_training(generator, device, checkpoint_dir, data):
     """Phase 5.  Returns the trainer, its batches, the launch counts and the
     peak memory in bytes."""
+    trainer, batches = make_trainer(generator, device, checkpoint_dir, data)
+    launches, peak = check_training(trainer, batches, device)
+    return trainer, batches, launches, peak
+
+
+def check_training(trainer, batches, device, label="training"):
+    """Phase 5's checks on ``trainer``: one micro-step per batch, finite
+    losses and grad norms, an optimizer step per 2 micro-batches, frozen
+    tensors bit-identical and each trainable subtree changed, the launches
+    exact.  Returns the launch counts and the peak memory in bytes."""
     import torch
 
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.train.trainer import flatten_state
 
-    trainer, batches = make_trainer(generator, device, checkpoint_dir, data)
     cfg = trainer.cfg
     before = {p: t.clone() for p, t in flatten_state(trainer.params).items()}
-    print(f"training: {len(batches)} micro-batches, prompt lengths "
+    print(f"{label}: {len(batches)} micro-batches, prompt lengths "
           f"{[[b[f'video_{v}_input_ids'].shape[1] for v in (0, 1)] for b in batches]}, "
           f"{len(trainer.optimizer.paths)} trainable tensors of "
           f"{len(before)}")
@@ -2731,7 +2829,7 @@ def run_training(generator, device, checkpoint_dir, data):
     for r in records:
         print(f"  micro-step {r['step']}: loss {r['loss']:.6f}, grad_norm "
               f"{r['grad_norm']:.6f}")
-    print(f"training: optimizer steps {trainer.opt_state['gradient_step']}; "
+    print(f"{label}: optimizer steps {trainer.opt_state['gradient_step']}; "
           f"peak memory {peak / 2**30:.2f} GiB")
     print(f"launches over {len(batches)} micro-batches: {launches}")
 
@@ -2759,21 +2857,21 @@ def run_training(generator, device, checkpoint_dir, data):
                  "decoder_attention_lse": 2 * cfg.chat.llm.num_hidden_layers,
                  "decoder_attention_bwd_dkdv": cfg.chat.llm.num_hidden_layers,
                  "decoder_attention_bwd_dq": cfg.chat.llm.num_hidden_layers}
-    per_video = _with_prepass(per_video)
+    per_video = _at_d96(cfg, _with_prepass(per_video))
     want = {k: 2 * len(batches) * per_video.get(k, 0) for k in launches}
     if launches != want:
-        raise RuntimeError(f"training launches {launches}, want {want}")
-    return trainer, batches, launches, peak
+        raise RuntimeError(f"{label} launches {launches}, want {want}")
+    return launches, peak
 
 
-def time_training(trainer, batches):
-    """Phase 7: TRAIN_TIMED_STEPS micro-steps after the checks, each timed
-    on the host clock after ``synchronize``; returns the median ms of those
-    that only accumulate and of those that also step the optimizer."""
+def time_training(trainer, batches, steps=TRAIN_TIMED_STEPS):
+    """Phase 7: ``steps`` micro-steps after the checks, each timed on the
+    host clock after ``synchronize``; returns the median ms of those that
+    only accumulate and of those that also step the optimizer."""
     import torch
 
     times = {"accumulate": [], "optimizer": []}
-    for i in range(TRAIN_TIMED_STEPS):
+    for i in range(steps):
         steps = trainer.opt_state["gradient_step"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2796,26 +2894,15 @@ def gradient_fidelity(trainer, batch):
     """Phase 6: (loss delta, relative L2 error, cosine, the fp32 plain
     gradient) of the trainable gradient, bf16 kernels against fp32 plain,
     same weights and batch."""
-    from dataclasses import replace
-
     import torch
 
     from mjvideo_tpu_torch import map_state
-    from mjvideo_tpu_torch.train.trainer import (
-        flatten_state,
-        make_loss_fn,
-        place_batch,
-        set_trainable,
-    )
 
     paths = trainer.optimizer.paths
 
     def grads(params, impl, dtype):
-        set_trainable(params, set(paths))
-        flat = flatten_state(params)
-        loss = make_loss_fn(trainer.cfg, replace(trainer.tc, attn_impl=impl))(
-            params, place_batch(batch, trainer.device, dtype))
-        return loss.item(), torch.autograd.grad(loss, [flat[p] for p in paths])
+        return trainable_grads(trainer.cfg, trainer.tc, params, paths, batch,
+                               impl, dtype, trainer.device)
 
     loss_k, g_k = grads(trainer.params, "auto", torch.bfloat16)
     p32 = map_state(lambda t: t.detach().float(), trainer.params)
@@ -2832,6 +2919,27 @@ def gradient_fidelity(trainer, batch):
         raise RuntimeError(f"gradient fidelity: relative L2 {rel_l2}, "
                            f"cosine {cos}")
     return abs(loss_k - loss_p), rel_l2, cos, g_p
+
+
+def trainable_grads(cfg, tc, params, paths, batch, impl, dtype, device):
+    """(loss, the gradients of ``paths``) of one micro-batch's loss under
+    ``tc`` with ``attn_impl=impl``, the batch placed in ``dtype``."""
+    from dataclasses import replace
+
+    import torch
+
+    from mjvideo_tpu_torch.train.trainer import (
+        flatten_state,
+        make_loss_fn,
+        place_batch,
+        set_trainable,
+    )
+
+    set_trainable(params, set(paths))
+    flat = flatten_state(params)
+    loss = make_loss_fn(cfg, replace(tc, attn_impl=impl))(
+        params, place_batch(batch, device, dtype))
+    return loss.item(), torch.autograd.grad(loss, [flat[p] for p in paths])
 
 
 def make_scorer(generator, device):
@@ -2866,17 +2974,18 @@ def clip_prompt(chat_cfg, tok, gating_pattern, caption):
                               gating_pattern=gating_pattern)
 
 
-def single_clip_length():
-    """The prompt length of phase 14's single clip, as ``make_scorer``'s
-    tokenizer and scorer (its config rebased on the tokenizer) and
-    ``make_requests`` make it."""
+def single_clip_length(cfg=None):
+    """The prompt length of phase 14's single clip (phase 25's with the 4B
+    ``cfg``), as ``make_scorer``'s (``make_scorer_4b``'s) tokenizer and
+    scorer (its config rebased on the tokenizer) and ``make_requests`` make
+    it."""
     from mjvideo_tpu_torch import ByteTokenizer, mjvideo_2b_config
     from mjvideo_tpu_torch.data.prompts import rebase_img_context_id
 
-    cfg = mjvideo_2b_config()
+    cfg = mjvideo_2b_config() if cfg is None else cfg
     tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
     chat = clip_prompt(rebase_img_context_id(cfg, tok).chat, tok,
-                       tok.gating_pattern(), SINGLE_CAPTION)
+                       tok.gating_pattern(cfg.chat.template), SINGLE_CAPTION)
     return chat.input_ids.shape[1]
 
 
@@ -2931,7 +3040,8 @@ def _grad_launches(cfg, steps=1):
     """The launch counts of ``steps`` value-and-gradients of the reward
     under remat: per ViT layer K1 with the lse twice (the forward, then the
     recompute) and K4 nc once; per decoder layer K2 with the lse twice and
-    K4a and K4b once; the pre-pass before each K1 and K2; nothing else."""
+    K4a and K4b once; the pre-pass before each K1 and K2; nothing else
+    (``_at_d96``: the decoder's at their D = 96 names too)."""
     L_vit = cfg.chat.vision.num_hidden_layers
     L_llm = cfg.chat.llm.num_hidden_layers
     per = {"vit_attention": 2 * L_vit, "vit_attention_lse": 2 * L_vit,
@@ -2939,7 +3049,8 @@ def _grad_launches(cfg, steps=1):
            "decoder_attention": 2 * L_llm, "decoder_attention_lse": 2 * L_llm,
            "decoder_attention_bwd_dkdv": L_llm,
            "decoder_attention_bwd_dq": L_llm}
-    return {name: steps * n for name, n in _with_prepass(per).items()}
+    return {name: steps * n
+            for name, n in _at_d96(cfg, _with_prepass(per)).items()}
 
 
 def _hold(label, got, want):
@@ -3101,7 +3212,8 @@ def _sp_launches(cfg, kind, training=False):
     all-gather.  ``training``: under autograd, remat runs each decoder
     layer's forward twice (K3 with the lse each time), and the backward
     launches K4a and K4b once per ring step and shard, or per shard.  The
-    pre-pass of K1 runs before each K1."""
+    pre-pass of K1 runs before each K1 (``_at_d96``: the decoder's kernels
+    at their D = 96 names too)."""
     n = SP_SHARDS
     L_llm = cfg.chat.llm.num_hidden_layers
     calls = (n * n if kind == "ring" else n) * L_llm
@@ -3110,11 +3222,11 @@ def _sp_launches(cfg, kind, training=False):
         out["exact_attention"] = calls
         if kind == "ring":
             out["exact_attention_lse"] = calls
-        return _with_prepass(out)
+        return _at_d96(cfg, _with_prepass(out))
     out.update(exact_attention=2 * calls, exact_attention_lse=2 * calls,
                decoder_attention_bwd_dkdv=calls,
                decoder_attention_bwd_dq=calls)
-    return _with_prepass(out)
+    return _at_d96(cfg, _with_prepass(out))
 
 
 def sp_scoring_phase(scorer, requests, scores, fp32_scores, pair_ms,
@@ -3203,11 +3315,15 @@ def _agreement(got, ref):
     return math.sqrt(nd / nb), dot / math.sqrt(na * nb), math.sqrt(nb)
 
 
-def sp_training_phase(trainer, batch, plain_grads, dev):
-    """Phase 19: one micro-batch through a ``Trainer`` with ``sp="ring"``
-    and with ``"allgather"`` on ``trainer``'s weights; the gradient its
-    accumulation buffer holds against ``plain_grads`` (phase 6).  Returns
-    the readings and the launch counts by path."""
+def sp_training_phase(cfg, params, tc, batch, plain_grads, dev,
+                      kinds=("ring", "allgather"), name="sp_training",
+                      floor=None):
+    """Phase 19: one micro-batch through a ``Trainer`` under ``tc`` with
+    ``sp="ring"`` and with ``"allgather"`` (``kinds``) on ``params``; the
+    gradient its accumulation buffer holds against ``plain_grads`` (phase
+    6; phase 25's ring at 4B, with bf16 plain's reading as the ``floor`` of
+    ``_fidelity_held``).  Returns the readings and the launch counts by
+    path."""
     from dataclasses import replace
 
     import torch
@@ -3216,13 +3332,11 @@ def sp_training_phase(trainer, batch, plain_grads, dev):
     from mjvideo_tpu_torch.parallel.sequence import SequenceGroup
     from mjvideo_tpu_torch.train.trainer import Trainer
 
-    cfg = trainer.cfg
     padded = _pad_batch(batch, SP_SHARDS * 64, cfg.chat.llm.pad_token_id)
     lengths = [padded[f"video_{v}_input_ids"].shape[1] for v in (0, 1)]
     out, launches = {}, {}
-    for kind in ("ring", "allgather"):
-        sp_trainer = Trainer(cfg, trainer.params,
-                             replace(trainer.tc, sp=kind),
+    for kind in kinds:
+        sp_trainer = Trainer(cfg, params, replace(tc, sp=kind),
                              sp_group=SequenceGroup.local(SP_SHARDS))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3233,7 +3347,7 @@ def sp_training_phase(trainer, batch, plain_grads, dev):
         ms = (time.perf_counter() - t0) * 1e3
         want = {name: 2 * n for name, n in
                 _sp_launches(cfg, kind, training=True).items()}
-        launches[f"sp_training_{kind}"] = _held_launches(
+        launches[f"{name}_{kind}"] = _held_launches(
             f"SP training ({kind})", want)
         peak = torch.cuda.max_memory_allocated(dev)
         if sp_trainer.opt_state["gradient_step"] != 0:
@@ -3247,13 +3361,13 @@ def sp_training_phase(trainer, batch, plain_grads, dev):
               f"(phase 6) relative L2 {rel:.4e} (bound {FIDELITY_REL_L2}), "
               f"cosine {cos:.6f} (bound {FIDELITY_COS}); micro-step "
               f"{ms:.1f} ms (the first); peak memory {peak / 2**30:.2f} GiB")
-        if not (math.isfinite(record["loss"]) and rel <= FIDELITY_REL_L2
-                and cos >= FIDELITY_COS):
-            raise RuntimeError(f"SP training ({kind}): relative L2 {rel}, "
-                               f"cosine {cos}, loss {record['loss']}")
+        if not math.isfinite(record["loss"]):
+            raise RuntimeError(f"SP training ({kind}): loss "
+                               f"{record['loss']}")
+        held = _fidelity_held(f"SP training ({kind})", rel, cos, floor)
         out[kind] = {"loss": record["loss"], "rel_l2": rel, "cos": cos,
                      "step_ms": ms, "peak_gib": peak / 2**30,
-                     "lengths": lengths}
+                     "lengths": lengths, **held}
         del sp_trainer, acc
         torch.cuda.empty_cache()
     return out, launches
@@ -4438,6 +4552,242 @@ def mjvideo_4b_phase(dev, generator, drawer):
     return out, k, launches
 
 
+def time_d96_lse_in_turns(randn, shape, live, rounds=10):
+    """K2 lse alone on its kmax, the K2 lse op, K2 alone and
+    ``F.scaled_dot_product_attention`` at ``shape`` with each row's first
+    ``live`` keys live (phase 25: the reward gradient's single clip at the
+    4B's heads), in turns by CUDA events; prints each against SDPA and K2
+    lse's bound.  Returns the medians in ms and the bound."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask, _ = _decoder_inputs(randn, *shape, False, live)
+    scale = shape[-1] ** -0.5
+    kmax = kernels.key_norm_max(k, mask)
+    runs = {
+        "K2 lse": lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                                    scale, with_lse=True),
+        "K2 lse op": lambda: fa._decoder_attention_fwd(q, k, v, mask, None,
+                                                       scale, True),
+        "K2": lambda: kernels.decoder_attention(q, k, v, mask, kmax, None,
+                                                scale),
+        "SDPA": _sdpa(q, k, v, causal=True),
+    }
+    med = _in_turns(runs, list(runs) + list(runs)[::-1], rounds)
+    lse_out = q.new_empty((shape[0], shape[2], shape[1]), dtype=torch.float32)
+    med["bound_ms"] = _bound(*_attention_work(
+        q, k, v, mask, outputs=(q, lse_out)))["bound_ms"]
+    print(f"K2 lse at {shape}, {live} live keys, in turns (median of "
+          f"{2 * rounds} each): " + ", ".join(
+              f"{n} {med[n]:.4f} ms" for n in runs)
+          + f"; against SDPA: K2 lse {med['K2 lse'] / med['SDPA']:.3f}, the "
+          f"op {med['K2 lse op'] / med['SDPA']:.3f}; K2 lse/K2 "
+          f"{med['K2 lse'] / med['K2']:.3f}; bound {med['bound_ms']:.4f} ms")
+    return med
+
+
+def _fidelity_held(label, rel, cos, floor=None):
+    """Hold a gradient's (relative L2, cosine) against fp32 plain to
+    FIDELITY_REL_L2 and FIDELITY_COS.  ``floor``: bf16 plain's own reading
+    against the same fp32 gradient; where it misses the bars too, a miss
+    is a standing failure (F5, printed and returned) unless the kernels add
+    more than the bars to it.  Raises otherwise.  Returns the verdict's
+    fields."""
+    met = rel <= FIDELITY_REL_L2 and cos >= FIDELITY_COS
+    if met:
+        return {"bar_met": True}
+    if floor is not None:
+        f_rel, f_cos = floor
+        floor_missed = not (f_rel <= FIDELITY_REL_L2 and f_cos >= FIDELITY_COS)
+        added = {"rel_l2": rel - f_rel, "cos": f_cos - cos}
+        if (floor_missed and added["rel_l2"] <= FIDELITY_REL_L2
+                and added["cos"] <= 1 - FIDELITY_COS):
+            print(f"{label}: MISSES the bars (relative L2 {rel:.4e} against "
+                  f"{FIDELITY_REL_L2}, cosine {cos:.6f} against "
+                  f"{FIDELITY_COS}); bf16 plain alone misses them too "
+                  f"({f_rel:.4e}, {f_cos:.6f}) and the kernels add "
+                  f"{added['rel_l2']:+.4e} / {-added['cos']:+.6f} to it: a "
+                  "standing failure of bf16 arithmetic at this depth "
+                  "(ROADMAP Queue 3 F5), not a kernel fault")
+            return {"bar_met": False, "standing": "F5",
+                    "added_by_kernels": added}
+    raise RuntimeError(f"{label}: relative L2 {rel}, cosine {cos}"
+                       + ("" if floor is None else f"; bf16 plain {floor}"))
+
+
+def gradient_split(cfg, tc, params, paths, batch, dev, label):
+    """Phase 25 (d): one micro-batch's trainable gradient with the bf16
+    kernels, through bf16 plain and through fp32 plain (a copy of the
+    weights), each pair's relative L2 error and cosine (S1's split: bf16
+    arithmetic against fp32, the kernels against bf16 plain); the kernels
+    against fp32 plain held to FIDELITY_REL_L2 and FIDELITY_COS after the
+    split is printed (``_fidelity_held``, with bf16 plain's reading as the
+    floor).  Returns the readings and the fp32 plain gradient."""
+    import torch
+
+    from mjvideo_tpu_torch import map_state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss_k, g_k = trainable_grads(cfg, tc, params, paths, batch, "auto",
+                                  torch.bfloat16, dev)
+    loss_b, g_b = trainable_grads(cfg, tc, params, paths, batch, "plain",
+                                  torch.bfloat16, dev)
+    p32 = map_state(lambda t: t.detach().float(), params)
+    loss_p, g_p = trainable_grads(cfg, tc, p32, paths, batch, "plain",
+                                  torch.float32, dev)
+    del p32
+    torch.cuda.empty_cache()
+    out = {"loss_kernels": loss_k, "loss_bf16_plain": loss_b,
+           "loss_fp32_plain": loss_p,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    for name, a, b in (("kernels_vs_fp32_plain", g_k, g_p),
+                       ("bf16_plain_vs_fp32_plain", g_b, g_p),
+                       ("kernels_vs_bf16_plain", g_k, g_b)):
+        rel, cos, _ = _agreement(a, b)
+        out[name] = {"rel_l2": rel, "cos": cos}
+    del g_k, g_b
+    rel, cos = (out["kernels_vs_fp32_plain"][f] for f in ("rel_l2", "cos"))
+    print(f"{label} gradient fidelity: loss bf16+kernels {loss_k:.6f}, bf16 "
+          f"plain {loss_b:.6f}, fp32 plain {loss_p:.6f}; the kernels against "
+          f"fp32 plain relative L2 {rel:.4e} (bound {FIDELITY_REL_L2}), "
+          f"cosine {cos:.6f} (bound {FIDELITY_COS}); S1's split: bf16 plain "
+          f"against fp32 plain {out['bf16_plain_vs_fp32_plain']['rel_l2']:.4e}"
+          f" (cosine {out['bf16_plain_vs_fp32_plain']['cos']:.6f}), the "
+          f"kernels against bf16 plain "
+          f"{out['kernels_vs_bf16_plain']['rel_l2']:.4e} (cosine "
+          f"{out['kernels_vs_bf16_plain']['cos']:.6f}); peak memory "
+          f"{out['peak_gib']:.2f} GiB")
+    floor = tuple(out["bf16_plain_vs_fp32_plain"][f] for f in ("rel_l2",
+                                                               "cos"))
+    out.update(_fidelity_held(f"{label} gradient fidelity", rel, cos, floor))
+    return out, g_p
+
+
+def mjvideo_4b_grad_phase(dev, generator, drawer):
+    """Phase 25: MJ-VIDEO-4B's gradients and training on the card (see the
+    module docstring).  Returns the readings, the D = 96 kernel readings
+    and the launch counts by path."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import mjvideo_4b_config
+    from mjvideo_tpu_torch.train.trainer import Trainer, make_optimizer
+
+    t0 = time.perf_counter()
+    cfg4 = mjvideo_4b_config()
+    llm = cfg4.chat.llm
+    heads = (llm.num_attention_heads, llm.num_key_value_heads)
+    data = train_data(cfg4)
+    train_shapes = train_decoder_shapes(*data)
+    grad_live = single_clip_length(cfg4)
+    grad_shape = (1, K2_SHAPES[-1][1]) + heads + (llm.head_dim,)
+    # (a) The kernels at the 4B's shapes, on a generator of their own.
+    randn = drawer(generator())
+    k = {"train_shapes": train_shapes,
+         "dec": {s: check_decoder_kernels(randn, s, ragged=False)
+                 for s in train_shapes}}
+    k["dec"][grad_shape] = check_decoder_kernels(randn, grad_shape,
+                                                 ragged=False, live=grad_live)
+    k["ring"] = check_ring_kernels(randn, heads=heads, D=llm.head_dim,
+                                   gather_ranks=())
+    k["k4_turns"] = time_k4_in_turns(randn, ((train_shapes[-1], None),
+                                             (grad_shape, grad_live)))
+    k["k2_lse_turns"] = time_d96_lse_in_turns(randn, grad_shape, grad_live)
+    k["k3_lse_turns"] = time_k3_lse_chunks(
+        randn, lengths=(SP_T // SP_SHARDS,), heads=heads, D=llm.head_dim)
+    out = {"kernels_s": time.perf_counter() - t0}
+    # (b) The reward gradient and (c) VADER on a 4B scorer.
+    scorer = make_scorer_4b(generator(), dev)
+    requests = make_requests(scorer, np.random.default_rng(SEED))
+    if len(requests[0][1][0]) != grad_live:
+        raise RuntimeError(f"phase 25 checked the single clip at {grad_live} "
+                           f"live keys, its prompt has "
+                           f"{len(requests[0][1][0])}")
+    launches = {}
+    out["reward_gradient"], launches["reward_gradient_4b"] = (
+        reward_gradient_phase(scorer, requests[0], dev))
+    out["vader"], launches["vader_4b"] = vader_phase(scorer, dev)
+    params = scorer.params
+    del scorer, requests
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) Training on the same weights: the gradient's fidelity and its
+    # split, the ring micro-batch, then a stage-3 Trainer.
+    cfg, batches = data
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tc = train_config(ckpt_dir)
+        paths = make_optimizer(tc, params).paths
+        out["fidelity"], plain_grads = gradient_split(
+            cfg, tc, params, paths, batches[0], dev, "4B training")
+        floor = tuple(out["fidelity"]["bf16_plain_vs_fp32_plain"][f]
+                      for f in ("rel_l2", "cos"))
+        sp_out, more = sp_training_phase(cfg, params, tc, batches[0],
+                                         plain_grads, dev, kinds=("ring",),
+                                         name="sp_training_4b", floor=floor)
+        out["sp_training"] = sp_out
+        launches.update(more)
+        del plain_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(cfg, params, tc)
+        launches["training_4b"], peak = check_training(
+            trainer, batches, dev, label="4B training")
+        out["training"] = {**time_training(trainer, batches,
+                                           steps=TRAIN_MICRO_BATCHES),
+                           "peak_gib": peak / 2**30}
+        del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["command_s"] = time.perf_counter() - t0
+    print(f"phase 25 command time {out['command_s']:.1f} s")
+    return out, k, launches
+
+
+def phase_alone_setup(name):
+    """For a tool that runs one phase alone (``tools/phase24_torch.py``,
+    ``tools/phase25_torch.py``): the card and its power limit printed, TF32
+    off, the kernels built and their ptxas report (a spill or a missing
+    instantiation printed, not raised, so that the phase still runs), and
+    the seeded generators as ``main`` makes them.  Returns (device,
+    generator, drawer, ptxas), or None without CUDA."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print(f"{name}: CUDA is not available", file=sys.stderr)
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    t0 = time.perf_counter()
+    lib = kernels.build()
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    try:
+        ptxas = sm90_ptxas(lib)
+    except RuntimeError as e:
+        print(f"ptxas check failed: {e}")
+        ptxas = None
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    def drawer(g):
+        return lambda *shape: torch.randn(shape, generator=g,
+                                          device=dev).to(torch.bfloat16)
+
+    return dev, generator, drawer, ptxas
+
+
 def main() -> int:
     import torch
 
@@ -4615,7 +4965,8 @@ def main() -> int:
         plain_grads = gradient_fidelity(trainer, batches[0])[-1]
         f4 = f4_budget_phase(trainer, batches[0])
         sp_trained, sp_train_launches = sp_training_phase(
-            trainer, batches[0], plain_grads, dev)
+            trainer.cfg, trainer.params, trainer.tc, batches[0], plain_grads,
+            dev)
         del plain_grads
         torch.cuda.empty_cache()
         train_ms = time_training(trainer, batches)
@@ -4633,6 +4984,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out_4b, d96, launches_4b = mjvideo_4b_phase(dev, generator, drawer)
+    # Phase 25: MJ-VIDEO-4B's gradients and training, on a fresh state.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_25, grad96, launches_25 = mjvideo_4b_grad_phase(dev, generator,
+                                                        drawer)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -4643,7 +4999,7 @@ def main() -> int:
                "reward_gradient": grad_launches, "vader": vader_launches,
                **sp_score_launches, **sp_train_launches, **long_launches,
                **ckpt_launches, **frames_launches, **sweep_launches,
-               **harness_launches, **launches_4b}
+               **harness_launches, **launches_4b, **launches_25}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -4674,6 +5030,10 @@ def main() -> int:
     served_k1 = k1[K1_SHAPES[0]]
     served_96 = D96_K2_SHAPES[-1]
     k2_96, turns_96 = d96["K2"][served_96], d96["turns"]
+    trained_96 = grad96["train_shapes"][-1]  # the 4B's longest prompt
+    dec_96 = grad96["dec"][trained_96]
+    ring_96 = grad96["ring"]
+    k4_96 = grad96["k4_turns"]
     summary = {"kernels": [
         {"name": "vit_attention", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
@@ -4874,6 +5234,59 @@ def main() -> int:
          "kernel_device_ms": turns_96["K3 device_ms"],
          "sdpa_ms_in_turns": turns_96["SDPA"], "turns_shape": served_96,
          "at_shapes": {n: brief(r) for n, r in d96["K3"].items()}},
+        # The D = 96 gradient forms (MJ-VIDEO-4B's reward gradient, VADER
+        # and training, phase 25): K2 lse and K3 lse on Config D96's lse
+        # epilogue, K4a and K4b on the backward template's DkdvD96/DqD96.
+        {"name": "decoder_attention_lse_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:407",
+         **counts("decoder_attention_lse_d96"), "shape": trained_96,
+         **dec_96["K2 lse"],
+         "in_turns": grad96["k2_lse_turns"],
+         "at_shapes": {str(sh): brief(r["K2 lse"])
+                       for sh, r in grad96["dec"].items()}},
+        {"name": "exact_attention_lse_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/exact_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:526",
+         **counts("exact_attention_lse_d96"),
+         "shape": (1, ring_l, ring_l) + trained_96[2:], "rel_off": ring_l,
+         **ring_96["K3 lse", ring_l],
+         "chunk_in_turns": {str(n): r for n, r in
+                            grad96["k3_lse_turns"].items()},
+         "at_offsets": {str(o): brief(ring_96["K3 lse", o]) for o in (
+             (my - src) * ring_l for my, src in SP_CHUNKS)}},
+        {"name": "decoder_attention_bwd_dkdv_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/attention_bwd_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/decoder_attention_bwd.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:603",
+         **counts("decoder_attention_bwd_dkdv_d96"), "shape": trained_96,
+         **dec_96["K4a"],
+         "at_shapes": {str(sh): brief(r["K4a"])
+                       for sh, r in grad96["dec"].items()},
+         "at_offsets": {str(o): brief(ring_96["K4a", o]) for o in (
+             (my - src) * ring_l for my, src in SP_CHUNKS)},
+         "in_turns": {sh: {"ms": r["ms"]["K4a"],
+                           "bound_ms": r["bound_ms"]["K4a"],
+                           "sdpa_backward_ms": r["ms"]["SDPA backward"]}
+                      for sh, r in k4_96.items()}},
+        {"name": "decoder_attention_bwd_dq_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/attention_bwd_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/decoder_attention_bwd.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:656",
+         **counts("decoder_attention_bwd_dq_d96"), "shape": trained_96,
+         **dec_96["K4b"],
+         "at_shapes": {str(sh): brief(r["K4b"])
+                       for sh, r in grad96["dec"].items()},
+         "at_offsets": {str(o): brief(ring_96["K4b", o]) for o in (
+             (my - src) * ring_l for my, src in SP_CHUNKS)},
+         "in_turns": {sh: {"ms": r["ms"]["K4b"],
+                           "bound_ms": r["bound_ms"]["K4b"],
+                           "sdpa_backward_ms": r["ms"]["SDPA backward"],
+                           "pair_over_sdpa_backward":
+                           r["pair_over_sdpa_backward"]}
+                      for sh, r in k4_96.items()}},
         {"name": "q8g_matmul_fused", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
@@ -4963,6 +5376,7 @@ def main() -> int:
             str(k): v for k, v in frames_out.items()},
             "device_batch_sweep": {str(k): v for k, v in sweep_out.items()}},
         "eval_harness": harness_out, "mjvideo_4b": out_4b,
+        "mjvideo_4b_gradients": out_25,
         "sp_kernels": {f"{name} {off}": {key: r[key] for key in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
             for (name, off), r in ring_k.items()}}

@@ -7,8 +7,9 @@
 // in the two forms the port reaches:
 //   K4 nc (vit_attention_bwd.cu, D = 64): the ViT's custom VJP (_vjp_bwd
 //     :874), non-causal, no mask, one kv head per q head, Q = K = S;
-//   K4a/K4b (decoder_attention_bwd.cu, D = 128): the decoder's, causal
-//     with a per-batch q_offset (negative for a later shard's ring chunk,
+//   K4a/K4b (decoder_attention_bwd.cu, D = 128 for InternLM2-1.8B and 96
+//     for Phi-3, MJ-VIDEO-4B's decoder): the decoder's, causal with a
+//     per-batch q_offset (negative for a later shard's ring chunk,
 //     positive for an earlier one and for the all-gather shard's rows
 //     against all K keys) or non-causal, a (B, K) int32 key mask or none,
 //     GQA (q head h reads kv head h / G, dK and dV summed over each kv
@@ -97,7 +98,16 @@
 //   scores, outputs and packed operands spill.  dQ holds 192 q rows in 3
 //   warpgroups and streams 64-key tiles through 4 stages.  D = 128: both
 //   hold 128 rows in 2 warpgroups; dK/dV streams 32-row q tiles through 4
-//   stages, dQ 64-key tiles through 3.
+//   stages, dQ 64-key tiles through 3.  D = 96 is laid out as D128, as the
+//   forward template's D96 is: two 64-column boxes a row, the tensor maps'
+//   96 columns with TMA's zero fill past them, so columns 96-127 of q, k,
+//   v and dO are zeros in shared memory.  The score products stop after
+//   the 6 k-steps of the real columns; the accumulating products run at
+//   n128 into D128's 64 floats a thread, whose columns 96-127 come out
+//   exactly 0 and are never stored: store_rows writes rows 96 elements
+//   apart and 96 columns of each.  So DkdvD96 and DqD96 take D128's shared
+//   memory and register split as they are (a third more accumulating work
+//   than a native 64 + 32-column layout would do).
 #pragma once
 
 #include "decoder_attention_sm90.cuh"
@@ -148,17 +158,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
 // streamed tiles, BLOCK_N rows each (q rows for dK/dV, keys for dQ).
 template <int D, int WG, int STAGES, int BLOCK_N>
 struct Config {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
   static_assert(BLOCK_N == 32 || BLOCK_N == 64 || BLOCK_N == 128,
                 "wgmma widths 32, 64 or 128");
   static constexpr int kD = D;
-  static constexpr int kBoxes = D / 64;  // 64-column (128-byte) boxes
+  // 64-column (128-byte) boxes; D = 96's second box is half zero fill.
+  static constexpr int kBoxes = (D + 63) / 64;
   static constexpr int kConsumerWarps = 4 * WG;
   static constexpr int kBlockM = 64 * WG;
   static constexpr int kBlockN = BLOCK_N;
   static constexpr int kThreads = (kConsumerWarps + 4) * 32;
   static constexpr int kStages = STAGES;
-  static constexpr int kAcc = D / 2;         // output floats a thread
+  static constexpr int kAcc = 32 * kBoxes;   // output floats a thread
   static constexpr int kScores = BLOCK_N / 2;  // score floats a thread
   static constexpr int kPacked = BLOCK_N / 4;  // their bf16 pairs
   static constexpr int kWords = BLOCK_N / 32;  // liveness words a tile
@@ -184,6 +195,9 @@ using DqD64 = Config<64, 3, 4, 64>;    // K4 nc dQ
 // dP^T), the only width at which the next-tile overlap fits its registers.
 using DkdvD128 = Config<128, 2, 4, 32>;  // K4a dK/dV
 using DqD128 = Config<128, 2, 3, 64>;    // K4b dQ
+// K4a and K4b at Phi-3's head dim: D128's layout, stages and split.
+using DkdvD96 = Config<96, 2, 4, 32>;  // K4a dK/dV
+using DqD96 = Config<96, 2, 3, 64>;    // K4b dQ
 
 // d = A B^T over the head dim for this warpgroup's 64 held rows (A at
 // `a`, boxes C::kMBox apart) and a streamed tile (B at `b`, boxes
@@ -297,7 +311,9 @@ __device__ __forceinline__ void dq_tile(const float (&sc)[C::kScores],
 
 // Store this thread's two rows (row0, row0 + 8) of a 64 x D accumulator as
 // bf16 into dense (B, rows, heads, D) `out` at head h, rows at or past
-// `rows` skipped, zeros where ok[r] is false (a masked key).
+// `rows` skipped, zeros where ok[r] is false (a masked key).  Rows are D
+// elements apart and only the D real columns are written: at D = 96 the
+// accumulator's columns 96-127 (the layout's zero fill) are dropped.
 template <class C>
 __device__ __forceinline__ void store_rows(const float (&acc)[C::kAcc],
                                            bf16* out, int b, int h, int rows,

@@ -5,10 +5,10 @@
 // bound shift with kmax the largest masked key norm of each (b, kv head),
 // and rows whose sum is 0 giving 0.  Both run the wgmma/TMA template of
 // decoder_attention_sm90.cuh (Config D128, ShiftMode::kKeyMax): K2r's
-// constant-shift body with one bound per (b, kv head).  K2 without the lse
-// also takes Phi-3's head dim (Config D96, MJ-VIDEO-4B's decoder), its
-// pre-pass too; K2 lse and K2r stay at 128 until the D = 96 backward
-// exists.  What bounds it and the design: see that header.
+// constant-shift body with one bound per (b, kv head).  K2 and K2 lse also
+// take Phi-3's head dim (Config D96, MJ-VIDEO-4B's decoder), its pre-pass
+// too; K2r and its pre-pass's per-key norms stay at 128.  What bounds it
+// and the design: see that header.
 //
 // A null lse: serving, the judge's scorer-side decoder.  A non-null lse
 // (K2 lse, the training forward and the reward gradient: _fwd_bound_kernel
@@ -248,11 +248,8 @@ extern "C" int mjv_key_norm_max(const void* k, const void* mask, void* part,
   return int(cudaGetLastError());
 }
 
-// The head dims K2 takes: InternLM2-1.8B's 128 (with the lse or without)
-// and Phi-3's 96 (without: K2 lse at 96 waits for the D = 96 backward).
-static bool k2_head_dim(int D, const void* lse) {
-  return D == 128 || (D == 96 && lse == nullptr);
-}
+// The head dims K2 and K2 lse take: InternLM2-1.8B's 128 and Phi-3's 96.
+static bool k2_head_dim(int D) { return D == 128 || D == 96; }
 
 // K2 alone on a folded kmax (B, Hkv): the kernel-alone form of the op.
 extern "C" int mjv_decoder_attention(
@@ -261,7 +258,7 @@ extern "C" int mjv_decoder_attention(
     int Q, int K, int Hq, int Hkv, int D, long long qsb, long long qss,
     long long ksb, long long kss, long long vsb, long long vss, float scale,
     void* stream) {
-  if (!k2_head_dim(D, lse)) return int(cudaErrorInvalidValue);
+  if (!k2_head_dim(D)) return int(cudaErrorInvalidValue);
   if (D == 96) {
     return sm90::launch_attention<sm90::D96, true, sm90::ShiftMode::kKeyMax>(
         q, k, v, mask, kmax, 1, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb,
@@ -281,7 +278,7 @@ extern "C" int mjv_decoder_attention_op(
     int K, int Hq, int Hkv, int D, long long qsb, long long qss,
     long long ksb, long long kss, long long vsb, long long vss, int nparts,
     float scale, void* stream) {
-  if (!k2_head_dim(D, lse)) return int(cudaErrorInvalidValue);
+  if (!k2_head_dim(D)) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_key_norm_partials(k, mask, part, B, K, Hkv, D, ksb,
                                            kss, nparts, s);

@@ -1,6 +1,7 @@
 // K4a and K4b: the decoder attention backward on Hopper.  Replaces the two
 // Pallas kernels of _bwd_impl (mjvideo_tpu/ops/flash_attention.py:708) in
-// their GQA form at D = 128 (InternLM2-1.8B):
+// their GQA form at D = 128 (InternLM2-1.8B) and at D = 96 (Phi-3, 32/32
+// heads: MJ-VIDEO-4B's reward gradient and training):
 //   K4a _bwd_dkdv_kernel (:603, call :769): dK, dV for one kv block
 //   K4b _bwd_dq_kernel   (:656, call :812): dQ for one q block
 // from the true lse that K2 lse or K3 lse wrote (decoder_attention.cu and
@@ -26,6 +27,16 @@ extern "C" int mjv_decoder_attention_bwd_dkdv(
     int Hkv, int D, long long qsb, long long qss, long long ksb,
     long long kss, long long vsb, long long vss, long long dsb,
     long long dss, float scale, int causal, void* stream) {
+  if (D == 96) {  // Phi-3's heads
+    return causal ? bwd::launch_dkdv<bwd::DkdvD96, true>(
+                        q, k, v, dout, lse, delta, mask, q_offset, dk, dv, B,
+                        Q, K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, dsb, dss,
+                        scale, stream)
+                  : bwd::launch_dkdv<bwd::DkdvD96, false>(
+                        q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B,
+                        Q, K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, dsb, dss,
+                        scale, stream);
+  }
   if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
   if (causal) {
     return bwd::launch_dkdv<bwd::DkdvD128, true>(
@@ -44,7 +55,17 @@ extern "C" int mjv_decoder_attention_bwd_dq(
     int D, long long qsb, long long qss, long long ksb, long long kss,
     long long vsb, long long vss, long long dsb, long long dss, float scale,
     int causal, void* stream) {
-  if (D != 128) return int(cudaErrorInvalidValue);
+  if (D == 96) {  // Phi-3's heads
+    return causal ? bwd::launch_dq<bwd::DqD96, true>(
+                        q, k, v, dout, lse, delta, mask, q_offset, dq, B, Q,
+                        K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, dsb, dss,
+                        scale, stream)
+                  : bwd::launch_dq<bwd::DqD96, false>(
+                        q, k, v, dout, lse, delta, mask, nullptr, dq, B, Q,
+                        K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, dsb, dss,
+                        scale, stream);
+  }
+  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
   if (causal) {
     return bwd::launch_dq<bwd::DqD128, true>(
         q, k, v, dout, lse, delta, mask, q_offset, dq, B, Q, K, Hq, Hkv, qsb,

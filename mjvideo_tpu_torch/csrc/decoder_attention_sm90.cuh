@@ -127,10 +127,10 @@
 //   (tools/d64_config_ab_torch.py): at D = 64 the accumulator is half as
 //   large, so a third warpgroup fits in the registers (160 a consumer
 //   thread) and keeps more softmax work in flight per SM, which measured
-//   faster than two (PERF.md).  D96 (K2 and K3 at Phi-3's head dim) is
-//   laid out as D128: two 64-column boxes a row, whose second box reads
-//   columns 96-127 past the tensor map's D = 96 columns as TMA's zero
-//   fill.  q k^T stops after the 6 k-steps of the real columns; p v runs
+//   faster than two (PERF.md).  D96 (K2, K3 and their lse forms at Phi-3's
+//   head dim) is laid out as D128: two 64-column boxes a row, whose
+//   second box reads columns 96-127 past the tensor map's D = 96 columns
+//   as TMA's zero fill.  q k^T stops after the 6 k-steps of the real columns; p v runs
 //   at n128, and the zero columns of v give exact zeros in accumulator
 //   columns 96-127, which are not stored; |q| and kmax sum no more than
 //   the real columns' squares.  It costs a third more p v work and shared
@@ -253,7 +253,7 @@ struct Config {
 };
 
 using D128 = Config<128, 2, 3>;  // K3, K2r, K2, K2 lse
-using D96 = Config<96, 2, 3>;    // K3, K2 (Phi-3)
+using D96 = Config<96, 2, 3>;    // K3, K2 and their lse forms (Phi-3)
 using D64 = Config<64, 3, 3>;    // K1, K1 lse
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

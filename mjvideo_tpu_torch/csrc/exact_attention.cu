@@ -21,9 +21,9 @@
 // (decoder_attention_bwd.cu) read it.  With the lse or without, both run
 // the wgmma/TMA template of decoder_attention_sm90.cuh (Config D128,
 // ShiftMode::kExact), the lse as its epilogue, so K3 lse's output is
-// bit-equal to K3's: design and bounds there.  K3 without the lse also
-// takes Phi-3's head dim (Config D96: the InternVL2-4B judge's prefill,
-// prefix and continuation); K3 lse at 96 waits for the D = 96 backward.
+// bit-equal to K3's: design and bounds there.  Both also take Phi-3's
+// head dim (Config D96): K3 for the InternVL2-4B judge's prefill, prefix
+// and continuation, K3 lse for MJ-VIDEO-4B's ring training and scoring.
 #include "decoder_attention_sm90.cuh"
 
 extern "C" int mjv_exact_attention(
@@ -36,7 +36,7 @@ extern "C" int mjv_exact_attention(
   using sm90::D128;
   using sm90::D96;
   using sm90::ShiftMode;
-  if (D == 96 && lse == nullptr) {  // Phi-3's heads, without the lse
+  if (D == 96) {  // Phi-3's heads
     return causal ? sm90::launch_attention<D96, true, ShiftMode::kExact>(
                         q, k, v, mask, nullptr, 1, q_offset, out, lse, B, Q,
                         K, Hq, Hkv, qsb, qss, ksb, kss, vsb, vss, scale,

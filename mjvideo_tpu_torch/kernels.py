@@ -43,9 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "key_norm_max" counts the pre-pass of K1 and K2 (their kmax, with the lse
 # or without: one per K1 or K2 op, or alone), "key_norm_cummax" K2r's (its
 # bound column: one per K2r op, or alone); "q8g_quantize" the activation
-# pre-pass of K6 (one per K6 launch, or alone); "decoder_attention_d96",
-# "exact_attention_d96" and "key_norm_max_d96" the launches of K2, K3 and
-# the pre-pass at Phi-3's head dim of 96 among them.
+# pre-pass of K6 (one per K6 launch, or alone); the names ending in
+# "_d96" count the launches at Phi-3's head dim of 96 among those of the
+# name without it: K2, K3, their lse forms, the pre-pass, K4a and K4b.
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
@@ -53,7 +53,9 @@ launch_counts: Dict[str, int] = {
     "decoder_attention_bwd_dkdv": 0, "decoder_attention_bwd_dq": 0,
     "exact_attention": 0, "exact_attention_lse": 0,
     "decoder_attention_d96": 0, "exact_attention_d96": 0,
-    "key_norm_max_d96": 0,
+    "key_norm_max_d96": 0, "decoder_attention_lse_d96": 0,
+    "exact_attention_lse_d96": 0, "decoder_attention_bwd_dkdv_d96": 0,
+    "decoder_attention_bwd_dq_d96": 0,
     "decoder_attention_rows": 0, "key_norm_cummax": 0, "key_norm_max": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "q8g_quantize": 0,
     "w4_matmul": 0,
@@ -75,12 +77,12 @@ KEY_NORM_LOADS = 4
 KEY_NORM_CTAS = 528
 KEY_NORM_PARTS_MAX = 256
 
-# The forms that do not take Phi-3's head dim of 96 yet: K2 and K3 with the
-# lse, K2r and its pre-pass, K4a and K4b, which MJ-VIDEO-4B's training and
-# reward gradient need.  Their wrappers refuse D = 96 before any check or
-# launch.
-D96_NEXT = ("ROADMAP Queue 1 item 5b: MJ-VIDEO-4B training and the reward "
-            "gradient, with K2 lse, K3 lse, K2r, K4a and K4b at D = 96")
+# The forms that do not take Phi-3's head dim of 96 yet: K2r and its
+# pre-pass (the per-key norms of its bound column), which the 4B judge's
+# MJV_CACHE_NORM_BOUND=1 path needs.  Their wrappers refuse D = 96 before
+# any check or launch.
+D96_NEXT = ("ROADMAP Queue 1 item 5c: the 4B judge's MJV_CACHE_NORM_BOUND=1 "
+            "path, with K2r and its pre-pass's per-key norms at D = 96")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -403,15 +405,12 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       kmax: torch.Tensor, q_offset: Optional[torch.Tensor],
                       scale: float, with_lse: bool = False):
     """K2 alone on a given kmax.  q: (B, Q, Hq, D), k/v: (B, K, Hkv, D)
-    bf16 with D = 128 (InternLM2) or 96 (Phi-3; not with the lse), dense
-    heads; attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32
+    bf16 with D = 128 (InternLM2) or 96 (Phi-3), dense heads; attention_mask: (B, K) int32 or None; kmax: (B, Hkv) fp32
     (``key_norm_max``); q_offset: (B,) int32 or None (= 0).  Returns a
     dense (B, Q, Hq, D) bf16 tensor, and with ``with_lse`` also the (B, Hq,
     Q) fp32 lse (1e30 on dead rows).  With the lse or without, it runs on
     the wgmma/TMA template; ``decoder_attention_op`` is the op."""
     name = "decoder_attention"
-    if with_lse:
-        _refuse_d96(f"{name} with the lse", q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset, dims=(96, 128))
     B, Q, Hq, D = q.shape
@@ -432,7 +431,7 @@ def decoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(name, err)
     _count(name, D)
     if with_lse:
-        launch_counts["decoder_attention_lse"] += 1
+        _count("decoder_attention_lse", D)
     return (out, lse) if with_lse else out
 
 
@@ -447,8 +446,6 @@ def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``key_norm_max(k, attention_mask)``.  Counts one ``key_norm_max`` and
     one ``decoder_attention``."""
     name = "decoder_attention"
-    if with_lse:
-        _refuse_d96(f"{name} with the lse", q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset, dims=(96, 128))
     B, Q, Hq, D = q.shape
@@ -472,7 +469,7 @@ def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _count("key_norm_max", D)
     _count(name, D)
     if with_lse:
-        launch_counts["decoder_attention_lse"] += 1
+        _count("decoder_attention_lse", D)
     return (out, lse) if with_lse else out
 
 
@@ -651,14 +648,12 @@ def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: Optional[torch.Tensor], scale: float,
                     causal: bool = True, with_lse: bool = False):
     """K3.  q: (B, Q, Hq, D), k/v: (B, K, Hkv, D) bf16 with D = 128
-    (InternLM2) or 96 (Phi-3; not with the lse), dense heads;
+    (InternLM2) or 96 (Phi-3), dense heads;
     attention_mask: (B, K) int32 or None; q_offset: (B,) int32 or None (=
     0; read only when causal; may be negative).  Returns a dense (B, Q, Hq,
     D) bf16 tensor, and with ``with_lse`` also the (B, Hq, Q) fp32 lse
     (1e30 on a row that sees no key)."""
     name = "exact_attention"
-    if with_lse:
-        _refuse_d96(f"{name} with the lse", q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
                                        q_offset, dims=(96, 128))
     B, Q, Hq, D = q.shape
@@ -677,15 +672,14 @@ def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(name, err)
     _count(name, D)
     if with_lse:
-        launch_counts["exact_attention_lse"] += 1
+        _count("exact_attention_lse", D)
     return (out, lse) if with_lse else out
 
 
 def _bwd_operands(name, q, k, v, dout, lse, delta, attention_mask,
                   q_offset):
-    _refuse_d96(name, q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
-                                       q_offset, dout)
+                                       q_offset, dout, dims=(96, 128))
     if dout.shape != q.shape:
         raise ValueError(f"{name}: dout must have q's shape {tuple(q.shape)}")
     B, Q, Hq, D = q.shape
@@ -704,12 +698,13 @@ def decoder_attention_bwd_dkdv(q, k, v, dout, lse, delta,
                                attention_mask: Optional[torch.Tensor],
                                q_offset: Optional[torch.Tensor],
                                scale: float, causal: bool = True):
-    """K4a.  q/dout: (B, Q, Hq, 128), k/v: (B, K, Hkv, 128) bf16, dense
-    heads; lse, delta: (B, Hq, Q) fp32; mask and q_offset as for K3 (the
-    offset read only when causal; Q may differ from K).  Runs on the
-    wgmma/TMA backward template (``attention_bwd_sm90.cuh``), whose tensor
-    maps want 16-byte aligned bases and row and batch strides: another
-    view raises here, as does a head dim other than 128.  Returns dense
+    """K4a.  q/dout: (B, Q, Hq, D), k/v: (B, K, Hkv, D) bf16 with D = 128
+    (InternLM2) or 96 (Phi-3), dense heads; lse, delta: (B, Hq, Q) fp32;
+    mask and q_offset as for K3 (the offset read only when causal; Q may
+    differ from K).  Runs on the wgmma/TMA backward template
+    (``attention_bwd_sm90.cuh``), whose tensor maps want 16-byte aligned
+    bases and row and batch strides: another view raises here, as does
+    another head dim.  Returns dense
     (B, K, Hkv, D) bf16 dk and dv, summed over each GQA group, exactly 0 on
     masked keys."""
     name = "decoder_attention_bwd_dkdv"
@@ -724,7 +719,7 @@ def decoder_attention_bwd_dkdv(q, k, v, dout, lse, delta,
             *ptrs, dk.data_ptr(), dv.data_ptr(), *tail, float(scale),
             int(causal), stream)
     _raise_on(name, err)
-    launch_counts[name] += 1
+    _count(name, q.shape[-1])
     return dk, dv
 
 
@@ -745,7 +740,7 @@ def decoder_attention_bwd_dq(q, k, v, dout, lse, delta,
         err = lib.mjv_decoder_attention_bwd_dq(
             *ptrs, dq.data_ptr(), *tail, float(scale), int(causal), stream)
     _raise_on(name, err)
-    launch_counts[name] += 1
+    _count(name, q.shape[-1])
     return dq
 
 

@@ -175,10 +175,10 @@ def test_k4_sources_run_on_the_hopper_backward_template():
     for name in ("DkdvD128", "DqD128"):
         assert re.search(rf"using {name} = Config<128, ", header), name
     # The backward template's instantiations: K4 nc's two and K4a/K4b's
-    # four (each kernel causal and not).
+    # four at D = 128 and four at D = 96 (each kernel causal and not).
     bwd = sum(_instantiations((csrc / f).read_text())
               for f in ("vit_attention_bwd.cu", "decoder_attention_bwd.cu"))
-    assert bwd == 6
+    assert bwd == 10
     # The forward template's 8 of the main paths (K3 causal and not, K2r,
     # K2, K1; K2 and K3 causal and not at D = 96) and the A/B variants'
     # (B1's modes and B2's hp; B3 is B2's hp 1), the key-norm partial pass 4

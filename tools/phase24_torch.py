@@ -16,9 +16,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
@@ -29,37 +27,12 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None, help="write the readings here")
     args = p.parse_args()
-    import torch
-
     import chip_smoke as cs
-    from mjvideo_tpu_torch import kernels
 
-    if not torch.cuda.is_available():
-        print("phase24: CUDA is not available", file=sys.stderr)
+    setup = cs.phase_alone_setup("phase24")
+    if setup is None:
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
-    t0 = time.perf_counter()
-    lib = kernels.build()
-    print(f"built in {time.perf_counter() - t0:.1f} s")
-    try:
-        ptxas = cs.sm90_ptxas(lib)
-    except RuntimeError as e:
-        print(f"ptxas check failed: {e}")
-        ptxas = None
-
-    def generator():
-        return torch.Generator(device=dev).manual_seed(cs.SEED)
-
-    def drawer(g):
-        return lambda *shape: torch.randn(shape, generator=g,
-                                          device=dev).to(torch.bfloat16)
-
+    dev, generator, drawer, ptxas = setup
     out, d96, launches = cs.mjvideo_4b_phase(dev, generator, drawer)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,5 +1,6 @@
-"""Fault controls for B1-B3 and K2r's pre-pass on a CUDA card: each fault
-planted in a copy of the tree, and the card tests of its kernel run there.
+"""Fault controls for B1-B3, K2r's pre-pass and the D = 96 forms of K2 lse,
+K3 lse, K4a and K4b on a CUDA card: each fault planted in a copy of the
+tree, and the card tests of its kernel run there.
 
     python3 tools/variant_faults_torch.py [--out FILE] [--only NAME ...]
 
@@ -25,8 +26,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 CSRC = "mjvideo_tpu_torch/csrc/"
 HEADER = CSRC + "decoder_attention_sm90.cuh"
+BWD = CSRC + "attention_bwd_sm90.cuh"
 VARIANTS = "tests/test_torch_kernels_variants_sm90.py"
 ROWS_BSHD = "tests/test_torch_kernels_rows_bshd_sm90.py"
+D96 = "tests/test_torch_kernels_d96_sm90.py"
+# The backward's row store at the layout's 128-column stride where D = 96
+# (64 * kBoxes: the same as kD at 64 and 128), for dK/dV's Config (32-row
+# streamed tiles) or dQ's (64): rows overlap and the last runs past the
+# tensor.
+STORE = "* C::kD + 2 * c;"
 
 # (name, file, text, replacement, the card tests that must catch it).
 FAULTS = (
@@ -46,6 +54,21 @@ FAULTS = (
     # B3 walks all S keys, the ones past kv_valid included.
     ("B3 launches with K = S", CSRC + "vit_attention_variants.cu",
      "out, B, S, kv_valid, H,", "out, B, S, S, H,", ROWS_BSHD),
+    # K4a at D = 96 stores dK and dV rows 128 columns apart.
+    ("K4a D96 store at the 128-column stride", BWD, STORE,
+     "* (C::kBlockN == 32 ? 64 * C::kBoxes : C::kD) + 2 * c;", D96),
+    # K4b at D = 96 stores dQ rows 128 columns apart.
+    ("K4b D96 store at the 128-column stride", BWD, STORE,
+     "* (C::kBlockN == 64 ? 64 * C::kBoxes : C::kD) + 2 * c;", D96),
+    # K2 lse at D = 96 writes log(l) without the bound m.
+    ("K2 lse D96 drops the row max", HEADER,
+     "v = m[r] + logf(fmaxf(l[r], 1e-30f));",
+     "v = (C::kD == 96 ? 0.f : m[r]) + logf(fmaxf(l[r], 1e-30f));", D96),
+    # K3 lse at D = 96 writes log(l) without the row max.
+    ("K3 lse D96 drops the row max", HEADER,
+     "v = fmaf(m[r], kLn2, m[r] * kLn2Lo) + logf(l[r]);",
+     "v = (C::kD == 96 ? 0.f : fmaf(m[r], kLn2, m[r] * kLn2Lo)) + "
+     "logf(l[r]);", D96),
 )
 
 
