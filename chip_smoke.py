@@ -1,8 +1,8 @@
 """Drive the PyTorch port's MJ-VIDEO-2B scoring and training paths, its
 InternVL2-2B judge, quantized scoring and judging, the reward gradient
-with its VADER loop, sequence-parallel scoring and training, and
+with its VADER loop, sequence-parallel scoring and training,
 MJ-VIDEO-4B's serving with its InternVL2-4B judge, its reward gradient,
-VADER loop and training once on one CUDA card.
+VADER loop and training, and the Qwen2-VL judge once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -185,7 +185,8 @@ Phases (any failure raises and exits non-zero):
    (reported, not held).
 16. Fails if ``jax`` or any ``mjvideo_tpu`` module was imported, or a
    kernel of the main path never launched (phase 25's four D = 96 forms
-   included); prints the card, the kernel
+   and phase 26's D = 80 and D = 96 forms included); prints the card, the
+   kernel
    summary line and, last, the contract line ``{"ok": true, "device":
    {...}}``.  Every phase that holds launch counts also holds one
    ``key_norm_max`` before each K1 and K2 (with the lse or without).
@@ -306,7 +307,7 @@ Phases (any failure raises and exits non-zero):
    alone), and each command's time.  ``evaluate_genai_bench`` on one row per vote type.  Phase 9's
    judge (``make_judge``) through ``run_overall_benchmark`` on
    JUDGE_DRIVER_PAIRS records and ``run_fine_grained_benchmark`` on one
-   (33 rubric questions), exact launches, seconds.  ``train/cli.main`` at
+   (the questions of FINE_GRAINED_CATEGORIES), exact launches, seconds.  ``train/cli.main`` at
    the 2B config from random init (stage 3, batch 1, 2 frames,
    TRAIN_CLI_STEPS micro-steps, ``--eval-json`` on the first
    TRAIN_CLI_EVAL_PAIRS records): finite losses, the eval record in
@@ -375,6 +376,43 @@ Phases (any failure raises and exits non-zero):
    per micro-batch and video 24 K1, 64 K2 lse, 32 K4a and 32 K4b; then as
    many micro-steps timed (medians of those that accumulate and of those
    that also step) and the peak memory.  Prints its command time.
+26. The Qwen2-VL judge and the forms it and the 4B judge's per-row bound
+   need (after phase 25, its states freed; nothing caught).  (a) On a
+   generator of its own: K1 at the Qwen2-VL vision tower's D = 80
+   (QWEN_K1_SHAPES, q/k/v views into one qkv tensor: the op, the kernel
+   alone and the pre-pass ``key_norm_max`` at 16 lanes a key) against their
+   twins, the op bit-equal to the kernel alone; K2r and its pre-pass
+   ``key_norm_cummax`` at D = 96 on phase 3's ragged inputs at
+   D96_K2_SHAPES (the op, the kernel alone, two launches bit-identical,
+   dead rows 0, kcum's last column ``key_norm_max``'s) and at the judge's
+   prefix and continuation shapes at 32/32 heads (``check_judge_kernels``);
+   K3 and K2r at the Qwen2-VL 2B's 12/2 and the 7B's 28/4 decoder heads at
+   the Qwen judge's shapes (its right-padded pair prefill, one video's
+   prefix and the continuation at the prefix length; the lengths from its
+   prompts).  Each within KERNEL_REL_TOL of its twin (the pre-passes
+   within PREPASS_REL_TOL), each with its bound and SDPA.  (b) Phase 24's
+   4B judge (its state from a fresh generator at SEED) under
+   ``_CACHE_BOUND = "rows"`` (MJV_CACHE_NORM_BOUND=1): the short question
+   by the prefix path, exact launches (per video 24 K1 after their
+   pre-passes; 32 K2r after theirs per prefix prefill or continuation, at
+   their D = 96 names too; none in decode), teacher-forced logits within
+   LOGITS_REL_TOL of fp32 plain.  (c) ``Qwen2VLJudge`` on Qwen2-VL-2B at
+   full width (vision 32 x 1280, 16 heads of 80; text 28 x 1536, 12/2
+   heads of 128; vocabulary 151,936, tied), random bf16 weights from a
+   fresh generator at SEED, seeded 8-frame patches of QWEN_GRID through a
+   subclass's ``_encode_video`` (no cv2 or PIL needed): ``judge_pair``
+   with the overall prompt (the full prompt) and the short question (the
+   prefix path), exact launches (per video encoded 32 K1 after their
+   pre-passes, at their D = 80 names too; 28 K3 per prefill or
+   continuation; none in decode), teacher-forced logits of both paths
+   within LOGITS_REL_TOL of the same weights in fp32 through
+   ``impl="plain"``; vision ms a video, the pair's prefill ms, ms a decode
+   step at B = 2, answers/s by each path and the peak memory.  (d) The 2B's
+   widths at QWEN_CLI_DEPTH, written by the port's writer as an HF
+   Qwen2-VL directory; ``eval/cli.main --judge qwen2-vl --byte-tokenizer``
+   overall on QWEN_CLI_PAIRS pairs, every results row equal to (c)'s judge
+   on the state read back (bit-equal), exact launches.  Prints its command
+   time.
 """
 
 from __future__ import annotations
@@ -478,15 +516,18 @@ PREPASS_REL_TOL = 1e-6
 # the key-norm partial pass 3 (key_norm_max's at D = 64 and 128, and
 # key_norm_cummax's, which also stores each key's norm), key_norm_max's
 # fold 1, key_norm_cummax's scan 1, the int8 GEMM 2 (bf16 or fp32 out) and
-# K6's pre-pass 1.
+# K6's pre-pass 1.  Phase 26's forms add 4: K1 at D = 80, K2r at D = 96,
+# and the partial pass at D = 80 and with the norms at D = 96.
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_scan_kernel", "key_norm_partial_kernel",
                 "key_norm_fold_kernel")
-# The forward template's 8 main-path instantiations (the 5 above and, at
-# Phi-3's D = 96, K2 and K3 causal and not, each with the lse or without)
-# and B1's 4 and B2's 3 (B3 is B2's hp 1), the backward template's 10, the
-# pre-passes' 6 (the partial pass also at D = 96) and the int8 GEMM's 2.
-SM90_INSTANTIATIONS = 34
+# The forward template's 10 main-path instantiations (the 5 above; at
+# Phi-3's D = 96 K2 and K3 causal and not, each with the lse or without,
+# and K2r; at the Qwen2-VL tower's D = 80 K1) and B1's 4 and B2's 3 (B3 is
+# B2's hp 1), the backward template's 10, the pre-passes' 8 (the partial
+# pass at D = 64, 80, 96 and 128 and with the norms at 128 and 96, the
+# fold and the scan), the int8 GEMM's 2 and K6's pre-pass 1.
+SM90_INSTANTIATIONS = 38
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -605,6 +646,11 @@ EVAL_QUANT = "int8-noattn-g128"
 EVAL_PLAIN_PAIRS = 2
 GENAI_VOTES = ("leftvote", "rightvote", "tievote", "bothbad_vote")
 JUDGE_DRIVER_PAIRS = 2
+# The fine-grained benchmark's rubric in phase 23: one category (its prompt
+# and its 5 subcategories' prompts, 6 questions at about 3 s each) of the
+# rubric's 33 questions, a cut of depth that keeps the whole script near
+# half its time limit; every question takes the same full-prompt path.
+FINE_GRAINED_CATEGORIES = ("Alignment",)
 TRAIN_CLI_STEPS = 2
 TRAIN_CLI_EVAL_PAIRS = 4
 
@@ -617,6 +663,20 @@ D96_K2_SHAPES = ((2, 2304, 32, 32, 96), (2, 3072, 32, 32, 96))
 D96_K3_SHAPES = {"prefill": (2, 3072, 3072, 32, 32, 96, None),
                  "decode step": (2, 1, 3072, 32, 32, 96, 3000)}
 EVAL_4B_PAIRS = 2
+# Phase 26: the Qwen2-VL judge.  Its vision tower's K1 at D = 80 over the
+# temporal slabs of 8 frames at 364 px (a (4, 26, 26) grid: 676 patches a
+# slab) and at 280 x 504 (720); K2r at D = 96 at the 4B's 32/32 heads on
+# phase 3's ragged inputs and at the judge's shapes; K3 and K2r at the
+# Qwen2-VL 2B's 12/2 decoder heads and the 7B's 28/4 (groups of 6 and 7)
+# at the Qwen judge's own shapes (its right-padded pair prefill, one
+# video's prefix and the suffix continuation; lengths from the prompts).
+QWEN_GRID = (4, 26, 26)
+QWEN_K1_SHAPES = ((4, 676, 16, 80), (4, 720, 16, 80))
+QWEN_HEADS = {"2B": (12, 2), "7B": (28, 4)}
+# The CLI's checkpoint: the 2B's widths at this depth (vision, text).
+QWEN_CLI_DEPTH = (4, 4)
+QWEN_CLI_PAIRS = 2
+QWEN_DECODE_STEPS = 16  # decode steps timed at B = 2, by difference
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -931,8 +991,9 @@ def check_vit_attention(randn, shape):
     """K1 on views into one (B, S, 3*H*D) tensor, as the ViT makes them:
     the op (the pre-pass and the kernel, one C call), the kernel alone on
     the pre-pass's kmax, and the pre-pass; the op, with the lse and
-    without, bit-equal to the kernel alone (``_hold_op``); returns each
-    one's reading."""
+    without (at D = 64; the Qwen2-VL tower's D = 80 has no lse form),
+    bit-equal to the kernel alone (``_hold_op``); returns each one's
+    reading."""
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
@@ -942,7 +1003,7 @@ def check_vit_attention(randn, shape):
     work = _attention_work(q, k, v, None, causal=False)
     library = _sdpa(q, k, v, causal=False)
     kmax = kernels.key_norm_max(k)
-    for lse in (False, True):
+    for lse in (False, True) if D == 64 else (False,):
         _hold_op(f"K1{' lse' if lse else ''} op {shape}",
                  lambda: fa._vit_attention_fwd(q, k, v, D ** -0.5, lse),
                  lambda: kernels.vit_attention(q, k, v, kmax, D ** -0.5,
@@ -1214,24 +1275,28 @@ def stream_ms(fn, calls=20, warmup=3):
     return start.elapsed_time(end) / calls
 
 
-def _judge_inputs(randn, shape):
+def _judge_inputs(randn, shape, prefix=JUDGE_PREFIX, suffix=JUDGE_SUFFIX,
+                  right_padded=None):
     """q, k, v, the (B, K) int32 mask, q_offset and the (B, Q) dead rows of
     one JUDGE_SHAPES entry.  The prefill left-pads both rows (56 and 160
-    pad keys, so their first queries see no key); the prefix masks its
-    bucket's tail; the continuation marks each row's prefix and suffix
-    slots valid."""
+    pad keys, so their first queries see no key), or with
+    ``right_padded`` (the Qwen2-VL judge's batch) masks the keys from that
+    length on; the prefix masks its bucket's tail past ``prefix`` keys; the
+    continuation marks each row's prefix and ``suffix`` slots valid."""
     import torch
 
     B, Q, K, Hq, Hkv, D, off = shape
     q, k, v = randn(B, Q, Hq, D), randn(B, K, Hkv, D), randn(B, K, Hkv, D)
     mask = torch.ones((B, K), dtype=torch.int32, device=q.device)
-    if off is None and B == 2:
+    if off is None and B == 2 and right_padded is not None:
+        mask[:, right_padded:] = 0
+    elif off is None and B == 2:
         mask[0, :56] = 0
         mask[1, :160] = 0
     elif off is None:
-        mask[:, JUDGE_PREFIX:] = 0
+        mask[:, prefix:] = 0
     else:
-        mask[:, off + JUDGE_SUFFIX:] = 0
+        mask[:, off + suffix:] = 0
         off = torch.full((B,), off, dtype=torch.int32, device=q.device)
     pos = torch.arange(Q, device=q.device)[None] + (0 if off is None
                                                      else off[:, None])
@@ -1240,20 +1305,21 @@ def _judge_inputs(randn, shape):
     return q, k, v, mask, off, seen == 0
 
 
-def check_judge_kernels(randn, name, shape):
+def check_judge_kernels(randn, name, shape, prefix=JUDGE_PREFIX, **inputs):
     """K3 and K2r (the op: its pre-pass and its kernel, one C call) against
     their twins on one set of inputs, then K2r's parts apart: the pre-pass
     against its twin, with its device time a launch by kernel, its last
     column bit-equal to ``key_norm_max`` and its first P columns to the
     pre-pass of the keys cut at P (JUDGE_PREFIX, and K // 2 + 1: other
     chunk plans), and the kernel alone on the pre-pass's column, which the
-    op must equal bit for bit."""
+    op must equal bit for bit.  ``prefix`` and ``inputs`` (``suffix``,
+    ``right_padded``) shape another judge's inputs (``_judge_inputs``)."""
     import torch
 
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, mask, off, dead = _judge_inputs(randn, shape)
+    q, k, v, mask, off, dead = _judge_inputs(randn, shape, prefix, **inputs)
     scale = shape[5] ** -0.5
     zero = (f"{int(dead.sum())} dead rows",
             lambda got: not got[0][dead].any())
@@ -1295,7 +1361,7 @@ def check_judge_kernels(randn, name, shape):
                    parts=kernels.key_norm_parts(B, K, Hkv, D))
     last = bool(torch.equal(kcum[..., -1], kernels.key_norm_max(k, mask)))
     prefixes = {}
-    for P in (JUDGE_PREFIX, K // 2 + 1):
+    for P in (min(prefix, K), K // 2 + 1):
         cut = kernels.key_norm_cummax(k[:, :P], mask[:, :P].contiguous())
         prefixes[P] = bool(torch.equal(cut, kcum[..., :P]))
     reading.update(last_column_is_key_norm_max=last, prefix_bit_equal={
@@ -2502,8 +2568,8 @@ def logits_fidelity(judge, plain_judge, prompt, videos, prefix, label):
 
 def judge_phase(device, seed=SEED, timing=True, base=None, name="judge"):
     """Phase 9 on the 2B chat config, or phase 24's judge on ``base`` (the
-    4B's: no K2r at D = 96, so no pass under the per-row bound).  Returns
-    the readings and the launch counts by path, named ``name``_...."""
+    4B's; its pass under the per-row bound is phase 26's).  Returns the
+    readings and the launch counts by path, named ``name``_...."""
     import gc
 
     import torch
@@ -4127,10 +4193,11 @@ def judge_driver_runs(records, root, dev):
     print(f"judge run_overall_benchmark: {len(pairs)} pairs in {secs:.2f} s:"
           f" {res}")
     one = records[:1]
-    questions = sum(1 + len(c["subcategories"])
-                    for c in FINE_GRAINED_RUBRIC.values())
+    rubric = {c: FINE_GRAINED_RUBRIC[c] for c in FINE_GRAINED_CATEGORIES}
+    questions = sum(1 + len(c["subcategories"]) for c in rubric.values())
     res, _, secs, _, got = _run_main(
-        lambda _: run_fine_grained_benchmark(judge, one, root=root), None)
+        lambda _: run_fine_grained_benchmark(judge, one, root=root,
+                                             rubric=rubric), None)
     # The first record's videos are in the judge's cache already.
     launches["judge_fine_grained"] = _hold("judge fine-grained", got, {
         "exact_attention": L_llm * questions})
@@ -4748,6 +4815,504 @@ def mjvideo_4b_grad_phase(dev, generator, drawer):
     return out, k, launches
 
 
+def check_d96_rows(randn, shape):
+    """Phase 26 (a): K2r at Phi-3's head dim (the op, one C call of its
+    pre-pass and the kernel; the kernel alone on the standalone kcum, two
+    launches bit-identical; the pre-pass, its last column
+    ``key_norm_max``'s) against their twins on phase 3's ragged inputs
+    (``_decoder_inputs``), the op bit-equal to the kernel alone.  Returns
+    each one's reading by label."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask, dead = _decoder_inputs(randn, *shape, True)
+    scale = shape[-1] ** -0.5
+    kcum = kernels.key_norm_cummax(k, mask)
+    dead_rows = (f"{int(dead.sum())} dead rows",
+                 lambda got: not got[0][dead].any())
+
+    def alone():
+        return kernels.decoder_attention_rows(q, k, v, mask, kcum, None,
+                                              scale)
+
+    _hold_op(f"K2r op {shape}",
+             lambda: fa.decoder_attention_rows(q, k, v, mask), alone,
+             bound="kcum")
+    work = _attention_work(q, k, v, mask)
+    library = _sdpa(q, k, v, causal=True)
+
+    def prepass_rule(got, ref):
+        rel = _rel_err(got[0], ref[0])[1]
+        last = bool(torch.equal(got[0][..., -1],
+                                kernels.key_norm_max(k, mask)))
+        return (f"{rel:.3e} of max|plain| (bound {PREPASS_REL_TOL:.0e}); "
+                f"the last column bit-equal to key_norm_max: {last}",
+                rel <= PREPASS_REL_TOL and last, {})
+
+    reading = _check_kernel(
+        f"K2r pre-pass key_norm_cummax {shape}",
+        lambda: kernels.key_norm_cummax(k, mask),
+        lambda: fa.key_norm_cummax(k, mask), names=("kcum",),
+        extra=prepass_rule,
+        work=(_nbytes(k, mask, kcum), 2 * k.numel(), FP32_OPS_PER_S))
+    dev = device_ms(lambda: kernels.key_norm_cummax(k, mask))
+    reading.update(device_ms=sum(dev.values()) or None,
+                   partial_device_ms=dev.get("partial pass"),
+                   scan_device_ms=dev.get("scan"))
+    print(f"K2r pre-pass key_norm_cummax {shape}: device time a launch "
+          f"{_ms(reading['device_ms'])} (partial pass "
+          f"{_ms(reading['partial_device_ms'])}, scan "
+          f"{_ms(reading['scan_device_ms'])})")
+    return {
+        "K2r": _check_kernel(
+            f"K2r decoder_attention_rows (op: pre-pass and kernel) {shape}",
+            lambda: fa.decoder_attention_rows(q, k, v, mask),
+            lambda: fa.decoder_attention_rows_plain(q, k, v, mask),
+            zero=dead_rows, work=work, library=library),
+        "K2r kernel": _check_kernel(
+            f"K2r decoder_attention_rows (kernel alone) {shape}", alone,
+            lambda: fa.decoder_attention_rows_plain(q, k, v, mask),
+            zero=dead_rows, extra=_again(alone), work=work,
+            library=library),
+        "K2r pre-pass": reading}
+
+
+def judge_4b_rows_phase(dev):
+    """Phase 26 (b): phase 24's 4B judge (the same state, from a fresh
+    generator at SEED) under the per-row bound (``_CACHE_BOUND = "rows"``,
+    as MJV_CACHE_NORM_BOUND=1 sets it): a short question on the pair by the
+    prefix path, exact launches (per video encoded 24 K1 after their
+    pre-passes; per prefix prefill or continuation 32 K2r after theirs, at
+    their D = 96 names too; none in decode), then the teacher-forced
+    logits against fp32 plain.  Returns the readings and the launches."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import internvl2_4b_chat_config, kernels, map_state
+    from mjvideo_tpu_torch.models import generate as gen
+
+    videos = ("video_0", "video_1")
+    base = internvl2_4b_chat_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    judge = make_judge(generator=torch.Generator(device=dev)
+                       .manual_seed(SEED), device=dev, base=base)
+    L_vit = judge.cfg.vision.num_hidden_layers
+    L_llm = judge.cfg.llm.num_hidden_layers
+    out = {}
+    gen._CACHE_BOUND = "rows"
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = judge.ask_batch(JUDGE_QUESTION, list(videos))
+        torch.cuda.synchronize()
+        out["pair_prefix_cold_s"] = time.perf_counter() - t0
+        launches = {"judge_4b_prefix_rows": _held_launches(
+            "judge_4b prefix rows", _with_prepass({
+                "vit_attention": 2 * L_vit,
+                "decoder_attention_rows": 3 * L_llm,
+                "key_norm_cummax": 3 * L_llm,
+                "decoder_attention_rows_d96": 3 * L_llm,
+                "key_norm_cummax_d96": 3 * L_llm}))}
+        print(f"judge_4b prefix (rows): answers {[a[:60] for a in answers]!r}"
+              f"; the pair in {out['pair_prefix_cold_s']:.3f} s (videos "
+              "encoded and prefixes prefilled)")
+        out["pair_prefix_s"] = _host_ms(
+            lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+        plain = make_judge(state=map_state(lambda t: t.float(), judge.params),
+                           base=base)
+        _, out["prefix_rows_rel"], _, _ = logits_fidelity(
+            judge, plain, JUDGE_QUESTION, videos, True, "4B prefix (rows)")
+        del plain
+    finally:
+        gen._CACHE_BOUND = False
+    if not out["prefix_rows_rel"] <= LOGITS_REL_TOL:
+        raise RuntimeError(f"judge_4b rows: {out['prefix_rows_rel']} > "
+                           f"{LOGITS_REL_TOL}")
+    print(f"judge_4b prefix (rows): a pair with cached prefixes "
+          f"{out['pair_prefix_s']:.3f} s ({2 / out['pair_prefix_s']:.2f} "
+          "answers/s)")
+    del judge
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _seeded_patches(video_path, cfg_vision):
+    """A video's (t h w, patch_dim) fp32 patches of QWEN_GRID, seeded from
+    its name."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED, sum(map(ord, video_path))])
+    n = QWEN_GRID[0] * QWEN_GRID[1] * QWEN_GRID[2]
+    return rng.normal(size=(n, cfg_vision.patch_dim)).astype(np.float32)
+
+
+def _seeded_encode_video(judge, video_path):
+    """``Qwen2VLJudge._encode_video`` on seeded patches of QWEN_GRID in
+    place of a decoded video (the card's machine may lack cv2 and PIL):
+    the vision tower in the weights' dtype."""
+    import torch
+
+    from mjvideo_tpu_torch.models.qwen2vl import vision_dtype, vision_forward
+
+    patches = torch.from_numpy(_seeded_patches(
+        video_path, judge.cfg.vision)).to(judge.device,
+                                          vision_dtype(judge.params))
+    with torch.no_grad():
+        vis = vision_forward(judge.params["visual"], judge.cfg.vision,
+                             patches, QWEN_GRID, impl=judge.attn_impl)
+    return vis, QWEN_GRID
+
+
+def make_qwen_judge(cfg, state, tok, **kw):
+    """A ``Qwen2VLJudge`` whose videos are seeded patches
+    (``_seeded_encode_video``).  fp32 weights take the plain path."""
+    import torch
+
+    from mjvideo_tpu_torch.eval.judges import Qwen2VLJudge
+    from mjvideo_tpu_torch.utils.bridge import first_tensor
+
+    class SeededQwenJudge(Qwen2VLJudge):
+        _encode_video = _seeded_encode_video
+
+    impl = "plain" if first_tensor(state).dtype == torch.float32 else "auto"
+    kw = {"num_segments": 2 * QWEN_GRID[0],
+          "max_new_tokens": JUDGE_NEW_TOKENS, "attn_impl": impl, **kw}
+    return SeededQwenJudge(cfg, state, tok, **kw)
+
+
+def qwen_prompt_lengths(cfg, tok):
+    """(the overall prompt's tokens, the prefix's, the short question's
+    suffix's) of the Qwen2-VL judge at QWEN_GRID."""
+    from mjvideo_tpu_torch import overall_prompt
+    from mjvideo_tpu_torch.models.qwen2vl import (
+        build_video_prompt_ids,
+        build_video_prompt_prefix_suffix,
+    )
+
+    full = build_video_prompt_ids(tok, cfg, QWEN_GRID,
+                                  overall_prompt(JUDGE_CAPTION)).shape[1]
+    prefix, suffix = build_video_prompt_prefix_suffix(tok, cfg, QWEN_GRID,
+                                                      JUDGE_QUESTION)
+    return full, len(prefix), len(suffix)
+
+
+def qwen_decoder_shapes(cfg, tok, heads):
+    """The Qwen judge's decoder attention shapes at (Hq, Hkv) ``heads``,
+    with the prefix and suffix lengths and the pair's real prompt length:
+    its pair prefill (right-padded to the 64 bucket), one video's prefix
+    and the continuation of the 128-slot suffix bucket over the prefix's
+    cache, as ``Qwen2VLJudge`` sizes them."""
+    from mjvideo_tpu_torch.models.generate import round_up_bucket
+
+    full, P, S = qwen_prompt_lengths(cfg, tok)
+    Tb, Pb = round_up_bucket(full), round_up_bucket(P)
+    Hq, Hkv = heads
+    return {"prefill": (2, Tb, Tb, Hq, Hkv, 128, None),
+            "prefix": (1, Pb, Pb, Hq, Hkv, 128, None),
+            "continuation": (2, 128, Pb + 128 + JUDGE_NEW_TOKENS, Hq, Hkv,
+                             128, P)}, P, S, full
+
+
+def _qwen_teacher(judge, prompt, videos, prefix, teacher=None):
+    """The Qwen judge's generation for ``prompt`` by one path: its (B,
+    JUDGE_NEW_TOKENS) greedy tokens, eos-filled past each row's end, or
+    with ``teacher`` the per-step logits."""
+    import torch
+
+    from mjvideo_tpu_torch.models.qwen2vl import stack_prefixes
+
+    if prefix:
+        suffix = judge._prefix_suffix(prompt, list(videos))
+        state = stack_prefixes([judge._pstate(v) for v in videos])
+        out = judge._continue(state, suffix, teacher_tokens=teacher)
+        return out if teacher is not None else out[0]
+    out = judge._generate_full(prompt, list(videos), teacher_tokens=teacher)
+    if teacher is not None:
+        return out
+    eos = judge.cfg.im_end_token_id
+    return torch.tensor([row + [eos] * (JUDGE_NEW_TOKENS - len(row))
+                         for row in out], device=judge.device)
+
+
+def qwen_logits_fidelity(judge, plain, prompt, videos, prefix, label):
+    """Teacher-forced per-step logits of one path, the kernel judge's
+    against the fp32 plain judge's on the kernel path's greedy tokens:
+    (max|delta| / max|plain|, tokens)."""
+    toks = _qwen_teacher(judge, prompt, videos, prefix)
+    got = _qwen_teacher(judge, prompt, videos, prefix, toks)
+    ref = _qwen_teacher(plain, prompt, videos, prefix, toks)
+    if not bool(got.isfinite().all()):
+        raise RuntimeError(f"qwen2vl judge {label}: non-finite logits")
+    err, rel = _rel_err(got, ref)
+    print(f"qwen2vl judge {label}: greedy tokens of row 0 begin "
+          f"{toks[0, :8].tolist()}; teacher-forced logits over "
+          f"{toks.shape[1]} steps, max|delta| {err:.4e}, relative to "
+          f"max|plain logit| {rel:.4e} (bound {LOGITS_REL_TOL:.1e})")
+    return rel, toks
+
+
+def qwen_judge_phase(dev, cfg, state, tok):
+    """Phase 26 (c): ``Qwen2VLJudge`` on ``state`` (Qwen2-VL-2B at full
+    width, bf16): ``judge_pair`` with the overall prompt (the full prompt:
+    its suffix exceeds the 128-token bucket) and a short question by the
+    prefix path, exact launches (per video encoded 32 K1 after their
+    pre-passes, at their D = 80 names too; 28 K3 per prefill or
+    continuation; none in decode), teacher-forced logits of both paths
+    against the same weights in fp32 through ``impl="plain"``, and the
+    times: the vision tower a video, the pair's prefill, a decode step at
+    B = 2 (by difference over QWEN_DECODE_STEPS steps), a pair by each path
+    and the peak memory.  Returns the readings and the launches."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import judge_pair, kernels, map_state
+    from mjvideo_tpu_torch import overall_prompt
+    from mjvideo_tpu_torch.models.qwen2vl import (
+        greedy_generate_batch,
+        vision_forward,
+    )
+
+    videos = ("video_0", "video_1")
+    L_vit, L_llm = cfg.vision.depth, cfg.text.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    judge = make_qwen_judge(cfg, state, tok)
+    out, launches = {}, {}
+    kernels.reset_launch_counts()
+    s0, s1, r0, r1 = judge_pair(judge, *videos, JUDGE_CAPTION)
+    torch.cuda.synchronize()
+    launches["qwen2vl_judge_full"] = _held_launches(
+        "qwen2vl judge full prompt", _with_prepass({
+            "vit_attention": 2 * L_vit, "vit_attention_d80": 2 * L_vit,
+            "key_norm_max_d80": 2 * L_vit, "exact_attention": L_llm}))
+    print(f"qwen2vl judge full prompt: ratings {s0}, {s1}; answers "
+          f"{r0!r:.60}, {r1!r:.60}")
+    kernels.reset_launch_counts()
+    answers = judge.ask_batch(JUDGE_QUESTION, list(videos))
+    torch.cuda.synchronize()
+    launches["qwen2vl_judge_prefix"] = _held_launches(
+        "qwen2vl judge prefix", {"exact_attention": 3 * L_llm})
+    print(f"qwen2vl judge prefix: answers {[a[:60] for a in answers]!r}")
+    if not all(isinstance(a, str) for a in (r0, r1, *answers)):
+        raise RuntimeError("a qwen2vl answer did not decode to text")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    plain = make_qwen_judge(cfg, map_state(lambda t: t.float(), state), tok)
+    prompt = overall_prompt(JUDGE_CAPTION)
+    out["full_rel"], otoks = qwen_logits_fidelity(judge, plain, prompt,
+                                                  videos, False, "full prompt")
+    out["prefix_rel"], ptoks = qwen_logits_fidelity(
+        judge, plain, JUDGE_QUESTION, videos, True, "prefix")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("full_rel", "prefix_rel"):
+        if not out[key] <= LOGITS_REL_TOL:
+            raise RuntimeError(f"qwen2vl judge {key} {out[key]} > "
+                               f"{LOGITS_REL_TOL}")
+
+    # Times (warm: the videos encoded, the prefixes prefilled).
+    patches = torch.from_numpy(_seeded_patches(videos[0], cfg.vision)).to(
+        dev, torch.bfloat16)
+    with torch.no_grad():
+        out["vision_ms"] = _host_ms(lambda: vision_forward(
+            state["visual"], cfg.vision, patches, QWEN_GRID))
+    items, vis = judge._full_items(prompt, list(videos))
+
+    def generate(n):
+        return greedy_generate_batch(state, cfg, items, max_new_tokens=n,
+                                     eos_token_id=-1, vision_embeds=vis)
+
+    out["prefill_ms"] = _host_ms(lambda: generate(1))
+    steps_ms = _host_ms(lambda: generate(1 + QWEN_DECODE_STEPS))
+    out["decode_step_ms"] = (steps_ms - out["prefill_ms"]) / QWEN_DECODE_STEPS
+    out["pair_full_s"] = _host_ms(
+        lambda: judge_pair(judge, *videos, JUDGE_CAPTION)) / 1e3
+    out["pair_prefix_s"] = _host_ms(
+        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+    out["prompt_tokens"] = items[0][0].shape[1]
+    print(f"qwen2vl judge time: vision tower {out['vision_ms']:.1f} ms a "
+          f"video {QWEN_GRID}; the pair's full-prompt prefill "
+          f"({out['prompt_tokens']} tokens a row) {out['prefill_ms']:.1f} ms"
+          f"; decode step at B = 2 {out['decode_step_ms']:.2f} ms (by "
+          f"difference over {QWEN_DECODE_STEPS}); a pair: full prompt "
+          f"{out['pair_full_s']:.3f} s ({2 / out['pair_full_s']:.2f} "
+          f"answers/s), prefix path {out['pair_prefix_s']:.3f} s "
+          f"({2 / out['pair_prefix_s']:.2f} answers/s), at most "
+          f"{JUDGE_NEW_TOKENS} new tokens; peak memory {out['peak_gib']:.2f}"
+          " GiB")
+    del judge
+    return out, launches
+
+
+def qwen_cli_phase(dev, cfg, generator):
+    """Phase 26 (d): the 2B's widths at QWEN_CLI_DEPTH, a bf16 state from
+    ``generator``, written by the port's writer as an HF Qwen2-VL directory
+    (``config.json`` and safetensors); ``eval/cli.main --judge qwen2-vl
+    --byte-tokenizer`` overall on QWEN_CLI_PAIRS pairs, the judge's videos
+    seeded patches as in (c); every results row (ratings and answers) equal
+    to (c)'s judge on the state read back, exact launches.  Returns the
+    readings and the launches."""
+    import dataclasses
+    import inspect
+    import shutil
+
+    import torch
+
+    from mjvideo_tpu_torch import judge_pair, kernels
+    from mjvideo_tpu_torch.data.prompts import ByteTokenizer
+    from mjvideo_tpu_torch.eval import cli
+    from mjvideo_tpu_torch.eval import judges as tj
+    from mjvideo_tpu_torch.models.qwen2vl import (
+        export_qwen2vl_state,
+        import_qwen2vl_params,
+        init_qwen2vl_params,
+        qwen2vl_config_to_hf,
+    )
+    from mjvideo_tpu_torch.utils.checkpoint import load_safetensors_dir
+    from mjvideo_tpu_torch.utils.export import save_safetensors
+
+    small = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, depth=QWEN_CLI_DEPTH[0]),
+        text=dataclasses.replace(cfg.text,
+                                 num_hidden_layers=QWEN_CLI_DEPTH[1]))
+    state = init_qwen2vl_params(small, generator=generator, device=dev,
+                                dtype=torch.bfloat16)
+    d = tempfile.mkdtemp()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(qwen2vl_config_to_hf(small), f)
+        save_safetensors({k: v.cpu() for k, v in
+                          export_qwen2vl_state(state, small).items()},
+                         os.path.join(d, "model.safetensors"))
+        out["write_s"] = time.perf_counter() - t0
+        records = [{"caption": f"{JUDGE_CAPTION} ({i})",
+                    "video_0_path": f"clip_{i}_0.mp4",
+                    "video_1_path": f"clip_{i}_1.mp4",
+                    "overall_preference": EVAL_PREFERENCES[i % 4]}
+                   for i in range(QWEN_CLI_PAIRS)]
+        data = os.path.join(d, "pairs.json")
+        with open(data, "w") as f:
+            json.dump(records, f)
+        results = os.path.join(d, "results.jsonl")
+        saved = tj.Qwen2VLJudge._encode_video
+        tj.Qwen2VLJudge._encode_video = _seeded_encode_video
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = cli.main(["--benchmark", "overall", "--judge", "qwen2-vl",
+                            "--judge-model", d, "--byte-tokenizer",
+                            "--data-json", data, "--video-root", d,
+                            "--results", results])
+            torch.cuda.synchronize()
+            out["cli_s"] = time.perf_counter() - t0
+        finally:
+            tj.Qwen2VLJudge._encode_video = saved
+        L_vit, L_llm = QWEN_CLI_DEPTH
+        n = QWEN_CLI_PAIRS
+        launches = {"qwen2vl_cli": _held_launches(
+            "qwen2vl CLI", _with_prepass({
+                "vit_attention": 2 * n * L_vit,
+                "vit_attention_d80": 2 * n * L_vit,
+                "key_norm_max_d80": 2 * n * L_vit,
+                "exact_attention": n * L_llm}))}
+        rows = [json.loads(line) for line in open(results)]
+        loaded = import_qwen2vl_params(load_safetensors_dir(d), small,
+                                       dtype=torch.bfloat16, device=dev)
+        fa, fb = _flat_state(loaded), _flat_state(state)
+        same_state = fa.keys() == fb.keys() and all(
+            torch.equal(fa[name], fb[name]) for name in fa)
+        # The CLI's judge takes the class's defaults.
+        defaults = {name: par.default for name, par in inspect.signature(
+            tj.Qwen2VLJudge).parameters.items() if name in (
+                "num_segments", "max_new_tokens", "max_pixels")}
+        judge = make_qwen_judge(small, loaded, ByteTokenizer(), **defaults)
+        want = [judge_pair(judge, os.path.join(d, r["video_0_path"]),
+                           os.path.join(d, r["video_1_path"]), r["caption"])
+                for r in records]
+        got = [(r["score_0"], r["score_1"], r["response_0"], r["response_1"])
+               for r in rows]
+        out.update(metrics=res, rows_equal=got == list(map(tuple, want)),
+                   state_bit_equal=same_state)
+        print(f"qwen2vl CLI on a {small.vision.depth}+"
+              f"{small.text.num_hidden_layers}-layer directory (written in "
+              f"{out['write_s']:.1f} s): {len(rows)} rows in "
+              f"{out['cli_s']:.1f} s; the state read back bit-equal: "
+              f"{same_state}; every row equal to the judge's: "
+              f"{out['rows_equal']}")
+        if not (out["rows_equal"] and same_state and len(rows) == n):
+            raise RuntimeError(f"qwen2vl CLI: rows {got} against {want}, "
+                               f"state bit-equal {same_state}")
+    finally:
+        shutil.rmtree(d)
+    return out, launches
+
+
+def qwen2vl_phase(dev, generator, drawer):
+    """Phase 26: the per-kernel checks of the new forms, the 4B judge under
+    the per-row bound, the Qwen2-VL judge at full width and its CLI (see
+    the module docstring).  Returns the readings, the kernel readings and
+    the launch counts by path."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch.data.prompts import ByteTokenizer
+    from mjvideo_tpu_torch.models.qwen2vl import (
+        Qwen2VLConfig,
+        init_qwen2vl_params,
+    )
+
+    t0 = time.perf_counter()
+    randn = drawer(generator())
+    cfg = Qwen2VLConfig()
+    tok = ByteTokenizer()
+    k = {"K1": {s: check_vit_attention(randn, s) for s in QWEN_K1_SHAPES}}
+    k["K2r ragged"] = {s: check_d96_rows(randn, s) for s in D96_K2_SHAPES}
+    k["K2r judge"] = {
+        name: check_judge_kernels(randn, name, shape[:3] + (32, 32, 96)
+                                  + shape[6:])
+        for name, shape in JUDGE_SHAPES.items() if name != "prefill"}
+    k["qwen"] = {}
+    for size, heads in QWEN_HEADS.items():
+        shapes, P, S, full = qwen_decoder_shapes(cfg, tok, heads)
+        for name, shape in shapes.items():
+            k["qwen"][size, name] = check_judge_kernels(
+                randn, name, shape, prefix=P, suffix=S, right_padded=full)
+    out = {"kernels_s": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["judge_4b_rows"], launches = judge_4b_rows_phase(dev)
+    out["judge_4b_rows"]["command_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    state = init_qwen2vl_params(cfg, generator=generator(), device=dev,
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out["state_s"] = time.perf_counter() - t1
+    print(f"Qwen2-VL-2B state (bf16) made on the card in "
+          f"{out['state_s']:.1f} s")
+    out["judge"], more = qwen_judge_phase(dev, cfg, state, tok)
+    launches.update(more)
+    out["judge"]["command_s"] = time.perf_counter() - t1
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"], more = qwen_cli_phase(dev, cfg, generator())
+    launches.update(more)
+    out["command_s"] = time.perf_counter() - t0
+    print(f"phase 26 command time {out['command_s']:.1f} s")
+    return out, k, launches
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
     ``tools/phase25_torch.py``): the card and its power limit printed, TF32
@@ -4989,6 +5554,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     out_25, grad96, launches_25 = mjvideo_4b_grad_phase(dev, generator,
                                                         drawer)
+    # Phase 26: the new kernel forms, the 4B judge under the per-row bound,
+    # the Qwen2-VL judge and its CLI, on fresh states.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_26, k26, launches_26 = qwen2vl_phase(dev, generator, drawer)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -4999,7 +5569,8 @@ def main() -> int:
                "reward_gradient": grad_launches, "vader": vader_launches,
                **sp_score_launches, **sp_train_launches, **long_launches,
                **ckpt_launches, **frames_launches, **sweep_launches,
-               **harness_launches, **launches_4b, **launches_25}
+               **harness_launches, **launches_4b, **launches_25,
+               **launches_26}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -5034,6 +5605,8 @@ def main() -> int:
     dec_96 = grad96["dec"][trained_96]
     ring_96 = grad96["ring"]
     k4_96 = grad96["k4_turns"]
+    k1_80 = k26["K1"][QWEN_K1_SHAPES[0]]
+    rows_96 = k26["K2r ragged"][D96_K2_SHAPES[-1]]
     summary = {"kernels": [
         {"name": "vit_attention", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
@@ -5287,6 +5860,49 @@ def main() -> int:
                            "pair_over_sdpa_backward":
                            r["pair_over_sdpa_backward"]}
                       for sh, r in k4_96.items()}},
+        # Phase 26's forms: K1 at the Qwen2-VL vision tower's D = 80
+        # (Config D80, D128's layout) and its pre-pass at 16 lanes a key;
+        # K2r at D = 96 (Config D96) and its pre-pass with the norms.
+        {"name": "vit_attention_d80", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/vit_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:99",
+         **counts("vit_attention_d80"), "shape": QWEN_K1_SHAPES[0],
+         **k1_80["K1"], "kernel_alone": brief(k1_80["K1 kernel"]),
+         "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K1", "K1 kernel")}
+                       for sh, r in k26["K1"].items()}},
+        {"name": "key_norm_max_d80", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:131",
+         "design": "key_norm_partial_kernel<80>: 16 lanes a key vector, 6 "
+                   "of them adding nothing; the op's partials folded by K1 "
+                   "after griddepcontrol.wait",
+         **counts("key_norm_max_d80"), "shape": QWEN_K1_SHAPES[0],
+         **k1_80["K1 pre-pass"],
+         "at_shapes": {str(sh): brief(r["K1 pre-pass"]) | {
+             "device_ms": r["K1 pre-pass"]["device_ms"]}
+             for sh, r in k26["K1"].items()}},
+        {"name": "decoder_attention_rows_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
+         **counts("decoder_attention_rows_d96"), "shape": D96_K2_SHAPES[-1],
+         **rows_96["K2r"], "kernel_alone": brief(rows_96["K2r kernel"]),
+         "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K2r",
+                                                          "K2r kernel")}
+                       for sh, r in k26["K2r ragged"].items()},
+         "at_judge_shapes": {n: brief(r["K2r"])
+                             for n, r in k26["K2r judge"].items()}},
+        {"name": "key_norm_cummax_d96", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:489",
+         "design": "key_norm_partial_kernel<96, true>: 16 lanes a key "
+                   "vector, each key's norm stored; the scan as its "
+                   "programmatic dependent, K2r behind the scan",
+         **counts("key_norm_cummax_d96"), "shape": D96_K2_SHAPES[-1],
+         **rows_96["K2r pre-pass"],
+         "at_judge_shapes": {n: brief(r["K2r pre-pass"])
+                             for n, r in k26["K2r judge"].items()}},
         {"name": "q8g_matmul_fused", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
@@ -5376,7 +5992,10 @@ def main() -> int:
             str(k): v for k, v in frames_out.items()},
             "device_batch_sweep": {str(k): v for k, v in sweep_out.items()}},
         "eval_harness": harness_out, "mjvideo_4b": out_4b,
-        "mjvideo_4b_gradients": out_25,
+        "mjvideo_4b_gradients": out_25, "qwen2vl": out_26,
+        "qwen2vl_decoder_kernels": {f"{size} {name}": {
+            n: brief(r[n]) for n in ("K3", "K2r", "K2r kernel")}
+            for (size, name), r in k26["qwen"].items()},
         "sp_kernels": {f"{name} {off}": {key: r[key] for key in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
             for (name, off), r in ring_k.items()}}

@@ -4,8 +4,9 @@ The MJ-VIDEO-2B scoring path (``RewardScorer.score_batch`` ->
 ``reward_forward`` -> ViT -> pixel-shuffle -> projector -> ``<IMG_CONTEXT>``
 scatter -> InternLM2 decoder -> reward head) and MJ-VIDEO-4B's (the
 Phi-3-mini decoder: the same layer, its own checkpoint layout), the 2B's
-training step (``train/``), and cached generation with the InternVL2 judge
-(``models/generate.py``, ``eval/judges.py``) in PyTorch, with hand-written
+training step (``train/``), and cached generation with the InternVL2 and
+Qwen2-VL judges (``models/generate.py``, ``models/qwen2vl.py``,
+``eval/judges.py``) in PyTorch, with hand-written
 CUDA kernels for the attention forwards and backward and the quantized
 products (``kernels.py``, ``csrc/``); quantized serving
 (``RewardScorer(quant=...)``, ``InternVLJudge(quant=...)``) through
@@ -54,6 +55,7 @@ from .data.dataset import (  # noqa: F401
 from .data.labels import deal_preference, pair_record_labels  # noqa: F401
 from .eval.judges import (  # noqa: F401
     InternVLJudge,
+    Qwen2VLJudge,
     fine_grained_accuracy,
     fine_grained_prompt,
     judge_pair,
@@ -93,6 +95,16 @@ from .models.generate import (  # noqa: F401
     stream_generate,
 )
 from .models.internvl import extract_feature, init_chat_params  # noqa: F401
+from .models.qwen2vl import (  # noqa: F401
+    Qwen2VLConfig,
+    Qwen2VLVisionConfig,
+    greedy_generate_batch,
+    import_qwen2vl_params,
+    init_qwen2vl_params,
+    qwen2vl_7b_config,
+    qwen2vl_config_from_hf,
+    qwen2vl_forward,
+)
 from .models.reward import (  # noqa: F401
     RewardOutput,
     init_reward_params,

@@ -7,8 +7,9 @@
 // decoder_attention_sm90.cuh (Config D128, ShiftMode::kKeyMax): K2r's
 // constant-shift body with one bound per (b, kv head).  K2 and K2 lse also
 // take Phi-3's head dim (Config D96, MJ-VIDEO-4B's decoder), its pre-pass
-// too; K2r and its pre-pass's per-key norms stay at 128.  What bounds it
-// and the design: see that header.
+// too, and so do K2r and its pre-pass's per-key norms (the 4B judge's
+// MJV_CACHE_NORM_BOUND=1 path).  What bounds it and the design: see that
+// header.
 //
 // A null lse: serving, the judge's scorer-side decoder.  A non-null lse
 // (K2 lse, the training forward and the reward gradient: _fwd_bound_kernel
@@ -17,7 +18,8 @@
 //
 // kmax comes from the pre-pass below, on the card; the TPU path reduced it
 // with one XLA reduce outside the kernel (flash_attention.py:484-511).  The
-// same pre-pass serves K1 and K1 lse (vit_attention.cu) at D = 64.  The
+// same pre-pass serves K1 and K1 lse (vit_attention.cu) at D = 64 and K1
+// at D = 80.  The
 // op's entries (mjv_decoder_attention_op here, mjv_vit_attention_op in
 // vit_attention.cu) make one C call of the pre-pass's partial pass and the
 // attention kernel, launched behind it as a programmatic dependent that
@@ -68,16 +70,17 @@ using sm90::bf16;
 // key writes 0, the twin's bound of a fully masked row.  What bounds it: the
 // k read, 12.6 MB at the decoder's (2, 3072) and 16.8 MB at the ViT's (8,
 // 1025), 3.8 and 5.0 us over the card at 3.35 TB/s.  NORMS (K2r's pre-pass,
-// D = 128): each key's norm is also stored into norms (B, Hkv, K), 0 for a
-// masked key, so that kcum's last column is kmax to the bit.  At D = 96
-// (Phi-3) a vector takes 16 lanes, of which the last 4 add nothing: the
-// butterfly runs over a power of two of lanes, whole vectors a warp, and
-// the exact double sum does not see them.
+// D = 128 or 96): each key's norm is also stored into norms (B, Hkv, K), 0
+// for a masked key, so that kcum's last column is kmax to the bit.  At
+// D = 96 (Phi-3) a vector takes 16 lanes, of which the last 4 add nothing,
+// and at D = 80 (the Qwen2-VL vision tower) 16 lanes of which the last 6
+// add nothing: the butterfly runs over a power of two of lanes, whole
+// vectors a warp, and the exact double sum does not see them.
 constexpr int kPartThreads = 256;
 constexpr int kPartLoads = 4;  // 16-byte loads in flight per thread
 
 // The lanes of one key vector: its 16-byte pieces, rounded up to a power
-// of two (D = 96's 12 pieces take 16 lanes).
+// of two (D = 80's 10 pieces and D = 96's 12 take 16 lanes).
 __host__ __device__ constexpr int key_norm_lanes(int D) {
   return D / 8 <= 8 ? 8 : 16;
 }
@@ -89,7 +92,8 @@ key_norm_partial_kernel(const bf16* __restrict__ k,
                         float* __restrict__ part, float* __restrict__ norms,
                         int K, int Hkv, int chunk, long long ksb,
                         long long kss) {
-  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "head dim 64, 80, 96 or 128");
   constexpr int kPieces = D / 8;  // 16-byte pieces of one key vector
   constexpr int kLanes = key_norm_lanes(D);  // lanes a vector
   constexpr int kSlotStep = kPartThreads / kLanes;  // vectors per load step
@@ -101,9 +105,9 @@ key_norm_partial_kernel(const bf16* __restrict__ k,
   const int per = kVecs / Hkv;  // whole keys a pass
   const int used = per * Hkv;   // slots a pass
   const int piece = threadIdx.x % kLanes;
-  // D = 96: the lanes past the vector's 12 pieces load its last piece again
-  // (in bounds, the same line) and add nothing to its sum; an address
-  // predicated on the piece instead spilled.
+  // D = 80 and 96: the lanes past the vector's 10 or 12 pieces load its
+  // last piece again (in bounds, the same line) and add nothing to its sum;
+  // an address predicated on the piece instead spilled.
   constexpr bool kSpare = kPieces < kLanes;
   const bf16* kb = k + b * ksb + (long long)j0 * kss +
                    (kSpare ? min(piece, kPieces - 1) : piece) * 8;
@@ -193,13 +197,18 @@ key_norm_fold_kernel(const float* __restrict__ part, float* __restrict__ out,
   if (lane == 0) out[w] = m;
 }
 
+// The head dims of the decoders' kernels K2, K2 lse and K2r and of K2r's
+// per-key norms: InternLM2-1.8B's 128 and Phi-3's 96.
+static bool k2_head_dim(int D) { return D == 128 || D == 96; }
+
 // The partial pass on `stream`: part (B, nparts, Hkv) fp32, 1 <= nparts <=
-// K, D = 64, 96 or 128; with norms (B, Hkv, K) fp32 not null (D = 128
-// only), K2r's form.
+// K, D = 64, 80, 96 or 128; with norms (B, Hkv, K) fp32 not null (D = 128
+// or 96, the decoders' head dims), K2r's form.
 int launch_partials(const void* k, const void* mask, void* part, void* norms,
                     int B, int K, int Hkv, int D, long long ksb,
                     long long kss, int nparts, cudaStream_t s) {
-  if ((D != 64 && D != 96 && D != 128) || (norms != nullptr && D != 128)) {
+  if ((D != 64 && D != 80 && D != 96 && D != 128) ||
+      (norms != nullptr && !k2_head_dim(D))) {
     return int(cudaErrorInvalidValue);
   }
   // One pass must hold a whole key: Hkv vectors of key_norm_lanes(D) lanes.
@@ -210,10 +219,13 @@ int launch_partials(const void* k, const void* mask, void* part, void* norms,
   }
   const int chunk = (K + nparts - 1) / nparts;
   const dim3 grid(nparts, B);
-  auto kernel = norms != nullptr ? key_norm_partial_kernel<128, true>
-                : D == 64        ? key_norm_partial_kernel<64>
-                : D == 96        ? key_norm_partial_kernel<96>
-                                 : key_norm_partial_kernel<128>;
+  auto kernel = norms != nullptr
+                    ? (D == 96 ? key_norm_partial_kernel<96, true>
+                               : key_norm_partial_kernel<128, true>)
+                : D == 64 ? key_norm_partial_kernel<64>
+                : D == 80 ? key_norm_partial_kernel<80>
+                : D == 96 ? key_norm_partial_kernel<96>
+                          : key_norm_partial_kernel<128>;
   kernel<<<grid, kPartThreads, 0, s>>>(
       static_cast<const bf16*>(k), static_cast<const int*>(mask),
       static_cast<float*>(part), static_cast<float*>(norms), K, Hkv, chunk,
@@ -247,9 +259,6 @@ extern "C" int mjv_key_norm_max(const void* k, const void* mask, void* part,
       BH);
   return int(cudaGetLastError());
 }
-
-// The head dims K2 and K2 lse take: InternLM2-1.8B's 128 and Phi-3's 96.
-static bool k2_head_dim(int D) { return D == 128 || D == 96; }
 
 // K2 alone on a folded kmax (B, Hkv): the kernel-alone form of the op.
 extern "C" int mjv_decoder_attention(
@@ -352,7 +361,7 @@ int launch_key_norm_cummax(const void* k, const void* mask, void* part,
                            void* kcum, int B, int K, int Hkv, int D,
                            long long ksb, long long kss, int nparts,
                            cudaStream_t s) {
-  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
+  if (!k2_head_dim(D)) return int(cudaErrorInvalidValue);
   const int err =
       launch_partials(k, mask, part, kcum, B, K, Hkv, D, ksb, kss, nparts, s);
   if (err != 0) return err;
@@ -382,7 +391,12 @@ extern "C" int mjv_decoder_attention_rows(
     const void* kcum, const void* q_offset, void* out, int B, int Q, int K,
     int Hq, int Hkv, int D, long long qsb, long long qss, long long ksb,
     long long kss, long long vsb, long long vss, float scale, void* stream) {
-  if (D != 128) return int(cudaErrorInvalidValue);  // InternLM2-1.8B heads
+  if (!k2_head_dim(D)) return int(cudaErrorInvalidValue);
+  if (D == 96) {
+    return sm90::launch_attention<sm90::D96, true, sm90::ShiftMode::kRows>(
+        q, k, v, mask, kcum, 1, q_offset, out, nullptr, B, Q, K, Hq, Hkv, qsb,
+        qss, ksb, kss, vsb, vss, scale, stream);
+  }
   return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kRows>(
       q, k, v, mask, kcum, 1, q_offset, out, nullptr, B, Q, K, Hq, Hkv, qsb,
       qss, ksb, kss, vsb, vss, scale, stream);
@@ -401,6 +415,11 @@ extern "C" int mjv_decoder_attention_rows_op(
   const int err = launch_key_norm_cummax(k, mask, part, kcum, B, K, Hkv, D,
                                          ksb, kss, nparts, s);
   if (err != 0) return err;
+  if (D == 96) {
+    return sm90::launch_attention<sm90::D96, true, sm90::ShiftMode::kRows>(
+        q, k, v, mask, kcum, 1, q_offset, out, nullptr, B, Q, K, Hq, Hkv, qsb,
+        qss, ksb, kss, vsb, vss, scale, stream, true);
+  }
   return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kRows>(
       q, k, v, mask, kcum, 1, q_offset, out, nullptr, B, Q, K, Hq, Hkv, qsb,
       qss, ksb, kss, vsb, vss, scale, stream, true);

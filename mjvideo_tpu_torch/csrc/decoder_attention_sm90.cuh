@@ -21,10 +21,12 @@
 //       :318, host side :484-511): causal, the same constant shift with one
 //       bound per (b, kv head), m_i = |scale| |q_i| kmax[b, h // G], kmax
 //       the largest masked key norm (the pre-pass key_norm_max);
-//   K1  (kKeyMax, D = 64, FLOOR) replaces _fwd_nc_kernel with norm_bound
-//       (flash_attention.py:99, :131-153): non-causal and maskless over one
-//       tile's S tokens, the same bound with kmax over all S keys, and the
-//       denominator floored at 1e-30 as jnp.maximum(l, 1e-30) does;
+//   K1  (kKeyMax, D = 64 or 80, FLOOR) replaces _fwd_nc_kernel with
+//       norm_bound (flash_attention.py:99, :131-153): non-causal and
+//       maskless over one tile's S tokens (InternViT's 64-wide heads) or one
+//       temporal slab's h w patches (the Qwen2-VL vision tower's 80-wide
+//       heads, qwen2vl.py:369), the same bound with kmax over all S keys,
+//       and the denominator floored at 1e-30 as jnp.maximum(l, 1e-30) does;
 //   K2 lse and K1 lse (kKeyMax with a non-null lse) replace
 //       _fwd_bound_kernel(with_lse=True) (:407-412) and
 //       _fwd_nc_kernel(with_lse=True) (:153-156), the differentiable
@@ -46,7 +48,8 @@
 //       bf16s (kExact, kBf16s: t = bf16(s scale), m the running max of t,
 //       p = bf16(e^bf16(t - m)), the rescale in fp32).  B1 and B2 are the
 //       A/B harnesses' tools for K1's design, not a main path.
-// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128, 96 or 64,
+// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128, 96, 80
+// or 64,
 // with dense heads and 16-byte row strides (the ViT's q/k/v are strided
 // views into one (B, S, 3 H D) qkv tensor); GQA (q head h reads kv head
 // h // G); a (B, K) int32 key mask or none; a (B,) int32 q_offset or none
@@ -127,8 +130,8 @@
 //   (tools/d64_config_ab_torch.py): at D = 64 the accumulator is half as
 //   large, so a third warpgroup fits in the registers (160 a consumer
 //   thread) and keeps more softmax work in flight per SM, which measured
-//   faster than two (PERF.md).  D96 (K2, K3 and their lse forms at Phi-3's
-//   head dim) is laid out as D128: two 64-column boxes a row, whose
+//   faster than two (PERF.md).  D96 (K2, K2r, K3 and their lse forms at
+//   Phi-3's head dim) is laid out as D128: two 64-column boxes a row, whose
 //   second box reads columns 96-127 past the tensor map's D = 96 columns
 //   as TMA's zero fill.  q k^T stops after the 6 k-steps of the real columns; p v runs
 //   at n128, and the zero columns of v give exact zeros in accumulator
@@ -136,6 +139,12 @@
 //   the real columns' squares.  It costs a third more p v work and shared
 //   memory than a 64 + 32-column layout under a 64-byte swizzle with
 //   m64n96k16 would; D128's stages and register split fit as they are.
+//   D80 (K1 at the Qwen2-VL vision tower's head dim) is laid out the same
+//   way: two 64-column boxes, columns 80-127 TMA's zero fill (a row is 160
+//   bytes, so the tensor map's strides stay 16-byte multiples), q k^T over
+//   the 5 k-steps of the real columns, p v at n128 into accumulator
+//   columns 80-127 that stay exactly 0, the output stored at an 80-element
+//   row stride over 10 column blocks.
 // - Heads a CTA (HP, B2 only, D = 64): the WG / HP warpgroups of each head
 //   take 64 of its q rows each; q is one box per head and each stage holds
 //   one 64-column k box and one v box per head under its one full/empty
@@ -217,11 +226,12 @@ struct Regs<4> {  // 4 x 128 x 112 + 128 x 32 = 61,440: 640 threads hold
 };
 
 // HP heads a CTA (D = 64 only), each served by WG / HP consumer
-// warpgroups; BLOCK_K keys a kv tile.  D = 96 takes two boxes, the second
-// half zero fill (D96 above).
+// warpgroups; BLOCK_K keys a kv tile.  D = 80 and 96 take two boxes, the
+// second partly zero fill (D80 and D96 above).
 template <int D, int WG, int STAGES, int HP = 1, int BLOCK_K = 128>
 struct Config {
-  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "head dim 64, 80, 96 or 128");
   static_assert(HP == 1 || D == 64, "several heads a CTA at D = 64 only");
   static_assert(WG % HP == 0, "whole warpgroups a head");
   static_assert(BLOCK_K == 64 || BLOCK_K == 128, "64 or 128 keys a tile");
@@ -253,7 +263,8 @@ struct Config {
 };
 
 using D128 = Config<128, 2, 3>;  // K3, K2r, K2, K2 lse
-using D96 = Config<96, 2, 3>;    // K3, K2 and their lse forms (Phi-3)
+using D96 = Config<96, 2, 3>;    // K3, K2r, K2 and their lse forms (Phi-3)
+using D80 = Config<80, 2, 3>;    // K1 (the Qwen2-VL vision tower)
 using D64 = Config<64, 3, 3>;    // K1, K1 lse
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -947,7 +958,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(pa);
       release(t - 1);
       if (!kFixed) {
-        // D96's zero columns 96-127 stay 0 and are not stored: no rescale.
+        // D80's and D96's zero columns stay 0 and are not stored: no
+        // rescale.
 #pragma unroll
         for (int j = 0; j < C::kD / 8; ++j) {
 #pragma unroll

@@ -2,7 +2,11 @@
 // (mjvideo_tpu/ops/flash_attention.py:99) with norm_bound=True: non-causal,
 // maskless MHA over one tile's S tokens (S = 1025 on the 448 px path, taken
 // as it is; the kernel masks its own tail instead of the TPU's 1032 pre-pad
-// and analytic pad-mass subtraction), denominator floored at 1e-30.  Its
+// and analytic pad-mass subtraction), denominator floored at 1e-30.  K1
+// also serves the Qwen2-VL vision tower (mjvideo_tpu/models/qwen2vl.py:369:
+// 16 heads of 80 over one temporal slab's h w patches, e.g. (4, 676) for 8
+// frames at 364 px) at Config D80, D128's layout with columns 80-127 TMA's
+// zero fill; K1 lse stays at D = 64 (the judge needs no gradient).  Its
 // kmax (B, H), the largest key norm of each (b, head), comes from the
 // pre-pass of decoder_attention.cu, where the TPU kernel reduced it inside
 // each program (flash_attention.py:131-135).
@@ -41,6 +45,12 @@ extern "C" int mjv_vit_attention(const void* q, const void* k, const void* v,
                                  long long qss, long long ksb, long long kss,
                                  long long vsb, long long vss, float scale,
                                  void* stream) {
+  if (D == 80 && lse == nullptr) {  // the Qwen2-VL vision tower's heads
+    return sm90::launch_attention<sm90::D80, false, sm90::ShiftMode::kKeyMax,
+                                  true>(q, k, v, nullptr, kmax, 1, nullptr,
+                                        out, nullptr, B, S, S, H, H, qsb, qss,
+                                        ksb, kss, vsb, vss, scale, stream);
+  }
   if (D != 64) return int(cudaErrorInvalidValue);  // InternViT-300M heads
   return sm90::launch_attention<sm90::D64, false, sm90::ShiftMode::kKeyMax,
                                 true>(q, k, v, nullptr, kmax, 1, nullptr, out,
@@ -57,11 +67,21 @@ extern "C" int mjv_vit_attention_op(const void* q, const void* k,
                                     long long ksb, long long kss,
                                     long long vsb, long long vss, int nparts,
                                     float scale, void* stream) {
-  if (D != 64) return int(cudaErrorInvalidValue);  // InternViT-300M heads
+  // InternViT-300M's heads of 64, or the Qwen2-VL tower's 80 without the lse.
+  if (D != 64 && (D != 80 || lse != nullptr)) {
+    return int(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_key_norm_partials(k, nullptr, part, B, S, H, D, ksb,
                                            kss, nparts, s);
   if (err != 0) return err;
+  if (D == 80) {
+    return sm90::launch_attention<sm90::D80, false, sm90::ShiftMode::kKeyMax,
+                                  true>(q, k, v, nullptr, part, nparts,
+                                        nullptr, out, nullptr, B, S, S, H, H,
+                                        qsb, qss, ksb, kss, vsb, vss, scale,
+                                        stream, true);
+  }
   return sm90::launch_attention<sm90::D64, false, sm90::ShiftMode::kKeyMax,
                                 true>(q, k, v, nullptr, part, nparts, nullptr,
                                       out, lse, B, S, S, H, H, qsb, qss, ksb,

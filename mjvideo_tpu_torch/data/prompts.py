@@ -260,6 +260,16 @@ class ByteTokenizer:
         return "".join(out)
 
 
+def encode_text(tokenizer, s: str):
+    """Plain text to ids with an HF tokenizer (no special tokens added) or a
+    callable one (``ByteTokenizer``): the judge prompt builders' adapter
+    (``prompts.py:258-265``)."""
+    if hasattr(tokenizer, "encode"):
+        return list(tokenizer.encode(s, add_special_tokens=False))
+    ids = tokenizer(s)
+    return ids["input_ids"] if isinstance(ids, dict) else list(ids)
+
+
 def load_tokenizer(path):
     """The HF tokenizer of ``path``, or the ``ByteTokenizer`` (hermetic
     mode) where no path is given: (tokenizer, its gating pattern or None

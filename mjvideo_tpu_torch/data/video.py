@@ -25,6 +25,9 @@ import numpy as np
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+# OpenAI-CLIP statistics (Qwen2-VL's preprocessing, models/qwen2vl.py).
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 
 def get_frame_indices(
     num_frames: int,

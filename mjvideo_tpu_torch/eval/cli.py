@@ -3,16 +3,18 @@
 The port's counterpart of ``mjvideo_tpu/eval/cli.py``, which replaces the
 reference's 40 per-(benchmark x model) scripts under ``scripts/eval/``: pick
 a benchmark (overall / aspects / fine-grained / genai / safesora) and the
-MJ-Video reward model (``--model-path``) or the InternVL chat judge
-(``--judge internvl-chat --judge-model DIR``); results stream to JSONL
+MJ-Video reward model (``--model-path``), the InternVL chat judge
+(``--judge internvl-chat --judge-model DIR``) or the Qwen2-VL judge
+(``--judge qwen2-vl --judge-model DIR``, an HF Qwen2-VL checkpoint
+directory); results stream to JSONL
 (``--results``), and a rerun resumes from the file.  The metrics JSON is
 printed on stdout.
 
 It runs on the card (``--device cuda``, the default; a machine without one
 refuses) unless ``--device cpu`` asks for the CPU.  As in the JAX CLI,
 ``--fp32`` applies to the reward model only: a judge is loaded in bf16.
-Not ported: the other judges (qwen2-vl, minicpm-v,
-cogvlm2, videoscore, gpt4o, gemini; ROADMAP Queue 1 item 10), data
+Not ported: the other judges (minicpm-v, cogvlm2, videoscore, gpt4o,
+gemini; ROADMAP Queue 1 item 10), data
 parallelism (``--dp`` > 1 without ``--sp``, or a group across processes;
 item 12), and the JAX CLI's ``MJV_PLATFORM`` backend pin and persistent
 compilation cache, which only the TPU needed.  ``--sp`` scores each pair
@@ -29,8 +31,8 @@ from ..data.prompts import load_tokenizer
 from ..utils.device import resolve_device
 
 # Judges of the JAX CLI that wait for ROADMAP Queue 1 item 10.
-NOT_PORTED_JUDGES = ("qwen2-vl", "minicpm-v", "cogvlm2", "videoscore",
-                     "gpt4o", "gemini")
+NOT_PORTED_JUDGES = ("minicpm-v", "cogvlm2", "videoscore", "gpt4o",
+                     "gemini")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,11 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-path", default=None,
                    help="reward checkpoint dir (scorer mode)")
     p.add_argument("--judge", default=None,
-                   choices=(None, "internvl-chat") + NOT_PORTED_JUDGES,
+                   choices=(None, "internvl-chat", "qwen2-vl")
+                   + NOT_PORTED_JUDGES,
                    help="use a baseline judge instead of the reward scorer "
-                        "(only internvl-chat is ported)")
+                        "(internvl-chat and qwen2-vl are ported)")
     p.add_argument("--judge-model", default=None,
-                   help="chat checkpoint dir for internvl-chat")
+                   help="the judge's checkpoint dir (config.json and "
+                        "safetensors)")
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--num-segments", type=int, default=8)
     p.add_argument("--results", default=None, help="incremental JSONL path")
@@ -158,9 +162,46 @@ def _make_scorer(args):
         quant=args.quant, sp=args.sp, sp_group=group, **kw)
 
 
+def _judge_tokenizer(args, path):
+    """The judge's tokenizer: the ``ByteTokenizer`` under
+    ``--byte-tokenizer``, else the HF one, its slow class first (InternVL's
+    needs it) and the fast one where the checkpoint ships only that
+    (Qwen2-family judges), as the JAX CLI loads it (``cli.py:174-185``)."""
+    if args.byte_tokenizer:
+        return load_tokenizer(None)[0]
+    from transformers import AutoTokenizer
+
+    try:
+        return AutoTokenizer.from_pretrained(
+            args.tokenizer or path, trust_remote_code=True, use_fast=False)
+    except (ValueError, OSError):
+        return AutoTokenizer.from_pretrained(args.tokenizer or path,
+                                             trust_remote_code=True)
+
+
+def _make_qwen2vl_judge(args, tok, device):
+    """The Qwen2-VL judge of ``--judge-model``, in bf16
+    (``cli.py:187-199``)."""
+    import torch
+
+    from ..models.qwen2vl import import_qwen2vl_params, qwen2vl_config_from_hf
+    from ..utils.checkpoint import load_safetensors_dir
+    from .judges import Qwen2VLJudge
+
+    path = args.judge_model
+    with open(os.path.join(path, "config.json")) as f:
+        qcfg = qwen2vl_config_from_hf(json.load(f))
+    params = import_qwen2vl_params(load_safetensors_dir(path), qcfg,
+                                   dtype=torch.bfloat16, device=device)
+    return Qwen2VLJudge(qcfg, params, tok, num_segments=args.num_segments,
+                        quant=args.quant, kv_quant=args.kv_quant,
+                        prefix_cache=not args.no_prefix_cache)
+
+
 def _make_judge(args):
-    """The InternVL chat judge of ``--judge-model``: ``config.json`` and
-    safetensors with the LM head."""
+    """The judge of ``--judge`` on ``--judge-model``: the InternVL chat
+    judge (``config.json`` and safetensors with the LM head) or the
+    Qwen2-VL one."""
     from ..configs import load_config
     from ..data.prompts import rebase_img_context_id
     from ..utils.checkpoint import import_chat_params, load_safetensors_dir
@@ -168,7 +209,9 @@ def _make_judge(args):
 
     path = args.judge_model
     device = resolve_device(args.device)
-    tok, _ = _tokenizer(args, path)
+    tok = _judge_tokenizer(args, path)
+    if args.judge == "qwen2-vl":
+        return _make_qwen2vl_judge(args, tok, device)
     # The reference's load-time id assignment (README.md:105): a tokenizer
     # whose <IMG_CONTEXT> id differs from the config's would fail
     # prepare_chat_input's scatter-id guard.

@@ -1,17 +1,19 @@
-"""The InternVL judge and its prompts.
+"""The InternVL and Qwen2-VL judges and their prompts.
 
-Counterpart of the InternVL part of ``mjvideo_tpu/eval/judges.py``:
-``RATING_SCALE`` and ``parse_rating``, the two prompt templates and the
-fine-grained rubric, ``InternVLJudge`` with its prefix cache, and
-``judge_pair``, and the benchmark drivers of a rating-scale judge:
+Counterpart of the InternVL and Qwen2-VL parts of
+``mjvideo_tpu/eval/judges.py``: ``RATING_SCALE`` and ``parse_rating``, the
+two prompt templates and the fine-grained rubric, ``InternVLJudge`` with
+its prefix cache, ``_GreedyLocalJudge`` (the shared tail of the batched
+local judges) and ``Qwen2VLJudge`` on it, and ``judge_pair``, and the
+benchmark drivers of a rating-scale judge:
 ``run_overall_benchmark`` (MJ-BENCH-VIDEO overall preference and SafeSora),
 ``run_fine_grained_benchmark`` with ``fine_grained_accuracy``, and
 ``run_genai_benchmark``.  The prompt constants are copied here;
 ``tests/test_torch_judges.py`` holds them byte-equal to the JAX package's,
 which transcribe the reference benchmark's
 (``eval_overall_internvl2_2b.py:17-80``,
-``eval_fine_grained_internvl2_2b.py:67-138``).  The other judge families,
-VideoScore and their drivers wait for ROADMAP Queue 1 item 10.
+``eval_fine_grained_internvl2_2b.py:67-138``).  MiniCPM-V, CogVLM2,
+VideoScore and the API judges wait for ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -199,6 +201,56 @@ def _maybe_quantize(params, quant: Optional[str]):
     if quant is None:
         return params
     return quantize_params_mode(params, quant)
+
+
+def _video_prep_cache(encode_fn):
+    """A per-judge LRU over ``_encode_video``, keyed by the video's path
+    (``judges.py:200-212``): the fine-grained benchmark asks about 34
+    questions per video, and a pair alternates its two videos, so each is
+    decoded and encoded once."""
+    return functools.lru_cache(maxsize=8)(encode_fn)
+
+
+class _GreedyLocalJudge:
+    """The shared tail of the batched local judges (``judges.py:231-288``):
+    strips the stop token named by ``_eos_attr`` off each decoded row, routes
+    ``ask`` through ``ask_batch``, and runs the prefix-KV machinery (each
+    family supplies its split function and its continuation)."""
+
+    _eos_attr = "im_end_token_id"
+
+    def _decode(self, toks) -> str:
+        if toks and toks[-1] == getattr(self.cfg, self._eos_attr):
+            toks = toks[:-1]
+        return self.tokenizer.decode(toks) if hasattr(
+            self.tokenizer, "decode") else str(toks)
+
+    def ask(self, prompt: str, video_path: str) -> str:
+        return self.ask_batch(prompt, [video_path])[0]
+
+    def _shared_suffix(self, prompt: str, video_paths, split_fn):
+        """The question suffix where prefix reuse applies to every row: all
+        videos share one prefix shape (the ``_prep`` key: the grid or the
+        frame count) and the suffix fits its bucket; else None."""
+        keys = [self._prep(p)[1] for p in video_paths]
+        if len(set(keys)) != 1:
+            return None
+        _, suffix = split_fn(keys[0], prompt)
+        if not suffix or len(suffix) > self.suffix_bucket:
+            return None
+        return suffix
+
+    def _run_prefix_suffix(self, video_paths, suffix, continue_fn):
+        """The videos' cached prefix states batched in new buffers, the
+        family's ``continue_fn(state, suffix) -> (toks, n)`` on them, the
+        rows decoded."""
+        from ..models.qwen2vl import stack_prefixes
+
+        states = [self._pstate(p) for p in video_paths]
+        toks, n = (t.tolist() for t in continue_fn(stack_prefixes(states),
+                                                   suffix))
+        return [self._decode([int(t) for t in toks[b][: n[b]]])
+                for b in range(len(video_paths))]
 
 
 class InternVLJudge:
@@ -389,6 +441,142 @@ class InternVLJudge:
             num_patches_lists=[npl for _, npl in preps],
             generation_config=self._gc(), impl=self.attn_impl,
             vision_embeds=torch.cat([v for v, _ in preps]))
+
+
+class Qwen2VLJudge(_GreedyLocalJudge):
+    """A local judge on the port's Qwen2-VL (``models/qwen2vl.py``), the
+    reference's Qwen2-VL 2B/7B swift baselines
+    (``eval_overall_qwen2_2b.py:119-129``; ``judges.py:516-653``).  Frames
+    are sampled uniformly, smart-resized, CLIP-normalised and fed as
+    temporal patch groups; the answer decodes greedily (swift's default).
+
+    The ChatML prefix (system, the user header and the whole vision block)
+    is the same for every question about a video and split exactly by
+    construction (``build_video_prompt_prefix_suffix``), so it is prefilled
+    once per video, with the M-RoPE tables of every slot (a question suffix
+    is text only, so its positions continue the prefix's); a question then
+    prefills only its suffix (``continue_prefix``).  The full prompt
+    (``greedy_generate_batch``) serves a suffix past ``suffix_bucket`` or
+    videos of different grids.  ``quant`` quantizes the state where it
+    lies (``_maybe_quantize``), ``kv_quant`` takes the int8 KV cache.  The
+    vision tower runs in the weights' dtype (``qwen2vl.vision_dtype``)."""
+
+    def __init__(self, cfg, params, tokenizer, num_segments: int = 8,
+                 max_new_tokens: int = 64, max_pixels: int = 360 * 420,
+                 attn_impl: Optional[str] = None,
+                 quant: Optional[str] = None, kv_quant: bool = False,
+                 prefix_cache: bool = True, suffix_bucket: int = 128):
+        self.cfg = cfg  # a Qwen2VLConfig
+        self.kv_quant = kv_quant
+        self.quant = quant
+        self.params = _maybe_quantize(params, quant)
+        self.device = first_tensor(params).device
+        self.tokenizer = tokenizer
+        self.num_segments = num_segments
+        self.max_new_tokens = max_new_tokens
+        self.max_pixels = max_pixels
+        self.attn_impl = attn_impl or "auto"
+        self._prep = _video_prep_cache(self._encode_video)
+        self.prefix_cache = prefix_cache
+        self.suffix_bucket = suffix_bucket
+        # maxsize=2: the benchmarks alternate a pair's two videos; each
+        # state pins a full-length KV cache.
+        self._pstate = functools.lru_cache(maxsize=2)(self._prefix_state)
+
+    def _encode_video(self, video_path: str):
+        """(merged vision embeds (t h w / 4, C), grid) of a video file."""
+        from ..data.video import decode_frames, get_frame_indices, \
+            video_metadata
+        from ..models.qwen2vl import (
+            preprocess_video_frames,
+            vision_dtype,
+            vision_forward,
+        )
+
+        n_frames, fps = video_metadata(video_path)
+        indices = get_frame_indices(n_frames, self.num_segments, fps=fps)
+        frames = decode_frames(video_path, indices)
+        patches, grid = preprocess_video_frames(
+            frames, self.cfg.vision, max_pixels=self.max_pixels)
+        with torch.no_grad():
+            vis = vision_forward(
+                self.params["visual"], self.cfg.vision,
+                torch.from_numpy(patches).to(self.device,
+                                             vision_dtype(self.params)),
+                grid, impl=self.attn_impl)
+        return vis, grid
+
+    def _prefix_state(self, video_path: str):
+        from ..models.generate import round_up_bucket
+        from ..models.qwen2vl import (
+            build_video_prompt_prefix_suffix,
+            prefill_prefix,
+        )
+
+        vis, grid = self._prep(video_path)
+        prefix, _ = build_video_prompt_prefix_suffix(
+            self.tokenizer, self.cfg, grid, "")
+        Pb = round_up_bucket(len(prefix))
+        return prefill_prefix(
+            self.params, self.cfg, prefix, grid, vis,
+            max_len=Pb + self.suffix_bucket + self.max_new_tokens, bucket=Pb,
+            impl=self.attn_impl, kv_quant=self.kv_quant)
+
+    def _prefix_suffix(self, prompt: str, video_paths):
+        """The question suffix of the prefix path, or None where the call
+        must take the full prompt."""
+        from ..models.qwen2vl import build_video_prompt_prefix_suffix
+
+        return self._shared_suffix(
+            prompt, video_paths,
+            lambda grid, q: build_video_prompt_prefix_suffix(
+                self.tokenizer, self.cfg, grid, q))
+
+    def _continue(self, state, suffix, **kw):
+        from ..models.qwen2vl import continue_prefix
+
+        return continue_prefix(
+            self.params, self.cfg, state, suffix, self.suffix_bucket,
+            self.max_new_tokens, self.cfg.im_end_token_id,
+            impl=self.attn_impl, **kw)
+
+    def _ask_prefix(self, prompt: str, video_paths) -> Optional[List[str]]:
+        suffix = self._prefix_suffix(prompt, video_paths)
+        if suffix is None:
+            return None
+        return self._run_prefix_suffix(video_paths, suffix, self._continue)
+
+    def _full_items(self, prompt: str, video_paths):
+        """The full-prompt path's rows (ids, M-RoPE positions, no patches)
+        and the videos' vision embeds."""
+        from ..models.qwen2vl import build_video_prompt_ids, get_rope_index
+
+        preps = [self._prep(p) for p in video_paths]
+        items = []
+        for _, grid in preps:
+            ids = build_video_prompt_ids(self.tokenizer, self.cfg, grid,
+                                         prompt)
+            pos, _ = get_rope_index(ids, [grid], self.cfg)
+            items.append((ids, pos, None, None))
+        return items, [v for v, _ in preps]
+
+    def _generate_full(self, prompt: str, video_paths, **kw):
+        from ..models.qwen2vl import greedy_generate_batch
+
+        items, vis = self._full_items(prompt, video_paths)
+        return greedy_generate_batch(
+            self.params, self.cfg, items,
+            max_new_tokens=self.max_new_tokens,
+            eos_token_id=self.cfg.im_end_token_id, impl=self.attn_impl,
+            vision_embeds=vis, kv_quant=self.kv_quant, **kw)
+
+    def ask_batch(self, prompt: str, video_paths) -> List[str]:
+        if self.prefix_cache:
+            resp = self._ask_prefix(prompt, list(video_paths))
+            if resp is not None:
+                return resp
+        return [self._decode(toks)
+                for toks in self._generate_full(prompt, list(video_paths))]
 
 
 def judge_pair(

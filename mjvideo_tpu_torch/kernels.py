@@ -45,7 +45,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # bound column: one per K2r op, or alone); "q8g_quantize" the activation
 # pre-pass of K6 (one per K6 launch, or alone); the names ending in
 # "_d96" count the launches at Phi-3's head dim of 96 among those of the
-# name without it: K2, K3, their lse forms, the pre-pass, K4a and K4b.
+# name without it: K2, K3, their lse forms, the pre-pass, K4a, K4b, K2r and
+# its pre-pass; those ending in "_d80" the launches at the Qwen2-VL vision
+# tower's head dim of 80: K1 and its pre-pass.
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
@@ -55,7 +57,8 @@ launch_counts: Dict[str, int] = {
     "decoder_attention_d96": 0, "exact_attention_d96": 0,
     "key_norm_max_d96": 0, "decoder_attention_lse_d96": 0,
     "exact_attention_lse_d96": 0, "decoder_attention_bwd_dkdv_d96": 0,
-    "decoder_attention_bwd_dq_d96": 0,
+    "decoder_attention_bwd_dq_d96": 0, "decoder_attention_rows_d96": 0,
+    "key_norm_cummax_d96": 0, "vit_attention_d80": 0, "key_norm_max_d80": 0,
     "decoder_attention_rows": 0, "key_norm_cummax": 0, "key_norm_max": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "q8g_quantize": 0,
     "w4_matmul": 0,
@@ -76,13 +79,6 @@ KEY_NORM_THREADS = 256
 KEY_NORM_LOADS = 4
 KEY_NORM_CTAS = 528
 KEY_NORM_PARTS_MAX = 256
-
-# The forms that do not take Phi-3's head dim of 96 yet: K2r and its
-# pre-pass (the per-key norms of its bound column), which the 4B judge's
-# MJV_CACHE_NORM_BOUND=1 path needs.  Their wrappers refuse D = 96 before
-# any check or launch.
-D96_NEXT = ("ROADMAP Queue 1 item 5c: the 4B judge's MJV_CACHE_NORM_BOUND=1 "
-            "path, with K2r and its pre-pass's per-key norms at D = 96")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -190,14 +186,6 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
-def _refuse_d96(name: str, t: torch.Tensor) -> None:
-    """A form not built at D = 96 refuses it at once, whatever the device
-    (``D96_NEXT``)."""
-    if t.shape[-1] == 96:
-        raise NotImplementedError(
-            f"{name} is not built at head dim 96 ({D96_NEXT})")
-
-
 def _check_qkv(name: str, head_dim, *ts: torch.Tensor) -> None:
     """Checks shared by every attention wrapper; ``head_dim`` is the head
     dim the kernel is built for, or a tuple of them."""
@@ -237,10 +225,11 @@ def _raise_on(name: str, err: int) -> None:
 
 
 def _count(name: str, D: int) -> None:
-    """One launch of ``name``, and of its D = 96 form where D is 96."""
+    """One launch of ``name``, and of its form at head dim D where that has
+    a counter of its own (D = 96, or D = 80)."""
     launch_counts[name] += 1
-    if D == 96:
-        launch_counts[f"{name}_d96"] += 1
+    if f"{name}_d{D}" in launch_counts:
+        launch_counts[f"{name}_d{D}"] += 1
 
 
 def forward_only(name: str, *ts: torch.Tensor) -> None:
@@ -254,22 +243,26 @@ def forward_only(name: str, *ts: torch.Tensor) -> None:
 
 
 def _check_vit(name: str, q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor) -> None:
-    _check_qkv(name, 64, q, k, v)
+               v: torch.Tensor, with_lse: bool) -> None:
+    """K1's checks: InternViT's head dim of 64, or the Qwen2-VL vision
+    tower's 80, which is built without the lse (the judge needs no
+    gradient)."""
+    _check_qkv(name, (64,) if with_lse else (64, 80), q, k, v)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k and v must share (B, S, H, D)")
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kmax: torch.Tensor, scale: float, with_lse: bool = False):
-    """K1 alone on a given kmax.  q/k/v: (B, S, H, 64) bf16 with dense
-    heads (row strides free); kmax: (B, H) fp32 (``key_norm_max``).
+    """K1 alone on a given kmax.  q/k/v: (B, S, H, D) bf16 with D = 64 (80
+    without the lse) and dense heads (row strides free); kmax: (B, H) fp32
+    (``key_norm_max``).
     Returns a dense (B, S, H, D) bf16 tensor, and with ``with_lse`` also the
     (B, H, S) fp32 lse (1e30 on a row whose sum underflowed).  With the lse
     or without, it runs on the wgmma/TMA template
     (``decoder_attention_sm90.cuh``); ``vit_attention_op`` is the op."""
     name = "vit_attention"
-    _check_vit(name, q, k, v)
+    _check_vit(name, q, k, v, with_lse)
     B, S, H, D = q.shape
     _check_aux(f"{name} kmax", kmax, torch.float32, (B, H), q.device)
     lib = _load()
@@ -284,7 +277,7 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), float(scale), stream)
     _raise_on(name, err)
-    launch_counts[name] += 1
+    _count(name, D)
     if with_lse:
         launch_counts["vit_attention_lse"] += 1
     return (out, lse) if with_lse else out
@@ -299,7 +292,7 @@ def vit_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``key_norm_max(k)``.  Counts one ``key_norm_max`` and one
     ``vit_attention``."""
     name = "vit_attention"
-    _check_vit(name, q, k, v)
+    _check_vit(name, q, k, v, with_lse)
     B, S, H, D = q.shape
     parts = key_norm_parts(B, S, H, D)
     lib = _load()
@@ -316,8 +309,8 @@ def vit_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), parts, float(scale),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(name, err)
-    launch_counts["key_norm_max"] += 1
-    launch_counts[name] += 1
+    _count("key_norm_max", D)
+    _count(name, D)
     if with_lse:
         launch_counts["vit_attention_lse"] += 1
     return (out, lse) if with_lse else out
@@ -475,7 +468,7 @@ def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _key_norm_operands(name: str, k: torch.Tensor,
                        attention_mask: Optional[torch.Tensor],
-                       parts: Optional[int], dims=(64, 96, 128)):
+                       parts: Optional[int], dims=(64, 80, 96, 128)):
     """Checks shared by the key-norm pre-passes (k: (B, K, Hkv, D) bf16 with
     D one of ``dims``, dense heads, free row strides; attention_mask: (B,
     K) int32 or None); returns (mask pointer, the chunk count: ``parts``,
@@ -501,14 +494,14 @@ def key_norm_cummax(k: torch.Tensor,
     ``parts`` chunks of keys (the plan, ``key_norm_parts``, by default; 1 <=
     parts <= K), which also stores every key's norm, then the scan that
     runs the earlier chunks' max through each chunk, from one C call.  k:
-    (B, K, Hkv, 128) bf16 with dense heads (row strides free);
+    (B, K, Hkv, D) bf16 with D = 128 (InternLM2) or 96 (Phi-3) and dense
+    heads (row strides free);
     attention_mask: (B, K) int32 or None.  Returns the (B, Hkv, K) fp32
     running max along K of the masked key norms, the same bits for every
     ``parts``; its last column is ``key_norm_max``'s."""
     name = "key_norm_cummax"
-    _refuse_d96(name, k)
     mask_ptr, parts = _key_norm_operands(name, k, attention_mask, parts,
-                                         dims=(128,))
+                                         dims=(96, 128))
     B, K, Hkv, D = k.shape
     lib = _load()
     part = torch.empty((B, parts, Hkv), dtype=torch.float32, device=k.device)
@@ -519,14 +512,15 @@ def key_norm_cummax(k: torch.Tensor,
                                       out.data_ptr(), B, K, Hkv, D,
                                       k.stride(0), k.stride(1), parts, stream)
     _raise_on(name, err)
-    launch_counts[name] += 1
+    _count(name, D)
     return out
 
 
 def key_norm_lanes(D: int) -> int:
     """The pre-pass's lanes a key vector: its D / 8 16-byte pieces rounded
     up to a power of two (``key_norm_lanes`` of
-    ``csrc/decoder_attention.cu``; D = 96's 12 pieces take 16 lanes)."""
+    ``csrc/decoder_attention.cu``; D = 80's 10 pieces and D = 96's 12 take
+    16 lanes)."""
     pieces = D // 8
     return pieces if pieces & (pieces - 1) == 0 else 1 << pieces.bit_length()
 
@@ -536,7 +530,7 @@ def key_norm_parts(B: int, K: int, Hkv: int, D: int) -> int:
     for k of shape (B, K, Hkv, D): about KEY_NORM_CTAS CTAs over the
     grid, each at least one pass of KEY_NORM_LOADS loads a thread (whole
     keys), at most KEY_NORM_PARTS_MAX.  Raises where one pass cannot hold a
-    whole key (more than 64 heads of 128 or 96, or 128 of 64)."""
+    whole key (more than 64 heads of 128, 96 or 80, or 128 of 64)."""
     # Key vectors a pass.
     heads = KEY_NORM_THREADS // key_norm_lanes(D) * KEY_NORM_LOADS
     if Hkv > heads:
@@ -553,13 +547,14 @@ def key_norm_max(k: torch.Tensor,
     """The pre-pass of K1 and K2 (and of their lse forms) alone, as the ops
     run it: its partial maxima over ``parts`` chunks of keys (the plan,
     ``key_norm_parts``, by default; 1 <= parts <= K), then their fold, from
-    one C call.  k: (B, K, Hkv, D) bf16 with D 64, 96 or 128, dense heads and
+    one C call.  k: (B, K, Hkv, D) bf16 with D 64, 80, 96 or 128, dense heads and
     free row strides (a view into the ViT's qkv tensor, or a cache's
     slots); attention_mask: (B, K) int32 or None.  Returns the (B, Hkv)
     fp32 largest norm of a live key of each (b, kv head), 0 where none is
     live."""
     name = "key_norm_max"
-    # Built for the ViT's 64 and the decoders' 128 (InternLM2), 96 (Phi-3).
+    # Built for the ViTs' 64 (InternViT) and 80 (Qwen2-VL) and the
+    # decoders' 128 (InternLM2) and 96 (Phi-3).
     mask_ptr, parts = _key_norm_operands(name, k, attention_mask, parts)
     B, K, Hkv, D = k.shape
     lib = _load()
@@ -586,9 +581,8 @@ def decoder_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``clip(q_offset + i, 0, K - 1)``.  Returns a dense (B, Q, Hq, D) bf16
     tensor; ``decoder_attention_rows_op`` is the op."""
     name = "decoder_attention_rows"
-    _refuse_d96(name, q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
-                                       q_offset)
+                                       q_offset, dims=(96, 128))
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     _check_aux(f"{name} kcum", kcum, torch.float32, (B, Hkv, K), q.device)
@@ -602,7 +596,7 @@ def decoder_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), float(scale), stream)
     _raise_on(name, err)
-    launch_counts[name] += 1
+    _count(name, D)
     return out
 
 
@@ -619,9 +613,8 @@ def decoder_attention_rows_op(q: torch.Tensor, k: torch.Tensor,
     attention_mask)``.  Counts one ``key_norm_cummax`` and one
     ``decoder_attention_rows``."""
     name = "decoder_attention_rows"
-    _refuse_d96(name, q)
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
-                                       q_offset)
+                                       q_offset, dims=(96, 128))
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     parts = key_norm_parts(B, K, Hkv, D)
@@ -638,8 +631,8 @@ def decoder_attention_rows_op(q: torch.Tensor, k: torch.Tensor,
             v.stride(0), v.stride(1), parts, float(scale),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(name, err)
-    launch_counts["key_norm_cummax"] += 1
-    launch_counts[name] += 1
+    _count("key_norm_cummax", D)
+    _count(name, D)
     return out
 
 

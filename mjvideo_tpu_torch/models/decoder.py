@@ -126,6 +126,7 @@ def decoder_forward(
     impl: str = "auto",
     remat=True,
     sp=None,
+    rope_override=None,
 ) -> torch.Tensor:
     """All layers + the final norm: hidden states (B, S, C).
 
@@ -136,17 +137,27 @@ def decoder_forward(
     attention sequence-parallel.  ``inputs_embeds`` and ``attention_mask``
     hold the rows this process holds (all of them in a local group, one
     shard's S/n in a distributed one); RoPE rotates each row by its global
-    position."""
+    position.
+
+    ``rope_override=(cos, sin)``, each (B, S, head_dim), rotates each token
+    by its own values instead (Qwen2-VL's 3-channel M-RoPE,
+    ``decoder.py:156``, :169-175)."""
     S = inputs_embeds.shape[1]
-    first, total = (0, S) if sp is None else sp["group"].held_rows(S)
-    cos, sin = rope_tables(
-        total, cfg.head_dim, base=cfg.rope_theta,
-        scaling_type=cfg.rope_scaling_type,
-        scaling_factor=cfg.rope_scaling_factor,
-        max_position_embeddings=cfg.max_position_embeddings,
-        device=inputs_embeds.device,
-    )
-    cos, sin = cos[first:first + S], sin[first:first + S]
+    if rope_override is not None:
+        if sp is not None:
+            raise ValueError("rope_override with sp: the rows' tables would "
+                             "have to be cut to the shard")
+        cos, sin = rope_override
+    else:
+        first, total = (0, S) if sp is None else sp["group"].held_rows(S)
+        cos, sin = rope_tables(
+            total, cfg.head_dim, base=cfg.rope_theta,
+            scaling_type=cfg.rope_scaling_type,
+            scaling_factor=cfg.rope_scaling_factor,
+            max_position_embeddings=cfg.max_position_embeddings,
+            device=inputs_embeds.device,
+        )
+        cos, sin = cos[first:first + S], sin[first:first + S]
     block = remat_wrap(
         lambda layer, x: _decoder_layer(cfg, layer, x, attention_mask, cos,
                                         sin, impl, sp), remat)

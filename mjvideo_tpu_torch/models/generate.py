@@ -29,9 +29,14 @@ for the InternVL judges.  What differs from the JAX package:
   given tokens instead of their own draws and return each step's fp32
   logits, which the tests and ``chip_smoke.py`` hold against a reference.
 
-Not here: ``greedy_decode_batch``, ``greedy_decode``, ``pad_prompt_batch``,
-``prefill_slot_mask``, ``step_slot_mask``, ``last_real_token`` and
-``rope_override`` serve the other judge families (ROADMAP item 10).
+The scaffolding of the other judge families (``models/qwen2vl.py``):
+``rope_override`` (per-token cos/sin, M-RoPE) in ``decoder_forward_cached``;
+``greedy_decode_batch`` and ``greedy_decode``, whose ``lax.while_loop`` is a
+Python loop with the same early exit (every row has emitted EOS) and the
+same skipped last forward; ``pad_prompt_batch``, ``prefill_slot_mask``,
+``step_slot_mask`` and ``last_real_token``, the slot arithmetic of a
+right-padded prompt at slots [0, n_real) whose token i decodes at slot
+n_real + i.
 """
 
 from __future__ import annotations
@@ -187,17 +192,25 @@ def decoder_forward_cached(
     cache_mask: torch.Tensor,  # (B, max_len) valid slots incl. new tokens
     impl: str = "auto",
     q_offset: Optional[torch.Tensor] = None,  # (B,) suffix continuation
+    rope_override=None,  # (cos, sin), each (B, S, D): the new tokens' own
 ) -> Tuple[torch.Tensor, KVCache]:
     """All layers over the new tokens, reading and writing ``cache``;
-    returns the final-normed hidden states (B, S, C) and the cache."""
+    returns the final-normed hidden states (B, S, C) and the cache.
+
+    ``rope_override`` serves the models whose rotary positions are not the
+    cache slots (Qwen2-VL's M-RoPE, ``generate.py:238-271``): each new
+    token is rotated by its given cos/sin row."""
     max_len = cache.k.shape[2]
-    cos, sin = rope_tables(
-        max_len, cfg.head_dim, base=cfg.rope_theta,
-        scaling_type=cfg.rope_scaling_type,
-        scaling_factor=cfg.rope_scaling_factor,
-        max_position_embeddings=cfg.max_position_embeddings,
-        device=inputs_embeds.device,
-    )
+    if rope_override is not None:
+        cos, sin = rope_override
+    else:
+        cos, sin = rope_tables(
+            max_len, cfg.head_dim, base=cfg.rope_theta,
+            scaling_type=cfg.rope_scaling_type,
+            scaling_factor=cfg.rope_scaling_factor,
+            max_position_embeddings=cfg.max_position_embeddings,
+            device=inputs_embeds.device,
+        )
     position_ids = position_ids.long()
     x = inputs_embeds
     for i in range(cfg.num_hidden_layers):
@@ -461,6 +474,108 @@ def stack_prefix_states(states) -> PrefixState:
 def round_up_bucket(n: int, bucket: int = 64) -> int:
     """Prompt-length bucketing (keeps the set of shapes small)."""
     return (n + bucket - 1) // bucket * bucket
+
+
+def greedy_decode_batch(step_fn, params, logits0: torch.Tensor, cache,
+                        max_new_tokens: int, eos: int):
+    """The batched greedy loop (``generate.py:289-328``).
+
+    ``step_fn(params, tok (B,) int32, i, cache) -> (logits (B, V), cache)``
+    is the caller's cached step over one new token per row.  Stops once
+    every row has emitted ``eos`` (one host read per step) or the budget is
+    spent; finished rows keep feeding ``eos``.  The forward after the token
+    that ends the generation (every row done, or the last slot) is
+    skipped, as its logits would never be read.  Returns (toks (B,
+    max_new_tokens) int32, eos-filled past each row's end; n (B,) int32,
+    the tokens each row emitted, its eos included)."""
+    B = logits0.shape[0]
+    dev = logits0.device
+    toks = torch.full((B, max_new_tokens), eos, dtype=torch.int32,
+                      device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    n = torch.zeros(B, dtype=torch.int32, device=dev)
+    logits, i, finished = logits0, 0, False
+    while i < max_new_tokens and not finished:
+        tok = torch.where(done, eos, logits.argmax(-1).to(torch.int32))
+        toks[:, i] = tok
+        n += (~done).to(torch.int32)
+        done = done | (tok == eos)
+        finished = bool(done.all())
+        if not finished and i + 1 < max_new_tokens:
+            logits, cache = step_fn(params, tok, i, cache)
+        i += 1
+    return toks, n
+
+
+def greedy_decode(step_fn, params, logits0: torch.Tensor, cache,
+                  max_new_tokens: int, eos: int):
+    """The B = 1 loop (``generate.py:331-340``): ``step_fn`` takes a scalar
+    token; returns (toks (max_new_tokens,) int32, count)."""
+    toks, n = greedy_decode_batch(
+        lambda p, tok, i, c: step_fn(p, tok[0], i, c),
+        params, logits0, cache, max_new_tokens, eos)
+    return toks[0], n[0]
+
+
+def teacher_forced_logits(step_fn, params, logits0: torch.Tensor, cache,
+                          teacher_tokens: torch.Tensor) -> torch.Tensor:
+    """``greedy_decode_batch``'s steps fed ``teacher_tokens`` (B, n) in
+    place of its own picks: the (B, n, V) fp32 logits of each step, the
+    first ``logits0``."""
+    steps = [logits0]
+    for i in range(teacher_tokens.shape[1] - 1):
+        logits, cache = step_fn(params, teacher_tokens[:, i].to(torch.int32),
+                                i, cache)
+        steps.append(logits)
+    return torch.stack(steps, dim=1)
+
+
+def pad_prompt_batch(ids_list, pad_id: int, bucket: int = 64):
+    """[(1, T_i) prompts] -> ((B, Tb) right-padded int32 ids, (B,) int32
+    n_real, Tb), every row bucketed to the same width
+    (``generate.py:353-361``)."""
+    n_real = np.asarray([ids.shape[1] for ids in ids_list], np.int32)
+    Tb = round_up_bucket(int(n_real.max()), bucket)
+    out = np.full((len(ids_list), Tb), pad_id, np.int32)
+    for b, ids in enumerate(ids_list):
+        out[b, : ids.shape[1]] = np.asarray(ids)[0]
+    return out, n_real, Tb
+
+
+def _rows(n_real, device=None) -> torch.Tensor:
+    """n_real (an int or (B,)) -> a (B, 1) int64 column."""
+    return torch.as_tensor(n_real, device=device).reshape(-1, 1).long()
+
+
+def prefill_slot_mask(Tb: int, max_len: int, n_real, device=None):
+    """Cache slots and validity mask of a right-padded prompt's prefill
+    (``generate.py:369-377``): ((B, Tb) int64 slots 0..Tb-1, (B, max_len)
+    int32 mask of the slots below each row's ``n_real``)."""
+    nr = _rows(n_real, device)
+    dev = nr.device
+    slots = torch.arange(Tb, device=dev)[None].expand(nr.shape[0], Tb)
+    mask = (torch.arange(max_len, device=dev)[None] < nr).to(torch.int32)
+    return slots, mask
+
+
+def step_slot_mask(max_len: int, n_real, i: int, device=None):
+    """Cache slot and validity mask of each row's i-th generated token
+    (``generate.py:380-385``): ((B, 1) slots n_real + i, (B, max_len)
+    int32 mask of the slots up to it)."""
+    nr = _rows(n_real, device)
+    slots = nr + i
+    mask = (torch.arange(max_len, device=nr.device)[None]
+            < nr + i + 1).to(torch.int32)
+    return slots, mask
+
+
+def last_real_token(hidden: torch.Tensor, n_real) -> torch.Tensor:
+    """(B, T, C) -> (B, 1, C) at each row's last real prompt position
+    (``generate.py:388-393``)."""
+    idx = _rows(n_real, hidden.device) - 1
+    idx = idx.expand(hidden.shape[0], 1)[:, :, None].expand(
+        hidden.shape[0], 1, hidden.shape[2])
+    return torch.gather(hidden, 1, idx)
 
 
 def _eos_pad(cfg: ChatConfig, tokenizer) -> Tuple[int, int]:

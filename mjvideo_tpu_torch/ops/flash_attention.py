@@ -11,7 +11,9 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   When autograd needs it, it goes through ``_VitAttention``, the ViT's
   ``custom_vjp``: forward K1 with the lse (``_fwd_nc_kernel(with_lse=
   True)``), backward ``vit_attention_backward``, the non-causal, maskless
-  D = 64 instantiation of ``_bwd_impl``'s two kernels (K4 nc).
+  D = 64 instantiation of ``_bwd_impl``'s two kernels (K4 nc).  K1 also
+  takes the Qwen2-VL vision tower's head dim of 80, without a gradient:
+  K4 nc at D = 80 is not built (``K4NC_D80_NEXT``).
 * ``decoder_attention`` replaces ``_fwd_bound_kernel`` (K2): causal
   attention with a (B, K) key mask and GQA (q head h reads kv head h // G),
   under the same bound with ``kmax`` the largest *masked* key norm per
@@ -434,6 +436,13 @@ def _vit_attention_fwd(q, k, v, scale, with_lse):
     return kernels.vit_attention_op(q, k, v, scale, with_lse=with_lse)
 
 
+# The ViT backward at the Qwen2-VL vision tower's head dim: K1 runs there
+# (the judge), its lse form and K4 nc do not.
+K4NC_D80_NEXT = ("ROADMAP Queue 2 item 2: K1 lse and K4 nc (the ViT "
+                 "attention's gradient) at the Qwen2-VL vision tower's head "
+                 "dim of 80")
+
+
 class _VitAttention(torch.autograd.Function):
     """K1 with the lse forward, K4 nc dK/dV and dQ backward: the ViT's
     ``_flash_attention`` custom VJP (``flash_attention.py:857-898``).  The
@@ -442,6 +451,10 @@ class _VitAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        if q.shape[-1] == 80:
+            raise NotImplementedError(
+                f"ViT attention has no gradient at head dim {q.shape[-1]} "
+                f"({K4NC_D80_NEXT})")
         out, lse = _vit_attention_fwd(q, k, v, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
@@ -459,7 +472,9 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: Optional[float] = None) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain twin on a CPU tensor; differentiable
     in q, k and v through K1 with the lse and K4 nc (their twins on the
-    CPU), which it takes only when autograd will need them."""
+    CPU), which it takes only when autograd will need them.  At head dim 80
+    (the Qwen2-VL vision tower) it runs forward only: under autograd it
+    raises ``NotImplementedError`` on any device."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -1,13 +1,14 @@
-"""K2, K2 lse, its key-norm pre-pass, K3, K3 lse, K4a and K4b at Phi-3's head
-dim of 96 (MJ-VIDEO-4B's decoder), on the CPU.
+"""K2, K2 lse, its key-norm pre-pass, K3, K3 lse, K4a, K4b, K2r and K2r's
+pre-pass at Phi-3's head dim of 96 (MJ-VIDEO-4B's decoder), on the CPU.
 
 The plain twins (what the CPU path of ``decoder_attention``,
 ``key_norm_max``, ``exact_attention`` and their backward computes, and
 what the card's kernels are held against in
 ``tests/test_torch_kernels_d96_sm90.py`` and ``chip_smoke.py``) against the
 JAX package's Pallas kernels in interpret mode, through
-``flash_attention(norm_bound=True | False)``, ``_fwd_impl(with_lse=True,
-norm_bound=True)``, ``flash_attention_with_lse`` and ``_bwd_impl``, at
+``flash_attention(norm_bound=True | False | "rows")``,
+``_fwd_impl(with_lse=True, norm_bound=True)``, ``flash_attention_with_lse``
+and ``_bwd_impl``, at
 D = 96 with GQA, ragged and left-padded masks, dead rows, per-row
 q_offsets and sequences on each side of the card's 128-row and 128-key
 tiles; atol 2e-5 (rtol 1e-5 for the gradients: the same fp32 sums in other
@@ -15,16 +16,19 @@ orders, as ``tests/test_torch_flash_attention.py`` holds them at D = 16),
 dead rows exactly 0 (and their lse ``DEAD_LSE``), dq exactly 0 on dead rows
 and dk, dv exactly 0 on masked keys.  The pre-pass's partials and fold
 against ``_fwd_impl``'s key-norm reduce written out in ``jnp`` (relative
-1e-6: fp32 sums of squares in another order).  Then the sources: the
+1e-6: fp32 sums of squares in another order), as are K2r's pre-pass
+(``key_norm_cummax``, the running max along K, against JAX's
+``lax.cummax``) and its chunked decomposition.  Then the sources: the
 forward and backward ``Config``s at 96 fit the card's shared memory and
 registers, the C entries admit D = 96 for K2, K3, their lse forms, the
-pre-pass, K4a and K4b and for nothing else, and the wrappers refuse K2r and
-its pre-pass at D = 96 before any check or launch, naming the next ROADMAP
-item.
+pre-pass, K4a, K4b, K2r and its pre-pass's per-key norms, and every
+wrapper of those forms passes its head-dim check at D = 96 (a CPU tensor
+then raises for the device).
 """
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,6 +159,72 @@ def test_k3_twin_at_d96_matches_pallas_exact_kernel(case):
     assert np.all(got[dead] == 0.0) and np.all(ref[dead] == 0.0)
 
 
+# K2r at D = 96, (Q rows, K keys, per-row q_offset or None): the judge's
+# prefill on each side of the 128-row tile, a continuation of 7 rows over a
+# cache, and a decode step; GQA 4/2, row 1 left-padded (its first rows see
+# no key).
+K2R_CASES = {
+    "prefill_127": (127, 127, None),
+    "prefill_129": (129, 129, None),
+    "continuation": (7, 135, (128, 120)),
+    "decode_step": (1, 140, (139, 100)),
+}
+
+
+def _k2r_inputs(case):
+    Q, K, off = K2R_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q = rng.normal(size=(2, Q, 4, D)).astype(np.float32)
+    k = rng.normal(size=(2, K, 2, D)).astype(np.float32)
+    k *= rng.uniform(0.2, 3.0, size=(2, K, 2, 1)).astype(np.float32)
+    v = rng.normal(size=(2, K, 2, D)).astype(np.float32)
+    mask = np.ones((2, K), np.int32)
+    mask[1, :6] = 0
+    if off is not None:
+        off = np.asarray(off, np.int32)
+        for b, o in enumerate(off):
+            mask[b, o + Q:] = 0
+    return q, k, v, mask, off
+
+
+@pytest.mark.parametrize("case", sorted(K2R_CASES))
+def test_k2r_twin_at_d96_matches_pallas_row_bound_kernel(case):
+    """``decoder_attention_rows`` (the K2r twin) against
+    ``_fwd_bound_kernel(row_bound=True)`` in interpret mode through
+    ``flash_attention(norm_bound="rows")``; dead rows exactly 0."""
+    q, k, v, mask, off = _k2r_inputs(case)
+    ref = np.asarray(flash_attention(_j(q), _j(k), _j(v),
+                                     attention_mask=_j(mask), causal=True,
+                                     q_offset=_j(off), norm_bound="rows"))
+    got = tfa.decoder_attention_rows(_t(q), _t(k), _t(v), _t(mask),
+                                     _t(off)).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    dead = _dead(q, k, mask, off)
+    assert np.all(got[dead] == 0.0) and np.all(ref[dead] == 0.0)
+    assert dead.any() == (off is None)
+
+
+@pytest.mark.parametrize("case", sorted(K2R_CASES))
+def test_k2r_pre_pass_twin_at_d96_matches_jax_cummax(case):
+    """kcum of ``_fwd_impl`` (flash_attention.py:489-497): the running max
+    along K of the masked key norms, ``lax.cummax`` over JAX's fp32 norms
+    (relative 1e-6); the pre-pass kernel's chunked decomposition gives the
+    same bits at every chunk plan, and its last column is kmax's."""
+    _, k, _, mask, _ = _k2r_inputs(case)
+    kn2 = jnp.sum(jnp.asarray(k) ** 2, axis=-1) * (jnp.asarray(mask) != 0)[
+        :, :, None].astype(jnp.float32)
+    want = np.asarray(jax.lax.cummax(jnp.sqrt(kn2), axis=1)).transpose(
+        0, 2, 1)
+    got = tfa.key_norm_cummax(_t(k), _t(mask))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    B, K, Hkv, _ = k.shape
+    plan = kernels.key_norm_parts(B, K, Hkv, D)
+    for parts in sorted({1, 3, plan, K}):
+        assert torch.equal(tfa.key_norm_cummax_chunked(_t(k), _t(mask),
+                                                       parts), got), parts
+    assert torch.equal(got[..., -1], tfa.key_norm_max(_t(k), _t(mask)))
+
+
 def _offset(case):
     off = OFFSETS.get(case)
     return None if off is None else np.asarray(off, np.int32)
@@ -271,7 +341,7 @@ def test_d96_config_fits_the_card():
     m = re.search(r"using D96 = Config<96, (\d+), (\d+)>;", header)
     assert m is not None
     wg, stages = map(int, m.groups())
-    assert "static_assert(D == 64 || D == 96 || D == 128" in header
+    assert "static_assert(D == 64 || D == 80 || D == 96 || D == 128" in header
     assert "kBoxes = (D + 63) / 64" in header
     assert "kAcc = 32 * kBoxes" in header
     boxes, block_q, block_k = (D + 63) // 64, 64 * wg, 128
@@ -323,20 +393,22 @@ def test_d96_backward_configs_fit_the_card():
 def test_c_entries_admit_d96_for_k2_its_pre_pass_and_k3_only():
     """The C entries admit Phi-3's 96 for K2 and K2 lse (the kernel alone
     and the op), K3 and K3 lse (causal and not), the pre-pass, K4a and K4b
-    (causal and not), and refuse it for K2r and its pre-pass's per-key
-    norms; every other head dim but 128 (64 for the pre-pass) is refused."""
+    (causal and not), and, since item 5c, for K2r (the kernel alone and the
+    op) and its pre-pass's per-key norms; every other head dim but 128 (64
+    and 80 for the pre-pass without the norms) is refused."""
     dec = _source("decoder_attention.cu")
     assert "static bool k2_head_dim(int D) { return D == 128 || D == 96; }" \
         in dec
-    assert dec.count("if (!k2_head_dim(D))") == 2  # kernel alone, op
+    # K2 alone and its op, K2r's pre-pass, K2r alone and its op.
+    assert dec.count("if (!k2_head_dim(D))") == 4
     assert dec.count("launch_attention<sm90::D96, true, "
                      "sm90::ShiftMode::kKeyMax>") == 2  # kernel alone, op
     assert "key_norm_partial_kernel<96>" in dec
-    assert "(norms != nullptr && D != 128)" in dec  # K2r's form
-    # K2r's pre-pass and its kernel-alone entry stay at InternLM2's 128.
-    assert dec.count("if (D != 128) return int(cudaErrorInvalidValue);") == 2
-    assert "launch_attention<sm90::D96, true, sm90::ShiftMode::kRows>" \
-        not in dec
+    assert "key_norm_partial_kernel<96, true>" in dec  # K2r's form at 96
+    assert "(norms != nullptr && !k2_head_dim(D))" in dec
+    assert "if (D != 128) return int(cudaErrorInvalidValue);" not in dec
+    assert dec.count("launch_attention<sm90::D96, true, "
+                     "sm90::ShiftMode::kRows>") == 2  # kernel alone, op
     exact = _source("exact_attention.cu")
     assert "if (D == 96) {  // Phi-3's heads" in exact
     assert "lse == nullptr" not in exact
@@ -361,7 +433,7 @@ def test_key_norm_plan_at_d96():
         kernels.key_norm_parts(1, 8, 65, 96)
 
 
-def _refused():
+def _k2r_forms():
     q = torch.zeros(1, 8, 4, D, dtype=torch.bfloat16)
     return {
         "K2r op": lambda: kernels.decoder_attention_rows_op(q, q, q, None,
@@ -389,14 +461,18 @@ def _built():
     }
 
 
-@pytest.mark.parametrize("form", sorted(_refused()))
+@pytest.mark.parametrize("form", sorted(_k2r_forms()))
 def test_forms_not_built_at_d96_refuse_first_naming_the_next_item(form):
-    """K2r and its pre-pass: refused before the device check, so a CPU
-    tensor reaches it too; on the card it comes before any launch (the
-    card test holds the counters)."""
+    """K2r (the op and the kernel alone) and its pre-pass were the forms
+    not built at D = 96; item 5c built them, and the refusal naming it is
+    gone (``kernels.D96_NEXT`` no longer exists): on a CPU tensor each now
+    passes the head-dim check and raises for the device, launching
+    nothing."""
+    assert not hasattr(kernels, "D96_NEXT")
+    assert not hasattr(kernels, "_refuse_d96")
     before = dict(kernels.launch_counts)
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        _refused()[form]()
+    with pytest.raises(ValueError, match="a CUDA device"):
+        _k2r_forms()[form]()
     assert kernels.launch_counts == before
 
 

@@ -1,9 +1,8 @@
-"""K2, K2 lse, its key-norm pre-pass, K3, K3 lse, K4a and K4b at Phi-3's head
-dim of 96 on the card (``Config<96, 2, 3>`` of
+"""K2, K2 lse, its key-norm pre-pass, K3, K3 lse, K4a, K4b, K2r and K2r's
+pre-pass at Phi-3's head dim of 96 on the card (``Config<96, 2, 3>`` of
 ``csrc/decoder_attention_sm90.cuh`` and ``DkdvD96``/``DqD96`` of
 ``csrc/attention_bwd_sm90.cuh``: two 64-column boxes a row, the second half
-TMA's zero fill), and the forms still refused there (K2r and its
-pre-pass).
+TMA's zero fill; ``key_norm_partial_kernel<96, true>``, 16 lanes a key).
 
 This file imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -20,7 +19,10 @@ forms: the lse within 1e-5 nats of the twin's on live rows (about 10x the
 H100 reading at D = 128, ``chip_smoke.LSE_TOL``), 1e30 on dead rows, the
 output bit-equal to the form without the lse.  K4a and K4b: each gradient
 within 2^-7 of max|plain| of the twin's from the twin's lse, dq exactly 0
-on dead rows, dk and dv exactly 0 on masked keys.
+on dead rows, dk and dv exactly 0 on masked keys.  K2r: the op and the
+kernel alone on the standalone kcum within 2^-7 of the twin and bit-equal
+to each other; kcum within 1e-6 of its twin, the same bits for every chunk
+count, its last column ``key_norm_max``'s.
 """
 
 import pytest
@@ -324,32 +326,84 @@ def _d96(dev, B=1, T=64, H=4):
     return (_randn(g, dev, B, T, H, D) for _ in range(3))
 
 
+# K2r at D = 96, (B, Q, K, Hq, Hkv, q_offset or None): the 4B judge's
+# prefill of a prefix, a continuation of a 128-row suffix over the cache,
+# a decode step, GQA at each side of the 128-row tile, and the 4B's pair.
+K2R_CASES = ((1, 129, 129, 8, 8, None), (2, 128, 400, 4, 4, 250),
+             (2, 1, 300, 8, 8, 299), (2, 127, 127, 8, 2, None),
+             (2, 3072, 3072, 32, 32, None))
+
+
 @pytest.mark.cuda
 def test_forms_not_built_at_d96_refuse_before_any_launch(cuda_device):
-    """K2r (the op and the kernel alone) and its pre-pass refuse D = 96
-    before any check or launch, naming ROADMAP item 5c."""
+    """K2r (the op and the kernel alone) and its pre-pass were refused at
+    D = 96 until item 5c built them: each now launches once at D = 96,
+    counted under its D = 96 name too, and the op equals the kernel alone
+    on the standalone kcum."""
     q, k, v = _d96(cuda_device)
     before = dict(kernels.launch_counts)
-    calls = (
-        lambda: kernels.decoder_attention_rows_op(q, k, v, None, None, 1.0),
-        lambda: kernels.decoder_attention_rows(
-            q, k, v, None, torch.zeros((1, 4, 64), device=cuda_device), None,
-            1.0),
-        lambda: kernels.key_norm_cummax(k),
-        lambda: fa.decoder_attention_rows(q, k, v),
-    )
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 5c"):
-            call()
-    assert kernels.launch_counts == before
+    op = kernels.decoder_attention_rows_op(q, k, v, None, None, D ** -0.5)
+    kcum = kernels.key_norm_cummax(k)
+    alone = kernels.decoder_attention_rows(q, k, v, None, kcum, None,
+                                           D ** -0.5)
+    torch.cuda.synchronize()
+    for name, n in (("decoder_attention_rows", 2), ("key_norm_cummax", 2),
+                    ("decoder_attention_rows_d96", 2),
+                    ("key_norm_cummax_d96", 2)):
+        assert kernels.launch_counts[name] == before[name] + n, name
+    assert torch.equal(op, alone)
+    assert _rel(op, fa.decoder_attention_rows_plain(q, k, v)) <= REL_TOL
+
+
+@pytest.mark.cuda
+def test_k2r_op_and_kernel_alone_at_d96(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    for B, Q, K, Hq, Hkv, off in K2R_CASES:
+        q = _randn(g, cuda_device, B, Q, Hq, D)
+        k = (_randn(g, cuda_device, B, K, Hkv, D).float() * (3 * torch.rand(
+            (B, K, Hkv, 1), generator=g, device=cuda_device) + 0.2)).to(
+                torch.bfloat16)
+        v = _randn(g, cuda_device, B, K, Hkv, D)
+        mask = torch.ones((B, K), dtype=torch.int32, device=cuda_device)
+        mask[-1, :5] = 0
+        offset = None
+        if off is not None:
+            mask[:, off + Q:] = 0
+            offset = torch.full((B,), off, dtype=torch.int32,
+                                device=cuda_device)
+        scale = D ** -0.5
+        got = kernels.decoder_attention_rows_op(q, k, v, mask, offset, scale)
+        again = kernels.decoder_attention_rows_op(q, k, v, mask, offset,
+                                                  scale)
+        kcum = kernels.key_norm_cummax(k, mask)
+        alone = kernels.decoder_attention_rows(q, k, v, mask, kcum, offset,
+                                               scale)
+        ref = fa.decoder_attention_rows_plain(q, k, v, mask, offset)
+        torch.cuda.synchronize()
+        case = (B, Q, K, Hq, Hkv, off)
+        assert got.shape == (B, Q, Hq, D) and torch.isfinite(got).all()
+        assert torch.equal(got, alone), case
+        assert torch.equal(got, again), case
+        assert _rel(got, ref) <= REL_TOL, (case, _rel(got, ref))
+        dead = fa._allowed(q, k, mask, offset, True).any(-1).logical_not()
+        dead = dead.expand(B, Q)
+        assert not got[dead].any(), case
+        assert dead.any() == (off is None), case
+        want = fa.key_norm_cummax(k, mask)
+        assert _rel(kcum, want) <= PREPASS_REL_TOL, case
+        assert torch.equal(kcum[..., -1], kernels.key_norm_max(k, mask))
+        plan = kernels.key_norm_parts(B, K, Hkv, D)
+        for parts in sorted({min(K, n) for n in (1, 2, 3, 7, plan, K)}):
+            assert torch.equal(kernels.key_norm_cummax(k, mask, parts=parts),
+                               kcum), (case, parts)
 
 
 @pytest.mark.cuda
 def test_c_entries_refuse_the_lse_at_d96(cuda_device):
-    """The C entries now take the lse at D = 96 (K2's kernel alone and K3,
+    """The C entries take the lse at D = 96 (K2's kernel alone and K3,
     causal and not) and K4a/K4b at 96; K2r's pre-pass and its kernel alone
-    still refuse 96, and K4a/K4b refuse a head dim they are not built for
-    (80)."""
+    take 96 too (item 5c) and refuse 80, and K4a/K4b refuse a head dim they
+    are not built for (80)."""
     q, k, v = _d96(cuda_device)
     lib = kernels._load()
     out = torch.empty_like(q)
@@ -372,11 +426,21 @@ def test_c_entries_refuse_the_lse_at_d96(cuda_device):
     err = lib.mjv_key_norm_cummax(k.data_ptr(), None, part.data_ptr(),
                                   kcum.data_ptr(), 1, 64, 4, D, k.stride(0),
                                   k.stride(1), 1, stream)
-    assert err != 0
+    assert err == 0
     err = lib.mjv_decoder_attention_rows(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, kcum.data_ptr(),
         None, out.data_ptr(), *common, stream)
-    assert err != 0
+    assert err == 0
+    for bad in (80, 64):
+        err = lib.mjv_key_norm_cummax(k.data_ptr(), None, part.data_ptr(),
+                                      kcum.data_ptr(), 1, 64, 4, bad,
+                                      k.stride(0), k.stride(1), 1, stream)
+        assert err != 0, bad
+        err = lib.mjv_decoder_attention_rows(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, kcum.data_ptr(),
+            None, out.data_ptr(), 1, 64, 64, 4, 4, bad, *strides, 1.0,
+            stream)
+        assert err != 0, bad
     torch.cuda.synchronize()
     dout = torch.zeros_like(q)
     delta = torch.zeros((1, 4, 64), device=cuda_device)

@@ -1,6 +1,7 @@
-"""Fault controls for B1-B3, K2r's pre-pass and the D = 96 forms of K2 lse,
-K3 lse, K4a and K4b on a CUDA card: each fault planted in a copy of the
-tree, and the card tests of its kernel run there.
+"""Fault controls for B1-B3, K2r's pre-pass, the D = 96 forms of K2 lse,
+K3 lse, K4a, K4b and K2r's pre-pass, and K1 at D = 80, on a CUDA card: each
+fault planted in a copy of the tree, and the card tests of its kernel run
+there.
 
     python3 tools/variant_faults_torch.py [--out FILE] [--only NAME ...]
 
@@ -30,6 +31,7 @@ BWD = CSRC + "attention_bwd_sm90.cuh"
 VARIANTS = "tests/test_torch_kernels_variants_sm90.py"
 ROWS_BSHD = "tests/test_torch_kernels_rows_bshd_sm90.py"
 D96 = "tests/test_torch_kernels_d96_sm90.py"
+D80 = "tests/test_torch_kernels_d80_sm90.py"
 # The backward's row store at the layout's 128-column stride where D = 96
 # (64 * kBoxes: the same as kD at 64 and 128), for dK/dV's Config (32-row
 # streamed tiles) or dQ's (64): rows overlap and the last runs past the
@@ -69,6 +71,15 @@ FAULTS = (
      "v = fmaf(m[r], kLn2, m[r] * kLn2Lo) + logf(l[r]);",
      "v = (C::kD == 96 ? 0.f : fmaf(m[r], kLn2, m[r] * kLn2Lo)) + "
      "logf(l[r]);", D96),
+    # K1 at D = 80 stores its output rows 96 columns apart: rows overlap
+    # and the last runs past the tensor.
+    ("K1 D80 store at the 96-column stride", HEADER,
+     "* C::kD + 2 * c;", "* (C::kD == 80 ? 96 : C::kD) + 2 * c;", D80),
+    # K2r's pre-pass at D = 96 sums 128 columns a key: its 4 idle lanes add
+    # the key's last 16-byte piece again, into the norms and the partials.
+    ("K2r D96 norms over 128 columns", CSRC + "decoder_attention.cu",
+     "if (kSpare && piece >= kPieces) s = 0.0;",
+     "if (kSpare && piece >= kPieces && !NORMS) s = 0.0;", D96),
 )
 
 
