@@ -184,12 +184,12 @@ Phases (any failure raises and exits non-zero):
    Prints the reward per step, ms per step, the peak memory and the rise
    (reported, not held).
 16. Fails if ``jax`` or any ``mjvideo_tpu`` module was imported, or a
-   kernel of the main path never launched (phase 25's four D = 96 forms
-   and phase 26's D = 80 and D = 96 forms included); prints the card, the
-   kernel
-   summary line and, last, the contract line ``{"ok": true, "device":
-   {...}}``.  Every phase that holds launch counts also holds one
-   ``key_norm_max`` before each K1 and K2 (with the lse or without).
+   kernel of the main path never launched (phase 25's four D = 96 forms,
+   phase 26's D = 80 and D = 96 forms and phase 27's D = 72 forms
+   included); prints the card, the kernel summary line and, last, the
+   contract line ``{"ok": true, "device": {...}}``.  Every phase that
+   holds launch counts also holds one ``key_norm_max`` before each K1, K1m
+   and K2 (with the lse or without).
 17. (Run with phases 2, 3, 8, 10 and 13.)  The kernels of sequence
    parallelism at T = SP_T over SP_SHARDS shards (chunks of 768), B = 1,
    16/8 heads of 128, a ragged mask (the first 5 and the last 600 keys
@@ -413,6 +413,43 @@ Phases (any failure raises and exits non-zero):
    overall on QWEN_CLI_PAIRS pairs, every results row equal to (c)'s judge
    on the state read back (bit-equal), exact launches.  Prints its command
    time.
+27. SigLIP-so400m's attention and the two judges built on it (after phase
+   26, its states freed; nothing caught).  (a) On a generator of its own:
+   K1 at D = 72 (SIGLIP_K1_SHAPES: VideoScore's 16 frames of 39 x 70
+   patches, MiniCPM-V's 8 of 24 x 43, a 980 px frame's 70 x 70 past JAX's
+   4,096-key nc limit; q/k/v views into one qkv tensor: the op, the kernel
+   alone and the pre-pass at 16 lanes a key) against their twins, the op
+   bit-equal to the kernel alone.  (b) K1m, the masked non-causal form, at
+   (20, 2730, 16, 72) under the patch mask of 4 frames split into 5 images
+   (4 quadrants at VS_QUADRANT_HW, the original at VS_HW, padded to VS_HW):
+   the op, the kernel alone and the masked pre-pass against their twins,
+   SDPA with the boolean key mask as the yardstick.  Each within
+   KERNEL_REL_TOL (the pre-passes PREPASS_REL_TOL).  (c) VideoScore at full
+   dims (SigLIP 27 x 1152, 16 heads of 72, MLP 4304; the perceiver 3
+   layers of 64 latents, 16/4 heads of 96; Mistral-7B 32 x 4096, 32/8 of
+   128, vocabulary 32,003; 5 labels), random bf16 weights from a fresh
+   generator at SEED: a 16-frame clip of seeded pixels at VS_HW through
+   ``VideoScoreJudge.score_frames`` with ``WordTokenizer``'s prompt (1,024
+   image tokens, the 1,536 bucket): exact launches (27 K1, 32 K2, each
+   after its pre-pass), the 5 logits within LOGITS_REL_TOL of max|logit| of
+   fp32 plain, with S1's split (bf16 plain against fp32 plain, the kernels
+   against bf16 plain), the aggregate, ms a clip and the peak; then
+   ``do_image_splitting`` on 4 frames (27 K1m), held alike.  (d)
+   ``MiniCPMVJudge`` on MiniCPM-V-2.6 at full dims (SigLIP at 980; the
+   resampler of 64 queries, 28 heads of 128; Qwen2-7B 28 x 3584, 28/4
+   heads, MLP 18944, vocabulary 151,666, with biases), bf16 from a fresh
+   generator at SEED, a pair of seeded 8-frame videos at MCPM_HW (1,032
+   patches, 64 tokens a frame): ``judge_pair`` with the overall prompt (the
+   full prompt) and the short question (the prefix path), 64 greedy
+   tokens, exact launches (per video 27 K1; 28 K3 per prefill or
+   continuation; none in decode), teacher-forced logits of both paths
+   within LOGITS_REL_TOL of fp32 plain; vision ms a video, prefill ms, ms a
+   decode step at B = 2, answers/s and the peak.  (e) ``eval/cli.main
+   --judge videoscore`` and ``--judge minicpm-v`` with ``--byte-tokenizer``
+   on small-depth directories at full width (VS_CLI_DEPTH, MCPM_CLI_DEPTH)
+   of the published names (``write_hf_dir``), on ``seeded_video_source``'s
+   1280 x 720 frames: every results row equal to the port's judge built as
+   the CLI builds it, exact launches.  Prints its command time.
 """
 
 from __future__ import annotations
@@ -521,13 +558,14 @@ PREPASS_REL_TOL = 1e-6
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_scan_kernel", "key_norm_partial_kernel",
                 "key_norm_fold_kernel")
-# The forward template's 10 main-path instantiations (the 5 above; at
+# The forward template's 12 main-path instantiations (the 5 above; at
 # Phi-3's D = 96 K2 and K3 causal and not, each with the lse or without,
-# and K2r; at the Qwen2-VL tower's D = 80 K1) and B1's 4 and B2's 3 (B3 is
-# B2's hp 1), the backward template's 10, the pre-passes' 8 (the partial
-# pass at D = 64, 80, 96 and 128 and with the norms at 128 and 96, the
-# fold and the scan), the int8 GEMM's 2 and K6's pre-pass 1.
-SM90_INSTANTIATIONS = 38
+# and K2r; at the Qwen2-VL tower's D = 80 K1; at SigLIP's D = 72 K1 and
+# K1m) and B1's 4 and B2's 3 (B3 is B2's hp 1), the backward template's 10,
+# the pre-passes' 9 (the partial pass at D = 64, 72, 80, 96 and 128 and
+# with the norms at 128 and 96, the fold and the scan), the int8 GEMM's 2
+# and K6's pre-pass 1.
+SM90_INSTANTIATIONS = 41
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -677,6 +715,24 @@ QWEN_HEADS = {"2B": (12, 2), "7B": (28, 4)}
 QWEN_CLI_DEPTH = (4, 4)
 QWEN_CLI_PAIRS = 2
 QWEN_DECODE_STEPS = 16  # decode steps timed at B = 2, by difference
+# Phase 27: K1 at SigLIP-so400m's D = 72 at VideoScore's 16 frames of 39 x
+# 70 patches (a 1280 x 720 frame resized to 551 x 980), MiniCPM-V's pair of
+# 8 frames of 24 x 43 (602 x 336) and a 980 x 980 frame's 70 x 70 (past
+# JAX's 4,096-key nc limit); K1m at 4 frames split into 5 images each.
+SIGLIP_K1_SHAPES = ((16, 2730, 16, 72), (8, 1032, 16, 72), (1, 4900, 16, 72))
+VS_FRAMES = 16
+VS_HW = (551, 980)          # idefics2_resize_shape(720, 1280)
+VS_QUADRANT_HW = (378, 640)  # idefics2_resize_shape(360, 640)
+VS_SPLIT_FRAMES = 4
+VS_TIMED = 3
+MCPM_FRAMES = 8
+MCPM_HW = (336, 602)        # find_best_resize(1280, 720), (H, W)
+MCPM_DECODE_STEPS = 16      # decode steps timed at B = 2, by difference
+# The CLI's small-depth directories: (SigLIP, perceiver, Mistral) layers of
+# VideoScore, (SigLIP, Qwen2) of MiniCPM-V, at full width.
+VS_CLI_DEPTH = (2, 1, 2)
+MCPM_CLI_DEPTH = (2, 2)
+SIGLIP_CLI_PAIRS = 1
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -789,11 +845,12 @@ def _hold_op(label, op_fn, alone_fn, bound="kmax"):
 
 
 def _with_prepass(want):
-    """``want`` (launches by kernel) plus the pre-pass of K1 and K2,
-    ``key_norm_max``: one launch before every K1 and K2 op, with the lse or
-    without."""
+    """``want`` (launches by kernel) plus the pre-pass of K1, K1m and K2,
+    ``key_norm_max``: one launch before every K1, K1m and K2 op, with the
+    lse or without."""
     want = dict(want)
     want["key_norm_max"] = (want.get("vit_attention", 0)
+                            + want.get("vit_attention_masked", 0)
                             + want.get("decoder_attention", 0))
     return want
 
@@ -985,6 +1042,21 @@ def _sdpa(q, k, v, causal, backward=False, allowed=None):
     out = F.scaled_dot_product_attention(*leaves, **kw)
     dout = torch.randn_like(out)
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def _sdpa_at(q, k, v, mask, off):
+    """SDPA as the yardstick of a causal call with a key mask: without an
+    offset its causal flag (it takes no key mask: a little more work than
+    the kernel); at a per-row offset (a decode step, a continuation over a
+    prefix's cache), where its causal mask, aligned at the first query,
+    cannot serve, an explicit boolean mask of the keys each row sees (the
+    offset and the key mask: the same function)."""
+    if off is None:
+        return _sdpa(q, k, v, causal=True)
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    return _sdpa(q, k, v, causal=True,
+                 allowed=fa._decoder_allowed(q, k, mask, off))
 
 
 def check_vit_attention(randn, shape):
@@ -1325,9 +1397,7 @@ def check_judge_kernels(randn, name, shape, prefix=JUDGE_PREFIX, **inputs):
             lambda got: not got[0][dead].any())
     label = f"{shape[:6]} {name}"
     work = _attention_work(q, k, v, mask, off)
-    # SDPA's causal mask is aligned at the first query: no yardstick for a
-    # continuation at an offset.
-    library = _sdpa(q, k, v, causal=True) if off is None else None
+    library = _sdpa_at(q, k, v, mask, off)
     readings = {
         "K3": _check_kernel(
             f"K3 exact_attention {label}",
@@ -4405,8 +4475,6 @@ def check_d96_k3(randn, label, shape, causal=True):
     def kernel():
         return fa.exact_attention(q, k, v, mask, off, causal=causal)
 
-    # SDPA's causal mask is aligned at the first query: no yardstick for a
-    # query at an offset.
     return _check_kernel(
         f"K3 exact_attention {label} {shape[:6]}"
         f"{'' if causal else ' non-causal'}", kernel,
@@ -4415,7 +4483,8 @@ def check_d96_k3(randn, label, shape, causal=True):
               lambda got: not got[0][dead].any()),
         extra=_again(kernel), work=_attention_work(q, k, v, mask, off,
                                                    causal=causal),
-        library=_sdpa(q, k, v, causal=causal) if off is None else None)
+        library=_sdpa(q, k, v, causal=causal) if off is None
+        else _sdpa_at(q, k, v, mask, off))
 
 
 def time_d96_in_turns(randn, rounds=10):
@@ -5025,11 +5094,11 @@ def _qwen_teacher(judge, prompt, videos, prefix, teacher=None):
     with ``teacher`` the per-step logits."""
     import torch
 
-    from mjvideo_tpu_torch.models.qwen2vl import stack_prefixes
+    from mjvideo_tpu_torch.models.generate import stack_prefix_states
 
     if prefix:
         suffix = judge._prefix_suffix(prompt, list(videos))
-        state = stack_prefixes([judge._pstate(v) for v in videos])
+        state = stack_prefix_states([judge._pstate(v) for v in videos])
         out = judge._continue(state, suffix, teacher_tokens=teacher)
         return out if teacher is not None else out[0]
     out = judge._generate_full(prompt, list(videos), teacher_tokens=teacher)
@@ -5040,17 +5109,19 @@ def _qwen_teacher(judge, prompt, videos, prefix, teacher=None):
                          for row in out], device=judge.device)
 
 
-def qwen_logits_fidelity(judge, plain, prompt, videos, prefix, label):
-    """Teacher-forced per-step logits of one path, the kernel judge's
-    against the fp32 plain judge's on the kernel path's greedy tokens:
-    (max|delta| / max|plain|, tokens)."""
+def qwen_logits_fidelity(judge, plain, prompt, videos, prefix, label,
+                         name="qwen2vl judge"):
+    """Teacher-forced per-step logits of one path of a ``_GreedyLocalJudge``
+    (the Qwen2-VL and MiniCPM-V judges), the kernel judge's against the
+    fp32 plain judge's on the kernel path's greedy tokens: (max|delta| /
+    max|plain|, tokens)."""
     toks = _qwen_teacher(judge, prompt, videos, prefix)
     got = _qwen_teacher(judge, prompt, videos, prefix, toks)
     ref = _qwen_teacher(plain, prompt, videos, prefix, toks)
     if not bool(got.isfinite().all()):
-        raise RuntimeError(f"qwen2vl judge {label}: non-finite logits")
+        raise RuntimeError(f"{name} {label}: non-finite logits")
     err, rel = _rel_err(got, ref)
-    print(f"qwen2vl judge {label}: greedy tokens of row 0 begin "
+    print(f"{name} {label}: greedy tokens of row 0 begin "
           f"{toks[0, :8].tolist()}; teacher-forced logits over "
           f"{toks.shape[1]} steps, max|delta| {err:.4e}, relative to "
           f"max|plain logit| {rel:.4e} (bound {LOGITS_REL_TOL:.1e})")
@@ -5313,6 +5384,641 @@ def qwen2vl_phase(dev, generator, drawer):
     return out, k, launches
 
 
+class WordTokenizer:
+    """A stand-in for VideoScore's Llama tokenizer at about its token
+    counts, for the card (no tokenizer files there): ``<image>`` and
+    ``<fake_token_around_image>`` at the config's image id and the id
+    before it, every word or punctuation mark one id (its crc32 into
+    [3, 32000)), so the pad id 0 never appears.  The 16-frame prompt takes
+    about 1,340 tokens, 1,024 of them image tokens: the 1,536 bucket."""
+
+    def __init__(self, image_token_id):
+        self.specials = {"<fake_token_around_image>": image_token_id - 1,
+                         "<image>": image_token_id}
+
+    def __call__(self, text):
+        import re
+
+        ids = []
+        for part in re.split("(<fake_token_around_image>|<image>)", text):
+            if part in self.specials:
+                ids.append(self.specials[part])
+            else:
+                ids += [3 + zlib.crc32(w.encode()) % 31997
+                        for w in re.findall(r"\w+|[^\w\s]", part)]
+        return {"input_ids": ids, "attention_mask": [1] * len(ids)}
+
+
+def _at_d72(want):
+    """``want`` (launches by kernel) of a path whose ViT is SigLIP's, plus
+    the D = 72 names: K1 as ``vit_attention_d72``, the pre-pass of every K1
+    and K1m as ``key_norm_max_d72``, K1m's as ``key_norm_max_masked_d72``,
+    and ``key_norm_max`` (``_with_prepass``)."""
+    want = _with_prepass(want)
+    k1, k1m = want.get("vit_attention", 0), want.get("vit_attention_masked", 0)
+    want.update(vit_attention_d72=k1, key_norm_max_d72=k1 + k1m,
+                key_norm_max_masked_d72=k1m)
+    return {name: n for name, n in want.items() if n}
+
+
+def videoscore_split_mask(frames=None):
+    """The (N, H, W) int32 pixel mask of ``do_image_splitting``'s images of
+    ``frames`` 1280 x 720 frames as the Idefics2 processor pads them: per
+    frame 4 quadrants resized to VS_QUADRANT_HW and the original at VS_HW,
+    padded bottom/right to VS_HW."""
+    import numpy as np
+
+    sizes = [VS_QUADRANT_HW] * 4 + [VS_HW]
+    frames = VS_SPLIT_FRAMES if frames is None else frames
+    mask = np.zeros((frames * len(sizes), *VS_HW), np.int32)
+    for i in range(mask.shape[0]):
+        h, w = sizes[i % len(sizes)]
+        mask[i, :h, :w] = 1
+    return mask
+
+
+def videoscore_split_inputs(rng, frames=None):
+    """(pixels, pixel mask) of ``videoscore_split_mask``'s images: seeded
+    normal pixels where real, 0 in the padding."""
+    import numpy as np
+
+    mask = videoscore_split_mask(frames)
+    pix = rng.standard_normal((*mask.shape, 3), dtype=np.float32)
+    return pix * mask[..., None], mask
+
+
+def check_masked_vit_attention(randn, mask, heads=16, D=72):
+    """K1m (the op: the masked pre-pass and the kernel, one C call), the
+    kernel alone on the standalone masked kmax and the masked pre-pass,
+    each against its twin, at SigLIP's heads on q, k and v as the tower
+    makes them (three dense projections) under ``mask`` (N, S); the op
+    bit-equal to the kernel alone (``_hold_op``).  Returns the readings."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    N, S = mask.shape
+    q, k, v = (randn(N, S, heads, D) for _ in range(3))
+    label = f"{(N, S, heads, D)}, {int(mask.sum())} live keys"
+    work = _attention_work(q, k, v, mask, causal=False)
+    library = _sdpa(q, k, v, causal=False,
+                    allowed=(mask != 0)[:, None, :].expand(N, S, S))
+    kmax = kernels.key_norm_max(k, mask)
+    scale = D ** -0.5
+    _hold_op(f"K1m op {label}",
+             lambda: fa.vit_attention_masked(q, k, v, mask),
+             lambda: kernels.vit_attention_masked(q, k, v, mask, kmax, scale))
+    return {
+        "K1m": _check_kernel(
+            f"K1m vit_attention_masked (op: pre-pass and kernel) {label}",
+            lambda: fa.vit_attention_masked(q, k, v, mask),
+            lambda: fa.vit_attention_masked_plain(q, k, v, mask), work=work,
+            library=library),
+        "K1m kernel": _check_kernel(
+            f"K1m vit_attention_masked (kernel alone) {label}",
+            lambda: kernels.vit_attention_masked(q, k, v, mask, kmax, scale),
+            lambda: fa.vit_attention_masked_plain(q, k, v, mask), work=work,
+            library=library),
+        "K1m pre-pass": _check_prepass(label, k, mask)}
+
+
+def _score_split(label, kern, bf16_plain, fp32_plain):
+    """S1's split of a VideoScore reading: the kernels against fp32 plain
+    (held to LOGITS_REL_TOL of max|logit|), bf16 plain against fp32 plain
+    and the kernels against bf16 plain (printed)."""
+    import torch
+
+    t = {n: torch.as_tensor(a) for n, a in (("kern", kern),
+                                            ("bf16", bf16_plain),
+                                            ("fp32", fp32_plain))}
+    if not bool(t["kern"].isfinite().all()):
+        raise RuntimeError(f"videoscore {label}: non-finite logits")
+    rel = _rel_err(t["kern"], t["fp32"])[1]
+    split = (_rel_err(t["bf16"], t["fp32"])[1],
+             _rel_err(t["kern"], t["bf16"])[1])
+    print(f"videoscore {label}: logits {[round(float(x), 4) for x in kern]};"
+          f" kernels against fp32 plain {rel:.4e} of max|logit| (bound "
+          f"{LOGITS_REL_TOL:.1e}); bf16 plain against fp32 plain "
+          f"{split[0]:.4e}, kernels against bf16 plain {split[1]:.4e}")
+    if not rel <= LOGITS_REL_TOL:
+        raise RuntimeError(f"videoscore {label}: {rel} > {LOGITS_REL_TOL}")
+    return {"rel": rel, "bf16_plain_rel": split[0],
+            "kernels_vs_bf16_plain_rel": split[1]}
+
+
+def videoscore_phase(dev, generator):
+    """Phase 27 (c): VideoScore at full dims (SigLIP-so400m, the perceiver,
+    Mistral-7B, 5 labels), random bf16 weights from a fresh generator at
+    SEED, on a 16-frame clip of seeded pixels at VS_HW through
+    ``VideoScoreJudge.score_frames`` (``WordTokenizer``'s prompt):
+    launches exact (27 K1 and 32 K2, each after its pre-pass), the 5 logits
+    against fp32 plain with S1's split, the aggregate, ms a clip and the
+    peak; then ``do_image_splitting``'s 20 images of 4 frames (K1m: 27
+    launches), against fp32 plain too.  The fp32 copy is made once, for
+    both readings.  Returns the readings and the launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import kernels, map_state
+    from mjvideo_tpu_torch.eval.judges import (
+        VideoScoreJudge,
+        videoscore_prompt,
+    )
+    from mjvideo_tpu_torch.models.videoscore import (
+        VideoScoreConfig,
+        init_videoscore_params,
+    )
+
+    cfg = VideoScoreConfig(num_labels=5)
+    L_vit, L_llm = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    state = init_videoscore_params(cfg, generator=generator(), device=dev,
+                                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out["state_s"] = time.perf_counter() - t0
+    out["params"] = sum(t.numel() for t in _flat_state(state).values())
+    print(f"VideoScore state (bf16, {out['params'] / 1e9:.2f} B parameters) "
+          f"made on the card in {out['state_s']:.1f} s")
+    tok = WordTokenizer(cfg.image_token_id)
+    rng = np.random.default_rng(SEED)
+    clip = rng.standard_normal((VS_FRAMES, *VS_HW, 3), dtype=np.float32)
+    split_pix, split_mask = videoscore_split_inputs(rng)
+
+    def inputs(judge, n_frames):
+        ids, mask = judge.tokenize(videoscore_prompt(JUDGE_CAPTION,
+                                                     n_frames))
+        return np.asarray([ids]), np.asarray([mask])
+
+    def judge_of(params, dtype, impl, split):
+        return VideoScoreJudge(tokenizer=tok, cfg=cfg, params=params,
+                               dtype=dtype, attn_impl=impl,
+                               do_image_splitting=split)
+
+    judge = judge_of(state, torch.bfloat16, "auto", False)
+    split_judge = judge_of(state, torch.bfloat16, "auto", True)
+    ids, mask = inputs(judge, VS_FRAMES)
+    sids, smask = inputs(split_judge, VS_SPLIT_FRAMES)
+    out["prompt_tokens"], out["split_prompt_tokens"] = (ids.shape[1],
+                                                        sids.shape[1])
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    kern = judge.score_frames(clip, ids, mask)
+    torch.cuda.synchronize()
+    launches["videoscore"] = _held_launches("videoscore clip", _at_d72({
+        "vit_attention": L_vit, "decoder_attention": L_llm}))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["aggregate"] = judge.aggregate(kern)
+    out["ms_per_clip"] = _host_ms(lambda: judge.score_frames(clip, ids, mask),
+                                  reps=VS_TIMED)
+    kernels.reset_launch_counts()
+    split_kern = split_judge.score_frames(split_pix, sids, smask, split_mask)
+    torch.cuda.synchronize()
+    launches["videoscore_split"] = _held_launches(
+        "videoscore split frames", _at_d72({
+            "vit_attention_masked": L_vit, "decoder_attention": L_llm}))
+    out["split_ms"] = _host_ms(lambda: split_judge.score_frames(
+        split_pix, sids, smask, split_mask), reps=1)
+    print(f"videoscore: a {VS_FRAMES}-frame clip ({VS_FRAMES} x "
+          f"{(VS_HW[0] // 14) * (VS_HW[1] // 14)} patches, "
+          f"{out['prompt_tokens']} tokens) aggregate {out['aggregate']:.3f}, "
+          f"{out['ms_per_clip']:.1f} ms a clip (median of {VS_TIMED}), peak "
+          f"{out['peak_gib']:.2f} GiB; {VS_SPLIT_FRAMES} split frames "
+          f"({split_pix.shape[0]} images, {out['split_prompt_tokens']} "
+          f"tokens) {out['split_ms']:.1f} ms")
+    plain16 = judge_of(state, torch.bfloat16, "plain", False)
+    bf16 = (plain16.score_frames(clip, ids, mask),
+            judge_of(state, torch.bfloat16, "plain", True).score_frames(
+                split_pix, sids, smask, split_mask))
+    del plain16
+    fstate = map_state(lambda t: t.float(), state)
+    fp32 = (judge_of(fstate, torch.float32, "plain", False).score_frames(
+        clip, ids, mask), judge_of(fstate, torch.float32, "plain",
+                                   True).score_frames(split_pix, sids, smask,
+                                                      split_mask))
+    del fstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["clip"] = _score_split("clip", kern, bf16[0], fp32[0])
+    out["split"] = _score_split("split frames", split_kern, bf16[1], fp32[1])
+    del judge, split_judge, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _seeded_minicpm_encode(judge, video_path):
+    """``MiniCPMVJudge._encode_video`` on seeded pixels of MCPM_FRAMES
+    frames at MCPM_HW (the resized and normalised 1280 x 720 frames) in
+    place of a decoded video: the tower in the weights' dtype."""
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch.models.minicpmv import (
+        get_vision_embedding,
+        vision_dtype,
+    )
+
+    rng = np.random.default_rng([SEED, _path_seed(video_path)])
+    pix = rng.standard_normal((MCPM_FRAMES, *MCPM_HW, 3), dtype=np.float32)
+    with torch.no_grad():
+        vis = get_vision_embedding(
+            judge.params, judge.cfg,
+            torch.from_numpy(pix).to(judge.device, vision_dtype(judge.params)),
+            impl=judge.attn_impl)
+    return vis, MCPM_FRAMES
+
+
+def make_minicpm_judge(cfg, state, tok, **kw):
+    """A ``MiniCPMVJudge`` whose videos are seeded pixels
+    (``_seeded_minicpm_encode``); fp32 weights take the plain path."""
+    import torch
+
+    from mjvideo_tpu_torch.eval.judges import MiniCPMVJudge
+    from mjvideo_tpu_torch.utils.bridge import first_tensor
+
+    class SeededMiniCPMVJudge(MiniCPMVJudge):
+        _encode_video = _seeded_minicpm_encode
+
+    impl = "plain" if first_tensor(state).dtype == torch.float32 else "auto"
+    kw = {"num_segments": MCPM_FRAMES, "max_new_tokens": JUDGE_NEW_TOKENS,
+          "attn_impl": impl, **kw}
+    return SeededMiniCPMVJudge(cfg, state, tok, **kw)
+
+
+def minicpmv_phase(dev, generator):
+    """Phase 27 (d): ``MiniCPMVJudge`` on MiniCPM-V-2.6 at full dims
+    (SigLIP-so400m at 980, the resampler of 64 queries over 28 heads of
+    128, Qwen2-7B with its biases and a 151,666-row untied head), random
+    bf16 weights from a fresh generator at SEED, a pair of seeded 8-frame
+    videos (``_seeded_minicpm_encode``): ``judge_pair`` with the overall
+    prompt (the full prompt) and a short question (the prefix path), 64
+    greedy tokens; launches exact (per video 27 K1 after their pre-passes;
+    28 K3 per prefill or continuation; none in decode); teacher-forced
+    logits of both paths against the same weights in fp32 through
+    ``impl="plain"``; the tower's ms a video, the pair's prefill, a decode
+    step at B = 2, answers/s by each path and the peak.  Returns the
+    readings and the launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import judge_pair, kernels, map_state
+    from mjvideo_tpu_torch import overall_prompt
+    from mjvideo_tpu_torch.data.prompts import ByteTokenizer
+    from mjvideo_tpu_torch.models.minicpmv import (
+        MiniCPMVConfig,
+        build_video_prompt_ids,
+        get_vision_embedding,
+        greedy_generate_batch,
+        init_minicpmv_params,
+    )
+
+    cfg = MiniCPMVConfig()
+    L_vit, L_llm = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
+    videos = ("video_0", "video_1")
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    state = init_minicpmv_params(cfg, generator=generator(), device=dev,
+                                 dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out["state_s"] = time.perf_counter() - t0
+    out["params"] = sum(t.numel() for t in _flat_state(state).values())
+    print(f"MiniCPM-V-2.6 state (bf16, {out['params'] / 1e9:.2f} B "
+          f"parameters) made on the card in {out['state_s']:.1f} s")
+    tok = ByteTokenizer()
+    torch.cuda.reset_peak_memory_stats(dev)
+    judge = make_minicpm_judge(cfg, state, tok)
+    kernels.reset_launch_counts()
+    s0, s1, r0, r1 = judge_pair(judge, *videos, JUDGE_CAPTION)
+    torch.cuda.synchronize()
+    launches["minicpmv_judge_full"] = _held_launches(
+        "minicpmv judge full prompt", _at_d72({
+            "vit_attention": 2 * L_vit, "exact_attention": L_llm}))
+    print(f"minicpmv judge full prompt: ratings {s0}, {s1}; answers "
+          f"{r0!r:.60}, {r1!r:.60}")
+    kernels.reset_launch_counts()
+    judge.ask_batch(JUDGE_QUESTION, list(videos))
+    torch.cuda.synchronize()
+    launches["minicpmv_judge_prefix"] = _held_launches(
+        "minicpmv judge prefix", {"exact_attention": 3 * L_llm})
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    plain = make_minicpm_judge(cfg, map_state(lambda t: t.float(), state),
+                               tok)
+    prompt = overall_prompt(JUDGE_CAPTION)
+    out["full_rel"], _ = qwen_logits_fidelity(
+        judge, plain, prompt, videos, False, "full prompt", "minicpmv judge")
+    out["prefix_rel"], _ = qwen_logits_fidelity(
+        judge, plain, JUDGE_QUESTION, videos, True, "prefix",
+        "minicpmv judge")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("full_rel", "prefix_rel"):
+        if not out[key] <= LOGITS_REL_TOL:
+            raise RuntimeError(f"minicpmv judge {key} {out[key]} > "
+                               f"{LOGITS_REL_TOL}")
+    pix = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (MCPM_FRAMES, *MCPM_HW, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        out["vision_ms"] = _host_ms(lambda: get_vision_embedding(
+            state, cfg, pix))
+    preps = [judge._prep(v) for v in videos]
+    items = [(build_video_prompt_ids(tok, cfg, n, prompt), None)
+             for _, n in preps]
+
+    def generate(n):
+        return greedy_generate_batch(state, cfg, items, max_new_tokens=n,
+                                     eos_token_id=-1,
+                                     vision_embeds=[v for v, _ in preps])
+
+    out["prefill_ms"] = _host_ms(lambda: generate(1))
+    steps_ms = _host_ms(lambda: generate(1 + MCPM_DECODE_STEPS))
+    out["decode_step_ms"] = (steps_ms - out["prefill_ms"]) / MCPM_DECODE_STEPS
+    out["pair_full_s"] = _host_ms(
+        lambda: judge_pair(judge, *videos, JUDGE_CAPTION)) / 1e3
+    out["pair_prefix_s"] = _host_ms(
+        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+    out["prompt_tokens"] = items[0][0].shape[1]
+    print(f"minicpmv judge time: vision tower {out['vision_ms']:.1f} ms a "
+          f"video ({MCPM_FRAMES} frames of {MCPM_HW}); the pair's "
+          f"full-prompt prefill ({out['prompt_tokens']} tokens a row) "
+          f"{out['prefill_ms']:.1f} ms; decode step at B = 2 "
+          f"{out['decode_step_ms']:.2f} ms (by difference over "
+          f"{MCPM_DECODE_STEPS}); a pair: full prompt "
+          f"{out['pair_full_s']:.3f} s ({2 / out['pair_full_s']:.2f} "
+          f"answers/s), prefix path {out['pair_prefix_s']:.3f} s "
+          f"({2 / out['pair_prefix_s']:.2f} answers/s), at most "
+          f"{JUDGE_NEW_TOKENS} new tokens; peak memory {out['peak_gib']:.2f}"
+          " GiB")
+    del judge, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def siglip_cli_phase(dev, generator):
+    """Phase 27 (e): ``eval/cli.main --judge videoscore`` and ``--judge
+    minicpm-v`` under ``--byte-tokenizer`` on small-depth HF directories
+    at full width (VS_CLI_DEPTH, MCPM_CLI_DEPTH; the published names,
+    ``write_hf_dir``), bf16 states from ``generator``, videos from
+    ``seeded_video_source`` (1280 x 720 frames, the judges' own
+    preprocessing); every results row equal to the port's judge built as
+    the CLI builds it on the directory, launches exact.  Returns the
+    readings and the launches."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from mjvideo_tpu_torch import judge_pair, kernels
+    from mjvideo_tpu_torch.data.prompts import ByteTokenizer
+    from mjvideo_tpu_torch.eval import cli
+    from mjvideo_tpu_torch.eval.judges import MiniCPMVJudge, VideoScoreJudge
+    from mjvideo_tpu_torch.models import minicpmv as mm
+    from mjvideo_tpu_torch.models import videoscore as vs
+    from mjvideo_tpu_torch.utils.checkpoint import load_safetensors_dir
+
+    out, launches = {}, {}
+    vcfg = vs.VideoScoreConfig(num_labels=5)
+    vcfg = dataclasses.replace(
+        vcfg, vision=dataclasses.replace(
+            vcfg.vision, num_hidden_layers=VS_CLI_DEPTH[0]),
+        perceiver=dataclasses.replace(vcfg.perceiver, depth=VS_CLI_DEPTH[1]),
+        text=dataclasses.replace(vcfg.text,
+                                 num_hidden_layers=VS_CLI_DEPTH[2]))
+    mcfg = mm.MiniCPMVConfig()
+    mcfg = dataclasses.replace(
+        mcfg, vision=dataclasses.replace(
+            mcfg.vision, num_hidden_layers=MCPM_CLI_DEPTH[0]),
+        text=dataclasses.replace(mcfg.text,
+                                 num_hidden_layers=MCPM_CLI_DEPTH[1]))
+    d = tempfile.mkdtemp()
+    try:
+        records = [{"caption": f"{JUDGE_CAPTION} ({i})",
+                    "video_0_path": f"clip_{i}_0.mp4",
+                    "video_1_path": f"clip_{i}_1.mp4",
+                    "overall_preference": EVAL_PREFERENCES[i % 2]}
+                   for i in range(SIGLIP_CLI_PAIRS)]
+        data = os.path.join(d, "pairs.json")
+        with open(data, "w") as f:
+            json.dump(records, f)
+        n = SIGLIP_CLI_PAIRS
+        for name, cfg, init, hf, to_hf, want in (
+                ("videoscore", vcfg, vs.init_videoscore_params,
+                 videoscore_hf_state, vs.videoscore_config_to_hf,
+                 _at_d72({"vit_attention": 2 * n * VS_CLI_DEPTH[0],
+                          "decoder_attention": 2 * n * VS_CLI_DEPTH[2]})),
+                ("minicpm-v", mcfg, mm.init_minicpmv_params,
+                 minicpmv_hf_state, mm.minicpmv_config_to_hf,
+                 _at_d72({"vit_attention": 2 * n * MCPM_CLI_DEPTH[0],
+                          "exact_attention": n * MCPM_CLI_DEPTH[1]}))):
+            ckpt = os.path.join(d, name)
+            t0 = time.perf_counter()
+            state = init(cfg, generator=generator(), device=dev,
+                         dtype=torch.bfloat16)
+            write_hf_dir(ckpt, to_hf(cfg), hf(state, cfg))
+            del state
+            write_s = time.perf_counter() - t0
+            results = os.path.join(d, f"{name}.jsonl")
+            with seeded_video_source():
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                cli.main(["--benchmark", "overall", "--judge", name,
+                          "--judge-model", ckpt, "--byte-tokenizer",
+                          "--data-json", data, "--video-root", d,
+                          "--results", results])
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - t0
+                launches[f"{name}_cli"] = _held_launches(f"{name} CLI", want)
+                rows = [json.loads(line) for line in open(results)]
+                paths = [(os.path.join(d, r["video_0_path"]),
+                          os.path.join(d, r["video_1_path"]), r["caption"])
+                         for r in records]
+                if name == "videoscore":
+                    judge = VideoScoreJudge(
+                        ckpt, device=dev, tokenizer=ByteTokenizer(
+                            pad_token_id=cfg.text.pad_token_id,
+                            extra_specials={
+                                "<fake_token_around_image>":
+                                cfg.image_token_id - 1,
+                                "<image>": cfg.image_token_id}))
+                    want_rows = [(judge.score(a, c), judge.score(b, c))
+                                 for a, b, c in paths]
+                    got = [(r["score_0"], r["score_1"]) for r in rows]
+                else:
+                    params = mm.import_minicpmv_params(
+                        load_safetensors_dir(ckpt), cfg, torch.bfloat16,
+                        device=dev)
+                    judge = MiniCPMVJudge(cfg, params, ByteTokenizer())
+                    want_rows = [judge_pair(judge, a, b, c)
+                                 for a, b, c in paths]
+                    got = [(r["score_0"], r["score_1"], r["response_0"],
+                            r["response_1"]) for r in rows]
+                del judge
+            same = got == [tuple(w) for w in want_rows]
+            out[name] = {"write_s": write_s, "cli_s": cli_s,
+                         "rows_equal": same, "rows": len(rows)}
+            print(f"{name} CLI on a small-depth directory (written in "
+                  f"{write_s:.1f} s): {len(rows)} rows in {cli_s:.1f} s; "
+                  f"every row equal to the judge's: {same}")
+            if not (same and len(rows) == n):
+                raise RuntimeError(f"{name} CLI: rows {got} against "
+                                   f"{want_rows}")
+            shutil.rmtree(ckpt)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d)
+    return out, launches
+
+
+def _split_patch_mask(dev):
+    """(20, 2730) int32: the patch mask of VideoScore's split frames
+    (``videoscore_split_mask`` pooled as ``videoscore_forward`` pools it),
+    K1m's key mask in phase 27 (c) and its check in (b)."""
+    import torch
+
+    from mjvideo_tpu_torch.models.videoscore import patch_mask_from_pixels
+
+    patch = patch_mask_from_pixels(torch.from_numpy(videoscore_split_mask()),
+                                   14)
+    return patch.reshape(patch.shape[0], -1).to(dev, torch.int32)
+
+
+def siglip_phase(dev, generator, drawer):
+    """Phase 27: the D = 72 kernel checks, VideoScore, MiniCPM-V-2.6 and
+    their CLI (see the module docstring).  Returns the readings, the kernel
+    readings and the launch counts by path."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    randn = drawer(generator())
+    k = {"K1": {s: check_vit_attention(randn, s) for s in SIGLIP_K1_SHAPES}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    k["K1m"] = check_masked_vit_attention(randn, _split_patch_mask(dev))
+    out = {"kernels_s": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["videoscore"], launches = videoscore_phase(dev, generator)
+    out["videoscore"]["command_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["minicpmv"], more = minicpmv_phase(dev, generator)
+    launches.update(more)
+    out["minicpmv"]["command_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["cli"], more = siglip_cli_phase(dev, generator)
+    launches.update(more)
+    out["cli"]["command_s"] = time.perf_counter() - t1
+    out["command_s"] = time.perf_counter() - t0
+    print(f"phase 27 command time {out['command_s']:.1f} s")
+    return out, k, launches
+
+
+def siglip_hf_state(vis, cfg_vision, prefix):
+    """A SigLIP tower's state under the published torch names (the inverse
+    of ``utils.checkpoint.import_siglip_vision``), views of the state:
+    VideoScore's ``vision_model.*``, MiniCPM-V's ``vpm.*``."""
+    P = cfg_vision.patch_size
+    emb = vis["patch_embedding"]
+    out = {prefix + "embeddings.patch_embedding.weight":
+           emb["kernel"].reshape(P, P, 3, -1).permute(3, 2, 0, 1),
+           prefix + "embeddings.patch_embedding.bias": emb["bias"],
+           prefix + "embeddings.position_embedding.weight":
+           vis["position_embedding"],
+           prefix + "post_layernorm.weight": vis["post_layernorm"]["weight"],
+           prefix + "post_layernorm.bias": vis["post_layernorm"]["bias"]}
+    names = {"ln1": "layer_norm1", "ln2": "layer_norm2",
+             "q": "self_attn.q_proj", "k": "self_attn.k_proj",
+             "v": "self_attn.v_proj", "o": "self_attn.out_proj",
+             "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    lp = vis["layers"]
+    for i in range(cfg_vision.num_hidden_layers):
+        pre = f"{prefix}encoder.layers.{i}."
+        for ours, hf in names.items():
+            node = lp[ours]
+            out[f"{pre}{hf}.weight"] = (node["weight"][i] if "weight" in node
+                                        else node["kernel"][i].t())
+            out[f"{pre}{hf}.bias"] = node["bias"][i]
+    return out
+
+
+def videoscore_hf_state(state, cfg):
+    """A VideoScore state under the published Idefics2 names (no whole-model
+    exporter exists, in the JAX package or the port): the tower's, the
+    connector's (``modality_projection``, ``perceiver_resampler``), the
+    Mistral text model's as ``text_model.*`` (the port's Llama exporter)
+    and ``score.weight``; views of the state."""
+    from mjvideo_tpu_torch.utils.export import export_decoder
+
+    out = siglip_hf_state(state["vision_model"], cfg.vision, "vision_model.")
+    c = state["connector"]
+    for n in ("gate", "up", "down"):
+        out[f"connector.modality_projection.{n}_proj.weight"] = c[
+            "modality_projection"][n]["kernel"].t()
+    pr = "connector.perceiver_resampler."
+    out[pr + "latents"] = c["latents"]
+    out[pr + "norm.weight"] = c["norm"]["weight"]
+    lp = c["layers"]
+    norms = {"ln_latents": "input_latents_norm",
+             "ln_context": "input_context_norm",
+             "ln_post": "post_attention_layernorm"}
+    for i in range(cfg.perceiver.depth):
+        pre = f"{pr}layers.{i}."
+        for ours, hf in norms.items():
+            out[f"{pre}{hf}.weight"] = lp[ours]["weight"][i]
+        for n in ("q", "k", "v", "o"):
+            out[f"{pre}self_attn.{n}_proj.weight"] = lp[n]["kernel"][i].t()
+        for n in ("gate", "up", "down"):
+            out[f"{pre}mlp.{n}_proj.weight"] = lp[n]["kernel"][i].t()
+    for k, v in export_decoder(state["text"], cfg.text, prefix="").items():
+        out["text_model." + k[len("model."):]] = v
+    out["score.weight"] = state["score"]["kernel"].t()
+    return out
+
+
+def minicpmv_hf_state(state, cfg):
+    """A MiniCPM-V-2.6 state under the published names: ``vpm.*``,
+    ``resampler.*`` (the packed ``attn.in_proj_weight``) and Qwen2's
+    ``llm.model.*`` and ``llm.lm_head.weight``, which has no o_proj bias
+    (the importer fills zeros); views of the state."""
+    from mjvideo_tpu_torch.utils.export import export_decoder
+
+    out = siglip_hf_state(state["vpm"], cfg.vision, "vpm.")
+    r = state["resampler"]
+    out.update({
+        "resampler.query": r["query"], "resampler.proj": r["proj"],
+        "resampler.kv_proj.weight": r["kv_proj"]["kernel"].t(),
+        "resampler.attn.in_proj_weight": r["attn"]["in_proj"]["kernel"].t(),
+        "resampler.attn.in_proj_bias": r["attn"]["in_proj"]["bias"],
+        "resampler.attn.out_proj.weight":
+        r["attn"]["out_proj"]["kernel"].t(),
+        "resampler.attn.out_proj.bias": r["attn"]["out_proj"]["bias"]})
+    for n in ("ln_q", "ln_kv", "ln_post"):
+        out[f"resampler.{n}.weight"] = r[n]["weight"]
+        out[f"resampler.{n}.bias"] = r[n]["bias"]
+    out.update({k: v for k, v in export_decoder(
+        state["llm"], cfg.text, prefix="llm.").items()
+        if not k.endswith("o_proj.bias")})
+    return out
+
+
+def write_hf_dir(d, hf_config, hf_state):
+    """An HF checkpoint directory: ``config.json`` and one F32 safetensors
+    file of ``hf_state`` (brought to the host a tensor at a time)."""
+    from mjvideo_tpu_torch.utils.export import save_safetensors
+
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf_config, f)
+    save_safetensors(hf_state, os.path.join(d, "model.safetensors"))
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
     ``tools/phase25_torch.py``): the card and its power limit printed, TF32
@@ -5559,6 +6265,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out_26, k26, launches_26 = qwen2vl_phase(dev, generator, drawer)
+    # Phase 27: SigLIP's K1 at D = 72 and K1m, VideoScore, MiniCPM-V-2.6
+    # and their CLI, on fresh states.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_27, k27, launches_27 = siglip_phase(dev, generator, drawer)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -5570,7 +6281,7 @@ def main() -> int:
                **sp_score_launches, **sp_train_launches, **long_launches,
                **ckpt_launches, **frames_launches, **sweep_launches,
                **harness_launches, **launches_4b, **launches_25,
-               **launches_26}
+               **launches_26, **launches_27}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -5606,6 +6317,8 @@ def main() -> int:
     ring_96 = grad96["ring"]
     k4_96 = grad96["k4_turns"]
     k1_80 = k26["K1"][QWEN_K1_SHAPES[0]]
+    k1_72 = k27["K1"][SIGLIP_K1_SHAPES[0]]
+    k1m = k27["K1m"]
     rows_96 = k26["K2r ragged"][D96_K2_SHAPES[-1]]
     summary = {"kernels": [
         {"name": "vit_attention", "route": "cuda",
@@ -5903,6 +6616,43 @@ def main() -> int:
          **rows_96["K2r pre-pass"],
          "at_judge_shapes": {n: brief(r["K2r pre-pass"])
                              for n, r in k26["K2r judge"].items()}},
+        # Phase 27's forms: K1 at SigLIP-so400m's D = 72 (Config D72,
+        # D128's layout, q k^T over 5 k-steps) and its pre-pass; K1m, K2's
+        # masked path not causal at D = 72, and its masked pre-pass.
+        {"name": "vit_attention_d72", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/vit_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:99",
+         **counts("vit_attention_d72"), "shape": SIGLIP_K1_SHAPES[0],
+         **k1_72["K1"], "kernel_alone": brief(k1_72["K1 kernel"]),
+         "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K1", "K1 kernel")}
+                       for sh, r in k27["K1"].items()}},
+        {"name": "key_norm_max_d72", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:131",
+         "design": "key_norm_partial_kernel<72>: 16 lanes a key vector, 7 "
+                   "of them adding nothing; the op's partials folded by K1 "
+                   "or K1m after griddepcontrol.wait",
+         **counts("key_norm_max_d72"), "shape": SIGLIP_K1_SHAPES[0],
+         **k1_72["K1 pre-pass"],
+         "at_shapes": {str(sh): brief(r["K1 pre-pass"]) | {
+             "device_ms": r["K1 pre-pass"]["device_ms"]}
+             for sh, r in k27["K1"].items()}},
+        {"name": "vit_attention_masked", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:318",
+         **counts("vit_attention_masked"),
+         "shape": (VS_SPLIT_FRAMES * 5, 2730, 16, 72), **k1m["K1m"],
+         "kernel_alone": brief(k1m["K1m kernel"])},
+        {"name": "key_norm_max_masked_d72", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:484",
+         "design": "key_norm_partial_kernel<72> with the patch mask: a "
+                   "padded patch's key gives nothing; folded by K1m",
+         **counts("key_norm_max_masked_d72"),
+         "shape": (VS_SPLIT_FRAMES * 5, 2730, 16, 72),
+         **k1m["K1m pre-pass"]},
         {"name": "q8g_matmul_fused", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
@@ -5993,6 +6743,7 @@ def main() -> int:
             "device_batch_sweep": {str(k): v for k, v in sweep_out.items()}},
         "eval_harness": harness_out, "mjvideo_4b": out_4b,
         "mjvideo_4b_gradients": out_25, "qwen2vl": out_26,
+        "siglip_judges": out_27,
         "qwen2vl_decoder_kernels": {f"{size} {name}": {
             n: brief(r[n]) for n in ("K3", "K2r", "K2r kernel")}
             for (size, name), r in k26["qwen"].items()},

@@ -4,9 +4,11 @@ The MJ-VIDEO-2B scoring path (``RewardScorer.score_batch`` ->
 ``reward_forward`` -> ViT -> pixel-shuffle -> projector -> ``<IMG_CONTEXT>``
 scatter -> InternLM2 decoder -> reward head) and MJ-VIDEO-4B's (the
 Phi-3-mini decoder: the same layer, its own checkpoint layout), the 2B's
-training step (``train/``), and cached generation with the InternVL2 and
-Qwen2-VL judges (``models/generate.py``, ``models/qwen2vl.py``,
-``eval/judges.py``) in PyTorch, with hand-written
+training step (``train/``), cached generation with the InternVL2,
+Qwen2-VL and MiniCPM-V-2.6 judges (``models/generate.py``,
+``models/qwen2vl.py``, ``models/minicpmv.py``, ``eval/judges.py``) and the
+VideoScore regression judge (``models/videoscore.py``: the SigLIP tower
+the MiniCPM-V judge shares) in PyTorch, with hand-written
 CUDA kernels for the attention forwards and backward and the quantized
 products (``kernels.py``, ``csrc/``); quantized serving
 (``RewardScorer(quant=...)``, ``InternVLJudge(quant=...)``) through
@@ -55,7 +57,9 @@ from .data.dataset import (  # noqa: F401
 from .data.labels import deal_preference, pair_record_labels  # noqa: F401
 from .eval.judges import (  # noqa: F401
     InternVLJudge,
+    MiniCPMVJudge,
     Qwen2VLJudge,
+    VideoScoreJudge,
     fine_grained_accuracy,
     fine_grained_prompt,
     judge_pair,

@@ -19,7 +19,8 @@
 // kmax comes from the pre-pass below, on the card; the TPU path reduced it
 // with one XLA reduce outside the kernel (flash_attention.py:484-511).  The
 // same pre-pass serves K1 and K1 lse (vit_attention.cu) at D = 64 and K1
-// at D = 80.  The
+// at D = 80 and 72, and, with SigLIP's patch mask, K1m at D = 72 (below).
+// The
 // op's entries (mjv_decoder_attention_op here, mjv_vit_attention_op in
 // vit_attention.cu) make one C call of the pre-pass's partial pass and the
 // attention kernel, launched behind it as a programmatic dependent that
@@ -74,13 +75,16 @@ using sm90::bf16;
 // for a masked key, so that kcum's last column is kmax to the bit.  At
 // D = 96 (Phi-3) a vector takes 16 lanes, of which the last 4 add nothing,
 // and at D = 80 (the Qwen2-VL vision tower) 16 lanes of which the last 6
-// add nothing: the butterfly runs over a power of two of lanes, whole
-// vectors a warp, and the exact double sum does not see them.
+// add nothing, at D = 72 (SigLIP-so400m: 9 pieces of 16 bytes) 16 lanes of
+// which the last 7 add nothing: the butterfly runs over a power of two of
+// lanes, whole vectors a warp, and the exact double sum does not see them.
+// At D = 72 the pass also runs with SigLIP's patch mask (the masked
+// non-causal form below): a padded patch's key gives nothing.
 constexpr int kPartThreads = 256;
 constexpr int kPartLoads = 4;  // 16-byte loads in flight per thread
 
 // The lanes of one key vector: its 16-byte pieces, rounded up to a power
-// of two (D = 80's 10 pieces and D = 96's 12 take 16 lanes).
+// of two (D = 72's 9 pieces, D = 80's 10 and D = 96's 12 take 16 lanes).
 __host__ __device__ constexpr int key_norm_lanes(int D) {
   return D / 8 <= 8 ? 8 : 16;
 }
@@ -92,8 +96,8 @@ key_norm_partial_kernel(const bf16* __restrict__ k,
                         float* __restrict__ part, float* __restrict__ norms,
                         int K, int Hkv, int chunk, long long ksb,
                         long long kss) {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
-                "head dim 64, 80, 96 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 72,
+                "head dim 64, 72, 80, 96 or 128");
   constexpr int kPieces = D / 8;  // 16-byte pieces of one key vector
   constexpr int kLanes = key_norm_lanes(D);  // lanes a vector
   constexpr int kSlotStep = kPartThreads / kLanes;  // vectors per load step
@@ -105,9 +109,9 @@ key_norm_partial_kernel(const bf16* __restrict__ k,
   const int per = kVecs / Hkv;  // whole keys a pass
   const int used = per * Hkv;   // slots a pass
   const int piece = threadIdx.x % kLanes;
-  // D = 80 and 96: the lanes past the vector's 10 or 12 pieces load its
-  // last piece again (in bounds, the same line) and add nothing to its sum;
-  // an address predicated on the piece instead spilled.
+  // D = 72, 80 and 96: the lanes past the vector's 9, 10 or 12 pieces load
+  // its last piece again (in bounds, the same line) and add nothing to its
+  // sum; an address predicated on the piece instead spilled.
   constexpr bool kSpare = kPieces < kLanes;
   const bf16* kb = k + b * ksb + (long long)j0 * kss +
                    (kSpare ? min(piece, kPieces - 1) : piece) * 8;
@@ -198,16 +202,21 @@ key_norm_fold_kernel(const float* __restrict__ part, float* __restrict__ out,
 }
 
 // The head dims of the decoders' kernels K2, K2 lse and K2r and of K2r's
-// per-key norms: InternLM2-1.8B's 128 and Phi-3's 96.
+// per-key norms: InternLM2-1.8B's 128 and Phi-3's 96.  Non-causal, K2's
+// masked path also takes SigLIP-so400m's 72 (the masked form below), and
+// only that form.
 static bool k2_head_dim(int D) { return D == 128 || D == 96; }
+static bool k2_head_dim(int D, bool causal) {
+  return causal ? k2_head_dim(D) : D == 72;
+}
 
 // The partial pass on `stream`: part (B, nparts, Hkv) fp32, 1 <= nparts <=
-// K, D = 64, 80, 96 or 128; with norms (B, Hkv, K) fp32 not null (D = 128
-// or 96, the decoders' head dims), K2r's form.
+// K, D = 64, 72, 80, 96 or 128; with norms (B, Hkv, K) fp32 not null
+// (D = 128 or 96, the decoders' head dims), K2r's form.
 int launch_partials(const void* k, const void* mask, void* part, void* norms,
                     int B, int K, int Hkv, int D, long long ksb,
                     long long kss, int nparts, cudaStream_t s) {
-  if ((D != 64 && D != 80 && D != 96 && D != 128) ||
+  if ((D != 72 && (D != 64 && D != 80 && D != 96 && D != 128)) ||
       (norms != nullptr && !k2_head_dim(D))) {
     return int(cudaErrorInvalidValue);
   }
@@ -223,6 +232,7 @@ int launch_partials(const void* k, const void* mask, void* part, void* norms,
                     ? (D == 96 ? key_norm_partial_kernel<96, true>
                                : key_norm_partial_kernel<128, true>)
                 : D == 64 ? key_norm_partial_kernel<64>
+                : D == 72 ? key_norm_partial_kernel<72>
                 : D == 80 ? key_norm_partial_kernel<80>
                 : D == 96 ? key_norm_partial_kernel<96>
                           : key_norm_partial_kernel<128>;
@@ -299,6 +309,53 @@ extern "C" int mjv_decoder_attention_op(
   }
   return sm90::launch_attention<sm90::D128, true, sm90::ShiftMode::kKeyMax>(
       q, k, v, mask, part, nparts, q_offset, out, lse, B, Q, K, Hq, Hkv, qsb,
+      qss, ksb, kss, vsb, vss, scale, stream, true);
+}
+
+// K1m, the masked non-causal form: K2's path (the template's MASKED tiles,
+// ShiftMode::kKeyMax with kmax the largest live key norm, no floor: a row
+// whose sum is 0 gives 0) with CAUSAL = false, at SigLIP-so400m's D = 72
+// (Config D72) and one kv head a q head.  Replaces _fwd_bound_kernel with
+// causal=False (mjvideo_tpu/ops/flash_attention.py:318), which _fwd_impl
+// takes for a key-masked non-causal call (:439-579): VideoScore's
+// variable-aspect tower (mjvideo_tpu/models/videoscore.py:356-384), its
+// images padded bottom/right to a common grid with the patch mask as the
+// key mask.  kmax comes from the masked partials of the pre-pass above.
+// What bounds it: the two products over every (row, key) pair of each
+// image (the mask is not skipped: the kernel walks every key tile), 64 GF
+// at (20, 2730, 16, 72), 0.065 ms at 989 TFLOP/s.  mjv_vit_attention_masked
+// is the kernel alone on a folded kmax (B, H); mjv_vit_attention_masked_op
+// the op: the masked partial pass, then the kernel behind it as its
+// programmatic dependent, folding the partials.
+extern "C" int mjv_vit_attention_masked(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* kmax, void* out, int B, int S, int H, int D, long long qsb,
+    long long qss, long long ksb, long long kss, long long vsb, long long vss,
+    float scale, void* stream) {
+  if (!k2_head_dim(D, false) || mask == nullptr) {
+    return int(cudaErrorInvalidValue);
+  }
+  return sm90::launch_attention<sm90::D72, false, sm90::ShiftMode::kKeyMax>(
+      q, k, v, mask, kmax, 1, nullptr, out, nullptr, B, S, S, H, H, qsb, qss,
+      ksb, kss, vsb, vss, scale, stream);
+}
+
+// The K1m op: the masked partial pass into part (B, nparts, H) scratch,
+// then K1m launched as its programmatic dependent.
+extern "C" int mjv_vit_attention_masked_op(
+    const void* q, const void* k, const void* v, const void* mask, void* part,
+    void* out, int B, int S, int H, int D, long long qsb, long long qss,
+    long long ksb, long long kss, long long vsb, long long vss, int nparts,
+    float scale, void* stream) {
+  if (!k2_head_dim(D, false) || mask == nullptr) {
+    return int(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_key_norm_partials(k, mask, part, B, S, H, D, ksb,
+                                           kss, nparts, s);
+  if (err != 0) return err;
+  return sm90::launch_attention<sm90::D72, false, sm90::ShiftMode::kKeyMax>(
+      q, k, v, mask, part, nparts, nullptr, out, nullptr, B, S, S, H, H, qsb,
       qss, ksb, kss, vsb, vss, scale, stream, true);
 }
 

@@ -21,12 +21,19 @@
 //       :318, host side :484-511): causal, the same constant shift with one
 //       bound per (b, kv head), m_i = |scale| |q_i| kmax[b, h // G], kmax
 //       the largest masked key norm (the pre-pass key_norm_max);
-//   K1  (kKeyMax, D = 64 or 80, FLOOR) replaces _fwd_nc_kernel with
+//   K1  (kKeyMax, D = 64, 72 or 80, FLOOR) replaces _fwd_nc_kernel with
 //       norm_bound (flash_attention.py:99, :131-153): non-causal and
-//       maskless over one tile's S tokens (InternViT's 64-wide heads) or one
+//       maskless over one tile's S tokens (InternViT's 64-wide heads), one
 //       temporal slab's h w patches (the Qwen2-VL vision tower's 80-wide
-//       heads, qwen2vl.py:369), the same bound with kmax over all S keys,
-//       and the denominator floored at 1e-30 as jnp.maximum(l, 1e-30) does;
+//       heads, qwen2vl.py:369) or one frame's patches (SigLIP's 72-wide
+//       heads, videoscore.py:356-384), the same bound with kmax over all S
+//       keys, and the denominator floored at 1e-30 as jnp.maximum(l,
+//       1e-30) does;
+//   K1m (kKeyMax, D = 72, non-causal, a key mask, no floor) replaces
+//       _fwd_bound_kernel with causal=False (flash_attention.py:318,
+//       reached from _fwd_impl :439-579): SigLIP's variable-aspect tower,
+//       images padded bottom/right with a patch mask as the key mask, kmax
+//       the largest live key norm, a row whose sum is 0 giving 0;
 //   K2 lse and K1 lse (kKeyMax with a non-null lse) replace
 //       _fwd_bound_kernel(with_lse=True) (:407-412) and
 //       _fwd_nc_kernel(with_lse=True) (:153-156), the differentiable
@@ -48,8 +55,8 @@
 //       bf16s (kExact, kBf16s: t = bf16(s scale), m the running max of t,
 //       p = bf16(e^bf16(t - m)), the rescale in fp32).  B1 and B2 are the
 //       A/B harnesses' tools for K1's design, not a main path.
-// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128, 96, 80
-// or 64,
+// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128, 96, 80,
+// 72 or 64,
 // with dense heads and 16-byte row strides (the ViT's q/k/v are strided
 // views into one (B, S, 3 H D) qkv tensor); GQA (q head h reads kv head
 // h // G); a (B, K) int32 key mask or none; a (B,) int32 q_offset or none
@@ -144,7 +151,13 @@
 //   bytes, so the tensor map's strides stay 16-byte multiples), q k^T over
 //   the 5 k-steps of the real columns, p v at n128 into accumulator
 //   columns 80-127 that stay exactly 0, the output stored at an 80-element
-//   row stride over 10 column blocks.
+//   row stride over 10 column blocks.  D72 (K1 and its masked form at
+//   SigLIP-so400m's head dim, the VideoScore and MiniCPM-V towers) too:
+//   a row is 144 bytes (9 x 16, so the strides hold), columns 72-127 are
+//   the zero fill.  72 is not a multiple of wgmma's k of 16, so q k^T
+//   takes 5 k-steps, the fifth reading columns 72-79 as zeros; p v runs at
+//   n128 and the output is stored at a 72-element stride over 9 column
+//   blocks.
 // - Heads a CTA (HP, B2 only, D = 64): the WG / HP warpgroups of each head
 //   take 64 of its q rows each; q is one box per head and each stage holds
 //   one 64-column k box and one v box per head under its one full/empty
@@ -226,12 +239,12 @@ struct Regs<4> {  // 4 x 128 x 112 + 128 x 32 = 61,440: 640 threads hold
 };
 
 // HP heads a CTA (D = 64 only), each served by WG / HP consumer
-// warpgroups; BLOCK_K keys a kv tile.  D = 80 and 96 take two boxes, the
-// second partly zero fill (D80 and D96 above).
+// warpgroups; BLOCK_K keys a kv tile.  D = 72, 80 and 96 take two boxes,
+// the second partly zero fill (D72, D80 and D96 above).
 template <int D, int WG, int STAGES, int HP = 1, int BLOCK_K = 128>
 struct Config {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
-                "head dim 64, 80, 96 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 72,
+                "head dim 64, 72, 80, 96 or 128");
   static_assert(HP == 1 || D == 64, "several heads a CTA at D = 64 only");
   static_assert(WG % HP == 0, "whole warpgroups a head");
   static_assert(BLOCK_K == 64 || BLOCK_K == 128, "64 or 128 keys a tile");
@@ -265,6 +278,7 @@ struct Config {
 using D128 = Config<128, 2, 3>;  // K3, K2r, K2, K2 lse
 using D96 = Config<96, 2, 3>;    // K3, K2r, K2 and their lse forms (Phi-3)
 using D80 = Config<80, 2, 3>;    // K1 (the Qwen2-VL vision tower)
+using D72 = Config<72, 2, 3>;    // K1 and its masked form (SigLIP-so400m)
 using D64 = Config<64, 3, 3>;    // K1, K1 lse
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -902,9 +916,10 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
     auto issue_qk = [&](int t) {
       const uint64_t dk = make_desc(stage_k(t), 16, 1024);
 #pragma unroll
-      for (int kk = 0; kk < C::kD / 16; ++kk) {
+      for (int kk = 0; kk < (C::kD + 15) / 16; ++kk) {
         // 16-column steps: 32 bytes inside a 128-byte row, then the next
-        // 64-column box.
+        // 64-column box.  At D = 72 the fifth step reads columns 72-79 as
+        // TMA's zero fill.
         const uint32_t col = (kk % 4) * 32;
         const uint32_t qs = (kk / 4) * C::kQBox + col;
         const uint32_t ks = (kk / 4) * C::kKvBox + col;

@@ -6,8 +6,12 @@
 // also serves the Qwen2-VL vision tower (mjvideo_tpu/models/qwen2vl.py:369:
 // 16 heads of 80 over one temporal slab's h w patches, e.g. (4, 676) for 8
 // frames at 364 px) at Config D80, D128's layout with columns 80-127 TMA's
-// zero fill; K1 lse stays at D = 64 (the judge needs no gradient).  Its
-// kmax (B, H), the largest key norm of each (b, head), comes from the
+// zero fill; and the SigLIP-so400m towers of VideoScore and MiniCPM-V
+// (mjvideo_tpu/models/videoscore.py:356-384: 16 heads of 72 over one
+// frame's patches, e.g. (16, 2730) for a 16-frame 1280 x 720 clip) at
+// Config D72, the same layout with columns 72-127 the zero fill and q k^T
+// over 5 k-steps; K1 lse stays at D = 64 (the judges need no gradient).
+// Its kmax (B, H), the largest key norm of each (b, head), comes from the
 // pre-pass of decoder_attention.cu, where the TPU kernel reduced it inside
 // each program (flash_attention.py:131-135).
 //
@@ -45,6 +49,12 @@ extern "C" int mjv_vit_attention(const void* q, const void* k, const void* v,
                                  long long qss, long long ksb, long long kss,
                                  long long vsb, long long vss, float scale,
                                  void* stream) {
+  if (D == 72 && lse == nullptr) {  // SigLIP-so400m's heads
+    return sm90::launch_attention<sm90::D72, false, sm90::ShiftMode::kKeyMax,
+                                  true>(q, k, v, nullptr, kmax, 1, nullptr,
+                                        out, nullptr, B, S, S, H, H, qsb, qss,
+                                        ksb, kss, vsb, vss, scale, stream);
+  }
   if (D == 80 && lse == nullptr) {  // the Qwen2-VL vision tower's heads
     return sm90::launch_attention<sm90::D80, false, sm90::ShiftMode::kKeyMax,
                                   true>(q, k, v, nullptr, kmax, 1, nullptr,
@@ -67,11 +77,21 @@ extern "C" int mjv_vit_attention_op(const void* q, const void* k,
                                     long long ksb, long long kss,
                                     long long vsb, long long vss, int nparts,
                                     float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 72 && lse == nullptr) {  // SigLIP-so400m's heads
+    const int err = launch_key_norm_partials(k, nullptr, part, B, S, H, D,
+                                             ksb, kss, nparts, s);
+    if (err != 0) return err;
+    return sm90::launch_attention<sm90::D72, false, sm90::ShiftMode::kKeyMax,
+                                  true>(q, k, v, nullptr, part, nparts,
+                                        nullptr, out, nullptr, B, S, S, H, H,
+                                        qsb, qss, ksb, kss, vsb, vss, scale,
+                                        stream, true);
+  }
   // InternViT-300M's heads of 64, or the Qwen2-VL tower's 80 without the lse.
   if (D != 64 && (D != 80 || lse != nullptr)) {
     return int(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_key_norm_partials(k, nullptr, part, B, S, H, D, ksb,
                                            kss, nparts, s);
   if (err != 0) return err;

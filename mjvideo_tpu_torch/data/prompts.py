@@ -12,7 +12,7 @@ integer.  Outputs are numpy; nothing touches the device in this module.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -203,11 +203,18 @@ class ByteTokenizer:
         "<|assistant|>", "<|end|>",
     )
 
-    def __init__(self, pad_token_id: int = 0):
+    def __init__(self, pad_token_id: int = 0,
+                 extra_specials: Optional[Dict[str, int]] = None):
         self.pad_token_id = pad_token_id
         base = 256
         self._special_ids = {s: base + i for i, s in enumerate(self.SPECIALS)}
         self.vocab_size = base + len(self.SPECIALS)
+        if extra_specials:
+            # A judge's own markers at its config's ids (VideoScore's
+            # <image> and <fake_token_around_image>).
+            self._special_ids.update(extra_specials)
+            self.vocab_size = max(self.vocab_size,
+                                  max(extra_specials.values()) + 1)
 
     @property
     def img_context_token_id(self) -> int:

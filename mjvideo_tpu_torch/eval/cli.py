@@ -4,17 +4,21 @@ The port's counterpart of ``mjvideo_tpu/eval/cli.py``, which replaces the
 reference's 40 per-(benchmark x model) scripts under ``scripts/eval/``: pick
 a benchmark (overall / aspects / fine-grained / genai / safesora) and the
 MJ-Video reward model (``--model-path``), the InternVL chat judge
-(``--judge internvl-chat --judge-model DIR``) or the Qwen2-VL judge
-(``--judge qwen2-vl --judge-model DIR``, an HF Qwen2-VL checkpoint
-directory); results stream to JSONL
+(``--judge internvl-chat --judge-model DIR``), the Qwen2-VL, MiniCPM-V-2.6
+or VideoScore judge (``--judge qwen2-vl|minicpm-v|videoscore --judge-model
+DIR``, an HF checkpoint directory of that model; VideoScore scores the
+overall, safesora and genai benchmarks); results stream to JSONL
 (``--results``), and a rerun resumes from the file.  The metrics JSON is
 printed on stdout.
 
 It runs on the card (``--device cuda``, the default; a machine without one
 refuses) unless ``--device cpu`` asks for the CPU.  As in the JAX CLI,
 ``--fp32`` applies to the reward model only: a judge is loaded in bf16.
-Not ported: the other judges (minicpm-v, cogvlm2, videoscore, gpt4o,
-gemini; ROADMAP Queue 1 item 10), data
+Under ``--byte-tokenizer`` the VideoScore judge's tokenizer maps
+``<image>`` and ``<fake_token_around_image>`` to the config's
+``image_token_id`` and the id before it (Idefics2's 32001 and 32000).
+Not ported: the other judges (cogvlm2, gpt4o, gemini; ROADMAP Queue 1
+item 10), data
 parallelism (``--dp`` > 1 without ``--sp``, or a group across processes;
 item 12), and the JAX CLI's ``MJV_PLATFORM`` backend pin and persistent
 compilation cache, which only the TPU needed.  ``--sp`` scores each pair
@@ -31,8 +35,7 @@ from ..data.prompts import load_tokenizer
 from ..utils.device import resolve_device
 
 # Judges of the JAX CLI that wait for ROADMAP Queue 1 item 10.
-NOT_PORTED_JUDGES = ("minicpm-v", "cogvlm2", "videoscore", "gpt4o",
-                     "gemini")
+NOT_PORTED_JUDGES = ("cogvlm2", "gpt4o", "gemini")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,10 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-path", default=None,
                    help="reward checkpoint dir (scorer mode)")
     p.add_argument("--judge", default=None,
-                   choices=(None, "internvl-chat", "qwen2-vl")
-                   + NOT_PORTED_JUDGES,
+                   choices=(None, "internvl-chat", "qwen2-vl", "minicpm-v",
+                            "videoscore") + NOT_PORTED_JUDGES,
                    help="use a baseline judge instead of the reward scorer "
-                        "(internvl-chat and qwen2-vl are ported)")
+                        "(internvl-chat, qwen2-vl, minicpm-v and videoscore "
+                        "are ported)")
     p.add_argument("--judge-model", default=None,
                    help="the judge's checkpoint dir (config.json and "
                         "safetensors)")
@@ -198,10 +202,64 @@ def _make_qwen2vl_judge(args, tok, device):
                         prefix_cache=not args.no_prefix_cache)
 
 
+def _make_minicpmv_judge(args, tok, device):
+    """The MiniCPM-V-2.6 judge of ``--judge-model``, in bf16
+    (``cli.py:200-214``)."""
+    import torch
+
+    from ..models.minicpmv import (
+        import_minicpmv_params,
+        minicpmv_config_from_hf,
+    )
+    from ..utils.checkpoint import load_safetensors_dir
+    from .judges import MiniCPMVJudge
+
+    path = args.judge_model
+    with open(os.path.join(path, "config.json")) as f:
+        mcfg = minicpmv_config_from_hf(json.load(f))
+    params = import_minicpmv_params(load_safetensors_dir(path), mcfg,
+                                    dtype=torch.bfloat16, device=device)
+    return MiniCPMVJudge(mcfg, params, tok, num_segments=args.num_segments,
+                         quant=args.quant, kv_quant=args.kv_quant,
+                         prefix_cache=not args.no_prefix_cache)
+
+
+def _make_videoscore_judge(args):
+    """The VideoScore judge of ``--judge-model`` (``cli.py:152-163``), in
+    bf16 on ``--device``; its tokenizer the checkpoint's (or
+    ``--tokenizer``'s), or under ``--byte-tokenizer`` the ``ByteTokenizer``
+    with the config's image-marker ids."""
+    from ..data.prompts import ByteTokenizer
+    from ..models.videoscore import videoscore_config_from_hf
+    from .judges import VideoScoreJudge
+
+    path = args.judge_model
+    if path is None:
+        raise SystemExit(
+            "--judge videoscore needs --judge-model <local VideoScore "
+            "checkpoint dir with config.json + safetensors> (plus "
+            "--tokenizer if the tokenizer lives elsewhere)")
+    if args.byte_tokenizer:
+        with open(os.path.join(path, "config.json")) as f:
+            vcfg = videoscore_config_from_hf(json.load(f))
+        tok = ByteTokenizer(
+            pad_token_id=vcfg.text.pad_token_id,
+            extra_specials={"<fake_token_around_image>":
+                            vcfg.image_token_id - 1,
+                            "<image>": vcfg.image_token_id})
+    else:
+        from transformers import AutoTokenizer
+
+        tok = AutoTokenizer.from_pretrained(args.tokenizer or path,
+                                            trust_remote_code=True)
+    return VideoScoreJudge(path, tokenizer=tok,
+                           device=resolve_device(args.device))
+
+
 def _make_judge(args):
     """The judge of ``--judge`` on ``--judge-model``: the InternVL chat
-    judge (``config.json`` and safetensors with the LM head) or the
-    Qwen2-VL one."""
+    judge (``config.json`` and safetensors with the LM head), or the
+    Qwen2-VL, MiniCPM-V or VideoScore one."""
     from ..configs import load_config
     from ..data.prompts import rebase_img_context_id
     from ..utils.checkpoint import import_chat_params, load_safetensors_dir
@@ -212,6 +270,8 @@ def _make_judge(args):
     tok = _judge_tokenizer(args, path)
     if args.judge == "qwen2-vl":
         return _make_qwen2vl_judge(args, tok, device)
+    if args.judge == "minicpm-v":
+        return _make_minicpmv_judge(args, tok, device)
     # The reference's load-time id assignment (README.md:105): a tokenizer
     # whose <IMG_CONTEXT> id differs from the config's would fail
     # prepare_chat_input's scatter-id guard.
@@ -243,7 +303,15 @@ def main(argv=None):
 
         ds = load_dataset("TIGER-Lab/GenAI-Bench", "video_generation",
                           split="test_v1")
-        if args.judge:
+        if args.judge == "videoscore":
+            # Regression scores, good above 2
+            # (eval_genai_videoScore.py:160-205).
+            from .judges import run_genai_videoscore_benchmark
+
+            res = run_genai_videoscore_benchmark(
+                _make_videoscore_judge(args), ds, results_path=args.results,
+                fetch=fetch_remote_video)
+        elif args.judge:
             # Tie-aware rating comparison (eval_genai_internvl2_2b.py:160-212).
             from .judges import run_genai_benchmark
 
@@ -265,7 +333,18 @@ def main(argv=None):
             from .preference import filter_safesora_pairs
 
             records = filter_safesora_pairs(records)
-        if args.judge and args.benchmark == "fine-grained":
+        if args.judge == "videoscore":
+            if args.benchmark not in ("overall", "safesora"):
+                raise SystemExit(
+                    "--judge videoscore supports the overall, safesora and "
+                    "genai benchmarks (the reference has no fine-grained "
+                    "VideoScore eval)")
+            from .judges import run_overall_videoscore_benchmark
+
+            res = run_overall_videoscore_benchmark(
+                _make_videoscore_judge(args), records, root=args.video_root,
+                results_path=args.results)
+        elif args.judge and args.benchmark == "fine-grained":
             from .judges import fine_grained_accuracy, run_fine_grained_benchmark
 
             res = fine_grained_accuracy(run_fine_grained_benchmark(

@@ -1,19 +1,23 @@
-"""The InternVL and Qwen2-VL judges and their prompts.
+"""The local judges and their prompts.
 
-Counterpart of the InternVL and Qwen2-VL parts of
-``mjvideo_tpu/eval/judges.py``: ``RATING_SCALE`` and ``parse_rating``, the
-two prompt templates and the fine-grained rubric, ``InternVLJudge`` with
-its prefix cache, ``_GreedyLocalJudge`` (the shared tail of the batched
-local judges) and ``Qwen2VLJudge`` on it, and ``judge_pair``, and the
-benchmark drivers of a rating-scale judge:
+Counterpart of ``mjvideo_tpu/eval/judges.py`` but for CogVLM2 and the API
+judges (ROADMAP Queue 1 item 10): ``RATING_SCALE`` and ``parse_rating``,
+the two prompt templates and the fine-grained rubric, ``InternVLJudge``
+with its prefix cache, ``_GreedyLocalJudge`` (the shared tail of the
+batched local judges) and ``Qwen2VLJudge`` and ``MiniCPMVJudge`` on it,
+``judge_pair``, and the benchmark drivers of a rating-scale judge:
 ``run_overall_benchmark`` (MJ-BENCH-VIDEO overall preference and SafeSora),
 ``run_fine_grained_benchmark`` with ``fine_grained_accuracy``, and
-``run_genai_benchmark``.  The prompt constants are copied here;
-``tests/test_torch_judges.py`` holds them byte-equal to the JAX package's,
-which transcribe the reference benchmark's
-(``eval_overall_internvl2_2b.py:17-80``,
-``eval_fine_grained_internvl2_2b.py:67-138``).  MiniCPM-V, CogVLM2,
-VideoScore and the API judges wait for ROADMAP Queue 1 item 10.
+``run_genai_benchmark``; then the VideoScore regression judge
+(``VideoScoreJudge``, its prompt, the Idefics2 processor's token expansion
+and resize, its frame grid) and its drivers,
+``run_overall_videoscore_benchmark`` and
+``run_genai_videoscore_benchmark``.  The prompt constants are copied here;
+``tests/test_torch_judges.py`` and ``tests/test_torch_videoscore.py`` hold
+them byte-equal to the JAX package's, which transcribe the reference
+benchmark's (``eval_overall_internvl2_2b.py:17-80``,
+``eval_fine_grained_internvl2_2b.py:67-138``,
+``eval_genai_videoScore.py:50-71``).
 """
 
 from __future__ import annotations
@@ -214,8 +218,10 @@ def _video_prep_cache(encode_fn):
 class _GreedyLocalJudge:
     """The shared tail of the batched local judges (``judges.py:231-288``):
     strips the stop token named by ``_eos_attr`` off each decoded row, routes
-    ``ask`` through ``ask_batch``, and runs the prefix-KV machinery (each
-    family supplies its split function and its continuation)."""
+    ``ask`` through ``ask_batch``, and runs the prefix-KV machinery.  Each
+    family supplies ``_prefix_suffix`` (the question's suffix, or None where
+    the call takes the full prompt), ``_continue`` (a suffix on a stacked
+    prefix state) and ``_generate_full``."""
 
     _eos_attr = "im_end_token_id"
 
@@ -240,17 +246,29 @@ class _GreedyLocalJudge:
             return None
         return suffix
 
-    def _run_prefix_suffix(self, video_paths, suffix, continue_fn):
+    def _run_prefix_suffix(self, video_paths, suffix):
         """The videos' cached prefix states batched in new buffers, the
-        family's ``continue_fn(state, suffix) -> (toks, n)`` on them, the
+        family's ``_continue(state, suffix) -> (toks, n)`` on them, the
         rows decoded."""
-        from ..models.qwen2vl import stack_prefixes
-
         states = [self._pstate(p) for p in video_paths]
-        toks, n = (t.tolist() for t in continue_fn(stack_prefixes(states),
-                                                   suffix))
+        toks, n = (t.tolist() for t in self._continue(
+            stack_prefix_states(states), suffix))
         return [self._decode([int(t) for t in toks[b][: n[b]]])
                 for b in range(len(video_paths))]
+
+    def _ask_prefix(self, prompt: str, video_paths) -> Optional[List[str]]:
+        suffix = self._prefix_suffix(prompt, video_paths)
+        if suffix is None:
+            return None
+        return self._run_prefix_suffix(video_paths, suffix)
+
+    def ask_batch(self, prompt: str, video_paths) -> List[str]:
+        if self.prefix_cache:
+            resp = self._ask_prefix(prompt, list(video_paths))
+            if resp is not None:
+                return resp
+        return [self._decode(toks)
+                for toks in self._generate_full(prompt, list(video_paths))]
 
 
 class InternVLJudge:
@@ -540,12 +558,6 @@ class Qwen2VLJudge(_GreedyLocalJudge):
             self.max_new_tokens, self.cfg.im_end_token_id,
             impl=self.attn_impl, **kw)
 
-    def _ask_prefix(self, prompt: str, video_paths) -> Optional[List[str]]:
-        suffix = self._prefix_suffix(prompt, video_paths)
-        if suffix is None:
-            return None
-        return self._run_prefix_suffix(video_paths, suffix, self._continue)
-
     def _full_items(self, prompt: str, video_paths):
         """The full-prompt path's rows (ids, M-RoPE positions, no patches)
         and the videos' vision embeds."""
@@ -570,13 +582,111 @@ class Qwen2VLJudge(_GreedyLocalJudge):
             eos_token_id=self.cfg.im_end_token_id, impl=self.attn_impl,
             vision_embeds=vis, kv_quant=self.kv_quant, **kw)
 
-    def ask_batch(self, prompt: str, video_paths) -> List[str]:
-        if self.prefix_cache:
-            resp = self._ask_prefix(prompt, list(video_paths))
-            if resp is not None:
-                return resp
-        return [self._decode(toks)
-                for toks in self._generate_full(prompt, list(video_paths))]
+
+class MiniCPMVJudge(_GreedyLocalJudge):
+    """A local judge on the port's MiniCPM-V-2.6 (``models/minicpmv.py``),
+    the reference's MiniCPM swift baseline
+    (``eval_overall_minicpm.py:119-129``; ``judges.py:656-771``).  Frames
+    are sampled uniformly, resized by the un-sliced video rule and
+    compressed to 64 resampler tokens each; the answer decodes greedily.
+
+    The prefix (the headers and every frame's block) does not depend on the
+    question and is split exactly at the segment level
+    (``build_video_prompt_prefix_suffix``), so it is prefilled once per
+    video; a question prefills only its suffix (``continue_prefix``).  The
+    full prompt (``greedy_generate_batch``) serves a suffix past
+    ``suffix_bucket`` or videos of different frame counts.  The tower runs
+    in the weights' dtype (``minicpmv.vision_dtype``)."""
+
+    def __init__(self, cfg, params, tokenizer, num_segments: int = 8,
+                 max_new_tokens: int = 64, attn_impl: Optional[str] = None,
+                 quant: Optional[str] = None, kv_quant: bool = False,
+                 prefix_cache: bool = True, suffix_bucket: int = 128):
+        self.cfg = cfg  # a MiniCPMVConfig
+        self.kv_quant = kv_quant
+        self.quant = quant
+        self.params = _maybe_quantize(params, quant)
+        self.device = first_tensor(params).device
+        self.tokenizer = tokenizer
+        self.num_segments = num_segments
+        self.max_new_tokens = max_new_tokens
+        self.attn_impl = attn_impl or "auto"
+        self._prep = _video_prep_cache(self._encode_video)
+        self.prefix_cache = prefix_cache
+        self.suffix_bucket = suffix_bucket
+        # maxsize=2: the benchmarks alternate a pair's two videos; each
+        # state pins a full-length KV cache.
+        self._pstate = functools.lru_cache(maxsize=2)(self._prefix_state)
+
+    def _encode_video(self, video_path: str):
+        """((F, Q, C) image tokens, F) of a video file."""
+        from ..data.video import decode_frames, get_frame_indices, \
+            video_metadata
+        from ..models.minicpmv import (
+            get_vision_embedding,
+            preprocess_video_frames,
+            vision_dtype,
+        )
+
+        n_frames, fps = video_metadata(video_path)
+        indices = get_frame_indices(n_frames, self.num_segments, fps=fps)
+        frames = decode_frames(video_path, indices)
+        pix = preprocess_video_frames(frames, self.cfg)
+        with torch.no_grad():
+            vis = get_vision_embedding(
+                self.params, self.cfg,
+                torch.from_numpy(pix).to(self.device,
+                                         vision_dtype(self.params)),
+                impl=self.attn_impl)
+        return vis, len(frames)
+
+    def _prefix_state(self, video_path: str):
+        from ..models.minicpmv import (
+            build_video_prompt_prefix_suffix,
+            prefill_prefix,
+        )
+
+        vis, n_frames = self._prep(video_path)
+        prefix, _ = build_video_prompt_prefix_suffix(
+            self.tokenizer, self.cfg, n_frames, "")
+        Pb = round_up_bucket(len(prefix))
+        return prefill_prefix(
+            self.params, self.cfg, prefix, vis,
+            max_len=Pb + self.suffix_bucket + self.max_new_tokens, bucket=Pb,
+            impl=self.attn_impl, kv_quant=self.kv_quant)
+
+    def _prefix_suffix(self, prompt: str, video_paths):
+        from ..models.minicpmv import build_video_prompt_prefix_suffix
+
+        return self._shared_suffix(
+            prompt, video_paths,
+            lambda n_frames, q: build_video_prompt_prefix_suffix(
+                self.tokenizer, self.cfg, n_frames, q))
+
+    def _continue(self, state, suffix, **kw):
+        from ..models.minicpmv import continue_prefix
+
+        return continue_prefix(
+            self.params, self.cfg, state, suffix, self.suffix_bucket,
+            self.max_new_tokens, self.cfg.im_end_token_id,
+            impl=self.attn_impl, **kw)
+
+    def _generate_full(self, prompt: str, video_paths, **kw):
+        from ..models.minicpmv import (
+            build_video_prompt_ids,
+            greedy_generate_batch,
+        )
+
+        preps = [self._prep(p) for p in video_paths]
+        items = [(build_video_prompt_ids(self.tokenizer, self.cfg, n_frames,
+                                         prompt), None)
+                 for _, n_frames in preps]
+        return greedy_generate_batch(
+            self.params, self.cfg, items,
+            max_new_tokens=self.max_new_tokens,
+            eos_token_id=self.cfg.im_end_token_id, impl=self.attn_impl,
+            vision_embeds=[v for v, _ in preps], kv_quant=self.kv_quant,
+            **kw)
 
 
 def judge_pair(
@@ -694,18 +804,22 @@ def run_genai_benchmark(
     return genai_judge_metrics(lefts, rights, votes)
 
 
-def run_overall_benchmark(
-    judge,
+def _overall_pair_driver(
+    score_pair: Callable[[str, str, str], Dict],
     records: Iterable[Dict],
     root: str = "",
     results_path: Optional[str] = None,
+    skip_undecided: bool = False,
 ) -> Dict[str, float]:
-    """Rating-based pairwise preference accuracy of a judge
-    (``process_overall_file``, ``eval_overall_internvl2_2b.py:82-116``):
-    persist each pair, resume, merge the file (torn last line skipped), and
-    report the preference accuracy with the leaderboard's strict and
-    tie-aware columns.  'Same'/'Hard to judge' pairs are rated too and
-    masked by the metrics."""
+    """The MJ-BENCH-VIDEO overall-preference loop shared by the judges
+    (``judges.py:1472-1529``): persist each pair, resume, merge the file
+    (torn last line skipped), and report the preference accuracy with the
+    leaderboard's strict and tie-aware columns.  ``score_pair(path0, path1,
+    caption) -> dict`` with at least ``score_0`` and ``score_1`` (further
+    keys persist).  ``skip_undecided``: 'Same' / 'Hard to judge' pairs are
+    not scored at all (VideoScore's reference,
+    ``eval_overall_videoscore.py:129-131``); else they are scored and
+    masked by the metrics (the rating judges')."""
     from ..data.labels import deal_preference
     from .preference import IncrementalWriter, _preference_result, iter_jsonl
 
@@ -713,16 +827,17 @@ def run_overall_benchmark(
     s0s, s1s, prefs, masks = [], [], [], []
     for i, item in enumerate(records):
         pref, mask = deal_preference(item["overall_preference"], overall=True)
+        if skip_undecided and mask[0] == 0:
+            continue
         if writer.seen(i):
             continue
-        s0, s1, r0, r1 = judge_pair(
-            judge, os.path.join(root, item["video_0_path"]),
-            os.path.join(root, item["video_1_path"]), item["caption"])
+        rec = score_pair(os.path.join(root, item["video_0_path"]),
+                         os.path.join(root, item["video_1_path"]),
+                         item["caption"])
         writer.write({"id": i, "preference": pref[0], "mask": mask[0],
-                      "score_0": s0, "score_1": s1,
-                      "response_0": r0, "response_1": r1})
-        s0s.append(s0)
-        s1s.append(s1)
+                      **rec})
+        s0s.append(rec["score_0"])
+        s1s.append(rec["score_1"])
         prefs.append(pref[0])
         masks.append(mask[0])
     if results_path and os.path.exists(results_path):
@@ -733,3 +848,324 @@ def run_overall_benchmark(
             prefs.append(r["preference"])
             masks.append(r["mask"])
     return _preference_result(s0s, s1s, prefs, masks)
+
+
+def run_overall_benchmark(
+    judge,
+    records: Iterable[Dict],
+    root: str = "",
+    results_path: Optional[str] = None,
+) -> Dict[str, float]:
+    """Rating-based pairwise preference accuracy of a judge
+    (``process_overall_file``, ``eval_overall_internvl2_2b.py:82-116``):
+    'Same' / 'Hard to judge' pairs are rated too and masked by the
+    metrics."""
+    def score_pair(p0, p1, caption):
+        s0, s1, r0, r1 = judge_pair(judge, p0, p1, caption)
+        return {"score_0": s0, "score_1": s1,
+                "response_0": r0, "response_1": r1}
+
+    return _overall_pair_driver(score_pair, records, root=root,
+                                results_path=results_path)
+
+
+# --- VideoScore ---------------------------------------------------------------
+
+# The reference's VideoScore regression prompt, transcribed exactly
+# (``eval_genai_videoScore.py:50-71`` == ``eval_overall_videoscore.py:48-70``;
+# ``judges.py:1180-1203``), quirks and all ("output_sora", the trailing
+# space after "sub-score, "): the prompt is the benchmark.
+VIDEOSCORE_REGRESSION_QUERY_PROMPT = """
+Suppose you are an expert in judging and evaluating the quality of AI-generated videos,
+please watch the following frames of a given video and see the text prompt for generating the video,
+then give scores from 5 different dimensions:
+(1) visual quality: the quality of the video in terms of clearness, resolution, brightness, and color
+(2) temporal consistency, both the consistency of objects or humans and the smoothness of motion or movements
+(3) dynamic degree, the degree of dynamic changes
+(4) text-to-video alignment, the alignment between the text prompt and the video content
+(5) factual consistency, the consistency of the video content with the common-sense and factual knowledge
+
+for each dimension, output_sora a float number from 1.0 to 4.0,
+the higher the number is, the better the video performs in that sub-score, 
+the lowest 1.0 means Bad, the highest 4.0 means Perfect/Real (the video is like a real video)
+Here is an output_sora example:
+visual quality: 3.2
+temporal consistency: 2.7
+dynamic degree: 4.0
+text-to-video alignment: 2.3
+factual consistency: 1.8
+
+For this video, the text prompt is "{text_prompt}",
+all the frames of video are as follows:
+"""
+
+
+def videoscore_prompt(caption: str, n_frames: int) -> str:
+    """The VideoScore prompt with one ``'<image> '`` (its trailing space
+    included) appended per frame beyond those it holds
+    (``eval_genai_videoScore.py:103-106``; ``judges.py:1206-1215``)."""
+    prompt = VIDEOSCORE_REGRESSION_QUERY_PROMPT.format(text_prompt=caption)
+    n_present = prompt.count("<image>")
+    if n_present < n_frames:
+        prompt += "<image> " * (n_frames - n_present)
+    return prompt
+
+
+def idefics2_expand_image_tokens(
+    text: str, image_seq_len: int = 64, do_image_splitting: bool = False,
+    image_token: str = "<image>",
+    fake_image_token: str = "<fake_token_around_image>",
+) -> str:
+    """The Idefics2 processor's image-token expansion
+    (``Idefics2Processor.__call__``; ``judges.py:1218-1237``): each
+    ``<image>`` becomes ``<fake><image> x image_seq_len<fake>`` (five times
+    under image splitting), then adjacent fake tokens merge.  The VideoScore
+    prompt's appended markers are space-separated, so they do not merge."""
+    image_str = f"{fake_image_token}{image_token * image_seq_len}" \
+                f"{fake_image_token}"
+    if do_image_splitting:
+        image_str = image_str * 5  # 4 crops and the original
+    out = text.replace(image_token, image_str)
+    return out.replace(f"{fake_image_token}{fake_image_token}",
+                       fake_image_token)
+
+
+def videoscore_frame_indices(total_frames: int,
+                             max_frames: int = 16) -> np.ndarray:
+    """The reference's PyAV frame grid (``eval_genai_videoScore.py:97-101``;
+    ``judges.py:1240-1250``): ``arange(0, total, total / 16)`` as ints for a
+    clip longer than 16 frames (not linspace), else every frame."""
+    if total_frames > max_frames:
+        return np.arange(0, total_frames,
+                         total_frames / max_frames).astype(int)
+    return np.arange(total_frames)
+
+
+def idefics2_resize_shape(height: int, width: int, shortest: int = 378,
+                          longest: int = 980) -> Tuple[int, int]:
+    """The Idefics2 image processor's output size
+    (``get_resize_output_image_size``; ``judges.py:1253-1266``): the
+    longest edge capped at ``longest`` keeping the aspect, then both edges
+    floored at ``shortest``."""
+    aspect = width / height
+    if width >= height and width > longest:
+        width = longest
+        height = int(width / aspect)
+    elif height > width and height > longest:
+        height = longest
+        width = int(height * aspect)
+    return max(height, shortest), max(width, shortest)
+
+
+class VideoScoreJudge:
+    """The VideoScore baseline: the Mantis Idefics2 regression judge
+    (``eval_genai_videoScore.py:41-129``; ``judges.py:1269-1469``) on the
+    port's ``models/videoscore.py``.  16 frames on the reference's grid,
+    the regression prompt with a marker per frame, the Idefics2
+    processor's token expansion and frame preprocessing, one forward for
+    the 5 regression logits, each rounded to 3 digits and summed.
+
+    Build it on a checkpoint directory (``config.json`` and safetensors,
+    read onto ``device`` in ``dtype``) or on ``cfg`` and ``params``.
+    Prompts are right-padded to ``buckets`` with the text pad id (mask 0):
+    the pooled row is the last token before the first pad either way.
+    ``do_image_splitting`` is the processor's flag (off in VideoScore: one
+    image a frame, 64 latent tokens); on, or with frames of mixed sizes,
+    the images pad to a common shape and the tower takes the masked path
+    (K1m)."""
+
+    DIMS = ("visual quality", "temporal consistency", "dynamic degree",
+            "text-to-video alignment", "factual consistency")
+    ROUND_DIGIT = 3  # eval_genai_videoScore.py:48
+
+    @classmethod
+    def aggregate(cls, scores) -> float:
+        """The sum of the dimensions' scores, each rounded first
+        (``eval_genai_videoScore.py:122-128``)."""
+        return float(sum(round(float(s), cls.ROUND_DIGIT) for s in scores))
+
+    def __init__(self, checkpoint_path: Optional[str] = None, tokenizer=None,
+                 num_frames: int = 16, dtype=None, cfg=None, params=None,
+                 image_seq_len: Optional[int] = None,
+                 do_image_splitting: bool = False,
+                 resize_shortest: int = 378, resize_longest: int = 980,
+                 device=None, attn_impl: Optional[str] = None):
+        self.dtype = dtype or torch.bfloat16
+        if cfg is not None and params is not None:
+            self.cfg, self.params = cfg, params
+        else:
+            import json
+
+            from ..models.videoscore import (
+                import_videoscore_params,
+                videoscore_config_from_hf,
+            )
+            from ..utils.checkpoint import load_safetensors_dir
+
+            with open(os.path.join(checkpoint_path, "config.json")) as f:
+                self.cfg = videoscore_config_from_hf(json.load(f))
+            self.params = import_videoscore_params(
+                load_safetensors_dir(checkpoint_path), self.cfg, self.dtype,
+                device="cuda" if device is None else device)
+        self.device = first_tensor(self.params).device
+        self.tokenizer = tokenizer
+        self.num_frames = num_frames
+        # One <image> marker expands to n_latents image tokens: the
+        # processor's image_seq_len must match resampler_n_latents.
+        self.image_seq_len = (image_seq_len if image_seq_len is not None
+                              else self.cfg.perceiver.n_latents)
+        self.do_image_splitting = do_image_splitting
+        self.resize_shortest = resize_shortest
+        self.resize_longest = resize_longest
+        self.attn_impl = attn_impl or "auto"
+        self.buckets = (128, 256, 512, 1024, 1536, 2048, 3072, 4096, 8192)
+
+    def tokenize(self, prompt: str):
+        """The Idefics2 processor's image-token expansion, then the
+        tokenizer: (ids, attention mask) lists."""
+        expanded = idefics2_expand_image_tokens(
+            prompt, self.image_seq_len, self.do_image_splitting)
+        enc = self.tokenizer(expanded)
+        ids = list(enc["input_ids"])
+        mask = list(enc.get("attention_mask", [1] * len(ids)))
+        return ids, mask
+
+    def preprocess_frames(self, frames):
+        """uint8 RGB frames -> (pixel_values (N, H', W', 3) fp32,
+        pixel_attention_mask (N, H', W') int32 or None), as the Idefics2
+        image processor does (``judges.py:1357-1407``): under
+        ``do_image_splitting`` each native frame is cut into 4 quadrants
+        (floor midpoints) plus the original first, then every image is
+        PIL-bilinear resized (longest edge <= 980, shortest >= 378),
+        scaled by 1/255, normalised with mean = std = 0.5, and padded
+        bottom/right to the batch's largest with a pixel mask.  The mask is
+        None where every image has one shape (the maskless path)."""
+        from PIL import Image
+
+        imgs = []
+        for f in frames:
+            if self.do_image_splitting:
+                mh, mw = f.shape[0] // 2, f.shape[1] // 2
+                imgs.extend([f[:mh, :mw], f[:mh, mw:], f[mh:, :mw],
+                             f[mh:, mw:], f])
+            else:
+                imgs.append(f)
+        resized = []
+        for img in imgs:
+            h, w = idefics2_resize_shape(img.shape[0], img.shape[1],
+                                         self.resize_shortest,
+                                         self.resize_longest)
+            if (h, w) != img.shape[:2]:
+                img = np.asarray(Image.fromarray(img).resize(
+                    (w, h), Image.BILINEAR))
+            resized.append(((np.asarray(img, np.float32) / 255.0)
+                            - 0.5) / 0.5)
+        hmax = max(r.shape[0] for r in resized)
+        wmax = max(r.shape[1] for r in resized)
+        if all(r.shape[:2] == (hmax, wmax) for r in resized):
+            return np.stack(resized), None
+        pix = np.zeros((len(resized), hmax, wmax, 3), np.float32)
+        mask = np.zeros((len(resized), hmax, wmax), np.int32)
+        for i, r in enumerate(resized):
+            pix[i, :r.shape[0], :r.shape[1]] = r
+            mask[i, :r.shape[0], :r.shape[1]] = 1
+        return pix, mask
+
+    def score_frames(self, pixel_values, input_ids, attention_mask,
+                     pixel_attention_mask=None) -> np.ndarray:
+        """(N_images, H, W, 3) fp32 pixels and a tokenized (1, T) prompt ->
+        the (num_labels,) fp32 regression logits.  Raises where the prompt's
+        image tokens are not the images' ``image_seq_len`` each: the
+        vision embeds would silently never scatter."""
+        from ..models.videoscore import videoscore_forward
+        from .scorer import round_to_bucket
+
+        ids = np.asarray(input_ids, np.int64)
+        n_img = int((ids == self.cfg.image_token_id).sum())
+        expected = pixel_values.shape[0] * self.image_seq_len
+        if n_img != expected:
+            raise ValueError(
+                f"prompt tokenized to {n_img} image tokens (id "
+                f"{self.cfg.image_token_id}) but {pixel_values.shape[0]} "
+                f"frames produce {expected} image embeddings: the vision "
+                "embeds would silently never scatter (text-only scoring); "
+                "check the tokenizer's <image> special token / image_seq_len")
+        mask = np.asarray(attention_mask, np.int32)
+        T = ids.shape[-1]
+        Tb = round_to_bucket(T, self.buckets)
+        if Tb != T:
+            pad_id = self.cfg.text.pad_token_id or 0
+            ids = np.pad(ids, ((0, 0), (0, Tb - T)), constant_values=pad_id)
+            mask = np.pad(mask, ((0, 0), (0, Tb - T)))
+        dev = self.device
+        pam = (None if pixel_attention_mask is None
+               else torch.as_tensor(np.asarray(pixel_attention_mask),
+                                    dtype=torch.int32, device=dev))
+        with torch.no_grad():
+            logits = videoscore_forward(
+                self.params, self.cfg,
+                torch.as_tensor(np.asarray(pixel_values)).to(dev, self.dtype),
+                torch.from_numpy(ids).to(dev),
+                torch.from_numpy(mask).to(dev), impl=self.attn_impl,
+                pixel_attention_mask=pam)
+        return logits.float().cpu().numpy()[0]
+
+    def score(self, video_path: str, caption: str) -> float:
+        """The reference's ``video_score_eval``
+        (``eval_genai_videoScore.py:93-129``): the 16-frame grid, the
+        regression prompt with its markers, the forward, each dimension
+        rounded, summed."""
+        if self.tokenizer is None:
+            raise RuntimeError("VideoScoreJudge needs a tokenizer")
+        from ..data.video import decode_frames, video_metadata
+
+        n, _ = video_metadata(video_path)
+        frames = decode_frames(video_path,
+                               videoscore_frame_indices(n, self.num_frames))
+        pix, pix_mask = self.preprocess_frames(frames)
+        ids, mask = self.tokenize(videoscore_prompt(caption, len(frames)))
+        return self.aggregate(self.score_frames(
+            pix, np.asarray([ids], np.int64), np.asarray([mask], np.int32),
+            pixel_attention_mask=pix_mask))
+
+
+def run_overall_videoscore_benchmark(
+    judge: VideoScoreJudge,
+    records: Iterable[Dict],
+    root: str = "",
+    results_path: Optional[str] = None,
+) -> Dict[str, float]:
+    """MJ-BENCH-VIDEO overall preference by VideoScore
+    (``eval_overall_videoscore.py:119-155``; ``judges.py:1532-1548``):
+    undecided pairs skipped, both videos scored with the caption, the
+    summed scores compared."""
+    def score_pair(p0, p1, caption):
+        return {"score_0": judge.score(p0, caption),
+                "score_1": judge.score(p1, caption)}
+
+    return _overall_pair_driver(score_pair, records, root=root,
+                                results_path=results_path,
+                                skip_undecided=True)
+
+
+def run_genai_videoscore_benchmark(
+    judge: VideoScoreJudge,
+    examples: Iterable[Dict],
+    results_path: Optional[str] = None,
+    fetch: Optional[Callable[[str], str]] = None,
+) -> Dict[str, float]:
+    """GenAI-Bench by VideoScore (``eval_genai_videoScore.py:160-205``;
+    ``judges.py:1551-1570``): left and right votes compare the summed
+    scores strictly; a tie vote needs both 'good' (score > 2), a bothbad
+    vote both 'bad'; no tie credit."""
+    from .metrics import genai_videoscore_metrics
+    from .preference import genai_driver
+
+    def pair_scorer(left, right, prompt):
+        return {"score_left": judge.score(left, prompt),
+                "score_right": judge.score(right, prompt)}
+
+    lefts, rights, votes = genai_driver(pair_scorer, examples,
+                                        results_path=results_path,
+                                        fetch=fetch)
+    return genai_videoscore_metrics(lefts, rights, votes)

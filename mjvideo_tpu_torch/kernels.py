@@ -47,7 +47,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "_d96" count the launches at Phi-3's head dim of 96 among those of the
 # name without it: K2, K3, their lse forms, the pre-pass, K4a, K4b, K2r and
 # its pre-pass; those ending in "_d80" the launches at the Qwen2-VL vision
-# tower's head dim of 80: K1 and its pre-pass.
+# tower's head dim of 80: K1 and its pre-pass; "_d72" at SigLIP-so400m's 72:
+# K1 and the pre-pass, masked or not.  "vit_attention_masked" counts K1m,
+# the masked non-causal form (D = 72 only), and "key_norm_max_masked_d72"
+# the pre-pass launches at 72 that read a mask (K1m's, or alone).
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
@@ -59,6 +62,8 @@ launch_counts: Dict[str, int] = {
     "exact_attention_lse_d96": 0, "decoder_attention_bwd_dkdv_d96": 0,
     "decoder_attention_bwd_dq_d96": 0, "decoder_attention_rows_d96": 0,
     "key_norm_cummax_d96": 0, "vit_attention_d80": 0, "key_norm_max_d80": 0,
+    "vit_attention_d72": 0, "key_norm_max_d72": 0, "vit_attention_masked": 0,
+    "key_norm_max_masked_d72": 0,
     "decoder_attention_rows": 0, "key_norm_cummax": 0, "key_norm_max": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "q8g_quantize": 0,
     "w4_matmul": 0,
@@ -152,6 +157,9 @@ ARGTYPES = {
     "mjv_vit_attention_op": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _F, _P],
     "mjv_vit_attention_bwd_dkdv": _VIT_BWD[:6] + [_P, _P] + _VIT_BWD[6:],
     "mjv_vit_attention_bwd_dq": _VIT_BWD[:6] + [_P] + _VIT_BWD[6:],
+    "mjv_vit_attention_masked": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_F, _P],
+    "mjv_vit_attention_masked_op": [_P] * 6 + [_I] * 4 + [_L] * 6
+    + [_I, _F, _P],
     "mjv_decoder_attention": [_P] * 8 + [_I] * 6 + [_L] * 6 + [_F, _P],
     "mjv_decoder_attention_op": [_P] * 8 + [_I] * 6 + [_L] * 6
     + [_I, _F, _P],
@@ -226,7 +234,7 @@ def _raise_on(name: str, err: int) -> None:
 
 def _count(name: str, D: int) -> None:
     """One launch of ``name``, and of its form at head dim D where that has
-    a counter of its own (D = 96, or D = 80)."""
+    a counter of its own (D = 96, 80 or 72)."""
     launch_counts[name] += 1
     if f"{name}_d{D}" in launch_counts:
         launch_counts[f"{name}_d{D}"] += 1
@@ -245,17 +253,18 @@ def forward_only(name: str, *ts: torch.Tensor) -> None:
 def _check_vit(name: str, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor, with_lse: bool) -> None:
     """K1's checks: InternViT's head dim of 64, or the Qwen2-VL vision
-    tower's 80, which is built without the lse (the judge needs no
-    gradient)."""
-    _check_qkv(name, (64,) if with_lse else (64, 80), q, k, v)
+    tower's 80 or SigLIP-so400m's 72, which are built without the lse (the
+    judges need no gradient)."""
+    _check_qkv(name, (64,) if with_lse else (64, 72, 80), q, k, v)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k and v must share (B, S, H, D)")
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kmax: torch.Tensor, scale: float, with_lse: bool = False):
-    """K1 alone on a given kmax.  q/k/v: (B, S, H, D) bf16 with D = 64 (80
-    without the lse) and dense heads (row strides free); kmax: (B, H) fp32
+    """K1 alone on a given kmax.  q/k/v: (B, S, H, D) bf16 with D = 64 (72
+    or 80 without the lse) and dense heads (row strides free); kmax: (B, H)
+    fp32
     (``key_norm_max``).
     Returns a dense (B, S, H, D) bf16 tensor, and with ``with_lse`` also the
     (B, H, S) fp32 lse (1e30 on a row whose sum underflowed).  With the lse
@@ -314,6 +323,79 @@ def vit_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if with_lse:
         launch_counts["vit_attention_lse"] += 1
     return (out, lse) if with_lse else out
+
+
+def _check_vit_masked(name: str, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, attention_mask: torch.Tensor) -> None:
+    """K1m's checks: SigLIP-so400m's head dim of 72, q, k and v of one
+    (B, S, H, D) (self-attention, a kv head a q head), a (B, S) int32 key
+    mask."""
+    _check_qkv(name, 72, q, k, v)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k and v must share (B, S, H, D)")
+    B, S = q.shape[:2]
+    if attention_mask is None:
+        raise ValueError(f"{name}: needs a key mask (without one, K1)")
+    _check_aux(f"{name} mask", attention_mask, torch.int32, (B, S), q.device)
+
+
+def vit_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         attention_mask: torch.Tensor, kmax: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """K1m alone on a given kmax: non-causal attention under a (B, S) key
+    mask (1 = live) with the bound of K2, kmax the largest live key norm;
+    a row that sees no live key gives 0.  q/k/v: (B, S, H, 72) bf16 with
+    dense heads (row strides free); kmax: (B, H) fp32 (``key_norm_max(k,
+    attention_mask)``).  Returns a dense (B, S, H, 72) bf16 tensor;
+    ``vit_attention_masked_op`` is the op."""
+    name = "vit_attention_masked"
+    _check_vit_masked(name, q, k, v, attention_mask)
+    B, S, H, D = q.shape
+    _check_aux(f"{name} kmax", kmax, torch.float32, (B, H), q.device)
+    lib = _load()
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.mjv_vit_attention_masked(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            attention_mask.data_ptr(), kmax.data_ptr(), out.data_ptr(), B, S,
+            H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def vit_attention_masked_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, attention_mask: torch.Tensor,
+                            scale: float) -> torch.Tensor:
+    """The K1m op: its pre-pass's partial maxima of the live key norms,
+    then K1m launched behind it as a programmatic dependent that folds
+    them, from one C call.  Operands and result as for
+    ``vit_attention_masked`` without kmax; the output is bit-equal to
+    ``vit_attention_masked`` on ``key_norm_max(k, attention_mask)``.
+    Counts one ``key_norm_max`` (and ``key_norm_max_d72``,
+    ``key_norm_max_masked_d72``) and one ``vit_attention_masked``."""
+    name = "vit_attention_masked"
+    _check_vit_masked(name, q, k, v, attention_mask)
+    B, S, H, D = q.shape
+    parts = key_norm_parts(B, S, H, D)
+    lib = _load()
+    dev = q.device
+    part = torch.empty((B, parts, H), dtype=torch.float32, device=dev)
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.mjv_vit_attention_masked_op(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            attention_mask.data_ptr(), part.data_ptr(), out.data_ptr(), B, S,
+            H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), parts, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(name, err)
+    _count("key_norm_max", D)
+    launch_counts["key_norm_max_masked_d72"] += 1
+    launch_counts[name] += 1
+    return out
 
 
 def _vit_bwd_operands(name, q, k, v, dout, lse, delta):
@@ -468,7 +550,7 @@ def decoder_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _key_norm_operands(name: str, k: torch.Tensor,
                        attention_mask: Optional[torch.Tensor],
-                       parts: Optional[int], dims=(64, 80, 96, 128)):
+                       parts: Optional[int], dims=(64, 72, 80, 96, 128)):
     """Checks shared by the key-norm pre-passes (k: (B, K, Hkv, D) bf16 with
     D one of ``dims``, dense heads, free row strides; attention_mask: (B,
     K) int32 or None); returns (mask pointer, the chunk count: ``parts``,
@@ -519,8 +601,8 @@ def key_norm_cummax(k: torch.Tensor,
 def key_norm_lanes(D: int) -> int:
     """The pre-pass's lanes a key vector: its D / 8 16-byte pieces rounded
     up to a power of two (``key_norm_lanes`` of
-    ``csrc/decoder_attention.cu``; D = 80's 10 pieces and D = 96's 12 take
-    16 lanes)."""
+    ``csrc/decoder_attention.cu``; D = 72's 9 pieces, D = 80's 10 and
+    D = 96's 12 take 16 lanes)."""
     pieces = D // 8
     return pieces if pieces & (pieces - 1) == 0 else 1 << pieces.bit_length()
 
@@ -530,7 +612,7 @@ def key_norm_parts(B: int, K: int, Hkv: int, D: int) -> int:
     for k of shape (B, K, Hkv, D): about KEY_NORM_CTAS CTAs over the
     grid, each at least one pass of KEY_NORM_LOADS loads a thread (whole
     keys), at most KEY_NORM_PARTS_MAX.  Raises where one pass cannot hold a
-    whole key (more than 64 heads of 128, 96 or 80, or 128 of 64)."""
+    whole key (more than 64 heads of 128, 96, 80 or 72, or 128 of 64)."""
     # Key vectors a pass.
     heads = KEY_NORM_THREADS // key_norm_lanes(D) * KEY_NORM_LOADS
     if Hkv > heads:
@@ -547,14 +629,14 @@ def key_norm_max(k: torch.Tensor,
     """The pre-pass of K1 and K2 (and of their lse forms) alone, as the ops
     run it: its partial maxima over ``parts`` chunks of keys (the plan,
     ``key_norm_parts``, by default; 1 <= parts <= K), then their fold, from
-    one C call.  k: (B, K, Hkv, D) bf16 with D 64, 80, 96 or 128, dense heads and
-    free row strides (a view into the ViT's qkv tensor, or a cache's
-    slots); attention_mask: (B, K) int32 or None.  Returns the (B, Hkv)
+    one C call.  k: (B, K, Hkv, D) bf16 with D 64, 72, 80, 96 or 128, dense
+    heads and free row strides (a view into the ViT's qkv tensor, or a
+    cache's slots); attention_mask: (B, K) int32 or None.  Returns the (B, Hkv)
     fp32 largest norm of a live key of each (b, kv head), 0 where none is
     live."""
     name = "key_norm_max"
-    # Built for the ViTs' 64 (InternViT) and 80 (Qwen2-VL) and the
-    # decoders' 128 (InternLM2) and 96 (Phi-3).
+    # Built for the ViTs' 64 (InternViT), 80 (Qwen2-VL) and 72 (SigLIP) and
+    # the decoders' 128 (InternLM2) and 96 (Phi-3).
     mask_ptr, parts = _key_norm_operands(name, k, attention_mask, parts)
     B, K, Hkv, D = k.shape
     lib = _load()
@@ -567,6 +649,8 @@ def key_norm_max(k: torch.Tensor,
                                    k.stride(1), parts, stream)
     _raise_on(name, err)
     _count(name, D)
+    if D == 72 and attention_mask is not None:
+        launch_counts["key_norm_max_masked_d72"] += 1
     return out
 
 

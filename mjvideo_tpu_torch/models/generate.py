@@ -461,14 +461,21 @@ def generate_from_prefix(
                                teacher_tokens=teacher_tokens)
 
 
-def stack_prefix_states(states) -> PrefixState:
+def stack_prefix_states(states):
     """Batch B = 1 prefix states into one (a preference pair's two videos)
-    in new buffers; all must share max_len."""
-    cache = KVCache(*(None if ts[0] is None else torch.cat(ts, dim=1)
-                      for ts in zip(*(s.cache for s in states))))
-    return PrefixState(cache,
-                       torch.cat([s.cache_mask for s in states]),
-                       torch.cat([s.n_prefix for s in states]))
+    in new buffers; all must share max_len.  Any family's state tuple
+    (``PrefixState``, ``qwen2vl.PrefixCache``, ``minicpmv.PrefixCache``):
+    its ``KVCache`` concatenated on the batch axis, its tensors on their
+    first, its ints (the shared prefix length and max_len) kept."""
+    def stack(vals):
+        if isinstance(vals[0], KVCache):
+            return KVCache(*(None if ts[0] is None else torch.cat(ts, dim=1)
+                             for ts in zip(*vals)))
+        if isinstance(vals[0], torch.Tensor):
+            return torch.cat(vals)
+        return vals[0]
+
+    return type(states[0])(*(stack(vals) for vals in zip(*states)))
 
 
 def round_up_bucket(n: int, bucket: int = 64) -> int:
@@ -505,6 +512,19 @@ def greedy_decode_batch(step_fn, params, logits0: torch.Tensor, cache,
             logits, cache = step_fn(params, tok, i, cache)
         i += 1
     return toks, n
+
+
+def decode_batch(step_fn, params, logits0: torch.Tensor, cache,
+                 max_new_tokens: int, eos: int,
+                 teacher_tokens: Optional[torch.Tensor] = None):
+    """``greedy_decode_batch``, or with ``teacher_tokens`` (B, n) the
+    steps' logits (``teacher_forced_logits``): the tail of the judge
+    families' generation (Qwen2-VL, MiniCPM-V)."""
+    if teacher_tokens is not None:
+        return teacher_forced_logits(step_fn, params, logits0, cache,
+                                     teacher_tokens)
+    return greedy_decode_batch(step_fn, params, logits0, cache,
+                               max_new_tokens, eos)
 
 
 def greedy_decode(step_fn, params, logits0: torch.Tensor, cache,

@@ -51,14 +51,13 @@ from ..utils.bridge import first_tensor, map_state
 from . import decoder as dec
 from .generate import (
     KVCache,
+    decode_batch,
     decoder_forward_cached,
-    greedy_decode_batch,
     init_kv_cache,
     last_real_token,
     pad_prompt_batch,
     prefill_slot_mask,
     step_slot_mask,
-    teacher_forced_logits,
 )
 from .internvl import scatter_image_embeds
 
@@ -655,14 +654,6 @@ def _step_fn(cfg: Qwen2VLConfig, max_len: int, n_start: torch.Tensor,
     return step
 
 
-def _decode(step, params, logits0, cache, max_new: int, eos: int,
-            teacher_tokens):
-    if teacher_tokens is not None:
-        return teacher_forced_logits(step, params, logits0, cache,
-                                     teacher_tokens)
-    return greedy_decode_batch(step, params, logits0, cache, max_new, eos)
-
-
 def _tables(pos0: np.ndarray, cfg: Qwen2VLConfig, device):
     return mrope_cos_sin(torch.from_numpy(pos0), cfg, device=device)
 
@@ -725,7 +716,7 @@ def greedy_generate_batch(
         rope_override=(cos_all[:, :Tb], sin_all[:, :Tb]))
     logits0 = lm_logits(params, cfg, last_real_token(hidden, n_t), impl)[:, 0]
     step = _step_fn(cfg, max_len, n_t, cos_all, sin_all, impl)
-    out = _decode(step, params, logits0, cache, max_new_tokens,
+    out = decode_batch(step, params, logits0, cache, max_new_tokens,
                   int(eos_token_id), teacher_tokens)
     if teacher_tokens is not None:
         return out
@@ -789,17 +780,6 @@ def prefill_prefix(params, cfg: Qwen2VLConfig, prefix: Sequence[int],
     return PrefixCache(cache, mask, P, max_len, cos_all, sin_all)
 
 
-def stack_prefixes(states: Sequence[PrefixCache]) -> PrefixCache:
-    """B = 1 prefix states of one length (a pair's two videos) in new
-    buffers, batched."""
-    cache = KVCache(*(None if ts[0] is None else torch.cat(ts, dim=1)
-                      for ts in zip(*(s.cache for s in states))))
-    return PrefixCache(cache, torch.cat([s.mask for s in states]),
-                       states[0].P, states[0].max_len,
-                       torch.cat([s.cos_all for s in states]),
-                       torch.cat([s.sin_all for s in states]))
-
-
 @torch.no_grad()
 def continue_prefix(params, cfg: Qwen2VLConfig, state: PrefixCache,
                     suffix: Sequence[int], bucket: int, max_new_tokens: int,
@@ -834,7 +814,7 @@ def continue_prefix(params, cfg: Qwen2VLConfig, state: PrefixCache,
     logits0 = lm_logits(params, cfg, last_real_token(hidden, s_real),
                         impl)[:, 0]
     step = _step_fn(cfg, max_len, n_prefix + s_real, cos_all, sin_all, impl)
-    return _decode(step, params, logits0, cache, max_new_tokens,
+    return decode_batch(step, params, logits0, cache, max_new_tokens,
                    int(eos_token_id), teacher_tokens)
 
 

@@ -5,9 +5,9 @@ the ``attention_xla`` oracle: grouped-query attention without materialising
 repeated kv heads, fp32 softmax over an additive bias.  ``multi_head_attention``
 routes ``impl="auto"`` to the kernels of ``flash_attention.py`` by
 ``norm_bound``, as the JAX entry does: the exact softmax (K3) without it, the
-bound kernels with it (K1 for non-causal maskless MHA, K2 for causal
-attention), the per-row bound (K2r) with ``"rows"``; each computes its plain
-twin on the CPU.  ``impl="plain"`` is the explicit oracle.
+bound kernels with it (K1 for non-causal maskless MHA, K1m for non-causal
+MHA under a key mask, K2 for causal attention), the per-row bound (K2r)
+with ``"rows"``; each computes its plain twin on the CPU.  ``impl="plain"`` is the explicit oracle.
 """
 
 from __future__ import annotations

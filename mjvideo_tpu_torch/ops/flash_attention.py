@@ -12,8 +12,15 @@ Counterpart of ``mjvideo_tpu/ops/flash_attention.py``:
   ``custom_vjp``: forward K1 with the lse (``_fwd_nc_kernel(with_lse=
   True)``), backward ``vit_attention_backward``, the non-causal, maskless
   D = 64 instantiation of ``_bwd_impl``'s two kernels (K4 nc).  K1 also
-  takes the Qwen2-VL vision tower's head dim of 80, without a gradient:
-  K4 nc at D = 80 is not built (``K4NC_D80_NEXT``).
+  takes the Qwen2-VL vision tower's head dim of 80 and SigLIP-so400m's 72,
+  without a gradient: K4 nc at D = 80 and 72 is not built
+  (``K4NC_D80_NEXT``, ``K4NC_D72_NEXT``).
+* ``vit_attention_masked`` replaces ``_fwd_bound_kernel`` with
+  ``causal=False`` (K1m): SigLIP's variable-aspect tower, non-causal MHA
+  under a (B, S) key mask (the patch mask of images padded bottom/right),
+  with K2's bound (kmax the largest *live* key norm) and K2's dead-row rule
+  (a row that sees no live key gives 0, no floor).  On the card the op is
+  one C call: the pre-pass's masked partials, then the kernel at D = 72.
 * ``decoder_attention`` replaces ``_fwd_bound_kernel`` (K2): causal
   attention with a (B, K) key mask and GQA (q head h reads kv head h // G),
   under the same bound with ``kmax`` the largest *masked* key norm per
@@ -211,6 +218,20 @@ def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     allowed = torch.ones((1, 1, 1), dtype=torch.bool, device=q.device)
     return _bound_attention_plain(q, k, v, allowed, key_norm_max(k), scale,
                                   floor=True, return_lse=return_lse)
+
+
+def vit_attention_masked_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, attention_mask: torch.Tensor,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of K1m.  q/k/v: (B, S, H, D); attention_mask: (B, S),
+    1 = live key.  K2's arithmetic without the causal mask: the bound on
+    ``key_norm_max(k, attention_mask)``, masked keys give p = 0, a row whose
+    sum is 0 gives 0."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    allowed = (attention_mask != 0)[:, None, :]
+    return _bound_attention_plain(q, k, v, allowed,
+                                  key_norm_max(k, attention_mask), scale,
+                                  floor=False)
 
 
 def _decoder_allowed(q, k, attention_mask, q_offset) -> torch.Tensor:
@@ -436,11 +457,14 @@ def _vit_attention_fwd(q, k, v, scale, with_lse):
     return kernels.vit_attention_op(q, k, v, scale, with_lse=with_lse)
 
 
-# The ViT backward at the Qwen2-VL vision tower's head dim: K1 runs there
-# (the judge), its lse form and K4 nc do not.
+# The ViT backward at the Qwen2-VL vision tower's and SigLIP's head dims:
+# K1 runs there (the judges), its lse form and K4 nc do not.
 K4NC_D80_NEXT = ("ROADMAP Queue 2 item 2: K1 lse and K4 nc (the ViT "
                  "attention's gradient) at the Qwen2-VL vision tower's head "
                  "dim of 80")
+K4NC_D72_NEXT = ("ROADMAP Queue 2 item 2: K1 lse and K4 nc (the ViT "
+                 "attention's gradient) at SigLIP-so400m's head dim of 72")
+_K4NC_NEXT = {80: K4NC_D80_NEXT, 72: K4NC_D72_NEXT}
 
 
 class _VitAttention(torch.autograd.Function):
@@ -451,10 +475,10 @@ class _VitAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.shape[-1] == 80:
+        if q.shape[-1] in _K4NC_NEXT:
             raise NotImplementedError(
                 f"ViT attention has no gradient at head dim {q.shape[-1]} "
-                f"({K4NC_D80_NEXT})")
+                f"({_K4NC_NEXT[q.shape[-1]]})")
         out, lse = _vit_attention_fwd(q, k, v, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
@@ -473,13 +497,33 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1 on a CUDA tensor, its plain twin on a CPU tensor; differentiable
     in q, k and v through K1 with the lse and K4 nc (their twins on the
     CPU), which it takes only when autograd will need them.  At head dim 80
-    (the Qwen2-VL vision tower) it runs forward only: under autograd it
-    raises ``NotImplementedError`` on any device."""
+    (the Qwen2-VL vision tower) and 72 (SigLIP) it runs forward only: under
+    autograd it raises ``NotImplementedError`` on any device."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _VitAttention.apply(q, k, v, scale)
     return _vit_attention_fwd(q, k, v, scale, with_lse=False)
+
+
+def vit_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         attention_mask: torch.Tensor,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """K1m on a CUDA tensor (the op: the masked pre-pass and the kernel,
+    built at D = 72), its plain twin on a CPU tensor.  Forward only: under
+    autograd it raises on any device."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "the masked ViT attention (K1m) has no gradient; call it under "
+            f"torch.no_grad() ({K4NC_D72_NEXT})")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return vit_attention_masked_plain(q, k, v, attention_mask, scale)
+    from .. import kernels
+
+    attention_mask = attention_mask.to(torch.int32).contiguous()
+    return kernels.vit_attention_masked_op(q, k, v, attention_mask, scale)
 
 
 def _int32_operands(attention_mask, q_offset):
@@ -650,9 +694,13 @@ def flash_attention(
     or a scalar, the global position of q row 0 (causal only).
 
     ``norm_bound``: ``False`` takes the exact softmax (K3); ``True`` the
-    Cauchy-Schwarz bound, K2 when causal and K1 for non-causal maskless
-    multi-head attention without an offset; ``"rows"`` the causal per-row
-    bound (K2r)."""
+    Cauchy-Schwarz bound, K2 when causal, and for non-causal multi-head
+    attention without an offset K1 without a mask, K1m with one;
+    ``"rows"`` the causal per-row bound (K2r).  JAX takes its maskless
+    kernel only while ``round_up(K, 8) <= 4096`` and the bound kernel with
+    an all-ones mask past it (``flash_attention.py:440-441``); here every
+    maskless call takes K1: the function is the same, softmax being
+    shift-invariant."""
     if q_offset is not None:
         q_offset = torch.as_tensor(q_offset, device=q.device).reshape(-1)
         q_offset = q_offset.expand(q.shape[0])
@@ -666,8 +714,10 @@ def flash_attention(
     if causal:
         return decoder_attention(q, k, v, attention_mask, q_offset, scale)
     mha = q.shape[2] == k.shape[2]
-    if attention_mask is None and q_offset is None and mha:
-        return vit_attention(q, k, v, scale)
+    if q_offset is None and mha:
+        if attention_mask is None:
+            return vit_attention(q, k, v, scale)
+        return vit_attention_masked(q, k, v, attention_mask, scale)
     raise NotImplementedError(
-        "no bound kernel for non-causal masked or grouped attention; pass "
-        "norm_bound=False for the exact kernel (K3)")
+        "no bound kernel for non-causal grouped attention or one with an "
+        "offset; pass norm_bound=False for the exact kernel (K3)")

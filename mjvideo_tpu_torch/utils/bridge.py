@@ -103,3 +103,32 @@ def to_numpy(state):
     inverse of ``from_jax_params``, for the tests); quantized nodes keep
     their class with numpy fields."""
     return map_state(lambda t: t.detach().cpu().numpy(), state)
+
+
+def _model_from_jax(tree, keys, name, device, dtype):
+    missing = [k for k in keys[0] if k not in tree]
+    extra = [k for k in tree if k not in keys[0] + keys[1]]
+    if missing or extra:
+        raise ValueError(f"not a JAX {name} tree: missing {missing}, "
+                         f"unknown {extra}")
+    return from_jax_params(tree, device=device, dtype=dtype)
+
+
+def videoscore_from_jax(tree, *, device: Union[str, torch.device] = "cuda",
+                        dtype: Optional[torch.dtype] = None):
+    """A JAX VideoScore tree (``init_videoscore_params`` /
+    ``import_videoscore_params``, leaves numpy or JAX arrays) -> the
+    port's ``videoscore_forward`` state: ``vision_model``, ``connector``,
+    ``text`` and, where it has one, ``score``, leaf for leaf (the layouts
+    are the JAX package's)."""
+    return _model_from_jax(tree, (("vision_model", "connector", "text"),
+                                  ("score",)), "VideoScore", device, dtype)
+
+
+def minicpmv_from_jax(tree, *, device: Union[str, torch.device] = "cuda",
+                      dtype: Optional[torch.dtype] = None):
+    """A JAX MiniCPM-V tree (``init_minicpmv_params`` /
+    ``import_minicpmv_params``) -> the port's: ``vpm``, ``resampler`` and
+    ``llm``, leaf for leaf."""
+    return _model_from_jax(tree, (("vpm", "resampler", "llm"), ()),
+                           "MiniCPM-V", device, dtype)

@@ -6,8 +6,11 @@ by leaf the layout of ``from_jax_params`` of the JAX importer's tree:
 * ``vision_model.*``           (``modeling_intern_vit.py``)
 * ``language_model.*``         (``modeling_internlm2.py``: the packed
   ``wqkv`` of grouped layout '(h gs d)', gs = 2 + groups,
-  ``:301-305,361-371``, unpacked once here into q/k/v kernels; or Phi-3's
-  ``qkv_proj`` and ``gate_up_proj``, row blocks unpacked the same way)
+  ``:301-305,361-371``, unpacked once here into q/k/v kernels; Phi-3's
+  ``qkv_proj`` and ``gate_up_proj``, row blocks unpacked the same way; or
+  the Llama layout's separate projections, with Qwen2's q/k/v biases)
+* a SigLIP vision tower (``import_siglip_vision``: VideoScore's
+  ``vision_model.*``, MiniCPM-V's ``vpm.*``)
 * ``mlp1.{0,1,3}.*``           (``modeling_internvl_chat.py:135-140``)
 * ``regression_layer`` / ``reward_transform_matrix`` / ``aspect_gating`` /
   ``criteria_gating``          (``moe_reward.py:137-181``)
@@ -17,8 +20,7 @@ per-layer tensors stack on a leading L axis.  The files are read with the
 port's own safetensors reader (``utils/safetensors_io.py``), and each leaf
 is moved to the device as it is converted: the stacked leaf is allocated
 there in its final dtype and filled one layer at a time, so no second copy
-of the whole state is built on the host or in fp32.  The Llama decoder
-layout and the SigLIP vision tower are not ported (ROADMAP item 10); the
+of the whole state is built on the host or in fp32.  The
 port resumes its own ``torch.save`` checkpoints
 (``train/trainer.py``) in place of JAX's orbax ones.
 """
@@ -228,9 +230,47 @@ def _phi3_layers(im: _Importer, cfg: LLMConfig) -> Dict[str, Any]:
     }
 
 
+def _llama_layers(im: _Importer, cfg: LLMConfig) -> Dict[str, Any]:
+    """The stacked layers of the Llama layout's names (Mistral, Qwen2;
+    ``mjvideo_tpu/utils/checkpoint.py:163-196, 339-355``): separate
+    ``self_attn.{q,k,v,o}_proj`` and ``mlp.{gate,up,down}_proj``.  With
+    ``cfg.bias`` (Qwen2) the q/k/v biases are read and must be there; the
+    o_proj bias, which Qwen2 lacks, is zero where a layer has none."""
+    L = cfg.num_hidden_layers
+
+    def per_layer(name, transpose=False):
+        return im.per_layer(L, "model.layers.{}." + name, transpose)
+
+    attn = {ours: {"kernel": per_layer(f"self_attn.{hf}.weight", True)}
+            for ours, hf in (("wq", "q_proj"), ("wk", "k_proj"),
+                             ("wv", "v_proj"), ("wo", "o_proj"))}
+    if cfg.bias:
+        for ours, hf in (("wq", "q_proj"), ("wk", "k_proj"),
+                         ("wv", "v_proj")):
+            attn[ours]["bias"] = per_layer(f"self_attn.{hf}.bias")
+        o_bias = torch.zeros((L, cfg.hidden_size), dtype=im.dtype,
+                             device=im.device)
+        for i in range(L):
+            name = f"model.layers.{i}.self_attn.o_proj.bias"
+            if im.prefix + name in im.state:
+                o_bias[i].copy_(im.get(name))
+        attn["wo"]["bias"] = o_bias
+    return {
+        "attention_norm": {"weight": per_layer("input_layernorm.weight")},
+        "attention": attn,
+        "ffn_norm": {
+            "weight": per_layer("post_attention_layernorm.weight")},
+        "feed_forward": {
+            ours: {"kernel": per_layer(f"mlp.{hf}.weight", True)}
+            for ours, hf in (("w1", "gate_proj"), ("w3", "up_proj"),
+                             ("w2", "down_proj"))},
+    }
+
+
 # Per decoder layout: its layers' reader, then the names of the token
 # embedding and of the LM head.
 _DECODER_LAYOUTS = {
+    "llama": (_llama_layers, "model.embed_tokens.weight", "lm_head.weight"),
     "internlm2": (_internlm2_layers, "model.tok_embeddings.weight",
                   "output.weight"),
     "phi3": (_phi3_layers, "model.embed_tokens.weight", "lm_head.weight"),
@@ -242,12 +282,9 @@ def import_decoder_params(
     dtype: torch.dtype = torch.float32, prefix: str = "language_model.",
     with_lm_head: bool = True, device: Device = "cuda",
 ) -> Dict[str, Any]:
-    """InternLM2 or Phi-3 torch names -> the port's stacked-layer decoder
-    state (the same leaves for both: the layer is shared)."""
-    if cfg.architecture == "llama":
-        raise NotImplementedError(
-            "the Llama decoder layout is not ported (ROADMAP item 10: the "
-            "other judges)")
+    """InternLM2, Phi-3 or Llama-layout torch names -> the port's
+    stacked-layer decoder state (the same leaves for all: the layer is
+    shared)."""
     if cfg.architecture not in _DECODER_LAYOUTS:
         raise ValueError(f"unknown architecture {cfg.architecture!r}")
     layers, embed, head = _DECODER_LAYOUTS[cfg.architecture]
@@ -269,6 +306,51 @@ def import_decoder_params(
                 "prefix")
         params["output"] = {"kernel": im.kernel(head)}
     return params
+
+
+def import_siglip_vision(
+    state: Dict[str, torch.Tensor], cfg, dtype: torch.dtype = torch.float32,
+    prefix: str = "vision_model.", device: Device = "cuda",
+) -> Dict[str, Any]:
+    """A SigLIP vision tower's torch names -> the port's stacked-layer
+    state (``mjvideo_tpu/utils/checkpoint.py:199-255``): VideoScore's
+    Idefics2 tower (prefix ``vision_model.``) and MiniCPM-V-2.6's NaViT
+    SigLIP (``vpm.``), the same so400m architecture.  ``cfg`` is a
+    ``models.videoscore.SigLIPVisionConfig``."""
+    im = _Importer(state, prefix, dtype, device)
+    L, P = cfg.num_hidden_layers, cfg.patch_size
+
+    def per_layer(name, transpose=False):
+        return im.per_layer(L, "encoder.layers.{}." + name, transpose)
+
+    def linear(hf):
+        return {"kernel": per_layer(f"{hf}.weight", True),
+                "bias": per_layer(f"{hf}.bias")}
+
+    conv = im.get("embeddings.patch_embedding.weight")
+    conv = conv.permute(2, 3, 1, 0).reshape(P * P * 3, -1).to(dtype)
+    return {
+        "patch_embedding": {
+            "kernel": conv,
+            "bias": im.leaf("embeddings.patch_embedding.bias"),
+        },
+        "position_embedding": im.leaf(
+            "embeddings.position_embedding.weight"),
+        "layers": {
+            "ln1": {"weight": per_layer("layer_norm1.weight"),
+                    "bias": per_layer("layer_norm1.bias")},
+            "ln2": {"weight": per_layer("layer_norm2.weight"),
+                    "bias": per_layer("layer_norm2.bias")},
+            "q": linear("self_attn.q_proj"),
+            "k": linear("self_attn.k_proj"),
+            "v": linear("self_attn.v_proj"),
+            "o": linear("self_attn.out_proj"),
+            "fc1": linear("mlp.fc1"),
+            "fc2": linear("mlp.fc2"),
+        },
+        "post_layernorm": {"weight": im.leaf("post_layernorm.weight"),
+                           "bias": im.leaf("post_layernorm.bias")},
+    }
 
 
 def import_projector_params(

@@ -7,8 +7,7 @@ port are published in the format ``InternVLChatRewardModeling`` loads
 ``export_*`` functions return views of the state where they can (a
 transposed kernel, a layer of a stacked leaf), in its dtype and on its
 device; ``save_safetensors`` writes them as F32, as the JAX exporter
-does, each made contiguous and brought to the host one at a time.  The
-Llama decoder layout is not ported (ROADMAP item 10).
+does, each made contiguous and brought to the host one at a time.
 """
 
 from __future__ import annotations
@@ -85,9 +84,7 @@ def export_vit(params: Dict[str, Any], cfg: VisionConfig,
 def export_decoder(params: Dict[str, Any], cfg: LLMConfig,
                    prefix: str = "language_model.") -> Dict[str, torch.Tensor]:
     if cfg.architecture == "llama":
-        raise NotImplementedError(
-            "the Llama decoder layout is not ported (ROADMAP item 10: the "
-            "other judges)")
+        return _export_llama(params, cfg, prefix)
     if cfg.architecture == "phi3":
         return _export_phi3(params, cfg, prefix)
     out: Dict[str, torch.Tensor] = {}
@@ -133,6 +130,41 @@ def _export_phi3(params: Dict[str, Any], cfg: LLMConfig,
         out[pre + "mlp.gate_up_proj.weight"] = torch.cat(
             [_w(ffn[n]["kernel"][i]) for n in ("w1", "w3")])
         out[pre + "mlp.down_proj.weight"] = _w(ffn["w2"]["kernel"][i])
+        out[pre + "input_layernorm.weight"] = lp["attention_norm"]["weight"][i]
+        out[pre + "post_attention_layernorm.weight"] = (
+            lp["ffn_norm"]["weight"][i])
+    out[prefix + "model.norm.weight"] = params["norm"]["weight"]
+    if "output" in params:
+        out[prefix + "lm_head.weight"] = _w(params["output"]["kernel"])
+    return out
+
+
+# The Llama layout's projections: (our node, its HF name).
+_LLAMA_ATTENTION = (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                    ("wo", "o_proj"))
+_LLAMA_MLP = (("w1", "gate_proj"), ("w3", "up_proj"), ("w2", "down_proj"))
+
+
+def _export_llama(params: Dict[str, Any], cfg: LLMConfig,
+                  prefix: str) -> Dict[str, torch.Tensor]:
+    """The Llama layout's names (Mistral, Qwen2;
+    ``mjvideo_tpu/utils/export.py:150-173``): separate projections, the
+    LM head as ``lm_head.weight``.  Where the state has biases (Qwen2's
+    q/k/v, and the o_proj bias the importer fills with zeros), they are
+    written too, which the JAX exporter omits: its export of a Qwen2 state
+    loses the biases."""
+    out: Dict[str, torch.Tensor] = {}
+    lp = params["layers"]
+    attn, ffn = lp["attention"], lp["feed_forward"]
+    out[prefix + "model.embed_tokens.weight"] = params["tok_embeddings"]
+    for i in range(cfg.num_hidden_layers):
+        pre = f"{prefix}model.layers.{i}."
+        for ours, hf in _LLAMA_ATTENTION:
+            out[pre + f"self_attn.{hf}.weight"] = _w(attn[ours]["kernel"][i])
+            if "bias" in attn[ours]:
+                out[pre + f"self_attn.{hf}.bias"] = attn[ours]["bias"][i]
+        for ours, hf in _LLAMA_MLP:
+            out[pre + f"mlp.{hf}.weight"] = _w(ffn[ours]["kernel"][i])
         out[pre + "input_layernorm.weight"] = lp["attention_norm"]["weight"][i]
         out[pre + "post_attention_layernorm.weight"] = (
             lp["ffn_norm"]["weight"][i])

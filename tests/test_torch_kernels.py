@@ -535,9 +535,10 @@ def test_k1_k2_and_pre_pass_wrappers_raise_instead_of_falling_back(
         kernels.vit_attention(wide, wide, wide, kmax, 0.125)
     with pytest.raises(ValueError, match="head dim"):
         kernels.decoder_attention(q, k, v, None, kmax, None, 0.125)
-    # 80 and 96 are built (the Qwen2-VL tower, Phi-3); 72 is not.
+    # 72, 80 and 96 are built (SigLIP, the Qwen2-VL tower, Phi-3); 56 is
+    # not.
     with pytest.raises(ValueError, match="head dim"):
-        kernels.key_norm_max(_randn(g, cuda_device, 1, 70, 4, 72))
+        kernels.key_norm_max(_randn(g, cuda_device, 1, 70, 4, 56))
     # Non-dense heads: every other head of a wider tensor.
     sparse = _randn(g, cuda_device, 1, 70, 8, 64)[:, :, ::2]
     with pytest.raises(ValueError, match="dense"):

@@ -222,8 +222,8 @@ def test_the_partial_pass_has_no_atomics_and_its_entry_no_memset():
 
 
 def test_only_the_fused_entries_launch_as_programmatic_dependents():
-    """The attribute is set in one helper, ``launch_dependent``; the K1, K2
-    and K2r ops and K6 reach it (``launch_attention(..., true)`` or
+    """The attribute is set in one helper, ``launch_dependent``; the K1,
+    K1m, K2 and K2r ops and K6 reach it (``launch_attention(..., true)`` or
     ``launch_gemm(..., true)``), and so does K2r's pre-pass
     (``launch_key_norm_cummax``: the scan behind the partial pass), alone
     or in K2r's op; the kernel-alone entries, K3, K4 and K7 do not, so none
@@ -232,7 +232,7 @@ def test_only_the_fused_entries_launch_as_programmatic_dependents():
     assert header.count("cudaLaunchAttributeProgrammaticStreamSerialization") == 1
     fused = {"mjv_decoder_attention_op", "mjv_vit_attention_op",
              "mjv_q8g_matmul_fused", "mjv_decoder_attention_rows_op",
-             "mjv_key_norm_cummax"}
+             "mjv_key_norm_cummax", "mjv_vit_attention_masked_op"}
     seen = set()
     for name in sorted(p.name for p in kernels.CSRC.glob("*.cu")):
         src = _source(name)

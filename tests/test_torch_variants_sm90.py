@@ -194,15 +194,18 @@ def test_main_path_instantiations_are_unchanged():
     """K1, K1 lse, K2, K2 lse, K2r, K3 and K3 lse launch the template as
     they did (K2r twice: alone and, as K2 does, from its op), K2, K2r and
     K3 also at Phi-3's D96 beside their D128 launches, K1 also at the
-    Qwen2-VL tower's D80 beside its D64 ones, and its new parameters
-    (heads a CTA, keys a tile, the softmax's Variant) default to what
-    those kernels were."""
+    Qwen2-VL tower's D80 and SigLIP's D72 beside its D64 ones, K1m (K2's
+    masked path, not causal) at D72 alone and from its op, and its new
+    parameters (heads a CTA, keys a tile, the softmax's Variant) default to
+    what those kernels were."""
     assert _launches(_source("vit_attention.cu")) == [
+        "sm90::D72, false, sm90::ShiftMode::kKeyMax, true",
         "sm90::D80, false, sm90::ShiftMode::kKeyMax, true",
         "sm90::D64, false, sm90::ShiftMode::kKeyMax, true"] * 2
     assert _launches(_source("decoder_attention.cu")) == [
         "sm90::D96, true, sm90::ShiftMode::kKeyMax",
         "sm90::D128, true, sm90::ShiftMode::kKeyMax"] * 2 + [
+        "sm90::D72, false, sm90::ShiftMode::kKeyMax"] * 2 + [
         "sm90::D96, true, sm90::ShiftMode::kRows",
         "sm90::D128, true, sm90::ShiftMode::kRows"] * 2
     assert _launches(_source("exact_attention.cu")) == [

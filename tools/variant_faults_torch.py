@@ -1,7 +1,7 @@
 """Fault controls for B1-B3, K2r's pre-pass, the D = 96 forms of K2 lse,
-K3 lse, K4a, K4b and K2r's pre-pass, and K1 at D = 80, on a CUDA card: each
-fault planted in a copy of the tree, and the card tests of its kernel run
-there.
+K3 lse, K4a, K4b and K2r's pre-pass, K1 at D = 80, and K1 and K1m at
+D = 72, on a CUDA card: each fault planted in a copy of the tree, and the
+card tests of its kernel run there.
 
     python3 tools/variant_faults_torch.py [--out FILE] [--only NAME ...]
 
@@ -32,6 +32,7 @@ VARIANTS = "tests/test_torch_kernels_variants_sm90.py"
 ROWS_BSHD = "tests/test_torch_kernels_rows_bshd_sm90.py"
 D96 = "tests/test_torch_kernels_d96_sm90.py"
 D80 = "tests/test_torch_kernels_d80_sm90.py"
+D72 = "tests/test_torch_kernels_d72_sm90.py"
 # The backward's row store at the layout's 128-column stride where D = 96
 # (64 * kBoxes: the same as kD at 64 and 128), for dK/dV's Config (32-row
 # streamed tiles) or dQ's (64): rows overlap and the last runs past the
@@ -80,6 +81,17 @@ FAULTS = (
     ("K2r D96 norms over 128 columns", CSRC + "decoder_attention.cu",
      "if (kSpare && piece >= kPieces) s = 0.0;",
      "if (kSpare && piece >= kPieces && !NORMS) s = 0.0;", D96),
+    # K1 (and K1m) at D = 72 store output rows 80 columns apart: rows
+    # overlap and the last runs past the tensor.
+    ("K1 D72 store at the 80-column stride", HEADER,
+     "* C::kD + 2 * c;", "* (C::kD == 72 ? 80 : C::kD) + 2 * c;", D72),
+    # The non-causal masked form (K1m) reads every key as live: its
+    # producer's liveness bits ignore the mask (kmax still skips the
+    # masked keys).
+    ("K1m reads every key as live", HEADER,
+     "(mask == nullptr || mask[(long long)b * K + j] != 0)",
+     "(mask == nullptr || !CAUSAL || mask[(long long)b * K + j] != 0)",
+     D72),
 )
 
 
