@@ -450,6 +450,35 @@ Phases (any failure raises and exits non-zero):
    of the published names (``write_hf_dir``), on ``seeded_video_source``'s
    1280 x 720 frames: every results row equal to the port's judge built as
    the CLI builds it, exact launches.  Prints its command time.
+28. CogVLM2-Video (after phase 27, its states freed; nothing caught).
+   (a) On a generator of its own: K3 not causal at the EVA2-CLIP-E tower's
+   D = 112 (COG_K3_SHAPES: a video's 8 frames of 257 tokens, the last key
+   tile one live key, and whole tiles; q/k/v views into one qkv tensor)
+   against its twin within KERNEL_REL_TOL, two launches bit-identical,
+   then the kernel, SDPA and the twin in turns by CUDA events and the
+   kernel's device time.  (b) ``CogVLM2Judge`` at full dims (EVA2-CLIP-E
+   63 x 1792, 16 heads of 112, MLP 15,360; the GLU adapter to 4096 /
+   14,336; Llama-3-8B 32 x 4096, 32/8 heads of 128, two experts a layer,
+   vocabulary 128,256: 19.49 B parameters), random bf16 weights drawn a
+   layer at a time from a fresh generator at SEED, a pair of seeded
+   8-frame videos at 224 px (66 tokens a frame) through a subclass's
+   ``_encode_video``: ``judge_pair`` with the overall prompt (the full
+   prompt) and the short question (the prefix path), 64 greedy tokens,
+   exact launches (per video 63 K3 at D = 112; 32 K3 per prefill or
+   continuation; none in decode); the tower and adapter's output (fp32
+   activations, bf16 product inputs, as the JAX judge's fp32 pixels make
+   them) and the teacher-forced logits of both paths, end to end and with
+   the tower's output shared (the decoder alone), within LOGITS_REL_TOL of
+   fp32 plain (``cogvlm2_fidelity``, ``cogvlm2_held``), taken at full depth on the bf16 state itself (fp32 activations
+   through ``impl="plain"``: each product promotes one weight at a time,
+   as an fp32 copy of the 36.3 GiB state would not fit beside it), with
+   S1's split (bf16 plain against fp32 plain); the tower's ms a video, the
+   pair's prefill ms, ms a decode step at B = 2, answers/s by each path and
+   the peak.  (c) ``eval/cli.main --judge cogvlm2 --byte-tokenizer`` on a
+   THUDM-named directory at full width and COG_CLI_DEPTH written by the
+   port's exporter, on ``seeded_video_source``'s frames: every results row
+   equal to the port's judge built as the CLI builds it, exact launches.
+   Prints its command time.
 """
 
 from __future__ import annotations
@@ -558,14 +587,14 @@ PREPASS_REL_TOL = 1e-6
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_scan_kernel", "key_norm_partial_kernel",
                 "key_norm_fold_kernel")
-# The forward template's 12 main-path instantiations (the 5 above; at
+# The forward template's 13 main-path instantiations (the 5 above; at
 # Phi-3's D = 96 K2 and K3 causal and not, each with the lse or without,
 # and K2r; at the Qwen2-VL tower's D = 80 K1; at SigLIP's D = 72 K1 and
-# K1m) and B1's 4 and B2's 3 (B3 is B2's hp 1), the backward template's 10,
-# the pre-passes' 9 (the partial pass at D = 64, 72, 80, 96 and 128 and
-# with the norms at 128 and 96, the fold and the scan), the int8 GEMM's 2
-# and K6's pre-pass 1.
-SM90_INSTANTIATIONS = 41
+# K1m; at the EVA2-CLIP-E tower's D = 112 K3 not causal) and B1's 4 and
+# B2's 3 (B3 is B2's hp 1), the backward template's 10, the pre-passes' 9
+# (the partial pass at D = 64, 72, 80, 96 and 128 and with the norms at 128
+# and 96, the fold and the scan), the int8 GEMM's 2 and K6's pre-pass 1.
+SM90_INSTANTIATIONS = 42
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -733,6 +762,15 @@ MCPM_DECODE_STEPS = 16      # decode steps timed at B = 2, by difference
 VS_CLI_DEPTH = (2, 1, 2)
 MCPM_CLI_DEPTH = (2, 2)
 SIGLIP_CLI_PAIRS = 1
+# Phase 28: K3 not causal at the EVA2-CLIP-E tower's D = 112 at a video's 8
+# frames of 257 tokens (224 px / 14, and cls) and at whole 128-row and
+# 128-key tiles; the CogVLM2-Video judge on 8 frames a video, its CLI at
+# full width and this (EVA, text) depth.
+COG_K3_SHAPES = ((8, 257, 16, 112), (2, 1024, 16, 112))
+COG_FRAMES = 8
+COG_DECODE_STEPS = 16  # decode steps timed at B = 2, by difference
+COG_CLI_DEPTH = (2, 2)
+COG_CLI_PAIRS = 1
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -5104,7 +5142,7 @@ def _qwen_teacher(judge, prompt, videos, prefix, teacher=None):
     out = judge._generate_full(prompt, list(videos), teacher_tokens=teacher)
     if teacher is not None:
         return out
-    eos = judge.cfg.im_end_token_id
+    eos = getattr(judge.cfg, judge._eos_attr)
     return torch.tensor([row + [eos] * (JUDGE_NEW_TOKENS - len(row))
                          for row in out], device=judge.device)
 
@@ -5112,9 +5150,9 @@ def _qwen_teacher(judge, prompt, videos, prefix, teacher=None):
 def qwen_logits_fidelity(judge, plain, prompt, videos, prefix, label,
                          name="qwen2vl judge"):
     """Teacher-forced per-step logits of one path of a ``_GreedyLocalJudge``
-    (the Qwen2-VL and MiniCPM-V judges), the kernel judge's against the
-    fp32 plain judge's on the kernel path's greedy tokens: (max|delta| /
-    max|plain|, tokens)."""
+    (the Qwen2-VL, MiniCPM-V and CogVLM2 judges), the kernel judge's
+    against the fp32 plain judge's on the kernel path's greedy tokens:
+    (max|delta| / max|plain|, tokens)."""
     toks = _qwen_teacher(judge, prompt, videos, prefix)
     got = _qwen_teacher(judge, prompt, videos, prefix, toks)
     ref = _qwen_teacher(plain, prompt, videos, prefix, toks)
@@ -6019,9 +6057,392 @@ def write_hf_dir(d, hf_config, hf_state):
     save_safetensors(hf_state, os.path.join(d, "model.safetensors"))
 
 
+def check_k3_d112(randn, shape):
+    """Phase 28 (a): K3 not causal at the EVA2-CLIP-E tower's D = 112 on
+    views into one (B, S, 3 H D) tensor, as the tower makes them, against
+    its twin, two launches bit-identical, SDPA the library yardstick; then
+    the kernel, SDPA and the twin in turns by CUDA events, and the kernel's
+    device time and back-to-back time.  Returns the reading."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = shape
+    q, k, v = (t.view(B, S, H, D)
+               for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
+
+    def kernel():
+        return kernels.exact_attention(q, k, v, None, None, D ** -0.5,
+                                       causal=False)
+
+    def plain():
+        return fa.exact_attention_plain(q, k, v, causal=False)
+
+    library = _sdpa(q, k, v, causal=False)
+    reading = _check_kernel(
+        f"K3 exact_attention D = 112 not causal {shape}", kernel, plain,
+        extra=_again(kernel),
+        work=_attention_work(q, k, v, None, causal=False), library=library)
+    runs = {"K3": kernel, "SDPA": library, "plain": plain}
+    med = _in_turns(runs, list(runs) + list(runs)[::-1], 10)
+    reading.update(ms_in_turns=med["K3"], sdpa_ms_in_turns=med["SDPA"],
+                   plain_ms_in_turns=med["plain"],
+                   device_ms=device_ms(kernel),
+                   back_to_back_ms=stream_ms(kernel))
+    print(f"K3 D = 112 at {shape}, in turns: K3 {med['K3']:.4f} ms, SDPA "
+          f"{med['SDPA']:.4f} ms, plain {med['plain']:.4f} ms (median of "
+          f"20 each); device time by kernel "
+          + ", ".join(f"{n} {t:.4f} ms"
+                      for n, t in reading["device_ms"].items())
+          + f"; back to back {reading['back_to_back_ms']:.4f} ms a call")
+    return reading
+
+
+def _seeded_cog_encode(judge, video_path):
+    """``CogVLM2Judge._encode_video`` on seeded pixels of COG_FRAMES frames
+    at the model's 224 px (normalised pixels) in place of a decoded video:
+    the tower and the adapter on fp32 pixels with each product's inputs in
+    the judge's dtype."""
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch.models.cogvlm2 import get_vision_embedding
+
+    size = judge.cfg.vision.image_size
+    rng = np.random.default_rng([judge.video_seed, _path_seed(video_path)])
+    pix = rng.standard_normal((COG_FRAMES, size, size, 3), dtype=np.float32)
+    with torch.no_grad():
+        vis = get_vision_embedding(
+            judge.params, judge.cfg,
+            torch.from_numpy(pix).to(judge.device), impl=judge.attn_impl,
+            dtype=judge.dtype)
+    return vis, COG_FRAMES
+
+
+def make_cog_judge(cfg, state, tok, vision_of=None, dtype=None, seed=SEED,
+                   **kw):
+    """A ``CogVLM2Judge`` whose videos are pixels seeded by ``seed`` and the
+    path (``_seeded_cog_encode``), or, with ``vision_of`` (another judge),
+    that judge's vision embeds of each video cast to this one's dtype: the
+    decoder's reading with the tower held equal.  ``dtype``: the decoder's
+    activation dtype and the tower's product inputs in place of the
+    weights' (``torch.float32`` on the bf16 state with
+    ``attn_impl="plain"`` is the fp32 reference)."""
+    from mjvideo_tpu_torch.eval.judges import CogVLM2Judge
+
+    class SeededCogVLM2Judge(CogVLM2Judge):
+        if vision_of is None:
+            _encode_video = _seeded_cog_encode
+        else:
+            def _encode_video(self, video_path):
+                vis, n = vision_of._prep(video_path)
+                return vis.to(self.dtype), n
+
+    kw = {"num_segments": COG_FRAMES, "max_new_tokens": JUDGE_NEW_TOKENS,
+          **kw}
+    judge = SeededCogVLM2Judge(cfg, state, tok, **kw)
+    judge.dtype = dtype or judge.dtype
+    judge.video_seed = seed
+    return judge
+
+
+def _cog_logits(judge, fp32, bf16, prompt, videos, prefix, label):
+    """One path's teacher-forced logits on the kernel judge's greedy tokens:
+    (the kernels against fp32 plain, S1's split: bf16 plain against fp32
+    plain), each max|delta| / max|fp32 plain logit|."""
+    toks = _qwen_teacher(judge, prompt, videos, prefix)
+    ref = _qwen_teacher(fp32, prompt, videos, prefix, toks)
+    got = _qwen_teacher(judge, prompt, videos, prefix, toks)
+    if not bool(got.isfinite().all()):
+        raise RuntimeError(f"cogvlm2 judge {label}: non-finite logits")
+    rel = _rel_err(got, ref)[1]
+    split = _rel_err(_qwen_teacher(bf16, prompt, videos, prefix, toks),
+                     ref)[1]
+    print(f"cogvlm2 judge {label}: greedy tokens of row 0 begin "
+          f"{toks[0, :8].tolist()}; teacher-forced logits over "
+          f"{toks.shape[1]} steps, the kernels against fp32 plain "
+          f"{rel:.4e} of max|plain logit| (bound {LOGITS_REL_TOL:.1e}); "
+          f"S1's split, bf16 plain against fp32 plain {split:.4e}")
+    return rel, split
+
+
+def cogvlm2_fidelity(cfg, state, tok, judge, videos, seed=SEED):
+    """Phase 28's fidelity readings of ``judge`` (the kernels, bf16) on
+    ``state`` against fp32 plain on the same state, with S1's split (bf16
+    plain against fp32 plain) beside each, each max|delta| / max|fp32
+    plain|: the tower and adapter's output of the first video; the
+    teacher-forced logits of the full prompt and of the prefix path; and
+    the same logits with the plain judges given the kernel judge's vision
+    embeds (the decoder alone).  Holds nothing; returns the readings."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import overall_prompt
+
+    out = {}
+    plains = (make_cog_judge(cfg, state, tok, attn_impl="plain",
+                             dtype=torch.float32, seed=seed),
+              make_cog_judge(cfg, state, tok, attn_impl="plain", seed=seed))
+    vis = {}
+    for name, j in (("kernels", judge), ("fp32", plains[0]),
+                    ("bf16", plains[1])):
+        vis[name] = j._prep(videos[0])[0]
+    out["vision_rel"] = _rel_err(vis["kernels"], vis["fp32"])[1]
+    out["vision_bf16_plain_rel"] = _rel_err(vis["bf16"], vis["fp32"])[1]
+    print(f"cogvlm2 tower and adapter ({COG_FRAMES} frames, "
+          f"{tuple(vis['kernels'].shape)}, {vis['kernels'].dtype}): kernels "
+          f"against fp32 plain {out['vision_rel']:.4e} of max|plain| (bound "
+          f"{LOGITS_REL_TOL:.1e}); S1's split, bf16 plain against fp32 "
+          f"plain {out['vision_bf16_plain_rel']:.4e}")
+    del vis
+    # The decoder alone: the plain judges take the kernel judge's vision
+    # embeds, so the reading holds the decoder's kernels and arithmetic
+    # at full depth.
+    shared = tuple(make_cog_judge(cfg, state, tok, vision_of=judge,
+                                  attn_impl="plain", dtype=dt, seed=seed)
+                   for dt in (torch.float32, torch.bfloat16))
+    prompt = overall_prompt(JUDGE_CAPTION)
+    for key, q, prefix in (("full", prompt, False),
+                           ("prefix", JUDGE_QUESTION, True)):
+        label = "full prompt" if key == "full" else key
+        out[f"{key}_rel"], out[f"{key}_bf16_plain_rel"] = _cog_logits(
+            judge, *plains, q, videos, prefix, label)
+        (out[f"{key}_decoder_rel"],
+         out[f"{key}_decoder_bf16_plain_rel"]) = _cog_logits(
+            judge, *shared, q, videos, prefix, f"{label}, the decoder alone")
+    del plains, shared
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cogvlm2_held(out):
+    """Raises where a reading of ``cogvlm2_fidelity``'s held by phase 28
+    (the tower, both paths end to end, both with the decoder alone)
+    exceeds LOGITS_REL_TOL."""
+    keys = ("vision_rel", "full_rel", "prefix_rel", "full_decoder_rel",
+            "prefix_decoder_rel")
+    missed = {k: out[k] for k in keys if not out[k] <= LOGITS_REL_TOL}
+    if missed:
+        raise RuntimeError(f"cogvlm2 judge against fp32 plain: {missed} > "
+                           f"{LOGITS_REL_TOL}")
+
+
+def cogvlm2_judge_phase(dev, generator):
+    """Phase 28 (b): ``CogVLM2Judge`` on CogVLM2-Video at full dims (see the
+    module docstring).  The fp32 reference runs on the bf16 state itself
+    (``dtype=torch.float32``, ``impl="plain"``).  Returns the readings and
+    the launches."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import judge_pair, kernels
+    from mjvideo_tpu_torch import overall_prompt
+    from mjvideo_tpu_torch.data.prompts import ByteTokenizer
+    from mjvideo_tpu_torch.models.cogvlm2 import (
+        CogVLM2Config,
+        build_video_prompt_ids,
+        get_vision_embedding,
+        greedy_generate_batch,
+        init_cogvlm2_params,
+    )
+
+    cfg = CogVLM2Config()
+    L_vit, L_llm = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
+    videos = ("video_0", "video_1")
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    state = init_cogvlm2_params(cfg, generator=generator(), device=dev,
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out["state_s"] = time.perf_counter() - t0
+    out["params"] = sum(t.numel() for t in _flat_state(state).values())
+    out["state_gib"] = sum(t.numel() * t.element_size()
+                           for t in _flat_state(state).values()) / 2**30
+    print(f"CogVLM2-Video state (bf16, {out['params'] / 1e9:.2f} B "
+          f"parameters, {out['state_gib']:.1f} GiB) made on the card in "
+          f"{out['state_s']:.1f} s")
+    tok = ByteTokenizer()
+    torch.cuda.reset_peak_memory_stats(dev)
+    judge = make_cog_judge(cfg, state, tok)
+    kernels.reset_launch_counts()
+    s0, s1, r0, r1 = judge_pair(judge, *videos, JUDGE_CAPTION)
+    torch.cuda.synchronize()
+    launches["cogvlm2_judge_full"] = _held_launches(
+        "cogvlm2 judge full prompt", {
+            "exact_attention": 2 * L_vit + L_llm,
+            "exact_attention_d112": 2 * L_vit})
+    print(f"cogvlm2 judge full prompt: ratings {s0}, {s1}; answers "
+          f"{r0!r:.60}, {r1!r:.60}")
+    kernels.reset_launch_counts()
+    judge.ask_batch(JUDGE_QUESTION, list(videos))
+    torch.cuda.synchronize()
+    launches["cogvlm2_judge_prefix"] = _held_launches(
+        "cogvlm2 judge prefix", {"exact_attention": 3 * L_llm})
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out.update(cogvlm2_fidelity(cfg, state, tok, judge, videos))
+    cogvlm2_held(out)
+    out["peak_with_plain_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    import numpy as np
+
+    prompt = overall_prompt(JUDGE_CAPTION)
+
+    size = cfg.vision.image_size
+    pix = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (COG_FRAMES, size, size, 3), dtype=np.float32)).to(dev)
+    with torch.no_grad():
+        out["vision_ms"] = _host_ms(lambda: get_vision_embedding(
+            state, cfg, pix))
+    preps = [judge._prep(v) for v in videos]
+    items = [build_video_prompt_ids(tok, cfg, n, prompt) + (None,)
+             for _, n in preps]
+
+    def generate(n):
+        return greedy_generate_batch(state, cfg, items, max_new_tokens=n,
+                                     eos_token_id=-1,
+                                     vision_embeds=[v for v, _ in preps])
+
+    out["prefill_ms"] = _host_ms(lambda: generate(1))
+    steps_ms = _host_ms(lambda: generate(1 + COG_DECODE_STEPS))
+    out["decode_step_ms"] = (steps_ms - out["prefill_ms"]) / COG_DECODE_STEPS
+    out["pair_full_s"] = _host_ms(
+        lambda: judge_pair(judge, *videos, JUDGE_CAPTION)) / 1e3
+    out["pair_prefix_s"] = _host_ms(
+        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+    out["prompt_tokens"] = items[0][0].shape[1]
+    print(f"cogvlm2 judge time: vision tower and adapter "
+          f"{out['vision_ms']:.1f} ms a video ({COG_FRAMES} frames at "
+          f"{size} px); the pair's full-prompt prefill "
+          f"({out['prompt_tokens']} tokens a row) {out['prefill_ms']:.1f} ms;"
+          f" decode step at B = 2 {out['decode_step_ms']:.2f} ms (by "
+          f"difference over {COG_DECODE_STEPS}); a pair: full prompt "
+          f"{out['pair_full_s']:.3f} s ({2 / out['pair_full_s']:.2f} "
+          f"answers/s), prefix path {out['pair_prefix_s']:.3f} s "
+          f"({2 / out['pair_prefix_s']:.2f} answers/s), at most "
+          f"{JUDGE_NEW_TOKENS} new tokens; peak memory {out['peak_gib']:.2f}"
+          f" GiB (kernels), {out['peak_with_plain_gib']:.2f} GiB with the "
+          "fp32 reference")
+    del judge, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def cogvlm2_cli_phase(dev, generator):
+    """Phase 28 (c): ``eval/cli.main --judge cogvlm2 --byte-tokenizer`` on a
+    THUDM-named directory at full width and COG_CLI_DEPTH (the port's
+    exporter, ``write_hf_dir``), a bf16 state from ``generator``, videos
+    from ``seeded_video_source`` (the judge's own preprocessing to 224 px):
+    every results row equal to the port's judge built as the CLI builds it
+    on the directory, launches exact.  Returns the readings and the
+    launches."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from mjvideo_tpu_torch import judge_pair, kernels
+    from mjvideo_tpu_torch.data.prompts import ByteTokenizer
+    from mjvideo_tpu_torch.eval import cli
+    from mjvideo_tpu_torch.eval.judges import CogVLM2Judge
+    from mjvideo_tpu_torch.models import cogvlm2 as cm
+    from mjvideo_tpu_torch.utils.checkpoint import load_safetensors_dir
+    from mjvideo_tpu_torch.utils.export import export_cogvlm2
+
+    cfg = cm.CogVLM2Config()
+    cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(
+            cfg.vision, num_hidden_layers=COG_CLI_DEPTH[0]),
+        text=dataclasses.replace(cfg.text,
+                                 num_hidden_layers=COG_CLI_DEPTH[1]))
+    n = COG_CLI_PAIRS
+    d = tempfile.mkdtemp()
+    try:
+        records = [{"caption": f"{JUDGE_CAPTION} ({i})",
+                    "video_0_path": f"clip_{i}_0.mp4",
+                    "video_1_path": f"clip_{i}_1.mp4",
+                    "overall_preference": EVAL_PREFERENCES[i % 2]}
+                   for i in range(n)]
+        data = os.path.join(d, "pairs.json")
+        with open(data, "w") as f:
+            json.dump(records, f)
+        ckpt = os.path.join(d, "cogvlm2")
+        t0 = time.perf_counter()
+        state = cm.init_cogvlm2_params(cfg, generator=generator(),
+                                       device=dev, dtype=torch.bfloat16)
+        write_hf_dir(ckpt, cm.cogvlm2_config_to_hf(cfg),
+                     export_cogvlm2(state, cfg))
+        del state
+        write_s = time.perf_counter() - t0
+        results = os.path.join(d, "cogvlm2.jsonl")
+        with seeded_video_source():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(["--benchmark", "overall", "--judge", "cogvlm2",
+                      "--judge-model", ckpt, "--byte-tokenizer",
+                      "--data-json", data, "--video-root", d,
+                      "--results", results])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = {"cogvlm2_cli": _held_launches("cogvlm2 CLI", {
+                "exact_attention": n * (2 * COG_CLI_DEPTH[0]
+                                        + COG_CLI_DEPTH[1]),
+                "exact_attention_d112": 2 * n * COG_CLI_DEPTH[0]})}
+            rows = [json.loads(line) for line in open(results)]
+            params = cm.import_cogvlm2_params(load_safetensors_dir(ckpt), cfg,
+                                              torch.bfloat16, device=dev)
+            judge = CogVLM2Judge(cfg, params, ByteTokenizer())
+            want = [judge_pair(judge, os.path.join(d, r["video_0_path"]),
+                               os.path.join(d, r["video_1_path"]),
+                               r["caption"]) for r in records]
+            del judge, params
+        got = [(r["score_0"], r["score_1"], r["response_0"], r["response_1"])
+               for r in rows]
+        same = got == [tuple(w) for w in want]
+        out = {"write_s": write_s, "cli_s": cli_s, "rows_equal": same,
+               "rows": len(rows)}
+        print(f"cogvlm2 CLI on a small-depth directory (written in "
+              f"{write_s:.1f} s): {len(rows)} rows in {cli_s:.1f} s; every "
+              f"row equal to the judge's: {same}")
+        if not (same and len(rows) == n):
+            raise RuntimeError(f"cogvlm2 CLI: rows {got} against {want}")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d)
+    return out, launches
+
+
+def cogvlm2_phase(dev, generator, drawer):
+    """Phase 28: the D = 112 kernel checks, the CogVLM2-Video judge and its
+    CLI (see the module docstring).  Returns the readings, the kernel
+    readings and the launch counts by path."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    randn = drawer(generator())
+    k = {"K3": {s: check_k3_d112(randn, s) for s in COG_K3_SHAPES}}
+    out = {"kernels_s": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["judge"], launches = cogvlm2_judge_phase(dev, generator)
+    out["judge"]["command_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["cli"], more = cogvlm2_cli_phase(dev, generator)
+    launches.update(more)
+    out["cli"]["command_s"] = time.perf_counter() - t1
+    out["command_s"] = time.perf_counter() - t0
+    print(f"phase 28 command time {out['command_s']:.1f} s")
+    return out, k, launches
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
-    ``tools/phase25_torch.py``): the card and its power limit printed, TF32
+    ``tools/phase25_torch.py``, ``tools/phase27_torch.py``,
+    ``tools/phase28_torch.py``): the card and its power limit printed, TF32
     off, the kernels built and their ptxas report (a spill or a missing
     instantiation printed, not raised, so that the phase still runs), and
     the seeded generators as ``main`` makes them.  Returns (device,
@@ -6270,6 +6691,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out_27, k27, launches_27 = siglip_phase(dev, generator, drawer)
+    # Phase 28: K3 at the EVA2-CLIP-E tower's D = 112, the CogVLM2-Video
+    # judge and its CLI, on fresh states.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_28, k28, launches_28 = cogvlm2_phase(dev, generator, drawer)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -6281,7 +6707,7 @@ def main() -> int:
                **sp_score_launches, **sp_train_launches, **long_launches,
                **ckpt_launches, **frames_launches, **sweep_launches,
                **harness_launches, **launches_4b, **launches_25,
-               **launches_26, **launches_27}
+               **launches_26, **launches_27, **launches_28}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -6319,6 +6745,7 @@ def main() -> int:
     k1_80 = k26["K1"][QWEN_K1_SHAPES[0]]
     k1_72 = k27["K1"][SIGLIP_K1_SHAPES[0]]
     k1m = k27["K1m"]
+    k3_112 = k28["K3"][COG_K3_SHAPES[0]]
     rows_96 = k26["K2r ragged"][D96_K2_SHAPES[-1]]
     summary = {"kernels": [
         {"name": "vit_attention", "route": "cuda",
@@ -6653,6 +7080,20 @@ def main() -> int:
          **counts("key_norm_max_masked_d72"),
          "shape": (VS_SPLIT_FRAMES * 5, 2730, 16, 72),
          **k1m["K1m pre-pass"]},
+        # Phase 28's form: K3 not causal at the EVA2-CLIP-E tower's
+        # D = 112 (Config D112, D128's layout, q k^T over 7 k-steps).
+        {"name": "exact_attention_d112", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/exact_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:99",
+         **counts("exact_attention_d112"), "shape": COG_K3_SHAPES[0],
+         **{f: k3_112[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "bound_share")},
+         **{f: k3_112[f] for f in ("ms_in_turns", "sdpa_ms_in_turns",
+                                   "plain_ms_in_turns", "device_ms",
+                                   "back_to_back_ms")},
+         "at_shapes": {str(sh): brief(r) for sh, r in k28["K3"].items()}},
         {"name": "q8g_matmul_fused", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
@@ -6743,7 +7184,7 @@ def main() -> int:
             "device_batch_sweep": {str(k): v for k, v in sweep_out.items()}},
         "eval_harness": harness_out, "mjvideo_4b": out_4b,
         "mjvideo_4b_gradients": out_25, "qwen2vl": out_26,
-        "siglip_judges": out_27,
+        "siglip_judges": out_27, "cogvlm2": out_28,
         "qwen2vl_decoder_kernels": {f"{size} {name}": {
             n: brief(r[n]) for n in ("K3", "K2r", "K2r kernel")}
             for (size, name), r in k26["qwen"].items()},

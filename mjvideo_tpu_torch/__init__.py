@@ -5,8 +5,9 @@ The MJ-VIDEO-2B scoring path (``RewardScorer.score_batch`` ->
 scatter -> InternLM2 decoder -> reward head) and MJ-VIDEO-4B's (the
 Phi-3-mini decoder: the same layer, its own checkpoint layout), the 2B's
 training step (``train/``), cached generation with the InternVL2,
-Qwen2-VL and MiniCPM-V-2.6 judges (``models/generate.py``,
-``models/qwen2vl.py``, ``models/minicpmv.py``, ``eval/judges.py``) and the
+Qwen2-VL, MiniCPM-V-2.6 and CogVLM2-Video judges (``models/generate.py``,
+``models/qwen2vl.py``, ``models/minicpmv.py``, ``models/cogvlm2.py``,
+``eval/judges.py``) and the
 VideoScore regression judge (``models/videoscore.py``: the SigLIP tower
 the MiniCPM-V judge shares) in PyTorch, with hand-written
 CUDA kernels for the attention forwards and backward and the quantized
@@ -56,6 +57,7 @@ from .data.dataset import (  # noqa: F401
 )
 from .data.labels import deal_preference, pair_record_labels  # noqa: F401
 from .eval.judges import (  # noqa: F401
+    CogVLM2Judge,
     InternVLJudge,
     MiniCPMVJudge,
     Qwen2VLJudge,
@@ -97,6 +99,14 @@ from .models.generate import (  # noqa: F401
     stack_prefix_states,
     stream_chat,
     stream_generate,
+)
+from .models.cogvlm2 import (  # noqa: F401
+    CogVLM2Config,
+    CogVLM2VisionConfig,
+    cogvlm2_config_from_hf,
+    cogvlm2_forward,
+    import_cogvlm2_params,
+    init_cogvlm2_params,
 )
 from .models.internvl import extract_feature, init_chat_params  # noqa: F401
 from .models.qwen2vl import (  # noqa: F401

@@ -4,7 +4,9 @@
 // harnesses' B1 and B2, the heads a CTA and the softmax's Variant:
 //   K3  (ShiftMode::kExact) replaces _fwd_kernel
 //       (mjvideo_tpu/ops/flash_attention.py:260, call :579), the exact
-//       online softmax, causal with a per-row q_offset or non-causal;
+//       online softmax, causal with a per-row q_offset or non-causal (at
+//       D = 112 non-causal only: the EVA2-CLIP-E tower's exact mode of
+//       _fwd_nc_kernel, flash_attention.py:99, cogvlm2.py:366-367);
 //       K3 lse (kExact with a non-null lse) replaces _fwd_kernel(with_lse=
 //       True) (:526-530), the ring's chunk forward: its epilogue writes
 //       m ln 2 + log(l), m the row max in log2 units, or kDeadLse where
@@ -55,8 +57,8 @@
 //       bf16s (kExact, kBf16s: t = bf16(s scale), m the running max of t,
 //       p = bf16(e^bf16(t - m)), the rescale in fp32).  B1 and B2 are the
 //       A/B harnesses' tools for K1's design, not a main path.
-// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128, 96, 80,
-// 72 or 64,
+// Operands: q (B, Q, Hq, D), k and v (B, K, Hkv, D) bf16, D = 128, 112, 96,
+// 80, 72 or 64,
 // with dense heads and 16-byte row strides (the ViT's q/k/v are strided
 // views into one (B, S, 3 H D) qkv tensor); GQA (q head h reads kv head
 // h // G); a (B, K) int32 key mask or none; a (B,) int32 q_offset or none
@@ -157,7 +159,13 @@
 //   the zero fill.  72 is not a multiple of wgmma's k of 16, so q k^T
 //   takes 5 k-steps, the fifth reading columns 72-79 as zeros; p v runs at
 //   n128 and the output is stored at a 72-element stride over 9 column
-//   blocks.
+//   blocks.  D112 (K3 not causal at the EVA2-CLIP-E tower's head dim, the
+//   CogVLM2-Video judge) too: a row is 224 bytes (14 x 16, so the strides
+//   hold for dense heads and for views into one qkv product), columns
+//   112-127 are the zero fill; 112 = 7 x 16, so q k^T takes exactly the 7
+//   k-steps of the real columns (the second box's 3 read its 48 real
+//   columns); p v runs at n128 and the output is stored at a 112-element
+//   stride over 14 column blocks.
 // - Heads a CTA (HP, B2 only, D = 64): the WG / HP warpgroups of each head
 //   take 64 of its q rows each; q is one box per head and each stage holds
 //   one 64-column k box and one v box per head under its one full/empty
@@ -239,12 +247,13 @@ struct Regs<4> {  // 4 x 128 x 112 + 128 x 32 = 61,440: 640 threads hold
 };
 
 // HP heads a CTA (D = 64 only), each served by WG / HP consumer
-// warpgroups; BLOCK_K keys a kv tile.  D = 72, 80 and 96 take two boxes,
-// the second partly zero fill (D72, D80 and D96 above).
+// warpgroups; BLOCK_K keys a kv tile.  D = 72, 80, 96 and 112 take two
+// boxes, the second partly zero fill (D72, D80, D96 and D112 above).
 template <int D, int WG, int STAGES, int HP = 1, int BLOCK_K = 128>
 struct Config {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 72,
-                "head dim 64, 72, 80, 96 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 72 ||
+                    D == 112,
+                "head dim 64, 72, 80, 96, 112 or 128");
   static_assert(HP == 1 || D == 64, "several heads a CTA at D = 64 only");
   static_assert(WG % HP == 0, "whole warpgroups a head");
   static_assert(BLOCK_K == 64 || BLOCK_K == 128, "64 or 128 keys a tile");
@@ -279,6 +288,7 @@ using D128 = Config<128, 2, 3>;  // K3, K2r, K2, K2 lse
 using D96 = Config<96, 2, 3>;    // K3, K2r, K2 and their lse forms (Phi-3)
 using D80 = Config<80, 2, 3>;    // K1 (the Qwen2-VL vision tower)
 using D72 = Config<72, 2, 3>;    // K1 and its masked form (SigLIP-so400m)
+using D112 = Config<112, 2, 3>;  // K3 not causal (the EVA2-CLIP-E tower)
 using D64 = Config<64, 3, 3>;    // K1, K1 lse
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -973,8 +983,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(pa);
       release(t - 1);
       if (!kFixed) {
-        // D80's and D96's zero columns stay 0 and are not stored: no
-        // rescale.
+        // The zero columns past D (D72, D80, D96, D112) stay 0 and are
+        // not stored: no rescale.
 #pragma unroll
         for (int j = 0; j < C::kD / 8; ++j) {
 #pragma unroll

@@ -24,6 +24,13 @@
 // bit-equal to K3's: design and bounds there.  Both also take Phi-3's
 // head dim (Config D96): K3 for the InternVL2-4B judge's prefill, prefix
 // and continuation, K3 lse for MJ-VIDEO-4B's ring training and scoring.
+// K3 alone, not causal and without the lse, takes the EVA2-CLIP-E tower's
+// head dim of 112 (Config D112, the CogVLM2-Video judge): that tower is
+// post-norm (cogvlm2.py:346-375), its qkv input the un-normalised residual
+// stream, so JAX runs _fwd_nc_kernel in its exact-row-max mode there
+// (cogvlm2.py:366-367, flash_attention.py:99), and this is the same
+// function: 16 heads of 112 over each frame's 257 tokens.  A causal call
+// or one with the lse at 112 returns cudaErrorInvalidValue.
 #include "decoder_attention_sm90.cuh"
 
 extern "C" int mjv_exact_attention(
@@ -33,9 +40,16 @@ extern "C" int mjv_exact_attention(
     long long kss, long long vsb, long long vss, float scale, int causal,
     void* stream) {
   namespace sm90 = mjv::attention_sm90;
+  using sm90::D112;
   using sm90::D128;
   using sm90::D96;
   using sm90::ShiftMode;
+  if (D == 112) {  // the EVA2-CLIP-E tower's heads: non-causal only
+    if (causal || lse != nullptr) return int(cudaErrorInvalidValue);
+    return sm90::launch_attention<D112, false, ShiftMode::kExact>(
+        q, k, v, mask, nullptr, 1, nullptr, out, nullptr, B, Q, K, Hq, Hkv,
+        qsb, qss, ksb, kss, vsb, vss, scale, stream);
+  }
   if (D == 96) {  // Phi-3's heads
     return causal ? sm90::launch_attention<D96, true, ShiftMode::kExact>(
                         q, k, v, mask, nullptr, 1, q_offset, out, lse, B, Q,

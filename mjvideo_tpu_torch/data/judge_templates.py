@@ -8,8 +8,7 @@ The reference runs these judges through ms-swift templates
 which in turn delegate to the published model processors.  The template
 strings below are transcribed from the published upstream sources and are
 the single source of truth for both the string rendering and the id-level
-prompt builders of ``models/minicpmv.py`` (CogVLM2's model is not ported
-yet).
+prompt builders of ``models/minicpmv.py`` and ``models/cogvlm2.py``.
 
 MiniCPM-V-2.6 (openbmb/MiniCPM-V-2_6):
  * ``chat.py``: every image in a user turn renders as the literal

@@ -4,10 +4,11 @@ The port's counterpart of ``mjvideo_tpu/eval/cli.py``, which replaces the
 reference's 40 per-(benchmark x model) scripts under ``scripts/eval/``: pick
 a benchmark (overall / aspects / fine-grained / genai / safesora) and the
 MJ-Video reward model (``--model-path``), the InternVL chat judge
-(``--judge internvl-chat --judge-model DIR``), the Qwen2-VL, MiniCPM-V-2.6
-or VideoScore judge (``--judge qwen2-vl|minicpm-v|videoscore --judge-model
-DIR``, an HF checkpoint directory of that model; VideoScore scores the
-overall, safesora and genai benchmarks); results stream to JSONL
+(``--judge internvl-chat --judge-model DIR``), the Qwen2-VL, MiniCPM-V-2.6,
+CogVLM2-Video or VideoScore judge (``--judge
+qwen2-vl|minicpm-v|cogvlm2|videoscore --judge-model DIR``, an HF checkpoint
+directory of that model; VideoScore scores the overall, safesora and genai
+benchmarks); results stream to JSONL
 (``--results``), and a rerun resumes from the file.  The metrics JSON is
 printed on stdout.
 
@@ -17,8 +18,8 @@ refuses) unless ``--device cpu`` asks for the CPU.  As in the JAX CLI,
 Under ``--byte-tokenizer`` the VideoScore judge's tokenizer maps
 ``<image>`` and ``<fake_token_around_image>`` to the config's
 ``image_token_id`` and the id before it (Idefics2's 32001 and 32000).
-Not ported: the other judges (cogvlm2, gpt4o, gemini; ROADMAP Queue 1
-item 10), data
+Not ported: the API judges (gpt4o, gemini; ROADMAP Queue 1 item 10),
+data
 parallelism (``--dp`` > 1 without ``--sp``, or a group across processes;
 item 12), and the JAX CLI's ``MJV_PLATFORM`` backend pin and persistent
 compilation cache, which only the TPU needed.  ``--sp`` scores each pair
@@ -34,8 +35,9 @@ import os
 from ..data.prompts import load_tokenizer
 from ..utils.device import resolve_device
 
-# Judges of the JAX CLI that wait for ROADMAP Queue 1 item 10.
-NOT_PORTED_JUDGES = ("cogvlm2", "gpt4o", "gemini")
+# Judges of the JAX CLI that wait for ROADMAP Queue 1 item 10: the API
+# judges.
+NOT_PORTED_JUDGES = ("gpt4o", "gemini")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,10 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reward checkpoint dir (scorer mode)")
     p.add_argument("--judge", default=None,
                    choices=(None, "internvl-chat", "qwen2-vl", "minicpm-v",
-                            "videoscore") + NOT_PORTED_JUDGES,
+                            "cogvlm2", "videoscore") + NOT_PORTED_JUDGES,
                    help="use a baseline judge instead of the reward scorer "
-                        "(internvl-chat, qwen2-vl, minicpm-v and videoscore "
-                        "are ported)")
+                        "(internvl-chat, qwen2-vl, minicpm-v, cogvlm2 and "
+                        "videoscore are ported)")
     p.add_argument("--judge-model", default=None,
                    help="the judge's checkpoint dir (config.json and "
                         "safetensors)")
@@ -224,6 +226,28 @@ def _make_minicpmv_judge(args, tok, device):
                          prefix_cache=not args.no_prefix_cache)
 
 
+def _make_cogvlm2_judge(args, tok, device):
+    """The CogVLM2-Video judge of ``--judge-model``: its ``config.json``,
+    then its safetensors, imported in bf16 (``cli.py:219-232``)."""
+    import torch
+
+    from ..models.cogvlm2 import (
+        cogvlm2_config_from_hf,
+        import_cogvlm2_params,
+    )
+    from ..utils.checkpoint import load_safetensors_dir
+    from .judges import CogVLM2Judge
+
+    path = args.judge_model
+    with open(os.path.join(path, "config.json")) as f:
+        ccfg = cogvlm2_config_from_hf(json.load(f))
+    params = import_cogvlm2_params(load_safetensors_dir(path), ccfg,
+                                   dtype=torch.bfloat16, device=device)
+    return CogVLM2Judge(ccfg, params, tok, num_segments=args.num_segments,
+                        quant=args.quant, kv_quant=args.kv_quant,
+                        prefix_cache=not args.no_prefix_cache)
+
+
 def _make_videoscore_judge(args):
     """The VideoScore judge of ``--judge-model`` (``cli.py:152-163``), in
     bf16 on ``--device``; its tokenizer the checkpoint's (or
@@ -259,7 +283,7 @@ def _make_videoscore_judge(args):
 def _make_judge(args):
     """The judge of ``--judge`` on ``--judge-model``: the InternVL chat
     judge (``config.json`` and safetensors with the LM head), or the
-    Qwen2-VL, MiniCPM-V or VideoScore one."""
+    Qwen2-VL, MiniCPM-V, CogVLM2-Video or VideoScore one."""
     from ..configs import load_config
     from ..data.prompts import rebase_img_context_id
     from ..utils.checkpoint import import_chat_params, load_safetensors_dir
@@ -272,6 +296,8 @@ def _make_judge(args):
         return _make_qwen2vl_judge(args, tok, device)
     if args.judge == "minicpm-v":
         return _make_minicpmv_judge(args, tok, device)
+    if args.judge == "cogvlm2":
+        return _make_cogvlm2_judge(args, tok, device)
     # The reference's load-time id assignment (README.md:105): a tokenizer
     # whose <IMG_CONTEXT> id differs from the config's would fail
     # prepare_chat_input's scatter-id guard.
@@ -293,7 +319,7 @@ def main(argv=None):
     if args.judge in NOT_PORTED_JUDGES:
         raise NotImplementedError(
             f"--judge {args.judge} is not ported yet: ROADMAP Queue 1 item "
-            "10 (the other judges)")
+            "10 (the API judges)")
     resolve_device(args.device)
 
     if args.benchmark == "genai":

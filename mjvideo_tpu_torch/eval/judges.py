@@ -1,10 +1,11 @@
 """The local judges and their prompts.
 
-Counterpart of ``mjvideo_tpu/eval/judges.py`` but for CogVLM2 and the API
-judges (ROADMAP Queue 1 item 10): ``RATING_SCALE`` and ``parse_rating``,
+Counterpart of ``mjvideo_tpu/eval/judges.py`` but for the API judges
+(ROADMAP Queue 1 item 10): ``RATING_SCALE`` and ``parse_rating``,
 the two prompt templates and the fine-grained rubric, ``InternVLJudge``
 with its prefix cache, ``_GreedyLocalJudge`` (the shared tail of the
-batched local judges) and ``Qwen2VLJudge`` and ``MiniCPMVJudge`` on it,
+batched local judges) and ``Qwen2VLJudge``, ``MiniCPMVJudge`` and
+``CogVLM2Judge`` on it,
 ``judge_pair``, and the benchmark drivers of a rating-scale judge:
 ``run_overall_benchmark`` (MJ-BENCH-VIDEO overall preference and SafeSora),
 ``run_fine_grained_benchmark`` with ``fine_grained_accuracy``, and
@@ -687,6 +688,120 @@ class MiniCPMVJudge(_GreedyLocalJudge):
             eos_token_id=self.cfg.im_end_token_id, impl=self.attn_impl,
             vision_embeds=[v for v, _ in preps], kv_quant=self.kv_quant,
             **kw)
+
+
+class CogVLM2Judge(_GreedyLocalJudge):
+    """A local judge on the port's CogVLM2-Video (``models/cogvlm2.py``),
+    the reference's CogVLM2 swift baseline
+    (``eval_overall_cogvlm2.py:119-129``, ``ModelType.cogvlm2_video_13b_chat``;
+    ``judges.py:774-900``).  Frames are sampled uniformly, resized to the
+    square model resolution and enter the text model as one vision block
+    whose interior tokens share a rotary position; the answer decodes
+    greedily, a generated token through the language expert.
+
+    The prefix ([bos] and the vision block, ``tokens_per_frame`` slots a
+    frame: the bulk of the prompt) does not depend on the question, so it
+    is prefilled once per video with its position table; a question
+    prefills only its templated text (``continue_prefix``).  The full
+    prompt (``greedy_generate_batch``) serves a suffix past
+    ``suffix_bucket`` or videos of different frame counts.  The decoder's
+    activations run in ``self.dtype``, the weights' dtype; the tower and
+    the adapter take fp32 pixels, as the JAX judge feeds them, and keep
+    fp32 activations with each product's inputs in ``self.dtype``
+    (``models.cogvlm2.vision_forward``)."""
+
+    _eos_attr = "eos_token_id"
+
+    def __init__(self, cfg, params, tokenizer, num_segments: int = 8,
+                 max_new_tokens: int = 64, attn_impl: Optional[str] = None,
+                 quant: Optional[str] = None, kv_quant: bool = False,
+                 prefix_cache: bool = True, suffix_bucket: int = 128):
+        from ..models.cogvlm2 import compute_dtype
+
+        self.cfg = cfg  # a CogVLM2Config
+        self.kv_quant = kv_quant
+        self.quant = quant
+        self.params = _maybe_quantize(params, quant)
+        self.device = first_tensor(params).device
+        self.dtype = compute_dtype(self.params)
+        self.tokenizer = tokenizer
+        self.num_segments = num_segments
+        self.max_new_tokens = max_new_tokens
+        self.attn_impl = attn_impl or "auto"
+        self._prep = _video_prep_cache(self._encode_video)
+        self.prefix_cache = prefix_cache
+        self.suffix_bucket = suffix_bucket
+        # maxsize=2: the benchmarks alternate a pair's two videos; each
+        # state pins a full-length KV cache.
+        self._pstate = functools.lru_cache(maxsize=2)(self._prefix_state)
+
+    def _encode_video(self, video_path: str):
+        """((F, tokens_per_frame, C) vision embeds, F) of a video file."""
+        from ..data.video import decode_frames, get_frame_indices, \
+            video_metadata
+        from ..models.cogvlm2 import (
+            get_vision_embedding,
+            preprocess_video_frames,
+        )
+
+        n_frames, fps = video_metadata(video_path)
+        indices = get_frame_indices(n_frames, self.num_segments, fps=fps)
+        frames = decode_frames(video_path, indices)
+        pix = preprocess_video_frames(frames, self.cfg.vision)
+        with torch.no_grad():
+            vis = get_vision_embedding(
+                self.params, self.cfg,
+                torch.from_numpy(pix).to(self.device), impl=self.attn_impl,
+                dtype=self.dtype)
+        return vis, len(frames)
+
+    def _prefix_state(self, video_path: str):
+        from ..models.cogvlm2 import (
+            build_video_prompt_prefix_suffix,
+            prefill_prefix,
+        )
+
+        vis, n_frames = self._prep(video_path)
+        prefix, _ = build_video_prompt_prefix_suffix(
+            self.tokenizer, self.cfg, n_frames, "")
+        Pb = round_up_bucket(len(prefix))
+        return prefill_prefix(
+            self.params, self.cfg, prefix, vis,
+            max_len=Pb + self.suffix_bucket + self.max_new_tokens, bucket=Pb,
+            impl=self.attn_impl, kv_quant=self.kv_quant, dtype=self.dtype)
+
+    def _prefix_suffix(self, prompt: str, video_paths):
+        from ..models.cogvlm2 import build_video_prompt_prefix_suffix
+
+        return self._shared_suffix(
+            prompt, video_paths,
+            lambda n_frames, q: build_video_prompt_prefix_suffix(
+                self.tokenizer, self.cfg, n_frames, q))
+
+    def _continue(self, state, suffix, **kw):
+        from ..models.cogvlm2 import continue_prefix
+
+        return continue_prefix(
+            self.params, self.cfg, state, suffix, self.suffix_bucket,
+            self.max_new_tokens, self.cfg.eos_token_id, impl=self.attn_impl,
+            dtype=self.dtype, **kw)
+
+    def _generate_full(self, prompt: str, video_paths, **kw):
+        from ..models.cogvlm2 import (
+            build_video_prompt_ids,
+            greedy_generate_batch,
+        )
+
+        preps = [self._prep(p) for p in video_paths]
+        items = [build_video_prompt_ids(self.tokenizer, self.cfg, n_frames,
+                                        prompt) + (None,)
+                 for _, n_frames in preps]
+        return greedy_generate_batch(
+            self.params, self.cfg, items,
+            max_new_tokens=self.max_new_tokens,
+            eos_token_id=self.cfg.eos_token_id, impl=self.attn_impl,
+            vision_embeds=[v for v, _ in preps], kv_quant=self.kv_quant,
+            dtype=self.dtype, **kw)
 
 
 def judge_pair(

@@ -50,7 +50,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # tower's head dim of 80: K1 and its pre-pass; "_d72" at SigLIP-so400m's 72:
 # K1 and the pre-pass, masked or not.  "vit_attention_masked" counts K1m,
 # the masked non-causal form (D = 72 only), and "key_norm_max_masked_d72"
-# the pre-pass launches at 72 that read a mask (K1m's, or alone).
+# the pre-pass launches at 72 that read a mask (K1m's, or alone);
+# "exact_attention_d112" the launches of K3 at the EVA2-CLIP-E tower's head
+# dim of 112 (non-causal, without the lse: the only form built there).
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
@@ -63,7 +65,7 @@ launch_counts: Dict[str, int] = {
     "decoder_attention_bwd_dq_d96": 0, "decoder_attention_rows_d96": 0,
     "key_norm_cummax_d96": 0, "vit_attention_d80": 0, "key_norm_max_d80": 0,
     "vit_attention_d72": 0, "key_norm_max_d72": 0, "vit_attention_masked": 0,
-    "key_norm_max_masked_d72": 0,
+    "key_norm_max_masked_d72": 0, "exact_attention_d112": 0,
     "decoder_attention_rows": 0, "key_norm_cummax": 0, "key_norm_max": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "q8g_quantize": 0,
     "w4_matmul": 0,
@@ -234,7 +236,7 @@ def _raise_on(name: str, err: int) -> None:
 
 def _count(name: str, D: int) -> None:
     """One launch of ``name``, and of its form at head dim D where that has
-    a counter of its own (D = 96, 80 or 72)."""
+    a counter of its own (D = 112, 96, 80 or 72)."""
     launch_counts[name] += 1
     if f"{name}_d{D}" in launch_counts:
         launch_counts[f"{name}_d{D}"] += 1
@@ -720,19 +722,28 @@ def decoder_attention_rows_op(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def k3_head_dims(causal: bool, with_lse: bool) -> tuple:
+    """The head dims K3 is built for: 96 and 128 in every form, and 112
+    (``Config D112``) only not causal and without the lse, as
+    ``csrc/exact_attention.cu`` admits it."""
+    return (96, 128) if causal or with_lse else (96, 112, 128)
+
+
 def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attention_mask: Optional[torch.Tensor],
                     q_offset: Optional[torch.Tensor], scale: float,
                     causal: bool = True, with_lse: bool = False):
     """K3.  q: (B, Q, Hq, D), k/v: (B, K, Hkv, D) bf16 with D = 128
-    (InternLM2) or 96 (Phi-3), dense heads;
+    (InternLM2, Llama-3) or 96 (Phi-3), or, not causal and without the lse,
+    112 (the EVA2-CLIP-E tower); dense heads;
     attention_mask: (B, K) int32 or None; q_offset: (B,) int32 or None (=
     0; read only when causal; may be negative).  Returns a dense (B, Q, Hq,
     D) bf16 tensor, and with ``with_lse`` also the (B, Hq, Q) fp32 lse
     (1e30 on a row that sees no key)."""
     name = "exact_attention"
     mask_ptr, off_ptr = _check_decoder(name, q, k, v, attention_mask,
-                                       q_offset, dims=(96, 128))
+                                       q_offset,
+                                       dims=k3_head_dims(causal, with_lse))
     B, Q, Hq, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     lib = _load()

@@ -132,3 +132,12 @@ def minicpmv_from_jax(tree, *, device: Union[str, torch.device] = "cuda",
     ``llm``, leaf for leaf."""
     return _model_from_jax(tree, (("vpm", "resampler", "llm"), ()),
                            "MiniCPM-V", device, dtype)
+
+
+def cogvlm2_from_jax(tree, *, device: Union[str, torch.device] = "cuda",
+                     dtype: Optional[torch.dtype] = None):
+    """A JAX CogVLM2-Video tree (``init_cogvlm2_params`` /
+    ``import_cogvlm2_params``) -> the port's: ``vision``, ``adapter`` and
+    ``language_model``, leaf for leaf."""
+    return _model_from_jax(tree, (("vision", "adapter", "language_model"),
+                                  ()), "CogVLM2", device, dtype)

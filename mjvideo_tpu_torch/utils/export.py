@@ -3,7 +3,8 @@ port's ``mjvideo_tpu/utils/export.py``.
 
 The inverse of ``utils/checkpoint.py``: weights trained or served by the
 port are published in the format ``InternVLChatRewardModeling`` loads
-(``criteria_train.py:370-382``) and the JAX importer reads back.  The
+(``criteria_train.py:370-382``) and the JAX importer reads back; a
+CogVLM2-Video state under the THUDM names (``export_cogvlm2``).  The
 ``export_*`` functions return views of the state where they can (a
 transposed kernel, a layer of a stacked leaf), in its dtype and on its
 device; ``save_safetensors`` writes them as F32, as the JAX exporter
@@ -171,6 +172,73 @@ def _export_llama(params: Dict[str, Any], cfg: LLMConfig,
     out[prefix + "model.norm.weight"] = params["norm"]["weight"]
     if "output" in params:
         out[prefix + "lm_head.weight"] = _w(params["output"]["kernel"])
+    return out
+
+
+def export_cogvlm2(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """A CogVLM2-Video state (``models/cogvlm2.py``) under the THUDM names
+    that ``import_cogvlm2_params`` reads, views of the state (the JAX
+    package has no exporter; the tests and ``chip_smoke.py`` write
+    checkpoint directories with it): ``model.vision.*`` (the patch conv
+    back to (C, 3, P, P), the 2x2 ``conv`` to (C, C, 2, 2)),
+    ``model.layers.{i}.*`` with the two experts' projections in the Llama
+    names, ``model.embed_tokens``, ``model.norm`` and ``lm_head``."""
+    vc, tc = cfg.vision, cfg.text
+    P, C = vc.patch_size, vc.hidden_size
+    vis, ad, lm = params["vision"], params["adapter"], params["language_model"]
+    v = "model.vision."
+    out: Dict[str, torch.Tensor] = {
+        v + "patch_embedding.proj.weight": vis["patch_embedding"]["kernel"]
+        .reshape(P, P, 3, C).permute(3, 2, 0, 1),
+        v + "patch_embedding.proj.bias": vis["patch_embedding"]["bias"],
+        v + "patch_embedding.cls_embedding": vis["cls_embedding"][None],
+        v + "patch_embedding.position_embedding.weight":
+        vis["position_embedding"],
+        v + "conv.weight": ad["conv"]["kernel"].reshape(2, 2, C, -1)
+        .permute(3, 2, 0, 1),
+        v + "conv.bias": ad["conv"]["bias"],
+        v + "linear_proj.linear_proj.weight": _w(ad["linear_proj"]["kernel"]),
+        v + "linear_proj.norm1.weight": ad["norm1"]["weight"],
+        v + "linear_proj.norm1.bias": ad["norm1"]["bias"],
+        v + "boi": ad["boi"], v + "eoi": ad["eoi"],
+        "model.embed_tokens.weight": lm["tok_embeddings"],
+        "model.norm.weight": lm["norm"]["weight"],
+        "lm_head.weight": _w(lm["output"]["kernel"]),
+    }
+    for name in ("gate_proj", "dense_h_to_4h", "dense_4h_to_h"):
+        out[f"{v}linear_proj.{name}.weight"] = _w(ad[name]["kernel"])
+    lp = vis["layers"]
+    names = {"qkv": "attention.query_key_value", "dense": "attention.dense",
+             "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    for i in range(vc.num_hidden_layers):
+        pre = f"{v}transformer.layers.{i}."
+        for ours, hf in (("ln1", "input_layernorm"),
+                         ("ln2", "post_attention_layernorm")):
+            out[f"{pre}{hf}.weight"] = lp[ours]["weight"][i]
+            out[f"{pre}{hf}.bias"] = lp[ours]["bias"][i]
+        for ours, hf in names.items():
+            out[f"{pre}{hf}.weight"] = _w(lp[ours]["kernel"][i])
+            out[f"{pre}{hf}.bias"] = lp[ours]["bias"][i]
+    tl = lm["layers"]
+    attn, mlp = tl["attention"], tl["mlp"]
+    for i in range(tc.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        out[pre + "input_layernorm.weight"] = tl["attention_norm"]["weight"][i]
+        out[pre + "post_attention_layernorm.weight"] = (
+            tl["ffn_norm"]["weight"][i])
+        sa = pre + "self_attn."
+        out[sa + "vision_expert_query_key_value.weight"] = _w(
+            attn["vision_qkv"]["kernel"][i])
+        out[sa + "vision_expert_query_key_value.bias"] = (
+            attn["vision_qkv"]["bias"][i])
+        out[sa + "language_expert_query_key_value.weight"] = _w(
+            attn["language_qkv"]["kernel"][i])
+        for expert in ("vision", "language"):
+            out[f"{sa}{expert}_expert_dense.weight"] = _w(
+                attn[f"{expert}_dense"]["kernel"][i])
+            for ours, hf in _LLAMA_MLP:
+                out[f"{pre}mlp.{expert}_mlp.{hf}.weight"] = _w(
+                    mlp[expert][ours]["kernel"][i])
     return out
 
 

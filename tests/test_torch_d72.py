@@ -166,7 +166,7 @@ def test_d72_config_fits_the_card_and_takes_five_k_steps():
     assert m is not None
     wg, stages = map(int, m.groups())
     assert (wg, stages) == (2, 3)
-    assert "D == 128 || D == 72," in header
+    assert "D == 128 || D == 72 ||" in header
     boxes, block_q, block_k = (D + 63) // 64, 64 * wg, 128
     assert boxes == 2 and (D + 15) // 16 == 5 and D * 2 % 16 == 0
     smem = (boxes * block_q * 128 + stages * 2 * boxes * block_k * 128

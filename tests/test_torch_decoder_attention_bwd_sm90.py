@@ -179,9 +179,10 @@ def test_k4_sources_run_on_the_hopper_backward_template():
     bwd = sum(_instantiations((csrc / f).read_text())
               for f in ("vit_attention_bwd.cu", "decoder_attention_bwd.cu"))
     assert bwd == 10
-    # The forward template's 12 of the main paths (K3 causal and not, K2r,
+    # The forward template's 13 of the main paths (K3 causal and not, K2r,
     # K2, K1; K2 and K3 causal and not and K2r at D = 96; K1 at D = 80; K1
-    # and K1m at D = 72) and the A/B variants' (B1's modes and B2's hp; B3
+    # and K1m at D = 72; K3 not causal at D = 112) and the A/B variants'
+    # (B1's modes and B2's hp; B3
     # is B2's hp 1), the key-norm partial pass 7 (K1/K2's at D = 64, 72, 80,
     # 96 and 128, K2r's with its norms at 128 and 96), kmax's fold 1, K2r's
     # scan 1, the int8 GEMM's 2 and K6's pre-pass 1 (chip_smoke.py's
@@ -190,4 +191,4 @@ def test_k4_sources_run_on_the_hopper_backward_template():
     smoke = (REPO / "chip_smoke.py").read_text()
     want = re.search(r"^SM90_INSTANTIATIONS = (\d+)$", smoke, re.M)
     assert want is not None and int(want.group(1)) == (
-        12 + variants + 7 + 1 + 1 + 2 + 1 + bwd)
+        13 + variants + 7 + 1 + 1 + 2 + 1 + bwd)

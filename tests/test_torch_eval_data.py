@@ -374,19 +374,22 @@ print(report.format_table([{"a": 1.0, "b": "x"}]).splitlines()[2])
 
 def test_harness_imports_no_jax_and_no_mjvideo_tpu():
     """In a fresh interpreter: the harness modules, the two CLIs and the
-    judges' models (VideoScore, MiniCPM-V, their templates, checkpoint
-    branches and bridge) load no ``jax`` and no ``mjvideo_tpu`` module."""
+    judges' models (VideoScore, MiniCPM-V, CogVLM2, their templates,
+    checkpoint branches, exporter and bridge) load no ``jax`` and no
+    ``mjvideo_tpu`` module."""
     code = """
 import sys
 import mjvideo_tpu_torch
 from mjvideo_tpu_torch.data import dataset, judge_templates, labels
 from mjvideo_tpu_torch.eval import cli, judges, metrics, preference, report
-from mjvideo_tpu_torch.models import minicpmv, videoscore
+from mjvideo_tpu_torch.models import cogvlm2, minicpmv, videoscore
 from mjvideo_tpu_torch.train import cli as train_cli, trainer
 from mjvideo_tpu_torch.utils import bridge, checkpoint, export
 assert hasattr(trainer.Trainer, "evaluate")
 assert hasattr(judges, "VideoScoreJudge") and hasattr(judges, "MiniCPMVJudge")
 assert hasattr(bridge, "videoscore_from_jax")
+assert hasattr(judges, "CogVLM2Judge") and hasattr(bridge, "cogvlm2_from_jax")
+assert hasattr(export, "export_cogvlm2") and "cogvlm2" not in cli.NOT_PORTED_JUDGES
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mjvideo_tpu" or m.startswith("mjvideo_tpu."))
 assert not bad, bad

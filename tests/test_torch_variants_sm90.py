@@ -195,7 +195,8 @@ def test_main_path_instantiations_are_unchanged():
     they did (K2r twice: alone and, as K2 does, from its op), K2, K2r and
     K3 also at Phi-3's D96 beside their D128 launches, K1 also at the
     Qwen2-VL tower's D80 and SigLIP's D72 beside its D64 ones, K1m (K2's
-    masked path, not causal) at D72 alone and from its op, and its new
+    masked path, not causal) at D72 alone and from its op, K3 not causal
+    at the EVA2-CLIP-E tower's D112 before them, and its new
     parameters (heads a CTA, keys a tile, the softmax's Variant) default to
     what those kernels were."""
     assert _launches(_source("vit_attention.cu")) == [
@@ -209,6 +210,7 @@ def test_main_path_instantiations_are_unchanged():
         "sm90::D96, true, sm90::ShiftMode::kRows",
         "sm90::D128, true, sm90::ShiftMode::kRows"] * 2
     assert _launches(_source("exact_attention.cu")) == [
+        "D112, false, ShiftMode::kExact",
         "D96, true, ShiftMode::kExact", "D96, false, ShiftMode::kExact",
         "D128, true, ShiftMode::kExact", "D128, false, ShiftMode::kExact"]
     header = _source("decoder_attention_sm90.cuh")

@@ -1,7 +1,7 @@
 """Fault controls for B1-B3, K2r's pre-pass, the D = 96 forms of K2 lse,
-K3 lse, K4a, K4b and K2r's pre-pass, K1 at D = 80, and K1 and K1m at
-D = 72, on a CUDA card: each fault planted in a copy of the tree, and the
-card tests of its kernel run there.
+K3 lse, K4a, K4b and K2r's pre-pass, K1 at D = 80, K1 and K1m at D = 72,
+and K3 at D = 112, on a CUDA card: each fault planted in a copy of the
+tree, and the card tests of its kernel run there.
 
     python3 tools/variant_faults_torch.py [--out FILE] [--only NAME ...]
 
@@ -33,6 +33,7 @@ ROWS_BSHD = "tests/test_torch_kernels_rows_bshd_sm90.py"
 D96 = "tests/test_torch_kernels_d96_sm90.py"
 D80 = "tests/test_torch_kernels_d80_sm90.py"
 D72 = "tests/test_torch_kernels_d72_sm90.py"
+D112 = "tests/test_torch_kernels_d112_sm90.py"
 # The backward's row store at the layout's 128-column stride where D = 96
 # (64 * kBoxes: the same as kD at 64 and 128), for dK/dV's Config (32-row
 # streamed tiles) or dQ's (64): rows overlap and the last runs past the
@@ -92,6 +93,10 @@ FAULTS = (
      "(mask == nullptr || mask[(long long)b * K + j] != 0)",
      "(mask == nullptr || !CAUSAL || mask[(long long)b * K + j] != 0)",
      D72),
+    # K3 at D = 112 stores its output rows 96 columns apart: rows overlap,
+    # each row's last 16 columns overwritten by the next row's first.
+    ("K3 D112 store at the 96-column stride", HEADER,
+     "* C::kD + 2 * c;", "* (C::kD == 112 ? 96 : C::kD) + 2 * c;", D112),
 )
 
 
