@@ -2,7 +2,9 @@
 InternVL2-2B judge, quantized scoring and judging, the reward gradient
 with its VADER loop, sequence-parallel scoring and training,
 MJ-VIDEO-4B's serving with its InternVL2-4B judge, its reward gradient,
-VADER loop and training, and the Qwen2-VL judge once on one CUDA card.
+VADER loop and training, the Qwen2-VL, VideoScore, MiniCPM-V-2.6,
+CogVLM2-Video, InternVL2-26B and InternVL2-8B judges once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -331,9 +333,11 @@ Phases (any failure raises and exits non-zero):
    back, leaves and scores bit-equal.  (c) ``eval/cli.main`` overall on
    that directory, EVAL_4B_PAIRS pairs of phase 23's seeded frames, the
    results bit-equal to ``score_batch`` of the same state; the directory
-   is deleted.  (d) Phase 9's judge on ``internvl2_4b_chat_config``
-   (random bf16 weights with the 3072 x 32064 LM head): ``judge_pair``'s
-   full prompt and the prefix path, exact launches (32 K3 a forward),
+   is deleted.  (d) Phase 9's judge on ``internvl2_4b_chat_config`` with
+   its decoder cut to JUDGE_4B_LLM_DEPTH layers (``judge_4b_config``;
+   random bf16 weights with the 3072 x 32064 LM head): ``judge_pair``'s
+   full prompt and the prefix path, exact launches (a K3 per decoder
+   layer a forward),
    teacher-forced logits within LOGITS_REL_TOL of fp32 plain, its times.
 25. MJ-VIDEO-4B's gradients and training (after phase 24, its states
    freed; the same 4B bf16 state from seed 0, on a generator of its own).
@@ -394,8 +398,9 @@ Phases (any failure raises and exits non-zero):
    4B judge (its state from a fresh generator at SEED) under
    ``_CACHE_BOUND = "rows"`` (MJV_CACHE_NORM_BOUND=1): the short question
    by the prefix path, exact launches (per video 24 K1 after their
-   pre-passes; 32 K2r after theirs per prefix prefill or continuation, at
-   their D = 96 names too; none in decode), teacher-forced logits within
+   pre-passes; JUDGE_4B_LLM_DEPTH K2r after theirs per prefix prefill or
+   continuation, at their D = 96 names too; none in decode),
+   teacher-forced logits within
    LOGITS_REL_TOL of fp32 plain.  (c) ``Qwen2VLJudge`` on Qwen2-VL-2B at
    full width (vision 32 x 1280, 16 heads of 80; text 28 x 1536, 12/2
    heads of 128; vocabulary 151,936, tied), random bf16 weights from a
@@ -479,6 +484,42 @@ Phases (any failure raises and exits non-zero):
    port's exporter, on ``seeded_video_source``'s frames: every results row
    equal to the port's judge built as the CLI builds it, exact launches.
    Prints its command time.
+29. InternVL2-26B and -8B (after phase 28, its states freed; nothing
+   caught).  (a) On a generator of its own: K1 at InternViT-6B's D = 128
+   with 25 heads (IVL_K1_SHAPES: a video's 8 tiles of 1025 tokens and 2;
+   q and k dense, as QK-RMSNorm makes them, v a view into the qkv tensor):
+   the op, the kernel alone and the pre-pass against their twins (within
+   KERNEL_REL_TOL and PREPASS_REL_TOL), the op bit-equal to the kernel
+   alone and a second launch bit-identical; the op, the kernel alone, SDPA
+   and the twin in turns by CUDA events, and the device times.  (b)
+   ``InternVLJudge`` on InternVL2-26B at full dims (InternViT-6B 45 x 3200,
+   25 heads of 128, RMSNorm and QK-RMSNorm, MLP 12,800; ``mlp1`` 12,800 ->
+   6144; InternLM2-chat-20B 48 x 6144, 48/8 heads of 128, MLP 16,384,
+   vocabulary 92,553: 25.5 B parameters), random bf16 weights drawn a
+   layer at a time from a fresh generator at SEED
+   (``init_chat_params_by_layer``), a pair of seeded 8-frame videos at
+   448 px through ``make_judge``'s subclass: ``judge_pair`` with the
+   overall prompt (the full prompt), the short question by the prefix
+   path, and again under ``_CACHE_BOUND = "rows"``, 64 greedy tokens,
+   exact launches (per video 45 K1 at D = 128 after their pre-passes; 48
+   K3 per prefill or continuation, K2r and its pre-pass in their place
+   under "rows"; none in decode, no K2); the tower and ``mlp1``'s output
+   and the teacher-forced logits of the three paths against fp32 plain on
+   the bf16 state itself (fp32 pixels and token table through
+   ``impl="plain"``: each product promotes one weight at a time), with
+   S1's split (bf16 plain against fp32 plain), each within LOGITS_REL_TOL,
+   or a standing failure where bf16 plain alone misses it and the kernels
+   add no more than the bar (``ivl_held``; the rows path teacher-forced on
+   the prefix path's tokens); the tower's ms a video, the pair's prefill
+   ms, ms a decode step at B = 2, answers/s by each path and the peak.
+   (c) Phase 9's checks on InternVL2-8B at full dims (InternViT-300M;
+   InternLM2.5-7B 32 x 4096, 32/8 heads of 128): ``judge_phase`` without
+   its times, per video 24 K1 at D = 64, 32 K3 per prefill.  (d)
+   ``eval/cli.main --judge internvl-chat --byte-tokenizer`` on an
+   InternVL2-26B-layout directory at full width and IVL_CLI_DEPTH written
+   by the port's exporter, on ``seeded_video_source``'s frames: every
+   results row equal to the port's judge built as the CLI builds it, exact
+   launches.  Prints its command time.
 """
 
 from __future__ import annotations
@@ -555,6 +596,11 @@ JUDGE_NEW_TOKENS = 64
 JUDGE_CAPTION = "A red fox runs through fresh snow at dawn."
 JUDGE_QUESTION = "Which video is better?"
 JUDGE_DECODE_STEPS = 16  # decode steps timed at B = 2
+# A judge's warm pair is timed once by each path: a pair takes seconds of
+# host-bound decode steps (three a path would cost about 90 s of the
+# script's time limit over its judges), and a decode step's own time is
+# the median of its timed loops.
+PAIR_REPS = 1
 # Teacher-forced per-step logits of each judge path, bf16 kernels against
 # fp32 plain on the same tokens: max|delta| / max|plain logit|.  Set from
 # the seed survey (PERF.md section 6).
@@ -587,14 +633,15 @@ PREPASS_REL_TOL = 1e-6
 SM90_KERNELS = ("attention_sm90", "attention_bwd_sm90", "q8g_sm90",
                 "key_norm_scan_kernel", "key_norm_partial_kernel",
                 "key_norm_fold_kernel")
-# The forward template's 13 main-path instantiations (the 5 above; at
+# The forward template's 14 main-path instantiations (the 5 above; at
 # Phi-3's D = 96 K2 and K3 causal and not, each with the lse or without,
 # and K2r; at the Qwen2-VL tower's D = 80 K1; at SigLIP's D = 72 K1 and
-# K1m; at the EVA2-CLIP-E tower's D = 112 K3 not causal) and B1's 4 and
-# B2's 3 (B3 is B2's hp 1), the backward template's 10, the pre-passes' 9
-# (the partial pass at D = 64, 72, 80, 96 and 128 and with the norms at 128
-# and 96, the fold and the scan), the int8 GEMM's 2 and K6's pre-pass 1.
-SM90_INSTANTIATIONS = 42
+# K1m; at the EVA2-CLIP-E tower's D = 112 K3 not causal; at InternViT-6B's
+# D = 128 K1) and B1's 4 and B2's 3 (B3 is B2's hp 1), the backward
+# template's 10, the pre-passes' 9 (the partial pass at D = 64, 72, 80, 96
+# and 128 and with the norms at 128 and 96, the fold and the scan), the
+# int8 GEMM's 2 and K6's pre-pass 1.
+SM90_INSTANTIATIONS = 43
 # Phase 13's K4 nc tile edges: S on each side of the 64-row q tiles and the
 # 128 keys a dK/dV CTA holds, and of the 192 q rows a dQ CTA holds.
 K4NC_EDGES = (63, 64, 65, 127, 128, 129, 191, 192, 193)
@@ -730,6 +777,10 @@ D96_K2_SHAPES = ((2, 2304, 32, 32, 96), (2, 3072, 32, 32, 96))
 D96_K3_SHAPES = {"prefill": (2, 3072, 3072, 32, 32, 96, None),
                  "decode step": (2, 1, 3072, 32, 32, 96, 3000)}
 EVAL_4B_PAIRS = 2
+# Phases 24 and 26 run the InternVL2-4B judge at its widths with its Phi-3
+# decoder cut to 16 of 32 layers, for the script's time limit (the 4B's
+# scoring, reward gradient and training keep all 32).
+JUDGE_4B_LLM_DEPTH = 16
 # Phase 26: the Qwen2-VL judge.  Its vision tower's K1 at D = 80 over the
 # temporal slabs of 8 frames at 364 px (a (4, 26, 26) grid: 676 patches a
 # slab) and at 280 x 504 (720); K2r at D = 96 at the 4B's 32/32 heads on
@@ -771,6 +822,13 @@ COG_FRAMES = 8
 COG_DECODE_STEPS = 16  # decode steps timed at B = 2, by difference
 COG_CLI_DEPTH = (2, 2)
 COG_CLI_PAIRS = 1
+# Phase 29: K1 at InternViT-6B's D = 128 with 25 heads at a video's 8 tiles
+# of 1025 tokens and at 2 (q and k dense after QK-RMSNorm, v a view into
+# qkv); the InternVL2-26B and -8B judges; the CLI on a 26B-layout directory
+# at IVL_CLI_DEPTH (tower layers, LM layers).
+IVL_K1_SHAPES = ((8, 1025, 25, 128), (2, 1025, 25, 128))
+IVL_CLI_DEPTH = (2, 2)
+IVL_CLI_PAIRS = 1
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -1097,19 +1155,24 @@ def _sdpa_at(q, k, v, mask, off):
                  allowed=fa._decoder_allowed(q, k, mask, off))
 
 
-def check_vit_attention(randn, shape):
-    """K1 on views into one (B, S, 3*H*D) tensor, as the ViT makes them:
-    the op (the pre-pass and the kernel, one C call), the kernel alone on
-    the pre-pass's kmax, and the pre-pass; the op, with the lse and
-    without (at D = 64; the Qwen2-VL tower's D = 80 has no lse form),
-    bit-equal to the kernel alone (``_hold_op``); returns each one's
-    reading."""
+def check_vit_attention(randn, shape, dense_qk=False, turns=False):
+    """K1 on views into one (B, S, 3*H*D) tensor, as the ViT makes them
+    (with ``dense_qk`` q and k dense copies, as InternViT-6B's QK-RMSNorm
+    makes them, and v the view): the op (the pre-pass and the kernel, one C
+    call), the kernel alone on the pre-pass's kmax, and the pre-pass; the
+    op, with the lse and without (at D = 64; the other head dims have no
+    lse form), bit-equal to the kernel alone and a second launch
+    bit-identical (``_hold_op``); with ``turns`` also the op, the kernel
+    alone, SDPA and the twin in turns by CUDA events and the op's and the
+    kernel's device times.  Returns each one's reading."""
     from mjvideo_tpu_torch import kernels
     from mjvideo_tpu_torch.ops import flash_attention as fa
 
     B, S, H, D = shape
     q, k, v = (t.view(B, S, H, D)
                for t in randn(B, S, 3 * H * D).split(H * D, dim=-1))
+    if dense_qk:
+        q, k = q.contiguous(), k.contiguous()
     work = _attention_work(q, k, v, None, causal=False)
     library = _sdpa(q, k, v, causal=False)
     kmax = kernels.key_norm_max(k)
@@ -1118,18 +1181,26 @@ def check_vit_attention(randn, shape):
                  lambda: fa._vit_attention_fwd(q, k, v, D ** -0.5, lse),
                  lambda: kernels.vit_attention(q, k, v, kmax, D ** -0.5,
                                                with_lse=lse))
-    return {
+    runs = {"K1 op": lambda: fa.vit_attention(q, k, v),
+            "K1": lambda: kernels.vit_attention(q, k, v, kmax, D ** -0.5),
+            "SDPA": library,
+            "plain": lambda: fa.vit_attention_plain(q, k, v)}
+    out = {
         "K1": _check_kernel(
             f"K1 vit_attention (op: pre-pass and kernel) {shape}",
-            lambda: fa.vit_attention(q, k, v),
-            lambda: fa.vit_attention_plain(q, k, v), work=work,
-            library=library),
+            runs["K1 op"], runs["plain"], work=work, library=library),
         "K1 kernel": _check_kernel(
-            f"K1 vit_attention (kernel alone) {shape}",
-            lambda: kernels.vit_attention(q, k, v, kmax, D ** -0.5),
-            lambda: fa.vit_attention_plain(q, k, v), work=work,
-            library=library),
+            f"K1 vit_attention (kernel alone) {shape}", runs["K1"],
+            runs["plain"], work=work, library=library),
         "K1 pre-pass": _check_prepass(str(shape), k, None)}
+    if turns:
+        med = _in_turns(runs, list(runs) + list(runs)[::-1], 10)
+        print(f"K1 at {shape}, in turns: "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in med.items())
+              + " (median of 20 each)")
+        _op_device_times(med, runs, ("K1 op", "K1"), shape)
+        out["turns"] = med
+    return out
 
 
 def check_vit_backward(randn, shape):
@@ -2560,13 +2631,15 @@ def quant_judge_phase(dev, bf16_step_ms):
 
 
 def make_judge(state=None, generator=None, device=None, quant=None,
-               base=None):
+               base=None, impl=None, pixel_dtype=None):
     """An ``InternVLJudge`` on the chat config ``base`` (the 2B's by
     default) rebased on the ``ByteTokenizer``, with random bf16 weights
     drawn on the card from ``generator`` (or ``state``, e.g. an fp32 copy,
     which then runs the plain path), in the serving mode ``quant`` if one
-    is given.  Its videos are seeded pixels: a video's name seeds its
-    frames, so two judges see the same ones."""
+    is given; ``impl`` in place of the one the state's dtype picks.  Its
+    videos are seeded pixels: a video's name seeds its frames, so two
+    judges see the same ones, rounded to bf16 as the judge feeds them and
+    then given in ``pixel_dtype`` (the vision weights' dtype by default)."""
     import numpy as np
     import torch
 
@@ -2583,12 +2656,12 @@ def make_judge(state=None, generator=None, device=None, quant=None,
     base = internvl2_2b_chat_config() if base is None else base
     tok = ByteTokenizer(pad_token_id=base.llm.pad_token_id)
     cfg = rebase_img_context_id(base, tok)
-    impl = "auto"
     if state is None:
         state = init_chat_params(cfg, generator=generator, device=device,
                                  dtype=torch.bfloat16, with_lm_head=True)
-    elif first_tensor(state).dtype == torch.float32:
-        impl = "plain"
+    if impl is None:
+        impl = ("plain" if first_tensor(state).dtype == torch.float32
+                else "auto")
 
     class SeededVideoJudge(InternVLJudge):
         """Seeded pixels in place of a decoded video: the card's machine
@@ -2600,7 +2673,8 @@ def make_judge(state=None, generator=None, device=None, quant=None,
             pix = rng.normal(size=(JUDGE_FRAMES, size, size, 3))
             # bf16 pixels, as the judge feeds, in the weights' dtype.
             pix = torch.from_numpy(pix).to(self.device, torch.bfloat16)
-            dtype = first_tensor(self.params["vision_model"]).dtype
+            dtype = (pixel_dtype
+                     or first_tensor(self.params["vision_model"]).dtype)
             with torch.no_grad():
                 vis = extract_feature(self.params, self.cfg, pix.to(dtype),
                                       impl=self.attn_impl)
@@ -2613,10 +2687,12 @@ def make_judge(state=None, generator=None, device=None, quant=None,
 
 def _judge_launches(cfg, want):
     """``want`` with K3's launches also under its D = 96 name at Phi-3's
-    head dim."""
+    head dim, and K1's under its D = 128 name at InternViT-6B's."""
     want = dict(want)
     if cfg.llm.head_dim == 96 and "exact_attention" in want:
         want["exact_attention_d96"] = want["exact_attention"]
+    if cfg.vision.head_dim == 128 and "vit_attention" in want:
+        want["vit_attention_d128"] = want["vit_attention"]
     return want
 
 
@@ -2811,8 +2887,8 @@ def time_judge(judge, videos, drawn_full, drawn_prefix):
     """Prefill ms of the pair's full prompt and of one video's prefix, ms
     per decode step at B = 2 over each path's cache (warm, median of 3
     loops), and warm pair times of both paths (videos encoded, prefix
-    states cached after the first call), whose loops draw ``drawn_full``
-    and ``drawn_prefix`` tokens."""
+    states cached after the first call; PAIR_REPS each), whose loops draw
+    ``drawn_full`` and ``drawn_prefix`` tokens."""
     import torch
 
     from mjvideo_tpu_torch import judge_pair, overall_prompt
@@ -2855,10 +2931,12 @@ def time_judge(judge, videos, drawn_full, drawn_prefix):
          "prefix_decode_step_ms": step_ms(continuation()),
          "drawn_full": drawn_full, "drawn_prefix": drawn_prefix}
     t["pair_full_s"] = _host_ms(
-        lambda: judge_pair(judge, *videos, JUDGE_CAPTION)) / 1e3
-    judge.ask_batch(JUDGE_QUESTION, list(videos))
+        lambda: judge_pair(judge, *videos, JUDGE_CAPTION), PAIR_REPS) / 1e3
+    for video in videos:  # the prefix states, cached as a warm pair has them
+        judge._pstate(video)
     t["pair_prefix_s"] = _host_ms(
-        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos)),
+        PAIR_REPS) / 1e3
     print(f"judge time: full-prompt prefill {tuple(ids.shape)} "
           f"{t['prefill_ms']:.1f} ms, one video's prefix prefill "
           f"{t['prefix_prefill_ms']:.1f} ms, decode step at B = 2 "
@@ -4680,8 +4758,6 @@ def mjvideo_4b_phase(dev, generator, drawer):
 
     import torch
 
-    from mjvideo_tpu_torch import internvl2_4b_chat_config
-
     t0 = time.perf_counter()
     randn = drawer(generator())
     k = {"K2": {shape: check_d96_decoder_kernels(randn, shape)
@@ -4718,7 +4794,7 @@ def mjvideo_4b_phase(dev, generator, drawer):
     del scorer, requests
     gc.collect()
     torch.cuda.empty_cache()
-    out["judge"], more = judge_phase(dev, base=internvl2_4b_chat_config(),
+    out["judge"], more = judge_phase(dev, base=judge_4b_config(),
                                      name="judge_4b")
     launches.update(more)
     out["command_s"] = time.perf_counter() - t0
@@ -4986,6 +5062,18 @@ def check_d96_rows(randn, shape):
         "K2r pre-pass": reading}
 
 
+def judge_4b_config():
+    """The InternVL2-4B chat config with its decoder cut to
+    JUDGE_4B_LLM_DEPTH layers: the 4B judge of phases 24 and 26."""
+    import dataclasses
+
+    from mjvideo_tpu_torch import internvl2_4b_chat_config
+
+    base = internvl2_4b_chat_config()
+    return dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, num_hidden_layers=JUDGE_4B_LLM_DEPTH))
+
+
 def judge_4b_rows_phase(dev):
     """Phase 26 (b): phase 24's 4B judge (the same state, from a fresh
     generator at SEED) under the per-row bound (``_CACHE_BOUND = "rows"``,
@@ -4998,11 +5086,11 @@ def judge_4b_rows_phase(dev):
 
     import torch
 
-    from mjvideo_tpu_torch import internvl2_4b_chat_config, kernels, map_state
+    from mjvideo_tpu_torch import kernels, map_state
     from mjvideo_tpu_torch.models import generate as gen
 
     videos = ("video_0", "video_1")
-    base = internvl2_4b_chat_config()
+    base = judge_4b_config()
     gc.collect()
     torch.cuda.empty_cache()
     judge = make_judge(generator=torch.Generator(device=dev)
@@ -5029,7 +5117,8 @@ def judge_4b_rows_phase(dev):
               f"; the pair in {out['pair_prefix_cold_s']:.3f} s (videos "
               "encoded and prefixes prefilled)")
         out["pair_prefix_s"] = _host_ms(
-            lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+            lambda: judge.ask_batch(JUDGE_QUESTION, list(videos)),
+            PAIR_REPS) / 1e3
         plain = make_judge(state=map_state(lambda t: t.float(), judge.params),
                            base=base)
         _, out["prefix_rows_rel"], _, _ = logits_fidelity(
@@ -5242,9 +5331,10 @@ def qwen_judge_phase(dev, cfg, state, tok):
     steps_ms = _host_ms(lambda: generate(1 + QWEN_DECODE_STEPS))
     out["decode_step_ms"] = (steps_ms - out["prefill_ms"]) / QWEN_DECODE_STEPS
     out["pair_full_s"] = _host_ms(
-        lambda: judge_pair(judge, *videos, JUDGE_CAPTION)) / 1e3
+        lambda: judge_pair(judge, *videos, JUDGE_CAPTION), PAIR_REPS) / 1e3
     out["pair_prefix_s"] = _host_ms(
-        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos)),
+        PAIR_REPS) / 1e3
     out["prompt_tokens"] = items[0][0].shape[1]
     print(f"qwen2vl judge time: vision tower {out['vision_ms']:.1f} ms a "
           f"video {QWEN_GRID}; the pair's full-prompt prefill "
@@ -5776,9 +5866,10 @@ def minicpmv_phase(dev, generator):
     steps_ms = _host_ms(lambda: generate(1 + MCPM_DECODE_STEPS))
     out["decode_step_ms"] = (steps_ms - out["prefill_ms"]) / MCPM_DECODE_STEPS
     out["pair_full_s"] = _host_ms(
-        lambda: judge_pair(judge, *videos, JUDGE_CAPTION)) / 1e3
+        lambda: judge_pair(judge, *videos, JUDGE_CAPTION), PAIR_REPS) / 1e3
     out["pair_prefix_s"] = _host_ms(
-        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos)),
+        PAIR_REPS) / 1e3
     out["prompt_tokens"] = items[0][0].shape[1]
     print(f"minicpmv judge time: vision tower {out['vision_ms']:.1f} ms a "
           f"video ({MCPM_FRAMES} frames of {MCPM_HW}); the pair's "
@@ -6307,9 +6398,10 @@ def cogvlm2_judge_phase(dev, generator):
     steps_ms = _host_ms(lambda: generate(1 + COG_DECODE_STEPS))
     out["decode_step_ms"] = (steps_ms - out["prefill_ms"]) / COG_DECODE_STEPS
     out["pair_full_s"] = _host_ms(
-        lambda: judge_pair(judge, *videos, JUDGE_CAPTION)) / 1e3
+        lambda: judge_pair(judge, *videos, JUDGE_CAPTION), PAIR_REPS) / 1e3
     out["pair_prefix_s"] = _host_ms(
-        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos))) / 1e3
+        lambda: judge.ask_batch(JUDGE_QUESTION, list(videos)),
+        PAIR_REPS) / 1e3
     out["prompt_tokens"] = items[0][0].shape[1]
     print(f"cogvlm2 judge time: vision tower and adapter "
           f"{out['vision_ms']:.1f} ms a video ({COG_FRAMES} frames at "
@@ -6439,10 +6531,366 @@ def cogvlm2_phase(dev, generator, drawer):
     return out, k, launches
 
 
+# ------------------------------------------------------------------ phase 29
+
+def init_chat_params_by_layer(cfg, generator, device, dtype=None):
+    """``init_chat_params(cfg, with_lm_head=True)``'s tree, scales and
+    constants (dense leaves N(0, 0.02), norm weights 1, biases 0,
+    LayerScale ``initializer_factor``), each random leaf drawn into a
+    ``dtype`` (bf16) tensor made first and a stacked ``[L, ...]`` leaf a
+    layer at a time, as ``init_cogvlm2_params`` draws: no fp32 copy of a
+    whole stack is made (the 26B's (48, 6144, 16384) MLP stack would be
+    19.3 GB in fp32, twice over with the scale).  The draws are not
+    ``init_chat_params``'s, which the other phases' states keep."""
+    import torch
+
+    from mjvideo_tpu_torch import init_chat_params
+
+    dtype = dtype or torch.bfloat16
+    shapes = init_chat_params(cfg, generator=None,
+                              device=torch.device("meta"), dtype=dtype,
+                              with_lm_head=True)
+
+    def fill(path, meta):
+        out = torch.empty(meta.shape, dtype=dtype, device=device)
+        name = path[-1]
+        if name in ("kernel", "class_embedding", "position_embedding",
+                    "tok_embeddings"):
+            for row in out.unbind(0) if "layers" in path else (out,):
+                row.copy_(torch.randn(row.shape, generator=generator,
+                                      device=device) * 0.02)
+        elif name in ("ls1", "ls2"):
+            out.fill_(cfg.vision.initializer_factor)
+        elif name in ("weight", "bias"):
+            out.fill_(1.0 if name == "weight" else 0.0)
+        else:
+            raise ValueError(f"no rule for {'.'.join(path)}")
+        return out
+
+    def walk(tree, path):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else fill(path + (k,), v) for k, v in tree.items()}
+
+    return walk(shapes, ())
+
+
+def ivl_reference_judges(judge, base):
+    """The fp32 plain and the bf16 plain judges on ``judge``'s bf16 state
+    itself (S1's split).  The fp32 one takes its pixels in fp32 and the
+    token table in fp32 (so that the decoder's activations and its cache
+    are fp32), through ``impl="plain"``: each product promotes one weight
+    at a time, as an fp32 copy of the 26B's 47.5 GiB state would not fit
+    beside it."""
+    import torch
+
+    state = judge.params
+    lm = state["language_model"]
+    fp32_state = {**state, "language_model": {
+        **lm, "tok_embeddings": lm["tok_embeddings"].float()}}
+    return (make_judge(state=fp32_state, base=base, impl="plain",
+                       pixel_dtype=torch.float32),
+            make_judge(state=state, base=base, impl="plain"))
+
+
+def ivl_fidelity(judge, base, videos=("video_0", "video_1")):
+    """Phase 29 (b)'s readings of ``judge`` (the kernels, bf16) against fp32
+    plain on its own state, S1's split (bf16 plain against fp32 plain)
+    beside each, each max|delta| / max|fp32 plain|: the tower and mlp1's
+    output of the first video; the teacher-forced logits, on the kernel
+    judge's greedy tokens, of the full prompt, of the prefix path and of
+    the prefix path under the per-row bound (K2r; teacher-forced on the
+    prefix path's tokens, so that the plain judges' logits, which take the
+    exact softmax the bound does not change, serve both).  Holds nothing;
+    returns the readings and each path's greedy tokens."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import overall_prompt
+    from mjvideo_tpu_torch.models import generate as gen
+
+    plains = ivl_reference_judges(judge, base)
+    out, tokens = {}, {}
+    vis = [j._prep(videos[0])[0] for j in (judge, *plains)]
+    out["vision_rel"] = _rel_err(vis[0], vis[1])[1]
+    out["vision_bf16_plain_rel"] = _rel_err(vis[2], vis[1])[1]
+    print(f"internvl judge tower and mlp1 ({JUDGE_FRAMES} frames, "
+          f"{tuple(vis[0].shape)}): kernels against fp32 plain "
+          f"{out['vision_rel']:.4e} of max|plain| (bound "
+          f"{LOGITS_REL_TOL:.1e}); S1's split, bf16 plain against fp32 plain"
+          f" {out['vision_bf16_plain_rel']:.4e}")
+    del vis
+    refs = None
+    for key, prompt, prefix, bound in (
+            ("full", overall_prompt(JUDGE_CAPTION), False, False),
+            ("prefix", JUDGE_QUESTION, True, False),
+            ("prefix_rows", JUDGE_QUESTION, True, "rows")):
+        judge._pstate.cache_clear()
+        gen._CACHE_BOUND = bound
+        try:
+            run = path_runner(judge, prompt, videos, prefix)
+            toks = tokens["prefix"] if bound else run()
+            got = run(teacher_tokens=toks)
+        finally:
+            gen._CACHE_BOUND = False
+            judge._pstate.cache_clear()
+        if not bool(got.isfinite().all()):
+            raise RuntimeError(f"internvl judge {key}: non-finite logits")
+        if not bound:
+            refs = [path_runner(j, prompt, videos, prefix)(
+                teacher_tokens=toks) for j in plains]
+        ref, split = refs
+        out[f"{key}_rel"] = _rel_err(got, ref)[1]
+        out[f"{key}_bf16_plain_rel"] = _rel_err(split, ref)[1]
+        tokens[key] = toks
+        print(f"internvl judge {key}: teacher tokens of row 0 begin "
+              f"{toks[0, :8].tolist()}; teacher-forced logits over "
+              f"{toks.shape[1]} steps, the kernels against fp32 plain "
+              f"{out[f'{key}_rel']:.4e} of max|plain logit| (bound "
+              f"{LOGITS_REL_TOL:.1e}); S1's split, bf16 plain against fp32 "
+              f"plain {out[f'{key}_bf16_plain_rel']:.4e}")
+    del plains, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, tokens
+
+
+def ivl_held(out, label):
+    """Holds each of ``ivl_fidelity``'s readings to LOGITS_REL_TOL.  Where
+    bf16 plain alone misses the bar too, a miss is a standing failure of
+    bf16 arithmetic (printed and returned), unless the kernels add more
+    than the bar to bf16 plain's reading; raises otherwise.  Returns the
+    standing failures."""
+    standing = {}
+    for key in ("vision", "full", "prefix", "prefix_rows"):
+        rel, floor = out[f"{key}_rel"], out[f"{key}_bf16_plain_rel"]
+        if rel <= LOGITS_REL_TOL:
+            continue
+        if floor > LOGITS_REL_TOL and rel - floor <= LOGITS_REL_TOL:
+            print(f"{label} {key}: MISSES the bar ({rel:.4e} against "
+                  f"{LOGITS_REL_TOL}); bf16 plain alone misses it too "
+                  f"({floor:.4e}) and the kernels add {rel - floor:+.4e}: a "
+                  "standing failure of bf16 arithmetic at this depth "
+                  "(ROADMAP Queue 3), not a kernel fault")
+            standing[key] = {"rel": rel, "bf16_plain_rel": floor}
+            continue
+        raise RuntimeError(f"{label} {key}: {rel} against fp32 plain > "
+                           f"{LOGITS_REL_TOL} (bf16 plain {floor})")
+    return standing
+
+
+def internvl26b_judge_phase(dev, generator):
+    """Phase 29 (b): ``InternVLJudge`` on InternVL2-26B at full dims (see
+    the module docstring), its state drawn a layer at a time.  Returns the
+    readings and the launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import (
+        extract_feature,
+        internvl2_26b_chat_config,
+        judge_pair,
+        kernels,
+    )
+    from mjvideo_tpu_torch.models import generate as gen
+
+    base = internvl2_26b_chat_config()
+    videos = ("video_0", "video_1")
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    state = init_chat_params_by_layer(base, generator(), dev)
+    torch.cuda.synchronize()
+    out["state_s"] = time.perf_counter() - t0
+    flat = _flat_state(state).values()
+    out["params"] = sum(t.numel() for t in flat)
+    out["state_gib"] = sum(t.numel() * t.element_size() for t in flat) / 2**30
+    print(f"InternVL2-26B state (bf16, {out['params'] / 1e9:.2f} B "
+          f"parameters, {out['state_gib']:.1f} GiB) made on the card in "
+          f"{out['state_s']:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    judge = make_judge(state=state, base=base)
+    cfg = judge.cfg
+    L_vit = cfg.vision.num_hidden_layers
+    L_llm = cfg.llm.num_hidden_layers
+    kernels.reset_launch_counts()
+    s0, s1, r0, r1 = judge_pair(judge, *videos, JUDGE_CAPTION)
+    torch.cuda.synchronize()
+    launches["internvl26b_judge_full"] = _held_launches(
+        "internvl26b judge full prompt", _judge_launches(cfg, _with_prepass(
+            {"vit_attention": 2 * L_vit, "exact_attention": L_llm})))
+    print(f"internvl26b judge full prompt: ratings {s0}, {s1}; answers "
+          f"{r0!r:.60}, {r1!r:.60}")
+    kernels.reset_launch_counts()
+    answers = judge.ask_batch(JUDGE_QUESTION, list(videos))
+    torch.cuda.synchronize()
+    launches["internvl26b_judge_prefix"] = _held_launches(
+        "internvl26b judge prefix", {"exact_attention": 3 * L_llm})
+    print(f"internvl26b judge prefix: answers {[a[:60] for a in answers]!r}")
+    if not all(isinstance(a, str) for a in (r0, r1, *answers)):
+        raise RuntimeError("an internvl26b answer did not decode to text")
+    judge._pstate.cache_clear()
+    gen._CACHE_BOUND = "rows"
+    try:
+        kernels.reset_launch_counts()
+        judge.ask_batch(JUDGE_QUESTION, list(videos))
+        torch.cuda.synchronize()
+        launches["internvl26b_judge_prefix_rows"] = _held_launches(
+            "internvl26b judge prefix rows", {
+                "decoder_attention_rows": 3 * L_llm,
+                "key_norm_cummax": 3 * L_llm})
+    finally:
+        gen._CACHE_BOUND = False
+        judge._pstate.cache_clear()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    readings, tokens = ivl_fidelity(judge, base, videos)
+    out.update(readings)
+    out["standing"] = ivl_held(out, "internvl26b judge")
+    out["peak_with_plain_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    size = cfg.image_size
+    pix = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(JUDGE_FRAMES, size, size, 3))).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        out["vision_ms"] = _host_ms(lambda: extract_feature(state, cfg, pix))
+    out.update(time_judge(judge, videos, _drawn(judge, tokens["full"]),
+                          _drawn(judge, tokens["prefix"])))
+    print(f"internvl26b judge: vision tower and mlp1 {out['vision_ms']:.1f} "
+          f"ms a video ({JUDGE_FRAMES} tiles of {size} px); peak memory "
+          f"{out['peak_gib']:.2f} GiB (kernels), "
+          f"{out['peak_with_plain_gib']:.2f} GiB with the fp32 reference")
+    del judge, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def internvl26b_cli_phase(dev, generator):
+    """Phase 29 (d): ``eval/cli.main --judge internvl-chat
+    --byte-tokenizer`` on an InternVL2-26B-layout directory at full width
+    and IVL_CLI_DEPTH (the port's exporter, ``write_hf_dir``), a bf16 state
+    drawn a layer at a time from ``generator``, videos from
+    ``seeded_video_source``: every results row equal to the port's judge
+    built as the CLI builds it (``cli._make_judge``) on the directory,
+    launches exact.  Returns the readings and the launches."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from mjvideo_tpu_torch import (
+        RewardConfig,
+        internvl2_26b_chat_config,
+        judge_pair,
+        kernels,
+    )
+    from mjvideo_tpu_torch.configs import reward_config_to_hf
+    from mjvideo_tpu_torch.eval import cli
+    from mjvideo_tpu_torch.utils.export import export_chat
+
+    base = internvl2_26b_chat_config()
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(
+            base.vision, num_hidden_layers=IVL_CLI_DEPTH[0]),
+        llm=dataclasses.replace(base.llm,
+                                num_hidden_layers=IVL_CLI_DEPTH[1]))
+    n = IVL_CLI_PAIRS
+    d = tempfile.mkdtemp()
+    try:
+        records = [{"caption": f"{JUDGE_CAPTION} ({i})",
+                    "video_0_path": f"clip_{i}_0.mp4",
+                    "video_1_path": f"clip_{i}_1.mp4",
+                    "overall_preference": EVAL_PREFERENCES[i % 2]}
+                   for i in range(n)]
+        data = os.path.join(d, "pairs.json")
+        with open(data, "w") as f:
+            json.dump(records, f)
+        ckpt = os.path.join(d, "InternVL2-26B")
+        t0 = time.perf_counter()
+        state = init_chat_params_by_layer(cfg, generator(), dev)
+        write_hf_dir(ckpt, reward_config_to_hf(RewardConfig(chat=cfg)),
+                     export_chat(state, cfg))
+        del state
+        write_s = time.perf_counter() - t0
+        results = os.path.join(d, "internvl26b.jsonl")
+        argv = ["--benchmark", "overall", "--judge", "internvl-chat",
+                "--judge-model", ckpt, "--byte-tokenizer", "--data-json",
+                data, "--video-root", d, "--results", results]
+        with seeded_video_source():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = {"internvl26b_cli": _held_launches(
+                "internvl26b CLI", _judge_launches(cfg, _with_prepass({
+                    "vit_attention": 2 * n * IVL_CLI_DEPTH[0],
+                    "exact_attention": n * IVL_CLI_DEPTH[1]})))}
+            rows = [json.loads(line) for line in open(results)]
+            judge = cli._make_judge(cli.build_parser().parse_args(argv))
+            want = [judge_pair(judge, os.path.join(d, r["video_0_path"]),
+                               os.path.join(d, r["video_1_path"]),
+                               r["caption"]) for r in records]
+            del judge
+        got = [(r["score_0"], r["score_1"], r["response_0"], r["response_1"])
+               for r in rows]
+        same = got == [tuple(w) for w in want]
+        out = {"write_s": write_s, "cli_s": cli_s, "rows_equal": same,
+               "rows": len(rows)}
+        print(f"internvl26b CLI on a small-depth directory (written in "
+              f"{write_s:.1f} s): {len(rows)} rows in {cli_s:.1f} s; every "
+              f"row equal to the judge's: {same}")
+        if not (same and len(rows) == n):
+            raise RuntimeError(f"internvl26b CLI: rows {got} against {want}")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d)
+    return out, launches
+
+
+def internvl_phase(dev, generator, drawer, time_8b=False):
+    """Phase 29: K1 at InternViT-6B's D = 128, the InternVL2-26B and -8B
+    judges and the CLI (see the module docstring); ``time_8b``: the 8B
+    judge's times too (``time_judge``, about 35 s).  Returns the readings,
+    the kernel readings and the launch counts by path."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import internvl2_8b_chat_config
+
+    t0 = time.perf_counter()
+    randn = drawer(generator())
+    k = {"K1": {s: check_vit_attention(randn, s, dense_qk=True, turns=True)
+                for s in IVL_K1_SHAPES}}
+    out = {"kernels_s": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["judge_26b"], launches = internvl26b_judge_phase(dev, generator)
+    out["judge_26b"]["command_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["judge_8b"], more = judge_phase(dev, timing=time_8b,
+                                        base=internvl2_8b_chat_config(),
+                                        name="internvl8b_judge")
+    launches.update(more)
+    out["judge_8b"]["command_s"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["cli"], more = internvl26b_cli_phase(dev, generator)
+    launches.update(more)
+    out["cli"]["command_s"] = time.perf_counter() - t1
+    out["command_s"] = time.perf_counter() - t0
+    print(f"phase 29 command time {out['command_s']:.1f} s")
+    return out, k, launches
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
     ``tools/phase25_torch.py``, ``tools/phase27_torch.py``,
-    ``tools/phase28_torch.py``): the card and its power limit printed, TF32
+    ``tools/phase28_torch.py``, ``tools/phase29_torch.py``): the card and its power limit printed, TF32
     off, the kernels built and their ptxas report (a spill or a missing
     instantiation printed, not raised, so that the phase still runs), and
     the seeded generators as ``main`` makes them.  Returns (device,
@@ -6696,6 +7144,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out_28, k28, launches_28 = cogvlm2_phase(dev, generator, drawer)
+    # Phase 29: K1 at InternViT-6B's D = 128, the InternVL2-26B and -8B
+    # judges and the CLI, on fresh states.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_29, k29, launches_29 = internvl_phase(dev, generator, drawer)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -6707,7 +7160,7 @@ def main() -> int:
                **sp_score_launches, **sp_train_launches, **long_launches,
                **ckpt_launches, **frames_launches, **sweep_launches,
                **harness_launches, **launches_4b, **launches_25,
-               **launches_26, **launches_27, **launches_28}
+               **launches_26, **launches_27, **launches_28, **launches_29}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -6746,6 +7199,7 @@ def main() -> int:
     k1_72 = k27["K1"][SIGLIP_K1_SHAPES[0]]
     k1m = k27["K1m"]
     k3_112 = k28["K3"][COG_K3_SHAPES[0]]
+    k1_128 = k29["K1"][IVL_K1_SHAPES[0]]
     rows_96 = k26["K2r ragged"][D96_K2_SHAPES[-1]]
     summary = {"kernels": [
         {"name": "vit_attention", "route": "cuda",
@@ -7094,6 +7548,19 @@ def main() -> int:
                                    "plain_ms_in_turns", "device_ms",
                                    "back_to_back_ms")},
          "at_shapes": {str(sh): brief(r) for sh, r in k28["K3"].items()}},
+        # Phase 29's form: K1 at InternViT-6B's D = 128 (Config D128, K2's,
+        # not causal and floored), q and k dense, v a view into qkv.
+        {"name": "vit_attention_d128", "route": "cuda",
+         "source": "mjvideo_tpu_torch/csrc/decoder_attention_sm90.cuh",
+         "entry": "mjvideo_tpu_torch/csrc/vit_attention.cu",
+         "replaces": "mjvideo_tpu/ops/flash_attention.py:99",
+         **counts("vit_attention_d128"), "shape": IVL_K1_SHAPES[0],
+         **k1_128["K1"], "kernel_alone": brief(k1_128["K1 kernel"]),
+         "pre_pass": brief(k1_128["K1 pre-pass"]) | {
+             f: k1_128["K1 pre-pass"][f] for f in ("device_ms", "parts")},
+         "in_turns": k1_128["turns"],
+         "at_shapes": {str(sh): {n: brief(r[n]) for n in ("K1", "K1 kernel")}
+                       for sh, r in k29["K1"].items()}},
         {"name": "q8g_matmul_fused", "route": "cuda",
          "source": "mjvideo_tpu_torch/csrc/q8g_matmul.cu",
          "replaces": "mjvideo_tpu/ops/quant.py:316",
@@ -7184,7 +7651,7 @@ def main() -> int:
             "device_batch_sweep": {str(k): v for k, v in sweep_out.items()}},
         "eval_harness": harness_out, "mjvideo_4b": out_4b,
         "mjvideo_4b_gradients": out_25, "qwen2vl": out_26,
-        "siglip_judges": out_27, "cogvlm2": out_28,
+        "siglip_judges": out_27, "cogvlm2": out_28, "internvl": out_29,
         "qwen2vl_decoder_kernels": {f"{size} {name}": {
             n: brief(r[n]) for n in ("K3", "K2r", "K2r kernel")}
             for (size, name), r in k26["qwen"].items()},

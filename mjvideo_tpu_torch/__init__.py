@@ -37,6 +37,8 @@ from .configs import (  # noqa: F401
     RewardConfig,
     internvl2_2b_chat_config,
     internvl2_4b_chat_config,
+    internvl2_8b_chat_config,
+    internvl2_26b_chat_config,
     load_config,
     mjvideo_2b_config,
     mjvideo_4b_config,

@@ -364,6 +364,26 @@ def internvl2_2b_chat_config() -> ChatConfig:
     return ChatConfig()
 
 
+def internvl2_8b_chat_config() -> ChatConfig:
+    """InternVL2-8B judge backbone: InternViT-300M + InternLM2.5-7B-chat.
+
+    Dims follow OpenGVLab/InternVL2-8B config.json; the reference
+    benchmarks this size via swift (``eval_overall_internvl2_8b.py``).
+    """
+    return ChatConfig(
+        llm=LLMConfig(
+            vocab_size=92553,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_hidden_layers=32,
+            num_attention_heads=32,
+            num_key_value_heads=8,
+            rope_theta=1e6,
+        ),
+        template="internlm2-chat",
+    )
+
+
 def internvl2_4b_chat_config() -> ChatConfig:
     """InternVL2-4B judge backbone: InternViT-300M + Phi-3-mini.
 
@@ -371,6 +391,40 @@ def internvl2_4b_chat_config() -> ChatConfig:
     this size via swift, ``eval_overall_internvl2_4b.py``; phi3 template per
     ``conversation.py:368-379``)."""
     return mjvideo_4b_config().chat
+
+
+def internvl2_26b_chat_config() -> ChatConfig:
+    """InternVL2-26B judge backbone: InternViT-6B + InternLM2-chat-20B.
+
+    Dims follow OpenGVLab/InternVL2-26B config.json: the 6B tower (45
+    layers of 3200, 25 heads of 128, RMSNorm and QK-RMSNorm over the whole
+    width; ``models/vit.py``) and a 48-layer 6144-wide decoder with 48/8
+    heads of 128.  The reference benchmarks this size via swift
+    (``eval_overall_internvl2_26b.py``).  ``qkv_bias`` keeps the default,
+    as the JAX preset does (ROADMAP Queue 3 asks whether the published
+    config sets it).  25.5 B parameters, about 47.5 GiB in bf16: one 80 GB
+    card holds the judge.
+    """
+    return ChatConfig(
+        vision=VisionConfig(
+            hidden_size=3200,
+            intermediate_size=12800,
+            num_hidden_layers=45,
+            num_attention_heads=25,
+            qk_normalization=True,
+            norm_type="rms_norm",
+        ),
+        llm=LLMConfig(
+            vocab_size=92553,
+            hidden_size=6144,
+            intermediate_size=16384,
+            num_hidden_layers=48,
+            num_attention_heads=48,
+            num_key_value_heads=8,
+            rope_theta=1e6,
+        ),
+        template="internlm2-chat",
+    )
 
 
 def tiny_test_config(

@@ -23,12 +23,13 @@
 //       :318, host side :484-511): causal, the same constant shift with one
 //       bound per (b, kv head), m_i = |scale| |q_i| kmax[b, h // G], kmax
 //       the largest masked key norm (the pre-pass key_norm_max);
-//   K1  (kKeyMax, D = 64, 72 or 80, FLOOR) replaces _fwd_nc_kernel with
-//       norm_bound (flash_attention.py:99, :131-153): non-causal and
-//       maskless over one tile's S tokens (InternViT's 64-wide heads), one
-//       temporal slab's h w patches (the Qwen2-VL vision tower's 80-wide
-//       heads, qwen2vl.py:369) or one frame's patches (SigLIP's 72-wide
-//       heads, videoscore.py:356-384), the same bound with kmax over all S
+//   K1  (kKeyMax, D = 64, 72, 80 or 128, FLOOR) replaces _fwd_nc_kernel
+//       with norm_bound (flash_attention.py:99, :131-153): non-causal and
+//       maskless over one tile's S tokens (InternViT-300M's 64-wide heads,
+//       InternViT-6B's 128-wide ones, vit.py:180-183), one temporal slab's
+//       h w patches (the Qwen2-VL vision tower's 80-wide heads,
+//       qwen2vl.py:369) or one frame's patches (SigLIP's 72-wide heads,
+//       videoscore.py:356-384), the same bound with kmax over all S
 //       keys, and the denominator floored at 1e-30 as jnp.maximum(l,
 //       1e-30) does;
 //   K1m (kKeyMax, D = 72, non-causal, a key mask, no floor) replaces
@@ -284,7 +285,7 @@ struct Config {
   static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
 };
 
-using D128 = Config<128, 2, 3>;  // K3, K2r, K2, K2 lse
+using D128 = Config<128, 2, 3>;  // K3, K2r, K2, K2 lse, K1 (InternViT-6B)
 using D96 = Config<96, 2, 3>;    // K3, K2r, K2 and their lse forms (Phi-3)
 using D80 = Config<80, 2, 3>;    // K1 (the Qwen2-VL vision tower)
 using D72 = Config<72, 2, 3>;    // K1 and its masked form (SigLIP-so400m)

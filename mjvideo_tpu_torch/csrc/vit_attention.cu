@@ -10,7 +10,12 @@
 // (mjvideo_tpu/models/videoscore.py:356-384: 16 heads of 72 over one
 // frame's patches, e.g. (16, 2730) for a 16-frame 1280 x 720 clip) at
 // Config D72, the same layout with columns 72-127 the zero fill and q k^T
-// over 5 k-steps; K1 lse stays at D = 64 (the judges need no gradient).
+// over 5 k-steps; and the InternViT-6B tower of the InternVL2-26B judge
+// (mjvideo_tpu/models/vit.py:180-183: 25 heads of 128 over one tile's 1025
+// tokens, q and k dense 3200-element rows after QK-RMSNorm, v a view into
+// qkv with 9600-element rows) at Config D128, K2's Config, not causal and
+// floored (two full 64-column boxes, no zero fill); K1 lse stays at D = 64
+// (the judges need no gradient).
 // Its kmax (B, H), the largest key norm of each (b, head), comes from the
 // pre-pass of decoder_attention.cu, where the TPU kernel reduced it inside
 // each program (flash_attention.py:131-135).
@@ -19,7 +24,8 @@
 // (Config D64, ShiftMode::kKeyMax, FLOOR): q/k/v are strided views into one
 // (B, S, 3 H D) qkv tensor, which the tensor maps take as they are.  What
 // bounds it and the design: see that header.  At (8, 1025, 16, 64) the two
-// products are 34 GFLOP (0.035 ms at 989 TFLOP/s); the softmax's one exp2
+// products are 34 GFLOP (0.035 ms at 989 TFLOP/s), at the 6B's (8, 1025,
+// 25, 128) 108 GFLOP (0.109 ms); the softmax's one exp2
 // per score on the special-function unit weighs twice as much against the
 // products as at D = 128, so the D = 64 Config (q rows per CTA, stages, the
 // register split) was chosen by A/B on the card.
@@ -49,6 +55,12 @@ extern "C" int mjv_vit_attention(const void* q, const void* k, const void* v,
                                  long long qss, long long ksb, long long kss,
                                  long long vsb, long long vss, float scale,
                                  void* stream) {
+  if (D == 128 && lse == nullptr) {  // InternViT-6B's heads
+    return sm90::launch_attention<sm90::D128, false,
+                                  sm90::ShiftMode::kKeyMax, true>(
+        q, k, v, nullptr, kmax, 1, nullptr, out, nullptr, B, S, S, H, H, qsb,
+        qss, ksb, kss, vsb, vss, scale, stream);
+  }
   if (D == 72 && lse == nullptr) {  // SigLIP-so400m's heads
     return sm90::launch_attention<sm90::D72, false, sm90::ShiftMode::kKeyMax,
                                   true>(q, k, v, nullptr, kmax, 1, nullptr,
@@ -78,6 +90,15 @@ extern "C" int mjv_vit_attention_op(const void* q, const void* k,
                                     long long vsb, long long vss, int nparts,
                                     float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128 && lse == nullptr) {  // InternViT-6B's heads
+    const int err = launch_key_norm_partials(k, nullptr, part, B, S, H, D,
+                                             ksb, kss, nparts, s);
+    if (err != 0) return err;
+    return sm90::launch_attention<sm90::D128, false,
+                                  sm90::ShiftMode::kKeyMax, true>(
+        q, k, v, nullptr, part, nparts, nullptr, out, nullptr, B, S, S, H, H,
+        qsb, qss, ksb, kss, vsb, vss, scale, stream, true);
+  }
   if (D == 72 && lse == nullptr) {  // SigLIP-so400m's heads
     const int err = launch_key_norm_partials(k, nullptr, part, B, S, H, D,
                                              ksb, kss, nparts, s);

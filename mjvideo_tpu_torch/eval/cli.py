@@ -4,7 +4,8 @@ The port's counterpart of ``mjvideo_tpu/eval/cli.py``, which replaces the
 reference's 40 per-(benchmark x model) scripts under ``scripts/eval/``: pick
 a benchmark (overall / aspects / fine-grained / genai / safesora) and the
 MJ-Video reward model (``--model-path``), the InternVL chat judge
-(``--judge internvl-chat --judge-model DIR``), the Qwen2-VL, MiniCPM-V-2.6,
+(``--judge internvl-chat --judge-model DIR``: InternVL2-2B, -4B, -8B or
+-26B, the last on the InternViT-6B tower), the Qwen2-VL, MiniCPM-V-2.6,
 CogVLM2-Video or VideoScore judge (``--judge
 qwen2-vl|minicpm-v|cogvlm2|videoscore --judge-model DIR``, an HF checkpoint
 directory of that model; VideoScore scores the overall, safesora and genai

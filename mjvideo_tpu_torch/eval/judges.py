@@ -3,7 +3,8 @@
 Counterpart of ``mjvideo_tpu/eval/judges.py`` but for the API judges
 (ROADMAP Queue 1 item 10): ``RATING_SCALE`` and ``parse_rating``,
 the two prompt templates and the fine-grained rubric, ``InternVLJudge``
-with its prefix cache, ``_GreedyLocalJudge`` (the shared tail of the
+(InternVL2-2B, -4B, -8B and -26B) with its prefix cache,
+``_GreedyLocalJudge`` (the shared tail of the
 batched local judges) and ``Qwen2VLJudge``, ``MiniCPMVJudge`` and
 ``CogVLM2Judge`` on it,
 ``judge_pair``, and the benchmark drivers of a rating-scale judge:

@@ -52,7 +52,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the masked non-causal form (D = 72 only), and "key_norm_max_masked_d72"
 # the pre-pass launches at 72 that read a mask (K1m's, or alone);
 # "exact_attention_d112" the launches of K3 at the EVA2-CLIP-E tower's head
-# dim of 112 (non-causal, without the lse: the only form built there).
+# dim of 112 (non-causal, without the lse: the only form built there);
+# "vit_attention_d128" the launches of K1 at InternViT-6B's head dim of 128
+# (without the lse; its pre-pass is counted with K2's under "key_norm_max").
 launch_counts: Dict[str, int] = {
     "vit_attention": 0, "vit_attention_lse": 0, "vit_attention_bwd_dkdv": 0,
     "vit_attention_bwd_dq": 0, "decoder_attention": 0,
@@ -66,6 +68,7 @@ launch_counts: Dict[str, int] = {
     "key_norm_cummax_d96": 0, "vit_attention_d80": 0, "key_norm_max_d80": 0,
     "vit_attention_d72": 0, "key_norm_max_d72": 0, "vit_attention_masked": 0,
     "key_norm_max_masked_d72": 0, "exact_attention_d112": 0,
+    "vit_attention_d128": 0,
     "decoder_attention_rows": 0, "key_norm_cummax": 0, "key_norm_max": 0,
     "q8g_matmul_fused": 0, "q8g_matmul": 0, "q8g_quantize": 0,
     "w4_matmul": 0,
@@ -236,7 +239,7 @@ def _raise_on(name: str, err: int) -> None:
 
 def _count(name: str, D: int) -> None:
     """One launch of ``name``, and of its form at head dim D where that has
-    a counter of its own (D = 112, 96, 80 or 72)."""
+    a counter of its own (D = 128 for K1, 112, 96, 80 or 72)."""
     launch_counts[name] += 1
     if f"{name}_d{D}" in launch_counts:
         launch_counts[f"{name}_d{D}"] += 1
@@ -254,20 +257,19 @@ def forward_only(name: str, *ts: torch.Tensor) -> None:
 
 def _check_vit(name: str, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor, with_lse: bool) -> None:
-    """K1's checks: InternViT's head dim of 64, or the Qwen2-VL vision
-    tower's 80 or SigLIP-so400m's 72, which are built without the lse (the
-    judges need no gradient)."""
-    _check_qkv(name, (64,) if with_lse else (64, 72, 80), q, k, v)
+    """K1's checks: InternViT-300M's head dim of 64, or the Qwen2-VL vision
+    tower's 80, SigLIP-so400m's 72 or InternViT-6B's 128, which are built
+    without the lse (the judges need no gradient)."""
+    _check_qkv(name, (64,) if with_lse else (64, 72, 80, 128), q, k, v)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k and v must share (B, S, H, D)")
 
 
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kmax: torch.Tensor, scale: float, with_lse: bool = False):
-    """K1 alone on a given kmax.  q/k/v: (B, S, H, D) bf16 with D = 64 (72
-    or 80 without the lse) and dense heads (row strides free); kmax: (B, H)
-    fp32
-    (``key_norm_max``).
+    """K1 alone on a given kmax.  q/k/v: (B, S, H, D) bf16 with D = 64 (72,
+    80 or 128 without the lse) and dense heads (row strides free); kmax:
+    (B, H) fp32 (``key_norm_max``).
     Returns a dense (B, S, H, D) bf16 tensor, and with ``with_lse`` also the
     (B, H, S) fp32 lse (1e30 on a row whose sum underflowed).  With the lse
     or without, it runs on the wgmma/TMA template

@@ -1,7 +1,10 @@
 """InternViT encoder.
 
 Counterpart of ``mjvideo_tpu/models/vit.py`` (reference
-``modeling_intern_vit.py``) in eval mode (no dropout or DropPath).
+``modeling_intern_vit.py``) in eval mode (no dropout or DropPath), for
+both checkpoint families: InternViT-300M (LayerNorm, no QK norm, heads of
+64) and InternViT-6B (RMSNorm and QK-RMSNorm over the whole width, 25
+heads of 128), chosen by ``norm_type`` and ``qk_normalization``.
 Parameters keep the JAX layout: dense kernels ``(in, out)``, layers stacked
 on a leading ``L`` axis, the patch kernel ``(P*P*3, C)`` in ``(ph, pw,
 channel)`` order.  The patch embed is a reshape plus matmul over NHWC
@@ -10,7 +13,8 @@ TF32).  The token axis is not pre-padded: the attention kernel takes S =
 1025 and masks its own tail.  The encoder is differentiable (the reward
 gradient to the pixels, ``RewardScorer.score_fn``): each block is
 rematerialised per ``remat`` (``ops/remat.py``), and its attention takes K1
-with the lse and K4 nc when autograd needs them.
+with the lse and K4 nc when autograd needs them (at D = 64; the 6B's heads
+of 128 run forward only).
 """
 
 from __future__ import annotations
@@ -24,23 +28,26 @@ from ..configs import VisionConfig
 
 from ..ops.attention import multi_head_attention
 from ..ops.matmul import dot, gelu
-from ..ops.norms import layer_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.remat import remat_wrap
 from ..utils.bridge import map_state
 
 
-def _check_supported(cfg: VisionConfig) -> None:
-    """The port covers the InternViT-300M family (LayerNorm, no QK norm);
-    the 6B family (RMSNorm + QK-RMSNorm) comes with the 26B judge."""
-    if cfg.norm_type != "layer_norm" or cfg.qk_normalization:
-        raise NotImplementedError(
-            "InternViT-6B (rms_norm / qk_normalization) is not ported yet")
+def _norm(cfg: VisionConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The block's pre-norm: RMSNorm (weight only) for the 6B family,
+    LayerNorm for the 300M (``vit.py:37-40``)."""
+    if cfg.norm_type == "rms_norm":
+        return rms_norm(x, p["weight"], eps=cfg.layer_norm_eps)
+    return layer_norm(x, p["weight"], p["bias"], eps=cfg.layer_norm_eps)
 
 
 def init_vit_params(cfg: VisionConfig, *, generator: torch.Generator,
                     device: torch.device, dtype: torch.dtype):
-    """Random ViT state with the JAX package's structure and scales."""
-    _check_supported(cfg)
+    """Random ViT state with the JAX package's structure and scales: under
+    ``rms_norm`` the norms have no bias, under ``qk_normalization`` the
+    attention has ``q_norm`` and ``k_norm`` weights, and without
+    ``qkv_bias`` the qkv product has no bias (``vit.py:43-93``).  The
+    random draws are the same for either family."""
     C, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     P = cfg.patch_size
     n_pos = cfg.num_patches_per_side**2 + 1
@@ -53,6 +60,8 @@ def init_vit_params(cfg: VisionConfig, *, generator: torch.Generator,
         return torch.full(shape, value, dtype=dtype, device=device)
 
     def norm_p():
+        if cfg.norm_type == "rms_norm":
+            return {"weight": full((L, C), 1.0)}
         return {"weight": full((L, C), 1.0), "bias": full((L, C), 0.0)}
 
     qkv = {"kernel": dense(L, C, 3 * C)}
@@ -60,6 +69,9 @@ def init_vit_params(cfg: VisionConfig, *, generator: torch.Generator,
         qkv["bias"] = full((L, 3 * C), 0.0)
     attn = {"qkv": qkv,
             "proj": {"kernel": dense(L, C, C), "bias": full((L, C), 0.0)}}
+    if cfg.qk_normalization:
+        attn["q_norm"] = {"weight": full((L, C), 1.0)}
+        attn["k_norm"] = {"weight": full((L, C), 1.0)}
     return {
         "embeddings": {
             "class_embedding": dense(1, 1, C),
@@ -125,17 +137,25 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
     attention, K1 through ``multi_head_attention(norm_bound=True)``.  The
     A/B harness (``tools/vit_layout_ab_torch.py``) swaps it to time this
     block with another kernel, as the JAX package's ``make_block_fn``
-    (``benchmarks/vit_layout_ab.py:121``) does with a copy of the block."""
+    (``benchmarks/vit_layout_ab.py:121``) does with a copy of the block.
+    Under ``qk_normalization`` (the 6B family) q and k are RMS-normalised
+    over the whole (B, S, C) width before the head split
+    (``modeling_intern_vit.py:215-218``): they are then dense, and v stays
+    a view into qkv."""
     B, S, C = x.shape
     H, D = cfg.num_attention_heads, cfg.head_dim
 
-    eps = cfg.layer_norm_eps
-    h = layer_norm(x, p["norm1"]["weight"], p["norm1"]["bias"], eps=eps)
+    h = _norm(cfg, p["norm1"], x)
     qkv = dot(h, p["attn"]["qkv"]["kernel"], impl)
     if "bias" in p["attn"]["qkv"]:
         qkv = qkv + p["attn"]["qkv"]["bias"]
-    # Views into qkv: the kernel takes the token stride as it is.
-    q, k, v = (t.view(B, S, H, D) for t in qkv.split(C, dim=-1))
+    q, k, v = qkv.split(C, dim=-1)
+    if cfg.qk_normalization:
+        eps = cfg.layer_norm_eps
+        q = rms_norm(q, p["attn"]["q_norm"]["weight"], eps=eps)
+        k = rms_norm(k, p["attn"]["k_norm"]["weight"], eps=eps)
+    # Views: the kernel takes the token stride as it is.
+    q, k, v = (t.view(B, S, H, D) for t in (q, k, v))
     if attention is None:
         # The bound kernel K1, as the JAX ViT takes it (vit.py _NC_BOUND).
         attn = multi_head_attention(q, k, v, causal=False, impl=impl,
@@ -145,7 +165,7 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
     attn = dot(attn.reshape(B, S, C), p["attn"]["proj"]["kernel"], impl)
     x = x + (attn + p["attn"]["proj"]["bias"]) * p["ls1"]
 
-    h = layer_norm(x, p["norm2"]["weight"], p["norm2"]["bias"], eps=eps)
+    h = _norm(cfg, p["norm2"], x)
     h = dot(h, p["mlp"]["fc1"]["kernel"], impl) + p["mlp"]["fc1"]["bias"]
     h = gelu(h)
     h = dot(h, p["mlp"]["fc2"]["kernel"], impl) + p["mlp"]["fc2"]["bias"]
@@ -160,7 +180,6 @@ def vit_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor,
     ``vit_forward`` (``vit.py:288-291``): each block is checkpointed when
     autograd records it.  The stacked ``[L, ...]`` layer tensors are unbound
     once, so their gradient is one stack of the per-layer gradients."""
-    _check_supported(cfg)
     x = embeddings(params["embeddings"], cfg, pixel_values)
     L = cfg.num_hidden_layers
     n_run = L if select_layer == -1 else L + select_layer + 1

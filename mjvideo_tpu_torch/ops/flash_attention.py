@@ -457,14 +457,17 @@ def _vit_attention_fwd(q, k, v, scale, with_lse):
     return kernels.vit_attention_op(q, k, v, scale, with_lse=with_lse)
 
 
-# The ViT backward at the Qwen2-VL vision tower's and SigLIP's head dims:
-# K1 runs there (the judges), its lse form and K4 nc do not.
+# The ViT backward at the Qwen2-VL vision tower's, SigLIP's and
+# InternViT-6B's head dims: K1 runs there (the judges), its lse form and
+# K4 nc do not.
 K4NC_D80_NEXT = ("ROADMAP Queue 2 item 2: K1 lse and K4 nc (the ViT "
                  "attention's gradient) at the Qwen2-VL vision tower's head "
                  "dim of 80")
 K4NC_D72_NEXT = ("ROADMAP Queue 2 item 2: K1 lse and K4 nc (the ViT "
                  "attention's gradient) at SigLIP-so400m's head dim of 72")
-_K4NC_NEXT = {80: K4NC_D80_NEXT, 72: K4NC_D72_NEXT}
+K4NC_D128_NEXT = ("ROADMAP Queue 2 item 2: K1 lse and K4 nc (the ViT "
+                  "attention's gradient) at InternViT-6B's head dim of 128")
+_K4NC_NEXT = {80: K4NC_D80_NEXT, 72: K4NC_D72_NEXT, 128: K4NC_D128_NEXT}
 
 
 class _VitAttention(torch.autograd.Function):
@@ -497,8 +500,9 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1 on a CUDA tensor, its plain twin on a CPU tensor; differentiable
     in q, k and v through K1 with the lse and K4 nc (their twins on the
     CPU), which it takes only when autograd will need them.  At head dim 80
-    (the Qwen2-VL vision tower) and 72 (SigLIP) it runs forward only: under
-    autograd it raises ``NotImplementedError`` on any device."""
+    (the Qwen2-VL vision tower), 72 (SigLIP) and 128 (InternViT-6B) it runs
+    forward only: under autograd it raises ``NotImplementedError`` on any
+    device."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -530,9 +530,14 @@ def test_k1_k2_and_pre_pass_wrappers_raise_instead_of_falling_back(
     kmax = kernels.key_norm_max(k)
     qd, kd, vd, mask = _decoder_inputs(g, cuda_device)
     dmax = kernels.key_norm_max(kd, mask)
+    # K1 is built at 64, 72, 80 and 128 (InternViT-6B) without the lse and
+    # at 64 with it; 96 is K2's head dim, not K1's.
+    d96 = _randn(g, cuda_device, 1, 70, 4, 96)
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.vit_attention(d96, d96, d96, kmax, 0.125)
     wide = _randn(g, cuda_device, 1, 70, 4, 128)
     with pytest.raises(ValueError, match="head dim"):
-        kernels.vit_attention(wide, wide, wide, kmax, 0.125)
+        kernels.vit_attention(wide, wide, wide, kmax, 0.125, with_lse=True)
     with pytest.raises(ValueError, match="head dim"):
         kernels.decoder_attention(q, k, v, None, kmax, None, 0.125)
     # 72, 80 and 96 are built (SigLIP, the Qwen2-VL tower, Phi-3); 56 is

@@ -1,6 +1,6 @@
 """Fault controls for B1-B3, K2r's pre-pass, the D = 96 forms of K2 lse,
 K3 lse, K4a, K4b and K2r's pre-pass, K1 at D = 80, K1 and K1m at D = 72,
-and K3 at D = 112, on a CUDA card: each fault planted in a copy of the
+K3 at D = 112 and K1 at D = 128, on a CUDA card: each fault planted in a copy of the
 tree, and the card tests of its kernel run there.
 
     python3 tools/variant_faults_torch.py [--out FILE] [--only NAME ...]
@@ -34,6 +34,7 @@ D96 = "tests/test_torch_kernels_d96_sm90.py"
 D80 = "tests/test_torch_kernels_d80_sm90.py"
 D72 = "tests/test_torch_kernels_d72_sm90.py"
 D112 = "tests/test_torch_kernels_d112_sm90.py"
+D128VIT = "tests/test_torch_kernels_d128vit_sm90.py"
 # The backward's row store at the layout's 128-column stride where D = 96
 # (64 * kBoxes: the same as kD at 64 and 128), for dK/dV's Config (32-row
 # streamed tiles) or dQ's (64): rows overlap and the last runs past the
@@ -97,6 +98,12 @@ FAULTS = (
     # each row's last 16 columns overwritten by the next row's first.
     ("K3 D112 store at the 96-column stride", HEADER,
      "* C::kD + 2 * c;", "* (C::kD == 112 ? 96 : C::kD) + 2 * c;", D112),
+    # K1 at D = 128 (the floored form; K2, K3 and K2r share the Config)
+    # stores its output rows 64 columns apart: each row's second box lands
+    # on the next row's first.
+    ("K1 D128 store at the 64-column stride", HEADER,
+     "* C::kD + 2 * c;", "* (C::kD == 128 && FLOOR ? 64 : C::kD) + 2 * c;",
+     D128VIT),
 )
 
 
