@@ -3,8 +3,9 @@ InternVL2-2B judge, quantized scoring and judging, the reward gradient
 with its VADER loop, sequence-parallel scoring and training,
 MJ-VIDEO-4B's serving with its InternVL2-4B judge, its reward gradient,
 VADER loop and training, the Qwen2-VL, VideoScore, MiniCPM-V-2.6,
-CogVLM2-Video, InternVL2-26B and InternVL2-8B judges once on one CUDA
-card.
+CogVLM2-Video, InternVL2-26B and InternVL2-8B judges, and the training
+options (remat policies, ViT DropPath and dropout, the optimizers, async
+checkpoints) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -492,17 +493,19 @@ Phases (any failure raises and exits non-zero):
    KERNEL_REL_TOL and PREPASS_REL_TOL), the op bit-equal to the kernel
    alone and a second launch bit-identical; the op, the kernel alone, SDPA
    and the twin in turns by CUDA events, and the device times.  (b)
-   ``InternVLJudge`` on InternVL2-26B at full dims (InternViT-6B 45 x 3200,
-   25 heads of 128, RMSNorm and QK-RMSNorm, MLP 12,800; ``mlp1`` 12,800 ->
-   6144; InternLM2-chat-20B 48 x 6144, 48/8 heads of 128, MLP 16,384,
-   vocabulary 92,553: 25.5 B parameters), random bf16 weights drawn a
+   ``InternVLJudge`` on InternVL2-26B at full width (InternViT-6B 45 x
+   3200, 25 heads of 128, RMSNorm and QK-RMSNorm, MLP 12,800; ``mlp1``
+   12,800 -> 6144; InternLM2-chat-20B 6144 wide, 48/8 heads of 128, MLP
+   16,384, vocabulary 92,553, cut to IVL_26B_LLM_DEPTH of its 48 layers:
+   25.5 B parameters at full depth), random bf16 weights drawn a
    layer at a time from a fresh generator at SEED
    (``init_chat_params_by_layer``), a pair of seeded 8-frame videos at
    448 px through ``make_judge``'s subclass: ``judge_pair`` with the
    overall prompt (the full prompt), the short question by the prefix
    path, and again under ``_CACHE_BOUND = "rows"``, 64 greedy tokens,
-   exact launches (per video 45 K1 at D = 128 after their pre-passes; 48
-   K3 per prefill or continuation, K2r and its pre-pass in their place
+   exact launches (per video 45 K1 at D = 128 after their pre-passes;
+   IVL_26B_LLM_DEPTH K3 per prefill or continuation, K2r and its pre-pass
+   in their place
    under "rows"; none in decode, no K2); the tower and ``mlp1``'s output
    and the teacher-forced logits of the three paths against fp32 plain on
    the bf16 state itself (fp32 pixels and token table through
@@ -512,14 +515,37 @@ Phases (any failure raises and exits non-zero):
    add no more than the bar (``ivl_held``; the rows path teacher-forced on
    the prefix path's tokens); the tower's ms a video, the pair's prefill
    ms, ms a decode step at B = 2, answers/s by each path and the peak.
-   (c) Phase 9's checks on InternVL2-8B at full dims (InternViT-300M;
-   InternLM2.5-7B 32 x 4096, 32/8 heads of 128): ``judge_phase`` without
-   its times, per video 24 K1 at D = 64, 32 K3 per prefill.  (d)
+   (c) Phase 9's checks on InternVL2-8B at full width (InternViT-300M;
+   InternLM2.5-7B 4096 wide, 32/8 heads of 128, cut to IVL_8B_LLM_DEPTH
+   of its 32 layers): ``judge_phase`` without its times, per video 24 K1
+   at D = 64, IVL_8B_LLM_DEPTH K3 per prefill.  (d)
    ``eval/cli.main --judge internvl-chat --byte-tokenizer`` on an
    InternVL2-26B-layout directory at full width and IVL_CLI_DEPTH written
    by the port's exporter, on ``seeded_video_source``'s frames: every
    results row equal to the port's judge built as the CLI builds it, exact
    launches.  Prints its command time.
+30. The training options (after phase 29, its states freed; nothing
+   caught), on phase 5's 2B weights (a fresh generator at SEED) and
+   micro-batches.  (a) One value-and-gradient of the first micro-batch
+   over stage 3's trainable tensors and the ViT's layer stack (so the ViT
+   is recorded: K1 with the lse, K4 nc) under ``remat`` False, True and
+   "dots": the loss and every gradient bit-equal across the three, exact
+   launches (the attention's forward twice under True and "dots"), the
+   peak memory above the state, the time by CUDA events and the device
+   time.  (b) DropPath and dropout at NOISE_DROP_PATH and NOISE_DROPOUT:
+   the gradient under ``remat=True`` bit-equal to the one under
+   ``remat=False`` at the same step's ``NoiseKey`` (the recompute drew the
+   same masks), the next step's key another loss, and the tower sharded
+   over a local 2-member group drawing the whole tower's masks, tile by
+   global tile, its embeds within KERNEL_REL_TOL.  (c) OPT_STEPS
+   ``Trainer`` micro-steps with AdamW, AdamW with bf16 mu and Adafactor on
+   the kernel path (exact launches) and on the fp32 copy through the plain
+   path: each step's loss within OPT_LOSS_REL_TOL, the update at cosine
+   OPT_UPDATE_COS or more, frozen tensors unchanged, each state's bytes.
+   (d) ``async_checkpoint=True`` with a save every micro-step, ASYNC_KEEP
+   kept, at full width ASYNC_DEPTH deep: after ``train()`` returns each
+   kept file reloads bit-equal to a blocking run's; the time a micro-step,
+   async against blocking.  Prints its command time.
 """
 
 from __future__ import annotations
@@ -746,7 +772,7 @@ FRAME_CAPTIONS = ("A red fox runs through fresh snow at dawn.",
 # timed calls of each after the call whose launches are counted.
 SWEEP_CLIPS = 8
 SWEEP_BATCHES = (1, 2, 4, 8)
-SWEEP_REPS = 5
+SWEEP_REPS = 3
 # Phase 23: the seeded video source's frame count and rate, the records,
 # the cut of the resumed results file, the quantized mode, the judge's
 # records, and the training CLI's micro-steps and eval records.
@@ -829,6 +855,30 @@ COG_CLI_PAIRS = 1
 IVL_K1_SHAPES = ((8, 1025, 25, 128), (2, 1025, 25, 128))
 IVL_CLI_DEPTH = (2, 2)
 IVL_CLI_PAIRS = 1
+# For the 1200 s limit, phase 29 (b) runs the 26B judge with its
+# InternLM2-chat-20B decoder cut to IVL_26B_LLM_DEPTH of its 48 layers (the
+# InternViT-6B tower, K1 at D = 128, stays whole) and (c) the 8B judge's
+# checks with its InternLM2.5-7B decoder cut to IVL_8B_LLM_DEPTH of 32 (the
+# checks read K1 at D = 64 and K3 at the 8B's widths; depth only repeats
+# them).
+IVL_26B_LLM_DEPTH = 24
+IVL_8B_LLM_DEPTH = 16
+
+# Phase 30: the training options at the 2B widths.  (b)'s rates; (c) runs
+# OPT_STEPS Trainer micro-steps of each optimizer (phase 5's config:
+# accumulation 2, so 2 optimizer steps) on the kernel path and on fp32
+# plain; (d) runs ASYNC_STEPS micro-steps saving each, ASYNC_KEEP kept
+# (so a rotation runs, once the pending save is waited for), at full
+# width with the depth cut to ASYNC_DEPTH
+# (ViT, decoder) layers, so that a checkpoint is about 2 GB, not 12.
+NOISE_DROP_PATH = 0.1
+NOISE_DROPOUT = 0.1
+OPT_STEPS = 4
+OPT_LOSS_REL_TOL = 2e-2    # each step's loss, kernel path against fp32 plain
+OPT_UPDATE_COS = 0.95      # the steps' update, kernel path against plain
+ASYNC_DEPTH = (2, 2)
+ASYNC_STEPS = 2
+ASYNC_KEEP = 1
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -3288,17 +3338,19 @@ def plain_score_delta(scorer, requests, scores):
     return delta, rel, ref
 
 
-def _grad_launches(cfg, steps=1):
+def _grad_launches(cfg, steps=1, forwards=2):
     """The launch counts of ``steps`` value-and-gradients of the reward
     under remat: per ViT layer K1 with the lse twice (the forward, then the
-    recompute) and K4 nc once; per decoder layer K2 with the lse twice and
-    K4a and K4b once; the pre-pass before each K1 and K2; nothing else
-    (``_at_d96``: the decoder's at their D = 96 names too)."""
+    recompute; ``forwards=1`` without remat) and K4 nc once; per decoder
+    layer K2 with the lse twice and K4a and K4b once; the pre-pass before
+    each K1 and K2; nothing else (``_at_d96``: the decoder's at their D =
+    96 names too)."""
     L_vit = cfg.chat.vision.num_hidden_layers
     L_llm = cfg.chat.llm.num_hidden_layers
-    per = {"vit_attention": 2 * L_vit, "vit_attention_lse": 2 * L_vit,
+    f = forwards
+    per = {"vit_attention": f * L_vit, "vit_attention_lse": f * L_vit,
            "vit_attention_bwd_dkdv": L_vit, "vit_attention_bwd_dq": L_vit,
-           "decoder_attention": 2 * L_llm, "decoder_attention_lse": 2 * L_llm,
+           "decoder_attention": f * L_llm, "decoder_attention_lse": f * L_llm,
            "decoder_attention_bwd_dkdv": L_llm,
            "decoder_attention_bwd_dq": L_llm}
     return {name: steps * n
@@ -6680,9 +6732,10 @@ def ivl_held(out, label):
 
 
 def internvl26b_judge_phase(dev, generator):
-    """Phase 29 (b): ``InternVLJudge`` on InternVL2-26B at full dims (see
-    the module docstring), its state drawn a layer at a time.  Returns the
-    readings and the launches."""
+    """Phase 29 (b): ``InternVLJudge`` on InternVL2-26B at full width, its
+    decoder IVL_26B_LLM_DEPTH deep (see the module docstring), its state
+    drawn a layer at a time.  Returns the readings and the launches."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -6697,6 +6750,8 @@ def internvl26b_judge_phase(dev, generator):
     from mjvideo_tpu_torch.models import generate as gen
 
     base = internvl2_26b_chat_config()
+    base = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, num_hidden_layers=IVL_26B_LLM_DEPTH))
     videos = ("video_0", "video_1")
     out, launches = {}, {}
     t0 = time.perf_counter()
@@ -6706,8 +6761,9 @@ def internvl26b_judge_phase(dev, generator):
     flat = _flat_state(state).values()
     out["params"] = sum(t.numel() for t in flat)
     out["state_gib"] = sum(t.numel() * t.element_size() for t in flat) / 2**30
-    print(f"InternVL2-26B state (bf16, {out['params'] / 1e9:.2f} B "
-          f"parameters, {out['state_gib']:.1f} GiB) made on the card in "
+    print(f"InternVL2-26B state ({IVL_26B_LLM_DEPTH} decoder layers, bf16, "
+          f"{out['params'] / 1e9:.2f} B parameters, "
+          f"{out['state_gib']:.1f} GiB) made on the card in "
           f"{out['state_s']:.1f} s")
     torch.cuda.reset_peak_memory_stats(dev)
     judge = make_judge(state=state, base=base)
@@ -6854,6 +6910,7 @@ def internvl_phase(dev, generator, drawer, time_8b=False):
     judges and the CLI (see the module docstring); ``time_8b``: the 8B
     judge's times too (``time_judge``, about 35 s).  Returns the readings,
     the kernel readings and the launch counts by path."""
+    import dataclasses
     import gc
 
     import torch
@@ -6871,8 +6928,10 @@ def internvl_phase(dev, generator, drawer, time_8b=False):
     out["judge_26b"], launches = internvl26b_judge_phase(dev, generator)
     out["judge_26b"]["command_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    out["judge_8b"], more = judge_phase(dev, timing=time_8b,
-                                        base=internvl2_8b_chat_config(),
+    base_8b = internvl2_8b_chat_config()
+    base_8b = dataclasses.replace(base_8b, llm=dataclasses.replace(
+        base_8b.llm, num_hidden_layers=IVL_8B_LLM_DEPTH))
+    out["judge_8b"], more = judge_phase(dev, timing=time_8b, base=base_8b,
                                         name="internvl8b_judge")
     launches.update(more)
     out["judge_8b"]["command_s"] = time.perf_counter() - t1
@@ -6887,10 +6946,426 @@ def internvl_phase(dev, generator, drawer, time_8b=False):
     return out, k, launches
 
 
+def _options_paths(params):
+    """Phase 30's gradient set: stage 3's trainable tensors and the ViT's
+    layer stack (which trains in no stage), so that the ViT's blocks are
+    recorded and rematerialised too: K1 with the lse and K4 nc run."""
+    from mjvideo_tpu_torch.train.trainer import flatten_state, trainable_mask
+
+    return sorted(trainable_mask(params, 3) | {
+        p for p in flatten_state(params)
+        if p.startswith("model/vision_model/layers/")})
+
+
+def _options_grad(cfg, tc, params, paths, batch, dev, rng=None):
+    """(loss, gradients of ``paths``) of one micro-batch under ``tc`` on
+    the bf16 kernel path, the ViT noise of key ``rng``."""
+    import torch
+
+    from mjvideo_tpu_torch.train.trainer import (
+        flatten_state,
+        make_loss_fn,
+        place_batch,
+        set_trainable,
+    )
+
+    set_trainable(params, set(paths))
+    flat = flatten_state(params)
+    loss = make_loss_fn(cfg, tc)(
+        params, place_batch(batch, dev, torch.bfloat16), rng)
+    return loss.detach(), torch.autograd.grad(loss,
+                                              [flat[p] for p in paths])
+
+
+def _equal_grads(label, got, ref):
+    """Hold (loss, gradients) ``got`` bit-equal to ``ref``; returns the
+    reading (the largest difference, 0 when equal)."""
+    import torch
+
+    loss, grads = got
+    worst = max((g.float() - r.float()).abs().max().item()
+                for g, r in zip(grads, ref[1]))
+    same = all(torch.equal(x, y) for x, y in zip([loss, *grads],
+                                                  [ref[0], *ref[1]]))
+    print(f"{label}: loss {loss.item():.6f} against {ref[0].item():.6f}; "
+          f"every gradient bit-equal: {same} (largest difference {worst:.3e})")
+    if not same:
+        raise RuntimeError(f"{label}: the loss or a gradient differs "
+                           f"(largest difference {worst})")
+    return worst
+
+
+def remat_policies(cfg, params, batch, dev):
+    """Phase 30 (a): one value-and-gradient of ``batch`` (the stage-3
+    trainable set and the ViT's layers) under ``remat`` False, True and
+    "dots": the loss and every gradient bit-equal across the three (the
+    recompute runs the same deterministic kernels on the same inputs; the
+    saved products are the first forward's), exact launches, the peak
+    memory above the state (``max_memory_allocated``), the time by CUDA
+    events and the device time (the profiler's kernels summed)."""
+    from dataclasses import replace
+
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    paths = _options_paths(params)
+    tc0 = train_config("unused")
+    out, launches, ref = {}, {}, None
+    for remat in (False, True, "dots"):
+        tc = replace(tc0, remat=remat)
+
+        def run():
+            return _options_grad(cfg, tc, params, paths, batch, dev)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        want = {k: 2 * n for k, n in _grad_launches(
+            cfg, forwards=2 if remat else 1).items()}
+        label = f"phase 30 remat={remat!r}"
+        launches[f"options_remat_{remat}"] = _held_launches(label, want)
+        if ref is None:
+            ref = got
+            worst = 0.0
+        else:
+            worst = _equal_grads(label, got, ref)
+        del got
+        ms = _median_ms(run, reps=1, warmup=0)
+        dev_ms = sum(device_ms(run, reps=1, warmup=0).values()) or None
+        print(f"{label}: peak {peak / 2**30:.3f} GiB above the state, "
+              f"{ms:.2f} ms by CUDA events, device {_ms(dev_ms)}")
+        out[str(remat)] = {"loss": ref[0].item(), "peak_gib": peak / 2**30,
+                           "ms": ms, "device_ms": dev_ms,
+                           "max_abs_vs_false": worst}
+    return out, launches, ref
+
+
+def _noisy(cfg):
+    """``cfg`` with the ViT's DropPath and dropout at phase 30's rates."""
+    import dataclasses
+
+    vision = dataclasses.replace(cfg.chat.vision,
+                                 drop_path_rate=NOISE_DROP_PATH,
+                                 dropout=NOISE_DROPOUT)
+    return dataclasses.replace(cfg, chat=dataclasses.replace(
+        cfg.chat, vision=vision))
+
+
+@contextlib.contextmanager
+def _recorded_masks(into):
+    """Record every mask ``vit._bernoulli`` draws into ``into``, keyed by
+    (key path, global tile index)."""
+    from mjvideo_tpu_torch.models import vit
+
+    real = vit._bernoulli
+
+    def record(key, keep, shape, device):
+        mask = real(key, keep, shape, device)
+        for b in range(shape[0]):
+            into[key.path, key.tile0 + b] = mask[b]
+        return mask
+
+    vit._bernoulli = record
+    try:
+        yield into
+    finally:
+        vit._bernoulli = real
+
+
+def noise_phase(cfg, params, batch, dev, quiet_loss):
+    """Phase 30 (b): DropPath and dropout at NOISE_DROP_PATH and
+    NOISE_DROPOUT.  The gradient under ``remat=True`` bit-equal to the one
+    under ``remat=False`` at the same step's key (the recompute drew the
+    same masks); the next step's key another loss (other masks), and both
+    other than the noise-free loss ``quiet_loss``; the tower sharded over a
+    local 2-member group drawing the whole tower's masks, tile by global
+    tile, and its embeds within KERNEL_REL_TOL of the whole tower's."""
+    from dataclasses import replace
+
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.models.internvl import extract_feature
+    from mjvideo_tpu_torch.models.vit import NoiseKey
+    from mjvideo_tpu_torch.parallel.sequence import SequenceGroup
+    from mjvideo_tpu_torch.train.trainer import place_batch
+
+    ncfg = _noisy(cfg)
+    paths = _options_paths(params)
+    base = NoiseKey(0)
+    got = {}
+    launches = {}
+    for remat, step in ((False, 0), (True, 0), (True, 1)):
+        kernels.reset_launch_counts()
+        got[remat, step] = _options_grad(
+            ncfg, replace(train_config("unused"), remat=remat), params,
+            paths, batch, dev, base.fold_in(step))
+        torch.cuda.synchronize()
+        want = {k: 2 * n for k, n in _grad_launches(
+            cfg, forwards=2 if remat else 1).items()}
+        launches[f"options_noise_{remat}_{step}"] = _held_launches(
+            f"phase 30 noise remat={remat} step {step}", want)
+    worst = _equal_grads("phase 30 noise: remat=True against remat=False",
+                         got[True, 0], got[False, 0])
+    losses = {"step 0": got[True, 0][0].item(),
+              "step 1": got[True, 1][0].item(), "noise-free": quiet_loss}
+    print(f"phase 30 noise: losses {losses}")
+    if len(set(losses.values())) != 3:
+        raise RuntimeError(f"phase 30 noise: the masks did not change the "
+                           f"loss: {losses}")
+    del got
+    pix = place_batch(batch, dev, torch.bfloat16)["video_0_pixel_values"]
+    pix = pix.reshape((-1,) + tuple(pix.shape[-3:]))
+    key = base.fold_in(0, 0)
+    whole, sharded = {}, {}
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        with _recorded_masks(whole):
+            ref = extract_feature(params["model"], ncfg.chat, pix,
+                                  remat=False, vit_rng=key)
+        with _recorded_masks(sharded):
+            emb = extract_feature(
+                params["model"], ncfg.chat, pix, remat=False, vit_rng=key,
+                sp={"group": SequenceGroup.local(2), "kind": "ring"})
+        torch.cuda.synchronize()
+    L_vit = cfg.chat.vision.num_hidden_layers
+    launches["options_noise_sharded"] = _held_launches(
+        "phase 30 noise: the whole and the sharded tower",
+        _with_prepass({"vit_attention": 3 * L_vit}))
+    same = (whole.keys() == sharded.keys() and all(
+        torch.equal(m, sharded[k]) for k, m in whole.items()))
+    err, rel = _rel_err(emb, ref)
+    print(f"phase 30 noise: {pix.shape[0]} tiles, {len(whole)} masks, the "
+          f"sharded tower's the same: {same}; its embeds against the whole "
+          f"tower's {rel:.3e} of max|whole| (bound {KERNEL_REL_TOL})")
+    if not same or not rel <= KERNEL_REL_TOL:
+        raise RuntimeError(f"phase 30 noise: sharded tower masks equal "
+                           f"{same}, embeds {rel}")
+    return {"losses": losses, "max_abs_remat": worst, "masks": len(whole),
+            "sharded_rel_err": rel}, launches
+
+
+OPTIMIZERS = (("adamw", {}),
+              ("adamw_bf16_mu", {"adam_mu_dtype": "bfloat16"}),
+              ("adafactor", {"optimizer": "adafactor"}))
+
+
+def _train_steps(cfg, params, tc, batches):
+    """OPT_STEPS micro-steps of a ``Trainer``: (losses, the trainable
+    tensors' update, the optimizer state's bytes without the accumulation
+    buffer, frozen tensors all unchanged)."""
+    import torch
+
+    from mjvideo_tpu_torch.train.trainer import (
+        Trainer,
+        flatten_state,
+        state_bytes,
+    )
+
+    before = {p: t.clone() for p, t in flatten_state(params).items()}
+    tr = Trainer(cfg, params, tc)
+    losses = [tr.train([b])["loss"] for b in batches[:OPT_STEPS]]
+    torch.cuda.synchronize()
+    after = flatten_state(tr.params)
+    trainable = set(tr.optimizer.paths)
+    frozen = all(torch.equal(t, before[p]) for p, t in after.items()
+                 if p not in trainable)
+    update = [after[p].float() - before[p].float()
+              for p in tr.optimizer.paths]
+    moments = {k: v for k, v in tr.opt_state.items() if k != "acc"}
+    return losses, update, state_bytes(moments), frozen
+
+
+def optimizers_phase(cfg, batches, dev, generator):
+    """Phase 30 (c): OPT_STEPS ``Trainer`` micro-steps (phase 5's config:
+    stage 3, accumulation 2, remat) with AdamW, AdamW with bf16 mu and
+    Adafactor, on fresh bf16 weights from the seed through the kernels and
+    on their fp32 copy through the plain path: exact launches on the kernel path, every
+    loss finite and within OPT_LOSS_REL_TOL of plain's at its step, frozen
+    tensors unchanged, the steps' update of the trainable tensors at
+    cosine OPT_UPDATE_COS or more with plain's (bf16 weights round each
+    update of lr = 1e-3 on weights of 0.02 to a few ulps), and each
+    optimizer state's bytes (moments or factored statistics, without the
+    accumulation buffer)."""
+    import tempfile as tf
+    from dataclasses import replace
+
+    import torch
+
+    from mjvideo_tpu_torch import init_reward_params, kernels, map_state
+
+    L_vit = cfg.chat.vision.num_hidden_layers
+    L_llm = cfg.chat.llm.num_hidden_layers
+    per_video = _with_prepass({
+        "vit_attention": L_vit, "decoder_attention": 2 * L_llm,
+        "decoder_attention_lse": 2 * L_llm,
+        "decoder_attention_bwd_dkdv": L_llm,
+        "decoder_attention_bwd_dq": L_llm})
+    want = {k: 2 * OPT_STEPS * n for k, n in per_video.items()}
+    out, launches = {}, {}
+    for name, kw in OPTIMIZERS:
+        with tf.TemporaryDirectory() as d:
+            tc = replace(train_config(d), **kw)
+            params = init_reward_params(cfg, generator=generator(),
+                                        device=dev, dtype=torch.bfloat16)
+            p32 = map_state(lambda t: t.float(), params)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            k_loss, k_upd, k_bytes, k_frozen = _train_steps(cfg, params, tc,
+                                                            batches)
+            k_s = time.perf_counter() - t0
+            launches[f"options_{name}"] = _held_launches(
+                f"phase 30 {name}", want)
+            del params
+            p_loss, p_upd, p_bytes, p_frozen = _train_steps(
+                cfg, p32, replace(tc, attn_impl="plain"), batches)
+            del p32
+        rel, cos, norm = _agreement(k_upd, p_upd)
+        del k_upd, p_upd
+        torch.cuda.empty_cache()
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+        print(f"phase 30 {name}: losses kernels "
+              f"{[round(x, 6) for x in k_loss]}, fp32 plain {[round(x, 6) for x in p_loss]} (largest "
+              f"relative difference {loss_rel:.3e}, bound {OPT_LOSS_REL_TOL})"
+              f"; the update against plain's: relative L2 {rel:.4e}, cosine "
+              f"{cos:.6f} (bound {OPT_UPDATE_COS}), |update| plain {norm:.4e};"
+              f" state {k_bytes / 2**30:.3f} GiB (bf16 weights), "
+              f"{p_bytes / 2**30:.3f} GiB (fp32 weights); {OPT_STEPS} "
+              f"micro-steps in {k_s:.1f} s (the first includes warm-up)")
+        if not (all(math.isfinite(x) for x in k_loss) and k_frozen
+                and p_frozen and loss_rel <= OPT_LOSS_REL_TOL
+                and cos >= OPT_UPDATE_COS):
+            raise RuntimeError(
+                f"phase 30 {name}: losses {k_loss} against {p_loss}, frozen "
+                f"unchanged {k_frozen}/{p_frozen}, update cosine {cos}")
+        out[name] = {"losses": k_loss, "plain_losses": p_loss,
+                     "loss_rel": loss_rel, "update_rel_l2": rel,
+                     "update_cos": cos, "state_bytes": k_bytes,
+                     "plain_state_bytes": p_bytes, "steps_s": k_s}
+    return out, launches
+
+
+def cut_depth(cfg, vit_layers, llm_layers):
+    """``cfg`` at full width with its ViT and decoder cut in depth."""
+    import dataclasses
+
+    chat = dataclasses.replace(
+        cfg.chat,
+        vision=dataclasses.replace(cfg.chat.vision,
+                                   num_hidden_layers=vit_layers),
+        llm=dataclasses.replace(cfg.chat.llm, num_hidden_layers=llm_layers))
+    return dataclasses.replace(cfg, chat=chat)
+
+
+def _same_state(a, b):
+    import torch
+
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_state(a[k], b[k])
+                                            for k in a)
+    return a == b
+
+
+def async_checkpoint_phase(cfg, batches, dev, generator):
+    """Phase 30 (d): ASYNC_STEPS micro-steps saving each
+    (``checkpoint_every=1``, ASYNC_KEEP kept) of a stage-3 AdamW
+    ``Trainer`` at full width, ASYNC_DEPTH deep, blocking and with
+    ``async_checkpoint=True`` from the same weights: after ``train()``
+    returns, each kept file of the async run reloads bit-equal to the
+    blocking run's of that step, and no temporary file is left; the time a
+    micro-step, save included, of each."""
+    import tempfile as tf
+    from dataclasses import replace
+
+    import torch
+
+    from mjvideo_tpu_torch import init_reward_params
+    from mjvideo_tpu_torch.train.trainer import Trainer
+
+    small = cut_depth(cfg, *ASYNC_DEPTH)
+    out = {}
+    with tf.TemporaryDirectory() as d:
+        for mode in ("blocking", "async"):
+            tc = replace(train_config(os.path.join(d, mode)),
+                         gradient_accumulation_steps=1, checkpoint_every=1,
+                         keep_checkpoints=ASYNC_KEEP,
+                         async_checkpoint=mode == "async")
+            params = init_reward_params(small, generator=generator(),
+                                        device=dev, dtype=torch.bfloat16)
+            tr = Trainer(small, params, tc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train(batches[:ASYNC_STEPS])
+            torch.cuda.synchronize()
+            out[f"{mode}_step_ms"] = ((time.perf_counter() - t0) * 1e3
+                                      / ASYNC_STEPS)
+            del tr, params
+        names = {m: sorted(os.listdir(os.path.join(d, m)))
+                 for m in ("blocking", "async")}
+        kept = [n for n in names["async"] if n.endswith(".pt")]
+        size = os.path.getsize(os.path.join(d, "async", kept[-1]))
+        same = names["async"] == names["blocking"] and len(kept) == \
+            ASYNC_KEEP and all(_same_state(
+                torch.load(os.path.join(d, "blocking", n), map_location=dev),
+                torch.load(os.path.join(d, "async", n), map_location=dev))
+                for n in kept)
+    print(f"phase 30 async checkpoints: {ASYNC_STEPS} micro-steps saving "
+          f"each ({size / 2**30:.3f} GiB a checkpoint, depth {ASYNC_DEPTH}): "
+          f"{out['blocking_step_ms']:.1f} ms a step blocking, "
+          f"{out['async_step_ms']:.1f} ms async; files {names['async']}; "
+          f"each reloads bit-equal to the blocking save: {same}")
+    if not same:
+        raise RuntimeError(f"phase 30 async checkpoints: files {names}, "
+                           f"equal {same}")
+    out.update(files=kept, checkpoint_bytes=size)
+    return out
+
+
+def training_options_phase(dev, generator):
+    """Phase 30: the training options at the 2B widths, stage 3, on phase
+    5's weights (a fresh generator at SEED) and micro-batches.  Returns
+    the readings and the launch counts by path."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import init_reward_params
+
+    t0 = time.perf_counter()
+    cfg, batches = train_data()
+    params = init_reward_params(cfg, generator=generator(), device=dev,
+                                dtype=torch.bfloat16)
+    out, launches = {}, {}
+    out["remat"], more, ref = remat_policies(cfg, params, batches[0], dev)
+    launches.update(more)
+    out["noise"], more = noise_phase(cfg, params, batches[0], dev,
+                                     ref[0].item())
+    launches.update(more)
+    del params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["optimizers"], more = optimizers_phase(cfg, batches, dev, generator)
+    launches.update(more)
+    out["async_checkpoint"] = async_checkpoint_phase(cfg, batches, dev,
+                                                     generator)
+    out["command_s"] = time.perf_counter() - t0
+    print(f"phase 30 command time {out['command_s']:.1f} s")
+    return out, launches
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
     ``tools/phase25_torch.py``, ``tools/phase27_torch.py``,
-    ``tools/phase28_torch.py``, ``tools/phase29_torch.py``): the card and its power limit printed, TF32
+    ``tools/phase28_torch.py``, ``tools/phase29_torch.py``,
+    ``tools/phase30_torch.py``): the card and its power limit printed, TF32
     off, the kernels built and their ptxas report (a spill or a missing
     instantiation printed, not raised, so that the phase still runs), and
     the seeded generators as ``main`` makes them.  Returns (device,
@@ -7149,6 +7624,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out_29, k29, launches_29 = internvl_phase(dev, generator, drawer)
+    # Phase 30: the training options at the 2B widths, on fresh states.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_30, launches_30 = training_options_phase(dev, generator)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -7160,7 +7639,8 @@ def main() -> int:
                **sp_score_launches, **sp_train_launches, **long_launches,
                **ckpt_launches, **frames_launches, **sweep_launches,
                **harness_launches, **launches_4b, **launches_25,
-               **launches_26, **launches_27, **launches_28, **launches_29}
+               **launches_26, **launches_27, **launches_28, **launches_29,
+               **launches_30}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -7652,6 +8132,7 @@ def main() -> int:
         "eval_harness": harness_out, "mjvideo_4b": out_4b,
         "mjvideo_4b_gradients": out_25, "qwen2vl": out_26,
         "siglip_judges": out_27, "cogvlm2": out_28, "internvl": out_29,
+        "training_options": out_30,
         "qwen2vl_decoder_kernels": {f"{size} {name}": {
             n: brief(r[n]) for n in ("K3", "K2r", "K2r kernel")}
             for (size, name), r in k26["qwen"].items()},

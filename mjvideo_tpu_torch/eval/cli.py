@@ -9,7 +9,9 @@ MJ-Video reward model (``--model-path``), the InternVL chat judge
 CogVLM2-Video or VideoScore judge (``--judge
 qwen2-vl|minicpm-v|cogvlm2|videoscore --judge-model DIR``, an HF checkpoint
 directory of that model; VideoScore scores the overall, safesora and genai
-benchmarks); results stream to JSONL
+benchmarks), or an API judge (``--judge gpt4o|gemini``, ``--judge-model``
+naming the API's model; OPENAI_API_KEY or GOOGLE_API_KEY); results stream
+to JSONL
 (``--results``), and a rerun resumes from the file.  The metrics JSON is
 printed on stdout.
 
@@ -19,12 +21,11 @@ refuses) unless ``--device cpu`` asks for the CPU.  As in the JAX CLI,
 Under ``--byte-tokenizer`` the VideoScore judge's tokenizer maps
 ``<image>`` and ``<fake_token_around_image>`` to the config's
 ``image_token_id`` and the id before it (Idefics2's 32001 and 32000).
-Not ported: the API judges (gpt4o, gemini; ROADMAP Queue 1 item 10),
-data
-parallelism (``--dp`` > 1 without ``--sp``, or a group across processes;
-item 12), and the JAX CLI's ``MJV_PLATFORM`` backend pin and persistent
-compilation cache, which only the TPU needed.  ``--sp`` scores each pair
-sequence-parallel over ``SequenceGroup.local(--dp)`` in this process.
+Not ported: data parallelism (``--dp`` > 1 without ``--sp``, or a group
+across processes; ROADMAP Queue 1 item 12), and the JAX CLI's
+``MJV_PLATFORM`` backend pin and persistent compilation cache, which only
+the TPU needed.  ``--sp`` scores each pair sequence-parallel over
+``SequenceGroup.local(--dp)`` in this process.
 """
 
 from __future__ import annotations
@@ -35,11 +36,6 @@ import os
 
 from ..data.prompts import load_tokenizer
 from ..utils.device import resolve_device
-
-# Judges of the JAX CLI that wait for ROADMAP Queue 1 item 10: the API
-# judges.
-NOT_PORTED_JUDGES = ("gpt4o", "gemini")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="MJ-Video evaluator (PyTorch)")
@@ -57,13 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reward checkpoint dir (scorer mode)")
     p.add_argument("--judge", default=None,
                    choices=(None, "internvl-chat", "qwen2-vl", "minicpm-v",
-                            "cogvlm2", "videoscore") + NOT_PORTED_JUDGES,
-                   help="use a baseline judge instead of the reward scorer "
-                        "(internvl-chat, qwen2-vl, minicpm-v, cogvlm2 and "
-                        "videoscore are ported)")
+                            "cogvlm2", "videoscore", "gpt4o", "gemini"),
+                   help="use a baseline judge instead of the reward scorer")
     p.add_argument("--judge-model", default=None,
                    help="the judge's checkpoint dir (config.json and "
-                        "safetensors)")
+                        "safetensors), or the API model of gpt4o/gemini")
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--num-segments", type=int, default=8)
     p.add_argument("--results", default=None, help="incremental JSONL path")
@@ -282,14 +276,19 @@ def _make_videoscore_judge(args):
 
 
 def _make_judge(args):
-    """The judge of ``--judge`` on ``--judge-model``: the InternVL chat
-    judge (``config.json`` and safetensors with the LM head), or the
-    Qwen2-VL, MiniCPM-V, CogVLM2-Video or VideoScore one."""
+    """The judge of ``--judge`` on ``--judge-model``: an API judge
+    (``cli.py:142-145``: ``--judge-model`` names the API's model), the
+    InternVL chat judge (``config.json`` and safetensors with the LM head),
+    or the Qwen2-VL, MiniCPM-V or CogVLM2-Video one."""
     from ..configs import load_config
     from ..data.prompts import rebase_img_context_id
     from ..utils.checkpoint import import_chat_params, load_safetensors_dir
-    from .judges import InternVLJudge
+    from .judges import GeminiJudge, InternVLJudge, OpenAIJudge
 
+    if args.judge == "gpt4o":
+        return OpenAIJudge(model=args.judge_model or "gpt-4o")
+    if args.judge == "gemini":
+        return GeminiJudge(model=args.judge_model or "gemini-1.5-flash")
     path = args.judge_model
     device = resolve_device(args.device)
     tok = _judge_tokenizer(args, path)
@@ -317,10 +316,6 @@ def _make_judge(args):
 def main(argv=None):
     """Run one benchmark, print its metrics JSON and return them."""
     args = build_parser().parse_args(argv)
-    if args.judge in NOT_PORTED_JUDGES:
-        raise NotImplementedError(
-            f"--judge {args.judge} is not ported yet: ROADMAP Queue 1 item "
-            "10 (the API judges)")
     resolve_device(args.device)
 
     if args.benchmark == "genai":

@@ -1,13 +1,14 @@
-"""The local judges and their prompts.
+"""The judges and their prompts.
 
-Counterpart of ``mjvideo_tpu/eval/judges.py`` but for the API judges
-(ROADMAP Queue 1 item 10): ``RATING_SCALE`` and ``parse_rating``,
-the two prompt templates and the fine-grained rubric, ``InternVLJudge``
-(InternVL2-2B, -4B, -8B and -26B) with its prefix cache,
+Counterpart of ``mjvideo_tpu/eval/judges.py``: ``RATING_SCALE`` and
+``parse_rating``, the two prompt templates and the fine-grained rubric,
+``InternVLJudge`` (InternVL2-2B, -4B, -8B and -26B) with its prefix cache,
 ``_GreedyLocalJudge`` (the shared tail of the
 batched local judges) and ``Qwen2VLJudge``, ``MiniCPMVJudge`` and
-``CogVLM2Judge`` on it,
-``judge_pair``, and the benchmark drivers of a rating-scale judge:
+``CogVLM2Judge`` on it, the API judges ``OpenAIJudge`` and ``GeminiJudge``
+(``openai``, ``google.generativeai`` and ``cv2`` imported only when a
+request is made), ``judge_pair``, and the benchmark drivers of a
+rating-scale judge:
 ``run_overall_benchmark`` (MJ-BENCH-VIDEO overall preference and SafeSora),
 ``run_fine_grained_benchmark`` with ``fine_grained_accuracy``, and
 ``run_genai_benchmark``; then the VideoScore regression judge
@@ -803,6 +804,157 @@ class CogVLM2Judge(_GreedyLocalJudge):
             eos_token_id=self.cfg.eos_token_id, impl=self.attn_impl,
             vision_embeds=[v for v, _ in preps], kv_quant=self.kv_quant,
             dtype=self.dtype, **kw)
+
+
+def _extract_frames_b64(video_path: str, every: int = 50,
+                        max_frames: int = 8) -> List[str]:
+    """Every ``every``-th frame from 0, at most ``max_frames``, as base64
+    JPEG (cv2; ``eval_overall_gpt4o.py:64-74``)."""
+    import base64
+
+    import cv2
+
+    cap = cv2.VideoCapture(video_path)
+    frames = []
+    idx = 0
+    while cap.isOpened() and len(frames) < max_frames:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if idx % every == 0:
+            ok, buf = cv2.imencode(".jpg", frame)
+            if ok:
+                frames.append(base64.b64encode(buf).decode())
+        idx += 1
+    cap.release()
+    return frames
+
+
+def _ask_with_retries(request, max_try: int, sleep_s: float) -> str:
+    """At most ``max_try`` calls of ``request``, sleeping ``sleep_s``
+    between them (``eval_overall_gpt4o.py:84-92``,
+    ``eval_overall_gemini.py:98-108``); once they are spent, ``""``: the
+    pair then records rating 0 and the benchmark goes on.  A missing
+    credential raises before this wrapper runs."""
+    import time
+
+    last: Optional[Exception] = None
+    for attempt in range(max_try):
+        try:
+            return request()
+        except Exception as e:  # the reference catches bare Exception too
+            last = e
+            if attempt + 1 < max_try:
+                time.sleep(sleep_s)
+    print(f"API judge failed after {max_try} attempts: {last!r}; "
+          "recording rating 0 and continuing")
+    return ""
+
+
+class OpenAIJudge:
+    """GPT-4o-style judge over extracted frames (``eval_overall_gpt4o.py``).
+
+    Requires OPENAI_API_KEY (raised before any request) and the ``openai``
+    package.  Transient API errors retry ``max_try`` times, then the pair
+    records rating 0 and the benchmark continues
+    (``eval_overall_gpt4o.py:84-92`` and the ``None`` score branch at
+    ``:137-141``)."""
+
+    def __init__(self, model: str = "gpt-4o", max_frames: int = 8,
+                 frame_stride: int = 50, max_try: int = 3,
+                 retry_sleep: float = 3.0):
+        self.model = model
+        self.max_frames = max_frames
+        self.frame_stride = frame_stride
+        self.max_try = max_try
+        self.retry_sleep = retry_sleep
+
+    def _request(self, prompt: str, video_path: str) -> str:
+        from openai import OpenAI  # type: ignore
+
+        frames = _extract_frames_b64(video_path, self.frame_stride,
+                                     self.max_frames)
+        content = [{"type": "text", "text": prompt}] + [
+            {"type": "image_url",
+             "image_url": {"url": f"data:image/jpeg;base64,{f}"}}
+            for f in frames
+        ]
+        client = OpenAI()
+        resp = client.chat.completions.create(
+            model=self.model,
+            messages=[{"role": "user", "content": content}],
+        )
+        return resp.choices[0].message.content or ""
+
+    def ask(self, prompt: str, video_path: str) -> str:
+        if not os.environ.get("OPENAI_API_KEY"):
+            raise RuntimeError("OpenAIJudge requires OPENAI_API_KEY")
+        return _ask_with_retries(lambda: self._request(prompt, video_path),
+                                 self.max_try, self.retry_sleep)
+
+
+class GeminiJudge:
+    """Gemini judge with the safety filters off
+    (``eval_overall_gemini.py:38-109``), in one of the reference's two input
+    modes: ``"frames"`` (every 50th frame, at most 10, base64 JPEG, sent
+    beside the prompt; ``:86-97``, the mode the reference script runs) or
+    ``"upload"`` (the whole file through the Files API).  Requires
+    GOOGLE_API_KEY and the ``google-generativeai`` package, each checked
+    before any request."""
+
+    def __init__(self, model: str = "gemini-1.5-flash",
+                 mode: str = "frames", frame_stride: int = 50,
+                 max_frames: int = 10, max_try: int = 3,
+                 retry_sleep: float = 3.0):
+        if mode not in ("frames", "upload"):
+            raise ValueError(f"unknown Gemini input mode {mode!r}")
+        self.model = model
+        self.mode = mode
+        self.frame_stride = frame_stride
+        self.max_frames = max_frames
+        self.max_try = max_try
+        self.retry_sleep = retry_sleep
+
+    @staticmethod
+    def _encode_frames(video_path: str, stride: int, cap: int):
+        """The reference's frame sampling (``eval_overall_gemini.py:86-96``):
+        every ``stride``-th frame from 0, at most ``cap``."""
+        return _extract_frames_b64(video_path, every=stride, max_frames=cap)
+
+    def ask(self, prompt: str, video_path: str) -> str:
+        if not os.environ.get("GOOGLE_API_KEY"):
+            raise RuntimeError("GeminiJudge requires GOOGLE_API_KEY")
+        try:
+            import google.generativeai  # type: ignore  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(
+                "GeminiJudge requires google-generativeai") from e
+        return _ask_with_retries(lambda: self._request(prompt, video_path),
+                                 self.max_try, self.retry_sleep)
+
+    def _request(self, prompt: str, video_path: str) -> str:
+        import google.generativeai as genai  # type: ignore
+
+        genai.configure(api_key=os.environ["GOOGLE_API_KEY"])
+        model = genai.GenerativeModel(self.model)
+        safety = [
+            {"category": c, "threshold": "BLOCK_NONE"}
+            for c in ("HARM_CATEGORY_HARASSMENT", "HARM_CATEGORY_HATE_SPEECH",
+                      "HARM_CATEGORY_SEXUALLY_EXPLICIT",
+                      "HARM_CATEGORY_DANGEROUS_CONTENT")
+        ]
+        if self.mode == "frames":
+            frames = self._encode_frames(video_path, self.frame_stride,
+                                         self.max_frames)
+            parts = [prompt] + [
+                {"mime_type": "image/jpeg", "data": f} for f in frames
+            ]
+            resp = model.generate_content(parts, safety_settings=safety)
+            return resp.text
+        video = genai.upload_file(video_path)
+        resp = model.generate_content([video, prompt],
+                                      safety_settings=safety)
+        return resp.text
 
 
 def judge_pair(

@@ -67,19 +67,24 @@ def apply_projector(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
 
 
 def extract_feature(params, cfg: ChatConfig, pixel_values: torch.Tensor,
-                    impl: str = "auto", remat=True, sp=None) -> torch.Tensor:
+                    impl: str = "auto", remat=True, sp=None,
+                    vit_rng=None) -> torch.Tensor:
     """ViT -> drop cls -> grid -> pixel_shuffle -> projector
     (``modeling_internvl_chat.py:244-262``); (tiles, num_image_token, C).
     ``remat`` applies to the ViT blocks.  ``sp``: the tiles shard over the
-    sequence group (``_sp_extract_feature``)."""
+    sequence group (``_sp_extract_feature``).  ``vit_rng`` (a
+    ``vit.NoiseKey``): the ViT's training noise, each tile's keyed by its
+    global index, so the sharded tower draws the whole tower's masks (the
+    JAX package falls back to the whole tower there,
+    ``internvl.py:97-100``)."""
     if sp is not None and sp["group"].size > 1:
         return _sp_extract_feature(params, cfg, pixel_values, impl, remat,
-                                   sp["group"])
-    return _tile_features(params, cfg, pixel_values, impl, remat)
+                                   sp["group"], vit_rng)
+    return _tile_features(params, cfg, pixel_values, impl, remat, vit_rng)
 
 
 def _sp_extract_feature(params, cfg: ChatConfig, pixel_values, impl, remat,
-                        group):
+                        group, vit_rng=None):
     """The tile-sharded vision tower (JAX ``internvl.py:102-136``): the
     tile axis padded with zero tiles to a multiple of n, each shard's slice
     encoded (K1 on its own tiles), the embeds gathered and the pad
@@ -91,16 +96,22 @@ def _sp_extract_feature(params, cfg: ChatConfig, pixel_values, impl, remat,
         pixel_values = torch.cat([pixel_values, pixel_values.new_zeros(
             (pad,) + tuple(pixel_values.shape[1:]))])
     held = shard_sequence(pixel_values, group, dim=0)
-    emb = group.join([_tile_features(params, cfg, pix, impl, remat)
-                      for pix in group.split(held, dim=0)], dim=0)
+    first = group.held_rows(held.shape[0])[0]
+    parts = []
+    for pix in group.split(held, dim=0):
+        key = None if vit_rng is None else vit_rng.starting_at(first)
+        parts.append(_tile_features(params, cfg, pix, impl, remat, key))
+        first += pix.shape[0]
+    emb = group.join(parts, dim=0)
     return group.gather(emb, dim=0)[:n_tiles]
 
 
-def _tile_features(params, cfg: ChatConfig, pixel_values, impl, remat):
+def _tile_features(params, cfg: ChatConfig, pixel_values, impl, remat,
+                   rng=None):
     """The per-tile pipeline shared by the plain and the sharded tower."""
     vit_out = vit_forward(params["vision_model"], cfg.vision, pixel_values,
                           select_layer=cfg.select_layer, impl=impl,
-                          remat=remat)
+                          remat=remat, rng=rng)
     vit_embeds = vit_out[:, 1:, :]  # drop cls
     n, s, c = vit_embeds.shape
     hw = int(s**0.5)
@@ -163,6 +174,7 @@ def chat_forward(
     img_context_token_id: Optional[int] = None,
     remat=True,
     sp=None,
+    vit_rng=None,
 ) -> torch.Tensor:
     """Final decoder hidden states (B, T, C); the LM head is skipped, since
     the reward path reads hidden states only.  ``remat`` applies to the ViT
@@ -175,7 +187,8 @@ def chat_forward(
     ``internvl.py:215-222``): the tiles shard over the group and the
     decoder runs sequence-parallel.  ``input_ids`` and ``attention_mask``
     are the whole prompt's (B, T) in either form of the group; in a
-    distributed group the result holds this rank's T/n rows."""
+    distributed group the result holds this rank's T/n rows.  ``vit_rng``:
+    the ViT's training noise (``extract_feature``)."""
     held_ids, first = input_ids, 0
     if sp is not None:
         held_ids = shard_sequence(input_ids, sp["group"])
@@ -187,7 +200,7 @@ def chat_forward(
     input_embeds = embed_prompt(params["language_model"], held_ids,
                                 img_context_token_id)
     vit_embeds = extract_feature(params, cfg, pixel_values, impl=impl,
-                                 remat=remat, sp=sp)
+                                 remat=remat, sp=sp, vit_rng=vit_rng)
     input_embeds = scatter_image_embeds(input_embeds, input_ids, vit_embeds,
                                         img_context_token_id, first)
     return dec.decoder_forward(params["language_model"], cfg.llm,

@@ -194,8 +194,13 @@ def reward_forward(
     img_context_token_id: Optional[int] = None,
     remat=True,
     sp=None,
+    vit_rng=None,
 ) -> RewardOutput:
     """Backbone forward + reward head: the scoring and training path.
+
+    ``vit_rng`` (a ``vit.NoiseKey``) turns on the ViT's DropPath and
+    dropout when the vision config has rates above 0 (JAX
+    ``reward.py:198-222``); None is eval.
 
     ``sp={"group": SequenceGroup, "kind": "ring" | "allgather"}`` runs the
     backbone sequence-parallel (JAX ``reward.py:200-224``) on the whole
@@ -206,7 +211,7 @@ def reward_forward(
     hidden = chat_forward(params["model"], cfg.chat, pixel_values, input_ids,
                           attention_mask=attention_mask, impl=impl,
                           img_context_token_id=img_context_token_id,
-                          remat=remat, sp=sp)
+                          remat=remat, sp=sp, vit_rng=vit_rng)
     if sp is None or sp["group"].is_local:
         return reward_head(params, cfg, hidden, input_ids, gating_pos)
     group = sp["group"]

@@ -1,8 +1,7 @@
 """InternViT encoder.
 
 Counterpart of ``mjvideo_tpu/models/vit.py`` (reference
-``modeling_intern_vit.py``) in eval mode (no dropout or DropPath), for
-both checkpoint families: InternViT-300M (LayerNorm, no QK norm, heads of
+``modeling_intern_vit.py``), for both checkpoint families: InternViT-300M (LayerNorm, no QK norm, heads of
 64) and InternViT-6B (RMSNorm and QK-RMSNorm over the whole width, 25
 heads of 128), chosen by ``norm_type`` and ``qk_normalization``.
 Parameters keep the JAX layout: dense kernels ``(in, out)``, layers stacked
@@ -15,12 +14,25 @@ gradient to the pixels, ``RewardScorer.score_fn``): each block is
 rematerialised per ``remat`` (``ops/remat.py``), and its attention takes K1
 with the lse and K4 nc when autograd needs them (at D = 64; the 6B's heads
 of 128 run forward only).
+
+Training noise (``vit_forward(rng=)``): DropPath on both residual branches
+at the per-layer rates ``linspace(0, drop_path_rate, L)`` and dropout on
+the attention projection's output (JAX ``vit.py:143-220``).  The port
+cannot draw JAX's threefry bits, so a ``NoiseKey`` stands in for JAX's
+keys: each tile's mask is drawn from a generator seeded afresh from (base
+seed, step, video, layer, branch, global tile index), a pure function of
+them.  So the tile-sharded tower draws the whole tower's masks, a resumed
+run draws an unbroken one's, and a rematerialised layer's recompute draws
+its first forward's (``torch.utils.checkpoint`` restores the global RNG
+state, not an explicit generator's).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -128,8 +140,85 @@ def embeddings(p, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tensor
     return x + pos.to(x.dtype)
 
 
+_M64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+@dataclass(frozen=True)
+class NoiseKey:
+    """The key of the ViT's training noise: a base seed, a path of ints
+    folded into it (the port's ``jax.random.fold_in``: the step, the video,
+    the layer, the branch) and the global index of the first tile of the
+    batch it draws for.  ``generator(device, b)`` is a generator seeded
+    from all of them and tile ``tile0 + b``: a pure function of the key,
+    made afresh at each draw."""
+
+    seed: int = 0
+    path: Tuple[int, ...] = ()
+    tile0: int = 0
+
+    def fold_in(self, *ids: int) -> "NoiseKey":
+        return NoiseKey(self.seed, self.path + tuple(int(i) for i in ids),
+                        self.tile0)
+
+    def starting_at(self, tile0: int) -> "NoiseKey":
+        """The same key for a batch whose first tile is global ``tile0``."""
+        return NoiseKey(self.seed, self.path, int(tile0))
+
+    def generator(self, device, b: int) -> torch.Generator:
+        h = 0
+        for i in (self.seed,) + self.path + (self.tile0 + b,):
+            h = _splitmix64(h ^ (i & _M64))
+        return torch.Generator(device=device).manual_seed(h >> 1)
+
+
+def _bernoulli(key: NoiseKey, keep: float, shape, device) -> torch.Tensor:
+    """(B, ...) bools, True with probability ``keep``; tile b's from its own
+    generator (``jax.random.bernoulli``: uniform < p)."""
+    return torch.stack([
+        torch.rand(tuple(shape[1:]), generator=key.generator(device, b),
+                   device=device) < keep for b in range(shape[0])])
+
+
+def _scaled(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """x / keep where ``mask``, else 0, in fp32 (a true division: a CUDA
+    division by a Python number multiplies by its reciprocal)."""
+    keep_t = x.new_full((), keep, dtype=torch.float32)
+    return torch.where(mask, x.float() / keep_t, 0.0).to(x.dtype)
+
+
+def _drop_path(x: torch.Tensor, rate: float, key: NoiseKey) -> torch.Tensor:
+    """Stochastic depth on a residual branch (timm DropPath,
+    ``modeling_intern_vit.py:280-281``; JAX ``vit.py:143-149``): each tile
+    kept with probability 1 - rate and scaled by 1 / (1 - rate) in fp32."""
+    keep = float(np.float32(1.0) - np.float32(rate))
+    return _scaled(x, _bernoulli(key, keep, (x.shape[0], 1, 1), x.device),
+                   keep)
+
+
+def _dropout(x: torch.Tensor, rate: float, key: NoiseKey) -> torch.Tensor:
+    """Elementwise dropout (JAX ``vit.py:152-155``)."""
+    keep = float(np.float32(1.0) - np.float32(rate))
+    return _scaled(x, _bernoulli(key, keep, tuple(x.shape), x.device), keep)
+
+
+def drop_path_rates(rate: float, L: int) -> np.ndarray:
+    """The per-layer DropPath rates of the full depth in fp32, as the
+    reference computes them: ``torch.linspace(0, rate, L)``
+    (``modeling_intern_vit.py:312``).  JAX's ``jnp.linspace`` agrees to
+    an ulp (tests/test_torch_vit_noise.py)."""
+    return torch.linspace(0.0, rate, L, dtype=torch.float32).numpy()
+
+
 def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
-           attention: Optional[Callable] = None) -> torch.Tensor:
+           attention: Optional[Callable] = None,
+           noise: Optional[Tuple[float, NoiseKey]] = None) -> torch.Tensor:
     """One pre-norm block with LayerScale (``modeling_intern_vit.py:266-295``).
 
     ``attention(q, k, v)``, given the (B, S, H, D) views of the qkv product,
@@ -141,7 +230,10 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
     Under ``qk_normalization`` (the 6B family) q and k are RMS-normalised
     over the whole (B, S, C) width before the head split
     (``modeling_intern_vit.py:215-218``): they are then dense, and v stays
-    a view into qkv."""
+    a view into qkv.  ``noise=(dp_rate, key)``: training mode, dropout on
+    the attention projection's output (``cfg.dropout``,
+    ``modeling_intern_vit.py:198``) before LayerScale, and DropPath at this
+    layer's ``dp_rate`` on both residual branches; None: eval."""
     B, S, C = x.shape
     H, D = cfg.num_attention_heads, cfg.head_dim
 
@@ -163,28 +255,53 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
     else:
         attn = attention(q, k, v)
     attn = dot(attn.reshape(B, S, C), p["attn"]["proj"]["kernel"], impl)
-    x = x + (attn + p["attn"]["proj"]["bias"]) * p["ls1"]
+    attn = attn + p["attn"]["proj"]["bias"]
+    if noise is not None:
+        rate, key = noise
+        if cfg.dropout > 0.0:
+            attn = _dropout(attn, cfg.dropout, key.fold_in(2))
+        x = x + _drop_path(attn * p["ls1"], rate, key.fold_in(0))
+    else:
+        x = x + attn * p["ls1"]
 
     h = _norm(cfg, p["norm2"], x)
     h = dot(h, p["mlp"]["fc1"]["kernel"], impl) + p["mlp"]["fc1"]["bias"]
     h = gelu(h)
     h = dot(h, p["mlp"]["fc2"]["kernel"], impl) + p["mlp"]["fc2"]["bias"]
+    if noise is not None:
+        return x + _drop_path(h * p["ls2"], rate, key.fold_in(1))
     return x + h * p["ls2"]
 
 
 def vit_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor,
                 select_layer: int = -1, impl: str = "auto",
-                remat=True) -> torch.Tensor:
+                remat=True, rng: Optional[NoiseKey] = None) -> torch.Tensor:
     """Hidden states (N, S, C) after ``select_layer``; layers past it are
     never computed (``vit.py:257-261``).  ``remat`` as in the JAX
     ``vit_forward`` (``vit.py:288-291``): each block is checkpointed when
     autograd records it.  The stacked ``[L, ...]`` layer tensors are unbound
-    once, so their gradient is one stack of the per-layer gradients."""
+    once, so their gradient is one stack of the per-layer gradients.
+
+    ``rng`` set (a ``NoiseKey``) with a DropPath or dropout rate above 0:
+    training mode, layer i drawing from ``rng.fold_in(i)`` at its rate from
+    the full depth's schedule (so a cut tower keeps each layer's rate);
+    ``attention_dropout`` above 0 raises, as in JAX (the fused kernels
+    have no dropout on the probabilities).  None: eval."""
     x = embeddings(params["embeddings"], cfg, pixel_values)
     L = cfg.num_hidden_layers
     n_run = L if select_layer == -1 else L + select_layer + 1
-    block = remat_wrap(lambda layer, x: _block(cfg, layer, x, impl), remat)
+    rates = None
+    if rng is not None and (cfg.drop_path_rate > 0.0 or cfg.dropout > 0.0):
+        if cfg.attention_dropout > 0.0:
+            raise ValueError(
+                "attention_dropout > 0 is not supported by the fused "
+                "attention kernels; published InternViT configs use 0.0")
+        rates = drop_path_rates(cfg.drop_path_rate, L)
+    block = remat_wrap(
+        lambda layer, x, noise: _block(cfg, layer, x, impl, noise=noise),
+        remat)
     layers = map_state(lambda a: a.unbind(0), params["layers"])
     for i in range(n_run):
-        x = block(map_state(lambda a: a[i], layers), x)
+        noise = None if rates is None else (float(rates[i]), rng.fold_in(i))
+        x = block(map_state(lambda a: a[i], layers), x, noise)
     return x

@@ -11,10 +11,11 @@ It runs on the card (``--device cuda``, the default; a machine without one
 refuses) unless ``--device cpu`` asks for the CPU.  ``--attn`` keeps the
 JAX choices: ``auto`` and ``flash`` run the hand-written kernels
 (``attn_impl="auto"``), ``xla`` the exact-softmax oracle
-(``attn_impl="plain"``).  Options whose machinery the port lacks
-(adafactor, ``--bf16-adam-mu``, ``--zero1``, ``--lora-rank``,
-``--async-checkpoint``, ``--remat-policy dots``, ``--tp``/``--dp`` beyond 1)
-go into ``TrainConfig`` as they are, and the trainer refuses them with
+(``attn_impl="plain"``).  ``--optimizer adafactor``, ``--bf16-adam-mu``,
+``--async-checkpoint`` and ``--remat-policy dots`` are the trainer's
+options of those names.  Options whose machinery the port
+lacks (``--zero1``, ``--lora-rank``, ``--tp``/``--dp`` beyond 1) go into
+``TrainConfig`` as they are, and the trainer refuses them with
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -51,12 +52,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-json", required=True)
     p.add_argument("--optimizer", default="adamw",
                    choices=("adamw", "adafactor"),
-                   help="adamw matches the reference; adafactor is not "
-                        "ported yet")
+                   help="adamw matches the reference; adafactor keeps a "
+                        "factored second moment (low memory)")
     p.add_argument("--remat-policy", default="full",
                    choices=("none", "full", "dots"),
                    help="gradient checkpointing: the full layer, none, or "
-                        "dots (not ported yet)")
+                        "dots (keep the matmul outputs, recompute the rest)")
     p.add_argument("--eval-json", default=None)
     p.add_argument("--video-root", default="./datas/videos")
     p.add_argument("--model-path", default=None,
@@ -137,6 +138,7 @@ def main(argv=None) -> None:
     )
     from ..data.prompts import rebase_img_context_id
     from ..models.reward import init_reward_params
+    from ..utils.checkpoint import wait_for_saves
     from .trainer import TrainConfig, Trainer, warm_start
 
     device = resolve_device(args.device)
@@ -236,6 +238,7 @@ def main(argv=None) -> None:
             print(f"epoch {epoch} eval: {metrics}")
         if trainer.step >= total:
             break
+    wait_for_saves()  # the last save is durable before the CLI returns
     print(f"final checkpoint: {path}")
 
 

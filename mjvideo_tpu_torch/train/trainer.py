@@ -1,5 +1,5 @@
-"""Training step and loop: freeze policies, optax-exact AdamW, accumulation,
-checkpoints and resume.
+"""Training step and loop: freeze policies, optax-exact AdamW and Adafactor,
+accumulation, ViT DropPath and dropout, checkpoints and resume.
 
 Counterpart of ``mjvideo_tpu/train/trainer.py`` on one device:
 
@@ -9,15 +9,25 @@ Counterpart of ``mjvideo_tpu/train/trainer.py`` on one device:
   in ``stop_gradient``).
 * ``make_optimizer`` reproduces the optax chain the JAX package builds:
   ``clip_by_global_norm`` (scale by ``max_norm / norm`` only when ``norm >=
-  max_norm``, no epsilon), ``adamw`` (moments in the parameter dtype,
-  decoupled weight decay), the learning rate of ``linear``, ``cosine`` or
-  constant schedules joined to a linear warmup and read at optax's count
-  (which starts at 0), and ``MultiSteps`` gradient accumulation (a running
-  mean of k micro-batch gradients, then one optimizer step).  Updates are
-  applied in place.
+  max_norm``, no epsilon), then ``adamw`` (moments in the parameter dtype,
+  or the first moment stored in bf16 under ``adam_mu_dtype="bfloat16"``;
+  decoupled weight decay) or ``adafactor`` (the factored second moment of
+  ``optax.scale_by_factored_rms``, no momentum, no clipping, no parameter
+  scale, weight decay not scaled by the learning rate), the learning rate
+  of ``linear``, ``cosine`` or constant schedules joined to a linear warmup
+  and read at optax's count (which starts at 0), and ``MultiSteps``
+  gradient accumulation (a running mean of k micro-batch gradients, then
+  one optimizer step).  Updates are applied in place.
 * ``make_train_step`` and ``Trainer`` keep the JAX signatures; a checkpoint
-  is one ``torch.save`` of the params, the optimizer state (moments, counts,
-  accumulation buffer) and the step, so resume is bit-exact.
+  is one ``torch.save`` of the params, the optimizer state (moments or
+  factored statistics, counts, accumulation buffer) and the step, so resume
+  is bit-exact.  ``async_checkpoint`` snapshots the state to host memory
+  and writes it on a background thread (``utils.checkpoint.save_state``);
+  ``tensorboard`` adds ``checkpoint_dir/tb`` event files beside the JSONL.
+* A vision config with ``drop_path_rate`` or ``dropout`` above 0 trains
+  with ViT DropPath and projection dropout: the step's noise key is a pure
+  function of the step number (``models.vit.NoiseKey``), so a resumed run
+  draws what an unbroken one does.
 * ``Trainer.evaluate`` is the in-training eval: batched reward forwards
   without autograd, then the preference accuracy and the per-criteria and
   per-aspect metrics of ``eval/metrics.py``.
@@ -49,7 +59,9 @@ import torch
 from ..configs import RewardConfig
 
 from ..models.reward import reward_forward
+from ..models.vit import NoiseKey
 from ..utils.bridge import first_tensor, map_state
+from ..utils.checkpoint import save_state, wait_for_saves
 from .losses import STAGES
 
 
@@ -96,12 +108,8 @@ class TrainConfig:
 # Options not ported yet: field -> (the value that is supported, what it
 # waits for).
 _NOT_PORTED = {
-    "optimizer": ("adamw", "adafactor, ROADMAP Queue 1 item 9"),
-    "adam_mu_dtype": (None, "bf16 Adam mu, ROADMAP Queue 1 item 9"),
-    "lora_rank": (0, "LoRA training, ROADMAP Queue 1 items 9 and 11"),
-    "zero1": (False, "ZeRO-1, ROADMAP Queue 1 items 9 and 12"),
-    "async_checkpoint": (False, "async checkpoints, ROADMAP Queue 1 item 9"),
-    "tensorboard": (False, "tensorboard logging, ROADMAP Queue 1 item 9"),
+    "lora_rank": (0, "LoRA training, ROADMAP Queue 1 item 11"),
+    "zero1": (False, "ZeRO-1, ROADMAP Queue 1 item 12"),
 }
 
 
@@ -114,6 +122,10 @@ def check_supported(tc: TrainConfig) -> None:
                 f"yet: {item}")
     if tc.sp not in (None, "ring", "allgather"):
         raise ValueError(f"unknown sp kind {tc.sp!r}")
+    if tc.optimizer not in ("adamw", "adafactor"):
+        raise ValueError(f"unknown optimizer {tc.optimizer!r}")
+    if tc.adam_mu_dtype not in (None, "bfloat16"):
+        raise ValueError(f"unknown adam_mu_dtype {tc.adam_mu_dtype!r}")
     if tc.mesh_model_axis != 1 or tc.mesh_data_axis not in (-1, 1):
         raise NotImplementedError(
             "training on a mesh of more than one device is not ported yet: "
@@ -185,25 +197,70 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+# Adafactor's constants: ``optax.adafactor``'s defaults, as the JAX package
+# builds it (``min_dim_size_to_factor``, ``decay_rate``, ``eps``).
+ADAFACTOR_MIN_DIM = 128
+ADAFACTOR_DECAY = 0.8
+ADAFACTOR_EPS = 1e-30
+
+
+def factored_dims(shape) -> Optional[tuple]:
+    """(d1, d0), the second largest and the largest dim of ``shape``, when
+    the second largest is at least ``ADAFACTOR_MIN_DIM``; else None
+    (``optax._src.factorized._factored_dims``, the same ``np.argsort``, so
+    that equal sizes break the same way).  The stacked ``(L, in, out)``
+    layer kernels keep JAX's layout, so the same dims are chosen."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def state_bytes(state) -> int:
+    """Bytes of every tensor in an optimizer state (nested dicts)."""
+    if torch.is_tensor(state):
+        return state.numel() * state.element_size()
+    if isinstance(state, dict):
+        return sum(state_bytes(v) for v in state.values())
+    return 0
+
+
 class Optimizer:
     """The optax chain of ``make_optimizer`` over the trainable paths:
-    ``MultiSteps(clip_by_global_norm -> adamw)`` when accumulating, the
-    chain alone otherwise.  ``update`` applies the step to the parameters in
-    place and returns the new state."""
+    ``MultiSteps(clip_by_global_norm -> adamw | adafactor)`` when
+    accumulating, the chain alone otherwise.  ``update`` applies the step to
+    the parameters in place and returns the new state."""
 
     def __init__(self, tc: TrainConfig, paths: Set[str]):
         self.tc = tc
         self.paths: List[str] = sorted(paths)
         self.schedule = make_schedule(tc)
         self.accumulate = tc.gradient_accumulation_steps
+        self.mu_dtype = (torch.bfloat16 if tc.adam_mu_dtype == "bfloat16"
+                         else None)
 
     def init(self, params) -> Dict[str, Any]:
         flat = flatten_state(params)
 
-        def zeros():
-            return {p: torch.zeros_like(flat[p]).detach() for p in self.paths}
+        def zeros(dtype=None):
+            return {p: torch.zeros_like(flat[p], dtype=dtype).detach()
+                    for p in self.paths}
 
-        state = {"count": 0, "mu": zeros(), "nu": zeros()}
+        if self.tc.optimizer == "adafactor":
+            state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+            for p in self.paths:
+                t = flat[p].detach()
+                dims = factored_dims(tuple(t.shape))
+                if dims is None:
+                    state["v"][p] = torch.zeros_like(t)
+                else:
+                    d1, d0 = dims
+                    state["v_row"][p] = torch.zeros_like(t.sum(d0))
+                    state["v_col"][p] = torch.zeros_like(t.sum(d1))
+        else:
+            state = {"count": 0, "mu": zeros(self.mu_dtype), "nu": zeros()}
         if self.accumulate > 1:
             state.update(mini_step=0, gradient_step=0, acc=zeros())
         return state
@@ -215,19 +272,80 @@ class Optimizer:
         if not bool(gnorm < tc.max_grad_norm):
             grads = {p: (g / gnorm.to(g.dtype)) * tc.max_grad_norm
                      for p, g in grads.items()}
+        if tc.optimizer == "adafactor":
+            self._adafactor(grads, state, flat)
+        else:
+            self._adamw(grads, state, flat)
+        state["count"] += 1
+
+    def _adamw(self, grads, state, flat) -> None:
+        """``optax.adamw``.  A first moment stored narrower than the
+        gradient (``adam_mu_dtype="bfloat16"`` on fp32 parameters) is read
+        back in the gradient's dtype and times ``b1`` rounded to the
+        moment's dtype (optax's weakly typed ``b1 * mu``), as the JAX
+        package's jitted step computes it, so the stored ``mu`` is
+        bit-equal to optax's; the update uses that wider moment, and only
+        the stored ``mu`` is rounded.  On bf16 parameters
+        the moment is bf16 either way, as in optax."""
+        tc = self.tc
         count = state["count"] + 1
         bc1 = _bias_correction(tc.adam_b1, count)
         bc2 = _bias_correction(tc.adam_b2, count)
         step_size = -self.schedule(state["count"])
         for p in self.paths:
             g, mu, nu = grads[p], state["mu"][p], state["nu"][p]
-            mu.mul_(tc.adam_b1).add_(g * (1 - tc.adam_b1))
+            if mu.dtype == g.dtype:
+                mu.mul_(tc.adam_b1).add_(g * (1 - tc.adam_b1))
+                m = mu
+            else:
+                # XLA contracts the jitted ``(1 - b1) * g + b1 * mu`` into
+                # one fma: the product b1 * mu is exact, (1 - b1) * g is not
+                # rounded, the sum is rounded once (fp64 holds it).
+                b1 = float(torch.tensor(tc.adam_b1, dtype=mu.dtype))
+                m = (g.double() * float(np.float32(1 - tc.adam_b1))
+                     + mu.double() * b1).to(g.dtype)
+                mu.copy_(m)
             nu.mul_(tc.adam_b2).add_((g * g) * (1 - tc.adam_b2))
-            u = (mu / bc1) / ((nu / bc2).sqrt() + tc.adam_eps)
+            u = (m / bc1) / ((nu / bc2).sqrt() + tc.adam_eps)
             param = flat[p]
             u = (u + tc.weight_decay * param) * step_size
             param.add_(u)
-        state["count"] = count
+
+    def _adafactor(self, grads, state, flat) -> None:
+        """``optax.adafactor(lr, multiply_by_parameter_scale=False,
+        clipping_threshold=None, weight_decay_rate=wd or None)``:
+        ``scale_by_factored_rms`` (decay ``1 - (count + 1)^-0.8``, eps added
+        to the squared gradient, the row statistic normalised by its mean,
+        the column one not), then times the learning rate, plus ``wd *
+        param`` (not scaled by the learning rate), negated.  The statistics
+        are stored in the parameter dtype and computed in fp32."""
+        tc = self.tc
+        t = np.float32(state["count"] + 1)
+        decay = np.float32(1.0) - t ** np.float32(-ADAFACTOR_DECAY)
+        keep, new = float(decay), float(np.float32(1.0) - decay)
+        lr = self.schedule(state["count"])
+        for p in self.paths:
+            g, param = grads[p], flat[p]
+            g2 = g * g + ADAFACTOR_EPS
+            dims = factored_dims(tuple(g.shape))
+            if dims is None:
+                v = state["v"][p]
+                v.copy_(keep * v.float() + new * g2.float())
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                v_row, v_col = state["v_row"][p], state["v_col"][p]
+                v_row.copy_(keep * v_row.float()
+                            + new * g2.mean(d0).float())
+                v_col.copy_(keep * v_col.float()
+                            + new * g2.mean(d1).float())
+                reduced = d1 - 1 if d1 > d0 else d1
+                row = (v_row / v_row.mean(reduced, keepdim=True)) ** -0.5
+                u = g * row.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+            u = u * lr
+            if tc.weight_decay:
+                u = u + tc.weight_decay * param
+            param.sub_(u)
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state, params):
@@ -265,15 +383,16 @@ def _sp_spec(tc: TrainConfig, sp_group):
 
 def make_loss_fn(cfg: RewardConfig, tc: TrainConfig,
                  sp_group=None) -> Callable:
-    """(params, batch) -> scalar fp32 loss: two reward forwards, one per
-    video, then the stage loss.  ``sp_group`` (a
+    """(params, batch, vit_rng=None) -> scalar fp32 loss: two reward
+    forwards, one per video, then the stage loss.  ``sp_group`` (a
     ``parallel.sequence.SequenceGroup``) is required when ``tc.sp`` is
-    set."""
+    set.  ``vit_rng`` (a ``vit.NoiseKey``): the ViT's DropPath and dropout,
+    video v drawing from ``vit_rng.fold_in(v)``, as JAX folds it."""
     mse = tc.mse if tc.mse is not None else tc.stage_mse_default()
     stage_loss = STAGES[tc.stage].loss_fn
     sp = _sp_spec(tc, sp_group)
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, vit_rng=None):
         outs = []
         for v in (0, 1):
             pix = batch[f"video_{v}_pixel_values"]
@@ -283,7 +402,8 @@ def make_loss_fn(cfg: RewardConfig, tc: TrainConfig,
                 params, cfg, pix, batch[f"video_{v}_input_ids"],
                 batch[f"video_{v}_attention_mask"],
                 batch[f"video_{v}_gating_pos"], impl=tc.attn_impl,
-                remat=tc.remat, sp=sp))
+                remat=tc.remat, sp=sp,
+                vit_rng=None if vit_rng is None else vit_rng.fold_in(v)))
         if tc.stage > 1:
             return stage_loss(outs[0], outs[1], batch, mse=mse, beta=tc.beta)
         return stage_loss(outs[0], outs[1], batch, mse=mse)
@@ -293,21 +413,22 @@ def make_loss_fn(cfg: RewardConfig, tc: TrainConfig,
 
 def make_train_step(cfg: RewardConfig, tc: TrainConfig,
                     optimizer: Optimizer, sp_group=None) -> Callable:
-    """(params, opt_state, batch) -> (params, opt_state, {"loss",
-    "grad_norm"}).  The params are updated in place (the JAX step donates
-    them); ``grad_norm`` is the global norm of the micro-batch's trainable
-    gradients before clipping."""
+    """(params, opt_state, batch, rng=None) -> (params, opt_state,
+    {"loss", "grad_norm"}).  The params are updated in place (the JAX step
+    donates them); ``grad_norm`` is the global norm of the micro-batch's
+    trainable gradients before clipping; ``rng``: the step's ViT noise
+    key."""
     loss_fn = make_loss_fn(cfg, tc, sp_group)
     trainable = set(optimizer.paths)
     # Backbone gradients cover one rank's rows in a distributed group.
     summed = ([] if sp_group is None or sp_group.is_local else
               [p for p in optimizer.paths if p.startswith("model/")])
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, rng=None):
         set_trainable(params, trainable)
         flat = flatten_state(params)
         leaves = [flat[p] for p in optimizer.paths]
-        loss = loss_fn(params, batch)
+        loss = loss_fn(params, batch, rng)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {p: torch.zeros_like(t) if g is None else g
                  for p, t, g in zip(optimizer.paths, leaves, grads)}
@@ -345,17 +466,13 @@ def _detached(state):
 
 class Trainer:
     """Deterministic training loop with ``torch.save`` checkpoints and JSONL
-    metrics (``checkpoint_dir/metrics.jsonl``).  ``sp_group``: the
+    metrics (``checkpoint_dir/metrics.jsonl``), and TensorBoard event files
+    under ``checkpoint_dir/tb`` with ``tc.tensorboard``.  ``sp_group``: the
     sequence group of ``tc.sp`` (where JAX's ``Trainer`` takes the mesh);
     every process of a distributed group feeds the same batches."""
 
     def __init__(self, cfg: RewardConfig, params, tc: TrainConfig,
                  sp_group=None):
-        vis = cfg.chat.vision
-        if vis.drop_path_rate > 0.0 or vis.dropout > 0.0:
-            raise NotImplementedError(
-                "ViT DropPath/dropout in training is not ported yet: ROADMAP "
-                "Queue 1 item 9")
         self.cfg = cfg
         self.tc = tc
         self.params = params
@@ -364,27 +481,54 @@ class Trainer:
         self.opt_state = self.optimizer.init(params)
         self.step_fn = make_train_step(cfg, tc, self.optimizer, sp_group)
         self.step = 0
+        vis = cfg.chat.vision
+        self._needs_vit_rng = vis.drop_path_rate > 0.0 or vis.dropout > 0.0
+        self._base_rng = NoiseKey(0)
         os.makedirs(tc.checkpoint_dir, exist_ok=True)
         self._metrics_path = os.path.join(tc.checkpoint_dir, "metrics.jsonl")
         self._saved: List[str] = []
+        self._tb = None
+        if tc.tensorboard:
+            # The reference logs the Trainer's scalars to TensorBoard
+            # (criteria_train.py:35,424); JSONL stays on either way.
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(tc.checkpoint_dir, "tb"))
+            except ImportError as e:
+                print(f"tensorboard logging is off ({e}); metrics go to "
+                      f"{self._metrics_path} only")
 
     def log(self, record: Dict[str, Any]) -> None:
+        """One JSONL line; with TensorBoard, each int or float entry but
+        ``step`` as a scalar at ``record["step"]`` (JAX
+        ``trainer.py:375-381``)."""
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+        if self._tb is not None and "step" in record:
+            for k, v in record.items():
+                if isinstance(v, (int, float)) and k != "step":
+                    self._tb.add_scalar(k, v, record["step"])
+            self._tb.flush()
 
     def _checkpoint_path(self, step: int) -> str:
         return os.path.join(self.tc.checkpoint_dir,
                             f"stage{self.tc.stage}_step{step}.pt")
 
     def save(self) -> str:
+        """Write this step's checkpoint (``utils.checkpoint.save_state``);
+        under ``tc.async_checkpoint`` a host snapshot is written in the
+        background, at most one save outstanding."""
         path = self._checkpoint_path(self.step)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save({"params": _detached(self.params),
-                    "opt_state": self.opt_state, "step": self.step}, tmp)
-        os.replace(tmp, path)
+        block = not self.tc.async_checkpoint
+        save_state({"params": _detached(self.params),
+                    "opt_state": self.opt_state, "step": self.step}, path,
+                   block=block)
         # A step can save twice (checkpoint_every and the caller); one entry.
         if path not in self._saved:
             self._saved.append(path)
+        if len(self._saved) > self.tc.keep_checkpoints and not block:
+            wait_for_saves()  # never remove a file while a save is pending
         while len(self._saved) > self.tc.keep_checkpoints:
             old = self._saved.pop(0)
             if os.path.exists(old):
@@ -457,6 +601,7 @@ class Trainer:
         """Restore params, optimizer state and step from the newest
         checkpoint of this stage; with the caller feeding batches from
         ``self.step`` onward, resume is bit-exact."""
+        wait_for_saves()  # never read a checkpoint still being written
         pat = re.compile(rf"stage{self.tc.stage}_step(\d+)\.pt$")
         best = None
         for name in os.listdir(self.tc.checkpoint_dir):
@@ -479,9 +624,13 @@ class Trainer:
         for batch in batches:
             if max_steps is not None and self.step >= max_steps:
                 break
+            # The ViT noise key is a function of the step number alone, so
+            # a resumed run draws what an unbroken one does.
+            rng = (self._base_rng.fold_in(self.step) if self._needs_vit_rng
+                   else None)
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state,
-                place_batch(batch, self.device, self._pixel_dtype()))
+                place_batch(batch, self.device, self._pixel_dtype()), rng)
             self.step += 1
             if self.step % self.tc.log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
@@ -490,6 +639,8 @@ class Trainer:
                 self.log(last)
             if self.step % self.tc.checkpoint_every == 0:
                 self.save()
+        if self.tc.async_checkpoint:
+            wait_for_saves()  # durable before the loop returns
         return last
 
 

@@ -22,12 +22,15 @@ is moved to the device as it is converted: the stacked leaf is allocated
 there in its final dtype and filled one layer at a time, so no second copy
 of the whole state is built on the host or in fp32.  The
 port resumes its own ``torch.save`` checkpoints
-(``train/trainer.py``) in place of JAX's orbax ones.
+(``train/trainer.py``) in place of JAX's orbax ones: ``save_state`` writes
+one, blocking or in the background (JAX's ``save_pytree(block=False)``),
+and ``wait_for_saves`` waits for the one outstanding.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
@@ -431,3 +434,70 @@ def load_reward_model(
         cfg = load_config(os.path.join(checkpoint_path, "config.json"))
     state = load_safetensors_dir(checkpoint_path)
     return cfg, import_reward_checkpoint(state, cfg, dtype, device)
+
+
+# --- the trainer's checkpoints ----------------------------------------------
+
+
+class _Writer(threading.Thread):
+    """One background save; its error, if any, is raised by
+    ``wait_for_saves``.  Not a daemon: the interpreter waits for it at
+    exit, so a save is never left torn."""
+
+    def __init__(self, state, path: str):
+        super().__init__(name=f"save {os.path.basename(path)}")
+        self.state, self.path = state, path
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        try:
+            _write(self.state, self.path)
+        except BaseException as e:  # raised again in the caller's thread
+            self.error = e
+
+
+_PENDING: Optional[_Writer] = None
+
+
+def _write(state, path: str) -> None:
+    """``torch.save`` through a temporary file and ``os.replace``: a
+    reader sees the old file or the whole new one."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+def host_snapshot(state):
+    """A copy of ``state`` (nested dicts) with every tensor copied to host
+    memory and other leaves as they are: what a background save writes
+    while the training step goes on updating the live tensors in place."""
+    if torch.is_tensor(state):
+        return state.detach().to("cpu", copy=True)
+    if isinstance(state, dict):
+        return {k: host_snapshot(v) for k, v in state.items()}
+    return state
+
+
+def save_state(state, path: str, block: bool = True) -> None:
+    """Write ``state`` to ``path`` (``torch.save``, atomically).
+    ``block=False``: wait for the previous background save, take a host
+    snapshot, and write it on a thread, so at most one save is
+    outstanding; the call returns once the snapshot is taken."""
+    global _PENDING
+    if block:
+        _write(state, path)
+        return
+    wait_for_saves()
+    _PENDING = _Writer(host_snapshot(state), path)
+    _PENDING.start()
+
+
+def wait_for_saves() -> None:
+    """Block until the outstanding background save (if any) has been
+    written; raise its error if it failed."""
+    global _PENDING
+    writer, _PENDING = _PENDING, None
+    if writer is not None:
+        writer.join()
+        if writer.error is not None:
+            raise writer.error

@@ -389,7 +389,10 @@ assert hasattr(trainer.Trainer, "evaluate")
 assert hasattr(judges, "VideoScoreJudge") and hasattr(judges, "MiniCPMVJudge")
 assert hasattr(bridge, "videoscore_from_jax")
 assert hasattr(judges, "CogVLM2Judge") and hasattr(bridge, "cogvlm2_from_jax")
-assert hasattr(export, "export_cogvlm2") and "cogvlm2" not in cli.NOT_PORTED_JUDGES
+judges_choices = cli.build_parser()._option_string_actions["--judge"].choices
+assert hasattr(export, "export_cogvlm2") and "cogvlm2" in judges_choices
+assert hasattr(judges, "OpenAIJudge") and hasattr(judges, "GeminiJudge")
+assert {"gpt4o", "gemini"} <= set(judges_choices)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mjvideo_tpu" or m.startswith("mjvideo_tpu."))
 assert not bad, bad

@@ -242,11 +242,16 @@ def test_optimizer_matches_optax_on_fixed_gradients(kw):
 
 def test_unported_options_raise_with_their_roadmap_item(setup):
     cfg, params = setup
-    for kw in (dict(optimizer="adafactor"), dict(lora_rank=4),
-               dict(zero1=True),
-               dict(adam_mu_dtype="bfloat16"), dict(async_checkpoint=True),
-               dict(tensorboard=True), dict(mesh_model_axis=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(lora_rank=4), "item 11"),
+                     (dict(zero1=True), "item 12"),
+                     (dict(mesh_model_axis=2), "item 12")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            ttrainer.make_optimizer(ttrainer.TrainConfig(**kw), params)
+    # Adafactor, bf16 mu, async checkpoints, TensorBoard and remat="dots"
+    # are ported (tests/test_torch_train_options.py); a misspelt value
+    # raises.
+    for kw in (dict(optimizer="adam"), dict(adam_mu_dtype="float16")):
+        with pytest.raises(ValueError, match="unknown"):
             ttrainer.make_optimizer(ttrainer.TrainConfig(**kw), params)
     # Sequence-parallel training is ported (tests/test_torch_sequence.py):
     # it needs the group its shards live in, as JAX needs the mesh.
@@ -256,8 +261,8 @@ def test_unported_options_raise_with_their_roadmap_item(setup):
         ttrainer.make_loss_fn(cfg, ttrainer.TrainConfig(sp="ring"))
     from mjvideo_tpu_torch.ops.remat import remat_wrap
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        remat_wrap(lambda x: x, "dots")
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        remat_wrap(lambda x: x, "matmuls")
 
 
 # ------------------------------------------------------ freeze and the step

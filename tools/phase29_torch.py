@@ -8,11 +8,12 @@ instantiations' ptxas registers and spills (a spill or a missing
 instantiation is printed, not raised, so that the phase still runs),
 then runs ``chip_smoke.internvl_phase``: K1 at D = 128 with 25 heads
 against its twin at a video's (8, 1025) and at (2, 1025), timed in turns
-with SDPA and the twin; ``InternVLJudge`` on InternVL2-26B at full dims
-(25.5 B parameters in bf16) by both paths and under the per-row bound, the
-tower and the teacher-forced logits against fp32 plain on the same state;
-phase 9's checks and times on InternVL2-8B (``chip_smoke.py`` skips its
-times); and the judge's CLI on a small-depth
+with SDPA and the twin; ``InternVLJudge`` on InternVL2-26B at full width,
+its decoder ``chip_smoke.IVL_26B_LLM_DEPTH`` of 48 layers deep, by both
+paths and under the per-row bound, the tower and the teacher-forced logits
+against fp32 plain on the same state; phase 9's checks and times on
+InternVL2-8B, its decoder ``IVL_8B_LLM_DEPTH`` of 32 layers deep
+(``chip_smoke.py`` skips its times); and the judge's CLI on a small-depth
 26B-layout directory, each failure raising as in ``chip_smoke.py``.
 ``--seeds`` first reads ``chip_smoke.ivl_fidelity`` of the 26B judge at
 each seed given, the weights drawn from it, and holds nothing there (seed
@@ -32,8 +33,9 @@ sys.path.insert(0, str(REPO))
 
 
 def fidelity_survey(dev, seeds):
-    """``ivl_fidelity`` of the bf16 26B judge at full dims for each seed:
-    {seed: readings}, and one line of each reading over the seeds."""
+    """``ivl_fidelity`` of the bf16 26B judge at full dims (all 48 decoder
+    layers) for each seed: {seed: readings}, and one line of each reading
+    over the seeds."""
     import gc
 
     import torch
