@@ -3,9 +3,10 @@ InternVL2-2B judge, quantized scoring and judging, the reward gradient
 with its VADER loop, sequence-parallel scoring and training,
 MJ-VIDEO-4B's serving with its InternVL2-4B judge, its reward gradient,
 VADER loop and training, the Qwen2-VL, VideoScore, MiniCPM-V-2.6,
-CogVLM2-Video, InternVL2-26B and InternVL2-8B judges, and the training
+CogVLM2-Video, InternVL2-26B and InternVL2-8B judges, the training
 options (remat policies, ViT DropPath and dropout, the optimizers, async
-checkpoints) once on one CUDA card.
+checkpoints), LoRA and QLoRA training and the serving example once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -189,7 +190,8 @@ Phases (any failure raises and exits non-zero):
 16. Fails if ``jax`` or any ``mjvideo_tpu`` module was imported, or a
    kernel of the main path never launched (phase 25's four D = 96 forms,
    phase 26's D = 80 and D = 96 forms and phase 27's D = 72 forms
-   included); prints the card, the kernel summary line and, last, the
+   included; phases 31 and 32 count on the paths of K1, K2, K2 lse, K4a,
+   K4b and the pre-pass); prints the card, the kernel summary line and, last, the
    contract line ``{"ok": true, "device": {...}}``.  Every phase that
    holds launch counts also holds one ``key_norm_max`` before each K1, K1m
    and K2 (with the lse or without).
@@ -403,15 +405,16 @@ Phases (any failure raises and exits non-zero):
    continuation, at their D = 96 names too; none in decode),
    teacher-forced logits within
    LOGITS_REL_TOL of fp32 plain.  (c) ``Qwen2VLJudge`` on Qwen2-VL-2B at
-   full width (vision 32 x 1280, 16 heads of 80; text 28 x 1536, 12/2
-   heads of 128; vocabulary 151,936, tied), random bf16 weights from a
+   full width (vision 32 x 1280, 16 heads of 80; text 1536 wide, 12/2
+   heads of 128, cut to QWEN_LLM_DEPTH of its 28 layers; vocabulary
+   151,936, tied), random bf16 weights from a
    fresh generator at SEED, seeded 8-frame patches of QWEN_GRID through a
    subclass's ``_encode_video`` (no cv2 or PIL needed): ``judge_pair``
    with the overall prompt (the full prompt) and the short question (the
    prefix path), exact launches (per video encoded 32 K1 after their
-   pre-passes, at their D = 80 names too; 28 K3 per prefill or
-   continuation; none in decode), teacher-forced logits of both paths
-   within LOGITS_REL_TOL of the same weights in fp32 through
+   pre-passes, at their D = 80 names too; a K3 per decoder layer and
+   prefill or continuation; none in decode), teacher-forced logits of
+   both paths within LOGITS_REL_TOL of the same weights in fp32 through
    ``impl="plain"``; vision ms a video, the pair's prefill ms, ms a decode
    step at B = 2, answers/s by each path and the peak memory.  (d) The 2B's
    widths at QWEN_CLI_DEPTH, written by the port's writer as an HF
@@ -442,17 +445,18 @@ Phases (any failure raises and exits non-zero):
    against bf16 plain), the aggregate, ms a clip and the peak; then
    ``do_image_splitting`` on 4 frames (27 K1m), held alike.  (d)
    ``MiniCPMVJudge`` on MiniCPM-V-2.6 at full dims (SigLIP at 980; the
-   resampler of 64 queries, 28 heads of 128; Qwen2-7B 28 x 3584, 28/4
-   heads, MLP 18944, vocabulary 151,666, with biases), bf16 from a fresh
+   resampler of 64 queries, 28 heads of 128; Qwen2-7B 3584 wide, 28/4
+   heads, MLP 18944, vocabulary 151,666, with biases, cut to
+   MCPM_LLM_DEPTH of its 28 layers), bf16 from a fresh
    generator at SEED, a pair of seeded 8-frame videos at MCPM_HW (1,032
    patches, 64 tokens a frame): ``judge_pair`` with the overall prompt (the
    full prompt) and the short question (the prefix path), 64 greedy
-   tokens, exact launches (per video 27 K1; 28 K3 per prefill or
-   continuation; none in decode), teacher-forced logits of both paths
-   within LOGITS_REL_TOL of fp32 plain; vision ms a video, prefill ms, ms a
-   decode step at B = 2, answers/s and the peak.  (e) ``eval/cli.main
-   --judge videoscore`` and ``--judge minicpm-v`` with ``--byte-tokenizer``
-   on small-depth directories at full width (VS_CLI_DEPTH, MCPM_CLI_DEPTH)
+   tokens, exact launches (per video 27 K1; a K3 per decoder layer and
+   prefill or continuation; none in decode), teacher-forced logits of
+   both paths within LOGITS_REL_TOL of fp32 plain; vision ms a video,
+   prefill ms, ms a decode step at B = 2, answers/s and the peak.  (e)
+   ``eval/cli.main --judge videoscore`` and ``--judge minicpm-v`` with
+   ``--byte-tokenizer`` on small-depth directories at full width (VS_CLI_DEPTH, MCPM_CLI_DEPTH)
    of the published names (``write_hf_dir``), on ``seeded_video_source``'s
    1280 x 720 frames: every results row equal to the port's judge built as
    the CLI builds it, exact launches.  Prints its command time.
@@ -464,14 +468,14 @@ Phases (any failure raises and exits non-zero):
    then the kernel, SDPA and the twin in turns by CUDA events and the
    kernel's device time.  (b) ``CogVLM2Judge`` at full dims (EVA2-CLIP-E
    63 x 1792, 16 heads of 112, MLP 15,360; the GLU adapter to 4096 /
-   14,336; Llama-3-8B 32 x 4096, 32/8 heads of 128, two experts a layer,
+   14,336; Llama-3-8B 4096 wide, 32/8 heads of 128, two experts a layer,
    vocabulary 128,256: 19.49 B parameters), random bf16 weights drawn a
    layer at a time from a fresh generator at SEED, a pair of seeded
    8-frame videos at 224 px (66 tokens a frame) through a subclass's
    ``_encode_video``: ``judge_pair`` with the overall prompt (the full
    prompt) and the short question (the prefix path), 64 greedy tokens,
-   exact launches (per video 63 K3 at D = 112; 32 K3 per prefill or
-   continuation; none in decode); the tower and adapter's output (fp32
+   exact launches (per video 63 K3 at D = 112; a K3 per decoder layer and
+   prefill or continuation; none in decode); the tower and adapter's output (fp32
    activations, bf16 product inputs, as the JAX judge's fp32 pixels make
    them) and the teacher-forced logits of both paths, end to end and with
    the tower's output shared (the decoder alone), within LOGITS_REL_TOL of
@@ -546,6 +550,51 @@ Phases (any failure raises and exits non-zero):
    kept, at full width ASYNC_DEPTH deep: after ``train()`` returns each
    kept file reloads bit-equal to a blocking run's; the time a micro-step,
    async against blocking.  Prints its command time.
+31. LoRA and QLoRA training (after phase 30, its states freed; nothing
+   caught), on phase 5's 2B weights (a fresh generator at SEED) and
+   micro-batches, ``TrainConfig(lora_rank=LORA_RANK)`` on phase 5's
+   config: the decoder's attention and MLP kernels wrapped in LoRA nodes.
+   (a) The wrapped forward bit-equal to the unwrapped one (``b`` = 0); the
+   adapter and trainable parameter counts and the optimizer state's bytes.
+   (b) 4 micro-steps under phase 5's checks (finite losses, 2 optimizer
+   steps, every frozen tensor, each ``.w`` and the ViT's included,
+   bit-identical, each trainable subtree moved, exact launches: per
+   micro-batch and video 24 K1, 48 K2 lse, 24 K4a, 24 K4b, no K1 lse and
+   no K4 nc), every layer's ``b`` moved and every layer's ``a`` by the
+   second optimizer step.  (f) The single clip scored through the LoRA
+   state (exact serving launches) and through ``merge_lora``'s, within
+   SCORE_TOL.  (c) Every ``b`` drawn nonzero from a generator of its own
+   (N(0, LORA_B_STD^2)), the adapters' and heads' gradient of one
+   micro-batch, bf16 kernels against fp32 plain with S1's split, held to
+   FIDELITY_REL_L2 and FIDELITY_COS under F5's rule (``gradient_split``);
+   bf16 plain runs the adapters through the same ``product_f32`` as the
+   kernels, so that product is held apart: at the first layer's base,
+   ``a`` and ``b``, its output and both input gradients on bf16 operands
+   against fp32 autograd of the upcast values, within
+   PRODUCT_F32_FWD_REL and PRODUCT_F32_BWD_REL (``product_f32_check``).
+   (d) For each of LORA_QUANT_MODES, fresh bf16 weights quantized on the
+   card and wrapped: the loss against the same tree in fp32 plain within
+   OPT_LOSS_REL_TOL, the decoder's frozen bases' bytes against bf16's, and
+   2 micro-steps under phase 5's checks (the quantized fields
+   bit-identical, no K5 under autograd).  (e) The ``int4-wo`` run: a third
+   micro-step, an async save, a fourth micro-step while it is written,
+   then a fresh trainer's ``resume_latest``: every tensor of the saved
+   step bit-equal with its dtype and stride, the nodes kept (``Q4Kernel``
+   bases, packed k-major), and the fourth micro-step bit-equal to the
+   unbroken run's.  Prints its command time.  ``tools/phase31_torch.py``
+   runs it alone and times a LoRA micro-step against a full stage-3 one
+   on the same weights.
+32. The serving example (after phase 23, on phase 22's checkpoint
+   directory and phase 4's state; nothing caught): ``python -m
+   mjvideo_tpu_torch.examples.serve --byte-tokenizer`` (its ``main``) over
+   SERVE_CLIPS seeded clips (``seeded_video_source``, four decode
+   workers), then with ``--trace-dir`` over SERVE_TRACED others (traced
+   by ``utils.profiling.trace``): every JSONL score of both runs
+   bit-equal to ``score_video`` of phase 4's state
+   through a scorer built as the example builds it, exact launches (24 K1
+   and 24 K2 a clip, each after its pre-pass), the trace naming K1 and K2
+   (and the pre-pass) as often as the traced clips launched them, and
+   ``Throughput``'s clips/s beside the command's wall time.
 """
 
 from __future__ import annotations
@@ -860,9 +909,16 @@ IVL_CLI_PAIRS = 1
 # InternViT-6B tower, K1 at D = 128, stays whole) and (c) the 8B judge's
 # checks with its InternLM2.5-7B decoder cut to IVL_8B_LLM_DEPTH of 32 (the
 # checks read K1 at D = 64 and K3 at the 8B's widths; depth only repeats
-# them).
-IVL_26B_LLM_DEPTH = 24
+# them).  Phases 31 and 32 took the 26B from 24 layers to 16.
+IVL_26B_LLM_DEPTH = 16
 IVL_8B_LLM_DEPTH = 16
+# For the same limit, phases 31 and 32 also cut the decoders of phase 26's
+# Qwen2-VL-2B judge (28 layers) and phase 27's MiniCPM-V-2.6 judge
+# (Qwen2-7B, 28) to these depths; their vision towers stay whole, and the
+# CLI phases keep their own depths.  Phase 28's CogVLM2-Video judge keeps
+# all 32 layers: its end-to-end logits sit near LOGITS_REL_TOL there (F7).
+QWEN_LLM_DEPTH = 14
+MCPM_LLM_DEPTH = 14
 
 # Phase 30: the training options at the 2B widths.  (b)'s rates; (c) runs
 # OPT_STEPS Trainer micro-steps of each optimizer (phase 5's config:
@@ -879,6 +935,20 @@ OPT_UPDATE_COS = 0.95      # the steps' update, kernel path against plain
 ASYNC_DEPTH = (2, 2)
 ASYNC_STEPS = 2
 ASYNC_KEEP = 1
+
+# Phase 31: LoRA and QLoRA training; phase 32: the serving example.
+LORA_RANK = 16
+LORA_B_STD = 0.01          # (c)'s seeded nonzero b: a delta about the
+#                            size of the weights' own spread
+LORA_QUANT_MODES = ("int8-wo", "int4-wo")
+LORA_TIMED_STEPS = 4       # 2 that accumulate, 2 that also step
+PRODUCT_F32_FWD_REL = 2 ** -16   # (c)'s product_f32: fp32 summation order
+PRODUCT_F32_BWD_REL = 2 ** -7    # bf16's epsilon: the cotangent and each
+#                                  input gradient rounded to bf16 once
+#                                  (about 2.4e-3 expected)
+SERVE_CLIPS = 8
+SERVE_TRACED = 2
+
 
 
 def _median_ms(fn, reps=10, warmup=3):
@@ -2606,12 +2676,22 @@ def quant_scoring_phase(scorer, requests, fp32_scores, dev):
 
 
 def _float_plain(state):
-    """The plain tensors of a state in fp32; quantized nodes as they are."""
+    """The plain tensors of a state in fp32, inside kernel nodes too (a
+    LoRA node's adapters); quantized nodes (a LoRA node's frozen base
+    included) as they are."""
+    from dataclasses import replace
+
     from mjvideo_tpu_torch.ops.quant import is_qnode
+    from mjvideo_tpu_torch.utils.bridge import is_node, node_fields
 
     if isinstance(state, dict):
         return {k: _float_plain(v) for k, v in state.items()}
-    return state if is_qnode(state) else state.float()
+    if is_qnode(state):
+        return state
+    if is_node(state):
+        return replace(state, **{name: _float_plain(v)
+                                 for name, v in node_fields(state)})
+    return state.float()
 
 
 def quant_judge_phase(dev, bf16_step_ms):
@@ -5114,6 +5194,15 @@ def check_d96_rows(randn, shape):
         "K2r pre-pass": reading}
 
 
+def cut_text_depth(cfg, layers):
+    """A judge config (``.text``: its decoder's ``LLMConfig``) with the
+    decoder cut to ``layers`` layers, at full width."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, num_hidden_layers=layers))
+
+
 def judge_4b_config():
     """The InternVL2-4B chat config with its decoder cut to
     JUDGE_4B_LLM_DEPTH layers: the 4B judge of phases 24 and 26."""
@@ -5312,9 +5401,10 @@ def qwen_judge_phase(dev, cfg, state, tok):
     width, bf16): ``judge_pair`` with the overall prompt (the full prompt:
     its suffix exceeds the 128-token bucket) and a short question by the
     prefix path, exact launches (per video encoded 32 K1 after their
-    pre-passes, at their D = 80 names too; 28 K3 per prefill or
-    continuation; none in decode), teacher-forced logits of both paths
-    against the same weights in fp32 through ``impl="plain"``, and the
+    pre-passes, at their D = 80 names too; a K3 per decoder layer and
+    prefill or continuation; none in decode), teacher-forced logits of
+    both paths against the same weights in fp32 through ``impl="plain"``,
+    and the
     times: the vision tower a video, the pair's prefill, a decode step at
     B = 2 (by difference over QWEN_DECODE_STEPS steps), a pair by each path
     and the peak memory.  Returns the readings and the launches."""
@@ -5545,6 +5635,7 @@ def qwen2vl_phase(dev, generator, drawer):
     out["judge_4b_rows"], launches = judge_4b_rows_phase(dev)
     out["judge_4b_rows"]["command_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
+    cfg = cut_text_depth(cfg, QWEN_LLM_DEPTH)
     state = init_qwen2vl_params(cfg, generator=generator(), device=dev,
                                 dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -5835,7 +5926,8 @@ def minicpmv_phase(dev, generator):
     videos (``_seeded_minicpm_encode``): ``judge_pair`` with the overall
     prompt (the full prompt) and a short question (the prefix path), 64
     greedy tokens; launches exact (per video 27 K1 after their pre-passes;
-    28 K3 per prefill or continuation; none in decode); teacher-forced
+    a K3 per decoder layer and prefill or continuation; none in decode);
+    teacher-forced
     logits of both paths against the same weights in fp32 through
     ``impl="plain"``; the tower's ms a video, the pair's prefill, a decode
     step at B = 2, answers/s by each path and the peak.  Returns the
@@ -5856,7 +5948,7 @@ def minicpmv_phase(dev, generator):
         init_minicpmv_params,
     )
 
-    cfg = MiniCPMVConfig()
+    cfg = cut_text_depth(MiniCPMVConfig(), MCPM_LLM_DEPTH)
     L_vit, L_llm = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
     videos = ("video_0", "video_1")
     out, launches = {}, {}
@@ -7361,12 +7453,563 @@ def training_options_phase(dev, generator):
     return out, launches
 
 
+def _layer_changed(after, before):
+    """Per stacked layer (the leading axis), whether any element moved."""
+    return (after != before).flatten(1).any(1)
+
+
+def _micro_step_times(trainer, batches, label):
+    """LORA_TIMED_STEPS micro-steps timed on the host clock (``time_training``)
+    and the device time of a micro-step: ``torch.profiler``'s kernels over
+    two more, one that accumulates and one that also steps, halved."""
+    medians = time_training(trainer, batches, steps=LORA_TIMED_STEPS)
+    calls = []
+
+    def step():
+        trainer.train([batches[len(calls) % len(batches)]])
+        calls.append(1)
+
+    dev_ms = sum(device_ms(step, reps=2, warmup=0).values())
+    out = {**medians, "device_ms": (dev_ms or None)}
+    print(f"{label}: micro-step device time {_ms(out['device_ms'])} (the "
+          f"mean of one that accumulates and one that steps)")
+    return out
+
+
+def _lora_counts(trainer):
+    """(adapter parameters, trainable parameters, optimizer state bytes
+    without the accumulation buffer, with it)."""
+    from mjvideo_tpu_torch.train.trainer import flatten_state, state_bytes
+
+    flat = flatten_state(trainer.params)
+    paths = trainer.optimizer.paths
+    adapters = sum(flat[p].numel() for p in paths
+                   if p.endswith(("/.a", "/.b")))
+    moments = {k: v for k, v in trainer.opt_state.items() if k != "acc"}
+    return (adapters, sum(flat[p].numel() for p in paths),
+            state_bytes(moments), state_bytes(trainer.opt_state))
+
+
+def _snapshot(trainer):
+    """A copy on the card of every tensor of the trainer's params and
+    optimizer state by path, with its stride, and the step."""
+    import torch
+
+    from mjvideo_tpu_torch.train.trainer import flatten_state
+
+    out = {}
+    for name, tree in (("params", trainer.params),
+                       ("opt", trainer.opt_state)):
+        for p, t in flatten_state(tree).items():
+            out[f"{name}/{p}"] = (t.detach().clone() if torch.is_tensor(t)
+                                  else t)
+    return out, trainer.step
+
+
+def _same_snapshot(got, want):
+    """(every entry bit-equal with its dtype and stride, the first path
+    that differs)."""
+    import torch
+
+    if got.keys() != want.keys():
+        return False, sorted(set(got) ^ set(want))[:3]
+    for p, t in want.items():
+        g = got[p]
+        if torch.is_tensor(t):
+            if not (torch.is_tensor(g) and g.dtype == t.dtype
+                    and g.stride() == t.stride() and torch.equal(g, t)):
+                return False, p
+        elif g != t:
+            return False, p
+    return True, None
+
+
+def lora_training_phase(cfg, batches, dev, generator, d):
+    """Phase 31 (a), (b), (f) and the timing against full stage 3: the
+    2B's bf16 weights wrapped at LORA_RANK, its forward bit-equal to the
+    unwrapped one, 4 micro-steps (phase 5's checks and launches), every
+    layer's ``b`` moved and every layer's ``a`` by the second optimizer
+    step, the merged state's score against the LoRA state's.  Returns
+    (readings, launches, the LoRA trainer, the unwrapped state, whose
+    tensors the LoRA state shares)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import ByteTokenizer, RewardScorer, kernels
+    from mjvideo_tpu_torch import init_reward_params
+    from mjvideo_tpu_torch.models.reward import reward_forward
+    from mjvideo_tpu_torch.ops.lora import LoraKernel, merge_lora
+    from mjvideo_tpu_torch.ops.quant import map_with_path
+    from mjvideo_tpu_torch.train.trainer import Trainer, place_batch
+
+    out, launches = {}, {}
+    params = init_reward_params(cfg, generator=generator(), device=dev,
+                                dtype=torch.bfloat16)
+    placed = place_batch(batches[0], dev, torch.bfloat16)
+
+    def forward(state):
+        with torch.no_grad():
+            res = []
+            for v in (0, 1):
+                pix = placed[f"video_{v}_pixel_values"]
+                res.append(reward_forward(
+                    state, cfg, pix.reshape((-1,) + tuple(pix.shape[-3:])),
+                    placed[f"video_{v}_input_ids"],
+                    placed[f"video_{v}_attention_mask"],
+                    placed[f"video_{v}_gating_pos"]))
+            return res
+
+    base_out = forward(params)
+    tc = replace(train_config(os.path.join(d, "lora")), lora_rank=LORA_RANK)
+    tr = Trainer(cfg, params, tc)
+    nodes = {}
+    map_with_path(lambda p, x: nodes.__setitem__(p, x)
+                  if isinstance(x, LoraKernel) else None, tr.params)
+    same = all(torch.equal(a, b) for o, r in zip(forward(tr.params), base_out)
+               for a, b in zip(o, r))
+    adapters, trainable, moments, with_acc = _lora_counts(tr)
+    print(f"phase 31 (a): {len(nodes)} LoRA nodes of rank {LORA_RANK}, the "
+          f"wrapped forward bit-equal to the unwrapped one: {same}; "
+          f"{adapters:,} adapter parameters, {trainable:,} trainable; "
+          f"optimizer state {moments / 2**30:.4f} GiB "
+          f"({with_acc / 2**30:.4f} GiB with the accumulation buffer)")
+    if not same or len(nodes) != 7:
+        raise RuntimeError(f"phase 31 (a): {len(nodes)} nodes, forward "
+                           f"bit-equal {same}")
+    out["a"] = {"nodes": len(nodes), "bit_equal": same,
+                "adapter_params": adapters, "trainable_params": trainable,
+                "state_bytes": moments, "state_bytes_with_acc": with_acc}
+
+    before = {p: (n.a.clone(), n.b.clone()) for p, n in nodes.items()}
+    t0 = time.perf_counter()
+    launches["lora_training"], peak = check_training(
+        tr, batches, dev, label="phase 31 (b) LoRA training")
+    moved = {p: (bool(_layer_changed(n.a, before[p][0]).all()),
+                 bool(_layer_changed(n.b, before[p][1]).all()))
+             for p, n in nodes.items()}
+    print(f"phase 31 (b): every layer's a and b moved (a, b) {moved}; "
+          f"{len(batches)} micro-steps in {time.perf_counter() - t0:.1f} s, "
+          f"peak {peak / 2**30:.2f} GiB")
+    if not all(a and b for a, b in moved.values()):
+        raise RuntimeError(f"phase 31 (b): adapters that did not move "
+                           f"{moved}")
+    del before
+    out["b"] = {"peak_gib": peak / 2**30, "moved": moved}
+
+    # (f) The merged state scores as the LoRA state does.
+    tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
+    lora_scorer = RewardScorer(cfg, tr.params, tok, dtype=torch.bfloat16,
+                               gating_pattern=tok.gating_pattern())
+    request = make_requests(lora_scorer, np.random.default_rng(SEED))[0]
+    kernels.reset_launch_counts()
+    s_lora = lora_scorer.score_batch(*request).score.float().item()
+    torch.cuda.synchronize()
+    launches["lora_serving"] = _held_launches(
+        "phase 31 (f) LoRA scoring", _with_prepass({
+            "vit_attention": cfg.chat.vision.num_hidden_layers,
+            "decoder_attention": cfg.chat.llm.num_hidden_layers}))
+    merged = RewardScorer(cfg, merge_lora(tr.params), tok,
+                          dtype=torch.bfloat16,
+                          gating_pattern=tok.gating_pattern())
+    s_merged = merged.score_batch(*request).score.float().item()
+    delta = abs(s_lora - s_merged)
+    print(f"phase 31 (f): the LoRA state's score {s_lora:.6f}, the merged "
+          f"state's {s_merged:.6f} (|delta| {delta:.3e}, bound {SCORE_TOL})")
+    if not delta <= SCORE_TOL:
+        raise RuntimeError(f"phase 31 (f): merged score delta {delta}")
+    out["f"] = {"lora_score": s_lora, "merged_score": s_merged,
+                "delta": delta}
+    del merged, lora_scorer
+    torch.cuda.empty_cache()
+
+    return out, launches, tr, params
+
+
+def lora_gradient_phase(tr, batch, dev):
+    """Phase 31 (c): every ``b`` drawn seeded and nonzero (N(0,
+    LORA_B_STD^2), its own generator), then the trainable gradient (the
+    adapters and the heads) of one micro-batch with the bf16 kernels
+    against fp32 plain (``gradient_split``: S1's split printed, the bars
+    held with F5's rule), and ``product_f32_check`` at the first layer's
+    base, ``a`` and ``b``."""
+    import torch
+
+    from mjvideo_tpu_torch.ops.lora import LoraKernel
+    from mjvideo_tpu_torch.ops.quant import map_with_path
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    nodes = []
+
+    def draw(_, x):
+        if isinstance(x, LoraKernel):
+            nodes.append(x)
+            with torch.no_grad():
+                x.b.copy_(LORA_B_STD * torch.randn(
+                    x.b.shape, generator=g, device=dev))
+        return x
+
+    map_with_path(draw, tr.params)
+    out, _ = gradient_split(tr.cfg, tr.tc, tr.params, tr.optimizer.paths,
+                            batch, dev, "phase 31 (c) LoRA")
+    # bf16 plain's floor above runs the adapters through the same
+    # product_f32 as the kernels: hold that product apart, against fp32.
+    first = nodes[0]
+    out["product_f32"] = product_f32_check(
+        dev, g, (first.w[0], first.a[0], first.b[0]))
+    return out
+
+
+
+def product_f32_check(dev, g, weights, rows=1024):
+    """``ops.matmul.product_f32`` on bf16 operands on the card (the
+    autograd Function around ``torch.mm(out_dtype=float32)``) against
+    fp32 autograd of the same values upcast: for each bf16 weight of
+    ``weights`` (a LoRA node's base, ``a`` and ``b`` at one layer), the
+    product of ``rows`` seeded bf16 rows and its gradients with respect to
+    both inputs under a seeded fp32 cotangent.  The output within
+    PRODUCT_F32_FWD_REL, each input gradient within PRODUCT_F32_BWD_REL
+    (relative L2), both with the cosine above 1 - the bar.  Raises on a
+    miss; returns the readings."""
+    import torch
+
+    from mjvideo_tpu_torch.ops.matmul import product_f32
+
+    out = {}
+    for w in weights:
+        w = w.detach().to(torch.bfloat16)
+        K, N = w.shape
+        x = torch.randn((rows, K), generator=g, device=dev).to(torch.bfloat16)
+        ct = torch.randn((rows, N), generator=g, device=dev)
+        xb, wb = x.requires_grad_(), w.clone().requires_grad_()
+        y = product_f32(xb, wb)
+        y.backward(ct)
+        x32 = x.detach().float().requires_grad_()
+        w32 = w.float().requires_grad_()
+        y32 = x32 @ w32
+        y32.backward(ct)
+        read = {}
+        for name, got, ref, bar in (
+                ("y", y.detach(), y32.detach(), PRODUCT_F32_FWD_REL),
+                ("gx", xb.grad, x32.grad, PRODUCT_F32_BWD_REL),
+                ("gw", wb.grad, w32.grad, PRODUCT_F32_BWD_REL)):
+            ok_dtype = got.dtype == (torch.float32 if name == "y"
+                                     else torch.bfloat16)
+            rel, cos = _compare_grads(got, ref)
+            read[name] = {"rel_l2": rel, "cos": cos}
+            if not (ok_dtype and rel <= bar and cos >= 1 - bar):
+                raise RuntimeError(f"product_f32 ({rows}, {K}) @ ({K}, {N})"
+                                   f" {name}: dtype {got.dtype}, relative L2"
+                                   f" {rel}, cosine {cos} (bar {bar})")
+        out[f"{K}x{N}"] = read
+        print(f"phase 31 (c) product_f32 ({rows}, {K}) @ ({K}, {N}) against "
+              f"fp32 autograd: output relative L2 {read['y']['rel_l2']:.3e} "
+              f"(bar {PRODUCT_F32_FWD_REL:.3e}), gx "
+              f"{read['gx']['rel_l2']:.3e}, gw {read['gw']['rel_l2']:.3e} "
+              f"(bar {PRODUCT_F32_BWD_REL:.3e})")
+    return out
+
+
+def qlora_phase(cfg, batches, dev, generator, d):
+    """Phase 31 (d) and (e): for each of LORA_QUANT_MODES, fresh bf16
+    weights quantized on the card, wrapped at LORA_RANK: the loss on the
+    kernel path against the same tree in fp32 plain (within
+    OPT_LOSS_REL_TOL), two micro-steps under phase 5's checks (the
+    quantized fields bit-identical, no K5 under autograd), the decoder's
+    frozen bases' bytes; under ``int4-wo`` then a third micro-step, an
+    async save, a fourth (in place, while the save is written), and a
+    fresh trainer's ``resume_latest``: every tensor, dtype and stride of
+    the saved step bit-equal, the node types kept, and the fourth step
+    again bit-equal."""
+    from dataclasses import replace
+
+    import torch
+
+    from mjvideo_tpu_torch import init_reward_params
+    from mjvideo_tpu_torch.ops.quant import quantize_params_mode
+    from mjvideo_tpu_torch.train.trainer import (
+        Trainer,
+        make_loss_fn,
+        place_batch,
+    )
+    from mjvideo_tpu_torch.utils.checkpoint import wait_for_saves
+
+    def quantized(mode):
+        bf16 = init_reward_params(cfg, generator=generator(), device=dev,
+                                  dtype=torch.bfloat16)
+        q = quantize_params_mode(bf16, mode)
+        bytes_ = (_target_bytes(bf16), _target_bytes(q))
+        del bf16
+        torch.cuda.empty_cache()
+        return q, bytes_
+
+    out, launches = {}, {}
+    for mode in LORA_QUANT_MODES:
+        tc = replace(train_config(os.path.join(d, mode)),
+                     lora_rank=LORA_RANK, async_checkpoint=True,
+                     keep_checkpoints=1)
+        q, (bf16_bytes, base_bytes) = quantized(mode)
+        tr = Trainer(cfg, q, tc)
+        with torch.no_grad():
+            loss_k = make_loss_fn(cfg, tc)(
+                tr.params, place_batch(batches[0], dev, torch.bfloat16))
+            loss_p = make_loss_fn(cfg, replace(tc, attn_impl="plain"))(
+                _float_plain(tr.params),
+                place_batch(batches[0], dev, torch.float32))
+        rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        print(f"phase 31 (d) QLoRA {mode}: loss bf16 kernels "
+              f"{loss_k.item():.6f}, the same tree in fp32 plain "
+              f"{loss_p.item():.6f} (relative {rel:.3e}, bound "
+              f"{OPT_LOSS_REL_TOL}); the decoder's frozen bases "
+              f"{base_bytes / 2**30:.3f} GiB against "
+              f"{bf16_bytes / 2**30:.3f} GiB in bf16")
+        if not rel <= OPT_LOSS_REL_TOL:
+            raise RuntimeError(f"phase 31 (d) {mode}: loss {loss_k} against "
+                               f"fp32 plain {loss_p}")
+        launches[f"qlora_{mode}"], peak = check_training(
+            tr, batches[:2], dev, label=f"phase 31 (d) QLoRA {mode}")
+        out[mode] = {"loss_kernels": loss_k.item(),
+                     "loss_fp32_plain": loss_p.item(), "loss_rel": rel,
+                     "base_gib": base_bytes / 2**30,
+                     "bf16_base_gib": bf16_bytes / 2**30,
+                     "peak_gib": peak / 2**30}
+        if mode == "int4-wo":
+            out["e"] = _async_resume(cfg, tr, tc, batches, dev,
+                                     lambda: quantized(mode)[0])
+        del tr, q
+        wait_for_saves()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def _target_bytes(state):
+    """Bytes of the decoder kernels LoRA wraps (DEFAULT_TARGETS), before
+    wrapping: plain tensors or every field of a quantized node."""
+    import re
+
+    from mjvideo_tpu_torch.ops.lora import DEFAULT_TARGETS
+    from mjvideo_tpu_torch.train.trainer import flatten_state
+
+    pats = [re.compile(p + "(/|$)") for p in
+            (t.rstrip("$") for t in DEFAULT_TARGETS)]
+    return sum(t.numel() * t.element_size()
+               for p, t in flatten_state(state).items()
+               if any(r.search(p) for r in pats))
+
+
+def _async_resume(cfg, tr, tc, batches, dev, fresh):
+    """Phase 31 (e) on the int4 trainer after its two micro-steps."""
+    import torch
+
+    from mjvideo_tpu_torch.ops.lora import LoraKernel
+    from mjvideo_tpu_torch.ops.quant import is_k_major, map_with_path
+    from mjvideo_tpu_torch.train.trainer import Trainer, flatten_state
+    from mjvideo_tpu_torch.utils.checkpoint import wait_for_saves
+
+    tr.train([batches[2]])  # mid-window: the accumulation buffer holds it
+    ref, step = _snapshot(tr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = tr.save()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    tr.train([batches[3]])  # updates the tensors in place during the write
+    after = {p: t.detach().clone() for p, t in
+             flatten_state(tr.params).items()}
+    t0 = time.perf_counter()
+    wait_for_saves()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(path)
+    fresh_state = fresh()
+    tr2 = Trainer(cfg, fresh_state, tc)
+    got_path = tr2.resume_latest()
+    got, got_step = _snapshot(tr2)
+    same, first = _same_snapshot(got, ref)
+    kinds = set()
+    map_with_path(lambda p, x: kinds.add((type(x).__name__,
+                                          type(x.w).__name__,
+                                          is_k_major(x.w.packed[0])))
+                  if isinstance(x, LoraKernel) else None, tr2.params)
+    del got, ref
+    tr2.train([batches[3]])
+    again = all(torch.equal(t, after[p]) for p, t in
+                flatten_state(tr2.params).items())
+    print(f"phase 31 (e): async save of the int4 QLoRA run at step {step} "
+          f"({size / 2**30:.3f} GiB; the call returned in {save_ms:.1f} ms, "
+          f"the write ended {wait_ms:.1f} ms after the next micro-step); "
+          f"resumed {got_path == path} at step {got_step}: every tensor, "
+          f"dtype and stride bit-equal {same} (first difference {first}), "
+          f"nodes {sorted(kinds)}; the next micro-step bit-equal to the "
+          f"unbroken run's {again}")
+    if not (got_path == path and got_step == step and same and again
+            and kinds == {("LoraKernel", "Q4Kernel", True)}):
+        raise RuntimeError(f"phase 31 (e): resumed {got_path}, step "
+                           f"{got_step}/{step}, equal {same} ({first}), "
+                           f"nodes {kinds}, next step equal {again}")
+    del tr2, fresh_state, after
+    return {"checkpoint_bytes": size, "save_call_ms": save_ms,
+            "wait_ms": wait_ms, "bit_equal": same, "next_step_equal": again}
+
+
+def lora_phase(dev, generator, timing=False):
+    """Phase 31: LoRA and QLoRA training at the 2B widths, stage 3, on
+    phase 5's weights (a fresh generator at SEED) and micro-batches;
+    ``timing``: also a LoRA micro-step timed against a full stage-3 one on
+    the same weights (``tools/phase31_torch.py``).  Returns the readings
+    and the launch counts by path."""
+    import gc
+    import tempfile as tf
+
+    import torch
+
+    from mjvideo_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg, batches = train_data()
+    out = {}
+    with tf.TemporaryDirectory() as d:
+        out["train"], launches, tr, params = lora_training_phase(
+            cfg, batches, dev, generator, d)
+        if timing:
+            out["time_lora"] = _micro_step_times(tr, batches,
+                                                 "phase 31 LoRA")
+        out["c"] = lora_gradient_phase(tr, batches[0], dev)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        if timing:
+            full = Trainer(cfg, params, train_config(os.path.join(d,
+                                                                  "full")))
+            full.train([batches[0]])  # warm-up
+            out["time_full"] = _micro_step_times(full, batches,
+                                                 "phase 31 full stage 3")
+            del full
+            ratio = {k: out["time_lora"][k] / out["time_full"][k]
+                     for k in ("accumulate_ms", "optimizer_ms", "device_ms")
+                     if out["time_lora"][k] and out["time_full"][k]}
+            print(f"phase 31: a LoRA micro-step against a full stage-3 one "
+                  f"{ratio}")
+            out["time_ratio"] = ratio
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["qlora"], more = qlora_phase(cfg, batches, dev, generator, d)
+        launches.update(more)
+    out["command_s"] = time.perf_counter() - t0
+    print(f"phase 31 command time {out['command_s']:.1f} s")
+    return out, launches
+
+
+def _trace_kernels(path):
+    """{kind: count} of the card's kernels in a Chrome trace written by
+    ``utils.profiling.trace``: K1 (the attention template at D = 64), K2
+    (at D = 128) and the pre-pass's partial pass; and the names of the
+    host regions."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {"K1": 0, "K2": 0, "pre-pass": 0}
+    regions = set()
+    for e in events:
+        name = e.get("name") or ""
+        if e.get("cat") == "kernel":
+            if "attention_kernel" in name and "Config<64" in name:
+                counts["K1"] += 1
+            elif "attention_kernel" in name and "Config<128" in name:
+                counts["K2"] += 1
+            elif "key_norm_partial" in name:
+                counts["pre-pass"] += 1
+        elif name.startswith("score "):
+            regions.add(name)
+    return counts, regions
+
+
+def serving_example_phase(scorer, ckpt_dir, dev):
+    """Phase 32: ``examples/serve.py`` on phase 22's checkpoint directory
+    (phase 23's decode stand-in, four decode workers), over SERVE_CLIPS
+    seeded clips, then under ``--trace-dir`` over SERVE_TRACED others: the
+    JSONL scores of both runs bit-equal to ``score_video`` of phase 4's
+    state through a scorer built as the example builds it, exact launches
+    (24 K1 and 24 K2 a clip, each after its pre-pass), the trace naming K1
+    and K2 as often as its clips launched them; the first run's
+    ``Throughput`` clips/s beside its command time.  Returns the readings
+    and the launch counts of both runs."""
+    import tempfile as tf
+
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer
+    from mjvideo_tpu_torch.data.prompts import load_tokenizer
+    from mjvideo_tpu_torch.examples import serve
+    from mjvideo_tpu_torch.utils.profiling import TRACE_FILE
+
+    cfg = scorer.cfg
+    L_vit = cfg.chat.vision.num_hidden_layers
+    L_llm = cfg.chat.llm.num_hidden_layers
+    tok, _ = load_tokenizer(None)
+    ref = RewardScorer(cfg, scorer.params, tok, dtype=torch.bfloat16,
+                       gating_pattern=tok.gating_pattern(cfg.chat.template))
+
+    def serve_run(d, stem, clips, trace_dir=None):
+        videos = os.path.join(d, stem)
+        os.makedirs(videos)
+        names = [f"{stem}{i}.mp4" for i in range(clips)]
+        for n in names:
+            open(os.path.join(videos, n), "wb").close()
+        out = os.path.join(d, f"{stem}.jsonl")
+        argv = ["--model-path", ckpt_dir, "--videos", videos,
+                "--byte-tokenizer", "--num-segments", str(FRAMES),
+                "--workers", "4", "--out", out]
+        if trace_dir:
+            argv += ["--trace-dir", trace_dir]
+        summary, _, secs, _, got = _run_main(serve.main, argv)
+        launches = _hold(f"phase 32 serving example ({stem})", got,
+                         _with_prepass({"vit_attention": clips * L_vit,
+                                        "decoder_attention": clips * L_llm}))
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+        want = [ref.score_video(os.path.join(videos, r["video"]),
+                                "a generated video", num_segments=FRAMES)
+                for r in rows]
+        same = [r["video"] for r in rows] == names and all(
+            np.float32(r["score"]) == w["score"] and np.array_equal(
+                np.asarray(r["aspect_scores"], np.float32),
+                w["aspect_scores"])
+            for r, w in zip(rows, want))
+        return summary, secs, launches, same
+
+    with tf.TemporaryDirectory() as d, seeded_video_source():
+        summary, secs, launches, same = serve_run(d, "serve", SERVE_CLIPS)
+        trace_dir = os.path.join(d, "trace")
+        _, traced_s, traced_launches, traced_same = serve_run(
+            d, "traced", SERVE_TRACED, trace_dir)
+        traced, regions = _trace_kernels(os.path.join(trace_dir,
+                                                      TRACE_FILE))
+    traced_want = {"K1": SERVE_TRACED * L_vit, "K2": SERVE_TRACED * L_llm,
+                   "pre-pass": SERVE_TRACED * (L_vit + L_llm)}
+    print(f"phase 32 serving example: {summary['clips']} clips, "
+          f"{summary['clips_per_s']:.2f} clips/s by Throughput (smoothed "
+          f"{summary['rate']:.2f}), {secs:.1f} s of command time (the 2B "
+          f"load included); scores bit-equal to score_video {same}; "
+          f"{SERVE_TRACED} more traced in {traced_s:.1f} s, their scores "
+          f"bit-equal {traced_same}, the trace's kernels {traced} (want "
+          f"{traced_want}), regions {sorted(regions)}")
+    if not (same and traced_same and traced == traced_want
+            and len(regions) == SERVE_TRACED):
+        raise RuntimeError(f"phase 32: scores equal {same} and "
+                           f"{traced_same}, traced {traced}, regions "
+                           f"{regions}")
+    launches = {k: n + traced_launches[k] for k, n in launches.items()}
+    return {**summary, "command_s": secs, "traced_command_s": traced_s,
+            "traced": traced}, launches
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
     ``tools/phase25_torch.py``, ``tools/phase27_torch.py``,
     ``tools/phase28_torch.py``, ``tools/phase29_torch.py``,
-    ``tools/phase30_torch.py``): the card and its power limit printed, TF32
-    off, the kernels built and their ptxas report (a spill or a missing
+    ``tools/phase30_torch.py``, ``tools/phase31_torch.py``): the card and
+    its power limit printed, TF32 off, the kernels built and their ptxas report (a spill or a missing
     instantiation printed, not raised, so that the phase still runs), and
     the seeded generators as ``main`` makes them.  Returns (device,
     generator, drawer, ptxas), or None without CUDA."""
@@ -7558,6 +8201,11 @@ def main() -> int:
                                                            dev)
         harness_out["command_s"] = time.perf_counter() - t0
         print(f"phase 23 command time {harness_out['command_s']:.1f} s")
+        # Phase 32: the serving example on the same directory.
+        t0 = time.perf_counter()
+        serve_out, serve_launches = serving_example_phase(scorer, export_dir,
+                                                          dev)
+        print(f"phase 32 command time {time.perf_counter() - t0:.1f} s")
     # Phase 18: sequence-parallel scoring on the same bf16 state.
     sp_scored, sp_score_launches = sp_scoring_phase(
         scorer, requests, scores, fp32_scores, pair_s * 1e3, peak, dev)
@@ -7628,6 +8276,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out_30, launches_30 = training_options_phase(dev, generator)
+    # Phase 31: LoRA and QLoRA training at the 2B widths, on fresh states.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_31, launches_31 = lora_phase(dev, generator)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -7640,7 +8292,8 @@ def main() -> int:
                **ckpt_launches, **frames_launches, **sweep_launches,
                **harness_launches, **launches_4b, **launches_25,
                **launches_26, **launches_27, **launches_28, **launches_29,
-               **launches_30}
+               **launches_30, **launches_31,
+               "serving_example": serve_launches}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -8132,7 +8785,8 @@ def main() -> int:
         "eval_harness": harness_out, "mjvideo_4b": out_4b,
         "mjvideo_4b_gradients": out_25, "qwen2vl": out_26,
         "siglip_judges": out_27, "cogvlm2": out_28, "internvl": out_29,
-        "training_options": out_30,
+        "training_options": out_30, "lora": out_31,
+        "serving_example": serve_out,
         "qwen2vl_decoder_kernels": {f"{size} {name}": {
             n: brief(r[n]) for n in ("K3", "K2r", "K2r kernel")}
             for (size, name), r in k26["qwen"].items()},

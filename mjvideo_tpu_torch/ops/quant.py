@@ -31,9 +31,10 @@ everywhere.  The twins sum int8 products exactly in int32
 (``int8_matmul``); fp32 is exact only to 2^24, and K reaches 8,192 * 127^2.
 
 The HF checkpoint loader (``utils/checkpoint.py``) reads unquantized
-states, which ``quantize_params_mode`` quantizes where they lie.
-``revive_quant_kernels``, which restores a saved quantized tree, is not
-ported yet (ROADMAP 6b).
+states, which ``quantize_params_mode`` quantizes where they lie.  A saved
+quantized state (``utils.checkpoint.save_state`` writes each node as a
+plain dict of its tensor fields) is rebuilt by ``revive_quant_kernels``
+(``quant.py:777-815``), its int8 fields k-major again.
 """
 
 from __future__ import annotations
@@ -57,6 +58,19 @@ class QuantKernel:
     q: torch.Tensor
     scale: torch.Tensor
 
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.q.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        # The logical dtype: what dequantization produces.
+        return self.scale.dtype
+
 
 @dataclass
 class WOQuantKernel:
@@ -65,6 +79,18 @@ class WOQuantKernel:
 
     qw: torch.Tensor
     scale: torch.Tensor
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.qw.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.qw.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.scale.dtype
 
 
 @dataclass
@@ -75,6 +101,18 @@ class OutlierQuantKernel:
     q: torch.Tensor
     scale: torch.Tensor
     n_outliers: int = 32
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.q.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.scale.dtype
 
 
 # ------------------------------------------------------------ quantizers
@@ -481,14 +519,54 @@ def is_qnode(x) -> bool:
 
 
 def quant_nodes(params: Any):
-    """Every quantized node of a nested dict, depth first."""
+    """Every quantized node of a nested dict, depth first, inside other
+    kernel nodes too (a LoRA node's base, ``ops/lora.py``)."""
+    from ..utils.bridge import is_node, node_fields
+
     if isinstance(params, dict):
         return [n for v in params.values() for n in quant_nodes(v)]
-    return [params] if is_qnode(params) else []
+    if is_qnode(params):
+        return [params]
+    if is_node(params):
+        return [n for _, v in node_fields(params) for n in quant_nodes(v)]
+    return []
 
 
 def is_quantized(params: Any) -> bool:
     return bool(quant_nodes(params))
+
+
+def _revived(n: dict):
+    """The quantized node a plain dict of tensor fields stands for, or
+    None: exactly ``{q, scale}``, ``{qw, scale}`` or ``{packed, scale}``
+    with an int8 first field (no model family uses these names for
+    anything else)."""
+    from .quant4 import Q4Kernel
+
+    for name, node in (("q", QuantKernel), ("qw", WOQuantKernel),
+                       ("packed", Q4Kernel)):
+        if (set(n) == {name, "scale"} and torch.is_tensor(n[name])
+                and n[name].dtype == torch.int8):
+            return node(k_major(n[name]), n["scale"])
+    return None
+
+
+def revive_quant_kernels(tree: Any) -> Any:
+    """Rebuild the quantized nodes of a state read back as plain dicts
+    (``utils.checkpoint.load_state``), by JAX's rules
+    (``quant.py:777-815``): ``{q, scale}`` -> ``QuantKernel``, ``{qw,
+    scale}`` -> ``WOQuantKernel``, ``{packed, scale}`` -> ``Q4Kernel``,
+    each with an int8 first field, stored k-major again (``k_major``: the
+    card's wrappers take no other layout; no copy where it is so already).
+    An ``OutlierQuantKernel`` is saved with the same fields (its
+    ``n_outliers`` is no tensor), so it comes back as a ``QuantKernel``, as
+    in JAX."""
+    if isinstance(tree, dict):
+        node = _revived(tree)
+        if node is not None:
+            return node
+        return {k: revive_quant_kernels(v) for k, v in tree.items()}
+    return tree
 
 
 # --------------------------------------------------------- the KV cache

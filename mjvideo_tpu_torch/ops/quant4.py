@@ -50,6 +50,20 @@ class Q4Kernel:
     packed: torch.Tensor
     scale: torch.Tensor
 
+    @property
+    def shape(self) -> torch.Size:
+        # The logical (..., K, N): two rows a byte.
+        s = self.packed.shape
+        return torch.Size((*s[:-2], 2 * s[-2], s[-1]))
+
+    @property
+    def ndim(self) -> int:
+        return self.packed.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.scale.dtype
+
 
 def _group_size(k4: Q4Kernel) -> int:
     return 2 * k4.packed.shape[-2] // k4.scale.shape[-2]

@@ -12,9 +12,14 @@ refuses) unless ``--device cpu`` asks for the CPU.  ``--attn`` keeps the
 JAX choices: ``auto`` and ``flash`` run the hand-written kernels
 (``attn_impl="auto"``), ``xla`` the exact-softmax oracle
 (``attn_impl="plain"``).  ``--optimizer adafactor``, ``--bf16-adam-mu``,
-``--async-checkpoint`` and ``--remat-policy dots`` are the trainer's
-options of those names.  Options whose machinery the port
-lacks (``--zero1``, ``--lora-rank``, ``--tp``/``--dp`` beyond 1) go into
+``--async-checkpoint``, ``--remat-policy dots`` and ``--lora-rank`` /
+``--lora-alpha`` (LoRA adapters on the decoder's attention and MLP
+kernels, ``ops/lora.py``) are the trainer's options of those names.  A
+``--warm-start`` from a LoRA run's checkpoint, whose kernels are LoRA
+nodes, fails on the unwrapped state; with ``--lora-rank`` > 0 the CLI then
+wraps first and warm-starts again (``mjvideo_tpu/train/cli.py:145-160``),
+so the checkpoint's adapters replace the fresh ones.  Options whose
+machinery the port lacks (``--zero1``, ``--tp``/``--dp`` beyond 1) go into
 ``TrainConfig`` as they are, and the trainer refuses them with
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -110,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: shard optimizer moments over the data axis")
     p.add_argument("--lora-rank", type=int, default=0,
-                   help="rank > 0 trains LoRA adapters on the LLM")
+                   help="rank > 0 trains low-rank LoRA adapters on the LLM "
+                        "instead of full weights (ops/lora.py)")
     p.add_argument("--lora-alpha", type=float, default=None,
                    help="LoRA scale numerator (default: rank, i.e. scale 1)")
     p.add_argument("--async-checkpoint", action="store_true",
@@ -155,7 +161,22 @@ def main(argv=None) -> None:
             cfg, generator=torch.Generator(device=device).manual_seed(
                 args.seed), device=device, dtype=dtype)
     if args.warm_start:
-        params = warm_start(params, args.warm_start)
+        try:
+            params = warm_start(params, args.warm_start)
+        except KeyError:
+            if args.lora_rank <= 0:
+                raise
+            # The previous stage trained with LoRA: its checkpoint's kernels
+            # are LoRA nodes (their paths end in /.a, /.b, ... where the
+            # fresh state's end in /kernel), so wrap before restoring (the Trainer's own
+            # apply_lora is idempotent, and the restore overwrites the
+            # fresh adapters).
+            from ..ops.lora import apply_lora
+
+            params = apply_lora(
+                params, torch.Generator(device=device).manual_seed(
+                    args.lora_rank), args.lora_rank, alpha=args.lora_alpha)
+            params = warm_start(params, args.warm_start)
 
     tokenizer, gating_pattern = load_tokenizer(args.tokenizer
                                                or args.model_path)

@@ -6,7 +6,17 @@ Counterpart of ``mjvideo_tpu/train/trainer.py`` on one device:
 * ``trainable_mask`` gives the set of parameter paths that train in a stage
   (``losses.STAGES``); frozen tensors get ``requires_grad_(False)``, so
   autograd computes and stores no gradient for them (the JAX loss wraps them
-  in ``stop_gradient``).
+  in ``stop_gradient``).  A kernel node's fields have JAX's path strings
+  (``.../kernel/.w``, ``/.a``, ``/.b``, ``/.scale``; a quantized base
+  ``.../kernel/.w/.qw``): nothing under ``.w`` trains.
+* ``TrainConfig.lora_rank`` > 0 wraps the decoder's attention and MLP
+  kernels in LoRA nodes (``ops/lora.py``, its generator seeded with the
+  rank as JAX seeds ``PRNGKey(lora_rank)``), and the backbone then trains
+  only their ``.a`` and ``.b`` fields; the heads keep their stage's policy.
+  Over a quantized base (QLoRA: quantize, then train) the integer fields
+  stay frozen; integer tensors cannot take a gradient in torch, so a
+  quantized state trained without LoRA, which JAX's mask would train
+  through its integer fields, raises ``ValueError``.
 * ``make_optimizer`` reproduces the optax chain the JAX package builds:
   ``clip_by_global_norm`` (scale by ``max_norm / norm`` only when ``norm >=
   max_norm``, no epsilon), then ``adamw`` (moments in the parameter dtype,
@@ -20,9 +30,12 @@ Counterpart of ``mjvideo_tpu/train/trainer.py`` on one device:
   one optimizer step).  Updates are applied in place.
 * ``make_train_step`` and ``Trainer`` keep the JAX signatures; a checkpoint
   is one ``torch.save`` of the params, the optimizer state (moments or
-  factored statistics, counts, accumulation buffer) and the step, so resume
-  is bit-exact.  ``async_checkpoint`` snapshots the state to host memory
-  and writes it on a background thread (``utils.checkpoint.save_state``);
+  factored statistics, counts, accumulation buffer) and the step, kernel
+  nodes as plain dicts (``utils.checkpoint.save_state``), read back with
+  ``torch.load(weights_only=True)`` and the nodes revived
+  (``utils.checkpoint.load_state``), so resume is bit-exact.
+  ``async_checkpoint`` snapshots the state to host memory and writes it on
+  a background thread (``utils.checkpoint.save_state``);
   ``tensorboard`` adds ``checkpoint_dir/tb`` event files beside the JSONL.
 * A vision config with ``drop_path_rate`` or ``dropout`` above 0 trains
   with ViT DropPath and projection dropout: the step's noise key is a pure
@@ -45,6 +58,7 @@ default (``check_supported``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -60,8 +74,8 @@ from ..configs import RewardConfig
 
 from ..models.reward import reward_forward
 from ..models.vit import NoiseKey
-from ..utils.bridge import first_tensor, map_state
-from ..utils.checkpoint import save_state, wait_for_saves
+from ..utils.bridge import first_tensor, is_node, map_state, node_fields
+from ..utils.checkpoint import load_state, save_state, wait_for_saves
 from .losses import STAGES
 
 
@@ -108,7 +122,6 @@ class TrainConfig:
 # Options not ported yet: field -> (the value that is supported, what it
 # waits for).
 _NOT_PORTED = {
-    "lora_rank": (0, "LoRA training, ROADMAP Queue 1 item 11"),
     "zero1": (False, "ZeRO-1, ROADMAP Queue 1 item 12"),
 }
 
@@ -134,23 +147,36 @@ def check_supported(tc: TrainConfig) -> None:
 
 
 def flatten_state(state, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Nested dict of tensors -> {"a/b/c": tensor}, in insertion order."""
+    """Nested dict of tensors and kernel nodes -> {"a/b/c": tensor}, in
+    insertion order; a node's fields are named as JAX's path strings name
+    them (``.../kernel/.w``, ``.../kernel/.w/.qw``)."""
     out: Dict[str, torch.Tensor] = {}
-    for key, val in state.items():
+    items = (state.items() if isinstance(state, dict)
+             else ((f".{name}", v) for name, v in node_fields(state)))
+    for key, val in items:
         path = f"{prefix}{key}"
-        if isinstance(val, dict):
+        if isinstance(val, dict) or is_node(val):
             out.update(flatten_state(val, path + "/"))
         else:
             out[path] = val
     return out
 
 
-def trainable_mask(params, stage: int) -> Set[str]:
-    """The paths of the parameters that train in ``stage`` (the stage's
-    prefixes in ``losses.STAGES``)."""
+def trainable_mask(params, stage: int, lora: bool = False) -> Set[str]:
+    """The paths of the parameters that train in ``stage``
+    (``trainer.py:114-133``): the stage's prefixes in ``losses.STAGES``,
+    nothing under a ``.w`` field (a LoRA node's frozen base) and, with
+    ``lora``, under ``model/`` only the ``.a`` and ``.b`` fields."""
     prefixes = STAGES[stage].trainable_paths
-    return {path for path in flatten_state(params)
-            if any(path.startswith(p) for p in prefixes)}
+
+    def on(path):
+        if not any(path.startswith(p) for p in prefixes) or "/.w" in path:
+            return False
+        if lora and path.startswith("model/"):
+            return path.endswith("/.a") or path.endswith("/.b")
+        return True
+
+    return {path for path in flatten_state(params) if on(path)}
 
 
 def set_trainable(params, paths: Set[str]) -> None:
@@ -369,8 +395,19 @@ class Optimizer:
 
 
 def make_optimizer(tc: TrainConfig, params) -> Optimizer:
+    """The optimizer over ``trainable_mask(params, tc.stage, lora=
+    tc.lora_rank > 0)``; raises ``ValueError`` where that set holds an
+    integer tensor (a quantized base trained without LoRA)."""
     check_supported(tc)
-    return Optimizer(tc, trainable_mask(params, tc.stage))
+    paths = trainable_mask(params, tc.stage, lora=tc.lora_rank > 0)
+    flat = flatten_state(params)
+    ints = sorted(p for p in paths if not flat[p].is_floating_point())
+    if ints:
+        raise ValueError(
+            f"stage {tc.stage} would train {len(ints)} integer tensors of "
+            f"quantized kernels ({ints[0]}, ...): a quantized base trains "
+            "only with LoRA adapters (lora_rank > 0)")
+    return Optimizer(tc, paths)
 
 
 def _sp_spec(tc: TrainConfig, sp_group):
@@ -475,8 +512,16 @@ class Trainer:
                  sp_group=None):
         self.cfg = cfg
         self.tc = tc
-        self.params = params
         self.device = first_tensor(params).device
+        if tc.lora_rank > 0:
+            from ..ops.lora import apply_lora
+
+            # Idempotent: a state already wrapped (a warm start from a LoRA
+            # checkpoint) passes through unchanged.
+            params = apply_lora(
+                params, torch.Generator(device=self.device).manual_seed(
+                    tc.lora_rank), tc.lora_rank, alpha=tc.lora_alpha)
+        self.params = params
         self.optimizer = make_optimizer(tc, params)
         self.opt_state = self.optimizer.init(params)
         self.step_fn = make_train_step(cfg, tc, self.optimizer, sp_group)
@@ -611,7 +656,7 @@ class Trainer:
                         os.path.join(self.tc.checkpoint_dir, name))
         if best is None:
             return None
-        ckpt = torch.load(best[1], map_location=self.device)
+        ckpt = load_state(best[1], map_location=self.device)
         self.params = ckpt["params"]
         self.opt_state = ckpt["opt_state"]
         self.step = ckpt["step"]
@@ -646,15 +691,21 @@ class Trainer:
 
 def warm_start(params, checkpoint_path: str):
     """The params of a checkpoint (a previous stage's) in the dtype and on
-    the device of ``params``; the next stage builds its own optimizer."""
+    the device of ``params``, kernel node by node field; the next stage
+    builds its own optimizer.  A checkpoint whose kernels are LoRA nodes
+    fits only a state wrapped alike (``KeyError`` otherwise: the train
+    CLI then wraps first, as JAX's does)."""
     ref = first_tensor(params)
-    ckpt = torch.load(checkpoint_path, map_location=ref.device)
+    ckpt = load_state(checkpoint_path, map_location=ref.device)
     loaded = flatten_state(ckpt["params"])
 
-    def take(prefix, state):
-        return {k: take(f"{prefix}{k}/", v) if isinstance(v, dict)
-                else loaded[f"{prefix}{k}"].to(v.dtype)
-                for k, v in state.items()}
+    def take(path, v):
+        if isinstance(v, dict):
+            return {k: take(f"{path}{k}/", x) for k, x in v.items()}
+        if is_node(v):
+            return dataclasses.replace(v, **{
+                name: take(f"{path}.{name}/", x)
+                for name, x in node_fields(v)})
+        return loaded[path[:-1]].to(v.dtype)
 
     return take("", params)
-

@@ -6,7 +6,8 @@ stacked on a leading ``L`` axis (``vit.py:60-77``, ``decoder.py:70-95``), the
 patch kernel ``(P*P*3, C)``.  Crossing between the two is therefore a
 leaf-by-leaf copy through numpy, with no transposes.  A quantized kernel is
 one leaf of the state: a node of ``ops/quant.py`` or ``ops/quant4.py``
-whose tensor fields carry the same leading layer axes.
+whose tensor fields carry the same leading layer axes; so is a LoRA kernel
+(``ops/lora.py``), whose ``w`` field may itself be a quantized node.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from ..ops.lora import LoraKernel
 from ..ops.quant import (
     OutlierQuantKernel,
     QuantKernel,
@@ -26,34 +28,50 @@ from ..ops.quant import (
 )
 from ..ops.quant4 import Q4Kernel
 
+# Node fields that hold no array (static metadata in JAX).
+_STATIC_FIELDS = ("n_outliers",)
+
+
+def is_node(x) -> bool:
+    """Whether ``x`` is a kernel node of the state: quantized or LoRA."""
+    return is_qnode(x) or isinstance(x, LoraKernel)
+
+
+def node_fields(node):
+    """(name, value) of each array field of a node, in declaration order;
+    a LoRA node's ``w`` may be a node itself."""
+    return [(f.name, getattr(node, f.name)) for f in dataclasses.fields(node)
+            if f.name not in _STATIC_FIELDS]
+
 
 def map_state(fn: Callable, state):
     """Apply ``fn`` to every leaf of a nested dict, keeping its structure;
-    in a quantized node, to each array field (``n_outliers`` stays), which
-    rebuilds the node: slicing a stacked state slices its nodes too."""
+    in a node, to each array field, recursing into a field that is a node
+    (``n_outliers`` stays), which rebuilds the node: slicing a stacked
+    state slices its nodes too."""
     if isinstance(state, dict):
         return {k: map_state(fn, v) for k, v in state.items()}
-    if is_qnode(state):
+    if is_node(state):
         return dataclasses.replace(state, **{
-            f.name: fn(getattr(state, f.name))
-            for f in dataclasses.fields(state) if f.name != "n_outliers"})
+            name: map_state(fn, v) for name, v in node_fields(state)})
     return fn(state)
 
 
 def first_tensor(state) -> torch.Tensor:
-    """The first tensor of a nested dict of tensors and quantized nodes
-    (its device is the state's)."""
-    while isinstance(state, dict):
-        state = next(iter(state.values()))
-    if is_qnode(state):
-        return getattr(state, dataclasses.fields(state)[0].name)
+    """The first tensor of a nested dict of tensors and nodes (its device
+    is the state's)."""
+    while isinstance(state, dict) or is_node(state):
+        state = (next(iter(state.values())) if isinstance(state, dict)
+                 else node_fields(state)[0][1])
     return state
 
 
 def _jax_node(a):
-    """The port's node class for a JAX quantized dataclass leaf, told by its
-    field names (the JAX package's are unique: ``quant.py:70-175``,
-    ``quant4.py:49-75``), or None for an array."""
+    """The port's node class for a JAX kernel node, told by its field names
+    (the JAX package's are unique: ``quant.py:70-175``,
+    ``quant4.py:49-75``, ``lora.py:46-73``), or None for an array."""
+    if all(hasattr(a, f) for f in ("w", "a", "b", "scale")):
+        return LoraKernel
     if hasattr(a, "packed") and hasattr(a, "scale"):
         return Q4Kernel
     if hasattr(a, "qw") and hasattr(a, "scale"):
@@ -73,13 +91,15 @@ def _tensor(a) -> torch.Tensor:
 def from_jax_params(tree, *, device: Union[str, torch.device] = "cuda",
                     dtype: Optional[torch.dtype] = None):
     """JAX parameter pytree (leaves: numpy or JAX arrays, or the JAX
-    package's quantized kernels) -> torch state on ``device`` (the card
-    unless the caller asks for another), plain leaves optionally cast to
+    package's kernel nodes) -> torch state on ``device`` (the card unless
+    the caller asks for another), plain leaves optionally cast to
     ``dtype``.  Quantized kernels become the port's nodes with their
     integer and scale fields as they are, the int8 weights (``q``, ``qw``)
     and the packed int4 ones (``packed``) k-major, as the port's quantizers
     store them (``ops.quant.k_major``: transposed on the host, moved with
-    their strides)."""
+    their strides).  A JAX ``LoraKernel`` becomes the port's, its ``w``
+    converted as any leaf (a tensor or a quantized node, cast to ``dtype``
+    where plain) and its ``a``, ``b`` and ``scale`` as they are."""
     def field(name, v):
         t = _tensor(v)
         return (k_major(t) if name in ("q", "qw", "packed")
@@ -92,6 +112,10 @@ def from_jax_params(tree, *, device: Union[str, torch.device] = "cuda",
             return t.to(device=device, dtype=dtype or t.dtype)
         fields = {f.name: getattr(a, f.name)
                   for f in dataclasses.fields(node)}
+        if node is LoraKernel:
+            return LoraKernel(w=leaf(fields["w"]),
+                              **{k: field(k, fields[k])
+                                 for k in ("a", "b", "scale")})
         return node(**{k: v if k == "n_outliers" else field(k, v)
                        for k, v in fields.items()})
 

@@ -24,7 +24,12 @@ of the whole state is built on the host or in fp32.  The
 port resumes its own ``torch.save`` checkpoints
 (``train/trainer.py``) in place of JAX's orbax ones: ``save_state`` writes
 one, blocking or in the background (JAX's ``save_pytree(block=False)``),
-and ``wait_for_saves`` waits for the one outstanding.
+and ``wait_for_saves`` waits for the one outstanding.  A kernel node
+(quantized, ``ops/quant*.py``, or LoRA, ``ops/lora.py``) is written as a
+plain dict of its tensor fields, so the file holds dicts, tensors and
+numbers only and ``torch.load(..., weights_only=True)`` reads it;
+``load_state`` reads it so and revives the LoRA nodes, then the quantized
+ones, as JAX's ``restore_pytree`` does (``checkpoint.py:586-604``).
 """
 
 from __future__ import annotations
@@ -459,29 +464,42 @@ class _Writer(threading.Thread):
 _PENDING: Optional[_Writer] = None
 
 
+def _plain_state(state):
+    """``state`` with every kernel node as a plain dict of its tensor
+    fields (recursively: a LoRA node's quantized ``w`` too); what
+    ``save_state`` writes."""
+    from .bridge import is_node, node_fields
+
+    if isinstance(state, dict):
+        return {k: _plain_state(v) for k, v in state.items()}
+    if is_node(state):
+        return {name: _plain_state(v) for name, v in node_fields(state)}
+    return state
+
+
 def _write(state, path: str) -> None:
-    """``torch.save`` through a temporary file and ``os.replace``: a
-    reader sees the old file or the whole new one."""
+    """``torch.save`` of ``_plain_state(state)`` through a temporary file
+    and ``os.replace``: a reader sees the old file or the whole new one."""
     tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(state, tmp)
+    torch.save(_plain_state(state), tmp)
     os.replace(tmp, path)
 
 
 def host_snapshot(state):
-    """A copy of ``state`` (nested dicts) with every tensor copied to host
-    memory and other leaves as they are: what a background save writes
+    """A copy of ``state`` (nested dicts and kernel nodes) with every
+    tensor, a node's fields included, copied to host memory (strides
+    kept) and other leaves as they are: what a background save writes
     while the training step goes on updating the live tensors in place."""
-    if torch.is_tensor(state):
-        return state.detach().to("cpu", copy=True)
-    if isinstance(state, dict):
-        return {k: host_snapshot(v) for k, v in state.items()}
-    return state
+    from .bridge import map_state
+
+    return map_state(lambda x: x.detach().to("cpu", copy=True)
+                     if torch.is_tensor(x) else x, state)
 
 
 def save_state(state, path: str, block: bool = True) -> None:
-    """Write ``state`` to ``path`` (``torch.save``, atomically).
-    ``block=False``: wait for the previous background save, take a host
-    snapshot, and write it on a thread, so at most one save is
+    """Write ``state`` to ``path`` (``torch.save`` of ``_plain_state``,
+    atomically).  ``block=False``: wait for the previous background save,
+    take a host snapshot, and write it on a thread, so at most one save is
     outstanding; the call returns once the snapshot is taken."""
     global _PENDING
     if block:
@@ -490,6 +508,18 @@ def save_state(state, path: str, block: bool = True) -> None:
     wait_for_saves()
     _PENDING = _Writer(host_snapshot(state), path)
     _PENDING.start()
+
+
+def load_state(path: str, map_location=None):
+    """A state written by ``save_state``, read with
+    ``torch.load(weights_only=True)`` onto ``map_location``, its LoRA nodes
+    and then its quantized nodes revived (``ops.lora.revive_lora_kernels``,
+    ``ops.quant.revive_quant_kernels``; the int8 fields k-major)."""
+    from ..ops.lora import revive_lora_kernels
+    from ..ops.quant import revive_quant_kernels
+
+    tree = torch.load(path, map_location=map_location, weights_only=True)
+    return revive_quant_kernels(revive_lora_kernels(tree))
 
 
 def wait_for_saves() -> None:

@@ -392,8 +392,8 @@ def test_judge_quant_logits_match_jax(chat_params, mode):
 
 def test_port_imports_no_jax_and_no_mjvideo_tpu():
     """In a fresh interpreter: import ``mjvideo_tpu_torch`` and every
-    submodule (the ViT attention variants' ``ops.vit_attention_variants``
-    among them), ``chip_smoke.py`` and the two A/B harnesses of the ViT
+    submodule (the ViT attention variants' ``ops.vit_attention_variants``,
+    ``ops.lora``, ``utils.profiling`` and ``examples.serve`` among them), ``chip_smoke.py`` and the two A/B harnesses of the ViT
     attention under ``tools/``, then find no ``jax`` and no
     ``mjvideo_tpu`` module loaded."""
     code = """
@@ -402,6 +402,8 @@ import mjvideo_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, "mjvideo_tpu_torch."):
     importlib.import_module(m.name)
 assert "mjvideo_tpu_torch.ops.vit_attention_variants" in sys.modules
+for name in ("ops.lora", "utils.profiling", "examples.serve"):
+    assert f"mjvideo_tpu_torch.{name}" in sys.modules, name
 import chip_smoke
 for name in ("vit_attn_variants_torch", "vit_layout_ab_torch"):
     spec = importlib.util.spec_from_file_location(name, f"tools/{name}.py")

@@ -242,14 +242,13 @@ def test_optimizer_matches_optax_on_fixed_gradients(kw):
 
 def test_unported_options_raise_with_their_roadmap_item(setup):
     cfg, params = setup
-    for kw, item in ((dict(lora_rank=4), "item 11"),
-                     (dict(zero1=True), "item 12"),
+    for kw, item in ((dict(zero1=True), "item 12"),
                      (dict(mesh_model_axis=2), "item 12")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             ttrainer.make_optimizer(ttrainer.TrainConfig(**kw), params)
     # Adafactor, bf16 mu, async checkpoints, TensorBoard and remat="dots"
-    # are ported (tests/test_torch_train_options.py); a misspelt value
-    # raises.
+    # are ported (tests/test_torch_train_options.py), LoRA too
+    # (tests/test_torch_lora.py); a misspelt value raises.
     for kw in (dict(optimizer="adam"), dict(adam_mu_dtype="float16")):
         with pytest.raises(ValueError, match="unknown"):
             ttrainer.make_optimizer(ttrainer.TrainConfig(**kw), params)
