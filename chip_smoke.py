@@ -853,9 +853,10 @@ D96_K3_SHAPES = {"prefill": (2, 3072, 3072, 32, 32, 96, None),
                  "decode step": (2, 1, 3072, 32, 32, 96, 3000)}
 EVAL_4B_PAIRS = 2
 # Phases 24 and 26 run the InternVL2-4B judge at its widths with its Phi-3
-# decoder cut to 16 of 32 layers, for the script's time limit (the 4B's
-# scoring, reward gradient and training keep all 32).
-JUDGE_4B_LLM_DEPTH = 16
+# decoder cut to 8 of 32 layers (16 before phase 33 was added), for the
+# script's time limit (the 4B's scoring, reward gradient and training keep
+# all 32).
+JUDGE_4B_LLM_DEPTH = 8
 # Phase 26: the Qwen2-VL judge.  Its vision tower's K1 at D = 80 over the
 # temporal slabs of 8 frames at 364 px (a (4, 26, 26) grid: 676 patches a
 # slab) and at 280 x 504 (720); K2r at D = 96 at the 4B's 32/32 heads on
@@ -916,7 +917,7 @@ IVL_8B_LLM_DEPTH = 16
 # Qwen2-VL-2B judge (28 layers) and phase 27's MiniCPM-V-2.6 judge
 # (Qwen2-7B, 28) to these depths; their vision towers stay whole, and the
 # CLI phases keep their own depths.  Phase 28's CogVLM2-Video judge keeps
-# all 32 layers: its end-to-end logits sit near LOGITS_REL_TOL there (F7).
+# all 32 of its layers: its end-to-end logits sit near LOGITS_REL_TOL (F7).
 QWEN_LLM_DEPTH = 14
 MCPM_LLM_DEPTH = 14
 
@@ -8004,6 +8005,500 @@ def serving_example_phase(scorer, ckpt_dir, dev):
             "traced": traced}, launches
 
 
+# Phase 33: the (data, model) mesh (``parallel/mesh.py``) on one card, every
+# shard in this process (``Mesh.local``).  (a) and (b) score phase 4's pair
+# request on phase 4's state; (c) trains phase 5's weights on batches of
+# two of phase 5's pairs; (d) is the dry run.
+MESH_SCORING = ((2, 1), (1, 2), (2, 2))
+MESH_QUANT_MODES = ("int8-wo", "int4-wo")
+# K5 at the 2B decoder's projections cut over 2 model ranks, (K, N): wq
+# (and the ViT's fc2) by N, wo by K, w1/w3 by N, w2 by K; M = 2 rows.
+MESH_W4_SHAPES = ((2048, 1024), (1024, 2048), (2048, 4096), (4096, 2048))
+MESH_W4_ROWS = 2
+MESH_TRAIN_PAIRS = 8   # phase 5's draw, merged two pairs a batch
+MESH_TP = 2
+
+
+def _merge_pairs(a, b, pad_id):
+    """One batch of the two one-pair batches ``a`` and ``b``, each video's
+    prompts padded to the longer (pad ids, mask 0): the rows of each pair
+    keep what they held."""
+    import numpy as np
+
+    out = {}
+    for k in a:
+        x, y = a[k], b[k]
+        if k.endswith(("input_ids", "attention_mask")):
+            T = max(x.shape[1], y.shape[1])
+            value = pad_id if k.endswith("input_ids") else 0
+            x, y = (np.pad(t, ((0, 0), (0, T - t.shape[1])),
+                           constant_values=value) for t in (x, y))
+        out[k] = np.concatenate([x, y])
+    return out
+
+
+def mesh_train_data():
+    """The 2B config rebased on the ``ByteTokenizer`` and phase 5's first
+    MESH_TRAIN_PAIRS pairs (the same seeded draw) merged two a batch."""
+    import numpy as np
+
+    from mjvideo_tpu_torch import ByteTokenizer, mjvideo_2b_config
+    from mjvideo_tpu_torch.data.prompts import rebase_img_context_id
+
+    cfg = mjvideo_2b_config()
+    tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
+    cfg = rebase_img_context_id(cfg, tok)
+    pairs = make_train_batches(cfg, tok, np.random.default_rng(SEED),
+                               MESH_TRAIN_PAIRS)
+    return cfg, [_merge_pairs(pairs[i], pairs[i + 1],
+                              cfg.chat.llm.pad_token_id)
+                 for i in range(0, len(pairs), 2)]
+
+
+def check_mesh_kernels(randn, batches, cfg):
+    """Each kernel at the head counts a model rank of 2 runs, against its
+    twin (``check_vit_attention``, ``check_decoder_kernels``: 2**-7 of
+    max|plain|): K1 at 8 of the ViT's 16 heads (a data shard's clip),
+    K2 and its pre-pass at 8/4 of the decoder's 16/8 at serving's bucket
+    (a clip a data shard, and the pair), K2 lse, K4a and K4b at training's
+    prompts (a pair a data shard, one video a forward); then K5 at the
+    decoder's projections cut over the model axis (``MESH_W4_SHAPES``).
+    Returns the readings by (kernel, shape)."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import quant as q8
+    from mjvideo_tpu_torch.ops import quant4 as q4
+
+    out = {}
+    vis, llm = cfg.chat.vision, cfg.chat.llm
+    H, Hq, Hkv = (vis.num_attention_heads // MESH_TP,
+                  llm.num_attention_heads // MESH_TP,
+                  llm.num_key_value_heads // MESH_TP)
+    shape = (FRAMES, K1_SHAPES[0][1], H, vis.head_dim)
+    for name, r in check_vit_attention(randn, shape).items():
+        out[name, shape] = r
+    T = K2_SHAPES[-1][1]
+    for B in (1, 2):
+        # A data shard's clip (its prompt's keys live, as phase 3's single
+        # clip), and the pair with a ragged mask.
+        shape = (B, T, Hq, Hkv, llm.head_dim)
+        live = single_clip_length() if B == 1 else None
+        for name, r in check_decoder_kernels(randn, shape, ragged=B == 2,
+                                             live=live).items():
+            out[name, shape] = r
+    lengths = sorted({b[f"video_{v}_input_ids"].shape[1]
+                      for b in batches for v in (0, 1)})
+    for T in lengths:
+        shape = (1, T, Hq, Hkv, llm.head_dim)
+        for name, r in check_decoder_kernels(randn, shape,
+                                             ragged=False).items():
+            out[name, shape] = r
+    M = MESH_W4_ROWS
+    for K, N in MESH_W4_SHAPES:
+        k4 = q4.quantize_kernel_q4(randn(K, N).float() * 0.02,
+                                   group_size=W4_GROUP)
+        if not q8.is_k_major(k4.packed):
+            raise RuntimeError("quantize_kernel_q4 gave strides "
+                               f"{k4.packed.stride()}, not k-major")
+        x = randn(M, K)
+        out["K5", (M, K, N)] = _check_kernel(
+            f"K5 w4_matmul at a model rank's {(M, K, N)} g {W4_GROUP}",
+            lambda: kernels.w4_matmul(x, k4.packed, k4.scale),
+            lambda: q4.w4_matmul_plain(x, k4.packed, k4.scale),
+            extra=_again(lambda: kernels.w4_matmul(x, k4.packed, k4.scale)),
+            work=(_nbytes(x, k4.packed, k4.scale) + 4 * M * N,
+                  2 * M * K * N, BF16_OPS_PER_S))
+    return out
+
+
+def _first_layer_heads(scorer, request, dev):
+    """The first ViT and decoder layer's attention on the pair request: the
+    whole layer's K1 and K2 against each model rank's heads (of 2), given
+    the same q, k and v (the unsharded product's head columns, laid out as
+    a rank's product lays them out: the ViT's q|k|v of its heads, the
+    decoder's query heads and their kv heads).  Raises unless every rank's
+    output is bit-equal to the whole layer's on its heads."""
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch.eval.scorer import round_to_bucket
+    from mjvideo_tpu_torch.models import internvl as tivl
+    from mjvideo_tpu_torch.models import vit as tvit
+    from mjvideo_tpu_torch.ops.attention import multi_head_attention
+    from mjvideo_tpu_torch.ops.matmul import dot
+    from mjvideo_tpu_torch.ops.norms import rms_norm
+    from mjvideo_tpu_torch.ops.rope import apply_rope, rope_tables
+    from mjvideo_tpu_torch.utils.bridge import map_state
+
+    pix, ids_list, _ = request
+    cfg, p = scorer.cfg, scorer.params["model"]
+    vis, llm = cfg.chat.vision, cfg.chat.llm
+    m = MESH_TP
+    out = {}
+    with torch.inference_mode():
+        x = torch.as_tensor(pix).to(dev, scorer.dtype)
+        h = tvit.embeddings(p["vision_model"]["embeddings"], vis, x)
+        layer = map_state(lambda a: a[0], p["vision_model"]["layers"])
+        h = tvit._norm(vis, layer["norm1"], h)
+        qkv = dot(h, layer["attn"]["qkv"]["kernel"])
+        qkv = qkv + layer["attn"]["qkv"]["bias"]
+        B, S, C3 = qkv.shape
+        C, H, D = C3 // 3, vis.num_attention_heads, vis.head_dim
+
+        def k1(t, heads):
+            q, k, v = (u.view(B, S, heads, D) for u in t.split(t.shape[-1]
+                                                              // 3, -1))
+            return multi_head_attention(q, k, v, causal=False,
+                                        norm_bound=True)
+
+        whole = k1(qkv, H)
+        same = []
+        for j in range(m):
+            n = C // m
+            mine = torch.cat([qkv[..., i * C + j * n:i * C + (j + 1) * n]
+                              for i in range(3)], -1)
+            got = k1(mine, H // m)
+            same.append(torch.equal(got, whole.view(B, S, H, D)[
+                :, :, j * (H // m):(j + 1) * (H // m)]))
+        out["vit"] = same
+
+        T = round_to_bucket(max(len(i) for i in ids_list), scorer.buckets)
+        ids = np.stack([scorer._pad(np.asarray(i, np.int32), T,
+                                    scorer.pad_token_id) for i in ids_list])
+        mask = np.stack([scorer._pad(np.ones(len(i), np.int32), T, 0)
+                         for i in ids_list])
+        ids_t = torch.as_tensor(ids).to(dev)
+        mask_t = torch.as_tensor(mask).to(dev)
+        lm = p["language_model"]
+        emb = tivl.embed_prompt(lm, ids_t, scorer.img_context_token_id)
+        feats = tivl.extract_feature(p, cfg.chat, x)
+        emb = tivl.scatter_image_embeds(emb, ids_t, feats,
+                                        scorer.img_context_token_id)
+        layer = map_state(lambda a: a[0], lm["layers"])
+        h = rms_norm(emb, layer["attention_norm"]["weight"],
+                     eps=llm.rms_norm_eps)
+        Hq, Hkv, D = (llm.num_attention_heads, llm.num_key_value_heads,
+                      llm.head_dim)
+        q, k, v = (dot(h, layer["attention"][w]["kernel"]).reshape(
+            B // FRAMES, T, -1, D) for w in ("wq", "wk", "wv"))
+        cos, sin = rope_tables(
+            T, D, base=llm.rope_theta, scaling_type=llm.rope_scaling_type,
+            scaling_factor=llm.rope_scaling_factor,
+            max_position_embeddings=llm.max_position_embeddings, device=dev)
+        q, k = apply_rope(q, k, cos, sin)
+
+        def k2(q, k, v):
+            return multi_head_attention(q, k, v, attention_mask=mask_t,
+                                        causal=True, norm_bound=True)
+
+        whole = k2(q, k, v)
+        same = []
+        for j in range(m):
+            qs, ks = slice(j * Hq // m, (j + 1) * Hq // m), slice(
+                j * Hkv // m, (j + 1) * Hkv // m)
+            got = k2(q[:, :, qs].contiguous(), k[:, :, ks].contiguous(),
+                     v[:, :, ks].contiguous())
+            same.append(torch.equal(got, whole[:, :, qs]))
+        out["decoder"] = same
+    print(f"phase 33 (a): the first layer's attention on each of {m} model "
+          f"ranks' heads bit-equal to the whole layer's: ViT K1 "
+          f"{out['vit']}, decoder K2 {out['decoder']}")
+    if not all(out["vit"] + out["decoder"]):
+        raise RuntimeError(f"phase 33 (a): a rank's heads differ: {out}")
+    return out
+
+
+def mesh_scoring_phase(scorer, requests, pair_scores, dev):
+    """Phase 33 (a) and (b) on phase 4's state: the pair request through
+    ``RewardScorer(mesh=)`` at each of MESH_SCORING against phase 4's
+    unsharded scores (SCORE_TOL), the launches exact (a clip a data shard,
+    a head group a model rank); the first layer's attention per rank's
+    heads bit-equal to the whole layer's; then ``int8-wo`` and ``int4-wo``
+    at ``local(1, 2)`` against the same quantized tree unsharded (both
+    bf16 kernels) and through the plain path in fp32, each within the
+    quantized modes' bar, QUANT_SCORE_TOL (phase 11's).  ``pair_scores``: phase 4's scores of the pair.
+    Returns the readings and the launch counts by path."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels
+    from mjvideo_tpu_torch.parallel.mesh import Mesh
+
+    pair, want = requests[1], pair_scores
+    vis, llm = scorer.cfg.chat.vision, scorer.cfg.chat.llm
+    out, launches = {}, {}
+
+    def meshed(params, mesh, quant=None):
+        return RewardScorer(scorer.cfg, params, scorer.tokenizer,
+                            dtype=scorer.dtype, quant=quant,
+                            length_buckets=scorer.buckets,
+                            gating_pattern=scorer.gating_pattern, mesh=mesh)
+
+    for data, model in MESH_SCORING:
+        mesh = Mesh.local(data, model)
+        sc = meshed(scorer.params, mesh)
+        sc.score_batch(*pair)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = sc.score_batch(*pair).score.float().cpu()
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        ms = _host_ms(lambda: sc.score_batch(*pair), reps=3)
+        del sc
+        shards = data * model
+        wanted = _with_prepass({
+            "vit_attention": vis.num_hidden_layers * shards,
+            "decoder_attention": llm.num_hidden_layers * shards})
+        wanted = {k: wanted.get(k, 0) for k in counts}
+        delta = (got - want.float().cpu()).abs().max().item()
+        name = f"local({data}, {model})"
+        print(f"phase 33 (a) {name}: pair scores {got.tolist()} against "
+              f"{want.float().cpu().tolist()} unsharded, |delta| "
+              f"{delta:.3e} (bound {SCORE_TOL}); {ms:.1f} ms a pair "
+              f"request; launches {counts}")
+        if not delta < SCORE_TOL:
+            raise RuntimeError(f"phase 33 (a) {name}: score delta {delta}")
+        if counts != wanted:
+            raise RuntimeError(f"phase 33 (a) {name}: launches {counts}, "
+                               f"want {wanted}")
+        out[name] = {"scores": got.tolist(), "delta": delta, "ms": ms}
+        launches[f"mesh_scoring_{data}x{model}"] = counts
+    out["first_layer_heads"] = _first_layer_heads(scorer, pair, dev)
+
+    for mode in MESH_QUANT_MODES:
+        one = meshed(scorer.params, None, quant=mode)
+        ref = one.score_batch(*pair).score.float().cpu()
+        tree = one.params
+        del one
+        plain = RewardScorer(scorer.cfg, _float_plain(tree), scorer.tokenizer,
+                             dtype=torch.float32,
+                             length_buckets=scorer.buckets,
+                             gating_pattern=scorer.gating_pattern,
+                             attn_impl="plain")
+        fp32 = plain.score_batch(*pair).score.float().cpu()
+        del plain
+        sc = meshed(tree, Mesh.local(1, 2), quant=mode)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = sc.score_batch(*pair).score.float().cpu()
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        del sc, tree
+        torch.cuda.empty_cache()
+        delta = (got - ref).abs().max().item()
+        vs_plain = (got - fp32).abs().max().item()
+        ref_vs_plain = (ref - fp32).abs().max().item()
+        print(f"phase 33 (b) {mode} at local(1, 2): pair scores "
+              f"{got.tolist()} against {ref.tolist()} unsharded, |delta| "
+              f"{delta:.3e}; against the tree through the plain path in fp32 "
+              f"{fp32.tolist()}: |delta| {vs_plain:.3e} (unsharded "
+              f"{ref_vs_plain:.3e}); bound {QUANT_SCORE_TOL} each")
+        if not (delta < QUANT_SCORE_TOL and vs_plain < QUANT_SCORE_TOL):
+            raise RuntimeError(f"phase 33 (b) {mode}: score delta {delta}, "
+                               f"against fp32 plain {vs_plain}")
+        out[mode] = {"scores": got.tolist(), "unsharded": ref.tolist(),
+                     "fp32_plain": fp32.tolist(), "delta": delta,
+                     "delta_vs_plain": vs_plain,
+                     "unsharded_delta_vs_plain": ref_vs_plain}
+        launches[f"mesh_scoring_{mode}"] = counts
+    return out, launches
+
+
+def _acc_grads(trainer):
+    """The accumulation buffer (after one micro-step: its gradient) by
+    path, whole."""
+    acc = trainer.whole_opt_state()["acc"]
+    return [acc[p] for p in trainer.optimizer.paths]
+
+
+def mesh_training_phase(dev, generator, d):
+    """Phase 33 (c) at the 2B widths: stage 3 (phase 5's config) at
+    ``local(2, 2)`` on batches of two of phase 5's pairs, 2 optimizer
+    steps (4 micro-batches), without and with ZeRO-1: ZeRO-1's parameters
+    and optimizer state bit-equal to the replicated run's; its first
+    micro-batch's gradient against the unsharded ``Trainer``'s (the same
+    bf16 kernels) by FIDELITY_REL_L2 and FIDELITY_COS; each data rank's
+    optimizer bytes beside the unsharded state's; then, at full width and
+    ASYNC_DEPTH deep (a resume is bit-equal or not at any depth), a ZeRO-1
+    run of 3 micro-batches (one optimizer step, the accumulator
+    mid-window), a save, a resume and one more micro-step bit-equal to the
+    unbroken run's.  Returns the readings and the launch counts by
+    path."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import init_reward_params, kernels
+    from mjvideo_tpu_torch.parallel.mesh import Mesh
+    from mjvideo_tpu_torch.train.trainer import (
+        Trainer,
+        flatten_state,
+        state_bytes,
+    )
+
+    cfg, batches = mesh_train_data()
+    out, launches = {}, {}
+
+    def trainer(mesh, zero1, sub, c=cfg):
+        params = init_reward_params(c, generator=generator(), device=dev,
+                                    dtype=torch.bfloat16)
+        tc = train_config(os.path.join(d, sub))
+        tc.zero1 = zero1
+        return Trainer(c, params, tc, mesh=mesh)
+
+    def snapshot(tr):
+        """The whole state by path (gathered), and the step."""
+        return ({**{f"params/{k}": v for k, v in
+                    flatten_state(tr.whole_params()).items()},
+                 **{f"opt/{k}": v for k, v in
+                    flatten_state(tr.whole_opt_state()).items()}}, tr.step)
+
+    def same_state(got, want):
+        """Every entry of the two snapshots bit-equal."""
+        if got[1] != want[1] or got[0].keys() != want[0].keys():
+            return False
+        return all(torch.equal(v, want[0][k]) if torch.is_tensor(v)
+                   else v == want[0][k] for k, v in got[0].items())
+
+    # The unsharded kernel run's first micro-batch.
+    clock = {}
+    start = time.perf_counter()
+    one = trainer(None, False, "one")
+    one.train(batches[:1])
+    ref = _acc_grads(one)
+    out["unsharded_state_gib"] = state_bytes(one.opt_state) / 2**30
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock["unsharded"] = time.perf_counter() - start
+
+    mesh = Mesh.local(2, 2)
+    replicated = None
+    for zero1 in (False, True):
+        start = time.perf_counter()
+        tr = trainer(mesh, zero1, f"zero1_{zero1}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        records, dt = [], 0.0
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            records.append(tr.train([b]))
+            torch.cuda.synchronize()
+            dt += time.perf_counter() - t0
+            if i == 0 and zero1:
+                got = _acc_grads(tr)
+                rel, cos, _ = _agreement(got, ref)
+                del got, ref
+                print(f"phase 33 (c): the first micro-batch's gradient on "
+                      f"local(2, 2) against the unsharded kernel run: "
+                      f"relative L2 {rel:.4e} (bound {FIDELITY_REL_L2}), "
+                      f"cosine {cos:.6f} (bound {FIDELITY_COS})")
+                out["gradient"] = {"rel_l2": rel, "cos": cos}
+                if not (rel <= FIDELITY_REL_L2 and cos >= FIDELITY_COS):
+                    raise RuntimeError(f"phase 33 (c): gradient relative "
+                                       f"L2 {rel}, cosine {cos}")
+        counts = dict(kernels.launch_counts)
+        # Phase 5's launches a video and micro-batch, once per data shard
+        # and model rank.
+        per_video = _with_prepass({
+            "vit_attention": cfg.chat.vision.num_hidden_layers,
+            "decoder_attention": 2 * cfg.chat.llm.num_hidden_layers,
+            "decoder_attention_lse": 2 * cfg.chat.llm.num_hidden_layers,
+            "decoder_attention_bwd_dkdv": cfg.chat.llm.num_hidden_layers,
+            "decoder_attention_bwd_dq": cfg.chat.llm.num_hidden_layers})
+        wanted = {k: 2 * len(batches) * mesh.data * mesh.model
+                  * per_video.get(k, 0) for k in counts}
+        if counts != wanted:
+            raise RuntimeError(f"phase 33 (c) launches {counts}, want "
+                               f"{wanted}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if not all(math.isfinite(r["loss"]) for r in records):
+            raise RuntimeError(f"phase 33 (c): non-finite losses {records}")
+        if tr.opt_state["gradient_step"] != len(batches) // 2:
+            raise RuntimeError("phase 33 (c): the optimizer did not step "
+                               "once per 2 micro-batches")
+        ranks = {f"{dr},{mr}": n / 2**30 for (dr, mr), n in
+                 tr.optimizer.rank_bytes(tr.opt_state).items()}
+        label = "ZeRO-1" if zero1 else "replicated"
+        print(f"phase 33 (c) {label} at local(2, 2): losses "
+              f"{[round(r['loss'], 6) for r in records]}, {dt:.1f} s for "
+              f"{len(batches)} micro-steps, peak {peak:.2f} GiB; optimizer "
+              f"GiB by (data, model) rank {ranks} (unsharded "
+              f"{out['unsharded_state_gib']:.3f} GiB)")
+        out[label] = {"losses": [r["loss"] for r in records], "s": dt,
+                      "peak_gib": peak, "rank_state_gib": ranks}
+        launches[f"mesh_training_{label}"] = counts
+        if not zero1:
+            replicated = snapshot(tr)
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        clock[label] = time.perf_counter() - start
+    same = same_state(snapshot(tr), replicated)
+    print(f"phase 33 (c): ZeRO-1's parameters and optimizer state bit-equal "
+          f"to the replicated run's: {same}")
+    if not same:
+        raise RuntimeError("phase 33 (c): ZeRO-1 differs from the "
+                           "replicated run")
+    out["zero1_bit_equal"] = same
+    del replicated, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Save after 3 micro-batches at ASYNC_DEPTH; one more on the unbroken
+    # run and on a resumed one.
+    small = cut_depth(cfg, *ASYNC_DEPTH)
+    tr = trainer(mesh, True, "resume", small)
+    tr.train(batches[:3])
+    t0 = time.perf_counter()
+    path = tr.save()
+    clock["save"] = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    tr.train(batches[3:4])
+    unbroken = snapshot(tr)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    back = trainer(mesh, True, "resume", small)
+    back.resume_latest()
+    clock["resume"] = time.perf_counter() - t0
+    back.train(batches[3:4])
+    same = same_state(snapshot(back), unbroken)
+    print(f"phase 33 (c): at {ASYNC_DEPTH} (ViT, decoder) layers, saved at "
+          f"step 3 ({os.path.basename(path)}, {size / 2**30:.2f} GiB), "
+          f"resumed, one more micro-step bit-equal to the unbroken run's: "
+          f"{same}; seconds by part "
+          f"{({k: round(v, 1) for k, v in clock.items()})}")
+    out["seconds_by_part"] = clock
+    out["checkpoint_gib"] = size / 2**30
+    if not same:
+        raise RuntimeError("phase 33 (c): the resumed step differs")
+    out["resume_bit_equal"] = same
+    del back, unbroken
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def mesh_phase_tail(dev, generator):
+    """Phase 33 (c) and (d): the mesh training (``mesh_training_phase``)
+    and ``dryrun_multichip(4)`` on the card, with their command time and
+    launch counts by path."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.dryrun import dryrun_multichip
+
+    with tempfile.TemporaryDirectory() as d:
+        out, launches = mesh_training_phase(dev, generator, d)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    out["dryrun"] = dryrun_multichip(4, device=str(dev))
+    launches["mesh_dryrun"] = dict(kernels.launch_counts)
+    out["dryrun"]["s"] = time.perf_counter() - t0
+    print(f"phase 33 (d): dryrun_multichip(4) on the card in "
+          f"{out['dryrun']['s']:.1f} s")
+    return out, launches
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
     ``tools/phase25_torch.py``, ``tools/phase27_torch.py``,
@@ -8217,6 +8712,15 @@ def main() -> int:
     vader_out, vader_launches = vader_phase(scorer, dev)
     # Phase 20: the long-context reading, with and without the ring.
     long_out, long_launches = long_context_phase(scorer, dev)
+    # Phase 33 (a) and (b): the mesh's scoring on the same bf16 state; its
+    # kernels at the head counts of a model rank of 2.
+    t0 = time.perf_counter()
+    mesh_k = check_mesh_kernels(drawer(generator()), mesh_train_data()[1],
+                                scorer.cfg)
+    mesh_out, mesh_launches = mesh_scoring_phase(scorer, requests,
+                                                 scores[-2:], dev)
+    mesh_s = time.perf_counter() - t0
+    print(f"phase 33 (a), (b) and its kernel checks: {mesh_s:.1f} s")
     del scorer, requests
     torch.cuda.empty_cache()
 
@@ -8280,6 +8784,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out_31, launches_31 = lora_phase(dev, generator)
+    # Phase 33 (c) and (d): training on the mesh and the dry run.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_tail, more = mesh_phase_tail(dev, generator)
+    mesh_launches.update(more)
+    mesh_out.update(mesh_tail)
+    mesh_out["command_s"] = mesh_s + time.perf_counter() - t0
+    print(f"phase 33 command time {mesh_out['command_s']:.1f} s")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -8293,7 +8806,7 @@ def main() -> int:
                **harness_launches, **launches_4b, **launches_25,
                **launches_26, **launches_27, **launches_28, **launches_29,
                **launches_30, **launches_31,
-               "serving_example": serve_launches}
+               "serving_example": serve_launches, **mesh_launches}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -8786,7 +9299,10 @@ def main() -> int:
         "mjvideo_4b_gradients": out_25, "qwen2vl": out_26,
         "siglip_judges": out_27, "cogvlm2": out_28, "internvl": out_29,
         "training_options": out_30, "lora": out_31,
-        "serving_example": serve_out,
+        "serving_example": serve_out, "mesh": mesh_out,
+        "mesh_kernels": {f"{name} {shape}": {f: r.get(f) for f in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
+            for (name, shape), r in mesh_k.items() if isinstance(r, dict)},
         "qwen2vl_decoder_kernels": {f"{size} {name}": {
             n: brief(r[n]) for n in ("K3", "K2r", "K2r kernel")}
             for (size, name), r in k26["qwen"].items()},

@@ -21,11 +21,17 @@ refuses) unless ``--device cpu`` asks for the CPU.  As in the JAX CLI,
 Under ``--byte-tokenizer`` the VideoScore judge's tokenizer maps
 ``<image>`` and ``<fake_token_around_image>`` to the config's
 ``image_token_id`` and the id before it (Idefics2's 32001 and 32000).
-Not ported: data parallelism (``--dp`` > 1 without ``--sp``, or a group
-across processes; ROADMAP Queue 1 item 12), and the JAX CLI's
-``MJV_PLATFORM`` backend pin and persistent compilation cache, which only
-the TPU needed.  ``--sp`` scores each pair sequence-parallel over
-``SequenceGroup.local(--dp)`` in this process.
+``--dp n`` scores over a (data, model) mesh of n data shards
+(``parallel.mesh.make_mesh(data=n)``, as the JAX CLI's ``_make_scorer``
+does): in one process ``Mesh.local(n, 1)``, every shard on the one card in
+turn; under ``torchrun --nproc-per-node n`` (which sets ``RANK``,
+``WORLD_SIZE`` and ``MASTER_ADDR``) ``Mesh.distributed(n, 1)``, one card a
+process, rank r writing its results to ``--results`` + ``.rank<r>`` for r
+above 0.  Each pair's clips split over the data shards, so a scorer batch
+must divide by n.  ``--sp`` scores each pair sequence-parallel over the
+mesh's data axis instead, in one process or across processes.  Not
+ported: the JAX CLI's ``MJV_PLATFORM`` backend pin and persistent
+compilation cache, which only the TPU needed.
 """
 
 from __future__ import annotations
@@ -64,11 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--fp32", dest="bf16", action="store_false")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel size (not ported beyond 1); with "
-                        "--sp, the number of sequence shards")
+                   help="data-axis mesh size: Mesh.local(dp, 1) in one "
+                        "process, Mesh.distributed(dp, 1) under torchrun "
+                        "(one process a card); with --sp, the number of "
+                        "sequence shards")
     p.add_argument("--sp", default=None, choices=(None, "ring", "allgather"),
-                   help="sequence-parallel decoder attention over --dp "
-                        "shards in this process (long-context mode)")
+                   help="sequence-parallel decoder attention over the "
+                        "--dp shards of the mesh's data axis (long-context "
+                        "mode)")
     p.add_argument("--device-preprocess", action="store_true",
                    help="ship decoded uint8 frames; resize, tiling and "
                         "normalisation on the device")
@@ -119,31 +128,30 @@ def _dtype(args):
     return torch.bfloat16 if args.bf16 else torch.float32
 
 
-def _sp_group(args):
-    """The ``SequenceGroup`` of ``--sp``: ``--dp`` shards in this process."""
-    if not args.sp:
-        if args.dp > 1:
-            raise NotImplementedError(
-                f"--dp {args.dp}: data-parallel scoring is not ported yet: "
-                "ROADMAP Queue 1 item 12")
-        return None
-    if args.dp <= 1:
+def _mesh(args):
+    """The scorer's mesh: ``--dp`` data shards (``make_mesh``), None for
+    one; ``--sp`` needs one."""
+    from ..parallel.distributed import maybe_initialize
+
+    if args.sp and args.dp <= 1:
         raise SystemExit("--sp needs --dp > 1: the number of shards the "
                          "sequence splits into")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "--sp across processes (a distributed sequence group) is not "
-            "ported to the CLI yet: ROADMAP Queue 1 item 12")
-    from ..parallel.sequence import SequenceGroup
+    maybe_initialize(resolve_device(args.device))
+    if args.dp <= 1:
+        return None
+    from ..parallel.mesh import make_mesh
 
-    return SequenceGroup.local(args.dp)
+    mesh = make_mesh(data=args.dp, model=1)
+    if not mesh.is_local and mesh.rank > 0 and args.results:
+        args.results = f"{args.results}.rank{mesh.rank}"
+    return mesh
 
 
 def _make_scorer(args):
     from ..utils.checkpoint import load_reward_model
     from .scorer import RewardScorer
 
-    group = _sp_group(args)
+    mesh = _mesh(args)
     dtype = _dtype(args)
     cfg, params = load_reward_model(args.model_path, dtype=dtype,
                                     device=resolve_device(args.device))
@@ -160,7 +168,7 @@ def _make_scorer(args):
         else pattern,
         device_preprocess=args.device_preprocess,
         device_max_num=args.max_num if args.device_preprocess else 1,
-        quant=args.quant, sp=args.sp, sp_group=group, **kw)
+        quant=args.quant, sp=args.sp, mesh=mesh, **kw)
 
 
 def _judge_tokenizer(args, path):

@@ -17,7 +17,8 @@ reward-feedback hook (SURVEY.md section 7.1 step 9), whose gradient runs
 back through the reward head, the decoder (K2 with the lse, K4a, K4b), the
 ``<IMG_CONTEXT>`` scatter, the projector and the ViT (K1 with the lse, K4
 nc), each layer rematerialised.  ``sp=`` scores long prompts
-sequence-parallel (``parallel/sequence.py``).
+sequence-parallel (``parallel/sequence.py``), ``mesh=`` over a (data,
+model) mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -40,8 +41,10 @@ from ..ops.quant import (
     OutlierQuantKernel,
     QuantKernel,
     quant_nodes,
+    with_amax_group,
     quantize_params_mode,
 )
+from ..parallel.mesh import held, shard_params
 from ..utils.bridge import first_tensor
 
 
@@ -91,6 +94,7 @@ class RewardScorer:
         device_preprocess: bool = False,
         device_max_num: int = 1,
         device_batch: Optional[int] = 8,
+        mesh=None,
     ):
         """``params``: the state of ``init_reward_params``,
         ``utils.checkpoint.load_reward_model`` or
@@ -123,10 +127,24 @@ class RewardScorer:
         (JAX ``scorer.py:108-128``).  Every bucket must divide into whole
         shards; on the card each shard must also be a whole number of the
         attention kernels' 64-row tiles, so that every ring chunk and every
-        offset starts on a tile boundary."""
+        offset starts on a tile boundary.
+        ``mesh`` (a ``parallel.mesh.Mesh``, JAX ``scorer.py:52-61``): the
+        parameters are placed by the TP rules (``shard_params``), and
+        without ``sp`` a micro-batch holds ``device_batch`` clips per data
+        shard, each data shard scores its clips and the outputs come back
+        gathered in clip order; a micro-batch that the data axis does not
+        divide raises ``ValueError``, as JAX's ``shard_batch`` does.  Under
+        ``sp`` the data axis carries the sequence
+        (``mesh.sequence_group()``, unless ``sp_group`` is given) and the
+        batch is not split.  An ``-olN`` state takes the whole batch's
+        column amax: across processes it is max-reduced over the data
+        axis; in a local mesh the data shards of a micro-batch then run in
+        one forward, since that choice couples their rows."""
         if sp is not None:
             if sp not in ("ring", "allgather"):
                 raise ValueError(f"unknown sp kind {sp!r}")
+            if sp_group is None and mesh is not None:
+                sp_group = mesh.sequence_group()
             if sp_group is None:
                 raise ValueError("sp requires sp_group")
         self.sp = None if sp is None else {"group": sp_group, "kind": sp}
@@ -136,8 +154,16 @@ class RewardScorer:
         if quant is not None:
             params = quantize_params_mode(params, quant)
         self.quant = quant
+        self.mesh = mesh
+        self._outliers = any(isinstance(n, OutlierQuantKernel)
+                             for n in quant_nodes(params))
+        if mesh is not None:
+            params = shard_params(params, mesh, cfg=cfg)
+            if self._outliers and not mesh.is_local and mesh.data > 1:
+                params = [with_amax_group(t, mesh.data_group)
+                          for t in params]
         self.params = params
-        self.device = first_tensor(params).device
+        self.device = first_tensor(held(params)[0]).device
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.buckets = tuple(length_buckets)
@@ -171,10 +197,14 @@ class RewardScorer:
         return out
 
     def _micro_batch(self, B: int) -> int:
-        """Clips per forward (``device_batch``; None: the whole batch)."""
+        """Clips per forward (``device_batch``, per data shard under a
+        mesh without ``sp``; None: the whole batch)."""
         if self.device_batch is None:
             return B
-        return min(self.device_batch, B)
+        micro = self.device_batch
+        if self.mesh is not None and self.sp is None:
+            micro *= self.mesh.data
+        return min(micro, B)
 
     def _clip_pixel_rows(self, pixel_values, input_ids_list):
         """Each clip's rows of ``pixel_values`` (tiles, or frames under
@@ -220,8 +250,37 @@ class RewardScorer:
 
     def _forward(self, pixel_values, input_ids_list, gating_pos
                  ) -> RewardOutput:
-        """One forward over the clips given."""
+        """One forward over the clips given (each data shard's over its
+        clips under a mesh without ``sp``), every prompt padded to the
+        bucket of the longest."""
         T = round_to_bucket(max(len(i) for i in input_ids_list), self.buckets)
+        mesh = self.mesh
+        if mesh is None or self.sp is not None or mesh.data == 1:
+            return self._forward_rows(pixel_values, input_ids_list,
+                                      gating_pos, T)
+        B, n_data = len(input_ids_list), mesh.data
+        if B % n_data:
+            raise ValueError(f"{B} clips do not divide over the data axis "
+                             f"({n_data})")
+        rows = self._clip_pixel_rows(pixel_values, input_ids_list)
+        if rows is None:
+            raise ValueError("the pixel rows cannot be attributed to the "
+                             "clips (their <IMG_CONTEXT> counts), so the "
+                             "batch cannot be split over the data axis")
+        if self._outliers and mesh.is_local:
+            return self._forward_rows(pixel_values, input_ids_list,
+                                      gating_pos, T)
+        bounds = np.concatenate([[0], np.cumsum(rows)])
+        n, gpos = B // n_data, list(gating_pos)
+        outs = [self._forward_rows(
+            pixel_values[bounds[d * n]:bounds[(d + 1) * n]],
+            input_ids_list[d * n:(d + 1) * n], gpos[d * n:(d + 1) * n], T)
+            for d in mesh.data_ranks]
+        return RewardOutput(*(mesh.gather_data(list(f)) for f in zip(*outs)))
+
+    def _forward_rows(self, pixel_values, input_ids_list, gating_pos, T
+                      ) -> RewardOutput:
+        """One reward forward over the clips given, padded to ``T``."""
         ids = np.stack([self._pad(np.asarray(i, np.int32), T,
                                   self.pad_token_id)
                         for i in input_ids_list])
@@ -268,7 +327,7 @@ class RewardScorer:
             torch.as_tensor(np.asarray(gating_pos, np.int32)).to(dev),
             impl=self.attn_impl,
             img_context_token_id=self.img_context_token_id,
-            sp=self.sp,
+            sp=self.sp, mesh=self.mesh,
         )
 
     def prepare_clip(
@@ -337,7 +396,7 @@ class RewardScorer:
         ``score_fn``; refuses a w8a8 state."""
         if self.quant in ("int8", "int8-vit") or any(
                 isinstance(n, (QuantKernel, OutlierQuantKernel))
-                for n in quant_nodes(self.params)):
+                for n in quant_nodes(held(self.params)[0])):
             # round() in w8a8's dynamic activation quantization has zero
             # gradient: backprop to the pixels would silently return
             # zeros.  The weight-only modes ("int8-wo", "int4-wo") are
@@ -367,7 +426,8 @@ class RewardScorer:
             out = reward_forward(
                 params, self.cfg, pixel_values.to(self.dtype), ids, mask,
                 gpos, impl=self.attn_impl,
-                img_context_token_id=self.img_context_token_id, remat=True)
+                img_context_token_id=self.img_context_token_id, remat=True,
+                mesh=self.mesh)
             return out.score[0]
 
         return f

@@ -26,6 +26,7 @@ from ..ops.matmul import dot, dot_f32
 from ..ops.norms import rms_norm
 from ..ops.remat import remat_wrap
 from ..ops.rope import apply_rope, rope_tables
+from ..parallel.mesh import held, model_axis, sub
 from ..utils.bridge import map_state
 
 
@@ -81,41 +82,80 @@ def _dense(p, x, impl: str = "auto"):
     return y
 
 
+def _row_parallel(tp, outs, p, x_dtype):
+    """The row-parallel product's end: the fp32 partials summed over the
+    model axis, rounded once to the activation dtype, then the bias."""
+    y = tp.reduce_from_model(outs).to(x_dtype)
+    return y + p["bias"] if "bias" in p else y
+
+
 def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl,
-                   sp=None):
-    """One layer (``modeling_internlm2.py:610-681``)."""
+                   sp=None, mesh=None):
+    """One layer (``modeling_internlm2.py:610-681``).  ``mesh`` with a
+    model axis above 1: ``p`` is the list of the held model ranks' layer
+    states, and a split pair runs column-parallel (wq/wk/wv on the rank's
+    whole kv heads and their query groups, w1/w3 on its columns) and
+    row-parallel (wo, w2: fp32 partials summed over the model axis,
+    rounded once, then the bias)."""
+    ps = held(p)
+    p = ps[0]
     B, S, _ = x.shape
-    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    Hq, D = cfg.num_attention_heads, cfg.head_dim
+    tp = model_axis(mesh)
 
     h = rms_norm(x, p["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
-    q = _dense(p["attention"]["wq"], h, impl).reshape(B, S, Hq, D)
-    k = _dense(p["attention"]["wk"], h, impl).reshape(B, S, Hkv, D)
-    v = _dense(p["attention"]["wv"], h, impl).reshape(B, S, Hkv, D)
-    q, k = apply_rope(q, k, cos, sin)
-    if sp is not None:
-        # Exact (K3) whatever ``impl`` says, as the JAX decoder's
-        # shard_map runs the flash kernel without the bound.
-        from ..parallel.sequence import (
-            ring_flash_attention,
-            sp_flash_attention,
-        )
+    split = (tp is not None
+             and p["attention"]["wq"]["kernel"].shape[-1] != Hq * D)
+    outs = []
+    for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
+        a = pj["attention"]
+        q = _dense(a["wq"], hj, impl)
+        k = _dense(a["wk"], hj, impl)
+        v = _dense(a["wv"], hj, impl)
+        hq = q.shape[-1] // D
+        q = q.reshape(B, S, hq, D)
+        k = k.reshape(B, S, k.shape[-1] // D, D)
+        v = v.reshape(B, S, v.shape[-1] // D, D)
+        q, k = apply_rope(q, k, cos, sin)
+        if sp is not None:
+            # Exact (K3) whatever ``impl`` says, as the JAX decoder's
+            # shard_map runs the flash kernel without the bound.
+            from ..parallel.sequence import (
+                ring_flash_attention,
+                sp_flash_attention,
+            )
 
-        sp_fn = (ring_flash_attention if sp.get("kind", "ring") == "ring"
-                 else sp_flash_attention)
-        attn = sp_fn(q, k, v, sp["group"], attention_mask=attention_mask,
-                     causal=True)
-    else:
-        # The global bound kernel K2, as the JAX decoder takes it by
-        # default (decoder.py _LLM_BOUND); the cached paths keep the exact
-        # K3.
-        attn = multi_head_attention(q, k, v, attention_mask=attention_mask,
-                                    causal=True, impl=impl, norm_bound=True)
-    x = x + _dense(p["attention"]["wo"], attn.reshape(B, S, Hq * D), impl)
+            sp_fn = (ring_flash_attention if sp.get("kind", "ring") == "ring"
+                     else sp_flash_attention)
+            attn = sp_fn(q, k, v, sp["group"], attention_mask=attention_mask,
+                         causal=True)
+        else:
+            # The global bound kernel K2, as the JAX decoder takes it by
+            # default (decoder.py _LLM_BOUND); the cached paths keep the
+            # exact K3.
+            attn = multi_head_attention(q, k, v,
+                                        attention_mask=attention_mask,
+                                        causal=True, impl=impl,
+                                        norm_bound=True)
+        attn = attn.reshape(B, S, hq * D)
+        outs.append(dot_f32(attn, a["wo"]["kernel"], impl) if split
+                    else _dense(a["wo"], attn, impl))
+    x = x + (_row_parallel(tp, outs, p["attention"]["wo"], x.dtype) if split
+             else outs[0])
 
     h = rms_norm(x, p["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
-    gate = _dense(p["feed_forward"]["w1"], h, impl)
-    up = _dense(p["feed_forward"]["w3"], h, impl)
-    return x + _dense(p["feed_forward"]["w2"], F.silu(gate) * up, impl)
+    split = (tp is not None and p["feed_forward"]["w1"]["kernel"].shape[-1]
+             != cfg.intermediate_size)
+    outs = []
+    for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
+        f = pj["feed_forward"]
+        gate = _dense(f["w1"], hj, impl)
+        up = _dense(f["w3"], hj, impl)
+        y = F.silu(gate) * up
+        outs.append(dot_f32(y, f["w2"]["kernel"], impl) if split
+                    else _dense(f["w2"], y, impl))
+    return x + (_row_parallel(tp, outs, p["feed_forward"]["w2"], x.dtype)
+                if split else outs[0])
 
 
 def decoder_forward(
@@ -127,6 +167,7 @@ def decoder_forward(
     remat=True,
     sp=None,
     rope_override=None,
+    mesh=None,
 ) -> torch.Tensor:
     """All layers + the final norm: hidden states (B, S, C).
 
@@ -141,7 +182,12 @@ def decoder_forward(
 
     ``rope_override=(cos, sin)``, each (B, S, head_dim), rotates each token
     by its own values instead (Qwen2-VL's 3-channel M-RoPE,
-    ``decoder.py:156``, :169-175)."""
+    ``decoder.py:156``, :169-175).
+
+    ``mesh``: ``params`` is the list of the held model ranks' states
+    (``parallel.mesh.shard_params``) and each layer runs split
+    (``_decoder_layer``); under ``sp`` too, the ring then running on each
+    rank's heads."""
     S = inputs_embeds.shape[1]
     if rope_override is not None:
         if sp is not None:
@@ -160,17 +206,37 @@ def decoder_forward(
         cos, sin = cos[first:first + S], sin[first:first + S]
     block = remat_wrap(
         lambda layer, x: _decoder_layer(cfg, layer, x, attention_mask, cos,
-                                        sin, impl, sp), remat)
-    layers = map_state(lambda a: a.unbind(0), params["layers"])
+                                        sin, impl, sp, mesh), remat)
+    layers = [map_state(lambda a: a.unbind(0), t)
+              for t in held(sub(params, "layers"))]
     x = inputs_embeds
     for i in range(cfg.num_hidden_layers):
-        x = block(map_state(lambda a: a[i], layers), x)
-    return rms_norm(x, params["norm"]["weight"], eps=cfg.rms_norm_eps)
+        layer = [map_state(lambda a: a[i], t) for t in layers]
+        x = block(layer if isinstance(params, list) else layer[0], x)
+    return rms_norm(x, held(params)[0]["norm"]["weight"],
+                    eps=cfg.rms_norm_eps)
 
 
-def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup (``tok_embeddings``)."""
-    return F.embedding(input_ids, params["tok_embeddings"])
+def embed_tokens(params, input_ids: torch.Tensor, mesh=None,
+                 vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Token embedding lookup (``tok_embeddings``).  Under a model axis
+    whose ranks hold the table's rows split (``vocab_size`` rows whole),
+    each rank looks up the ids in its rows, zeros elsewhere, and the
+    lookups are summed over the model axis: exact, each row having one
+    nonzero term."""
+    ps = held(params)
+    tp = model_axis(mesh)
+    table = ps[0]["tok_embeddings"]
+    if tp is None or vocab_size is None or table.shape[0] == vocab_size:
+        return F.embedding(input_ids, table)
+    n = table.shape[0]
+    parts = []
+    for j, pj in zip(tp.model_ranks, ps):
+        local = input_ids - j * n
+        inside = (local >= 0) & (local < n)
+        e = F.embedding(local.clamp(0, n - 1), pj["tok_embeddings"])
+        parts.append(torch.where(inside[..., None], e, 0.0).to(e.dtype))
+    return tp.reduce_from_model(parts)
 
 
 def lm_logits(params, hidden: torch.Tensor,

@@ -20,6 +20,7 @@ from ..configs import ChatConfig
 from ..ops.matmul import dot, gelu
 from ..ops.norms import layer_norm
 from ..ops.pixel_shuffle import pixel_shuffle
+from ..parallel.mesh import held, model_axis, sub
 from ..parallel.sequence import shard_sequence
 from . import decoder as dec
 from .vit import init_vit_params, vit_forward
@@ -68,7 +69,7 @@ def apply_projector(p, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
 
 def extract_feature(params, cfg: ChatConfig, pixel_values: torch.Tensor,
                     impl: str = "auto", remat=True, sp=None,
-                    vit_rng=None) -> torch.Tensor:
+                    vit_rng=None, mesh=None) -> torch.Tensor:
     """ViT -> drop cls -> grid -> pixel_shuffle -> projector
     (``modeling_internvl_chat.py:244-262``); (tiles, num_image_token, C).
     ``remat`` applies to the ViT blocks.  ``sp``: the tiles shard over the
@@ -76,15 +77,18 @@ def extract_feature(params, cfg: ChatConfig, pixel_values: torch.Tensor,
     ``vit.NoiseKey``): the ViT's training noise, each tile's keyed by its
     global index, so the sharded tower draws the whole tower's masks (the
     JAX package falls back to the whole tower there,
-    ``internvl.py:97-100``)."""
+    ``internvl.py:97-100``).  ``mesh``: ``params`` is the list of the held
+    model ranks' states and the ViT runs split (``vit_forward``); the
+    projector ``mlp1`` is replicated (no rule matches it)."""
     if sp is not None and sp["group"].size > 1:
         return _sp_extract_feature(params, cfg, pixel_values, impl, remat,
-                                   sp["group"], vit_rng)
-    return _tile_features(params, cfg, pixel_values, impl, remat, vit_rng)
+                                   sp["group"], vit_rng, mesh)
+    return _tile_features(params, cfg, pixel_values, impl, remat, vit_rng,
+                          mesh)
 
 
 def _sp_extract_feature(params, cfg: ChatConfig, pixel_values, impl, remat,
-                        group, vit_rng=None):
+                        group, vit_rng=None, mesh=None):
     """The tile-sharded vision tower (JAX ``internvl.py:102-136``): the
     tile axis padded with zero tiles to a multiple of n, each shard's slice
     encoded (K1 on its own tiles), the embeds gathered and the pad
@@ -100,18 +104,19 @@ def _sp_extract_feature(params, cfg: ChatConfig, pixel_values, impl, remat,
     parts = []
     for pix in group.split(held, dim=0):
         key = None if vit_rng is None else vit_rng.starting_at(first)
-        parts.append(_tile_features(params, cfg, pix, impl, remat, key))
+        parts.append(_tile_features(params, cfg, pix, impl, remat, key,
+                                    mesh))
         first += pix.shape[0]
     emb = group.join(parts, dim=0)
     return group.gather(emb, dim=0)[:n_tiles]
 
 
 def _tile_features(params, cfg: ChatConfig, pixel_values, impl, remat,
-                   rng=None):
+                   rng=None, mesh=None):
     """The per-tile pipeline shared by the plain and the sharded tower."""
-    vit_out = vit_forward(params["vision_model"], cfg.vision, pixel_values,
-                          select_layer=cfg.select_layer, impl=impl,
-                          remat=remat, rng=rng)
+    vit_out = vit_forward(sub(params, "vision_model"), cfg.vision,
+                          pixel_values, select_layer=cfg.select_layer,
+                          impl=impl, remat=remat, rng=rng, mesh=mesh)
     vit_embeds = vit_out[:, 1:, :]  # drop cls
     n, s, c = vit_embeds.shape
     hw = int(s**0.5)
@@ -119,7 +124,7 @@ def _tile_features(params, cfg: ChatConfig, pixel_values, impl, remat,
                                scale_factor=cfg.downsample_ratio,
                                ps_version=cfg.ps_version)
     vit_embeds = vit_embeds.reshape(n, -1, vit_embeds.shape[-1])
-    return apply_projector(params["mlp1"], vit_embeds, impl)
+    return apply_projector(held(params)[0]["mlp1"], vit_embeds, impl)
 
 
 def scatter_image_embeds(
@@ -151,17 +156,22 @@ def scatter_image_embeds(
 
 
 def embed_prompt(lm, input_ids: torch.Tensor,
-                 img_context_token_id: int) -> torch.Tensor:
+                 img_context_token_id: int, mesh=None,
+                 vocab_size: Optional[int] = None) -> torch.Tensor:
     """Token embeds of a prompt whose ``<IMG_CONTEXT>`` slots the vision
     embeds then overwrite.  A config's IMG_CONTEXT id may lie past the
     decoder's vocabulary (the 4B preset keeps 92546 against Phi-3's 32,064
     rows); JAX's gather clamps it to the last row, and so does this, for
-    those slots only: any other id out of range still raises."""
-    V = lm["tok_embeddings"].shape[0]
+    those slots only: any other id out of range still raises.  Under a
+    model axis the table's rows may be split (``vocab_size`` whole,
+    ``decoder.embed_tokens``)."""
+    V = held(lm)[0]["tok_embeddings"].shape[0]
+    if model_axis(mesh) is not None and vocab_size is not None:
+        V = vocab_size
     if img_context_token_id >= V:
         input_ids = torch.where(input_ids == img_context_token_id, V - 1,
                                 input_ids)
-    return dec.embed_tokens(lm, input_ids)
+    return dec.embed_tokens(lm, input_ids, mesh, vocab_size)
 
 
 def chat_forward(
@@ -175,6 +185,7 @@ def chat_forward(
     remat=True,
     sp=None,
     vit_rng=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Final decoder hidden states (B, T, C); the LM head is skipped, since
     the reward path reads hidden states only.  ``remat`` applies to the ViT
@@ -188,7 +199,10 @@ def chat_forward(
     decoder runs sequence-parallel.  ``input_ids`` and ``attention_mask``
     are the whole prompt's (B, T) in either form of the group; in a
     distributed group the result holds this rank's T/n rows.  ``vit_rng``:
-    the ViT's training noise (``extract_feature``)."""
+    the ViT's training noise (``extract_feature``).  ``mesh`` (a
+    ``parallel.mesh.Mesh``): ``params`` is the list of the held model
+    ranks' states, the ViT and the decoder run their split pairs over the
+    model axis."""
     held_ids, first = input_ids, 0
     if sp is not None:
         held_ids = shard_sequence(input_ids, sp["group"])
@@ -197,12 +211,14 @@ def chat_forward(
             attention_mask = shard_sequence(attention_mask, sp["group"])
     if img_context_token_id is None:
         img_context_token_id = cfg.img_context_token_id
-    input_embeds = embed_prompt(params["language_model"], held_ids,
-                                img_context_token_id)
+    lm = sub(params, "language_model")
+    input_embeds = embed_prompt(lm, held_ids, img_context_token_id, mesh,
+                                cfg.llm.vocab_size)
     vit_embeds = extract_feature(params, cfg, pixel_values, impl=impl,
-                                 remat=remat, sp=sp, vit_rng=vit_rng)
+                                 remat=remat, sp=sp, vit_rng=vit_rng,
+                                 mesh=mesh)
     input_embeds = scatter_image_embeds(input_embeds, input_ids, vit_embeds,
                                         img_context_token_id, first)
-    return dec.decoder_forward(params["language_model"], cfg.llm,
-                               input_embeds, attention_mask=attention_mask,
-                               impl=impl, remat=remat, sp=sp)
+    return dec.decoder_forward(lm, cfg.llm, input_embeds,
+                               attention_mask=attention_mask, impl=impl,
+                               remat=remat, sp=sp, mesh=mesh)

@@ -19,6 +19,7 @@ import torch
 from ..configs import RewardConfig
 
 from ..ops.matmul import dot, dot_f32
+from ..parallel.mesh import held, sub
 from ..utils.bridge import map_state
 from .internvl import chat_forward, init_chat_params
 
@@ -195,6 +196,7 @@ def reward_forward(
     remat=True,
     sp=None,
     vit_rng=None,
+    mesh=None,
 ) -> RewardOutput:
     """Backbone forward + reward head: the scoring and training path.
 
@@ -207,11 +209,18 @@ def reward_forward(
     prompt's ids and mask.  In a distributed group each rank decodes its
     own rows, and the two rows the head reads (the last non-pad token and
     the gating token) are gathered from the ranks that hold them; the head
-    then runs alike on every rank."""
-    hidden = chat_forward(params["model"], cfg.chat, pixel_values, input_ids,
-                          attention_mask=attention_mask, impl=impl,
+    then runs alike on every rank.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): ``params`` is the list of the held
+    model ranks' states (``parallel.mesh.shard_params``), the backbone runs
+    its split pairs over the model axis; the head is replicated.  The
+    batch given is one data shard's: the callers split it over the data
+    axis."""
+    hidden = chat_forward(sub(params, "model"), cfg.chat, pixel_values,
+                          input_ids, attention_mask=attention_mask, impl=impl,
                           img_context_token_id=img_context_token_id,
-                          remat=remat, sp=sp, vit_rng=vit_rng)
+                          remat=remat, sp=sp, vit_rng=vit_rng, mesh=mesh)
+    params = held(params)[0]
     if sp is None or sp["group"].is_local:
         return reward_head(params, cfg, hidden, input_ids, gating_pos)
     group = sp["group"]

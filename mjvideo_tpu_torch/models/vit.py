@@ -39,9 +39,10 @@ import torch.nn.functional as F
 from ..configs import VisionConfig
 
 from ..ops.attention import multi_head_attention
-from ..ops.matmul import dot, gelu
+from ..ops.matmul import dot, dot_f32, gelu
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.remat import remat_wrap
+from ..parallel.mesh import held, model_axis, sub
 from ..utils.bridge import map_state
 
 
@@ -216,9 +217,65 @@ def drop_path_rates(rate: float, L: int) -> np.ndarray:
     return torch.linspace(0.0, rate, L, dtype=torch.float32).numpy()
 
 
+def _attention(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,
+               attention: Optional[Callable], mesh) -> torch.Tensor:
+    """The attention branch before the projection's bias: qkv, the
+    attention, the projection.  ``ps``: the held model ranks' layer states.
+    Split over the model axis (``parallel/mesh.py``), each rank runs its
+    own heads of q, k and v (column-parallel) and its rows of the
+    projection (row-parallel): the partials in fp32, summed over the model
+    axis, rounded once."""
+    B, S, C = h.shape
+    D = cfg.head_dim
+    tp = model_axis(mesh)
+    split = tp is not None and ps[0]["attn"]["qkv"]["kernel"].shape[-1] != 3 * C
+    outs = []
+    for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
+        a = pj["attn"]
+        qkv = dot(hj, a["qkv"]["kernel"], impl)
+        if "bias" in a["qkv"]:
+            qkv = qkv + a["qkv"]["bias"]
+        Cj = qkv.shape[-1] // 3
+        q, k, v = qkv.split(Cj, dim=-1)
+        if cfg.qk_normalization:
+            eps = cfg.layer_norm_eps
+            q = rms_norm(q, a["q_norm"]["weight"], eps=eps)
+            k = rms_norm(k, a["k_norm"]["weight"], eps=eps)
+        # Views: the kernel takes the token stride as it is.
+        q, k, v = (t.view(B, S, Cj // D, D) for t in (q, k, v))
+        if attention is None:
+            # The bound kernel K1, as the JAX ViT takes it (vit.py
+            # _NC_BOUND).
+            o = multi_head_attention(q, k, v, causal=False, impl=impl,
+                                     norm_bound=True)
+        else:
+            o = attention(q, k, v)
+        o = o.reshape(B, S, Cj)
+        outs.append(dot_f32(o, a["proj"]["kernel"], impl) if split
+                    else dot(o, a["proj"]["kernel"], impl))
+    return tp.reduce_from_model(outs).to(h.dtype) if split else outs[0]
+
+
+def _mlp(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,
+         mesh) -> torch.Tensor:
+    """fc1 -> GELU -> fc2 before fc2's bias; split over the model axis,
+    fc1 column-parallel and fc2 row-parallel as in ``_attention``."""
+    tp = model_axis(mesh)
+    split = (tp is not None and ps[0]["mlp"]["fc1"]["kernel"].shape[-1]
+             != cfg.intermediate_size)
+    outs = []
+    for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
+        m = pj["mlp"]
+        y = gelu(dot(hj, m["fc1"]["kernel"], impl) + m["fc1"]["bias"])
+        outs.append(dot_f32(y, m["fc2"]["kernel"], impl) if split
+                    else dot(y, m["fc2"]["kernel"], impl))
+    return tp.reduce_from_model(outs).to(h.dtype) if split else outs[0]
+
+
 def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
            attention: Optional[Callable] = None,
-           noise: Optional[Tuple[float, NoiseKey]] = None) -> torch.Tensor:
+           noise: Optional[Tuple[float, NoiseKey]] = None,
+           mesh=None) -> torch.Tensor:
     """One pre-norm block with LayerScale (``modeling_intern_vit.py:266-295``).
 
     ``attention(q, k, v)``, given the (B, S, H, D) views of the qkv product,
@@ -233,28 +290,17 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
     a view into qkv.  ``noise=(dp_rate, key)``: training mode, dropout on
     the attention projection's output (``cfg.dropout``,
     ``modeling_intern_vit.py:198``) before LayerScale, and DropPath at this
-    layer's ``dp_rate`` on both residual branches; None: eval."""
-    B, S, C = x.shape
-    H, D = cfg.num_attention_heads, cfg.head_dim
+    layer's ``dp_rate`` on both residual branches; None: eval.
 
+    ``mesh`` (``parallel.mesh.Mesh``) with a model axis above 1: ``p`` is
+    the list of the held model ranks' layer states (``shard_params``), and
+    the attention and the MLP run split where their pair was split; the
+    norms, biases, LayerScale and noise act on the whole width after the
+    reduction."""
+    ps = held(p)
+    p = ps[0]
     h = _norm(cfg, p["norm1"], x)
-    qkv = dot(h, p["attn"]["qkv"]["kernel"], impl)
-    if "bias" in p["attn"]["qkv"]:
-        qkv = qkv + p["attn"]["qkv"]["bias"]
-    q, k, v = qkv.split(C, dim=-1)
-    if cfg.qk_normalization:
-        eps = cfg.layer_norm_eps
-        q = rms_norm(q, p["attn"]["q_norm"]["weight"], eps=eps)
-        k = rms_norm(k, p["attn"]["k_norm"]["weight"], eps=eps)
-    # Views: the kernel takes the token stride as it is.
-    q, k, v = (t.view(B, S, H, D) for t in (q, k, v))
-    if attention is None:
-        # The bound kernel K1, as the JAX ViT takes it (vit.py _NC_BOUND).
-        attn = multi_head_attention(q, k, v, causal=False, impl=impl,
-                                    norm_bound=True)
-    else:
-        attn = attention(q, k, v)
-    attn = dot(attn.reshape(B, S, C), p["attn"]["proj"]["kernel"], impl)
+    attn = _attention(cfg, ps, h, impl, attention, mesh)
     attn = attn + p["attn"]["proj"]["bias"]
     if noise is not None:
         rate, key = noise
@@ -265,9 +311,7 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
         x = x + attn * p["ls1"]
 
     h = _norm(cfg, p["norm2"], x)
-    h = dot(h, p["mlp"]["fc1"]["kernel"], impl) + p["mlp"]["fc1"]["bias"]
-    h = gelu(h)
-    h = dot(h, p["mlp"]["fc2"]["kernel"], impl) + p["mlp"]["fc2"]["bias"]
+    h = _mlp(cfg, ps, h, impl, mesh) + p["mlp"]["fc2"]["bias"]
     if noise is not None:
         return x + _drop_path(h * p["ls2"], rate, key.fold_in(1))
     return x + h * p["ls2"]
@@ -275,7 +319,8 @@ def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,
 
 def vit_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor,
                 select_layer: int = -1, impl: str = "auto",
-                remat=True, rng: Optional[NoiseKey] = None) -> torch.Tensor:
+                remat=True, rng: Optional[NoiseKey] = None,
+                mesh=None) -> torch.Tensor:
     """Hidden states (N, S, C) after ``select_layer``; layers past it are
     never computed (``vit.py:257-261``).  ``remat`` as in the JAX
     ``vit_forward`` (``vit.py:288-291``): each block is checkpointed when
@@ -286,8 +331,12 @@ def vit_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor,
     training mode, layer i drawing from ``rng.fold_in(i)`` at its rate from
     the full depth's schedule (so a cut tower keeps each layer's rate);
     ``attention_dropout`` above 0 raises, as in JAX (the fused kernels
-    have no dropout on the probabilities).  None: eval."""
-    x = embeddings(params["embeddings"], cfg, pixel_values)
+    have no dropout on the probabilities).  None: eval.
+
+    ``mesh``: ``params`` is the list of the held model ranks' states
+    (``parallel.mesh.shard_params``) and each block runs split
+    (``_block``)."""
+    x = embeddings(held(params)[0]["embeddings"], cfg, pixel_values)
     L = cfg.num_hidden_layers
     n_run = L if select_layer == -1 else L + select_layer + 1
     rates = None
@@ -298,10 +347,12 @@ def vit_forward(params, cfg: VisionConfig, pixel_values: torch.Tensor,
                 "attention kernels; published InternViT configs use 0.0")
         rates = drop_path_rates(cfg.drop_path_rate, L)
     block = remat_wrap(
-        lambda layer, x, noise: _block(cfg, layer, x, impl, noise=noise),
-        remat)
-    layers = map_state(lambda a: a.unbind(0), params["layers"])
+        lambda layer, x, noise: _block(cfg, layer, x, impl, noise=noise,
+                                       mesh=mesh), remat)
+    layers = [map_state(lambda a: a.unbind(0), t)
+              for t in held(sub(params, "layers"))]
     for i in range(n_run):
         noise = None if rates is None else (float(rates[i]), rng.fold_in(i))
-        x = block(map_state(lambda a: a[i], layers), x, noise)
+        layer = [map_state(lambda a: a[i], t) for t in layers]
+        x = block(layer if isinstance(params, list) else layer[0], x, noise)
     return x

@@ -329,17 +329,44 @@ def dot_q8(x: torch.Tensor, kernel: QuantKernel,
     return dot_q8_f32(x, kernel, impl).to(x.dtype)
 
 
+@dataclass
+class GroupedOutlierQuantKernel(OutlierQuantKernel):
+    """An ``OutlierQuantKernel`` held by a process with one data shard of
+    the batch: its column amax is max-reduced over ``amax_group``, the
+    ``torch.distributed`` group of the data axis."""
+
+    amax_group: Any = None
+
+
+def with_amax_group(params: Any, group) -> Any:
+    """``params`` with every ``-olN`` node grouped over ``group`` (the
+    data axis of a distributed mesh), so that a data-parallel forward
+    picks the channels the unsharded batch picks."""
+    if isinstance(params, dict):
+        return {k: with_amax_group(v, group) for k, v in params.items()}
+    if isinstance(params, OutlierQuantKernel):
+        return GroupedOutlierQuantKernel(params.q, params.scale,
+                                         params.n_outliers, group)
+    return params
+
+
 def dot_q8_ol_f32(x: torch.Tensor, kernel: OutlierQuantKernel) -> torch.Tensor:
     """x @ dequant(kernel) with the top-``n_outliers`` activation channels
-    (by column amax over the batch) in full precision.  Ties in the column
-    amax go to the lower channel index, as ``jax.lax.top_k`` breaks them
-    (a stable descending sort)."""
+    (by column amax over the batch, max-reduced over the data axis for a
+    ``GroupedOutlierQuantKernel``) in full precision.  Ties in the column amax go
+    to the lower channel index, as ``jax.lax.top_k`` breaks them (a stable
+    descending sort)."""
     assert kernel.q.dim() == 2, (
         f"dot_q8_ol expects a per-layer (K, N) kernel, got {kernel.q.shape}")
     K, N = kernel.q.shape
     k_out = min(kernel.n_outliers, K)
     x32 = x.reshape(-1, K).float()
     colmax = x32.abs().amax(0)
+    group = getattr(kernel, "amax_group", None)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(colmax, op=dist.ReduceOp.MAX, group=group)
     idx = torch.sort(colmax, descending=True, stable=True).indices[:k_out]
     x_out = x32[:, idx]
     w_out = kernel.q[idx].float() * kernel.scale

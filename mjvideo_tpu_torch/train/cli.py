@@ -18,10 +18,17 @@ kernels, ``ops/lora.py``) are the trainer's options of those names.  A
 ``--warm-start`` from a LoRA run's checkpoint, whose kernels are LoRA
 nodes, fails on the unwrapped state; with ``--lora-rank`` > 0 the CLI then
 wraps first and warm-starts again (``mjvideo_tpu/train/cli.py:145-160``),
-so the checkpoint's adapters replace the fresh ones.  Options whose
-machinery the port lacks (``--zero1``, ``--tp``/``--dp`` beyond 1) go into
-``TrainConfig`` as they are, and the trainer refuses them with
-``NotImplementedError`` naming their ROADMAP item.
+so the checkpoint's adapters replace the fresh ones.  ``--tp`` and
+``--dp`` build a (data, model) mesh (``parallel.mesh.make_mesh``): in one
+process ``Mesh.local(dp, tp)`` (``--dp -1`` means 1), every shard on the
+one card in turn; under ``torchrun --nproc-per-node n`` (which sets
+``RANK``, ``WORLD_SIZE`` and ``MASTER_ADDR``; ``parallel.maybe_initialize``
+joins the group first) ``Mesh.distributed`` over the n processes, one card
+each (``--dp -1``: n / tp), rank 0 writing the checkpoints and metrics.
+Each micro-batch of ``--batch-size`` pairs splits over the data axis, so
+the data axis must divide it.  ``--zero1`` keeps each data rank's slice of
+the optimizer state only (ZeRO-1).  LoRA under ``--tp`` above 1 raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -104,9 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn", choices=tuple(ATTN_IMPLS), default=None,
                    help="auto/flash: the attention kernels (their plain "
                         "twins on the CPU); xla: exact softmax")
-    p.add_argument("--tp", type=int, default=1, help="model-axis mesh size")
+    p.add_argument("--tp", type=int, default=1,
+                   help="model-axis mesh size (tensor parallelism)")
     p.add_argument("--dp", type=int, default=-1,
-                   help="data-axis mesh size (-1 = all remaining devices)")
+                   help="data-axis mesh size: -1 = the processes under "
+                        "torchrun over --tp, 1 in one process "
+                        "(Mesh.local(dp, tp) in one process, "
+                        "Mesh.distributed under torchrun)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--checkpoint-every", type=int, default=500)
     p.add_argument("--save-total-limit", type=int, default=3)
@@ -147,7 +158,14 @@ def main(argv=None) -> None:
     from ..utils.checkpoint import wait_for_saves
     from .trainer import TrainConfig, Trainer, warm_start
 
+    from ..parallel.distributed import maybe_initialize, process_info
+    from ..parallel.mesh import make_mesh
+
     device = resolve_device(args.device)
+    maybe_initialize(device)
+    mesh = None
+    if args.tp != 1 or args.dp not in (-1, 1) or process_info()[1] > 1:
+        mesh = make_mesh(data=args.dp, model=args.tp)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     if args.model_path:
@@ -234,11 +252,14 @@ def main(argv=None) -> None:
         async_checkpoint=args.async_checkpoint,
         gradient_accumulation_steps=accum,
     )
-    trainer = Trainer(cfg, params, tc)
+    trainer = Trainer(cfg, params, tc,
+                      **({} if mesh is None else {"mesh": mesh}))
 
-    os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "train_args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if process_info()[0] == 0:
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "train_args.json"),
+                  "w") as f:
+            json.dump(vars(args), f, indent=2)
 
     eval_set = dataset(args.eval_json) if args.eval_json else None
     for epoch in range(args.num_epochs):

@@ -29,7 +29,7 @@ from ..ops.quant import (
 from ..ops.quant4 import Q4Kernel
 
 # Node fields that hold no array (static metadata in JAX).
-_STATIC_FIELDS = ("n_outliers",)
+_STATIC_FIELDS = ("n_outliers", "amax_group")
 
 
 def is_node(x) -> bool:
@@ -55,6 +55,22 @@ def map_state(fn: Callable, state):
         return dataclasses.replace(state, **{
             name: map_state(fn, v) for name, v in node_fields(state)})
     return fn(state)
+
+
+def flatten_state(state, prefix: str = ""):
+    """Nested dict of tensors and kernel nodes -> {"a/b/c": tensor}, in
+    insertion order; a node's fields are named as JAX's path strings name
+    them (``.../kernel/.w``, ``.../kernel/.w/.qw``)."""
+    out = {}
+    items = (state.items() if isinstance(state, dict)
+             else ((f".{name}", v) for name, v in node_fields(state)))
+    for key, val in items:
+        path = f"{prefix}{key}"
+        if isinstance(val, dict) or is_node(val):
+            out.update(flatten_state(val, path + "/"))
+        else:
+            out[path] = val
+    return out
 
 
 def first_tensor(state) -> torch.Tensor:

@@ -209,15 +209,69 @@ def test_train_cli_warm_start_and_attn(sample, tmp_path, monkeypatch):
 
 
 # The ids are the ones these cases had beside --lora-rank, which trains now
-# (tests/test_torch_lora.py).
+# (tests/test_torch_lora.py); the flags they refused (ROADMAP Queue 1 item
+# 12) train now too.
 @pytest.mark.parametrize("flags,item", [
     pytest.param(["--zero1"], "item 12", id="flags0-item 12"),
     pytest.param(["--tp", "2"], "item 12", id="flags2-item 12"),
     pytest.param(["--dp", "2"], "item 12", id="flags3-item 12"),
 ])
 def test_train_cli_refuses_what_is_not_ported(sample, tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        tcli.main(_train_argv(sample, tmp_path, "--max-steps", "1", *flags))
+    """Each flag once refused now reaches ``TrainConfig``, builds the mesh
+    (``Mesh.local(dp, tp)`` in one process) and trains a step of 2 pairs
+    (the data axis divides them) that saves."""
+    from mjvideo_tpu_torch.train import trainer as ttrainer
+
+    out = tmp_path / "ckpt"
+    made = {}
+    real = ttrainer.Trainer.__init__
+
+    def capture(self, cfg, params, tc, mesh=None, sp_group=None):
+        made["tc"], made["mesh"] = tc, mesh
+        real(self, cfg, params, tc, mesh=mesh, sp_group=sp_group)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttrainer.Trainer, "__init__", capture)
+        tcli.main(_train_argv(sample, out, "--max-steps", "1", "--log-every",
+                              "1", "--batch-size", "2", *flags))
+    tc, mesh = made["tc"], made["mesh"]
+    assert (tc.zero1, tc.mesh_model_axis, tc.mesh_data_axis) == (
+        "--zero1" in flags, 2 if "--tp" in flags else 1,
+        2 if "--dp" in flags else -1)
+    assert (mesh is None) == (flags == ["--zero1"])
+    if mesh is not None:
+        assert mesh.is_local and mesh.shape == {
+            "data": tc.mesh_data_axis if tc.mesh_data_axis > 0 else 1,
+            "model": tc.mesh_model_axis}
+    assert (out / "stage1_step1.pt").exists()
+    assert np.isfinite(_lines(out / "metrics.jsonl")[0]["loss"])
+
+
+def test_train_cli_trains_on_a_tp_dp_zero1_mesh(sample, tmp_path):
+    """``--tp 2 --dp 2 --zero1``: one step on ``Mesh.local(2, 2)`` whose
+    checkpoint holds the whole state, as an unsharded run's does, and
+    whose optimizer state matches that run's to the module's bar."""
+    from mjvideo_tpu_torch.train import trainer as ttrainer
+
+    runs = {}
+    for name, flags in (("mesh", ["--tp", "2", "--dp", "2", "--zero1"]),
+                        ("one", [])):
+        out = tmp_path / name
+        tcli.main(_train_argv(sample, out, "--max-steps", "1",
+                              "--batch-size", "2", "--warmup-steps", "0",
+                              "--gradient-accumulation-steps", "1", *flags))
+        runs[name] = ttrainer.load_state(str(out / "stage1_step1.pt"))
+    got = ttrainer.flatten_state(runs["mesh"])
+    want = ttrainer.flatten_state(runs["one"])
+    assert got.keys() == want.keys()
+    moved = False
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=2e-6,
+                                       err_msg=k)
+            if k.startswith("params/regression_layer"):
+                moved = True
+    assert moved
 
 
 @pytest.mark.parametrize("flags,field,value", [
@@ -415,10 +469,34 @@ def test_eval_cli_sp_forms_a_local_group(sample, checkpoint, monkeypatch):
                                "--sp", "ring"))
 
 
-def test_eval_cli_refuses_data_parallel(sample, checkpoint):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        ecli.main(_scorer_args(sample, checkpoint, "unused.jsonl", "overall",
-                               "--dp", "2"))
+def test_eval_cli_refuses_data_parallel(sample, checkpoint, jax_scorer,
+                                        capsys, tmp_path):
+    """Once refused (ROADMAP Queue 1 item 12), ``--dp 2`` now scores each
+    pair over ``Mesh.local(2, 1)``, a clip a data shard, against JAX's
+    driver as the unsharded CLI is held."""
+    from mjvideo_tpu_torch.eval.scorer import RewardScorer
+
+    root, records, _ = sample
+    made = {}
+    real = RewardScorer.__init__
+
+    def capture(self, *a, **kw):
+        made["mesh"] = kw.get("mesh")
+        real(self, *a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(RewardScorer, "__init__", capture)
+        res, _ = _eval(capsys, _scorer_args(
+            sample, checkpoint, tmp_path / "p.jsonl", "overall", "--dp",
+            "2"))
+    assert made["mesh"].shape == {"data": 2, "model": 1}
+    assert made["mesh"].is_local
+    want = jpref.evaluate_preference(jax_scorer, records,
+                                     root=str(root / "videos"),
+                                     num_segments=2,
+                                     results_path=str(tmp_path / "j.jsonl"))
+    _preference_against_jax(res, want, _lines(tmp_path / "p.jsonl"),
+                            _lines(tmp_path / "j.jsonl"))
 
 
 @pytest.fixture(scope="module")

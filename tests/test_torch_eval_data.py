@@ -373,13 +373,22 @@ print(report.format_table([{"a": 1.0, "b": "x"}]).splitlines()[2])
 
 
 def test_harness_imports_no_jax_and_no_mjvideo_tpu():
-    """In a fresh interpreter: the harness modules, the two CLIs and the
+    """In a fresh interpreter: the harness modules, the two CLIs, the
     judges' models (VideoScore, MiniCPM-V, CogVLM2, their templates,
-    checkpoint branches, exporter and bridge) load no ``jax`` and no
-    ``mjvideo_tpu`` module."""
+    checkpoint branches, exporter and bridge), the mesh
+    (``parallel/mesh.py``), the dry run and ``tools/mesh_multicard.py``
+    load no ``jax`` and no ``mjvideo_tpu`` module."""
     code = """
-import sys
+import importlib.util, sys
 import mjvideo_tpu_torch
+from mjvideo_tpu_torch import dryrun
+from mjvideo_tpu_torch.parallel import mesh
+assert hasattr(mesh, "Mesh") and hasattr(dryrun, "dryrun_multichip")
+spec = importlib.util.spec_from_file_location("mesh_multicard",
+                                              "tools/mesh_multicard.py")
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+assert hasattr(tool, "training_check")
 from mjvideo_tpu_torch.data import dataset, judge_templates, labels
 from mjvideo_tpu_torch.eval import cli, judges, metrics, preference, report
 from mjvideo_tpu_torch.models import cogvlm2, minicpmv, videoscore

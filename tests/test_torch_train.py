@@ -240,12 +240,33 @@ def test_optimizer_matches_optax_on_fixed_gradients(kw):
                                        atol=1e-7, rtol=1e-6, err_msg=path)
 
 
-def test_unported_options_raise_with_their_roadmap_item(setup):
+def test_unported_options_raise_with_their_roadmap_item(setup, tmp_path):
     cfg, params = setup
-    for kw, item in ((dict(zero1=True), "item 12"),
-                     (dict(mesh_model_axis=2), "item 12")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            ttrainer.make_optimizer(ttrainer.TrainConfig(**kw), params)
+    # ZeRO-1 and the mesh axes train (tests/test_torch_zero1.py); under a
+    # model axis above 1, LoRA, the w8a8 modes and the QK-norm ViT still
+    # raise.
+    import dataclasses
+
+    from mjvideo_tpu_torch import configs as tconfigs
+    from mjvideo_tpu_torch.models.reward import init_reward_params
+    from mjvideo_tpu_torch.ops.quant import quantize_params_mode
+    from mjvideo_tpu_torch.parallel.mesh import Mesh, shard_params
+
+    tcfg, mesh = tconfigs.tiny_test_config(), Mesh.local(1, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        ttrainer.Trainer(tcfg, fresh(params), ttrainer.TrainConfig(
+            lora_rank=2, checkpoint_dir=str(tmp_path)), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        shard_params(quantize_params_mode(fresh(params), "int8",
+                                          min_elements=1024), mesh, cfg=tcfg)
+    qk = dataclasses.replace(tcfg, chat=dataclasses.replace(
+        tcfg.chat, vision=dataclasses.replace(
+            tcfg.chat.vision, qk_normalization=True, norm_type="rms_norm")))
+    state = init_reward_params(qk, generator=torch.Generator().manual_seed(0),
+                               device=torch.device("cpu"),
+                               dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        shard_params(state, mesh, cfg=qk)
     # Adafactor, bf16 mu, async checkpoints, TensorBoard and remat="dots"
     # are ported (tests/test_torch_train_options.py), LoRA too
     # (tests/test_torch_lora.py); a misspelt value raises.
