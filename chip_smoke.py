@@ -469,7 +469,8 @@ Phases (any failure raises and exits non-zero):
    kernel's device time.  (b) ``CogVLM2Judge`` at full dims (EVA2-CLIP-E
    63 x 1792, 16 heads of 112, MLP 15,360; the GLU adapter to 4096 /
    14,336; Llama-3-8B 4096 wide, 32/8 heads of 128, two experts a layer,
-   vocabulary 128,256: 19.49 B parameters), random bf16 weights drawn a
+   vocabulary 128,256: 19.49 B parameters; the decoder cut to
+   COG_LLM_DEPTH of its 32 layers), random bf16 weights drawn a
    layer at a time from a fresh generator at SEED, a pair of seeded
    8-frame videos at 224 px (66 tokens a frame) through a subclass's
    ``_encode_video``: ``judge_pair`` with the overall prompt (the full
@@ -595,6 +596,26 @@ Phases (any failure raises and exits non-zero):
    and 24 K2 a clip, each after its pre-pass), the trace naming K1 and K2
    (and the pre-pass) as often as the traced clips launched them, and
    ``Throughput``'s clips/s beside the command's wall time.
+34. The judges on a (data, model) mesh on one card (after phase 33, on
+   fresh states; nothing caught; ``tools/phase34_torch.py`` runs it
+   alone).  (a) Each kernel at a model rank's head counts against its
+   twin: K1 at D = 64, 72, 80 and 128 (8, 8, 8 and 5 heads), K1m at 8 of
+   SigLIP's heads, K3 not causal at D = 112 (8 heads), K3 at the judge
+   decoders' rank heads (8/4, 14/2, 24/4, 16/4) at the pair prefill and
+   the suffix continuation, K2r with its pre-pass at 8/4 over a prefix,
+   K5 at the 2B's projections cut over 2 ranks and its whole LM head.
+   (b) The InternVL2-2B judge at all 24 layers at ``local(1, 2)`` and
+   ``(2, 2)`` with the dense and the int8 KV cache, and ``int4-wo`` at
+   ``(1, 2)``; (c) MiniCPM-V-2.6, CogVLM2-Video, Qwen2-VL-2B (each by the
+   prefix path) and VideoScore (split frames, K1m) at ``(1, 2)``, at full
+   width and MESH_JUDGE_DEPTHS; (d) InternVL2-26B with its tower on
+   ``local(1, 5)`` (25 heads, 5 a rank, the QK-norm across ranks) and its
+   decoder on ``(1, 2)``.  Each meshed judge answers the pair (launches
+   exact), its tokens against the unsharded judge's (where they part,
+   the unsharded top-two gap there beside the logit delta), its
+   teacher-forced logits over MESH_FORCED_STEPS against fp32 plain
+   (LOGITS_REL_TOL) and against the unsharded run, a pair's seconds and a
+   decode step's ms beside the unsharded judge's.
 """
 
 from __future__ import annotations
@@ -898,6 +919,10 @@ COG_FRAMES = 8
 COG_DECODE_STEPS = 16  # decode steps timed at B = 2, by difference
 COG_CLI_DEPTH = (2, 2)
 COG_CLI_PAIRS = 1
+# For the 1200 s limit phase 34 cut the judge's Llama-3-8B decoder to
+# COG_LLM_DEPTH of its 32 layers (its EVA tower stays whole): F7's
+# readings at all 32 layers are PERF.md's (PRs 24 and 28).
+COG_LLM_DEPTH = 16
 # Phase 29: K1 at InternViT-6B's D = 128 with 25 heads at a video's 8 tiles
 # of 1025 tokens and at 2 (q and k dense after QK-RMSNorm, v a view into
 # qkv); the InternVL2-26B and -8B judges; the CLI on a 26B-layout directory
@@ -910,16 +935,17 @@ IVL_CLI_PAIRS = 1
 # InternViT-6B tower, K1 at D = 128, stays whole) and (c) the 8B judge's
 # checks with its InternLM2.5-7B decoder cut to IVL_8B_LLM_DEPTH of 32 (the
 # checks read K1 at D = 64 and K3 at the 8B's widths; depth only repeats
-# them).  Phases 31 and 32 took the 26B from 24 layers to 16.
-IVL_26B_LLM_DEPTH = 16
-IVL_8B_LLM_DEPTH = 16
+# them).  Phases 31 and 32 took the 26B from 24 layers to 16, phase 34
+# both from 16 to 8.
+IVL_26B_LLM_DEPTH = 8
+IVL_8B_LLM_DEPTH = 8
 # For the same limit, phases 31 and 32 also cut the decoders of phase 26's
 # Qwen2-VL-2B judge (28 layers) and phase 27's MiniCPM-V-2.6 judge
-# (Qwen2-7B, 28) to these depths; their vision towers stay whole, and the
-# CLI phases keep their own depths.  Phase 28's CogVLM2-Video judge keeps
-# all 32 of its layers: its end-to-end logits sit near LOGITS_REL_TOL (F7).
-QWEN_LLM_DEPTH = 14
-MCPM_LLM_DEPTH = 14
+# (Qwen2-7B, 28) to 14, and phase 34 to these depths; their vision towers
+# stay whole, and the CLI phases keep their own depths.  Phase 28's
+# CogVLM2-Video judge runs COG_LLM_DEPTH of its 32 layers.
+QWEN_LLM_DEPTH = 8
+MCPM_LLM_DEPTH = 8
 
 # Phase 30: the training options at the 2B widths.  (b)'s rates; (c) runs
 # OPT_STEPS Trainer micro-steps of each optimizer (phase 5's config:
@@ -2762,7 +2788,7 @@ def quant_judge_phase(dev, bf16_step_ms):
 
 
 def make_judge(state=None, generator=None, device=None, quant=None,
-               base=None, impl=None, pixel_dtype=None):
+               base=None, impl=None, pixel_dtype=None, **kw):
     """An ``InternVLJudge`` on the chat config ``base`` (the 2B's by
     default) rebased on the ``ByteTokenizer``, with random bf16 weights
     drawn on the card from ``generator`` (or ``state``, e.g. an fp32 copy,
@@ -2770,7 +2796,8 @@ def make_judge(state=None, generator=None, device=None, quant=None,
     is given; ``impl`` in place of the one the state's dtype picks.  Its
     videos are seeded pixels: a video's name seeds its frames, so two
     judges see the same ones, rounded to bf16 as the judge feeds them and
-    then given in ``pixel_dtype`` (the vision weights' dtype by default)."""
+    then given in ``pixel_dtype`` (the vision weights' dtype by default).
+    ``kw``: the judge's other arguments (``kv_quant``, ``mesh``)."""
     import numpy as np
     import torch
 
@@ -2782,6 +2809,7 @@ def make_judge(state=None, generator=None, device=None, quant=None,
         init_chat_params,
         internvl2_2b_chat_config,
     )
+    from mjvideo_tpu_torch.parallel.mesh import held
     from mjvideo_tpu_torch.utils.bridge import first_tensor
 
     base = internvl2_2b_chat_config() if base is None else base
@@ -2804,16 +2832,16 @@ def make_judge(state=None, generator=None, device=None, quant=None,
             pix = rng.normal(size=(JUDGE_FRAMES, size, size, 3))
             # bf16 pixels, as the judge feeds, in the weights' dtype.
             pix = torch.from_numpy(pix).to(self.device, torch.bfloat16)
-            dtype = (pixel_dtype
-                     or first_tensor(self.params["vision_model"]).dtype)
+            dtype = (pixel_dtype or first_tensor(
+                held(self.params)[0]["vision_model"]).dtype)
             with torch.no_grad():
                 vis = extract_feature(self.params, self.cfg, pix.to(dtype),
-                                      impl=self.attn_impl)
+                                      impl=self.attn_impl, mesh=self.mesh)
             return vis, [1] * JUDGE_FRAMES
 
     return SeededVideoJudge(cfg, state, tok, num_segments=JUDGE_FRAMES,
                             max_new_tokens=JUDGE_NEW_TOKENS, attn_impl=impl,
-                            quant=quant)
+                            quant=quant, **kw)
 
 
 def _judge_launches(cfg, want):
@@ -2852,15 +2880,16 @@ def path_runner(judge, prompt, videos, prefix):
         generate_from_prefix,
     )
 
+    mesh = judge.mesh
     if prefix:
         state, sids, smask, gc = judge._prefix_inputs(prompt, videos)
         return lambda **kw: generate_from_prefix(
             judge.params, judge.cfg, state, sids, smask,
-            generation_config=gc, impl=judge.attn_impl, **kw)
+            generation_config=gc, impl=judge.attn_impl, mesh=mesh, **kw)
     ids, mask, gc, vis = _full_inputs(judge, prompt, videos)
     return lambda **kw: generate(judge.params, judge.cfg, ids, mask,
                                  generation_config=gc, vision_embeds=vis,
-                                 impl=judge.attn_impl, **kw)
+                                 impl=judge.attn_impl, mesh=mesh, **kw)
 
 
 def logits_fidelity(judge, plain_judge, prompt, videos, prefix, label):
@@ -3030,8 +3059,9 @@ def time_judge(judge, videos, drawn_full, drawn_prefix):
     lm, cfg = judge.params["language_model"], judge.cfg
 
     def prefill():
-        return gen._prefill(judge.params, cfg, ids, mask, JUDGE_NEW_TOKENS,
-                            None, vis, "auto", False)
+        embeds = gen._embed(judge.params, cfg, ids, None, vis, "auto")
+        return gen._prefill(judge.params, cfg, embeds, ids, mask,
+                            JUDGE_NEW_TOKENS, "auto", False)
 
     def continuation():
         state, sids, smask, gc = judge._prefix_inputs(JUDGE_QUESTION,
@@ -5298,12 +5328,15 @@ def _seeded_encode_video(judge, video_path):
 
     from mjvideo_tpu_torch.models.qwen2vl import vision_dtype, vision_forward
 
+    from mjvideo_tpu_torch.parallel.mesh import sub
+
     patches = torch.from_numpy(_seeded_patches(
         video_path, judge.cfg.vision)).to(judge.device,
                                           vision_dtype(judge.params))
     with torch.no_grad():
-        vis = vision_forward(judge.params["visual"], judge.cfg.vision,
-                             patches, QWEN_GRID, impl=judge.attn_impl)
+        vis = vision_forward(sub(judge.params, "visual"), judge.cfg.vision,
+                             patches, QWEN_GRID, impl=judge.attn_impl,
+                             mesh=judge.mesh)
     return vis, QWEN_GRID
 
 
@@ -5898,7 +5931,7 @@ def _seeded_minicpm_encode(judge, video_path):
         vis = get_vision_embedding(
             judge.params, judge.cfg,
             torch.from_numpy(pix).to(judge.device, vision_dtype(judge.params)),
-            impl=judge.attn_impl)
+            impl=judge.attn_impl, mesh=judge.mesh)
     return vis, MCPM_FRAMES
 
 
@@ -6350,7 +6383,7 @@ def _seeded_cog_encode(judge, video_path):
         vis = get_vision_embedding(
             judge.params, judge.cfg,
             torch.from_numpy(pix).to(judge.device), impl=judge.attn_impl,
-            dtype=judge.dtype)
+            dtype=judge.dtype, mesh=judge.mesh)
     return vis, COG_FRAMES
 
 
@@ -6484,7 +6517,7 @@ def cogvlm2_judge_phase(dev, generator):
         init_cogvlm2_params,
     )
 
-    cfg = CogVLM2Config()
+    cfg = cut_text_depth(CogVLM2Config(), COG_LLM_DEPTH)
     L_vit, L_llm = cfg.vision.num_hidden_layers, cfg.text.num_hidden_layers
     videos = ("video_0", "video_1")
     out, launches = {}, {}
@@ -8499,6 +8532,577 @@ def mesh_phase_tail(dev, generator):
     return out, launches
 
 
+# Phase 34: every local judge on a (data, model) mesh on one card (every
+# shard in this process, ``Mesh.local``), against the same judge unsharded
+# (the same bf16 kernels) and against its state in fp32 through the plain
+# path.  Each judge answers the pair of seeded videos by its prefix path
+# (``ask_batch`` with JUDGE_QUESTION, JUDGE_NEW_TOKENS greedy tokens): the
+# meshed answer's tokens against the unsharded answer's (where they part,
+# the unsharded run's top-two gap at that step beside the two runs' logit
+# distance there), and its teacher-forced logits over the first
+# MESH_FORCED_STEPS of the unsharded tokens against fp32 plain
+# (LOGITS_REL_TOL of max|logit|) and against the unsharded run.  The
+# InternVL2-2B judge runs at all 24 of its decoder layers; the other
+# judges at full width with their depths cut (MESH_JUDGE_DEPTHS) for the
+# script's time limit.
+MESH_JUDGE_2B = (((1, 2), False), ((1, 2), True), ((2, 2), False),
+                 ((2, 2), True))  # ((data, model), the int8 KV cache)
+MESH_JUDGE_QUANT = "int4-wo"      # at local(1, 2)
+MESH_FORCED_STEPS = 8
+MESH_26B_TOWER = 5                # the 6B tower's 25 heads over 5 ranks
+# (vision tower layers, decoder layers) of each judge; VideoScore's
+# perceiver keeps its 3 layers.
+MESH_JUDGE_DEPTHS = {"minicpmv": (4, 4), "cogvlm2": (4, 4), "qwen2vl": (4, 4),
+                     "videoscore": (4, 4), "internvl26b": (6, 4)}
+# The decoders' kv and query heads on a model rank of 2 (of InternLM2-1.8B,
+# Qwen2-7B, InternLM2-20B, Llama-3-8B and Mistral-7B), K3 checked at each
+# at the 2B judge's prefill and continuation shapes (JUDGE_SHAPES).
+MESH_DECODER_HEADS = {"internlm2-1.8b": (8, 4), "qwen2-7b": (14, 2),
+                      "internlm2-20b": (24, 4), "llama3-8b": (16, 4),
+                      "mistral-7b": (16, 4)}
+
+
+def check_judge_mesh_kernels(randn):
+    """Phase 34 (a): each kernel of the meshed judges at a model rank's
+    head counts against its twin (2**-7 of max|plain|): K1 at D = 64 (8 of
+    InternViT-300M's 16 heads), 72 (8 of SigLIP's 16), 80 (8 of the
+    Qwen2-VL tower's 16) and 128 (5 of InternViT-6B's 25, q and k dense);
+    K1m at 8 of SigLIP's heads on VideoScore's split frames; K3 not causal
+    at D = 112 (8 of EVA's 16); K3 causal at each decoder's rank heads
+    (MESH_DECODER_HEADS) at the judge's pair prefill and suffix
+    continuation, K2r with its pre-pass at the 2B's prefix; K5 at the 2B
+    decoder's projections cut over 2 ranks and its whole LM head.
+    Returns the readings by (kernel, shape)."""
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import flash_attention as fa
+    from mjvideo_tpu_torch.ops import quant4 as q4
+
+    out = {}
+    for shape, dense in (((JUDGE_FRAMES, 1025, 8, 64), False),
+                         ((MCPM_FRAMES, 1032, 8, 72), False),
+                         ((QWEN_GRID[0], 676, 8, 80), False),
+                         ((JUDGE_FRAMES, 1025, 5, 128), True)):
+        for name, r in check_vit_attention(randn, shape,
+                                           dense_qk=dense).items():
+            out[name, shape] = r
+    mask = _split_patch_mask(randn(1).device)
+    for name, r in check_masked_vit_attention(randn, mask, heads=8).items():
+        out[name, (mask.shape[0], mask.shape[1], 8, 72)] = r
+    shape = (COG_FRAMES, 257, 8, 112)
+    out["K3 D112", shape] = check_k3_d112(randn, shape)
+    for label, (Hq, Hkv) in MESH_DECODER_HEADS.items():
+        for path in ("prefill", "continuation"):
+            B, Q, K, _, _, D, off = JUDGE_SHAPES[path]
+            shape = (B, Q, K, Hq, Hkv, D, off)
+            q, k, v, m, o, dead = _judge_inputs(randn, shape)
+            out["K3", shape] = _check_kernel(
+                f"K3 exact_attention {label} {path} {shape[:6]}",
+                lambda: fa.exact_attention(q, k, v, m, o),
+                lambda: fa.exact_attention_plain(q, k, v, m, o),
+                zero=(f"{int(dead.sum())} dead rows",
+                      lambda got: not got[0][dead].any()),
+                work=_attention_work(q, k, v, m, o),
+                library=_sdpa_at(q, k, v, m, o))
+    B, Q, K, Hq, Hkv, D, off = JUDGE_SHAPES["prefix"]
+    shape = (B, Q, K, 8, 4, D, off)
+    for name, r in check_judge_kernels(randn, "internlm2-1.8b prefix",
+                                       shape).items():
+        out[name, shape] = r
+    for K, N in ((2048, 1024), (1024, 2048), (2048, 92553)):
+        k4 = q4.quantize_kernel_q4(randn(K, N).float() * 0.02,
+                                   group_size=W4_GROUP)
+        x = randn(2, K)
+        out["K5", (2, K, N)] = _check_kernel(
+            f"K5 w4_matmul at a model rank's {(2, K, N)} g {W4_GROUP}",
+            lambda: kernels.w4_matmul(x, k4.packed, k4.scale),
+            lambda: q4.w4_matmul_plain(x, k4.packed, k4.scale),
+            extra=_again(lambda: kernels.w4_matmul(x, k4.packed, k4.scale)),
+            work=(_nbytes(x, k4.packed, k4.scale) + 4 * 2 * N,
+                  2 * 2 * K * N, BF16_OPS_PER_S))
+    return out
+
+
+class RecordingTokenizer:
+    """A judge's tokenizer that also keeps every token row the judge decodes
+    (its answers' greedy tokens, the stop token stripped), in order."""
+
+    def __init__(self, tok):
+        self.tok, self.rows = tok, []
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+    def __call__(self, *args, **kw):
+        return self.tok(*args, **kw)
+
+    def decode(self, toks):
+        self.rows.append([int(t) for t in toks])
+        return self.tok.decode(toks)
+
+
+def _judge_teacher(judge, videos, teacher):
+    """The prefix path's teacher-forced logits (B, n, V) of ``judge`` on
+    ``teacher`` (B, n)."""
+    from mjvideo_tpu_torch.eval.judges import InternVLJudge
+
+    if isinstance(judge, InternVLJudge):
+        return path_runner(judge, JUDGE_QUESTION, videos, True)(
+            teacher_tokens=teacher)
+    return _qwen_teacher(judge, JUDGE_QUESTION, videos, True, teacher)
+
+
+def _sync():
+    """``torch.cuda.synchronize()`` where there is a card (the multi-card
+    tool's CPU rehearsal runs these helpers on the CPU)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _answer(judge, videos):
+    """``judge.ask_batch`` on the pair by the prefix path, timed (cold: the
+    videos encoded and their prefixes prefilled): (its token rows, s)."""
+    judge.tokenizer.rows = []
+    _sync()
+    t0 = time.perf_counter()
+    answers = judge.ask_batch(JUDGE_QUESTION, list(videos))
+    _sync()
+    secs = time.perf_counter() - t0
+    if not all(isinstance(a, str) for a in answers):
+        raise RuntimeError("an answer did not decode to text")
+    rows = judge.tokenizer.rows[-len(videos):]
+    return rows, secs
+
+
+def _teacher_of(rows, n, eos, device):
+    """The (B, n) teacher tokens of answer rows, eos past a row's end."""
+    import torch
+
+    return torch.tensor([(r + [eos] * n)[:n] for r in rows], device=device)
+
+
+def _timed_teacher(judge, videos, teacher):
+    """(the teacher-forced logits over ``teacher``'s steps, ms a decode
+    step by difference against one step)."""
+    _sync()
+    t0 = time.perf_counter()
+    logits = _judge_teacher(judge, videos, teacher)
+    _sync()
+    t_n = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _judge_teacher(judge, videos, teacher[:, :1])
+    _sync()
+    t_1 = time.perf_counter() - t0
+    return logits, (t_n - t_1) * 1e3 / (teacher.shape[1] - 1)
+
+
+def mesh_judge_reference(judge, plain, videos, eos):
+    """The unsharded kernel judge's answer rows, its timing and its
+    teacher-forced logits over MESH_FORCED_STEPS, and the fp32 plain
+    judge's on the same tokens."""
+    rows, secs = _answer(judge, videos)
+    teacher = _teacher_of(rows, MESH_FORCED_STEPS, eos, judge.device)
+    logits, step_ms = _timed_teacher(judge, videos, teacher)
+    return {"rows": rows, "pair_s": secs, "step_ms": step_ms,
+            "teacher": teacher, "logits": logits,
+            "plain": _judge_teacher(plain, videos, teacher)}
+
+
+def _first_parting(rows, ref_rows):
+    """(row, step) where two answers' token rows first part, or None."""
+    for b, (r, w) in enumerate(zip(rows, ref_rows)):
+        if r != w:
+            s = next((i for i, (x, y) in enumerate(zip(r, w)) if x != y),
+                     min(len(r), len(w)))
+            return b, s
+    return None
+
+
+def mesh_judge_reading(label, judge, unsharded, ref, videos, eos, want):
+    """One meshed judge against its unsharded twin (``ref``,
+    ``mesh_judge_reference``'s): its answer by the prefix path with the
+    launches held to ``want`` (kernel -> count, names not given 0; or a
+    function of the answer's token rows giving it), its
+    teacher-forced logits against fp32 plain (LOGITS_REL_TOL) and against
+    the unsharded run, and its tokens against the unsharded answer's.
+    Where they part, the unsharded run's top-two gap at that step is read
+    beside the two runs' max|logit delta| there; a flip needs the two top
+    logits to move by the gap together, so it raises where the gap exceeds
+    twice the delta.  Returns the reading and the launches."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    rows, secs = _answer(judge, videos)
+    launches = _held_launches(f"phase 34 {label}",
+                              want(rows) if callable(want) else want)
+    logits, step_ms = _timed_teacher(judge, videos, ref["teacher"])
+    if not bool(logits.isfinite().all()):
+        raise RuntimeError(f"phase 34 {label}: non-finite logits")
+    rel = _rel_err(logits, ref["plain"])[1]
+    dist, dist_rel = _rel_err(logits, ref["logits"])
+    part = _first_parting(rows, ref["rows"])
+    reading = {"rel_vs_fp32_plain": rel, "max_abs_vs_unsharded": dist,
+               "rel_vs_unsharded": dist_rel, "pair_s": secs,
+               "step_ms": step_ms, "unsharded_pair_s": ref["pair_s"],
+               "unsharded_step_ms": ref["step_ms"], "tokens_equal":
+               part is None, "tokens": sum(len(r) for r in rows)}
+    text = "tokens equal to the unsharded answer's"
+    if part is not None:
+        b, s = part
+        n = s + 1
+        mine, theirs = logits, ref["logits"]
+        if n > mine.shape[1]:  # past the forced steps: both runs to s
+            teacher = _teacher_of(ref["rows"], n, eos, judge.device)
+            mine = _judge_teacher(judge, videos, teacher)
+            theirs = _judge_teacher(unsharded, videos, teacher)
+        top2 = torch.topk(theirs[b, s].float(), 2).values
+        gap = (top2[0] - top2[1]).item()
+        delta = (mine[b, s].float() - theirs[b, s].float()).abs().max().item()
+        reading.update(parted_at=[b, s], top2_gap=gap, delta_there=delta)
+        text = (f"tokens part from the unsharded answer's at row {b} step "
+                f"{s}: its top-two gap there {gap:.4e}, the logit delta "
+                f"{delta:.4e}")
+        if gap > 2 * delta:
+            raise RuntimeError(f"phase 34 {label}: {text} (a gap over "
+                               "twice the delta)")
+    print(f"phase 34 {label}: {text}; teacher-forced logits over "
+          f"{MESH_FORCED_STEPS} steps {rel:.4e} of max|fp32 plain logit| "
+          f"(bound {LOGITS_REL_TOL:.1e}), max|delta| against the unsharded "
+          f"run {dist:.4e} ({dist_rel:.4e}); a pair {secs:.3f} s cold "
+          f"(unsharded {ref['pair_s']:.3f} s), a decode step at B = 2 "
+          f"{step_ms:.2f} ms (unsharded {ref['step_ms']:.2f} ms)")
+    if not rel <= LOGITS_REL_TOL:
+        raise RuntimeError(f"phase 34 {label}: logits {rel} of max|fp32 "
+                           f"plain| > {LOGITS_REL_TOL}")
+    return reading, launches
+
+
+def _split_layers(plan, *keys):
+    """Whether every pair named by ``keys`` (path fragments) is split."""
+    return {k: any(k in p for p in plan) for k in keys}
+
+
+def internvl2b_mesh_phase(dev, generator):
+    """Phase 34 (b): the InternVL2-2B judge (phase 9's state: the same
+    seed) at all 24 decoder layers on ``local(1, 2)`` and ``(2, 2)`` with
+    the dense and the int8 KV cache, and ``int4-wo`` at ``(1, 2)``.  Every
+    pair of the 2B splits at model 2 (16 ViT heads, 8 kv heads; the
+    92,553-row vocabulary stays whole).  Returns the readings and the
+    launches."""
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch.models.generate import _eos_pad
+    from mjvideo_tpu_torch.parallel.mesh import Mesh, split_plan
+
+    videos = ("video_0", "video_1")
+    state = make_judge(generator=generator(), device=dev).params
+
+    def judge_of(params, mesh=None, kv_quant=False, quant=None):
+        j = make_judge(state=params, mesh=mesh, kv_quant=kv_quant,
+                       quant=quant)
+        j.tokenizer = RecordingTokenizer(j.tokenizer)
+        return j
+
+    base = judge_of(state)
+    cfg = base.cfg
+    eos = _eos_pad(cfg, base.tokenizer)[0]
+    L_vit, L_llm = cfg.vision.num_hidden_layers, cfg.llm.num_hidden_layers
+    plan = split_plan(state, 2, cfg)
+    out = {"split": _split_layers(plan, "vision_model/layers/attn/",
+                                  "language_model/layers/attention/",
+                                  "language_model/output/")}
+    launches = {}
+    del base
+    fp32 = _float_plain(state)
+    for kv_quant in (False, True):
+        ref = mesh_judge_reference(
+            judge_of(state, kv_quant=kv_quant),
+            judge_of(fp32, kv_quant=kv_quant), videos, eos)
+        unsharded = judge_of(state, kv_quant=kv_quant)
+        for (data, model), kvq in MESH_JUDGE_2B:
+            if kvq != kv_quant:
+                continue
+            label = f"internvl2-2b local({data}, {model})" + (
+                " int8 cache" if kvq else "")
+            judge = judge_of(state, Mesh.local(data, model), kvq)
+            want = _with_prepass({"vit_attention": 2 * L_vit * model,
+                                  "exact_attention": (2 + data) * L_llm
+                                  * model})
+            out[label], launches[label] = mesh_judge_reading(
+                label, judge, unsharded, ref, videos, eos, want)
+            del judge
+        del ref, unsharded
+        gc.collect()
+        torch.cuda.empty_cache()
+    del fp32
+    one = judge_of(state, quant=MESH_JUDGE_QUANT)
+    tree = one.params
+    ref = mesh_judge_reference(one, judge_of(_float_plain(tree)), videos,
+                               eos)
+    judge = judge_of(tree, Mesh.local(1, 2))
+    label = f"internvl2-2b local(1, 2) {MESH_JUDGE_QUANT}"
+
+    def want(rows):
+        """K5: the LM head (whole: 92,553 columns) on the continuation's
+        last rows, then per decode step each rank's 7 products a layer and
+        the head; the loop stops once every row has drawn EOS (rows
+        stripped of it) or at the budget."""
+        n = max(len(r) for r in rows)
+        steps = JUDGE_NEW_TOKENS - 1 if n == JUDGE_NEW_TOKENS else n
+        return _with_prepass({"vit_attention": 4 * L_vit,
+                              "exact_attention": 6 * L_llm,
+                              "w4_matmul": 1 + (14 * L_llm + 1) * steps})
+
+    out[label], launches[label] = mesh_judge_reading(
+        label, judge, one, ref, videos, eos, want)
+    del one, tree, judge, ref, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _cut_vision(cfg, layers):
+    """``cfg`` with its vision tower cut to ``layers`` layers."""
+    import dataclasses
+
+    v = cfg.vision
+    field = "depth" if hasattr(v, "depth") else "num_hidden_layers"
+    return dataclasses.replace(cfg, vision=dataclasses.replace(
+        v, **{field: layers}))
+
+
+def families_mesh_phase(dev, generator):
+    """Phase 34 (c): the MiniCPM-V-2.6, CogVLM2-Video and Qwen2-VL-2B judges
+    at ``local(1, 2)`` (towers and decoders cut to MESH_JUDGE_DEPTHS at
+    full width; every pair of theirs splits at model 2), each against
+    itself unsharded and in fp32 plain; then VideoScore's split frames
+    (K1m at 8 of SigLIP's heads) at ``local(1, 2)``, its 5 logits against
+    fp32 plain and unsharded.  Returns the readings and the launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mjvideo_tpu_torch import kernels, map_state
+    from mjvideo_tpu_torch.data.prompts import ByteTokenizer
+    from mjvideo_tpu_torch.eval.judges import (
+        VideoScoreJudge,
+        videoscore_prompt,
+    )
+    from mjvideo_tpu_torch.models import cogvlm2, minicpmv, qwen2vl
+    from mjvideo_tpu_torch.models import videoscore as vs
+    from mjvideo_tpu_torch.parallel.mesh import Mesh
+
+    videos = ("video_0", "video_1")
+    mesh = Mesh.local(1, 2)
+    out, launches = {}, {}
+    families = (
+        ("minicpmv", minicpmv.MiniCPMVConfig(), minicpmv.init_minicpmv_params,
+         make_minicpm_judge, lambda c: {"vit_attention": 2 * c[0] * 2,
+                                        "exact_attention": 3 * c[1] * 2},
+         _at_d72),
+        ("cogvlm2", cogvlm2.CogVLM2Config(), cogvlm2.init_cogvlm2_params,
+         make_cog_judge, lambda c: {"exact_attention": (2 * c[0] + 3 * c[1])
+                                    * 2, "exact_attention_d112":
+                                    2 * c[0] * 2}, dict),
+        ("qwen2vl", qwen2vl.Qwen2VLConfig(), qwen2vl.init_qwen2vl_params,
+         make_qwen_judge, lambda c: {
+             "vit_attention": 2 * c[0] * 2, "vit_attention_d80": 2 * c[0] * 2,
+             "key_norm_max_d80": 2 * c[0] * 2,
+             "exact_attention": 3 * c[1] * 2}, _with_prepass))
+    for name, full, init, make, want_of, names in families:
+        depth = MESH_JUDGE_DEPTHS[name]
+        cfg = _cut_vision(cut_text_depth(full, depth[1]), depth[0])
+        state = init(cfg, generator=generator(), device=dev,
+                     dtype=torch.bfloat16)
+        tok = ByteTokenizer()
+
+        def judge_of(params, mesh=None, **kw):
+            return make(cfg, params, RecordingTokenizer(tok), mesh=mesh,
+                        **kw)
+
+        eos = (cfg.eos_token_id if name == "cogvlm2"
+               else cfg.im_end_token_id)
+        if name == "cogvlm2":
+            plain = judge_of(state, dtype=torch.float32, attn_impl="plain")
+        else:
+            plain = judge_of(map_state(lambda t: t.float(), state))
+        ref = mesh_judge_reference(judge_of(state), plain, videos, eos)
+        del plain
+        label = f"{name} local(1, 2) at depths {depth}"
+        out[label], launches[label] = mesh_judge_reading(
+            label, judge_of(state, mesh), judge_of(state), ref, videos, eos,
+            names(want_of(depth)))
+        del state, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # VideoScore: do_image_splitting's images (K1m), one forward.
+    depth = MESH_JUDGE_DEPTHS["videoscore"]
+    cfg = _cut_vision(cut_text_depth(vs.VideoScoreConfig(num_labels=5),
+                                     depth[1]), depth[0])
+    state = vs.init_videoscore_params(cfg, generator=generator(), device=dev,
+                                      dtype=torch.bfloat16)
+    tok = WordTokenizer(cfg.image_token_id)
+    pix, pmask = videoscore_split_inputs(np.random.default_rng(SEED))
+
+    def vs_judge(params, dtype, impl, m=None):
+        return VideoScoreJudge(tokenizer=tok, cfg=cfg, params=params,
+                               dtype=dtype, attn_impl=impl,
+                               do_image_splitting=True, mesh=m)
+
+    judge = vs_judge(state, torch.bfloat16, "auto", mesh)
+    ids, mask = judge.tokenize(videoscore_prompt(JUDGE_CAPTION,
+                                                 VS_SPLIT_FRAMES))
+    ids, mask = np.asarray([ids]), np.asarray([mask])
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = judge.score_frames(pix, ids, mask, pmask)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    label = f"videoscore local(1, 2) at depths {depth}"
+    launches[label] = _held_launches(f"phase 34 {label}", _at_d72({
+        "vit_attention_masked": depth[0] * 2,
+        "decoder_attention": depth[1] * 2}))
+    unsharded = vs_judge(state, torch.bfloat16, "auto")
+    t0 = time.perf_counter()
+    one = unsharded.score_frames(pix, ids, mask, pmask)
+    one_s = time.perf_counter() - t0
+    fp32 = vs_judge(map_state(lambda t: t.float(), state), torch.float32,
+                    "plain").score_frames(pix, ids, mask, pmask)
+    rel = _rel_err(torch.from_numpy(got), torch.from_numpy(fp32))[1]
+    dist = float(np.abs(got - one).max())
+    out[label] = {"logits": got.tolist(), "unsharded": one.tolist(),
+                  "fp32_plain": fp32.tolist(), "rel_vs_fp32_plain": rel,
+                  "max_abs_vs_unsharded": dist, "s": secs,
+                  "unsharded_s": one_s}
+    print(f"phase 34 {label}: {VS_SPLIT_FRAMES} split frames "
+          f"({pix.shape[0]} images), logits {got.tolist()} against fp32 "
+          f"plain {fp32.tolist()}: {rel:.4e} of max|plain| (bound "
+          f"{LOGITS_REL_TOL:.1e}), max|delta| against the unsharded run "
+          f"{dist:.4e}; {secs * 1e3:.1f} ms a clip (unsharded "
+          f"{one_s * 1e3:.1f} ms, cold)")
+    if not rel <= LOGITS_REL_TOL:
+        raise RuntimeError(f"phase 34 {label}: {rel} > {LOGITS_REL_TOL}")
+    del judge, unsharded, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def internvl26b_mesh_phase(dev, generator):
+    """Phase 34 (d): the InternVL2-26B judge at full width, its tower and
+    decoder cut to MESH_JUDGE_DEPTHS: the InternViT-6B tower on
+    ``local(1, MESH_26B_TOWER)``, where its 25 heads split 5 a rank and the
+    QK-RMSNorm's statistics cross the ranks, and the decoder (48/8 heads:
+    24/4 a rank) on ``local(1, 2)``, against the judge unsharded and in
+    fp32 plain.  Returns the readings and the launches."""
+    import dataclasses
+    import functools
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import internvl2_26b_chat_config
+    from mjvideo_tpu_torch.models.generate import _eos_pad
+    from mjvideo_tpu_torch.parallel.mesh import Mesh, shard_params, split_plan
+
+    videos = ("video_0", "video_1")
+    depth = MESH_JUDGE_DEPTHS["internvl26b"]
+    base = internvl2_26b_chat_config()
+    base = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision,
+                                         num_hidden_layers=depth[0]),
+        llm=dataclasses.replace(base.llm, num_hidden_layers=depth[1]))
+    state = init_chat_params_by_layer(base, generator(), dev)
+    tower_mesh = Mesh.local(1, MESH_26B_TOWER)
+    tower = {k: state[k] for k in ("vision_model", "mlp1")}
+
+    def judge_of(params, mesh=None, **kw):
+        j = make_judge(state=params, base=base, mesh=mesh, **kw)
+        j.tokenizer = RecordingTokenizer(j.tokenizer)
+        return j
+
+    unsharded = judge_of(state)
+    cfg = unsharded.cfg
+    tower_plan = split_plan(tower, MESH_26B_TOWER, cfg)
+    out = {"tower_split": _split_layers(tower_plan, "attn/qkv", "mlp/fc1")}
+    tower_shards = shard_params(tower, tower_mesh, cfg=cfg)
+    judge = judge_of(state, Mesh.local(1, 2))
+    encode_video = judge._encode_video
+
+    def encode(video_path):
+        """The judge's encoding with the tower on its own mesh."""
+        mesh, params = judge.mesh, judge.params
+        judge.mesh, judge.params = tower_mesh, tower_shards
+        try:
+            return encode_video(video_path)
+        finally:
+            judge.mesh, judge.params = mesh, params
+
+    judge._prep = functools.lru_cache(maxsize=8)(encode)
+    eos = _eos_pad(cfg, unsharded.tokenizer)[0]
+    fp32 = {**state, "language_model": {
+        **state["language_model"],
+        "tok_embeddings": state["language_model"]["tok_embeddings"].float()}}
+    plain = judge_of(fp32, impl="plain", pixel_dtype=torch.float32)
+    ref = mesh_judge_reference(unsharded, plain, videos, eos)
+    del plain
+    vis = [j._prep(videos[0])[0] for j in (judge, unsharded)]
+    out["tower_rel_vs_unsharded"] = _rel_err(vis[0], vis[1])[1]
+    del vis
+    L_vit, L_llm = depth
+    label = (f"internvl2-26b tower local(1, {MESH_26B_TOWER}), decoder "
+             f"local(1, 2), at depths {depth}")
+    want = _judge_launches(cfg, _with_prepass({
+        "vit_attention": 2 * L_vit * MESH_26B_TOWER,
+        "exact_attention": 3 * L_llm * 2}))
+    judge._prep.cache_clear()
+    judge._pstate.cache_clear()
+    out[label], launches = mesh_judge_reading(
+        label, judge, unsharded, ref, videos, eos, want)
+    print(f"phase 34 {label}: the tower's output (mlp1) of a video against "
+          f"the unsharded tower {out['tower_rel_vs_unsharded']:.4e} of "
+          f"max|unsharded|; pairs split {out['tower_split']}")
+    del judge, unsharded, state, tower, tower_shards, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, {label: launches}
+
+
+def judges_mesh_phase(dev, generator, drawer):
+    """Phase 34: the kernel checks at the rank shapes (a generator of their
+    own), then (b) the 2B judge, (c) the other families and (d) the 26B,
+    each on fresh states.  Returns the readings, the kernel readings and
+    the launch counts by path."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    k34 = check_judge_mesh_kernels(drawer(generator()))
+    out = {"kernel_checks_s": time.perf_counter() - t0}
+    launches = {}
+    for part, fn in (("internvl2b", internvl2b_mesh_phase),
+                     ("families", families_mesh_phase),
+                     ("internvl26b", internvl26b_mesh_phase)):
+        t0 = time.perf_counter()
+        got, more = fn(dev, generator)
+        out.update(got)
+        launches.update(more)
+        out[f"{part}_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {f"mesh_judges {k}": v for k, v in launches.items()}
+    return out, k34, launches
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
     ``tools/phase25_torch.py``, ``tools/phase27_torch.py``,
@@ -8793,6 +9397,14 @@ def main() -> int:
     mesh_out.update(mesh_tail)
     mesh_out["command_s"] = mesh_s + time.perf_counter() - t0
     print(f"phase 33 command time {mesh_out['command_s']:.1f} s")
+    # Phase 34: the judges on a (data, model) mesh, on fresh states.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    judges_mesh_out, k34, launches_34 = judges_mesh_phase(dev, generator,
+                                                          drawer)
+    judges_mesh_out["command_s"] = time.perf_counter() - t0
+    print(f"phase 34 command time {judges_mesh_out['command_s']:.1f} s")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -8806,7 +9418,8 @@ def main() -> int:
                **harness_launches, **launches_4b, **launches_25,
                **launches_26, **launches_27, **launches_28, **launches_29,
                **launches_30, **launches_31,
-               "serving_example": serve_launches, **mesh_launches}
+               "serving_example": serve_launches, **mesh_launches,
+               **launches_34}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -9303,6 +9916,10 @@ def main() -> int:
         "mesh_kernels": {f"{name} {shape}": {f: r.get(f) for f in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
             for (name, shape), r in mesh_k.items() if isinstance(r, dict)},
+        "mesh_judges": judges_mesh_out,
+        "mesh_judge_kernels": {f"{name} {shape}": {f: r.get(f) for f in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
+            for (name, shape), r in k34.items() if isinstance(r, dict)},
         "qwen2vl_decoder_kernels": {f"{size} {name}": {
             n: brief(r[n]) for n in ("K3", "K2r", "K2r kernel")}
             for (size, name), r in k26["qwen"].items()},

@@ -20,7 +20,10 @@ and resize, its frame grid) and its drivers,
 them byte-equal to the JAX package's, which transcribe the reference
 benchmark's (``eval_overall_internvl2_2b.py:17-80``,
 ``eval_fine_grained_internvl2_2b.py:67-138``,
-``eval_genai_videoScore.py:50-71``).
+``eval_genai_videoScore.py:50-71``).  Every local judge takes ``mesh=``
+(a ``parallel.mesh.Mesh``), where the JAX judges take sharded ``params``:
+it cuts the whole state it is given over the model axis (``_place``) and
+splits a pair's rows over the data axis.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..models.generate import (
     stack_prefix_states,
 )
 from ..ops.quant import quantize_params_mode
+from ..parallel.mesh import held, shard_params, sub
 from ..utils.bridge import first_tensor
 
 RATING_SCALE: Dict[str, int] = {
@@ -210,6 +214,18 @@ def _maybe_quantize(params, quant: Optional[str]):
     return quantize_params_mode(params, quant)
 
 
+def _place(params, quant: Optional[str], mesh, cfg):
+    """A judge's state in its serving mode (``_maybe_quantize``), then cut
+    over ``mesh``'s model axis (``parallel.mesh.shard_params``: the held
+    model ranks' trees); a w8a8 mode with a model axis above 1 raises
+    ``NotImplementedError`` (ROADMAP Queue 1 item 12).  Returns (state,
+    its device)."""
+    params = _maybe_quantize(params, quant)
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg=cfg)
+    return params, first_tensor(held(params)[0]).device
+
+
 def _video_prep_cache(encode_fn):
     """A per-judge LRU over ``_encode_video``, keyed by the video's path
     (``judges.py:200-212``): the fine-grained benchmark asks about 34
@@ -288,17 +304,21 @@ class InternVLJudge:
     def __init__(self, cfg, params, tokenizer, num_segments: int = 8,
                  max_new_tokens: int = 64, attn_impl: Optional[str] = None,
                  quant: Optional[str] = None, kv_quant: bool = False,
-                 prefix_cache: bool = True, suffix_bucket: int = 128):
+                 prefix_cache: bool = True, suffix_bucket: int = 128,
+                 mesh=None):
         """``cfg``: a ChatConfig; ``params``: chat state with the LM head,
         on the device the judge runs on; ``attn_impl``: "auto" (the
         kernels on the card) or "plain"; ``quant``: a serving mode of
         ``ops.quant.quantize_params_mode``, applied to the state where it
-        lies (``_maybe_quantize``)."""
+        lies (``_maybe_quantize``).  ``mesh`` (a ``parallel.mesh.Mesh``;
+        the JAX judge takes sharded ``params``): the whole state is cut
+        over its model axis (``_place``), the tower, the decoder and the LM
+        head run split, and a pair's rows split over its data axis."""
         self.cfg = cfg
         self.kv_quant = kv_quant
         self.quant = quant
-        self.params = _maybe_quantize(params, quant)
-        self.device = first_tensor(params).device
+        self.mesh = mesh
+        self.params, self.device = _place(params, quant, mesh, cfg)
         self.tokenizer = tokenizer
         self.num_segments = num_segments
         self.max_new_tokens = max_new_tokens
@@ -325,7 +345,7 @@ class InternVLJudge:
             vis = extract_feature(
                 self.params, self.cfg,
                 torch.as_tensor(pixels).to(self.device, torch.bfloat16),
-                impl=self.attn_impl)
+                impl=self.attn_impl, mesh=self.mesh)
         return vis, num_patches_list
 
     def _gc(self):
@@ -394,7 +414,8 @@ class InternVLJudge:
         return prefill_prefix(
             self.params, self.cfg, ids.to(self.device), mask.to(self.device),
             max_len=Pb + self.suffix_bucket + self.max_new_tokens,
-            vision_embeds=vis, impl=self.attn_impl, kv_quant=self.kv_quant)
+            vision_embeds=vis, impl=self.attn_impl, kv_quant=self.kv_quant,
+            mesh=self.mesh)
 
     def _prefix_inputs(self, prompt: str, video_paths):
         """(state, suffix ids, suffix mask, generation config) of the prefix
@@ -425,7 +446,8 @@ class InternVLJudge:
             return None
         state, sids, smask, gc = inputs
         out = generate_from_prefix(self.params, self.cfg, state, sids, smask,
-                                   generation_config=gc, impl=self.attn_impl)
+                                   generation_config=gc, impl=self.attn_impl,
+                                   mesh=self.mesh)
         return [_decode_text(self.tokenizer, row, gc.eos_token_id)
                 for row in out.tolist()]
 
@@ -444,7 +466,7 @@ class InternVLJudge:
             self.params, self.cfg, self.tokenizer, question,
             num_patches_list=num_patches_list,
             generation_config=self._gc(), impl=self.attn_impl,
-            vision_embeds=vis)
+            vision_embeds=vis, mesh=self.mesh)
         return response
 
     def ask_batch(self, prompt: str, video_paths) -> List[str]:
@@ -461,7 +483,7 @@ class InternVLJudge:
             self.params, self.cfg, self.tokenizer, questions,
             num_patches_lists=[npl for _, npl in preps],
             generation_config=self._gc(), impl=self.attn_impl,
-            vision_embeds=torch.cat([v for v, _ in preps]))
+            vision_embeds=torch.cat([v for v, _ in preps]), mesh=self.mesh)
 
 
 class Qwen2VLJudge(_GreedyLocalJudge):
@@ -486,12 +508,13 @@ class Qwen2VLJudge(_GreedyLocalJudge):
                  max_new_tokens: int = 64, max_pixels: int = 360 * 420,
                  attn_impl: Optional[str] = None,
                  quant: Optional[str] = None, kv_quant: bool = False,
-                 prefix_cache: bool = True, suffix_bucket: int = 128):
+                 prefix_cache: bool = True, suffix_bucket: int = 128,
+                 mesh=None):
         self.cfg = cfg  # a Qwen2VLConfig
         self.kv_quant = kv_quant
         self.quant = quant
-        self.params = _maybe_quantize(params, quant)
-        self.device = first_tensor(params).device
+        self.mesh = mesh
+        self.params, self.device = _place(params, quant, mesh, cfg)
         self.tokenizer = tokenizer
         self.num_segments = num_segments
         self.max_new_tokens = max_new_tokens
@@ -521,10 +544,10 @@ class Qwen2VLJudge(_GreedyLocalJudge):
             frames, self.cfg.vision, max_pixels=self.max_pixels)
         with torch.no_grad():
             vis = vision_forward(
-                self.params["visual"], self.cfg.vision,
+                sub(self.params, "visual"), self.cfg.vision,
                 torch.from_numpy(patches).to(self.device,
                                              vision_dtype(self.params)),
-                grid, impl=self.attn_impl)
+                grid, impl=self.attn_impl, mesh=self.mesh)
         return vis, grid
 
     def _prefix_state(self, video_path: str):
@@ -541,7 +564,7 @@ class Qwen2VLJudge(_GreedyLocalJudge):
         return prefill_prefix(
             self.params, self.cfg, prefix, grid, vis,
             max_len=Pb + self.suffix_bucket + self.max_new_tokens, bucket=Pb,
-            impl=self.attn_impl, kv_quant=self.kv_quant)
+            impl=self.attn_impl, kv_quant=self.kv_quant, mesh=self.mesh)
 
     def _prefix_suffix(self, prompt: str, video_paths):
         """The question suffix of the prefix path, or None where the call
@@ -559,7 +582,7 @@ class Qwen2VLJudge(_GreedyLocalJudge):
         return continue_prefix(
             self.params, self.cfg, state, suffix, self.suffix_bucket,
             self.max_new_tokens, self.cfg.im_end_token_id,
-            impl=self.attn_impl, **kw)
+            impl=self.attn_impl, mesh=self.mesh, **kw)
 
     def _full_items(self, prompt: str, video_paths):
         """The full-prompt path's rows (ids, M-RoPE positions, no patches)
@@ -583,7 +606,7 @@ class Qwen2VLJudge(_GreedyLocalJudge):
             self.params, self.cfg, items,
             max_new_tokens=self.max_new_tokens,
             eos_token_id=self.cfg.im_end_token_id, impl=self.attn_impl,
-            vision_embeds=vis, kv_quant=self.kv_quant, **kw)
+            vision_embeds=vis, kv_quant=self.kv_quant, mesh=self.mesh, **kw)
 
 
 class MiniCPMVJudge(_GreedyLocalJudge):
@@ -604,12 +627,13 @@ class MiniCPMVJudge(_GreedyLocalJudge):
     def __init__(self, cfg, params, tokenizer, num_segments: int = 8,
                  max_new_tokens: int = 64, attn_impl: Optional[str] = None,
                  quant: Optional[str] = None, kv_quant: bool = False,
-                 prefix_cache: bool = True, suffix_bucket: int = 128):
+                 prefix_cache: bool = True, suffix_bucket: int = 128,
+                 mesh=None):
         self.cfg = cfg  # a MiniCPMVConfig
         self.kv_quant = kv_quant
         self.quant = quant
-        self.params = _maybe_quantize(params, quant)
-        self.device = first_tensor(params).device
+        self.mesh = mesh
+        self.params, self.device = _place(params, quant, mesh, cfg)
         self.tokenizer = tokenizer
         self.num_segments = num_segments
         self.max_new_tokens = max_new_tokens
@@ -640,7 +664,7 @@ class MiniCPMVJudge(_GreedyLocalJudge):
                 self.params, self.cfg,
                 torch.from_numpy(pix).to(self.device,
                                          vision_dtype(self.params)),
-                impl=self.attn_impl)
+                impl=self.attn_impl, mesh=self.mesh)
         return vis, len(frames)
 
     def _prefix_state(self, video_path: str):
@@ -656,7 +680,7 @@ class MiniCPMVJudge(_GreedyLocalJudge):
         return prefill_prefix(
             self.params, self.cfg, prefix, vis,
             max_len=Pb + self.suffix_bucket + self.max_new_tokens, bucket=Pb,
-            impl=self.attn_impl, kv_quant=self.kv_quant)
+            impl=self.attn_impl, kv_quant=self.kv_quant, mesh=self.mesh)
 
     def _prefix_suffix(self, prompt: str, video_paths):
         from ..models.minicpmv import build_video_prompt_prefix_suffix
@@ -672,7 +696,7 @@ class MiniCPMVJudge(_GreedyLocalJudge):
         return continue_prefix(
             self.params, self.cfg, state, suffix, self.suffix_bucket,
             self.max_new_tokens, self.cfg.im_end_token_id,
-            impl=self.attn_impl, **kw)
+            impl=self.attn_impl, mesh=self.mesh, **kw)
 
     def _generate_full(self, prompt: str, video_paths, **kw):
         from ..models.minicpmv import (
@@ -689,7 +713,7 @@ class MiniCPMVJudge(_GreedyLocalJudge):
             max_new_tokens=self.max_new_tokens,
             eos_token_id=self.cfg.im_end_token_id, impl=self.attn_impl,
             vision_embeds=[v for v, _ in preps], kv_quant=self.kv_quant,
-            **kw)
+            mesh=self.mesh, **kw)
 
 
 class CogVLM2Judge(_GreedyLocalJudge):
@@ -717,14 +741,15 @@ class CogVLM2Judge(_GreedyLocalJudge):
     def __init__(self, cfg, params, tokenizer, num_segments: int = 8,
                  max_new_tokens: int = 64, attn_impl: Optional[str] = None,
                  quant: Optional[str] = None, kv_quant: bool = False,
-                 prefix_cache: bool = True, suffix_bucket: int = 128):
+                 prefix_cache: bool = True, suffix_bucket: int = 128,
+                 mesh=None):
         from ..models.cogvlm2 import compute_dtype
 
         self.cfg = cfg  # a CogVLM2Config
         self.kv_quant = kv_quant
         self.quant = quant
-        self.params = _maybe_quantize(params, quant)
-        self.device = first_tensor(params).device
+        self.mesh = mesh
+        self.params, self.device = _place(params, quant, mesh, cfg)
         self.dtype = compute_dtype(self.params)
         self.tokenizer = tokenizer
         self.num_segments = num_segments
@@ -754,7 +779,7 @@ class CogVLM2Judge(_GreedyLocalJudge):
             vis = get_vision_embedding(
                 self.params, self.cfg,
                 torch.from_numpy(pix).to(self.device), impl=self.attn_impl,
-                dtype=self.dtype)
+                dtype=self.dtype, mesh=self.mesh)
         return vis, len(frames)
 
     def _prefix_state(self, video_path: str):
@@ -770,7 +795,8 @@ class CogVLM2Judge(_GreedyLocalJudge):
         return prefill_prefix(
             self.params, self.cfg, prefix, vis,
             max_len=Pb + self.suffix_bucket + self.max_new_tokens, bucket=Pb,
-            impl=self.attn_impl, kv_quant=self.kv_quant, dtype=self.dtype)
+            impl=self.attn_impl, kv_quant=self.kv_quant, dtype=self.dtype,
+            mesh=self.mesh)
 
     def _prefix_suffix(self, prompt: str, video_paths):
         from ..models.cogvlm2 import build_video_prompt_prefix_suffix
@@ -786,7 +812,7 @@ class CogVLM2Judge(_GreedyLocalJudge):
         return continue_prefix(
             self.params, self.cfg, state, suffix, self.suffix_bucket,
             self.max_new_tokens, self.cfg.eos_token_id, impl=self.attn_impl,
-            dtype=self.dtype, **kw)
+            dtype=self.dtype, mesh=self.mesh, **kw)
 
     def _generate_full(self, prompt: str, video_paths, **kw):
         from ..models.cogvlm2 import (
@@ -803,7 +829,7 @@ class CogVLM2Judge(_GreedyLocalJudge):
             max_new_tokens=self.max_new_tokens,
             eos_token_id=self.cfg.eos_token_id, impl=self.attn_impl,
             vision_embeds=[v for v, _ in preps], kv_quant=self.kv_quant,
-            dtype=self.dtype, **kw)
+            dtype=self.dtype, mesh=self.mesh, **kw)
 
 
 def _extract_frames_b64(video_path: str, every: int = 50,
@@ -1257,8 +1283,9 @@ class VideoScoreJudge:
                  image_seq_len: Optional[int] = None,
                  do_image_splitting: bool = False,
                  resize_shortest: int = 378, resize_longest: int = 980,
-                 device=None, attn_impl: Optional[str] = None):
+                 device=None, attn_impl: Optional[str] = None, mesh=None):
         self.dtype = dtype or torch.bfloat16
+        self.mesh = mesh
         if cfg is not None and params is not None:
             self.cfg, self.params = cfg, params
         else:
@@ -1275,7 +1302,7 @@ class VideoScoreJudge:
             self.params = import_videoscore_params(
                 load_safetensors_dir(checkpoint_path), self.cfg, self.dtype,
                 device="cuda" if device is None else device)
-        self.device = first_tensor(self.params).device
+        self.params, self.device = _place(self.params, None, mesh, self.cfg)
         self.tokenizer = tokenizer
         self.num_frames = num_frames
         # One <image> marker expands to n_latents image tokens: the
@@ -1375,7 +1402,7 @@ class VideoScoreJudge:
                 torch.as_tensor(np.asarray(pixel_values)).to(dev, self.dtype),
                 torch.from_numpy(ids).to(dev),
                 torch.from_numpy(mask).to(dev), impl=self.attn_impl,
-                pixel_attention_mask=pam)
+                pixel_attention_mask=pam, mesh=self.mesh)
         return logits.float().cpu().numpy()[0]
 
     def score(self, video_path: str, caption: str) -> float:

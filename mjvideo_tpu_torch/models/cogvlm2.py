@@ -46,6 +46,15 @@ from the JAX package:
   copy.
 * ``greedy_generate_batch`` and ``continue_prefix`` can feed
   ``teacher_tokens`` and return each step's fp32 logits.
+* ``mesh=`` (a ``parallel.mesh.Mesh``; JAX takes sharded ``params``): the
+  held model ranks' states (``shard_params``) run the EVA tower on each
+  rank's heads (qkv by heads, ``dense`` and ``fc2`` row-parallel), both
+  experts' MLPs and ``dense`` rows split, and the LM head's vocabulary
+  columns.  The packed expert qkv stays whole (JAX's rule): every rank
+  computes it and slices its own query heads with their kv group, which
+  K3 and its cache take, so each rank's attention output is its rows of
+  ``dense``.  The prompt rows split over the data axis
+  (``generate.over_data``).
 """
 
 from __future__ import annotations
@@ -58,22 +67,30 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import LLMConfig
-from ..ops.attention import NEG_INF, attention_plain, multi_head_attention
-from ..ops.flash_attention import flash_attention
+from ..ops.attention import multi_head_attention
 from ..ops.matmul import dot, dot_f32
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope, rope_tables
+from ..parallel.mesh import (
+    held,
+    held_layers,
+    model_axis,
+    pair_forward,
+    sub,
+)
 from ..utils.bridge import map_state
 from . import decoder as dec
 from .generate import (
     KVCache,
+    attend_cache,
     decode_batch,
     init_kv_cache,
     last_real_token,
+    layer_caches,
+    over_data,
     pad_prompt_batch,
     prefill_slot_mask,
-    read_kv,
-    scatter_kv,
+    slice_state,
     step_slot_mask,
 )
 from .internvl import scatter_image_embeds
@@ -396,7 +413,7 @@ def import_cogvlm2_params(state, cfg: CogVLM2Config,
 def compute_dtype(params) -> torch.dtype:
     """The default activation dtype: the weights' (norms are never
     quantized)."""
-    return params["language_model"]["norm"]["weight"].dtype
+    return held(params)[0]["language_model"]["norm"]["weight"].dtype
 
 
 # ------------------------------------------------------------ vision tower
@@ -409,7 +426,8 @@ def _vdot(x, kernel, dtype, impl):
 
 def vision_forward(p, cfg: CogVLM2VisionConfig, pixel_values: torch.Tensor,
                    impl: str = "auto",
-                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   dtype: Optional[torch.dtype] = None,
+                   mesh=None) -> torch.Tensor:
     """The EVA2-CLIP tower (``cogvlm2.py:340-382``): NHWC pixels (F, H, W,
     3) at the native grid -> fp32 (F, 1 + grid^2, C).  The cls token and
     the position table need no interpolation.  Each post-norm block adds
@@ -417,29 +435,47 @@ def vision_forward(p, cfg: CogVLM2VisionConfig, pixel_values: torch.Tensor,
     un-normalised fp32 residual; the products and K3 take their inputs in
     ``dtype`` (the weights' by default).  q, k and v are strided views into
     the (F, S, 3, H, D) product in ``dtype`` (head stride D, token stride
-    3 C: 16-byte multiples at D = 112), which K3 reads as they are."""
-    lp0 = p["layers"]
-    dtype = dtype or lp0["ln1"]["weight"].dtype
+    3 C: 16-byte multiples at D = 112), which K3 reads as they are.
+    ``mesh``: ``p`` is the held model ranks' tower states; a split block
+    runs each rank's heads of qkv and its rows of ``dense`` (and its
+    columns of fc1, rows of fc2), the fp32 partials summed over the model
+    axis."""
+    p0 = held(p)[0]
+    tp = model_axis(mesh)
+    dtype = dtype or p0["layers"]["ln1"]["weight"].dtype
     # The pixels rounded to ``dtype``; the product then runs in fp32.
-    x = patch_embed(p["patch_embedding"], pixel_values.to(dtype).float(),
+    x = patch_embed(p0["patch_embedding"], pixel_values.to(dtype).float(),
                     cfg.patch_size)
     N = x.shape[0]
-    cls = p["cls_embedding"].float().expand(N, 1, cfg.hidden_size)
-    x = torch.cat([cls, x], dim=1) + p["position_embedding"][None].float()
-    H, D, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
+    cls = p0["cls_embedding"].float().expand(N, 1, cfg.hidden_size)
+    x = torch.cat([cls, x], dim=1) + p0["position_embedding"][None].float()
+    D, eps = cfg.head_dim, cfg.layer_norm_eps
     S, C = x.shape[1], cfg.hidden_size
-    for i in range(cfg.num_hidden_layers):
-        lp = map_state(lambda a: a[i], lp0)
+
+    def attn_body(lp, x, split):
         qkv = _vdot(x, lp["qkv"]["kernel"], dtype, impl) + lp["qkv"]["bias"]
+        H = qkv.shape[-1] // (3 * D)
         q, k, v = qkv.to(dtype).reshape(N, S, 3, H, D).unbind(2)
         attn = multi_head_attention(q, k, v, causal=False, impl=impl)
-        attn = _vdot(attn.reshape(N, S, C), lp["dense"]["kernel"], dtype,
-                     impl) + lp["dense"]["bias"]
+        return _vdot(attn.reshape(N, S, H * D), lp["dense"]["kernel"], dtype,
+                     impl)
+
+    def mlp_body(lp, x, split):
+        h = _vdot(x, lp["fc1"]["kernel"], dtype, impl) + lp["fc1"]["bias"]
+        return _vdot(F.gelu(h), lp["fc2"]["kernel"], dtype, impl)
+
+    layers = [t["layers"] for t in held_layers(p, mesh)]
+    for i in range(cfg.num_hidden_layers):
+        lps = [map_state(lambda a: a[i], t) for t in layers]
+        lp = lps[0]
+        split = (tp is not None
+                 and lp["qkv"]["kernel"].shape[-1] != 3 * C)
+        attn = pair_forward(tp, lps, x, split, attn_body) + lp["dense"]["bias"]
         x = x + layer_norm(attn, lp["ln1"]["weight"], lp["ln1"]["bias"],
                            eps=eps)
-        h = _vdot(x, lp["fc1"]["kernel"], dtype, impl) + lp["fc1"]["bias"]
-        h = _vdot(F.gelu(h), lp["fc2"]["kernel"], dtype, impl) \
-            + lp["fc2"]["bias"]
+        split = (tp is not None
+                 and lp["fc1"]["kernel"].shape[-1] != cfg.intermediate_size)
+        h = pair_forward(tp, lps, x, split, mlp_body) + lp["fc2"]["bias"]
         x = x + layer_norm(h, lp["ln2"]["weight"], lp["ln2"]["bias"],
                            eps=eps)
     return x
@@ -476,14 +512,16 @@ def adapter_forward(p, cfg: CogVLM2Config, vision_out: torch.Tensor,
 
 def get_vision_embedding(params, cfg: CogVLM2Config,
                          pixel_values: torch.Tensor, impl: str = "auto",
-                         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                         dtype: Optional[torch.dtype] = None,
+                         mesh=None) -> torch.Tensor:
     """Frames (F, H, W, 3) -> fp32 (F, tokens_per_frame, llm hidden): the
     tower and the adapter (``cogvlm2.py:836-844``, ``_jit_vision``), each
-    product's input in ``dtype`` (the weights' by default)."""
+    product's input in ``dtype`` (the weights' by default); the adapter
+    matches no rule and runs whole."""
     dtype = dtype or compute_dtype(params)
-    vis = vision_forward(params["vision"], cfg.vision, pixel_values, impl,
-                         dtype)
-    return adapter_forward(params["adapter"], cfg, vis, impl, dtype)
+    vis = vision_forward(sub(params, "vision"), cfg.vision, pixel_values,
+                         impl, dtype, mesh)
+    return adapter_forward(held(params)[0]["adapter"], cfg, vis, impl, dtype)
 
 
 # ----------------------------------------------------------- position ids
@@ -512,13 +550,20 @@ def build_position_ids(token_type_ids: np.ndarray) -> np.ndarray:
 
 # ------------------------------------------------------------ text decoder
 
-def _qkv_split(cfg: LLMConfig, qkv: torch.Tensor):
+def _qkv_split(cfg: LLMConfig, qkv: torch.Tensor, rank: int = 0,
+               ranks: int = 1):
+    """q, k and v of the packed [q; k; v] product; of ``ranks`` model
+    ranks, rank ``rank``'s query heads and their kv group (its heads are
+    contiguous, so its attention output is its rows of ``dense``)."""
     B, S, _ = qkv.shape
     Hq, Hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
-    q = qkv[..., : Hq * hd].reshape(B, S, Hq, hd)
-    k = qkv[..., Hq * hd: (Hq + Hkv) * hd].reshape(B, S, Hkv, hd)
-    v = qkv[..., (Hq + Hkv) * hd:].reshape(B, S, Hkv, hd)
+    hq, hkv = Hq // ranks, Hkv // ranks
+    q0, k0, v0 = rank * hq * hd, (Hq + rank * hkv) * hd, \
+        (Hq + Hkv + rank * hkv) * hd
+    q = qkv[..., q0:q0 + hq * hd].reshape(B, S, hq, hd)
+    k = qkv[..., k0:k0 + hkv * hd].reshape(B, S, hkv, hd)
+    v = qkv[..., v0:v0 + hkv * hd].reshape(B, S, hkv, hd)
     return q, k, v
 
 
@@ -531,9 +576,10 @@ def _select(vis_mask: Optional[torch.Tensor], vision_fn, language_fn):
     return torch.where(vis_mask, vision_fn(), language_fn())
 
 
-def _swiglu(mp, h, impl):
-    return dot(F.silu(dot(h, mp["w1"]["kernel"], impl))
-               * dot(h, mp["w3"]["kernel"], impl), mp["w2"]["kernel"], impl)
+def _swiglu(mp, h, impl, split=False):
+    y = F.silu(dot(h, mp["w1"]["kernel"], impl)) * dot(h, mp["w3"]["kernel"],
+                                                        impl)
+    return (dot_f32 if split else dot)(y, mp["w2"]["kernel"], impl)
 
 
 def _qkv(lp, h, vis_mask, impl):
@@ -545,31 +591,73 @@ def _qkv(lp, h, vis_mask, impl):
         lambda: dot(h, a["language_qkv"]["kernel"], impl))
 
 
-def _dense_and_mlp(cfg: LLMConfig, lp, x, attn, vis_mask, impl):
-    """The attention's output projection, the residual, the post-attention
-    RMSNorm and the SwiGLU MLP, each by its position's expert."""
-    a = lp["attention"]
-    x = x + _select(vis_mask,
-                    lambda: dot(attn, a["vision_dense"]["kernel"], impl),
-                    lambda: dot(attn, a["language_dense"]["kernel"], impl))
-    h = rms_norm(x, lp["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
-    return x + _select(vis_mask,
-                       lambda: _swiglu(lp["mlp"]["vision"], h, impl),
-                       lambda: _swiglu(lp["mlp"]["language"], h, impl))
+def _dense_split(cfg: LLMConfig, lp, mesh) -> bool:
+    """Whether the layer's ``dense`` rows are split over the model axis."""
+    return (model_axis(mesh) is not None
+            and lp["attention"]["language_dense"]["kernel"].shape[-2]
+            != cfg.num_attention_heads * cfg.head_dim)
+
+
+def _attention(cfg: LLMConfig, lps, h, vis_mask, impl, mesh, attend):
+    """The dual-expert attention branch after its norm, to the residual:
+    the packed qkv once, ``attend(i, q, k, v)`` on each held rank's heads
+    (where ``dense`` is split) and each expert's ``dense`` of its
+    output."""
+    B, S, _ = h.shape
+    tp = model_axis(mesh)
+    split = _dense_split(cfg, lps[0], mesh)
+    qkv = _qkv(lps[0], h, vis_mask, impl)
+    n = tp.model if split else 1
+
+    def body(lp, i, split):
+        q, k, v = _qkv_split(cfg, qkv, tp.model_ranks[i] if split else 0, n)
+        attn = attend(i, q, k, v).reshape(B, S, -1)
+        a = lp["attention"]
+        prod = dot_f32 if split else dot
+        return _select(vis_mask,
+                       lambda: prod(attn, a["vision_dense"]["kernel"], impl),
+                       lambda: prod(attn, a["language_dense"]["kernel"],
+                                    impl))
+
+    if not split:
+        return body(lps[0], 0, False)
+    return tp.reduce_from_model([body(lp, i, True)
+                                 for i, lp in enumerate(lps)]).to(h.dtype)
+
+
+def _mlp(cfg: LLMConfig, lps, h, vis_mask, impl, mesh):
+    """Both experts' SwiGLU MLPs after the norm, by position: w1/w3
+    column- and w2 row-parallel where the pair is split."""
+    tp = model_axis(mesh)
+    split = (tp is not None
+             and lps[0]["mlp"]["language"]["w1"]["kernel"].shape[-1]
+             != cfg.intermediate_size)
+
+    def body(lp, x, split):
+        return _select(vis_mask,
+                       lambda: _swiglu(lp["mlp"]["vision"], x, impl, split),
+                       lambda: _swiglu(lp["mlp"]["language"], x, impl, split))
+
+    return pair_forward(tp, lps, h, split, body)
 
 
 def _expert_layer(cfg: LLMConfig, lp, x, vis_mask, attention_mask, cos, sin,
-                  position_ids, impl):
+                  position_ids, impl, mesh=None):
     """One dual-expert decoder layer (``VisionExpertAttention`` and
     ``VisionExpertMLP``, ``cogvlm2.py:446-479``); causal K3 at
-    ``impl="auto"``."""
-    B, S, _ = x.shape
-    h = rms_norm(x, lp["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
-    q, k, v = _qkv_split(cfg, _qkv(lp, h, vis_mask, impl))
-    q, k = apply_rope(q, k, cos, sin, position_ids)
-    attn = multi_head_attention(q, k, v, attention_mask=attention_mask,
-                                causal=True, impl=impl)
-    return _dense_and_mlp(cfg, lp, x, attn.reshape(B, S, -1), vis_mask, impl)
+    ``impl="auto"``.  ``mesh``: ``lp`` is the held model ranks' layer
+    states."""
+    lps = held(lp)
+
+    def attend(i, q, k, v):
+        q, k = apply_rope(q, k, cos, sin, position_ids)
+        return multi_head_attention(q, k, v, attention_mask=attention_mask,
+                                    causal=True, impl=impl)
+
+    h = rms_norm(x, lps[0]["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
+    x = x + _attention(cfg, lps, h, vis_mask, impl, mesh, attend)
+    h = rms_norm(x, lps[0]["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
+    return x + _mlp(cfg, lps, h, vis_mask, impl, mesh)
 
 
 def _vis_mask(token_type_ids: torch.Tensor) -> Optional[torch.Tensor]:
@@ -582,11 +670,12 @@ def _vis_mask(token_type_ids: torch.Tensor) -> Optional[torch.Tensor]:
 def _embed(params, input_ids: torch.Tensor,
            token_type_ids: Optional[torch.Tensor],
            vision_embeds: Optional[torch.Tensor],
-           dtype: torch.dtype) -> torch.Tensor:
+           dtype: torch.dtype, mesh=None,
+           vocab_size: Optional[int] = None) -> torch.Tensor:
     """Token embeds in ``dtype`` with the vision embeds scattered at the
     vision positions (``token_type == VISION``)."""
-    embeds = dec.embed_tokens(params["language_model"],
-                              input_ids.long()).to(dtype)
+    embeds = dec.embed_tokens(sub(params, "language_model"),
+                              input_ids.long(), mesh, vocab_size).to(dtype)
     if vision_embeds is None:
         return embeds
     marker = (token_type_ids == VISION_TOKEN_TYPE).to(torch.int32)
@@ -603,42 +692,48 @@ def cogvlm2_forward(
     impl: str = "auto",
     vision_embeds: Optional[torch.Tensor] = None,  # (F, n_tok, C)
     dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """The multimodal forward -> final hidden states (B, T, C)
     (``cogvlm2.py:482-527``); ``vision_embeds`` skips the tower."""
-    lm, tc = params["language_model"], cfg.text
+    lm, tc = sub(params, "language_model"), cfg.text
+    lm0 = held(lm)[0]
     dtype = dtype or compute_dtype(params)
     if vision_embeds is None and pixel_values is not None:
         vision_embeds = get_vision_embedding(
             params, cfg, torch.as_tensor(pixel_values).to(
-                lm["norm"]["weight"].device), impl, dtype)
-    embeds = _embed(params, input_ids, token_type_ids, vision_embeds, dtype)
+                lm0["norm"]["weight"].device), impl, dtype, mesh)
+    embeds = _embed(params, input_ids, token_type_ids, vision_embeds, dtype,
+                    mesh, tc.vocab_size)
     S = input_ids.shape[1]
     cos, sin = rope_tables(max(S, 1), tc.head_dim, base=tc.rope_theta,
                            max_position_embeddings=tc.max_position_embeddings,
                            device=embeds.device)
     vis_mask = _vis_mask(token_type_ids)
     position_ids = torch.as_tensor(position_ids).to(embeds.device).long()
+    layers = [t["layers"] for t in held_layers(lm, mesh)]
     x = embeds
     for i in range(tc.num_hidden_layers):
-        x = _expert_layer(tc, map_state(lambda a: a[i], lm["layers"]), x,
-                          vis_mask, attention_mask, cos, sin, position_ids,
-                          impl)
-    return rms_norm(x, lm["norm"]["weight"], eps=tc.rms_norm_eps)
+        x = _expert_layer(tc, [map_state(lambda a: a[i], t) for t in layers],
+                          x, vis_mask, attention_mask, cos, sin, position_ids,
+                          impl, mesh)
+    return rms_norm(x, lm0["norm"]["weight"], eps=tc.rms_norm_eps)
 
 
-def lm_logits(params, hidden: torch.Tensor,
-              impl: str = "auto") -> torch.Tensor:
-    """fp32 logits by the untied LM head (``cogvlm2.py:530-531``)."""
-    return dot_f32(hidden, params["language_model"]["output"]["kernel"],
-                   impl)
+def lm_logits(params, hidden: torch.Tensor, impl: str = "auto", mesh=None,
+              vocab_size: Optional[int] = None) -> torch.Tensor:
+    """fp32 logits by the untied LM head (``cogvlm2.py:530-531``); under
+    ``mesh`` each rank's vocabulary columns, gathered
+    (``decoder.lm_logits``)."""
+    return dec.lm_logits(sub(params, "language_model"), hidden, impl, mesh,
+                         vocab_size)
 
 
 # ------------------------------------------------------------ cached decoder
 
-def _expert_layer_cached(cfg: LLMConfig, lp, x, k_cache, v_cache, k_scale,
-                         v_scale, cos, sin, slots, rope_pos, cache_mask,
-                         vis_mask, impl: str = "auto", q_offset=None):
+def _expert_layer_cached(cfg: LLMConfig, lp, x, caches, cos, sin, slots,
+                         rope_pos, cache_mask, vis_mask, impl: str = "auto",
+                         q_offset=None, mesh=None):
     """``generate._layer_with_cache`` with the expert select and the rotary
     position ``rope_pos`` decoupled from the cache slot ``slots``
     (``cogvlm2.py:534-605``).  Causality is token order, which is slot
@@ -646,66 +741,73 @@ def _expert_layer_cached(cfg: LLMConfig, lp, x, k_cache, v_cache, k_scale,
     ``q_offset`` (a suffix continuation) runs K3 over the whole cache, one
     without it (a prompt into an empty cache) K3 over the fresh tokens
     masked by ``write_ok``; a decode step (S = 1) or ``impl="plain"``
-    attends over the cache through the slot bias."""
-    B, S, _ = x.shape
-    h = rms_norm(x, lp["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
-    q, k, v = _qkv_split(cfg, _qkv(lp, h, vis_mask, impl))
-    q, k = apply_rope(q, k, cos, sin, rope_pos)
-    write_ok = scatter_kv(k_cache, v_cache, k_scale, v_scale, k, v, slots,
-                          cache_mask)
-    if S > 1 and impl != "plain" and q_offset is not None:
-        k_op, v_op = read_kv(k_cache, v_cache, k_scale, v_scale, q.dtype)
-        attn = flash_attention(q, k_op, v_op, attention_mask=cache_mask,
-                               causal=True, q_offset=q_offset)
-    elif S > 1 and impl != "plain":
-        attn = multi_head_attention(q, k, v, attention_mask=write_ok,
-                                    causal=True, impl=impl)
-    else:
-        k_pos = torch.arange(k_cache.shape[1], device=x.device)
-        valid = ((slots[:, :, None] >= k_pos[None, None])
-                 & (cache_mask[:, None, :] != 0))
-        bias = torch.where(valid, 0.0, NEG_INF)[:, None]
-        k_op, v_op = read_kv(k_cache, v_cache, k_scale, v_scale, q.dtype)
-        attn = attention_plain(q, k_op, v_op, bias=bias)
-    return _dense_and_mlp(cfg, lp, x, attn.reshape(B, S, -1), vis_mask, impl)
+    attends over the cache through the slot bias
+    (``generate.attend_cache``).  ``caches``: each held rank's (k, v,
+    k_scale, v_scale) of this layer, its own kv heads where ``dense`` is
+    split."""
+    lps = held(lp)
+
+    def attend(i, q, k, v):
+        q, k = apply_rope(q, k, cos, sin, rope_pos)
+        return attend_cache(q, k, v, *caches[i], slots, cache_mask, impl,
+                            q_offset)
+
+    h = rms_norm(x, lps[0]["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
+    x = x + _attention(cfg, lps, h, vis_mask, impl, mesh, attend)
+    h = rms_norm(x, lps[0]["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
+    return x + _mlp(cfg, lps, h, vis_mask, impl, mesh)
+
+
+def _new_cache(cfg: CogVLM2Config, lm, batch: int, max_len: int, device,
+               dtype, kv_quant: bool, mesh):
+    """A zeroed cache: one per held rank, each of its kv heads, where the
+    layers' ``dense`` is split (``generate.init_kv_cache``)."""
+    tc = cfg.text
+    lp0 = map_state(lambda a: a[0], held(lm)[0]["layers"])
+    heads = (tc.num_key_value_heads // mesh.model
+             if _dense_split(tc, lp0, mesh) else None)
+    return init_kv_cache(tc, batch, max_len, device=device, dtype=dtype,
+                         quant=kv_quant, mesh=mesh, kv_heads=heads)
 
 
 def forward_cached(params, cfg: CogVLM2Config, embeds: torch.Tensor,
-                   cache: KVCache, slots: torch.Tensor,
+                   cache, slots: torch.Tensor,
                    rope_pos: torch.Tensor, cache_mask: torch.Tensor,
                    vis_mask: Optional[torch.Tensor], impl: str = "auto",
-                   q_offset: Optional[torch.Tensor] = None):
+                   q_offset: Optional[torch.Tensor] = None, mesh=None):
     """Every layer over the new tokens, writing ``cache`` in place
     (``cogvlm2.py:608-629``): (final-normed hidden (B, S, C), cache)."""
-    lm, tc = params["language_model"], cfg.text
-    cos, sin = rope_tables(cache.k.shape[2], tc.head_dim, base=tc.rope_theta,
+    lm, tc = sub(params, "language_model"), cfg.text
+    cos, sin = rope_tables(cache.max_len, tc.head_dim, base=tc.rope_theta,
                            max_position_embeddings=tc.max_position_embeddings,
                            device=embeds.device)
     slots, rope_pos = slots.long(), rope_pos.long()
+    layers = [t["layers"] for t in held_layers(lm, mesh)]
     x = embeds
     for i in range(tc.num_hidden_layers):
-        ks = None if cache.k_scale is None else cache.k_scale[i]
-        vs = None if cache.v_scale is None else cache.v_scale[i]
         x = _expert_layer_cached(
-            tc, map_state(lambda a: a[i], lm["layers"]), x, cache.k[i],
-            cache.v[i], ks, vs, cos, sin, slots, rope_pos, cache_mask,
-            vis_mask, impl=impl, q_offset=q_offset)
-    return rms_norm(x, lm["norm"]["weight"], eps=tc.rms_norm_eps), cache
+            tc, [map_state(lambda a: a[i], t) for t in layers], x,
+            layer_caches(cache, i), cos, sin, slots, rope_pos, cache_mask,
+            vis_mask, impl=impl, q_offset=q_offset, mesh=mesh)
+    return rms_norm(x, held(lm)[0]["norm"]["weight"],
+                    eps=tc.rms_norm_eps), cache
 
 
 def _step_fn(cfg: CogVLM2Config, max_len: int, n_start: torch.Tensor,
-             pos_all: torch.Tensor, impl: str, dtype: torch.dtype):
+             pos_all: torch.Tensor, impl: str, dtype: torch.dtype, mesh=None):
     """The cached decode step of a row whose generated token i sits at slot
     ``n_start + i`` and rotates by ``pos_all[n_start + i]``; a generated
     token is language, so the language expert runs alone."""
+    V = cfg.text.vocab_size
+
     def step(params, tok, i, cache):
-        e = dec.embed_tokens(params["language_model"],
-                             tok.long()[:, None]).to(dtype)
+        e = dec.embed_tokens(sub(params, "language_model"),
+                             tok.long()[:, None], mesh, V).to(dtype)
         s, m = step_slot_mask(max_len, n_start, i)
         h, cache = forward_cached(params, cfg, e, cache, s,
                                   torch.gather(pos_all, 1, s), m, None,
-                                  impl=impl)
-        return lm_logits(params, h, impl)[:, 0], cache
+                                  impl=impl, mesh=mesh)
+        return lm_logits(params, h, impl, mesh, V)[:, 0], cache
     return step
 
 
@@ -721,6 +823,25 @@ def _position_table(token_type_ids: np.ndarray, n_real: int,
     return out
 
 
+def _prefill_rows(params, cfg: CogVLM2Config, embeds, tt, n_real, pos_t, Tb,
+                  max_len, max_new_tokens, eos, impl, kv_quant, dtype,
+                  teacher_tokens, mesh):
+    """Right-padded prompt rows' ``embeds`` into a fresh cache, then the
+    greedy loop: ``decode_batch``'s output."""
+    lm = sub(params, "language_model")
+    cache = _new_cache(cfg, lm, embeds.shape[0], max_len, embeds.device,
+                       embeds.dtype, kv_quant, mesh)
+    slots, mask = prefill_slot_mask(Tb, max_len, n_real)
+    hidden, cache = forward_cached(params, cfg, embeds, cache, slots,
+                                   pos_t[:, :Tb], mask, _vis_mask(tt), impl,
+                                   mesh=mesh)
+    logits0 = lm_logits(params, last_real_token(hidden, n_real), impl, mesh,
+                        cfg.text.vocab_size)[:, 0]
+    step = _step_fn(cfg, max_len, n_real, pos_t, impl, dtype, mesh)
+    return decode_batch(step, params, logits0, cache, max_new_tokens,
+                        int(eos), teacher_tokens)
+
+
 @torch.no_grad()
 def greedy_generate_batch(
     params, cfg: CogVLM2Config,
@@ -732,6 +853,7 @@ def greedy_generate_batch(
     kv_quant: bool = False,  # int8 KV cache
     teacher_tokens: Optional[torch.Tensor] = None,  # (B, n)
     dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ):
     """Batched greedy decode with a static KV cache
     (``cogvlm2.py:766-816``): each row's frames encode once, the
@@ -739,7 +861,9 @@ def greedy_generate_batch(
     prefills once, and the rows decode together, generated tokens through
     the language expert while RoPE keeps the shared-vision scheme.
     Returns each row's tokens up to and including its EOS, or with
-    ``teacher_tokens`` the (B, n, V) fp32 logits of each step."""
+    ``teacher_tokens`` the (B, n, V) fp32 logits of each step.  ``mesh``:
+    the held model ranks' ``params`` split over its model axis, the rows
+    over its data axis."""
     eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
     dtype = dtype or compute_dtype(params)
     B = len(items)
@@ -753,13 +877,14 @@ def greedy_generate_batch(
         nr = int(n_real[b])
         tt[b, :nr] = np.asarray(token_type_ids)[0]
         pos_all[b] = _position_table(token_type_ids, nr, max_len)
-    dev = params["language_model"]["norm"]["weight"].device
+    dev = held(params)[0]["language_model"]["norm"]["weight"].device
     vis = None
     if has_vision:
         if vision_embeds is None:
             vis = torch.cat([
                 get_vision_embedding(params, cfg,
-                                     torch.as_tensor(pv).to(dev), impl, dtype)
+                                     torch.as_tensor(pv).to(dev), impl, dtype,
+                                     mesh)
                 for _, _, pv in items])
         else:
             vis = torch.cat([v.reshape(-1, v.shape[-1])
@@ -767,16 +892,12 @@ def greedy_generate_batch(
     tt_t = torch.from_numpy(tt).to(dev)
     n_t = torch.from_numpy(n_real).to(dev)
     pos_t = torch.from_numpy(pos_all).to(dev)
-    embeds = _embed(params, torch.from_numpy(ids).to(dev), tt_t, vis, dtype)
-    cache = init_kv_cache(cfg.text, B, max_len, device=dev,
-                          dtype=embeds.dtype, quant=kv_quant)
-    slots, mask = prefill_slot_mask(Tb, max_len, n_t)
-    hidden, cache = forward_cached(params, cfg, embeds, cache, slots,
-                                   pos_t[:, :Tb], mask, _vis_mask(tt_t), impl)
-    logits0 = lm_logits(params, last_real_token(hidden, n_t), impl)[:, 0]
-    step = _step_fn(cfg, max_len, n_t, pos_t, impl, dtype)
-    out = decode_batch(step, params, logits0, cache, max_new_tokens,
-                       int(eos), teacher_tokens)
+    embeds = _embed(params, torch.from_numpy(ids).to(dev), tt_t, vis, dtype,
+                    mesh, cfg.text.vocab_size)
+    out = over_data(mesh, B, lambda rows: _prefill_rows(
+        params, cfg, embeds[rows], tt_t[rows], n_t[rows], pos_t[rows], Tb,
+        max_len, max_new_tokens, eos, impl, kv_quant, dtype,
+        None if teacher_tokens is None else teacher_tokens[rows], mesh))
     if teacher_tokens is not None:
         return out
     toks, n = (t.tolist() for t in out)
@@ -786,12 +907,12 @@ def greedy_generate_batch(
 def greedy_generate(params, cfg: CogVLM2Config, input_ids, token_type_ids,
                     pixel_values=None, max_new_tokens: int = 16,
                     eos_token_id: Optional[int] = None, impl: str = "auto",
-                    kv_quant: bool = False) -> List[int]:
+                    kv_quant: bool = False, mesh=None) -> List[int]:
     """A single prompt's greedy decode (``cogvlm2.py:819-833``)."""
     return greedy_generate_batch(
         params, cfg, [(input_ids, token_type_ids, pixel_values)],
         max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
-        impl=impl, kv_quant=kv_quant)[0]
+        impl=impl, kv_quant=kv_quant, mesh=mesh)[0]
 
 
 class PrefixCache(NamedTuple):
@@ -799,7 +920,7 @@ class PrefixCache(NamedTuple):
     687-712`` and the judge's ``_prefix_state``, whose ``n_extras=1`` table
     is ``pos_all``).  Functions that take one never change it."""
 
-    cache: KVCache  # slots [0, P) filled
+    cache: KVCache  # slots [0, P) filled (RankCaches under a model axis)
     mask: torch.Tensor  # (B, max_len) int32
     P: int
     max_len: int
@@ -810,14 +931,16 @@ class PrefixCache(NamedTuple):
 def prefill_prefix(params, cfg: CogVLM2Config, prefix: Sequence[int],
                    vision_embeds: torch.Tensor, max_len: int, bucket: int,
                    impl: str = "auto", kv_quant: bool = False,
-                   dtype: Optional[torch.dtype] = None) -> PrefixCache:
+                   dtype: Optional[torch.dtype] = None,
+                   mesh=None) -> PrefixCache:
     """[bos] + the vision block (``build_video_prompt_prefix_suffix``'s
     prefix) into an empty cache, right-padded to ``bucket``, with the
     shared-vision positions of its slots and the table that runs on past
     them; no logits: a prefix never ends a prompt."""
     dtype = dtype or compute_dtype(params)
     P = len(prefix)
-    dev = params["language_model"]["norm"]["weight"].device
+    lm = sub(params, "language_model")
+    dev = held(lm)[0]["norm"]["weight"].device
     ids = np.full((1, bucket), cfg.pad_token_id, np.int64)
     ids[0, :P] = prefix
     tt = np.full((1, bucket), LANGUAGE_TOKEN_TYPE, np.int32)
@@ -826,29 +949,18 @@ def prefill_prefix(params, cfg: CogVLM2Config, prefix: Sequence[int],
                                ).to(dev)
     tt_t = torch.from_numpy(tt).to(dev)
     embeds = _embed(params, torch.from_numpy(ids).to(dev), tt_t,
-                    vision_embeds, dtype)
-    cache = init_kv_cache(cfg.text, 1, max_len, device=dev,
-                          dtype=embeds.dtype, quant=kv_quant)
+                    vision_embeds, dtype, mesh, cfg.text.vocab_size)
+    cache = _new_cache(cfg, lm, 1, max_len, dev, embeds.dtype, kv_quant, mesh)
     slots, mask = prefill_slot_mask(bucket, max_len, P, device=dev)
     forward_cached(params, cfg, embeds, cache, slots, pos_all[:, :bucket],
-                   mask, _vis_mask(tt_t), impl)
+                   mask, _vis_mask(tt_t), impl, mesh=mesh)
     return PrefixCache(cache, mask, P, max_len, pos_all)
 
 
-@torch.no_grad()
-def continue_prefix(params, cfg: CogVLM2Config, state: PrefixCache,
-                    suffix: Sequence[int], bucket: int, max_new_tokens: int,
-                    eos_token_id: int, impl: str = "auto",
-                    teacher_tokens: Optional[torch.Tensor] = None,
-                    dtype: Optional[torch.dtype] = None):
-    """A question suffix on a copy of a cached prefix, then greedy decode
-    (``cogvlm2.py:715-763``).  The suffix, right-padded to ``bucket``,
-    takes slots [P, P + len(suffix)) and rotates by the state's table; it
-    is language, so the language expert runs alone, and its attention runs
-    over the whole cache with ``q_offset`` = P.  Returns (toks (B,
-    max_new_tokens) int32, n (B,)), or with ``teacher_tokens`` the (B, n,
-    V) fp32 logits of each step."""
-    dtype = dtype or compute_dtype(params)
+def _continue_rows(params, cfg: CogVLM2Config, state: PrefixCache,
+                   suffix: Sequence[int], bucket: int, max_new_tokens: int,
+                   eos_token_id: int, impl: str, teacher_tokens, dtype,
+                   mesh):
     cache, pmask, P, max_len, pos_all = state
     cache = cache.clone()
     dev = pmask.device
@@ -863,13 +975,38 @@ def continue_prefix(params, cfg: CogVLM2Config, state: PrefixCache,
     valid = (span >= P) & (span < P + len(suffix))
     mask = torch.maximum(pmask, valid.to(pmask.dtype))
     hidden, cache = forward_cached(
-        params, cfg, _embed(params, sids, None, None, dtype), cache, slots,
+        params, cfg, _embed(params, sids, None, None, dtype, mesh,
+                            cfg.text.vocab_size), cache, slots,
         torch.gather(pos_all, 1, slots), mask, None, impl=impl,
-        q_offset=n_prefix)
-    logits0 = lm_logits(params, last_real_token(hidden, s_real), impl)[:, 0]
-    step = _step_fn(cfg, max_len, n_prefix + s_real, pos_all, impl, dtype)
+        q_offset=n_prefix, mesh=mesh)
+    logits0 = lm_logits(params, last_real_token(hidden, s_real), impl, mesh,
+                        cfg.text.vocab_size)[:, 0]
+    step = _step_fn(cfg, max_len, n_prefix + s_real, pos_all, impl, dtype,
+                    mesh)
     return decode_batch(step, params, logits0, cache, max_new_tokens,
                         int(eos_token_id), teacher_tokens)
+
+
+@torch.no_grad()
+def continue_prefix(params, cfg: CogVLM2Config, state: PrefixCache,
+                    suffix: Sequence[int], bucket: int, max_new_tokens: int,
+                    eos_token_id: int, impl: str = "auto",
+                    teacher_tokens: Optional[torch.Tensor] = None,
+                    dtype: Optional[torch.dtype] = None, mesh=None):
+    """A question suffix on a copy of a cached prefix, then greedy decode
+    (``cogvlm2.py:715-763``).  The suffix, right-padded to ``bucket``,
+    takes slots [P, P + len(suffix)) and rotates by the state's table; it
+    is language, so the language expert runs alone, and its attention runs
+    over the whole cache with ``q_offset`` = P.  Returns (toks (B,
+    max_new_tokens) int32, n (B,)), or with ``teacher_tokens`` the (B, n,
+    V) fp32 logits of each step; ``mesh`` as in
+    ``greedy_generate_batch``."""
+    dtype = dtype or compute_dtype(params)
+    return over_data(mesh, state.mask.shape[0], lambda rows: _continue_rows(
+        params, cfg, slice_state(state, rows), suffix, bucket,
+        max_new_tokens, eos_token_id, impl,
+        None if teacher_tokens is None else teacher_tokens[rows], dtype,
+        mesh))
 
 
 # ------------------------------------------------------------ preprocessing

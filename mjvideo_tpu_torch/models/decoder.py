@@ -89,6 +89,53 @@ def _row_parallel(tp, outs, p, x_dtype):
     return y + p["bias"] if "bias" in p else y
 
 
+def attention_block(cfg: LLMConfig, ps, h, tp, attend, impl: str = "auto"):
+    """The attention branch of a layer after its norm: q, k and v, then
+    ``attend(i, q, k, v)`` of the i-th held rank (RoPE, the cache, the
+    kernel; (B, S, hq, D) in, (B, S, hq, D) or (B, S, hq * D) out), then the
+    output projection with its bias.  ``ps``: the held model ranks' layer
+    states.  A split pair (``tp`` a model axis above 1 and wq cut) runs
+    column-parallel into each rank's whole kv heads and their query groups
+    and row-parallel out of them (``_row_parallel``)."""
+    B, S, _ = h.shape
+    D = cfg.head_dim
+    split = (tp is not None and ps[0]["attention"]["wq"]["kernel"].shape[-1]
+             != cfg.num_attention_heads * D)
+    outs = []
+    for i, (pj, hj) in enumerate(zip(ps, tp.copy_to_model(h) if split
+                                     else [h])):
+        a = pj["attention"]
+        q = _dense(a["wq"], hj, impl)
+        k = _dense(a["wk"], hj, impl)
+        v = _dense(a["wv"], hj, impl)
+        hq = q.shape[-1] // D
+        attn = attend(i, q.reshape(B, S, hq, D),
+                      k.reshape(B, S, k.shape[-1] // D, D),
+                      v.reshape(B, S, v.shape[-1] // D, D))
+        attn = attn.reshape(B, S, hq * D)
+        outs.append(dot_f32(attn, a["wo"]["kernel"], impl) if split
+                    else _dense(a["wo"], attn, impl))
+    if split:
+        return _row_parallel(tp, outs, ps[0]["attention"]["wo"], h.dtype)
+    return outs[0]
+
+
+def mlp_block(cfg: LLMConfig, ps, h, tp, impl: str = "auto"):
+    """The SwiGLU MLP after its norm: w1 and w3 column-parallel, w2
+    row-parallel where the pair was split."""
+    split = (tp is not None and ps[0]["feed_forward"]["w1"]["kernel"].shape[-1]
+             != cfg.intermediate_size)
+    outs = []
+    for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
+        f = pj["feed_forward"]
+        y = F.silu(_dense(f["w1"], hj, impl)) * _dense(f["w3"], hj, impl)
+        outs.append(dot_f32(y, f["w2"]["kernel"], impl) if split
+                    else _dense(f["w2"], y, impl))
+    if split:
+        return _row_parallel(tp, outs, ps[0]["feed_forward"]["w2"], h.dtype)
+    return outs[0]
+
+
 def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl,
                    sp=None, mesh=None):
     """One layer (``modeling_internlm2.py:610-681``).  ``mesh`` with a
@@ -98,24 +145,9 @@ def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl,
     row-parallel (wo, w2: fp32 partials summed over the model axis,
     rounded once, then the bias)."""
     ps = held(p)
-    p = ps[0]
-    B, S, _ = x.shape
-    Hq, D = cfg.num_attention_heads, cfg.head_dim
     tp = model_axis(mesh)
 
-    h = rms_norm(x, p["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
-    split = (tp is not None
-             and p["attention"]["wq"]["kernel"].shape[-1] != Hq * D)
-    outs = []
-    for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
-        a = pj["attention"]
-        q = _dense(a["wq"], hj, impl)
-        k = _dense(a["wk"], hj, impl)
-        v = _dense(a["wv"], hj, impl)
-        hq = q.shape[-1] // D
-        q = q.reshape(B, S, hq, D)
-        k = k.reshape(B, S, k.shape[-1] // D, D)
-        v = v.reshape(B, S, v.shape[-1] // D, D)
+    def attend(i, q, k, v):
         q, k = apply_rope(q, k, cos, sin)
         if sp is not None:
             # Exact (K3) whatever ``impl`` says, as the JAX decoder's
@@ -127,35 +159,18 @@ def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl,
 
             sp_fn = (ring_flash_attention if sp.get("kind", "ring") == "ring"
                      else sp_flash_attention)
-            attn = sp_fn(q, k, v, sp["group"], attention_mask=attention_mask,
+            return sp_fn(q, k, v, sp["group"], attention_mask=attention_mask,
                          causal=True)
-        else:
-            # The global bound kernel K2, as the JAX decoder takes it by
-            # default (decoder.py _LLM_BOUND); the cached paths keep the
-            # exact K3.
-            attn = multi_head_attention(q, k, v,
-                                        attention_mask=attention_mask,
-                                        causal=True, impl=impl,
-                                        norm_bound=True)
-        attn = attn.reshape(B, S, hq * D)
-        outs.append(dot_f32(attn, a["wo"]["kernel"], impl) if split
-                    else _dense(a["wo"], attn, impl))
-    x = x + (_row_parallel(tp, outs, p["attention"]["wo"], x.dtype) if split
-             else outs[0])
+        # The global bound kernel K2, as the JAX decoder takes it by
+        # default (decoder.py _LLM_BOUND); the cached paths keep the exact
+        # K3.
+        return multi_head_attention(q, k, v, attention_mask=attention_mask,
+                                    causal=True, impl=impl, norm_bound=True)
 
-    h = rms_norm(x, p["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
-    split = (tp is not None and p["feed_forward"]["w1"]["kernel"].shape[-1]
-             != cfg.intermediate_size)
-    outs = []
-    for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
-        f = pj["feed_forward"]
-        gate = _dense(f["w1"], hj, impl)
-        up = _dense(f["w3"], hj, impl)
-        y = F.silu(gate) * up
-        outs.append(dot_f32(y, f["w2"]["kernel"], impl) if split
-                    else _dense(f["w2"], y, impl))
-    return x + (_row_parallel(tp, outs, p["feed_forward"]["w2"], x.dtype)
-                if split else outs[0])
+    h = rms_norm(x, ps[0]["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
+    x = x + attention_block(cfg, ps, h, tp, attend, impl)
+    h = rms_norm(x, ps[0]["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
+    return x + mlp_block(cfg, ps, h, tp, impl)
 
 
 def decoder_forward(
@@ -239,7 +254,24 @@ def embed_tokens(params, input_ids: torch.Tensor, mesh=None,
     return tp.reduce_from_model(parts)
 
 
-def lm_logits(params, hidden: torch.Tensor,
-              impl: str = "auto") -> torch.Tensor:
-    """LM head projection with fp32 logits (``decoder.py:208-210``)."""
-    return dot_f32(hidden, params["output"]["kernel"], impl)
+def vocab_logits(ps, head, hidden: torch.Tensor, impl: str = "auto",
+                 mesh=None, vocab_size: Optional[int] = None) -> torch.Tensor:
+    """fp32 logits by the LM head ``head(p)`` ((C, N) of a held rank's
+    state ``p``).  Under a model axis whose ranks hold its vocabulary
+    columns split (fewer than ``vocab_size``), each rank's columns,
+    gathered in rank order, so that a greedy pick is ``argmax`` of the
+    whole row (its first index on a tie); else rank 0's head alone."""
+    tp = model_axis(mesh)
+    ps = held(ps)
+    if tp is None or vocab_size is None or head(ps[0]).shape[-1] == vocab_size:
+        return dot_f32(hidden, head(ps[0]), impl)
+    return tp.join_model([dot_f32(hidden, head(p), impl) for p in ps], -1)
+
+
+def lm_logits(params, hidden: torch.Tensor, impl: str = "auto", mesh=None,
+              vocab_size: Optional[int] = None) -> torch.Tensor:
+    """LM head projection with fp32 logits (``decoder.py:208-210``).
+    ``mesh``: ``params`` is the list of the held model ranks' states, the
+    head split by vocabulary columns or whole (``vocab_logits``)."""
+    return vocab_logits(params, lambda p: p["output"]["kernel"], hidden,
+                        impl, mesh, vocab_size)

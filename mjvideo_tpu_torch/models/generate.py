@@ -28,6 +28,12 @@ for the InternVL judges.  What differs from the JAX package:
 * ``teacher_tokens``: ``generate`` and ``generate_from_prefix`` can feed
   given tokens instead of their own draws and return each step's fp32
   logits, which the tests and ``chip_smoke.py`` hold against a reference.
+* ``mesh=`` (a ``parallel.mesh.Mesh``) where JAX takes sharded ``params``
+  and lets GSPMD split the work: ``params`` is the held model ranks'
+  states (``shard_params``), each rank's layers run on its kv heads with
+  a cache of its own (``RankCaches``) and the LM head's vocabulary
+  columns are gathered before a pick; a batch's rows split over the data
+  axis (``over_data``).  A model axis of 1 runs the unsplit arithmetic.
 
 The scaffolding of the other judge families (``models/qwen2vl.py``):
 ``rope_override`` (per-token cos/sin, M-RoPE) in ``decoder_forward_cached``;
@@ -55,6 +61,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm
 from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rope import apply_rope, rope_tables
+from ..parallel.mesh import held, held_layers, model_axis, sub
 from ..utils.bridge import first_tensor, map_state
 from . import decoder as dec
 from .internvl import embed_prompt, extract_feature, scatter_image_embeds
@@ -80,12 +87,33 @@ class KVCache(NamedTuple):
     def clone(self) -> "KVCache":
         return KVCache(*(None if t is None else t.clone() for t in self))
 
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
 
-def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, *,
-                  device: torch.device, dtype: torch.dtype = torch.bfloat16,
-                  quant: bool = False) -> KVCache:
-    shape = (cfg.num_hidden_layers, batch, max_len,
-             cfg.num_key_value_heads, cfg.head_dim)
+    def held(self) -> List["KVCache"]:
+        return [self]
+
+
+class RankCaches(list):
+    """The caches of the held model ranks, in rank order, when the
+    attention is split over a model axis (``parallel/mesh.py``): each
+    holds its rank's kv heads (and, int8, their scales)."""
+
+    def clone(self) -> "RankCaches":
+        return RankCaches(c.clone() for c in self)
+
+    @property
+    def max_len(self) -> int:
+        return self[0].max_len
+
+    def held(self) -> List[KVCache]:
+        return list(self)
+
+
+def _one_cache(cfg: LLMConfig, batch: int, max_len: int, heads: int, device,
+               dtype, quant: bool) -> KVCache:
+    shape = (cfg.num_hidden_layers, batch, max_len, heads, cfg.head_dim)
     if quant:
         return KVCache(
             torch.zeros(shape, dtype=torch.int8, device=device),
@@ -94,6 +122,25 @@ def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, *,
             torch.zeros(shape[:-1], dtype=torch.float32, device=device))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, *,
+                  device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                  quant: bool = False, mesh=None, lm=None,
+                  kv_heads: Optional[int] = None):
+    """A zeroed cache.  Under ``mesh``'s model axis, where the held ranks'
+    decoder state ``lm`` has its attention split (or ``kv_heads``, each
+    rank's kv heads, is given): one cache per held rank, each sized by the
+    rank's kv heads, its int8 scales too (``RankCaches``)."""
+    tp = model_axis(mesh)
+    if tp is not None and kv_heads is None and lm is not None:
+        kv_heads = (held(lm)[0]["layers"]["attention"]["wk"]["kernel"]
+                    .shape[-1] // cfg.head_dim)
+    if tp is None or kv_heads in (None, cfg.num_key_value_heads):
+        return _one_cache(cfg, batch, max_len, cfg.num_key_value_heads,
+                          device, dtype, quant)
+    return RankCaches(_one_cache(cfg, batch, max_len, kv_heads, device,
+                                 dtype, quant) for _ in tp.model_ranks)
 
 
 def scatter_kv(k_cache, v_cache, k_scale, v_scale, k, v, position_ids,
@@ -135,72 +182,89 @@ def read_kv(k_cache, v_cache, k_scale, v_scale, dtype):
             dequantize_kv(v_cache, v_scale, dtype))
 
 
-def _layer_with_cache(cfg: LLMConfig, lp, x, k_cache, v_cache, k_scale,
-                      v_scale, cos, sin, position_ids, cache_mask,
-                      impl: str = "auto", q_offset=None):
-    """One decoder layer writing its fresh K/V into the cache slice.
-
-    ``x``: (B, S, C) new tokens; ``k_cache``/``v_cache``: (B, max_len, Hkv,
-    D); ``cache_mask``: (B, max_len) int32, 1 = valid slot (the new tokens'
-    included).  Attention routes (``generate.py:193-228``): a multi-token
-    call with ``q_offset`` (a suffix continuation) runs the kernel over the
-    whole cache with each row's queries at slots ``q_offset + i``; one
-    without it (a prompt into an empty cache) runs the kernel over the
-    fresh tokens, masked by ``write_ok``; a decode step (S = 1) or
-    ``impl="plain"`` attends over the whole cache through the slot bias."""
-    B, S, _ = x.shape
-    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-
-    h = rms_norm(x, lp["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
-    q = dec._dense(lp["attention"]["wq"], h, impl).reshape(B, S, Hq, D)
-    k = dec._dense(lp["attention"]["wk"], h, impl).reshape(B, S, Hkv, D)
-    v = dec._dense(lp["attention"]["wv"], h, impl).reshape(B, S, Hkv, D)
-    q, k = apply_rope(q, k, cos, sin, position_ids)
-
-    write_ok = scatter_kv(k_cache, v_cache, k_scale, v_scale, k, v,
-                          position_ids, cache_mask)
+def attend_cache(q, k, v, k_cache, v_cache, k_scale, v_scale, slots,
+                 cache_mask, impl: str = "auto", q_offset=None,
+                 bound=False) -> torch.Tensor:
+    """Write the fresh K/V (after RoPE) into one layer's cache slice and
+    attend.  Routes (``generate.py:193-228``): a multi-token call with
+    ``q_offset`` (a suffix continuation) runs the kernel over the whole
+    cache with each row's queries at slots ``q_offset + i``; one without it
+    (a prompt into an empty cache) runs the kernel over the fresh tokens,
+    masked by ``write_ok``; a decode step (S = 1) or ``impl="plain"``
+    attends over the whole cache through the slot bias.  ``bound``: the
+    kernels' softmax shift (``_CACHE_BOUND``)."""
+    S = q.shape[1]
+    write_ok = scatter_kv(k_cache, v_cache, k_scale, v_scale, k, v, slots,
+                          cache_mask)
     if S > 1 and impl != "plain" and q_offset is not None:
         k_op, v_op = read_kv(k_cache, v_cache, k_scale, v_scale, q.dtype)
-        attn = flash_attention(q, k_op, v_op, attention_mask=cache_mask,
+        return flash_attention(q, k_op, v_op, attention_mask=cache_mask,
                                causal=True, q_offset=q_offset,
-                               norm_bound=_CACHE_BOUND)
-    elif S > 1 and impl != "plain":
-        attn = multi_head_attention(q, k, v, attention_mask=write_ok,
-                                    causal=True, impl=impl,
-                                    norm_bound=_CACHE_BOUND)
-    else:
-        k_pos = torch.arange(k_cache.shape[1], device=x.device)
-        valid = ((position_ids[:, :, None] >= k_pos[None, None])
-                 & (cache_mask[:, None, :] != 0))
-        bias = torch.where(valid, 0.0, NEG_INF)[:, None]  # (B, 1, S, max_len)
-        k_op, v_op = read_kv(k_cache, v_cache, k_scale, v_scale, q.dtype)
-        attn = attention_plain(q, k_op, v_op, bias=bias)
-    x = x + dec._dense(lp["attention"]["wo"], attn.reshape(B, S, Hq * D),
-                       impl)
+                               norm_bound=bound)
+    if S > 1 and impl != "plain":
+        return multi_head_attention(q, k, v, attention_mask=write_ok,
+                                    causal=True, impl=impl, norm_bound=bound)
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    valid = ((slots[:, :, None] >= k_pos[None, None])
+             & (cache_mask[:, None, :] != 0))
+    bias = torch.where(valid, 0.0, NEG_INF)[:, None]  # (B, 1, S, max_len)
+    k_op, v_op = read_kv(k_cache, v_cache, k_scale, v_scale, q.dtype)
+    return attention_plain(q, k_op, v_op, bias=bias)
 
-    h = rms_norm(x, lp["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
-    gate = dec._dense(lp["feed_forward"]["w1"], h, impl)
-    up = dec._dense(lp["feed_forward"]["w3"], h, impl)
-    return x + dec._dense(lp["feed_forward"]["w2"], F.silu(gate) * up, impl)
+
+def _layer_with_cache(cfg: LLMConfig, lp, x, caches, cos, sin, position_ids,
+                      cache_mask, impl: str = "auto", q_offset=None,
+                      mesh=None):
+    """One decoder layer writing its fresh K/V into the cache slices.
+
+    ``x``: (B, S, C) new tokens; ``caches``: each held rank's (k, v,
+    k_scale, v_scale) of this layer, k and v (B, max_len, Hkv, D);
+    ``cache_mask``: (B, max_len) int32, 1 = valid slot (the new tokens'
+    included).  Attention routes as ``attend_cache``.  ``mesh`` with a
+    model axis above 1: ``lp`` is the held ranks' layer states and a split
+    pair runs column-parallel into each rank's kv heads (and its own
+    cache) and row-parallel out (``decoder.attention_block``)."""
+    ps = held(lp)
+    tp = model_axis(mesh)
+
+    def attend(i, q, k, v):
+        q, k = apply_rope(q, k, cos, sin, position_ids)
+        return attend_cache(q, k, v, *caches[i], position_ids, cache_mask,
+                            impl, q_offset, _CACHE_BOUND)
+
+    h = rms_norm(x, ps[0]["attention_norm"]["weight"], eps=cfg.rms_norm_eps)
+    x = x + dec.attention_block(cfg, ps, h, tp, attend, impl)
+    h = rms_norm(x, ps[0]["ffn_norm"]["weight"], eps=cfg.rms_norm_eps)
+    return x + dec.mlp_block(cfg, ps, h, tp, impl)
+
+
+def layer_caches(cache, i: int):
+    """Layer ``i``'s (k, v, k_scale, v_scale) of each held rank's cache."""
+    return [(c.k[i], c.v[i], None if c.k_scale is None else c.k_scale[i],
+             None if c.v_scale is None else c.v_scale[i])
+            for c in cache.held()]
 
 
 def decoder_forward_cached(
     params, cfg: LLMConfig,
     inputs_embeds: torch.Tensor,  # (B, S, C)
-    cache: KVCache,  # written in place
+    cache,  # a KVCache or RankCaches, written in place
     position_ids: torch.Tensor,  # (B, S) slot indices of the new tokens
     cache_mask: torch.Tensor,  # (B, max_len) valid slots incl. new tokens
     impl: str = "auto",
     q_offset: Optional[torch.Tensor] = None,  # (B,) suffix continuation
     rope_override=None,  # (cos, sin), each (B, S, D): the new tokens' own
-) -> Tuple[torch.Tensor, KVCache]:
+    mesh=None,
+):
     """All layers over the new tokens, reading and writing ``cache``;
     returns the final-normed hidden states (B, S, C) and the cache.
 
     ``rope_override`` serves the models whose rotary positions are not the
     cache slots (Qwen2-VL's M-RoPE, ``generate.py:238-271``): each new
-    token is rotated by its given cos/sin row."""
-    max_len = cache.k.shape[2]
+    token is rotated by its given cos/sin row.  ``mesh``: ``params`` is the
+    held model ranks' decoder states (``parallel.mesh.shard_params``) and
+    ``cache`` their caches (``init_kv_cache(mesh=)``)."""
+    max_len = cache.max_len
     if rope_override is not None:
         cos, sin = rope_override
     else:
@@ -212,15 +276,15 @@ def decoder_forward_cached(
             device=inputs_embeds.device,
         )
     position_ids = position_ids.long()
+    layers = [t["layers"] for t in held_layers(params, mesh)]
     x = inputs_embeds
     for i in range(cfg.num_hidden_layers):
-        lp = map_state(lambda a: a[i], params["layers"])
-        ks = None if cache.k_scale is None else cache.k_scale[i]
-        vs = None if cache.v_scale is None else cache.v_scale[i]
-        x = _layer_with_cache(cfg, lp, x, cache.k[i], cache.v[i], ks, vs,
-                              cos, sin, position_ids, cache_mask, impl=impl,
-                              q_offset=q_offset)
-    return rms_norm(x, params["norm"]["weight"], eps=cfg.rms_norm_eps), cache
+        lp = [map_state(lambda a: a[i], t) for t in layers]
+        x = _layer_with_cache(cfg, lp, x, layer_caches(cache, i), cos, sin,
+                              position_ids, cache_mask, impl=impl,
+                              q_offset=q_offset, mesh=mesh)
+    return rms_norm(x, held(params)[0]["norm"]["weight"],
+                    eps=cfg.rms_norm_eps), cache
 
 
 class GenerationConfig(NamedTuple):
@@ -263,59 +327,78 @@ def _sample(logits: torch.Tensor, gc: GenerationConfig,
 
 
 def _embed(params, cfg: ChatConfig, input_ids, pixel_values, vision_embeds,
-           impl):
-    """Token embeds with the vision embeds scattered at ``<IMG_CONTEXT>``."""
-    embeds = embed_prompt(params["language_model"], input_ids,
-                          cfg.img_context_token_id)
+           impl, mesh=None):
+    """Token embeds with the vision embeds scattered at ``<IMG_CONTEXT>``
+    (the tower split over ``mesh``'s model axis, as the embedding)."""
+    embeds = embed_prompt(sub(params, "language_model"), input_ids,
+                          cfg.img_context_token_id, mesh, cfg.llm.vocab_size)
     if vision_embeds is None and pixel_values is not None:
         pix = torch.as_tensor(pixel_values).to(embeds.device, embeds.dtype)
-        vision_embeds = extract_feature(params, cfg, pix, impl=impl)
+        vision_embeds = extract_feature(params, cfg, pix, impl=impl,
+                                        mesh=mesh)
     if vision_embeds is not None:
         embeds = scatter_image_embeds(embeds, input_ids, vision_embeds,
                                       cfg.img_context_token_id)
     return embeds
 
 
-def _prefill(params, cfg: ChatConfig, input_ids, attention_mask,
-             max_new_tokens, pixel_values, vision_embeds, impl, kv_quant):
-    """A (left- or right-padded) prompt into a fresh cache sized for
-    ``max_new_tokens`` more: (logits of each row's last real token, cache,
-    cache mask, first free slot per row)."""
-    lm = params["language_model"]
-    input_ids = input_ids.long()
+def over_data(mesh, B: int, run):
+    """``run(rows)`` on each held data shard's rows of a batch of ``B``
+    (a slice), the outputs (a tensor or a tuple of them, rows first)
+    gathered in row order over the data axis.  Without a data axis, or
+    where it does not divide the batch, ``run`` takes every row (on every
+    data shard)."""
+    if mesh is None or mesh.data == 1 or B % mesh.data:
+        return run(slice(None))
+    n = B // mesh.data
+    outs = [run(slice(d * n, (d + 1) * n)) for d in mesh.data_ranks]
+    if isinstance(outs[0], tuple):
+        return tuple(mesh.gather_data(list(f)) for f in zip(*outs))
+    return mesh.gather_data(outs)
+
+
+def _prefill(params, cfg: ChatConfig, embeds, input_ids, attention_mask,
+             max_new_tokens, impl, kv_quant, mesh=None):
+    """A (left- or right-padded) prompt's ``embeds`` into a fresh cache
+    sized for ``max_new_tokens`` more: (logits of each row's last real
+    token, cache, cache mask, first free slot per row)."""
+    lm = sub(params, "language_model")
     B, T = input_ids.shape
     dev = input_ids.device
-    embeds = _embed(params, cfg, input_ids, pixel_values, vision_embeds, impl)
     cache = init_kv_cache(cfg.llm, B, T + max_new_tokens, device=dev,
-                          dtype=embeds.dtype, quant=kv_quant)
+                          dtype=embeds.dtype, quant=kv_quant, mesh=mesh,
+                          lm=lm)
     cache_mask = F.pad(attention_mask.to(torch.int32), (0, max_new_tokens))
     slots = torch.arange(T, device=dev)[None].expand(B, T)
     hidden, cache = decoder_forward_cached(lm, cfg.llm, embeds, cache, slots,
-                                           cache_mask, impl=impl)
+                                           cache_mask, impl=impl, mesh=mesh)
     # The last real token per row: the largest masked index (right or left
     # padding alike).
     last_idx = torch.where(attention_mask != 0,
                            torch.arange(T, device=dev)[None], -1).amax(-1)
     logits = dec.lm_logits(lm, hidden[torch.arange(B, device=dev), last_idx],
-                           impl)
+                           impl, mesh, cfg.llm.vocab_size)
     return logits, cache, cache_mask, last_idx + 1
 
 
-def _step(lm, llm_cfg: LLMConfig, tok, cache, cache_mask, slot, impl):
+def _step(lm, llm_cfg: LLMConfig, tok, cache, cache_mask, slot, impl,
+          mesh=None):
     """Feed one token per row at ``slot`` (B,); returns the next logits.
     Marks the slot valid in ``cache_mask`` in place."""
     B = tok.shape[0]
     cache_mask[torch.arange(B, device=tok.device), slot] = 1
-    emb = dec.embed_tokens(lm, tok.long()[:, None])
+    emb = dec.embed_tokens(lm, tok.long()[:, None], mesh, llm_cfg.vocab_size)
     hidden, _ = decoder_forward_cached(lm, llm_cfg, emb, cache,
-                                       slot[:, None], cache_mask, impl=impl)
-    return dec.lm_logits(lm, hidden[:, 0], impl)
+                                       slot[:, None], cache_mask, impl=impl,
+                                       mesh=mesh)
+    return dec.lm_logits(lm, hidden[:, 0], impl, mesh, llm_cfg.vocab_size)
 
 
 def _decode_from_logits(lm, llm_cfg: LLMConfig, gc: GenerationConfig,
                         logits, cache, cache_mask, start, generator,
                         impl: str = "auto", return_state: bool = False,
-                        teacher_tokens: Optional[torch.Tensor] = None):
+                        teacher_tokens: Optional[torch.Tensor] = None,
+                        mesh=None):
     """Sample-and-extend loop shared by ``generate`` and
     ``generate_from_prefix``: ``logits`` (B, V) of each row's last prompt
     token, ``start`` (B,) its first free slot.  Writes into ``cache`` and
@@ -325,12 +408,14 @@ def _decode_from_logits(lm, llm_cfg: LLMConfig, gc: GenerationConfig,
     (cache, cache_mask); rows that finish early pad and keep writing pad
     K/V into marked slots until all finish, so sessions are B = 1.  With
     ``teacher_tokens`` (B, n): feeds them instead of drawing and returns the
-    (B, n, V) fp32 logits of each step."""
+    (B, n, V) fp32 logits of each step.  Under ``mesh`` every model rank
+    reads the same gathered logits, so the ranks of a model group draw the
+    same tokens and stop at the same step."""
     if teacher_tokens is not None:
         steps = [logits]
         for i in range(teacher_tokens.shape[1] - 1):
             steps.append(_step(lm, llm_cfg, teacher_tokens[:, i], cache,
-                               cache_mask, start + i, impl))
+                               cache_mask, start + i, impl, mesh))
         return torch.stack(steps, dim=1)
     B = logits.shape[0]
     if gc.temperature > 0.0 and generator is None:
@@ -344,7 +429,7 @@ def _decode_from_logits(lm, llm_cfg: LLMConfig, gc: GenerationConfig,
         if bool(finished.all()):  # one host read per step
             break
         logits = _step(lm, llm_cfg, out[:, step], cache, cache_mask,
-                       start + step, impl)
+                       start + step, impl, mesh)
         nxt = _sample(logits, gc, generator)
         nxt = torch.where(finished, gc.pad_token_id, nxt)
         out[:, step + 1] = nxt
@@ -364,18 +449,33 @@ def generate(
     impl: str = "auto",
     vision_embeds: Optional[torch.Tensor] = None,  # (P, n_tok, C)
     teacher_tokens: Optional[torch.Tensor] = None,  # (B, n)
+    mesh=None,
 ) -> torch.Tensor:
     """Multimodal generation: (B, max_new_tokens) tokens, or with
     ``teacher_tokens`` the (B, n, V) logits of each step.  Cache slots are
     the sequence indices and RoPE positions are the slots; generated token
-    i of a row sits at its slot ``last real index + 1 + i``."""
+    i of a row sits at its slot ``last real index + 1 + i``.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``, JAX's sharded ``params``):
+    ``params`` is the held model ranks' states (``shard_params``); the
+    tower, the decoder, its caches and the LM head run split over the
+    model axis, and the rows split over the data axis (``over_data``)."""
     gc = generation_config
-    logits, cache, cache_mask, start = _prefill(
-        params, cfg, input_ids, attention_mask, gc.max_new_tokens,
-        pixel_values, vision_embeds, impl, gc.kv_quant)
-    return _decode_from_logits(params["language_model"], cfg.llm, gc, logits,
-                               cache, cache_mask, start, generator, impl,
-                               teacher_tokens=teacher_tokens)
+    input_ids = input_ids.long()
+    embeds = _embed(params, cfg, input_ids, pixel_values, vision_embeds,
+                    impl, mesh)
+    lm = sub(params, "language_model")
+
+    def run(rows):
+        logits, cache, cache_mask, start = _prefill(
+            params, cfg, embeds[rows], input_ids[rows], attention_mask[rows],
+            gc.max_new_tokens, impl, gc.kv_quant, mesh)
+        return _decode_from_logits(
+            lm, cfg.llm, gc, logits, cache, cache_mask, start, generator,
+            impl, teacher_tokens=None if teacher_tokens is None
+            else teacher_tokens[rows], mesh=mesh)
+
+    return over_data(mesh, input_ids.shape[0], run)
 
 
 class PrefixState(NamedTuple):
@@ -399,20 +499,24 @@ def prefill_prefix(
     vision_embeds: Optional[torch.Tensor] = None,
     impl: str = "auto",
     kv_quant: bool = False,
+    mesh=None,
 ) -> PrefixState:
     """Prefill a shared prompt prefix into a fresh cache (no logits: a
-    prefix never ends a prompt)."""
-    lm = params["language_model"]
+    prefix never ends a prompt).  ``mesh``: split over the model axis as in
+    ``generate``; the state holds every row on every data shard (a video's
+    prefix is one row), and ``generate_from_prefix`` splits the rows."""
+    lm = sub(params, "language_model")
     input_ids = input_ids.long()
     B, P = input_ids.shape
     dev = input_ids.device
-    embeds = _embed(params, cfg, input_ids, pixel_values, vision_embeds, impl)
+    embeds = _embed(params, cfg, input_ids, pixel_values, vision_embeds, impl,
+                    mesh)
     cache = init_kv_cache(cfg.llm, B, max_len, device=dev, dtype=embeds.dtype,
-                          quant=kv_quant)
+                          quant=kv_quant, mesh=mesh, lm=lm)
     cache_mask = F.pad(attention_mask.to(torch.int32), (0, max_len - P))
     slots = torch.arange(P, device=dev)[None].expand(B, P)
     decoder_forward_cached(lm, cfg.llm, embeds, cache, slots, cache_mask,
-                           impl=impl)
+                           impl=impl, mesh=mesh)
     return PrefixState(cache, cache_mask,
                        attention_mask.sum(-1).to(torch.int32))
 
@@ -428,6 +532,7 @@ def generate_from_prefix(
     return_state: bool = False,
     impl: str = "auto",
     teacher_tokens: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """Continue a cached prefix with a per-question suffix, then decode.
 
@@ -436,46 +541,81 @@ def generate_from_prefix(
     prompt prefilled at once; its attention runs the same kernel as a
     full-prompt prefill, over the whole cache with ``q_offset = n_prefix``.
     Works on a copy of ``state``.  ``return_state`` also returns the final
-    (cache, cache_mask) (B = 1); ``teacher_tokens`` as in ``generate``."""
+    (cache, cache_mask) (B = 1); ``teacher_tokens`` as in ``generate``.
+    ``mesh`` as in ``generate``; under ``return_state`` the rows do not
+    split over the data axis."""
     gc = generation_config
-    lm = params["language_model"]
+    lm = sub(params, "language_model")
     suffix_ids = suffix_ids.long()
-    B, S = suffix_ids.shape
-    dev = suffix_ids.device
-    cache = state.cache.clone()
-    cache_mask = state.cache_mask.clone()
-    slots = state.n_prefix.long()[:, None] + torch.arange(S, device=dev)[None]
-    rows = torch.arange(B, device=dev)[:, None].expand(B, S)
-    # The suffix's slots are free in the state, so setting them is JAX's add.
-    cache_mask[rows, slots] = suffix_mask.to(cache_mask.dtype)
-    emb = dec.embed_tokens(lm, suffix_ids)
-    hidden, cache = decoder_forward_cached(lm, cfg.llm, emb, cache, slots,
-                                           cache_mask, impl=impl,
-                                           q_offset=state.n_prefix)
-    s_real = suffix_mask.long().sum(-1)
-    logits = dec.lm_logits(lm, hidden[torch.arange(B, device=dev), s_real - 1],
-                           impl)
-    return _decode_from_logits(lm, cfg.llm, gc, logits, cache, cache_mask,
-                               state.n_prefix.long() + s_real, generator, impl,
-                               return_state=return_state,
-                               teacher_tokens=teacher_tokens)
+
+    def run(rows):
+        st = slice_state(state, rows)
+        ids = suffix_ids[rows]
+        B, S = ids.shape
+        dev = ids.device
+        cache = st.cache.clone()
+        cache_mask = st.cache_mask.clone()
+        slots = st.n_prefix.long()[:, None] + torch.arange(S, device=dev)[None]
+        rows_i = torch.arange(B, device=dev)[:, None].expand(B, S)
+        # The suffix's slots are free in the state, so setting them is
+        # JAX's add.
+        cache_mask[rows_i, slots] = suffix_mask[rows].to(cache_mask.dtype)
+        emb = dec.embed_tokens(lm, ids, mesh, cfg.llm.vocab_size)
+        hidden, cache = decoder_forward_cached(lm, cfg.llm, emb, cache, slots,
+                                               cache_mask, impl=impl,
+                                               q_offset=st.n_prefix,
+                                               mesh=mesh)
+        s_real = suffix_mask[rows].long().sum(-1)
+        logits = dec.lm_logits(lm, hidden[torch.arange(B, device=dev),
+                                          s_real - 1], impl, mesh,
+                               cfg.llm.vocab_size)
+        return _decode_from_logits(
+            lm, cfg.llm, gc, logits, cache, cache_mask,
+            st.n_prefix.long() + s_real, generator, impl,
+            return_state=return_state,
+            teacher_tokens=None if teacher_tokens is None
+            else teacher_tokens[rows], mesh=mesh)
+
+    if return_state:
+        return run(slice(None))
+    return over_data(mesh, suffix_ids.shape[0], run)
+
+
+def _stack(vals):
+    if isinstance(vals[0], RankCaches):
+        return RankCaches(_stack(cs) for cs in zip(*vals))
+    if isinstance(vals[0], KVCache):
+        return KVCache(*(None if ts[0] is None else torch.cat(ts, dim=1)
+                         for ts in zip(*vals)))
+    if isinstance(vals[0], torch.Tensor):
+        return torch.cat(vals)
+    return vals[0]
 
 
 def stack_prefix_states(states):
     """Batch B = 1 prefix states into one (a preference pair's two videos)
     in new buffers; all must share max_len.  Any family's state tuple
-    (``PrefixState``, ``qwen2vl.PrefixCache``, ``minicpmv.PrefixCache``):
-    its ``KVCache`` concatenated on the batch axis, its tensors on their
-    first, its ints (the shared prefix length and max_len) kept."""
-    def stack(vals):
-        if isinstance(vals[0], KVCache):
-            return KVCache(*(None if ts[0] is None else torch.cat(ts, dim=1)
-                             for ts in zip(*vals)))
-        if isinstance(vals[0], torch.Tensor):
-            return torch.cat(vals)
-        return vals[0]
+    (``PrefixState``, ``qwen2vl.PrefixCache``, ``minicpmv.PrefixCache``,
+    ``cogvlm2.PrefixCache``): its ``KVCache`` concatenated on the batch
+    axis (a model axis's ``RankCaches`` rank by rank), its tensors on
+    their first, its ints (the shared prefix length and max_len) kept."""
+    return type(states[0])(*(_stack(vals) for vals in zip(*states)))
 
-    return type(states[0])(*(stack(vals) for vals in zip(*states)))
+
+def _rows_of(x, rows: slice):
+    if isinstance(x, RankCaches):
+        return RankCaches(_rows_of(c, rows) for c in x)
+    if isinstance(x, KVCache):
+        return KVCache(*(None if t is None else t[:, rows] for t in x))
+    if isinstance(x, torch.Tensor):
+        return x[rows]
+    return x
+
+
+def slice_state(state, rows: slice):
+    """The rows ``rows`` of any family's prefix state (views; the
+    functions that continue a state copy it first)."""
+    return type(state)(*(_rows_of(v, rows) for v in state))
 
 
 def round_up_bucket(n: int, bucket: int = 64) -> int:
@@ -646,17 +786,19 @@ def batch_chat(
     generation_config: GenerationConfig = GenerationConfig(),
     impl: str = "auto",
     vision_embeds=None,
+    mesh=None,
 ):
     """Batched single-turn chat (``modeling_internvl_chat.py:336-367``):
-    prompts left-padded to one bucket and decoded together."""
+    prompts left-padded to one bucket and decoded together (``mesh`` as in
+    ``generate``)."""
     ids, mask, gc = batch_chat_inputs(
         cfg, tokenizer, questions, num_patches_lists,
         pixel_values is not None or vision_embeds is not None,
         generation_config)
-    dev = first_tensor(params).device
+    dev = first_tensor(held(params)[0]).device
     out = generate(params, cfg, ids.to(dev), mask.to(dev),
                    pixel_values=pixel_values, generation_config=gc,
-                   impl=impl, vision_embeds=vision_embeds)
+                   impl=impl, vision_embeds=vision_embeds, mesh=mesh)
     return [_decode_text(tokenizer, row, gc.eos_token_id)
             for row in out.tolist()]
 
@@ -667,9 +809,11 @@ def chat(
     history=None, generation_config: GenerationConfig = GenerationConfig(),
     impl: str = "auto",
     vision_embeds=None,
+    mesh=None,
 ) -> Tuple[str, list]:
     """Single-turn chat (``modeling_internvl_chat.py:264-334``): the prompt
-    right-padded to its bucket; returns (response, new history)."""
+    right-padded to its bucket; returns (response, new history).  ``mesh``
+    as in ``generate``."""
     from ..data.prompts import prepare_chat_input
 
     if num_patches_list is None and pixel_values is not None:
@@ -687,11 +831,11 @@ def chat(
     Tb = round_up_bucket(T)
     ids = np.pad(ids, ((0, 0), (0, Tb - T)), constant_values=gc.pad_token_id)
     mask = np.pad(mask, ((0, 0), (0, Tb - T)))
-    dev = first_tensor(params).device
+    dev = first_tensor(held(params)[0]).device
     out = generate(params, cfg, torch.from_numpy(ids).to(dev),
                    torch.from_numpy(mask).to(dev), pixel_values=pixel_values,
                    generation_config=gc, impl=impl,
-                   vision_embeds=vision_embeds)
+                   vision_embeds=vision_embeds, mesh=mesh)
     response = _decode_text(tokenizer, out[0].tolist(), eos)
     return response, (history or []) + [(question, response)]
 
@@ -705,20 +849,23 @@ def stream_generate(
     generation_config: GenerationConfig = GenerationConfig(),
     generator: Optional[torch.Generator] = None,
     impl: str = "auto",
+    mesh=None,
 ):
     """Token-by-token generation as a Python generator (B = 1), the
     counterpart of ``InternLM2ForCausalLM.stream_chat``'s streamer
     (``modeling_internlm2.py:1270-1292``); the prompt is right-padded to
-    its bucket."""
+    its bucket.  ``mesh``: split over the model axis as in ``generate``
+    (the one row on every data shard)."""
     gc = generation_config
     B, T = input_ids.shape
     assert B == 1, "streaming is a single-conversation surface"
     Tb = round_up_bucket(T)
     input_ids = F.pad(input_ids.long(), (0, Tb - T), value=gc.pad_token_id)
     attention_mask = F.pad(attention_mask, (0, Tb - T))
+    embeds = _embed(params, cfg, input_ids, pixel_values, None, impl, mesh)
     logits, cache, cache_mask, start = _prefill(
-        params, cfg, input_ids, attention_mask, gc.max_new_tokens,
-        pixel_values, None, impl, gc.kv_quant)
+        params, cfg, embeds, input_ids, attention_mask, gc.max_new_tokens,
+        impl, gc.kv_quant, mesh)
     if gc.temperature > 0.0 and generator is None:
         generator = torch.Generator(device=logits.device).manual_seed(0)
     tok = _sample(logits, gc, generator)
@@ -729,8 +876,8 @@ def stream_generate(
         yield t
         if step == gc.max_new_tokens - 1:
             return
-        logits = _step(params["language_model"], cfg.llm, tok, cache,
-                       cache_mask, start + step, impl)
+        logits = _step(sub(params, "language_model"), cfg.llm, tok, cache,
+                       cache_mask, start + step, impl, mesh)
         tok = _sample(logits, gc, generator)
 
 
@@ -739,9 +886,11 @@ def stream_chat(
     pixel_values=None, num_patches_list=None, history=None,
     generation_config: GenerationConfig = GenerationConfig(),
     impl: str = "auto",
+    mesh=None,
 ):
     """Streaming single-turn chat: yields the growing response string; the
-    last value is the whole response."""
+    last value is the whole response (``mesh`` as in
+    ``stream_generate``)."""
     from ..data.prompts import prepare_chat_input
 
     if num_patches_list is None and pixel_values is not None:
@@ -751,12 +900,13 @@ def stream_chat(
         history=history, require_gating=False)
     eos, _ = _eos_pad(cfg, tokenizer)
     gc = generation_config._replace(eos_token_id=eos)
-    dev = first_tensor(params).device
+    dev = first_tensor(held(params)[0]).device
     toks: list = []
     for t in stream_generate(
             params, cfg, torch.as_tensor(chat_in.input_ids).to(dev),
             torch.as_tensor(chat_in.attention_mask).to(dev),
-            pixel_values=pixel_values, generation_config=gc, impl=impl):
+            pixel_values=pixel_values, generation_config=gc, impl=impl,
+            mesh=mesh):
         toks.append(t)
         yield (tokenizer.decode(toks) if hasattr(tokenizer, "decode")
                else list(toks))
@@ -770,14 +920,17 @@ class ChatSession:
     writes persist for the next turn.  Each turn re-renders the whole
     conversation and compares its token prefix with what the cache holds;
     if the tokenizer merged across a turn boundary, the session prefills
-    from scratch.  B = 1; vision enters on the first turn."""
+    from scratch.  B = 1; vision enters on the first turn.  ``mesh``: the
+    held model ranks' ``params`` split over its model axis, as in
+    ``generate``."""
 
     def __init__(self, params, cfg: ChatConfig, tokenizer,
                  max_len: int = 2048,
                  generation_config: GenerationConfig = GenerationConfig(),
                  impl: str = "auto", kv_quant: bool = False,
-                 suffix_bucket: int = 128):
+                 suffix_bucket: int = 128, mesh=None):
         self.params, self.cfg, self.tokenizer = params, cfg, tokenizer
+        self.mesh = mesh
         eos, pad = _eos_pad(cfg, tokenizer)
         self.gc = generation_config._replace(eos_token_id=eos,
                                              pad_token_id=pad)
@@ -785,7 +938,7 @@ class ChatSession:
         self.impl = impl
         self.kv_quant = kv_quant
         self.suffix_bucket = suffix_bucket
-        self.device = first_tensor(params).device
+        self.device = first_tensor(held(params)[0]).device
         self.history: list = []
         self._state: Optional[PrefixState] = None
         self._cached: list = []   # token ids whose K/V are in the cache
@@ -821,7 +974,7 @@ class ChatSession:
         self._state = prefill_prefix(
             self.params, self.cfg, ids, mask, max_len=self.max_len,
             pixel_values=pixel_values, vision_embeds=vision_embeds,
-            impl=self.impl, kv_quant=self.kv_quant)
+            impl=self.impl, kv_quant=self.kv_quant, mesh=self.mesh)
         self._cached = list(full_ids[:P])
         self._pending = [full_ids[P]]
 
@@ -848,7 +1001,8 @@ class ChatSession:
         sids, smask = self._row(suffix, Sb)
         out, cache, mask = generate_from_prefix(
             self.params, self.cfg, self._state, sids, smask,
-            generation_config=self.gc, return_state=True, impl=self.impl)
+            generation_config=self.gc, return_state=True, impl=self.impl,
+            mesh=self.mesh)
         toks = out[0].tolist()
         if self.gc.eos_token_id in toks:
             toks = toks[: toks.index(self.gc.eos_token_id) + 1]

@@ -24,6 +24,11 @@ from the JAX package:
   only at fp32 weights.
 * ``greedy_generate_batch`` and ``continue_prefix`` can feed
   ``teacher_tokens`` and return each step's fp32 logits.
+* ``mesh=`` (a ``parallel.mesh.Mesh``; JAX takes sharded ``params``): the
+  held model ranks' states (``shard_params``) run the tower, the Qwen2
+  decoder, its caches and the LM head split over the model axis (the
+  resampler matches no rule and stays whole); the prompt rows split over
+  the data axis (``generate.over_data``).
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ import torch
 
 from ..configs import LLMConfig
 from ..ops.attention import multi_head_attention
-from ..ops.matmul import dot, dot_f32
+from ..ops.matmul import dot
 from ..ops.norms import layer_norm
+from ..parallel.mesh import held, sub
 from ..utils.bridge import first_tensor
 from . import decoder as dec
 from .generate import (
@@ -47,8 +53,10 @@ from .generate import (
     decoder_forward_cached,
     init_kv_cache,
     last_real_token,
+    over_data,
     pad_prompt_batch,
     prefill_slot_mask,
+    slice_state,
     step_slot_mask,
 )
 from .internvl import scatter_image_embeds
@@ -300,24 +308,26 @@ def resampler_forward(p, cfg: ResamplerConfig, x: torch.Tensor,
 def vision_dtype(params) -> torch.dtype:
     """The tower's activation dtype: its weights' (norms are never
     quantized)."""
-    return first_tensor(params["vpm"]["layers"]["ln1"]).dtype
+    return first_tensor(held(params)[0]["vpm"]["layers"]["ln1"]).dtype
 
 
 def get_vision_embedding(params, cfg: MiniCPMVConfig,
                          pixel_values: torch.Tensor,  # (F, H, W, 3) NHWC
-                         impl: str = "auto") -> torch.Tensor:
+                         impl: str = "auto", mesh=None) -> torch.Tensor:
     """Frames -> (F, num_queries, llm_hidden) image tokens
     (``minicpmv.py:298-308``)."""
-    vis = vision_forward(params["vpm"], cfg.vision, pixel_values, impl=impl)
+    vis = vision_forward(sub(params, "vpm"), cfg.vision, pixel_values,
+                         impl=impl, mesh=mesh)
     P = cfg.vision.patch_size
     grid = (pixel_values.shape[1] // P, pixel_values.shape[2] // P)
-    return resampler_forward(params["resampler"], cfg.resampler, vis, grid,
-                             impl)
+    return resampler_forward(held(params)[0]["resampler"], cfg.resampler,
+                             vis, grid, impl)
 
 
 def _embed(params, cfg: MiniCPMVConfig, input_ids: torch.Tensor,
-           vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    embeds = dec.embed_tokens(params["llm"], input_ids.long())
+           vision_embeds: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
+    embeds = dec.embed_tokens(sub(params, "llm"), input_ids.long(), mesh,
+                              cfg.text.vocab_size)
     if vision_embeds is None:
         return embeds
     return scatter_image_embeds(embeds, input_ids, vision_embeds,
@@ -331,37 +341,61 @@ def minicpmv_forward(
     pixel_values: Optional[torch.Tensor] = None,  # (F, H, W, 3) NHWC
     impl: str = "auto",
     vision_embeds: Optional[torch.Tensor] = None,  # (F, Q, C) precomputed
+    mesh=None,
 ) -> torch.Tensor:
     """The multimodal forward -> final hidden states (B, T, C)
     (``minicpmv.py:311-336``); ``vision_embeds`` skips the tower."""
     if vision_embeds is None and pixel_values is not None:
-        vision_embeds = get_vision_embedding(params, cfg, pixel_values, impl)
-    embeds = _embed(params, cfg, input_ids, vision_embeds)
-    return dec.decoder_forward(params["llm"], cfg.text, embeds,
+        vision_embeds = get_vision_embedding(params, cfg, pixel_values, impl,
+                                             mesh)
+    embeds = _embed(params, cfg, input_ids, vision_embeds, mesh)
+    return dec.decoder_forward(sub(params, "llm"), cfg.text, embeds,
                                attention_mask=attention_mask, impl=impl,
-                               remat=False)
+                               remat=False, mesh=mesh)
 
 
-def lm_logits(params, hidden: torch.Tensor,
-              impl: str = "auto") -> torch.Tensor:
-    """fp32 logits by the untied LM head (``minicpmv.py:339-340``)."""
-    return dot_f32(hidden, params["llm"]["output"]["kernel"], impl)
+def lm_logits(params, hidden: torch.Tensor, impl: str = "auto", mesh=None,
+              vocab_size: Optional[int] = None) -> torch.Tensor:
+    """fp32 logits by the untied LM head (``minicpmv.py:339-340``); under
+    ``mesh`` each rank's vocabulary columns, gathered
+    (``decoder.lm_logits``)."""
+    return dec.lm_logits(sub(params, "llm"), hidden, impl, mesh, vocab_size)
 
 
 # ------------------------------------------------------------- generation
 
 def _step_fn(cfg: MiniCPMVConfig, max_len: int, n_start: torch.Tensor,
-             impl: str):
+             impl: str, mesh=None):
     """The cached decode step of a row whose generated token i sits at slot
     ``n_start + i``: standard RoPE, so the slot is the position."""
+    V = cfg.text.vocab_size
+
     def step(params, tok, i, cache):
-        lm = params["llm"]
-        e = dec.embed_tokens(lm, tok.long()[:, None])
+        lm = sub(params, "llm")
+        e = dec.embed_tokens(lm, tok.long()[:, None], mesh, V)
         s, m = step_slot_mask(max_len, n_start, i)
         h, cache = decoder_forward_cached(lm, cfg.text, e, cache, s, m,
-                                          impl=impl)
-        return lm_logits(params, h, impl)[:, 0], cache
+                                          impl=impl, mesh=mesh)
+        return lm_logits(params, h, impl, mesh, V)[:, 0], cache
     return step
+
+
+def _prefill_rows(params, cfg: MiniCPMVConfig, embeds, n_real, Tb, max_len,
+                  max_new_tokens, eos, impl, kv_quant, teacher_tokens, mesh):
+    """Right-padded prompt rows' ``embeds`` into a fresh cache, then the
+    greedy loop: ``decode_batch``'s output."""
+    lm = sub(params, "llm")
+    cache = init_kv_cache(cfg.text, embeds.shape[0], max_len,
+                          device=embeds.device, dtype=embeds.dtype,
+                          quant=kv_quant, mesh=mesh, lm=lm)
+    slots, mask = prefill_slot_mask(Tb, max_len, n_real)
+    hidden, cache = decoder_forward_cached(lm, cfg.text, embeds, cache, slots,
+                                           mask, impl=impl, mesh=mesh)
+    logits0 = lm_logits(params, last_real_token(hidden, n_real), impl, mesh,
+                        cfg.text.vocab_size)[:, 0]
+    step = _step_fn(cfg, max_len, n_real, impl, mesh)
+    return decode_batch(step, params, logits0, cache, max_new_tokens,
+                        int(eos), teacher_tokens)
 
 
 @torch.no_grad()
@@ -374,6 +408,7 @@ def greedy_generate_batch(
     vision_embeds=None,  # per row, precomputed (F, Q, C) image tokens
     kv_quant: bool = False,  # int8 KV cache
     teacher_tokens: Optional[torch.Tensor] = None,  # (B, n)
+    mesh=None,
 ):
     """Batched greedy decode with a static KV cache
     (``minicpmv.py:345-396``, ``:471-507``): each row's frames encode once
@@ -381,37 +416,32 @@ def greedy_generate_batch(
     videos batch), the right-padded prompt batch (64-token buckets)
     prefills once, and the rows decode together.  Returns each row's tokens
     up to and including its EOS, or with ``teacher_tokens`` the (B, n, V)
-    fp32 logits of each step."""
+    fp32 logits of each step.  ``mesh``: the held model ranks' ``params``
+    split over its model axis, the rows over its data axis."""
     eos = cfg.im_end_token_id if eos_token_id is None else eos_token_id
     B = len(items)
     has_vision = items[0][1] is not None or vision_embeds is not None
     ids, n_real, Tb = pad_prompt_batch([it[0] for it in items],
                                        cfg.text.pad_token_id)
     max_len = Tb + max_new_tokens
-    lm = params["llm"]
-    dev = lm["tok_embeddings"].device
+    dev = held(params)[0]["llm"]["tok_embeddings"].device
     vis = None
     if has_vision:
         if vision_embeds is None:
             dtype = vision_dtype(params)
             vis = torch.cat([
                 get_vision_embedding(params, cfg,
-                                     torch.as_tensor(pv).to(dev, dtype), impl)
+                                     torch.as_tensor(pv).to(dev, dtype), impl,
+                                     mesh)
                 for _, pv in items])
         else:
             vis = torch.cat(list(vision_embeds))
-    ids_t = torch.from_numpy(ids).to(dev)
     n_t = torch.from_numpy(n_real).to(dev)
-    embeds = _embed(params, cfg, ids_t, vis)
-    cache = init_kv_cache(cfg.text, B, max_len, device=dev,
-                          dtype=embeds.dtype, quant=kv_quant)
-    slots, mask = prefill_slot_mask(Tb, max_len, n_t)
-    hidden, cache = decoder_forward_cached(lm, cfg.text, embeds, cache, slots,
-                                           mask, impl=impl)
-    logits0 = lm_logits(params, last_real_token(hidden, n_t), impl)[:, 0]
-    step = _step_fn(cfg, max_len, n_t, impl)
-    out = decode_batch(step, params, logits0, cache, max_new_tokens, int(eos),
-                  teacher_tokens)
+    embeds = _embed(params, cfg, torch.from_numpy(ids).to(dev), vis, mesh)
+    out = over_data(mesh, B, lambda rows: _prefill_rows(
+        params, cfg, embeds[rows], n_t[rows], Tb, max_len, max_new_tokens,
+        eos, impl, kv_quant,
+        None if teacher_tokens is None else teacher_tokens[rows], mesh))
     if teacher_tokens is not None:
         return out
     toks, n = (t.tolist() for t in out)
@@ -421,12 +451,12 @@ def greedy_generate_batch(
 def greedy_generate(params, cfg: MiniCPMVConfig, input_ids,
                     pixel_values=None, max_new_tokens: int = 16,
                     eos_token_id: Optional[int] = None, impl: str = "auto",
-                    kv_quant: bool = False) -> List[int]:
+                    kv_quant: bool = False, mesh=None) -> List[int]:
     """A single prompt's greedy decode (``minicpmv.py:510-527``)."""
     return greedy_generate_batch(
         params, cfg, [(input_ids, pixel_values)],
         max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
-        impl=impl, kv_quant=kv_quant)[0]
+        impl=impl, kv_quant=kv_quant, mesh=mesh)[0]
 
 
 class PrefixCache(NamedTuple):
@@ -434,7 +464,7 @@ class PrefixCache(NamedTuple):
     judge's ``_prefix_state``).  Functions that take one never change
     it."""
 
-    cache: KVCache  # slots [0, P) filled
+    cache: KVCache  # slots [0, P) filled (RankCaches under a model axis)
     mask: torch.Tensor  # (B, max_len) int32
     P: int
     max_len: int
@@ -443,40 +473,34 @@ class PrefixCache(NamedTuple):
 @torch.no_grad()
 def prefill_prefix(params, cfg: MiniCPMVConfig, prefix: Sequence[int],
                    vision_embeds: torch.Tensor, max_len: int, bucket: int,
-                   impl: str = "auto", kv_quant: bool = False) -> PrefixCache:
+                   impl: str = "auto", kv_quant: bool = False,
+                   mesh=None) -> PrefixCache:
     """The headers and every frame's resampler block
     (``build_video_prompt_prefix_suffix``'s prefix) into an empty cache,
     right-padded to ``bucket``; no logits: a prefix never ends a
     prompt."""
     P = len(prefix)
-    lm = params["llm"]
-    dev = lm["tok_embeddings"].device
+    lm = sub(params, "llm")
+    dev = held(lm)[0]["tok_embeddings"].device
     ids = np.full((1, bucket), cfg.text.pad_token_id, np.int64)
     ids[0, :P] = prefix
     embeds = _embed(params, cfg, torch.from_numpy(ids).to(dev),
-                    vision_embeds)
+                    vision_embeds, mesh)
     cache = init_kv_cache(cfg.text, 1, max_len, device=dev,
-                          dtype=embeds.dtype, quant=kv_quant)
+                          dtype=embeds.dtype, quant=kv_quant, mesh=mesh,
+                          lm=lm)
     slots, mask = prefill_slot_mask(bucket, max_len, P, device=dev)
     decoder_forward_cached(lm, cfg.text, embeds, cache, slots, mask,
-                           impl=impl)
+                           impl=impl, mesh=mesh)
     return PrefixCache(cache, mask, P, max_len)
 
 
-@torch.no_grad()
-def continue_prefix(params, cfg: MiniCPMVConfig, state: PrefixCache,
-                    suffix: Sequence[int], bucket: int, max_new_tokens: int,
-                    eos_token_id: int, impl: str = "auto",
-                    teacher_tokens: Optional[torch.Tensor] = None):
-    """A question suffix on a copy of a cached prefix, then greedy decode
-    (``minicpmv.py:428-468``).  The suffix, right-padded to ``bucket``,
-    takes slots [P, P + len(suffix)); its attention runs over the whole
-    cache with ``q_offset`` = P, the same kernel as a full-prompt prefill.
-    Returns (toks (B, max_new_tokens) int32, n (B,)), or with
-    ``teacher_tokens`` the (B, n, V) fp32 logits of each step."""
+def _continue_rows(params, cfg: MiniCPMVConfig, state: PrefixCache,
+                   suffix: Sequence[int], bucket: int, max_new_tokens: int,
+                   eos_token_id: int, impl: str, teacher_tokens, mesh):
     cache, pmask, P, max_len = state
     cache = cache.clone()
-    lm = params["llm"]
+    lm = sub(params, "llm")
     dev = pmask.device
     B = pmask.shape[0]
     sids = torch.full((B, bucket), cfg.text.pad_token_id, dtype=torch.long,
@@ -489,12 +513,32 @@ def continue_prefix(params, cfg: MiniCPMVConfig, state: PrefixCache,
     valid = (span >= P) & (span < P + len(suffix))
     mask = torch.maximum(pmask, valid.to(pmask.dtype))
     hidden, cache = decoder_forward_cached(
-        lm, cfg.text, dec.embed_tokens(lm, sids), cache, slots, mask,
-        impl=impl, q_offset=n_prefix)
-    logits0 = lm_logits(params, last_real_token(hidden, s_real), impl)[:, 0]
-    step = _step_fn(cfg, max_len, n_prefix + s_real, impl)
+        lm, cfg.text, dec.embed_tokens(lm, sids, mesh, cfg.text.vocab_size),
+        cache, slots, mask, impl=impl, q_offset=n_prefix, mesh=mesh)
+    logits0 = lm_logits(params, last_real_token(hidden, s_real), impl, mesh,
+                        cfg.text.vocab_size)[:, 0]
+    step = _step_fn(cfg, max_len, n_prefix + s_real, impl, mesh)
     return decode_batch(step, params, logits0, cache, max_new_tokens,
-                   int(eos_token_id), teacher_tokens)
+                        int(eos_token_id), teacher_tokens)
+
+
+@torch.no_grad()
+def continue_prefix(params, cfg: MiniCPMVConfig, state: PrefixCache,
+                    suffix: Sequence[int], bucket: int, max_new_tokens: int,
+                    eos_token_id: int, impl: str = "auto",
+                    teacher_tokens: Optional[torch.Tensor] = None,
+                    mesh=None):
+    """A question suffix on a copy of a cached prefix, then greedy decode
+    (``minicpmv.py:428-468``).  The suffix, right-padded to ``bucket``,
+    takes slots [P, P + len(suffix)); its attention runs over the whole
+    cache with ``q_offset`` = P, the same kernel as a full-prompt prefill.
+    Returns (toks (B, max_new_tokens) int32, n (B,)), or with
+    ``teacher_tokens`` the (B, n, V) fp32 logits of each step; ``mesh`` as
+    in ``greedy_generate_batch``."""
+    return over_data(mesh, state.mask.shape[0], lambda rows: _continue_rows(
+        params, cfg, slice_state(state, rows), suffix, bucket,
+        max_new_tokens, eos_token_id, impl,
+        None if teacher_tokens is None else teacher_tokens[rows], mesh))
 
 
 # ------------------------------------------------------------ preprocessing

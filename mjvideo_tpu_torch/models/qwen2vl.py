@@ -30,6 +30,12 @@ text model (the port's Llama-family decoder, ``models/decoder.py``) with
 * M-RoPE positions (``get_rope_index``) and the preprocessing
   (``smart_resize``, ``preprocess_video_frames``) are host numpy, copied as
   they are.
+* ``mesh=`` (a ``parallel.mesh.Mesh``; JAX takes sharded ``params``): the
+  held model ranks' states (``shard_params``) run the tower (each rank's
+  heads of the packed qkv, the rotary on them, ``proj`` and ``fc2``
+  row-parallel), the text decoder, its caches and the LM head (tied: the
+  embedding's vocabulary rows) split over the model axis; the prompt rows
+  split over the data axis (``generate.over_data``).
 """
 
 from __future__ import annotations
@@ -44,9 +50,17 @@ import torch
 from ..configs import LLMConfig
 from ..data.video import CLIP_MEAN, CLIP_STD
 from ..ops.attention import multi_head_attention
-from ..ops.matmul import dot, dot_f32, gelu
+from ..ops.matmul import dot, gelu
 from ..ops.norms import layer_norm
 from ..ops.rope import rotate_half
+from ..parallel.mesh import (
+    held,
+    held_layers,
+    model_axis,
+    pair_forward,
+    row_dot,
+    sub,
+)
 from ..utils.bridge import first_tensor, map_state
 from . import decoder as dec
 from .generate import (
@@ -55,8 +69,10 @@ from .generate import (
     decoder_forward_cached,
     init_kv_cache,
     last_real_token,
+    over_data,
     pad_prompt_batch,
     prefill_slot_mask,
+    slice_state,
     step_slot_mask,
 )
 from .internvl import scatter_image_embeds
@@ -430,32 +446,51 @@ def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _vision_block(cfg: Qwen2VLVisionConfig, p, x: torch.Tensor,
-                  cos: torch.Tensor, sin: torch.Tensor, impl: str):
+                  cos: torch.Tensor, sin: torch.Tensor, impl: str,
+                  mesh=None):
     """One ViT block on x (grid_t, S, E) (``qwen2vl.py:350-379``): attention
     batched per temporal slab in place of the reference's cu_seqlens
-    varlen path, rope in fp32 as the reference upcasts."""
+    varlen path, rope in fp32 as the reference upcasts.  ``mesh`` with a
+    model axis above 1: ``p`` is the held model ranks' block states, a
+    split pair running on each rank's heads or columns."""
+    ps = held(p)
+    p = ps[0]
     T, S, E = x.shape
-    H, D = cfg.num_heads, cfg.head_dim
+    D = cfg.head_dim
+    tp = model_axis(mesh)
+
+    def attn_body(pj, h, split):
+        qkv = dot(h, pj["attn"]["qkv"]["kernel"], impl) \
+            + pj["attn"]["qkv"]["bias"]
+        H = qkv.shape[-1] // (3 * D)
+        qkv = qkv.reshape(T, S, 3, H, D)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+        qf, kf = q.float(), k.float()
+        q = (qf * c + rotate_half(qf) * s).to(x.dtype)
+        k = (kf * c + rotate_half(kf) * s).to(x.dtype)
+        # A pre-LN block and a norm-preserving rotary keep q and k bounded:
+        # the Cauchy-Schwarz shift of K1 (models/vit.py) holds.
+        attn = multi_head_attention(q, k, v, causal=False, impl=impl,
+                                    norm_bound=True)
+        return row_dot(attn.reshape(T, S, H * D), pj["attn"]["proj"]["kernel"],
+                       split, impl)
+
+    def mlp_body(pj, h, split):
+        h = _quick_gelu(dot(h, pj["mlp"]["fc1"]["kernel"], impl)
+                        + pj["mlp"]["fc1"]["bias"])
+        return row_dot(h, pj["mlp"]["fc2"]["kernel"], split, impl)
+
     h = layer_norm(x, p["norm1"]["weight"], p["norm1"]["bias"],
                    eps=cfg.layer_norm_eps)
-    qkv = (dot(h, p["attn"]["qkv"]["kernel"], impl)
-           + p["attn"]["qkv"]["bias"]).reshape(T, S, 3, H, D)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    c, s = cos[None, :, None, :], sin[None, :, None, :]
-    qf, kf = q.float(), k.float()
-    q = (qf * c + rotate_half(qf) * s).to(x.dtype)
-    k = (kf * c + rotate_half(kf) * s).to(x.dtype)
-    # A pre-LN block and a norm-preserving rotary keep q and k bounded: the
-    # Cauchy-Schwarz shift of K1 (models/vit.py) holds.
-    attn = multi_head_attention(q, k, v, causal=False, impl=impl,
-                                norm_bound=True)
-    x = x + (dot(attn.reshape(T, S, E), p["attn"]["proj"]["kernel"], impl)
+    split = tp is not None and p["attn"]["qkv"]["kernel"].shape[-1] != 3 * E
+    x = x + (pair_forward(tp, ps, h, split, attn_body)
              + p["attn"]["proj"]["bias"])
     h = layer_norm(x, p["norm2"]["weight"], p["norm2"]["bias"],
                    eps=cfg.layer_norm_eps)
-    h = _quick_gelu(dot(h, p["mlp"]["fc1"]["kernel"], impl)
-                    + p["mlp"]["fc1"]["bias"])
-    return x + (dot(h, p["mlp"]["fc2"]["kernel"], impl)
+    split = (tp is not None and p["mlp"]["fc1"]["kernel"].shape[-1]
+             != E * cfg.mlp_ratio)
+    return x + (pair_forward(tp, ps, h, split, mlp_body)
                 + p["mlp"]["fc2"]["bias"])
 
 
@@ -464,27 +499,29 @@ def vision_dtype(params) -> torch.dtype:
     quantized).  The JAX judge feeds fp32 patches whatever the weights'
     dtype, so its tower runs fp32 activations on bf16 weights; the port
     runs the weights' dtype, bf16 on the card, which K1 takes."""
-    return first_tensor(params["visual"]["blocks"]["norm1"]).dtype
+    return first_tensor(held(params)[0]["visual"]["blocks"]["norm1"]).dtype
 
 
 def vision_forward(params, cfg: Qwen2VLVisionConfig, patches: torch.Tensor,
                    grid: Tuple[int, int, int],
-                   impl: str = "auto") -> torch.Tensor:
+                   impl: str = "auto", mesh=None) -> torch.Tensor:
     """Patches (t h w, patch_dim) in the processor's layout -> merged visual
     embeds (t h w / m^2, LLM hidden) (``qwen2vl.py:382-414``).  The
     activations take ``patches``' dtype; on the card, K1 at D = 80 wants
-    bf16."""
+    bf16.  ``mesh``: ``params`` is the held model ranks' tower states and
+    each block runs split (``_vision_block``); the merger is whole."""
+    p0 = held(params)[0]
     t, h, w = grid
-    x = dot(patches, params["patch_embed"]["kernel"], impl)
+    x = dot(patches, p0["patch_embed"]["kernel"], impl)
     x = x.reshape(t, h * w, cfg.embed_dim)
     cos, sin = (torch.from_numpy(a).to(x.device)
                 for a in vision_rot_pos_emb((1, h, w), cfg))  # every slab
-    blocks = params["blocks"]
+    blocks = [t_["blocks"] for t_ in held_layers(params, mesh)]
     for i in range(cfg.depth):
-        x = _vision_block(cfg, map_state(lambda a: a[i], blocks), x, cos,
-                          sin, impl)
+        x = _vision_block(cfg, [map_state(lambda a: a[i], b) for b in blocks],
+                          x, cos, sin, impl, mesh)
     x = x.reshape(t * h * w, cfg.embed_dim)
-    mg = params["merger"]
+    mg = p0["merger"]
     x = layer_norm(x, mg["ln_q"]["weight"], mg["ln_q"]["bias"], eps=1e-6)
     x = x.reshape(-1, cfg.merge_dim)  # merged order: 4 consecutive patches
     x = gelu(dot(x, mg["mlp0"]["kernel"], impl) + mg["mlp0"]["bias"])
@@ -584,10 +621,11 @@ def mrope_cos_sin(position_ids, cfg: Qwen2VLConfig, device=None
 # ------------------------------------------------------------ full forward
 
 def _embed(params, cfg: Qwen2VLConfig, input_ids: torch.Tensor,
-           vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+           vision_embeds: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """Token embeds with the flat vision embeds (N, C) scattered, in row
     order, at both ``<|image_pad|>`` and ``<|video_pad|>`` slots."""
-    embeds = dec.embed_tokens(params["language_model"], input_ids.long())
+    embeds = dec.embed_tokens(sub(params, "language_model"),
+                              input_ids.long(), mesh, cfg.text.vocab_size)
     if vision_embeds is None:
         return embeds
     marker = ((input_ids == cfg.image_token_id)
@@ -606,28 +644,33 @@ def qwen2vl_forward(
     grid: Optional[Tuple[int, int, int]] = None,
     impl: str = "auto",
     vision_embeds: Optional[torch.Tensor] = None,  # (N_tok, C)
+    mesh=None,
 ) -> torch.Tensor:
     """The multimodal forward -> final hidden states (B, T, C)
     (``qwen2vl.py:514-549``); ``vision_embeds`` skips the vision tower."""
     if vision_embeds is None and pixel_patches is not None:
-        vision_embeds = vision_forward(params["visual"], cfg.vision,
-                                       pixel_patches, grid, impl=impl)
-    embeds = _embed(params, cfg, input_ids, vision_embeds)
+        vision_embeds = vision_forward(sub(params, "visual"), cfg.vision,
+                                       pixel_patches, grid, impl=impl,
+                                       mesh=mesh)
+    embeds = _embed(params, cfg, input_ids, vision_embeds, mesh)
     cos, sin = mrope_cos_sin(position_ids, cfg, device=embeds.device)
     return dec.decoder_forward(
-        params["language_model"], cfg.text, embeds,
+        sub(params, "language_model"), cfg.text, embeds,
         attention_mask=attention_mask, impl=impl, remat=False,
-        rope_override=(cos, sin))
+        rope_override=(cos, sin), mesh=mesh)
 
 
 def lm_logits(params, cfg: Qwen2VLConfig, hidden: torch.Tensor,
-              impl: str = "auto") -> torch.Tensor:
+              impl: str = "auto", mesh=None) -> torch.Tensor:
     """fp32 logits by the LM head tied to ``tok_embeddings`` (2B) or by its
-    own ``output`` kernel (7B) (``qwen2vl.py:552-556``)."""
-    lm = params["language_model"]
+    own ``output`` kernel (7B) (``qwen2vl.py:552-556``); under ``mesh``
+    each rank's vocabulary columns (tied: the embedding's rows), gathered
+    (``decoder.vocab_logits``)."""
+    lm = sub(params, "language_model")
     if cfg.tie_word_embeddings:
-        return dot_f32(hidden, lm["tok_embeddings"].t(), impl)
-    return dec.lm_logits(lm, hidden, impl)
+        return dec.vocab_logits(lm, lambda p: p["tok_embeddings"].t(),
+                                hidden, impl, mesh, cfg.text.vocab_size)
+    return dec.lm_logits(lm, hidden, impl, mesh, cfg.text.vocab_size)
 
 
 # ------------------------------------------------------------- generation
@@ -639,23 +682,45 @@ def _gather_rows(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
 
 def _step_fn(cfg: Qwen2VLConfig, max_len: int, n_start: torch.Tensor,
-             cos_all: torch.Tensor, sin_all: torch.Tensor, impl: str):
+             cos_all: torch.Tensor, sin_all: torch.Tensor, impl: str,
+             mesh=None):
     """The cached decode step of a row whose generated token i sits at slot
     ``n_start + i``, rotated by that slot's M-RoPE row."""
     def step(params, tok, i, cache):
-        lm = params["language_model"]
-        e = dec.embed_tokens(lm, tok.long()[:, None])
+        lm = sub(params, "language_model")
+        e = dec.embed_tokens(lm, tok.long()[:, None], mesh,
+                             cfg.text.vocab_size)
         s, m = step_slot_mask(max_len, n_start, i)
         h, cache = decoder_forward_cached(
             lm, cfg.text, e, cache, s, m, impl=impl,
             rope_override=(_gather_rows(cos_all, s),
-                           _gather_rows(sin_all, s)))
-        return lm_logits(params, cfg, h, impl)[:, 0], cache
+                           _gather_rows(sin_all, s)), mesh=mesh)
+        return lm_logits(params, cfg, h, impl, mesh)[:, 0], cache
     return step
 
 
 def _tables(pos0: np.ndarray, cfg: Qwen2VLConfig, device):
     return mrope_cos_sin(torch.from_numpy(pos0), cfg, device=device)
+
+
+def _prefill_rows(params, cfg: Qwen2VLConfig, embeds, n_real, Tb, max_len,
+                  cos_all, sin_all, max_new_tokens, eos, impl, kv_quant,
+                  teacher_tokens, mesh):
+    """Right-padded prompt rows' ``embeds`` into a fresh cache, then the
+    greedy loop: ``decode_batch``'s output."""
+    lm = sub(params, "language_model")
+    cache = init_kv_cache(cfg.text, embeds.shape[0], max_len,
+                          device=embeds.device, dtype=embeds.dtype,
+                          quant=kv_quant, mesh=mesh, lm=lm)
+    slots, mask = prefill_slot_mask(Tb, max_len, n_real)
+    hidden, cache = decoder_forward_cached(
+        lm, cfg.text, embeds, cache, slots, mask, impl=impl,
+        rope_override=(cos_all[:, :Tb], sin_all[:, :Tb]), mesh=mesh)
+    logits0 = lm_logits(params, cfg, last_real_token(hidden, n_real), impl,
+                        mesh)[:, 0]
+    step = _step_fn(cfg, max_len, n_real, cos_all, sin_all, impl, mesh)
+    return decode_batch(step, params, logits0, cache, max_new_tokens,
+                        int(eos), teacher_tokens)
 
 
 @torch.no_grad()
@@ -668,6 +733,7 @@ def greedy_generate_batch(
     vision_embeds=None,  # per row, precomputed vision embeds
     kv_quant: bool = False,  # int8 KV cache
     teacher_tokens: Optional[torch.Tensor] = None,  # (B, n)
+    mesh=None,
 ):
     """Batched greedy decode with a static KV cache
     (``qwen2vl.py:714-771``): each row's vision tower runs once (frames of
@@ -676,7 +742,9 @@ def greedy_generate_batch(
     built per row for every slot (generated token i continues at the
     prompt's max position + 1 + i on all three channels) and read per step.
     Returns the rows' tokens up to and including each one's EOS, or with
-    ``teacher_tokens`` the (B, n, V) fp32 logits of each step."""
+    ``teacher_tokens`` the (B, n, V) fp32 logits of each step.  ``mesh``:
+    the held model ranks' ``params`` split over its model axis, the rows
+    over its data axis."""
     B = len(items)
     has_vision = items[0][2] is not None or vision_embeds is not None
     ids, n_real, Tb = pad_prompt_batch([it[0] for it in items],
@@ -690,34 +758,26 @@ def greedy_generate_batch(
         # never enter the cache; decode slot n_real + i reads entry
         # n_real + i).
         pos0[:, b, nr:] = position_ids.max() + 1 + np.arange(max_len - nr)
-    lm = params["language_model"]
-    dev = lm["tok_embeddings"].device
+    dev = held(params)[0]["language_model"]["tok_embeddings"].device
     cos_all, sin_all = _tables(pos0, cfg, dev)
     vis = None
     if has_vision:
         if vision_embeds is None:
             dtype = vision_dtype(params)
             vis = torch.cat([
-                vision_forward(params["visual"], cfg.vision,
+                vision_forward(sub(params, "visual"), cfg.vision,
                                torch.as_tensor(patches).to(dev, dtype), grid,
-                               impl=impl)
+                               impl=impl, mesh=mesh)
                 for _, _, patches, grid in items])
         else:
             vis = torch.cat([v.reshape(-1, v.shape[-1])
                              for v in vision_embeds])
-    ids_t = torch.from_numpy(ids).to(dev)
     n_t = torch.from_numpy(n_real).to(dev)
-    embeds = _embed(params, cfg, ids_t, vis)
-    cache = init_kv_cache(cfg.text, B, max_len, device=dev,
-                          dtype=embeds.dtype, quant=kv_quant)
-    slots, mask = prefill_slot_mask(Tb, max_len, n_t)
-    hidden, cache = decoder_forward_cached(
-        lm, cfg.text, embeds, cache, slots, mask, impl=impl,
-        rope_override=(cos_all[:, :Tb], sin_all[:, :Tb]))
-    logits0 = lm_logits(params, cfg, last_real_token(hidden, n_t), impl)[:, 0]
-    step = _step_fn(cfg, max_len, n_t, cos_all, sin_all, impl)
-    out = decode_batch(step, params, logits0, cache, max_new_tokens,
-                  int(eos_token_id), teacher_tokens)
+    embeds = _embed(params, cfg, torch.from_numpy(ids).to(dev), vis, mesh)
+    out = over_data(mesh, B, lambda rows: _prefill_rows(
+        params, cfg, embeds[rows], n_t[rows], Tb, max_len, cos_all[rows],
+        sin_all[rows], max_new_tokens, eos_token_id, impl, kv_quant,
+        None if teacher_tokens is None else teacher_tokens[rows], mesh))
     if teacher_tokens is not None:
         return out
     toks, n = (t.tolist() for t in out)
@@ -727,12 +787,12 @@ def greedy_generate_batch(
 def greedy_generate(params, cfg: Qwen2VLConfig, input_ids, position_ids,
                     pixel_patches=None, grid=None, max_new_tokens: int = 16,
                     eos_token_id: int = 151645, impl: str = "auto",
-                    kv_quant: bool = False) -> List[int]:
+                    kv_quant: bool = False, mesh=None) -> List[int]:
     """A single prompt's greedy decode (``greedy_generate_batch``)."""
     return greedy_generate_batch(
         params, cfg, [(input_ids, position_ids, pixel_patches, grid)],
         max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
-        impl=impl, kv_quant=kv_quant)[0]
+        impl=impl, kv_quant=kv_quant, mesh=mesh)[0]
 
 
 class PrefixCache(NamedTuple):
@@ -740,7 +800,7 @@ class PrefixCache(NamedTuple):
     judge's ``_prefix_state``).  Functions that take one never change
     it."""
 
-    cache: KVCache  # slots [0, P) filled
+    cache: KVCache  # slots [0, P) filled (RankCaches under a model axis)
     mask: torch.Tensor  # (B, max_len) int32
     P: int
     max_len: int
@@ -752,15 +812,15 @@ class PrefixCache(NamedTuple):
 def prefill_prefix(params, cfg: Qwen2VLConfig, prefix: Sequence[int],
                    grid: Tuple[int, int, int], vision_embeds: torch.Tensor,
                    max_len: int, bucket: int, impl: str = "auto",
-                   kv_quant: bool = False) -> PrefixCache:
+                   kv_quant: bool = False, mesh=None) -> PrefixCache:
     """The vision block and the headers (``build_video_prompt_prefix_suffix``'s
     prefix) into an empty cache, the prefix right-padded to its ``bucket``
     (no logits: a prefix never ends a prompt).  The M-RoPE tables cover
     every slot: the prefix's from ``get_rope_index``, the slots after it
     continuing at its max position + 1, as a text-only suffix does."""
     P = len(prefix)
-    lm = params["language_model"]
-    dev = lm["tok_embeddings"].device
+    lm = sub(params, "language_model")
+    dev = held(lm)[0]["tok_embeddings"].device
     ids = np.full((1, bucket), cfg.text.pad_token_id, np.int64)
     ids[0, :P] = prefix
     pos_p, _ = get_rope_index(ids[:, :P], [grid], cfg)  # (3, 1, P)
@@ -769,32 +829,24 @@ def prefill_prefix(params, cfg: Qwen2VLConfig, prefix: Sequence[int],
     pos_all[:, 0, P:] = pos_p.max() + 1 + np.arange(max_len - P)
     cos_all, sin_all = _tables(pos_all, cfg, dev)
     embeds = _embed(params, cfg, torch.from_numpy(ids).to(dev),
-                    vision_embeds.reshape(-1, vision_embeds.shape[-1]))
+                    vision_embeds.reshape(-1, vision_embeds.shape[-1]), mesh)
     cache = init_kv_cache(cfg.text, 1, max_len, device=dev,
-                          dtype=embeds.dtype, quant=kv_quant)
+                          dtype=embeds.dtype, quant=kv_quant, mesh=mesh,
+                          lm=lm)
     slots, mask = prefill_slot_mask(bucket, max_len, P, device=dev)
     decoder_forward_cached(lm, cfg.text, embeds, cache, slots, mask,
                            impl=impl,
                            rope_override=(cos_all[:, :bucket],
-                                          sin_all[:, :bucket]))
+                                          sin_all[:, :bucket]), mesh=mesh)
     return PrefixCache(cache, mask, P, max_len, cos_all, sin_all)
 
 
-@torch.no_grad()
-def continue_prefix(params, cfg: Qwen2VLConfig, state: PrefixCache,
-                    suffix: Sequence[int], bucket: int, max_new_tokens: int,
-                    eos_token_id: int, impl: str = "auto",
-                    teacher_tokens: Optional[torch.Tensor] = None):
-    """A question suffix on a copy of a cached prefix, then greedy decode
-    (``qwen2vl.py:655-711``).  The suffix, right-padded to ``bucket``,
-    takes slots [P, P + len(suffix)), contiguous with the prefix, so its
-    M-RoPE positions and causality are the full prompt's; its attention
-    runs over the whole cache with ``q_offset`` = P, the same kernel as a
-    full-prompt prefill.  Returns (toks (B, max_new_tokens) int32, n (B,)),
-    or with ``teacher_tokens`` the (B, n, V) fp32 logits of each step."""
+def _continue_rows(params, cfg: Qwen2VLConfig, state: PrefixCache,
+                   suffix: Sequence[int], bucket: int, max_new_tokens: int,
+                   eos_token_id: int, impl: str, teacher_tokens, mesh):
     cache, pmask, P, max_len, cos_all, sin_all = state
     cache = cache.clone()
-    lm = params["language_model"]
+    lm = sub(params, "language_model")
     dev = pmask.device
     B = pmask.shape[0]
     sids = torch.full((B, bucket), cfg.text.pad_token_id, dtype=torch.long,
@@ -807,15 +859,36 @@ def continue_prefix(params, cfg: Qwen2VLConfig, state: PrefixCache,
     valid = (span >= P) & (span < P + len(suffix))
     mask = torch.maximum(pmask, valid.to(pmask.dtype))
     hidden, cache = decoder_forward_cached(
-        lm, cfg.text, dec.embed_tokens(lm, sids), cache, slots, mask,
-        impl=impl, q_offset=n_prefix,
+        lm, cfg.text, dec.embed_tokens(lm, sids, mesh, cfg.text.vocab_size),
+        cache, slots, mask, impl=impl, q_offset=n_prefix,
         rope_override=(_gather_rows(cos_all, slots),
-                       _gather_rows(sin_all, slots)))
+                       _gather_rows(sin_all, slots)), mesh=mesh)
     logits0 = lm_logits(params, cfg, last_real_token(hidden, s_real),
-                        impl)[:, 0]
-    step = _step_fn(cfg, max_len, n_prefix + s_real, cos_all, sin_all, impl)
+                        impl, mesh)[:, 0]
+    step = _step_fn(cfg, max_len, n_prefix + s_real, cos_all, sin_all, impl,
+                    mesh)
     return decode_batch(step, params, logits0, cache, max_new_tokens,
-                   int(eos_token_id), teacher_tokens)
+                        int(eos_token_id), teacher_tokens)
+
+
+@torch.no_grad()
+def continue_prefix(params, cfg: Qwen2VLConfig, state: PrefixCache,
+                    suffix: Sequence[int], bucket: int, max_new_tokens: int,
+                    eos_token_id: int, impl: str = "auto",
+                    teacher_tokens: Optional[torch.Tensor] = None,
+                    mesh=None):
+    """A question suffix on a copy of a cached prefix, then greedy decode
+    (``qwen2vl.py:655-711``).  The suffix, right-padded to ``bucket``,
+    takes slots [P, P + len(suffix)), contiguous with the prefix, so its
+    M-RoPE positions and causality are the full prompt's; its attention
+    runs over the whole cache with ``q_offset`` = P, the same kernel as a
+    full-prompt prefill.  Returns (toks (B, max_new_tokens) int32, n (B,)),
+    or with ``teacher_tokens`` the (B, n, V) fp32 logits of each step;
+    ``mesh`` as in ``greedy_generate_batch``."""
+    return over_data(mesh, state.mask.shape[0], lambda rows: _continue_rows(
+        params, cfg, slice_state(state, rows), suffix, bucket,
+        max_new_tokens, eos_token_id, impl,
+        None if teacher_tokens is None else teacher_tokens[rows], mesh))
 
 
 # ------------------------------------------------------------ preprocessing

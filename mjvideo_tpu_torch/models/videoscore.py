@@ -37,6 +37,14 @@ from ..configs import LLMConfig
 from ..ops.attention import multi_head_attention
 from ..ops.matmul import dot, dot_f32
 from ..ops.norms import layer_norm, rms_norm
+from ..parallel.mesh import (
+    held,
+    held_layers,
+    model_axis,
+    pair_forward,
+    row_dot,
+    sub,
+)
 from ..utils.bridge import map_state
 from . import decoder as dec
 from .internvl import scatter_image_embeds
@@ -355,29 +363,47 @@ def masked_position_ids(patch_mask: torch.Tensor, side: int) -> torch.Tensor:
 
 
 def _siglip_block(lp, x: torch.Tensor, cfg: SigLIPVisionConfig,
-                  kv_mask: Optional[torch.Tensor], impl: str) -> torch.Tensor:
-    """One pre-LN SigLIP block (``videoscore.py:361-381``)."""
+                  kv_mask: Optional[torch.Tensor], impl: str,
+                  mesh=None) -> torch.Tensor:
+    """One pre-LN SigLIP block (``videoscore.py:361-381``).  ``mesh`` with
+    a model axis above 1: ``lp`` is the held model ranks' layer states and
+    a split pair runs on each rank's heads (q, k, v column-parallel, o
+    row-parallel) or columns (fc1, then fc2 row-parallel)."""
+    ps = held(lp)
+    p = ps[0]
     B, S, C = x.shape
-    H, D, eps = cfg.num_attention_heads, cfg.head_dim, cfg.layer_norm_eps
-    h = layer_norm(x, lp["ln1"]["weight"], lp["ln1"]["bias"], eps=eps)
-    q, k, v = ((dot(h, lp[n]["kernel"], impl) + lp[n]["bias"])
-               .reshape(B, S, H, D) for n in ("q", "k", "v"))
-    # A pre-LN block keeps q and k bounded: the Cauchy-Schwarz shift holds
-    # (models/vit.py).  K1 without a mask, K1m with the patch mask.
-    attn = multi_head_attention(q, k, v, attention_mask=kv_mask,
-                                causal=False, impl=impl, norm_bound=True)
-    x = x + dot(attn.reshape(B, S, C), lp["o"]["kernel"], impl) \
-        + lp["o"]["bias"]
-    h = layer_norm(x, lp["ln2"]["weight"], lp["ln2"]["bias"], eps=eps)
-    h = dot(h, lp["fc1"]["kernel"], impl) + lp["fc1"]["bias"]
-    h = F.gelu(h, approximate="tanh")  # gelu_pytorch_tanh
-    return x + dot(h, lp["fc2"]["kernel"], impl) + lp["fc2"]["bias"]
+    D, eps = cfg.head_dim, cfg.layer_norm_eps
+    tp = model_axis(mesh)
+
+    def attn_body(pj, h, split):
+        q, k, v = ((dot(h, pj[n]["kernel"], impl) + pj[n]["bias"])
+                   .reshape(B, S, -1, D) for n in ("q", "k", "v"))
+        # A pre-LN block keeps q and k bounded: the Cauchy-Schwarz shift
+        # holds (models/vit.py).  K1 without a mask, K1m with the patch
+        # mask.
+        attn = multi_head_attention(q, k, v, attention_mask=kv_mask,
+                                    causal=False, impl=impl, norm_bound=True)
+        return row_dot(attn.reshape(B, S, q.shape[2] * D), pj["o"]["kernel"],
+                       split, impl)
+
+    def mlp_body(pj, h, split):
+        h = dot(h, pj["fc1"]["kernel"], impl) + pj["fc1"]["bias"]
+        h = F.gelu(h, approximate="tanh")  # gelu_pytorch_tanh
+        return row_dot(h, pj["fc2"]["kernel"], split, impl)
+
+    h = layer_norm(x, p["ln1"]["weight"], p["ln1"]["bias"], eps=eps)
+    split = tp is not None and p["q"]["kernel"].shape[-1] != C
+    x = x + pair_forward(tp, ps, h, split, attn_body) + p["o"]["bias"]
+    h = layer_norm(x, p["ln2"]["weight"], p["ln2"]["bias"], eps=eps)
+    split = (tp is not None
+             and p["fc1"]["kernel"].shape[-1] != cfg.intermediate_size)
+    return x + pair_forward(tp, ps, h, split, mlp_body) + p["fc2"]["bias"]
 
 
 def vision_forward(p, cfg: SigLIPVisionConfig, pixel_values: torch.Tensor,
                    impl: str = "auto",
-                   patch_attention_mask: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   patch_attention_mask: Optional[torch.Tensor] = None,
+                   mesh=None) -> torch.Tensor:
     """The SigLIP tower (``videoscore.py:330-397``): NHWC pixels (N, H, W, 3)
     -> (N, gh gw, C).  The pixels are cropped to whole patches (a torch
     Conv2d with kernel = stride = P drops the remainder), patch-embedded,
@@ -388,14 +414,17 @@ def vision_forward(p, cfg: SigLIPVisionConfig, pixel_values: torch.Tensor,
     variable-aspect path (per-image position ids, and the attention's key
     mask, K1m on the card).  None: every patch is real (K1).  Hidden states
     at padded patches are garbage by construction, as in transformers; the
-    connector's context mask discards them."""
+    connector's context mask discards them.  ``mesh``: ``p`` is the held
+    model ranks' tower states (``parallel.mesh.shard_params``) and each
+    block runs split (``_siglip_block``)."""
+    p0 = held(p)[0]
     P = cfg.patch_size
     gh, gw = pixel_values.shape[1] // P, pixel_values.shape[2] // P
     pixel_values = pixel_values[:, :gh * P, :gw * P]
-    x = patch_embed(p["patch_embedding"], pixel_values, P)
+    x = patch_embed(p0["patch_embedding"], pixel_values, P)
     side = cfg.image_size // P
     kv_mask = None
-    table = p["position_embedding"]
+    table = p0["position_embedding"]
     if patch_attention_mask is not None:
         pos = masked_position_ids(patch_attention_mask, side)
         x = x + table[pos].to(x.dtype)
@@ -405,11 +434,12 @@ def vision_forward(p, cfg: SigLIPVisionConfig, pixel_values: torch.Tensor,
         pos = torch.from_numpy(_bucket_position_ids(gh, gw, side)).to(
             x.device)
         x = x + table[pos][None].to(x.dtype)
+    layers = [t["layers"] for t in held_layers(p, mesh)]
     for i in range(cfg.num_hidden_layers):
-        x = _siglip_block(map_state(lambda a: a[i], p["layers"]), x, cfg,
-                          kv_mask, impl)
-    return layer_norm(x, p["post_layernorm"]["weight"],
-                      p["post_layernorm"]["bias"], eps=cfg.layer_norm_eps)
+        x = _siglip_block([map_state(lambda a: a[i], t) for t in layers], x,
+                          cfg, kv_mask, impl, mesh)
+    return layer_norm(x, p0["post_layernorm"]["weight"],
+                      p0["post_layernorm"]["bias"], eps=cfg.layer_norm_eps)
 
 
 # --------------------------------------------------------------- connector
@@ -417,39 +447,56 @@ def vision_forward(p, cfg: SigLIPVisionConfig, pixel_values: torch.Tensor,
 def connector_forward(p, cfg: PerceiverConfig, vision_hidden: torch.Tensor,
                       eps_override: Optional[float] = None,
                       context_mask: Optional[torch.Tensor] = None,
-                      impl: str = "auto") -> torch.Tensor:
+                      impl: str = "auto", mesh=None) -> torch.Tensor:
     """The modality projection (a SiLU MLP to the text width) and the
     perceiver resampler (``videoscore.py:400-445``): (N, S, C_vision) ->
     (N, n_latents, C_text).  Each layer's latents attend to the context and
     to themselves (16/4 heads of 96, plain torch, as JAX's ``impl="xla"``);
-    ``context_mask`` (N, S), 1 = a real patch, keeps padded patches out."""
+    ``context_mask`` (N, S), 1 = a real patch, keeps padded patches out.
+    ``mesh``: ``p`` is the held model ranks' connector states; a split
+    layer runs q, k and v on each rank's query heads and their kv group and
+    o row-parallel (the MLPs match no rule and stay whole)."""
+    ps = held(p)
+    p0 = ps[0]
+    tp = model_axis(mesh)
     eps = eps_override or cfg.rms_norm_eps
-    x = _mlp_silu(p["modality_projection"], vision_hidden, impl)
+    x = _mlp_silu(p0["modality_projection"], vision_hidden, impl)
     B = x.shape[0]
-    n_lat = p["latents"].shape[0]
-    latents = p["latents"][None].expand(B, -1, -1).to(x.dtype)
-    Hq, Hkv, D = cfg.n_heads, cfg.num_key_value_heads, cfg.head_dim
+    n_lat = p0["latents"].shape[0]
+    latents = p0["latents"][None].expand(B, -1, -1).to(x.dtype)
+    D = cfg.head_dim
     kv_mask = None
     if context_mask is not None:
         kv_mask = torch.cat([context_mask.to(torch.int32),
                              torch.ones((B, n_lat), dtype=torch.int32,
                                         device=x.device)], dim=1)
+    split = (tp is not None and p0["layers"]["q"]["kernel"].shape[-1]
+             != cfg.n_heads * D)
+    layers = [t["layers"] for t in (ps if split else ps[:1])]
     for i in range(cfg.depth):
-        lp = map_state(lambda a: a[i], p["layers"])
+        lps = [map_state(lambda a: a[i], t) for t in layers]
+        lp = lps[0]
         ln_lat = rms_norm(latents, lp["ln_latents"]["weight"], eps=eps)
         ln_ctx = rms_norm(x, lp["ln_context"]["weight"], eps=eps)
         kv_in = torch.cat([ln_ctx, ln_lat], dim=1)
         nq, nkv = ln_lat.shape[1], kv_in.shape[1]
-        q = dot(ln_lat, lp["q"]["kernel"], impl).reshape(B, nq, Hq, D)
-        k = dot(kv_in, lp["k"]["kernel"], impl).reshape(B, nkv, Hkv, D)
-        v = dot(kv_in, lp["v"]["kernel"], impl).reshape(B, nkv, Hkv, D)
-        attn = multi_head_attention(q, k, v, attention_mask=kv_mask,
-                                    causal=False, impl="plain")
-        latents = latents + dot(attn.reshape(B, nq, Hq * D),
-                                lp["o"]["kernel"], impl)
+
+        def attn_body(pj, kv, split):
+            q = dot(kv[:, nkv - nq:], pj["q"]["kernel"], impl)
+            q = q.reshape(B, nq, -1, D)
+            k = dot(kv, pj["k"]["kernel"], impl).reshape(B, nkv, -1, D)
+            v = dot(kv, pj["v"]["kernel"], impl).reshape(B, nkv, -1, D)
+            attn = multi_head_attention(q, k, v, attention_mask=kv_mask,
+                                        causal=False, impl="plain")
+            return row_dot(attn.reshape(B, nq, q.shape[2] * D),
+                           pj["o"]["kernel"], split, impl)
+
+        latents = latents + pair_forward(
+            tp, [{k: lp_[k] for k in "qkvo"} for lp_ in lps], kv_in, split,
+            attn_body)
         h = rms_norm(latents, lp["ln_post"]["weight"], eps=eps)
         latents = latents + _mlp_silu(lp, h, impl)
-    return rms_norm(latents, p["norm"]["weight"], eps=eps)
+    return rms_norm(latents, p0["norm"]["weight"], eps=eps)
 
 
 # ------------------------------------------------------------ full forward
@@ -474,6 +521,7 @@ def videoscore_forward(
     attention_mask: Optional[torch.Tensor] = None,
     impl: str = "auto",
     pixel_attention_mask: Optional[torch.Tensor] = None,  # (N, H, W)
+    mesh=None,
 ) -> torch.Tensor:
     """The Idefics2 forward -> (B, num_labels) fp32 regression logits
     (``videoscore.py:448-498``).  The image tokens are scattered at the
@@ -481,25 +529,30 @@ def videoscore_forward(
     the first pad id (the last token where there is none).
     ``pixel_attention_mask`` (1 = a real pixel, bottom/right zero padding)
     takes the variable-aspect path: its patch any-pool masks the tower's
-    attention and position ids and the perceiver's context."""
+    attention and position ids and the perceiver's context.  ``mesh`` (a
+    ``parallel.mesh.Mesh``): ``params`` is the held model ranks' states
+    (``shard_params``); the tower, the perceiver and the Mistral decoder
+    run split over the model axis, the regression head whole."""
     patch_mask = ctx_mask = None
     if pixel_attention_mask is not None:
         patch_mask = patch_mask_from_pixels(pixel_attention_mask,
                                             cfg.vision.patch_size)
         ctx_mask = patch_mask.reshape(patch_mask.shape[0], -1)
-    vis = vision_forward(params["vision_model"], cfg.vision, pixel_values,
-                         impl=impl, patch_attention_mask=patch_mask)
-    img_tokens = connector_forward(params["connector"], cfg.perceiver, vis,
-                                   context_mask=ctx_mask, impl=impl)
-    text = params["text"]
+    vis = vision_forward(sub(params, "vision_model"), cfg.vision,
+                         pixel_values, impl=impl,
+                         patch_attention_mask=patch_mask, mesh=mesh)
+    img_tokens = connector_forward(sub(params, "connector"), cfg.perceiver,
+                                   vis, context_mask=ctx_mask, impl=impl,
+                                   mesh=mesh)
+    text = sub(params, "text")
     ids = input_ids.long()
-    embeds = dec.embed_tokens(text, ids)
+    embeds = dec.embed_tokens(text, ids, mesh, cfg.text.vocab_size)
     embeds = scatter_image_embeds(embeds, ids, img_tokens, cfg.image_token_id)
     hidden = dec.decoder_forward(text, cfg.text, embeds,
                                  attention_mask=attention_mask, impl=impl,
-                                 remat=False)
+                                 remat=False, mesh=mesh)
     T = ids.shape[-1]
     is_pad = (ids == cfg.text.pad_token_id).to(torch.int32)
     idx = (is_pad.argmax(dim=-1) - 1) % T
     pooled = hidden[torch.arange(ids.shape[0], device=ids.device), idx]
-    return dot_f32(pooled, params["score"]["kernel"], impl)
+    return dot_f32(pooled, held(params)[0]["score"]["kernel"], impl)

@@ -42,7 +42,7 @@ from ..ops.attention import multi_head_attention
 from ..ops.matmul import dot, dot_f32, gelu
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.remat import remat_wrap
-from ..parallel.mesh import held, model_axis, sub
+from ..parallel.mesh import held, model_axis, pair_forward, row_dot, sub
 from ..utils.bridge import map_state
 
 
@@ -217,6 +217,22 @@ def drop_path_rates(rate: float, L: int) -> np.ndarray:
     return torch.linspace(0.0, rate, L, dtype=torch.float32).numpy()
 
 
+def split_rms_norm(tp, xs, weights, eps: float, width: int):
+    """``rms_norm`` over a width whose columns the held model ranks hold
+    in parts: each rank's sum of squares in fp32, summed over the model
+    axis (``Mesh.sum_over_model``), then each rank's columns scaled by its
+    slice of the whole ``weight`` (rank j of n holds columns [j w / n,
+    (j + 1) w / n)).  ``xs``: the held ranks' parts, in rank order."""
+    ss = [x.float().square().sum(-1, keepdim=True) for x in xs]
+    inv = torch.rsqrt(tp.sum_over_model(ss) / width + eps)
+    out = []
+    for j, x, w in zip(tp.model_ranks, xs, weights):
+        n = x.shape[-1]
+        wj = w[..., j * n:(j + 1) * n]
+        out.append((wj * (x.float() * inv).to(x.dtype)).to(x.dtype))
+    return out
+
+
 def _attention(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,
                attention: Optional[Callable], mesh) -> torch.Tensor:
     """The attention branch before the projection's bias: qkv, the
@@ -224,23 +240,33 @@ def _attention(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,
     Split over the model axis (``parallel/mesh.py``), each rank runs its
     own heads of q, k and v (column-parallel) and its rows of the
     projection (row-parallel): the partials in fp32, summed over the model
-    axis, rounded once."""
+    axis, rounded once.  The QK-norm (the 6B family) normalises q and k
+    over the whole width: split, its statistics are summed over the model
+    axis (``split_rms_norm``)."""
     B, S, C = h.shape
     D = cfg.head_dim
     tp = model_axis(mesh)
     split = tp is not None and ps[0]["attn"]["qkv"]["kernel"].shape[-1] != 3 * C
-    outs = []
+    qkvs = []
     for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
         a = pj["attn"]
         qkv = dot(hj, a["qkv"]["kernel"], impl)
         if "bias" in a["qkv"]:
             qkv = qkv + a["qkv"]["bias"]
-        Cj = qkv.shape[-1] // 3
-        q, k, v = qkv.split(Cj, dim=-1)
-        if cfg.qk_normalization:
-            eps = cfg.layer_norm_eps
-            q = rms_norm(q, a["q_norm"]["weight"], eps=eps)
-            k = rms_norm(k, a["k_norm"]["weight"], eps=eps)
+        qkvs.append(list(qkv.split(qkv.shape[-1] // 3, dim=-1)))
+    if cfg.qk_normalization:
+        eps = cfg.layer_norm_eps
+        for i, name in ((0, "q_norm"), (1, "k_norm")):
+            ws = [pj["attn"][name]["weight"] for pj in ps]
+            if split:
+                normed = split_rms_norm(tp, [t[i] for t in qkvs], ws, eps, C)
+            else:
+                normed = [rms_norm(qkvs[0][i], ws[0], eps=eps)]
+            for t, n in zip(qkvs, normed):
+                t[i] = n
+    outs = []
+    for pj, (q, k, v) in zip(ps, qkvs):
+        Cj = q.shape[-1]
         # Views: the kernel takes the token stride as it is.
         q, k, v = (t.view(B, S, Cj // D, D) for t in (q, k, v))
         if attention is None:
@@ -251,8 +277,8 @@ def _attention(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,
         else:
             o = attention(q, k, v)
         o = o.reshape(B, S, Cj)
-        outs.append(dot_f32(o, a["proj"]["kernel"], impl) if split
-                    else dot(o, a["proj"]["kernel"], impl))
+        outs.append(dot_f32(o, pj["attn"]["proj"]["kernel"], impl) if split
+                    else dot(o, pj["attn"]["proj"]["kernel"], impl))
     return tp.reduce_from_model(outs).to(h.dtype) if split else outs[0]
 
 
@@ -263,13 +289,13 @@ def _mlp(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,
     tp = model_axis(mesh)
     split = (tp is not None and ps[0]["mlp"]["fc1"]["kernel"].shape[-1]
              != cfg.intermediate_size)
-    outs = []
-    for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
+
+    def body(pj, x, split):
         m = pj["mlp"]
-        y = gelu(dot(hj, m["fc1"]["kernel"], impl) + m["fc1"]["bias"])
-        outs.append(dot_f32(y, m["fc2"]["kernel"], impl) if split
-                    else dot(y, m["fc2"]["kernel"], impl))
-    return tp.reduce_from_model(outs).to(h.dtype) if split else outs[0]
+        y = gelu(dot(x, m["fc1"]["kernel"], impl) + m["fc1"]["bias"])
+        return row_dot(y, m["fc2"]["kernel"], split, impl)
+
+    return pair_forward(tp, ps, h, split, body)
 
 
 def _block(cfg: VisionConfig, p, x: torch.Tensor, impl: str,

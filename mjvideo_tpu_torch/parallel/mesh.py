@@ -16,18 +16,21 @@ collective.  Here each collective is written out:
   or None per dim, ``()`` replicated) per path string.
 * ``shard_params`` cuts a whole state into the tensors of the held model
   ranks, one tree per rank (replicated leaves shared), following the rules
-  where an explicit head split can, and departing where it cannot: the
-  ViT's packed ``qkv`` gives each rank its own heads of each of q, k and v
-  (JAX's contiguous cut of 3C would give rank 0 all of q); an int4 row
-  member is repacked so that each rank's half-split holds its own rows;
-  and a Megatron pair (its column members and its row member) is split only
-  when every member divides, heads included, else the whole pair stays
-  replicated.
+  where an explicit head split can, and departing where it cannot: a
+  packed ``qkv`` (InternViT, EVA, the Qwen2-VL tower) gives each rank its
+  own heads of each of q, k and v (JAX's contiguous cut of 3C would give
+  rank 0 all of q); an int4 row member is repacked so that each rank's
+  half-split holds its own rows; the LM head splits by vocabulary
+  columns; and a Megatron pair (its column members and its row member,
+  in any judge family's tree) is split only when every member divides,
+  heads included, else the whole pair stays replicated.
 * ``Mesh.copy_to_model`` and ``Mesh.reduce_from_model`` are Megatron's f
   and g: identity forward and gradient summed over the model axis, summed
   forward and identity backward.  In a local mesh the sums run in rank
   order, each rank's own part first, as the processes' ``all_reduce``
-  sums them.
+  sums them.  ``sum_over_model`` (a statistic every rank goes on to use,
+  summed both ways) and ``join_model`` (a split LM head's logits
+  gathered) serve the judges.
 
 The model code (``models/vit.py``, ``models/decoder.py``) runs a split pair
 column-parallel into the rank's heads or columns and row-parallel out of
@@ -191,6 +194,28 @@ class Mesh:
         dist.all_gather(got, x, group=self.model_group)
         return got
 
+    def join_model(self, parts: List[torch.Tensor],
+                   dim: int = -1) -> torch.Tensor:
+        """Every model rank's part concatenated along ``dim``, in rank
+        order (no autograd): the held parts in a local mesh, all-gathered
+        across processes."""
+        if self.is_local or self.model == 1:
+            return torch.cat(list(parts), dim)
+        return torch.cat(self.gather_model(parts[0]), dim)
+
+    def sum_over_model(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The sum of the held ranks' partials over the model axis where
+        every rank goes on to use the sum in work of its own (a norm's
+        statistics): its gradient is summed over the model axis too, so
+        each rank's partial receives every rank's share.  In rank order
+        locally, ``all_reduce`` across processes."""
+        if self.is_local or self.model == 1:
+            out = parts[0]
+            for p in parts[1:]:
+                out = out + p
+            return out
+        return _AllReduceSum.apply(parts[0], self.model_group)
+
     def all_reduce_world(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over every process (in place; a local mesh holds
         them all already)."""
@@ -241,6 +266,25 @@ class _ReduceFromModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        return grad, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
 
@@ -377,15 +421,41 @@ def zero1_dim(spec: Spec) -> Optional[int]:
 
 # --- tensor-parallel placement ----------------------------------------
 
-# A split pair: its path up to the layer's attention or MLP block.
-_PAIR = re.compile(r"^(.*/layers/(attn|mlp|attention|feed_forward))/")
+# A split pair: the leaves that split together, keyed by the path of the
+# block they make up.  InternViT, Qwen2-VL's tower, the decoders and
+# CogVLM2's experts keep each block under ``layers/`` (or ``blocks/``); the
+# SigLIP towers (q, k, v, o), the EVA tower (qkv, dense) and the perceiver
+# keep their members directly under ``layers/``, keyed as its ``attn`` or
+# ``mlp``; the LM head is a pair of its own.
+_PAIR = re.compile(
+    r"^(.*/(?:layers|blocks)/(?:attn|mlp|attention|feed_forward))/")
+_FLAT_ATTN = re.compile(r"^(.*/layers)/(?:q|k|v|o|qkv|dense)/")
+_FLAT_MLP = re.compile(r"^(.*/layers)/(?:fc1|fc2)/")
+_HEAD = re.compile(r"^((?:.*/)?output/kernel)(?:/|$)")
+
+
+def _pair_key(path: str) -> Optional[str]:
+    """The pair a leaf belongs to, or None where it splits on its own (the
+    embedding) or not at all."""
+    m = _PAIR.match(path)
+    if m:
+        return m.group(1)
+    m = _FLAT_ATTN.match(path)
+    if m:
+        return m.group(1) + "/attn"
+    m = _FLAT_MLP.match(path)
+    if m:
+        return m.group(1) + "/mlp"
+    m = _HEAD.match(path)
+    return m.group(1) if m else None
 
 
 class Split:
     """How one leaf (or node field) splits over the model axis: ``kind``
-    "cols" (the last dim), "rows" (the one before it), "vocab" (dim 0),
-    "qkv" (the packed ViT q|k|v last dim, by heads) or "q4rows" (an int4
-    ``packed`` field's logical rows, repacked)."""
+    "cols" (the last dim), "rows" (the one before it), "vocab" (the
+    embedding's rows, dim 0), "logits" (the LM head's vocabulary columns,
+    the last dim), "qkv" (a packed q|k|v last dim, by heads) or "q4rows"
+    (an int4 ``packed`` field's logical rows, repacked)."""
 
     __slots__ = ("kind", "dim")
 
@@ -396,15 +466,24 @@ class Split:
         return f"Split({self.kind!r}, {self.dim})"
 
 
-def _heads(cfg, path: str) -> Optional[int]:
-    """The head count a pair must split by: the ViT's heads, the decoder's
-    kv heads (each with its query group); None for an MLP."""
+def _heads(cfg, key: str) -> Tuple[int, ...]:
+    """The head counts a pair must split by: a tower's heads (the
+    perceiver's query and kv heads), a decoder's kv heads (each with its
+    query group, CogVLM2's packed qkv sliced so); none for an MLP or the
+    LM head.  ``cfg``: a ``RewardConfig`` or ``ChatConfig``, or the
+    ``*Config`` of MiniCPM-V, VideoScore, CogVLM2 or Qwen2-VL."""
     chat = getattr(cfg, "chat", cfg)
-    if path.endswith("/attn"):
-        return chat.vision.num_attention_heads
-    if path.endswith("/attention"):
-        return chat.llm.num_key_value_heads
-    return None
+    if key.split("/")[0] == "connector" and key.endswith("/attn"):
+        pc = chat.perceiver
+        return (pc.n_heads, pc.num_key_value_heads)
+    if key.endswith("/attention"):
+        text = getattr(chat, "llm", None) or chat.text
+        return (text.num_key_value_heads,)
+    if key.endswith("/attn"):
+        vision = chat.vision
+        return (getattr(vision, "num_attention_heads", None)
+                or vision.num_heads,)
+    return ()
 
 
 def _q4_group(plan_leaves, field_path: str) -> int:
@@ -418,8 +497,9 @@ def _q4_group(plan_leaves, field_path: str) -> int:
 def split_plan(params: Any, model: int, cfg=None) -> Dict[str, Split]:
     """{leaf path: Split} of the leaves that split over ``model`` ranks.
     Raises ``NotImplementedError`` (ROADMAP Queue 1 item 12) where the
-    state holds what the port does not split yet: LoRA nodes, w8a8 nodes
-    and the QK-norm ViT."""
+    state holds what the port does not split yet: LoRA nodes and w8a8
+    nodes.  The QK-norm ViT splits: its norms' statistics are summed over
+    the model axis (``models/vit.py``)."""
     from ..ops.quant import OutlierQuantKernel, QuantKernel
     from ..ops.lora import LoraKernel
     from ..utils.bridge import flatten_state
@@ -452,23 +532,22 @@ def split_plan(params: Any, model: int, cfg=None) -> Dict[str, Split]:
 
     walk(params)
     flat = flatten_state(params)
-    if any("attn/q_norm" in p for p in flat):
-        refuse("the QK-norm ViT (InternViT-6B normalises q and k over the "
-               "whole width)")
     pairs: Dict[str, Dict[str, Split]] = {}
     ok: Dict[str, bool] = {}
     for path, t in flat.items():
         spec = param_pspec(path, True)
-        m = _PAIR.match(path)
-        key = m.group(1) if m else path
-        if "model" not in spec or not (m or path.endswith("tok_embeddings")):
+        key = _pair_key(path)
+        if "model" not in spec or not (key or path.endswith("tok_embeddings")):
             continue
+        key = key or path
         axis = spec.index("model")
         field = path.rsplit("/", 1)[-1]
         nd = t.dim()
         if path.endswith("tok_embeddings"):
             split = Split("vocab", 0)
-        elif re.search(r"attn/qkv/(kernel|bias)", path):
+        elif _HEAD.match(path):
+            split = Split("logits", nd - 1)
+        elif re.search(r"(attn|layers)/qkv/(kernel|bias)", path):
             split = Split("qkv", nd - 1)
         elif field == ".scale":
             # A per-column scale splits with a column member and stays
@@ -493,8 +572,7 @@ def split_plan(params: Any, model: int, cfg=None) -> Dict[str, Split]:
             fits = (2 * size) % (2 * _q4_group(flat, path) * model) == 0
         else:
             fits = size % model == 0
-        heads = _heads(cfg, key)
-        if heads is not None and heads % model:
+        if any(h % model for h in _heads(cfg, key)):
             fits = False
         pairs.setdefault(key, {})[path] = split
         ok[key] = ok.get(key, True) and fits
@@ -637,7 +715,37 @@ def held(params) -> List[Any]:
     return params if isinstance(params, list) else [params]
 
 
+def held_layers(params, mesh: Optional[Mesh]) -> List[Any]:
+    """The held model ranks' trees where ``mesh`` has a model axis above 1,
+    else the first alone (the unsplit path needs one)."""
+    ps = held(params)
+    return ps if model_axis(mesh) is not None else ps[:1]
+
+
 def model_axis(mesh: Optional[Mesh]) -> Optional[Mesh]:
     """``mesh`` when its model axis is above 1, else None (the unsplit
     path)."""
     return mesh if mesh is not None and mesh.model > 1 else None
+
+
+def pair_forward(mesh: Optional[Mesh], ps, h: torch.Tensor, split: bool,
+                 body) -> torch.Tensor:
+    """A Megatron pair over the held model ranks' states ``ps``:
+    ``body(p, x, split)`` runs one rank's column members and its row member
+    on ``x``.  Split, each rank's body returns its fp32 partial, summed over
+    the model axis and rounded once to ``h``'s dtype (the row member's bias
+    is the caller's); else rank 0's body alone, on ``h``."""
+    if not split:
+        return body(ps[0], h, False)
+    tp = model_axis(mesh)
+    outs = [body(p, x, True) for p, x in zip(ps, tp.copy_to_model(h))]
+    return tp.reduce_from_model(outs).to(h.dtype)
+
+
+def row_dot(x: torch.Tensor, kernel, split: bool,
+            impl: str = "auto") -> torch.Tensor:
+    """A row member's product: an fp32 partial where its pair is split
+    (``pair_forward`` sums and rounds it), else ``dot``."""
+    from ..ops.matmul import dot, dot_f32
+
+    return dot_f32(x, kernel, impl) if split else dot(x, kernel, impl)

@@ -14,7 +14,15 @@ bit-equal to the whole layer's on those heads, given the same q, k and v
 what it computes among all heads).  Shapes: K1 on a clip's 8 tiles of
 1,025 tokens at 8 of the ViT's 16 heads of 64; K2 at the 3,072 bucket
 with a ragged mask at 8/4 of the decoder's 16/8 heads of 128; K2 lse, K4a
-and K4b at a training prompt of 799 tokens, every key live.
+and K4b at a training prompt of 799 tokens, every key live.  The judges'
+towers and decoders on a mesh: K1 at 8 of SigLIP's 16 heads of 72, 8 of
+the Qwen2-VL tower's 16 heads of 80 and 5 of InternViT-6B's 25 heads of
+128 (q and k dense, as its QK-norm makes them); K1m at 8 of SigLIP's heads
+under a patch mask; K3 not causal at 8 of EVA's 16 heads of 112; K3 at
+each judge decoder's rank heads (8/4, 14/2, 24/4, 16/4 of 128) over a
+cache with a suffix's ``q_offset``, and K2r at 8/4 over a prefix.  A
+rank's heads are bit-equal to the whole layer's for K1 (its bound's key
+norms are per head) and for K3 (exact, per head).
 """
 
 import pytest
@@ -134,3 +142,88 @@ def test_k2_lse_k4a_k4b_at_a_ranks_heads(cuda_device):
         for a, b in zip(got, (whole[0][:, :, qs], whole[1][:, :, qs],
                               whole[2][:, :, ks], whole[3][:, :, ks])):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D,m,dense", [(16, 72, 2, False),
+                                         (16, 80, 2, False),
+                                         (25, 128, 5, True)],
+                         ids=["siglip", "qwen2vl", "internvit6b"])
+def test_k1_at_a_judge_towers_rank_heads(cuda_device, H, D, m, dense):
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(4)
+    qkv = _randn(g, dev, 4, 1025, 3 * H * D)
+    q, k, v = _vit_views(qkv, H, D)
+    if dense:
+        q, k = q.contiguous(), k.contiguous()
+    whole = fa.vit_attention(q, k, v)
+    n = H // m
+    for j in range(m):
+        hs = slice(j * n, (j + 1) * n)
+        qj, kj, vj = (t[:, :, hs].contiguous() for t in (q, k, v))
+        got = fa.vit_attention(qj, kj, vj)
+        _close(got, fa.vit_attention_plain(qj, kj, vj))
+        assert torch.equal(got, whole[:, :, hs])
+
+
+@pytest.mark.cuda
+def test_k1m_at_a_ranks_heads(cuda_device):
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(5)
+    N, S = 4, 2730
+    q, k, v = (_randn(g, dev, N, S, 8, 72) for _ in range(3))
+    live = torch.tensor([2730, 1242, 1242, 2000], device=dev)
+    mask = (torch.arange(S, device=dev)[None] < live[:, None]).to(
+        torch.int32)
+    got = fa.vit_attention_masked(q, k, v, mask)
+    _close(got, fa.vit_attention_masked_plain(q, k, v, mask))
+
+
+@pytest.mark.cuda
+def test_k3_d112_at_a_ranks_heads(cuda_device):
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(6)
+    H, D = 16, 112
+    q, k, v = _vit_views(_randn(g, dev, 8, 257, 3 * H * D), H, D)
+    whole = fa.exact_attention(q, k, v, causal=False)
+    for j in range(2):
+        hs = slice(j * 8, (j + 1) * 8)
+        qj, kj, vj = (t[:, :, hs].contiguous() for t in (q, k, v))
+        got = fa.exact_attention(qj, kj, vj, causal=False)
+        _close(got, fa.exact_attention_plain(qj, kj, vj, causal=False))
+        assert torch.equal(got, whole[:, :, hs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(8, 4), (14, 2), (24, 4), (16, 4)],
+                         ids=["internlm2-1.8b", "qwen2-7b", "internlm2-20b",
+                              "llama3-mistral"])
+def test_k3_continuation_at_a_decoders_rank_heads(cuda_device, Hq, Hkv):
+    """A suffix of 128 queries at slots 2308 + i over a cache of 2,560
+    slots, 25 suffix slots live: K3 at a rank's heads against its twin,
+    and the whole layer's K3 (twice the heads) on those heads."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, Q, K, D, P = 2, 128, 2560, 128, 2308
+    q = _randn(g, dev, B, Q, 2 * Hq, D)
+    k, v = _randn(g, dev, B, K, 2 * Hkv, D), _randn(g, dev, B, K, 2 * Hkv, D)
+    mask = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    mask[:, :P + 25] = 1
+    off = torch.full((B,), P, dtype=torch.int32, device=dev)
+    whole = fa.exact_attention(q, k, v, mask, off)
+    for j in range(2):
+        (qj, kj, vj), qs = _rank(q, k, v, j)
+        got = fa.exact_attention(qj, kj, vj, mask, off)
+        _close(got, fa.exact_attention_plain(qj, kj, vj, mask, off))
+        assert torch.equal(got, whole[:, :, qs])
+
+
+@pytest.mark.cuda
+def test_k2r_prefix_at_a_ranks_heads(cuda_device):
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (_randn(g, dev, 1, 2368, h, 128) for h in (8, 4, 4))
+    mask = torch.ones((1, 2368), dtype=torch.int32, device=dev)
+    mask[:, 2308:] = 0
+    got = fa.decoder_attention_rows(q, k, v, mask)
+    _close(got, fa.decoder_attention_rows_plain(q, k, v, mask))

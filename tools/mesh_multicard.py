@@ -5,6 +5,7 @@ the same inputs.
     python3 tools/mesh_multicard.py             # NCCL, one process per card
     python3 tools/mesh_multicard.py --cpu       # gloo, 4 CPU processes, at
                                                 # tiny_test_config (rehearsal)
+    python3 tools/mesh_multicard.py --checks judges   # check 3 alone
 
 n processes (n = the cards it sees, or ``--procs`` with ``--cpu``; n even)
 join a process group on a free localhost port and form
@@ -24,8 +25,19 @@ on its own card on the same inputs.  Two checks, each printed by rank 0:
    card's optimizer bytes and peak memory, and the seconds of the two
    micro-steps.
 
-The last line is one JSON object of the readings; the exit code is non-zero
-if a process fails or a check breaks its bound.
+3. The judges on the mesh (``chip_smoke.py`` phase 34's): the InternVL2-2B
+   judge at all 24 layers and the CogVLM2-Video judge at full width and
+   ``chip_smoke.MESH_JUDGE_DEPTHS``, random bf16 weights from the seed,
+   answering the pair of seeded videos by the prefix path: the answers'
+   tokens and the teacher-forced logits over
+   ``chip_smoke.MESH_FORCED_STEPS`` steps bit-equal to ``Mesh.local``'s,
+   ms a pair (cold) and ms a decode step at B = 2 beside the judge
+   unsharded on one card.  This check runs at ``Mesh.distributed(n // 2,
+   2)`` with the others, then alone at ``Mesh.distributed(1, 2)`` in 2
+   processes (cards 0 and 1).  ``--cpu`` takes tiny configs of both.
+
+The last line of each launch is one JSON object of the readings; the exit
+code is non-zero if a process fails or a check breaks its bound.
 """
 
 from __future__ import annotations
@@ -250,7 +262,121 @@ def training_check(mesh, local, dev, cpu, out):
         out["ok"] = out["ok"] and same
 
 
-def worker(rank: int, world: int, port: int, cpu: bool) -> int:
+def _tiny_judge_configs():
+    """The CPU rehearsal's configs: the 2B judge's at ``tiny_test_config``
+    (4 ViT heads, 4/2 decoder heads, an odd vocabulary), a CogVLM2 of 2
+    EVA heads and 4/2 decoder heads."""
+    import dataclasses
+
+    from mjvideo_tpu_torch import tiny_test_config
+    from mjvideo_tpu_torch.configs import LLMConfig
+    from mjvideo_tpu_torch.models import cogvlm2
+
+    chat = dataclasses.replace(tiny_test_config(vocab_size=273).chat)
+    cog = cogvlm2.CogVLM2Config(
+        vision=cogvlm2.CogVLM2VisionConfig(
+            hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_heads=2, patch_size=7, image_size=28),
+        text=LLMConfig(architecture="llama", vocab_size=320, hidden_size=64,
+                       intermediate_size=128, num_hidden_layers=2,
+                       num_attention_heads=4, num_key_value_heads=2,
+                       rope_theta=1e4, rms_norm_eps=1e-5, pad_token_id=0,
+                       max_position_embeddings=4096),
+        bos_token_id=1, eos_token_id=2, pad_token_id=0)
+    return chat, cog
+
+
+def judges_check(mesh, local, dev, cpu, out):
+    """Check 3."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from mjvideo_tpu_torch.data.prompts import ByteTokenizer
+    from mjvideo_tpu_torch.models import cogvlm2
+    from mjvideo_tpu_torch.models.generate import _eos_pad
+
+    rank = dist.get_rank()
+    videos = ("video_0", "video_1")
+    sync = (lambda: None) if cpu else torch.cuda.synchronize  # noqa: E731
+    tiny = _tiny_judge_configs() if cpu else None
+    dtype = torch.float32 if cpu else torch.bfloat16
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def internvl(m):
+        if cpu:
+            from mjvideo_tpu_torch import init_chat_params
+
+            state = init_chat_params(tiny[0], generator=gen(), device=dev,
+                                     dtype=dtype, with_lm_head=True)
+            j = cs.make_judge(state=state, base=tiny[0], impl="auto",
+                              mesh=m)
+        else:
+            j = cs.make_judge(generator=gen(), device=dev, mesh=m)
+        j.tokenizer = cs.RecordingTokenizer(j.tokenizer)
+        return j, _eos_pad(j.cfg, j.tokenizer)[0]
+
+    def cog(m):
+        if cpu:
+            cfg = tiny[1]
+        else:
+            depth = cs.MESH_JUDGE_DEPTHS["cogvlm2"]
+            cfg = cs._cut_vision(cs.cut_text_depth(cogvlm2.CogVLM2Config(),
+                                                   depth[1]), depth[0])
+        state = cogvlm2.init_cogvlm2_params(cfg, generator=gen(),
+                                            device=dev, dtype=dtype)
+        j = cs.make_cog_judge(cfg, state,
+                              cs.RecordingTokenizer(ByteTokenizer()), mesh=m)
+        return j, cfg.eos_token_id
+
+    for name, make in (("internvl2-2b", internvl), ("cogvlm2", cog)):
+        judge, eos = make(mesh)
+        _reset_peak(dev, cpu)
+        dist.barrier()
+        rows, secs = cs._answer(judge, videos)
+        teacher = cs._teacher_of(rows, cs.MESH_FORCED_STEPS, eos, dev)
+        logits, step_ms = cs._timed_teacher(judge, videos, teacher)
+        sync()
+        readings = _all((secs, step_ms, _peak_gib(dev, cpu)))
+        del judge
+        if rank == 0:
+            one, _ = make(local)
+            lrows, lsecs = cs._answer(one, videos)
+            llogits, lstep = cs._timed_teacher(one, videos, teacher)
+            del one
+            card, _ = make(None)
+            _, csecs = cs._answer(card, videos)
+            _, cstep = cs._timed_teacher(card, videos, teacher)
+            del card
+            same_rows = rows == lrows
+            same_logits = bool(torch.equal(logits, llogits))
+            out[f"judge {name}"] = {
+                "tokens_bit_equal": same_rows,
+                "logits_bit_equal": same_logits,
+                "pair_s": [r[0] for r in readings],
+                "step_ms": [r[1] for r in readings],
+                "peak_gib": [r[2] for r in readings],
+                "local_pair_s": lsecs, "local_step_ms": lstep,
+                "one_card_pair_s": csecs, "one_card_step_ms": cstep}
+            print(f"judge {name}: {mesh} answers' tokens bit-equal to the "
+                  f"local mesh's {same_rows}, teacher-forced logits over "
+                  f"{teacher.shape[1]} steps bit-equal {same_logits}; a pair "
+                  f"(cold) {[round(r[0], 3) for r in readings]} s a process, "
+                  f"a decode step at B = 2 "
+                  f"{[round(r[1], 2) for r in readings]} ms; the local mesh "
+                  f"on one card {lsecs:.3f} s, {lstep:.2f} ms; unsharded on "
+                  f"one card {csecs:.3f} s, {cstep:.2f} ms; peak GiB a card "
+                  f"{[round(r[2], 2) for r in readings]}")
+            out["ok"] = out["ok"] and same_rows and same_logits
+        if not cpu:
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def worker(rank: int, world: int, port: int, cpu: bool,
+           checks=("scoring", "training", "judges")) -> int:
     from datetime import timedelta
 
     import torch
@@ -269,8 +395,8 @@ def worker(rank: int, world: int, port: int, cpu: bool) -> int:
     try:
         mesh = Mesh.distributed(world // 2, 2)
         local = Mesh.local(world // 2, 2)
-        scoring_check(mesh, local, dev, cpu, out)
-        training_check(mesh, local, dev, cpu, out)
+        for check in checks:
+            globals()[f"{check}_check"](mesh, local, dev, cpu, out)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -285,9 +411,11 @@ def main() -> int:
     ap.add_argument("--worker", type=int, default=None)
     ap.add_argument("--world", type=int, default=None)
     ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--checks", default="scoring,training,judges")
     args = ap.parse_args()
+    checks = tuple(args.checks.split(","))
     if args.worker is not None:
-        return worker(args.worker, args.world, args.port, args.cpu)
+        return worker(args.worker, args.world, args.port, args.cpu, checks)
 
     import torch
 
@@ -310,19 +438,25 @@ def main() -> int:
         print(f"mesh_multicard: needs an even number of processes, got "
               f"{world}", file=sys.stderr)
         return 1
-    port = _free_port()
-    cmd = [sys.executable, __file__, "--world", str(world), "--port",
-           str(port)] + (["--cpu"] if args.cpu else [])
-    procs = [subprocess.Popen(cmd + ["--worker", str(r)],
-                              stdout=subprocess.PIPE if r else None,
-                              stderr=subprocess.PIPE if r else None, text=True)
-             for r in range(world)]
+    launches = [(world, checks)]
+    if world > 2 and "judges" in checks:
+        launches.append((2, ("judges",)))
     rcs = []
-    for r, p in enumerate(procs):
-        _, err = p.communicate(timeout=1500)
-        rcs.append(p.returncode)
-        if p.returncode and err:
-            print(f"process {r}:\n{err[-4000:]}", file=sys.stderr)
+    for n, which in launches:
+        port = _free_port()
+        cmd = [sys.executable, __file__, "--world", str(n), "--port",
+               str(port), "--checks", ",".join(which)] + (
+                   ["--cpu"] if args.cpu else [])
+        procs = [subprocess.Popen(cmd + ["--worker", str(r)],
+                                  stdout=subprocess.PIPE if r else None,
+                                  stderr=subprocess.PIPE if r else None,
+                                  text=True)
+                 for r in range(n)]
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=1500)
+            rcs.append(p.returncode)
+            if p.returncode and err:
+                print(f"process {r}:\n{err[-4000:]}", file=sys.stderr)
     print(f"process exit codes {rcs}")
     return 0 if not any(rcs) else 1
 

@@ -8,13 +8,14 @@ instantiations' ptxas registers and spills (a spill or a missing
 instantiation is printed, not raised, so that the phase still runs),
 then runs ``chip_smoke.cogvlm2_phase``: K3 not causal at D = 112 against
 its twin at a video's (8, 257, 16, 112) and at whole tiles, timed in turns
-with SDPA and the twin; ``CogVLM2Judge`` at full dims (19.49 B parameters
-in bf16) by both paths, the tower and the teacher-forced logits against
-fp32 plain on the same state; and the judge's CLI on a small-depth
-directory, each failure raising as in ``chip_smoke.py``.  ``--seeds``
-first reads ``chip_smoke.cogvlm2_fidelity`` at each seed given, the
-weights and the videos drawn from it, and holds nothing there (seed 0 is
-the phase's own draw).  ``--out`` writes the readings and the launch
+with SDPA and the twin; ``CogVLM2Judge`` at full width, its decoder
+``chip_smoke.COG_LLM_DEPTH`` of 32 layers deep, by both paths, the tower
+and the teacher-forced logits against fp32 plain on the same state; and
+the judge's CLI on a small-depth directory, each failure raising as in
+``chip_smoke.py``.  ``--seeds`` first reads ``chip_smoke.cogvlm2_fidelity``
+at full dims (all 32 decoder layers, 19.49 B parameters in bf16) at each
+seed given, the weights and the videos drawn from it, and holds nothing
+there.  ``--out`` writes the readings and the launch
 counts as JSON.
 """
 

@@ -59,8 +59,9 @@ def main() -> int:
     lm, cfg = judge.params["language_model"], judge.cfg
 
     def prefill():
-        return gen._prefill(judge.params, cfg, ids, mask, gc.max_new_tokens,
-                            None, vis, "auto", False)
+        embeds = gen._embed(judge.params, cfg, ids, None, vis, "auto")
+        return gen._prefill(judge.params, cfg, embeds, ids, mask,
+                            gc.max_new_tokens, "auto", False)
 
     def decode(state):
         logits, cache, cmask, start = state
