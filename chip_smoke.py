@@ -604,7 +604,8 @@ Phases (any failure raises and exits non-zero):
    decoders' rank heads (8/4, 14/2, 24/4, 16/4) at the pair prefill and
    the suffix continuation, K2r with its pre-pass at 8/4 over a prefix,
    K5 at the 2B's projections cut over 2 ranks and its whole LM head.
-   (b) The InternVL2-2B judge at all 24 layers at ``local(1, 2)`` and
+   (b) The InternVL2-2B judge (MESH_2B_LLM_DEPTH of its 24 decoder
+   layers) at ``local(1, 2)`` and
    ``(2, 2)`` with the dense and the int8 KV cache, and ``int4-wo`` at
    ``(1, 2)``; (c) MiniCPM-V-2.6, CogVLM2-Video, Qwen2-VL-2B (each by the
    prefix path) and VideoScore (split frames, K1m) at ``(1, 2)``, at full
@@ -616,6 +617,31 @@ Phases (any failure raises and exits non-zero):
    teacher-forced logits over MESH_FORCED_STEPS against fp32 plain
    (LOGITS_REL_TOL) and against the unsharded run, a pair's seconds and a
    decode step's ms beside the unsharded judge's.
+35. The w8a8 serving modes and LoRA under the model axis on one card
+   (nothing caught; ``tools/phase35_torch.py`` runs it alone).  (a) After
+   phase 33 (b), on phase 4's state: K6 at each product shape a model rank
+   of 2 runs under ``int8-noattn-g128`` (K6_RANK_SHAPES) bit-equal to its
+   twin, with its bound; then phase 4's pair through ``RewardScorer(quant=
+   mode, mesh=local(d, 2))`` for each SCORE_QUANT_MODES mode at
+   MESH_W8A8, on the tree phase 11 quantized: every ViT and decoder pair
+   split, launches exact (K6: a rank's 4 a ViT layer and 3 a decoder MLP,
+   the projector's 2, a forward a data shard), the scores within
+   QUANT_SCORE_TOL of the tree through the plain path in fp32 and within
+   SCORE_TOL of phase 11's unsharded quantized pair, or of the unsharded
+   pair's own distance from fp32 plain where that is larger (the delta
+   printed beside phase 33 (a)'s bf16 one at ``local(1, 2)``), ms a pair
+   beside the unsharded mode's.  (b) After phase 34, at full width and
+   LORA_MESH_DEPTH: LoRA at LORA_RANK from a nonzero ``b`` at ``local(2,
+   2)`` with ZeRO-1, LORA_MESH_STEPS micro-steps on phase 33's batches:
+   the first micro-step's loss and gradient against the unsharded LoRA
+   trainer's and its gradient against fp32 plain autograd under F5's rule,
+   launches exact, 2 optimizer steps, each rank's optimizer bytes; QLoRA
+   (QLORA_MESH_MODE) at ``local(1, 2)``, its int4 row members repacked per
+   rank, against the unsharded QLoRA trainer; a ZeRO-1 LoRA run at (2, 2)
+   on a 2 + 2-layer state saved mid-window, resumed by an unsharded
+   trainer into the same whole state, bit for bit.  (c) The 2B judge at
+   W8A8_JUDGE_DEPTH under ``int8`` at ``local(1, 2)`` with the dense and
+   the int8 KV cache, by phase 34's reading.  Prints its command time.
 """
 
 from __future__ import annotations
@@ -2689,6 +2715,8 @@ def quant_scoring_phase(scorer, requests, fp32_scores, dev):
             raise RuntimeError(f"{mode}: score delta {delta} >= "
                                f"{QUANT_SCORE_TOL}")
         readings[mode] = {
+            "pair_scores": scores[-2:].tolist(),
+            "plain_pair_scores": ref[-2:].tolist(),
             "nodes": nodes, "quantize_s": quant_s,
             "quantize_peak_gib": quant_peak / 2**30,
             "tree_gib": tree / 2**30, "bf16_state_gib": base / 2**30,
@@ -8542,13 +8570,14 @@ def mesh_phase_tail(dev, generator):
 # distance there), and its teacher-forced logits over the first
 # MESH_FORCED_STEPS of the unsharded tokens against fp32 plain
 # (LOGITS_REL_TOL of max|logit|) and against the unsharded run.  The
-# InternVL2-2B judge runs at all 24 of its decoder layers; the other
-# judges at full width with their depths cut (MESH_JUDGE_DEPTHS) for the
-# script's time limit.
+# InternVL2-2B judge runs its whole tower and MESH_2B_LLM_DEPTH of its 24
+# decoder layers; the other judges at full width with their depths cut
+# (MESH_JUDGE_DEPTHS) for the script's time limit.
 MESH_JUDGE_2B = (((1, 2), False), ((1, 2), True), ((2, 2), False),
                  ((2, 2), True))  # ((data, model), the int8 KV cache)
 MESH_JUDGE_QUANT = "int4-wo"      # at local(1, 2)
 MESH_FORCED_STEPS = 8
+MESH_2B_LLM_DEPTH = 12            # of the 2B judge's 24 decoder layers
 MESH_26B_TOWER = 5                # the 6B tower's 25 heads over 5 ranks
 # (vision tower layers, decoder layers) of each judge; VideoScore's
 # perceiver keeps its 3 layers.
@@ -8719,7 +8748,8 @@ def _first_parting(rows, ref_rows):
     return None
 
 
-def mesh_judge_reading(label, judge, unsharded, ref, videos, eos, want):
+def mesh_judge_reading(label, judge, unsharded, ref, videos, eos, want,
+                       phase="phase 34"):
     """One meshed judge against its unsharded twin (``ref``,
     ``mesh_judge_reference``'s): its answer by the prefix path with the
     launches held to ``want`` (kernel -> count, names not given 0; or a
@@ -8729,18 +8759,19 @@ def mesh_judge_reading(label, judge, unsharded, ref, videos, eos, want):
     Where they part, the unsharded run's top-two gap at that step is read
     beside the two runs' max|logit delta| there; a flip needs the two top
     logits to move by the gap together, so it raises where the gap exceeds
-    twice the delta.  Returns the reading and the launches."""
+    twice the delta.  ``phase`` names the phase in what it prints.
+    Returns the reading and the launches."""
     import torch
 
     from mjvideo_tpu_torch import kernels
 
     kernels.reset_launch_counts()
     rows, secs = _answer(judge, videos)
-    launches = _held_launches(f"phase 34 {label}",
+    launches = _held_launches(f"{phase} {label}",
                               want(rows) if callable(want) else want)
     logits, step_ms = _timed_teacher(judge, videos, ref["teacher"])
     if not bool(logits.isfinite().all()):
-        raise RuntimeError(f"phase 34 {label}: non-finite logits")
+        raise RuntimeError(f"{phase} {label}: non-finite logits")
     rel = _rel_err(logits, ref["plain"])[1]
     dist, dist_rel = _rel_err(logits, ref["logits"])
     part = _first_parting(rows, ref["rows"])
@@ -8766,16 +8797,16 @@ def mesh_judge_reading(label, judge, unsharded, ref, videos, eos, want):
                 f"{s}: its top-two gap there {gap:.4e}, the logit delta "
                 f"{delta:.4e}")
         if gap > 2 * delta:
-            raise RuntimeError(f"phase 34 {label}: {text} (a gap over "
+            raise RuntimeError(f"{phase} {label}: {text} (a gap over "
                                "twice the delta)")
-    print(f"phase 34 {label}: {text}; teacher-forced logits over "
+    print(f"{phase} {label}: {text}; teacher-forced logits over "
           f"{MESH_FORCED_STEPS} steps {rel:.4e} of max|fp32 plain logit| "
           f"(bound {LOGITS_REL_TOL:.1e}), max|delta| against the unsharded "
           f"run {dist:.4e} ({dist_rel:.4e}); a pair {secs:.3f} s cold "
           f"(unsharded {ref['pair_s']:.3f} s), a decode step at B = 2 "
           f"{step_ms:.2f} ms (unsharded {ref['step_ms']:.2f} ms)")
     if not rel <= LOGITS_REL_TOL:
-        raise RuntimeError(f"phase 34 {label}: logits {rel} of max|fp32 "
+        raise RuntimeError(f"{phase} {label}: logits {rel} of max|fp32 "
                            f"plain| > {LOGITS_REL_TOL}")
     return reading, launches
 
@@ -8786,25 +8817,31 @@ def _split_layers(plan, *keys):
 
 
 def internvl2b_mesh_phase(dev, generator):
-    """Phase 34 (b): the InternVL2-2B judge (phase 9's state: the same
-    seed) at all 24 decoder layers on ``local(1, 2)`` and ``(2, 2)`` with
-    the dense and the int8 KV cache, and ``int4-wo`` at ``(1, 2)``.  Every
-    pair of the 2B splits at model 2 (16 ViT heads, 8 kv heads; the
-    92,553-row vocabulary stays whole).  Returns the readings and the
-    launches."""
+    """Phase 34 (b): the InternVL2-2B judge (phase 9's seed) with its
+    whole tower and MESH_2B_LLM_DEPTH decoder layers on ``local(1, 2)`` and
+    ``(2, 2)`` with the dense and the int8 KV cache, and ``int4-wo`` at
+    ``(1, 2)``.  Every pair of the 2B splits at model 2 (16 ViT heads, 8
+    kv heads; the 92,553-row vocabulary stays whole).  Returns the
+    readings and the launches."""
+    import dataclasses
     import gc
 
     import torch
 
+    from mjvideo_tpu_torch import internvl2_2b_chat_config
     from mjvideo_tpu_torch.models.generate import _eos_pad
     from mjvideo_tpu_torch.parallel.mesh import Mesh, split_plan
 
     videos = ("video_0", "video_1")
-    state = make_judge(generator=generator(), device=dev).params
+    chat_cfg = internvl2_2b_chat_config()
+    chat_cfg = dataclasses.replace(chat_cfg, llm=dataclasses.replace(
+        chat_cfg.llm, num_hidden_layers=MESH_2B_LLM_DEPTH))
+    state = make_judge(generator=generator(), device=dev,
+                       base=chat_cfg).params
 
     def judge_of(params, mesh=None, kv_quant=False, quant=None):
         j = make_judge(state=params, mesh=mesh, kv_quant=kv_quant,
-                       quant=quant)
+                       quant=quant, base=chat_cfg)
         j.tokenizer = RecordingTokenizer(j.tokenizer)
         return j
 
@@ -9103,11 +9140,498 @@ def judges_mesh_phase(dev, generator, drawer):
     return out, k34, launches
 
 
+# Phase 35: the w8a8 serving modes and LoRA under the model axis
+# (``parallel/mesh.py``'s ``split_plan`` of quantized and LoRA nodes and
+# ``row_dot_over_model``) on one card, every shard in this process
+# (``Mesh.local``).  (a) scores phase 4's pair on phase 4's state in each
+# SCORE_QUANT_MODES mode at MESH_W8A8, against phase 11's unsharded scores
+# of the same quantized tree and its fp32 plain ones, with K6 at each rank's
+# shapes against its twin; (b) trains LoRA at local(2, 2) with ZeRO-1 on
+# phase 31's pairs merged two a batch (phase 33's batches) and QLoRA
+# (int4-wo) at local(1, 2), and saves a LoRA run at (2, 2) that an
+# unsharded trainer resumes; (c) runs the 2B judge under int8 at (1, 2).
+MESH_W8A8 = ((1, 2), (2, 2))
+# K6 at the 2B's grouped w8a8 products cut over 2 model ranks, (M, K, N) at
+# g 128: the ViT's qkv (by heads) and fc1 (by columns) and its proj and fc2
+# (by groups of rows) over the pair's 16 tiles of 1,025 tokens; the
+# decoder's w1/w3 (by columns) and w2 (by groups of rows) over the pair in
+# the 3,072 bucket.
+K6_RANK_SHAPES = ((16400, 1024, 1536), (16400, 512, 1024),
+                  (16400, 1024, 2048), (16400, 2048, 1024),
+                  (6144, 2048, 4096), (6144, 4096, 2048))
+# (ViT, decoder) layers of (b)'s trainers and (vision, decoder) layers of
+# (c)'s judge, at full width: cut for the script's time limit.
+LORA_MESH_DEPTH = (8, 8)
+W8A8_JUDGE_DEPTH = (8, 8)
+LORA_MESH_STEPS = 4        # 2 optimizer steps at accumulation 2
+QLORA_MESH_MODE = "int4-wo"
+
+
+def check_k6_rank_shapes(randn):
+    """K6 at K6_RANK_SHAPES against its twin, bit for bit, with its bound
+    (bytes at HBM_BYTES_PER_S, int8 operations at INT8_OPS_PER_S).  Returns
+    the readings by shape."""
+    import torch
+
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import quant as q8
+
+    out = {}
+    for M, K, N in K6_RANK_SHAPES:
+        x = randn(M, K)
+        qk = q8.quantize_kernel(randn(K, N).float() * 0.02,
+                                group_size=Q8G_GROUP)
+        o = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        out[M, K, N] = _check_kernel(
+            f"phase 35 K6 q8g_matmul_fused at a model rank's {(M, K, N)} g "
+            f"{Q8G_GROUP}",
+            lambda: kernels.q8g_matmul_fused(x, qk.q, qk.scale,
+                                             torch.bfloat16),
+            lambda: q8.q8g_matmul_fused_plain(x, qk.q, qk.scale,
+                                              torch.bfloat16),
+            extra=_bit_equal(("out",)),
+            work=(_nbytes(x, qk.q, qk.scale, o), 2 * M * K * N,
+                  INT8_OPS_PER_S))
+        del x, qk, o
+    return out
+
+
+def w8a8_scoring_refs(scorer, pair):
+    """Phase 11's readings of the pair for each SCORE_QUANT_MODES mode
+    (for a run without phase 11): the unsharded quantized scorer's scores
+    and ms a pair, and the same tree's through the plain path in fp32."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer
+
+    refs = {}
+    for mode in SCORE_QUANT_MODES:
+        one = RewardScorer(scorer.cfg, scorer.params, scorer.tokenizer,
+                           dtype=torch.bfloat16,
+                           gating_pattern=scorer.gating_pattern, quant=mode)
+        got = one.score_batch(*pair).score.float().cpu()
+        ms = _host_ms(lambda: one.score_batch(*pair), reps=3)
+        plain = RewardScorer(scorer.cfg, _float_plain(one.params),
+                             scorer.tokenizer, dtype=torch.float32,
+                             gating_pattern=scorer.gating_pattern,
+                             attn_impl="plain")
+        refs[mode] = {"pair_scores": got.tolist(), "pair_ms": ms,
+                      "plain_pair_scores":
+                      plain.score_batch(*pair).score.float().cpu().tolist()}
+        del one, plain
+        torch.cuda.empty_cache()
+    return refs
+
+
+def w8a8_mesh_scoring_phase(scorer, pair, refs, randn, bf16_delta=None):
+    """Phase 35 (a): K6 at the rank shapes (``check_k6_rank_shapes``), then
+    phase 4's pair through ``RewardScorer(quant=mode, mesh=local(d, 2))``
+    for each SCORE_QUANT_MODES mode and MESH_W8A8 mesh, on the tree phase
+    11 quantized (the same state and mode: the same tree): every pair of
+    the ViT and the decoder split; the launches exact (K6 a rank's 4 a ViT
+    layer and 3 a decoder MLP under -noattn, the projector's 2 whole, a
+    forward a data shard); the scores within QUANT_SCORE_TOL of the tree
+    through the plain path in fp32, and within SCORE_TOL of the unsharded
+    quantized pair (``refs``, phase 11's) or, where larger, the unsharded
+    pair's own distance from fp32 plain: an ulp that a split row product
+    sums otherwise can move an activation across a half step of its
+    run-time quantization, so two bf16 runs part by up to the quantization
+    noise (int8-noattn-g128 at local(1, 2) read 1.166e-2 on an H100 80GB
+    HBM3 at 700 W, its unsharded pair 2.234e-2 from fp32 plain);
+    the delta printed beside phase 33 (a)'s bf16 delta at local(1, 2)
+    (``bf16_delta``); ms a pair beside the unsharded mode's.  Returns the readings, K6's readings and the
+    launch counts by path."""
+    import torch
+
+    from mjvideo_tpu_torch import RewardScorer, kernels
+    from mjvideo_tpu_torch.ops.quant import quantize_params_mode
+    from mjvideo_tpu_torch.parallel.mesh import Mesh, split_plan
+
+    t0 = time.perf_counter()
+    k6 = check_k6_rank_shapes(randn)
+    out, launches = {"k6_checks_s": time.perf_counter() - t0}, {}
+    cfg = scorer.cfg
+    L_vit = cfg.chat.vision.num_hidden_layers
+    L_llm = cfg.chat.llm.num_hidden_layers
+    for mode in SCORE_QUANT_MODES:
+        tree = quantize_params_mode(scorer.params, mode)
+        split = _split_layers(split_plan(tree, MESH_TP, cfg),
+                              "vision_model/layers/attn/",
+                              "vision_model/layers/mlp/",
+                              "language_model/layers/feed_forward/",
+                              "language_model/layers/attention/")
+        if not all(split.values()):
+            raise RuntimeError(f"phase 35 (a) {mode}: pairs kept whole "
+                               f"{split}")
+        ref = torch.tensor(refs[mode]["pair_scores"])
+        plain = torch.tensor(refs[mode]["plain_pair_scores"])
+        # Two bf16 runs of a w8a8 tree part wherever an activation
+        # straddles a half step of its run-time quantization: by up to the
+        # quantization noise that parts either from fp32 plain.
+        noise = (ref - plain).abs().max().item()
+        bar = max(SCORE_TOL, noise)
+        out[mode] = {"split": split, "unsharded_scores": ref.tolist(),
+                     "unsharded_ms": refs[mode]["pair_ms"],
+                     "fp32_plain_scores": plain.tolist(),
+                     "unsharded_delta_vs_fp32_plain": noise,
+                     "delta_bar": bar}
+        for data, model in MESH_W8A8:
+            label = f"{mode} local({data}, {model})"
+            sc = RewardScorer(cfg, tree, scorer.tokenizer, dtype=scorer.dtype,
+                              quant=mode, length_buckets=scorer.buckets,
+                              gating_pattern=scorer.gating_pattern,
+                              mesh=Mesh.local(data, model))
+            sc.score_batch(*pair)  # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = sc.score_batch(*pair).score.float().cpu()
+            torch.cuda.synchronize()
+            want = {"vit_attention": L_vit * data * model,
+                    "decoder_attention": L_llm * data * model}
+            if "-g" in mode:
+                want["q8g_matmul_fused"] = data * (4 * model * L_vit + 2
+                                                   + 3 * model * L_llm)
+                want["q8g_quantize"] = want["q8g_matmul_fused"]
+            counts = _held_launches(f"phase 35 (a) {label}",
+                                    _with_prepass(want))
+            ms = _host_ms(lambda: sc.score_batch(*pair), reps=3)
+            del sc
+            delta = (got - ref).abs().max().item()
+            vs_plain = (got - plain).abs().max().item()
+            beside = ("" if bf16_delta is None else
+                      f" (phase 33 (a)'s bf16 pair at local(1, 2): "
+                      f"{bf16_delta:.3e})")
+            print(f"phase 35 (a) {label}: pair scores {got.tolist()}; "
+                  f"against the unsharded {mode} pair {ref.tolist()} "
+                  f"|delta| {delta:.3e} (bound {bar:.3e}: SCORE_TOL or the "
+                  f"unsharded pair's {noise:.3e} from fp32 plain, the "
+                  f"larger){beside}; against the tree through the plain path "
+                  f"in fp32 {plain.tolist()} |delta| {vs_plain:.3e} (bound "
+                  f"{QUANT_SCORE_TOL}); {ms:.1f} ms a pair request "
+                  f"(unsharded {refs[mode]['pair_ms']:.1f} ms)")
+            if not (delta <= bar and vs_plain < QUANT_SCORE_TOL):
+                raise RuntimeError(f"phase 35 (a) {label}: score delta "
+                                   f"{delta}, against fp32 plain {vs_plain}")
+            out[mode][f"local({data}, {model})"] = {
+                "scores": got.tolist(), "delta": delta,
+                "delta_vs_fp32_plain": vs_plain, "ms": ms}
+            launches[f"mesh_w8a8 {label}"] = counts
+        del tree
+        torch.cuda.empty_cache()
+    out["bf16_delta_local_1x2"] = bf16_delta
+    return out, k6, launches
+
+
+def _lora_start(cfg, dev, generator, quant=None):
+    """(b)'s start: bf16 weights (quantized by ``quant`` where given),
+    wrapped at LORA_RANK, every ``b`` drawn N(0, LORA_B_STD^2) from a
+    generator of its own, so that every adapter has a gradient."""
+    import torch
+
+    from mjvideo_tpu_torch import init_reward_params
+    from mjvideo_tpu_torch.ops.lora import apply_lora
+    from mjvideo_tpu_torch.ops.quant import quantize_params_mode
+    from mjvideo_tpu_torch.train.trainer import flatten_state
+
+    params = init_reward_params(cfg, generator=generator(), device=dev,
+                                dtype=torch.bfloat16)
+    if quant is not None:
+        params = quantize_params_mode(params, quant)
+    params = apply_lora(params, torch.Generator(device=dev).manual_seed(
+        LORA_RANK), LORA_RANK)
+    g = torch.Generator(device=dev).manual_seed(SEED + 35)
+    with torch.no_grad():
+        for path, t in flatten_state(params).items():
+            if path.endswith("/.b"):
+                t.copy_(LORA_B_STD * torch.randn(t.shape, generator=g,
+                                                 device=dev))
+    return params
+
+
+def lora_mesh_phase(dev, generator, d):
+    """Phase 35 (b) at LORA_MESH_DEPTH: LoRA at LORA_RANK from
+    ``_lora_start``, stage 3 (phase 5's config), LORA_MESH_STEPS
+    micro-steps at ``local(2, 2)`` with ZeRO-1 on phase 33's batches (phase
+    31's pairs, two a batch): the first micro-step's loss and adapter and
+    head gradients against the unsharded LoRA trainer's (FIDELITY_REL_L2,
+    FIDELITY_COS; the loss by OPT_LOSS_REL_TOL) and against fp32 plain
+    autograd under F5's rule (``_fidelity_held``, bf16 plain's reading the
+    floor), the launches exact, the optimizer stepping once per 2
+    micro-steps, each rank's optimizer bytes beside the unsharded LoRA
+    state's; then QLoRA (QLORA_MESH_MODE) at ``local(1, 2)``, its int4 row
+    members repacked per rank, 2 micro-steps, the first's loss and
+    gradient against the unsharded QLoRA trainer's; then a ZeRO-1 LoRA run
+    at (2, 2) on a 2 + 2-layer state saved mid-window, which an unsharded
+    trainer resumes into the same whole state, bit for bit.  Returns the
+    readings and the launch counts by path."""
+    from dataclasses import replace
+
+    import torch
+
+    from mjvideo_tpu_torch import kernels, map_state
+    from mjvideo_tpu_torch.parallel.mesh import Mesh
+    from mjvideo_tpu_torch.train.trainer import (
+        Trainer,
+        flatten_state,
+        state_bytes,
+    )
+
+    cfg, batches = mesh_train_data()
+    cfg = cut_depth(cfg, *LORA_MESH_DEPTH)
+    out, launches, clock = {}, {}, {}
+
+    def tc(sub, **kw):
+        return replace(train_config(os.path.join(d, sub)),
+                       lora_rank=LORA_RANK, **kw)
+
+    def grads(tr):
+        """A copy of the accumulator (after one micro-step: its gradient)
+        by path: the optimizer zeroes its buffers when it steps."""
+        return [g.detach().clone() for g in _acc_grads(tr)]
+
+    def first_step(tr):
+        """One micro-step: (loss, the gradient by path)."""
+        loss = tr.train(batches[:1])["loss"]
+        return loss, grads(tr)
+
+    start = time.perf_counter()
+    one = Trainer(cfg, _lora_start(cfg, dev, generator), tc("one"))
+    loss_one, g_one = first_step(one)
+    paths = one.optimizer.paths
+    one_bytes = state_bytes({k: v for k, v in one.opt_state.items()
+                             if k != "acc"})
+    del one
+    torch.cuda.empty_cache()
+    params = _lora_start(cfg, dev, generator)
+    loss_b, g_b = trainable_grads(cfg, tc("plain"), params, paths,
+                                  batches[0], "plain", torch.bfloat16, dev)
+    p32 = map_state(lambda t: t.detach().float(), params)
+    loss_p, g_p = trainable_grads(cfg, tc("plain"), p32, paths, batches[0],
+                                  "plain", torch.float32, dev)
+    del params, p32
+    torch.cuda.empty_cache()
+    floor = _agreement(g_b, g_p)[:2]
+    del g_b
+    clock["references"] = time.perf_counter() - start
+
+    start = time.perf_counter()
+    mesh = Mesh.local(2, 2)
+    tr = Trainer(cfg, _lora_start(cfg, dev, generator), tc(
+        "mesh", zero1=True), mesh=mesh)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses = []
+    for i, b in enumerate(batches[:LORA_MESH_STEPS]):
+        losses.append(tr.train([b])["loss"])
+        if i == 0:
+            got = grads(tr)
+    torch.cuda.synchronize()
+    per_video = _with_prepass({
+        "vit_attention": cfg.chat.vision.num_hidden_layers,
+        "decoder_attention": 2 * cfg.chat.llm.num_hidden_layers,
+        "decoder_attention_lse": 2 * cfg.chat.llm.num_hidden_layers,
+        "decoder_attention_bwd_dkdv": cfg.chat.llm.num_hidden_layers,
+        "decoder_attention_bwd_dq": cfg.chat.llm.num_hidden_layers})
+    launches["mesh_lora 2x2 zero1"] = _held_launches(
+        "phase 35 (b) LoRA at local(2, 2) with ZeRO-1",
+        {k: 2 * LORA_MESH_STEPS * mesh.data * mesh.model * n
+         for k, n in per_video.items()})
+    rel, cos, _ = _agreement(got, g_one)
+    loss_rel = abs(losses[0] - loss_one) / abs(loss_one)
+    rel_p, cos_p, _ = _agreement(got, g_p)
+    del got, g_one, g_p
+    ranks = {f"{dr},{mr}": n / 2**30 for (dr, mr), n in
+             tr.optimizer.rank_bytes(tr.opt_state).items()}
+    steps = tr.opt_state["gradient_step"]
+    clock["mesh"] = time.perf_counter() - start
+    print(f"phase 35 (b) LoRA (rank {LORA_RANK}) at local(2, 2) with ZeRO-1, "
+          f"{LORA_MESH_DEPTH} (ViT, decoder) layers: losses "
+          f"{[round(x, 6) for x in losses]}; the first micro-step's loss "
+          f"against the unsharded LoRA trainer's {loss_one:.6f} (relative "
+          f"{loss_rel:.3e}, bound {OPT_LOSS_REL_TOL}), its gradient relative "
+          f"L2 {rel:.4e} (bound {FIDELITY_REL_L2}), cosine {cos:.6f} (bound "
+          f"{FIDELITY_COS}); against fp32 plain ({loss_p:.6f}) relative L2 "
+          f"{rel_p:.4e}, cosine {cos_p:.6f} (bf16 plain's {floor[0]:.4e}, "
+          f"{floor[1]:.6f}); optimizer GiB by (data, model) rank {ranks} "
+          f"(the unsharded LoRA state {one_bytes / 2**30:.4f} GiB without "
+          f"its accumulator); {steps} optimizer steps")
+    if not (loss_rel <= OPT_LOSS_REL_TOL and rel <= FIDELITY_REL_L2
+            and cos >= FIDELITY_COS and steps == LORA_MESH_STEPS // 2):
+        raise RuntimeError(f"phase 35 (b): loss {loss_rel}, gradient {rel}, "
+                           f"{cos}, optimizer steps {steps}")
+    verdict = _fidelity_held("phase 35 (b) LoRA at local(2, 2) against fp32 "
+                             "plain", rel_p, cos_p, floor=floor)
+    out["lora"] = {"losses": losses, "loss_unsharded": loss_one,
+                   "loss_rel": loss_rel, "rel_l2": rel, "cos": cos,
+                   "vs_fp32_plain": {"rel_l2": rel_p, "cos": cos_p,
+                                     **verdict},
+                   "bf16_plain_vs_fp32_plain": {"rel_l2": floor[0],
+                                                "cos": floor[1]},
+                   "loss_fp32_plain": loss_p, "loss_bf16_plain": loss_b,
+                   "rank_state_gib": ranks,
+                   "unsharded_state_gib": one_bytes / 2**30}
+    del tr
+    torch.cuda.empty_cache()
+
+    start = time.perf_counter()
+    runs = {}
+    for m in (None, Mesh.local(1, 2)):
+        tq = Trainer(cfg, _lora_start(cfg, dev, generator,
+                                      quant=QLORA_MESH_MODE),
+                     tc("qlora_mesh" if m else "qlora_one"), mesh=m)
+        runs[m] = first_step(tq)
+        if m is not None:
+            repacked = sum(p.endswith("/.w/.packed") for p in tq.plan)
+            tq.train(batches[1:2])
+            qsteps = tq.opt_state["gradient_step"]
+        del tq
+        torch.cuda.empty_cache()
+    (ql_one, qg_one), (ql, qg) = runs.values()
+    qrel, qcos, _ = _agreement(qg, qg_one)
+    qloss = abs(ql - ql_one) / abs(ql_one)
+    del runs, qg, qg_one
+    clock["qlora"] = time.perf_counter() - start
+    print(f"phase 35 (b) QLoRA {QLORA_MESH_MODE} at local(1, 2): "
+          f"{repacked} int4 fields split; the first micro-step's loss "
+          f"{ql:.6f} against the unsharded QLoRA trainer's {ql_one:.6f} "
+          f"(relative {qloss:.3e}), its gradient relative L2 {qrel:.4e}, "
+          f"cosine {qcos:.6f}; {qsteps} optimizer step after 2")
+    if not (repacked and qloss <= OPT_LOSS_REL_TOL and qrel <= FIDELITY_REL_L2
+            and qcos >= FIDELITY_COS and qsteps == 1):
+        raise RuntimeError(f"phase 35 (b) QLoRA: {repacked} split, loss "
+                           f"{qloss}, gradient {qrel}, {qcos}")
+    out["qlora"] = {"mode": QLORA_MESH_MODE, "int4_fields_split": repacked,
+                    "loss": ql, "loss_unsharded": ql_one, "loss_rel": qloss,
+                    "rel_l2": qrel, "cos": qcos}
+
+    start = time.perf_counter()
+    small = cut_depth(cfg, *ASYNC_DEPTH)
+    saved = Trainer(small, _lora_start(small, dev, generator), tc(
+        "resume", zero1=True), mesh=mesh)
+    saved.train(batches[:3])  # one optimizer step and one mid-window
+    path = saved.save()
+    whole = {f"params/{k}": v for k, v in
+             flatten_state(saved.whole_params()).items()}
+    whole.update({f"opt/{k}": v for k, v in
+                  flatten_state(saved.whole_opt_state()).items()})
+    del saved
+    back = Trainer(small, _lora_start(small, dev, generator), tc("resume"))
+    got_path = back.resume_latest()
+    mine = {f"params/{k}": v for k, v in flatten_state(back.params).items()}
+    mine.update({f"opt/{k}": v for k, v in
+                 flatten_state(back.whole_opt_state()).items()})
+    same = (got_path == path and mine.keys() == whole.keys() and all(
+        torch.equal(v, whole[k]) if torch.is_tensor(v) else v == whole[k]
+        for k, v in mine.items()))
+    back.train(batches[3:4])
+    clock["resume"] = time.perf_counter() - start
+    print(f"phase 35 (b): a LoRA run at local(2, 2) with ZeRO-1 at "
+          f"{ASYNC_DEPTH} (ViT, decoder) layers saved after 3 micro-steps "
+          f"({os.path.basename(path)}), resumed by an unsharded trainer: "
+          f"its parameters and optimizer state bit-equal to the meshed "
+          f"run's whole state: {same}; seconds by part "
+          f"{({k: round(v, 1) for k, v in clock.items()})}")
+    if not same:
+        raise RuntimeError("phase 35 (b): the unsharded resume differs")
+    out["resume_bit_equal"] = same
+    out["seconds_by_part"] = clock
+    del back, whole, mine
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def w8a8_judge_mesh_phase(dev, generator):
+    """Phase 35 (c): the 2B judge at W8A8_JUDGE_DEPTH (full width) under
+    ``int8``, unsharded and at ``local(1, 2)`` with the dense and the int8
+    KV cache, by phase 34's reading (``mesh_judge_reading``): tokens
+    against the unsharded int8 answer, teacher-forced logits within
+    LOGITS_REL_TOL of max|fp32 plain| (the int8 tree through the plain path
+    in fp32), launches exact.  Every pair of the ViT and the decoder
+    splits, its row members' pieces ``RowsQuantKernel``s.  Returns the
+    readings and the launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from mjvideo_tpu_torch import internvl2_2b_chat_config
+    from mjvideo_tpu_torch.models.generate import _eos_pad
+    from mjvideo_tpu_torch.parallel.mesh import Mesh, split_plan
+
+    videos = ("video_0", "video_1")
+    base = internvl2_2b_chat_config()
+    base = dataclasses.replace(
+        base, vision=dataclasses.replace(
+            base.vision, num_hidden_layers=W8A8_JUDGE_DEPTH[0]),
+        llm=dataclasses.replace(base.llm,
+                                num_hidden_layers=W8A8_JUDGE_DEPTH[1]))
+
+    def judge_of(params, mesh=None, kv_quant=False, quant=None):
+        j = make_judge(state=params, mesh=mesh, kv_quant=kv_quant,
+                       quant=quant, base=base)
+        j.tokenizer = RecordingTokenizer(j.tokenizer)
+        return j
+
+    state = make_judge(generator=generator(), device=dev, base=base).params
+    one = judge_of(state, quant="int8")
+    tree, cfg = one.params, one.cfg
+    eos = _eos_pad(cfg, one.tokenizer)[0]
+    del one, state
+    split = _split_layers(split_plan(tree, MESH_TP, cfg),
+                          "vision_model/layers/attn/",
+                          "language_model/layers/attention/",
+                          "language_model/layers/feed_forward/")
+    if not all(split.values()):
+        raise RuntimeError(f"phase 35 (c): pairs kept whole {split}")
+    out, launches = {"split": split, "depth": W8A8_JUDGE_DEPTH}, {}
+    fp32 = _float_plain(tree)
+    L_vit, L_llm = W8A8_JUDGE_DEPTH
+    for kv_quant in (False, True):
+        ref = mesh_judge_reference(judge_of(tree, kv_quant=kv_quant),
+                                   judge_of(fp32, kv_quant=kv_quant),
+                                   videos, eos)
+        unsharded = judge_of(tree, kv_quant=kv_quant)
+        label = "internvl2-2b int8 local(1, 2)" + (
+            " int8 cache" if kv_quant else "")
+        judge = judge_of(tree, Mesh.local(1, 2), kv_quant)
+        want = _with_prepass({"vit_attention": 2 * L_vit * MESH_TP,
+                              "exact_attention": 3 * L_llm * MESH_TP})
+        out[label], launches[label] = mesh_judge_reading(
+            label, judge, unsharded, ref, videos, eos, want,
+            phase="phase 35 (c)")
+        del judge, unsharded, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    del fp32, tree
+    return out, launches
+
+
+def w8a8_lora_mesh_tail(dev, generator):
+    """Phase 35 (b) and (c) on fresh states, with their seconds and their
+    launch counts by path."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out, launches = lora_mesh_phase(dev, generator, d)
+    out["b_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["judge"], more = w8a8_judge_mesh_phase(dev, generator)
+    out["c_s"] = time.perf_counter() - t0
+    launches.update({f"mesh_w8a8 {k}": v for k, v in more.items()})
+    return out, launches
+
+
 def phase_alone_setup(name):
     """For a tool that runs one phase alone (``tools/phase24_torch.py``,
     ``tools/phase25_torch.py``, ``tools/phase27_torch.py``,
     ``tools/phase28_torch.py``, ``tools/phase29_torch.py``,
-    ``tools/phase30_torch.py``, ``tools/phase31_torch.py``): the card and
+    ``tools/phase30_torch.py``, ``tools/phase31_torch.py``,
+    ``tools/phase35_torch.py``): the card and
     its power limit printed, TF32 off, the kernels built and their ptxas report (a spill or a missing
     instantiation printed, not raised, so that the phase still runs), and
     the seeded generators as ``main`` makes them.  Returns (device,
@@ -9325,6 +9849,14 @@ def main() -> int:
                                                  scores[-2:], dev)
     mesh_s = time.perf_counter() - t0
     print(f"phase 33 (a), (b) and its kernel checks: {mesh_s:.1f} s")
+    # Phase 35 (a): the w8a8 modes on the mesh, on the same bf16 state and
+    # phase 11's readings of its quantized trees; K6 at a rank's shapes.
+    t0 = time.perf_counter()
+    w8a8_out, k6_ranks, w8a8_launches = w8a8_mesh_scoring_phase(
+        scorer, requests[1], quant_scored, drawer(generator()),
+        mesh_out["local(1, 2)"]["delta"])
+    w8a8_out["a_s"] = time.perf_counter() - t0
+    print(f"phase 35 (a) and its kernel checks: {w8a8_out['a_s']:.1f} s")
     del scorer, requests
     torch.cuda.empty_cache()
 
@@ -9405,6 +9937,16 @@ def main() -> int:
                                                           drawer)
     judges_mesh_out["command_s"] = time.perf_counter() - t0
     print(f"phase 34 command time {judges_mesh_out['command_s']:.1f} s")
+    # Phase 35 (b) and (c): LoRA and the w8a8 judge on the mesh, on fresh
+    # states.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tail, more = w8a8_lora_mesh_tail(dev, generator)
+    w8a8_out.update(tail)
+    w8a8_launches.update(more)
+    w8a8_out["command_s"] = w8a8_out["a_s"] + time.perf_counter() - t0
+    print(f"phase 35 command time {w8a8_out['command_s']:.1f} s")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "mjvideo_tpu"))
     if loaded:
@@ -9419,7 +9961,7 @@ def main() -> int:
                **launches_26, **launches_27, **launches_28, **launches_29,
                **launches_30, **launches_31,
                "serving_example": serve_launches, **mesh_launches,
-               **launches_34}
+               **launches_34, **w8a8_launches}
 
     def counts(name):
         paths = {path: n[name] for path, n in by_path.items()}
@@ -9829,7 +10371,9 @@ def main() -> int:
              f: quant_k["K6", sh][f] for f in (
                  "ms_in_turns", "bf16_matmul_ms_in_turns",
                  "int_mm_ms_in_turns", "device_ms_by_kernel",
-                 "back_to_back_ms")} for sh in Q8G_SHAPES}},
+                 "back_to_back_ms")} for sh in Q8G_SHAPES},
+         "at_rank_shapes": {str(sh): brief(r) | {"bit_equal": r["bit_equal"]}
+                            for sh, r in k6_ranks.items()}},
         # K6's pre-pass: x quantized once per (row, group); the TPU kernel
         # did it inside _q8g_matmul_pallas_fused.
         {"name": "q8g_quantize", "route": "cuda",
@@ -9916,7 +10460,7 @@ def main() -> int:
         "mesh_kernels": {f"{name} {shape}": {f: r.get(f) for f in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
             for (name, shape), r in mesh_k.items() if isinstance(r, dict)},
-        "mesh_judges": judges_mesh_out,
+        "mesh_judges": judges_mesh_out, "mesh_w8a8_lora": w8a8_out,
         "mesh_judge_kernels": {f"{name} {shape}": {f: r.get(f) for f in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
             for (name, shape), r in k34.items() if isinstance(r, dict)},

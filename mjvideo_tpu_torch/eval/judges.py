@@ -217,9 +217,10 @@ def _maybe_quantize(params, quant: Optional[str]):
 def _place(params, quant: Optional[str], mesh, cfg):
     """A judge's state in its serving mode (``_maybe_quantize``), then cut
     over ``mesh``'s model axis (``parallel.mesh.shard_params``: the held
-    model ranks' trees); a w8a8 mode with a model axis above 1 raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 12).  Returns (state,
-    its device)."""
+    model ranks' trees), w8a8 modes included: a split row member takes its
+    activation statistics over the whole K
+    (``parallel.mesh.row_dot_over_model``).  Returns (state, its
+    device)."""
     params = _maybe_quantize(params, quant)
     if mesh is not None:
         params = shard_params(params, mesh, cfg=cfg)

@@ -72,10 +72,13 @@ from ..ops.matmul import dot, dot_f32
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope, rope_tables
 from ..parallel.mesh import (
+    RowInput,
     held,
     held_layers,
     model_axis,
     pair_forward,
+    row_dot,
+    row_dot_over_model,
     sub,
 )
 from ..utils.bridge import map_state
@@ -424,6 +427,14 @@ def _vdot(x, kernel, dtype, impl):
     return dot_f32(x.to(dtype), kernel, impl)
 
 
+def _vrow(x, kernel, dtype, impl, split):
+    """A tower's row member: ``_vdot``, or where its pair is split the
+    ``RowInput`` that ``pair_forward`` sums over the model axis."""
+    if split:
+        return RowInput(x.to(dtype), kernel, impl)
+    return _vdot(x, kernel, dtype, impl)
+
+
 def vision_forward(p, cfg: CogVLM2VisionConfig, pixel_values: torch.Tensor,
                    impl: str = "auto",
                    dtype: Optional[torch.dtype] = None,
@@ -457,12 +468,12 @@ def vision_forward(p, cfg: CogVLM2VisionConfig, pixel_values: torch.Tensor,
         H = qkv.shape[-1] // (3 * D)
         q, k, v = qkv.to(dtype).reshape(N, S, 3, H, D).unbind(2)
         attn = multi_head_attention(q, k, v, causal=False, impl=impl)
-        return _vdot(attn.reshape(N, S, H * D), lp["dense"]["kernel"], dtype,
-                     impl)
+        return _vrow(attn.reshape(N, S, H * D), lp["dense"]["kernel"], dtype,
+                     impl, split)
 
     def mlp_body(lp, x, split):
         h = _vdot(x, lp["fc1"]["kernel"], dtype, impl) + lp["fc1"]["bias"]
-        return _vdot(F.gelu(h), lp["fc2"]["kernel"], dtype, impl)
+        return _vrow(F.gelu(h), lp["fc2"]["kernel"], dtype, impl, split)
 
     layers = [t["layers"] for t in held_layers(p, mesh)]
     for i in range(cfg.num_hidden_layers):
@@ -579,7 +590,7 @@ def _select(vis_mask: Optional[torch.Tensor], vision_fn, language_fn):
 def _swiglu(mp, h, impl, split=False):
     y = F.silu(dot(h, mp["w1"]["kernel"], impl)) * dot(h, mp["w3"]["kernel"],
                                                         impl)
-    return (dot_f32 if split else dot)(y, mp["w2"]["kernel"], impl)
+    return row_dot(y, mp["w2"]["kernel"], split, impl)
 
 
 def _qkv(lp, h, vis_mask, impl):
@@ -609,20 +620,25 @@ def _attention(cfg: LLMConfig, lps, h, vis_mask, impl, mesh, attend):
     qkv = _qkv(lps[0], h, vis_mask, impl)
     n = tp.model if split else 1
 
-    def body(lp, i, split):
+    def heads(i):
         q, k, v = _qkv_split(cfg, qkv, tp.model_ranks[i] if split else 0, n)
-        attn = attend(i, q, k, v).reshape(B, S, -1)
-        a = lp["attention"]
-        prod = dot_f32 if split else dot
-        return _select(vis_mask,
-                       lambda: prod(attn, a["vision_dense"]["kernel"], impl),
-                       lambda: prod(attn, a["language_dense"]["kernel"],
-                                    impl))
+        return attend(i, q, k, v).reshape(B, S, -1)
 
     if not split:
-        return body(lps[0], 0, False)
-    return tp.reduce_from_model([body(lp, i, True)
-                                 for i, lp in enumerate(lps)]).to(h.dtype)
+        attn, a = heads(0), lps[0]["attention"]
+        return _select(vis_mask,
+                       lambda: dot(attn, a["vision_dense"]["kernel"], impl),
+                       lambda: dot(attn, a["language_dense"]["kernel"],
+                                   impl))
+    attns = [heads(i) for i in range(len(lps))]
+
+    def dense(name):
+        return row_dot_over_model(
+            tp, attns, [lp["attention"][name]["kernel"] for lp in lps],
+            impl).to(h.dtype)
+
+    return _select(vis_mask, lambda: dense("vision_dense"),
+                   lambda: dense("language_dense"))
 
 
 def _mlp(cfg: LLMConfig, lps, h, vis_mask, impl, mesh):
@@ -633,12 +649,12 @@ def _mlp(cfg: LLMConfig, lps, h, vis_mask, impl, mesh):
              and lps[0]["mlp"]["language"]["w1"]["kernel"].shape[-1]
              != cfg.intermediate_size)
 
-    def body(lp, x, split):
-        return _select(vis_mask,
-                       lambda: _swiglu(lp["mlp"]["vision"], x, impl, split),
-                       lambda: _swiglu(lp["mlp"]["language"], x, impl, split))
+    def expert(name):
+        return lambda: pair_forward(
+            tp, lps, h, split,
+            lambda lp, x, split: _swiglu(lp["mlp"][name], x, impl, split))
 
-    return pair_forward(tp, lps, h, split, body)
+    return _select(vis_mask, expert("vision"), expert("language"))
 
 
 def _expert_layer(cfg: LLMConfig, lp, x, vis_mask, attention_mask, cos, sin,

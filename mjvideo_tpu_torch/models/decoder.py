@@ -26,7 +26,7 @@ from ..ops.matmul import dot, dot_f32
 from ..ops.norms import rms_norm
 from ..ops.remat import remat_wrap
 from ..ops.rope import apply_rope, rope_tables
-from ..parallel.mesh import held, model_axis, sub
+from ..parallel.mesh import held, model_axis, row_dot_over_model, sub
 from ..utils.bridge import map_state
 
 
@@ -82,10 +82,13 @@ def _dense(p, x, impl: str = "auto"):
     return y
 
 
-def _row_parallel(tp, outs, p, x_dtype):
-    """The row-parallel product's end: the fp32 partials summed over the
-    model axis, rounded once to the activation dtype, then the bias."""
-    y = tp.reduce_from_model(outs).to(x_dtype)
+def _row_parallel(tp, xs, ps, name, x_dtype, impl):
+    """The row-parallel product's end: every held rank's input to its row
+    member ``name`` (``ps[i][name]``) through ``row_dot_over_model``, the
+    fp32 sum rounded once to the activation dtype, then the bias."""
+    y = row_dot_over_model(tp, xs, [p[name]["kernel"] for p in ps],
+                           impl).to(x_dtype)
+    p = ps[0][name]
     return y + p["bias"] if "bias" in p else y
 
 
@@ -95,8 +98,8 @@ def attention_block(cfg: LLMConfig, ps, h, tp, attend, impl: str = "auto"):
     kernel; (B, S, hq, D) in, (B, S, hq, D) or (B, S, hq * D) out), then the
     output projection with its bias.  ``ps``: the held model ranks' layer
     states.  A split pair (``tp`` a model axis above 1 and wq cut) runs
-    column-parallel into each rank's whole kv heads and their query groups
-    and row-parallel out of them (``_row_parallel``)."""
+    column-parallel into each rank's whole kv heads and their query groups,
+    every held rank's, then row-parallel out of them (``_row_parallel``)."""
     B, S, _ = h.shape
     D = cfg.head_dim
     split = (tp is not None and ps[0]["attention"]["wq"]["kernel"].shape[-1]
@@ -112,12 +115,11 @@ def attention_block(cfg: LLMConfig, ps, h, tp, attend, impl: str = "auto"):
         attn = attend(i, q.reshape(B, S, hq, D),
                       k.reshape(B, S, k.shape[-1] // D, D),
                       v.reshape(B, S, v.shape[-1] // D, D))
-        attn = attn.reshape(B, S, hq * D)
-        outs.append(dot_f32(attn, a["wo"]["kernel"], impl) if split
-                    else _dense(a["wo"], attn, impl))
+        outs.append(attn.reshape(B, S, hq * D))
     if split:
-        return _row_parallel(tp, outs, ps[0]["attention"]["wo"], h.dtype)
-    return outs[0]
+        return _row_parallel(tp, outs, [p["attention"] for p in ps], "wo",
+                             h.dtype, impl)
+    return _dense(ps[0]["attention"]["wo"], outs[0], impl)
 
 
 def mlp_block(cfg: LLMConfig, ps, h, tp, impl: str = "auto"):
@@ -128,12 +130,12 @@ def mlp_block(cfg: LLMConfig, ps, h, tp, impl: str = "auto"):
     outs = []
     for pj, hj in zip(ps, tp.copy_to_model(h) if split else [h]):
         f = pj["feed_forward"]
-        y = F.silu(_dense(f["w1"], hj, impl)) * _dense(f["w3"], hj, impl)
-        outs.append(dot_f32(y, f["w2"]["kernel"], impl) if split
-                    else _dense(f["w2"], y, impl))
+        outs.append(F.silu(_dense(f["w1"], hj, impl))
+                    * _dense(f["w3"], hj, impl))
     if split:
-        return _row_parallel(tp, outs, ps[0]["feed_forward"]["w2"], h.dtype)
-    return outs[0]
+        return _row_parallel(tp, outs, [p["feed_forward"] for p in ps], "w2",
+                             h.dtype, impl)
+    return _dense(ps[0]["feed_forward"]["w2"], outs[0], impl)
 
 
 def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl,
@@ -142,8 +144,8 @@ def _decoder_layer(cfg: LLMConfig, p, x, attention_mask, cos, sin, impl,
     model axis above 1: ``p`` is the list of the held model ranks' layer
     states, and a split pair runs column-parallel (wq/wk/wv on the rank's
     whole kv heads and their query groups, w1/w3 on its columns) and
-    row-parallel (wo, w2: fp32 partials summed over the model axis,
-    rounded once, then the bias)."""
+    row-parallel (wo, w2: ``row_dot_over_model`` of every held rank's
+    input, summed over the model axis, rounded once, then the bias)."""
     ps = held(p)
     tp = model_axis(mesh)
 

@@ -39,10 +39,17 @@ import torch.nn.functional as F
 from ..configs import VisionConfig
 
 from ..ops.attention import multi_head_attention
-from ..ops.matmul import dot, dot_f32, gelu
+from ..ops.matmul import dot, gelu
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.remat import remat_wrap
-from ..parallel.mesh import held, model_axis, pair_forward, row_dot, sub
+from ..parallel.mesh import (
+    held,
+    model_axis,
+    pair_forward,
+    row_dot,
+    row_dot_over_model,
+    sub,
+)
 from ..utils.bridge import map_state
 
 
@@ -238,11 +245,11 @@ def _attention(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,
     """The attention branch before the projection's bias: qkv, the
     attention, the projection.  ``ps``: the held model ranks' layer states.
     Split over the model axis (``parallel/mesh.py``), each rank runs its
-    own heads of q, k and v (column-parallel) and its rows of the
-    projection (row-parallel): the partials in fp32, summed over the model
-    axis, rounded once.  The QK-norm (the 6B family) normalises q and k
-    over the whole width: split, its statistics are summed over the model
-    axis (``split_rms_norm``)."""
+    own heads of q, k and v (column-parallel), then every held rank's rows
+    of the projection at once (row-parallel, ``row_dot_over_model``): the
+    partials summed over the model axis, rounded once.  The QK-norm (the
+    6B family) normalises q and k over the whole width: split, its
+    statistics are summed over the model axis (``split_rms_norm``)."""
     B, S, C = h.shape
     D = cfg.head_dim
     tp = model_axis(mesh)
@@ -276,10 +283,11 @@ def _attention(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,
                                      norm_bound=True)
         else:
             o = attention(q, k, v)
-        o = o.reshape(B, S, Cj)
-        outs.append(dot_f32(o, pj["attn"]["proj"]["kernel"], impl) if split
-                    else dot(o, pj["attn"]["proj"]["kernel"], impl))
-    return tp.reduce_from_model(outs).to(h.dtype) if split else outs[0]
+        outs.append(o.reshape(B, S, Cj))
+    if not split:
+        return dot(outs[0], ps[0]["attn"]["proj"]["kernel"], impl)
+    return row_dot_over_model(tp, outs, [pj["attn"]["proj"]["kernel"]
+                                         for pj in ps], impl).to(h.dtype)
 
 
 def _mlp(cfg: VisionConfig, ps, h: torch.Tensor, impl: str,

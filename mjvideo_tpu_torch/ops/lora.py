@@ -90,6 +90,28 @@ def dot_lora_f32(x: torch.Tensor, lk: LoraKernel,
     return base + lk.scale.float() * lo
 
 
+def dot_lora_rows_over_model(tp, xs, kernels, impl: str = "auto"
+                             ) -> torch.Tensor:
+    """A LoRA row member split over the model axis (``tp``, a
+    ``parallel.mesh.Mesh``; ``parallel.mesh.split_plan`` cuts ``w`` and
+    ``a`` by rows and keeps ``b`` and ``scale`` whole): the base's row
+    product summed over the model axis (``row_dot_over_model``, so a
+    quantized base takes its own), the ``x_j @ a_j`` partials summed in
+    fp32 and rounded once to the activation dtype, as ``dot_lora_f32``
+    rounds ``x @ a``, then ``@ b`` in fp32 and added once to the summed
+    base.  Every rank computes ``@ b`` on the same sum, so ``b``'s gradient
+    is whole on each rank, as a replicated leaf's is."""
+    from ..parallel.mesh import row_dot_over_model
+    from .matmul import product_f32
+
+    k = kernels[0]
+    base = row_dot_over_model(tp, xs, [n.w for n in kernels], impl)
+    xa = tp.reduce_from_model([product_f32(x, n.a)
+                               for x, n in zip(xs, kernels)])
+    lo = product_f32(xa.to(xs[0].dtype), k.b)
+    return base + k.scale.float() * lo
+
+
 # The reference's freeze policy unfreezes the LLM decoder; the standard
 # LoRA target set is its attention and MLP projections.
 DEFAULT_TARGETS = (

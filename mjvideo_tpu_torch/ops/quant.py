@@ -73,6 +73,16 @@ class QuantKernel:
 
 
 @dataclass
+class RowsQuantKernel(QuantKernel):
+    """A model rank's rows of a per-column w8a8 row member: ``q`` cut by
+    rows, the per-column ``scale`` whole (``parallel.mesh.shard_params``
+    makes it, ``gather_params`` makes the ``QuantKernel`` back).  Its
+    product quantizes each activation row at the amax over every rank's
+    slice of K (``dot_q8_rows_over_model``), where a grouped row member's
+    piece, whole groups, needs no other rank's statistic."""
+
+
+@dataclass
 class WOQuantKernel:
     """Weight-only int8 kernel (w8a16): ``qw`` (..., K, N), ``scale``
     (..., G, N); the product runs at the activation dtype."""
@@ -208,9 +218,15 @@ def dequantize_kernel(k: QuantKernel,
     return (k.q.float() * k.scale).to(dtype)
 
 
+def _scale_rows(amax: torch.Tensor) -> torch.Tensor:
+    """The dynamic activation scale of a row amax: max(amax / 127,
+    1e-12)."""
+    return div(amax, 127.0).clamp_min(1e-12)
+
+
 def _quantize_rows(x32: torch.Tensor):
     """Dynamic per-row symmetric int8 of fp32 (..., K)."""
-    a_scale = div(x32.abs().amax(-1, keepdim=True), 127.0).clamp_min(1e-12)
+    a_scale = _scale_rows(x32.abs().amax(-1, keepdim=True))
     xq = torch.round(x32 / a_scale).clamp(-127, 127).to(torch.int8)
     return xq, a_scale
 
@@ -310,15 +326,13 @@ def _dot_q8_grouped(x: torch.Tensor, kernel: QuantKernel,
 def dot_q8_f32(x: torch.Tensor, kernel: QuantKernel,
                impl: str = "auto") -> torch.Tensor:
     """x @ dequant(kernel) as int8 x int8 -> int32, dequantized in fp32;
-    kernel.q is one layer's (K, N).  Grouped kernels (G > 1) go to K6."""
+    kernel.q is one layer's (K, N).  Grouped kernels (G > 1) go to K6;
+    per-column ones are ``dot_q8_rows_over_model`` on one rank."""
     assert kernel.q.dim() == 2, (
         f"dot_q8 expects a per-layer (K, N) kernel, got {kernel.q.shape}")
     if kernel.scale.shape[-2] > 1:
         return _dot_q8_grouped(x, kernel, torch.float32, impl)
-    K, N = kernel.q.shape
-    xq, a_scale = _quantize_rows(x.float())
-    acc = int8_matmul(xq.reshape(-1, K), kernel.q).reshape(*x.shape[:-1], N)
-    return acc.float() * a_scale * kernel.scale.reshape(1, -1)
+    return dot_q8_rows_over_model(_one_rank(), [x], [kernel])
 
 
 def dot_q8(x: torch.Tensor, kernel: QuantKernel,
@@ -352,35 +366,97 @@ def with_amax_group(params: Any, group) -> Any:
 
 def dot_q8_ol_f32(x: torch.Tensor, kernel: OutlierQuantKernel) -> torch.Tensor:
     """x @ dequant(kernel) with the top-``n_outliers`` activation channels
-    (by column amax over the batch, max-reduced over the data axis for a
-    ``GroupedOutlierQuantKernel``) in full precision.  Ties in the column amax go
-    to the lower channel index, as ``jax.lax.top_k`` breaks them (a stable
-    descending sort)."""
+    in full precision: ``dot_q8_ol_rows_over_model`` on one rank."""
     assert kernel.q.dim() == 2, (
         f"dot_q8_ol expects a per-layer (K, N) kernel, got {kernel.q.shape}")
-    K, N = kernel.q.shape
-    k_out = min(kernel.n_outliers, K)
-    x32 = x.reshape(-1, K).float()
-    colmax = x32.abs().amax(0)
-    group = getattr(kernel, "amax_group", None)
-    if group is not None:
-        import torch.distributed as dist
-
-        dist.all_reduce(colmax, op=dist.ReduceOp.MAX, group=group)
-    idx = torch.sort(colmax, descending=True, stable=True).indices[:k_out]
-    x_out = x32[:, idx]
-    w_out = kernel.q[idx].float() * kernel.scale
-    mask = torch.zeros(K, dtype=x32.dtype, device=x32.device)
-    mask[idx] = 1.0
-    xq, a_scale = _quantize_rows(x32 * (1.0 - mask))
-    acc = (int8_matmul(xq, kernel.q).float() * a_scale
-           * kernel.scale.reshape(1, -1))
-    acc = acc + x_out @ w_out
-    return acc.reshape(*x.shape[:-1], N)
+    return dot_q8_ol_rows_over_model(_one_rank(), [x], [kernel])
 
 
 def dot_q8_ol(x: torch.Tensor, kernel: OutlierQuantKernel) -> torch.Tensor:
     return dot_q8_ol_f32(x, kernel).to(x.dtype)
+
+
+# ------------------------------------- row members split over the model axis
+
+def _one_rank():
+    """The model axis of a product that is not split: one rank, held in
+    this process (``parallel.mesh.Mesh.local(1, 1)``)."""
+    from ..parallel.mesh import Mesh
+
+    return Mesh.local(1, 1)
+
+
+def _q8_rows_sum(tp, x32s, a_scale, kernels) -> torch.Tensor:
+    """Each held rank's int8 x int8 partial at the shared row scale,
+    summed over the model axis in int32 (exact), dequantized once: what
+    the unsharded product computes over the whole K."""
+    accs = []
+    for x32, k in zip(x32s, kernels):
+        xq = torch.round(x32 / a_scale).clamp(-127, 127).to(torch.int8)
+        accs.append(int8_matmul(xq, k.q))
+    acc = tp.reduce_from_model(accs)
+    return acc.float() * a_scale * kernels[0].scale.reshape(1, -1)
+
+
+def dot_q8_rows_over_model(tp, xs: Sequence[torch.Tensor],
+                           kernels: Sequence[QuantKernel]) -> torch.Tensor:
+    """Per-column w8a8 over a K split across the model axis (``tp``, a
+    ``parallel.mesh.Mesh``; one rank for a product that is not split):
+    ``xs`` the held ranks' inputs, each its slice of K, ``kernels`` their
+    rows of ``q`` with the whole per-column scale.  Each activation row's
+    amax is max-reduced over the model axis before it quantizes
+    (``_quantize_rows``), and the int32 partials are summed before they
+    dequantize, so every split gives the one-rank product to the bit (JAX
+    pins the same of its sharded int8 product)."""
+    N = kernels[0].q.shape[1]
+    lead = xs[0].shape[:-1]
+    x32s = [x.reshape(-1, x.shape[-1]).float() for x in xs]
+    a_scale = _scale_rows(tp.max_over_model(
+        [x.abs().amax(-1, keepdim=True) for x in x32s]))
+    return _q8_rows_sum(tp, x32s, a_scale, kernels).reshape(*lead, N)
+
+
+def dot_q8_ol_rows_over_model(tp, xs: Sequence[torch.Tensor],
+                              kernels: Sequence[OutlierQuantKernel]
+                              ) -> torch.Tensor:
+    """``-olN`` w8a8 over a K split across the model axis (one rank for a
+    product that is not split): the top-``n_outliers`` activation channels
+    by column amax over the rows (max-reduced over ``amax_group`` first,
+    the data axis of a distributed mesh; every rank's gathered in channel
+    order) go through full precision, ties to the lower global index as
+    ``jax.lax.top_k`` breaks them (a stable descending sort), each rank
+    keeping the chosen channels of its slice; the masked rows' amax is
+    max-reduced over the model axis and the int32 partials summed as in
+    ``dot_q8_rows_over_model``.  Each rank's outlier product is summed
+    over the model axis in fp32, a few ulps from one rank's single
+    product."""
+    k0 = kernels[0]
+    Kj, N = k0.q.shape
+    lead = xs[0].shape[:-1]
+    x32s = [x.reshape(-1, x.shape[-1]).float() for x in xs]
+    colmaxes = [x.abs().amax(0) for x in x32s]
+    group = getattr(k0, "amax_group", None)
+    if group is not None:
+        import torch.distributed as dist
+
+        for c in colmaxes:
+            dist.all_reduce(c, op=dist.ReduceOp.MAX, group=group)
+    colmax = tp.join_model(colmaxes, -1)
+    K = colmax.shape[0]
+    idx = torch.sort(colmax, descending=True,
+                     stable=True).indices[:min(k0.n_outliers, K)]
+    mask = torch.zeros(K, dtype=torch.float32, device=colmax.device)
+    mask[idx] = 1.0
+    masked, outs = [], []
+    for j, x32, k in zip(tp.model_ranks, x32s, kernels):
+        keep = 1.0 - mask[j * Kj:(j + 1) * Kj]
+        masked.append(x32 * keep)
+        mine = idx[(idx >= j * Kj) & (idx < (j + 1) * Kj)] - j * Kj
+        outs.append(x32[:, mine] @ (k.q[mine].float() * k.scale))
+    a_scale = _scale_rows(tp.max_over_model(
+        [m.abs().amax(-1, keepdim=True) for m in masked]))
+    acc = _q8_rows_sum(tp, masked, a_scale, kernels)
+    return (acc + tp.reduce_from_model(outs)).reshape(*lead, N)
 
 
 def dot_wo_f32(x: torch.Tensor, kernel: WOQuantKernel) -> torch.Tensor:

@@ -30,18 +30,40 @@ collective.  Here each collective is written out:
   order, each rank's own part first, as the processes' ``all_reduce``
   sums them.  ``sum_over_model`` (a statistic every rank goes on to use,
   summed both ways) and ``join_model`` (a split LM head's logits
-  gathered) serve the judges.
+  gathered, a row member's per-channel statistic) serve the judges and the
+  w8a8 products; ``max_over_model`` max-reduces a row statistic.
+* Quantized and LoRA nodes split field by field (``split_plan``): ``q``
+  with its member, as ``WOQuantKernel``'s ``qw`` does; a per-column
+  ``scale`` with a column member, whole under a row member; a grouped
+  (``-gN``) row member by its groups, only where each rank holds whole
+  groups.  A LoRA node's ``w`` splits as its member would (a quantized
+  ``w`` field by field); ``a`` is cut by rows under a row member and whole
+  under a column member, ``b`` cut by columns (by heads in a packed qkv)
+  under a column member and whole under a row member, ``scale`` whole.
+  Here the port departs from JAX's specs, whose rules would cut ``a`` and
+  ``b`` along r (``P(None, None, "model")`` on ``(L, K, r)``), which GSPMD
+  gathers back before each product: cut so, each rank's ``x @ a`` is a
+  product over its own K and ``@ b`` writes its own columns, and no
+  adapter is gathered.  A column member's ``a`` is whole on every rank and
+  each rank's use gives it a share of its gradient: autograd sums the
+  shares in a local mesh, where every rank's tree holds the same tensor,
+  and the trainer sums them over the model axis across processes
+  (``model_summed``).
 
-The model code (``models/vit.py``, ``models/decoder.py``) runs a split pair
-column-parallel into the rank's heads or columns and row-parallel out of
-them: partial products in fp32, summed in fp32 over the model axis, rounded
-once, then the bias.
+The model code (``models/vit.py``, ``models/decoder.py`` and the judge
+families) runs a split pair column-parallel into the rank's heads or
+columns and row-parallel out of them.  Each rank's column part runs first;
+then ``row_dot_over_model`` takes every held rank's input to the row member
+at once, since its exact product may need a statistic over the whole K
+(w8a8's row amax, ``-olN``'s outlier channels, a LoRA row member's ``x @
+a``): partial products in fp32 (int32 for w8a8, summed exactly), summed
+over the model axis, then rounded once by the caller, then the bias.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -215,6 +237,20 @@ class Mesh:
                 out = out + p
             return out
         return _AllReduceSum.apply(parts[0], self.model_group)
+
+    def max_over_model(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The elementwise max of the held ranks' tensors over the model
+        axis (no autograd): in rank order locally, ``all_reduce`` with
+        ``MAX`` across processes.  Max is exact, so every form agrees."""
+        out = parts[0].detach()
+        for p in parts[1:]:
+            out = torch.maximum(out, p.detach())
+        if not self.is_local and self.model > 1:
+            import torch.distributed as dist
+
+            out = out.contiguous().clone()
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.model_group)
+        return out
 
     def all_reduce_world(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over every process (in place; a local mesh holds
@@ -494,14 +530,55 @@ def _q4_group(plan_leaves, field_path: str) -> int:
     return 2 * packed.shape[-2] // scale.shape[-2]
 
 
+def _column_kind(path: str, spec: Spec) -> Optional[str]:
+    """How a pair's column member at ``path`` splits its last dim: "logits"
+    (the LM head), "qkv" (a packed q|k|v, by heads) or "cols"; None for a
+    row member."""
+    if _HEAD.match(path):
+        return "logits"
+    if spec.index("model") != len(spec) - 1:
+        return None
+    return ("qkv" if re.search(r"(attn|layers)/qkv/(kernel|bias)", path)
+            else "cols")
+
+
+def _member_split(path: str, t: torch.Tensor, spec: Spec) -> Optional[Split]:
+    """How a pair member's leaf (or node field) at ``path`` splits, by its
+    spec; None where it stays whole (a per-column ``scale`` under a row
+    member)."""
+    nd = t.dim()
+    if path.endswith("tok_embeddings"):
+        return Split("vocab", 0)
+    column = _column_kind(path, spec)
+    if column is not None:
+        return Split(column, nd - 1)
+    field = path.rsplit("/", 1)[-1]
+    if field == ".scale":
+        # A per-column scale stays whole under a row member; a grouped
+        # scale splits with K.
+        return None if t.shape[-2] == 1 else Split("rows", nd - 2)
+    return Split("q4rows" if field == ".packed" else "rows", nd - 2)
+
+
+def _lora_field(path: str, prefixes) -> Optional[Tuple[str, str, str]]:
+    """(the LoRA node's path, its field, the rest of ``path`` past the
+    field) where ``path`` lies in a LoRA node of ``prefixes``, else None."""
+    i = path.find("/.")
+    while i >= 0:
+        if path[:i] in prefixes:
+            field, _, rest = path[i + 2:].partition("/")
+            return path[:i], field, "/" + rest if rest else ""
+        i = path.find("/.", i + 1)
+    return None
+
+
 def split_plan(params: Any, model: int, cfg=None) -> Dict[str, Split]:
-    """{leaf path: Split} of the leaves that split over ``model`` ranks.
-    Raises ``NotImplementedError`` (ROADMAP Queue 1 item 12) where the
-    state holds what the port does not split yet: LoRA nodes and w8a8
-    nodes.  The QK-norm ViT splits: its norms' statistics are summed over
-    the model axis (``models/vit.py``)."""
-    from ..ops.quant import OutlierQuantKernel, QuantKernel
-    from ..ops.lora import LoraKernel
+    """{leaf path: Split} of the leaves that split over ``model`` ranks,
+    node fields included (the module docstring says how a quantized or LoRA
+    node splits).  A pair splits only where every member's split divides,
+    heads included, and a grouped row member's groups fall whole on each
+    rank; else it stays whole on every rank.  The QK-norm ViT splits: its
+    norms' statistics are summed over the model axis (``models/vit.py``)."""
     from ..utils.bridge import flatten_state
 
     if model == 1:
@@ -509,61 +586,32 @@ def split_plan(params: Any, model: int, cfg=None) -> Dict[str, Split]:
     if cfg is None:
         raise ValueError("shard_params over a model axis needs the config "
                          "(the head counts the pairs split by)")
-
-    def refuse(what):
-        raise NotImplementedError(
-            f"{what} under tensor parallelism (model={model}) is not ported "
-            "yet: ROADMAP Queue 1 item 12")
-
-    def walk(tree):
-        from ..utils.bridge import is_node, node_fields
-
-        if isinstance(tree, dict):
-            for v in tree.values():
-                walk(v)
-        elif isinstance(tree, LoraKernel):
-            refuse("LoRA")
-        elif isinstance(tree, (QuantKernel, OutlierQuantKernel)):
-            refuse("a w8a8 quantized state (each activation row's amax "
-                   "would have to be max-reduced over the model axis)")
-        elif is_node(tree):
-            for _, v in node_fields(tree):
-                walk(v)
-
-    walk(params)
     flat = flatten_state(params)
+    lora = {p[:-len("/.a")] for p in flat if p.endswith("/.a")}
     pairs: Dict[str, Dict[str, Split]] = {}
     ok: Dict[str, bool] = {}
     for path, t in flat.items():
-        spec = param_pspec(path, True)
-        key = _pair_key(path)
-        if "model" not in spec or not (key or path.endswith("tok_embeddings")):
+        # A LoRA node's fields go by the path of the kernel it wraps.
+        node = _lora_field(path, lora) if lora else None
+        base = path if node is None else node[0] + (
+            node[2] if node[1] == "w" else "")
+        spec = param_pspec(base, True)
+        key = _pair_key(base)
+        if "model" not in spec or not (key or base.endswith("tok_embeddings")):
             continue
-        key = key or path
-        axis = spec.index("model")
-        field = path.rsplit("/", 1)[-1]
-        nd = t.dim()
-        if path.endswith("tok_embeddings"):
-            split = Split("vocab", 0)
-        elif _HEAD.match(path):
-            split = Split("logits", nd - 1)
-        elif re.search(r"(attn|layers)/qkv/(kernel|bias)", path):
-            split = Split("qkv", nd - 1)
-        elif field == ".scale":
-            # A per-column scale splits with a column member and stays
-            # whole under a row member; a grouped scale splits with K.
-            if axis == len(spec) - 1:
-                split = Split("cols", nd - 1)
-            elif t.shape[-2] == 1:
-                continue
-            else:
-                split = Split("rows", nd - 2)
-        elif axis == len(spec) - 1:
-            split = Split("cols", nd - 1)
-        elif field == ".packed":
-            split = Split("q4rows", nd - 2)
+        key = key or base
+        if node is None or node[1] == "w":
+            split = _member_split(base, t, spec)
         else:
-            split = Split("rows", nd - 2)
+            column = _column_kind(base, spec)
+            if node[1] == "a" and column is None:
+                split = Split("rows", t.dim() - 2)
+            elif node[1] == "b" and column is not None:
+                split = Split(column, t.dim() - 1)
+            else:
+                split = None  # the other adapter and ``scale``: whole
+        if split is None:
+            continue
         size = t.shape[split.dim]
         if split.kind == "qkv":
             fits = size % 3 == 0 and (size // 3) % model == 0
@@ -578,6 +626,18 @@ def split_plan(params: Any, model: int, cfg=None) -> Dict[str, Split]:
         ok[key] = ok.get(key, True) and fits
     return {path: s for key, members in pairs.items() if ok[key]
             for path, s in members.items()}
+
+
+def model_summed(plan: Dict[str, Split]) -> List[str]:
+    """The replicated leaves whose gradient each model rank holds only a
+    share of: a split column member's LoRA ``a``, which every rank's
+    column part uses whole.  A trainer sums the shares over the model axis:
+    across processes by ``all_reduce``, in a local mesh the held ranks'
+    leaves in rank order (``shard_params`` gives each rank a leaf of its
+    own on the one storage), so that both forms add the same partial
+    sums."""
+    return sorted(p[:-len("/.b")] + "/.a" for p, s in plan.items()
+                  if p.endswith("/.b") and s.kind != "rows")
 
 
 def _unpack_q4(packed: torch.Tensor) -> torch.Tensor:
@@ -634,21 +694,48 @@ def join(pieces: Sequence[torch.Tensor], split: Split) -> torch.Tensor:
     return k_major(whole) if whole.dtype == torch.int8 else whole
 
 
-def _map_leaves(fn, state, prefix: str = ""):
+def _map_leaves(fn, state, prefix: str = "", node_fn=None):
     """``fn(path, leaf)`` over a state (dicts and kernel nodes, a node's
-    fields by their JAX path strings), rebuilding its structure."""
+    fields by their JAX path strings), rebuilding its structure; each
+    rebuilt node passes through ``node_fn(path, node)`` where given."""
     import dataclasses
 
     from ..utils.bridge import is_node, node_fields
 
     if isinstance(state, dict):
-        return {k: _map_leaves(fn, v, f"{prefix}{k}/")
+        return {k: _map_leaves(fn, v, f"{prefix}{k}/", node_fn)
                 for k, v in state.items()}
     if is_node(state):
-        return dataclasses.replace(state, **{
-            name: _map_leaves(fn, v, f"{prefix}.{name}/")
+        node = dataclasses.replace(state, **{
+            name: _map_leaves(fn, v, f"{prefix}.{name}/", node_fn)
             for name, v in node_fields(state)})
+        return node if node_fn is None else node_fn(prefix[:-1], node)
     return fn(prefix[:-1], state)
+
+
+def _rows_node(plan: Dict[str, Split]):
+    """``node_fn`` of a rank's tree: a per-column w8a8 row member's piece
+    (``q`` cut by rows, ``scale`` whole) as a ``RowsQuantKernel``."""
+    from ..ops.quant import QuantKernel, RowsQuantKernel
+
+    def one(path, node):
+        split = plan.get(path + "/.q")
+        if (type(node) is QuantKernel and split is not None
+                and split.kind == "rows" and path + "/.scale" not in plan):
+            return RowsQuantKernel(node.q, node.scale)
+        return node
+
+    return one
+
+
+def _whole_node(path, node):
+    """``gather_params``' ``node_fn``: a ``RowsQuantKernel`` joined back
+    into the ``QuantKernel`` it was cut from."""
+    from ..ops.quant import QuantKernel, RowsQuantKernel
+
+    if isinstance(node, RowsQuantKernel):
+        return QuantKernel(node.q, node.scale)
+    return node
 
 
 def shard_params(params: Any, mesh: Mesh, tp: bool = True, cfg=None
@@ -663,8 +750,17 @@ def shard_params(params: Any, mesh: Mesh, tp: bool = True, cfg=None
     plan = split_plan(params, m, cfg)
     if not plan:
         return [params] * len(mesh.model_ranks) if m > 1 else [params]
-    return [_map_leaves(lambda p, t: cut(t, plan[p], j, m) if p in plan
-                        else t, params) for j in mesh.model_ranks]
+    # A leaf of its own (the same storage) for each rank's share of a
+    # column member's adapter ``a`` (``model_summed``).
+    own = set(model_summed(plan)) if mesh.is_local else set()
+
+    def piece(j, p, t):
+        if p in plan:
+            return cut(t, plan[p], j, m)
+        return t.detach() if j and p in own else t
+
+    return [_map_leaves(lambda p, t, j=j: piece(j, p, t), params,
+                        node_fn=_rows_node(plan)) for j in mesh.model_ranks]
 
 
 def gather_params(shards: List[Any], mesh: Mesh, plan: Dict[str, Split]
@@ -685,7 +781,7 @@ def gather_params(shards: List[Any], mesh: Mesh, plan: Dict[str, Split]
         def pieces(p, flat=flatten_state(shards[0])):
             return mesh.gather_model(flat[p])
     return _map_leaves(lambda p, t: join(pieces(p), plan[p]) if p in plan
-                       else t, shards[0])
+                       else t, shards[0], node_fn=_whole_node)
 
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> List[Dict[str, Any]]:
@@ -731,21 +827,64 @@ def model_axis(mesh: Optional[Mesh]) -> Optional[Mesh]:
 def pair_forward(mesh: Optional[Mesh], ps, h: torch.Tensor, split: bool,
                  body) -> torch.Tensor:
     """A Megatron pair over the held model ranks' states ``ps``:
-    ``body(p, x, split)`` runs one rank's column members and its row member
-    on ``x``.  Split, each rank's body returns its fp32 partial, summed over
-    the model axis and rounded once to ``h``'s dtype (the row member's bias
-    is the caller's); else rank 0's body alone, on ``h``."""
+    ``body(p, x, split)`` runs one rank's column members on ``x`` and ends
+    in ``row_dot`` of its row member.  Split, every held rank's column part
+    runs first, then their row product at once (``row_dot_over_model``),
+    summed over the model axis and rounded once to ``h``'s dtype (the row
+    member's bias is the caller's); else rank 0's body alone, on ``h``."""
     if not split:
         return body(ps[0], h, False)
     tp = model_axis(mesh)
-    outs = [body(p, x, True) for p, x in zip(ps, tp.copy_to_model(h))]
-    return tp.reduce_from_model(outs).to(h.dtype)
+    rows = [body(p, x, True) for p, x in zip(ps, tp.copy_to_model(h))]
+    return row_dot_over_model(tp, [r.x for r in rows],
+                              [r.kernel for r in rows],
+                              rows[0].impl).to(h.dtype)
 
 
-def row_dot(x: torch.Tensor, kernel, split: bool,
-            impl: str = "auto") -> torch.Tensor:
-    """A row member's product: an fp32 partial where its pair is split
-    (``pair_forward`` sums and rounds it), else ``dot``."""
-    from ..ops.matmul import dot, dot_f32
+class RowInput(NamedTuple):
+    """A rank's input to its row member, the member's kernel and ``impl``:
+    what ``row_dot`` hands ``pair_forward`` where the pair is split."""
 
-    return dot_f32(x, kernel, impl) if split else dot(x, kernel, impl)
+    x: torch.Tensor
+    kernel: Any
+    impl: str
+
+
+def row_dot(x: torch.Tensor, kernel, split: bool, impl: str = "auto"):
+    """A row member's product: ``dot`` where its pair is whole; where it is
+    split, the ``RowInput`` that ``pair_forward`` multiplies once every held
+    rank's input exists."""
+    from ..ops.matmul import dot
+
+    return RowInput(x, kernel, impl) if split else dot(x, kernel, impl)
+
+
+def row_dot_over_model(tp: Mesh, xs: List[torch.Tensor], kernels: List[Any],
+                       impl: str = "auto") -> torch.Tensor:
+    """A split row member's product in fp32, summed over the model axis:
+    ``xs`` and ``kernels`` are the held ranks' inputs (each its slice of K)
+    and pieces, in rank order.  A plain or weight-only kernel (int8, int4)
+    and a grouped w8a8 one (K6 on the rank's whole groups) sum each rank's
+    fp32 partial; per-row w8a8 (a ``RowsQuantKernel`` piece) and ``-olN``
+    take their statistics over the whole K
+    (``ops.quant.dot_q8_rows_over_model``, ``dot_q8_ol_rows_over_model``);
+    a LoRA node sums its base and its ``x @ a``
+    (``ops.lora.dot_lora_rows_over_model``)."""
+    from ..ops.lora import LoraKernel, dot_lora_rows_over_model
+    from ..ops.matmul import dot_f32
+    from ..ops.quant import (
+        OutlierQuantKernel,
+        RowsQuantKernel,
+        dot_q8_ol_rows_over_model,
+        dot_q8_rows_over_model,
+    )
+
+    k = kernels[0]
+    if isinstance(k, OutlierQuantKernel):
+        return dot_q8_ol_rows_over_model(tp, xs, kernels)
+    if isinstance(k, RowsQuantKernel):
+        return dot_q8_rows_over_model(tp, xs, kernels)
+    if isinstance(k, LoraKernel):
+        return dot_lora_rows_over_model(tp, xs, kernels, impl)
+    return tp.reduce_from_model([dot_f32(x, w, impl)
+                                 for x, w in zip(xs, kernels)])

@@ -27,8 +27,8 @@ joins the group first) ``Mesh.distributed`` over the n processes, one card
 each (``--dp -1``: n / tp), rank 0 writing the checkpoints and metrics.
 Each micro-batch of ``--batch-size`` pairs splits over the data axis, so
 the data axis must divide it.  ``--zero1`` keeps each data rank's slice of
-the optimizer state only (ZeRO-1).  LoRA under ``--tp`` above 1 raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 12.
+the optimizer state only (ZeRO-1).  ``--lora-rank`` trains under any
+``--tp`` and ``--dp``: the adapters split with their kernels.
 """
 
 from __future__ import annotations

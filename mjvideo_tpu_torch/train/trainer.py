@@ -57,9 +57,10 @@ Counterpart of ``mjvideo_tpu/train/trainer.py``, on one device or a
   keeps the optimizer state by held leaf (``Optimizer``), each data rank
   only its slice under ``TrainConfig.zero1``; checkpoints hold the whole
   state.  One process without a mesh is the (1, 1) case of the same
-  code.  LoRA under a
-  model axis above 1 raises ``NotImplementedError`` (ROADMAP Queue 1
-  item 12).
+  code.  LoRA and QLoRA train on any mesh: the adapters split with their
+  kernels, and a column member's ``a``, whole on every model rank, has its
+  ranks' gradient shares summed over the model axis
+  (``parallel.mesh.model_summed``) before the data axis's sum.
 """
 
 from __future__ import annotations
@@ -786,22 +787,42 @@ def make_train_step(cfg: RewardConfig, tc: TrainConfig,
     from ..parallel.mesh import shard_batch
     from .losses import WHOLE_BATCH_KEYS, batch_totals
 
+    from ..parallel.mesh import model_summed
+
     mesh = optimizer.mesh
     loss_fn = make_loss_fn(cfg, tc, sp_group, mesh)
     trainable = set(optimizer.paths)
     summed = ([] if sp_group is None or sp_group.is_local else
               [k for k in optimizer.keys if k.startswith("model/")])
+    # A column member's LoRA ``a``: each model rank's gradient is its
+    # share, summed over the model axis before the data axis's sum.
+    shared = set(model_summed(optimizer.plan)) if mesh.model > 1 else set()
+    shares = [i for i, k in enumerate(optimizer.keys) if k in shared]
 
     def train_step(params, opt_state, batch, rng=None):
         for tree in held(params):
             set_trainable(tree, trainable)
         flat = held_flat(held(params), mesh, optimizer.plan)
         leaves = [flat[k] for k in optimizer.keys]
+        # In a local mesh the other held ranks' leaves of the shared keys.
+        copies = ([flatten_state(t)[optimizer.keys[i]] for i in shares
+                   for t in held(params)[1:]] if mesh.is_local else [])
 
         def grads_of(loss):
-            got = torch.autograd.grad(loss, leaves, allow_unused=True)
-            return [torch.zeros_like(t) if g is None else g
-                    for t, g in zip(leaves, got)]
+            inputs = leaves + copies
+            got = [torch.zeros_like(t) if g is None else g for t, g in zip(
+                inputs, torch.autograd.grad(loss, inputs,
+                                            allow_unused=True))]
+            grads, rest = got[:len(leaves)], iter(got[len(leaves):])
+            for i in shares:
+                if mesh.is_local:
+                    for _ in range(mesh.model - 1):
+                        grads[i] = grads[i] + next(rest)
+                else:
+                    import torch.distributed as dist
+
+                    dist.all_reduce(grads[i], group=mesh.model_group)
+            return grads
 
         if tc.sp is not None:
             loss = loss_fn(params, batch, rng)
@@ -884,8 +905,9 @@ class Trainer:
     the data axis) make one (``parallel.mesh.make_mesh``).  A checkpoint is
     the whole state, gathered before it is written (by rank 0 across
     processes), the same file as an unsharded run's; resume cuts it again
-    for the mesh it resumes on.  LoRA under a model axis above 1 raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 12)."""
+    for the mesh it resumes on.  LoRA wraps the whole state before it is
+    placed (JAX's order), so the adapters split with their kernels
+    (``parallel.mesh.split_plan``) and train on any mesh."""
 
     def __init__(self, cfg: RewardConfig, params, tc: TrainConfig,
                  mesh=None, sp_group=None):
@@ -902,10 +924,6 @@ class Trainer:
             sp_group = mesh.sequence_group()
         if mesh is None:
             mesh = Mesh.local(1, 1)
-        if mesh.model > 1 and tc.lora_rank > 0:
-            raise NotImplementedError(
-                f"LoRA under tensor parallelism (model={mesh.model}) is not "
-                "ported yet: ROADMAP Queue 1 item 12")
         self.mesh = mesh
         if tc.lora_rank > 0:
             from ..ops.lora import apply_lora

@@ -21,6 +21,7 @@ reason:
 """
 
 import dataclasses
+import inspect
 import os
 import socket
 import subprocess
@@ -391,9 +392,12 @@ def test_meshed_scorer_matches_jax_scorer(mode):
 
 
 def test_w8a8_under_tp_raises_and_outliers_follow_the_batch():
-    """w8a8 under a model axis raises naming ROADMAP item 12; ``-olN``
-    under ``local(2, 1)`` picks the channels of the whole micro-batch (the
-    shards run in one forward), bit-equal to the unsharded scorer."""
+    """w8a8 under a model axis scores: per-row ``int8`` at ``local(1, 2)``
+    bit-equal to the unsharded scorer (the row amax max-reduced, the int32
+    partials summed over the model axis; ``test_torch_mesh_quant.py`` holds
+    every mode); ``-olN`` under ``local(2, 1)`` picks the channels of the
+    whole micro-batch (the shards run in one forward), bit-equal to the
+    unsharded scorer."""
     cfg = tconfigs.tiny_test_config()
     state = treward.init_reward_params(
         cfg, generator=torch.Generator().manual_seed(0), device="cpu",
@@ -402,13 +406,16 @@ def test_w8a8_under_tp_raises_and_outliers_follow_the_batch():
     common = dict(length_buckets=(512,), gating_pattern=tok.gating_pattern(),
                   dtype=torch.float32)
     tree = tq.quantize_params_mode(state, "int8", min_elements=MIN_ELEMENTS)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        RewardScorer(cfg, tree, tok, mesh=Mesh.local(1, 2), **common)
+    one = RewardScorer(cfg, tree, tok, **common)
+    meshed = RewardScorer(cfg, tree, tok, mesh=Mesh.local(1, 2), **common)
+    assert isinstance(meshed.params, list) and len(meshed.params) == 2
+    pix, ids, gpos = _clips(one.cfg, tok, np.random.default_rng(1))
+    assert torch.equal(meshed.score_batch(pix, ids, gpos).score,
+                       one.score_batch(pix, ids, gpos).score)
     tree = tq.quantize_params_mode(state, "int8-ol8",
                                    min_elements=MIN_ELEMENTS)
     one = RewardScorer(cfg, tree, tok, **common)
     meshed = RewardScorer(cfg, tree, tok, mesh=Mesh.local(2, 1), **common)
-    pix, ids, gpos = _clips(one.cfg, tok, np.random.default_rng(1))
     assert torch.equal(meshed.score_batch(pix, ids, gpos).score,
                        one.score_batch(pix, ids, gpos).score)
     with pytest.raises(ValueError, match="data axis"):
@@ -450,6 +457,25 @@ def test_unequal_shards_step_matches_jax(stage):
 
 # ------------------------------------------- processes against local form
 
+def lora_state(state):
+    """``state`` wrapped at rank 4 with every ``b`` drawn nonzero, so that
+    every adapter has a gradient (the workers run this function's
+    source)."""
+    from mjvideo_tpu_torch.ops.lora import LoraKernel, apply_lora
+    from mjvideo_tpu_torch.ops.quant import map_with_path
+
+    tree = apply_lora(state, torch.Generator().manual_seed(4), 4)
+    g = torch.Generator().manual_seed(5)
+
+    def draw(_, n):
+        if isinstance(n, LoraKernel):
+            n.b.copy_(0.05 * torch.randn(n.b.shape, generator=g))
+        return n
+
+    map_with_path(draw, tree)
+    return tree
+
+
 WORKER = r"""
 import sys
 import numpy as np
@@ -465,6 +491,7 @@ from mjvideo_tpu_torch.parallel.mesh import Mesh
 from mjvideo_tpu_torch.train.trainer import TrainConfig, Trainer
 import torch.distributed as dist
 
+{lora_state}
 out_dir, data, model = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 assert maybe_initialize(device="cpu")
 mesh = Mesh.distributed(data, model)
@@ -483,20 +510,27 @@ if model == 1:
     tree = quantize_params_mode(state, "int8-ol8", min_elements=1024)
     res["ol_score"] = RewardScorer(cfg, tree, tok, **common).score_batch(
         inp["pix"], ids, list(inp["gpos"])).score.numpy()
+else:
+    tree = quantize_params_mode(state, "int8", min_elements=1024)
+    res["int8_score"] = RewardScorer(cfg, tree, tok, **common).score_batch(
+        inp["pix"], ids, list(inp["gpos"])).score.numpy()
 batch = {k[6:]: torch.from_numpy(v) for k, v in inp.items()
          if k.startswith("batch/")}
-tc = TrainConfig(stage=3, gradient_accumulation_steps=2,
-                 checkpoint_dir=out_dir + "/ckpt")
-tr = Trainer(cfg, state, tc, mesh=mesh)
-_, opt_state, metrics = tr.step_fn(tr.params, tr.opt_state, batch)
-res["loss"] = metrics["loss"].numpy()
-res["grad_norm"] = metrics["grad_norm"].numpy()
-for path, acc in tr.optimizer.gather_state(opt_state)["acc"].items():
-    res["grad/" + path] = acc.numpy()
+runs = [("", state, 0)] + ([("lora/", lora_state(state), 4)] if model > 1
+                           else [])
+for prefix, tree, rank in runs:
+    tc = TrainConfig(stage=3, gradient_accumulation_steps=2, lora_rank=rank,
+                     checkpoint_dir=out_dir + "/ckpt")
+    tr = Trainer(cfg, tree, tc, mesh=mesh)
+    _, opt_state, metrics = tr.step_fn(tr.params, tr.opt_state, batch)
+    res[prefix + "loss"] = metrics["loss"].numpy()
+    res[prefix + "grad_norm"] = metrics["grad_norm"].numpy()
+    for path, acc in tr.optimizer.gather_state(opt_state)["acc"].items():
+        res[prefix + "grad/" + path] = acc.numpy()
 if dist.get_rank() == 0:
     np.savez(f"{out_dir}/rank0.npz", **res)
 dist.destroy_process_group()
-"""
+""".replace("{lora_state}", inspect.getsource(lora_state))
 
 
 def _free_port():
@@ -509,11 +543,14 @@ def _free_port():
 def test_gloo_processes_equal_the_local_mesh(tmp_path, data, model):
     """Two processes over gloo (``Mesh.distributed``, joined through
     ``maybe_initialize`` with the launcher's variables) against
-    ``Mesh.local`` in this process, bit for bit: the scorer's scores (and
-    at (2, 1) an ``-ol8`` tree's, its column amax max-reduced over the data
-    axis) and one stage-3 micro-step's loss, grad norm and gradients.  A
-    missing ``copy_to_model`` leaves the replicated leaves' gradients at
-    one rank's share."""
+    ``Mesh.local`` in this process, bit for bit: the scorer's scores (at
+    (2, 1) an ``-ol8`` tree's too, its column amax max-reduced over the
+    data axis; at (1, 2) an ``int8`` tree's, each row's amax max-reduced
+    and the int32 partials summed over the model axis) and one stage-3
+    micro-step's loss, grad norm and gradients, at (1, 2) a LoRA one's too
+    (every ``b`` nonzero).  A missing ``copy_to_model`` leaves the
+    replicated leaves' gradients at one rank's share, and a missing
+    model-axis sum a column member's ``a`` at one rank's share."""
     cfg = tconfigs.tiny_test_config()
     tok = jprompts.ByteTokenizer()
     pix, ids, gpos = _clips(cfg, tok, np.random.default_rng(2))
@@ -541,20 +578,26 @@ def test_gloo_processes_equal_the_local_mesh(tmp_path, data, model):
                   dtype=torch.float32, mesh=mesh)
     want = {"score": RewardScorer(cfg, state, tok, **common).score_batch(
         pix, ids, gpos).score.numpy()}
-    if model == 1:
-        tree = tq.quantize_params_mode(state, "int8-ol8",
-                                       min_elements=MIN_ELEMENTS)
-        want["ol_score"] = RewardScorer(cfg, tree, tok, **common).score_batch(
-            pix, ids, gpos).score.numpy()
-    tc = ttrainer.TrainConfig(stage=3, gradient_accumulation_steps=2,
-                              checkpoint_dir=str(tmp_path / "local"))
-    tr = ttrainer.Trainer(cfg, state, tc, mesh=mesh)
-    _, opt_state, metrics = tr.step_fn(tr.params, tr.opt_state,
-                                       to_torch(batch))
-    want["loss"] = metrics["loss"].numpy()
-    want["grad_norm"] = metrics["grad_norm"].numpy()
-    for path, acc in tr.optimizer.gather_state(opt_state)["acc"].items():
-        want["grad/" + path] = acc.numpy()
+    mode = "int8-ol8" if model == 1 else "int8"
+    tree = tq.quantize_params_mode(state, mode, min_elements=MIN_ELEMENTS)
+    want["ol_score" if model == 1 else "int8_score"] = RewardScorer(
+        cfg, tree, tok, **common).score_batch(pix, ids, gpos).score.numpy()
+    runs = [("", state, 0)] + ([("lora/", lora_state(state), 4)]
+                               if model > 1 else [])
+    for prefix, tree, rank in runs:
+        tc = ttrainer.TrainConfig(stage=3, gradient_accumulation_steps=2,
+                                  lora_rank=rank,
+                                  checkpoint_dir=str(tmp_path / "local"))
+        tr = ttrainer.Trainer(cfg, tree, tc, mesh=mesh)
+        _, opt_state, metrics = tr.step_fn(tr.params, tr.opt_state,
+                                           to_torch(batch))
+        want[prefix + "loss"] = metrics["loss"].numpy()
+        want[prefix + "grad_norm"] = metrics["grad_norm"].numpy()
+        for path, acc in tr.optimizer.gather_state(opt_state)["acc"].items():
+            want[prefix + "grad/" + path] = acc.numpy()
+    if model > 1:  # the column members' adapters have their gradients
+        assert np.abs(want["lora/grad/model/language_model/layers/attention/"
+                           "wq/kernel/.a"]).max() > 0
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)

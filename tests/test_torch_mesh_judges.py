@@ -52,7 +52,7 @@ from mjvideo_tpu_torch.models import internvl as tivl
 from mjvideo_tpu_torch.models import minicpmv as tmcpm
 from mjvideo_tpu_torch.models import qwen2vl as tqwen
 from mjvideo_tpu_torch.models import videoscore as tvs
-from mjvideo_tpu_torch.ops.quant import quantize_params_mode
+from mjvideo_tpu_torch.ops.quant import RowsQuantKernel, quantize_params_mode
 from mjvideo_tpu_torch.parallel import mesh as tmesh
 from mjvideo_tpu_torch.parallel.mesh import Mesh, shard_params
 from mjvideo_tpu_torch.utils.bridge import (
@@ -132,8 +132,10 @@ def test_guard_splits_an_lm_head_only_where_its_vocabulary_divides(
 
 
 def test_lifted_qknorm_and_kept_refusals():
-    """The QK-norm ViT splits; LoRA and the w8a8 modes still raise, naming
-    ROADMAP Queue 1 item 12."""
+    """The QK-norm ViT splits, and so does a w8a8 state (``int8``): its
+    row members' pieces take the amax over every rank
+    (``RowsQuantKernel``), and the judge places it on a model axis as on a
+    data axis."""
     base = tconfigs.tiny_test_config().chat
     cfg = dataclasses.replace(base, vision=dataclasses.replace(
         base.vision, qk_normalization=True, norm_type="rms_norm"))
@@ -142,10 +144,13 @@ def test_lifted_qknorm_and_kept_refusals():
         dtype=torch.float32, with_lm_head=True)
     assert "vision_model/layers/attn/qkv/kernel" in _split_paths(state, cfg)
     w8a8 = quantize_params_mode(state, "int8", min_elements=MIN_ELEMENTS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        shard_params(w8a8, Mesh.local(1, 2), cfg=cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        tj.InternVLJudge(cfg, w8a8, None, mesh=Mesh.local(1, 2))
+    shards = shard_params(w8a8, Mesh.local(1, 2), cfg=cfg)
+    assert isinstance(shards[1]["vision_model"]["layers"]["attn"]["proj"][
+        "kernel"], RowsQuantKernel)
+    assert "vision_model/layers/attn/qkv/kernel/.q" in _split_paths(w8a8,
+                                                                   cfg)
+    judge = tj.InternVLJudge(cfg, w8a8, None, mesh=Mesh.local(1, 2))
+    assert len(judge.params) == 2
     tj.InternVLJudge(cfg, w8a8, None, mesh=Mesh.local(2, 1))  # no model axis
 
 

@@ -22,7 +22,10 @@ under a patch mask; K3 not causal at 8 of EVA's 16 heads of 112; K3 at
 each judge decoder's rank heads (8/4, 14/2, 24/4, 16/4 of 128) over a
 cache with a suffix's ``q_offset``, and K2r at 8/4 over a prefix.  A
 rank's heads are bit-equal to the whole layer's for K1 (its bound's key
-norms are per head) and for K3 (exact, per head).
+norms are per head) and for K3 (exact, per head).  K6 (the grouped w8a8
+product) at each product shape a model rank of 2 runs under
+``int8-noattn-g128`` at the 2B widths, bit-equal to its twin (the bound
+``chip_smoke.py`` holds K6 to).
 """
 
 import pytest
@@ -227,3 +230,28 @@ def test_k2r_prefix_at_a_ranks_heads(cuda_device):
     mask[:, 2308:] = 0
     got = fa.decoder_attention_rows(q, k, v, mask)
     _close(got, fa.decoder_attention_rows_plain(q, k, v, mask))
+
+
+# K6 at the 2B's products cut over 2 model ranks under -g128, (M, K, N):
+# the ViT's qkv (by heads) and fc1 (by columns) and proj and fc2 (by
+# groups of rows) over a clip's 2 tiles of 1,025 tokens, the decoder's
+# w1/w3 and w2 over a training prompt of 799 tokens.
+K6_RANK_SHAPES = ((2050, 1024, 1536), (2050, 512, 1024), (2050, 1024, 2048),
+                  (2050, 2048, 1024), (799, 2048, 4096), (799, 4096, 2048))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", K6_RANK_SHAPES)
+def test_k6_at_a_ranks_shapes(cuda_device, M, K, N):
+    from mjvideo_tpu_torch import kernels
+    from mjvideo_tpu_torch.ops import quant as q8
+
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _randn(g, dev, M, K)
+    qk = q8.quantize_kernel(_randn(g, dev, K, N).float() * 0.02,
+                            group_size=128)
+    assert q8.is_k_major(qk.q)
+    got = kernels.q8g_matmul_fused(x, qk.q, qk.scale, torch.bfloat16)
+    assert torch.equal(got, q8.q8g_matmul_fused_plain(x, qk.q, qk.scale,
+                                                      torch.bfloat16))

@@ -243,8 +243,9 @@ def test_optimizer_matches_optax_on_fixed_gradients(kw):
 def test_unported_options_raise_with_their_roadmap_item(setup, tmp_path):
     cfg, params = setup
     # ZeRO-1 and the mesh axes train (tests/test_torch_zero1.py); under a
-    # model axis above 1, LoRA and the w8a8 modes still raise, and the
-    # QK-norm ViT splits (tests/test_torch_mesh_judges.py).
+    # model axis above 1 LoRA trains and the w8a8 modes split
+    # (tests/test_torch_mesh_lora.py, tests/test_torch_mesh_quant.py), and
+    # the QK-norm ViT splits (tests/test_torch_mesh_judges.py).
     import dataclasses
 
     from mjvideo_tpu_torch import configs as tconfigs
@@ -253,12 +254,13 @@ def test_unported_options_raise_with_their_roadmap_item(setup, tmp_path):
     from mjvideo_tpu_torch.parallel.mesh import Mesh, shard_params
 
     tcfg, mesh = tconfigs.tiny_test_config(), Mesh.local(1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        ttrainer.Trainer(tcfg, fresh(params), ttrainer.TrainConfig(
-            lora_rank=2, checkpoint_dir=str(tmp_path)), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        shard_params(quantize_params_mode(fresh(params), "int8",
-                                          min_elements=1024), mesh, cfg=tcfg)
+    tr = ttrainer.Trainer(tcfg, fresh(params), ttrainer.TrainConfig(
+        lora_rank=2, checkpoint_dir=str(tmp_path)), mesh=mesh)
+    assert any(p.endswith("/.b") for p in tr.plan)
+    shards = shard_params(quantize_params_mode(fresh(params), "int8",
+                                               min_elements=1024), mesh,
+                          cfg=tcfg)
+    assert len(shards) == 2
     qk = dataclasses.replace(tcfg, chat=dataclasses.replace(
         tcfg.chat, vision=dataclasses.replace(
             tcfg.chat.vision, qk_normalization=True, norm_type="rms_norm")))

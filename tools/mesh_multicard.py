@@ -6,11 +6,12 @@ the same inputs.
     python3 tools/mesh_multicard.py --cpu       # gloo, 4 CPU processes, at
                                                 # tiny_test_config (rehearsal)
     python3 tools/mesh_multicard.py --checks judges   # check 3 alone
+    python3 tools/mesh_multicard.py --checks w8a8_lora   # check 4 alone
 
 n processes (n = the cards it sees, or ``--procs`` with ``--cpu``; n even)
 join a process group on a free localhost port and form
 ``Mesh.distributed(n // 2, 2)``; rank 0 also runs ``Mesh.local(n // 2, 2)``
-on its own card on the same inputs.  Two checks, each printed by rank 0:
+on its own card on the same inputs.  Four checks, each printed by rank 0:
 
 1. ``chip_smoke.py``'s 2B scorer (random bf16 weights from its seed) on its
    pair request through ``RewardScorer(mesh=)``: the scores against the
@@ -35,6 +36,19 @@ on its own card on the same inputs.  Two checks, each printed by rank 0:
    unsharded on one card.  This check runs at ``Mesh.distributed(n // 2,
    2)`` with the others, then alone at ``Mesh.distributed(1, 2)`` in 2
    processes (cards 0 and 1).  ``--cpu`` takes tiny configs of both.
+4. The w8a8 modes and LoRA under the model axis (``chip_smoke.py`` phase
+   35's): check 1's pair request through ``RewardScorer`` on the scorer's
+   state quantized by each of ``chip_smoke.SCORE_QUANT_MODES`` (per-row
+   ``int8``: each row's amax max-reduced and the int32 partials summed
+   over the model axis; ``int8-noattn-g128``: K6 on each rank's whole
+   groups), then stage 3 with LoRA at ``chip_smoke.LORA_RANK`` and ZeRO-1
+   on check 2's two batches (one optimizer step at accumulation 2; a
+   column member's adapter ``a`` summed over the model axis): the scores
+   and the parameters after the step bit-equal to ``Mesh.local``'s.  Like
+   check 3 it runs at ``Mesh.distributed(n // 2, 2)``, then alone at
+   ``(1, 2)`` in 2 processes (the scoring alone: ZeRO-1 needs the data
+   axis).  ``--cpu`` takes ``tiny_test_config`` with
+   every kernel above 1,024 elements quantized.
 
 The last line of each launch is one JSON object of the readings; the exit
 code is non-zero if a process fails or a check breaks its bound.
@@ -90,24 +104,9 @@ def scoring_check(mesh, local, dev, cpu, out):
     import torch.distributed as dist
 
     import chip_smoke as cs
-    from mjvideo_tpu_torch import (
-        ByteTokenizer,
-        RewardScorer,
-        init_reward_params,
-        tiny_test_config,
-    )
+    from mjvideo_tpu_torch import RewardScorer
 
-    if cpu:
-        cfg = tiny_test_config()
-        state = init_reward_params(cfg, generator=torch.Generator()
-                                   .manual_seed(cs.SEED), device=dev,
-                                   dtype=torch.float32)
-        tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
-        base = RewardScorer(cfg, state, tok, dtype=torch.float32,
-                            gating_pattern=tok.gating_pattern())
-    else:
-        base = cs.make_scorer(torch.Generator(device=dev).manual_seed(cs.SEED),
-                              dev)
+    base = _base_scorer(dev, cpu)
     sync = (lambda: None) if cpu else torch.cuda.synchronize  # noqa: E731
 
     def scorer(m):
@@ -155,22 +154,15 @@ def scoring_check(mesh, local, dev, cpu, out):
     dist.barrier()
 
 
-def training_check(mesh, local, dev, cpu, out):
-    """Check 2."""
-    import tempfile
-
+def _train_data(cpu):
+    """(config, two batches of two pairs, dtype): phase 33's on the card,
+    ``tiny_test_config``'s with ``--cpu``."""
     import numpy as np
     import torch
-    import torch.distributed as dist
 
     import chip_smoke as cs
-    from mjvideo_tpu_torch import ByteTokenizer, init_reward_params
+    from mjvideo_tpu_torch import ByteTokenizer
     from mjvideo_tpu_torch.data.prompts import rebase_img_context_id
-    from mjvideo_tpu_torch.train.trainer import (
-        Trainer,
-        flatten_state,
-        state_bytes,
-    )
 
     if cpu:
         from mjvideo_tpu_torch import tiny_test_config
@@ -183,10 +175,27 @@ def training_check(mesh, local, dev, cpu, out):
         batches = [cs._merge_pairs(pairs[i], pairs[i + 1],
                                    cfg.chat.llm.pad_token_id)
                    for i in (0, 2)]
-        dtype = torch.float32
-    else:
-        cfg, batches = cs.mesh_train_data()
-        batches, dtype = batches[:2], torch.bfloat16
+        return cfg, batches, torch.float32
+    cfg, batches = cs.mesh_train_data()
+    return cfg, batches[:2], torch.bfloat16
+
+
+def training_check(mesh, local, dev, cpu, out):
+    """Check 2."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from mjvideo_tpu_torch import init_reward_params
+    from mjvideo_tpu_torch.train.trainer import (
+        Trainer,
+        flatten_state,
+        state_bytes,
+    )
+
+    cfg, batches, dtype = _train_data(cpu)
     rank = dist.get_rank()
 
     def run(m, zero1, ckpt):
@@ -375,8 +384,128 @@ def judges_check(mesh, local, dev, cpu, out):
         dist.barrier()
 
 
+def _base_scorer(dev, cpu):
+    """Check 1's scorer: ``chip_smoke.make_scorer``'s 2B on the card, the
+    tiny config in fp32 with ``--cpu``."""
+    import torch
+
+    import chip_smoke as cs
+    from mjvideo_tpu_torch import (
+        ByteTokenizer,
+        RewardScorer,
+        init_reward_params,
+        tiny_test_config,
+    )
+
+    if not cpu:
+        return cs.make_scorer(torch.Generator(device=dev).manual_seed(
+            cs.SEED), dev)
+    cfg = tiny_test_config()
+    state = init_reward_params(cfg, generator=torch.Generator().manual_seed(
+        cs.SEED), device=dev, dtype=torch.float32)
+    tok = ByteTokenizer(pad_token_id=cfg.chat.llm.pad_token_id)
+    return RewardScorer(cfg, state, tok, dtype=torch.float32,
+                        gating_pattern=tok.gating_pattern())
+
+
+def w8a8_lora_check(mesh, local, dev, cpu, out):
+    """Check 4."""
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from mjvideo_tpu_torch import RewardScorer, init_reward_params
+    from mjvideo_tpu_torch.ops.quant import quantize_params_mode
+    from mjvideo_tpu_torch.train.trainer import Trainer, flatten_state
+
+    rank = dist.get_rank()
+    label = f"{mesh.data}x{mesh.model}"
+    base = _base_scorer(dev, cpu)
+    pair = cs.make_requests(base, np.random.default_rng(cs.SEED))[1]
+    for mode in cs.SCORE_QUANT_MODES:
+        tree = quantize_params_mode(base.params, mode,
+                                    min_elements=1024 if cpu else 1 << 16)
+
+        def scorer(m, tree=tree, mode=mode):
+            return RewardScorer(base.cfg, tree, base.tokenizer,
+                                dtype=base.dtype, quant=mode,
+                                length_buckets=base.buckets,
+                                gating_pattern=base.gating_pattern, mesh=m)
+
+        across = scorer(mesh)
+        scores = across.score_batch(*pair).score.float().cpu()
+        del across
+        if rank == 0:
+            ref = scorer(local).score_batch(*pair).score.float().cpu()
+            same = bool(torch.equal(scores, ref))
+            out[f"w8a8_{mode}_{label}"] = {"scores": scores.tolist(),
+                                           "local_scores": ref.tolist(),
+                                           "bit_equal": same}
+            print(f"w8a8 {mode}: {mesh} pair scores {scores.tolist()}, "
+                  f"local mesh {ref.tolist()}, bit-equal {same}")
+            out["ok"] = out["ok"] and same
+        del tree
+        if not cpu:
+            torch.cuda.empty_cache()
+        dist.barrier()
+    del base
+    if mesh.data == 1:
+        return  # ZeRO-1 slices over a data axis: LoRA runs where it has one
+
+    cfg, batches, dtype = _train_data(cpu)
+
+    def run(m, ckpt):
+        params = init_reward_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(cs.SEED),
+            device=dev, dtype=dtype)
+        tc = replace(cs.train_config(ckpt), zero1=True,
+                     lora_rank=cs.LORA_RANK)
+        tr = Trainer(cfg, params, tc, mesh=m)
+        del params
+        _reset_peak(dev, cpu)
+        t0 = time.perf_counter()
+        tr.train(batches)
+        if not cpu:
+            torch.cuda.synchronize(dev)
+        s = time.perf_counter() - t0
+        whole = {k: v.detach().cpu()
+                 for k, v in flatten_state(tr.whole_params()).items()}
+        steps = tr.opt_state["gradient_step"]
+        del tr
+        if not cpu:
+            torch.cuda.empty_cache()
+        return whole, (s, _peak_gib(dev, cpu), steps)
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        whole, reading = run(mesh, ckpt)
+        readings = _all(reading)
+        if rank == 0:
+            ref, (ls, lpeak, _) = run(local, ckpt)
+            same = all(torch.equal(whole[k], ref[k]) for k in ref)
+            moved = sum(not torch.equal(whole[k], ref[k]) for k in ref)
+            out[f"lora_zero1_{label}"] = {
+                "bit_equal": same, "leaves_differing": moved,
+                "s": [r[0] for r in readings],
+                "peak_gib": [r[1] for r in readings],
+                "optimizer_steps": readings[0][2], "local_s": ls,
+                "local_peak_gib": lpeak}
+            print(f"LoRA (rank {cs.LORA_RANK}) with ZeRO-1: {mesh} one "
+                  f"optimizer step (2 micro-batches of 2 pairs), the whole "
+                  f"parameters bit-equal to the local mesh's: {same}; s "
+                  f"{[round(r[0], 2) for r in readings]}, peak GiB "
+                  f"{[round(r[1], 2) for r in readings]}; local mesh "
+                  f"{ls:.2f} s, peak {lpeak:.2f} GiB")
+            out["ok"] = out["ok"] and same and readings[0][2] == 1
+            del ref
+        dist.barrier()
+
+
 def worker(rank: int, world: int, port: int, cpu: bool,
-           checks=("scoring", "training", "judges")) -> int:
+           checks=("scoring", "training", "judges", "w8a8_lora")) -> int:
     from datetime import timedelta
 
     import torch
@@ -411,7 +540,8 @@ def main() -> int:
     ap.add_argument("--worker", type=int, default=None)
     ap.add_argument("--world", type=int, default=None)
     ap.add_argument("--port", type=int, default=None)
-    ap.add_argument("--checks", default="scoring,training,judges")
+    ap.add_argument("--checks",
+                    default="scoring,training,judges,w8a8_lora")
     args = ap.parse_args()
     checks = tuple(args.checks.split(","))
     if args.worker is not None:
@@ -439,8 +569,9 @@ def main() -> int:
               f"{world}", file=sys.stderr)
         return 1
     launches = [(world, checks)]
-    if world > 2 and "judges" in checks:
-        launches.append((2, ("judges",)))
+    pairs = tuple(c for c in ("judges", "w8a8_lora") if c in checks)
+    if world > 2 and pairs:
+        launches.append((2, pairs))
     rcs = []
     for n, which in launches:
         port = _free_port()
